@@ -1,0 +1,217 @@
+// Flash-attention forward for Hopper (sm_90a): QK^T -> online softmax -> PV,
+// fused, with the (m, l, acc) state kept in registers across KV tiles.
+//
+// Replaces flashattention_tpu/ops/flash.py::_kernel (the Pallas forward,
+// pallas_call in _flash_attention).  It computes what that kernel computes on
+// the serving path: causal masking at query position q_offset + (r mod
+// q_seq_len) (the GQA row fold), a live KV length kv_len, a score scale, and
+// optionally the softmax statistics (l, m) in float32.
+//
+// Bound on this card: at the prefill shapes (S >= 1024, d = 128) attention is
+// bound by operations, not bytes (4*S*d flops per query row against 2*S*d
+// bytes of K/V read once per 64-row tile).  This first version does all its
+// arithmetic in float32 on the CUDA cores, not on the tensor cores, so it
+// sits far from that bound; wgmma, TMA and warp specialisation come later.
+// What the design does keep from a fast kernel: the KV loop stops at the
+// causal diagonal and at kv_len, so no tile above the diagonal or past the
+// live length is read or computed.
+//
+// Layout: one block per (bh, 64-row query tile); four threads per query row.
+// A thread keeps a quarter of its row's q and of its output accumulator in
+// registers, as interleaved float4 chunks, so that the four threads of a row
+// read four neighbouring float4 of a shared-memory K/V row and every row of
+// the warp reads the same one (a broadcast, no bank conflict).  The four
+// partial dot products meet through two shuffles.  K/V tiles are staged in
+// shared memory as float32 (2 x 32 x d x 4 bytes = 32 KB at d = 128, below the
+// 48 KB that would need cudaFuncAttributeMaxDynamicSharedMemorySize).
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBlockQ = 64;   // query rows per block
+constexpr int kBlockKV = 32;  // KV rows per shared-memory tile
+constexpr int kThreadsPerRow = 4;
+constexpr int kThreads = kBlockQ * kThreadsPerRow;  // 256
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ l_out, float* __restrict__ m_out, int rows,
+                 int s_kv, int kv_len, int q_offset, int q_seq_len, int causal,
+                 float scale) {
+  constexpr int kVec = D / 4;                     // float4 chunks per row
+  constexpr int kChunks = kVec / kThreadsPerRow;  // chunks per thread
+  static_assert(kChunks >= 1 && kVec % kThreadsPerRow == 0,
+                "head_dim must be a multiple of 16");
+  __shared__ float4 k_tile[kBlockKV][kVec];
+  __shared__ float4 v_tile[kBlockKV][kVec];
+
+  const int bh = blockIdx.y;
+  const int r0 = blockIdx.x * kBlockQ;
+  const int tid = threadIdx.x;
+  const int part = tid % kThreadsPerRow;
+  const int row = r0 + tid / kThreadsPerRow;
+  const bool live = row < rows;  // the last tile may be ragged
+  // Causal position of this row: GQA folds G query heads into the rows of
+  // one KV head, each a q_seq_len-row segment at the same positions.
+  const int pos = q_offset + (live ? row % q_seq_len : 0);
+
+  const T* q_row = q + (static_cast<size_t>(bh) * rows + (live ? row : r0)) * D;
+  float4 qr[kChunks];
+  float4 acc[kChunks];
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = 4 * (part + kThreadsPerRow * i);
+    qr[i] = make_float4(fa::load_f32(q_row + c), fa::load_f32(q_row + c + 1),
+                        fa::load_f32(q_row + c + 2), fa::load_f32(q_row + c + 3));
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // Stop the KV loop at kv_len and, when causal, at the block's last
+  // diagonal column (the whole-tile skip of flash.py:761 and :771-775).
+  int kv_end = kv_len;
+  if (causal) {
+    const int r1 = min(rows, r0 + kBlockQ) - 1;
+    const int last =
+        (r0 / q_seq_len == r1 / q_seq_len) ? r1 % q_seq_len : q_seq_len - 1;
+    kv_end = min(kv_end, q_offset + last + 1);
+  }
+
+  const T* k_head = k + static_cast<size_t>(bh) * s_kv * D;
+  const T* v_head = v + static_cast<size_t>(bh) * s_kv * D;
+  float m_run = -INFINITY;  // flash.py:752 initialises m to -inf
+  float l_run = 0.f;
+  for (int t0 = 0; t0 < kv_end; t0 += kBlockKV) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int idx = tid; idx < kBlockKV * D; idx += kThreads) {
+      const int col = t0 + idx / D;
+      float kx = 0.f, vx = 0.f;
+      if (col < kv_end) {
+        const size_t off = static_cast<size_t>(col) * D + idx % D;
+        kx = fa::load_f32(k_head + off);
+        vx = fa::load_f32(v_head + off);
+      }
+      reinterpret_cast<float*>(k_tile)[idx] = kx;
+      reinterpret_cast<float*>(v_tile)[idx] = vx;
+    }
+    __syncthreads();
+
+    float s[kBlockKV];
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kBlockKV; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        const float4 kk = k_tile[j][part + kThreadsPerRow * i];
+        dot += qr[i].x * kk.x + qr[i].y * kk.y + qr[i].z * kk.z + qr[i].w * kk.w;
+      }
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      const int col = t0 + j;
+      const bool keep = col < kv_len && (!causal || col <= pos);
+      s[j] = keep ? dot * scale : fa::kMaskValue;
+      tile_max = fmaxf(tile_max, s[j]);
+    }
+    const float m_next = fmaxf(m_run, tile_max);
+    const float alpha = expf(m_run - m_next);
+    float p_sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBlockKV; ++j) {
+      s[j] = expf(s[j] - m_next);
+      p_sum += s[j];
+    }
+    l_run = alpha * l_run + p_sum;
+    m_run = m_next;
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      acc[i].x *= alpha;
+      acc[i].y *= alpha;
+      acc[i].z *= alpha;
+      acc[i].w *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < kBlockKV; ++j) {
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        const float4 vv = v_tile[j][part + kThreadsPerRow * i];
+        acc[i].x += s[j] * vv.x;
+        acc[i].y += s[j] * vv.y;
+        acc[i].z += s[j] * vv.z;
+        acc[i].w += s[j] * vv.w;
+      }
+    }
+  }
+
+  if (!live) return;
+  // The l == 0 guard of the Pallas epilogue (flash.py:1118).
+  const float inv = l_run == 0.f ? 1.f : 1.f / l_run;
+  T* o_row = o + (static_cast<size_t>(bh) * rows + row) * D;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = 4 * (part + kThreadsPerRow * i);
+    fa::store_f32(o_row + c, acc[i].x * inv);
+    fa::store_f32(o_row + c + 1, acc[i].y * inv);
+    fa::store_f32(o_row + c + 2, acc[i].z * inv);
+    fa::store_f32(o_row + c + 3, acc[i].w * inv);
+  }
+  if (l_out != nullptr && part == 0) {
+    l_out[static_cast<size_t>(bh) * rows + row] = l_run;
+    m_out[static_cast<size_t>(bh) * rows + row] = m_run;
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* l,
+           float* m, int bh, int rows, int s_kv, int kv_len, int q_offset,
+           int q_seq_len, int causal, float scale, cudaStream_t stream) {
+  const dim3 grid((rows + kBlockQ - 1) / kBlockQ, bh);
+  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), l, m, rows, s_kv, kv_len,
+      q_offset, q_seq_len, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_d(int d, const void* q, const void* k, const void* v, void* o,
+             float* l, float* m, int bh, int rows, int s_kv, int kv_len,
+             int q_offset, int q_seq_len, int causal, float scale,
+             cudaStream_t stream) {
+#define FA_CASE(D)                                                            \
+  case D:                                                                     \
+    return launch<T, D>(q, k, v, o, l, m, bh, rows, s_kv, kv_len, q_offset,  \
+                        q_seq_len, causal, scale, stream);
+  switch (d) {
+    FA_CASE(16)
+    FA_CASE(32)
+    FA_CASE(64)
+    FA_CASE(128)
+    default:
+      return -1;
+  }
+#undef FA_CASE
+}
+
+}  // namespace
+
+// q: (bh, rows, d); k, v: (bh, s_kv, d); o like q; l, m: (bh, rows) float32
+// or both null.  All contiguous, on the device, of one dtype code.
+extern "C" int fa_flash_fwd(int dtype, const void* q, const void* k,
+                            const void* v, void* o, void* l, void* m, int bh,
+                            int rows, int s_kv, int d, int kv_len, int q_offset,
+                            int q_seq_len, int causal, float scale,
+                            void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto lf = static_cast<float*>(l);
+  auto mf = static_cast<float*>(m);
+  if (dtype == fa::kFloat32)
+    return launch_d<float>(d, q, k, v, o, lf, mf, bh, rows, s_kv, kv_len,
+                           q_offset, q_seq_len, causal, scale, st);
+  if (dtype == fa::kBFloat16)
+    return launch_d<__nv_bfloat16>(d, q, k, v, o, lf, mf, bh, rows, s_kv,
+                                   kv_len, q_offset, q_seq_len, causal, scale,
+                                   st);
+  return -1;
+}

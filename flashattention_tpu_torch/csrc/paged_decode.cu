@@ -1,0 +1,249 @@
+// Paged decode attention for Hopper (sm_90a): one new query token per
+// request attends to its cached K/V, read page by page from a head-major pool
+// through the request's page table, with an online softmax over pages.
+//
+// Replaces flashattention_tpu/ops/decode.py::_paged_kernel (pallas_call in
+// paged_attention).  Shapes as there: q (B, KVH, G, d); k_pages, v_pages
+// (P, KVH, page_size, d); lengths (B,); page_indices (B, pages_per_seq).
+//
+// Bound on this card: bytes.  Every live K/V row is read once and used for
+// 4*G*d flops, far below the card's ~295 flops per byte.  The design reads
+// only the pages a request uses (ceil(len / page_size) of its table row, not
+// the whole padded row) and only the live rows of its last page; each warp
+// reads whole K/V rows, so a load instruction covers one contiguous row.
+// This first version has one 256-thread block per (b, kvh), which leaves
+// much of the card's memory parallelism unused at small batch; splitting
+// long sequences over several blocks comes later.
+//
+// Layout: the block holds all G query rows of its KV head.  Lane l of a warp
+// owns elements [l*E, l*E + E) of d (E = d / 32).  Per page: each warp scores
+// its share of the page's tokens (a warp-wide dot product per row), one warp
+// per query row takes the page max and turns scores into probabilities, then
+// each warp accumulates p * V over its share of tokens into a private
+// accumulator.  The warps' accumulators are summed once at the end.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kUnroll = 4;  // K/V rows each warp has in flight
+
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages, const int* __restrict__ lengths,
+                    const int* __restrict__ page_indices, T* __restrict__ o,
+                    int page_size, int pages_per_seq, float scale) {
+  constexpr int E = D / 32;
+  static_assert(E >= 1 && D % 32 == 0, "head_dim must be a multiple of 32");
+  // scores[G][page_size] during the page loop; reused for the final sum of
+  // the warps' accumulators, [kWarps][G][D].
+  extern __shared__ float smem[];
+  __shared__ float m_run[G], l_run[G], alpha[G];
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = gridDim.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int length = lengths[b];
+  const int n_pages =
+      min((length + page_size - 1) / page_size, pages_per_seq);
+
+  const size_t head = static_cast<size_t>(b) * kvh + h;
+  float qv[G][E], acc[G][E];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      qv[g][e] = fa::load_f32(q + (head * G + g) * D + lane * E + e);
+      acc[g][e] = 0.f;
+    }
+  }
+  if (threadIdx.x < G) {
+    m_run[threadIdx.x] = -INFINITY;
+    l_run[threadIdx.x] = 0.f;
+  }
+  float* scores = smem;
+  const size_t page_stride = static_cast<size_t>(kvh) * page_size * D;
+
+  for (int i = 0; i < n_pages; ++i) {
+    const size_t page = page_indices[static_cast<size_t>(b) * pages_per_seq + i];
+    const int valid = min(page_size, length - i * page_size);
+    const T* kp = k_pages + page * page_stride + static_cast<size_t>(h) * page_size * D;
+    const T* vp = v_pages + page * page_stride + static_cast<size_t>(h) * page_size * D;
+    __syncthreads();  // m_run/l_run initialised; last page's scores consumed
+
+    // 1. Scores of this page's live tokens; warp w takes groups of kUnroll.
+    for (int j0 = warp * kUnroll; j0 < valid; j0 += kWarps * kUnroll) {
+      float kr[kUnroll][E];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = j0 + u;
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          kr[u][e] = j < valid ? fa::load_f32(kp + static_cast<size_t>(j) * D + lane * E + e) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) dot += qv[g][e] * kr[u][e];
+          dot = fa::warp_sum(dot);
+          if (lane == 0 && j0 + u < valid) scores[g * page_size + j0 + u] = dot * scale;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. Online-softmax update, one warp per query row.
+    for (int g = warp; g < G; g += kWarps) {
+      float mx = -INFINITY;
+      for (int j = lane; j < valid; j += 32) mx = fmaxf(mx, scores[g * page_size + j]);
+      const float m_next = fmaxf(m_run[g], fa::warp_max(mx));
+      float sum = 0.f;
+      for (int j = lane; j < valid; j += 32) {
+        const float p = expf(scores[g * page_size + j] - m_next);
+        scores[g * page_size + j] = p;
+        sum += p;
+      }
+      sum = fa::warp_sum(sum);
+      if (lane == 0) {
+        const float a = expf(m_run[g] - m_next);
+        alpha[g] = a;
+        l_run[g] = a * l_run[g] + sum;
+        m_run[g] = m_next;
+      }
+    }
+    __syncthreads();
+
+    // 3. acc = alpha * acc + p @ V over this warp's tokens.
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= alpha[g];
+    }
+    for (int j0 = warp * kUnroll; j0 < valid; j0 += kWarps * kUnroll) {
+      float vr[kUnroll][E];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = j0 + u;
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          vr[u][e] = j < valid ? fa::load_f32(vp + static_cast<size_t>(j) * D + lane * E + e) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (j0 + u >= valid) break;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float p = scores[g * page_size + j0 + u];
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] += p * vr[u][e];
+        }
+      }
+    }
+  }
+  __syncthreads();  // the last page's scores are consumed
+
+  // Sum the warps' accumulators and normalise.  A request of length 0 reads
+  // no page, keeps l == 0 and writes zeros (decode.py:216's l == 0 guard).
+  float* red = smem;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) red[(warp * G + g) * D + lane * E + e] = acc[g][e];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += red[w * G * D + idx];
+    const float l = l_run[idx / D];
+    fa::store_f32(o + head * G * D + idx, sum * (l == 0.f ? 1.f : 1.f / l));
+  }
+}
+
+template <typename T, int D, int G>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const int* lengths, const int* page_indices, void* o, int b, int kvh,
+           int page_size, int pages_per_seq, float scale, cudaStream_t stream) {
+  const size_t floats = max(static_cast<size_t>(G) * page_size,
+                            static_cast<size_t>(kWarps) * G * D);
+  const size_t bytes = floats * sizeof(float);
+  auto kernel = paged_decode_kernel<T, D, G>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(kvh, b), kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), lengths, page_indices, static_cast<T*>(o),
+      page_size, pages_per_seq, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_g(int g, const void* q, const void* k_pages, const void* v_pages,
+             const int* lengths, const int* page_indices, void* o, int b,
+             int kvh, int page_size, int pages_per_seq, float scale,
+             cudaStream_t stream) {
+#define FA_CASE(G)                                                           \
+  case G:                                                                    \
+    return launch<T, D, G>(q, k_pages, v_pages, lengths, page_indices, o, b, \
+                           kvh, page_size, pages_per_seq, scale, stream);
+  switch (g) {
+    FA_CASE(1)
+    FA_CASE(2)
+    FA_CASE(4)
+    FA_CASE(8)
+    default:
+      return -1;
+  }
+#undef FA_CASE
+}
+
+template <typename T>
+int launch_d(int d, int g, const void* q, const void* k_pages,
+             const void* v_pages, const int* lengths, const int* page_indices,
+             void* o, int b, int kvh, int page_size, int pages_per_seq,
+             float scale, cudaStream_t stream) {
+#define FA_CASE(D)                                                          \
+  case D:                                                                   \
+    return launch_g<T, D>(g, q, k_pages, v_pages, lengths, page_indices, o, \
+                          b, kvh, page_size, pages_per_seq, scale, stream);
+  switch (d) {
+    FA_CASE(32)
+    FA_CASE(64)
+    FA_CASE(128)
+    default:
+      return -1;
+  }
+#undef FA_CASE
+}
+
+}  // namespace
+
+// q: (b, kvh, g, d); k_pages, v_pages: (P, kvh, page_size, d); lengths: (b,)
+// int32; page_indices: (b, pages_per_seq) int32; o like q.  All contiguous,
+// on the device; q, pages and o of one dtype code.
+extern "C" int fa_paged_decode(int dtype, const void* q, const void* k_pages,
+                               const void* v_pages, const void* lengths,
+                               const void* page_indices, void* o, int b,
+                               int kvh, int g, int d, int page_size,
+                               int pages_per_seq, float scale, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto len = static_cast<const int*>(lengths);
+  auto tab = static_cast<const int*>(page_indices);
+  if (dtype == fa::kFloat32)
+    return launch_d<float>(d, g, q, k_pages, v_pages, len, tab, o, b, kvh,
+                           page_size, pages_per_seq, scale, st);
+  if (dtype == fa::kBFloat16)
+    return launch_d<__nv_bfloat16>(d, g, q, k_pages, v_pages, len, tab, o, b,
+                                   kvh, page_size, pages_per_seq, scale, st);
+  return -1;
+}

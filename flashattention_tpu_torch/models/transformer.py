@@ -1,0 +1,316 @@
+"""Llama-style decoder-only transformer on the port's kernels.
+
+Counterpart of ``flashattention_tpu/models/transformer.py``: RMSNorm + RoPE +
+GQA attention + SwiGLU.  Two entry points serve the engine:
+
+- :func:`prefill`: whole-sequence forward on the causal flash kernel
+  (``ops/flash.py`` through ``ops/dispatch.attention``), returning logits and
+  every layer's K/V rows for the paged cache;
+- :func:`decode_step`: one token for a whole continuous batch over the paged
+  cache (``ops/decode.paged_attention``).
+
+Parameters are a plain dict with the JAX package's tree and names
+(``{"embed", "final_norm", "lm_head", "layers": [...]}``) and its ``x @ w``
+weight layout, so :func:`params_from_jax` is a copy, not a transpose.  Large
+matrix products stay ``torch.matmul``, as the JAX package left them to XLA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from flashattention_tpu_torch.ops.decode import paged_attention
+from flashattention_tpu_torch.ops.dispatch import attention
+from flashattention_tpu_torch.utils.device import resolve_device
+from flashattention_tpu_torch.utils.testing import to_torch
+
+__all__ = [
+    "ModelConfig",
+    "init_params",
+    "params_from_jax",
+    "prefill",
+    "decode_step",
+    "decode_step_impl",
+]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    vocab_size: int = 32000
+    num_layers: int = 2
+    d_model: int = 512
+    num_q_heads: int = 8
+    num_kv_heads: int = 4
+    head_dim: int = 64
+    intermediate: int = 1408
+    rope_theta: float = 10000.0
+    dtype: str = "bfloat16"
+    sliding_window: int | None = None  # Mistral-style local attention
+    logit_softcap: float | None = None  # Gemma-2-style score capping
+    num_experts: int | None = None  # Mixtral-style MoE MLP (None = dense)
+    experts_per_token: int = 2
+
+    @property
+    def group_size(self) -> int:
+        if self.num_q_heads % self.num_kv_heads:
+            raise ValueError("num_q_heads must be a multiple of num_kv_heads")
+        return self.num_q_heads // self.num_kv_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` for model features of later slices."""
+        if self.sliding_window is not None:
+            raise NotImplementedError(
+                "sliding-window models are not ported yet: they come with the Mistral slice"
+            )
+        if self.logit_softcap is not None:
+            raise NotImplementedError(
+                "logit softcapping is not ported yet: it comes with the Gemma-2 slice"
+            )
+        if self.num_experts is not None:
+            raise NotImplementedError(
+                "MoE MLPs are not ported yet: they come with the Mixtral slice"
+            )
+
+    @classmethod
+    def tiny(cls) -> "ModelConfig":
+        return cls(
+            vocab_size=256, num_layers=2, d_model=128, num_q_heads=4,
+            num_kv_heads=2, head_dim=32, intermediate=256,
+        )
+
+    @classmethod
+    def llama7b_attention(cls) -> "ModelConfig":
+        """Llama-7B attention geometry (H=32, d=128) in a 2-layer slice; the
+        published depth is 32 layers (``dataclasses.replace`` it)."""
+        return cls(
+            vocab_size=32000, num_layers=2, d_model=4096,
+            num_q_heads=32, num_kv_heads=32, head_dim=128, intermediate=11008,
+        )
+
+    @classmethod
+    def mistral7b(cls, num_layers: int = 2) -> "ModelConfig":
+        """Mistral-7B-class: GQA 32q/8kv, d=128, sliding window 4096."""
+        return cls(
+            vocab_size=32000, num_layers=num_layers, d_model=4096,
+            num_q_heads=32, num_kv_heads=8, head_dim=128,
+            intermediate=14336, sliding_window=4096,
+        )
+
+    @classmethod
+    def gemma2_9b(cls, num_layers: int = 2) -> "ModelConfig":
+        """Gemma-2-9B-class: GQA 16q/8kv, d=256, logit softcaps."""
+        return cls(
+            vocab_size=256128, num_layers=num_layers, d_model=3584,
+            num_q_heads=16, num_kv_heads=8, head_dim=256,
+            intermediate=14336, sliding_window=4096, logit_softcap=50.0,
+        )
+
+    @classmethod
+    def mixtral8x7b(cls, num_layers: int = 2) -> "ModelConfig":
+        """Mixtral-8x7B-class: Mistral geometry + 8-expert top-2 MoE MLP."""
+        return cls(
+            vocab_size=32000, num_layers=num_layers, d_model=4096,
+            num_q_heads=32, num_kv_heads=8, head_dim=128,
+            intermediate=14336, num_experts=8, experts_per_token=2,
+        )
+
+
+def init_params(seed: int, cfg: ModelConfig, *, device=None) -> dict:
+    """Random parameters (scaled normal, fan-in), drawn on ``device`` (the
+    card unless the caller asks for the CPU) from a generator seeded with
+    ``seed``.  One matrix at a time is drawn in float32, then cast."""
+    cfg.check_ported()
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, hq, hkv, hd = cfg.d_model, cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = cfg.torch_dtype
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (w * fan_in**-0.5).to(dt)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dt, device=dev)
+
+    params = {
+        "embed": dense((cfg.vocab_size, d), 1.0),
+        "final_norm": ones(d),
+        "lm_head": dense((d, cfg.vocab_size), d),
+        "layers": [],
+    }
+    for _ in range(cfg.num_layers):
+        params["layers"].append({
+            "attn_norm": ones(d),
+            "wq": dense((d, hq * hd), d),
+            "wk": dense((d, hkv * hd), d),
+            "wv": dense((d, hkv * hd), d),
+            "wo": dense((hq * hd, d), hq * hd),
+            "mlp_norm": ones(d),
+            "w_gate": dense((d, cfg.intermediate), d),
+            "w_up": dense((d, cfg.intermediate), d),
+            "w_down": dense((cfg.intermediate, d), cfg.intermediate),
+        })
+    return params
+
+
+def params_from_jax(tree, *, device=None) -> dict:
+    """The JAX package's parameter tree, given as numpy arrays, as the
+    port's parameters on ``device``: same names, same ``x @ w`` layout, same
+    dtypes (bfloat16 included)."""
+    dev = resolve_device(device)
+    return {
+        "embed": to_torch(tree["embed"], dev),
+        "final_norm": to_torch(tree["final_norm"], dev),
+        "lm_head": to_torch(tree["lm_head"], dev),
+        "layers": [
+            {name: to_torch(w, dev) for name, w in layer.items()}
+            for layer in tree["layers"]
+        ],
+    }
+
+
+def _rmsnorm(x, w, eps=1e-6):
+    xf = x.float()
+    norm = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (norm * w.float()).to(x.dtype)
+
+
+def _rope(x, positions, theta):
+    """Rotate-half RoPE. x: (..., S, H, d); positions: (..., S)."""
+    d = x.shape[-1]
+    freqs = 1.0 / (
+        theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d)
+    )
+    angles = positions[..., None].float() * freqs  # (..., S, d/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, d/2)
+    sin = torch.sin(angles)[..., None, :]
+    xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2 :].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+def _mm(x, w):
+    """x @ w (the JAX package's quantized-weight leaves come with a later slice)."""
+    return x @ w
+
+
+def _lookup(emb, tokens):
+    return emb[tokens.long()]
+
+
+def _mlp(x, layer):
+    """Dense SwiGLU."""
+    gate = torch.nn.functional.silu(_mm(x, layer["w_gate"]))
+    return _mm(gate * _mm(x, layer["w_up"]), layer["w_down"])
+
+
+def _qkv(x, layer, cfg, positions):
+    b, s, _ = x.shape
+    q = _mm(x, layer["wq"]).reshape(b, s, cfg.num_q_heads, cfg.head_dim)
+    k = _mm(x, layer["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = _mm(x, layer["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+@torch.no_grad()
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig):
+    """Full-sequence forward.
+
+    tokens: (B, S) integer tensor on the parameters' device.  Returns
+    (logits (B, S, V), k_rows, v_rows) with k_rows/v_rows (L, B, S, KVH, d)
+    for the paged cache.
+    """
+    cfg.check_ported()
+    b, s = tokens.shape
+    x = _lookup(params["embed"], tokens)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    k_rows, v_rows = [], []
+    for layer in params["layers"]:
+        h = _rmsnorm(x, layer["attn_norm"])
+        q, k, v = _qkv(h, layer, cfg, positions)
+        k_rows.append(k)
+        v_rows.append(v)
+        # (B, S, H, d) -> (B, H, S, d).  The q projection orders heads
+        # h = kvh * G + g, the grouping dispatch folds (native GQA: no K/V
+        # head is repeated).
+        o = attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, scale=cfg.head_dim**-0.5,
+        )
+        x = x + _mm(o.transpose(1, 2).reshape(b, s, -1), layer["wo"])
+        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
+    x = _rmsnorm(x, params["final_norm"])
+    logits = _mm(x, params["lm_head"])
+    return logits, torch.stack(k_rows), torch.stack(v_rows)
+
+
+def decode_step_impl(
+    params, tokens, positions, k_pages, v_pages, lengths, page_indices,
+    write_pages, write_slots, cfg: ModelConfig,
+):
+    """Decode-step body: see :func:`decode_step`.
+
+    Each layer scatters this token's K/V row into its pool before its paged
+    attention runs, so the token attends to itself (lengths include it).
+    Where the JAX step donates the pools and returns new ones, this one
+    updates ``k_pages``/``v_pages`` in place.  Rows whose write page is out
+    of range (``>= P``, the inactive batch slots) are dropped before the
+    scatter: the JAX step's ``mode="drop"``, which torch indexing lacks.
+    """
+    b = tokens.shape[0]
+    x = _lookup(params["embed"], tokens)[:, None, :]  # (B, 1, d_model)
+    pos = positions[:, None]
+    # The kept rows, found once per step (one device-to-host sync, not one
+    # per layer as boolean indexing would make).
+    rows = torch.nonzero((write_pages >= 0) & (write_pages < k_pages.shape[1]))[:, 0]
+    wp, ws = write_pages[rows].long(), write_slots[rows].long()
+    for li, layer in enumerate(params["layers"]):
+        h = _rmsnorm(x, layer["attn_norm"])
+        q, k, v = _qkv(h, layer, cfg, pos)  # (B, 1, H, d)
+        # In-place scatter into layer li's pool; (n, KVH, d) rows.
+        k_pages[li][wp, :, ws, :] = k[rows, 0].to(k_pages.dtype)
+        v_pages[li][wp, :, ws, :] = v[rows, 0].to(v_pages.dtype)
+        qg = q[:, 0].reshape(b, cfg.num_kv_heads, cfg.group_size, cfg.head_dim)
+        o = paged_attention(
+            qg, k_pages[li], v_pages[li], lengths, page_indices,
+            scale=cfg.head_dim**-0.5,
+        )  # (B, KVH, G, d)
+        x = x + _mm(o.reshape(b, 1, cfg.num_q_heads * cfg.head_dim), layer["wo"])
+        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
+    x = _rmsnorm(x[:, 0], params["final_norm"])
+    return _mm(x, params["lm_head"])
+
+
+@torch.no_grad()
+def decode_step(
+    params,
+    tokens: torch.Tensor,  # (B,) current tokens
+    positions: torch.Tensor,  # (B,) positions (= old length) of those tokens
+    k_pages: torch.Tensor,  # (L, P, KVH, ps, d) head-major, updated in place
+    v_pages: torch.Tensor,  # updated in place
+    lengths: torch.Tensor,  # (B,) int32 *including* the current token
+    page_indices: torch.Tensor,  # (B, pages_per_seq) int32
+    write_pages: torch.Tensor,  # (B,) physical page receiving this token's K/V
+    write_slots: torch.Tensor,  # (B,) slot within that page
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """One decode token for a whole continuous batch over the paged cache.
+
+    Inactive batch slots point ``write_pages`` at an out-of-range page (their
+    rows are dropped) and have length 0.  Returns logits (B, V); the pools
+    are updated in place (the JAX step donates them and returns new ones).
+    """
+    cfg.check_ported()
+    return decode_step_impl(
+        params, tokens, positions, k_pages, v_pages, lengths, page_indices,
+        write_pages, write_slots, cfg,
+    )

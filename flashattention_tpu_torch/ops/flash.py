@@ -1,0 +1,183 @@
+"""Flash-attention forward on folded ``(BH, R, d)`` tensors.
+
+Counterpart of ``flashattention_tpu/ops/flash.py::flash_attention`` (:1127).
+On a CUDA tensor it launches the hand-written kernel in
+``csrc/flash_fwd.cu``, which replaces the Pallas ``_kernel`` (:628); on a CPU
+tensor it runs :func:`flash_attention_plain`, the same function in plain
+PyTorch.  There is no fallback between the two: a CUDA call either launches
+the kernel or raises.
+
+Supported on this slice: causal masking at absolute query position
+``q_offset + (r mod q_seq_len)`` (the GQA row fold), a live KV length
+``kv_len`` (ragged S is masked in the kernel, never padded), a score scale,
+and ``save_residuals``.  The TPU tile-fitting regimes of ``BlockSizes.fit``
+are not ported: the CUDA kernel has one tile shape.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from flashattention_tpu_torch.ops import kernels
+from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
+
+__all__ = ["BlockSizes", "flash_attention", "flash_attention_plain"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSizes:
+    """Tile shape of the CUDA kernel: ``block_q`` query rows per block and
+    ``block_kv`` KV rows per shared-memory tile.  The kernel is compiled for
+    this one shape (``kBlockQ``/``kBlockKV`` in ``csrc/flash_fwd.cu``)."""
+
+    block_q: int = 64
+    block_kv: int = 32
+
+
+def _unsupported(feature: str, slice_: str):
+    raise NotImplementedError(f"{feature} is not ported yet: it comes with {slice_}")
+
+
+def check_ported(
+    *, window=None, logit_softcap=None, dropout_rate=None, q_segment_ids=None,
+    kv_segment_ids=None, k_scales=None, v_scales=None, block_mask=None,
+):
+    """Raise ``NotImplementedError`` for an option of the JAX package that
+    this slice does not port."""
+    if window is not None:
+        _unsupported("sliding-window attention", "the Mistral slice")
+    if logit_softcap is not None:
+        _unsupported("logit softcapping", "the Gemma-2 slice")
+    if dropout_rate:
+        _unsupported("attention dropout", "the training slice")
+    if q_segment_ids is not None or kv_segment_ids is not None:
+        _unsupported("segment ids", "the training slice")
+    if k_scales is not None or v_scales is not None:
+        _unsupported("quantized KV (k/v scales)", "the quantized-KV slice")
+    if block_mask is not None:
+        _unsupported("block-sparse masks", "the training slice")
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: float = 1.0,
+    kv_len: int | None = None,
+    q_offset: int = 0,
+    q_seq_len: int | None = None,
+    save_residuals: bool = False,
+    block_sizes: BlockSizes | None = None,
+    window: int | None = None,
+    logit_softcap: float | None = None,
+    dropout_rate: float | None = None,
+    q_segment_ids=None,
+    kv_segment_ids=None,
+    k_scales=None,
+    v_scales=None,
+    block_mask=None,
+):
+    """Fused attention forward ``O = softmax(scale * Q K^T) V``.
+
+    Args:
+      q: ``(BH, R, d)``; k, v: ``(BH, S_kv, d)``, one dtype (float32 or
+        bfloat16), contiguous.
+      causal: query row r sits at position ``q_offset + (r mod q_seq_len)``
+        and attends KV columns at or before it.
+      kv_len: KV columns at or past it are masked (None: all ``S_kv``).
+      q_seq_len: GQA row fold — q holds ``R // q_seq_len`` query-head groups
+        stacked along the rows, all attending the same K/V.
+      save_residuals: also return ``(l, m)``, float32, each ``(BH, R)``.
+
+    Returns ``o`` like q, or ``(o, l, m)``.
+    """
+    check_ported(
+        window=window, logit_softcap=logit_softcap, dropout_rate=dropout_rate,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+        k_scales=k_scales, v_scales=v_scales, block_mask=block_mask,
+    )
+    if block_sizes is not None and block_sizes != BlockSizes():
+        raise ValueError(f"the kernel is compiled for {BlockSizes()}, got {block_sizes}")
+
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"expected (BH, S, d) tensors, got {q.shape} {k.shape} {v.shape}")
+    bh, rows, d = q.shape
+    if k.shape != v.shape:
+        raise ValueError(f"k/v shape mismatch: {k.shape} vs {v.shape}")
+    if k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on BH or d")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+    s_kv = k.shape[1]
+    kv_len = s_kv if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= s_kv:
+        raise ValueError(f"kv_len {kv_len} outside [0, {s_kv}]")
+    q_seq_len = rows if q_seq_len is None else int(q_seq_len)
+    if q_seq_len <= 0 or rows % q_seq_len:
+        raise ValueError(f"q_seq_len ({q_seq_len}) must divide the rows ({rows})")
+
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention takes contiguous q, k, v")
+    if q.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, causal=causal, scale=scale, kv_len=kv_len,
+            q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
+        )
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: tensors on {q.device}/{k.device}/{v.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in {_HEAD_DIMS}, got {d}")
+    if bh > 65535:
+        raise ValueError(f"flash_attention kernel takes BH <= 65535, got {bh}")
+    o = torch.empty_like(q)
+    l = m = None
+    if save_residuals:
+        l = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
+        m = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
+    lib = kernels.library("flash_fwd")
+    status = lib.fa_flash_fwd(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
+        bh, rows, s_kv, d, kv_len, int(q_offset), q_seq_len, int(bool(causal)),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check_launch("flash_fwd", status, f"q {tuple(q.shape)} {q.dtype}")
+    flash_attention.launches += 1
+    return (o, l, m) if save_residuals else o
+
+
+flash_attention.launches = 0  # kernel launches, for the chip run's path check
+
+
+def flash_attention_plain(
+    q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
+    q_seq_len=None, save_residuals=False,
+):
+    """The kernel's function in plain PyTorch, float32 throughout: the CPU
+    path of :func:`flash_attention` and its yardstick on the card."""
+    bh, rows, _ = q.shape
+    s_kv = k.shape[1]
+    kv_len = s_kv if kv_len is None else kv_len
+    q_seq_len = rows if q_seq_len is None else q_seq_len
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    cols = torch.arange(s_kv, device=q.device)
+    mask = (cols < kv_len)[None, :]
+    if causal:
+        pos = q_offset + torch.arange(rows, device=q.device) % q_seq_len
+        mask = mask & (cols[None, :] <= pos[:, None])
+    s = torch.where(mask, s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bqk,bkd->bqd", p, v.float())
+    o = (o / torch.where(l == 0, 1.0, l)[..., None]).to(q.dtype)
+    return (o, l, m) if save_residuals else o

@@ -1,0 +1,145 @@
+"""Build and load the hand-written CUDA kernels of the port.
+
+Each source in ``flashattention_tpu_torch/csrc/`` is compiled by ``nvcc`` on
+its own into a shared library with a plain C interface and loaded with
+``ctypes``; PyTorch's headers are never included, so a build takes seconds.
+The build runs at first use, from the sources in the checkout only, into
+``build/torch_kernels/`` beside the package (listed in ``.gitignore``).  A
+library's file name carries a hash of its sources and flags, so an edited
+source is rebuilt and a stale library is never loaded.  :func:`build_all`
+starts one ``nvcc`` per source, all at once.
+
+Nothing here runs when the module is imported: the CPU tests import every
+module, and neither ``nvcc`` nor a card is needed until a kernel is launched
+on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+__all__ = ["KERNELS", "KernelBuildError", "build_all", "library", "check_launch"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+
+# name -> (source, C entry point, its argtypes); every entry returns an int
+# status: 0, a cudaError_t value, or -1 for a configuration not instantiated.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNELS = {
+    "flash_fwd": (
+        "flash_fwd.cu",
+        "fa_flash_fwd",
+        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "paged_decode": (
+        "paged_decode.cu",
+        "fa_paged_decode",
+        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+}
+_HEADERS = ("common.cuh",)
+_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc failed; the message carries its standard error."""
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _so_path(name: str) -> str:
+    src = KERNELS[name][0]
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for f in (src, *_HEADERS):
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_all(names=None) -> dict[str, dict]:
+    """Build every kernel library that is missing, one ``nvcc`` per source,
+    all started together.  Returns ``{name: {"seconds", "cached", "log"}}``
+    where ``log`` is nvcc's standard error (``-Xptxas -v`` register and
+    shared-memory report).  Raises :class:`KernelBuildError` on failure."""
+    names = list(KERNELS) if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        so = _so_path(name)
+        if os.path.exists(so):
+            out[name] = {"seconds": 0.0, "cached": True, "log": ""}
+            continue
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *_FLAGS, "-o", tmp, os.path.join(_CSRC, KERNELS[name][0])]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        ), tmp, so)
+    errors = []
+    for name, (proc, tmp, so) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {KERNELS[name][0]}:\n{err}")
+            continue
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+        out[name] = {
+            "seconds": time.perf_counter() - t0, "cached": False, "log": err,
+        }
+    if errors:
+        raise KernelBuildError("\n".join(errors))
+    return out
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        so = _so_path(name)
+        if not os.path.exists(so):
+            build_all([name])
+        lib = ctypes.CDLL(so)
+        _, entry, argtypes = KERNELS[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.fa_error_string.argtypes = [ctypes.c_int]
+        lib.fa_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+        return lib
+
+
+def check_launch(name: str, status: int, what: str) -> None:
+    """Raise unless a kernel entry point returned 0."""
+    if status == 0:
+        return
+    if status < 0:
+        raise ValueError(f"{name}: no kernel instantiated for {what}")
+    msg = library(name).fa_error_string(status).decode()
+    raise RuntimeError(f"{name}: launch failed for {what}: {msg} ({status})")

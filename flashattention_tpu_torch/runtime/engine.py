@@ -1,0 +1,445 @@
+"""Continuous-batching inference engine.
+
+Counterpart of ``flashattention_tpu/runtime/engine.py`` in its whole-prompt
+configuration (``EngineConfig(prefill_chunk=0)``): requests arrive at any
+time; the engine admits them FCFS when batch slots and KV pages allow,
+prefills their prompts on the causal flash kernel (grouped by power-of-two
+length bucket), then advances all running requests one token per
+:meth:`Engine.step` on the paged decode kernel.  Finished requests free their
+pages at once, so waiting requests admit on the next step.  Under page
+pressure the latest-admitted request is preempted and later re-prefilled
+from its tokens (recompute preemption).
+
+Not in this slice (each raises ``NotImplementedError``): chunked prefill and
+prefix-cache adoption (``prefill_chunk > 0``), multi-token steps
+(``multi_step > 1``) and speculative decoding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from flashattention_tpu_torch.models import transformer
+from flashattention_tpu_torch.ops import sampling
+from flashattention_tpu_torch.runtime.kvcache import CacheConfig, PagedKVCache
+from flashattention_tpu_torch.runtime.kvcache import _bucket as kv_bucket
+from flashattention_tpu_torch.runtime.native import Scheduler
+from flashattention_tpu_torch.utils.device import resolve_device
+
+__all__ = ["EngineConfig", "SamplingParams", "Request", "Engine"]
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    max_batch: int = 8
+    pages_per_seq: int = 16  # max pages (=> max length) per request
+    prefill_chunk: int = 512  # chunked prefill above this length; this slice
+    #   serves only prefill_chunk=0 (whole-prompt prefill)
+    greedy: bool = True  # False: temperature sampling from Engine.sample_gen
+    temperature: float = 1.0
+    top_k: int | None = None
+    top_p: float | None = None
+    eos_token: int | None = None
+
+    def __post_init__(self):
+        if not self.greedy and not self.temperature > 0.0:
+            raise ValueError(
+                f"temperature must be > 0 for sampling (got {self.temperature})"
+            )
+        if self.top_k is not None and self.top_k < 1:
+            raise ValueError(f"top_k must be >= 1 (got {self.top_k})")
+        if self.top_p is not None and not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1] (got {self.top_p})")
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling / stop configuration (None on a request means
+    the engine defaults).  ``seed`` gives the request its own random stream,
+    seeded per emitted-token position, so its continuation does not depend
+    on what shares the batch."""
+
+    greedy: bool = True
+    temperature: float = 1.0
+    top_k: int | None = None
+    top_p: float | None = None
+    seed: int | None = None
+    eos_token: int | None = None
+    stop_tokens: tuple = ()
+    stop_sequences: tuple = ()  # tuple of token tuples
+    logprobs: bool = False
+
+    def __post_init__(self):
+        if not self.greedy and not self.temperature > 0.0:
+            raise ValueError(
+                f"temperature must be > 0 for sampling (got {self.temperature})"
+            )
+        if self.top_k is not None and self.top_k < 1:
+            raise ValueError(f"top_k must be >= 1 (got {self.top_k})")
+        if self.top_p is not None and not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1] (got {self.top_p})")
+        for s in self.stop_sequences:
+            if not len(s):
+                raise ValueError("stop_sequences entries must be non-empty")
+
+    @property
+    def filter_key(self):
+        """Rows with equal filter_key can share one batched sampling call."""
+        return (self.greedy, self.temperature, self.top_k, self.top_p)
+
+
+@dataclasses.dataclass
+class Request:
+    req_id: int
+    prompt: list
+    max_new_tokens: int
+    output: list = dataclasses.field(default_factory=list)
+    state: str = "waiting"  # waiting | running | finished | cancelled
+    sampling: SamplingParams | None = None
+    logprobs: list = dataclasses.field(default_factory=list)
+    on_token: object = None  # callable(req, token) or None
+
+    @property
+    def length(self) -> int:
+        return len(self.prompt) + len(self.output)
+
+
+def _bucket(n: int) -> int:
+    return kv_bucket(n, lo=8)
+
+
+def _check_multi_step(n: int) -> None:
+    if n != 1:
+        raise NotImplementedError(
+            "multi_step > 1 (the multi-token decode loop) is not ported yet: "
+            "it comes with the decode-loop slice"
+        )
+
+
+class Engine:
+    def __init__(
+        self,
+        params,
+        model_cfg: transformer.ModelConfig,
+        cache_cfg: CacheConfig,
+        engine_cfg: EngineConfig = EngineConfig(),
+        *,
+        device=None,
+        seed: int = 0,
+    ):
+        self.device = resolve_device(device)
+        if engine_cfg.prefill_chunk:
+            raise NotImplementedError(
+                "chunked prefill and prefix-cache adoption (prefill_chunk > 0) "
+                "are not ported yet: they come with the chunked-prefill slice; "
+                "pass EngineConfig(prefill_chunk=0)"
+            )
+        model_cfg.check_ported()
+        self.params = params
+        self.model_cfg = model_cfg
+        self.cache = PagedKVCache(cache_cfg, device=self.device)
+        self.cfg = engine_cfg
+        self.scheduler = Scheduler(engine_cfg.max_batch, cache_cfg.page_size)
+        self.requests: dict[int, Request] = {}
+        self.running: list[int] = []  # req ids in batch-slot order
+        self._next_id = 0
+        self._last_admitted = 0
+        # Draws for non-greedy engine-default sampling (jax.random's
+        # Engine.sample_key in the JAX package).
+        self.sample_gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.on_token = None  # engine-wide streaming hook f(request, token)
+        self._default_sampling = SamplingParams(
+            greedy=engine_cfg.greedy,
+            temperature=engine_cfg.temperature,
+            top_k=engine_cfg.top_k,
+            top_p=engine_cfg.top_p,
+            eos_token=engine_cfg.eos_token,
+        )
+        # Serving counters (see stats()).
+        self._n_steps = 0
+        self._n_decode_tokens = 0
+        self._n_prefill_tokens = 0
+        self._n_preemptions = 0
+        self._n_prefill_batches = 0
+        self._n_decode_batches = 0
+        self._prefill_s = 0.0
+        self._decode_s = 0.0
+
+    # ── public API ────────────────────────────────────────────────────────
+
+    def add_request(self, prompt, max_new_tokens: int, *, sampling=None, on_token=None) -> int:
+        """Queue a request.  ``sampling``: per-request :class:`SamplingParams`
+        (None = engine defaults); ``on_token``: streaming callback
+        ``f(request, token)`` called as each token is emitted."""
+        # Fail fast on requests that could never complete.
+        span = len(prompt) + max_new_tokens
+        ps = self.cache.config.page_size
+        need = -(-span // ps)
+        cap = min(self.cfg.pages_per_seq, self.cache.config.num_pages)
+        if need > cap:
+            raise ValueError(
+                f"request needs {need} pages ({span} tokens @ page_size {ps}) "
+                f"but the engine caps at {cap} "
+                f"(pages_per_seq={self.cfg.pages_per_seq}, "
+                f"num_pages={self.cache.config.num_pages})"
+            )
+        req_id = self._next_id
+        self._next_id += 1
+        self.requests[req_id] = Request(
+            req_id, list(prompt), max_new_tokens, sampling=sampling, on_token=on_token,
+        )
+        self.scheduler.add_request(req_id, len(prompt), max_new_tokens)
+        return req_id
+
+    def has_work(self) -> bool:
+        return bool(self.running) or self.scheduler.num_waiting() > 0
+
+    def cancel(self, req_id: int) -> bool:
+        """Abort a request wherever it sits; its pages free at once and the
+        tokens generated so far stay in its output.  False for unknown,
+        finished or already-cancelled ids."""
+        req = self.requests.get(req_id)
+        if req is None or req.state in ("finished", "cancelled"):
+            return False
+        self.scheduler.cancel(req_id)
+        if req_id in self.running:
+            self.running.remove(req_id)
+        if self.cache.has(req_id):
+            self.cache.free_sequence(req_id)
+        req.state = "cancelled"
+        return True
+
+    def run(self, max_steps: int = 10_000, multi_step: int = 1) -> dict[int, list]:
+        """Drive steps until all requests finish; returns outputs by id."""
+        _check_multi_step(multi_step)
+        for _ in range(max_steps):
+            if not self.has_work():
+                break
+            was_empty = not self.running
+            self.step()
+            if was_empty and self._last_admitted == 0 and self.scheduler.num_waiting() > 0:
+                # A step that began with an empty batch admitted nothing: the
+                # waiting requests can never fit.
+                raise RuntimeError(
+                    f"{self.scheduler.num_waiting()} waiting request(s) "
+                    "cannot be admitted (insufficient free pages even with "
+                    "an empty batch)"
+                )
+        return {rid: r.output for rid, r in self.requests.items()}
+
+    def step(self, multi_step: int = 1) -> None:
+        """Admit + prefill new requests, then decode one token for all."""
+        _check_multi_step(multi_step)
+        self._n_steps += 1
+        self._admit_and_prefill()
+        if self.running:
+            self._decode_batch()
+
+    def step_speculative(self, draft_fn, k: int) -> None:
+        raise NotImplementedError(
+            "speculative decoding is not ported yet: it comes with the "
+            "speculative-decoding slice"
+        )
+
+    def run_speculative(self, draft_fn, k: int = 4, max_steps: int = 10_000):
+        self.step_speculative(draft_fn, k)
+
+    def stats(self) -> dict:
+        """Serving counters: steps, tokens in/out, preemptions, occupancy,
+        and the batches and host seconds (ending in a device sync) spent in
+        prefill and decode."""
+        return {
+            "steps": self._n_steps,
+            "prefill_tokens": self._n_prefill_tokens,
+            "decode_tokens": self._n_decode_tokens,
+            "preemptions": self._n_preemptions,
+            "running": len(self.running),
+            "waiting": self.scheduler.num_waiting(),
+            "free_pages": self.cache.num_free_pages(),
+            "prefill_batches": self._n_prefill_batches,
+            "decode_batches": self._n_decode_batches,
+            "prefill_s": self._prefill_s,
+            "decode_s": self._decode_s,
+        }
+
+    # ── engine step ───────────────────────────────────────────────────────
+
+    def _admit_and_prefill(self) -> None:
+        admitted = self.scheduler.admit(self.cache.num_free_pages())
+        self._last_admitted = len(admitted)
+        short: dict[int, list[Request]] = {}  # bucketed length -> requests
+        for req_id in admitted:
+            req = self.requests[req_id]
+            req.state = "running"
+            self.running.append(req_id)
+            short.setdefault(_bucket(req.length), []).append(req)
+        for sb, group in sorted(short.items()):
+            self._prefill_batch(group, sb)
+
+    def _prefill_batch(self, reqs: list, sb: int) -> None:
+        """Prefill a group of requests together, padded to the (sb) bucket.
+
+        Pad tokens sit at each row's tail: valid rows never attend them under
+        the causal mask and their K/V rows are never cached.  The batch pads
+        to a power of two from 1, as in the JAX engine."""
+        t0 = time.perf_counter()
+        n = len(reqs)
+        nb = kv_bucket(n)
+        toks = np.zeros((nb, sb), np.int64)
+        lens = []
+        for i, req in enumerate(reqs):
+            p = req.prompt + req.output
+            toks[i, : len(p)] = p
+            lens.append(len(p))
+        logits, k_rows, v_rows = transformer.prefill(
+            self.params, torch.from_numpy(toks).to(self.device), self.model_cfg
+        )
+        self._n_prefill_tokens += sum(lens)
+        self._n_prefill_batches += 1
+        # Cache rows of each real prompt only: (L, NB, Sb, KVH, d) -> (L, S_i, KVH, d).
+        for i, req in enumerate(reqs):
+            self.cache.append(req.req_id, k_rows[:, i, : lens[i]], v_rows[:, i, : lens[i]])
+        last = logits[torch.arange(n, device=self.device), torch.tensor(lens, device=self.device) - 1]
+        firsts = self._sample_rows(reqs, last)
+        self._prefill_s += time.perf_counter() - t0
+        for req, (tok, lp) in zip(reqs, zip(*firsts)):
+            self._emit(req, tok, lp)
+
+    def _decode_batch(self) -> None:
+        t0 = time.perf_counter()
+        bmax = self.cfg.max_batch
+        rows = []  # (rid, token, position, page, slot) of surviving requests
+        for rid in list(self.running):
+            if rid not in self.running:
+                continue  # preempted by an earlier row's OOM this step
+            req = self.requests[rid]
+            while True:
+                try:
+                    page, slot = self.cache.reserve_slot(rid)
+                    break
+                except MemoryError:
+                    if not self._preempt(exclude=rid):
+                        raise
+            tok = req.output[-1] if req.output else req.prompt[-1]
+            rows.append((rid, tok, req.length - 1, page, slot))
+        rows = [r for r in rows if r[0] in self.running]
+        if not rows:
+            return
+        batch = [r[0] for r in rows]
+        n = len(batch)
+        host = np.zeros((4, bmax), np.int64)  # tokens, positions, pages, slots
+        host[2] = self.cache.config.num_pages  # inactive slots: dropped write
+        for i, (_, tok, pos, page, slot) in enumerate(rows):
+            host[:, i] = (tok, pos, page, slot)
+        tokens, positions, write_pages, write_slots = torch.from_numpy(host).to(self.device)
+        lengths, page_indices = self.cache.batch_view(
+            batch + [-1] * (bmax - n), self.cfg.pages_per_seq
+        )
+        logits = transformer.decode_step(
+            self.params, tokens, positions, self.cache.k_pages, self.cache.v_pages,
+            lengths, page_indices, write_pages, write_slots, self.model_cfg,
+        )  # the pools are updated in place
+        self._n_decode_tokens += n
+        self._n_decode_batches += 1
+        reqs = [self.requests[r] for r in batch]
+        toks, lps = self._sample_rows(reqs, logits[:n])
+        self._decode_s += time.perf_counter() - t0
+        for req, tok, lp in zip(reqs, toks, lps):
+            self._emit(req, tok, lp)
+
+    def _preempt(self, exclude: int) -> bool:
+        """Evict the latest-admitted running request (recompute preemption):
+        free its pages and requeue it with prompt = everything generated so
+        far.  Returns False when nobody but ``exclude`` is running."""
+        for rid in reversed(self.running):
+            if rid == exclude:
+                continue
+            req = self.requests[rid]
+            req.state = "waiting"
+            self.running.remove(rid)
+            self.scheduler.finish(rid)
+            self.cache.free_sequence(rid)
+            self.scheduler.add_request(rid, req.length, req.max_new_tokens - len(req.output))
+            self._n_preemptions += 1
+            return True
+        return False
+
+    # ── sampling ──────────────────────────────────────────────────────────
+
+    def _params_for(self, req: Request) -> SamplingParams:
+        return req.sampling if req.sampling is not None else self._default_sampling
+
+    def _seeded(self, p: SamplingParams, req: Request) -> torch.Generator:
+        """The request's own stream at its next output position (the JAX
+        engine's fold_in(key(seed), position))."""
+        return torch.Generator(device=self.device).manual_seed(
+            (p.seed * 1_000_003 + len(req.output)) % (1 << 63)
+        )
+
+    def _sample(self, logits, p: SamplingParams, gen: torch.Generator) -> torch.Tensor:
+        if p.greedy:
+            return torch.argmax(logits, dim=-1)  # the first maximum, as jnp.argmax
+        return sampling.sample_logits(
+            gen, logits, temperature=p.temperature, top_k=p.top_k, top_p=p.top_p
+        )
+
+    def _sample_rows(self, reqs: list, logits) -> tuple[list, list]:
+        """Per-request sampling over (len(reqs), V) logits rows.
+
+        Rows sharing a filter config batch into one call on the engine's
+        generator; seeded rows draw from their own streams.  Returns
+        (tokens, logprobs) aligned with ``reqs``."""
+        n = len(reqs)
+        tokens: list = [0] * n
+        groups: dict[tuple, list[int]] = {}
+        for i, r in enumerate(reqs):
+            p = self._params_for(r)
+            if not p.greedy and p.seed is not None:
+                tokens[i] = int(self._sample(logits[i], p, self._seeded(p, r)))
+            else:
+                groups.setdefault(p.filter_key, []).append(i)
+        for rows in groups.values():  # dict order: first-seen, stable
+            p = self._params_for(reqs[rows[0]])
+            idx = torch.tensor(rows, device=logits.device)
+            toks = self._sample(logits[idx], p, self.sample_gen).tolist()
+            for j, i in enumerate(rows):
+                tokens[i] = int(toks[j])
+        lps: list = [None] * n
+        for i, r in enumerate(reqs):
+            if self._params_for(r).logprobs:
+                lps[i] = float(torch.log_softmax(logits[i].float(), dim=-1)[tokens[i]])
+        return tokens, lps
+
+    def _emit(self, req: Request, token: int, logprob=None) -> None:
+        if req.state != "running":
+            # A streaming callback may cancel requests mid-batch: later
+            # emissions for them in the same step are discarded.
+            return
+        req.output.append(token)
+        p = self._params_for(req)
+        if p.logprobs:
+            req.logprobs.append(logprob)
+        eos = p.eos_token if p.eos_token is not None else self.cfg.eos_token
+        done = (
+            len(req.output) >= req.max_new_tokens
+            or (eos is not None and token == eos)
+            or token in p.stop_tokens
+        )
+        if not done and p.stop_sequences:
+            out = req.output
+            done = any(
+                len(out) >= len(ss) and tuple(out[-len(ss):]) == tuple(ss)
+                for ss in p.stop_sequences
+            )
+        if done:
+            req.state = "finished"
+            self.running.remove(req.req_id)
+            self.scheduler.finish(req.req_id)
+            self.cache.free_sequence(req.req_id)
+        for cb in (req.on_token, self.on_token):
+            if cb is not None:
+                cb(req, token)

@@ -1,0 +1,113 @@
+"""Guards on the port's boundaries.
+
+- ``flashattention_tpu_torch`` imports neither JAX nor the JAX package, when
+  imported (checked in a fresh interpreter) or anywhere in its sources;
+- its entry points run on the card unless the caller asks for the CPU, and
+  raise instead of carrying on where there is no card;
+- options of later slices raise ``NotImplementedError``.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from flashattention_tpu_torch.models import transformer
+from flashattention_tpu_torch.ops import decode
+from flashattention_tpu_torch.runtime import engine, kvcache
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "flashattention_tpu_torch")
+
+
+def _forbidden(name: str) -> bool:
+    return name == "jax" or name.startswith(("jax.", "jaxlib")) or (
+        name == "flashattention_tpu" or name.startswith("flashattention_tpu.")
+    )
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys, flashattention_tpu_torch\n"
+        "import flashattention_tpu_torch.runtime.engine\n"
+        "import flashattention_tpu_torch.utils.benchit\n"
+        "print('\\n'.join(sys.modules))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        check=True, timeout=120, env={**os.environ, "PYTHONPATH": ROOT},
+    ).stdout.split()
+    assert "flashattention_tpu_torch.runtime.engine" in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def test_sources_import_no_jax():
+    bad = []
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    names = [node.module or ""]
+                else:
+                    continue
+                bad += [(path, n) for n in names if _forbidden(n)]
+    assert bad == []
+
+
+def test_chip_smoke_imports_no_jax():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert not [n for n in names if _forbidden(n)]
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour where no CUDA card exists")
+
+
+def test_entry_points_default_to_the_card(no_card):
+    cfg = transformer.ModelConfig.tiny()
+    ccfg = kvcache.CacheConfig(num_layers=2, num_kv_heads=2, head_dim=32, num_pages=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kvcache.PagedKVCache(ccfg)
+    params = transformer.init_params(0, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.Engine(params, cfg, ccfg, engine.EngineConfig(prefill_chunk=0))
+
+
+def test_later_slices_raise():
+    q = torch.zeros(1, 2, 2, 32)
+    pages = torch.zeros(3, 2, 8, 32)
+    lens, table = torch.ones(1, dtype=torch.int32), torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(NotImplementedError):
+        decode.paged_attention(q, pages, pages, lens, table, draft_k=2)
+    with pytest.raises(NotImplementedError):
+        decode.paged_attention(q, pages, pages, lens, table, window=4)
+    for dt in ("int8", "fp8"):
+        with pytest.raises(NotImplementedError):
+            kvcache.CacheConfig(num_layers=1, num_kv_heads=2, head_dim=32, dtype=dt)
+    import flashattention_tpu_torch as ft
+
+    x = torch.zeros(1, 2, 8, 32)
+    for kw in (dict(window=4), dict(logit_softcap=30.0), dict(dropout_rate=0.1)):
+        with pytest.raises(NotImplementedError):
+            ft.attention(x, x, x, causal=True, **kw)
+        with pytest.raises(NotImplementedError):
+            ft.attention(x, x, x, causal=True, implementation="xla", **kw)
