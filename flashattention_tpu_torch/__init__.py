@@ -7,9 +7,13 @@ find; every Pallas kernel it has ported is a CUDA C++ kernel for Hopper
 beside it for CPU tensors.  It imports neither JAX nor the JAX package.
 """
 
-from flashattention_tpu_torch.ops.decode import paged_attention
+from flashattention_tpu_torch.ops.decode import (
+    paged_attention,
+    paged_prefill_attention,
+    paged_prefill_attention_batched,
+)
 from flashattention_tpu_torch.ops.dispatch import attention, sdpa
-from flashattention_tpu_torch.ops.flash import BlockSizes, flash_attention
+from flashattention_tpu_torch.ops.flash import BlockSizes, flash_attention, flash_attention_naive
 from flashattention_tpu_torch.ops.reference import (
     attention_reference,
     attention_reference_with_stats,
@@ -22,7 +26,10 @@ __all__ = [
     "sdpa",
     "BlockSizes",
     "flash_attention",
+    "flash_attention_naive",
     "paged_attention",
+    "paged_prefill_attention",
+    "paged_prefill_attention_batched",
     "attention_reference",
     "attention_reference_with_stats",
 ]

@@ -30,6 +30,41 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even
 }
 
+// Four neighbouring elements as one float4: one 16-byte (float32) or 8-byte
+// (bfloat16) access.  The pointer must be aligned to that width; the Python
+// wrappers check it.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);  // round to nearest even
+  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<unsigned*>(&lo);
+  u.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float p, float4 v) {
+  acc.x += p * v.x;
+  acc.y += p * v.y;
+  acc.z += p * v.z;
+  acc.w += p * v.w;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);

@@ -1,11 +1,15 @@
 """Llama-style decoder-only transformer on the port's kernels.
 
 Counterpart of ``flashattention_tpu/models/transformer.py``: RMSNorm + RoPE +
-GQA attention + SwiGLU.  Two entry points serve the engine:
+GQA attention + SwiGLU.  Three entry points serve the engine:
 
 - :func:`prefill`: whole-sequence forward on the causal flash kernel
   (``ops/flash.py`` through ``ops/dispatch.attention``), returning logits and
   every layer's K/V rows for the paged cache;
+- :func:`prefill_chunk_batched` (and :func:`prefill_chunk` for one request):
+  one chunk of many prompts against their paged context
+  (``ops/decode.paged_prefill_attention_batched``), writing the chunk's K/V
+  rows into the pools;
 - :func:`decode_step`: one token for a whole continuous batch over the paged
   cache (``ops/decode.paged_attention``).
 
@@ -21,7 +25,7 @@ import dataclasses
 
 import torch
 
-from flashattention_tpu_torch.ops.decode import paged_attention
+from flashattention_tpu_torch.ops.decode import paged_attention, paged_prefill_attention_batched
 from flashattention_tpu_torch.ops.dispatch import attention
 from flashattention_tpu_torch.utils.device import resolve_device
 from flashattention_tpu_torch.utils.testing import to_torch
@@ -31,6 +35,8 @@ __all__ = [
     "init_params",
     "params_from_jax",
     "prefill",
+    "prefill_chunk",
+    "prefill_chunk_batched",
     "decode_step",
     "decode_step_impl",
 ]
@@ -253,6 +259,17 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig):
     return logits, torch.stack(k_rows), torch.stack(v_rows)
 
 
+def _kept_rows(write_pages, write_slots, num_pages, device):
+    """Flat indices, pages and slots of the rows whose write page lies in
+    the pool (``0 <= page < num_pages``); the others are dropped, as the
+    JAX scatters' ``mode="drop"`` drops them.  Found once per call: on host
+    tensors (what the engine passes) with no device sync at all, on device
+    tensors with one, never one per layer as boolean indexing would make."""
+    wp, ws = write_pages.reshape(-1), write_slots.reshape(-1)
+    rows = torch.nonzero((wp >= 0) & (wp < num_pages))[:, 0]
+    return rows.to(device), wp[rows].long().to(device), ws[rows].long().to(device)
+
+
 def decode_step_impl(
     params, tokens, positions, k_pages, v_pages, lengths, page_indices,
     write_pages, write_slots, cfg: ModelConfig,
@@ -269,10 +286,7 @@ def decode_step_impl(
     b = tokens.shape[0]
     x = _lookup(params["embed"], tokens)[:, None, :]  # (B, 1, d_model)
     pos = positions[:, None]
-    # The kept rows, found once per step (one device-to-host sync, not one
-    # per layer as boolean indexing would make).
-    rows = torch.nonzero((write_pages >= 0) & (write_pages < k_pages.shape[1]))[:, 0]
-    wp, ws = write_pages[rows].long(), write_slots[rows].long()
+    rows, wp, ws = _kept_rows(write_pages, write_slots, k_pages.shape[1], x.device)
     for li, layer in enumerate(params["layers"]):
         h = _rmsnorm(x, layer["attn_norm"])
         q, k, v = _qkv(h, layer, cfg, pos)  # (B, 1, H, d)
@@ -314,3 +328,93 @@ def decode_step(
         params, tokens, positions, k_pages, v_pages, lengths, page_indices,
         write_pages, write_slots, cfg,
     )
+
+
+@torch.no_grad()
+def prefill_chunk_batched(
+    params,
+    tokens: torch.Tensor,  # (B, T) one chunk per request
+    k_pages: torch.Tensor,  # (L, P, KVH, ps, d) head-major, updated in place
+    v_pages: torch.Tensor,  # updated in place
+    positions: torch.Tensor,  # (B, T) absolute positions of the tokens
+    page_tables: torch.Tensor,  # (B, n_ctx_pages) int32 per-request tables
+    write_pages: torch.Tensor,  # (B, T) page receiving each token's K/V
+    write_slots: torch.Tensor,  # (B, T) slot within that page
+    cfg: ModelConfig,
+    ctx_lens: torch.Tensor | None = None,  # (B,) int32 live context incl. this chunk
+) -> torch.Tensor:
+    """One chunk step of chunked prefill for many requests.
+
+    Each layer scatters the chunk's K/V rows into its pool in place (the
+    JAX function donates the pools and returns new ones), then attends the
+    chunk's GQA-folded queries against the request's paged context with one
+    :func:`~flashattention_tpu_torch.ops.decode.paged_prefill_attention_batched`
+    launch.  Rows whose write page is out of range (``>= P``: the pad tail
+    of a last chunk, and dummy batch rows) are dropped before the scatter;
+    ``write_pages``/``write_slots`` may be host tensors, and then finding
+    the kept rows costs no device sync.  Each GQA segment is the chunk
+    itself (``seg = T``): the JAX function's pad of a segment to a multiple
+    of 128 rows is a TPU tiling need.
+
+    Dummy rows (batch padding) have ``ctx_lens[b] = 0`` and out-of-range
+    write pages; their logits are garbage the engine never reads.  Returns
+    logits ``(B, T, V)``.
+    """
+    cfg.check_ported()
+    if ctx_lens is None:
+        raise ValueError("prefill_chunk_batched requires per-request ctx_lens")
+    b, t = tokens.shape
+    ps = k_pages.shape[3]
+    if page_tables.shape[1] * ps < t:
+        raise ValueError(
+            f"page_tables cover {page_tables.shape[1] * ps} tokens < chunk size "
+            f"{t}; they must span the full context including this chunk"
+        )
+    kvh, g, hd = cfg.num_kv_heads, cfg.group_size, cfg.head_dim
+    x = _lookup(params["embed"], tokens)  # (B, T, d_model)
+    rows, wp, ws = _kept_rows(write_pages, write_slots, k_pages.shape[1], x.device)
+    for li, layer in enumerate(params["layers"]):
+        h = _rmsnorm(x, layer["attn_norm"])
+        q, k, v = _qkv(h, layer, cfg, positions)  # (B, T, H, d)
+        k_pages[li][wp, :, ws, :] = k.reshape(b * t, kvh, hd)[rows].to(k_pages.dtype)
+        v_pages[li][wp, :, ws, :] = v.reshape(b * t, kvh, hd)[rows].to(v_pages.dtype)
+        # (B, T, H, d) -> (B, KVH, G * T, d): g-major segments of T rows.
+        qf = q.transpose(1, 2).reshape(b, kvh, g * t, hd).contiguous()
+        o = paged_prefill_attention_batched(
+            qf, k_pages[li], v_pages[li], page_tables, ctx_lens,
+            chunk=t, seg=t, scale=hd**-0.5,
+        )  # (B, KVH, G * T, d)
+        o = o.reshape(b, kvh * g, t, hd).transpose(1, 2).reshape(b, t, kvh * g * hd)
+        x = x + _mm(o, layer["wo"])
+        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
+    # The JAX function's 2-D final stage: (B*T, dm) @ (dm, V) reduces each
+    # row as the single-request (T, dm) @ (dm, V) does.
+    x2 = _rmsnorm(x.reshape(b * t, -1), params["final_norm"])
+    return _mm(x2, params["lm_head"]).reshape(b, t, -1)
+
+
+@torch.no_grad()
+def prefill_chunk(
+    params,
+    tokens: torch.Tensor,  # (T,) one request's next T prompt tokens
+    k_pages: torch.Tensor,  # (L, P, KVH, ps, d), updated in place
+    v_pages: torch.Tensor,
+    positions: torch.Tensor,  # (T,) absolute positions
+    page_indices: torch.Tensor,  # (n_ctx_pages,) int32 pages covering [0, ctx)
+    write_pages: torch.Tensor,  # (T,)
+    write_slots: torch.Tensor,  # (T,)
+    cfg: ModelConfig,
+    ctx_len=None,  # live context tokens incl. this chunk (None: the whole table)
+) -> torch.Tensor:
+    """One chunk of a chunked prefill for one request: :func:`prefill_chunk_batched`
+    with a batch of one.  Returns logits ``(T, V)``."""
+    if ctx_len is None:
+        ctx_len = page_indices.shape[0] * k_pages.shape[3]
+    if torch.is_tensor(ctx_len):
+        ctx = ctx_len.reshape(1).to(device=tokens.device, dtype=torch.int32)
+    else:
+        ctx = torch.tensor([int(ctx_len)], dtype=torch.int32, device=tokens.device)
+    return prefill_chunk_batched(
+        params, tokens[None], k_pages, v_pages, positions[None], page_indices[None],
+        write_pages[None], write_slots[None], cfg, ctx_lens=ctx,
+    )[0]

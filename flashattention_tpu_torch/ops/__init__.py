@@ -1,1 +1,13 @@
-"""Attention ops: oracles, the flash and paged-decode kernels, dispatch, sampling."""
+"""Attention ops: oracles, the flash, naive, paged-decode and paged-prefill
+kernels, dispatch, sampling."""
+
+from flashattention_tpu_torch.ops.dispatch import attention, sdpa
+from flashattention_tpu_torch.ops.flash import (
+    BlockSizes,
+    flash_attention,
+    flash_attention_naive,
+)
+from flashattention_tpu_torch.ops.reference import (
+    attention_reference,
+    attention_reference_with_stats,
+)

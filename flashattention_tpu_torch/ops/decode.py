@@ -1,4 +1,5 @@
-"""Decode attention over a paged KV cache (one query token per request).
+"""Attention over a paged KV cache: decode (one query token per request)
+and chunked prefill (a chunk of query rows per request).
 
 Counterpart of ``flashattention_tpu/ops/decode.py``: the physical pool is
 head-major, ``(P, KVH, page_size, d)`` (one page holds a token range of all
@@ -8,6 +9,13 @@ ones.  On a CUDA tensor :func:`paged_attention` launches the hand-written
 kernel in ``csrc/paged_decode.cu`` (replacing the Pallas ``_paged_kernel``,
 :89); on a CPU tensor it runs :func:`paged_attention_plain`.  A CUDA call
 launches the kernel or raises; there is no fallback.
+
+:func:`paged_prefill_attention_batched` (and its single-request form
+:func:`paged_prefill_attention`) is the chunked-prefill counterpart: q holds a
+chunk of rows per request, GQA-folded into ``(B, KVH, G * seg, d)``, that
+attend their context straight off the pool.  On a CUDA tensor it launches
+``csrc/paged_prefill.cu`` (replacing the Pallas ``_paged_prefill_kernel``,
+:375); on a CPU tensor it runs :func:`paged_prefill_attention_plain`.
 """
 
 from __future__ import annotations
@@ -17,7 +25,15 @@ import torch
 from flashattention_tpu_torch.ops import kernels
 from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
-__all__ = ["paged_attention", "paged_attention_plain", "paged_attention_reference"]
+__all__ = [
+    "paged_attention",
+    "paged_attention_plain",
+    "paged_attention_reference",
+    "paged_prefill_attention",
+    "paged_prefill_attention_batched",
+    "paged_prefill_attention_plain",
+    "paged_prefill_attention_reference",
+]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -85,16 +101,7 @@ def paged_attention(
             "draft_k > 1 (speculative verification) is not ported yet: it "
             "comes with the speculative-decoding slice"
         )
-    if window is not None or logit_softcap is not None:
-        raise NotImplementedError(
-            "window / logit_softcap in paged_attention are not ported yet: "
-            "they come with the Mistral and Gemma-2 slices"
-        )
-    if k_scales_pages is not None or v_scales_pages is not None:
-        raise NotImplementedError(
-            "quantized pages (k/v scales) are not ported yet: they come with "
-            "the quantized-KV slice"
-        )
+    _check_ported("paged_attention", window, logit_softcap, k_scales_pages, v_scales_pages)
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"expected q (B,KVH,G,d), pages (P,KVH,ps,d): {q.shape} {k_pages.shape}")
     b, kvh, g, d = q.shape
@@ -143,3 +150,192 @@ def paged_attention(
 
 
 paged_attention.launches = 0  # kernel launches, for the chip run's path check
+
+
+# ── chunked prefill ──────────────────────────────────────────────────────────
+
+
+def _segment_positions(ctx_lens, rows, chunk, seg, device):
+    """(B, R) absolute position of each q row: ``ctx_len - chunk + r % seg``."""
+    ctx = ctx_lens.to(device).long()
+    return ctx[:, None] - chunk + (torch.arange(rows, device=device) % seg)[None, :]
+
+
+def paged_prefill_attention_reference(
+    q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, seg=None, scale=1.0
+):
+    """Dense oracle of the batched layout: gather every page of each table,
+    anchor row r at ``ctx_len - chunk + r % seg``, mask ``col <= pos`` and
+    ``col < ctx_len``, attend in float32.  A row that sees no column gets
+    the mean of the gathered V rows, as the JAX oracles give."""
+    b, kvh, rows, d = q.shape
+    s_max = page_indices.shape[1] * k_pages.shape[2]
+    idx = page_indices.long()
+    # (B, pps, KVH, ps, d) -> (B, KVH, S_max, d)
+    k = k_pages[idx].transpose(1, 2).reshape(b, kvh, s_max, d)
+    v = v_pages[idx].transpose(1, 2).reshape(b, kvh, s_max, d)
+    s = torch.einsum("bhrd,bhkd->bhrk", q.float(), k.float()) * scale
+    pos = _segment_positions(ctx_lens, rows, chunk, seg or rows, q.device)
+    cols = torch.arange(s_max, device=q.device)[None, None, :]
+    ctx = ctx_lens.to(q.device).long()[:, None, None]
+    mask = (cols <= pos[:, :, None]) & (cols < ctx)  # (B, R, S_max)
+    s = torch.where(mask[:, None], s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhrk,bhkd->bhrd", p, v.float()) / p.sum(dim=-1, keepdim=True)
+    return o.to(q.dtype)
+
+
+def paged_prefill_attention_plain(
+    q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, seg=None, scale=1.0
+):
+    """The kernel's function in plain PyTorch: the oracle, with zeros for a
+    row that sees no column (every row of a ``ctx_len == 0`` request), as
+    the kernel writes them.  A row sees column 0 exactly when its position
+    is >= 0 and ``ctx_len > 0``."""
+    o = paged_prefill_attention_reference(
+        q, k_pages, v_pages, page_indices, ctx_lens, chunk=chunk, seg=seg, scale=scale
+    )
+    pos = _segment_positions(ctx_lens, q.shape[2], chunk, seg or q.shape[2], q.device)
+    seen = (pos >= 0) & (ctx_lens.to(q.device)[:, None] > 0)
+    return torch.where(seen[:, None, :, None], o, torch.zeros_like(o))
+
+
+def _check_ported(name, window, logit_softcap, k_scales_pages, v_scales_pages):
+    if window is not None or logit_softcap is not None:
+        raise NotImplementedError(
+            f"window / logit_softcap in {name} are not ported yet: they come "
+            "with the Mistral and Gemma-2 slices"
+        )
+    if k_scales_pages is not None or v_scales_pages is not None:
+        raise NotImplementedError(
+            "quantized pages (k/v scales) are not ported yet: they come with "
+            "the quantized-KV slice"
+        )
+
+
+def paged_prefill_attention_batched(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_indices: torch.Tensor,
+    ctx_lens: torch.Tensor,
+    *,
+    chunk: int,
+    seg: int | None = None,
+    k_scales_pages=None,
+    v_scales_pages=None,
+    scale: float = 1.0,
+    block_q: int = 512,
+    window: int | None = None,
+    logit_softcap: float | None = None,
+) -> torch.Tensor:
+    """Chunked-prefill attention straight off the paged pool, many requests
+    in one launch.
+
+    Args:
+      q: ``(B, KVH, R, d)``: ``R = G * seg`` rows, G query heads per KV head,
+        each a ``seg``-row segment whose row p sits at absolute position
+        ``ctx_lens[b] - chunk + p``; rows ``p >= chunk`` are padding, their
+        outputs are the caller's to drop.  ``seg=None``: one segment.
+      k_pages, v_pages: ``(P, KVH, page_size, d)`` head-major pools.
+      page_indices: ``(B, pps)`` int32 per-request tables; entries past the
+        live pages may be any page (their columns are masked).
+      ctx_lens: ``(B,)`` int32 live context tokens including this chunk.  A
+        request with ``ctx_lens[b] == 0`` (batch padding) gets zeros; the
+        JAX kernel leaves it unwritten.
+      block_q: the JAX kernel's q tile, accepted for parity; the CUDA tile is
+        the kernel's own (32 rows).
+
+    Returns ``(B, KVH, R, d)`` in q's dtype.  The launch count is kept on
+    this function (``.launches``); :func:`paged_prefill_attention` launches
+    through it.
+    """
+    _check_ported("paged_prefill_attention", window, logit_softcap, k_scales_pages, v_scales_pages)
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError(f"expected q (B,KVH,R,d), pages (P,KVH,ps,d): {q.shape} {k_pages.shape}")
+    b, kvh, rows, d = q.shape
+    num_pages, kvh2, page_size, d2 = k_pages.shape
+    if (kvh2, d2) != (kvh, d):
+        raise ValueError(f"q/k_pages mismatch: {tuple(q.shape)} vs {tuple(k_pages.shape)}")
+    if k_pages.shape != v_pages.shape:
+        raise ValueError(f"k/v pages mismatch: {tuple(k_pages.shape)} vs {tuple(v_pages.shape)}")
+    if ctx_lens.shape != (b,) or page_indices.dim() != 2 or page_indices.shape[0] != b:
+        raise ValueError(
+            f"ctx_lens {tuple(ctx_lens.shape)} / page_indices {tuple(page_indices.shape)} "
+            f"do not match batch {b}"
+        )
+    seg = rows if seg is None else int(seg)
+    if seg <= 0 or rows % seg:
+        raise ValueError(f"q rows ({rows}) must be a multiple of seg ({seg})")
+    if not 0 < chunk <= seg:
+        raise ValueError(f"chunk ({chunk}) must lie in [1, seg={seg}]")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise ValueError(f"q/pages dtypes differ: {q.dtype} {k_pages.dtype} {v_pages.dtype}")
+
+    args = (q, k_pages, v_pages, page_indices, ctx_lens)
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("paged_prefill_attention takes contiguous tensors")
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(*args, chunk=chunk, seg=seg, scale=scale)
+    devs = {t.device for t in args}
+    if q.device.type != "cuda" or len(devs) != 1:
+        raise ValueError(f"paged_prefill_attention: tensors on {sorted(map(str, devs))}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"paged_prefill_attention kernel takes float32 or bfloat16, got {q.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"paged_prefill_attention kernel takes head_dim in {_HEAD_DIMS}, got d={d}")
+    if ctx_lens.dtype != torch.int32 or page_indices.dtype != torch.int32:
+        raise ValueError("paged_prefill_attention kernel takes int32 ctx_lens and page_indices")
+    if b > 65535 or kvh > 65535:
+        raise ValueError(f"paged_prefill_attention kernel takes B, KVH <= 65535, got {b}, {kvh}")
+    kernels.check_aligned("paged_prefill_attention", q, k_pages, v_pages)
+    o = torch.empty_like(q)
+    lib = kernels.library("paged_prefill")
+    status = lib.fa_paged_prefill(
+        _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_indices.data_ptr(), ctx_lens.data_ptr(), o.data_ptr(),
+        b, kvh, rows, d, num_pages, page_size, page_indices.shape[1], int(chunk),
+        seg, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check_launch("paged_prefill", status, f"q {tuple(q.shape)} {q.dtype}")
+    paged_prefill_attention_batched.launches += 1
+    return o
+
+
+paged_prefill_attention_batched.launches = 0  # kernel launches, for the chip run's path check
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_indices: torch.Tensor,
+    ctx_len,
+    *,
+    chunk: int,
+    seg: int | None = None,
+    k_scales_pages=None,
+    v_scales_pages=None,
+    scale: float = 1.0,
+    block_q: int = 512,
+    window: int | None = None,
+    logit_softcap: float | None = None,
+) -> torch.Tensor:
+    """Chunked-prefill attention for one request: q ``(KVH, R, d)``,
+    page_indices ``(pps,)``, ctx_len an int or a one-element int32 tensor.
+    It is :func:`paged_prefill_attention_batched` with B = 1 (one launch).
+    Returns ``(KVH, R, d)``."""
+    if torch.is_tensor(ctx_len):
+        ctx = ctx_len.reshape(1).to(device=q.device, dtype=torch.int32)
+    else:
+        ctx = torch.tensor([int(ctx_len)], dtype=torch.int32, device=q.device)
+    if q.dim() != 3 or page_indices.dim() != 1:
+        raise ValueError(
+            f"expected q (KVH,R,d) and page_indices (pps,): {tuple(q.shape)} "
+            f"{tuple(page_indices.shape)}"
+        )
+    return paged_prefill_attention_batched(
+        q[None], k_pages, v_pages, page_indices[None], ctx, chunk=chunk, seg=seg,
+        k_scales_pages=k_scales_pages, v_scales_pages=v_scales_pages, scale=scale,
+        block_q=block_q, window=window, logit_softcap=logit_softcap,
+    )[0]

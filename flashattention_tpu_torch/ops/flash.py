@@ -12,6 +12,12 @@ Supported on this slice: causal masking at absolute query position
 ``kv_len`` (ragged S is masked in the kernel, never padded), a score scale,
 and ``save_residuals``.  The TPU tile-fitting regimes of ``BlockSizes.fit``
 are not ported: the CUDA kernel has one tile shape.
+
+:func:`flash_attention_naive` is the counterpart of the JAX package's naive
+Pallas kernel (``_naive_kernel``, :1690): dense softmax over the whole KV
+stripe, float32 throughout, the independent cross-check of the flash kernel.
+On a CUDA tensor it launches ``csrc/flash_naive.cu``; on a CPU tensor it runs
+:func:`flash_attention_naive_plain`.
 """
 
 from __future__ import annotations
@@ -21,9 +27,15 @@ import dataclasses
 import torch
 
 from flashattention_tpu_torch.ops import kernels
-from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
+from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE, attention_reference
 
-__all__ = ["BlockSizes", "flash_attention", "flash_attention_plain"]
+__all__ = [
+    "BlockSizes",
+    "flash_attention",
+    "flash_attention_naive",
+    "flash_attention_naive_plain",
+    "flash_attention_plain",
+]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -181,3 +193,85 @@ def flash_attention_plain(
     o = torch.einsum("bqk,bkd->bqd", p, v.float())
     o = (o / torch.where(l == 0, 1.0, l)[..., None]).to(q.dtype)
     return (o, l, m) if save_residuals else o
+
+
+_NAIVE_HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention_naive(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: float = 1.0,
+    block_q: int = 128,
+    kv_len: int | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Naive attention: each query row's dense softmax over the whole KV
+    stripe, float32 throughout.
+
+    Args:
+      q: ``(BH, S_q, d)``; k, v: ``(BH, S_kv, d)``, one dtype, contiguous.
+      causal: query row r sits at position ``q_offset + r``.
+      block_q: the JAX kernel's q tile; ``S_q`` must be a multiple of it, as
+        there.  The CUDA tile is the kernel's own (32 rows).
+      kv_len: KV columns at or past it are masked (None: all ``S_kv``).
+
+    A row that sees no column gets zeros.  Returns ``o`` like q.
+    """
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"expected (BH, S, d) tensors, got {q.shape} {k.shape} {v.shape}")
+    bh, s_q, d = q.shape
+    s_kv = k.shape[1]
+    if s_q % block_q:
+        raise ValueError(f"s_q ({s_q}) must be a multiple of block_q ({block_q})")
+    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+    kv_len = s_kv if kv_len is None else max(0, min(int(kv_len), s_kv))
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention_naive takes contiguous q, k, v")
+    if q.device.type == "cpu":
+        return flash_attention_naive_plain(
+            q, k, v, causal=causal, scale=scale, kv_len=kv_len, q_offset=q_offset
+        )
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention_naive: tensors on {q.device}/{k.device}/{v.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention_naive kernel takes float32 or bfloat16, got {q.dtype}")
+    if d not in _NAIVE_HEAD_DIMS:
+        raise ValueError(f"flash_attention_naive kernel takes head_dim in {_NAIVE_HEAD_DIMS}, got {d}")
+    if bh > 65535:
+        raise ValueError(f"flash_attention_naive kernel takes BH <= 65535, got {bh}")
+    kernels.check_aligned("flash_attention_naive", q, k, v)
+    o = torch.empty_like(q)
+    lib = kernels.library("flash_naive")
+    status = lib.fa_flash_naive(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        bh, s_q, s_kv, d, kv_len, int(q_offset), int(bool(causal)), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check_launch("flash_naive", status, f"q {tuple(q.shape)} {q.dtype}")
+    flash_attention_naive.launches += 1
+    return o
+
+
+flash_attention_naive.launches = 0  # kernel launches, for the chip run's path check
+
+
+def flash_attention_naive_plain(q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0):
+    """The naive kernel's function in plain PyTorch: the dense oracle
+    (:func:`ops.reference.attention_reference`), with zeros for a row that
+    sees no column, as the kernel writes them."""
+    s_q, s_kv = q.shape[1], k.shape[1]
+    kv_len = s_kv if kv_len is None else max(0, min(int(kv_len), s_kv))
+    o = attention_reference(
+        q, k, v, causal=causal, scale=scale, kv_len=kv_len, q_offset=q_offset
+    )
+    seen = torch.full((s_q,), kv_len > 0, device=q.device)
+    if causal:
+        seen &= q_offset + torch.arange(s_q, device=q.device) >= 0
+    return torch.where(seen[None, :, None], o, torch.zeros_like(o))

@@ -24,7 +24,9 @@ import subprocess
 import threading
 import time
 
-__all__ = ["KERNELS", "KernelBuildError", "build_all", "library", "check_launch"]
+__all__ = [
+    "KERNELS", "KernelBuildError", "build_all", "library", "check_aligned", "check_launch",
+]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -43,6 +45,16 @@ KERNELS = {
         "paged_decode.cu",
         "fa_paged_decode",
         [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "paged_prefill": (
+        "paged_prefill.cu",
+        "fa_paged_prefill",
+        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "flash_naive": (
+        "flash_naive.cu",
+        "fa_flash_naive",
+        [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
 }
 _HEADERS = ("common.cuh",)
@@ -133,6 +145,14 @@ def library(name: str) -> ctypes.CDLL:
         lib.fa_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
         return lib
+
+
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary, as the
+    kernels' vector loads (``fa::load4``) require."""
+    bad = [tuple(t.shape) for t in tensors if t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"{name} takes 16-byte aligned tensors; misaligned: {bad}")
 
 
 def check_launch(name: str, status: int, what: str) -> None:

@@ -1,17 +1,22 @@
 """Continuous-batching inference engine.
 
-Counterpart of ``flashattention_tpu/runtime/engine.py`` in its whole-prompt
-configuration (``EngineConfig(prefill_chunk=0)``): requests arrive at any
-time; the engine admits them FCFS when batch slots and KV pages allow,
-prefills their prompts on the causal flash kernel (grouped by power-of-two
-length bucket), then advances all running requests one token per
+Counterpart of ``flashattention_tpu/runtime/engine.py``: requests arrive at
+any time; the engine admits them FCFS when batch slots and KV pages allow,
+prefills their prompts, then advances all running requests one token per
 :meth:`Engine.step` on the paged decode kernel.  Finished requests free their
 pages at once, so waiting requests admit on the next step.  Under page
 pressure the latest-admitted request is preempted and later re-prefilled
 from its tokens (recompute preemption).
 
-Not in this slice (each raises ``NotImplementedError``): chunked prefill and
-prefix-cache adoption (``prefill_chunk > 0``), multi-token steps
+Prefill, with the default ``EngineConfig(prefill_chunk=512)``: a request
+whose prompt starts with resident full pages of an earlier prompt adopts
+them at admission (prefix caching, refcounted); prompts longer than the
+chunk, and every prompt with an adopted prefix, run in lockstep chunk rounds
+on the paged-prefill kernel (one batched call per round); the rest run whole
+on the causal flash kernel, grouped by power-of-two length bucket.
+``prefill_chunk=0`` runs every prompt whole and caches no prefixes.
+
+Not in this slice (each raises ``NotImplementedError``): multi-token steps
 (``multi_step > 1``) and speculative decoding.
 """
 
@@ -37,8 +42,8 @@ __all__ = ["EngineConfig", "SamplingParams", "Request", "Engine"]
 class EngineConfig:
     max_batch: int = 8
     pages_per_seq: int = 16  # max pages (=> max length) per request
-    prefill_chunk: int = 512  # chunked prefill above this length; this slice
-    #   serves only prefill_chunk=0 (whole-prompt prefill)
+    prefill_chunk: int = 512  # chunked prefill above this length (a multiple
+    #   of page_size); 0 = whole-prompt prefill, no prefix caching
     greedy: bool = True  # False: temperature sampling from Engine.sample_gen
     temperature: float = 1.0
     top_k: int | None = None
@@ -132,11 +137,10 @@ class Engine:
         seed: int = 0,
     ):
         self.device = resolve_device(device)
-        if engine_cfg.prefill_chunk:
-            raise NotImplementedError(
-                "chunked prefill and prefix-cache adoption (prefill_chunk > 0) "
-                "are not ported yet: they come with the chunked-prefill slice; "
-                "pass EngineConfig(prefill_chunk=0)"
+        if engine_cfg.prefill_chunk and engine_cfg.prefill_chunk % cache_cfg.page_size:
+            raise ValueError(
+                f"prefill_chunk ({engine_cfg.prefill_chunk}) must be a "
+                f"multiple of page_size ({cache_cfg.page_size})"
             )
         model_cfg.check_ported()
         self.params = params
@@ -165,6 +169,7 @@ class Engine:
         self._n_prefill_tokens = 0
         self._n_preemptions = 0
         self._n_prefill_batches = 0
+        self._n_chunk_rounds = 0
         self._n_decode_batches = 0
         self._prefill_s = 0.0
         self._decode_s = 0.0
@@ -250,7 +255,8 @@ class Engine:
 
     def stats(self) -> dict:
         """Serving counters: steps, tokens in/out, preemptions, occupancy,
-        and the batches and host seconds (ending in a device sync) spent in
+        the whole-prompt prefill batches, chunked-prefill rounds and decode
+        batches, and the host seconds (ending in a device sync) spent in
         prefill and decode."""
         return {
             "steps": self._n_steps,
@@ -261,6 +267,7 @@ class Engine:
             "waiting": self.scheduler.num_waiting(),
             "free_pages": self.cache.num_free_pages(),
             "prefill_batches": self._n_prefill_batches,
+            "chunk_rounds": self._n_chunk_rounds,
             "decode_batches": self._n_decode_batches,
             "prefill_s": self._prefill_s,
             "decode_s": self._decode_s,
@@ -271,14 +278,31 @@ class Engine:
     def _admit_and_prefill(self) -> None:
         admitted = self.scheduler.admit(self.cache.num_free_pages())
         self._last_admitted = len(admitted)
+        chunk = self.cfg.prefill_chunk
         short: dict[int, list[Request]] = {}  # bucketed length -> requests
+        longs: list[Request] = []
         for req_id in admitted:
             req = self.requests[req_id]
             req.state = "running"
             self.running.append(req_id)
-            short.setdefault(_bucket(req.length), []).append(req)
+            shared = 0
+            if chunk:
+                # Adopt a resident shared prefix now (refcounted): adopting
+                # later could race a preemption that frees the matched pages.
+                n_sh, pages_sh = self.cache.match_prefix(req.prompt + req.output)
+                if n_sh:
+                    self.cache.adopt_prefix(req_id, pages_sh, n_sh)
+                    shared = n_sh
+            if chunk and (req.length > chunk or shared):
+                longs.append(req)
+            else:
+                short.setdefault(_bucket(req.length), []).append(req)
+        # Whole prompts first: a chunked prefill may preempt under page
+        # pressure, and only requests whose KV state exists may be evicted.
         for sb, group in sorted(short.items()):
             self._prefill_batch(group, sb)
+        if longs:
+            self._prefill_chunked_many([r for r in longs if r.req_id in self.running])
 
     def _prefill_batch(self, reqs: list, sb: int) -> None:
         """Prefill a group of requests together, padded to the (sb) bucket.
@@ -303,11 +327,124 @@ class Engine:
         # Cache rows of each real prompt only: (L, NB, Sb, KVH, d) -> (L, S_i, KVH, d).
         for i, req in enumerate(reqs):
             self.cache.append(req.req_id, k_rows[:, i, : lens[i]], v_rows[:, i, : lens[i]])
+            if self.cfg.prefill_chunk:  # prefix caching rides the chunked path
+                self.cache.register_prefix(req.req_id, req.prompt + req.output)
         last = logits[torch.arange(n, device=self.device), torch.tensor(lens, device=self.device) - 1]
         firsts = self._sample_rows(reqs, last)
         self._prefill_s += time.perf_counter() - t0
         for req, (tok, lp) in zip(reqs, zip(*firsts)):
             self._emit(req, tok, lp)
+
+    def _reserve_or_preempt(self, rid: int) -> tuple[int, int]:
+        while True:
+            try:
+                return self.cache.reserve_slot(rid)
+            except MemoryError:
+                if not self._preempt(exclude=rid):
+                    raise
+
+    def _prefill_chunked_many(self, reqs: list) -> None:
+        """Chunked prefill of one or many prompts, in lockstep chunk rounds.
+
+        Each round makes ONE :func:`transformer.prefill_chunk_batched` call
+        for every request still prefilling, its batch padded to a power of
+        two with ``ctx = 0`` dummy rows and its tables to a shared
+        power-of-two page count (the JAX engine's buckets).  A request with
+        an adopted prefix computes only the rest of its prompt.  The last
+        chunk is padded to the chunk size: pad tokens reserve no slots and
+        their K/V rows are dropped, but ``ctx`` counts them, since the kernel
+        anchors the chunk's rows at ``ctx - chunk``; real rows never reach
+        the pad columns.  A request preempted mid-way (a peer's reservation
+        ran the pool dry) drops out and restarts on re-admission.  Each
+        finished request is trimmed to its real length, publishes its full
+        prompt pages, and samples its first token from the row of its last
+        real token, ``(rem - 1) % chunk``."""
+        t0 = time.perf_counter()
+        c = self.cache.config
+        chunk = self.cfg.prefill_chunk
+        states = []
+        for req in reqs:
+            rid = req.req_id
+            if rid not in self.running:
+                continue
+            prompt = req.prompt + req.output
+            if self.cache.has(rid):
+                skip = self.cache.length(rid)  # prefix adopted at admission
+            else:
+                skip, pages = self.cache.match_prefix(prompt)
+                if skip:
+                    self.cache.adopt_prefix(rid, pages, skip)
+            rem = len(prompt) - skip
+            padded = -(-rem // chunk) * chunk
+            toks = np.zeros(padded, np.int64)
+            toks[:rem] = prompt[skip:]
+            states.append({
+                "req": req, "rid": rid, "prompt": prompt, "s": len(prompt),
+                "skip": skip, "rem": rem, "padded": padded, "toks": toks,
+                "start": 0, "logits": None,
+            })
+        while True:
+            live = [st for st in states if st["start"] < st["padded"] and st["rid"] in self.running]
+            if not live:
+                break
+            # Reserve this round's slots for every live request first: a
+            # reservation may preempt a peer, so membership is re-checked.
+            reserved = {}
+            for st in live:
+                if st["rid"] not in self.running:
+                    continue  # preempted by an earlier peer's reservation
+                base = st["skip"] + st["start"]
+                pages, slots = [], []
+                for t in range(chunk):
+                    if base + t < st["s"]:
+                        pg, sl = self._reserve_or_preempt(st["rid"])
+                    else:
+                        pg, sl = c.num_pages, 0  # pad token: dropped write
+                    pages.append(pg)
+                    slots.append(sl)
+                reserved[st["rid"]] = (pages, slots)
+            live = [st for st in live if st["rid"] in self.running]
+            if not live:
+                continue
+            cap = max(kv_bucket((st["skip"] + st["start"] + chunk) // c.page_size) for st in live)
+            nb = kv_bucket(len(live))
+            tokens = np.zeros((nb, chunk), np.int64)
+            positions = np.zeros((nb, chunk), np.int64)
+            tables = np.zeros((nb, cap), np.int32)
+            wpages = np.full((nb, chunk), c.num_pages, np.int64)
+            wslots = np.zeros((nb, chunk), np.int64)
+            ctxs = np.zeros((nb,), np.int32)  # dummy rows: ctx = 0
+            for i, st in enumerate(live):
+                base = st["skip"] + st["start"]
+                ctx = base + chunk
+                tokens[i] = st["toks"][st["start"] : st["start"] + chunk]
+                positions[i] = np.arange(base, ctx)
+                have = self.cache.pages(st["rid"])[: ctx // c.page_size]
+                tables[i, : len(have)] = have
+                wpages[i], wslots[i] = reserved[st["rid"]]
+                ctxs[i] = ctx
+            dev = self.device
+            logits = transformer.prefill_chunk_batched(
+                self.params, torch.from_numpy(tokens).to(dev),
+                self.cache.k_pages, self.cache.v_pages,
+                torch.from_numpy(positions).to(dev), torch.from_numpy(tables).to(dev),
+                torch.from_numpy(wpages), torch.from_numpy(wslots),  # host: no sync
+                self.model_cfg, ctx_lens=torch.from_numpy(ctxs).to(dev),
+            )  # the pools are updated in place
+            self._n_chunk_rounds += 1
+            for i, st in enumerate(live):
+                st["start"] += chunk
+                if st["start"] >= st["padded"]:
+                    st["logits"] = logits[i, (st["rem"] - 1) % chunk]
+        for st in states:  # in the JAX engine's order, request by request
+            if st["logits"] is None or st["rid"] not in self.running:
+                continue  # preempted: restarts cleanly on re-admission
+            self.cache.trim(st["rid"], st["s"])
+            self.cache.register_prefix(st["rid"], st["prompt"])
+            self._n_prefill_tokens += st["rem"]
+            (tok,), (lp,) = self._sample_rows([st["req"]], st["logits"][None])
+            self._emit(st["req"], tok, lp)
+        self._prefill_s += time.perf_counter() - t0  # sampling synced the device
 
     def _decode_batch(self) -> None:
         t0 = time.perf_counter()
@@ -317,13 +454,7 @@ class Engine:
             if rid not in self.running:
                 continue  # preempted by an earlier row's OOM this step
             req = self.requests[rid]
-            while True:
-                try:
-                    page, slot = self.cache.reserve_slot(rid)
-                    break
-                except MemoryError:
-                    if not self._preempt(exclude=rid):
-                        raise
+            page, slot = self._reserve_or_preempt(rid)
             tok = req.output[-1] if req.output else req.prompt[-1]
             rows.append((rid, tok, req.length - 1, page, slot))
         rows = [r for r in rows if r[0] in self.running]

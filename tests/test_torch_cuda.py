@@ -86,6 +86,47 @@ def test_paged_kernel_matches_plain(dtype, d, g):
     validate_result(got, want, TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_paged_prefill_kernel_matches_plain(dtype, d, g):
+    """A dummy ctx = 0 row, a chunk-only row, a ragged context and a full
+    table; seg = 24 > chunk = 20, so 32-row tiles cross segments."""
+    kvh, ps, pages, pps, chunk, seg = 2, 16, 40, 6, 20, 24
+    ctx = torch.tensor([0, 20, 37, 96], dtype=torch.int32)
+    table = torch.randperm(pages, generator=torch.Generator().manual_seed(7))[: 4 * pps]
+    table = table.reshape(4, pps).to(torch.int32).contiguous()
+    q = _randn((4, kvh, g * seg, d), dtype, 8)
+    kp, vp = _randn((pages, kvh, ps, d), dtype, 9), _randn((pages, kvh, ps, d), dtype, 10)
+    args = (q, kp, vp, table, ctx)
+    kw = dict(chunk=chunk, seg=seg, scale=d**-0.5)
+    got = decode.paged_prefill_attention_batched(*(a.cuda() for a in args), **kw)
+    want = decode.paged_prefill_attention_batched(*args, **kw)
+    one = decode.paged_prefill_attention(q[2].cuda(), kp.cuda(), vp.cuda(), table[2].cuda(), 37, **kw)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[0]) == 0  # ctx = 0: zeros
+    validate_result(got, want, TOL[dtype])
+    validate_result(one, want[2], TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize(
+    "kw",
+    [dict(causal=False), dict(causal=True, q_offset=54), dict(causal=True, kv_len=77, q_offset=30)],
+    ids=["full", "causal", "kv_len_q_offset"],
+)
+def test_naive_kernel_matches_plain_and_flash(dtype, d, kw):
+    q = _randn((3, 96, d), dtype, 11)
+    k, v = _randn((3, 150, d), dtype, 12), _randn((3, 150, d), dtype, 13)
+    got = flash.flash_attention_naive(q.cuda(), k.cuda(), v.cuda(), scale=d**-0.5, block_q=32, **kw)
+    want = flash.flash_attention_naive(q, k, v, scale=d**-0.5, block_q=32, **kw)
+    fwd = flash.flash_attention(q.cuda(), k.cuda(), v.cuda(), scale=d**-0.5, **kw)
+    torch.cuda.synchronize()
+    validate_result(got, want, TOL[dtype])
+    validate_result(got, fwd, TOL[dtype])  # two kernels, two softmax routes
+
+
 def test_engine_on_card_matches_cpu():
     """Greedy tokens of the tiny float32 model, served on the card with the
     kernels, equal the CPU engine's (plain versions)."""
@@ -104,4 +145,27 @@ def test_engine_on_card_matches_cpu():
             eng.add_request(rng.integers(0, 256, n).tolist(), 6)
         outs.append(eng.run())
         assert eng.cache.num_free_pages() == 6
+    assert outs[0] == outs[1]
+
+
+def test_chunked_engine_on_card_matches_cpu():
+    """The same with chunked prefill and a prefix hit: one donor prompt,
+    then two prompts sharing its first two pages."""
+    cfg = dataclasses.replace(transformer.ModelConfig.tiny(), dtype="float32")
+    params = transformer.init_params(0, cfg, device="cpu")
+    base = np.random.default_rng(1).integers(0, 256, 16).tolist()
+    outs = []
+    for dev in ("cpu", "cuda"):
+        p = {k: (v.to(dev) if torch.is_tensor(v) else [{n: w.to(dev) for n, w in lay.items()} for lay in v])
+             for k, v in params.items()}
+        cc = kvcache.CacheConfig(num_layers=2, num_kv_heads=2, head_dim=32, page_size=8,
+                                 num_pages=16, dtype="float32")
+        eng = engine.Engine(p, cfg, cc, engine.EngineConfig(max_batch=4, pages_per_seq=5,
+                                                            prefill_chunk=8), device=dev)
+        eng.add_request(base + [3, 4, 5], 6)
+        eng.step()
+        for tail in ([9], [1, 2, 3, 4, 5, 6, 7, 8, 9, 10]):
+            eng.add_request(base + tail, 6)
+        outs.append((eng.run(), eng.stats()["prefill_tokens"]))
+        assert eng.cache.num_free_pages() == 16
     assert outs[0] == outs[1]

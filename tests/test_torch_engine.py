@@ -2,7 +2,7 @@
 
 Both engines run ``ModelConfig.tiny()`` in float32 from the same parameters
 (JAX ``init_params`` crossed through numpy) with whole-prompt prefill
-(``prefill_chunk=0``); greedy tokens must be IDENTICAL, in the
+(``prefill_chunk=0``; the chunked path is in ``tests/test_torch_chunked.py``); greedy tokens must be IDENTICAL, in the
 continuous-batching and page-pressure preemption scenarios of
 ``tests/test_runtime.py``, and every page must be free afterwards.  The page
 allocator and admission scheduler are held to the JAX package's
@@ -133,11 +133,15 @@ def test_engine_sampled_is_seeded(models):
 
 
 def test_engine_unported_paths_raise(models):
+    """The default EngineConfig() (prefill_chunk=512) builds and serves;
+    multi-step and speculative decoding still raise."""
     (_, _), (tcfg, tp) = models
-    cc = tk.CacheConfig(num_layers=2, num_kv_heads=2, head_dim=32, page_size=8, num_pages=8)
-    with pytest.raises(NotImplementedError):
-        te.Engine(tp, tcfg, cc, te.EngineConfig(prefill_chunk=512), device="cpu")
-    eng = te.Engine(tp, tcfg, cc, te.EngineConfig(prefill_chunk=0), device="cpu")
+    cc = tk.CacheConfig(num_layers=2, num_kv_heads=2, head_dim=32, page_size=8, num_pages=8,
+                        dtype="float32")
+    eng = te.Engine(tp, tcfg, cc, device="cpu")
+    assert eng.cfg == te.EngineConfig() and eng.cfg.prefill_chunk == 512
+    rid = eng.add_request([1, 2, 3], 3)
+    assert len(eng.run()[rid]) == 3 and eng.cache.num_free_pages() == 8
     with pytest.raises(NotImplementedError):
         eng.run(multi_step=4)
     with pytest.raises(NotImplementedError):

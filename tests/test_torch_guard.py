@@ -100,6 +100,14 @@ def test_later_slices_raise():
         decode.paged_attention(q, pages, pages, lens, table, draft_k=2)
     with pytest.raises(NotImplementedError):
         decode.paged_attention(q, pages, pages, lens, table, window=4)
+    qp = torch.zeros(1, 2, 8, 32)
+    scales = torch.ones(3, 2, 8)
+    for kw in (dict(window=4), dict(logit_softcap=30.0),
+               dict(k_scales_pages=scales, v_scales_pages=scales)):
+        with pytest.raises(NotImplementedError):
+            decode.paged_prefill_attention_batched(qp, pages, pages, table, lens, chunk=8, **kw)
+        with pytest.raises(NotImplementedError):
+            decode.paged_prefill_attention(qp[0], pages, pages, table[0], 8, chunk=8, **kw)
     for dt in ("int8", "fp8"):
         with pytest.raises(NotImplementedError):
             kvcache.CacheConfig(num_layers=1, num_kv_heads=2, head_dim=32, dtype=dt)
