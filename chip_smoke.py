@@ -8,9 +8,12 @@ Phases, each of which must pass (any failure exits non-zero):
 1. build     - compile every CUDA kernel from ``flashattention_tpu_torch/csrc``
                (one nvcc per source, in parallel) and print the build seconds;
 2. kernels   - hold each kernel against its plain PyTorch version on the card,
-               in bfloat16 and float32, at the serving path's shapes, and time
-               kernel, plain version and (where one exists) the library call;
-               hold the naive kernel against the flash kernel (cross-check);
+               in bfloat16 and float32, at the serving and training paths'
+               shapes, and time kernel, plain version and (where one exists)
+               the library call; the three backward kernels at the training
+               layer's shape (Mistral-7B width: 32 q / 8 KV heads, d = 128,
+               B = 8, S = 2048), with segment ids from packed documents for
+               the two-pass pair, a ragged S and a kv_len / q_offset case;
 3. serve     - run the engine with whole-prompt prefill (prefill_chunk=0) at
                Llama-7B width (32 layers unless --layers): 8 greedy requests,
                64-1024 token prompts from --seed, 32 new tokens each,
@@ -31,7 +34,23 @@ Phases, each of which must pass (any failure exits non-zero):
                2-layer float32 cut at the same width, on the card (kernels)
                and on the CPU (plain versions); and the same cut through the
                chunked engine (a 600-token prompt, then one sharing its first
-               256 tokens); the logits must agree.
+               256 tokens); the logits must agree;
+7. train     - ``make_train_step`` at ``bench_train.py``'s configuration
+               (Mistral-7B width, 2 layers, sliding_window=None, bf16, B = 8,
+               S = 2048, random tokens from --seed, lr 1e-3), with remat off
+               (train) and on (train_remat): one warm-up step, then 3 timed
+               steps; step ms, tokens/s, model TFLOP/s and MFU by
+               ``bench_train.py``'s accounting, peak memory; the launches
+               must be the fused backward's (flash_bwd L per step, flash_fwd
+               L, or 2 L with remat); then a profile of one step;
+8. train_packed - ``make_train_step_packed`` on the same model over 8 rows
+               packed from random documents of 64-2048 tokens: the two-pass
+               backward (flash_bwd_dq and flash_bwd_dkv L per step);
+9. train_parity - a 2-layer float32 cut at the same width (B = 1, S = 256):
+               plain and packed steps, remat off and on, two steps each, on
+               the card and on the CPU (plain versions) from the same
+               parameters; losses, updated parameters and the first step's
+               gradients must agree.
 
 It prints one JSON line per check, a ``{"kernels": [...]}`` summary, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -55,10 +74,35 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # kernel vs plain, max abs
 PAGED_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 PREFILL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 NAIVE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# Backward kernels vs the plain backward computed in float32 from the same
+# (dtype-rounded) inputs: one rounding of each output, and the sums' order.
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 CROSS_TOL = 2e-2  # naive vs flash kernel, bfloat16 inputs and outputs
 STATS_RTOL = 1e-5  # l, m residuals: max abs error over max |value|
 PARITY_TOL = 1e-3  # float32 logits, card kernels vs CPU plain versions
+# Training parity, float32, card vs CPU after two SGD steps: losses (relative)
+# and updated parameters (absolute, tests/test_train.py's bound between two
+# device layouts); and the first step's gradients, per tensor max error over
+# max |gradient| (at lr 1e-3 the parameter bound alone would pass a wrong
+# gradient; comparing updates instead would measure the rounding of p - lr g
+# at |p| ~ 1, where one float32 ulp is 6e-8).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_TOL = 3e-5
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 3
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# (name, source in flashattention_tpu_torch/csrc/, the TPU kernel it
+# replaces in flashattention_tpu/)
+KERNELS = (
+    ("flash_fwd", "flash_fwd.cu", "ops/flash.py:628"),
+    ("paged_decode", "paged_decode.cu", "ops/decode.py:89"),
+    ("paged_prefill", "paged_prefill.cu", "ops/decode.py:375"),
+    ("flash_naive", "flash_naive.cu", "ops/flash.py:1690"),
+    ("flash_bwd", "flash_bwd.cu", "ops/backward.py:401"),
+    ("flash_bwd_dq", "flash_bwd_dq.cu", "ops/backward.py:146"),
+    ("flash_bwd_dkv", "flash_bwd_dkv.cu", "ops/backward.py:269"),
+)
 
 
 def emit(obj) -> None:
@@ -362,12 +406,15 @@ def phase_crosscheck(fa, flash, gen, report):
     return rec
 
 
-def _counters(flash, decode):
+def _counters(flash, decode, backward):
     return {
         "flash_fwd": flash.flash_attention,
         "paged_decode": decode.paged_attention,
         "paged_prefill": decode.paged_prefill_attention_batched,
         "flash_naive": flash.flash_attention_naive,
+        "flash_bwd": backward.fused_bwd_kernel,
+        "flash_bwd_dq": backward.dq_kernel,
+        "flash_bwd_dkv": backward.dkv_kernel,
     }
 
 
@@ -422,11 +469,9 @@ def phase_serve(args, cfg, params, engine_mod, kvcache, counters, report):
     wall, launches = _drive(counters, eng.run)
     full = _finished(eng, ids, budget)
     st = eng.stats()
-    want = {
-        "flash_fwd": cfg.num_layers * st["prefill_batches"],
-        "paged_decode": cfg.num_layers * st["decode_batches"],
-        "paged_prefill": 0, "flash_naive": 0,
-    }
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_fwd=cfg.num_layers * st["prefill_batches"],
+                paged_decode=cfg.num_layers * st["decode_batches"])
     rec = _serve_rec("serve", cfg, st, full, wall, launches, want,
                      {"prompt_lens": lens.tolist(), "new_tokens": budget})
     rec["ok"] = (
@@ -471,12 +516,10 @@ def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report
     wall, launches = _drive(counters, drive)
     full = _finished(eng, ids, budget)
     st = eng.stats()
-    want = {
-        "flash_fwd": cfg.num_layers * st["prefill_batches"],
-        "paged_decode": cfg.num_layers * st["decode_batches"],
-        "paged_prefill": cfg.num_layers * st["chunk_rounds"],
-        "flash_naive": 0,
-    }
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_fwd=cfg.num_layers * st["prefill_batches"],
+                paged_decode=cfg.num_layers * st["decode_batches"],
+                paged_prefill=cfg.num_layers * st["chunk_rounds"])
     want_prefill = sum(len(p) for p in prompts) - 3 * shared
     rec = _serve_rec("serve_chunked", cfg, st, full, wall, launches, want, {
         "prompt_lens": [len(p) for p in prompts], "shared_prefix": shared,
@@ -498,14 +541,9 @@ def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report
 
 def phase_profile(args, eng, cfg, *, prompt_len, tag):
     """Where the serving time goes: 4 more requests (``prompt_len``-token
-    prompts, 8 new tokens) through the same engine after the counted run,
-    once untraced for the wall time and once under torch.profiler (device
-    activity only, so the host is not slowed by op tracing).  The two runs
-    draw different prompts, so the second finds no prefix of the first.
-    Reports the device's busy share of the untraced wall time and the
-    kernels that took the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    prompts, 8 new tokens) through the same engine after the counted run.
+    The two runs of :func:`_profile` draw different prompts, so the second
+    finds no prefix of the first."""
 
     def workload(seed):
         rng = np.random.default_rng(seed)
@@ -517,9 +555,24 @@ def phase_profile(args, eng, cfg, *, prompt_len, tag):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e6
 
-    wall_us = workload(args.seed + 2)
+    return _profile(
+        lambda run: workload(args.seed + 2 + run), f"profile/{tag}",
+        {"requests": 4, "prompt_len": prompt_len, "new_tokens": 8},
+    )
+
+
+def _profile(workload, phase, extra):
+    """Run ``workload(run)`` (returns its wall microseconds) once untraced
+    for the wall time (run 0) and once under torch.profiler (run 1; device
+    activity only, so the host is not slowed by op tracing).  Reports the
+    device's busy share of the untraced wall time and the kernels that took
+    the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wall_us = workload(0)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        traced_us = workload(args.seed + 3)
+        traced_us = workload(1)
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
         for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -535,11 +588,15 @@ def phase_profile(args, eng, cfg, *, prompt_len, tag):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     ours = {
         k: sum(t for n, (_, t) in by_name.items() if f"{k}_kernel" in n) / 1e3
-        for k in ("flash_fwd", "paged_decode", "paged_prefill", "flash_naive")
+        for k, _, _ in KERNELS
     }
+    # cuBLAS matrix products (the model's projections, MLP and LM head).
+    gemm = sum(t for n, (_, t) in by_name.items() if any(g in n for g in ("nvjet", "gemm", "xmma")))
     rec = {
-        "phase": f"profile/{tag}", "requests": 4, "prompt_len": prompt_len, "new_tokens": 8,
+        "phase": phase, **extra,
         "wall_ms": wall_us / 1e3, "traced_wall_ms": traced_us / 1e3,
+        "kernels_total_ms": sum(t for _, t in by_name.values()) / 1e3,
+        "gemm_device_ms": gemm / 1e3,
         "device_busy_ms": busy / 1e3 if spans else "not measured",
         "device_idle_share": 1 - busy / wall_us if spans else "not measured",
         "kernel_device_ms": ours,
@@ -642,6 +699,325 @@ def parity_chunked(args, cfg, cpu_params, gpu_params, kvcache, engine_mod):
     return rec
 
 
+def _packed_ids(packing, seed, b, s, vocab=32000, lo=64, hi=2048):
+    """(tokens, segment ids) of ``b`` rows of ``s`` tokens, packed first fit
+    from random documents of ``lo``-``hi`` tokens; the first ``b`` rows."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    while True:
+        docs += [rng.integers(0, vocab, size=int(n)) for n in rng.integers(lo, hi + 1, size=8)]
+        tokens, segs = packing.pack_documents(docs, s)
+        if len(tokens) >= 2 * b:  # later rows are the least filled; keep the first
+            return tokens[:b], segs[:b]
+
+
+def _fold_ids(seg, kvh, g):
+    """(B, S) ids -> the (B*KVH, G*S) q and (B*KVH, S) KV layouts of the
+    training forward (g-major rows per KV head)."""
+    b, s = seg.shape
+    return (seg[:, None, None, :].expand(b, kvh, g, s).reshape(b * kvh, g * s).contiguous(),
+            seg[:, None, :].expand(b, kvh, s).reshape(b * kvh, s).contiguous())
+
+
+def _live_pairs(flash, bh, rows, s_kv, kw, segs):
+    """(query row, key column) pairs the kernels compute, summed over the
+    ``bh`` heads (segment ids: ``(bh, rows)`` and ``(bh, s_kv)``)."""
+    mask = flash.visible(rows, s_kv, causal=kw["causal"], kv_len=kw["kv_len"] or s_kv,
+                         q_offset=kw["q_offset"], q_seq_len=kw["q_seq_len"], device="cuda", **segs)
+    return int(mask.sum()) * (1 if segs else bh)
+
+
+def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
+    """The three backward kernels against the plain backward (float32 from
+    the same inputs).  Cases: the training layer (B=8, 8 KV heads x G=4,
+    S=2048, d=128, causal; float32 at B=2), the packed training layer (the
+    same with segment ids from packed documents), a ragged S=300 with and
+    without segment ids (PAD_SEGMENT rows included), and kv_len / q_offset.
+    The fused kernel runs every case without segment ids, the two-pass pair
+    every case.  o and lse come from the forward kernel; do is drawn at a
+    quarter of the scale of q, k, v (see below), and each record carries the
+    gradients' largest magnitudes.  Timed at the bf16
+    training shapes: the fused backward (``flash_attention_bwd``, which
+    computes di and casts dQ too) on the plain layer, each two-pass kernel
+    on the packed layer."""
+    mains = {}
+    _, seg_np = _packed_ids(packing, args.seed + 5, TRAIN_B, TRAIN_S)
+    packed = torch.tensor(seg_np, device="cuda")
+    short = torch.full((1, 300), -1, dtype=torch.int32, device="cuda")
+    short[0, :120], short[0, 120:270] = 0, 1
+    train = dict(kvh=8, g=4, s_q=TRAIN_S, s_kv=TRAIN_S, d=128)
+    cases = [
+        ("train_layer", dict(train, b=TRAIN_B), "bfloat16"),
+        ("train_layer_b2", dict(train, b=2), "float32"),
+        ("packed_layer", dict(train, b=TRAIN_B, seg=packed), "bfloat16"),
+        ("packed_layer_b2", dict(train, b=2, seg=packed[:2]), "float32"),
+    ]
+    for dt in ("bfloat16", "float32"):
+        cases += [
+            ("ragged_s300", dict(b=1, kvh=8, g=4, s_q=300, s_kv=300, d=128), dt),
+            ("segments_s300", dict(b=1, kvh=8, g=4, s_q=300, s_kv=300, d=128, seg=short), dt),
+            ("kvlen_qoffset", dict(b=2, kvh=8, g=1, s_q=256, s_kv=1024, d=128, kv_len=900,
+                                   q_offset=600), dt),
+        ]
+    for name, c, dt in cases:
+        bh, rows, d = c["b"] * c["kvh"], c["g"] * c["s_q"], c["d"]
+        def rand(shape, dt=dt):
+            return torch.randn(shape, generator=gen, device="cuda").to(DTYPES[dt])
+
+        q, k, v = rand((bh, rows, d)), rand((bh, c["s_kv"], d)), rand((bh, c["s_kv"], d))
+        # do at a quarter of the scale (exact in bf16) keeps every gradient
+        # below 4, where one bf16 rounding costs at most 2^-7: with unit do,
+        # dV of the first key columns (seen with P near 1 by the first row
+        # of each of the G groups) reaches 10, whose rounding alone is 0.03.
+        do = rand((bh, rows, d)) * 0.25
+        kw = dict(causal=True, scale=d**-0.5, kv_len=c.get("kv_len"), q_offset=c.get("q_offset", 0),
+                  q_seq_len=c["s_q"])
+        segs = {}
+        if "seg" in c:
+            seg_q, seg_kv = _fold_ids(c["seg"], c["kvh"], c["g"])
+            segs = dict(q_segment_ids=seg_q, kv_segment_ids=seg_kv)
+        o, l, m = flash.flash_attention(q, k, v, save_residuals=True, **kw, **segs)
+        lse = m + torch.log(torch.where(l == 0, 1.0, l))
+        ins = (q, k, v, o, lse, do)
+        fp32 = [x.float() for x in ins]
+        plain = lambda: backward.flash_attention_bwd_plain(*fp32, **kw, **segs)  # noqa: E731
+        want = plain()
+        runs = {"two_pass": backward.flash_attention_bwd(*ins, fused=False, **kw, **segs)}
+        if not segs:
+            runs["fused"] = backward.flash_attention_bwd(*ins, fused=True, **kw)
+        torch.cuda.synchronize()
+        errs = {run: [err(g_, w) for g_, w in zip(got, want)] for run, got in runs.items()}
+        absmax = [float(w.abs().max()) for w in want]
+        recs = {}
+        if "fused" in errs:
+            recs["flash_bwd"] = max(errs["fused"])
+        recs["flash_bwd_dq"] = errs["two_pass"][0]
+        recs["flash_bwd_dkv"] = max(errs["two_pass"][1:])
+        for kname, e in recs.items():
+            rec = {"check": f"{kname}/{name}/{dt}", "max_abs_err": e, "tol": BWD_TOL[dt],
+                   "ok": e <= BWD_TOL[dt], "grad_absmax": absmax,
+                   "shape": {**{n: x for n, x in c.items() if n != "seg"}, "segment_ids": "seg" in c}}
+            timed = (name, dt) in (("train_layer", "bfloat16"), ("packed_layer", "bfloat16"))
+            if timed and (kname == "flash_bwd") == (name == "train_layer"):
+                rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, plain, dt))
+                mains[kname] = rec
+            emit(rec)
+            report["checks"].append(rec)
+        del q, k, v, do, o, l, m, lse, ins, fp32, want, runs
+        torch.cuda.empty_cache()
+    return mains
+
+
+def _time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, plain, dt):
+    """Kernel, plain and library times of one backward kernel, and its bound."""
+    q, k, v, o, lse, do = ins
+    di = (o.float() * do.float()).sum(dim=-1)
+    if kname == "flash_bwd":
+        kernel = lambda: backward.flash_attention_bwd(*ins, fused=True, **kw)  # noqa: E731
+        reads, writes, per_pair = (q, k, v, o, do, lse), (q, k, v), 10
+    elif kname == "flash_bwd_dq":
+        kernel = lambda: backward.dq_kernel(q, k, v, do, lse, di, **kw, **segs)  # noqa: E731
+        reads, writes, per_pair = (q, k, v, do, lse, di, *segs.values()), (q,), 6
+    else:
+        kernel = lambda: backward.dkv_kernel(q, k, v, do, lse, di, **kw, **segs)  # noqa: E731
+        reads, writes, per_pair = (q, k, v, do, lse, di, *segs.values()), (k, v), 8
+    out = {"kernel_ms": benchit.cuda_time_ms(kernel, warmup=1, iters=5),
+           "plain_ms": benchit.cuda_time_ms(plain, warmup=1, iters=3)}
+    # Library yardstick: the backward of one scaled_dot_product_attention
+    # call, timed alone (torch.autograd.grad on a kept graph).  Causal with
+    # native GQA for the plain layer; with segment ids a boolean mask
+    # (causal and same segment) over K/V repeated to the 32 q heads
+    # beforehand, untimed, since the masked kernels take no GQA.
+    b, kvh, g, s, d = c["b"], c["kvh"], c["g"], c["s_q"], c["d"]
+    q4 = q.reshape(b, kvh * g, s, d).detach().requires_grad_()
+    k4 = k.reshape(b, kvh, s, d).detach()
+    v4 = v.reshape(b, kvh, s, d).detach()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if segs:
+        seg = c["seg"]
+        mask = (seg[:, :, None] == seg[:, None, :]) & torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+        k4 = k4.repeat_interleave(g, dim=1).requires_grad_()
+        v4 = v4.repeat_interleave(g, dim=1).requires_grad_()
+        res = sdpa(q4, k4, v4, attn_mask=mask[:, None], scale=kw["scale"])
+        out["library"] = "scaled_dot_product_attention backward, boolean causal+segment mask, K/V repeated to 32 heads untimed"
+    else:
+        k4, v4 = k4.requires_grad_(), v4.requires_grad_()
+        res = sdpa(q4, k4, v4, is_causal=True, scale=kw["scale"], enable_gqa=True)
+        out["library"] = "scaled_dot_product_attention backward, is_causal, enable_gqa"
+    do4 = do.reshape(res.shape)
+    out["library_ms"] = benchit.cuda_time_ms(
+        lambda: torch.autograd.grad(res, (q4, k4, v4), do4, retain_graph=True), warmup=1, iters=5
+    )
+    pairs = _live_pairs(flash, q.shape[0], q.shape[1], k.shape[1], kw, segs)
+    nbytes = sum(t.numel() * t.element_size() for t in reads + writes)
+    out["live_pairs"] = pairs
+    out.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=per_pair * d * pairs, dtype=dt))
+    return out
+
+
+def _train_cfg(transformer, dtype="bfloat16"):
+    """bench_train.py's configuration: Mistral-7B width in 2 layers, no window."""
+    return dataclasses.replace(
+        transformer.ModelConfig.mistral7b(num_layers=2), sliding_window=None, dtype=dtype
+    )
+
+
+def _matmul_params(cfg):
+    """bench_train.py's count: matmul parameters, lm_head in, embedding out."""
+    per_layer = (
+        cfg.d_model * cfg.num_q_heads * cfg.head_dim
+        + 2 * cfg.d_model * cfg.num_kv_heads * cfg.head_dim
+        + cfg.num_q_heads * cfg.head_dim * cfg.d_model
+        + 3 * cfg.d_model * cfg.intermediate
+    )
+    return cfg.num_layers * per_layer + cfg.d_model * cfg.vocab_size
+
+
+def _train_rec(phase, cfg, benchit, card, wall, steps, losses, launches, want, attn_fwd, extra):
+    """bench_train.py's accounting: 6 N_matmul tokens + 3.5 x attention forward."""
+    tokens = TRAIN_B * TRAIN_S
+    flops = 6 * _matmul_params(cfg) * tokens + 3.5 * attn_fwd
+    tflops = flops * steps / wall / 1e12
+    finite = all(np.isfinite(x) for x in losses)
+    return {
+        "phase": phase, "model": "mistral7b(num_layers=2), sliding_window=None", "dtype": cfg.dtype,
+        "batch": TRAIN_B, "seq": TRAIN_S, "steps": steps, **extra, "losses": losses,
+        "step_ms": 1e3 * wall / steps, "tokens_per_s": tokens * steps / wall,
+        "model_tflop_per_step": flops / 1e12, "model_tflops": tflops,
+        "mfu": tflops / benchit.card_peaks(card)["bfloat16"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "launches_expected": want,
+        "ok": finite and launches == want,
+    }
+
+
+def phase_train(args, cfg, params, train, benchit, counters, card, report, *, remat):
+    """The plain step: one warm-up step, then TRAIN_STEPS counted steps."""
+    rng = np.random.default_rng(args.seed + 20)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)), dtype=torch.int32,
+                          device="cuda")
+    step = train.make_train_step(cfg, lr=1e-3, remat=remat)
+    step(params, tokens)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    wall, launches = _drive(counters, lambda: out.extend(step(params, tokens)[0] for _ in range(TRAIN_STEPS)))
+    layers = cfg.num_layers
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_fwd=(2 if remat else 1) * layers * TRAIN_STEPS, flash_bwd=layers * TRAIN_STEPS)
+    attn_fwd = layers * benchit.attention_flops(TRAIN_B * cfg.num_q_heads, TRAIN_S, TRAIN_S,
+                                                cfg.head_dim, causal=True)
+    phase = "train_remat" if remat else "train"
+    rec = _train_rec(phase, cfg, benchit, card, wall, TRAIN_STEPS, [float(x) for x in out],
+                     launches, want, attn_fwd, {"remat": remat})
+    emit(rec)
+    report[phase] = rec
+    if not remat:
+
+        def one_step(run):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, tokens)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e6
+
+        report["profile_train"] = _profile(one_step, "profile/train", {"steps": 1, "remat": False})
+    return rec
+
+
+def phase_train_packed(args, cfg, params, train, packing, flash, benchit, counters, card, report):
+    """The packed step over TRAIN_B rows packed from random documents."""
+    tok_np, seg_np = _packed_ids(packing, args.seed + 21, TRAIN_B, TRAIN_S, cfg.vocab_size)
+    tokens = torch.tensor(tok_np, device="cuda")
+    segs = torch.tensor(seg_np, device="cuda")
+    step = train.make_train_step_packed(cfg, lr=1e-3)
+    step(params, tokens, segs)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    wall, launches = _drive(
+        counters, lambda: out.extend(step(params, tokens, segs)[0] for _ in range(TRAIN_STEPS))
+    )
+    layers = cfg.num_layers
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_fwd=layers * TRAIN_STEPS, flash_bwd_dq=layers * TRAIN_STEPS,
+                flash_bwd_dkv=layers * TRAIN_STEPS)
+    # Attention forward flops of this run's data: 4 d per live pair and head.
+    pairs = _live_pairs(flash, TRAIN_B, TRAIN_S, TRAIN_S,
+                        dict(causal=True, kv_len=None, q_offset=0, q_seq_len=TRAIN_S),
+                        dict(q_segment_ids=segs, kv_segment_ids=segs))
+    attn_fwd = layers * 4 * cfg.head_dim * cfg.num_q_heads * pairs
+    valid = int(((segs[:, 1:] == segs[:, :-1]) & (segs[:, 1:] >= 0)).sum())
+    rec = _train_rec("train_packed", cfg, benchit, card, wall, TRAIN_STEPS, [float(x) for x in out],
+                     launches, want, attn_fwd, {
+                         "documents_per_row": [len(set(r.tolist()) - {-1}) for r in seg_np],
+                         "pad_tokens": int((seg_np < 0).sum()), "valid_targets": valid,
+                         "live_pairs_per_head": pairs,
+                     })
+    emit(rec)
+    report["train_packed"] = rec
+    return rec
+
+
+def phase_train_parity(args, transformer, train, packing, report):
+    """Plain and packed steps, remat off and on, two steps each, on the card
+    and on the CPU from the same float32 parameters (2-layer cut at the
+    training width, B=1, S=256)."""
+    cfg = _train_cfg(transformer, "float32")
+    base = transformer.init_params(args.seed, cfg, device="cpu")
+    rng = np.random.default_rng(args.seed + 30)
+    tokens = rng.integers(0, cfg.vocab_size, (1, 256)).astype(np.int32)
+    docs = [rng.integers(0, cfg.vocab_size, int(n)) for n in (70, 100, 50)]
+    p_tokens, p_segs = packing.pack_documents(docs, 256)
+
+    def copy_to(dev):
+        return {k: (v.to(dev, copy=True) if torch.is_tensor(v)
+                    else [{n: w.to(dev, copy=True) for n, w in lay.items()} for lay in v])
+                for k, v in base.items()}
+
+    def data(packed, dev):
+        if packed:
+            return torch.tensor(p_tokens, device=dev), torch.tensor(p_segs, device=dev)
+        return (torch.tensor(tokens, device=dev),)
+
+    cases = []
+    for packed in (False, True):
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            _, g = train.forward.make_grad_fn(cfg, packed=packed)(copy_to(dev), *data(packed, dev))
+            grads[dev] = [x.cpu() for x in g]
+        grad_rel = max(err(a, b) / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(grads["cuda"], grads["cpu"]))
+        del grads
+        for remat in (False, True):
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                params = copy_to(dev)
+                make = train.make_train_step_packed if packed else train.make_train_step
+                step = make(cfg, lr=1e-3, remat=remat, device=dev)
+                losses = [float(step(params, *data(packed, dev))[0]) for _ in range(2)]
+                runs[dev] = (losses, [p.cpu() for p in train.common.leaves(params)])
+                del params
+            (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+            param_err = max(err(a, b) for a, b in zip(p_gpu, p_cpu))
+            cases.append({
+                "packed": packed, "remat": remat, "losses_cpu": l_cpu, "losses_card": l_gpu,
+                "loss_rel_err": loss_rel, "param_max_abs_err": param_err,
+                "grad_rel_err": grad_rel,
+                "ok": loss_rel <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_TOL
+                and grad_rel <= TRAIN_GRAD_RTOL,
+            })
+    rec = {"phase": "train_parity", "layers": 2, "dtype": "float32", "batch": 1, "seq": 256,
+           "lr": 1e-3, "steps": 2, "packed_docs": [len(d) for d in docs], "cases": cases,
+           "tol": {"loss_rel": TRAIN_LOSS_RTOL, "param_abs": TRAIN_PARAM_TOL,
+                   "grad_rel": TRAIN_GRAD_RTOL},
+           "ok": all(c["ok"] for c in cases)}
+    emit(rec)
+    report["train_parity"] = rec
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -650,11 +1026,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from flashattention_tpu_torch.models import transformer
-    from flashattention_tpu_torch.ops import decode, flash, kernels
+    from flashattention_tpu_torch.models import train, transformer
+    from flashattention_tpu_torch.ops import backward, decode, flash, kernels
     from flashattention_tpu_torch.runtime import engine as engine_mod
     from flashattention_tpu_torch.runtime import kvcache
-    from flashattention_tpu_torch.utils import benchit
+    from flashattention_tpu_torch.utils import benchit, packing
     import flashattention_tpu_torch as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
@@ -662,7 +1038,7 @@ def main() -> int:
     card = benchit.card_info()
     name = torch.cuda.get_device_name(0)
     report = {"card": card, "device": name, "build": {}, "checks": []}
-    counters = _counters(flash, decode)
+    counters = _counters(flash, decode, backward)
 
     phase_build(kernels, report)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -671,6 +1047,7 @@ def main() -> int:
         "paged_decode": paged_checks(decode, benchit, gen, name, report),
         "paged_prefill": prefill_checks(decode, benchit, gen, name, report),
         "flash_naive": naive_checks(flash, benchit, gen, name, report),
+        **bwd_checks(backward, flash, benchit, packing, args, gen, name, report),
     }
     cfg = dataclasses.replace(
         transformer.ModelConfig.llama7b_attention(), num_layers=args.layers
@@ -686,23 +1063,29 @@ def main() -> int:
     cross = phase_crosscheck(fa, flash, gen, report)
     phase_parity(args, transformer, kvcache, engine_mod, report)
 
+    tcfg = _train_cfg(transformer)
+    tparams = transformer.init_params(args.seed, tcfg)
+    trained = {
+        "train": phase_train(args, tcfg, tparams, train, benchit, counters, name, report, remat=False),
+        "train_remat": phase_train(args, tcfg, tparams, train, benchit, counters, name, report,
+                                   remat=True),
+        "train_packed": phase_train_packed(args, tcfg, tparams, train, packing, flash, benchit,
+                                           counters, name, report),
+    }
+    del tparams
+    torch.cuda.empty_cache()
+    phase_train_parity(args, transformer, train, packing, report)
+
     paths = {"serve": serve["launches"], "serve_chunked": chunked["launches"],
-             "crosscheck": cross["launches"]}
+             "crosscheck": cross["launches"],
+             **{p: r["launches"] for p, r in trained.items()}}
     summary = []
-    for kname, source, replaces in (
-        ("flash_fwd", "flashattention_tpu_torch/csrc/flash_fwd.cu",
-         "flashattention_tpu/ops/flash.py:628"),
-        ("paged_decode", "flashattention_tpu_torch/csrc/paged_decode.cu",
-         "flashattention_tpu/ops/decode.py:89"),
-        ("paged_prefill", "flashattention_tpu_torch/csrc/paged_prefill.cu",
-         "flashattention_tpu/ops/decode.py:375"),
-        ("flash_naive", "flashattention_tpu_torch/csrc/flash_naive.cu",
-         "flashattention_tpu/ops/flash.py:1690"),
-    ):
+    for kname, source, replaces in KERNELS:
         main_rec = mains[kname]
         by_path = {p: n[kname] for p, n in paths.items() if n.get(kname)}
         summary.append({
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "name": kname, "route": "cuda", "source": f"flashattention_tpu_torch/csrc/{source}",
+            "replaces": f"flashattention_tpu/{replaces}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": main_rec["max_abs_err"],
             "tol": main_rec["tol"], "shape": main_rec["check"],
@@ -717,7 +1100,8 @@ def main() -> int:
         json.dump(report, fh, indent=1)
 
     failed = [c["check"] for c in report["checks"] if not c["ok"]]
-    failed += [p for p in ("serve", "serve_chunked", "crosscheck", "parity", "parity_chunked")
+    failed += [p for p in ("serve", "serve_chunked", "crosscheck", "parity", "parity_chunked",
+                           "train", "train_remat", "train_packed", "train_parity")
                if not report[p]["ok"]]
     failed += [k["name"] for k in summary if k["launches"] == 0]
     emit({"kernels": summary})

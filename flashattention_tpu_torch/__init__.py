@@ -7,6 +7,7 @@ find; every Pallas kernel it has ported is a CUDA C++ kernel for Hopper
 beside it for CPU tensors.  It imports neither JAX nor the JAX package.
 """
 
+from flashattention_tpu_torch.ops.backward import attention_vjp, flash_attention_bwd
 from flashattention_tpu_torch.ops.decode import (
     paged_attention,
     paged_prefill_attention,
@@ -27,6 +28,8 @@ __all__ = [
     "BlockSizes",
     "flash_attention",
     "flash_attention_naive",
+    "attention_vjp",
+    "flash_attention_bwd",
     "paged_attention",
     "paged_prefill_attention",
     "paged_prefill_attention_batched",

@@ -4,7 +4,9 @@
 // Replaces flashattention_tpu/ops/flash.py::_kernel (the Pallas forward,
 // pallas_call in _flash_attention).  It computes what that kernel computes on
 // the serving path: causal masking at query position q_offset + (r mod
-// q_seq_len) (the GQA row fold), a live KV length kv_len, a score scale, and
+// q_seq_len) (the GQA row fold), a live KV length kv_len, a score scale,
+// segment ids (row r sees column c only where their int32 ids are equal, the
+// packed training step's mask, flash.py:682-688 and :837-843), and
 // optionally the softmax statistics (l, m) in float32.
 //
 // Bound on this card: at the prefill shapes (S >= 1024, d = 128) attention is
@@ -23,7 +25,8 @@
 // the warp reads the same one (a broadcast, no bank conflict).  The four
 // partial dot products meet through two shuffles.  K/V tiles are staged in
 // shared memory as float32 (2 x 32 x d x 4 bytes = 32 KB at d = 128, below the
-// 48 KB that would need cudaFuncAttributeMaxDynamicSharedMemorySize).
+// 48 KB that would need cudaFuncAttributeMaxDynamicSharedMemorySize), with
+// the tile's segment ids when there are any.
 #include "common.cuh"
 
 namespace {
@@ -37,7 +40,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ l_out, float* __restrict__ m_out, int rows,
+                 float* __restrict__ l_out, float* __restrict__ m_out,
+                 const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int rows,
                  int s_kv, int kv_len, int q_offset, int q_seq_len, int causal,
                  float scale) {
   constexpr int kVec = D / 4;                     // float4 chunks per row
@@ -46,6 +50,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 "head_dim must be a multiple of 16");
   __shared__ float4 k_tile[kBlockKV][kVec];
   __shared__ float4 v_tile[kBlockKV][kVec];
+  __shared__ int seg_tile[kBlockKV];
 
   const int bh = blockIdx.y;
   const int r0 = blockIdx.x * kBlockQ;
@@ -56,6 +61,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Causal position of this row: GQA folds G query heads into the rows of
   // one KV head, each a q_seq_len-row segment at the same positions.
   const int pos = q_offset + (live ? row % q_seq_len : 0);
+  const bool has_seg = q_seg != nullptr;
+  const int my_seg =
+      has_seg ? q_seg[static_cast<size_t>(bh) * rows + (live ? row : r0)] : 0;
+  const int* seg_head = has_seg ? kv_seg + static_cast<size_t>(bh) * s_kv : nullptr;
 
   const T* q_row = q + (static_cast<size_t>(bh) * rows + (live ? row : r0)) * D;
   float4 qr[kChunks];
@@ -95,6 +104,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       reinterpret_cast<float*>(k_tile)[idx] = kx;
       reinterpret_cast<float*>(v_tile)[idx] = vx;
     }
+    if (has_seg && tid < kBlockKV)
+      seg_tile[tid] = t0 + tid < kv_end ? seg_head[t0 + tid] : 0;
     __syncthreads();
 
     float s[kBlockKV];
@@ -110,7 +121,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int col = t0 + j;
-      const bool keep = col < kv_len && (!causal || col <= pos);
+      const bool keep = col < kv_len && (!causal || col <= pos) &&
+                        (!has_seg || seg_tile[j] == my_seg);
       s[j] = keep ? dot * scale : fa::kMaskValue;
       tile_max = fmaxf(tile_max, s[j]);
     }
@@ -164,25 +176,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* l,
-           float* m, int bh, int rows, int s_kv, int kv_len, int q_offset,
-           int q_seq_len, int causal, float scale, cudaStream_t stream) {
+           float* m, const int* q_seg, const int* kv_seg, int bh, int rows,
+           int s_kv, int kv_len, int q_offset, int q_seq_len, int causal,
+           float scale, cudaStream_t stream) {
   const dim3 grid((rows + kBlockQ - 1) / kBlockQ, bh);
   flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), l, m, rows, s_kv, kv_len,
-      q_offset, q_seq_len, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), l, m, q_seg, kv_seg, rows,
+      s_kv, kv_len, q_offset, q_seq_len, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             float* l, float* m, int bh, int rows, int s_kv, int kv_len,
-             int q_offset, int q_seq_len, int causal, float scale,
-             cudaStream_t stream) {
+             float* l, float* m, const int* q_seg, const int* kv_seg, int bh,
+             int rows, int s_kv, int kv_len, int q_offset, int q_seq_len,
+             int causal, float scale, cudaStream_t stream) {
 #define FA_CASE(D)                                                            \
   case D:                                                                     \
-    return launch<T, D>(q, k, v, o, l, m, bh, rows, s_kv, kv_len, q_offset,  \
-                        q_seq_len, causal, scale, stream);
+    return launch<T, D>(q, k, v, o, l, m, q_seg, kv_seg, bh, rows, s_kv,     \
+                        kv_len, q_offset, q_seq_len, causal, scale, stream);
   switch (d) {
     FA_CASE(16)
     FA_CASE(32)
@@ -197,20 +210,24 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q: (bh, rows, d); k, v: (bh, s_kv, d); o like q; l, m: (bh, rows) float32
-// or both null.  All contiguous, on the device, of one dtype code.
+// or both null; q_seg: (bh, rows) and kv_seg: (bh, s_kv) int32, both or
+// neither null.  All contiguous, on the device, q/k/v/o of one dtype code.
 extern "C" int fa_flash_fwd(int dtype, const void* q, const void* k,
-                            const void* v, void* o, void* l, void* m, int bh,
+                            const void* v, void* o, void* l, void* m,
+                            const void* q_seg, const void* kv_seg, int bh,
                             int rows, int s_kv, int d, int kv_len, int q_offset,
                             int q_seq_len, int causal, float scale,
                             void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto lf = static_cast<float*>(l);
   auto mf = static_cast<float*>(m);
+  auto qs = static_cast<const int*>(q_seg);
+  auto ks = static_cast<const int*>(kv_seg);
   if (dtype == fa::kFloat32)
-    return launch_d<float>(d, q, k, v, o, lf, mf, bh, rows, s_kv, kv_len,
+    return launch_d<float>(d, q, k, v, o, lf, mf, qs, ks, bh, rows, s_kv, kv_len,
                            q_offset, q_seq_len, causal, scale, st);
   if (dtype == fa::kBFloat16)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, lf, mf, bh, rows, s_kv,
+    return launch_d<__nv_bfloat16>(d, q, k, v, o, lf, mf, qs, ks, bh, rows, s_kv,
                                    kv_len, q_offset, q_seq_len, causal, scale,
                                    st);
   return -1;

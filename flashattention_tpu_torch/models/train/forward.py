@@ -1,0 +1,104 @@
+"""Transformer forward for training, and its loss-and-gradients function.
+
+Counterpart of ``flashattention_tpu/models/train/forward.py`` on one device
+(``tp_size = 1``, so the f/g collectives are identities): token lookup,
+RMSNorm, RoPE (per document for packed rows), GQA folded into the rows of
+each KV head (g-major), attention through the differentiable
+:func:`~flashattention_tpu_torch.ops.backward.attention_vjp`, SwiGLU, the
+final norm and the LM head.  ``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), so the flash forward kernel
+runs twice per layer and step.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from flashattention_tpu_torch.models.train.common import (
+    leaves,
+    packed_positions,
+    token_nll,
+    with_leaves,
+)
+from flashattention_tpu_torch.models.transformer import ModelConfig, _lookup, _mlp, _rmsnorm, _rope
+from flashattention_tpu_torch.ops.backward import attention_vjp
+
+__all__ = ["forward_logits", "make_grad_fn"]
+
+
+def forward_logits(params, tokens, cfg: ModelConfig, *, segment_ids=None, remat=False):
+    """Logits ``(B, S, V)`` of ``tokens`` ``(B, S)`` (forward.py:16).
+
+    With ``segment_ids`` (B, S), each row packs several documents: RoPE
+    positions restart per document and attention stays within it (segment
+    ids folded like the q rows, g-major per KV head; forward.py:73-86).
+    """
+    b, s = tokens.shape
+    hq, hkv, g, hd = cfg.num_q_heads, cfg.num_kv_heads, cfg.group_size, cfg.head_dim
+    x = _lookup(params["embed"], tokens)
+    if segment_ids is not None:
+        positions = packed_positions(segment_ids)
+        seg = segment_ids.to(torch.int32)
+        seg_qf = seg[:, None, None, :].expand(b, hkv, g, s).reshape(b * hkv, g * s)
+        seg_kvf = seg[:, None, :].expand(b, hkv, s).reshape(b * hkv, s)
+    else:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        seg_qf = seg_kvf = None
+
+    def one_layer(x, layer):
+        h = _rmsnorm(x, layer["attn_norm"])
+        q = (h @ layer["wq"]).reshape(b, s, hq, hd)
+        k = (h @ layer["wk"]).reshape(b, s, hkv, hd)
+        v = (h @ layer["wv"]).reshape(b, s, hkv, hd)
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        # Native GQA (forward.py:99-110): the G query heads of each KV head
+        # (h = kvh * G + g) fold into its rows, so no K/V head is repeated.
+        qf = q.transpose(1, 2).reshape(b * hkv, g * s, hd)
+        kf = k.transpose(1, 2).reshape(b * hkv, s, hd)
+        vf = v.transpose(1, 2).reshape(b * hkv, s, hd)
+        o = attention_vjp(
+            qf, kf, vf, True, hd**-0.5, None, None, None, s if g > 1 else None,
+            cfg.sliding_window, cfg.logit_softcap, None, 0, seg_qf, seg_kvf,
+        )
+        o = o.reshape(b, hq, s, hd).transpose(1, 2).reshape(b, s, hq * hd)
+        x = x + o @ layer["wo"]
+        return x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
+
+    for layer in params["layers"]:
+        if remat:
+            x = checkpoint(one_layer, x, layer, use_reentrant=False)
+        else:
+            x = one_layer(x, layer)
+    x = _rmsnorm(x, params["final_norm"])
+    return x @ params["lm_head"]
+
+
+def make_grad_fn(cfg: ModelConfig, *, packed=False, remat=False):
+    """``(params, tokens) -> (loss, grads)``, or with ``packed``
+    ``(params, tokens, segment_ids) -> (loss, grads)``; the stand-in for
+    ``_make_grad_map`` (forward.py:198) on one device.
+
+    The loss is the mean next-token NLL (forward.py:289-300), or for packed
+    rows the sum over valid next-token targets (same document, not padding)
+    over their count (:260-284).  ``grads`` follow
+    :func:`~flashattention_tpu_torch.models.train.common.leaves` order.
+    """
+
+    def loss_of(tree, tokens, segment_ids):
+        logits = forward_logits(tree, tokens, cfg, segment_ids=segment_ids, remat=remat)
+        nll = token_nll(logits[:, :-1], tokens[:, 1:])
+        if segment_ids is None:
+            return nll.mean()
+        valid = (segment_ids[:, 1:] == segment_ids[:, :-1]) & (segment_ids[:, 1:] >= 0)
+        return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+
+    def grad_fn(params, tokens, *rest):
+        segment_ids = rest[0] if packed else None
+        flat = [p.detach().requires_grad_() for p in leaves(params)]
+        loss = loss_of(with_leaves(params, flat), tokens, segment_ids)
+        grads = torch.autograd.grad(loss, flat)
+        return loss.detach(), grads
+
+    return grad_fn

@@ -1,6 +1,7 @@
 """Attention ops: oracles, the flash, naive, paged-decode and paged-prefill
-kernels, dispatch, sampling."""
+kernels, the backward kernels, dispatch, sampling."""
 
+from flashattention_tpu_torch.ops.backward import attention_vjp, flash_attention_bwd
 from flashattention_tpu_torch.ops.dispatch import attention, sdpa
 from flashattention_tpu_torch.ops.flash import (
     BlockSizes,

@@ -1,0 +1,331 @@
+"""Flash-attention backward: dQ, dK, dV from the saved statistics, and the
+differentiable attention op.
+
+Counterpart of ``flashattention_tpu/ops/backward.py``.  With
+``lse_i = m_i + log l_i`` and ``P_ij = exp(scale * q_i . k_j - lse_i)``
+(backward.py:8-13)::
+
+    dV_j = sum_i P_ij dO_i        dP_ij = dO_i . V_j
+    dS_ij = P_ij (dP_ij - D_i) scale,   D_i = dO_i . O_i
+    dQ_i = sum_j dS_ij K_j        dK_j = sum_i dS_ij Q_i
+
+A masked ``P`` is exactly 0.  On CUDA tensors :func:`flash_attention_bwd`
+launches hand-written kernels: the fused one-pass ``csrc/flash_bwd.cu``
+(replaces ``_fused_bwd_kernel``, backward.py:401) by default, and the
+two-pass ``csrc/flash_bwd_dq.cu`` + ``csrc/flash_bwd_dkv.cu`` (replace
+``_dq_kernel`` :146 and ``_dkv_kernel`` :269) with segment ids or
+``fused=False``, as the JAX package chooses (backward.py:610-615).  On CPU
+tensors it runs :func:`flash_attention_bwd_plain`, the same function
+written from the formulas above in plain PyTorch.  There is no fallback
+between the two.
+
+:func:`attention_vjp` is the differentiable entry: a
+``torch.autograd.Function`` whose forward is the flash forward kernel saving
+``(o, lse)`` and whose backward is :func:`flash_attention_bwd`.
+
+Not carried over: the TPU's lane packing of fp32 operands and its
+accumulation-chain splits (backward.py:49-119), MXU techniques with no
+counterpart here, and the 32 MB VMEM gate on the fused kernel's dQ scratch
+(backward.py:614, :785): the fused CUDA kernel adds dQ into a float32
+buffer in device memory.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from flashattention_tpu_torch.ops import kernels
+from flashattention_tpu_torch.ops.flash import (
+    _DTYPES,
+    check_ported,
+    flash_attention,
+    fold_segment_ids,
+    visible,
+)
+
+__all__ = [
+    "attention_vjp",
+    "dkv_kernel",
+    "dq_kernel",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
+    "fused_bwd_kernel",
+]
+
+_HEAD_DIMS = (32, 64, 128)
+
+
+def _check_tpu_options(block_sizes=None, precision=None, interpret=None):
+    """The JAX signature's TPU tiling and MXU-precision knobs have no
+    counterpart: the CUDA kernels have their own tiles and compute in
+    float32."""
+    if block_sizes is not None or precision is not None or interpret is not None:
+        raise ValueError(
+            "block_sizes, precision and interpret are TPU options; the CUDA "
+            "backward kernels have their own tiles and compute in float32"
+        )
+
+
+def flash_attention_bwd(
+    q, k, v, o, lse, do, *, causal=False, scale=1.0, block_sizes=None, kv_len=None,
+    q_offset=0, precision=None, q_seq_len=None, interpret=None, fused=None,
+    window=None, logit_softcap=None, dropout_rate=None, dropout_seed=0,
+    q_segment_ids=None, kv_segment_ids=None, block_mask=None,
+):
+    """dQ, dK, dV from the saved output and logsumexp.
+
+    Args:
+      q, o, do: ``(BH, R, d)``; k, v: ``(BH, S_kv, d)``; one dtype (float32
+        or bfloat16), contiguous.  lse: ``(BH, R)`` float32, ``m + log l``
+        of the forward's statistics.
+      causal, scale, kv_len, q_offset, q_seq_len: as in the forward.
+      fused: the one-pass kernel (default without segment ids) or the
+        two-pass kernels (``False``; the default with segment ids).
+      q_segment_ids, kv_segment_ids: integer ``(BH, R)``, ``(BH, S_kv)``.
+
+    ``D = rowsum(O dO)`` is computed here in float32, outside the kernels
+    (backward.py:707-709).  Returns ``(dq, dk, dv)`` in the input dtypes.
+    """
+    _check_tpu_options(block_sizes, precision, interpret)
+    if dropout_rate == 0.0:
+        dropout_rate = None  # rate 0 is the identity, not an error
+    check_ported(
+        window=window, logit_softcap=logit_softcap, dropout_rate=dropout_rate,
+        block_mask=block_mask,
+    )
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"expected (BH, S, d) tensors, got {q.shape} {k.shape} {v.shape}")
+    bh, rows, d = q.shape
+    s_kv = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must be shaped like q")
+    if tuple(lse.shape) != (bh, rows):
+        raise ValueError(f"lse must be (BH, R)=({bh}, {rows}), got {tuple(lse.shape)}")
+    if not (q.dtype == k.dtype == v.dtype == do.dtype):
+        raise ValueError(f"q/k/v/do dtypes differ: {q.dtype} {k.dtype} {v.dtype} {do.dtype}")
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len)
+    if not 0 <= kw["kv_len"] <= s_kv:
+        raise ValueError(f"kv_len {kw['kv_len']} outside [0, {s_kv}]")
+    if kw["q_seq_len"] <= 0 or rows % kw["q_seq_len"]:
+        raise ValueError(f"q_seq_len ({kw['q_seq_len']}) must divide the rows ({rows})")
+    seg_q, seg_kv = fold_segment_ids(q_segment_ids, kv_segment_ids, bh, rows, s_kv, q.device)
+    if fused is None:
+        fused = seg_q is None
+    if fused and seg_q is not None:
+        raise ValueError("fused backward does not support segment ids; use fused=False")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, o, lse, do, q_segment_ids=seg_q, kv_segment_ids=seg_kv, **kw
+        )
+    di = (o.float() * do.float()).sum(dim=-1)
+    lse = lse.float().contiguous()
+    if fused:
+        return fused_bwd_kernel(q, k, v, do, lse, di, **kw)
+    dq = dq_kernel(q, k, v, do, lse, di, q_segment_ids=seg_q, kv_segment_ids=seg_kv, **kw)
+    dk, dv = dkv_kernel(q, k, v, do, lse, di, q_segment_ids=seg_q, kv_segment_ids=seg_kv, **kw)
+    return dq, dk, dv
+
+
+def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_len,
+               q_segment_ids=None, kv_segment_ids=None):
+    """The backward from the formulas, float32 throughout: ``(dq, dk, dv)``
+    in float32, with ``P`` recomputed as ``exp(s - lse)`` and 0 where
+    masked."""
+    rows, s_kv = q.shape[1], k.shape[1]
+    qf, kf, dof = q.float(), k.float(), do.float()
+    mask = visible(
+        rows, s_kv, causal=causal, kv_len=kv_len, q_offset=q_offset, q_seq_len=q_seq_len,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, device=q.device,
+    )
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    del s
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    ds = torch.einsum("bqd,bkd->bqk", dof, v.float())
+    ds = p * (ds - di[..., None]) * scale
+    del p
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(
+    q, k, v, o, lse, do, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
+    q_seq_len=None, q_segment_ids=None, kv_segment_ids=None,
+):
+    """The backward kernels' function in plain PyTorch: the CPU path of
+    :func:`flash_attention_bwd` and the kernels' yardstick on the card.
+    Computed in float32; returns ``(dq, dk, dv)`` in the input dtypes."""
+    rows, s_kv = q.shape[1], k.shape[1]
+    di = (o.float() * do.float()).sum(dim=-1)
+    dq, dk, dv = _bwd_plain(
+        q, k, v, do, lse, di, causal=causal, scale=scale,
+        kv_len=s_kv if kv_len is None else kv_len, q_offset=q_offset,
+        q_seq_len=rows if q_seq_len is None else q_seq_len,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+    )
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_args(name, q, k, v, do, lse, di, seg_q=None, seg_kv=None):
+    """Check what a backward kernel takes; raise on anything else."""
+    tensors = (q, k, v, do, lse, di) + (() if seg_q is None else (seg_q, seg_kv))
+    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{name} kernel takes float32 or bfloat16, got {q.dtype}")
+    bh, rows, d = q.shape
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head_dim in {_HEAD_DIMS}, got {d}")
+    if bh > 65535:
+        raise ValueError(f"{name} kernel takes BH <= 65535, got {bh}")
+    if lse.dtype != torch.float32 or di.dtype != torch.float32:
+        raise ValueError(f"{name}: lse and di must be float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    kernels.check_aligned(name, q, k, v, do)
+    return _DTYPES[q.dtype], bh, rows, k.shape[1], d
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len):
+    """The launchers' options with kv_len and q_seq_len defaulted."""
+    return dict(causal=bool(causal), scale=float(scale),
+                kv_len=k.shape[1] if kv_len is None else int(kv_len), q_offset=int(q_offset),
+                q_seq_len=q.shape[1] if q_seq_len is None else int(q_seq_len))
+
+
+def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None,
+                     q_offset=0, q_seq_len=None):
+    """One launch of the fused one-pass kernel (``csrc/flash_bwd.cu``):
+    ``(dq, dk, dv)``.  dQ is summed with float32 atomics into a zeroed
+    buffer, then cast to q's dtype.  On CPU tensors: the plain version."""
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len)
+    if q.device.type == "cpu":
+        dq, dk, dv = _bwd_plain(q, k, v, do, lse, di, **kw)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dtype, bh, rows, s_kv, d = _launch_args("flash_bwd", q, k, v, do, lse, di)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    status = kernels.library("flash_bwd").fa_flash_bwd(
+        dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, rows, s_kv, d,
+        kw["kv_len"], kw["q_offset"], kw["q_seq_len"], int(kw["causal"]), kw["scale"],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check_launch("flash_bwd", status, f"q {tuple(q.shape)} {q.dtype}")
+    fused_bwd_kernel.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+def dq_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
+              q_seq_len=None, q_segment_ids=None, kv_segment_ids=None):
+    """One launch of the two-pass backward's dQ kernel
+    (``csrc/flash_bwd_dq.cu``).  On CPU tensors: the plain version."""
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len)
+    if q.device.type == "cpu":
+        dq, _, _ = _bwd_plain(q, k, v, do, lse, di, q_segment_ids=q_segment_ids,
+                              kv_segment_ids=kv_segment_ids, **kw)
+        return dq.to(q.dtype)
+    dtype, bh, rows, s_kv, d = _launch_args(
+        "flash_bwd_dq", q, k, v, do, lse, di, q_segment_ids, kv_segment_ids
+    )
+    dq = torch.empty_like(q)
+    status = kernels.library("flash_bwd_dq").fa_flash_bwd_dq(
+        dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), _ptr(q_segment_ids), _ptr(kv_segment_ids), dq.data_ptr(), bh, rows,
+        s_kv, d, kw["kv_len"], kw["q_offset"], kw["q_seq_len"], int(kw["causal"]), kw["scale"],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check_launch("flash_bwd_dq", status, f"q {tuple(q.shape)} {q.dtype}")
+    dq_kernel.launches += 1
+    return dq
+
+
+def dkv_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
+               q_seq_len=None, q_segment_ids=None, kv_segment_ids=None):
+    """One launch of the two-pass backward's dK/dV kernel
+    (``csrc/flash_bwd_dkv.cu``): ``(dk, dv)``, each KV head summed over all
+    of its folded query rows.  On CPU tensors: the plain version."""
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len)
+    if q.device.type == "cpu":
+        _, dk, dv = _bwd_plain(q, k, v, do, lse, di, q_segment_ids=q_segment_ids,
+                               kv_segment_ids=kv_segment_ids, **kw)
+        return dk.to(k.dtype), dv.to(v.dtype)
+    dtype, bh, rows, s_kv, d = _launch_args(
+        "flash_bwd_dkv", q, k, v, do, lse, di, q_segment_ids, kv_segment_ids
+    )
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    status = kernels.library("flash_bwd_dkv").fa_flash_bwd_dkv(
+        dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), _ptr(q_segment_ids), _ptr(kv_segment_ids), dk.data_ptr(),
+        dv.data_ptr(), bh, rows, s_kv, d, kw["kv_len"], kw["q_offset"], kw["q_seq_len"],
+        int(kw["causal"]), kw["scale"], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check_launch("flash_bwd_dkv", status, f"q {tuple(q.shape)} {q.dtype}")
+    dkv_kernel.launches += 1
+    return dk, dv
+
+
+# kernel launches, for the chip run's path check
+fused_bwd_kernel.launches = 0
+dq_kernel.launches = 0
+dkv_kernel.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash forward kernel saving ``(o, lse)``; its backward is
+    :func:`flash_attention_bwd` (backward.py:1014-1053)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, opts, block_sizes):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, l, m = flash_attention(
+            q, k, v, save_residuals=True, block_sizes=block_sizes,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, **opts,
+        )
+        lse = m + torch.log(torch.where(l == 0.0, 1.0, l))  # the l == 0 guard
+        ctx.save_for_backward(q, k, v, o, lse, q_segment_ids, kv_segment_ids)
+        ctx.opts = opts
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, seg_q, seg_kv = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), q_segment_ids=seg_q, kv_segment_ids=seg_kv,
+            **ctx.opts,
+        )
+        return dq, dk, dv, None, None, None, None
+
+
+def attention_vjp(
+    q, k, v, causal=False, scale=1.0, block_sizes=None, precision=None, interpret=None,
+    q_seq_len=None, window=None, logit_softcap=None, dropout_rate=None, dropout_seed=0,
+    q_segment_ids=None, kv_segment_ids=None, block_mask=None, kv_len=None, q_offset=0,
+):
+    """Differentiable fused attention on ``(BH, R, d)``, with the JAX
+    package's positional signature (backward.py:966-985).
+
+    ``q_seq_len`` folds GQA groups into the rows (q is ``(B*KVH, G*S, d)``
+    against k/v ``(B*KVH, S_kv, d)``); the backward sums dK/dV over all G
+    groups' rows.  ``block_sizes`` is the forward kernel's tile
+    (``BlockSizes()`` or None); ``precision`` and ``interpret`` are TPU
+    options and must be None.  Window, softcap, dropout and block masks
+    raise ``NotImplementedError`` until their slices.
+    """
+    _check_tpu_options(None, precision, interpret)
+    if dropout_rate == 0.0:
+        dropout_rate = None
+    check_ported(
+        window=window, logit_softcap=logit_softcap, dropout_rate=dropout_rate,
+        block_mask=block_mask,
+    )
+    opts = dict(causal=bool(causal), scale=float(scale), q_seq_len=q_seq_len, kv_len=kv_len,
+                q_offset=int(q_offset))
+    return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids, opts, block_sizes)

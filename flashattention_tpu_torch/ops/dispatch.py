@@ -4,15 +4,23 @@ Counterpart of ``flashattention_tpu/ops/dispatch.py``: :func:`attention`
 takes ``(B, H, S, d)`` or folded ``(B*H, S, d)`` tensors, folds grouped-query
 heads into the rows of their KV head (g-major, ``h = kvh * G + g``) so no
 repeated K/V is made, aligns causal queries to the end of the KV sequence,
-and calls :func:`ops.flash.flash_attention`.  Unlike the TPU package it does
-not pad ragged lengths to the tile: the CUDA kernel masks the ragged edge.
-``implementation="xla"`` keeps the JAX package's name for its oracle path
-and runs the plain reference (:mod:`ops.reference`) instead of the kernel.
+folds segment ids into the same layout, and calls
+:func:`ops.flash.flash_attention`.  Where autograd is recording and an input
+requires a gradient (and no residuals are asked for), the call goes through
+:func:`ops.backward.attention_vjp` instead, so ``torch.autograd`` works
+through this public entry point (dispatch.py:295-308).  Unlike the TPU
+package it does not pad ragged lengths to the tile: the CUDA kernels mask
+the ragged edge.  ``implementation="xla"`` keeps the JAX package's name for
+its oracle path and runs the plain reference (:mod:`ops.reference`) instead
+of the kernel.
 """
 
 from __future__ import annotations
 
+import torch
+
 from flashattention_tpu_torch.ops import reference
+from flashattention_tpu_torch.ops.backward import attention_vjp
 from flashattention_tpu_torch.ops.flash import BlockSizes, check_ported, flash_attention
 
 __all__ = ["attention", "sdpa"]
@@ -30,6 +38,8 @@ def attention(
     implementation: str = "cuda",
     kv_len: int | None = None,
     q_offset: int | None = None,
+    q_segment_ids=None,
+    kv_segment_ids=None,
     **unported,
 ):
     """Fused attention ``O = softmax(scale * Q K^T) V``.
@@ -45,16 +55,21 @@ def attention(
       kv_len: live KV length; columns at or past it are masked.
       save_residuals: also return the softmax stats ``(l, m)`` shaped like
         ``q[..., 0]``.
+      q_segment_ids, kv_segment_ids: integer ``(B, S)`` (broadcast over
+        heads; with GQA the q ids serve all folded group rows, g-major) or
+        folded ``(B*H, S)``: a query sees a key only where the ids are equal.
       unported: the JAX package's other options (window, logit_softcap,
-        dropout, segment ids, KV scales, block_mask) raise
-        ``NotImplementedError`` in :func:`flash_attention`.
+        dropout, KV scales, block_mask) raise ``NotImplementedError``.
 
     Returns ``o`` with q's shape and dtype, or ``(o, l, m)``.
     """
+    check_ported(**unported)
     q_shape = q.shape
     groups = 1
+    b_lead = None
     if q.dim() == 4:
         b, h, s_q, d = q.shape
+        b_lead = b
         hkv = k.shape[1]
         if h != hkv:
             if h % hkv:
@@ -85,8 +100,25 @@ def attention(
     if causal and s_kv < s_q:
         raise ValueError(f"causal attention requires S_kv >= S_q, got {s_kv} < {s_q}")
 
+    # Segment ids in the folded layout (dispatch.py:186-203).
+    if q_segment_ids is not None and groups > 1:
+        if tuple(q_segment_ids.shape) != (b_lead, s_q):
+            raise ValueError(
+                f"q_segment_ids with GQA must be (B, S_q)=({b_lead}, {s_q}), "
+                f"got {tuple(q_segment_ids.shape)}"
+            )
+        seg_q3 = q_segment_ids[:, None, None, :].expand(b_lead, k.shape[1], groups, s_q)
+        seg_q3 = seg_q3.reshape(bh, groups * s_q)
+    else:
+        seg_q3 = _fold_side_input(q_segment_ids, b_lead, bh, s_q, "q_segment_ids")
+    seg_kv3 = _fold_side_input(kv_segment_ids, b_lead, k3.shape[0], s_kv, "kv_segment_ids")
+
     if implementation == "xla":
-        check_ported(**unported)
+        if seg_q3 is not None:
+            raise NotImplementedError(
+                "segment ids via implementation='xla': use ops.reference directly "
+                "with an explicit mask"
+            )
         if groups > 1:  # the oracle wants equal heads: repeat KV
             k3 = k3.repeat_interleave(groups, dim=0)
             v3 = v3.repeat_interleave(groups, dim=0)
@@ -95,12 +127,24 @@ def attention(
             q3, k3, v3, causal=causal, scale=scale, kv_len=kv_len, q_offset=q_offset
         )
     elif implementation == "cuda":
-        out = flash_attention(
-            q3, k3, v3, causal=causal, scale=scale, kv_len=kv_len,
-            q_offset=q_offset, q_seq_len=s_q if groups > 1 else None,
-            save_residuals=save_residuals, block_sizes=block_sizes, **unported,
+        q_seq_len = s_q if groups > 1 else None
+        differentiable = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q3, k3, v3)
         )
-        o, l, m = out if save_residuals else (out, None, None)
+        if differentiable and not save_residuals:
+            o = attention_vjp(
+                q3, k3, v3, causal, scale, block_sizes, None, None, q_seq_len,
+                q_segment_ids=seg_q3, kv_segment_ids=seg_kv3, kv_len=kv_len,
+                q_offset=q_offset,
+            )
+            l = m = None
+        else:
+            out = flash_attention(
+                q3, k3, v3, causal=causal, scale=scale, kv_len=kv_len,
+                q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
+                block_sizes=block_sizes, q_segment_ids=seg_q3, kv_segment_ids=seg_kv3,
+            )
+            o, l, m = out if save_residuals else (out, None, None)
     else:
         raise ValueError(f"unknown implementation: {implementation!r}")
 
@@ -109,6 +153,23 @@ def attention(
         stat_shape = q_shape[:-1]
         return o, l.reshape(stat_shape), m.reshape(stat_shape)
     return o
+
+
+def _fold_side_input(ids, b_lead, bh, s, name):
+    """(B, S) per-batch ids -> (BH, S) folded, or pass (BH, S) through
+    (dispatch.py:379)."""
+    if ids is None:
+        return None
+    if ids.dim() != 2:
+        raise ValueError(f"{name} must be 2D (B, S) or (B*H, S), got {tuple(ids.shape)}")
+    if tuple(ids.shape) == (bh, s):
+        return ids
+    if b_lead is not None and tuple(ids.shape) == (b_lead, s):
+        return ids[:, None, :].expand(b_lead, bh // b_lead, s).reshape(bh, s)
+    raise ValueError(
+        f"{name} shape {tuple(ids.shape)} matches neither (B, S)=({b_lead}, {s}) "
+        f"nor (B*H, S)=({bh}, {s})"
+    )
 
 
 def sdpa(q, k, v, *, causal=False, **kwargs):

@@ -7,11 +7,13 @@ tensor it runs :func:`flash_attention_plain`, the same function in plain
 PyTorch.  There is no fallback between the two: a CUDA call either launches
 the kernel or raises.
 
-Supported on this slice: causal masking at absolute query position
+Supported: causal masking at absolute query position
 ``q_offset + (r mod q_seq_len)`` (the GQA row fold), a live KV length
 ``kv_len`` (ragged S is masked in the kernel, never padded), a score scale,
-and ``save_residuals``.  The TPU tile-fitting regimes of ``BlockSizes.fit``
-are not ported: the CUDA kernel has one tile shape.
+segment ids (packed rows: row r sees column c only where their ids are
+equal; ``PAD_SEGMENT`` padding rows attend each other, as in the JAX
+kernel), and ``save_residuals``.  The TPU tile-fitting regimes of
+``BlockSizes.fit`` are not ported: the CUDA kernel has one tile shape.
 
 :func:`flash_attention_naive` is the counterpart of the JAX package's naive
 Pallas kernel (``_naive_kernel``, :1690): dense softmax over the whole KV
@@ -56,23 +58,57 @@ def _unsupported(feature: str, slice_: str):
 
 
 def check_ported(
-    *, window=None, logit_softcap=None, dropout_rate=None, q_segment_ids=None,
-    kv_segment_ids=None, k_scales=None, v_scales=None, block_mask=None,
+    *, window=None, logit_softcap=None, dropout_rate=None, k_scales=None,
+    v_scales=None, block_mask=None,
 ):
     """Raise ``NotImplementedError`` for an option of the JAX package that
-    this slice does not port."""
+    the port does not have yet."""
     if window is not None:
         _unsupported("sliding-window attention", "the Mistral slice")
     if logit_softcap is not None:
         _unsupported("logit softcapping", "the Gemma-2 slice")
     if dropout_rate:
-        _unsupported("attention dropout", "the training slice")
-    if q_segment_ids is not None or kv_segment_ids is not None:
-        _unsupported("segment ids", "the training slice")
+        _unsupported("attention dropout", "the attention-dropout slice (bit-for-bit keep masks)")
     if k_scales is not None or v_scales is not None:
         _unsupported("quantized KV (k/v scales)", "the quantized-KV slice")
     if block_mask is not None:
-        _unsupported("block-sparse masks", "the training slice")
+        _unsupported("block-sparse masks", "the block-sparse slice")
+
+
+def fold_segment_ids(q_segment_ids, kv_segment_ids, bh, rows, s_kv, device):
+    """Check the ``(BH, R)`` and ``(BH, S_kv)`` segment ids of a folded
+    call (flash.py:1295-1309) and return them as contiguous int32 tensors on
+    ``device``, or ``(None, None)``."""
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("q_segment_ids and kv_segment_ids must be given together")
+    if q_segment_ids is None:
+        return None, None
+    if tuple(q_segment_ids.shape) != (bh, rows):
+        raise ValueError(
+            f"q_segment_ids must be (BH, S_q)=({bh}, {rows}), got {tuple(q_segment_ids.shape)}"
+        )
+    if tuple(kv_segment_ids.shape) != (bh, s_kv):
+        raise ValueError(
+            f"kv_segment_ids must be (BH, S_kv)=({bh}, {s_kv}), got {tuple(kv_segment_ids.shape)}"
+        )
+    return (
+        q_segment_ids.to(device=device, dtype=torch.int32).contiguous(),
+        kv_segment_ids.to(device=device, dtype=torch.int32).contiguous(),
+    )
+
+
+def visible(rows, s_kv, *, causal, kv_len, q_offset, q_seq_len, q_segment_ids=None,
+            kv_segment_ids=None, device=None):
+    """Boolean mask of the (query row, key column) pairs the kernels keep:
+    ``(R, S_kv)``, or ``(BH, R, S_kv)`` with segment ids."""
+    cols = torch.arange(s_kv, device=device)
+    mask = (cols < kv_len)[None, :]
+    if causal:
+        pos = q_offset + torch.arange(rows, device=device) % q_seq_len
+        mask = mask & (cols[None, :] <= pos[:, None])
+    if q_segment_ids is not None:
+        mask = mask & (q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])
+    return mask
 
 
 def flash_attention(
@@ -107,12 +143,13 @@ def flash_attention(
       q_seq_len: GQA row fold — q holds ``R // q_seq_len`` query-head groups
         stacked along the rows, all attending the same K/V.
       save_residuals: also return ``(l, m)``, float32, each ``(BH, R)``.
+      q_segment_ids, kv_segment_ids: integer ``(BH, R)`` and ``(BH, S_kv)``,
+        given together: row r sees column c only where the ids are equal.
 
     Returns ``o`` like q, or ``(o, l, m)``.
     """
     check_ported(
         window=window, logit_softcap=logit_softcap, dropout_rate=dropout_rate,
-        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
         k_scales=k_scales, v_scales=v_scales, block_mask=block_mask,
     )
     if block_sizes is not None and block_sizes != BlockSizes():
@@ -134,6 +171,7 @@ def flash_attention(
     q_seq_len = rows if q_seq_len is None else int(q_seq_len)
     if q_seq_len <= 0 or rows % q_seq_len:
         raise ValueError(f"q_seq_len ({q_seq_len}) must divide the rows ({rows})")
+    seg_q, seg_kv = fold_segment_ids(q_segment_ids, kv_segment_ids, bh, rows, s_kv, q.device)
 
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous q, k, v")
@@ -141,6 +179,7 @@ def flash_attention(
         return flash_attention_plain(
             q, k, v, causal=causal, scale=scale, kv_len=kv_len,
             q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
+            q_segment_ids=seg_q, kv_segment_ids=seg_kv,
         )
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: tensors on {q.device}/{k.device}/{v.device}")
@@ -159,8 +198,10 @@ def flash_attention(
     status = lib.fa_flash_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
-        bh, rows, s_kv, d, kv_len, int(q_offset), q_seq_len, int(bool(causal)),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        None if seg_q is None else seg_q.data_ptr(),
+        None if seg_kv is None else seg_kv.data_ptr(), bh, rows, s_kv, d, kv_len,
+        int(q_offset), q_seq_len, int(bool(causal)), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check_launch("flash_fwd", status, f"q {tuple(q.shape)} {q.dtype}")
     flash_attention.launches += 1
@@ -172,7 +213,7 @@ flash_attention.launches = 0  # kernel launches, for the chip run's path check
 
 def flash_attention_plain(
     q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
-    q_seq_len=None, save_residuals=False,
+    q_seq_len=None, save_residuals=False, q_segment_ids=None, kv_segment_ids=None,
 ):
     """The kernel's function in plain PyTorch, float32 throughout: the CPU
     path of :func:`flash_attention` and its yardstick on the card."""
@@ -181,11 +222,10 @@ def flash_attention_plain(
     kv_len = s_kv if kv_len is None else kv_len
     q_seq_len = rows if q_seq_len is None else q_seq_len
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
-    cols = torch.arange(s_kv, device=q.device)
-    mask = (cols < kv_len)[None, :]
-    if causal:
-        pos = q_offset + torch.arange(rows, device=q.device) % q_seq_len
-        mask = mask & (cols[None, :] <= pos[:, None])
+    mask = visible(
+        rows, s_kv, causal=causal, kv_len=kv_len, q_offset=q_offset, q_seq_len=q_seq_len,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, device=q.device,
+    )
     s = torch.where(mask, s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])

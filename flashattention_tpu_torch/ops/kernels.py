@@ -39,7 +39,7 @@ KERNELS = {
     "flash_fwd": (
         "flash_fwd.cu",
         "fa_flash_fwd",
-        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_I, *[_P] * 8, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
     "paged_decode": (
         "paged_decode.cu",
@@ -56,8 +56,23 @@ KERNELS = {
         "fa_flash_naive",
         [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
+    "flash_bwd": (
+        "flash_bwd.cu",
+        "fa_flash_bwd",
+        [_I, *[_P] * 9, *[_I] * 8, _F, _P],
+    ),
+    "flash_bwd_dq": (
+        "flash_bwd_dq.cu",
+        "fa_flash_bwd_dq",
+        [_I, *[_P] * 9, *[_I] * 8, _F, _P],
+    ),
+    "flash_bwd_dkv": (
+        "flash_bwd_dkv.cu",
+        "fa_flash_bwd_dkv",
+        [_I, *[_P] * 10, *[_I] * 8, _F, _P],
+    ),
 }
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "bwd_common.cuh")
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,9 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from flashattention_tpu_torch.models import transformer
-from flashattention_tpu_torch.ops import decode, flash
+from flashattention_tpu_torch.models import train, transformer
+from flashattention_tpu_torch.ops import backward, decode, flash
 from flashattention_tpu_torch.runtime import engine, kvcache
+from flashattention_tpu_torch.utils.packing import pack_documents
 from flashattention_tpu_torch.utils.testing import validate_result
 
 pytestmark = pytest.mark.cuda
@@ -66,6 +67,27 @@ def test_flash_kernel_matches_plain(dtype, d, kw):
             validate_result(g, w, 1e-5 * float(w.abs().max()))
         got, want = got[0], want[0]
     validate_result(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_kernel_segment_ids_match_plain(dtype, d):
+    """Segment ids in the forward kernel: two packed documents and
+    PAD_SEGMENT padding per row, GQA fold of 2 groups, with residuals."""
+    ids = torch.full((3, 90), -1, dtype=torch.int32)
+    ids[:, :40], ids[:, 40:75] = 0, 1
+    ids[2, :] = 5
+    seg = dict(q_segment_ids=ids.repeat(1, 2), kv_segment_ids=ids)
+    q = _randn((3, 180, d), dtype, 14)
+    k, v = _randn((3, 90, d), dtype, 15), _randn((3, 90, d), dtype, 16)
+    kw = dict(causal=True, scale=d**-0.5, q_seq_len=90, save_residuals=True)
+    got = flash.flash_attention(q.cuda(), k.cuda(), v.cuda(), **kw,
+                                **{n: t.cuda() for n, t in seg.items()})
+    want = flash.flash_attention(q, k, v, **kw, **seg)
+    torch.cuda.synchronize()
+    for g, w in zip(got[1:], want[1:]):
+        validate_result(g, w, 1e-5 * float(w.abs().max()))
+    validate_result(got[0], want[0], TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -127,6 +149,56 @@ def test_naive_kernel_matches_plain_and_flash(dtype, d, kw):
     validate_result(got, fwd, TOL[dtype])  # two kernels, two softmax routes
 
 
+# Backward cases: (BH, G, S_q per group, S_kv) and the masks; "segments"
+# packs two documents and PAD_SEGMENT (-1) padding into each row.
+BWD_CASES = {
+    "full": dict(bh=3, g=1, s_q=96, s_kv=150, causal=False),
+    "causal_gqa": dict(bh=2, g=3, s_q=70, s_kv=100, causal=True, q_offset=30),
+    "kv_len_q_offset": dict(bh=2, g=2, s_q=50, s_kv=130, causal=True, kv_len=77, q_offset=60),
+    "segments": dict(bh=2, g=2, s_q=80, s_kv=80, causal=True, segments=True),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_bwd_kernels_match_plain(dtype, d, case):
+    """The fused kernel (no segment ids) and the two-pass dQ and dK/dV
+    kernels against the plain backward on the CPU, computed in float32 from
+    the same (dtype-rounded) inputs: the tolerance covers the kernel's one
+    rounding of each output to ``dtype`` and the order of its sums (dQ's
+    float32 atomics in the fused kernel)."""
+    c = BWD_CASES[case]
+    rows = c["g"] * c["s_q"]
+    q = _randn((c["bh"], rows, d), dtype, 20)
+    k, v = _randn((c["bh"], c["s_kv"], d), dtype, 21), _randn((c["bh"], c["s_kv"], d), dtype, 22)
+    do = _randn((c["bh"], rows, d), dtype, 23) * 0.25  # gradients below 4: see chip_smoke.py
+    kw = dict(causal=c["causal"], scale=d**-0.5, kv_len=c.get("kv_len"),
+              q_offset=c.get("q_offset", 0), q_seq_len=c["s_q"])
+    seg = {}
+    if c.get("segments"):
+        ids = torch.full((c["bh"], c["s_q"]), -1, dtype=torch.int32)
+        ids[0, :30], ids[0, 30:70] = 0, 1
+        ids[1, :50], ids[1, 50:] = 0, 1
+        seg = dict(q_segment_ids=ids.repeat(1, c["g"]), kv_segment_ids=ids)
+    o, l, m = flash.flash_attention_plain(
+        q.float(), k.float(), v.float(), save_residuals=True, **kw, **seg
+    )
+    o = o.to(dtype)
+    lse = m + torch.log(torch.where(l == 0, 1.0, l))
+    args = (q, k, v, o, lse, do)
+    want = backward.flash_attention_bwd_plain(*(a.float() for a in args), **kw, **seg)
+    seg_cuda = {n: t.cuda() for n, t in seg.items()}
+    runs = [backward.flash_attention_bwd(*(a.cuda() for a in args), fused=False, **kw, **seg_cuda)]
+    if not seg:
+        runs.append(backward.flash_attention_bwd(*(a.cuda() for a in args), fused=True, **kw))
+    torch.cuda.synchronize()
+    for got in runs:
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == dtype
+            validate_result(g, w, TOL[dtype], name=name)
+
+
 def test_engine_on_card_matches_cpu():
     """Greedy tokens of the tiny float32 model, served on the card with the
     kernels, equal the CPU engine's (plain versions)."""
@@ -169,3 +241,30 @@ def test_chunked_engine_on_card_matches_cpu():
         outs.append((eng.run(), eng.stats()["prefill_tokens"]))
         assert eng.cache.num_free_pages() == 16
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["plain", "packed"])
+def test_train_step_on_card_matches_cpu(packed):
+    """Three SGD steps of the tiny float32 model (GQA 4q/2kv, d = 32) on the
+    card (the fused or two-pass backward kernels) and on the CPU (plain
+    versions): losses within 1e-5 relative, parameters within 1e-5."""
+    cfg = dataclasses.replace(transformer.ModelConfig.tiny(), dtype="float32")
+    rng = np.random.default_rng(5)
+    if packed:  # two rows of two documents each and PAD_SEGMENT padding
+        docs = [rng.integers(0, 256, n) for n in (30, 50, 20, 60, 40)]
+        tokens, segs = (x[:2] for x in pack_documents(docs, 96))
+    else:
+        tokens, segs = rng.integers(0, 256, (2, 96)).astype(np.int32), None
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = transformer.init_params(0, cfg, device="cpu")
+        params = {k: (v.to(dev) if torch.is_tensor(v) else [{n: w.to(dev) for n, w in lay.items()} for lay in v])
+                  for k, v in params.items()}
+        make = train.make_train_step_packed if packed else train.make_train_step
+        step = make(cfg, lr=0.1, device=dev)
+        data = [torch.tensor(x, device=dev) for x in ((tokens, segs) if packed else (tokens,))]
+        losses = [float(step(params, *data)[0]) for _ in range(3)]
+        out[dev] = (losses, [p.cpu() for p in train.common.leaves(params)])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        validate_result(a, b, 1e-5)

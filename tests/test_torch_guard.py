@@ -4,7 +4,8 @@
   imported (checked in a fresh interpreter) or anywhere in its sources;
 - its entry points run on the card unless the caller asks for the CPU, and
   raise instead of carrying on where there is no card;
-- options of later slices raise ``NotImplementedError``.
+- options of later slices raise ``NotImplementedError``, each naming the
+  slice that brings it.
 """
 
 import ast
@@ -15,8 +16,8 @@ import sys
 import pytest
 import torch
 
-from flashattention_tpu_torch.models import transformer
-from flashattention_tpu_torch.ops import decode
+from flashattention_tpu_torch.models import train, transformer
+from flashattention_tpu_torch.ops import backward, decode
 from flashattention_tpu_torch.runtime import engine, kvcache
 
 torch.set_num_threads(2)
@@ -90,6 +91,12 @@ def test_entry_points_default_to_the_card(no_card):
     params = transformer.init_params(0, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.Engine(params, cfg, ccfg, engine.EngineConfig(prefill_chunk=0))
+    for make in (train.make_train_step, train.make_train_step_packed):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(cfg)
+    step = train.make_train_step(cfg, device="cpu")
+    with pytest.raises(ValueError, match="runs on cpu"):
+        step(params, torch.zeros(1, 8, dtype=torch.int32, device="meta"))
 
 
 def test_later_slices_raise():
@@ -114,8 +121,26 @@ def test_later_slices_raise():
     import flashattention_tpu_torch as ft
 
     x = torch.zeros(1, 2, 8, 32)
-    for kw in (dict(window=4), dict(logit_softcap=30.0), dict(dropout_rate=0.1)):
-        with pytest.raises(NotImplementedError):
+    x3 = x.reshape(2, 8, 32)
+    seg = torch.zeros(1, 8, dtype=torch.int32)
+    ft.attention(x, x, x, causal=True, q_segment_ids=seg, kv_segment_ids=seg)  # ported
+    for kw, slice_ in (
+        (dict(window=4), "Mistral slice"),
+        (dict(logit_softcap=30.0), "Gemma-2 slice"),
+        (dict(dropout_rate=0.1), "attention-dropout slice"),
+        (dict(block_mask=object()), "block-sparse slice"),
+    ):
+        with pytest.raises(NotImplementedError, match=slice_):
             ft.attention(x, x, x, causal=True, **kw)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=slice_):
             ft.attention(x, x, x, causal=True, implementation="xla", **kw)
+        with pytest.raises(NotImplementedError, match=slice_):
+            backward.attention_vjp(x3, x3, x3, True, **kw)
+        with pytest.raises(NotImplementedError, match=slice_):
+            backward.flash_attention_bwd(x3, x3, x3, x3, x3[..., 0], x3, **kw)
+    cfg = transformer.ModelConfig.tiny()
+    for make in (train.make_train_step, train.make_train_step_packed):
+        with pytest.raises(NotImplementedError, match="attention-dropout slice"):
+            make(cfg, attn_dropout=0.1, device="cpu")
+    with pytest.raises(NotImplementedError, match="Mistral slice"):
+        train.make_train_step(transformer.ModelConfig.mistral7b(), device="cpu")
