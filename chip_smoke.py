@@ -14,6 +14,18 @@ Phases, each of which must pass (any failure exits non-zero):
                layer's shape (Mistral-7B width: 32 q / 8 KV heads, d = 128,
                B = 8, S = 2048), with segment ids from packed documents for
                the two-pass pair, a ragged S and a kv_len / q_offset case;
+               and the three serving kernels with the sliding window at the
+               windowed models' shapes: d = 256 with window 4096 and softcap
+               50 (Gemma-2-9B-class, G = 2; timed, with SDPA under the
+               window mask as the library yardstick; again with q scaled
+               by 8 so that the scores reach the cap) and d = 128 with
+               window 4096 (Mistral-7B-class, G = 4), at lengths that cross
+               the window (flash_fwd S = 5000; paged_decode lengths 1, 4096,
+               4097, 6000; paged_prefill a 512-row chunk at contexts
+               4608-6144), each bfloat16 element within two units in the
+               last place (BF16_ELEM_TOL); ``torch_tools/window_mutants.py``
+               shows that these checks fail a kernel whose window is off by
+               one or whose softcap is dropped;
 3. serve     - run the engine with whole-prompt prefill (prefill_chunk=0) at
                Llama-7B width (32 layers unless --layers): 8 greedy requests,
                64-1024 token prompts from --seed, 32 new tokens each,
@@ -27,15 +39,27 @@ Phases, each of which must pass (any failure exits non-zero):
                prompts and one short one; the paged-prefill launches must be
                layers x chunk rounds and prefill_tokens must show the three
                hits; then a profile of 4 requests with 1536-token prompts;
-5. crosscheck - the naive kernel's path: ``flash_attention_naive`` and the
+5. serve_gemma2 - Gemma-2-9B-class (``ModelConfig.gemma2_9b``) at full
+               width and its published 42 layers, bf16, on the default
+               chunked engine (prefill_chunk=512, page_size 256, max_batch 4,
+               24 pages per request, 80 pages): a donor with a 1024-token
+               prefix and one prompt sharing it, two unique prompts of
+               4600-5800 tokens, one short prompt; 32 new tokens each; all
+               three serving kernels must launch layers x batches, rounds and
+               steps; then a profile of 4 requests with 1536-token prompts;
+   serve_gemma2_whole - the same model with whole-prompt prefill: two
+               prompts of 4600-5000 tokens through flash_fwd's window;
+6. crosscheck - the naive kernel's path: ``flash_attention_naive`` and the
                flash kernel through the public entry points on the same
                inputs, each launched once, agreeing;
-6. parity    - one 64-token request through prefill and 4 decode steps on a
+7. parity    - one 64-token request through prefill and 4 decode steps on a
                2-layer float32 cut at the same width, on the card (kernels)
                and on the CPU (plain versions); and the same cut through the
                chunked engine (a 600-token prompt, then one sharing its first
-               256 tokens); the logits must agree;
-7. train     - ``make_train_step`` at ``bench_train.py``'s configuration
+               256 tokens); the logits must agree; parity_gemma2 does the
+               same for Gemma-2-9B-class at full width in 2 float32 layers,
+               its window cut to 128 so that a 300-token prompt crosses it;
+8. train     - ``make_train_step`` at ``bench_train.py``'s configuration
                (Mistral-7B width, 2 layers, sliding_window=None, bf16, B = 8,
                S = 2048, random tokens from --seed, lr 1e-3), with remat off
                (train) and on (train_remat): one warm-up step, then 3 timed
@@ -43,10 +67,10 @@ Phases, each of which must pass (any failure exits non-zero):
                ``bench_train.py``'s accounting, peak memory; the launches
                must be the fused backward's (flash_bwd L per step, flash_fwd
                L, or 2 L with remat); then a profile of one step;
-8. train_packed - ``make_train_step_packed`` on the same model over 8 rows
+9. train_packed - ``make_train_step_packed`` on the same model over 8 rows
                packed from random documents of 64-2048 tokens: the two-pass
                backward (flash_bwd_dq and flash_bwd_dkv L per step);
-9. train_parity - a 2-layer float32 cut at the same width (B = 1, S = 256):
+10. train_parity - a 2-layer float32 cut at the same width (B = 1, S = 256):
                plain and packed steps, remat off and on, two steps each, on
                the card and on the CPU (plain versions) from the same
                parameters; losses, updated parameters and the first step's
@@ -64,6 +88,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import sys
 import time
 
@@ -79,6 +104,15 @@ NAIVE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 CROSS_TOL = 2e-2  # naive vs flash kernel, bfloat16 inputs and outputs
 STATS_RTOL = 1e-5  # l, m residuals: max abs error over max |value|
+# The bfloat16 windowed checks also hold each element: |got - want| <= atol +
+# rtol |want|.  At S ~ 5000 a row averages ~4096 values of V, so its outputs
+# are ~0.026 and the max-abs bound of 2e-2 alone would pass a wrong kernel.
+# rtol is two units in the last place (the kernel and the plain version each
+# round one float32 result); atol covers outputs near zero.  float32 keeps
+# its max-abs bound of 1e-4, far below what a wrong window or softcap moves
+# (torch_tools/window_mutants.py); an element bound there would have to
+# admit ~3e-5 anyway, the order of the float32 sums at scores near 30.
+BF16_ELEM_TOL = (1e-5, 2.0**-6)
 PARITY_TOL = 1e-3  # float32 logits, card kernels vs CPU plain versions
 # Training parity, float32, card vs CPU after two SGD steps: losses (relative)
 # and updated parameters (absolute, tests/test_train.py's bound between two
@@ -113,13 +147,53 @@ def err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def elem_err(got, want) -> float:
+    """Largest |got - want| / (atol + rtol |want|) under BF16_ELEM_TOL; the
+    check passes at <= 1."""
+    atol, rtol = BF16_ELEM_TOL
+    w = want.float()
+    return float(((got.float() - w).abs() / (atol + rtol * w.abs())).max())
+
+
+def _window_rec(check, got, want, dt, tol, **extra):
+    """A windowed check's record: max abs error within ``tol`` and, in
+    bfloat16, every element within BF16_ELEM_TOL."""
+    e = err(got, want)
+    rec = {"check": check, "max_abs_err": e, "tol": tol, "ok": e <= tol}
+    if dt == "bfloat16":
+        rec["elem_err"] = elem_err(got, want)
+        rec["elem_tol"] = list(BF16_ELEM_TOL)
+        rec["ok"] = rec["ok"] and rec["elem_err"] <= 1.0
+    return {**rec, **extra}
+
+
+def _ptxas(log):
+    """Registers and spill bytes of each kernel instantiation, from nvcc's
+    ``-Xptxas -v`` report (``name<dtype,D[,G][,window_cap]>`` read off the
+    mangled name; ``window_cap`` marks paged_decode's window/softcap form)."""
+    out, spills = [], (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)((?:L[ib]\d+E)+)", ln)
+        if m:
+            args = ["bf16" if m.group(2) != "f" else "f32"]
+            for kind, n in re.findall(r"L([ib])(\d+)E", m.group(3)):
+                args += [n] if kind == "i" else ["window_cap"] if n == "1" else []
+            out.append({"kernel": f"{m.group(1)}<{','.join(args)}>"})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out:
+            out[-1].update(registers=int(m.group(1)), spill_stores=spills[0], spill_loads=spills[1])
+    return out
+
+
 def phase_build(kernels, report):
     t0 = time.perf_counter()
     built = kernels.build_all()
     seconds = time.perf_counter() - t0
     for name, info in built.items():
-        regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
-        report["build"][name] = {"seconds": info["seconds"], "ptxas": regs}
+        report["build"][name] = {"seconds": info["seconds"], "ptxas": _ptxas(info["log"])}
     emit({"phase": "build", "seconds": seconds, "kernels": sorted(built),
           "card": report["card"]})
 
@@ -231,7 +305,7 @@ def paged_checks(decode, benchit, gen, card, report):
                 # pages were just read: flush so each call finds them cold.
                 rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
                 rec["plain_ms"] = benchit.cuda_time_ms(plain, flush_bytes=256 << 20)
-                rec["library_ms"] = None
+                rec.update(_decode_library(benchit, q, kp, vp, lengths, table, scale))
                 live = sum(c["lengths"])
                 n_pages = sum(-(-n // ps) for n in c["lengths"])
                 nbytes = (
@@ -260,14 +334,17 @@ def _paged_pool(gen, ctx_lens, pps, pages, shape_tail, dtype):
     return kp, vp, table
 
 
-def _prefill_work(ctx_lens, chunk, seg, g, kvh, d):
-    """Live (row, column) pairs and their flops: row p of a segment sees
-    ``min(ctx - chunk + p + 1, ctx)`` columns (pad rows p >= chunk see all
-    ``ctx``); a ctx = 0 request sees none."""
+def _prefill_work(ctx_lens, chunk, seg, g, kvh, d, window=None):
+    """Live (row, column) pairs and their flops: row p of a segment, at
+    ``pos = ctx - chunk + p``, sees columns ``max(0, pos - window + 1)``
+    through ``min(pos, ctx - 1)`` (pad rows p >= chunk see up to ``ctx``);
+    a ctx = 0 request sees none."""
     pairs = 0
     for c in ctx_lens:
-        if c:
-            pairs += sum(min(c - chunk + p + 1, c) for p in range(seg))
+        for p in range(seg if c else 0):
+            pos = c - chunk + p
+            lo = 0 if window is None else max(0, pos - window + 1)
+            pairs += max(0, min(pos, c - 1) - lo + 1)
     return pairs * g * kvh, 4 * pairs * g * kvh * d
 
 
@@ -307,20 +384,12 @@ def prefill_checks(decode, benchit, gen, card, report):
                 kernel = lambda: decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)  # noqa: E731
                 rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
                 rec["plain_ms"] = benchit.cuda_time_ms(plain, flush_bytes=256 << 20)
-                # Library yardstick: SDPA over the context gathered densely
-                # beforehand (the gather is not timed), with an explicit
-                # bottom-right causal mask per request.
-                s_max = pps * ps
-                idx = table.long()
-                kd = kp[idx].transpose(1, 2).reshape(b, c["kvh"], s_max, d)
-                vd = vp[idx].transpose(1, 2).reshape(b, c["kvh"], s_max, d)
-                cols = torch.arange(s_max, device="cuda")
+                # Library yardstick: SDPA over the pre-gathered context, with
+                # an explicit bottom-right causal mask per request.
+                cols = torch.arange(pps * ps, device="cuda")
                 pos = ctx[:, None] - c["chunk"] + torch.arange(c["seg"], device="cuda")[None]
                 mask = (cols[None, None] <= pos[:, :, None]) & (cols[None, None] < ctx[:, None, None])
-                sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                    q, kd, vd, attn_mask=mask[:, None], scale=kw["scale"]
-                )
-                rec["library_ms"] = benchit.cuda_time_ms(sdpa, flush_bytes=256 << 20)
+                rec["library_ms"] = _gathered_sdpa_ms(benchit, q, kp, vp, table, mask, kw["scale"])
                 rec["library"] = "scaled_dot_product_attention on the pre-gathered dense context, boolean causal mask, gather not timed"
                 pairs, flops = _prefill_work(c["ctx"], c["chunk"], c["seg"], c["g"], c["kvh"], d)
                 live_pages = sum(-(-n // ps) for n in c["ctx"])
@@ -336,6 +405,200 @@ def prefill_checks(decode, benchit, gen, card, report):
             report["checks"].append(rec)
             del kp, vp, q, o, want
     torch.cuda.empty_cache()
+    return out["main"]
+
+
+# Gemma-2-9B-class attention: 16 q / 8 KV heads (G = 2), d = 256, window
+# 4096, softcap 50 (the first case is the timed one); Mistral-7B-class: 32 q /
+# 8 KV heads (G = 4), d = 128, window 4096, no softcap.  With q ~ N(0, 1) the
+# scores are ~N(0, 1), where cap * tanh(s / cap) ~ s; the "q8" case scales q
+# by 8 so that the scores reach ~30 and the cap bends them.
+WINDOW_CASES = (
+    ("gemma2_d256_w4096_cap50", dict(g=2, d=256, window=4096, cap=50.0, q_mult=1.0)),
+    ("gemma2_d256_w4096_cap50_q8", dict(g=2, d=256, window=4096, cap=50.0, q_mult=8.0)),
+    ("mistral_d128_w4096", dict(g=4, d=128, window=4096, cap=None, q_mult=1.0)),
+)
+TIMED_WINDOW_CASE = WINDOW_CASES[0][0]
+
+
+def _window_pairs(s, window):
+    """Live (query, key) pairs of one causal S-row segment under a window:
+    row p sees min(p + 1, window) columns."""
+    w = min(s, window)
+    return w * (w + 1) // 2 + (s - w) * window
+
+
+def _gathered_sdpa_ms(benchit, q4, kp, vp, table, mask, scale):
+    """Library yardstick of the paged kernels: one scaled_dot_product_attention
+    call over the context gathered densely beforehand (K/V repeated to the q
+    heads; the gather is not timed).  q4 (B, H, rows, d); mask boolean, (B,
+    rows, pages_per_seq * page_size), the same for every head."""
+    b, h = q4.shape[:2]
+    _, kvh, ps, d = kp.shape
+    s_max = table.shape[1] * ps
+    idx = table.long()
+    kd = kp[idx].transpose(1, 2).reshape(b, kvh, s_max, d).repeat_interleave(h // kvh, dim=1)
+    vd = vp[idx].transpose(1, 2).reshape(b, kvh, s_max, d).repeat_interleave(h // kvh, dim=1)
+    return benchit.cuda_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=mask[:, None], scale=scale),
+        flush_bytes=256 << 20,
+    )
+
+
+def _decode_library(benchit, q, kp, vp, lengths, table, scale, window=None):
+    """SDPA yardstick of paged decode, with a boolean length (and window)
+    mask.  It cannot express the softcap."""
+    b, kvh, g, d = q.shape
+    cols = torch.arange(table.shape[1] * kp.shape[2], device="cuda")[None]
+    lens = lengths.long()[:, None]
+    mask = cols < lens
+    if window is not None:
+        mask &= cols > lens - 1 - window
+    ms = _gathered_sdpa_ms(benchit, q.reshape(b, kvh * g, 1, d), kp, vp, table,
+                           mask[:, None], scale)
+    return {"library_ms": ms, "library": (
+        "scaled_dot_product_attention on the pre-gathered dense context (K/V repeated "
+        "to the q heads), boolean length" + (" and window" if window else "")
+        + " mask, gather not timed; no softcap (SDPA cannot express it)")}
+
+
+def flash_window_checks(fa, flash, benchit, gen, card, report):
+    """Flash forward at the windowed models' prefill: B = 1, S = 5000 (past
+    the window of 4096; 5000 rows per segment, so 32-row tiles cross GQA
+    segments), causal.  Timed at Gemma's shape in bfloat16: kernel, plain
+    version, and SDPA with the window as a boolean mask and no softcap."""
+    out = {}
+    b, s = 1, 5000
+    for name, c in WINDOW_CASES:
+        g, d, kvh = c["g"], c["d"], 8
+        kw = dict(causal=True, scale=d**-0.5, window=c["window"], logit_softcap=c["cap"])
+        for dt in ("bfloat16", "float32"):
+            q = (c["q_mult"] * torch.randn((b, kvh * g, s, d), generator=gen, device="cuda")).to(DTYPES[dt])
+            k = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(DTYPES[dt])
+            v = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(DTYPES[dt])
+            o = fa.attention(q, k, v, **kw)
+            q3, k3, v3 = q.reshape(b * kvh, g * s, d), k.reshape(b * kvh, s, d), v.reshape(b * kvh, s, d)
+            plain = lambda: flash.flash_attention_plain(q3, k3, v3, q_seq_len=s, **kw)  # noqa: E731
+            want = plain().reshape(q.shape)
+            torch.cuda.synchronize()
+            rec = _window_rec(f"flash_fwd/{name}/{dt}", o, want, dt, FLASH_TOL[dt],
+                              shape=f"B={b} H={kvh * g} KVH={kvh} S={s} d={d}")
+            if dt == "bfloat16" and name == TIMED_WINDOW_CASE:
+                rec["kernel_ms"] = benchit.cuda_time_ms(lambda: fa.attention(q, k, v, **kw))
+                rec["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=5)
+                pos = torch.arange(s, device="cuda")
+                mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - c["window"])
+                kr, vr = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+                rec["library_ms"] = benchit.cuda_time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, kr, vr, attn_mask=mask, scale=kw["scale"]))
+                rec["library"] = ("scaled_dot_product_attention, boolean causal+window mask, "
+                                  "K/V repeated to 16 heads untimed; no softcap (SDPA cannot express it)")
+                pairs = b * kvh * g * _window_pairs(s, c["window"])
+                nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v read; o written
+                rec["live_pairs"] = pairs
+                rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * d * pairs, dtype=dt))
+                out["main"] = rec
+            emit(rec)
+            report["checks"].append(rec)
+            del q, k, v, o, want, q3, k3, v3
+            torch.cuda.empty_cache()
+    return out["main"]
+
+
+def paged_window_checks(decode, benchit, gen, card, report):
+    """Paged decode with the window: lengths 1, 4096, 4097 and 6000 (the
+    last reads 16 of its 24 pages), page_size 256, 24 pages per request."""
+    out = {}
+    ps, pps, pages = 256, 24, 100
+    lens = [1, 4096, 4097, 6000]
+    b = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for name, c in WINDOW_CASES:
+        g, d, kvh, w = c["g"], c["d"], 8, c["window"]
+        kw = dict(scale=d**-0.5, window=w, logit_softcap=c["cap"])
+        for dt in ("bfloat16", "float32"):
+            kp, vp, table = _paged_pool(gen, lens, pps, pages, (kvh, ps, d), DTYPES[dt])
+            q = (c["q_mult"] * torch.randn((b, kvh, g, d), generator=gen, device="cuda")).to(DTYPES[dt])
+            o = decode.paged_attention(q, kp, vp, lengths, table, **kw)
+            plain = lambda: decode.paged_attention_plain(q, kp, vp, lengths, table, **kw)  # noqa: E731
+            want = plain()
+            torch.cuda.synchronize()
+            rec = _window_rec(f"paged_decode/{name}/{dt}", o, want, dt, PAGED_TOL[dt],
+                              lengths=lens, shape=f"KVH={kvh} G={g} d={d} ps={ps}")
+            if dt == "bfloat16" and name == TIMED_WINDOW_CASE:
+                kernel = lambda: decode.paged_attention(q, kp, vp, lengths, table, **kw)  # noqa: E731
+                rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
+                rec["plain_ms"] = benchit.cuda_time_ms(plain, flush_bytes=256 << 20)
+                rec.update(_decode_library(benchit, q, kp, vp, lengths, table, kw["scale"], w))
+                live = sum(min(n, w) for n in lens)  # K/V rows inside each window
+                n_pages = sum(-(-n // ps) - max(0, (n - w) // ps) for n in lens)
+                nbytes = (
+                    2 * q.numel() * q.element_size()  # q read, o written
+                    + 2 * live * kvh * d * kp.element_size()  # live K, V rows
+                    + 4 * (b + n_pages)  # lengths, the table entries read
+                )
+                rec["live_rows"] = live
+                rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * live * kvh * g * d,
+                                            dtype=dt))
+                out["main"] = rec
+            emit(rec)
+            report["checks"].append(rec)
+            del kp, vp, q, o, want
+    torch.cuda.empty_cache()
+    return out["main"]
+
+
+def prefill_window_checks(decode, benchit, gen, card, report):
+    """Paged prefill with the window: a 512-row chunk (the engine's) at
+    contexts 4608-6144, page_size 256, 24 pages per request; the chunk's
+    tiles start past the first 0-7 pages."""
+    out = {}
+    ps, pps, pages, chunk = 256, 24, 100, 512
+    ctxs = [4608, 5120, 5632, 6144]
+    b = len(ctxs)
+    ctx = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+    for name, c in WINDOW_CASES:
+        g, d, kvh, w = c["g"], c["d"], 8, c["window"]
+        kw = dict(chunk=chunk, seg=chunk, scale=d**-0.5, window=w, logit_softcap=c["cap"])
+        for dt in ("bfloat16", "float32"):
+            kp, vp, table = _paged_pool(gen, ctxs, pps, pages, (kvh, ps, d), DTYPES[dt])
+            q = (c["q_mult"] * torch.randn((b, kvh, g * chunk, d), generator=gen, device="cuda")).to(DTYPES[dt])
+            o = decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)
+            plain = lambda: decode.paged_prefill_attention_plain(q, kp, vp, table, ctx, **kw)  # noqa: E731
+            want = plain()
+            torch.cuda.synchronize()
+            rec = _window_rec(f"paged_prefill/{name}/{dt}", o, want, dt, PREFILL_TOL[dt],
+                              ctx_lens=ctxs, chunk=chunk, shape=f"KVH={kvh} G={g} d={d} ps={ps}")
+            if dt == "bfloat16" and name == TIMED_WINDOW_CASE:
+                kernel = lambda: decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)  # noqa: E731
+                rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
+                rec["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=5, flush_bytes=256 << 20)
+                cols = torch.arange(pps * ps, device="cuda")[None, None]
+                pos = (ctx[:, None] - chunk + torch.arange(chunk, device="cuda")[None])[:, :, None]
+                mask = (cols <= pos) & (cols < ctx[:, None, None]) & (cols > pos - w)
+                rec["library_ms"] = _gathered_sdpa_ms(
+                    benchit, q.reshape(b, kvh * g, chunk, d), kp, vp, table, mask, kw["scale"])
+                rec["library"] = ("scaled_dot_product_attention on the pre-gathered dense context "
+                                  "(K/V repeated to 16 heads), boolean causal+window mask, gather "
+                                  "not timed; no softcap (SDPA cannot express it)")
+                pairs, flops = _prefill_work(ctxs, chunk, chunk, g, kvh, d, window=w)
+                rows = sum(n - max(0, n - chunk - w + 1) for n in ctxs)  # K/V rows any row sees
+                pages_read = sum(-(-n // ps) - max(0, n - chunk - w + 1) // ps for n in ctxs)
+                nbytes = (
+                    2 * q.numel() * q.element_size()  # q read, o written
+                    + 2 * rows * kvh * d * kp.element_size()  # live K, V rows
+                    + 4 * (b + pages_read)  # ctx_lens, the table entries read
+                )
+                rec["live_pairs"] = pairs
+                rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dt))
+                out["main"] = rec
+                del mask
+            emit(rec)
+            report["checks"].append(rec)
+            del kp, vp, q, o, want
+            torch.cuda.empty_cache()
     return out["main"]
 
 
@@ -437,9 +700,9 @@ def _finished(eng, ids, budget):
     )
 
 
-def _serve_rec(phase, cfg, st, full, wall, launches, want, extra):
+def _serve_rec(phase, cfg, st, full, wall, launches, want, extra, model="llama7b_attention"):
     return {
-        "phase": phase, "model": "llama7b_attention", "layers": cfg.num_layers, **extra,
+        "phase": phase, "model": model, "layers": cfg.num_layers, **extra,
         "all_finished_full_budget": full, "stats": st, "launches": launches,
         "launches_expected": want, "wall_s": wall,
         "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
@@ -539,6 +802,116 @@ def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report
     return rec
 
 
+GEMMA_MODEL = "gemma2_9b: 16 q / 8 KV heads, d=256, window 4096, softcap 50"
+
+
+def _gemma_cache(kvcache, cfg, num_pages):
+    return kvcache.CacheConfig(
+        num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, page_size=256, num_pages=num_pages, dtype="bfloat16",
+    )
+
+
+def phase_serve_gemma2(args, cfg, params, engine_mod, kvcache, counters, report):
+    """Gemma-2-9B-class at full width on the default chunked engine: a donor
+    with a 1024-token prefix and one prompt sharing it, two unique prompts
+    of 4600-5800 tokens (past the window), one short prompt (whole, on
+    flash_fwd); 32 greedy new tokens each.  Then a profile."""
+    ccfg = _gemma_cache(kvcache, cfg, 80)
+    eng = engine_mod.Engine(
+        params, cfg, ccfg,
+        engine_mod.EngineConfig(max_batch=4, pages_per_seq=24, prefill_chunk=512),
+    )
+    rng = np.random.default_rng(args.seed + 40)
+    tok = lambda n: rng.integers(0, cfg.vocab_size, size=int(n)).tolist()  # noqa: E731
+    budget, shared = 32, 1024
+    prefix = tok(shared)
+    prompts = [prefix + tok(100), prefix + tok(rng.integers(64, 401))]  # donor, prefix hit
+    prompts += [tok(n) for n in rng.integers(4600, 5801, size=2)]  # long, past the window
+    prompts += [tok(rng.integers(64, 512))]  # short: whole-prompt on flash_fwd
+    ids = []
+
+    def drive():
+        ids.append(eng.add_request(prompts[0], budget))
+        eng.step()  # the donor prefills and publishes its full prompt pages
+        ids.extend(eng.add_request(p, budget) for p in prompts[1:])
+        eng.run()
+
+    torch.cuda.reset_peak_memory_stats()
+    wall, launches = _drive(counters, drive)
+    full = _finished(eng, ids, budget)
+    st = eng.stats()
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_fwd=cfg.num_layers * st["prefill_batches"],
+                paged_decode=cfg.num_layers * st["decode_batches"],
+                paged_prefill=cfg.num_layers * st["chunk_rounds"])
+    want_prefill = sum(len(p) for p in prompts) - shared
+    rec = _serve_rec("serve_gemma2", cfg, st, full, wall, launches, want, {
+        "prompt_lens": [len(p) for p in prompts], "shared_prefix": shared,
+        "new_tokens": budget, "prefill_tokens_expected": want_prefill,
+        "cache_pages": ccfg.num_pages, "cache_gb": _cache_gb(eng),
+    }, model=GEMMA_MODEL)
+    rec["ok"] = (
+        full and launches == want
+        and all(launches[k] > 0 for k in ("flash_fwd", "paged_decode", "paged_prefill"))
+        and st["free_pages"] == ccfg.num_pages and st["preemptions"] == 0
+        and st["prefill_tokens"] == want_prefill
+    )
+    emit(rec)
+    report["serve_gemma2"] = rec
+    report["profile_gemma2"] = phase_profile(args, eng, cfg, prompt_len=1536, tag="serve_gemma2")
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_gemma2_whole(args, cfg, params, engine_mod, kvcache, counters, report):
+    """The same model with whole-prompt prefill (prefill_chunk=0): two
+    prompts of 4600-5000 tokens, one prefill batch padded to the 8192 bucket
+    (logits 2 x 8192 x 256128 bf16 = 8.4 GB), so flash_fwd's window masks on
+    the serving path; 32 greedy new tokens each."""
+    ccfg = _gemma_cache(kvcache, cfg, 48)
+    eng = engine_mod.Engine(
+        params, cfg, ccfg,
+        engine_mod.EngineConfig(max_batch=4, pages_per_seq=24, prefill_chunk=0),
+    )
+    rng = np.random.default_rng(args.seed + 41)
+    lens = rng.integers(4600, 5001, size=2)
+    budget = 32
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist() for n in lens]
+    ids = []
+
+    def drive():
+        ids.extend(eng.add_request(p, budget) for p in prompts)
+        eng.run()
+
+    torch.cuda.reset_peak_memory_stats()
+    wall, launches = _drive(counters, drive)
+    full = _finished(eng, ids, budget)
+    st = eng.stats()
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_fwd=cfg.num_layers * st["prefill_batches"],
+                paged_decode=cfg.num_layers * st["decode_batches"])
+    rec = _serve_rec("serve_gemma2_whole", cfg, st, full, wall, launches, want, {
+        "prompt_lens": lens.tolist(), "new_tokens": budget, "cache_pages": ccfg.num_pages,
+        "cache_gb": _cache_gb(eng),
+    }, model=GEMMA_MODEL)
+    rec["ok"] = (
+        full and launches == want and launches["flash_fwd"] > 0
+        and launches["paged_decode"] > 0 and st["free_pages"] == ccfg.num_pages
+        and st["prefill_tokens"] == int(lens.sum())
+    )
+    emit(rec)
+    report["serve_gemma2_whole"] = rec
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _cache_gb(eng):
+    return 2 * eng.cache.k_pages.numel() * eng.cache.k_pages.element_size() / 1e9
+
+
 def phase_profile(args, eng, cfg, *, prompt_len, tag):
     """Where the serving time goes: 4 more requests (``prompt_len``-token
     prompts, 8 new tokens) through the same engine after the counted run.
@@ -608,16 +981,15 @@ def _profile(workload, phase, extra):
     return rec
 
 
-def phase_parity(args, transformer, kvcache, engine_mod, report):
-    cfg = dataclasses.replace(
-        transformer.ModelConfig.llama7b_attention(), num_layers=2, dtype="float32"
-    )
-    cpu_params = transformer.init_params(args.seed, cfg, device="cpu")
-    gpu_params = {
-        k: (v.cuda() if torch.is_tensor(v) else [{n: w.cuda() for n, w in lay.items()} for lay in v])
-        for k, v in cpu_params.items()
-    }
-    prompt = np.random.default_rng(args.seed + 1).integers(0, cfg.vocab_size, size=64)
+def _to_card(params):
+    return {k: (v.cuda() if torch.is_tensor(v) else [{n: w.cuda() for n, w in lay.items()} for lay in v])
+            for k, v in params.items()}
+
+
+def _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt):
+    """One request through whole-prompt prefill and 4 decode steps, on the
+    CPU (plain versions) and on the card (kernels) with the CPU's tokens:
+    (max abs error of every logits row, the rows' largest magnitude)."""
 
     def run(params, device, feed):
         cache = kvcache.PagedKVCache(kvcache.CacheConfig(
@@ -645,32 +1017,41 @@ def phase_parity(args, transformer, kvcache, engine_mod, report):
 
     want, toks = run(cpu_params, "cpu", None)
     got, _ = run(gpu_params, "cuda", toks)  # the CPU's tokens, so inputs match
-    e = err(got, want)
+    return err(got, want), float(want.abs().max())
+
+
+def phase_parity(args, transformer, kvcache, engine_mod, report):
+    cfg = dataclasses.replace(
+        transformer.ModelConfig.llama7b_attention(), num_layers=2, dtype="float32"
+    )
+    cpu_params = transformer.init_params(args.seed, cfg, device="cpu")
+    gpu_params = _to_card(cpu_params)
+    prompt = np.random.default_rng(args.seed + 1).integers(0, cfg.vocab_size, size=64)
+    e, absmax = _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt)
     rec = {"phase": "parity", "layers": 2, "dtype": "float32", "prompt_len": 64,
            "decode_steps": 4, "max_abs_err": e, "tol": PARITY_TOL,
-           "logit_absmax": float(want.abs().max()), "ok": e <= PARITY_TOL}
+           "logit_absmax": absmax, "ok": e <= PARITY_TOL}
     emit(rec)
     report["parity"] = rec
+    rng = np.random.default_rng(args.seed + 4)
+    first = rng.integers(0, cfg.vocab_size, size=600).tolist()
+    second = first[:256] + rng.integers(0, cfg.vocab_size, size=100).tolist()
     report["parity_chunked"] = parity_chunked(
-        args, cfg, cpu_params, gpu_params, kvcache, engine_mod
+        cfg, cpu_params, gpu_params, kvcache, engine_mod, first, second, "parity_chunked"
     )
     return rec
 
 
-def parity_chunked(args, cfg, cpu_params, gpu_params, kvcache, engine_mod):
-    """The chunked engine on the 2-layer float32 cut: a 600-token prompt in
-    three 256-token chunk rounds, then a prompt that shares its first 256
-    tokens (a prefix hit) and prefills the rest in one round; 4 decode steps
-    each.  Every logits row the engine samples from, card against CPU."""
+def parity_chunked(cfg, cpu_params, gpu_params, kvcache, engine_mod, first, second, phase):
+    """The chunked engine on a 2-layer float32 cut (page_size 128, chunk
+    256): ``first`` in chunk rounds, then ``second``, which shares its first
+    256 tokens (a prefix hit) and prefills the rest; 4 decode steps each.
+    Every logits row the engine samples from, card against CPU."""
 
     class Recording(engine_mod.Engine):
         def _sample_rows(self, reqs, logits):
             self.rows.append(logits.float().cpu())
             return super()._sample_rows(reqs, logits)
-
-    rng = np.random.default_rng(args.seed + 4)
-    first = rng.integers(0, cfg.vocab_size, size=600).tolist()
-    second = first[:256] + rng.integers(0, cfg.vocab_size, size=100).tolist()
 
     def run(params, device):
         eng = Recording(params, cfg, kvcache.CacheConfig(
@@ -689,13 +1070,47 @@ def parity_chunked(args, cfg, cpu_params, gpu_params, kvcache, engine_mod):
     got, got_toks, _, _ = run(gpu_params, "cuda")
     same = got_toks == want_toks
     e = err(got, want) if same else float("inf")
-    rec = {"phase": "parity_chunked", "layers": 2, "dtype": "float32", "page_size": 128,
+    rec = {"phase": phase, "layers": 2, "dtype": "float32", "page_size": 128,
            "chunk": 256, "prompt_lens": [len(first), len(second)], "shared_prefix": 256,
            "decode_steps": 4, "chunk_rounds": rounds, "prefill_tokens": tokens,
            "tokens_equal": same, "max_abs_err": e, "tol": PARITY_TOL,
            "logit_absmax": float(want.abs().max()),
            "ok": same and e <= PARITY_TOL and tokens == len(first) + len(second) - 256}
     emit(rec)
+    return rec
+
+
+def phase_parity_gemma2(args, transformer, kvcache, engine_mod, report):
+    """Gemma-2-9B-class at full width, cut to 2 float32 layers, with the
+    window cut from 4096 to 128 so that a 300-token prompt crosses it (the
+    CPU side computes 256128-wide logits for every prompt row) and the
+    softcap kept at 50: whole-prompt prefill with 4 decode steps, and the
+    chunked engine with a prefix hit; card against CPU, logits within
+    PARITY_TOL.  The parameters are drawn on the card and copied."""
+    cfg = dataclasses.replace(
+        transformer.ModelConfig.gemma2_9b(num_layers=2), dtype="float32", sliding_window=128
+    )
+    gpu_params = transformer.init_params(args.seed, cfg)
+    cpu_params = {k: (v.cpu() if torch.is_tensor(v) else [{n: w.cpu() for n, w in lay.items()} for lay in v])
+                  for k, v in gpu_params.items()}
+    rng = np.random.default_rng(args.seed + 42)
+    prompt = rng.integers(0, cfg.vocab_size, size=300)
+    t0 = time.perf_counter()
+    e, absmax = _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt)
+    rec = {"phase": "parity_gemma2", "layers": 2, "dtype": "float32",
+           "window": cfg.sliding_window, "logit_softcap": cfg.logit_softcap, "prompt_len": 300,
+           "decode_steps": 4, "max_abs_err": e, "tol": PARITY_TOL,
+           "logit_absmax": absmax, "ok": e <= PARITY_TOL}
+    first = prompt.tolist()
+    second = first[:256] + rng.integers(0, cfg.vocab_size, size=100).tolist()
+    report["parity_gemma2_chunked"] = parity_chunked(
+        cfg, cpu_params, gpu_params, kvcache, engine_mod, first, second, "parity_gemma2_chunked"
+    )
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    report["parity_gemma2"] = rec
+    del gpu_params, cpu_params
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1049,6 +1464,11 @@ def main() -> int:
         "flash_naive": naive_checks(flash, benchit, gen, name, report),
         **bwd_checks(backward, flash, benchit, packing, args, gen, name, report),
     }
+    windowed = {  # d = 256 with window and softcap (Gemma-2), d = 128 window (Mistral)
+        "flash_fwd": flash_window_checks(fa, flash, benchit, gen, name, report),
+        "paged_decode": paged_window_checks(decode, benchit, gen, name, report),
+        "paged_prefill": prefill_window_checks(decode, benchit, gen, name, report),
+    }
     cfg = dataclasses.replace(
         transformer.ModelConfig.llama7b_attention(), num_layers=args.layers
     )
@@ -1060,8 +1480,21 @@ def main() -> int:
     chunked = phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report)
     del params
     torch.cuda.empty_cache()
+    gcfg = transformer.ModelConfig.gemma2_9b(num_layers=42)
+    t0 = time.perf_counter()
+    gparams = transformer.init_params(args.seed, gcfg)
+    torch.cuda.synchronize()
+    report["gemma2_init_s"] = time.perf_counter() - t0
+    report["gemma2_weights_gb"] = sum(
+        t.numel() * t.element_size() for t in train.common.leaves(gparams)) / 1e9
+    gemma = phase_serve_gemma2(args, gcfg, gparams, engine_mod, kvcache, counters, report)
+    gemma_whole = phase_serve_gemma2_whole(args, gcfg, gparams, engine_mod, kvcache, counters,
+                                           report)
+    del gparams
+    torch.cuda.empty_cache()
     cross = phase_crosscheck(fa, flash, gen, report)
     phase_parity(args, transformer, kvcache, engine_mod, report)
+    phase_parity_gemma2(args, transformer, kvcache, engine_mod, report)
 
     tcfg = _train_cfg(transformer)
     tparams = transformer.init_params(args.seed, tcfg)
@@ -1077,6 +1510,7 @@ def main() -> int:
     phase_train_parity(args, transformer, train, packing, report)
 
     paths = {"serve": serve["launches"], "serve_chunked": chunked["launches"],
+             "serve_gemma2": gemma["launches"], "serve_gemma2_whole": gemma_whole["launches"],
              "crosscheck": cross["launches"],
              **{p: r["launches"] for p, r in trained.items()}}
     summary = []
@@ -1094,14 +1528,22 @@ def main() -> int:
             "bound_by": main_rec["bound_by"], "bytes_ms": main_rec["bytes_ms"],
             "ops_ms": main_rec["ops_ms"], "library_ms": main_rec["library_ms"],
         })
+        if kname in windowed:
+            w = windowed[kname]
+            summary[-1]["d256_window_softcap"] = {
+                k: w[k] for k in ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms",
+                                  "bound_ms", "bound_by", "bytes_ms", "ops_ms", "library_ms")
+            }
     report["kernels"] = summary
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
 
     failed = [c["check"] for c in report["checks"] if not c["ok"]]
-    failed += [p for p in ("serve", "serve_chunked", "crosscheck", "parity", "parity_chunked",
-                           "train", "train_remat", "train_packed", "train_parity")
+    failed += [p for p in ("serve", "serve_chunked", "serve_gemma2", "serve_gemma2_whole",
+                           "crosscheck", "parity", "parity_chunked", "parity_gemma2",
+                           "parity_gemma2_chunked", "train", "train_remat", "train_packed",
+                           "train_parity")
                if not report[p]["ok"]]
     failed += [k["name"] for k in summary if k["launches"] == 0]
     emit({"kernels": summary})

@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cfloat>
+#include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -52,6 +53,12 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
   u.x = *reinterpret_cast<unsigned*>(&lo);
   u.y = *reinterpret_cast<unsigned*>(&hi);
   *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Gemma-2's logit softcap, s -> cap * tanh(s / cap) in float32, applied to
+// the scaled score before the masks (flash.py:833-835); cap <= 0: none.
+__device__ __forceinline__ float softcap(float s, float cap) {
+  return cap > 0.f ? cap * tanhf(s / cap) : s;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {

@@ -4,23 +4,34 @@
 //
 // Replaces flashattention_tpu/ops/decode.py::_paged_kernel (pallas_call in
 // paged_attention).  Shapes as there: q (B, KVH, G, d); k_pages, v_pages
-// (P, KVH, page_size, d); lengths (B,); page_indices (B, pages_per_seq).
+// (P, KVH, page_size, d); lengths (B,); page_indices (B, pages_per_seq).  With
+// a sliding window the query at position length - 1 sees the columns
+// col > length - 1 - window (decode.py:171-175), and a logit softcap maps each
+// scaled score s to cap * tanh(s / cap) before the masks (decode.py:162-163).
 //
 // Bound on this card: bytes.  Every live K/V row is read once and used for
 // 4*G*d flops, far below the card's ~295 flops per byte.  The design reads
 // only the pages a request uses (ceil(len / page_size) of its table row, not
-// the whole padded row) and only the live rows of its last page; each warp
-// reads whole K/V rows, so a load instruction covers one contiguous row.
+// the whole padded row) and only the live rows of its last page; with a
+// window the page loop starts at the page of the first column in the window,
+// (length - window) / page_size (decode.py:124-125), so pages wholly before it
+// are never read, nor their table entries.  Each warp reads whole K/V rows, so
+// a load instruction covers one contiguous row.
 // This first version has one 256-thread block per (b, kvh), which leaves
 // much of the card's memory parallelism unused at small batch; splitting
 // long sequences over several blocks comes later.
 //
 // Layout: the block holds all G query rows of its KV head.  Lane l of a warp
-// owns elements [l*E, l*E + E) of d (E = d / 32).  Per page: each warp scores
-// its share of the page's tokens (a warp-wide dot product per row), one warp
-// per query row takes the page max and turns scores into probabilities, then
-// each warp accumulates p * V over its share of tokens into a private
-// accumulator.  The warps' accumulators are summed once at the end.
+// owns elements [l*E, l*E + E) of d (E = d / 32: 8 at d = 256, so a lane
+// holds 8 G floats of q, 8 G of its accumulator and 8 kUnroll of K/V).  Per
+// page: each warp scores its share of the page's tokens (a warp-wide dot
+// product per row), one warp per query row takes the page max and turns
+// scores into probabilities, then each warp accumulates p * V over its share
+// of tokens into a private accumulator.  The warps' accumulators are summed
+// once at the end, through kWarps x G x d floats of shared memory (16 KB at
+// G = 2, d = 256; the launch raises the dynamic limit where it passes 48 KB).
+// Window and softcap are a compile-time choice (kWindowCap): a model with
+// neither runs the scoring loop without their selects.
 #include "common.cuh"
 
 namespace {
@@ -29,12 +40,13 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kUnroll = 4;  // K/V rows each warp has in flight
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool kWindowCap>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages, const int* __restrict__ lengths,
                     const int* __restrict__ page_indices, T* __restrict__ o,
-                    int page_size, int pages_per_seq, float scale) {
+                    int page_size, int pages_per_seq, float scale, int window,
+                    float softcap) {
   constexpr int E = D / 32;
   static_assert(E >= 1 && D % 32 == 0, "head_dim must be a multiple of 32");
   // scores[G][page_size] during the page loop; reused for the final sum of
@@ -50,6 +62,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int length = lengths[b];
   const int n_pages =
       min((length + page_size - 1) / page_size, pages_per_seq);
+  // Columns at or before win_lo lie outside the window of the query at
+  // position length - 1; the loop starts at the page of the first one inside.
+  const bool windowed = kWindowCap && window > 0;
+  const int win_lo = windowed ? length - 1 - window : -1;
+  const int first_page = windowed ? max(0, (length - window) / page_size) : 0;
 
   const size_t head = static_cast<size_t>(b) * kvh + h;
   float qv[G][E], acc[G][E];
@@ -68,7 +85,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   float* scores = smem;
   const size_t page_stride = static_cast<size_t>(kvh) * page_size * D;
 
-  for (int i = 0; i < n_pages; ++i) {
+  for (int i = first_page; i < n_pages; ++i) {
     const size_t page = page_indices[static_cast<size_t>(b) * pages_per_seq + i];
     const int valid = min(page_size, length - i * page_size);
     const T* kp = k_pages + page * page_stride + static_cast<size_t>(h) * page_size * D;
@@ -93,7 +110,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
           for (int e = 0; e < E; ++e) dot += qv[g][e] * kr[u][e];
           dot = fa::warp_sum(dot);
-          if (lane == 0 && j0 + u < valid) scores[g * page_size + j0 + u] = dot * scale;
+          if (lane == 0 && j0 + u < valid) {
+            float s = dot * scale;
+            if constexpr (kWindowCap)
+              s = i * page_size + j0 + u > win_lo ? fa::softcap(s, softcap) : fa::kMaskValue;
+            scores[g * page_size + j0 + u] = s;
+          }
         }
       }
     }
@@ -167,14 +189,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool kWindowCap>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const int* lengths, const int* page_indices, void* o, int b, int kvh,
-           int page_size, int pages_per_seq, float scale, cudaStream_t stream) {
+           int page_size, int pages_per_seq, float scale, int window,
+           float softcap, cudaStream_t stream) {
   const size_t floats = max(static_cast<size_t>(G) * page_size,
                             static_cast<size_t>(kWarps) * G * D);
   const size_t bytes = floats * sizeof(float);
-  auto kernel = paged_decode_kernel<T, D, G>;
+  auto kernel = paged_decode_kernel<T, D, G, kWindowCap>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -183,19 +206,27 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   kernel<<<dim3(kvh, b), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), lengths, page_indices, static_cast<T*>(o),
-      page_size, pages_per_seq, scale);
+      page_size, pages_per_seq, scale, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int launch_g(int g, const void* q, const void* k_pages, const void* v_pages,
              const int* lengths, const int* page_indices, void* o, int b,
-             int kvh, int page_size, int pages_per_seq, float scale,
-             cudaStream_t stream) {
-#define FA_CASE(G)                                                           \
-  case G:                                                                    \
-    return launch<T, D, G>(q, k_pages, v_pages, lengths, page_indices, o, b, \
-                           kvh, page_size, pages_per_seq, scale, stream);
+             int kvh, int page_size, int pages_per_seq, float scale, int window,
+             float softcap, cudaStream_t stream) {
+  const bool window_cap = window > 0 || softcap > 0.f;
+#define FA_CASE(G)                                                            \
+  case G:                                                                     \
+    return window_cap                                                         \
+               ? launch<T, D, G, true>(q, k_pages, v_pages, lengths,          \
+                                       page_indices, o, b, kvh, page_size,    \
+                                       pages_per_seq, scale, window, softcap, \
+                                       stream)                                \
+               : launch<T, D, G, false>(q, k_pages, v_pages, lengths,         \
+                                        page_indices, o, b, kvh, page_size,   \
+                                        pages_per_seq, scale, window,         \
+                                        softcap, stream);
   switch (g) {
     FA_CASE(1)
     FA_CASE(2)
@@ -211,15 +242,17 @@ template <typename T>
 int launch_d(int d, int g, const void* q, const void* k_pages,
              const void* v_pages, const int* lengths, const int* page_indices,
              void* o, int b, int kvh, int page_size, int pages_per_seq,
-             float scale, cudaStream_t stream) {
+             float scale, int window, float softcap, cudaStream_t stream) {
 #define FA_CASE(D)                                                          \
   case D:                                                                   \
     return launch_g<T, D>(g, q, k_pages, v_pages, lengths, page_indices, o, \
-                          b, kvh, page_size, pages_per_seq, scale, stream);
+                          b, kvh, page_size, pages_per_seq, scale, window,  \
+                          softcap, stream);
   switch (d) {
     FA_CASE(32)
     FA_CASE(64)
     FA_CASE(128)
+    FA_CASE(256)
     default:
       return -1;
   }
@@ -230,20 +263,23 @@ int launch_d(int d, int g, const void* q, const void* k_pages,
 
 // q: (b, kvh, g, d); k_pages, v_pages: (P, kvh, page_size, d); lengths: (b,)
 // int32; page_indices: (b, pages_per_seq) int32; o like q.  All contiguous,
-// on the device; q, pages and o of one dtype code.
+// on the device; q, pages and o of one dtype code.  window <= 0: no sliding
+// window; softcap <= 0: no logit softcap.
 extern "C" int fa_paged_decode(int dtype, const void* q, const void* k_pages,
                                const void* v_pages, const void* lengths,
                                const void* page_indices, void* o, int b,
                                int kvh, int g, int d, int page_size,
-                               int pages_per_seq, float scale, void* stream) {
+                               int pages_per_seq, float scale, int window,
+                               float softcap, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto len = static_cast<const int*>(lengths);
   auto tab = static_cast<const int*>(page_indices);
   if (dtype == fa::kFloat32)
     return launch_d<float>(d, g, q, k_pages, v_pages, len, tab, o, b, kvh,
-                           page_size, pages_per_seq, scale, st);
+                           page_size, pages_per_seq, scale, window, softcap, st);
   if (dtype == fa::kBFloat16)
     return launch_d<__nv_bfloat16>(d, g, q, k_pages, v_pages, len, tab, o, b,
-                                   kvh, page_size, pages_per_seq, scale, st);
+                                   kvh, page_size, pages_per_seq, scale, window,
+                                   softcap, st);
   return -1;
 }

@@ -9,7 +9,10 @@
 // into the rows, G segments of `seg` rows each; k_pages, v_pages
 // (P, KVH, page_size, d); page_indices (B, pages_per_seq); ctx_lens (B,).
 // Row r sits at segment position r % seg and absolute position
-// ctx_len - chunk + r % seg; it attends the columns col <= pos, col < ctx_len.
+// ctx_len - chunk + r % seg; it attends the columns col <= pos, col < ctx_len
+// and, with a sliding window, col > pos - window (decode.py:462-463).  A logit
+// softcap maps each scaled score s to cap * tanh(s / cap) before the masks
+// (decode.py:456-457).
 //
 // Bound on this card: operations at the serving shapes.  A 512-row chunk
 // reads each live K/V row once per 32-row query tile, and every (row, column)
@@ -18,18 +21,24 @@
 // arithmetic in float32 on the CUDA cores, not on the tensor cores, so it
 // sits far from that bound; wgmma comes later.  What the design keeps from a
 // fast kernel: the KV loop of a query tile stops at its last causal column and
-// at ctx_len, so no page past either is read, and a block reads its own page
-// table entries (the TPU kernel's scalar prefetch).
+// at ctx_len, so no page past either is read; with a window it starts at the
+// 32-column tile holding the first column the tile's smallest position sees
+// (decode.py:422-426), so pages wholly before the window are never read, nor
+// their table entries; and a block reads its own page table entries (the TPU
+// kernel's scalar prefetch).
 //
-// Layout: one block per (32-row query tile, KV head, request).  Eight threads
-// share a query row; each keeps an eighth of the row's q and of its output
-// accumulator in registers as interleaved float4 chunks, so a row's eight
-// threads read eight neighbouring float4 of a shared-memory K/V row and the
-// four rows of a warp read the same ones (a broadcast).  At d = 128 that is
-// 32 + 32 floats a thread plus 32 scores, small enough for two 256-thread
-// blocks per SM.  K/V are staged in 32-row sub-tiles of the pages as float32
-// (2 x 32 x d x 4 bytes = 32 KB at d = 128), whatever the page size: a page of
-// 256 rows would need 128 KB per head in float32.  Each tile first resolves
+// Layout: one block of 256 threads per (query tile, KV head, request).
+// kThreadsPerRow(D) threads share a query row: 8 up to d = 128 (32-row tiles),
+// 16 at d = 256 (16-row tiles).  Each keeps its share of the row's q and of
+// its output accumulator in registers as interleaved float4 chunks, so a
+// row's threads read neighbouring float4 of a shared-memory K/V row and the
+// rows of a warp read the same ones (a broadcast).  That is at most 32 + 32
+// floats a thread plus 32 scores at every d, small enough for two blocks per
+// SM (128 registers) with no spill.  K/V are staged in 32-row sub-tiles of
+// the pages as float32 in dynamic shared memory (2 x 32 x d x 4 bytes: 32 KB
+// at d = 128, 64 KB at d = 256, where the launch raises the 48 KB default),
+// whatever the page size: a page of 256 rows would need 128 KB per head in
+// float32.  Each tile first resolves
 // its 32 columns to pool offsets; a column whose page-table entry lies outside
 // the pool is masked and never read, and no table entry at or past
 // pages_per_seq is read.  Offsets are 64-bit: one layer's pool can exceed
@@ -42,10 +51,19 @@
 
 namespace {
 
-constexpr int kBlockQ = 32;  // query rows per block
-constexpr int kTile = 32;    // KV rows per shared-memory tile
-constexpr int kThreadsPerRow = 8;
-constexpr int kThreads = kBlockQ * kThreadsPerRow;  // 256
+constexpr int kTile = 32;  // KV rows per shared-memory tile
+constexpr int kThreads = 256;
+
+// Threads per query row, and so query rows per block, by head_dim.
+template <int D>
+__host__ __device__ constexpr int threads_per_row() { return D >= 256 ? 16 : 8; }
+template <int D>
+__host__ __device__ constexpr int block_q() { return kThreads / threads_per_row<D>(); }
+
+template <int D>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return 2 * sizeof(float4) * kTile * (D / 4) + sizeof(long long) * kTile;
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -54,14 +72,18 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                      const int* __restrict__ page_indices,
                      const int* __restrict__ ctx_lens, T* __restrict__ o,
                      int rows, int num_pages, int page_size, int pages_per_seq,
-                     int chunk, int seg, float scale) {
+                     int chunk, int seg, float scale, int window, float softcap) {
+  constexpr int kThreadsPerRow = threads_per_row<D>();
+  constexpr int kBlockQ = block_q<D>();
   constexpr int kVec = D / 4;                     // float4 chunks per row
   constexpr int kChunks = kVec / kThreadsPerRow;  // chunks per thread
   static_assert(kChunks >= 1 && kVec % kThreadsPerRow == 0,
-                "head_dim must be a multiple of 32");
-  __shared__ float4 k_tile[kTile][kVec];
-  __shared__ float4 v_tile[kTile][kVec];
-  __shared__ long long col_off[kTile];  // pool offset of each column, -1: masked
+                "head_dim must be a multiple of 4 * kThreadsPerRow");
+  // [kTile][kVec] K, then V, then the pool offset of each column (-1: masked).
+  extern __shared__ float4 smem[];
+  float4* k_tile = smem;
+  float4* v_tile = smem + kTile * kVec;
+  long long* col_off = reinterpret_cast<long long*>(smem + 2 * kTile * kVec);
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -74,14 +96,24 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int ctx_len = ctx_lens[b];
   const int anchor = ctx_len - chunk;  // position of segment row 0
   const int pos = anchor + (live ? row % seg : 0);
+  // Columns at or before win_lo lie outside this row's window.
+  const int win_lo = window > 0 ? pos - window : INT_MIN;
 
   // Last column any row of this tile attends: its largest segment position
-  // (a tile may cross a segment boundary when 32 does not divide seg), then
-  // ctx_len and the table's capacity.
+  // (a tile may cross a segment boundary when kBlockQ does not divide seg),
+  // then ctx_len and the table's capacity.  With a window, the first column
+  // is that of its smallest segment position (a tile crossing a boundary
+  // takes the segment's first), rounded down to a KV tile.
   const int r1 = min(rows, r0 + kBlockQ) - 1;
-  const int last = (r0 / seg == r1 / seg) ? r1 % seg : seg - 1;
+  const bool one_segment = r0 / seg == r1 / seg;
+  const int last = one_segment ? r1 % seg : seg - 1;
   const int kv_end =
       max(0, min(min(ctx_len, anchor + last + 1), pages_per_seq * page_size));
+  int kv_begin = 0;
+  if (window > 0) {
+    kv_begin = max(0, anchor + (one_segment ? r0 % seg : 0) - window + 1);
+    kv_begin -= kv_begin % kTile;
+  }
 
   const size_t head = static_cast<size_t>(b) * kvh + h;
   const T* q_row = q + (head * rows + (live ? row : r0)) * D;
@@ -95,7 +127,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
   float m_run = -INFINITY;
   float l_run = 0.f;
-  for (int t0 = 0; t0 < kv_end; t0 += kTile) {
+  for (int t0 = kv_begin; t0 < kv_end; t0 += kTile) {
     __syncthreads();  // every thread is done with the previous tile
     if (tid < kTile) {
       const int col = t0 + tid;
@@ -118,8 +150,8 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         kx = fa::load4(k_pages + off + 4 * c);
         vx = fa::load4(v_pages + off + 4 * c);
       }
-      k_tile[j][c] = kx;
-      v_tile[j][c] = vx;
+      k_tile[idx] = kx;  // idx = j * kVec + c
+      v_tile[idx] = vx;
     }
     __syncthreads();
 
@@ -130,13 +162,13 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < kChunks; ++i)
-        dot += fa::dot4(qr[i], k_tile[j][part + kThreadsPerRow * i]);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+        dot += fa::dot4(qr[i], k_tile[j * kVec + part + kThreadsPerRow * i]);
+#pragma unroll
+      for (int off = 1; off < kThreadsPerRow; off <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
       const int col = t0 + j;
-      const bool keep = col < kv_end && col <= pos && col_off[j] >= 0;
-      s[j] = keep ? dot * scale : -INFINITY;
+      const bool keep = col < kv_end && col <= pos && col > win_lo && col_off[j] >= 0;
+      s[j] = keep ? fa::softcap(dot * scale, softcap) : -INFINITY;
       tile_max = fmaxf(tile_max, s[j]);
     }
     const float m_next = fmaxf(m_run, tile_max);
@@ -161,7 +193,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     for (int j = 0; j < kTile; ++j) {
 #pragma unroll
       for (int i = 0; i < kChunks; ++i)
-        fa::fma4(acc[i], s[j], v_tile[j][part + kThreadsPerRow * i]);
+        fa::fma4(acc[i], s[j], v_tile[j * kVec + part + kThreadsPerRow * i]);
     }
   }
 
@@ -180,13 +212,21 @@ template <typename T, int D>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const int* page_indices, const int* ctx_lens, void* o, int b,
            int kvh, int rows, int num_pages, int page_size, int pages_per_seq,
-           int chunk, int seg, float scale, cudaStream_t stream) {
-  const dim3 grid((rows + kBlockQ - 1) / kBlockQ, kvh, b);
-  paged_prefill_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+           int chunk, int seg, float scale, int window, float softcap,
+           cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes<D>();
+  auto kernel = paged_prefill_kernel<T, D>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((rows + block_q<D>() - 1) / block_q<D>(), kvh, b);
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), page_indices, ctx_lens,
       static_cast<T*>(o), rows, num_pages, page_size, pages_per_seq, chunk, seg,
-      scale);
+      scale, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -194,17 +234,18 @@ template <typename T>
 int launch_d(int d, const void* q, const void* k_pages, const void* v_pages,
              const int* page_indices, const int* ctx_lens, void* o, int b,
              int kvh, int rows, int num_pages, int page_size,
-             int pages_per_seq, int chunk, int seg, float scale,
-             cudaStream_t stream) {
+             int pages_per_seq, int chunk, int seg, float scale, int window,
+             float softcap, cudaStream_t stream) {
 #define FA_CASE(D)                                                            \
   case D:                                                                     \
     return launch<T, D>(q, k_pages, v_pages, page_indices, ctx_lens, o, b,    \
                         kvh, rows, num_pages, page_size, pages_per_seq, chunk, \
-                        seg, scale, stream);
+                        seg, scale, window, softcap, stream);
   switch (d) {
     FA_CASE(32)
     FA_CASE(64)
     FA_CASE(128)
+    FA_CASE(256)
     default:
       return -1;
   }
@@ -215,23 +256,25 @@ int launch_d(int d, const void* q, const void* k_pages, const void* v_pages,
 
 // q: (b, kvh, rows, d); k_pages, v_pages: (num_pages, kvh, page_size, d);
 // page_indices: (b, pages_per_seq) int32; ctx_lens: (b,) int32; o like q.
-// All contiguous, on the device; q, pages and o of one dtype code.
+// All contiguous, on the device; q, pages and o of one dtype code.  window <= 0:
+// no sliding window; softcap <= 0: no logit softcap.
 extern "C" int fa_paged_prefill(int dtype, const void* q, const void* k_pages,
                                 const void* v_pages, const void* page_indices,
                                 const void* ctx_lens, void* o, int b, int kvh,
                                 int rows, int d, int num_pages, int page_size,
                                 int pages_per_seq, int chunk, int seg,
-                                float scale, void* stream) {
+                                float scale, int window, float softcap,
+                                void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto tab = static_cast<const int*>(page_indices);
   auto ctx = static_cast<const int*>(ctx_lens);
   if (dtype == fa::kFloat32)
     return launch_d<float>(d, q, k_pages, v_pages, tab, ctx, o, b, kvh, rows,
                            num_pages, page_size, pages_per_seq, chunk, seg,
-                           scale, st);
+                           scale, window, softcap, st);
   if (dtype == fa::kBFloat16)
     return launch_d<__nv_bfloat16>(d, q, k_pages, v_pages, tab, ctx, o, b, kvh,
                                    rows, num_pages, page_size, pages_per_seq,
-                                   chunk, seg, scale, st);
+                                   chunk, seg, scale, window, softcap, st);
   return -1;
 }

@@ -1,7 +1,10 @@
 """Llama-style decoder-only transformer on the port's kernels.
 
 Counterpart of ``flashattention_tpu/models/transformer.py``: RMSNorm + RoPE +
-GQA attention + SwiGLU.  Three entry points serve the engine:
+GQA attention + SwiGLU, with an optional sliding window (Mistral-7B-class)
+and attention-score softcap (Gemma-2-9B-class, with head_dim 256), threaded
+into every attention call as the JAX model threads them.  Three entry points
+serve the engine:
 
 - :func:`prefill`: whole-sequence forward on the causal flash kernel
   (``ops/flash.py`` through ``ops/dispatch.attention``), returning logits and
@@ -71,15 +74,8 @@ class ModelConfig:
         return _DTYPES[self.dtype]
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for model features of later slices."""
-        if self.sliding_window is not None:
-            raise NotImplementedError(
-                "sliding-window models are not ported yet: they come with the Mistral slice"
-            )
-        if self.logit_softcap is not None:
-            raise NotImplementedError(
-                "logit softcapping is not ported yet: it comes with the Gemma-2 slice"
-            )
+        """Raise ``NotImplementedError`` for model features the serving path
+        does not have yet (training checks its own, see ``models/train``)."""
         if self.num_experts is not None:
             raise NotImplementedError(
                 "MoE MLPs are not ported yet: they come with the Mixtral slice"
@@ -112,7 +108,10 @@ class ModelConfig:
 
     @classmethod
     def gemma2_9b(cls, num_layers: int = 2) -> "ModelConfig":
-        """Gemma-2-9B-class: GQA 16q/8kv, d=256, logit softcaps."""
+        """Gemma-2-9B-class: GQA 16q/8kv, d=256, sliding window 4096 on every
+        layer, attention-score softcap 50; the published depth is 42 layers.
+        (As in the JAX preset: dense SwiGLU, untied embeddings, no post-norms
+        or final-logit cap.)"""
         return cls(
             vocab_size=256128, num_layers=num_layers, d_model=3584,
             num_q_heads=16, num_kv_heads=8, head_dim=256,
@@ -251,6 +250,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig):
         o = attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=True, scale=cfg.head_dim**-0.5,
+            window=cfg.sliding_window, logit_softcap=cfg.logit_softcap,
         )
         x = x + _mm(o.transpose(1, 2).reshape(b, s, -1), layer["wo"])
         x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
@@ -296,7 +296,8 @@ def decode_step_impl(
         qg = q[:, 0].reshape(b, cfg.num_kv_heads, cfg.group_size, cfg.head_dim)
         o = paged_attention(
             qg, k_pages[li], v_pages[li], lengths, page_indices,
-            scale=cfg.head_dim**-0.5,
+            scale=cfg.head_dim**-0.5, window=cfg.sliding_window,
+            logit_softcap=cfg.logit_softcap,
         )  # (B, KVH, G, d)
         x = x + _mm(o.reshape(b, 1, cfg.num_q_heads * cfg.head_dim), layer["wo"])
         x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
@@ -382,7 +383,8 @@ def prefill_chunk_batched(
         qf = q.transpose(1, 2).reshape(b, kvh, g * t, hd).contiguous()
         o = paged_prefill_attention_batched(
             qf, k_pages[li], v_pages[li], page_tables, ctx_lens,
-            chunk=t, seg=t, scale=hd**-0.5,
+            chunk=t, seg=t, scale=hd**-0.5, window=cfg.sliding_window,
+            logit_softcap=cfg.logit_softcap,
         )  # (B, KVH, G * T, d)
         o = o.reshape(b, kvh * g, t, hd).transpose(1, 2).reshape(b, t, kvh * g * hd)
         x = x + _mm(o, layer["wo"])

@@ -55,6 +55,19 @@ __all__ = [
 _HEAD_DIMS = (32, 64, 128)
 
 
+def _check_bwd_ported(window=None, logit_softcap=None):
+    """Raise ``NotImplementedError`` for the forward options the backward
+    kernels do not take yet; every differentiable route checks this before
+    it launches anything."""
+    if window is not None or logit_softcap is not None:
+        raise NotImplementedError(
+            "sliding window and logit softcap have no backward yet: the backward "
+            "kernels (flash_bwd, flash_bwd_dq, flash_bwd_dkv) take neither; they "
+            "come with the Gemma-2/Mistral training slice (serving runs attention "
+            "under torch.no_grad())"
+        )
+
+
 def _check_tpu_options(block_sizes=None, precision=None, interpret=None):
     """The JAX signature's TPU tiling and MXU-precision knobs have no
     counterpart: the CUDA kernels have their own tiles and compute in
@@ -89,10 +102,8 @@ def flash_attention_bwd(
     _check_tpu_options(block_sizes, precision, interpret)
     if dropout_rate == 0.0:
         dropout_rate = None  # rate 0 is the identity, not an error
-    check_ported(
-        window=window, logit_softcap=logit_softcap, dropout_rate=dropout_rate,
-        block_mask=block_mask,
-    )
+    _check_bwd_ported(window, logit_softcap)
+    check_ported(dropout_rate=dropout_rate, block_mask=block_mask)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"expected (BH, S, d) tensors, got {q.shape} {k.shape} {v.shape}")
     bh, rows, d = q.shape
@@ -317,15 +328,13 @@ def attention_vjp(
     groups' rows.  ``block_sizes`` is the forward kernel's tile
     (``BlockSizes()`` or None); ``precision`` and ``interpret`` are TPU
     options and must be None.  Window, softcap, dropout and block masks
-    raise ``NotImplementedError`` until their slices.
+    raise ``NotImplementedError`` before any launch until their slices.
     """
     _check_tpu_options(None, precision, interpret)
     if dropout_rate == 0.0:
         dropout_rate = None
-    check_ported(
-        window=window, logit_softcap=logit_softcap, dropout_rate=dropout_rate,
-        block_mask=block_mask,
-    )
+    _check_bwd_ported(window, logit_softcap)
+    check_ported(dropout_rate=dropout_rate, block_mask=block_mask)
     opts = dict(causal=bool(causal), scale=float(scale), q_seq_len=q_seq_len, kv_len=kv_len,
                 q_offset=int(q_offset))
     return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids, opts, block_sizes)

@@ -16,6 +16,10 @@ chunk of rows per request, GQA-folded into ``(B, KVH, G * seg, d)``, that
 attend their context straight off the pool.  On a CUDA tensor it launches
 ``csrc/paged_prefill.cu`` (replacing the Pallas ``_paged_prefill_kernel``,
 :375); on a CPU tensor it runs :func:`paged_prefill_attention_plain`.
+
+Both take a sliding window (a query at position ``pos`` sees columns
+``c > pos - window``) and a logit softcap (``s -> cap * tanh(s / cap)`` after
+the scale, before the masks), as the Pallas kernels do.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from flashattention_tpu_torch.ops import kernels
-from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
+from flashattention_tpu_torch.ops.flash import check_window, kernel_options
+from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE, softcap
 
 __all__ = [
     "paged_attention",
@@ -36,12 +41,15 @@ __all__ = [
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 _GROUPS = (1, 2, 4, 8)
 
 
-def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, *, scale=1.0):
-    """Dense oracle: gather every page of the table, mask by length, attend.
+def paged_attention_reference(
+    q, k_pages, v_pages, lengths, page_indices, *, scale=1.0, window=None, logit_softcap=None
+):
+    """Dense oracle: gather every page of the table, mask by length (and by
+    the window of the query at position ``length - 1``), attend.
 
     A row of length 0 has every column masked, so like the JAX oracle it
     returns the mean of the gathered V rows (not zeros; see
@@ -53,8 +61,12 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, *, sca
     # (B, pps, KVH, ps, d) -> (B, KVH, S_max, d)
     k = k_pages[idx].transpose(1, 2).reshape(b, kvh, s_max, d)
     v = v_pages[idx].transpose(1, 2).reshape(b, kvh, s_max, d)
-    s = torch.einsum("bhgd,bhkd->bhgk", q.float(), k.float()) * scale
-    mask = torch.arange(s_max, device=q.device)[None, :] < lengths.long()[:, None]
+    s = softcap(torch.einsum("bhgd,bhkd->bhgk", q.float(), k.float()) * scale, logit_softcap)
+    cols = torch.arange(s_max, device=q.device)[None, :]
+    lens = lengths.to(q.device).long()[:, None]
+    mask = cols < lens
+    if window is not None:
+        mask = mask & (cols > lens - 1 - window)
     s = torch.where(mask[:, None, None, :], s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -62,10 +74,15 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, *, sca
     return o.to(q.dtype)
 
 
-def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices, *, scale=1.0):
+def paged_attention_plain(
+    q, k_pages, v_pages, lengths, page_indices, *, scale=1.0, window=None, logit_softcap=None
+):
     """The kernel's function in plain PyTorch: the oracle, with zeros for
     rows of length 0 as the kernel writes them."""
-    o = paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, scale=scale)
+    o = paged_attention_reference(
+        q, k_pages, v_pages, lengths, page_indices, scale=scale, window=window,
+        logit_softcap=logit_softcap,
+    )
     return torch.where((lengths > 0)[:, None, None, None].to(o.device), o, torch.zeros_like(o))
 
 
@@ -92,7 +109,11 @@ def paged_attention(
         ``[0, len)``).  A row of length 0 gets zeros; the JAX kernel leaves
         it unwritten (``decode.py:258``).
       page_indices: ``(B, pages_per_seq)`` int32 logical -> physical pages;
-        only the first ``ceil(len / page_size)`` entries of a row are read.
+        only the first ``ceil(len / page_size)`` entries of a row are read
+        (with a window, none before the page of column ``len - window``).
+      window: the query (at position ``len - 1``) sees columns
+        ``c > len - 1 - window``.
+      logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
 
     Returns ``(B, KVH, G, d)`` in q's dtype.
     """
@@ -101,7 +122,8 @@ def paged_attention(
             "draft_k > 1 (speculative verification) is not ported yet: it "
             "comes with the speculative-decoding slice"
         )
-    _check_ported("paged_attention", window, logit_softcap, k_scales_pages, v_scales_pages)
+    _check_scales(k_scales_pages, v_scales_pages)
+    check_window(window, logit_softcap, causal=True)
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"expected q (B,KVH,G,d), pages (P,KVH,ps,d): {q.shape} {k_pages.shape}")
     b, kvh, g, d = q.shape
@@ -121,7 +143,10 @@ def paged_attention(
     if not all(t.is_contiguous() for t in (q, k_pages, v_pages, lengths, page_indices)):
         raise ValueError("paged_attention takes contiguous tensors")
     if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pages, v_pages, lengths, page_indices, scale=scale)
+        return paged_attention_plain(
+            q, k_pages, v_pages, lengths, page_indices, scale=scale, window=window,
+            logit_softcap=logit_softcap,
+        )
     devs = {t.device for t in (q, k_pages, v_pages, lengths, page_indices)}
     if q.device.type != "cuda" or len(devs) != 1:
         raise ValueError(f"paged_attention: tensors on {sorted(map(str, devs))}")
@@ -142,7 +167,7 @@ def paged_attention(
         _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(),
         b, kvh, g, d, page_size, page_indices.shape[1], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *kernel_options(window, logit_softcap), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check_launch("paged_decode", status, f"q {tuple(q.shape)} {q.dtype}")
     paged_attention.launches += 1
@@ -161,24 +186,33 @@ def _segment_positions(ctx_lens, rows, chunk, seg, device):
     return ctx[:, None] - chunk + (torch.arange(rows, device=device) % seg)[None, :]
 
 
+def _prefill_mask(ctx_lens, rows, chunk, seg, s_max, window, device):
+    """(B, R, S_max): row r at ``pos = ctx_len - chunk + r % seg`` sees
+    ``col <= pos``, ``col < ctx_len`` and, with a window, ``col > pos - window``."""
+    pos = _segment_positions(ctx_lens, rows, chunk, seg, device)[:, :, None]
+    cols = torch.arange(s_max, device=device)[None, None, :]
+    mask = (cols <= pos) & (cols < ctx_lens.to(device).long()[:, None, None])
+    if window is not None:
+        mask = mask & (cols > pos - window)
+    return mask
+
+
 def paged_prefill_attention_reference(
-    q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, seg=None, scale=1.0
+    q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, seg=None, scale=1.0,
+    window=None, logit_softcap=None,
 ):
     """Dense oracle of the batched layout: gather every page of each table,
-    anchor row r at ``ctx_len - chunk + r % seg``, mask ``col <= pos`` and
-    ``col < ctx_len``, attend in float32.  A row that sees no column gets
-    the mean of the gathered V rows, as the JAX oracles give."""
+    anchor row r at ``ctx_len - chunk + r % seg``, mask ``col <= pos``,
+    ``col < ctx_len`` and the window, attend in float32.  A row that sees no
+    column gets the mean of the gathered V rows, as the JAX oracles give."""
     b, kvh, rows, d = q.shape
     s_max = page_indices.shape[1] * k_pages.shape[2]
     idx = page_indices.long()
     # (B, pps, KVH, ps, d) -> (B, KVH, S_max, d)
     k = k_pages[idx].transpose(1, 2).reshape(b, kvh, s_max, d)
     v = v_pages[idx].transpose(1, 2).reshape(b, kvh, s_max, d)
-    s = torch.einsum("bhrd,bhkd->bhrk", q.float(), k.float()) * scale
-    pos = _segment_positions(ctx_lens, rows, chunk, seg or rows, q.device)
-    cols = torch.arange(s_max, device=q.device)[None, None, :]
-    ctx = ctx_lens.to(q.device).long()[:, None, None]
-    mask = (cols <= pos[:, :, None]) & (cols < ctx)  # (B, R, S_max)
+    s = softcap(torch.einsum("bhrd,bhkd->bhrk", q.float(), k.float()) * scale, logit_softcap)
+    mask = _prefill_mask(ctx_lens, rows, chunk, seg or rows, s_max, window, q.device)
     s = torch.where(mask[:, None], s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     o = torch.einsum("bhrk,bhkd->bhrd", p, v.float()) / p.sum(dim=-1, keepdim=True)
@@ -186,26 +220,21 @@ def paged_prefill_attention_reference(
 
 
 def paged_prefill_attention_plain(
-    q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, seg=None, scale=1.0
+    q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, seg=None, scale=1.0,
+    window=None, logit_softcap=None,
 ):
     """The kernel's function in plain PyTorch: the oracle, with zeros for a
-    row that sees no column (every row of a ``ctx_len == 0`` request), as
-    the kernel writes them.  A row sees column 0 exactly when its position
-    is >= 0 and ``ctx_len > 0``."""
-    o = paged_prefill_attention_reference(
-        q, k_pages, v_pages, page_indices, ctx_lens, chunk=chunk, seg=seg, scale=scale
-    )
-    pos = _segment_positions(ctx_lens, q.shape[2], chunk, seg or q.shape[2], q.device)
-    seen = (pos >= 0) & (ctx_lens.to(q.device)[:, None] > 0)
+    row that sees no column (every row of a ``ctx_len == 0`` request, and a
+    pad row whose window lies past the context), as the kernel writes them."""
+    kw = dict(chunk=chunk, seg=seg, scale=scale, window=window, logit_softcap=logit_softcap)
+    o = paged_prefill_attention_reference(q, k_pages, v_pages, page_indices, ctx_lens, **kw)
+    s_max = page_indices.shape[1] * k_pages.shape[2]
+    rows = q.shape[2]
+    seen = _prefill_mask(ctx_lens, rows, chunk, seg or rows, s_max, window, q.device).any(-1)
     return torch.where(seen[:, None, :, None], o, torch.zeros_like(o))
 
 
-def _check_ported(name, window, logit_softcap, k_scales_pages, v_scales_pages):
-    if window is not None or logit_softcap is not None:
-        raise NotImplementedError(
-            f"window / logit_softcap in {name} are not ported yet: they come "
-            "with the Mistral and Gemma-2 slices"
-        )
+def _check_scales(k_scales_pages, v_scales_pages):
     if k_scales_pages is not None or v_scales_pages is not None:
         raise NotImplementedError(
             "quantized pages (k/v scales) are not ported yet: they come with "
@@ -244,13 +273,17 @@ def paged_prefill_attention_batched(
         request with ``ctx_lens[b] == 0`` (batch padding) gets zeros; the
         JAX kernel leaves it unwritten.
       block_q: the JAX kernel's q tile, accepted for parity; the CUDA tile is
-        the kernel's own (32 rows).
+        the kernel's own (32 rows, 16 at d = 256).
+      window: row p sees columns ``c > pos - window``; no table entry of a
+        page wholly before a tile's window is read.
+      logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
 
     Returns ``(B, KVH, R, d)`` in q's dtype.  The launch count is kept on
     this function (``.launches``); :func:`paged_prefill_attention` launches
     through it.
     """
-    _check_ported("paged_prefill_attention", window, logit_softcap, k_scales_pages, v_scales_pages)
+    _check_scales(k_scales_pages, v_scales_pages)
+    check_window(window, logit_softcap, causal=True)
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"expected q (B,KVH,R,d), pages (P,KVH,ps,d): {q.shape} {k_pages.shape}")
     b, kvh, rows, d = q.shape
@@ -276,7 +309,9 @@ def paged_prefill_attention_batched(
     if not all(t.is_contiguous() for t in args):
         raise ValueError("paged_prefill_attention takes contiguous tensors")
     if q.device.type == "cpu":
-        return paged_prefill_attention_plain(*args, chunk=chunk, seg=seg, scale=scale)
+        return paged_prefill_attention_plain(
+            *args, chunk=chunk, seg=seg, scale=scale, window=window, logit_softcap=logit_softcap
+        )
     devs = {t.device for t in args}
     if q.device.type != "cuda" or len(devs) != 1:
         raise ValueError(f"paged_prefill_attention: tensors on {sorted(map(str, devs))}")
@@ -295,7 +330,8 @@ def paged_prefill_attention_batched(
         _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_indices.data_ptr(), ctx_lens.data_ptr(), o.data_ptr(),
         b, kvh, rows, d, num_pages, page_size, page_indices.shape[1], int(chunk),
-        seg, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        seg, float(scale), *kernel_options(window, logit_softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check_launch("paged_prefill", status, f"q {tuple(q.shape)} {q.dtype}")
     paged_prefill_attention_batched.launches += 1

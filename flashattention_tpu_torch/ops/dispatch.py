@@ -8,7 +8,9 @@ folds segment ids into the same layout, and calls
 :func:`ops.flash.flash_attention`.  Where autograd is recording and an input
 requires a gradient (and no residuals are asked for), the call goes through
 :func:`ops.backward.attention_vjp` instead, so ``torch.autograd`` works
-through this public entry point (dispatch.py:295-308).  Unlike the TPU
+through this public entry point (dispatch.py:295-308); with a sliding window
+or a logit softcap, which the backward kernels do not take yet, that route
+raises ``NotImplementedError`` before any launch.  Unlike the TPU
 package it does not pad ragged lengths to the tile: the CUDA kernels mask
 the ragged edge.  ``implementation="xla"`` keeps the JAX package's name for
 its oracle path and runs the plain reference (:mod:`ops.reference`) instead
@@ -21,7 +23,12 @@ import torch
 
 from flashattention_tpu_torch.ops import reference
 from flashattention_tpu_torch.ops.backward import attention_vjp
-from flashattention_tpu_torch.ops.flash import BlockSizes, check_ported, flash_attention
+from flashattention_tpu_torch.ops.flash import (
+    BlockSizes,
+    check_ported,
+    check_window,
+    flash_attention,
+)
 
 __all__ = ["attention", "sdpa"]
 
@@ -40,6 +47,8 @@ def attention(
     q_offset: int | None = None,
     q_segment_ids=None,
     kv_segment_ids=None,
+    window: int | None = None,
+    logit_softcap: float | None = None,
     **unported,
 ):
     """Fused attention ``O = softmax(scale * Q K^T) V``.
@@ -58,12 +67,17 @@ def attention(
       q_segment_ids, kv_segment_ids: integer ``(B, S)`` (broadcast over
         heads; with GQA the q ids serve all folded group rows, g-major) or
         folded ``(B*H, S)``: a query sees a key only where the ids are equal.
-      unported: the JAX package's other options (window, logit_softcap,
-        dropout, KV scales, block_mask) raise ``NotImplementedError``.
+      window: sliding window (causal only): query i attends keys in
+        ``(i - window, i]`` (Mistral-style local attention).
+      logit_softcap: scores become ``cap * tanh(s / cap)`` (Gemma-2).
+        Neither has a backward kernel yet: under autograd they raise.
+      unported: the JAX package's other options (dropout, KV scales,
+        block_mask) raise ``NotImplementedError``.
 
     Returns ``o`` with q's shape and dtype, or ``(o, l, m)``.
     """
     check_ported(**unported)
+    check_window(window, logit_softcap, causal)
     q_shape = q.shape
     groups = 1
     b_lead = None
@@ -124,7 +138,8 @@ def attention(
             v3 = v3.repeat_interleave(groups, dim=0)
             q3 = q3.reshape(bh * groups, s_q, d)
         o, l, m = reference.attention_reference_with_stats(
-            q3, k3, v3, causal=causal, scale=scale, kv_len=kv_len, q_offset=q_offset
+            q3, k3, v3, causal=causal, scale=scale, kv_len=kv_len, q_offset=q_offset,
+            window=window, logit_softcap=logit_softcap,
         )
     elif implementation == "cuda":
         q_seq_len = s_q if groups > 1 else None
@@ -134,8 +149,8 @@ def attention(
         if differentiable and not save_residuals:
             o = attention_vjp(
                 q3, k3, v3, causal, scale, block_sizes, None, None, q_seq_len,
-                q_segment_ids=seg_q3, kv_segment_ids=seg_kv3, kv_len=kv_len,
-                q_offset=q_offset,
+                window, logit_softcap, q_segment_ids=seg_q3, kv_segment_ids=seg_kv3,
+                kv_len=kv_len, q_offset=q_offset,
             )
             l = m = None
         else:
@@ -143,6 +158,7 @@ def attention(
                 q3, k3, v3, causal=causal, scale=scale, kv_len=kv_len,
                 q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
                 block_sizes=block_sizes, q_segment_ids=seg_q3, kv_segment_ids=seg_kv3,
+                window=window, logit_softcap=logit_softcap,
             )
             o, l, m = out if save_residuals else (out, None, None)
     else:

@@ -8,9 +8,11 @@ PyTorch.  There is no fallback between the two: a CUDA call either launches
 the kernel or raises.
 
 Supported: causal masking at absolute query position
-``q_offset + (r mod q_seq_len)`` (the GQA row fold), a live KV length
-``kv_len`` (ragged S is masked in the kernel, never padded), a score scale,
-segment ids (packed rows: row r sees column c only where their ids are
+``q_offset + (r mod q_seq_len)`` (the GQA row fold), a sliding window (a row
+at position ``pos`` sees columns ``c > pos - window``), a logit softcap
+(``s -> cap * tanh(s / cap)`` after the scale, before the masks), a live KV
+length ``kv_len`` (ragged S is masked in the kernel, never padded), a score
+scale, segment ids (packed rows: row r sees column c only where their ids are
 equal; ``PAD_SEGMENT`` padding rows attend each other, as in the JAX
 kernel), and ``save_residuals``.  The TPU tile-fitting regimes of
 ``BlockSizes.fit`` are not ported: the CUDA kernel has one tile shape.
@@ -29,7 +31,11 @@ import dataclasses
 import torch
 
 from flashattention_tpu_torch.ops import kernels
-from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE, attention_reference
+from flashattention_tpu_torch.ops.reference import (
+    DEFAULT_MASK_VALUE,
+    attention_reference,
+    softcap,
+)
 
 __all__ = [
     "BlockSizes",
@@ -40,7 +46,7 @@ __all__ = [
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,16 +63,9 @@ def _unsupported(feature: str, slice_: str):
     raise NotImplementedError(f"{feature} is not ported yet: it comes with {slice_}")
 
 
-def check_ported(
-    *, window=None, logit_softcap=None, dropout_rate=None, k_scales=None,
-    v_scales=None, block_mask=None,
-):
+def check_ported(*, dropout_rate=None, k_scales=None, v_scales=None, block_mask=None):
     """Raise ``NotImplementedError`` for an option of the JAX package that
-    the port does not have yet."""
-    if window is not None:
-        _unsupported("sliding-window attention", "the Mistral slice")
-    if logit_softcap is not None:
-        _unsupported("logit softcapping", "the Gemma-2 slice")
+    the forward kernel does not have yet."""
     if dropout_rate:
         _unsupported("attention dropout", "the attention-dropout slice (bit-for-bit keep masks)")
     if k_scales is not None or v_scales is not None:
@@ -97,8 +96,23 @@ def fold_segment_ids(q_segment_ids, kv_segment_ids, bh, rows, s_kv, device):
     )
 
 
+def check_window(window, logit_softcap, causal):
+    """Raise ``ValueError`` for a window without causal masking (flash.py:1159)
+    or a window or softcap that is not positive."""
+    if window is not None and (not causal or int(window) < 1):
+        raise ValueError(f"window ({window}) must be >= 1 and requires causal=True")
+    if logit_softcap is not None and not logit_softcap > 0:
+        raise ValueError(f"logit_softcap must be > 0, got {logit_softcap}")
+
+
+def kernel_options(window, logit_softcap):
+    """The C interface's window (-1: none) and softcap (0: none)."""
+    return (-1 if window is None else int(window),
+            0.0 if logit_softcap is None else float(logit_softcap))
+
+
 def visible(rows, s_kv, *, causal, kv_len, q_offset, q_seq_len, q_segment_ids=None,
-            kv_segment_ids=None, device=None):
+            kv_segment_ids=None, window=None, device=None):
     """Boolean mask of the (query row, key column) pairs the kernels keep:
     ``(R, S_kv)``, or ``(BH, R, S_kv)`` with segment ids."""
     cols = torch.arange(s_kv, device=device)
@@ -106,6 +120,8 @@ def visible(rows, s_kv, *, causal, kv_len, q_offset, q_seq_len, q_segment_ids=No
     if causal:
         pos = q_offset + torch.arange(rows, device=device) % q_seq_len
         mask = mask & (cols[None, :] <= pos[:, None])
+        if window is not None:
+            mask = mask & (cols[None, :] > pos[:, None] - window)
     if q_segment_ids is not None:
         mask = mask & (q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])
     return mask
@@ -143,15 +159,18 @@ def flash_attention(
       q_seq_len: GQA row fold — q holds ``R // q_seq_len`` query-head groups
         stacked along the rows, all attending the same K/V.
       save_residuals: also return ``(l, m)``, float32, each ``(BH, R)``.
+      window: sliding window (causal only): row r sees columns
+        ``c > pos - window``.
+      logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
       q_segment_ids, kv_segment_ids: integer ``(BH, R)`` and ``(BH, S_kv)``,
         given together: row r sees column c only where the ids are equal.
 
     Returns ``o`` like q, or ``(o, l, m)``.
     """
     check_ported(
-        window=window, logit_softcap=logit_softcap, dropout_rate=dropout_rate,
-        k_scales=k_scales, v_scales=v_scales, block_mask=block_mask,
+        dropout_rate=dropout_rate, k_scales=k_scales, v_scales=v_scales, block_mask=block_mask,
     )
+    check_window(window, logit_softcap, causal)
     if block_sizes is not None and block_sizes != BlockSizes():
         raise ValueError(f"the kernel is compiled for {BlockSizes()}, got {block_sizes}")
 
@@ -179,7 +198,8 @@ def flash_attention(
         return flash_attention_plain(
             q, k, v, causal=causal, scale=scale, kv_len=kv_len,
             q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
-            q_segment_ids=seg_q, kv_segment_ids=seg_kv,
+            q_segment_ids=seg_q, kv_segment_ids=seg_kv, window=window,
+            logit_softcap=logit_softcap,
         )
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: tensors on {q.device}/{k.device}/{v.device}")
@@ -201,7 +221,7 @@ def flash_attention(
         None if seg_q is None else seg_q.data_ptr(),
         None if seg_kv is None else seg_kv.data_ptr(), bh, rows, s_kv, d, kv_len,
         int(q_offset), q_seq_len, int(bool(causal)), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *kernel_options(window, logit_softcap), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check_launch("flash_fwd", status, f"q {tuple(q.shape)} {q.dtype}")
     flash_attention.launches += 1
@@ -214,6 +234,7 @@ flash_attention.launches = 0  # kernel launches, for the chip run's path check
 def flash_attention_plain(
     q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
     q_seq_len=None, save_residuals=False, q_segment_ids=None, kv_segment_ids=None,
+    window=None, logit_softcap=None,
 ):
     """The kernel's function in plain PyTorch, float32 throughout: the CPU
     path of :func:`flash_attention` and its yardstick on the card."""
@@ -221,10 +242,11 @@ def flash_attention_plain(
     s_kv = k.shape[1]
     kv_len = s_kv if kv_len is None else kv_len
     q_seq_len = rows if q_seq_len is None else q_seq_len
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    s = softcap(torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale, logit_softcap)
     mask = visible(
         rows, s_kv, causal=causal, kv_len=kv_len, q_offset=q_offset, q_seq_len=q_seq_len,
-        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, device=q.device,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, window=window,
+        device=q.device,
     )
     s = torch.where(mask, s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
     m = s.amax(dim=-1)

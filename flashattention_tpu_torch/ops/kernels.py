@@ -39,17 +39,17 @@ KERNELS = {
     "flash_fwd": (
         "flash_fwd.cu",
         "fa_flash_fwd",
-        [_I, *[_P] * 8, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_I, *[_P] * 8, *[_I] * 8, _F, _I, _F, _P],
     ),
     "paged_decode": (
         "paged_decode.cu",
         "fa_paged_decode",
-        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_I, *[_P] * 6, *[_I] * 6, _F, _I, _F, _P],
     ),
     "paged_prefill": (
         "paged_prefill.cu",
         "fa_paged_prefill",
-        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_I, *[_P] * 6, *[_I] * 9, _F, _I, _F, _P],
     ),
     "flash_naive": (
         "flash_naive.cu",

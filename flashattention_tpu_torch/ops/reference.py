@@ -1,9 +1,10 @@
 """Plain PyTorch reference attention: the oracles the kernels are held to.
 
 Counterpart of ``flashattention_tpu/ops/reference.py``: dense
-``softmax(scale * Q K^T) V`` in float32 whatever the input dtype, with causal
-and live-length masking by the same finite mask value, returning the online
-softmax statistics ``(l, m)`` on request.  Runs on any device.
+``softmax(scale * Q K^T) V`` in float32 whatever the input dtype, with causal,
+sliding-window and live-length masking by the same finite mask value and an
+optional logit softcap, returning the online softmax statistics ``(l, m)`` on
+request.  Runs on any device.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ __all__ = [
     "attention_reference",
     "attention_reference_with_stats",
     "causal_mask",
+    "softcap",
     "DEFAULT_MASK_VALUE",
 ]
 
@@ -29,30 +31,48 @@ def causal_mask(s_q: int, s_kv: int, *, q_offset: int = 0, device=None) -> torch
     return kv_ids <= q_ids
 
 
-def attention_reference(q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0):
+def softcap(s, logit_softcap):
+    """Gemma-2's score cap ``cap * tanh(s / cap)``; ``s`` itself when
+    ``logit_softcap`` is None."""
+    return s if logit_softcap is None else logit_softcap * torch.tanh(s / logit_softcap)
+
+
+def attention_reference(
+    q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0, window=None,
+    logit_softcap=None,
+):
     """Dense reference attention on ``(..., S, d)`` tensors; see
     :func:`attention_reference_with_stats`."""
     o, _, _ = attention_reference_with_stats(
-        q, k, v, causal=causal, scale=scale, kv_len=kv_len, q_offset=q_offset
+        q, k, v, causal=causal, scale=scale, kv_len=kv_len, q_offset=q_offset,
+        window=window, logit_softcap=logit_softcap,
     )
     return o
 
 
 def attention_reference_with_stats(
-    q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0
+    q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0, window=None,
+    logit_softcap=None,
 ):
     """Reference attention returning ``(o, l, m)``.
 
     ``m`` is the per-row max of the scaled, masked scores and ``l`` the
     per-row sum of ``exp(s - m)``, both float32; ``o`` has q's dtype.
-    ``kv_len`` masks KV columns at or past it.
+    ``kv_len`` masks KV columns at or past it.  ``logit_softcap`` maps each
+    scaled score to ``cap * tanh(s / cap)`` before the masks; ``window``
+    (causal only) lets query i see keys in ``(i - window, i]``.
     """
+    if window is not None and not causal:
+        raise ValueError("window (sliding-window attention) requires causal=True")
     qf, kf, vf = q.float(), k.float(), v.float()
-    s = torch.einsum("...qd,...kd->...qk", qf, kf) * scale
+    s = softcap(torch.einsum("...qd,...kd->...qk", qf, kf) * scale, logit_softcap)
     s_q, s_kv = s.shape[-2], s.shape[-1]
     mask = None
     if causal:
         mask = causal_mask(s_q, s_kv, q_offset=q_offset, device=s.device)
+        if window is not None:
+            q_ids = torch.arange(s_q, device=s.device)[:, None] + q_offset
+            mask = mask & (torch.arange(s_kv, device=s.device)[None, :] > q_ids - window)
     if kv_len is not None:
         len_mask = torch.arange(s_kv, device=s.device)[None, :] < kv_len
         mask = len_mask if mask is None else (mask & len_mask)

@@ -71,24 +71,32 @@ def bound_ms(name: str, *, bytes_moved: float, flops: float, dtype: str) -> dict
     }
 
 
+# Device-side wait enqueued before the timed calls: about 50 ms at the H100's
+# 1.98 GHz, longer than the host takes to enqueue the calls of one timing.
+_SLEEP_CYCLES = 100_000_000
+
+
 def cuda_time_ms(fn, *args, warmup: int = 3, iters: int = 20, flush_bytes: int = 0) -> float:
-    """Mean milliseconds per call of ``fn(*args)`` on the card, from CUDA
-    events around ``iters`` calls after ``warmup``.  With ``flush_bytes``,
-    a buffer that large is rewritten before every call (outside the events)
-    so that each call finds the L2 cache cold."""
+    """Mean milliseconds per call of ``fn(*args)`` on the card, from a pair
+    of CUDA events around each of ``iters`` calls after ``warmup``.  All
+    calls are enqueued behind a device-side sleep and read after one
+    synchronise, so the host's time to launch a call (its Python wrapper,
+    which a loaded host can slow by tenths of a millisecond) does not show
+    between the events as idle device time.  With ``flush_bytes``, a buffer
+    that large is rewritten before every call (outside the events) so that
+    each call finds the L2 cache cold."""
     flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda") if flush_bytes else None
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(iters):
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    torch.cuda._sleep(_SLEEP_CYCLES)
+    for start, end in events:
         if flush is not None:
             flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn(*args)
         end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters

@@ -43,7 +43,7 @@ def _randn(shape, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize(
     "kw",
     [
@@ -70,7 +70,7 @@ def test_flash_kernel_matches_plain(dtype, d, kw):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_flash_kernel_segment_ids_match_plain(dtype, d):
     """Segment ids in the forward kernel: two packed documents and
     PAD_SEGMENT padding per row, GQA fold of 2 groups, with residuals."""
@@ -91,7 +91,7 @@ def test_flash_kernel_segment_ids_match_plain(dtype, d):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
 def test_paged_kernel_matches_plain(dtype, d, g):
     kvh, ps, pages, pps = 2, 16, 30, 5
@@ -109,7 +109,7 @@ def test_paged_kernel_matches_plain(dtype, d, g):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
 def test_paged_prefill_kernel_matches_plain(dtype, d, g):
     """A dummy ctx = 0 row, a chunk-only row, a ragged context and a full
@@ -147,6 +147,80 @@ def test_naive_kernel_matches_plain_and_flash(dtype, d, kw):
     torch.cuda.synchronize()
     validate_result(got, want, TOL[dtype])
     validate_result(got, fwd, TOL[dtype])  # two kernels, two softmax routes
+
+
+# Sliding window and softcap in the three serving kernels.
+WINDOW_CASES = {
+    # GQA fold of 3 groups of 70 rows at q_offset 30: tiles cross segments.
+    "gqa_window": dict(s_kv=100, causal=True, q_seq_len=70, q_offset=30, window=17),
+    "softcap": dict(s_kv=250, causal=True, logit_softcap=5.0),
+    # Every row sees a column (the kernel and the plain version give a row
+    # that sees none different junk).
+    "window_softcap_kv_len": dict(s_kv=260, causal=True, kv_len=240, q_offset=20,
+                                  window=40, logit_softcap=20.0, save_residuals=True),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [32, 128, 256])
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_flash_kernel_window_softcap_matches_plain(dtype, d, case):
+    kw = dict(WINDOW_CASES[case])
+    s_kv = kw.pop("s_kv")
+    q = _randn((3, 210, d), dtype, 30)
+    k, v = _randn((3, s_kv, d), dtype, 31), _randn((3, s_kv, d), dtype, 32)
+    got = flash.flash_attention(q.cuda(), k.cuda(), v.cuda(), scale=d**-0.5, **kw)
+    want = flash.flash_attention(q, k, v, scale=d**-0.5, **kw)
+    torch.cuda.synchronize()
+    if kw.get("save_residuals"):
+        for g, w in zip(got[1:], want[1:]):
+            validate_result(g, w, 1e-5 * float(w.abs().max()))
+        got, want = got[0], want[0]
+    validate_result(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_paged_kernel_window_softcap_matches_plain(dtype, d, g):
+    """Lengths on both sides of a window of 20 (16-token pages): the last
+    request's first two pages lie wholly before it."""
+    kvh, ps, pages, pps = 2, 16, 30, 5
+    lengths = torch.tensor([0, 1, 20, 21, 60], dtype=torch.int32)
+    table = torch.randperm(pages, generator=torch.Generator().manual_seed(33))[: 5 * pps]
+    table = table.reshape(5, pps).to(torch.int32).contiguous()
+    q = _randn((5, kvh, g, d), dtype, 34)
+    kp, vp = _randn((pages, kvh, ps, d), dtype, 35), _randn((pages, kvh, ps, d), dtype, 36)
+    args = (q, kp, vp, lengths, table)
+    kw = dict(scale=d**-0.5, window=20, logit_softcap=10.0)
+    got = decode.paged_attention(*(a.cuda() for a in args), **kw)
+    want = decode.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[0]) == 0  # length 0: zeros
+    validate_result(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("window", [3, 30])
+def test_paged_prefill_kernel_window_softcap_matches_plain(dtype, d, g, window):
+    """A dummy ctx = 0 row, a chunk-only row and contexts past the window;
+    seg = 24 > chunk = 20, so query tiles cross segments; with window 3 the
+    pad rows p >= 22 see nothing (zeros in both)."""
+    kvh, ps, pages, pps, chunk, seg = 2, 16, 40, 6, 20, 24
+    ctx = torch.tensor([0, 20, 57, 96], dtype=torch.int32)
+    table = torch.randperm(pages, generator=torch.Generator().manual_seed(37))[: 4 * pps]
+    table = table.reshape(4, pps).to(torch.int32).contiguous()
+    q = _randn((4, kvh, g * seg, d), dtype, 38)
+    kp, vp = _randn((pages, kvh, ps, d), dtype, 39), _randn((pages, kvh, ps, d), dtype, 40)
+    args = (q, kp, vp, table, ctx)
+    kw = dict(chunk=chunk, seg=seg, scale=d**-0.5, window=window, logit_softcap=10.0)
+    got = decode.paged_prefill_attention_batched(*(a.cuda() for a in args), **kw)
+    want = decode.paged_prefill_attention_batched(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[0]) == 0  # ctx = 0: zeros
+    validate_result(got, want, TOL[dtype])
 
 
 # Backward cases: (BH, G, S_q per group, S_kv) and the masks; "segments"
@@ -240,6 +314,34 @@ def test_chunked_engine_on_card_matches_cpu():
             eng.add_request(base + tail, 6)
         outs.append((eng.run(), eng.stats()["prefill_tokens"]))
         assert eng.cache.num_free_pages() == 16
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("chunk", [0, 8], ids=["whole", "chunked"])
+@pytest.mark.parametrize("head_dim", [32, 256])
+def test_windowed_engine_on_card_matches_cpu(chunk, head_dim):
+    """A windowed, softcapped tiny float32 model (window 12, softcap 30;
+    head_dim 256 is the Gemma-2 shape), whole-prompt and chunked with a
+    prefix hit past the window: greedy tokens on the card equal the CPU's."""
+    cfg = dataclasses.replace(transformer.ModelConfig.tiny(), dtype="float32", head_dim=head_dim,
+                              sliding_window=12, logit_softcap=30.0)
+    params = transformer.init_params(0, cfg, device="cpu")
+    base = np.random.default_rng(2).integers(0, 256, 26).tolist()
+    outs = []
+    for dev in ("cpu", "cuda"):
+        p = {k: (v.to(dev) if torch.is_tensor(v) else [{n: w.to(dev) for n, w in lay.items()} for lay in v])
+             for k, v in params.items()}
+        cc = kvcache.CacheConfig(num_layers=2, num_kv_heads=2, head_dim=head_dim, page_size=8,
+                                 num_pages=24, dtype="float32")
+        eng = engine.Engine(p, cfg, cc, engine.EngineConfig(max_batch=4, pages_per_seq=6,
+                                                            prefill_chunk=chunk), device=dev)
+        eng.add_request(base, 6)
+        eng.step()
+        for tail in ([9], [1, 2, 3, 4, 5, 6, 7, 8, 9, 10]):
+            eng.add_request(base[:24] + tail, 6)
+        eng.add_request([3, 1, 4, 1, 5], 6)
+        outs.append((eng.run(), eng.stats()["prefill_tokens"]))
+        assert eng.cache.num_free_pages() == 24
     assert outs[0] == outs[1]
 
 

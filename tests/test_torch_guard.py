@@ -75,6 +75,17 @@ def test_chip_smoke_imports_no_jax():
     assert not [n for n in names if _forbidden(n)]
 
 
+@pytest.mark.parametrize("script", ["decode_ab.py", "window_mutants.py"])
+def test_tools_import_no_jax(script):
+    """The card scripts in ``torch_tools/`` drive the port alone."""
+    with open(os.path.join(ROOT, "torch_tools", script)) as fh:
+        tree = ast.parse(fh.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert "chip_smoke" in names
+    assert not [n for n in names if _forbidden(n)]
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -105,12 +116,13 @@ def test_later_slices_raise():
     lens, table = torch.ones(1, dtype=torch.int32), torch.zeros(1, 2, dtype=torch.int32)
     with pytest.raises(NotImplementedError):
         decode.paged_attention(q, pages, pages, lens, table, draft_k=2)
-    with pytest.raises(NotImplementedError):
-        decode.paged_attention(q, pages, pages, lens, table, window=4)
+    decode.paged_attention(q, pages, pages, lens, table, window=4, logit_softcap=30.0)  # ported
     qp = torch.zeros(1, 2, 8, 32)
     scales = torch.ones(3, 2, 8)
-    for kw in (dict(window=4), dict(logit_softcap=30.0),
-               dict(k_scales_pages=scales, v_scales_pages=scales)):
+    with pytest.raises(NotImplementedError, match="quantized-KV slice"):
+        decode.paged_attention(q, pages, pages, lens, table, k_scales_pages=scales,
+                               v_scales_pages=scales)
+    for kw in (dict(k_scales_pages=scales, v_scales_pages=scales),):
         with pytest.raises(NotImplementedError):
             decode.paged_prefill_attention_batched(qp, pages, pages, table, lens, chunk=8, **kw)
         with pytest.raises(NotImplementedError):
@@ -124,9 +136,13 @@ def test_later_slices_raise():
     x3 = x.reshape(2, 8, 32)
     seg = torch.zeros(1, 8, dtype=torch.int32)
     ft.attention(x, x, x, causal=True, q_segment_ids=seg, kv_segment_ids=seg)  # ported
+    ft.attention(x, x, x, causal=True, window=4, logit_softcap=30.0)  # ported, forward
+    for kw in (dict(window=4), dict(logit_softcap=30.0)):  # no backward kernel yet
+        with pytest.raises(NotImplementedError, match="Gemma-2/Mistral training slice"):
+            backward.attention_vjp(x3, x3, x3, True, **kw)
+        with pytest.raises(NotImplementedError, match="Gemma-2/Mistral training slice"):
+            backward.flash_attention_bwd(x3, x3, x3, x3, x3[..., 0], x3, **kw)
     for kw, slice_ in (
-        (dict(window=4), "Mistral slice"),
-        (dict(logit_softcap=30.0), "Gemma-2 slice"),
         (dict(dropout_rate=0.1), "attention-dropout slice"),
         (dict(block_mask=object()), "block-sparse slice"),
     ):
@@ -142,5 +158,5 @@ def test_later_slices_raise():
     for make in (train.make_train_step, train.make_train_step_packed):
         with pytest.raises(NotImplementedError, match="attention-dropout slice"):
             make(cfg, attn_dropout=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Mistral slice"):
+    with pytest.raises(NotImplementedError, match="Gemma-2/Mistral training slice"):
         train.make_train_step(transformer.ModelConfig.mistral7b(), device="cpu")

@@ -136,6 +136,15 @@ def test_bf16_prefill_close_to_jax():
 
 
 def test_unported_model_features_raise():
-    for name in ("mistral7b", "gemma2_9b", "mixtral8x7b"):
-        with pytest.raises(NotImplementedError):
-            tt.init_params(0, getattr(tt.ModelConfig, name)(num_layers=1), device="cpu")
+    """MoE is not ported.  The windowed and softcapped presets serve (their
+    serving check passes; ``tests/test_torch_window.py`` runs them) but do
+    not train yet: the backward kernels take neither feature."""
+    from flashattention_tpu_torch.models import train
+
+    with pytest.raises(NotImplementedError):
+        tt.init_params(0, tt.ModelConfig.mixtral8x7b(num_layers=1), device="cpu")
+    for name in ("mistral7b", "gemma2_9b"):
+        cfg = getattr(tt.ModelConfig, name)(num_layers=1)
+        cfg.check_ported()
+        with pytest.raises(NotImplementedError, match="training slice"):
+            train.make_train_step(cfg, device="cpu")
