@@ -22,10 +22,18 @@ Phases, each of which must pass (any failure exits non-zero):
                window 4096 (Mistral-7B-class, G = 4), at lengths that cross
                the window (flash_fwd S = 5000; paged_decode lengths 1, 4096,
                4097, 6000; paged_prefill a 512-row chunk at contexts
-               4608-6144), each bfloat16 element within two units in the
-               last place (BF16_ELEM_TOL); ``torch_tools/window_mutants.py``
-               shows that these checks fail a kernel whose window is off by
-               one or whose softcap is dropped;
+               4608-6144); each bfloat16 element of the serving kernels'
+               checks within two units in the last place (BF16_ELEM_TOL);
+               ``torch_tools/window_mutants.py`` shows that these checks
+               fail a kernel whose window is off by one or whose softcap is
+               dropped; and the same checks of the serving kernels, every
+               shape above, over their 8-bit forms (int8 and fp8 K/V with
+               per-row scales, K/V row magnitudes spread over two decades;
+               flash_fwd through ``attention(k_scales=, v_scales=)``),
+               timed against SDPA over the K/V dequantized to bfloat16;
+               ``torch_tools/quant_mutants.py`` shows that they fail a
+               kernel with a dropped, shifted or swapped scale, at the
+               main shapes and at Gemma-2's;
 3. serve     - run the engine with whole-prompt prefill (prefill_chunk=0) at
                Llama-7B width (32 layers unless --layers): 8 greedy requests,
                64-1024 token prompts from --seed, 32 new tokens each,
@@ -49,9 +57,17 @@ Phases, each of which must pass (any failure exits non-zero):
                steps; then a profile of 4 requests with 1536-token prompts;
    serve_gemma2_whole - the same model with whole-prompt prefill: two
                prompts of 4600-5000 tokens through flash_fwd's window;
+   serve_int8 - serve_chunked's engine and prompts on int8 weights
+               (quantized in place, layer by layer) and an int8 KV cache:
+               the 8-bit forms of paged_prefill and paged_decode must
+               launch; one layer's weight products timed against bf16
+               weights; then a profile;
+   serve_gemma2_fp8 - serve_gemma2 on an fp8 KV cache;
 6. crosscheck - the naive kernel's path: ``flash_attention_naive`` and the
                flash kernel through the public entry points on the same
-               inputs, each launched once, agreeing;
+               inputs, each launched once, agreeing; quant_ops - the same
+               for ``attention_quantized`` and ``attention(k_scales=,
+               v_scales=)``, the path of flash_fwd's 8-bit form;
 7. parity    - one 64-token request through prefill and 4 decode steps on a
                2-layer float32 cut at the same width, on the card (kernels)
                and on the CPU (plain versions); and the same cut through the
@@ -59,6 +75,9 @@ Phases, each of which must pass (any failure exits non-zero):
                256 tokens); the logits must agree; parity_gemma2 does the
                same for Gemma-2-9B-class at full width in 2 float32 layers,
                its window cut to 128 so that a 300-token prompt crosses it;
+               parity_quant (int8 weights and cache) and parity_quant_gemma2
+               (fp8 cache) within PARITY_QUANT_TOL, reporting how many pool
+               elements the two sides round to neighbouring steps;
 8. train     - ``make_train_step`` at ``bench_train.py``'s configuration
                (Mistral-7B width, 2 layers, sliding_window=None, bf16, B = 8,
                S = 2048, random tokens from --seed, lr 1e-3), with remat off
@@ -76,8 +95,10 @@ Phases, each of which must pass (any failure exits non-zero):
                parameters; losses, updated parameters and the first step's
                gradients must agree.
 
-It prints one JSON line per check, a ``{"kernels": [...]}`` summary, the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+It prints one JSON line per check, the total seconds, a ``{"kernels":
+[...]}`` summary (with a ``quantized`` entry for each serving kernel's 8-bit
+form), the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.
 Details go to ``chiprun_out/chip_smoke.json``.  It needs one CUDA card and
 imports nothing of JAX.
 """
@@ -104,9 +125,10 @@ NAIVE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 CROSS_TOL = 2e-2  # naive vs flash kernel, bfloat16 inputs and outputs
 STATS_RTOL = 1e-5  # l, m residuals: max abs error over max |value|
-# The bfloat16 windowed checks also hold each element: |got - want| <= atol +
-# rtol |want|.  At S ~ 5000 a row averages ~4096 values of V, so its outputs
-# are ~0.026 and the max-abs bound of 2e-2 alone would pass a wrong kernel.
+# The bfloat16 checks of the serving kernels (_rec) also hold each element:
+# |got - want| <= atol + rtol |want|.  At S ~ 5000 a row averages ~4096
+# values of V, so its outputs are ~0.026 and the max-abs bound of 2e-2 alone
+# would pass a wrong kernel; 8-bit rows of magnitude 0.01 give outputs as small.
 # rtol is two units in the last place (the kernel and the plain version each
 # round one float32 result); atol covers outputs near zero.  float32 keeps
 # its max-abs bound of 1e-4, far below what a wrong window or softcap moves
@@ -114,6 +136,15 @@ STATS_RTOL = 1e-5  # l, m residuals: max abs error over max |value|
 # admit ~3e-5 anyway, the order of the float32 sums at scores near 30.
 BF16_ELEM_TOL = (1e-5, 2.0**-6)
 PARITY_TOL = 1e-3  # float32 logits, card kernels vs CPU plain versions
+# With 8-bit pages the card and the CPU can round a K/V value that lies at a
+# half step to neighbouring steps (their float32 sums run in other orders),
+# which moves the logits by more than float32 rounding: on the H100 the four
+# 8-bit parity runs read 3.4e-4 to 1.0e-3 (one int8 step, at most 11 fp8
+# codes apart), so the bound is 5x the largest.  Both sides are the port in
+# float32, so the JAX suite's 8-bit bound (2e-2, tests/test_quant.py, which
+# covers its kernels' bfloat16 rounding of q and p) would be 20x too loose.
+# The runs report how many pool elements differ, and by how many steps.
+PARITY_QUANT_TOL = 5e-3
 # Training parity, float32, card vs CPU after two SGD steps: losses (relative)
 # and updated parameters (absolute, tests/test_train.py's bound between two
 # device layouts); and the first step's gradients, per tensor max error over
@@ -155,8 +186,8 @@ def elem_err(got, want) -> float:
     return float(((got.float() - w).abs() / (atol + rtol * w.abs())).max())
 
 
-def _window_rec(check, got, want, dt, tol, **extra):
-    """A windowed check's record: max abs error within ``tol`` and, in
+def _rec(check, got, want, dt, tol, **extra):
+    """A kernel check's record: max abs error within ``tol`` and, in
     bfloat16, every element within BF16_ELEM_TOL."""
     e = err(got, want)
     rec = {"check": check, "max_abs_err": e, "tol": tol, "ok": e <= tol}
@@ -167,15 +198,21 @@ def _window_rec(check, got, want, dt, tol, **extra):
     return {**rec, **extra}
 
 
+_MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8", "13__nv_fp8_e4m3": "fp8"}
+
+
 def _ptxas(log):
     """Registers and spill bytes of each kernel instantiation, from nvcc's
-    ``-Xptxas -v`` report (``name<dtype,D[,G][,window_cap]>`` read off the
-    mangled name; ``window_cap`` marks paged_decode's window/softcap form)."""
+    ``-Xptxas -v`` report (``name<dtype[,payload],D[,G][,window_cap]>`` read
+    off the mangled name: the payload type where it differs from q's, an
+    8-bit form's; ``window_cap`` marks paged_decode's window/softcap form)."""
     out, spills = [], (0, 0)
+    types = "|".join(["S\\d*_", *_MANGLED_TYPES])
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)((?:L[ib]\d+E)+)", ln)
+        m = re.search(rf"Compiling entry function '\w*?\d+([a-z_]+_kernel)I((?:{types})+)((?:L[ib]\d+E)+)", ln)
         if m:
-            args = ["bf16" if m.group(2) != "f" else "f32"]
+            args = [_MANGLED_TYPES[t] for t in re.findall("|".join(_MANGLED_TYPES), m.group(2))]
+            args = args[:1] if args[1:] == args[:1] else args  # the payload is q's type
             for kind, n in re.findall(r"L([ib])(\d+)E", m.group(3)):
                 args += [n] if kind == "i" else ["window_cap"] if n == "1" else []
             out.append({"kernel": f"{m.group(1)}<{','.join(args)}>"})
@@ -198,53 +235,99 @@ def phase_build(kernels, report):
           "card": report["card"]})
 
 
-def flash_checks(fa, flash, benchit, gen, card, report):
-    """Flash forward: the prefill shape, GQA 32q/8kv, ragged S, residuals."""
+QUANT_FORMS = ("int8", "fp8")
+# The library yardsticks of the 8-bit forms run on bfloat16 K/V.
+_DEQUANT_NOTE = "; over K/V dequantized to bfloat16, dequantization not timed"
+
+
+def _kv(gen, shape, dtype, form=None):
+    """Random K or V rows of ``shape``: ``(rows in dtype, None)``; or, with
+    ``form`` int8 or fp8, rows whose magnitudes spread over two decades
+    (0.01-1), so that a scale applied to the wrong row, or K's and V's
+    scales swapped, moves the output, quantized per row: ``(8-bit payload,
+    float32 scales)``."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    if form is None:
+        return x.to(dtype), None
+    from flashattention_tpu_torch.ops import quant
+
+    x *= 10.0 ** -(2 * torch.rand(shape[:-1] + (1,), generator=gen, device="cuda"))
+    return quant.quantize_rows(x, form)
+
+
+def _plain_kv(kv, scales):
+    """The plain versions' K/V: as they are, or 8-bit rows dequantized in
+    float32, as the wrappers do on the CPU."""
+    from flashattention_tpu_torch.ops.reference import dequantize_rows
+
+    return kv if scales is None else dequantize_rows(kv, scales)
+
+
+def _bf16(kv, scales):
+    """The library yardsticks' K/V: bfloat16 rows as they are, 8-bit rows
+    dequantized to bfloat16."""
+    return kv if scales is None else (kv.float() * scales[..., None]).to(torch.bfloat16)
+
+
+def _row_bytes(kv, d, form):
+    """Bytes of one K or V row: its d elements, and an 8-bit row's scale."""
+    return d * kv.element_size() + (4 if form else 0)
+
+
+def _check_name(kernel, case, dt, form):
+    return f"{kernel}/{case}/{dt}" if form is None else f"{kernel}/quant/{case}/{form}/{dt}"
+
+
+def _page_scales(ks, vs):
+    """The paged wrappers' scale arguments: none for unquantized pages."""
+    return {} if ks is None else dict(k_scales_pages=ks, v_scales_pages=vs)
+
+
+def flash_checks(fa, flash, benchit, gen, card, report, form=None):
+    """Flash forward: the prefill shape, GQA 32q/8kv, ragged S, residuals.
+    With ``form`` (int8 or fp8) over 8-bit K/V with per-row scales
+    (``attention(k_scales=, v_scales=)``)."""
     out = {}
-
-    def rand(shape, dtype):
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-
     cases = [
         ("prefill", dict(b=4, h=32, hkv=32, s_q=1024, s_kv=1024, d=128)),
         ("gqa_32q8kv", dict(b=2, h=32, hkv=8, s_q=512, s_kv=512, d=128)),
         ("ragged_s300", dict(b=2, h=8, hkv=8, s_q=300, s_kv=300, d=128)),
     ]
     for name, c in cases:
+        b, h, hkv, s_q, s_kv, d = (c[x] for x in ("b", "h", "hkv", "s_q", "s_kv", "d"))
+        scale = d**-0.5
         for dt in ("bfloat16", "float32"):
-            q = rand((c["b"], c["h"], c["s_q"], c["d"]), DTYPES[dt])
-            k = rand((c["b"], c["hkv"], c["s_kv"], c["d"]), DTYPES[dt])
-            v = rand((c["b"], c["hkv"], c["s_kv"], c["d"]), DTYPES[dt])
-            scale = c["d"] ** -0.5
-            o = fa.attention(q, k, v, causal=True, scale=scale)
-            g = c["h"] // c["hkv"]
-            q3 = q.reshape(c["b"] * c["hkv"], g * c["s_q"], c["d"])
-            k3 = k.reshape(-1, c["s_kv"], c["d"])
-            v3 = v.reshape(-1, c["s_kv"], c["d"])
+            q = torch.randn((b, h, s_q, d), generator=gen, device="cuda").to(DTYPES[dt])
+            (k, ks), (v, vs) = (_kv(gen, (b, hkv, s_kv, d), DTYPES[dt], form) for _ in range(2))
+            sk = {} if form is None else dict(k_scales=ks, v_scales=vs)
+            o = fa.attention(q, k, v, causal=True, scale=scale, **sk)
+            q3 = q.reshape(b * hkv, (h // hkv) * s_q, d)
+            kv3 = [(x.reshape(-1, s_kv, d), None if sc is None else sc.reshape(-1, s_kv))
+                   for x, sc in ((k, ks), (v, vs))]
             plain = lambda: flash.flash_attention_plain(  # noqa: E731
-                q3, k3, v3, causal=True, scale=scale, q_offset=c["s_kv"] - c["s_q"],
-                q_seq_len=c["s_q"],
+                q3, *(_plain_kv(*x) for x in kv3), causal=True, scale=scale,
+                q_offset=s_kv - s_q, q_seq_len=s_q,
             )
             want = plain().reshape(q.shape)
             torch.cuda.synchronize()
-            e = err(o, want)
-            rec = {"check": f"flash_fwd/{name}/{dt}", "max_abs_err": e,
-                   "tol": FLASH_TOL[dt], "ok": e <= FLASH_TOL[dt]}
+            rec = _rec(_check_name("flash_fwd", name, dt, form), o, want, dt, FLASH_TOL[dt],
+                       shape=f"B={b} H={h} KVH={hkv} S_q={s_q} S_kv={s_kv} d={d} causal")
             if name == "prefill" and dt == "bfloat16":
-                kernel = lambda: fa.attention(q, k, v, causal=True, scale=scale)  # noqa: E731
+                kernel = lambda: fa.attention(q, k, v, causal=True, scale=scale, **sk)  # noqa: E731
                 rec["kernel_ms"] = benchit.cuda_time_ms(kernel)
                 rec["plain_ms"] = benchit.cuda_time_ms(plain)
+                kd, vd = _bf16(k, ks), _bf16(v, vs)
                 rec["library_ms"] = benchit.cuda_time_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
-                        q, k, v, is_causal=True, scale=scale
+                        q, kd, vd, is_causal=True, scale=scale
                     )
                 )
-                s = c["s_q"]
-                bh = c["b"] * c["h"]
-                pairs = s * (s + 1) // 2  # live (query, key) pairs per head
-                nbytes = 4 * q.numel() * q.element_size()  # q, k, v read; o written
+                rec["library"] = "scaled_dot_product_attention, is_causal" + (_DEQUANT_NOTE if form else "")
+                pairs = s_q * (s_q + 1) // 2  # live (query, key) pairs per head
+                nbytes = (2 * q.numel() * q.element_size()  # q read, o written
+                          + 2 * b * hkv * s_kv * _row_bytes(k, d, form))  # K, V rows read
                 rec.update(benchit.bound_ms(
-                    card, bytes_moved=nbytes, flops=4 * bh * pairs * c["d"], dtype=dt
+                    card, bytes_moved=nbytes, flops=4 * b * h * pairs * d, dtype=dt
                 ))
                 out["main"] = rec
             emit(rec)
@@ -252,86 +335,86 @@ def flash_checks(fa, flash, benchit, gen, card, report):
     # save_residuals with a live length: cross-attention rows at the end of
     # a 300-row KV buffer of which 250 rows are live.
     for dt in ("bfloat16", "float32"):
-        q = rand((16, 128, 128), DTYPES[dt])
-        k = rand((16, 300, 128), DTYPES[dt])
-        v = rand((16, 300, 128), DTYPES[dt])
+        q = torch.randn((16, 128, 128), generator=gen, device="cuda").to(DTYPES[dt])
+        (k, ks), (v, vs) = (_kv(gen, (16, 300, 128), DTYPES[dt], form) for _ in range(2))
+        sk = {} if form is None else dict(k_scales=ks, v_scales=vs)
         kw = dict(causal=True, scale=128**-0.5, kv_len=250, q_offset=122)
-        o, l, m = flash.flash_attention(q, k, v, save_residuals=True, **kw)
-        wo, wl, wm = flash.flash_attention_plain(q, k, v, save_residuals=True, **kw)
+        o, l, m = flash.flash_attention(q, k, v, save_residuals=True, **kw, **sk)
+        wo, wl, wm = flash.flash_attention_plain(q, _plain_kv(k, ks), _plain_kv(v, vs),
+                                                 save_residuals=True, **kw)
         torch.cuda.synchronize()
         e_l = err(l, wl) / float(wl.abs().max())
         e_m = err(m, wm) / float(wm.abs().max())
-        e = err(o, wo)
-        ok = e <= FLASH_TOL[dt] and e_l <= STATS_RTOL and e_m <= STATS_RTOL
-        rec = {"check": f"flash_fwd/save_residuals_kvlen/{dt}", "max_abs_err": e,
-               "tol": FLASH_TOL[dt], "l_rel_err": e_l, "m_rel_err": e_m,
-               "stats_rtol": STATS_RTOL, "ok": ok}
+        rec = _rec(_check_name("flash_fwd", "save_residuals_kvlen", dt, form), o, wo, dt,
+                   FLASH_TOL[dt], l_rel_err=e_l, m_rel_err=e_m, stats_rtol=STATS_RTOL)
+        rec["ok"] = rec["ok"] and e_l <= STATS_RTOL and e_m <= STATS_RTOL
         emit(rec)
         report["checks"].append(rec)
     return out["main"]
 
 
-def paged_checks(decode, benchit, gen, card, report):
-    """Paged decode: MHA (32 KV heads, G=1) and GQA (8 KV heads, G=4)."""
+def _paged_pool(gen, ctx_lens, pps, pages, shape_tail, dtype, form=None):
+    """Pools of ``pages`` random pages (8-bit with their scales if ``form``,
+    see :func:`_kv`) and tables whose first ``ceil(ctx / ps)`` entries are
+    distinct shuffled pages and whose tail entries are other pool pages
+    (garbage the kernel must not use): ``(kp, ks), (vp, vs), table``."""
+    b = len(ctx_lens)
+    assert b * pps <= pages
+    perm = torch.randperm(pages, generator=gen, device="cuda")
+    table = perm[: b * pps].reshape(b, pps).to(torch.int32).contiguous()
+    k, v = (_kv(gen, (pages, *shape_tail), dtype, form) for _ in range(2))
+    return k, v, table
+
+
+def paged_checks(decode, benchit, gen, card, report, form=None):
+    """Paged decode: MHA (32 KV heads, G=1) and GQA (8 KV heads, G=4); with
+    ``form`` (int8 or fp8) over 8-bit pages with per-row scales."""
     out = {}
-    ps, pps, pages = 256, 8, 64
+    ps, pps, pages, d = 256, 8, 64, 128
     cases = [
         ("decode_mha", dict(kvh=32, g=1, lengths=[1, 256, 257, 1088])),
         ("decode_gqa_g4", dict(kvh=8, g=4, lengths=[0, 255, 512, 2048])),
     ]
     for name, c in cases:
-        b = len(c["lengths"])
+        b, kvh = len(c["lengths"]), c["kvh"]
         lengths = torch.tensor(c["lengths"], dtype=torch.int32, device="cuda")
-        perm = torch.randperm(pages, generator=gen, device="cuda")[: b * pps]
-        table = perm.reshape(b, pps).to(torch.int32).contiguous()
         for dt in ("bfloat16", "float32"):
-            q = torch.randn((b, c["kvh"], c["g"], 128), generator=gen, device="cuda").to(DTYPES[dt])
-            kp = torch.randn((pages, c["kvh"], ps, 128), generator=gen, device="cuda").to(DTYPES[dt])
-            vp = torch.randn((pages, c["kvh"], ps, 128), generator=gen, device="cuda").to(DTYPES[dt])
-            scale = 128**-0.5
-            o = decode.paged_attention(q, kp, vp, lengths, table, scale=scale)
+            (kp, ks), (vp, vs), table = _paged_pool(gen, c["lengths"], pps, pages, (kvh, ps, d),
+                                                    DTYPES[dt], form)
+            q = torch.randn((b, kvh, c["g"], d), generator=gen, device="cuda").to(DTYPES[dt])
+            kw = dict(scale=d**-0.5, **_page_scales(ks, vs))
+            o = decode.paged_attention(q, kp, vp, lengths, table, **kw)
             plain = lambda: decode.paged_attention_plain(  # noqa: E731
-                q, kp, vp, lengths, table, scale=scale
+                q, kp, vp, lengths, table, **kw
             )
             want = plain()
             torch.cuda.synchronize()
-            e = err(o, want)
-            rec = {"check": f"paged_decode/{name}/{dt}", "max_abs_err": e,
-                   "tol": PAGED_TOL[dt], "ok": e <= PAGED_TOL[dt],
-                   "lengths": c["lengths"]}
+            rec = _rec(_check_name("paged_decode", name, dt, form), o, want, dt, PAGED_TOL[dt],
+                       lengths=c["lengths"], shape=f"B={b} KVH={kvh} G={c['g']} d={d} ps={ps}")
             if name == "decode_mha" and dt == "bfloat16":
-                kernel = lambda: decode.paged_attention(q, kp, vp, lengths, table, scale=scale)  # noqa: E731
-                # The pool (2 x 0.5 GB) is larger than L2, but this call's
-                # pages were just read: flush so each call finds them cold.
+                kernel = lambda: decode.paged_attention(q, kp, vp, lengths, table, **kw)  # noqa: E731
+                # The pool (2 x 0.5 GB in bf16) is larger than L2, but this
+                # call's pages were just read: flush so each call finds them cold.
                 rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
                 rec["plain_ms"] = benchit.cuda_time_ms(plain, flush_bytes=256 << 20)
-                rec.update(_decode_library(benchit, q, kp, vp, lengths, table, scale))
+                rec.update(_decode_library(benchit, q, _bf16(kp, ks), _bf16(vp, vs), lengths, table,
+                                           kw["scale"]))
+                rec["library"] += _DEQUANT_NOTE if form else ""
                 live = sum(c["lengths"])
                 n_pages = sum(-(-n // ps) for n in c["lengths"])
                 nbytes = (
                     2 * q.numel() * q.element_size()  # q read, o written
-                    + 2 * live * c["kvh"] * 128 * kp.element_size()  # live K, V rows
+                    + 2 * live * kvh * _row_bytes(kp, d, form)  # live K, V rows
                     + 4 * (b + n_pages)  # lengths, the table entries read
                 )
-                flops = 4 * live * c["kvh"] * c["g"] * 128
+                flops = 4 * live * kvh * c["g"] * d
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dt))
                 out["main"] = rec
             emit(rec)
             report["checks"].append(rec)
+            del kp, vp, ks, vs, q, o, want
+    torch.cuda.empty_cache()
     return out["main"]
-
-
-def _paged_pool(gen, ctx_lens, pps, pages, shape_tail, dtype):
-    """Pools of ``pages`` random pages and tables whose first
-    ``ceil(ctx / ps)`` entries are distinct shuffled pages and whose tail
-    entries are other pool pages (garbage the kernel must not use)."""
-    b = len(ctx_lens)
-    assert b * pps <= pages
-    perm = torch.randperm(pages, generator=gen, device="cuda")
-    table = perm[: b * pps].reshape(b, pps).to(torch.int32).contiguous()
-    kp = torch.randn((pages, *shape_tail), generator=gen, device="cuda").to(dtype)
-    vp = torch.randn((pages, *shape_tail), generator=gen, device="cuda").to(dtype)
-    return kp, vp, table
 
 
 def _prefill_work(ctx_lens, chunk, seg, g, kvh, d, window=None):
@@ -348,9 +431,10 @@ def _prefill_work(ctx_lens, chunk, seg, g, kvh, d, window=None):
     return pairs * g * kvh, 4 * pairs * g * kvh * d
 
 
-def prefill_checks(decode, benchit, gen, card, report):
+def prefill_checks(decode, benchit, gen, card, report, form=None):
     """Paged prefill: MHA (32 KV heads, G=1) at the engine's chunk, GQA
-    (8 KV heads, G=4) with seg > chunk and a ctx = 0 row, the single form."""
+    (8 KV heads, G=4) with seg > chunk and a ctx = 0 row, the single form;
+    with ``form`` (int8 or fp8) over 8-bit pages with per-row scales."""
     out = {}
     ps, pps, pages, d = 256, 8, 64, 128
     cases = [
@@ -358,23 +442,23 @@ def prefill_checks(decode, benchit, gen, card, report):
         ("prefill_gqa_g4", dict(kvh=8, g=4, chunk=200, seg=256, ctx=[0, 200, 713, 1480])),
     ]
     for name, c in cases:
-        b = len(c["ctx"])
+        b, kvh = len(c["ctx"]), c["kvh"]
         ctx = torch.tensor(c["ctx"], dtype=torch.int32, device="cuda")
         for dt in ("bfloat16", "float32"):
-            kp, vp, table = _paged_pool(gen, c["ctx"], pps, pages, (c["kvh"], ps, d), DTYPES[dt])
-            q = torch.randn((b, c["kvh"], c["g"] * c["seg"], d), generator=gen, device="cuda").to(DTYPES[dt])
-            kw = dict(chunk=c["chunk"], seg=c["seg"], scale=d**-0.5)
+            (kp, ks), (vp, vs), table = _paged_pool(gen, c["ctx"], pps, pages, (kvh, ps, d),
+                                                    DTYPES[dt], form)
+            q = torch.randn((b, kvh, c["g"] * c["seg"], d), generator=gen, device="cuda").to(DTYPES[dt])
+            kw = dict(chunk=c["chunk"], seg=c["seg"], scale=d**-0.5, **_page_scales(ks, vs))
             o = decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)
             plain = lambda: decode.paged_prefill_attention_plain(q, kp, vp, table, ctx, **kw)  # noqa: E731
             want = plain()
             torch.cuda.synchronize()
-            e = err(o, want)
             zero_rows = [i for i, n in enumerate(c["ctx"]) if n == 0]
             zeros_ok = all(int(torch.count_nonzero(o[i])) == 0 for i in zero_rows)
-            rec = {"check": f"paged_prefill/{name}/{dt}", "max_abs_err": e,
-                   "tol": PREFILL_TOL[dt], "ctx_lens": c["ctx"], "chunk": c["chunk"],
-                   "seg": c["seg"], "ctx0_rows_zero": zeros_ok,
-                   "ok": e <= PREFILL_TOL[dt] and zeros_ok}
+            rec = _rec(_check_name("paged_prefill", name, dt, form), o, want, dt, PREFILL_TOL[dt],
+                       ctx_lens=c["ctx"], chunk=c["chunk"], seg=c["seg"], ctx0_rows_zero=zeros_ok,
+                       shape=f"B={b} KVH={kvh} G={c['g']} d={d} ps={ps}")
+            rec["ok"] = rec["ok"] and zeros_ok
             if name == "prefill_mha":
                 one = decode.paged_prefill_attention(q[3], kp, vp, table[3], c["ctx"][3], **kw)
                 torch.cuda.synchronize()
@@ -389,13 +473,15 @@ def prefill_checks(decode, benchit, gen, card, report):
                 cols = torch.arange(pps * ps, device="cuda")
                 pos = ctx[:, None] - c["chunk"] + torch.arange(c["seg"], device="cuda")[None]
                 mask = (cols[None, None] <= pos[:, :, None]) & (cols[None, None] < ctx[:, None, None])
-                rec["library_ms"] = _gathered_sdpa_ms(benchit, q, kp, vp, table, mask, kw["scale"])
-                rec["library"] = "scaled_dot_product_attention on the pre-gathered dense context, boolean causal mask, gather not timed"
-                pairs, flops = _prefill_work(c["ctx"], c["chunk"], c["seg"], c["g"], c["kvh"], d)
+                rec["library_ms"] = _gathered_sdpa_ms(benchit, q, _bf16(kp, ks), _bf16(vp, vs), table,
+                                                      mask, kw["scale"])
+                rec["library"] = ("scaled_dot_product_attention on the pre-gathered dense context, "
+                                  "boolean causal mask, gather not timed" + (_DEQUANT_NOTE if form else ""))
+                pairs, flops = _prefill_work(c["ctx"], c["chunk"], c["seg"], c["g"], kvh, d)
                 live_pages = sum(-(-n // ps) for n in c["ctx"])
                 nbytes = (
                     2 * q.numel() * q.element_size()  # q read, o written
-                    + 2 * sum(c["ctx"]) * c["kvh"] * d * kp.element_size()  # live K, V rows
+                    + 2 * sum(c["ctx"]) * kvh * _row_bytes(kp, d, form)  # live K, V rows
                     + 4 * (b + live_pages)  # ctx_lens, the table entries read
                 )
                 rec["live_pairs"] = pairs
@@ -403,7 +489,7 @@ def prefill_checks(decode, benchit, gen, card, report):
                 out["main"] = rec
             emit(rec)
             report["checks"].append(rec)
-            del kp, vp, q, o, want
+            del kp, vp, ks, vs, q, o, want
     torch.cuda.empty_cache()
     return out["main"]
 
@@ -463,11 +549,12 @@ def _decode_library(benchit, q, kp, vp, lengths, table, scale, window=None):
         + " mask, gather not timed; no softcap (SDPA cannot express it)")}
 
 
-def flash_window_checks(fa, flash, benchit, gen, card, report):
+def flash_window_checks(fa, flash, benchit, gen, card, report, form=None):
     """Flash forward at the windowed models' prefill: B = 1, S = 5000 (past
     the window of 4096; 5000 rows per segment, so 32-row tiles cross GQA
-    segments), causal.  Timed at Gemma's shape in bfloat16: kernel, plain
-    version, and SDPA with the window as a boolean mask and no softcap."""
+    segments), causal; with ``form`` (int8 or fp8) over 8-bit K/V.  Timed
+    at Gemma's shape in bfloat16: kernel, plain version, and SDPA with the
+    window as a boolean mask and no softcap."""
     out = {}
     b, s = 1, 5000
     for name, c in WINDOW_CASES:
@@ -475,41 +562,48 @@ def flash_window_checks(fa, flash, benchit, gen, card, report):
         kw = dict(causal=True, scale=d**-0.5, window=c["window"], logit_softcap=c["cap"])
         for dt in ("bfloat16", "float32"):
             q = (c["q_mult"] * torch.randn((b, kvh * g, s, d), generator=gen, device="cuda")).to(DTYPES[dt])
-            k = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(DTYPES[dt])
-            v = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(DTYPES[dt])
-            o = fa.attention(q, k, v, **kw)
-            q3, k3, v3 = q.reshape(b * kvh, g * s, d), k.reshape(b * kvh, s, d), v.reshape(b * kvh, s, d)
-            plain = lambda: flash.flash_attention_plain(q3, k3, v3, q_seq_len=s, **kw)  # noqa: E731
+            (k, ks), (v, vs) = (_kv(gen, (b, kvh, s, d), DTYPES[dt], form) for _ in range(2))
+            sk = {} if form is None else dict(k_scales=ks, v_scales=vs)
+            o = fa.attention(q, k, v, **kw, **sk)
+            q3 = q.reshape(b * kvh, g * s, d)
+            kv3 = [(x.reshape(b * kvh, s, d), None if sc is None else sc.reshape(b * kvh, s))
+                   for x, sc in ((k, ks), (v, vs))]
+            plain = lambda: flash.flash_attention_plain(  # noqa: E731
+                q3, *(_plain_kv(*x) for x in kv3), q_seq_len=s, **kw)
             want = plain().reshape(q.shape)
             torch.cuda.synchronize()
-            rec = _window_rec(f"flash_fwd/{name}/{dt}", o, want, dt, FLASH_TOL[dt],
-                              shape=f"B={b} H={kvh * g} KVH={kvh} S={s} d={d}")
+            rec = _rec(_check_name("flash_fwd", name, dt, form), o, want, dt, FLASH_TOL[dt],
+                       shape=f"B={b} H={kvh * g} KVH={kvh} S={s} d={d}")
             if dt == "bfloat16" and name == TIMED_WINDOW_CASE:
-                rec["kernel_ms"] = benchit.cuda_time_ms(lambda: fa.attention(q, k, v, **kw))
+                rec["kernel_ms"] = benchit.cuda_time_ms(lambda: fa.attention(q, k, v, **kw, **sk))
                 rec["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=5)
                 pos = torch.arange(s, device="cuda")
                 mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - c["window"])
-                kr, vr = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+                kr, vr = (_bf16(x, sc).repeat_interleave(g, dim=1) for x, sc in ((k, ks), (v, vs)))
                 rec["library_ms"] = benchit.cuda_time_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         q, kr, vr, attn_mask=mask, scale=kw["scale"]))
                 rec["library"] = ("scaled_dot_product_attention, boolean causal+window mask, "
-                                  "K/V repeated to 16 heads untimed; no softcap (SDPA cannot express it)")
+                                  "K/V repeated to 16 heads untimed; no softcap (SDPA cannot express it)"
+                                  + (_DEQUANT_NOTE if form else ""))
                 pairs = b * kvh * g * _window_pairs(s, c["window"])
-                nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v read; o written
+                nbytes = (2 * q.numel() * q.element_size()  # q read, o written
+                          + 2 * b * kvh * s * _row_bytes(k, d, form))  # K, V rows read
                 rec["live_pairs"] = pairs
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * d * pairs, dtype=dt))
                 out["main"] = rec
+                del kr, vr, mask
             emit(rec)
             report["checks"].append(rec)
-            del q, k, v, o, want, q3, k3, v3
+            del q, k, v, ks, vs, o, want, q3, kv3
             torch.cuda.empty_cache()
     return out["main"]
 
 
-def paged_window_checks(decode, benchit, gen, card, report):
+def paged_window_checks(decode, benchit, gen, card, report, form=None):
     """Paged decode with the window: lengths 1, 4096, 4097 and 6000 (the
-    last reads 16 of its 24 pages), page_size 256, 24 pages per request."""
+    last reads 16 of its 24 pages), page_size 256, 24 pages per request;
+    with ``form`` (int8 or fp8) over 8-bit pages."""
     out = {}
     ps, pps, pages = 256, 24, 100
     lens = [1, 4096, 4097, 6000]
@@ -517,26 +611,28 @@ def paged_window_checks(decode, benchit, gen, card, report):
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     for name, c in WINDOW_CASES:
         g, d, kvh, w = c["g"], c["d"], 8, c["window"]
-        kw = dict(scale=d**-0.5, window=w, logit_softcap=c["cap"])
         for dt in ("bfloat16", "float32"):
-            kp, vp, table = _paged_pool(gen, lens, pps, pages, (kvh, ps, d), DTYPES[dt])
+            (kp, ks), (vp, vs), table = _paged_pool(gen, lens, pps, pages, (kvh, ps, d), DTYPES[dt], form)
+            kw = dict(scale=d**-0.5, window=w, logit_softcap=c["cap"], **_page_scales(ks, vs))
             q = (c["q_mult"] * torch.randn((b, kvh, g, d), generator=gen, device="cuda")).to(DTYPES[dt])
             o = decode.paged_attention(q, kp, vp, lengths, table, **kw)
             plain = lambda: decode.paged_attention_plain(q, kp, vp, lengths, table, **kw)  # noqa: E731
             want = plain()
             torch.cuda.synchronize()
-            rec = _window_rec(f"paged_decode/{name}/{dt}", o, want, dt, PAGED_TOL[dt],
-                              lengths=lens, shape=f"KVH={kvh} G={g} d={d} ps={ps}")
+            rec = _rec(_check_name("paged_decode", name, dt, form), o, want, dt, PAGED_TOL[dt],
+                       lengths=lens, shape=f"KVH={kvh} G={g} d={d} ps={ps}")
             if dt == "bfloat16" and name == TIMED_WINDOW_CASE:
                 kernel = lambda: decode.paged_attention(q, kp, vp, lengths, table, **kw)  # noqa: E731
                 rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
                 rec["plain_ms"] = benchit.cuda_time_ms(plain, flush_bytes=256 << 20)
-                rec.update(_decode_library(benchit, q, kp, vp, lengths, table, kw["scale"], w))
+                rec.update(_decode_library(benchit, q, _bf16(kp, ks), _bf16(vp, vs), lengths, table,
+                                           kw["scale"], w))
+                rec["library"] += _DEQUANT_NOTE if form else ""
                 live = sum(min(n, w) for n in lens)  # K/V rows inside each window
                 n_pages = sum(-(-n // ps) - max(0, (n - w) // ps) for n in lens)
                 nbytes = (
                     2 * q.numel() * q.element_size()  # q read, o written
-                    + 2 * live * kvh * d * kp.element_size()  # live K, V rows
+                    + 2 * live * kvh * _row_bytes(kp, d, form)  # live K, V rows
                     + 4 * (b + n_pages)  # lengths, the table entries read
                 )
                 rec["live_rows"] = live
@@ -545,15 +641,16 @@ def paged_window_checks(decode, benchit, gen, card, report):
                 out["main"] = rec
             emit(rec)
             report["checks"].append(rec)
-            del kp, vp, q, o, want
+            del kp, vp, ks, vs, q, o, want
     torch.cuda.empty_cache()
     return out["main"]
 
 
-def prefill_window_checks(decode, benchit, gen, card, report):
+def prefill_window_checks(decode, benchit, gen, card, report, form=None):
     """Paged prefill with the window: a 512-row chunk (the engine's) at
     contexts 4608-6144, page_size 256, 24 pages per request; the chunk's
-    tiles start past the first 0-7 pages."""
+    tiles start past the first 0-7 pages; with ``form`` (int8 or fp8) over
+    8-bit pages."""
     out = {}
     ps, pps, pages, chunk = 256, 24, 100, 512
     ctxs = [4608, 5120, 5632, 6144]
@@ -561,16 +658,17 @@ def prefill_window_checks(decode, benchit, gen, card, report):
     ctx = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
     for name, c in WINDOW_CASES:
         g, d, kvh, w = c["g"], c["d"], 8, c["window"]
-        kw = dict(chunk=chunk, seg=chunk, scale=d**-0.5, window=w, logit_softcap=c["cap"])
         for dt in ("bfloat16", "float32"):
-            kp, vp, table = _paged_pool(gen, ctxs, pps, pages, (kvh, ps, d), DTYPES[dt])
+            (kp, ks), (vp, vs), table = _paged_pool(gen, ctxs, pps, pages, (kvh, ps, d), DTYPES[dt], form)
+            kw = dict(chunk=chunk, seg=chunk, scale=d**-0.5, window=w, logit_softcap=c["cap"],
+                      **_page_scales(ks, vs))
             q = (c["q_mult"] * torch.randn((b, kvh, g * chunk, d), generator=gen, device="cuda")).to(DTYPES[dt])
             o = decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)
             plain = lambda: decode.paged_prefill_attention_plain(q, kp, vp, table, ctx, **kw)  # noqa: E731
             want = plain()
             torch.cuda.synchronize()
-            rec = _window_rec(f"paged_prefill/{name}/{dt}", o, want, dt, PREFILL_TOL[dt],
-                              ctx_lens=ctxs, chunk=chunk, shape=f"KVH={kvh} G={g} d={d} ps={ps}")
+            rec = _rec(_check_name("paged_prefill", name, dt, form), o, want, dt, PREFILL_TOL[dt],
+                       ctx_lens=ctxs, chunk=chunk, shape=f"KVH={kvh} G={g} d={d} ps={ps}")
             if dt == "bfloat16" and name == TIMED_WINDOW_CASE:
                 kernel = lambda: decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)  # noqa: E731
                 rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
@@ -579,16 +677,18 @@ def prefill_window_checks(decode, benchit, gen, card, report):
                 pos = (ctx[:, None] - chunk + torch.arange(chunk, device="cuda")[None])[:, :, None]
                 mask = (cols <= pos) & (cols < ctx[:, None, None]) & (cols > pos - w)
                 rec["library_ms"] = _gathered_sdpa_ms(
-                    benchit, q.reshape(b, kvh * g, chunk, d), kp, vp, table, mask, kw["scale"])
+                    benchit, q.reshape(b, kvh * g, chunk, d), _bf16(kp, ks), _bf16(vp, vs), table, mask,
+                    kw["scale"])
                 rec["library"] = ("scaled_dot_product_attention on the pre-gathered dense context "
                                   "(K/V repeated to 16 heads), boolean causal+window mask, gather "
-                                  "not timed; no softcap (SDPA cannot express it)")
+                                  "not timed; no softcap (SDPA cannot express it)"
+                                  + (_DEQUANT_NOTE if form else ""))
                 pairs, flops = _prefill_work(ctxs, chunk, chunk, g, kvh, d, window=w)
                 rows = sum(n - max(0, n - chunk - w + 1) for n in ctxs)  # K/V rows any row sees
                 pages_read = sum(-(-n // ps) - max(0, n - chunk - w + 1) // ps for n in ctxs)
                 nbytes = (
                     2 * q.numel() * q.element_size()  # q read, o written
-                    + 2 * rows * kvh * d * kp.element_size()  # live K, V rows
+                    + 2 * rows * kvh * _row_bytes(kp, d, form)  # live K, V rows
                     + 4 * (b + pages_read)  # ctx_lens, the table entries read
                 )
                 rec["live_pairs"] = pairs
@@ -597,10 +697,24 @@ def prefill_window_checks(decode, benchit, gen, card, report):
                 del mask
             emit(rec)
             report["checks"].append(rec)
-            del kp, vp, q, o, want
+            del kp, vp, ks, vs, q, o, want
             torch.cuda.empty_cache()
     return out["main"]
 
+
+def serving_checks(fa, flash, decode, benchit, gen, card, report, form=None):
+    """The three serving kernels' checks at their main shapes and at the
+    windowed models' (d = 256 with window 4096 and softcap 50, Gemma-2;
+    d = 128 with window 4096, Mistral), unquantized or over ``form`` (int8
+    or fp8) K/V: {kernel: (main shape's timed check, Gemma-2's)}."""
+    return {
+        "flash_fwd": (flash_checks(fa, flash, benchit, gen, card, report, form),
+                      flash_window_checks(fa, flash, benchit, gen, card, report, form)),
+        "paged_decode": (paged_checks(decode, benchit, gen, card, report, form),
+                         paged_window_checks(decode, benchit, gen, card, report, form)),
+        "paged_prefill": (prefill_checks(decode, benchit, gen, card, report, form),
+                          prefill_window_checks(decode, benchit, gen, card, report, form)),
+    }
 
 def naive_checks(flash, benchit, gen, card, report):
     """Naive kernel: B*H = 128, S = 1024, d = 128, causal; and a kv_len /
@@ -669,8 +783,15 @@ def phase_crosscheck(fa, flash, gen, report):
     return rec
 
 
+# The 8-bit forms of the serving kernels: their wrappers count those
+# launches apart (``launches_quantized``) as well as with all the others.
+QUANT_KERNELS = ("flash_fwd", "paged_decode", "paged_prefill")
+
+
 def _counters(flash, decode, backward):
-    return {
+    """Launch counters by name: ``(wrapper, attribute)``; ``<kernel>_quant``
+    counts the 8-bit form's launches, which ``<kernel>`` counts too."""
+    fns = {
         "flash_fwd": flash.flash_attention,
         "paged_decode": decode.paged_attention,
         "paged_prefill": decode.paged_prefill_attention_batched,
@@ -679,18 +800,21 @@ def _counters(flash, decode, backward):
         "flash_bwd_dq": backward.dq_kernel,
         "flash_bwd_dkv": backward.dkv_kernel,
     }
+    out = {k: (fn, "launches") for k, fn in fns.items()}
+    out.update({f"{k}_quant": (fns[k], "launches_quantized") for k in QUANT_KERNELS})
+    return out
 
 
 def _drive(counters, drive):
     """Call ``drive()`` with every launch counter set to 0 just before and
     read just after; return (wall seconds, launches)."""
-    for fn in counters.values():
-        fn.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     drive()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, {k: fn.launches for k, fn in counters.items()}
+    return time.perf_counter() - t0, {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
 
 def _finished(eng, ids, budget):
@@ -749,11 +873,24 @@ def phase_serve(args, cfg, params, engine_mod, kvcache, counters, report):
     return rec
 
 
-def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report):
-    """The default configuration's path: chunked prefill and prefix hits."""
+def _quant_launches(want, launches, cache_quantized):
+    """Expected 8-bit launches: every paged launch with an 8-bit cache (the
+    whole-prompt flash_fwd launches attend unquantized K/V), none without;
+    and whether the 8-bit forms did launch where they must."""
+    for k in ("paged_decode", "paged_prefill"):
+        want[f"{k}_quant"] = want[k] if cache_quantized else 0
+    return not cache_quantized or all(
+        launches[f"{k}_quant"] > 0 for k in ("paged_decode", "paged_prefill"))
+
+
+def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report, *,
+                        cache_dtype="bfloat16", phase="serve_chunked", extra=None):
+    """The default configuration's path: chunked prefill and prefix hits.
+    With ``cache_dtype`` int8 or fp8, an 8-bit KV cache (the serve_int8
+    phase, on int8 weights)."""
     ccfg = kvcache.CacheConfig(
         num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.head_dim, page_size=256, num_pages=64, dtype="bfloat16",
+        head_dim=cfg.head_dim, page_size=256, num_pages=64, dtype=cache_dtype,
     )
     eng = engine_mod.Engine(
         params, cfg, ccfg,
@@ -783,20 +920,24 @@ def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report
     want.update(flash_fwd=cfg.num_layers * st["prefill_batches"],
                 paged_decode=cfg.num_layers * st["decode_batches"],
                 paged_prefill=cfg.num_layers * st["chunk_rounds"])
+    quant_ok = _quant_launches(want, launches, ccfg.quantized)
     want_prefill = sum(len(p) for p in prompts) - 3 * shared
-    rec = _serve_rec("serve_chunked", cfg, st, full, wall, launches, want, {
+    rec = _serve_rec(phase, cfg, st, full, wall, launches, want, {
         "prompt_lens": [len(p) for p in prompts], "shared_prefix": shared,
         "new_tokens": budget, "prefill_tokens_expected": want_prefill,
+        "cache_dtype": cache_dtype, "cache_pages": ccfg.num_pages, "cache_gb": _cache_gb(eng),
+        **(extra or {}),
     })
     rec["ok"] = (
-        full and launches == want
+        full and launches == want and quant_ok
         and all(launches[k] > 0 for k in ("flash_fwd", "paged_decode", "paged_prefill"))
         and st["free_pages"] == ccfg.num_pages and st["preemptions"] == 0
         and st["prefill_tokens"] == want_prefill
     )
     emit(rec)
-    report["serve_chunked"] = rec
-    report["profile_chunked"] = phase_profile(args, eng, cfg, prompt_len=1536, tag="serve_chunked")
+    report[phase] = rec
+    profile_key = "profile_chunked" if phase == "serve_chunked" else f"profile_{phase}"
+    report[profile_key] = phase_profile(args, eng, cfg, prompt_len=1536, tag=phase)
     del eng
     torch.cuda.empty_cache()
     return rec
@@ -805,19 +946,22 @@ def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report
 GEMMA_MODEL = "gemma2_9b: 16 q / 8 KV heads, d=256, window 4096, softcap 50"
 
 
-def _gemma_cache(kvcache, cfg, num_pages):
+def _gemma_cache(kvcache, cfg, num_pages, dtype="bfloat16"):
     return kvcache.CacheConfig(
         num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.head_dim, page_size=256, num_pages=num_pages, dtype="bfloat16",
+        head_dim=cfg.head_dim, page_size=256, num_pages=num_pages, dtype=dtype,
     )
 
 
-def phase_serve_gemma2(args, cfg, params, engine_mod, kvcache, counters, report):
+def phase_serve_gemma2(args, cfg, params, engine_mod, kvcache, counters, report, *,
+                       cache_dtype="bfloat16", phase="serve_gemma2"):
     """Gemma-2-9B-class at full width on the default chunked engine: a donor
     with a 1024-token prefix and one prompt sharing it, two unique prompts
     of 4600-5800 tokens (past the window), one short prompt (whole, on
-    flash_fwd); 32 greedy new tokens each.  Then a profile."""
-    ccfg = _gemma_cache(kvcache, cfg, 80)
+    flash_fwd); 32 greedy new tokens each.  Then a profile.  With
+    ``cache_dtype="fp8"`` (serve_gemma2_fp8) the paged kernels' 8-bit forms
+    run with the window, the softcap and d = 256."""
+    ccfg = _gemma_cache(kvcache, cfg, 80, cache_dtype)
     eng = engine_mod.Engine(
         params, cfg, ccfg,
         engine_mod.EngineConfig(max_batch=4, pages_per_seq=24, prefill_chunk=512),
@@ -845,21 +989,23 @@ def phase_serve_gemma2(args, cfg, params, engine_mod, kvcache, counters, report)
     want.update(flash_fwd=cfg.num_layers * st["prefill_batches"],
                 paged_decode=cfg.num_layers * st["decode_batches"],
                 paged_prefill=cfg.num_layers * st["chunk_rounds"])
+    quant_ok = _quant_launches(want, launches, ccfg.quantized)
     want_prefill = sum(len(p) for p in prompts) - shared
-    rec = _serve_rec("serve_gemma2", cfg, st, full, wall, launches, want, {
+    rec = _serve_rec(phase, cfg, st, full, wall, launches, want, {
         "prompt_lens": [len(p) for p in prompts], "shared_prefix": shared,
-        "new_tokens": budget, "prefill_tokens_expected": want_prefill,
+        "new_tokens": budget, "prefill_tokens_expected": want_prefill, "cache_dtype": cache_dtype,
         "cache_pages": ccfg.num_pages, "cache_gb": _cache_gb(eng),
     }, model=GEMMA_MODEL)
     rec["ok"] = (
-        full and launches == want
+        full and launches == want and quant_ok
         and all(launches[k] > 0 for k in ("flash_fwd", "paged_decode", "paged_prefill"))
         and st["free_pages"] == ccfg.num_pages and st["preemptions"] == 0
         and st["prefill_tokens"] == want_prefill
     )
     emit(rec)
-    report["serve_gemma2"] = rec
-    report["profile_gemma2"] = phase_profile(args, eng, cfg, prompt_len=1536, tag="serve_gemma2")
+    report[phase] = rec
+    profile_key = "profile_gemma2" if phase == "serve_gemma2" else f"profile_{phase}"
+    report[profile_key] = phase_profile(args, eng, cfg, prompt_len=1536, tag=phase)
     del eng
     torch.cuda.empty_cache()
     return rec
@@ -909,7 +1055,10 @@ def phase_serve_gemma2_whole(args, cfg, params, engine_mod, kvcache, counters, r
 
 
 def _cache_gb(eng):
-    return 2 * eng.cache.k_pages.numel() * eng.cache.k_pages.element_size() / 1e9
+    """The pools' size: K and V payloads, and their scales for an 8-bit cache."""
+    c = eng.cache
+    return sum(t.numel() * t.element_size()
+               for t in (c.k_pages, c.v_pages, c.k_scales, c.v_scales) if t is not None) / 1e9
 
 
 def phase_profile(args, eng, cfg, *, prompt_len, tag):
@@ -965,11 +1114,15 @@ def _profile(workload, phase, extra):
     }
     # cuBLAS matrix products (the model's projections, MLP and LM head).
     gemm = sum(t for n, (_, t) in by_name.items() if any(g in n for g in ("nvjet", "gemm", "xmma")))
+    # Copies and dtype casts (on the int8-weight path: each weight's upcast
+    # to bfloat16 before its product).
+    copies = sum(t for n, (_, t) in by_name.items() if "copy" in n)
     rec = {
         "phase": phase, **extra,
         "wall_ms": wall_us / 1e3, "traced_wall_ms": traced_us / 1e3,
         "kernels_total_ms": sum(t for _, t in by_name.values()) / 1e3,
         "gemm_device_ms": gemm / 1e3,
+        "copy_device_ms": copies / 1e3,
         "device_busy_ms": busy / 1e3 if spans else "not measured",
         "device_idle_share": 1 - busy / wall_us if spans else "not measured",
         "kernel_device_ms": ours,
@@ -981,20 +1134,57 @@ def _profile(workload, phase, extra):
     return rec
 
 
-def _to_card(params):
-    return {k: (v.cuda() if torch.is_tensor(v) else [{n: w.cuda() for n, w in lay.items()} for lay in v])
-            for k, v in params.items()}
+def _to_card(params, device="cuda"):
+    """A parameter tree on ``device``: tensors and quantized leaves alike."""
+    return {k: ([{n: w.to(device) for n, w in lay.items()} for lay in v] if isinstance(v, list)
+                else v.to(device)) for k, v in params.items()}
 
 
-def _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt):
+def _pool_steps(a, b):
+    """(elements that differ, most steps between them) of two 8-bit pools:
+    int8 values, or fp8 codes (neighbouring e4m3 values of one sign differ
+    by one in their low 7 bits)."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.int8:
+        ai, bi = a.int(), b.int()
+    else:
+        ai, bi = (x.view(torch.uint8).int() for x in (a, b))
+        ai, bi = (torch.where(x >= 128, 128 - x, x) for x in (ai, bi))
+    diff = (ai - bi).abs()
+    return int((diff > 0).sum()), int(diff.max())
+
+
+def _cache_diff(cpu_cache, gpu_cache):
+    """How the card's 8-bit pools differ from the CPU's: a K/V value at a
+    half step can round to neighbouring steps on the two sides, since their
+    float32 sums run in other orders."""
+    out = {"elements": cpu_cache.k_pages.numel() * 2}
+    for name, sc in (("k_pages", "k_scales"), ("v_pages", "v_scales")):
+        a, b = getattr(cpu_cache, name), getattr(gpu_cache, name)
+        n, steps = _pool_steps(a, b)
+        # The largest difference of the dequantized values, over the row's
+        # absmax (an fp8 code step is finest near zero).
+        sa, sb = getattr(cpu_cache, sc), getattr(gpu_cache, sc).cpu()
+        qmax = 127.0 if a.dtype == torch.int8 else 448.0
+        deq = (a.float() * sa[..., None] - b.cpu().float() * sb[..., None]).abs()
+        out[name] = {"differ": n, "max_steps": steps,
+                     "max_err_over_absmax": float((deq / (qmax * sa[..., None])).max())}
+    for name in ("k_scales", "v_scales"):
+        a, b = getattr(cpu_cache, name), getattr(gpu_cache, name).cpu()
+        out[f"{name}_max_rel_err"] = float(((a - b).abs() / a.abs()).max())
+    return out
+
+
+def _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt, cache_dtype="float32"):
     """One request through whole-prompt prefill and 4 decode steps, on the
     CPU (plain versions) and on the card (kernels) with the CPU's tokens:
-    (max abs error of every logits row, the rows' largest magnitude)."""
+    (max abs error of every logits row, the rows' largest magnitude, how
+    the 8-bit pools differ or None)."""
 
     def run(params, device, feed):
         cache = kvcache.PagedKVCache(kvcache.CacheConfig(
             num_layers=2, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-            page_size=256, num_pages=2, dtype="float32",
+            page_size=256, num_pages=2, dtype=cache_dtype,
         ), device=device)
         logits, k, v = transformer.prefill(
             params, torch.tensor(prompt[None], device=device), cfg
@@ -1011,13 +1201,14 @@ def _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt):
             as_t = lambda x: torch.tensor([x], device=device)  # noqa: E731
             rows.append(transformer.decode_step(
                 params, as_t(tok), as_t(pos), cache.k_pages, cache.v_pages,
-                lengths, table, as_t(page), as_t(slot), cfg,
+                lengths, table, as_t(page), as_t(slot), cfg, cache.k_scales, cache.v_scales,
             )[0])
-        return torch.stack(rows).cpu(), toks
+        return torch.stack(rows).cpu(), toks, cache
 
-    want, toks = run(cpu_params, "cpu", None)
-    got, _ = run(gpu_params, "cuda", toks)  # the CPU's tokens, so inputs match
-    return err(got, want), float(want.abs().max())
+    want, toks, cpu_cache = run(cpu_params, "cpu", None)
+    got, _, gpu_cache = run(gpu_params, "cuda", toks)  # the CPU's tokens, so inputs match
+    diff = _cache_diff(cpu_cache, gpu_cache) if cpu_cache.config.quantized else None
+    return err(got, want), float(want.abs().max()), diff
 
 
 def phase_parity(args, transformer, kvcache, engine_mod, report):
@@ -1027,7 +1218,7 @@ def phase_parity(args, transformer, kvcache, engine_mod, report):
     cpu_params = transformer.init_params(args.seed, cfg, device="cpu")
     gpu_params = _to_card(cpu_params)
     prompt = np.random.default_rng(args.seed + 1).integers(0, cfg.vocab_size, size=64)
-    e, absmax = _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt)
+    e, absmax, _ = _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt)
     rec = {"phase": "parity", "layers": 2, "dtype": "float32", "prompt_len": 64,
            "decode_steps": 4, "max_abs_err": e, "tol": PARITY_TOL,
            "logit_absmax": absmax, "ok": e <= PARITY_TOL}
@@ -1042,11 +1233,119 @@ def phase_parity(args, transformer, kvcache, engine_mod, report):
     return rec
 
 
-def parity_chunked(cfg, cpu_params, gpu_params, kvcache, engine_mod, first, second, phase):
+def phase_parity_quant(args, transformer, quant, kvcache, engine_mod, report):
+    """The same 2-layer float32 cut at Llama width with int8 weights and an
+    int8 KV cache: whole-prompt prefill with 4 decode steps, and the chunked
+    engine with a prefix hit, card against CPU within PARITY_QUANT_TOL.  The
+    weights are quantized once on the CPU and moved, so both sides hold the
+    same payloads; the K/V payloads each side writes are compared too."""
+    cfg = dataclasses.replace(
+        transformer.ModelConfig.llama7b_attention(), num_layers=2, dtype="float32"
+    )
+    cpu_params = quant.quantize_weights(transformer.init_params(args.seed, cfg, device="cpu"), "int8")
+    gpu_params = _to_card(cpu_params)
+    prompt = np.random.default_rng(args.seed + 1).integers(0, cfg.vocab_size, size=64)
+    e, absmax, diff = _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt, "int8")
+    rec = {"phase": "parity_quant", "layers": 2, "dtype": "float32", "weights": "int8",
+           "cache_dtype": "int8", "prompt_len": 64, "decode_steps": 4, "max_abs_err": e,
+           "tol": PARITY_QUANT_TOL, "logit_absmax": absmax, "pool_diff": diff,
+           "ok": e <= PARITY_QUANT_TOL}
+    emit(rec)
+    report["parity_quant"] = rec
+    rng = np.random.default_rng(args.seed + 4)
+    first = rng.integers(0, cfg.vocab_size, size=600).tolist()
+    second = first[:256] + rng.integers(0, cfg.vocab_size, size=100).tolist()
+    report["parity_quant_chunked"] = parity_chunked(
+        cfg, cpu_params, gpu_params, kvcache, engine_mod, first, second, "parity_quant_chunked",
+        "int8", PARITY_QUANT_TOL,
+    )
+    return rec
+
+
+def phase_quant_ops(fa, flash, quant, gen, report):
+    """The public 8-bit attention entry points: ``attention_quantized`` on
+    folded (B*H, S, d) tensors and ``attention(k_scales=, v_scales=)`` on
+    (B, H, S, d) ones with (B, H_kv, S) scales, B = 4, H = 32, S = 1024,
+    d = 128, causal, bfloat16 q, int8 K/V; each launches the flash
+    kernel's 8-bit form once and the two agree."""
+    b, h, s, d = 4, 32, 1024, 128
+    kq, vq = (_kv(gen, (b * h, s, d), None, "int8") for _ in range(2))
+    q = torch.randn((b * h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    flash.flash_attention.launches = flash.flash_attention.launches_quantized = 0
+    o1 = fa.attention_quantized(q, quant.QuantizedTensor(*kq), quant.QuantizedTensor(*vq),
+                                causal=True, scale=d**-0.5)
+    o2 = fa.attention(q.reshape(b, h, s, d), kq[0].reshape(b, h, s, d), vq[0].reshape(b, h, s, d),
+                      causal=True, scale=d**-0.5, k_scales=kq[1].reshape(b, h, s),
+                      v_scales=vq[1].reshape(b, h, s))
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": flash.flash_attention.launches,
+                "flash_fwd_quant": flash.flash_attention.launches_quantized}
+    e = err(o1.reshape(o2.shape), o2)
+    rec = {"phase": "quant_ops", "shape": f"B={b} H={h} S={s} d={d} causal, bf16 q, int8 K/V",
+           "max_abs_err": e, "tol": 0.0, "launches": launches,
+           "ok": e == 0.0 and launches == {"flash_fwd": 2, "flash_fwd_quant": 2}}
+    emit(rec)
+    report["quant_ops"] = rec
+    return rec
+
+
+def _mm_times(transformer, benchit, layer, rows):
+    """One layer's seven weight products at ``rows`` activation rows, bf16:
+    the int8 path (``transformer._mm``: upcast, product, scale), the upcasts
+    alone, and the products on bfloat16 weights (dequantized beforehand),
+    each summed over the seven matrices (ms)."""
+    out = {"rows": rows, "int8_mm_ms": 0.0, "upcast_ms": 0.0, "bf16_mm_ms": 0.0}
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        w = layer[name]
+        x = torch.randn((rows, w.shape[0]), device="cuda").to(torch.bfloat16)
+        wb = (w.payload.float() * w.scales).to(torch.bfloat16)
+        out["int8_mm_ms"] += benchit.cuda_time_ms(lambda: transformer._mm(x, w))
+        out["upcast_ms"] += benchit.cuda_time_ms(lambda: w.payload.to(torch.bfloat16))
+        out["bf16_mm_ms"] += benchit.cuda_time_ms(lambda: x @ wb)
+        del wb
+    return out
+
+
+def phase_serve_int8(args, cfg, params, transformer, quant, engine_mod, kvcache, benchit, counters,
+                     report):
+    """Llama-7B width at its published depth with int8 weights and an int8
+    KV cache (page 256, 64 pages) on serve_chunked's engine and prompts.
+    The bfloat16 parameters are quantized in place, layer by layer, so that
+    each layer's bfloat16 leaves are freed as its int8 ones are made.  Also
+    times one layer's weight products on the int8 path against bfloat16
+    weights."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for layer in params["layers"]:
+        layer.update(quant.quantize_weights(layer, "int8"))
+    params.update(quant.quantize_weights({k: v for k, v in params.items() if k != "layers"}, "int8"))
+    qparams = params
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    weights_gb = sum(
+        t.numel() * t.element_size()
+        for leaf in [qparams["embed"], qparams["lm_head"], qparams["final_norm"],
+                     *(w for lay in qparams["layers"] for w in lay.values())]
+        for t in ((leaf.payload, leaf.scales) if isinstance(leaf, quant.QuantizedWeight) else (leaf,))
+    ) / 1e9
+    extra = {"weights": "int8", "weights_gb": weights_gb, "quantize_s": quantize_s,
+             "quantize_peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+             "mm_decode": _mm_times(transformer, benchit, qparams["layers"][0], 4),
+             "mm_chunk": _mm_times(transformer, benchit, qparams["layers"][0], 2048)}
+    rec = phase_serve_chunked(args, cfg, qparams, engine_mod, kvcache, counters, report,
+                              cache_dtype="int8", phase="serve_int8", extra=extra)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def parity_chunked(cfg, cpu_params, gpu_params, kvcache, engine_mod, first, second, phase,
+                   cache_dtype="float32", tol=None):
     """The chunked engine on a 2-layer float32 cut (page_size 128, chunk
     256): ``first`` in chunk rounds, then ``second``, which shares its first
     256 tokens (a prefix hit) and prefills the rest; 4 decode steps each.
-    Every logits row the engine samples from, card against CPU."""
+    Every logits row the engine samples from, card against CPU, within
+    ``tol`` (PARITY_TOL); with an 8-bit cache, how its pools differ."""
+    tol = tol or PARITY_TOL
 
     class Recording(engine_mod.Engine):
         def _sample_rows(self, reqs, logits):
@@ -1056,7 +1355,7 @@ def parity_chunked(cfg, cpu_params, gpu_params, kvcache, engine_mod, first, seco
     def run(params, device):
         eng = Recording(params, cfg, kvcache.CacheConfig(
             num_layers=2, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-            page_size=128, num_pages=16, dtype="float32",
+            page_size=128, num_pages=16, dtype=cache_dtype,
         ), engine_mod.EngineConfig(max_batch=2, pages_per_seq=8, prefill_chunk=256),
             device=device)
         eng.rows, outs = [], []
@@ -1064,18 +1363,20 @@ def parity_chunked(cfg, cpu_params, gpu_params, kvcache, engine_mod, first, seco
             rid = eng.add_request(p, 5)
             outs.append(eng.run()[rid])
         st = eng.stats()
-        return torch.cat(eng.rows), outs, st["chunk_rounds"], st["prefill_tokens"]
+        return torch.cat(eng.rows), outs, st["chunk_rounds"], st["prefill_tokens"], eng.cache
 
-    want, want_toks, rounds, tokens = run(cpu_params, "cpu")
-    got, got_toks, _, _ = run(gpu_params, "cuda")
+    want, want_toks, rounds, tokens, cpu_cache = run(cpu_params, "cpu")
+    got, got_toks, _, _, gpu_cache = run(gpu_params, "cuda")
     same = got_toks == want_toks
     e = err(got, want) if same else float("inf")
     rec = {"phase": phase, "layers": 2, "dtype": "float32", "page_size": 128,
            "chunk": 256, "prompt_lens": [len(first), len(second)], "shared_prefix": 256,
            "decode_steps": 4, "chunk_rounds": rounds, "prefill_tokens": tokens,
-           "tokens_equal": same, "max_abs_err": e, "tol": PARITY_TOL,
+           "cache_dtype": cache_dtype, "tokens_equal": same, "max_abs_err": e, "tol": tol,
            "logit_absmax": float(want.abs().max()),
-           "ok": same and e <= PARITY_TOL and tokens == len(first) + len(second) - 256}
+           "ok": same and e <= tol and tokens == len(first) + len(second) - 256}
+    if cpu_cache.config.quantized:
+        rec["pool_diff"] = _cache_diff(cpu_cache, gpu_cache)
     emit(rec)
     return rec
 
@@ -1086,7 +1387,8 @@ def phase_parity_gemma2(args, transformer, kvcache, engine_mod, report):
     CPU side computes 256128-wide logits for every prompt row) and the
     softcap kept at 50: whole-prompt prefill with 4 decode steps, and the
     chunked engine with a prefix hit; card against CPU, logits within
-    PARITY_TOL.  The parameters are drawn on the card and copied."""
+    PARITY_TOL.  Then the same with fp8 pages (parity_quant_gemma2), within
+    PARITY_QUANT_TOL.  The parameters are drawn on the card and copied."""
     cfg = dataclasses.replace(
         transformer.ModelConfig.gemma2_9b(num_layers=2), dtype="float32", sliding_window=128
     )
@@ -1095,20 +1397,27 @@ def phase_parity_gemma2(args, transformer, kvcache, engine_mod, report):
                   for k, v in gpu_params.items()}
     rng = np.random.default_rng(args.seed + 42)
     prompt = rng.integers(0, cfg.vocab_size, size=300)
-    t0 = time.perf_counter()
-    e, absmax = _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt)
-    rec = {"phase": "parity_gemma2", "layers": 2, "dtype": "float32",
-           "window": cfg.sliding_window, "logit_softcap": cfg.logit_softcap, "prompt_len": 300,
-           "decode_steps": 4, "max_abs_err": e, "tol": PARITY_TOL,
-           "logit_absmax": absmax, "ok": e <= PARITY_TOL}
     first = prompt.tolist()
     second = first[:256] + rng.integers(0, cfg.vocab_size, size=100).tolist()
-    report["parity_gemma2_chunked"] = parity_chunked(
-        cfg, cpu_params, gpu_params, kvcache, engine_mod, first, second, "parity_gemma2_chunked"
-    )
-    rec["seconds"] = time.perf_counter() - t0
-    emit(rec)
-    report["parity_gemma2"] = rec
+    # float32 pages (parity_gemma2), then fp8 pages (parity_quant_gemma2).
+    for phase, cache_dtype, tol in (("parity_gemma2", "float32", PARITY_TOL),
+                                    ("parity_quant_gemma2", "fp8", PARITY_QUANT_TOL)):
+        t0 = time.perf_counter()
+        e, absmax, diff = _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt,
+                                        cache_dtype)
+        rec = {"phase": phase, "layers": 2, "dtype": "float32", "cache_dtype": cache_dtype,
+               "window": cfg.sliding_window, "logit_softcap": cfg.logit_softcap, "prompt_len": 300,
+               "decode_steps": 4, "max_abs_err": e, "tol": tol,
+               "logit_absmax": absmax, "ok": e <= tol}
+        if diff is not None:
+            rec["pool_diff"] = diff
+        report[f"{phase}_chunked"] = parity_chunked(
+            cfg, cpu_params, gpu_params, kvcache, engine_mod, first, second, f"{phase}_chunked",
+            cache_dtype, tol,
+        )
+        rec["seconds"] = time.perf_counter() - t0
+        emit(rec)
+        report[phase] = rec
     del gpu_params, cpu_params
     torch.cuda.empty_cache()
     return rec
@@ -1442,12 +1751,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from flashattention_tpu_torch.models import train, transformer
-    from flashattention_tpu_torch.ops import backward, decode, flash, kernels
+    from flashattention_tpu_torch.ops import backward, decode, flash, kernels, quant
     from flashattention_tpu_torch.runtime import engine as engine_mod
     from flashattention_tpu_torch.runtime import kvcache
     from flashattention_tpu_torch.utils import benchit, packing
     import flashattention_tpu_torch as fa
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
     torch.backends.cudnn.allow_tf32 = False
     card = benchit.card_info()
@@ -1457,17 +1767,13 @@ def main() -> int:
 
     phase_build(kernels, report)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    # {None, "int8", "fp8"}: {kernel: (main shape's timed check, Gemma-2 window's)}
+    serving = {form: serving_checks(fa, flash, decode, benchit, gen, name, report, form)
+               for form in (None, *QUANT_FORMS)}
     mains = {
-        "flash_fwd": flash_checks(fa, flash, benchit, gen, name, report),
-        "paged_decode": paged_checks(decode, benchit, gen, name, report),
-        "paged_prefill": prefill_checks(decode, benchit, gen, name, report),
+        **{k: main for k, (main, _) in serving[None].items()},
         "flash_naive": naive_checks(flash, benchit, gen, name, report),
         **bwd_checks(backward, flash, benchit, packing, args, gen, name, report),
-    }
-    windowed = {  # d = 256 with window and softcap (Gemma-2), d = 128 window (Mistral)
-        "flash_fwd": flash_window_checks(fa, flash, benchit, gen, name, report),
-        "paged_decode": paged_window_checks(decode, benchit, gen, name, report),
-        "paged_prefill": prefill_window_checks(decode, benchit, gen, name, report),
     }
     cfg = dataclasses.replace(
         transformer.ModelConfig.llama7b_attention(), num_layers=args.layers
@@ -1478,6 +1784,8 @@ def main() -> int:
     report["init_s"] = time.perf_counter() - t0
     serve = phase_serve(args, cfg, params, engine_mod, kvcache, counters, report)
     chunked = phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report)
+    serve_int8 = phase_serve_int8(args, cfg, params, transformer, quant, engine_mod, kvcache,
+                                  benchit, counters, report)  # quantizes params in place
     del params
     torch.cuda.empty_cache()
     gcfg = transformer.ModelConfig.gemma2_9b(num_layers=42)
@@ -1490,10 +1798,14 @@ def main() -> int:
     gemma = phase_serve_gemma2(args, gcfg, gparams, engine_mod, kvcache, counters, report)
     gemma_whole = phase_serve_gemma2_whole(args, gcfg, gparams, engine_mod, kvcache, counters,
                                            report)
+    gemma_fp8 = phase_serve_gemma2(args, gcfg, gparams, engine_mod, kvcache, counters, report,
+                                   cache_dtype="fp8", phase="serve_gemma2_fp8")
     del gparams
     torch.cuda.empty_cache()
     cross = phase_crosscheck(fa, flash, gen, report)
+    quant_ops = phase_quant_ops(fa, flash, quant, gen, report)
     phase_parity(args, transformer, kvcache, engine_mod, report)
+    phase_parity_quant(args, transformer, quant, kvcache, engine_mod, report)
     phase_parity_gemma2(args, transformer, kvcache, engine_mod, report)
 
     tcfg = _train_cfg(transformer)
@@ -1510,8 +1822,10 @@ def main() -> int:
     phase_train_parity(args, transformer, train, packing, report)
 
     paths = {"serve": serve["launches"], "serve_chunked": chunked["launches"],
+             "serve_int8": serve_int8["launches"],
              "serve_gemma2": gemma["launches"], "serve_gemma2_whole": gemma_whole["launches"],
-             "crosscheck": cross["launches"],
+             "serve_gemma2_fp8": gemma_fp8["launches"],
+             "crosscheck": cross["launches"], "quant_ops": quant_ops["launches"],
              **{p: r["launches"] for p, r in trained.items()}}
     summary = []
     for kname, source, replaces in KERNELS:
@@ -1528,24 +1842,39 @@ def main() -> int:
             "bound_by": main_rec["bound_by"], "bytes_ms": main_rec["bytes_ms"],
             "ops_ms": main_rec["ops_ms"], "library_ms": main_rec["library_ms"],
         })
-        if kname in windowed:
-            w = windowed[kname]
-            summary[-1]["d256_window_softcap"] = {
-                k: w[k] for k in ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms",
-                                  "bound_ms", "bound_by", "bytes_ms", "ops_ms", "library_ms")
+        timed = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                 "bytes_ms", "ops_ms", "library_ms")
+        if kname in QUANT_KERNELS:
+            summary[-1]["d256_window_softcap"] = {k: serving[None][kname][1][k] for k in timed}
+            # The 8-bit form: int8's timed check, fp8's beside it, and both
+            # at the Gemma-2 window's shape.
+            by_path = {p: n[f"{kname}_quant"] for p, n in paths.items() if n.get(f"{kname}_quant")}
+            q8 = {f: serving[f][kname] for f in QUANT_FORMS}
+            summary[-1]["quantized"] = {
+                **{k: q8["int8"][0][k] for k in timed}, "ms": q8["int8"][0]["kernel_ms"],
+                "source": f"flashattention_tpu_torch/csrc/{source} (built with -DFA_QUANT)",
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "fp8": {k: q8["fp8"][0][k] for k in timed},
+                "d256_window_softcap": {f: {k: q8[f][1][k] for k in timed} for f in QUANT_FORMS},
             }
     report["kernels"] = summary
+    report["seconds"] = time.perf_counter() - t_start
+    emit({"phase": "total", "seconds": report["seconds"]})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
 
     failed = [c["check"] for c in report["checks"] if not c["ok"]]
-    failed += [p for p in ("serve", "serve_chunked", "serve_gemma2", "serve_gemma2_whole",
-                           "crosscheck", "parity", "parity_chunked", "parity_gemma2",
-                           "parity_gemma2_chunked", "train", "train_remat", "train_packed",
+    failed += [p for p in ("serve", "serve_chunked", "serve_int8", "serve_gemma2",
+                           "serve_gemma2_whole", "serve_gemma2_fp8", "crosscheck", "quant_ops",
+                           "parity", "parity_chunked", "parity_quant", "parity_quant_chunked",
+                           "parity_gemma2", "parity_gemma2_chunked", "parity_quant_gemma2",
+                           "parity_quant_gemma2_chunked", "train", "train_remat", "train_packed",
                            "train_parity")
                if not report[p]["ok"]]
     failed += [k["name"] for k in summary if k["launches"] == 0]
+    failed += [f"{k['name']}/quantized" for k in summary
+               if "quantized" in k and k["quantized"]["launches"] == 0]
     emit({"kernels": summary})
     print(card, flush=True)
     if failed:

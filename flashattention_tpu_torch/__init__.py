@@ -15,6 +15,17 @@ from flashattention_tpu_torch.ops.decode import (
 )
 from flashattention_tpu_torch.ops.dispatch import attention, sdpa
 from flashattention_tpu_torch.ops.flash import BlockSizes, flash_attention, flash_attention_naive
+from flashattention_tpu_torch.ops.quant import (
+    QuantizedTensor,
+    QuantizedWeight,
+    attention_quantized,
+    dequantize,
+    dequantize_weight,
+    quantize,
+    quantize_kv,
+    quantize_weight,
+    quantize_weights,
+)
 from flashattention_tpu_torch.ops.reference import (
     attention_reference,
     attention_reference_with_stats,
@@ -35,4 +46,13 @@ __all__ = [
     "paged_prefill_attention_batched",
     "attention_reference",
     "attention_reference_with_stats",
+    "QuantizedTensor",
+    "QuantizedWeight",
+    "attention_quantized",
+    "dequantize",
+    "dequantize_weight",
+    "quantize",
+    "quantize_kv",
+    "quantize_weight",
+    "quantize_weights",
 ]

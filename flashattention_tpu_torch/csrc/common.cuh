@@ -8,7 +8,9 @@
 
 #include <cfloat>
 #include <climits>
+#include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace fa {
@@ -18,13 +20,20 @@ namespace fa {
 // never meets exp(-inf - (-inf)).
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
-// dtype codes of the C interface.
+// dtype codes of the C interface: q/o types, and K/V payload types (8-bit
+// payloads come with float32 dequant scales, one per K/V row).
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;
+constexpr int kFp8E4M3 = 3;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+__device__ __forceinline__ float load_f32(const int8_t* p) { return static_cast<float>(*p); }
+__device__ __forceinline__ float load_f32(const __nv_fp8_e4m3* p) {
+  return static_cast<float>(*p);  // exact: every e4m3 value is a float
 }
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
@@ -42,6 +51,18 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+// 8-bit payloads: four neighbouring bytes as one 32-bit access, converted
+// exactly (Hopper converts e4m3 pairs in hardware).
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4(c.x, c.y, c.z, c.w);
+}
+__device__ __forceinline__ float4 load4(const __nv_fp8_e4m3* p) {
+  return static_cast<float4>(*reinterpret_cast<const __nv_fp8x4_e4m3*>(p));
+}
+__device__ __forceinline__ float4 scale4(float4 x, float s) {
+  return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
 }
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;

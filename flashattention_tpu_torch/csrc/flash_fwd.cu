@@ -39,7 +39,17 @@
 // when there are any.  A query tile that crosses a GQA segment takes the
 // segment's first position for its window start and its last for its causal
 // end: correct, just no skip on that side.
+//
+// 8-bit K/V (int8 or fp8 e4m3 payloads P with a float32 dequant scale per
+// row, (BH, S_kv); attention_quantized and attention(k_scales=, v_scales=)):
+// the Pallas kernel folds the K scale into the score columns and the V scale
+// into p (flash.py:816-828, 968-978); here each row is dequantized as its
+// tile is staged (payload x its row's scale, into the float32 tiles), four
+// payload bytes per 32-bit load, one rounding fewer.  These forms are built
+// into their own library (FA_QUANT, see ops/kernels.py).
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -57,14 +67,17 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return 2 * sizeof(float4) * kBlockKV * (D / 4) + sizeof(int) * kBlockKV;
 }
 
-template <typename T, int D>
+// T: q and o; P: the K/V payload (T itself, or int8 / fp8 with scales).
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const T* __restrict__ q, const P* __restrict__ k,
+                 const P* __restrict__ v, const float* __restrict__ k_scales,
+                 const float* __restrict__ v_scales, T* __restrict__ o,
                  float* __restrict__ l_out, float* __restrict__ m_out,
                  const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int rows,
                  int s_kv, int kv_len, int q_offset, int q_seq_len, int causal,
                  float scale, int window, float softcap) {
+  constexpr bool kQuant = !std::is_same<T, P>::value;
   constexpr int kThreadsPerRow = threads_per_row<D>();
   constexpr int kBlockQ = block_q<D>();
   constexpr int kVec = D / 4;                     // float4 chunks per row
@@ -120,22 +133,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     kv_begin -= kv_begin % kBlockKV;
   }
 
-  const T* k_head = k + static_cast<size_t>(bh) * s_kv * D;
-  const T* v_head = v + static_cast<size_t>(bh) * s_kv * D;
+  const P* k_head = k + static_cast<size_t>(bh) * s_kv * D;
+  const P* v_head = v + static_cast<size_t>(bh) * s_kv * D;
+  const float* ks_head = kQuant ? k_scales + static_cast<size_t>(bh) * s_kv : nullptr;
+  const float* vs_head = kQuant ? v_scales + static_cast<size_t>(bh) * s_kv : nullptr;
   float m_run = -INFINITY;  // flash.py:752 initialises m to -inf
   float l_run = 0.f;
   for (int t0 = kv_begin; t0 < kv_end; t0 += kBlockKV) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int idx = tid; idx < kBlockKV * D; idx += kThreads) {
-      const int col = t0 + idx / D;
-      float kx = 0.f, vx = 0.f;
-      if (col < kv_end) {
-        const size_t off = static_cast<size_t>(col) * D + idx % D;
-        kx = fa::load_f32(k_head + off);
-        vx = fa::load_f32(v_head + off);
+    if constexpr (kQuant) {  // 8-bit rows: 4 payload bytes a load, then scaled
+      for (int idx = tid; idx < kBlockKV * kVec; idx += kThreads) {
+        const int col = t0 + idx / kVec;
+        float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+        if (col < kv_end) {
+          const size_t off = static_cast<size_t>(col) * D + 4 * (idx % kVec);
+          kx = fa::scale4(fa::load4(k_head + off), ks_head[col]);
+          vx = fa::scale4(fa::load4(v_head + off), vs_head[col]);
+        }
+        k_tile[idx] = kx;
+        v_tile[idx] = vx;
       }
-      reinterpret_cast<float*>(k_tile)[idx] = kx;
-      reinterpret_cast<float*>(v_tile)[idx] = vx;
+    } else {
+      for (int idx = tid; idx < kBlockKV * D; idx += kThreads) {
+        const int col = t0 + idx / D;
+        float kx = 0.f, vx = 0.f;
+        if (col < kv_end) {
+          const size_t off = static_cast<size_t>(col) * D + idx % D;
+          kx = fa::load_f32(k_head + off);
+          vx = fa::load_f32(v_head + off);
+        }
+        reinterpret_cast<float*>(k_tile)[idx] = kx;
+        reinterpret_cast<float*>(v_tile)[idx] = vx;
+      }
     }
     if (has_seg && tid < kBlockKV)
       seg_tile[tid] = t0 + tid < kv_end ? seg_head[t0 + tid] : 0;
@@ -208,74 +237,90 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* l,
-           float* m, const int* q_seg, const int* kv_seg, int bh, int rows,
-           int s_kv, int kv_len, int q_offset, int q_seq_len, int causal,
-           float scale, int window, float softcap, cudaStream_t stream) {
+// The C interface's arguments, passed down the instantiation switches.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* k_scales;
+  const float* v_scales;
+  void* o;
+  float* l;
+  float* m;
+  const int* q_seg;
+  const int* kv_seg;
+  int bh, rows, s_kv, kv_len, q_offset, q_seq_len, causal;
+  float scale;
+  int window;
+  float softcap;
+  cudaStream_t stream;
+};
+
+template <typename T, typename P, int D>
+int launch(const Args& a) {
   constexpr size_t bytes = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<T, P, D>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((rows + block_q<D>() - 1) / block_q<D>(), bh);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), l, m, q_seg, kv_seg, rows,
-      s_kv, kv_len, q_offset, q_seq_len, causal, scale, window, softcap);
+  const dim3 grid((a.rows + block_q<D>() - 1) / block_q<D>(), a.bh);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const P*>(a.k), static_cast<const P*>(a.v),
+      a.k_scales, a.v_scales, static_cast<T*>(a.o), a.l, a.m, a.q_seg, a.kv_seg, a.rows,
+      a.s_kv, a.kv_len, a.q_offset, a.q_seq_len, a.causal, a.scale, a.window, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             float* l, float* m, const int* q_seg, const int* kv_seg, int bh,
-             int rows, int s_kv, int kv_len, int q_offset, int q_seq_len,
-             int causal, float scale, int window, float softcap,
-             cudaStream_t stream) {
-#define FA_CASE(D)                                                            \
-  case D:                                                                     \
-    return launch<T, D>(q, k, v, o, l, m, q_seg, kv_seg, bh, rows, s_kv,     \
-                        kv_len, q_offset, q_seq_len, causal, scale, window,  \
-                        softcap, stream);
+template <typename T, typename P>
+int launch_d(int d, const Args& a) {
   switch (d) {
-    FA_CASE(16)
-    FA_CASE(32)
-    FA_CASE(64)
-    FA_CASE(128)
-    FA_CASE(256)
-    default:
-      return -1;
+    case 16: return launch<T, P, 16>(a);
+    case 32: return launch<T, P, 32>(a);
+    case 64: return launch<T, P, 64>(a);
+    case 128: return launch<T, P, 128>(a);
+    case 256: return launch<T, P, 256>(a);
+    default: return -1;
   }
-#undef FA_CASE
 }
+
+#ifdef FA_QUANT
+template <typename T>
+int launch_kv(int kv_dtype, int d, const Args& a) {
+  if (kv_dtype == fa::kInt8) return launch_d<T, int8_t>(d, a);
+  if (kv_dtype == fa::kFp8E4M3) return launch_d<T, __nv_fp8_e4m3>(d, a);
+  return -1;
+}
+#else
+template <typename T>
+int launch_kv(int kv_dtype, int d, const Args& a) {
+  if (kv_dtype != (std::is_same<T, float>::value ? fa::kFloat32 : fa::kBFloat16)) return -1;
+  return launch_d<T, T>(d, a);
+}
+#endif
 
 }  // namespace
 
 // q: (bh, rows, d); k, v: (bh, s_kv, d); o like q; l, m: (bh, rows) float32
 // or both null; q_seg: (bh, rows) and kv_seg: (bh, s_kv) int32, both or
-// neither null.  All contiguous, on the device, q/k/v/o of one dtype code.
-// window <= 0: no sliding window (else it requires causal); softcap <= 0: no
-// logit softcap.
-extern "C" int fa_flash_fwd(int dtype, const void* q, const void* k,
-                            const void* v, void* o, void* l, void* m,
-                            const void* q_seg, const void* kv_seg, int bh,
-                            int rows, int s_kv, int d, int kv_len, int q_offset,
-                            int q_seq_len, int causal, float scale, int window,
-                            float softcap, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  auto lf = static_cast<float*>(l);
-  auto mf = static_cast<float*>(m);
-  auto qs = static_cast<const int*>(q_seg);
-  auto ks = static_cast<const int*>(kv_seg);
-  if (dtype == fa::kFloat32)
-    return launch_d<float>(d, q, k, v, o, lf, mf, qs, ks, bh, rows, s_kv, kv_len,
-                           q_offset, q_seq_len, causal, scale, window, softcap,
-                           st);
-  if (dtype == fa::kBFloat16)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, lf, mf, qs, ks, bh, rows, s_kv,
-                                   kv_len, q_offset, q_seq_len, causal, scale,
-                                   window, softcap, st);
+// neither null.  All contiguous, on the device; q and o of dtype code
+// `dtype`, k and v of `kv_dtype`: the same code (k_scales, v_scales null),
+// or with FA_QUANT int8 / fp8 with float32 scales (bh, s_kv).  window <= 0:
+// no sliding window (else it requires causal); softcap <= 0: no logit
+// softcap.
+extern "C" int fa_flash_fwd(int dtype, int kv_dtype, const void* q, const void* k,
+                            const void* v, const void* k_scales, const void* v_scales,
+                            void* o, void* l, void* m, const void* q_seg,
+                            const void* kv_seg, int bh, int rows, int s_kv, int d,
+                            int kv_len, int q_offset, int q_seq_len, int causal,
+                            float scale, int window, float softcap, void* stream) {
+  const Args a{q, k, v, static_cast<const float*>(k_scales),
+               static_cast<const float*>(v_scales), o, static_cast<float*>(l),
+               static_cast<float*>(m), static_cast<const int*>(q_seg),
+               static_cast<const int*>(kv_seg), bh, rows, s_kv, kv_len, q_offset,
+               q_seq_len, causal, scale, window, softcap, static_cast<cudaStream_t>(stream)};
+  if (dtype == fa::kFloat32) return launch_kv<float>(kv_dtype, d, a);
+  if (dtype == fa::kBFloat16) return launch_kv<__nv_bfloat16>(kv_dtype, d, a);
   return -1;
 }

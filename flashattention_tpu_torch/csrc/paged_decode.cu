@@ -32,7 +32,20 @@
 // G = 2, d = 256; the launch raises the dynamic limit where it passes 48 KB).
 // Window and softcap are a compile-time choice (kWindowCap): a model with
 // neither runs the scoring loop without their selects.
+//
+// 8-bit pages (int8 or fp8 e4m3 payloads P, with a float32 dequant scale per
+// K/V row in pools (P, KVH, page_size)): the Pallas kernel multiplies each
+// score column by its K scale and folds the V scale into p
+// (decode.py:158-159, 199-202); here each K/V row is dequantized as it is
+// loaded (payload x its row's scale, in float32), the same product with one
+// rounding fewer.  A lane loads its E payload bytes of a row with 32-bit
+// loads.  The bytes read halve against bfloat16 (d + 4 bytes per row and
+// head), so the bound halves too.  These forms are built into their own
+// library (FA_QUANT, see ops/kernels.py) for the (head_dim, G) pairs of the
+// models served with 8-bit pages.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -40,13 +53,35 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kUnroll = 4;  // K/V rows each warp has in flight
 
-template <typename T, int D, int G, bool kWindowCap>
+// E neighbouring elements of a K/V row as float32; an 8-bit row is scaled by
+// its dequant scale `sc`.
+template <int E, bool kQuant, typename P>
+__device__ __forceinline__ void load_row(const P* p, float sc, float (&out)[E]) {
+  if constexpr (kQuant && E % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < E; e += 4) {
+      const float4 x = fa::scale4(fa::load4(p + e), sc);
+      out[e] = x.x;
+      out[e + 1] = x.y;
+      out[e + 2] = x.z;
+      out[e + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) out[e] = kQuant ? fa::load_f32(p + e) * sc : fa::load_f32(p + e);
+  }
+}
+
+// T: q and o; P: the K/V payload (T itself, or int8 / fp8 with scales).
+template <typename T, typename P, int D, int G, bool kWindowCap>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages, const int* __restrict__ lengths,
+paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
+                    const P* __restrict__ v_pages, const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales, const int* __restrict__ lengths,
                     const int* __restrict__ page_indices, T* __restrict__ o,
                     int page_size, int pages_per_seq, float scale, int window,
                     float softcap) {
+  constexpr bool kQuant = !std::is_same<T, P>::value;
   constexpr int E = D / 32;
   static_assert(E >= 1 && D % 32 == 0, "head_dim must be a multiple of 32");
   // scores[G][page_size] during the page loop; reused for the final sum of
@@ -88,8 +123,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   for (int i = first_page; i < n_pages; ++i) {
     const size_t page = page_indices[static_cast<size_t>(b) * pages_per_seq + i];
     const int valid = min(page_size, length - i * page_size);
-    const T* kp = k_pages + page * page_stride + static_cast<size_t>(h) * page_size * D;
-    const T* vp = v_pages + page * page_stride + static_cast<size_t>(h) * page_size * D;
+    const P* kp = k_pages + page * page_stride + static_cast<size_t>(h) * page_size * D;
+    const P* vp = v_pages + page * page_stride + static_cast<size_t>(h) * page_size * D;
+    // This page's row scales (8-bit payloads): (page, h, 0..page_size).
+    const size_t scale_row = (page * kvh + h) * page_size;
+    const float* ks = kQuant ? k_scales + scale_row : nullptr;
+    const float* vs = kQuant ? v_scales + scale_row : nullptr;
     __syncthreads();  // m_run/l_run initialised; last page's scores consumed
 
     // 1. Scores of this page's live tokens; warp w takes groups of kUnroll.
@@ -98,9 +137,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int j = j0 + u;
+        if (j < valid) {
+          load_row<E, kQuant>(kp + static_cast<size_t>(j) * D + lane * E, kQuant ? ks[j] : 1.f, kr[u]);
+        } else {
 #pragma unroll
-        for (int e = 0; e < E; ++e)
-          kr[u][e] = j < valid ? fa::load_f32(kp + static_cast<size_t>(j) * D + lane * E + e) : 0.f;
+          for (int e = 0; e < E; ++e) kr[u][e] = 0.f;
+        }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -153,9 +195,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int j = j0 + u;
+        if (j < valid) {
+          load_row<E, kQuant>(vp + static_cast<size_t>(j) * D + lane * E, kQuant ? vs[j] : 1.f, vr[u]);
+        } else {
 #pragma unroll
-        for (int e = 0; e < E; ++e)
-          vr[u][e] = j < valid ? fa::load_f32(vp + static_cast<size_t>(j) * D + lane * E + e) : 0.f;
+          for (int e = 0; e < E; ++e) vr[u][e] = 0.f;
+        }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -189,97 +234,110 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T, int D, int G, bool kWindowCap>
-int launch(const void* q, const void* k_pages, const void* v_pages,
-           const int* lengths, const int* page_indices, void* o, int b, int kvh,
-           int page_size, int pages_per_seq, float scale, int window,
-           float softcap, cudaStream_t stream) {
-  const size_t floats = max(static_cast<size_t>(G) * page_size,
+// The C interface's arguments, passed down the instantiation switches.
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const float* k_scales;
+  const float* v_scales;
+  const int* lengths;
+  const int* page_indices;
+  void* o;
+  int b, kvh, page_size, pages_per_seq;
+  float scale;
+  int window;
+  float softcap;
+  cudaStream_t stream;
+};
+
+template <typename T, typename P, int D, int G, bool kWindowCap>
+int launch(const Args& a) {
+  const size_t floats = max(static_cast<size_t>(G) * a.page_size,
                             static_cast<size_t>(kWarps) * G * D);
   const size_t bytes = floats * sizeof(float);
-  auto kernel = paged_decode_kernel<T, D, G, kWindowCap>;
+  auto kernel = paged_decode_kernel<T, P, D, G, kWindowCap>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(kvh, b), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), lengths, page_indices, static_cast<T*>(o),
-      page_size, pages_per_seq, scale, window, softcap);
+  kernel<<<dim3(a.kvh, a.b), kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const P*>(a.k_pages),
+      static_cast<const P*>(a.v_pages), a.k_scales, a.v_scales, a.lengths,
+      a.page_indices, static_cast<T*>(a.o), a.page_size, a.pages_per_seq, a.scale,
+      a.window, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_g(int g, const void* q, const void* k_pages, const void* v_pages,
-             const int* lengths, const int* page_indices, void* o, int b,
-             int kvh, int page_size, int pages_per_seq, float scale, int window,
-             float softcap, cudaStream_t stream) {
-  const bool window_cap = window > 0 || softcap > 0.f;
-#define FA_CASE(G)                                                            \
-  case G:                                                                     \
-    return window_cap                                                         \
-               ? launch<T, D, G, true>(q, k_pages, v_pages, lengths,          \
-                                       page_indices, o, b, kvh, page_size,    \
-                                       pages_per_seq, scale, window, softcap, \
-                                       stream)                                \
-               : launch<T, D, G, false>(q, k_pages, v_pages, lengths,         \
-                                        page_indices, o, b, kvh, page_size,   \
-                                        pages_per_seq, scale, window,         \
-                                        softcap, stream);
-  switch (g) {
-    FA_CASE(1)
-    FA_CASE(2)
-    FA_CASE(4)
-    FA_CASE(8)
-    default:
-      return -1;
-  }
-#undef FA_CASE
+template <typename T, typename P, int D, int G>
+int launch_w(const Args& a) {
+  return a.window > 0 || a.softcap > 0.f ? launch<T, P, D, G, true>(a)
+                                         : launch<T, P, D, G, false>(a);
+}
+
+#ifdef FA_QUANT
+// 8-bit pages: the (head_dim, G) pairs of the models served with them
+// (Llama-7B 128/1, Mistral- and Mixtral-class 128/4, Gemma-2-9B 256/2).
+template <typename T, typename P>
+int launch_d(int d, int g, const Args& a) {
+  if (d == 128 && g == 1) return launch_w<T, P, 128, 1>(a);
+  if (d == 128 && g == 4) return launch_w<T, P, 128, 4>(a);
+  if (d == 256 && g == 2) return launch_w<T, P, 256, 2>(a);
+  return -1;
 }
 
 template <typename T>
-int launch_d(int d, int g, const void* q, const void* k_pages,
-             const void* v_pages, const int* lengths, const int* page_indices,
-             void* o, int b, int kvh, int page_size, int pages_per_seq,
-             float scale, int window, float softcap, cudaStream_t stream) {
-#define FA_CASE(D)                                                          \
-  case D:                                                                   \
-    return launch_g<T, D>(g, q, k_pages, v_pages, lengths, page_indices, o, \
-                          b, kvh, page_size, pages_per_seq, scale, window,  \
-                          softcap, stream);
-  switch (d) {
-    FA_CASE(32)
-    FA_CASE(64)
-    FA_CASE(128)
-    FA_CASE(256)
-    default:
-      return -1;
-  }
-#undef FA_CASE
+int launch_kv(int kv_dtype, int d, int g, const Args& a) {
+  if (kv_dtype == fa::kInt8) return launch_d<T, int8_t>(d, g, a);
+  if (kv_dtype == fa::kFp8E4M3) return launch_d<T, __nv_fp8_e4m3>(d, g, a);
+  return -1;
 }
+#else
+template <typename T, int D>
+int launch_g(int g, const Args& a) {
+  switch (g) {
+    case 1: return launch_w<T, T, D, 1>(a);
+    case 2: return launch_w<T, T, D, 2>(a);
+    case 4: return launch_w<T, T, D, 4>(a);
+    case 8: return launch_w<T, T, D, 8>(a);
+    default: return -1;
+  }
+}
+
+template <typename T>
+int launch_kv(int kv_dtype, int d, int g, const Args& a) {
+  if (kv_dtype != (std::is_same<T, float>::value ? fa::kFloat32 : fa::kBFloat16)) return -1;
+  switch (d) {
+    case 32: return launch_g<T, 32>(g, a);
+    case 64: return launch_g<T, 64>(g, a);
+    case 128: return launch_g<T, 128>(g, a);
+    case 256: return launch_g<T, 256>(g, a);
+    default: return -1;
+  }
+}
+#endif
 
 }  // namespace
 
 // q: (b, kvh, g, d); k_pages, v_pages: (P, kvh, page_size, d); lengths: (b,)
 // int32; page_indices: (b, pages_per_seq) int32; o like q.  All contiguous,
-// on the device; q, pages and o of one dtype code.  window <= 0: no sliding
-// window; softcap <= 0: no logit softcap.
-extern "C" int fa_paged_decode(int dtype, const void* q, const void* k_pages,
-                               const void* v_pages, const void* lengths,
-                               const void* page_indices, void* o, int b,
-                               int kvh, int g, int d, int page_size,
-                               int pages_per_seq, float scale, int window,
-                               float softcap, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  auto len = static_cast<const int*>(lengths);
-  auto tab = static_cast<const int*>(page_indices);
-  if (dtype == fa::kFloat32)
-    return launch_d<float>(d, g, q, k_pages, v_pages, len, tab, o, b, kvh,
-                           page_size, pages_per_seq, scale, window, softcap, st);
-  if (dtype == fa::kBFloat16)
-    return launch_d<__nv_bfloat16>(d, g, q, k_pages, v_pages, len, tab, o, b,
-                                   kvh, page_size, pages_per_seq, scale, window,
-                                   softcap, st);
+// on the device; q and o of dtype code `dtype`, the pages of `kv_dtype`:
+// the same code (k_scales, v_scales null), or with FA_QUANT int8 / fp8 with
+// float32 scales (P, kvh, page_size).  window <= 0: no sliding window;
+// softcap <= 0: no logit softcap.
+extern "C" int fa_paged_decode(int dtype, int kv_dtype, const void* q,
+                               const void* k_pages, const void* v_pages,
+                               const void* k_scales, const void* v_scales,
+                               const void* lengths, const void* page_indices,
+                               void* o, int b, int kvh, int g, int d,
+                               int page_size, int pages_per_seq, float scale,
+                               int window, float softcap, void* stream) {
+  const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
+               static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
+               static_cast<const int*>(page_indices), o, b, kvh, page_size,
+               pages_per_seq, scale, window, softcap, static_cast<cudaStream_t>(stream)};
+  if (dtype == fa::kFloat32) return launch_kv<float>(kv_dtype, d, g, a);
+  if (dtype == fa::kBFloat16) return launch_kv<__nv_bfloat16>(kv_dtype, d, g, a);
   return -1;
 }

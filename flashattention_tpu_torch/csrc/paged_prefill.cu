@@ -47,7 +47,18 @@
 // Masked columns are left out of the softmax exactly (p = 0), so a row that
 // sees no column (ctx_len == 0, the engine's dummy batch rows) writes zeros;
 // the Pallas kernel leaves such a row unwritten.  p stays in float32 for PV.
+//
+// 8-bit pages (int8 or fp8 e4m3 payloads P with a float32 dequant scale per
+// K/V row, pools (P, KVH, page_size)): the Pallas kernel folds the K scale
+// into the score columns and the V scale into p (decode.py:452-453, 480);
+// here each row is dequantized as its tile is staged (payload x its row's
+// scale, into the float32 shared-memory tiles), one rounding fewer.  A
+// column's scale sits at its pool offset / d, read once per tile with the
+// offset.  These forms are built into their own library (FA_QUANT, see
+// ops/kernels.py).
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -62,28 +73,34 @@ __host__ __device__ constexpr int block_q() { return kThreads / threads_per_row<
 
 template <int D>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return 2 * sizeof(float4) * kTile * (D / 4) + sizeof(long long) * kTile;
+  return 2 * sizeof(float4) * kTile * (D / 4) + (sizeof(long long) + 2 * sizeof(float)) * kTile;
 }
 
-template <typename T, int D>
+// T: q and o; P: the K/V payload (T itself, or int8 / fp8 with scales).
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(kThreads, 2)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                     const T* __restrict__ v_pages,
+paged_prefill_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
+                     const P* __restrict__ v_pages, const float* __restrict__ k_scales,
+                     const float* __restrict__ v_scales,
                      const int* __restrict__ page_indices,
                      const int* __restrict__ ctx_lens, T* __restrict__ o,
                      int rows, int num_pages, int page_size, int pages_per_seq,
                      int chunk, int seg, float scale, int window, float softcap) {
+  constexpr bool kQuant = !std::is_same<T, P>::value;
   constexpr int kThreadsPerRow = threads_per_row<D>();
   constexpr int kBlockQ = block_q<D>();
   constexpr int kVec = D / 4;                     // float4 chunks per row
   constexpr int kChunks = kVec / kThreadsPerRow;  // chunks per thread
   static_assert(kChunks >= 1 && kVec % kThreadsPerRow == 0,
                 "head_dim must be a multiple of 4 * kThreadsPerRow");
-  // [kTile][kVec] K, then V, then the pool offset of each column (-1: masked).
+  // [kTile][kVec] K, then V, then the pool offset of each column (-1: masked)
+  // and, for 8-bit payloads, its K and V scales.
   extern __shared__ float4 smem[];
   float4* k_tile = smem;
   float4* v_tile = smem + kTile * kVec;
   long long* col_off = reinterpret_cast<long long*>(smem + 2 * kTile * kVec);
+  float* col_ks = reinterpret_cast<float*>(col_off + kTile);
+  float* col_vs = col_ks + kTile;
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -139,6 +156,10 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                  col % page_size) * D;
       }
       col_off[tid] = off;
+      if constexpr (kQuant) {  // the row's scale sits at its offset / D
+        col_ks[tid] = off >= 0 ? k_scales[off / D] : 0.f;
+        col_vs[tid] = off >= 0 ? v_scales[off / D] : 0.f;
+      }
     }
     __syncthreads();
     for (int idx = tid; idx < kTile * kVec; idx += kThreads) {
@@ -149,6 +170,10 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       if (off >= 0) {
         kx = fa::load4(k_pages + off + 4 * c);
         vx = fa::load4(v_pages + off + 4 * c);
+        if constexpr (kQuant) {
+          kx = fa::scale4(kx, col_ks[j]);
+          vx = fa::scale4(vx, col_vs[j]);
+        }
       }
       k_tile[idx] = kx;  // idx = j * kVec + c
       v_tile[idx] = vx;
@@ -208,73 +233,89 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k_pages, const void* v_pages,
-           const int* page_indices, const int* ctx_lens, void* o, int b,
-           int kvh, int rows, int num_pages, int page_size, int pages_per_seq,
-           int chunk, int seg, float scale, int window, float softcap,
-           cudaStream_t stream) {
+// The C interface's arguments, passed down the instantiation switches.
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const float* k_scales;
+  const float* v_scales;
+  const int* page_indices;
+  const int* ctx_lens;
+  void* o;
+  int b, kvh, rows, num_pages, page_size, pages_per_seq, chunk, seg;
+  float scale;
+  int window;
+  float softcap;
+  cudaStream_t stream;
+};
+
+template <typename T, typename P, int D>
+int launch(const Args& a) {
   constexpr size_t bytes = smem_bytes<D>();
-  auto kernel = paged_prefill_kernel<T, D>;
+  auto kernel = paged_prefill_kernel<T, P, D>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((rows + block_q<D>() - 1) / block_q<D>(), kvh, b);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), page_indices, ctx_lens,
-      static_cast<T*>(o), rows, num_pages, page_size, pages_per_seq, chunk, seg,
-      scale, window, softcap);
+  const dim3 grid((a.rows + block_q<D>() - 1) / block_q<D>(), a.kvh, a.b);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const P*>(a.k_pages),
+      static_cast<const P*>(a.v_pages), a.k_scales, a.v_scales, a.page_indices,
+      a.ctx_lens, static_cast<T*>(a.o), a.rows, a.num_pages, a.page_size,
+      a.pages_per_seq, a.chunk, a.seg, a.scale, a.window, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k_pages, const void* v_pages,
-             const int* page_indices, const int* ctx_lens, void* o, int b,
-             int kvh, int rows, int num_pages, int page_size,
-             int pages_per_seq, int chunk, int seg, float scale, int window,
-             float softcap, cudaStream_t stream) {
-#define FA_CASE(D)                                                            \
-  case D:                                                                     \
-    return launch<T, D>(q, k_pages, v_pages, page_indices, ctx_lens, o, b,    \
-                        kvh, rows, num_pages, page_size, pages_per_seq, chunk, \
-                        seg, scale, window, softcap, stream);
+template <typename T, typename P>
+int launch_d(int d, const Args& a) {
   switch (d) {
-    FA_CASE(32)
-    FA_CASE(64)
-    FA_CASE(128)
-    FA_CASE(256)
-    default:
-      return -1;
+    case 32: return launch<T, P, 32>(a);
+    case 64: return launch<T, P, 64>(a);
+    case 128: return launch<T, P, 128>(a);
+    case 256: return launch<T, P, 256>(a);
+    default: return -1;
   }
-#undef FA_CASE
 }
+
+#ifdef FA_QUANT
+template <typename T>
+int launch_kv(int kv_dtype, int d, const Args& a) {
+  if (kv_dtype == fa::kInt8) return launch_d<T, int8_t>(d, a);
+  if (kv_dtype == fa::kFp8E4M3) return launch_d<T, __nv_fp8_e4m3>(d, a);
+  return -1;
+}
+#else
+template <typename T>
+int launch_kv(int kv_dtype, int d, const Args& a) {
+  if (kv_dtype != (std::is_same<T, float>::value ? fa::kFloat32 : fa::kBFloat16)) return -1;
+  return launch_d<T, T>(d, a);
+}
+#endif
 
 }  // namespace
 
 // q: (b, kvh, rows, d); k_pages, v_pages: (num_pages, kvh, page_size, d);
 // page_indices: (b, pages_per_seq) int32; ctx_lens: (b,) int32; o like q.
-// All contiguous, on the device; q, pages and o of one dtype code.  window <= 0:
-// no sliding window; softcap <= 0: no logit softcap.
-extern "C" int fa_paged_prefill(int dtype, const void* q, const void* k_pages,
-                                const void* v_pages, const void* page_indices,
-                                const void* ctx_lens, void* o, int b, int kvh,
-                                int rows, int d, int num_pages, int page_size,
-                                int pages_per_seq, int chunk, int seg,
-                                float scale, int window, float softcap,
-                                void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  auto tab = static_cast<const int*>(page_indices);
-  auto ctx = static_cast<const int*>(ctx_lens);
-  if (dtype == fa::kFloat32)
-    return launch_d<float>(d, q, k_pages, v_pages, tab, ctx, o, b, kvh, rows,
-                           num_pages, page_size, pages_per_seq, chunk, seg,
-                           scale, window, softcap, st);
-  if (dtype == fa::kBFloat16)
-    return launch_d<__nv_bfloat16>(d, q, k_pages, v_pages, tab, ctx, o, b, kvh,
-                                   rows, num_pages, page_size, pages_per_seq,
-                                   chunk, seg, scale, window, softcap, st);
+// All contiguous, on the device; q and o of dtype code `dtype`, the pages of
+// `kv_dtype`: the same code (k_scales, v_scales null), or with FA_QUANT int8
+// / fp8 with float32 scales (num_pages, kvh, page_size).  window <= 0: no
+// sliding window; softcap <= 0: no logit softcap.
+extern "C" int fa_paged_prefill(int dtype, int kv_dtype, const void* q,
+                                const void* k_pages, const void* v_pages,
+                                const void* k_scales, const void* v_scales,
+                                const void* page_indices, const void* ctx_lens,
+                                void* o, int b, int kvh, int rows, int d,
+                                int num_pages, int page_size, int pages_per_seq,
+                                int chunk, int seg, float scale, int window,
+                                float softcap, void* stream) {
+  const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
+               static_cast<const float*>(v_scales), static_cast<const int*>(page_indices),
+               static_cast<const int*>(ctx_lens), o, b, kvh, rows, num_pages, page_size,
+               pages_per_seq, chunk, seg, scale, window, softcap,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == fa::kFloat32) return launch_kv<float>(kv_dtype, d, a);
+  if (dtype == fa::kBFloat16) return launch_kv<__nv_bfloat16>(kv_dtype, d, a);
   return -1;
 }

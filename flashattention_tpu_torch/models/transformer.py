@@ -20,6 +20,12 @@ Parameters are a plain dict with the JAX package's tree and names
 (``{"embed", "final_norm", "lm_head", "layers": [...]}``) and its ``x @ w``
 weight layout, so :func:`params_from_jax` is a copy, not a transpose.  Large
 matrix products stay ``torch.matmul``, as the JAX package left them to XLA.
+A leaf may be an 8-bit :class:`~flashattention_tpu_torch.ops.quant.QuantizedWeight`
+(``quantize_weights``): its payload is upcast to the activations' dtype for
+the product and its per-column scales applied to the output, as the JAX
+model does.  With an int8/fp8 KV cache the K/V rows are quantized per row
+and head as they are written, and the scale pools ride beside the payload
+pools into the paged kernels.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from flashattention_tpu_torch.ops.decode import paged_attention, paged_prefill_attention_batched
 from flashattention_tpu_torch.ops.dispatch import attention
+from flashattention_tpu_torch.ops.quant import QUANT_DTYPES, QuantizedWeight, byte_view, quantize_rows
 from flashattention_tpu_torch.utils.device import resolve_device
 from flashattention_tpu_torch.utils.testing import to_torch
 
@@ -169,16 +176,21 @@ def init_params(seed: int, cfg: ModelConfig, *, device=None) -> dict:
 def params_from_jax(tree, *, device=None) -> dict:
     """The JAX package's parameter tree, given as numpy arrays, as the
     port's parameters on ``device``: same names, same ``x @ w`` layout, same
-    dtypes (bfloat16 included)."""
+    dtypes (bfloat16 and fp8 included).  A quantized leaf (any object with
+    ``payload``, ``scales`` and ``ldtype``, as the JAX package's
+    ``QuantizedWeight`` has) becomes a :class:`QuantizedWeight`."""
     dev = resolve_device(device)
+
+    def leaf(w):
+        if hasattr(w, "payload") and hasattr(w, "scales"):
+            return QuantizedWeight(to_torch(w.payload, dev), to_torch(w.scales, dev), str(w.ldtype))
+        return to_torch(w, dev)
+
     return {
-        "embed": to_torch(tree["embed"], dev),
-        "final_norm": to_torch(tree["final_norm"], dev),
-        "lm_head": to_torch(tree["lm_head"], dev),
-        "layers": [
-            {name: to_torch(w, dev) for name, w in layer.items()}
-            for layer in tree["layers"]
-        ],
+        "embed": leaf(tree["embed"]),
+        "final_norm": leaf(tree["final_norm"]),
+        "lm_head": leaf(tree["lm_head"]),
+        "layers": [{name: leaf(w) for name, w in layer.items()} for layer in tree["layers"]],
     }
 
 
@@ -202,11 +214,20 @@ def _rope(x, positions, theta):
 
 
 def _mm(x, w):
-    """x @ w (the JAX package's quantized-weight leaves come with a later slice)."""
+    """x @ w; for a :class:`QuantizedWeight`, ``(x @ payload) * scales`` with
+    the payload and scales cast to x's dtype, as the JAX model computes it
+    (``x @ (p * s) == (x @ p) * s`` for per-column scales)."""
+    if isinstance(w, QuantizedWeight):
+        return (x @ w.payload.to(x.dtype)) * w.scales.to(x.dtype)
     return x @ w
 
 
 def _lookup(emb, tokens):
+    """Embedding rows; a quantized table's rows are scaled per column in
+    float32 and cast to its logical dtype."""
+    if isinstance(emb, QuantizedWeight):
+        rows = byte_view(emb.payload)[tokens.long()].view(emb.payload.dtype)
+        return (rows.float() * emb.scales).to(emb.dtype)
     return emb[tokens.long()]
 
 
@@ -270,18 +291,39 @@ def _kept_rows(write_pages, write_slots, num_pages, device):
     return rows.to(device), wp[rows].long().to(device), ws[rows].long().to(device)
 
 
+_QUANT_NAMES = {qdtype: name for name, (qdtype, _) in QUANT_DTYPES.items()}
+
+
+def _write_rows(pages, scales, li, wp, ws, rows):
+    """Scatter ``(n, KVH, d)`` rows into layer ``li``'s pool at pages ``wp``,
+    slots ``ws``, in place; into an 8-bit pool quantized per row and head
+    (the JAX model's ``_quantize_row``), with the scales into ``scales``."""
+    if scales is not None:
+        rows, sc = quantize_rows(rows, _QUANT_NAMES[pages.dtype])
+        scales[li][wp, :, ws] = sc
+    byte_view(pages[li])[wp, :, ws, :] = byte_view(rows.to(pages.dtype))
+
+
+def _layer_scales(k_scales, v_scales, li):
+    return {
+        "k_scales_pages": None if k_scales is None else k_scales[li],
+        "v_scales_pages": None if v_scales is None else v_scales[li],
+    }
+
+
 def decode_step_impl(
     params, tokens, positions, k_pages, v_pages, lengths, page_indices,
-    write_pages, write_slots, cfg: ModelConfig,
+    write_pages, write_slots, cfg: ModelConfig, k_scales=None, v_scales=None,
 ):
     """Decode-step body: see :func:`decode_step`.
 
     Each layer scatters this token's K/V row into its pool before its paged
     attention runs, so the token attends to itself (lengths include it).
     Where the JAX step donates the pools and returns new ones, this one
-    updates ``k_pages``/``v_pages`` in place.  Rows whose write page is out
-    of range (``>= P``, the inactive batch slots) are dropped before the
-    scatter: the JAX step's ``mode="drop"``, which torch indexing lacks.
+    updates ``k_pages``/``v_pages`` (and the scale pools) in place.  Rows
+    whose write page is out of range (``>= P``, the inactive batch slots) are
+    dropped before the scatter: the JAX step's ``mode="drop"``, which torch
+    indexing lacks.
     """
     b = tokens.shape[0]
     x = _lookup(params["embed"], tokens)[:, None, :]  # (B, 1, d_model)
@@ -291,13 +333,13 @@ def decode_step_impl(
         h = _rmsnorm(x, layer["attn_norm"])
         q, k, v = _qkv(h, layer, cfg, pos)  # (B, 1, H, d)
         # In-place scatter into layer li's pool; (n, KVH, d) rows.
-        k_pages[li][wp, :, ws, :] = k[rows, 0].to(k_pages.dtype)
-        v_pages[li][wp, :, ws, :] = v[rows, 0].to(v_pages.dtype)
+        _write_rows(k_pages, k_scales, li, wp, ws, k[rows, 0])
+        _write_rows(v_pages, v_scales, li, wp, ws, v[rows, 0])
         qg = q[:, 0].reshape(b, cfg.num_kv_heads, cfg.group_size, cfg.head_dim)
         o = paged_attention(
             qg, k_pages[li], v_pages[li], lengths, page_indices,
             scale=cfg.head_dim**-0.5, window=cfg.sliding_window,
-            logit_softcap=cfg.logit_softcap,
+            logit_softcap=cfg.logit_softcap, **_layer_scales(k_scales, v_scales, li),
         )  # (B, KVH, G, d)
         x = x + _mm(o.reshape(b, 1, cfg.num_q_heads * cfg.head_dim), layer["wo"])
         x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
@@ -317,6 +359,8 @@ def decode_step(
     write_pages: torch.Tensor,  # (B,) physical page receiving this token's K/V
     write_slots: torch.Tensor,  # (B,) slot within that page
     cfg: ModelConfig,
+    k_scales: torch.Tensor | None = None,  # (L, P, KVH, ps) for 8-bit pools, in place
+    v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One decode token for a whole continuous batch over the paged cache.
 
@@ -327,7 +371,7 @@ def decode_step(
     cfg.check_ported()
     return decode_step_impl(
         params, tokens, positions, k_pages, v_pages, lengths, page_indices,
-        write_pages, write_slots, cfg,
+        write_pages, write_slots, cfg, k_scales, v_scales,
     )
 
 
@@ -342,6 +386,8 @@ def prefill_chunk_batched(
     write_pages: torch.Tensor,  # (B, T) page receiving each token's K/V
     write_slots: torch.Tensor,  # (B, T) slot within that page
     cfg: ModelConfig,
+    k_scales: torch.Tensor | None = None,  # (L, P, KVH, ps) for 8-bit pools, in place
+    v_scales: torch.Tensor | None = None,
     ctx_lens: torch.Tensor | None = None,  # (B,) int32 live context incl. this chunk
 ) -> torch.Tensor:
     """One chunk step of chunked prefill for many requests.
@@ -377,14 +423,14 @@ def prefill_chunk_batched(
     for li, layer in enumerate(params["layers"]):
         h = _rmsnorm(x, layer["attn_norm"])
         q, k, v = _qkv(h, layer, cfg, positions)  # (B, T, H, d)
-        k_pages[li][wp, :, ws, :] = k.reshape(b * t, kvh, hd)[rows].to(k_pages.dtype)
-        v_pages[li][wp, :, ws, :] = v.reshape(b * t, kvh, hd)[rows].to(v_pages.dtype)
+        _write_rows(k_pages, k_scales, li, wp, ws, k.reshape(b * t, kvh, hd)[rows])
+        _write_rows(v_pages, v_scales, li, wp, ws, v.reshape(b * t, kvh, hd)[rows])
         # (B, T, H, d) -> (B, KVH, G * T, d): g-major segments of T rows.
         qf = q.transpose(1, 2).reshape(b, kvh, g * t, hd).contiguous()
         o = paged_prefill_attention_batched(
             qf, k_pages[li], v_pages[li], page_tables, ctx_lens,
             chunk=t, seg=t, scale=hd**-0.5, window=cfg.sliding_window,
-            logit_softcap=cfg.logit_softcap,
+            logit_softcap=cfg.logit_softcap, **_layer_scales(k_scales, v_scales, li),
         )  # (B, KVH, G * T, d)
         o = o.reshape(b, kvh * g, t, hd).transpose(1, 2).reshape(b, t, kvh * g * hd)
         x = x + _mm(o, layer["wo"])
@@ -406,6 +452,8 @@ def prefill_chunk(
     write_pages: torch.Tensor,  # (T,)
     write_slots: torch.Tensor,  # (T,)
     cfg: ModelConfig,
+    k_scales: torch.Tensor | None = None,  # (L, P, KVH, ps) for 8-bit pools, in place
+    v_scales: torch.Tensor | None = None,
     ctx_len=None,  # live context tokens incl. this chunk (None: the whole table)
 ) -> torch.Tensor:
     """One chunk of a chunked prefill for one request: :func:`prefill_chunk_batched`
@@ -418,5 +466,5 @@ def prefill_chunk(
         ctx = torch.tensor([int(ctx_len)], dtype=torch.int32, device=tokens.device)
     return prefill_chunk_batched(
         params, tokens[None], k_pages, v_pages, positions[None], page_indices[None],
-        write_pages[None], write_slots[None], cfg, ctx_lens=ctx,
+        write_pages[None], write_slots[None], cfg, k_scales, v_scales, ctx_lens=ctx,
     )[0]

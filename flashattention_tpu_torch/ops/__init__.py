@@ -1,5 +1,5 @@
 """Attention ops: oracles, the flash, naive, paged-decode and paged-prefill
-kernels, the backward kernels, dispatch, sampling."""
+kernels, the backward kernels, dispatch, 8-bit quantization, sampling."""
 
 from flashattention_tpu_torch.ops.backward import attention_vjp, flash_attention_bwd
 from flashattention_tpu_torch.ops.dispatch import attention, sdpa
@@ -8,6 +8,7 @@ from flashattention_tpu_torch.ops.flash import (
     flash_attention,
     flash_attention_naive,
 )
+from flashattention_tpu_torch.ops.quant import attention_quantized, quantize_kv, quantize_weights
 from flashattention_tpu_torch.ops.reference import (
     attention_reference,
     attention_reference_with_stats,

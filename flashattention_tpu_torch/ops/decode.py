@@ -19,7 +19,12 @@ attend their context straight off the pool.  On a CUDA tensor it launches
 
 Both take a sliding window (a query at position ``pos`` sees columns
 ``c > pos - window``) and a logit softcap (``s -> cap * tanh(s / cap)`` after
-the scale, before the masks), as the Pallas kernels do.
+the scale, before the masks), as the Pallas kernels do, and 8-bit pages:
+int8 or fp8 payload pools with float32 scale pools ``(P, KVH, page_size)``,
+one scale per K/V row (``k_scales_pages``/``v_scales_pages``).  Those launch
+the kernels' 8-bit forms (the same sources built with ``FA_QUANT``), which
+dequantize each row as they load it; their plain versions dequantize the
+gathered pages in float32 and attend as for float pages.
 """
 
 from __future__ import annotations
@@ -27,8 +32,9 @@ from __future__ import annotations
 import torch
 
 from flashattention_tpu_torch.ops import kernels
-from flashattention_tpu_torch.ops.flash import check_window, kernel_options
-from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE, softcap
+from flashattention_tpu_torch.ops.flash import KV_DTYPES, check_kv, check_window, kernel_options
+from flashattention_tpu_torch.ops.quant import byte_view
+from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE, dequantize_rows, softcap
 
 __all__ = [
     "paged_attention",
@@ -43,25 +49,40 @@ __all__ = [
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
 _GROUPS = (1, 2, 4, 8)
+# (head_dim, G) of paged decode's 8-bit forms: the models served with 8-bit
+# pages (Llama-7B, Mistral-/Mixtral-class, Gemma-2-9B-class).
+QUANT_DECODE_SHAPES = ((128, 1), (128, 4), (256, 2))
+
+
+def _gather(pages, scales, page_indices):
+    """(B, KVH, S_max, d) float32 rows of every page of each table row,
+    dequantized when ``scales`` (the 8-bit pages' scale pool) is given."""
+    _, kvh, ps, d = pages.shape
+    b, pps = page_indices.shape
+    idx = page_indices.long()
+    rows = byte_view(pages)[idx].view(pages.dtype)
+    if scales is not None:
+        rows = dequantize_rows(rows, scales[idx])
+    # (B, pps, KVH, ps, d) -> (B, KVH, S_max, d)
+    return rows.float().transpose(1, 2).reshape(b, kvh, pps * ps, d)
 
 
 def paged_attention_reference(
-    q, k_pages, v_pages, lengths, page_indices, *, scale=1.0, window=None, logit_softcap=None
+    q, k_pages, v_pages, lengths, page_indices, *, scale=1.0, window=None, logit_softcap=None,
+    k_scales_pages=None, v_scales_pages=None,
 ):
-    """Dense oracle: gather every page of the table, mask by length (and by
-    the window of the query at position ``length - 1``), attend.
+    """Dense oracle: gather every page of the table (dequantized in float32
+    for 8-bit pages), mask by length (and by the window of the query at
+    position ``length - 1``), attend.
 
     A row of length 0 has every column masked, so like the JAX oracle it
     returns the mean of the gathered V rows (not zeros; see
     :func:`paged_attention`)."""
-    b, kvh, g, d = q.shape
     page_size = k_pages.shape[2]
     s_max = page_indices.shape[1] * page_size
-    idx = page_indices.long()
-    # (B, pps, KVH, ps, d) -> (B, KVH, S_max, d)
-    k = k_pages[idx].transpose(1, 2).reshape(b, kvh, s_max, d)
-    v = v_pages[idx].transpose(1, 2).reshape(b, kvh, s_max, d)
-    s = softcap(torch.einsum("bhgd,bhkd->bhgk", q.float(), k.float()) * scale, logit_softcap)
+    k = _gather(k_pages, k_scales_pages, page_indices)
+    v = _gather(v_pages, v_scales_pages, page_indices)
+    s = softcap(torch.einsum("bhgd,bhkd->bhgk", q.float(), k) * scale, logit_softcap)
     cols = torch.arange(s_max, device=q.device)[None, :]
     lens = lengths.to(q.device).long()[:, None]
     mask = cols < lens
@@ -70,18 +91,20 @@ def paged_attention_reference(
     s = torch.where(mask[:, None, None, :], s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    o = torch.einsum("bhgk,bhkd->bhgd", p, v.float()) / p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v) / p.sum(dim=-1, keepdim=True)
     return o.to(q.dtype)
 
 
 def paged_attention_plain(
-    q, k_pages, v_pages, lengths, page_indices, *, scale=1.0, window=None, logit_softcap=None
+    q, k_pages, v_pages, lengths, page_indices, *, scale=1.0, window=None, logit_softcap=None,
+    k_scales_pages=None, v_scales_pages=None,
 ):
     """The kernel's function in plain PyTorch: the oracle, with zeros for
     rows of length 0 as the kernel writes them."""
     o = paged_attention_reference(
         q, k_pages, v_pages, lengths, page_indices, scale=scale, window=window,
-        logit_softcap=logit_softcap,
+        logit_softcap=logit_softcap, k_scales_pages=k_scales_pages,
+        v_scales_pages=v_scales_pages,
     )
     return torch.where((lengths > 0)[:, None, None, None].to(o.device), o, torch.zeros_like(o))
 
@@ -104,7 +127,12 @@ def paged_attention(
 
     Args:
       q: ``(B, KVH, G, d)`` current-token queries, grouped by KV head.
-      k_pages, v_pages: ``(P, KVH, page_size, d)`` head-major page pools.
+      k_pages, v_pages: ``(P, KVH, page_size, d)`` head-major page pools, of
+        q's dtype or (with the scale pools) int8 / fp8 payloads.
+      k_scales_pages, v_scales_pages: float32 ``(P, KVH, page_size)``, given
+        together for 8-bit pools: row j of a page is its payload times its
+        scale.  The kernel's 8-bit form takes (head_dim, G) in
+        :data:`QUANT_DECODE_SHAPES`.
       lengths: ``(B,)`` int32, tokens valid per request (q attends to
         ``[0, len)``).  A row of length 0 gets zeros; the JAX kernel leaves
         it unwritten (``decode.py:258``).
@@ -122,7 +150,6 @@ def paged_attention(
             "draft_k > 1 (speculative verification) is not ported yet: it "
             "comes with the speculative-decoding slice"
         )
-    _check_scales(k_scales_pages, v_scales_pages)
     check_window(window, logit_softcap, causal=True)
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"expected q (B,KVH,G,d), pages (P,KVH,ps,d): {q.shape} {k_pages.shape}")
@@ -137,17 +164,18 @@ def paged_attention(
             f"lengths {tuple(lengths.shape)} / page_indices {tuple(page_indices.shape)} "
             f"do not match batch {b}"
         )
-    if not (q.dtype == k_pages.dtype == v_pages.dtype):
-        raise ValueError(f"q/pages dtypes differ: {q.dtype} {k_pages.dtype} {v_pages.dtype}")
+    quantized = _check_pages(q, k_pages, v_pages, k_scales_pages, v_scales_pages)
+    scales = (k_scales_pages, v_scales_pages) if quantized else ()
 
-    if not all(t.is_contiguous() for t in (q, k_pages, v_pages, lengths, page_indices)):
+    if not all(t.is_contiguous() for t in (q, k_pages, v_pages, lengths, page_indices, *scales)):
         raise ValueError("paged_attention takes contiguous tensors")
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, lengths, page_indices, scale=scale, window=window,
-            logit_softcap=logit_softcap,
+            logit_softcap=logit_softcap, k_scales_pages=k_scales_pages,
+            v_scales_pages=v_scales_pages,
         )
-    devs = {t.device for t in (q, k_pages, v_pages, lengths, page_indices)}
+    devs = {t.device for t in (q, k_pages, v_pages, lengths, page_indices, *scales)}
     if q.device.type != "cuda" or len(devs) != 1:
         raise ValueError(f"paged_attention: tensors on {sorted(map(str, devs))}")
     if q.dtype not in _DTYPES:
@@ -157,24 +185,35 @@ def paged_attention(
             f"paged_attention kernel takes head_dim in {_HEAD_DIMS} and G in "
             f"{_GROUPS}, got d={d}, G={g}"
         )
+    if quantized and (d, g) not in QUANT_DECODE_SHAPES:
+        raise ValueError(
+            f"paged_attention's 8-bit kernel takes (head_dim, G) in {QUANT_DECODE_SHAPES}, "
+            f"got ({d}, {g})"
+        )
     if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
         raise ValueError("paged_attention kernel takes int32 lengths and page_indices")
     if b > 65535:
         raise ValueError(f"paged_attention kernel takes B <= 65535, got {b}")
+    if quantized:
+        kernels.check_aligned("paged_attention", k_pages, v_pages)
     o = torch.empty_like(q)
-    lib = kernels.library("paged_decode")
-    status = lib.fa_paged_decode(
-        _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    name = "paged_decode_quant" if quantized else "paged_decode"
+    status = kernels.library(name).fa_paged_decode(
+        _DTYPES[q.dtype], KV_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), *(t.data_ptr() if quantized else None for t in (k_scales_pages, v_scales_pages)),
         lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(),
         b, kvh, g, d, page_size, page_indices.shape[1], float(scale),
         *kernel_options(window, logit_softcap), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    kernels.check_launch("paged_decode", status, f"q {tuple(q.shape)} {q.dtype}")
+    kernels.check_launch(name, status, f"q {tuple(q.shape)} {q.dtype}, pages {k_pages.dtype}")
     paged_attention.launches += 1
+    paged_attention.launches_quantized += quantized
     return o
 
 
-paged_attention.launches = 0  # kernel launches, for the chip run's path check
+# Kernel launches, for the chip run's path check: all forms, and the 8-bit one.
+paged_attention.launches = 0
+paged_attention.launches_quantized = 0
 
 
 # ── chunked prefill ──────────────────────────────────────────────────────────
@@ -199,34 +238,34 @@ def _prefill_mask(ctx_lens, rows, chunk, seg, s_max, window, device):
 
 def paged_prefill_attention_reference(
     q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, seg=None, scale=1.0,
-    window=None, logit_softcap=None,
+    window=None, logit_softcap=None, k_scales_pages=None, v_scales_pages=None,
 ):
-    """Dense oracle of the batched layout: gather every page of each table,
-    anchor row r at ``ctx_len - chunk + r % seg``, mask ``col <= pos``,
-    ``col < ctx_len`` and the window, attend in float32.  A row that sees no
-    column gets the mean of the gathered V rows, as the JAX oracles give."""
-    b, kvh, rows, d = q.shape
+    """Dense oracle of the batched layout: gather every page of each table
+    (dequantized in float32 for 8-bit pages), anchor row r at
+    ``ctx_len - chunk + r % seg``, mask ``col <= pos``, ``col < ctx_len`` and
+    the window, attend in float32.  A row that sees no column gets the mean
+    of the gathered V rows, as the JAX oracles give."""
+    rows = q.shape[2]
     s_max = page_indices.shape[1] * k_pages.shape[2]
-    idx = page_indices.long()
-    # (B, pps, KVH, ps, d) -> (B, KVH, S_max, d)
-    k = k_pages[idx].transpose(1, 2).reshape(b, kvh, s_max, d)
-    v = v_pages[idx].transpose(1, 2).reshape(b, kvh, s_max, d)
-    s = softcap(torch.einsum("bhrd,bhkd->bhrk", q.float(), k.float()) * scale, logit_softcap)
+    k = _gather(k_pages, k_scales_pages, page_indices)
+    v = _gather(v_pages, v_scales_pages, page_indices)
+    s = softcap(torch.einsum("bhrd,bhkd->bhrk", q.float(), k) * scale, logit_softcap)
     mask = _prefill_mask(ctx_lens, rows, chunk, seg or rows, s_max, window, q.device)
     s = torch.where(mask[:, None], s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    o = torch.einsum("bhrk,bhkd->bhrd", p, v.float()) / p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhrk,bhkd->bhrd", p, v) / p.sum(dim=-1, keepdim=True)
     return o.to(q.dtype)
 
 
 def paged_prefill_attention_plain(
     q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, seg=None, scale=1.0,
-    window=None, logit_softcap=None,
+    window=None, logit_softcap=None, k_scales_pages=None, v_scales_pages=None,
 ):
     """The kernel's function in plain PyTorch: the oracle, with zeros for a
     row that sees no column (every row of a ``ctx_len == 0`` request, and a
     pad row whose window lies past the context), as the kernel writes them."""
-    kw = dict(chunk=chunk, seg=seg, scale=scale, window=window, logit_softcap=logit_softcap)
+    kw = dict(chunk=chunk, seg=seg, scale=scale, window=window, logit_softcap=logit_softcap,
+              k_scales_pages=k_scales_pages, v_scales_pages=v_scales_pages)
     o = paged_prefill_attention_reference(q, k_pages, v_pages, page_indices, ctx_lens, **kw)
     s_max = page_indices.shape[1] * k_pages.shape[2]
     rows = q.shape[2]
@@ -234,12 +273,13 @@ def paged_prefill_attention_plain(
     return torch.where(seen[:, None, :, None], o, torch.zeros_like(o))
 
 
-def _check_scales(k_scales_pages, v_scales_pages):
-    if k_scales_pages is not None or v_scales_pages is not None:
-        raise NotImplementedError(
-            "quantized pages (k/v scales) are not ported yet: they come with "
-            "the quantized-KV slice"
-        )
+def _check_pages(q, k_pages, v_pages, k_scales_pages, v_scales_pages) -> bool:
+    """Check the pools' types and scale pools (:func:`ops.flash.check_kv`);
+    True for 8-bit pages."""
+    try:
+        return check_kv(q, k_pages, v_pages, k_scales_pages, v_scales_pages, k_pages.shape[:3])
+    except ValueError as e:
+        raise ValueError(f"pages: {e}") from None
 
 
 def paged_prefill_attention_batched(
@@ -266,7 +306,10 @@ def paged_prefill_attention_batched(
         each a ``seg``-row segment whose row p sits at absolute position
         ``ctx_lens[b] - chunk + p``; rows ``p >= chunk`` are padding, their
         outputs are the caller's to drop.  ``seg=None``: one segment.
-      k_pages, v_pages: ``(P, KVH, page_size, d)`` head-major pools.
+      k_pages, v_pages: ``(P, KVH, page_size, d)`` head-major pools, of q's
+        dtype or (with the scale pools) int8 / fp8 payloads.
+      k_scales_pages, v_scales_pages: float32 ``(P, KVH, page_size)``, given
+        together for 8-bit pools.
       page_indices: ``(B, pps)`` int32 per-request tables; entries past the
         live pages may be any page (their columns are masked).
       ctx_lens: ``(B,)`` int32 live context tokens including this chunk.  A
@@ -282,7 +325,6 @@ def paged_prefill_attention_batched(
     this function (``.launches``); :func:`paged_prefill_attention` launches
     through it.
     """
-    _check_scales(k_scales_pages, v_scales_pages)
     check_window(window, logit_softcap, causal=True)
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"expected q (B,KVH,R,d), pages (P,KVH,ps,d): {q.shape} {k_pages.shape}")
@@ -302,17 +344,18 @@ def paged_prefill_attention_batched(
         raise ValueError(f"q rows ({rows}) must be a multiple of seg ({seg})")
     if not 0 < chunk <= seg:
         raise ValueError(f"chunk ({chunk}) must lie in [1, seg={seg}]")
-    if not (q.dtype == k_pages.dtype == v_pages.dtype):
-        raise ValueError(f"q/pages dtypes differ: {q.dtype} {k_pages.dtype} {v_pages.dtype}")
+    quantized = _check_pages(q, k_pages, v_pages, k_scales_pages, v_scales_pages)
+    scales = (k_scales_pages, v_scales_pages) if quantized else ()
 
     args = (q, k_pages, v_pages, page_indices, ctx_lens)
-    if not all(t.is_contiguous() for t in args):
+    if not all(t.is_contiguous() for t in (*args, *scales)):
         raise ValueError("paged_prefill_attention takes contiguous tensors")
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
-            *args, chunk=chunk, seg=seg, scale=scale, window=window, logit_softcap=logit_softcap
+            *args, chunk=chunk, seg=seg, scale=scale, window=window, logit_softcap=logit_softcap,
+            k_scales_pages=k_scales_pages, v_scales_pages=v_scales_pages,
         )
-    devs = {t.device for t in args}
+    devs = {t.device for t in (*args, *scales)}
     if q.device.type != "cuda" or len(devs) != 1:
         raise ValueError(f"paged_prefill_attention: tensors on {sorted(map(str, devs))}")
     if q.dtype not in _DTYPES:
@@ -325,20 +368,24 @@ def paged_prefill_attention_batched(
         raise ValueError(f"paged_prefill_attention kernel takes B, KVH <= 65535, got {b}, {kvh}")
     kernels.check_aligned("paged_prefill_attention", q, k_pages, v_pages)
     o = torch.empty_like(q)
-    lib = kernels.library("paged_prefill")
-    status = lib.fa_paged_prefill(
-        _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    name = "paged_prefill_quant" if quantized else "paged_prefill"
+    status = kernels.library(name).fa_paged_prefill(
+        _DTYPES[q.dtype], KV_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), *(t.data_ptr() if quantized else None for t in (k_scales_pages, v_scales_pages)),
         page_indices.data_ptr(), ctx_lens.data_ptr(), o.data_ptr(),
         b, kvh, rows, d, num_pages, page_size, page_indices.shape[1], int(chunk),
         seg, float(scale), *kernel_options(window, logit_softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    kernels.check_launch("paged_prefill", status, f"q {tuple(q.shape)} {q.dtype}")
+    kernels.check_launch(name, status, f"q {tuple(q.shape)} {q.dtype}, pages {k_pages.dtype}")
     paged_prefill_attention_batched.launches += 1
+    paged_prefill_attention_batched.launches_quantized += quantized
     return o
 
 
-paged_prefill_attention_batched.launches = 0  # kernel launches, for the chip run's path check
+# Kernel launches, for the chip run's path check: all forms, and the 8-bit one.
+paged_prefill_attention_batched.launches = 0
+paged_prefill_attention_batched.launches_quantized = 0
 
 
 def paged_prefill_attention(

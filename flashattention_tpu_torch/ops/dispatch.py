@@ -10,7 +10,10 @@ requires a gradient (and no residuals are asked for), the call goes through
 :func:`ops.backward.attention_vjp` instead, so ``torch.autograd`` works
 through this public entry point (dispatch.py:295-308); with a sliding window
 or a logit softcap, which the backward kernels do not take yet, that route
-raises ``NotImplementedError`` before any launch.  Unlike the TPU
+raises ``NotImplementedError`` before any launch.  8-bit K/V (int8 or fp8
+payloads with per-token scales ``k_scales``/``v_scales``) go to the forward
+kernel's 8-bit form only, as in the JAX package (dispatch.py:288-295); under
+autograd they raise before any launch.  Unlike the TPU
 package it does not pad ragged lengths to the tile: the CUDA kernels mask
 the ragged edge.  ``implementation="xla"`` keeps the JAX package's name for
 its oracle path and runs the plain reference (:mod:`ops.reference`) instead
@@ -23,6 +26,7 @@ import torch
 
 from flashattention_tpu_torch.ops import reference
 from flashattention_tpu_torch.ops.backward import attention_vjp
+from flashattention_tpu_torch.ops.reference import dequantize_rows
 from flashattention_tpu_torch.ops.flash import (
     BlockSizes,
     check_ported,
@@ -49,6 +53,8 @@ def attention(
     kv_segment_ids=None,
     window: int | None = None,
     logit_softcap: float | None = None,
+    k_scales=None,
+    v_scales=None,
     **unported,
 ):
     """Fused attention ``O = softmax(scale * Q K^T) V``.
@@ -71,8 +77,11 @@ def attention(
         ``(i - window, i]`` (Mistral-style local attention).
       logit_softcap: scores become ``cap * tanh(s / cap)`` (Gemma-2).
         Neither has a backward kernel yet: under autograd they raise.
-      unported: the JAX package's other options (dropout, KV scales,
-        block_mask) raise ``NotImplementedError``.
+      k_scales, v_scales: float32 per-token dequant scales of int8 / fp8 k,
+        v payloads, given together: ``(B, H_kv, S_kv)`` for 4D inputs or
+        ``(B*H_kv, S_kv)``.  Forward only: under autograd they raise.
+      unported: the JAX package's other options (dropout, block_mask) raise
+        ``NotImplementedError``.
 
     Returns ``o`` with q's shape and dtype, or ``(o, l, m)``.
     """
@@ -126,6 +135,10 @@ def attention(
     else:
         seg_q3 = _fold_side_input(q_segment_ids, b_lead, bh, s_q, "q_segment_ids")
     seg_kv3 = _fold_side_input(kv_segment_ids, b_lead, k3.shape[0], s_kv, "kv_segment_ids")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
+    ks3 = _fold_scales(k_scales, b_lead, k3.shape[0], s_kv, "k_scales")
+    vs3 = _fold_scales(v_scales, b_lead, k3.shape[0], s_kv, "v_scales")
 
     if implementation == "xla":
         if seg_q3 is not None:
@@ -133,6 +146,8 @@ def attention(
                 "segment ids via implementation='xla': use ops.reference directly "
                 "with an explicit mask"
             )
+        if ks3 is not None:  # the oracle over the dequantized K/V
+            k3, v3 = dequantize_rows(k3, ks3), dequantize_rows(v3, vs3)
         if groups > 1:  # the oracle wants equal heads: repeat KV
             k3 = k3.repeat_interleave(groups, dim=0)
             v3 = v3.repeat_interleave(groups, dim=0)
@@ -146,6 +161,11 @@ def attention(
         differentiable = torch.is_grad_enabled() and any(
             t.requires_grad for t in (q3, k3, v3)
         )
+        if differentiable and ks3 is not None:
+            raise NotImplementedError(
+                "quantized K/V (k/v scales) have no backward kernel: they serve "
+                "forward only, as in the JAX package"
+            )
         if differentiable and not save_residuals:
             o = attention_vjp(
                 q3, k3, v3, causal, scale, block_sizes, None, None, q_seq_len,
@@ -158,7 +178,7 @@ def attention(
                 q3, k3, v3, causal=causal, scale=scale, kv_len=kv_len,
                 q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
                 block_sizes=block_sizes, q_segment_ids=seg_q3, kv_segment_ids=seg_kv3,
-                window=window, logit_softcap=logit_softcap,
+                window=window, logit_softcap=logit_softcap, k_scales=ks3, v_scales=vs3,
             )
             o, l, m = out if save_residuals else (out, None, None)
     else:
@@ -186,6 +206,22 @@ def _fold_side_input(ids, b_lead, bh, s, name):
         f"{name} shape {tuple(ids.shape)} matches neither (B, S)=({b_lead}, {s}) "
         f"nor (B*H, S)=({bh}, {s})"
     )
+
+
+def _fold_scales(scales, b_lead, bh_kv, s_kv, name):
+    """(B, H_kv, S) scales -> (B*H_kv, S), or pass (B*H_kv, S) through
+    (dispatch.py:396-411)."""
+    if scales is None:
+        return None
+    if scales.dim() == 3:
+        if b_lead is None or scales.shape[0] * scales.shape[1] != bh_kv:
+            raise ValueError(
+                f"{name} shape {tuple(scales.shape)} does not fold to (B*H_kv, S)=({bh_kv}, {s_kv})"
+            )
+        scales = scales.reshape(bh_kv, scales.shape[2])
+    if tuple(scales.shape) != (bh_kv, s_kv):
+        raise ValueError(f"{name} must be (B*H_kv, S_kv)=({bh_kv}, {s_kv}), got {tuple(scales.shape)}")
+    return scales.contiguous()
 
 
 def sdpa(q, k, v, *, causal=False, **kwargs):

@@ -14,7 +14,10 @@ at position ``pos`` sees columns ``c > pos - window``), a logit softcap
 length ``kv_len`` (ragged S is masked in the kernel, never padded), a score
 scale, segment ids (packed rows: row r sees column c only where their ids are
 equal; ``PAD_SEGMENT`` padding rows attend each other, as in the JAX
-kernel), and ``save_residuals``.  The TPU tile-fitting regimes of
+kernel), ``save_residuals``, and 8-bit K/V: int8 or fp8 payloads with
+float32 per-row scales ``(BH, S_kv)`` (``k_scales``/``v_scales``), which a
+form of the kernel built for them dequantizes as it stages each tile
+(:func:`ops.quant.attention_quantized` is the public entry point).  The TPU tile-fitting regimes of
 ``BlockSizes.fit`` are not ported: the CUDA kernel has one tile shape.
 
 :func:`flash_attention_naive` is the counterpart of the JAX package's naive
@@ -34,6 +37,7 @@ from flashattention_tpu_torch.ops import kernels
 from flashattention_tpu_torch.ops.reference import (
     DEFAULT_MASK_VALUE,
     attention_reference,
+    dequantize_rows,
     softcap,
 )
 
@@ -46,6 +50,9 @@ __all__ = [
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# K/V payload type codes of the C interface: q's own type, or 8-bit payloads
+# with float32 scales.
+KV_DTYPES = {**_DTYPES, torch.int8: 2, torch.float8_e4m3fn: 3}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
@@ -63,15 +70,36 @@ def _unsupported(feature: str, slice_: str):
     raise NotImplementedError(f"{feature} is not ported yet: it comes with {slice_}")
 
 
-def check_ported(*, dropout_rate=None, k_scales=None, v_scales=None, block_mask=None):
+def check_ported(*, dropout_rate=None, block_mask=None):
     """Raise ``NotImplementedError`` for an option of the JAX package that
     the forward kernel does not have yet."""
     if dropout_rate:
         _unsupported("attention dropout", "the attention-dropout slice (bit-for-bit keep masks)")
-    if k_scales is not None or v_scales is not None:
-        _unsupported("quantized KV (k/v scales)", "the quantized-KV slice")
     if block_mask is not None:
         _unsupported("block-sparse masks", "the block-sparse slice")
+
+
+def check_kv(q, k, v, k_scales, v_scales, scales_shape) -> bool:
+    """Check the K/V payload types against q and the scales, and return
+    whether K/V are quantized: 8-bit (int8 or fp8) payloads of one type with
+    float32 scales of ``scales_shape``, both given; or q's type and no
+    scales."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
+    if k_scales is None:
+        if not (q.dtype == k.dtype == v.dtype):
+            raise ValueError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+        return False
+    if k.dtype != v.dtype or k.dtype not in (torch.int8, torch.float8_e4m3fn):
+        raise ValueError(f"quantized K/V must be int8 or float8_e4m3fn, got {k.dtype} / {v.dtype}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16 with quantized K/V, got {q.dtype}")
+    for name, sc in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if tuple(sc.shape) != tuple(scales_shape) or sc.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be float32 {tuple(scales_shape)}, got {sc.dtype} {tuple(sc.shape)}"
+            )
+    return True
 
 
 def fold_segment_ids(q_segment_ids, kv_segment_ids, bh, rows, s_kv, device):
@@ -164,12 +192,12 @@ def flash_attention(
       logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
       q_segment_ids, kv_segment_ids: integer ``(BH, R)`` and ``(BH, S_kv)``,
         given together: row r sees column c only where the ids are equal.
+      k_scales, v_scales: float32 ``(BH, S_kv)``, given together, for int8 or
+        fp8 k/v payloads: row j of K is ``k[:, j].float() * k_scales[:, j]``.
 
     Returns ``o`` like q, or ``(o, l, m)``.
     """
-    check_ported(
-        dropout_rate=dropout_rate, k_scales=k_scales, v_scales=v_scales, block_mask=block_mask,
-    )
+    check_ported(dropout_rate=dropout_rate, block_mask=block_mask)
     check_window(window, logit_softcap, causal)
     if block_sizes is not None and block_sizes != BlockSizes():
         raise ValueError(f"the kernel is compiled for {BlockSizes()}, got {block_sizes}")
@@ -181,9 +209,8 @@ def flash_attention(
         raise ValueError(f"k/v shape mismatch: {k.shape} vs {v.shape}")
     if k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on BH or d")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
     s_kv = k.shape[1]
+    quantized = check_kv(q, k, v, k_scales, v_scales, (bh, s_kv))
     kv_len = s_kv if kv_len is None else int(kv_len)
     if not 0 <= kv_len <= s_kv:
         raise ValueError(f"kv_len {kv_len} outside [0, {s_kv}]")
@@ -192,16 +219,19 @@ def flash_attention(
         raise ValueError(f"q_seq_len ({q_seq_len}) must divide the rows ({rows})")
     seg_q, seg_kv = fold_segment_ids(q_segment_ids, kv_segment_ids, bh, rows, s_kv, q.device)
 
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention takes contiguous q, k, v")
+    scales = (k_scales, v_scales) if quantized else ()
+    if not all(t.is_contiguous() for t in (q, k, v, *scales)):
+        raise ValueError("flash_attention takes contiguous q, k, v and scales")
     if q.device.type == "cpu":
+        if quantized:  # the plain version of the 8-bit form: dequantize first
+            k, v = dequantize_rows(k, k_scales), dequantize_rows(v, v_scales)
         return flash_attention_plain(
             q, k, v, causal=causal, scale=scale, kv_len=kv_len,
             q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
             q_segment_ids=seg_q, kv_segment_ids=seg_kv, window=window,
             logit_softcap=logit_softcap,
         )
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, *scales)):
         raise ValueError(f"flash_attention: tensors on {q.device}/{k.device}/{v.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
@@ -209,26 +239,32 @@ def flash_attention(
         raise ValueError(f"flash_attention kernel takes head_dim in {_HEAD_DIMS}, got {d}")
     if bh > 65535:
         raise ValueError(f"flash_attention kernel takes BH <= 65535, got {bh}")
+    if quantized:
+        kernels.check_aligned("flash_attention", k, v)
     o = torch.empty_like(q)
     l = m = None
     if save_residuals:
         l = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
         m = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
-    lib = kernels.library("flash_fwd")
-    status = lib.fa_flash_fwd(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    name = "flash_fwd_quant" if quantized else "flash_fwd"
+    status = kernels.library(name).fa_flash_fwd(
+        _DTYPES[q.dtype], KV_DTYPES[k.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        *(t.data_ptr() if quantized else None for t in (k_scales, v_scales)), o.data_ptr(),
         None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
         None if seg_q is None else seg_q.data_ptr(),
         None if seg_kv is None else seg_kv.data_ptr(), bh, rows, s_kv, d, kv_len,
         int(q_offset), q_seq_len, int(bool(causal)), float(scale),
         *kernel_options(window, logit_softcap), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    kernels.check_launch("flash_fwd", status, f"q {tuple(q.shape)} {q.dtype}")
+    kernels.check_launch(name, status, f"q {tuple(q.shape)} {q.dtype}, k {k.dtype}")
     flash_attention.launches += 1
+    flash_attention.launches_quantized += quantized
     return (o, l, m) if save_residuals else o
 
 
-flash_attention.launches = 0  # kernel launches, for the chip run's path check
+# Kernel launches, for the chip run's path check: all forms, and the 8-bit one.
+flash_attention.launches = 0
+flash_attention.launches_quantized = 0
 
 
 def flash_attention_plain(

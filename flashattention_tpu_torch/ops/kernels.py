@@ -3,6 +3,10 @@
 Each source in ``flashattention_tpu_torch/csrc/`` is compiled by ``nvcc`` on
 its own into a shared library with a plain C interface and loaded with
 ``ctypes``; PyTorch's headers are never included, so a build takes seconds.
+The serving kernels' forms for 8-bit K/V payloads (int8 / fp8 with float32
+scales) come from the same sources built with ``-DFA_QUANT`` into libraries
+of their own (``*_quant``), so they build beside the others instead of
+lengthening the longest build.
 The build runs at first use, from the sources in the checkout only, into
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``).  A
 library's file name carries a hash of its sources and flags, so an edited
@@ -32,25 +36,20 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
-# name -> (source, C entry point, its argtypes); every entry returns an int
-# status: 0, a cudaError_t value, or -1 for a configuration not instantiated.
+# name -> (source, C entry point, its argtypes[, extra nvcc flags]); every
+# entry returns an int status: 0, a cudaError_t value, or -1 for a
+# configuration not instantiated.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FLASH_FWD = ("flash_fwd.cu", "fa_flash_fwd", [_I, _I, *[_P] * 10, *[_I] * 8, _F, _I, _F, _P])
+_PAGED_DECODE = ("paged_decode.cu", "fa_paged_decode", [_I, _I, *[_P] * 8, *[_I] * 6, _F, _I, _F, _P])
+_PAGED_PREFILL = ("paged_prefill.cu", "fa_paged_prefill", [_I, _I, *[_P] * 8, *[_I] * 9, _F, _I, _F, _P])
 KERNELS = {
-    "flash_fwd": (
-        "flash_fwd.cu",
-        "fa_flash_fwd",
-        [_I, *[_P] * 8, *[_I] * 8, _F, _I, _F, _P],
-    ),
-    "paged_decode": (
-        "paged_decode.cu",
-        "fa_paged_decode",
-        [_I, *[_P] * 6, *[_I] * 6, _F, _I, _F, _P],
-    ),
-    "paged_prefill": (
-        "paged_prefill.cu",
-        "fa_paged_prefill",
-        [_I, *[_P] * 6, *[_I] * 9, _F, _I, _F, _P],
-    ),
+    "flash_fwd": _FLASH_FWD,
+    "paged_decode": _PAGED_DECODE,
+    "paged_prefill": _PAGED_PREFILL,
+    "flash_fwd_quant": (*_FLASH_FWD, ["-DFA_QUANT"]),
+    "paged_decode_quant": (*_PAGED_DECODE, ["-DFA_QUANT"]),
+    "paged_prefill_quant": (*_PAGED_PREFILL, ["-DFA_QUANT"]),
     "flash_naive": (
         "flash_naive.cu",
         "fa_flash_naive",
@@ -99,9 +98,13 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name: str) -> list[str]:
+    return [*_FLAGS, *(KERNELS[name][3] if len(KERNELS[name]) > 3 else [])]
+
+
 def _so_path(name: str) -> str:
     src = KERNELS[name][0]
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for f in (src, *_HEADERS):
         with open(os.path.join(_CSRC, f), "rb") as fh:
             h.update(fh.read())
@@ -123,7 +126,7 @@ def build_all(names=None) -> dict[str, dict]:
             out[name] = {"seconds": 0.0, "cached": True, "log": ""}
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *_FLAGS, "-o", tmp, os.path.join(_CSRC, KERNELS[name][0])]
+        cmd = [_nvcc(), *_flags(name), "-o", tmp, os.path.join(_CSRC, KERNELS[name][0])]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         ), tmp, so)
@@ -152,7 +155,7 @@ def library(name: str) -> ctypes.CDLL:
         if not os.path.exists(so):
             build_all([name])
         lib = ctypes.CDLL(so)
-        _, entry, argtypes = KERNELS[name]
+        entry, argtypes = KERNELS[name][1:3]
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -4,7 +4,10 @@ Counterpart of ``flashattention_tpu/ops/reference.py``: dense
 ``softmax(scale * Q K^T) V`` in float32 whatever the input dtype, with causal,
 sliding-window and live-length masking by the same finite mask value and an
 optional logit softcap, returning the online softmax statistics ``(l, m)`` on
-request.  Runs on any device.
+request.  Runs on any device.  8-bit K/V (int8 or fp8 payloads with per-row
+float32 scales) are held to the same oracle after :func:`dequantize_rows`,
+which the plain versions of the kernels' 8-bit forms and the dispatch's
+oracle route share.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 
 __all__ = [
     "attention_reference",
+    "dequantize_rows",
     "attention_reference_with_stats",
     "causal_mask",
     "softcap",
@@ -83,3 +87,8 @@ def attention_reference_with_stats(
     l = p.sum(dim=-1)
     o = torch.einsum("...qk,...kd->...qd", p, vf) / l[..., None]
     return o.to(q.dtype), l, m
+
+
+def dequantize_rows(payload, scales):
+    """8-bit rows ``(..., d)`` times their scales ``(...)``, in float32."""
+    return payload.float() * scales.float()[..., None]

@@ -16,6 +16,12 @@ on the paged-prefill kernel (one batched call per round); the rest run whole
 on the causal flash kernel, grouped by power-of-two length bucket.
 ``prefill_chunk=0`` runs every prompt whole and caches no prefixes.
 
+With an int8/fp8 cache (``CacheConfig(dtype="int8" | "fp8")``) the chunk and
+decode steps quantize the K/V rows they write and attend on the kernels'
+8-bit forms; whole-prompt prefill attends to the unquantized K/V and the
+cache quantizes them as it appends them, as in the JAX engine.  Parameters
+from ``ops.quant.quantize_weights`` serve unchanged.
+
 Not in this slice (each raises ``NotImplementedError``): multi-token steps
 (``multi_step > 1``) and speculative decoding.
 """
@@ -429,7 +435,8 @@ class Engine:
                 self.cache.k_pages, self.cache.v_pages,
                 torch.from_numpy(positions).to(dev), torch.from_numpy(tables).to(dev),
                 torch.from_numpy(wpages), torch.from_numpy(wslots),  # host: no sync
-                self.model_cfg, ctx_lens=torch.from_numpy(ctxs).to(dev),
+                self.model_cfg, self.cache.k_scales, self.cache.v_scales,
+                ctx_lens=torch.from_numpy(ctxs).to(dev),
             )  # the pools are updated in place
             self._n_chunk_rounds += 1
             for i, st in enumerate(live):
@@ -473,6 +480,7 @@ class Engine:
         logits = transformer.decode_step(
             self.params, tokens, positions, self.cache.k_pages, self.cache.v_pages,
             lengths, page_indices, write_pages, write_slots, self.model_cfg,
+            self.cache.k_scales, self.cache.v_scales,
         )  # the pools are updated in place
         self._n_decode_tokens += n
         self._n_decode_batches += 1

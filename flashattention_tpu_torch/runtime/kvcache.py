@@ -10,6 +10,11 @@ Writes update the pools in place (the JAX package donates them to jitted
 scatters and keeps the returned arrays).  Rows are written exactly, with no
 bucket padding: eager PyTorch has no recompiles to bound, so the dropped
 out-of-range padding rows of the JAX scatter never exist here.
+
+An ``"int8"`` or ``"fp8"`` cache stores 8-bit payloads and a float32 scale
+per row and head in pools ``(L, num_pages, KVH, page_size)`` (initialised to
+ones); :meth:`PagedKVCache.append` quantizes each row on write, per token, as
+the JAX cache does.
 """
 
 from __future__ import annotations
@@ -19,12 +24,18 @@ import hashlib
 
 import torch
 
+from flashattention_tpu_torch.ops.quant import byte_view, quantize_rows
 from flashattention_tpu_torch.runtime.native import PageAllocator
 from flashattention_tpu_torch.utils.device import resolve_device
 
 __all__ = ["CacheConfig", "PagedKVCache"]
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "int8": torch.int8,
+    "fp8": torch.float8_e4m3fn,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,16 +45,15 @@ class CacheConfig:
     head_dim: int
     page_size: int = 256
     num_pages: int = 1024
-    dtype: str = "bfloat16"  # payload dtype: bfloat16 | float32 (int8/fp8 later)
+    dtype: str = "bfloat16"  # payload dtype: bfloat16 | float32 | int8 | fp8
 
     def __post_init__(self):
-        if self.dtype in ("int8", "fp8"):
-            raise NotImplementedError(
-                f"{self.dtype} KV pages are not ported yet: they come with the "
-                "quantized-KV slice"
-            )
         if self.dtype not in _DTYPES:
             raise ValueError(f"unknown cache dtype {self.dtype!r}")
+
+    @property
+    def quantized(self) -> bool:
+        return self.dtype in ("int8", "fp8")
 
     @property
     def payload_dtype(self) -> torch.dtype:
@@ -71,8 +81,14 @@ class PagedKVCache:
         self.config = c = config
         self.device = resolve_device(device)
         shape = (c.num_layers, c.num_pages, c.num_kv_heads, c.page_size, c.head_dim)
-        self.k_pages = torch.zeros(shape, dtype=c.payload_dtype, device=self.device)
-        self.v_pages = torch.zeros(shape, dtype=c.payload_dtype, device=self.device)
+        # Zero bytes (an fp8 zero is the byte 0): no fp8 fill kernel needed.
+        zeros = dict(dtype=torch.uint8 if c.dtype == "fp8" else c.payload_dtype, device=self.device)
+        self.k_pages = torch.zeros(shape, **zeros).view(c.payload_dtype)
+        self.v_pages = torch.zeros(shape, **zeros).view(c.payload_dtype)
+        self.k_scales = self.v_scales = None
+        if c.quantized:
+            self.k_scales = torch.ones(shape[:-1], dtype=torch.float32, device=self.device)
+            self.v_scales = torch.ones(shape[:-1], dtype=torch.float32, device=self.device)
         self.allocator = PageAllocator(c.num_pages)
         self._seqs: dict[int, _Seq] = {}
         # Prefix caching: full prompt pages are content-addressed by a chain
@@ -204,8 +220,9 @@ class PagedKVCache:
     # ── writes ────────────────────────────────────────────────────────────
 
     def append(self, seq_id: int, k: torch.Tensor, v: torch.Tensor) -> None:
-        """Append T tokens of K/V, ``(L, T, KVH, d)``, for one sequence,
-        writing the pools in place.  Raises MemoryError when out of pages."""
+        """Append T tokens of K/V, ``(L, T, KVH, d)`` in any float dtype, for
+        one sequence, writing the pools in place (quantized per row and head
+        for an int8/fp8 cache).  Raises MemoryError when out of pages."""
         c = self.config
         l, t, kvh, d = k.shape
         if (l, kvh, d) != (c.num_layers, c.num_kv_heads, c.head_dim):
@@ -224,8 +241,12 @@ class PagedKVCache:
         page_ids = torch.tensor([seq.pages[p // ps] for p in positions], device=self.device)
         slot_ids = torch.tensor([p % ps for p in positions], device=self.device)
         # Advanced indices split by the KVH slice put T first: (T, L, KVH, d).
-        self.k_pages[:, page_ids, :, slot_ids, :] = k.transpose(0, 1).to(c.payload_dtype)
-        self.v_pages[:, page_ids, :, slot_ids, :] = v.transpose(0, 1).to(c.payload_dtype)
+        for pool, scales, rows in ((self.k_pages, self.k_scales, k), (self.v_pages, self.v_scales, v)):
+            rows = rows.transpose(0, 1)
+            if c.quantized:
+                rows, sc = quantize_rows(rows, c.dtype)
+                scales[:, page_ids, :, slot_ids] = sc
+            byte_view(pool)[:, page_ids, :, slot_ids, :] = byte_view(rows.to(c.payload_dtype))
         seq.length += t
 
     def trim(self, seq_id: int, new_length: int) -> None:

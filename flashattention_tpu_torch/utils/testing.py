@@ -78,23 +78,27 @@ def make_ones(shape, dtype=torch.float32, *, device=None):
 
 
 def to_torch(a, device=None) -> torch.Tensor:
-    """numpy array -> tensor, keeping bfloat16.
+    """numpy array -> tensor, keeping bfloat16 and fp8.
 
-    numpy's bfloat16 (``ml_dtypes.bfloat16``, what JAX arrays become) is a
-    type ``torch.from_numpy`` refuses, so its bits cross as ``uint16``."""
+    numpy's bfloat16 and float8_e4m3fn (``ml_dtypes`` types, what JAX arrays
+    of those dtypes become) are types ``torch.from_numpy`` refuses, so their
+    bits cross as ``uint16`` and ``uint8``."""
     a = np.ascontiguousarray(np.asarray(a))
     if not a.flags.writeable:  # e.g. a view of a JAX array: torch wants to own it
         a = a.copy()
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     return t.to(device) if device is not None else t
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """tensor -> numpy on the host; bfloat16 comes back as float32 (exact)."""
+    """tensor -> numpy on the host; bfloat16 and fp8 come back as float32
+    (exact)."""
     t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
         t = t.float()
     return t.numpy()

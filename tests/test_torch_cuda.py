@@ -9,7 +9,8 @@ only PyTorch::
 (``--noconftest``: the suite's conftest sets up JAX's CPU devices).  Each
 kernel is held, for every head_dim and group size it is instantiated for, to
 its plain version run on the CPU: 1e-4 in float32, 2e-2 in bfloat16 (one
-bf16 rounding of outputs of magnitude ~1).
+bf16 rounding of outputs of magnitude ~1); the serving kernels' 8-bit forms
+(int8 and fp8 K/V with per-row scales) likewise.
 """
 
 import dataclasses
@@ -19,7 +20,7 @@ import pytest
 import torch
 
 from flashattention_tpu_torch.models import train, transformer
-from flashattention_tpu_torch.ops import backward, decode, flash
+from flashattention_tpu_torch.ops import backward, decode, flash, quant
 from flashattention_tpu_torch.runtime import engine, kvcache
 from flashattention_tpu_torch.utils.packing import pack_documents
 from flashattention_tpu_torch.utils.testing import validate_result
@@ -223,6 +224,95 @@ def test_paged_prefill_kernel_window_softcap_matches_plain(dtype, d, g, window):
     validate_result(got, want, TOL[dtype])
 
 
+# 8-bit K/V: int8 and fp8 payloads with float32 per-row scales, the rows'
+# magnitudes spread over two decades (0.01-1) so that a scale applied to
+# the wrong row moves the output.  Held to the plain version on the CPU,
+# which dequantizes in float32, at TOL (outputs are of magnitude <= ~3).
+QDTYPES = ["int8", "fp8"]
+
+
+def _quant_rows(shape, qdtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g) * 10.0 ** -(2 * torch.rand(shape[:-1] + (1,), generator=g))
+    return quant.quantize_rows(x, qdtype)
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(s_kv=250, causal=True),
+        dict(s_kv=100, causal=True, q_seq_len=70, q_offset=30),  # GQA fold, 3 groups
+        dict(s_kv=260, causal=True, kv_len=240, q_offset=20, window=40, logit_softcap=20.0,
+             save_residuals=True),
+    ],
+    ids=["causal", "gqa_fold", "window_softcap_kv_len_residuals"],
+)
+def test_quant_flash_kernel_matches_plain(qdtype, dtype, d, kw):
+    kw = dict(kw)
+    s_kv = kw.pop("s_kv")
+    q = _randn((3, 210, d), dtype, 50)
+    (k, ks), (v, vs) = _quant_rows((3, s_kv, d), qdtype, 51), _quant_rows((3, s_kv, d), qdtype, 52)
+    args = (q, k, v)
+    got = flash.flash_attention(*(a.cuda() for a in args), k_scales=ks.cuda(), v_scales=vs.cuda(),
+                                scale=d**-0.5, **kw)
+    want = flash.flash_attention(*args, k_scales=ks, v_scales=vs, scale=d**-0.5, **kw)
+    torch.cuda.synchronize()
+    if kw.get("save_residuals"):
+        for g, w in zip(got[1:], want[1:]):
+            validate_result(g, w, 1e-5 * float(w.abs().max()))
+        got, want = got[0], want[0]
+    assert got.dtype == dtype
+    validate_result(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", list(decode.QUANT_DECODE_SHAPES), ids=lambda s: f"d{s[0]}-g{s[1]}")
+@pytest.mark.parametrize("window", [None, 20], ids=["full", "window_softcap"])
+def test_quant_paged_kernel_matches_plain(qdtype, dtype, shape, window):
+    d, g = shape
+    kvh, ps, pages, pps = 2, 16, 30, 5
+    lengths = torch.tensor([0, 1, 16, 21, 80], dtype=torch.int32)
+    table = torch.randperm(pages, generator=torch.Generator().manual_seed(53))[: 5 * pps]
+    table = table.reshape(5, pps).to(torch.int32).contiguous()
+    q = _randn((5, kvh, g, d), dtype, 54)
+    (kp, ks), (vp, vs) = (_quant_rows((pages, kvh, ps, d), qdtype, s) for s in (55, 56))
+    kw = dict(scale=d**-0.5, window=window, logit_softcap=10.0 if window else None)
+    args = (q, kp, vp, lengths, table)
+    got = decode.paged_attention(*(a.cuda() for a in args), k_scales_pages=ks.cuda(),
+                                 v_scales_pages=vs.cuda(), **kw)
+    want = decode.paged_attention(*args, k_scales_pages=ks, v_scales_pages=vs, **kw)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[0]) == 0  # length 0: zeros
+    validate_result(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("window", [None, 30], ids=["full", "window_softcap"])
+def test_quant_paged_prefill_kernel_matches_plain(qdtype, dtype, d, g, window):
+    kvh, ps, pages, pps, chunk, seg = 2, 16, 40, 6, 20, 24
+    ctx = torch.tensor([0, 20, 57, 96], dtype=torch.int32)
+    table = torch.randperm(pages, generator=torch.Generator().manual_seed(57))[: 4 * pps]
+    table = table.reshape(4, pps).to(torch.int32).contiguous()
+    q = _randn((4, kvh, g * seg, d), dtype, 58)
+    (kp, ks), (vp, vs) = (_quant_rows((pages, kvh, ps, d), qdtype, s) for s in (59, 60))
+    kw = dict(chunk=chunk, seg=seg, scale=d**-0.5, window=window,
+              logit_softcap=10.0 if window else None)
+    args = (q, kp, vp, table, ctx)
+    got = decode.paged_prefill_attention_batched(*(a.cuda() for a in args), k_scales_pages=ks.cuda(),
+                                                 v_scales_pages=vs.cuda(), **kw)
+    want = decode.paged_prefill_attention_batched(*args, k_scales_pages=ks, v_scales_pages=vs, **kw)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[0]) == 0  # ctx = 0: zeros
+    validate_result(got, want, TOL[dtype])
+
+
 # Backward cases: (BH, G, S_q per group, S_kv) and the masks; "segments"
 # packs two documents and PAD_SEGMENT (-1) padding into each row.
 BWD_CASES = {
@@ -333,6 +423,37 @@ def test_windowed_engine_on_card_matches_cpu(chunk, head_dim):
              for k, v in params.items()}
         cc = kvcache.CacheConfig(num_layers=2, num_kv_heads=2, head_dim=head_dim, page_size=8,
                                  num_pages=24, dtype="float32")
+        eng = engine.Engine(p, cfg, cc, engine.EngineConfig(max_batch=4, pages_per_seq=6,
+                                                            prefill_chunk=chunk), device=dev)
+        eng.add_request(base, 6)
+        eng.step()
+        for tail in ([9], [1, 2, 3, 4, 5, 6, 7, 8, 9, 10]):
+            eng.add_request(base[:24] + tail, 6)
+        eng.add_request([3, 1, 4, 1, 5], 6)
+        outs.append((eng.run(), eng.stats()["prefill_tokens"]))
+        assert eng.cache.num_free_pages() == 24
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("chunk", [0, 8], ids=["whole", "chunked"])
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("head_dim", [128, 256])
+def test_quantized_engine_on_card_matches_cpu(head_dim, kv, chunk):
+    """An 8-bit KV cache and int8 weights: a tiny float32 model with the
+    kernels' 8-bit shapes (head_dim 128 with 4 KV heads, G = 1; head_dim 256
+    with G = 2, window 12 and softcap 30), whole-prompt and chunked with a
+    prefix hit: greedy tokens on the card equal the CPU's."""
+    kw = dict(head_dim=head_dim, num_kv_heads=4) if head_dim == 128 else dict(
+        head_dim=256, sliding_window=12, logit_softcap=30.0)
+    cfg = dataclasses.replace(transformer.ModelConfig.tiny(), dtype="float32", **kw)
+    params = quant.quantize_weights(transformer.init_params(0, cfg, device="cpu"), "int8")
+    base = np.random.default_rng(3).integers(0, 256, 26).tolist()
+    outs = []
+    for dev in ("cpu", "cuda"):
+        p = {k: (v.to(dev) if not isinstance(v, list) else [{n: w.to(dev) for n, w in lay.items()} for lay in v])
+             for k, v in params.items()}
+        cc = kvcache.CacheConfig(num_layers=2, num_kv_heads=cfg.num_kv_heads, head_dim=head_dim,
+                                 page_size=8, num_pages=24, dtype=kv)
         eng = engine.Engine(p, cfg, cc, engine.EngineConfig(max_batch=4, pages_per_seq=6,
                                                             prefill_chunk=chunk), device=dev)
         eng.add_request(base, 6)

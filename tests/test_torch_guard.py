@@ -75,7 +75,7 @@ def test_chip_smoke_imports_no_jax():
     assert not [n for n in names if _forbidden(n)]
 
 
-@pytest.mark.parametrize("script", ["decode_ab.py", "window_mutants.py"])
+@pytest.mark.parametrize("script", ["decode_ab.py", "window_mutants.py", "quant_mutants.py"])
 def test_tools_import_no_jax(script):
     """The card scripts in ``torch_tools/`` drive the port alone."""
     with open(os.path.join(ROOT, "torch_tools", script)) as fh:
@@ -105,6 +105,11 @@ def test_entry_points_default_to_the_card(no_card):
     for make in (train.make_train_step, train.make_train_step_packed):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(cfg)
+    for dt in ("int8", "fp8"):  # an 8-bit cache, too, runs on the card unless asked
+        qcfg = kvcache.CacheConfig(num_layers=2, num_kv_heads=2, head_dim=32, num_pages=4, dtype=dt)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            kvcache.PagedKVCache(qcfg)
+        assert kvcache.PagedKVCache(qcfg, device="cpu").k_scales.shape == (2, 4, 2, 256)
     step = train.make_train_step(cfg, device="cpu")
     with pytest.raises(ValueError, match="runs on cpu"):
         step(params, torch.zeros(1, 8, dtype=torch.int32, device="meta"))
@@ -119,17 +124,15 @@ def test_later_slices_raise():
     decode.paged_attention(q, pages, pages, lens, table, window=4, logit_softcap=30.0)  # ported
     qp = torch.zeros(1, 2, 8, 32)
     scales = torch.ones(3, 2, 8)
-    with pytest.raises(NotImplementedError, match="quantized-KV slice"):
-        decode.paged_attention(q, pages, pages, lens, table, k_scales_pages=scales,
-                               v_scales_pages=scales)
+    pages8 = pages.to(torch.int8)
+    # 8-bit pages with their scales: ported (the quantized-serving slice).
+    decode.paged_attention(q, pages8, pages8, lens, table, k_scales_pages=scales,
+                           v_scales_pages=scales)
     for kw in (dict(k_scales_pages=scales, v_scales_pages=scales),):
-        with pytest.raises(NotImplementedError):
-            decode.paged_prefill_attention_batched(qp, pages, pages, table, lens, chunk=8, **kw)
-        with pytest.raises(NotImplementedError):
-            decode.paged_prefill_attention(qp[0], pages, pages, table[0], 8, chunk=8, **kw)
+        decode.paged_prefill_attention_batched(qp, pages8, pages8, table, lens, chunk=8, **kw)
+        decode.paged_prefill_attention(qp[0], pages8, pages8, table[0], 8, chunk=8, **kw)
     for dt in ("int8", "fp8"):
-        with pytest.raises(NotImplementedError):
-            kvcache.CacheConfig(num_layers=1, num_kv_heads=2, head_dim=32, dtype=dt)
+        assert kvcache.CacheConfig(num_layers=1, num_kv_heads=2, head_dim=32, dtype=dt).quantized
     import flashattention_tpu_torch as ft
 
     x = torch.zeros(1, 2, 8, 32)
@@ -137,6 +140,11 @@ def test_later_slices_raise():
     seg = torch.zeros(1, 8, dtype=torch.int32)
     ft.attention(x, x, x, causal=True, q_segment_ids=seg, kv_segment_ids=seg)  # ported
     ft.attention(x, x, x, causal=True, window=4, logit_softcap=30.0)  # ported, forward
+    x8, sc = x.to(torch.int8), torch.ones(1, 2, 8)
+    ft.attention(x, x8, x8, causal=True, k_scales=sc, v_scales=sc)  # ported, forward
+    with pytest.raises(NotImplementedError, match="backward"):  # no backward kernel
+        ft.attention(x.requires_grad_(), x8, x8, causal=True, k_scales=sc, v_scales=sc)
+    x = x.detach()
     for kw in (dict(window=4), dict(logit_softcap=30.0)):  # no backward kernel yet
         with pytest.raises(NotImplementedError, match="Gemma-2/Mistral training slice"):
             backward.attention_vjp(x3, x3, x3, True, **kw)
