@@ -33,7 +33,18 @@ Phases, each of which must pass (any failure exits non-zero):
                timed against SDPA over the K/V dequantized to bfloat16;
                ``torch_tools/quant_mutants.py`` shows that they fail a
                kernel with a dropped, shifted or swapped scale, at the
-               main shapes and at Gemma-2's;
+               main shapes and at Gemma-2's; and the three backward kernels
+               at the windowed models' training layers (B = 1, S = 8192):
+               Gemma-2's (d = 256, window 4096, softcap 50; timed, with
+               SDPA's backward under the window mask) and Mistral's (d =
+               128, window 4096; timed), each again with q scaled by 8, the
+               Gemma-2 layer with segment ids for the two-pass pair, and d =
+               16 over a ragged S = 300 with a window of 100, bfloat16
+               elements within BF16_ELEM_TOL; ``torch_tools/bwd_mutants.py``
+               shows that these fail a backward kernel whose window is off
+               by one, whose softcap derivative is dropped or taken at the
+               uncapped score, or that skips the last query tile a window
+               reaches;
 3. serve     - run the engine with whole-prompt prefill (prefill_chunk=0) at
                Llama-7B width (32 layers unless --layers): 8 greedy requests,
                64-1024 token prompts from --seed, 32 new tokens each,
@@ -89,11 +100,21 @@ Phases, each of which must pass (any failure exits non-zero):
 9. train_packed - ``make_train_step_packed`` on the same model over 8 rows
                packed from random documents of 64-2048 tokens: the two-pass
                backward (flash_bwd_dq and flash_bwd_dkv L per step);
+   train_mistral, train_gemma2 - the plain step on ``mistral7b`` (its
+               window 4096) and ``gemma2_9b`` (window 4096, softcap 50,
+               head_dim 256, vocab 256128) at full width in 2 layers, bf16,
+               B = 1, S = 8192, so that the window bites; as train, with the
+               attention flops counted over the window's live pairs, and a
+               profile of one Gemma-2 step; train_gemma2_packed - the packed
+               step on Gemma-2 over documents of 5000, 2100 and 1000 tokens;
 10. train_parity - a 2-layer float32 cut at the same width (B = 1, S = 256):
                plain and packed steps, remat off and on, two steps each, on
                the card and on the CPU (plain versions) from the same
                parameters; losses, updated parameters and the first step's
-               gradients must agree.
+               gradients must agree; train_parity_mistral_w128 and
+               train_parity_gemma2_w128 the same for the windowed models at
+               full width, their window cut to 128 (130-160 s of CPU work
+               for Gemma-2's 256128-wide logits).
 
 It prints one JSON line per check, the total seconds, a ``{"kernels":
 [...]}`` summary (with a ``quantized`` entry for each serving kernel's 8-bit
@@ -1445,10 +1466,42 @@ def _fold_ids(seg, kvh, g):
 
 def _live_pairs(flash, bh, rows, s_kv, kw, segs):
     """(query row, key column) pairs the kernels compute, summed over the
-    ``bh`` heads (segment ids: ``(bh, rows)`` and ``(bh, s_kv)``)."""
+    ``bh`` heads (segment ids: ``(bh, rows)`` and ``(bh, s_kv)``; a sliding
+    window: ``kw["window"]``)."""
     mask = flash.visible(rows, s_kv, causal=kw["causal"], kv_len=kw["kv_len"] or s_kv,
-                         q_offset=kw["q_offset"], q_seq_len=kw["q_seq_len"], device="cuda", **segs)
+                         q_offset=kw["q_offset"], q_seq_len=kw["q_seq_len"],
+                         window=kw.get("window"), device="cuda", **segs)
     return int(mask.sum()) * (1 if segs else bh)
+
+
+def _bwd_rec(check, got, want, dt, **extra):
+    """A backward kernel check's record over the gradients it returns:
+    ``_rec``'s max-abs bound (BWD_TOL) on each, and in bfloat16 each element
+    within BF16_ELEM_TOL."""
+    recs = [_rec(check, g_, w, dt, BWD_TOL[dt]) for g_, w in zip(got, want)]
+    rec = {"check": check, "max_abs_err": max(r["max_abs_err"] for r in recs),
+           "tol": BWD_TOL[dt], "ok": all(r["ok"] for r in recs)}
+    if dt == "bfloat16":
+        rec.update(elem_err=max(r["elem_err"] for r in recs), elem_tol=list(BF16_ELEM_TOL))
+    return {**rec, **extra}
+
+
+def _bwd_case(backward, flash, q, k, v, do, kw, segs):
+    """One backward case: o and lse from the forward kernel, the plain
+    backward (float32 from the same inputs) and the kernels' gradients.
+    Returns (ins, plain, want, runs): ``runs`` holds the two-pass pair's and,
+    without segment ids, the fused kernel's ``(dq, dk, dv)``."""
+    o, l, m = flash.flash_attention(q, k, v, save_residuals=True, **kw, **segs)
+    lse = m + torch.log(torch.where(l == 0, 1.0, l))
+    ins = (q, k, v, o, lse, do)
+    fp32 = [x.float() for x in ins]
+    plain = lambda: backward.flash_attention_bwd_plain(*fp32, **kw, **segs)  # noqa: E731
+    want = plain()
+    runs = {"two_pass": backward.flash_attention_bwd(*ins, fused=False, **kw, **segs)}
+    if not segs:
+        runs["fused"] = backward.flash_attention_bwd(*ins, fused=True, **kw)
+    torch.cuda.synchronize()
+    return ins, plain, want, runs
 
 
 def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
@@ -1464,7 +1517,7 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
     training shapes: the fused backward (``flash_attention_bwd``, which
     computes di and casts dQ too) on the plain layer, each two-pass kernel
     on the packed layer."""
-    mains = {}
+    mains, yardsticks = {}, {}
     _, seg_np = _packed_ids(packing, args.seed + 5, TRAIN_B, TRAIN_S)
     packed = torch.tensor(seg_np, device="cuda")
     short = torch.full((1, 300), -1, dtype=torch.int32, device="cuda")
@@ -1500,16 +1553,7 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
         if "seg" in c:
             seg_q, seg_kv = _fold_ids(c["seg"], c["kvh"], c["g"])
             segs = dict(q_segment_ids=seg_q, kv_segment_ids=seg_kv)
-        o, l, m = flash.flash_attention(q, k, v, save_residuals=True, **kw, **segs)
-        lse = m + torch.log(torch.where(l == 0, 1.0, l))
-        ins = (q, k, v, o, lse, do)
-        fp32 = [x.float() for x in ins]
-        plain = lambda: backward.flash_attention_bwd_plain(*fp32, **kw, **segs)  # noqa: E731
-        want = plain()
-        runs = {"two_pass": backward.flash_attention_bwd(*ins, fused=False, **kw, **segs)}
-        if not segs:
-            runs["fused"] = backward.flash_attention_bwd(*ins, fused=True, **kw)
-        torch.cuda.synchronize()
+        ins, plain, want, runs = _bwd_case(backward, flash, q, k, v, do, kw, segs)
         errs = {run: [err(g_, w) for g_, w in zip(got, want)] for run, got in runs.items()}
         absmax = [float(w.abs().max()) for w in want]
         recs = {}
@@ -1523,17 +1567,150 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
                    "shape": {**{n: x for n, x in c.items() if n != "seg"}, "segment_ids": "seg" in c}}
             timed = (name, dt) in (("train_layer", "bfloat16"), ("packed_layer", "bfloat16"))
             if timed and (kname == "flash_bwd") == (name == "train_layer"):
-                rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, plain, dt))
+                if name not in yardsticks:
+                    yardsticks[name] = _bwd_yardsticks(benchit, ins, kw, c, plain)
+                rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c,
+                                     yardsticks[name], dt))
                 mains[kname] = rec
             emit(rec)
             report["checks"].append(rec)
-        del q, k, v, do, o, l, m, lse, ins, fp32, want, runs
+        del q, k, v, do, ins, plain, want, runs
         torch.cuda.empty_cache()
     return mains
 
 
-def _time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, plain, dt):
-    """Kernel, plain and library times of one backward kernel, and its bound."""
+# The backward kernels at the windowed models' training layers, B = 1 and
+# S = 8192, so that half of each segment's rows are windowed: Gemma-2-9B-class
+# (8 KV heads x G = 2, d = 256, window 4096, softcap 50) and Mistral-7B-class
+# (8 KV x G = 4, d = 128, window 4096).  At unit scale the scores are ~N(0, 1)
+# and every pair carries ~1/4096 of its row: a window one column too wide, a
+# dropped softcap derivative or a skipped query tile moves the gradients by
+# less than bf16 rounding.  So each runs again with q scaled by 8 (and dO by
+# 1/8, so that the gradients stay below 4): the scores reach ~30, single
+# pairs carry much of a row's weight and the cap's derivative is far from 1
+# (torch_tools/bwd_mutants.py shows these checks fail each such mutant).
+# Then Gemma-2's layer with segment ids (documents of 5000, 2100 and 1000
+# tokens and 92 of padding: the window bites in the first) for the two-pass
+# pair, and head_dim 16 with a window of 100 over a ragged S = 300.
+_GEMMA_LAYER = dict(b=1, kvh=8, g=2, s_q=8192, s_kv=8192, d=256, window=4096, cap=50.0)
+_MISTRAL_LAYER = dict(b=1, kvh=8, g=4, s_q=8192, s_kv=8192, d=128, window=4096, cap=None)
+BWD_WINDOW_CASES = (
+    ("gemma2_d256_w4096_cap50", dict(_GEMMA_LAYER, q_mult=1.0)),
+    ("gemma2_d256_w4096_cap50_q8", dict(_GEMMA_LAYER, q_mult=8.0)),
+    ("mistral_d128_w4096", dict(_MISTRAL_LAYER, q_mult=1.0)),
+    ("mistral_d128_w4096_q8", dict(_MISTRAL_LAYER, q_mult=8.0)),
+    ("gemma2_packed_w4096_cap50_q8", dict(_GEMMA_LAYER, q_mult=8.0, docs=(5000, 2100, 1000))),
+    ("d16_s300_w100_cap30_q8", dict(b=1, kvh=8, g=4, s_q=300, s_kv=300, d=16, window=100,
+                                    cap=30.0, q_mult=8.0)),
+)
+TIMED_BWD_WINDOW_CASES = ("gemma2_d256_w4096_cap50", "mistral_d128_w4096")
+
+
+def bwd_window_checks(backward, flash, benchit, gen, card, report, names=None, timed=True):
+    """The three backward kernels at BWD_WINDOW_CASES (``names``: a subset),
+    each gradient against the plain backward (float32 from the same inputs)
+    within BWD_TOL and, in bfloat16, each element within BF16_ELEM_TOL.  o
+    and lse come from the forward kernel.  Timed at the bfloat16 Gemma-2 and
+    Mistral layers (unless not ``timed``): each kernel, the plain backward,
+    and SDPA's backward under a boolean causal+window mask (no softcap).
+    Returns
+    ``{kernel: {case: timed record}}``."""
+    timed_recs = {"flash_bwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for name, c in BWD_WINDOW_CASES:
+        if names is not None and name not in names:
+            continue
+        bh, rows, s, d = c["b"] * c["kvh"], c["g"] * c["s_q"], c["s_kv"], c["d"]
+        kw = dict(causal=True, scale=d**-0.5, kv_len=None, q_offset=0, q_seq_len=c["s_q"],
+                  window=c["window"], logit_softcap=c["cap"])
+        segs = {}
+        if "docs" in c:
+            ids = torch.full((1, s), -1, dtype=torch.int32, device="cuda")
+            ends = np.cumsum((0,) + c["docs"])
+            for i, (a, e) in enumerate(zip(ends[:-1], ends[1:])):
+                ids[0, a:e] = i
+            c = dict(c, seg=ids)
+            seg_q, seg_kv = _fold_ids(ids, c["kvh"], c["g"])
+            segs = dict(q_segment_ids=seg_q, kv_segment_ids=seg_kv)
+        for dt in ("bfloat16", "float32"):
+            def rand(shape, mult=1.0):
+                return (mult * torch.randn(shape, generator=gen, device="cuda")).to(DTYPES[dt])
+
+            q, k, v = rand((bh, rows, d), c["q_mult"]), rand((bh, s, d)), rand((bh, s, d))
+            do = rand((bh, rows, d), 0.25 / c["q_mult"])  # gradients below 4: see bwd_checks
+            ins, plain, want, runs = _bwd_case(backward, flash, q, k, v, do, kw, segs)
+            got = {"flash_bwd_dq": (runs["two_pass"][0], want[:1]),
+                   "flash_bwd_dkv": (runs["two_pass"][1:], want[1:])}
+            if "fused" in runs:
+                got["flash_bwd"] = (runs["fused"], want)
+            shape = {**{n: x for n, x in c.items() if n not in ("seg", "docs")},
+                     "segment_ids": list(c["docs"]) if "docs" in c else None}
+            yard = None
+            for kname in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                if kname not in got:
+                    continue
+                gots, wants = got[kname]
+                gots = gots if isinstance(gots, tuple) else (gots,)
+                rec = _bwd_rec(f"{kname}/{name}/{dt}", gots, wants, dt, shape=shape,
+                               grad_absmax=[float(w.abs().max()) for w in wants])
+                if timed and dt == "bfloat16" and name in TIMED_BWD_WINDOW_CASES:
+                    if yard is None:
+                        yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
+                    rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c,
+                                         yard, dt))
+                    timed_recs[kname][name] = rec
+                emit(rec)
+                report["checks"].append(rec)
+            del q, k, v, do, ins, plain, want, runs, got
+            torch.cuda.empty_cache()
+    return timed_recs
+
+
+def _bwd_yardsticks(benchit, ins, kw, c, plain):
+    """The plain backward's time and the library yardstick's: the backward
+    of one scaled_dot_product_attention call, timed alone
+    (torch.autograd.grad on a kept graph).  Causal with native GQA for a
+    plain layer; with segment ids or a window, a boolean mask (causal, and
+    same segment or inside the window) over K/V repeated to the q heads
+    beforehand, untimed, since the masked kernels take no GQA.  SDPA has no
+    softcap."""
+    q, k, v, o, lse, do = ins
+    out = {"plain_ms": benchit.cuda_time_ms(plain, warmup=1, iters=3)}
+    b, kvh, g, s, d = c["b"], c["kvh"], c["g"], c["s_q"], c["d"]
+    q4 = q.reshape(b, kvh * g, s, d).detach().requires_grad_()
+    k4 = k.reshape(b, kvh, s, d).detach()
+    v4 = v.reshape(b, kvh, s, d).detach()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    window = kw.get("window")
+    if "seg" in c or window:
+        pos = torch.arange(s, device="cuda")
+        mask = pos[None] <= pos[:, None]
+        if window:
+            mask &= pos[None] > pos[:, None] - window
+        if "seg" in c:
+            seg = c["seg"]
+            mask = ((seg[:, :, None] == seg[:, None, :]) & mask)[:, None]
+        k4 = k4.repeat_interleave(g, dim=1).requires_grad_()
+        v4 = v4.repeat_interleave(g, dim=1).requires_grad_()
+        res = sdpa(q4, k4, v4, attn_mask=mask, scale=kw["scale"])
+        parts = "+".join(["causal"] + ["window"] * bool(window) + ["segment"] * ("seg" in c))
+        out["library"] = (f"scaled_dot_product_attention backward, boolean {parts} mask, K/V "
+                          f"repeated to {kvh * g} heads untimed")
+    else:
+        k4, v4 = k4.requires_grad_(), v4.requires_grad_()
+        res = sdpa(q4, k4, v4, is_causal=True, scale=kw["scale"], enable_gqa=True)
+        out["library"] = "scaled_dot_product_attention backward, is_causal, enable_gqa"
+    if kw.get("logit_softcap"):
+        out["library"] += "; no softcap (SDPA cannot express it)"
+    do4 = do.reshape(res.shape)
+    out["library_ms"] = benchit.cuda_time_ms(
+        lambda: torch.autograd.grad(res, (q4, k4, v4), do4, retain_graph=True), warmup=1, iters=5
+    )
+    return out
+
+
+def _time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, yardsticks, dt):
+    """One backward kernel's time beside its case's ``_bwd_yardsticks``,
+    and its bound from this case's live pairs."""
     q, k, v, o, lse, do = ins
     di = (o.float() * do.float()).sum(dim=-1)
     if kname == "flash_bwd":
@@ -1545,37 +1722,11 @@ def _time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, plain, dt
     else:
         kernel = lambda: backward.dkv_kernel(q, k, v, do, lse, di, **kw, **segs)  # noqa: E731
         reads, writes, per_pair = (q, k, v, do, lse, di, *segs.values()), (k, v), 8
-    out = {"kernel_ms": benchit.cuda_time_ms(kernel, warmup=1, iters=5),
-           "plain_ms": benchit.cuda_time_ms(plain, warmup=1, iters=3)}
-    # Library yardstick: the backward of one scaled_dot_product_attention
-    # call, timed alone (torch.autograd.grad on a kept graph).  Causal with
-    # native GQA for the plain layer; with segment ids a boolean mask
-    # (causal and same segment) over K/V repeated to the 32 q heads
-    # beforehand, untimed, since the masked kernels take no GQA.
-    b, kvh, g, s, d = c["b"], c["kvh"], c["g"], c["s_q"], c["d"]
-    q4 = q.reshape(b, kvh * g, s, d).detach().requires_grad_()
-    k4 = k.reshape(b, kvh, s, d).detach()
-    v4 = v.reshape(b, kvh, s, d).detach()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    if segs:
-        seg = c["seg"]
-        mask = (seg[:, :, None] == seg[:, None, :]) & torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
-        k4 = k4.repeat_interleave(g, dim=1).requires_grad_()
-        v4 = v4.repeat_interleave(g, dim=1).requires_grad_()
-        res = sdpa(q4, k4, v4, attn_mask=mask[:, None], scale=kw["scale"])
-        out["library"] = "scaled_dot_product_attention backward, boolean causal+segment mask, K/V repeated to 32 heads untimed"
-    else:
-        k4, v4 = k4.requires_grad_(), v4.requires_grad_()
-        res = sdpa(q4, k4, v4, is_causal=True, scale=kw["scale"], enable_gqa=True)
-        out["library"] = "scaled_dot_product_attention backward, is_causal, enable_gqa"
-    do4 = do.reshape(res.shape)
-    out["library_ms"] = benchit.cuda_time_ms(
-        lambda: torch.autograd.grad(res, (q4, k4, v4), do4, retain_graph=True), warmup=1, iters=5
-    )
+    out = {"kernel_ms": benchit.cuda_time_ms(kernel, warmup=1, iters=5), **yardsticks}
     pairs = _live_pairs(flash, q.shape[0], q.shape[1], k.shape[1], kw, segs)
     nbytes = sum(t.numel() * t.element_size() for t in reads + writes)
     out["live_pairs"] = pairs
-    out.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=per_pair * d * pairs, dtype=dt))
+    out.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=per_pair * c["d"] * pairs, dtype=dt))
     return out
 
 
@@ -1584,6 +1735,19 @@ def _train_cfg(transformer, dtype="bfloat16"):
     return dataclasses.replace(
         transformer.ModelConfig.mistral7b(num_layers=2), sliding_window=None, dtype=dtype
     )
+
+
+TRAIN_MODEL = "mistral7b(num_layers=2), sliding_window=None"
+# The windowed models' training phases: one row of 8192 tokens, so that the
+# window of 4096 bites on half of its positions; their published configs.
+WTRAIN_B, WTRAIN_S = 1, 8192
+WTRAIN_MODELS = {
+    "train_mistral": "mistral7b(num_layers=2): 32 q / 8 KV heads, d=128, window 4096",
+    "train_gemma2": "gemma2_9b(num_layers=2): " + GEMMA_MODEL.split(": ")[1],
+}
+# The packed Gemma-2 row: documents of 5000, 2100 and 1000 tokens, 92 of
+# padding (the window bites in the first).
+WTRAIN_DOCS = (5000, 2100, 1000)
 
 
 def _matmul_params(cfg):
@@ -1597,15 +1761,16 @@ def _matmul_params(cfg):
     return cfg.num_layers * per_layer + cfg.d_model * cfg.vocab_size
 
 
-def _train_rec(phase, cfg, benchit, card, wall, steps, losses, launches, want, attn_fwd, extra):
+def _train_rec(phase, cfg, benchit, card, wall, steps, losses, launches, want, attn_fwd, extra,
+               model=TRAIN_MODEL, batch=TRAIN_B, seq=TRAIN_S):
     """bench_train.py's accounting: 6 N_matmul tokens + 3.5 x attention forward."""
-    tokens = TRAIN_B * TRAIN_S
+    tokens = batch * seq
     flops = 6 * _matmul_params(cfg) * tokens + 3.5 * attn_fwd
     tflops = flops * steps / wall / 1e12
     finite = all(np.isfinite(x) for x in losses)
     return {
-        "phase": phase, "model": "mistral7b(num_layers=2), sliding_window=None", "dtype": cfg.dtype,
-        "batch": TRAIN_B, "seq": TRAIN_S, "steps": steps, **extra, "losses": losses,
+        "phase": phase, "model": model, "dtype": cfg.dtype,
+        "batch": batch, "seq": seq, "steps": steps, **extra, "losses": losses,
         "step_ms": 1e3 * wall / steps, "tokens_per_s": tokens * steps / wall,
         "model_tflop_per_step": flops / 1e12, "model_tflops": tflops,
         "mfu": tflops / benchit.card_peaks(card)["bfloat16"],
@@ -1615,10 +1780,22 @@ def _train_rec(phase, cfg, benchit, card, wall, steps, losses, launches, want, a
     }
 
 
-def phase_train(args, cfg, params, train, benchit, counters, card, report, *, remat):
-    """The plain step: one warm-up step, then TRAIN_STEPS counted steps."""
+def _attn_fwd_flops(benchit, cfg, batch, seq):
+    """Attention forward flops of a step's layers: 4 d per live pair and q
+    head; with a window, the pairs it leaves live (``_window_pairs``)."""
+    if cfg.sliding_window is None:
+        return cfg.num_layers * benchit.attention_flops(batch * cfg.num_q_heads, seq, seq,
+                                                        cfg.head_dim, causal=True)
+    return (cfg.num_layers * 4 * cfg.head_dim * batch * cfg.num_q_heads
+            * _window_pairs(seq, cfg.sliding_window))
+
+
+def phase_train(args, cfg, params, train, benchit, counters, card, report, *, remat,
+                phase=None, model=TRAIN_MODEL, batch=TRAIN_B, seq=TRAIN_S, profile=None):
+    """The plain step: one warm-up step, then TRAIN_STEPS counted steps; a
+    profile of one more step (by default, without remat)."""
     rng = np.random.default_rng(args.seed + 20)
-    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)), dtype=torch.int32,
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, seq)), dtype=torch.int32,
                           device="cuda")
     step = train.make_train_step(cfg, lr=1e-3, remat=remat)
     step(params, tokens)  # warm-up
@@ -1629,14 +1806,15 @@ def phase_train(args, cfg, params, train, benchit, counters, card, report, *, re
     layers = cfg.num_layers
     want = dict.fromkeys(counters, 0)
     want.update(flash_fwd=(2 if remat else 1) * layers * TRAIN_STEPS, flash_bwd=layers * TRAIN_STEPS)
-    attn_fwd = layers * benchit.attention_flops(TRAIN_B * cfg.num_q_heads, TRAIN_S, TRAIN_S,
-                                                cfg.head_dim, causal=True)
-    phase = "train_remat" if remat else "train"
+    phase = phase or ("train_remat" if remat else "train")
     rec = _train_rec(phase, cfg, benchit, card, wall, TRAIN_STEPS, [float(x) for x in out],
-                     launches, want, attn_fwd, {"remat": remat})
+                     launches, want, _attn_fwd_flops(benchit, cfg, batch, seq), {"remat": remat},
+                     model, batch, seq)
     emit(rec)
     report[phase] = rec
-    if not remat:
+    if profile is None:
+        profile = not remat
+    if profile:
 
         def one_step(run):
             torch.cuda.synchronize()
@@ -1645,13 +1823,22 @@ def phase_train(args, cfg, params, train, benchit, counters, card, report, *, re
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e6
 
-        report["profile_train"] = _profile(one_step, "profile/train", {"steps": 1, "remat": False})
+        report[f"profile_{phase}"] = _profile(one_step, f"profile/{phase}",
+                                              {"steps": 1, "remat": remat})
     return rec
 
 
-def phase_train_packed(args, cfg, params, train, packing, flash, benchit, counters, card, report):
-    """The packed step over TRAIN_B rows packed from random documents."""
-    tok_np, seg_np = _packed_ids(packing, args.seed + 21, TRAIN_B, TRAIN_S, cfg.vocab_size)
+def phase_train_packed(args, cfg, params, train, packing, flash, benchit, counters, card, report,
+                       *, phase="train_packed", model=TRAIN_MODEL, batch=TRAIN_B, seq=TRAIN_S,
+                       docs=None):
+    """The packed step over ``batch`` rows packed from random documents of
+    64-2048 tokens, or with ``docs`` one row of documents of those lengths."""
+    if docs is None:
+        tok_np, seg_np = _packed_ids(packing, args.seed + 21, batch, seq, cfg.vocab_size)
+    else:
+        rng = np.random.default_rng(args.seed + 21)
+        tok_np, seg_np = packing.pack_documents(
+            [rng.integers(0, cfg.vocab_size, size=n) for n in docs], seq)
     tokens = torch.tensor(tok_np, device="cuda")
     segs = torch.tensor(seg_np, device="cuda")
     step = train.make_train_step_packed(cfg, lr=1e-3)
@@ -1667,31 +1854,66 @@ def phase_train_packed(args, cfg, params, train, packing, flash, benchit, counte
     want.update(flash_fwd=layers * TRAIN_STEPS, flash_bwd_dq=layers * TRAIN_STEPS,
                 flash_bwd_dkv=layers * TRAIN_STEPS)
     # Attention forward flops of this run's data: 4 d per live pair and head.
-    pairs = _live_pairs(flash, TRAIN_B, TRAIN_S, TRAIN_S,
-                        dict(causal=True, kv_len=None, q_offset=0, q_seq_len=TRAIN_S),
+    pairs = _live_pairs(flash, batch, seq, seq,
+                        dict(causal=True, kv_len=None, q_offset=0, q_seq_len=seq,
+                             window=cfg.sliding_window),
                         dict(q_segment_ids=segs, kv_segment_ids=segs))
     attn_fwd = layers * 4 * cfg.head_dim * cfg.num_q_heads * pairs
     valid = int(((segs[:, 1:] == segs[:, :-1]) & (segs[:, 1:] >= 0)).sum())
-    rec = _train_rec("train_packed", cfg, benchit, card, wall, TRAIN_STEPS, [float(x) for x in out],
+    rec = _train_rec(phase, cfg, benchit, card, wall, TRAIN_STEPS, [float(x) for x in out],
                      launches, want, attn_fwd, {
                          "documents_per_row": [len(set(r.tolist()) - {-1}) for r in seg_np],
                          "pad_tokens": int((seg_np < 0).sum()), "valid_targets": valid,
                          "live_pairs_per_head": pairs,
-                     })
+                     }, model, batch, seq)
     emit(rec)
-    report["train_packed"] = rec
+    report[phase] = rec
     return rec
 
 
-def phase_train_parity(args, transformer, train, packing, report):
+def phase_train_windowed(args, transformer, train, packing, flash, benchit, counters, card,
+                         report):
+    """The windowed models' steps at full width, 2 layers, bf16, B = 1,
+    S = 8192 (WTRAIN_B, WTRAIN_S): train_mistral (Mistral-7B-class with its
+    published window 4096), train_gemma2 (Gemma-2-9B-class: window 4096,
+    softcap 50, head_dim 256; with a profile of one step) and
+    train_gemma2_packed (the packed step on WTRAIN_DOCS: the two-pass
+    backward with segment ids and the window).  Each: one warm-up step, then
+    TRAIN_STEPS counted."""
+    out = {}
+    for phase, make_cfg in (("train_mistral", transformer.ModelConfig.mistral7b),
+                            ("train_gemma2", transformer.ModelConfig.gemma2_9b)):
+        cfg = make_cfg(num_layers=2)
+        params = transformer.init_params(args.seed, cfg)
+        model = WTRAIN_MODELS[phase]
+        out[phase] = phase_train(args, cfg, params, train, benchit, counters, card, report,
+                                 remat=False, phase=phase, model=model, batch=WTRAIN_B,
+                                 seq=WTRAIN_S, profile=phase == "train_gemma2")
+        if phase == "train_gemma2":
+            out["train_gemma2_packed"] = phase_train_packed(
+                args, cfg, params, train, packing, flash, benchit, counters, card, report,
+                phase="train_gemma2_packed", model=model, batch=WTRAIN_B, seq=WTRAIN_S,
+                docs=WTRAIN_DOCS)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_parity(args, transformer, train, packing, report, *, phase="train_parity",
+                       cfg=None, docs=(70, 100, 50)):
     """Plain and packed steps, remat off and on, two steps each, on the card
     and on the CPU from the same float32 parameters (2-layer cut at the
-    training width, B=1, S=256)."""
-    cfg = _train_cfg(transformer, "float32")
-    base = transformer.init_params(args.seed, cfg, device="cpu")
+    training width, B=1, S=256; ``cfg`` another 2-layer float32 cut, its
+    parameters drawn on the card and copied, packed from ``docs``)."""
+    if cfg is None:
+        cfg = _train_cfg(transformer, "float32")
+        base = transformer.init_params(args.seed, cfg, device="cpu")
+    else:
+        base = _to_card(transformer.init_params(args.seed, cfg), "cpu")
+        torch.cuda.empty_cache()
     rng = np.random.default_rng(args.seed + 30)
     tokens = rng.integers(0, cfg.vocab_size, (1, 256)).astype(np.int32)
-    docs = [rng.integers(0, cfg.vocab_size, int(n)) for n in (70, 100, 50)]
+    docs = [rng.integers(0, cfg.vocab_size, int(n)) for n in docs]
     p_tokens, p_segs = packing.pack_documents(docs, 256)
 
     def copy_to(dev):
@@ -1705,6 +1927,7 @@ def phase_train_parity(args, transformer, train, packing, report):
         return (torch.tensor(tokens, device=dev),)
 
     cases = []
+    t0 = time.perf_counter()
     for packed in (False, True):
         grads = {}
         for dev in ("cpu", "cuda"):
@@ -1732,14 +1955,26 @@ def phase_train_parity(args, transformer, train, packing, report):
                 "ok": loss_rel <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_TOL
                 and grad_rel <= TRAIN_GRAD_RTOL,
             })
-    rec = {"phase": "train_parity", "layers": 2, "dtype": "float32", "batch": 1, "seq": 256,
+            del runs, p_cpu, p_gpu
+    rec = {"phase": phase, "layers": 2, "dtype": "float32", "batch": 1, "seq": 256,
+           "window": cfg.sliding_window, "logit_softcap": cfg.logit_softcap,
+           "head_dim": cfg.head_dim, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "lr": 1e-3, "steps": 2, "packed_docs": [len(d) for d in docs], "cases": cases,
            "tol": {"loss_rel": TRAIN_LOSS_RTOL, "param_abs": TRAIN_PARAM_TOL,
                    "grad_rel": TRAIN_GRAD_RTOL},
+           "seconds": time.perf_counter() - t0,
            "ok": all(c["ok"] for c in cases)}
     emit(rec)
-    report["train_parity"] = rec
+    report[phase] = rec
+    del base
     return rec
+
+
+# The windowed models' parity cuts (full width, 2 float32 layers), their
+# window cut from 4096 to 128 so that it bites within S = 256, and packed
+# from documents of 150, 70 and 30 tokens (the window bites in the first).
+PARITY_WINDOW = 128
+PARITY_DOCS = (150, 70, 30)
 
 
 def main() -> int:
@@ -1775,6 +2010,8 @@ def main() -> int:
         "flash_naive": naive_checks(flash, benchit, gen, name, report),
         **bwd_checks(backward, flash, benchit, packing, args, gen, name, report),
     }
+    # {backward kernel: {windowed case: its timed check}}
+    bwd_windowed = bwd_window_checks(backward, flash, benchit, gen, name, report)
     cfg = dataclasses.replace(
         transformer.ModelConfig.llama7b_attention(), num_layers=args.layers
     )
@@ -1819,7 +2056,15 @@ def main() -> int:
     }
     del tparams
     torch.cuda.empty_cache()
+    trained.update(phase_train_windowed(args, transformer, train, packing, flash, benchit,
+                                        counters, name, report))
     phase_train_parity(args, transformer, train, packing, report)
+    for phase, make_cfg in (("train_parity_mistral_w128", transformer.ModelConfig.mistral7b),
+                            ("train_parity_gemma2_w128", transformer.ModelConfig.gemma2_9b)):
+        pcfg = dataclasses.replace(make_cfg(num_layers=2), dtype="float32",
+                                   sliding_window=PARITY_WINDOW)
+        phase_train_parity(args, transformer, train, packing, report, phase=phase, cfg=pcfg,
+                           docs=PARITY_DOCS)
 
     paths = {"serve": serve["launches"], "serve_chunked": chunked["launches"],
              "serve_int8": serve_int8["launches"],
@@ -1844,6 +2089,9 @@ def main() -> int:
         })
         timed = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                  "bytes_ms", "ops_ms", "library_ms")
+        if kname in bwd_windowed:
+            summary[-1]["windowed"] = {case: {k: rec[k] for k in timed}
+                                       for case, rec in bwd_windowed[kname].items()}
         if kname in QUANT_KERNELS:
             summary[-1]["d256_window_softcap"] = {k: serving[None][kname][1][k] for k in timed}
             # The 8-bit form: int8's timed check, fp8's beside it, and both
@@ -1870,7 +2118,8 @@ def main() -> int:
                            "parity", "parity_chunked", "parity_quant", "parity_quant_chunked",
                            "parity_gemma2", "parity_gemma2_chunked", "parity_quant_gemma2",
                            "parity_quant_gemma2_chunked", "train", "train_remat", "train_packed",
-                           "train_parity")
+                           "train_mistral", "train_gemma2", "train_gemma2_packed", "train_parity",
+                           "train_parity_mistral_w128", "train_parity_gemma2_w128")
                if not report[p]["ok"]]
     failed += [k["name"] for k in summary if k["launches"] == 0]
     failed += [f"{k['name']}/quantized" for k in summary

@@ -3,18 +3,27 @@
 //
 // Every backward kernel recomputes, for each live (query row i, key column j)
 // pair, the forward's probability and the score gradient from the saved
-// statistics (flashattention_tpu/ops/backward.py:8-13):
-//   P_ij  = exp(scale * q_i . k_j - lse_i)        (0 where masked, exactly)
+// statistics (flashattention_tpu/ops/backward.py:8-13, :216-249):
+//   s_ij  = scale * q_i . k_j, capped to cap * tanh(s_ij / cap) with a softcap
+//   P_ij  = exp(s_ij - lse_i)                      (0 where masked, exactly)
 //   dP_ij = do_i . v_j
-//   dS_ij = P_ij * (dP_ij - di_i) * scale,         di_i = do_i . o_i
-// and sums dV_j += P_ij do_i, dK_j += dS_ij q_i, dQ_i += dS_ij k_j.
+//   dS_ij = P_ij * (dP_ij - di_i) * scale * c_ij,  di_i = do_i . o_i
+// where c_ij = 1 - (s_ij / cap)^2 is the softcap's derivative, taken at the
+// capped score (1 without a cap), and sums dV_j += P_ij do_i,
+// dK_j += dS_ij q_i, dQ_i += dS_ij k_j.  A pair is live where the key column
+// is below kv_len, at or before the row's causal position and, with a
+// sliding window (causal only), after position - window.
 //
-// Layout common to the three: a block owns 32 rows (query rows or key rows,
-// by kernel); eight threads share a row and keep an eighth of each of its
-// d-vectors in registers as interleaved float4 chunks (chunk c of thread
-// `part` is float4 number part + 8 c), so the eight threads of a row read
-// eight neighbouring float4 of a staged row and the four rows of a warp read
-// the same ones (a broadcast).  Dot products meet through three shuffles.
+// Layout common to the three: a block of 256 threads owns Layout<D>::kTile
+// rows (query rows or key rows, by kernel); Layout<D>::kTpr threads share a
+// row and keep their part of each of its d-vectors in registers as
+// interleaved float4 chunks (chunk c of thread `part` is float4 number
+// part + kTpr c), so the threads of a row read neighbouring float4 of a
+// staged row and every row of a warp reads the same ones (a broadcast).  The
+// threads per row grow with D so that a thread keeps at most four chunks of
+// each vector (64 floats of k, v, dK, dV plus 32 of q, do in the key-row
+// kernels): 4 at d = 16 (64-row tiles), 8 at d = 32-128 (32-row tiles), 16 at
+// d = 256 (16-row tiles).  Dot products meet through log2(kTpr) shuffles.
 // Everything is float32 on the CUDA cores.
 #pragma once
 
@@ -22,26 +31,33 @@
 
 namespace fa_bwd {
 
-constexpr int kThreadsPerRow = 8;
-constexpr int kTile = 32;                         // rows per block and per staged tile
-constexpr int kThreads = kTile * kThreadsPerRow;  // 256
+constexpr int kThreads = 256;
 
-// Sum of a value over the eight threads of a row (all eight get the sum).
+template <int D>
+struct Layout {
+  static constexpr int kTpr = D >= 256 ? 16 : D <= 16 ? 4 : 8;  // threads per row
+  static constexpr int kTile = kThreads / kTpr;                 // rows per block and tile
+  static constexpr int kVec = D / 4;                            // float4 per row
+  static constexpr int kChunks = kVec / kTpr;                   // float4 per thread
+  static_assert(kChunks >= 1 && kVec % kTpr == 0, "head_dim must be 16, 32, 64, 128 or 256");
+};
+
+// Sum of a value over the kTpr threads of a row (all of them get the sum).
+template <int kTpr>
 __device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
+#pragma unroll
+  for (int off = 1; off < kTpr; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
 // This thread's part of the dot product of two d-vectors, one in registers
 // (its chunks) and one staged in shared memory (the whole row).
-template <int kChunks>
-__device__ __forceinline__ float part_dot(const float4 (&a)[kChunks], const float4* row,
-                                          int part) {
+template <int D>
+__device__ __forceinline__ float part_dot(const float4 (&a)[Layout<D>::kChunks],
+                                          const float4* row, int part) {
   float s = 0.f;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) s += fa::dot4(a[c], row[part + kThreadsPerRow * c]);
+  for (int c = 0; c < Layout<D>::kChunks; ++c) s += fa::dot4(a[c], row[part + Layout<D>::kTpr * c]);
   return s;
 }
 
@@ -56,39 +72,75 @@ __device__ __forceinline__ int row_limit(int r, int rows, int kv_len, int q_offs
   return lim;
 }
 
-// The largest position of the query rows [r0, r0 + kTile): the last row's,
-// or, for a tile that crosses a GQA segment boundary, the segment's last.
-__device__ __forceinline__ int tile_last_pos(int r0, int rows, int q_seq_len) {
-  const int r1 = min(rows, r0 + kTile) - 1;
+// The first key column query row r may see: with a sliding window (window
+// > 0, causal only) the first after position - window, else 0.
+__device__ __forceinline__ int row_first(int r, int q_offset, int q_seq_len, int window) {
+  return window > 0 ? max(0, q_offset + r % q_seq_len - window + 1) : 0;
+}
+
+// The largest and the smallest position of the query rows [r0, r0 + tile):
+// the last and the first row's, or, for a tile that crosses a GQA segment
+// boundary, the segment's last and the next segment's first (0).
+__device__ __forceinline__ int tile_last_pos(int r0, int tile, int rows, int q_seq_len) {
+  const int r1 = min(rows, r0 + tile) - 1;
   return (r0 / q_seq_len == r1 / q_seq_len) ? r1 % q_seq_len : q_seq_len - 1;
 }
 
-// Load the d-vector chunks of one row that this thread keeps.
-template <typename T, int kChunks>
-__device__ __forceinline__ void load_chunks(float4 (&dst)[kChunks], const T* row, int part) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) dst[c] = fa::load4(row + 4 * (part + kThreadsPerRow * c));
+__device__ __forceinline__ int tile_first_pos(int r0, int tile, int rows, int q_seq_len) {
+  const int r1 = min(rows, r0 + tile) - 1;
+  return (r0 / q_seq_len == r1 / q_seq_len) ? r0 % q_seq_len : 0;
 }
 
-template <typename T, int kChunks>
-__device__ __forceinline__ void store_chunks(T* row, const float4 (&src)[kChunks], int part) {
+// P_ij and dS_ij of one pair (.x, .y) from its scaled score s = scale q.k,
+// dP_ij = do.v and its row's lse and di; 0 for a pair that is not `live`.
+// With kWindowCap and a cap > 0 the score is capped first, and dS takes the
+// cap's derivative at the capped score s_c: d(cap tanh(s / cap))/ds =
+// 1 - tanh^2(s / cap) = 1 - (s_c / cap)^2 (backward.py:219-221, :248-249).
+template <bool kWindowCap>
+__device__ __forceinline__ float2 p_ds(float s, float dp, float lse, float di, bool live,
+                                       float scale, float cap) {
+  if constexpr (kWindowCap) {
+    if (cap > 0.f) {
+      const float s_c = fa::softcap(s, cap);
+      const float t = s_c / cap;
+      const float p = live ? expf(s_c - lse) : 0.f;
+      return make_float2(p, p * (dp - di) * scale * (1.f - t * t));
+    }
+  }
+  const float p = live ? expf(s - lse) : 0.f;
+  return make_float2(p, p * (dp - di) * scale);
+}
+
+// Load the d-vector chunks of one row that this thread keeps.
+template <typename T, int D>
+__device__ __forceinline__ void load_chunks(float4 (&dst)[Layout<D>::kChunks], const T* row,
+                                            int part) {
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) fa::store4(row + 4 * (part + kThreadsPerRow * c), src[c]);
+  for (int c = 0; c < Layout<D>::kChunks; ++c)
+    dst[c] = fa::load4(row + 4 * (part + Layout<D>::kTpr * c));
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_chunks(T* row, const float4 (&src)[Layout<D>::kChunks],
+                                             int part) {
+#pragma unroll
+  for (int c = 0; c < Layout<D>::kChunks; ++c)
+    fa::store4(row + 4 * (part + Layout<D>::kTpr * c), src[c]);
 }
 
 // Stage the query-side rows [r0, r0 + kTile) of one head: q and do as
-// float32, lse, di, each row's last visible column (row_limit) and its
-// segment id.  Rows past the end are zeros with limit -1.
+// float32, lse, di, each row's first and last visible column (row_first,
+// row_limit) and its segment id.  Rows past the end are zeros with limit -1.
 template <typename T, int D>
 __device__ __forceinline__ void stage_q_rows(
     const T* q_head, const T* do_head, const float* lse_head, const float* di_head,
     const int* qseg_head, int r0, int rows, int kv_len, int q_offset, int q_seq_len,
-    int causal, float4 (*q_t)[D / 4], float4 (*do_t)[D / 4], float* lse_t, float* di_t,
-    int* lim_t, int* seg_t) {
-  constexpr int kVec = D / 4;
-  for (int idx = threadIdx.x; idx < kTile * kVec; idx += kThreads) {
-    const int i = idx / kVec;
-    const int c = idx % kVec;
+    int causal, int window, float4 (*q_t)[D / 4], float4 (*do_t)[D / 4], float* lse_t,
+    float* di_t, int* first_t, int* lim_t, int* seg_t) {
+  using L = Layout<D>;
+  for (int idx = threadIdx.x; idx < L::kTile * L::kVec; idx += kThreads) {
+    const int i = idx / L::kVec;
+    const int c = idx % L::kVec;
     const int r = r0 + i;
     float4 qx = make_float4(0.f, 0.f, 0.f, 0.f), dx = qx;
     if (r < rows) {
@@ -99,12 +151,13 @@ __device__ __forceinline__ void stage_q_rows(
     q_t[i][c] = qx;
     do_t[i][c] = dx;
   }
-  if (threadIdx.x < kTile) {
+  if (threadIdx.x < L::kTile) {
     const int i = threadIdx.x;
     const int r = r0 + i;
     const bool in = r < rows;
     lse_t[i] = in ? lse_head[r] : 0.f;
     di_t[i] = in ? di_head[r] : 0.f;
+    first_t[i] = row_first(r, q_offset, q_seq_len, window);
     lim_t[i] = row_limit(r, rows, kv_len, q_offset, q_seq_len, causal);
     seg_t[i] = (in && qseg_head != nullptr) ? qseg_head[r] : 0;
   }

@@ -40,9 +40,10 @@
 // loaded (payload x its row's scale, in float32), the same product with one
 // rounding fewer.  A lane loads its E payload bytes of a row with 32-bit
 // loads.  The bytes read halve against bfloat16 (d + 4 bytes per row and
-// head), so the bound halves too.  These forms are built into their own
-// library (FA_QUANT, see ops/kernels.py) for the (head_dim, G) pairs of the
-// models served with 8-bit pages.
+// head), so the bound halves too.  These forms are built for every
+// (head_dim, G) pair the unquantized form takes, into libraries of their own
+// (FA_QUANT), one head_dim (FA_HEAD_DIM) each, so that the four build in
+// parallel beside the others (see ops/kernels.py).
 #include "common.cuh"
 
 #include <type_traits>
@@ -276,15 +277,22 @@ int launch_w(const Args& a) {
                                          : launch<T, P, D, G, false>(a);
 }
 
+template <typename T, typename P, int D>
+int launch_g(int g, const Args& a) {
+  switch (g) {
+    case 1: return launch_w<T, P, D, 1>(a);
+    case 2: return launch_w<T, P, D, 2>(a);
+    case 4: return launch_w<T, P, D, 4>(a);
+    case 8: return launch_w<T, P, D, 8>(a);
+    default: return -1;
+  }
+}
+
 #ifdef FA_QUANT
-// 8-bit pages: the (head_dim, G) pairs of the models served with them
-// (Llama-7B 128/1, Mistral- and Mixtral-class 128/4, Gemma-2-9B 256/2).
+// 8-bit pages: this library's head_dim, every G.
 template <typename T, typename P>
 int launch_d(int d, int g, const Args& a) {
-  if (d == 128 && g == 1) return launch_w<T, P, 128, 1>(a);
-  if (d == 128 && g == 4) return launch_w<T, P, 128, 4>(a);
-  if (d == 256 && g == 2) return launch_w<T, P, 256, 2>(a);
-  return -1;
+  return d == FA_HEAD_DIM ? launch_g<T, P, FA_HEAD_DIM>(g, a) : -1;
 }
 
 template <typename T>
@@ -294,25 +302,14 @@ int launch_kv(int kv_dtype, int d, int g, const Args& a) {
   return -1;
 }
 #else
-template <typename T, int D>
-int launch_g(int g, const Args& a) {
-  switch (g) {
-    case 1: return launch_w<T, T, D, 1>(a);
-    case 2: return launch_w<T, T, D, 2>(a);
-    case 4: return launch_w<T, T, D, 4>(a);
-    case 8: return launch_w<T, T, D, 8>(a);
-    default: return -1;
-  }
-}
-
 template <typename T>
 int launch_kv(int kv_dtype, int d, int g, const Args& a) {
   if (kv_dtype != (std::is_same<T, float>::value ? fa::kFloat32 : fa::kBFloat16)) return -1;
   switch (d) {
-    case 32: return launch_g<T, 32>(g, a);
-    case 64: return launch_g<T, 64>(g, a);
-    case 128: return launch_g<T, 128>(g, a);
-    case 256: return launch_g<T, 256>(g, a);
+    case 32: return launch_g<T, T, 32>(g, a);
+    case 64: return launch_g<T, T, 64>(g, a);
+    case 128: return launch_g<T, T, 128>(g, a);
+    case 256: return launch_g<T, T, 256>(g, a);
     default: return -1;
   }
 }

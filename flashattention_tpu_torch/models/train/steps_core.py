@@ -14,7 +14,6 @@ from __future__ import annotations
 from flashattention_tpu_torch.models.train.common import _make_step
 from flashattention_tpu_torch.models.train.forward import make_grad_fn
 from flashattention_tpu_torch.models.transformer import ModelConfig
-from flashattention_tpu_torch.ops.backward import _check_bwd_ported
 from flashattention_tpu_torch.utils.device import resolve_device
 
 __all__ = ["make_train_step", "make_train_step_packed"]
@@ -36,7 +35,6 @@ def _on_device(step, device):
 
 def _check(cfg: ModelConfig, attn_dropout):
     cfg.check_ported()
-    _check_bwd_ported(cfg.sliding_window, cfg.logit_softcap)
     if attn_dropout:
         raise NotImplementedError(
             "attention dropout is not ported yet: it comes with the attention-dropout "

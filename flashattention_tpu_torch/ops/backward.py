@@ -2,14 +2,17 @@
 differentiable attention op.
 
 Counterpart of ``flashattention_tpu/ops/backward.py``.  With
-``lse_i = m_i + log l_i`` and ``P_ij = exp(scale * q_i . k_j - lse_i)``
-(backward.py:8-13)::
+``lse_i = m_i + log l_i``, the score ``s_ij = scale * q_i . k_j`` (capped to
+``cap * tanh(s_ij / cap)`` with a logit softcap) and ``P_ij = exp(s_ij -
+lse_i)`` (backward.py:8-13, :216-249)::
 
     dV_j = sum_i P_ij dO_i        dP_ij = dO_i . V_j
-    dS_ij = P_ij (dP_ij - D_i) scale,   D_i = dO_i . O_i
+    dS_ij = P_ij (dP_ij - D_i) scale c_ij,   D_i = dO_i . O_i
     dQ_i = sum_j dS_ij K_j        dK_j = sum_i dS_ij Q_i
 
-A masked ``P`` is exactly 0.  On CUDA tensors :func:`flash_attention_bwd`
+where ``c_ij = 1 - (s_ij / cap)^2``, the softcap's derivative at the capped
+score (1 without a cap).  A masked ``P`` (causal, sliding window, kv_len,
+segment ids) is exactly 0.  On CUDA tensors :func:`flash_attention_bwd`
 launches hand-written kernels: the fused one-pass ``csrc/flash_bwd.cu``
 (replaces ``_fused_bwd_kernel``, backward.py:401) by default, and the
 two-pass ``csrc/flash_bwd_dq.cu`` + ``csrc/flash_bwd_dkv.cu`` (replace
@@ -37,11 +40,15 @@ import torch
 from flashattention_tpu_torch.ops import kernels
 from flashattention_tpu_torch.ops.flash import (
     _DTYPES,
+    _HEAD_DIMS,
     check_ported,
+    check_window,
     flash_attention,
     fold_segment_ids,
+    kernel_options,
     visible,
 )
+from flashattention_tpu_torch.ops.reference import softcap
 
 __all__ = [
     "attention_vjp",
@@ -51,22 +58,6 @@ __all__ = [
     "flash_attention_bwd_plain",
     "fused_bwd_kernel",
 ]
-
-_HEAD_DIMS = (32, 64, 128)
-
-
-def _check_bwd_ported(window=None, logit_softcap=None):
-    """Raise ``NotImplementedError`` for the forward options the backward
-    kernels do not take yet; every differentiable route checks this before
-    it launches anything."""
-    if window is not None or logit_softcap is not None:
-        raise NotImplementedError(
-            "sliding window and logit softcap have no backward yet: the backward "
-            "kernels (flash_bwd, flash_bwd_dq, flash_bwd_dkv) take neither; they "
-            "come with the Gemma-2/Mistral training slice (serving runs attention "
-            "under torch.no_grad())"
-        )
-
 
 def _check_tpu_options(block_sizes=None, precision=None, interpret=None):
     """The JAX signature's TPU tiling and MXU-precision knobs have no
@@ -91,7 +82,8 @@ def flash_attention_bwd(
       q, o, do: ``(BH, R, d)``; k, v: ``(BH, S_kv, d)``; one dtype (float32
         or bfloat16), contiguous.  lse: ``(BH, R)`` float32, ``m + log l``
         of the forward's statistics.
-      causal, scale, kv_len, q_offset, q_seq_len: as in the forward.
+      causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap: as
+        in the forward, whose ``lse`` this must be.
       fused: the one-pass kernel (default without segment ids) or the
         two-pass kernels (``False``; the default with segment ids).
       q_segment_ids, kv_segment_ids: integer ``(BH, R)``, ``(BH, S_kv)``.
@@ -102,7 +94,6 @@ def flash_attention_bwd(
     _check_tpu_options(block_sizes, precision, interpret)
     if dropout_rate == 0.0:
         dropout_rate = None  # rate 0 is the identity, not an error
-    _check_bwd_ported(window, logit_softcap)
     check_ported(dropout_rate=dropout_rate, block_mask=block_mask)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"expected (BH, S, d) tensors, got {q.shape} {k.shape} {v.shape}")
@@ -116,7 +107,7 @@ def flash_attention_bwd(
         raise ValueError(f"lse must be (BH, R)=({bh}, {rows}), got {tuple(lse.shape)}")
     if not (q.dtype == k.dtype == v.dtype == do.dtype):
         raise ValueError(f"q/k/v/do dtypes differ: {q.dtype} {k.dtype} {v.dtype} {do.dtype}")
-    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len)
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap)
     if not 0 <= kw["kv_len"] <= s_kv:
         raise ValueError(f"kv_len {kw['kv_len']} outside [0, {s_kv}]")
     if kw["q_seq_len"] <= 0 or rows % kw["q_seq_len"]:
@@ -140,23 +131,29 @@ def flash_attention_bwd(
 
 
 def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_len,
-               q_segment_ids=None, kv_segment_ids=None):
+               window=None, logit_softcap=None, q_segment_ids=None, kv_segment_ids=None):
     """The backward from the formulas, float32 throughout: ``(dq, dk, dv)``
-    in float32, with ``P`` recomputed as ``exp(s - lse)`` and 0 where
-    masked."""
+    in float32, with the capped score ``s``, ``P`` recomputed as
+    ``exp(s - lse)`` and 0 where masked, and dS times the softcap's
+    derivative ``1 - (s / cap)^2``."""
     rows, s_kv = q.shape[1], k.shape[1]
     qf, kf, dof = q.float(), k.float(), do.float()
     mask = visible(
         rows, s_kv, causal=causal, kv_len=kv_len, q_offset=q_offset, q_seq_len=q_seq_len,
-        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, device=q.device,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, window=window,
+        device=q.device,
     )
-    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    s = softcap(torch.einsum("bqd,bkd->bqk", qf, kf) * scale, logit_softcap)
     p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    cap_factor = None if logit_softcap is None else 1.0 - (s / logit_softcap) ** 2
     del s
     dv = torch.einsum("bqk,bqd->bkd", p, dof)
     ds = torch.einsum("bqd,bkd->bqk", dof, v.float())
     ds = p * (ds - di[..., None]) * scale
     del p
+    if cap_factor is not None:
+        ds *= cap_factor
+        del cap_factor
     dq = torch.einsum("bqk,bkd->bqd", ds, kf)
     dk = torch.einsum("bqk,bqd->bkd", ds, qf)
     return dq, dk, dv
@@ -164,7 +161,7 @@ def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_l
 
 def flash_attention_bwd_plain(
     q, k, v, o, lse, do, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
-    q_seq_len=None, q_segment_ids=None, kv_segment_ids=None,
+    q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None, kv_segment_ids=None,
 ):
     """The backward kernels' function in plain PyTorch: the CPU path of
     :func:`flash_attention_bwd` and the kernels' yardstick on the card.
@@ -174,8 +171,8 @@ def flash_attention_bwd_plain(
     dq, dk, dv = _bwd_plain(
         q, k, v, do, lse, di, causal=causal, scale=scale,
         kv_len=s_kv if kv_len is None else kv_len, q_offset=q_offset,
-        q_seq_len=rows if q_seq_len is None else q_seq_len,
-        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+        q_seq_len=rows if q_seq_len is None else q_seq_len, window=window,
+        logit_softcap=logit_softcap, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
     )
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -204,19 +201,28 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len):
+def _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap):
     """The launchers' options with kv_len and q_seq_len defaulted."""
+    check_window(window, logit_softcap, causal)
     return dict(causal=bool(causal), scale=float(scale),
                 kv_len=k.shape[1] if kv_len is None else int(kv_len), q_offset=int(q_offset),
-                q_seq_len=q.shape[1] if q_seq_len is None else int(q_seq_len))
+                q_seq_len=q.shape[1] if q_seq_len is None else int(q_seq_len),
+                window=None if window is None else int(window),
+                logit_softcap=None if logit_softcap is None else float(logit_softcap))
+
+
+def _scalars(kw):
+    """The C entry points' trailing options, after the tensors and shapes."""
+    return (kw["kv_len"], kw["q_offset"], kw["q_seq_len"], int(kw["causal"]), kw["scale"],
+            *kernel_options(kw["window"], kw["logit_softcap"]))
 
 
 def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None,
-                     q_offset=0, q_seq_len=None):
+                     q_offset=0, q_seq_len=None, window=None, logit_softcap=None):
     """One launch of the fused one-pass kernel (``csrc/flash_bwd.cu``):
     ``(dq, dk, dv)``.  dQ is summed with float32 atomics into a zeroed
     buffer, then cast to q's dtype.  On CPU tensors: the plain version."""
-    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len)
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap)
     if q.device.type == "cpu":
         dq, dk, dv = _bwd_plain(q, k, v, do, lse, di, **kw)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -226,8 +232,7 @@ def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=No
     status = kernels.library("flash_bwd").fa_flash_bwd(
         dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, rows, s_kv, d,
-        kw["kv_len"], kw["q_offset"], kw["q_seq_len"], int(kw["causal"]), kw["scale"],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *_scalars(kw), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check_launch("flash_bwd", status, f"q {tuple(q.shape)} {q.dtype}")
     fused_bwd_kernel.launches += 1
@@ -235,10 +240,11 @@ def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=No
 
 
 def dq_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
-              q_seq_len=None, q_segment_ids=None, kv_segment_ids=None):
+              q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None,
+              kv_segment_ids=None):
     """One launch of the two-pass backward's dQ kernel
     (``csrc/flash_bwd_dq.cu``).  On CPU tensors: the plain version."""
-    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len)
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap)
     if q.device.type == "cpu":
         dq, _, _ = _bwd_plain(q, k, v, do, lse, di, q_segment_ids=q_segment_ids,
                               kv_segment_ids=kv_segment_ids, **kw)
@@ -250,8 +256,7 @@ def dq_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_o
     status = kernels.library("flash_bwd_dq").fa_flash_bwd_dq(
         dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), _ptr(q_segment_ids), _ptr(kv_segment_ids), dq.data_ptr(), bh, rows,
-        s_kv, d, kw["kv_len"], kw["q_offset"], kw["q_seq_len"], int(kw["causal"]), kw["scale"],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        s_kv, d, *_scalars(kw), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check_launch("flash_bwd_dq", status, f"q {tuple(q.shape)} {q.dtype}")
     dq_kernel.launches += 1
@@ -259,11 +264,12 @@ def dq_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_o
 
 
 def dkv_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
-               q_seq_len=None, q_segment_ids=None, kv_segment_ids=None):
+               q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None,
+               kv_segment_ids=None):
     """One launch of the two-pass backward's dK/dV kernel
     (``csrc/flash_bwd_dkv.cu``): ``(dk, dv)``, each KV head summed over all
     of its folded query rows.  On CPU tensors: the plain version."""
-    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len)
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap)
     if q.device.type == "cpu":
         _, dk, dv = _bwd_plain(q, k, v, do, lse, di, q_segment_ids=q_segment_ids,
                                kv_segment_ids=kv_segment_ids, **kw)
@@ -275,8 +281,8 @@ def dkv_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_
     status = kernels.library("flash_bwd_dkv").fa_flash_bwd_dkv(
         dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), _ptr(q_segment_ids), _ptr(kv_segment_ids), dk.data_ptr(),
-        dv.data_ptr(), bh, rows, s_kv, d, kw["kv_len"], kw["q_offset"], kw["q_seq_len"],
-        int(kw["causal"]), kw["scale"], torch.cuda.current_stream(q.device).cuda_stream,
+        dv.data_ptr(), bh, rows, s_kv, d, *_scalars(kw),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check_launch("flash_bwd_dkv", status, f"q {tuple(q.shape)} {q.dtype}")
     dkv_kernel.launches += 1
@@ -327,14 +333,15 @@ def attention_vjp(
     against k/v ``(B*KVH, S_kv, d)``); the backward sums dK/dV over all G
     groups' rows.  ``block_sizes`` is the forward kernel's tile
     (``BlockSizes()`` or None); ``precision`` and ``interpret`` are TPU
-    options and must be None.  Window, softcap, dropout and block masks
-    raise ``NotImplementedError`` before any launch until their slices.
+    options and must be None.  ``window`` and ``logit_softcap`` go to the
+    forward (whose lse then holds the capped, windowed scores) and to the
+    backward.  Dropout and block masks raise ``NotImplementedError`` before
+    any launch until their slices.
     """
     _check_tpu_options(None, precision, interpret)
     if dropout_rate == 0.0:
         dropout_rate = None
-    _check_bwd_ported(window, logit_softcap)
     check_ported(dropout_rate=dropout_rate, block_mask=block_mask)
     opts = dict(causal=bool(causal), scale=float(scale), q_seq_len=q_seq_len, kv_len=kv_len,
-                q_offset=int(q_offset))
+                q_offset=int(q_offset), window=window, logit_softcap=logit_softcap)
     return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids, opts, block_sizes)

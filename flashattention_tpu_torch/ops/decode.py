@@ -49,9 +49,6 @@ __all__ = [
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
 _GROUPS = (1, 2, 4, 8)
-# (head_dim, G) of paged decode's 8-bit forms: the models served with 8-bit
-# pages (Llama-7B, Mistral-/Mixtral-class, Gemma-2-9B-class).
-QUANT_DECODE_SHAPES = ((128, 1), (128, 4), (256, 2))
 
 
 def _gather(pages, scales, page_indices):
@@ -131,8 +128,7 @@ def paged_attention(
         q's dtype or (with the scale pools) int8 / fp8 payloads.
       k_scales_pages, v_scales_pages: float32 ``(P, KVH, page_size)``, given
         together for 8-bit pools: row j of a page is its payload times its
-        scale.  The kernel's 8-bit form takes (head_dim, G) in
-        :data:`QUANT_DECODE_SHAPES`.
+        scale.
       lengths: ``(B,)`` int32, tokens valid per request (q attends to
         ``[0, len)``).  A row of length 0 gets zeros; the JAX kernel leaves
         it unwritten (``decode.py:258``).
@@ -185,11 +181,6 @@ def paged_attention(
             f"paged_attention kernel takes head_dim in {_HEAD_DIMS} and G in "
             f"{_GROUPS}, got d={d}, G={g}"
         )
-    if quantized and (d, g) not in QUANT_DECODE_SHAPES:
-        raise ValueError(
-            f"paged_attention's 8-bit kernel takes (head_dim, G) in {QUANT_DECODE_SHAPES}, "
-            f"got ({d}, {g})"
-        )
     if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
         raise ValueError("paged_attention kernel takes int32 lengths and page_indices")
     if b > 65535:
@@ -197,7 +188,7 @@ def paged_attention(
     if quantized:
         kernels.check_aligned("paged_attention", k_pages, v_pages)
     o = torch.empty_like(q)
-    name = "paged_decode_quant" if quantized else "paged_decode"
+    name = f"paged_decode_quant_d{d}" if quantized else "paged_decode"  # a library per d
     status = kernels.library(name).fa_paged_decode(
         _DTYPES[q.dtype], KV_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), *(t.data_ptr() if quantized else None for t in (k_scales_pages, v_scales_pages)),

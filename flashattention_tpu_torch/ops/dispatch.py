@@ -8,9 +8,8 @@ folds segment ids into the same layout, and calls
 :func:`ops.flash.flash_attention`.  Where autograd is recording and an input
 requires a gradient (and no residuals are asked for), the call goes through
 :func:`ops.backward.attention_vjp` instead, so ``torch.autograd`` works
-through this public entry point (dispatch.py:295-308); with a sliding window
-or a logit softcap, which the backward kernels do not take yet, that route
-raises ``NotImplementedError`` before any launch.  8-bit K/V (int8 or fp8
+through this public entry point (dispatch.py:295-308), sliding window and
+logit softcap included.  8-bit K/V (int8 or fp8
 payloads with per-token scales ``k_scales``/``v_scales``) go to the forward
 kernel's 8-bit form only, as in the JAX package (dispatch.py:288-295); under
 autograd they raise before any launch.  Unlike the TPU
@@ -76,7 +75,6 @@ def attention(
       window: sliding window (causal only): query i attends keys in
         ``(i - window, i]`` (Mistral-style local attention).
       logit_softcap: scores become ``cap * tanh(s / cap)`` (Gemma-2).
-        Neither has a backward kernel yet: under autograd they raise.
       k_scales, v_scales: float32 per-token dequant scales of int8 / fp8 k,
         v payloads, given together: ``(B, H_kv, S_kv)`` for 4D inputs or
         ``(B*H_kv, S_kv)``.  Forward only: under autograd they raise.

@@ -5,7 +5,9 @@ its own into a shared library with a plain C interface and loaded with
 ``ctypes``; PyTorch's headers are never included, so a build takes seconds.
 The serving kernels' forms for 8-bit K/V payloads (int8 / fp8 with float32
 scales) come from the same sources built with ``-DFA_QUANT`` into libraries
-of their own (``*_quant``), so they build beside the others instead of
+of their own (``*_quant``; paged decode's, instantiated for every head_dim
+and group size, split further into one library per head_dim,
+``paged_decode_quant_d<D>``), so they build beside the others instead of
 lengthening the longest build.
 The build runs at first use, from the sources in the checkout only, into
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``).  A
@@ -43,33 +45,23 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FLASH_FWD = ("flash_fwd.cu", "fa_flash_fwd", [_I, _I, *[_P] * 10, *[_I] * 8, _F, _I, _F, _P])
 _PAGED_DECODE = ("paged_decode.cu", "fa_paged_decode", [_I, _I, *[_P] * 8, *[_I] * 6, _F, _I, _F, _P])
 _PAGED_PREFILL = ("paged_prefill.cu", "fa_paged_prefill", [_I, _I, *[_P] * 8, *[_I] * 9, _F, _I, _F, _P])
+_BWD = [*[_I] * 8, _F, _I, _F, _P]  # ..., causal, scale, window, softcap, stream
 KERNELS = {
     "flash_fwd": _FLASH_FWD,
     "paged_decode": _PAGED_DECODE,
     "paged_prefill": _PAGED_PREFILL,
     "flash_fwd_quant": (*_FLASH_FWD, ["-DFA_QUANT"]),
-    "paged_decode_quant": (*_PAGED_DECODE, ["-DFA_QUANT"]),
+    **{f"paged_decode_quant_d{d}": (*_PAGED_DECODE, ["-DFA_QUANT", f"-DFA_HEAD_DIM={d}"])
+       for d in (32, 64, 128, 256)},
     "paged_prefill_quant": (*_PAGED_PREFILL, ["-DFA_QUANT"]),
     "flash_naive": (
         "flash_naive.cu",
         "fa_flash_naive",
         [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
-    "flash_bwd": (
-        "flash_bwd.cu",
-        "fa_flash_bwd",
-        [_I, *[_P] * 9, *[_I] * 8, _F, _P],
-    ),
-    "flash_bwd_dq": (
-        "flash_bwd_dq.cu",
-        "fa_flash_bwd_dq",
-        [_I, *[_P] * 9, *[_I] * 8, _F, _P],
-    ),
-    "flash_bwd_dkv": (
-        "flash_bwd_dkv.cu",
-        "fa_flash_bwd_dkv",
-        [_I, *[_P] * 10, *[_I] * 8, _F, _P],
-    ),
+    "flash_bwd": ("flash_bwd.cu", "fa_flash_bwd", [_I, *[_P] * 9, *_BWD]),
+    "flash_bwd_dq": ("flash_bwd_dq.cu", "fa_flash_bwd_dq", [_I, *[_P] * 9, *_BWD]),
+    "flash_bwd_dkv": ("flash_bwd_dkv.cu", "fa_flash_bwd_dkv", [_I, *[_P] * 10, *_BWD]),
 }
 _HEADERS = ("common.cuh", "bwd_common.cuh")
 _FLAGS = [

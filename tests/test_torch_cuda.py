@@ -270,7 +270,8 @@ def test_quant_flash_kernel_matches_plain(qdtype, dtype, d, kw):
 
 @pytest.mark.parametrize("qdtype", QDTYPES)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("shape", list(decode.QUANT_DECODE_SHAPES), ids=lambda s: f"d{s[0]}-g{s[1]}")
+@pytest.mark.parametrize("shape", [(d, g) for d in decode._HEAD_DIMS for g in decode._GROUPS],
+                         ids=lambda s: f"d{s[0]}-g{s[1]}")
 @pytest.mark.parametrize("window", [None, 20], ids=["full", "window_softcap"])
 def test_quant_paged_kernel_matches_plain(qdtype, dtype, shape, window):
     d, g = shape
@@ -314,17 +315,27 @@ def test_quant_paged_prefill_kernel_matches_plain(qdtype, dtype, d, g, window):
 
 
 # Backward cases: (BH, G, S_q per group, S_kv) and the masks; "segments"
-# packs two documents and PAD_SEGMENT (-1) padding into each row.
+# packs two documents and PAD_SEGMENT (-1) padding into each row.  The
+# windowed cases scale q by 8 (and dO down by as much) so that the scores
+# reach the softcap: a window shorter than the kernels' tiles with a cap, a
+# window across tiles with segment ids, a window at a q_offset into a
+# longer KV sequence with a live length (every row still sees a column).
 BWD_CASES = {
     "full": dict(bh=3, g=1, s_q=96, s_kv=150, causal=False),
     "causal_gqa": dict(bh=2, g=3, s_q=70, s_kv=100, causal=True, q_offset=30),
     "kv_len_q_offset": dict(bh=2, g=2, s_q=50, s_kv=130, causal=True, kv_len=77, q_offset=60),
     "segments": dict(bh=2, g=2, s_q=80, s_kv=80, causal=True, segments=True),
+    "window_softcap": dict(bh=2, g=3, s_q=100, s_kv=100, causal=True, window=13,
+                           logit_softcap=20.0, qmul=8.0),
+    "segments_window": dict(bh=2, g=2, s_q=80, s_kv=80, causal=True, segments=True, window=37,
+                            logit_softcap=30.0, qmul=8.0),
+    "kv_len_q_offset_window": dict(bh=2, g=2, s_q=50, s_kv=130, causal=True, kv_len=100,
+                                   q_offset=60, window=70),
 }
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 16, 256])
 @pytest.mark.parametrize("case", list(BWD_CASES))
 def test_bwd_kernels_match_plain(dtype, d, case):
     """The fused kernel (no segment ids) and the two-pass dQ and dK/dV
@@ -334,11 +345,13 @@ def test_bwd_kernels_match_plain(dtype, d, case):
     float32 atomics in the fused kernel)."""
     c = BWD_CASES[case]
     rows = c["g"] * c["s_q"]
-    q = _randn((c["bh"], rows, d), dtype, 20)
+    qmul = c.get("qmul", 1.0)
+    q = _randn((c["bh"], rows, d), torch.float32, 20).mul(qmul).to(dtype)
     k, v = _randn((c["bh"], c["s_kv"], d), dtype, 21), _randn((c["bh"], c["s_kv"], d), dtype, 22)
-    do = _randn((c["bh"], rows, d), dtype, 23) * 0.25  # gradients below 4: see chip_smoke.py
+    do = _randn((c["bh"], rows, d), dtype, 23) * (0.25 / qmul)  # gradients below 4: see chip_smoke.py
     kw = dict(causal=c["causal"], scale=d**-0.5, kv_len=c.get("kv_len"),
-              q_offset=c.get("q_offset", 0), q_seq_len=c["s_q"])
+              q_offset=c.get("q_offset", 0), q_seq_len=c["s_q"], window=c.get("window"),
+              logit_softcap=c.get("logit_softcap"))
     seg = {}
     if c.get("segments"):
         ids = torch.full((c["bh"], c["s_q"]), -1, dtype=torch.int32)
@@ -437,15 +450,18 @@ def test_windowed_engine_on_card_matches_cpu(chunk, head_dim):
 
 @pytest.mark.parametrize("chunk", [0, 8], ids=["whole", "chunked"])
 @pytest.mark.parametrize("kv", ["int8", "fp8"])
-@pytest.mark.parametrize("head_dim", [128, 256])
+@pytest.mark.parametrize("head_dim", [128, 256, 32, 64])
 def test_quantized_engine_on_card_matches_cpu(head_dim, kv, chunk):
-    """An 8-bit KV cache and int8 weights: a tiny float32 model with the
-    kernels' 8-bit shapes (head_dim 128 with 4 KV heads, G = 1; head_dim 256
-    with G = 2, window 12 and softcap 30), whole-prompt and chunked with a
-    prefix hit: greedy tokens on the card equal the CPU's."""
-    kw = dict(head_dim=head_dim, num_kv_heads=4) if head_dim == 128 else dict(
-        head_dim=256, sliding_window=12, logit_softcap=30.0)
-    cfg = dataclasses.replace(transformer.ModelConfig.tiny(), dtype="float32", **kw)
+    """An 8-bit KV cache and int8 weights: float32 models at several of the
+    8-bit decode's (head_dim, G): tiny with head_dim 128 and 4 KV heads
+    (G = 1) and with head_dim 256 (G = 2, window 12, softcap 30), tiny as it
+    is (head_dim 32, G = 2) and the default ``ModelConfig()`` (head_dim 64,
+    G = 2); whole-prompt and chunked with a prefix hit: greedy tokens on the
+    card equal the CPU's."""
+    kw = {128: dict(head_dim=128, num_kv_heads=4), 32: {},
+          256: dict(head_dim=256, sliding_window=12, logit_softcap=30.0)}.get(head_dim)
+    model = transformer.ModelConfig() if head_dim == 64 else transformer.ModelConfig.tiny()
+    cfg = dataclasses.replace(model, dtype="float32", **(kw or {}))
     params = quant.quantize_weights(transformer.init_params(0, cfg, device="cpu"), "int8")
     base = np.random.default_rng(3).integers(0, 256, 26).tolist()
     outs = []
@@ -471,7 +487,21 @@ def test_train_step_on_card_matches_cpu(packed):
     """Three SGD steps of the tiny float32 model (GQA 4q/2kv, d = 32) on the
     card (the fused or two-pass backward kernels) and on the CPU (plain
     versions): losses within 1e-5 relative, parameters within 1e-5."""
-    cfg = dataclasses.replace(transformer.ModelConfig.tiny(), dtype="float32")
+    _check_train_card_vs_cpu(dataclasses.replace(transformer.ModelConfig.tiny(), dtype="float32"),
+                             packed)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["plain", "packed"])
+@pytest.mark.parametrize("head_dim", [16, 256])
+def test_windowed_train_step_on_card_matches_cpu(head_dim, packed):
+    """The same with Gemma-2's attention options, a sliding window of 24
+    over 96-token rows and softcap 30, at head_dim 16 and 256."""
+    cfg = dataclasses.replace(transformer.ModelConfig.tiny(), dtype="float32", head_dim=head_dim,
+                              sliding_window=24, logit_softcap=30.0)
+    _check_train_card_vs_cpu(cfg, packed)
+
+
+def _check_train_card_vs_cpu(cfg, packed):
     rng = np.random.default_rng(5)
     if packed:  # two rows of two documents each and PAD_SEGMENT padding
         docs = [rng.integers(0, 256, n) for n in (30, 50, 20, 60, 40)]

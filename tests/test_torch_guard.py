@@ -75,7 +75,9 @@ def test_chip_smoke_imports_no_jax():
     assert not [n for n in names if _forbidden(n)]
 
 
-@pytest.mark.parametrize("script", ["decode_ab.py", "window_mutants.py", "quant_mutants.py"])
+@pytest.mark.parametrize(
+    "script", ["decode_ab.py", "window_mutants.py", "quant_mutants.py", "bwd_mutants.py"]
+)
 def test_tools_import_no_jax(script):
     """The card scripts in ``torch_tools/`` drive the port alone."""
     with open(os.path.join(ROOT, "torch_tools", script)) as fh:
@@ -145,11 +147,10 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="backward"):  # no backward kernel
         ft.attention(x.requires_grad_(), x8, x8, causal=True, k_scales=sc, v_scales=sc)
     x = x.detach()
-    for kw in (dict(window=4), dict(logit_softcap=30.0)):  # no backward kernel yet
-        with pytest.raises(NotImplementedError, match="Gemma-2/Mistral training slice"):
-            backward.attention_vjp(x3, x3, x3, True, **kw)
-        with pytest.raises(NotImplementedError, match="Gemma-2/Mistral training slice"):
-            backward.flash_attention_bwd(x3, x3, x3, x3, x3[..., 0], x3, **kw)
+    for kw in (dict(window=4), dict(logit_softcap=30.0)):  # ported (Gemma-2/Mistral training)
+        assert backward.attention_vjp(x3, x3, x3, True, **kw).shape == x3.shape
+        grads = backward.flash_attention_bwd(x3, x3, x3, x3, x3[..., 0], x3, causal=True, **kw)
+        assert [g.shape for g in grads] == [x3.shape] * 3
     for kw, slice_ in (
         (dict(dropout_rate=0.1), "attention-dropout slice"),
         (dict(block_mask=object()), "block-sparse slice"),
@@ -166,5 +167,6 @@ def test_later_slices_raise():
     for make in (train.make_train_step, train.make_train_step_packed):
         with pytest.raises(NotImplementedError, match="attention-dropout slice"):
             make(cfg, attn_dropout=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Gemma-2/Mistral training slice"):
-        train.make_train_step(transformer.ModelConfig.mistral7b(), device="cpu")
+    for cfg in (transformer.ModelConfig.mistral7b(), transformer.ModelConfig.gemma2_9b()):
+        for make in (train.make_train_step, train.make_train_step_packed):  # ported
+            assert callable(make(cfg, device="cpu"))

@@ -137,8 +137,9 @@ def test_bf16_prefill_close_to_jax():
 
 def test_unported_model_features_raise():
     """MoE is not ported.  The windowed and softcapped presets serve (their
-    serving check passes; ``tests/test_torch_window.py`` runs them) but do
-    not train yet: the backward kernels take neither feature."""
+    serving check passes; ``tests/test_torch_window.py`` runs them) and
+    train: the steps build for them (``tests/test_torch_train.py`` holds a
+    windowed, softcapped step to the JAX package's)."""
     from flashattention_tpu_torch.models import train
 
     with pytest.raises(NotImplementedError):
@@ -146,5 +147,4 @@ def test_unported_model_features_raise():
     for name in ("mistral7b", "gemma2_9b"):
         cfg = getattr(tt.ModelConfig, name)(num_layers=1)
         cfg.check_ported()
-        with pytest.raises(NotImplementedError, match="training slice"):
-            train.make_train_step(cfg, device="cpu")
+        assert callable(train.make_train_step(cfg, device="cpu"))

@@ -521,3 +521,31 @@ def test_quantized_kv_engine_matches_jax(tiny32, dtype):
             outs.append([out[r] for r in rids])
             assert all(len(o) == 5 for o in outs[-1])
         assert outs[0] == outs[1], (chunk, outs)
+
+
+@pytest.mark.parametrize("model", ["tiny", "default_float32"])
+def test_int8_engine_at_the_runtime_tests_shapes_matches_jax(model):
+    """``tests/test_runtime.py:301``'s engine (an int8 cache of 8-token pages,
+    a 40-token prompt in chunks of 16, 5 tokens) on ``ModelConfig.tiny()`` in
+    its own bfloat16 (d = 32, G = 2), and on the default ``ModelConfig()``
+    (d = 64, G = 2) in float32 (in bfloat16 the two frameworks' roundings
+    part ways at its third token): the port generates the JAX engine's
+    greedy tokens.  On the card, paged decode's 8-bit form serves both
+    shapes (``tests/test_torch_cuda.py``)."""
+    jcfg, tcfg = jt.ModelConfig.tiny(), tt.ModelConfig.tiny()
+    if model == "default_float32":
+        jcfg = dataclasses.replace(jt.ModelConfig(), dtype="float32")
+        tcfg = dataclasses.replace(tt.ModelConfig(), dtype="float32")
+    jp = jt.init_params(jax.random.key(0), jcfg)
+    tp = tt.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    cc = dict(num_layers=jcfg.num_layers, num_kv_heads=jcfg.num_kv_heads, head_dim=jcfg.head_dim,
+              page_size=8, num_pages=64, dtype="int8")
+    prompt = np.random.default_rng(1).integers(0, jcfg.vocab_size, size=40).tolist()
+    outs = []
+    for mod, cache_mod, params, cfg, kw in ((je, jk, jp, jcfg, {}),
+                                            (te, tk, tp, tcfg, {"device": "cpu"})):
+        eng = mod.Engine(params, cfg, cache_mod.CacheConfig(**cc),
+                         mod.EngineConfig(max_batch=2, pages_per_seq=16, prefill_chunk=16), **kw)
+        rid = eng.add_request(prompt, 5)
+        outs.append(eng.run()[rid])
+    assert len(outs[1]) == 5 and outs[0] == outs[1], outs

@@ -8,9 +8,9 @@ tensors), for the three serving ops, a Gemma-shaped model (head_dim 256, so
 ``tests/test_runtime.py``'s windowed model (window 12, softcap 30).
 Tolerances: 1e-4 in float32, 2e-2 in bfloat16 (the JAX kernels round p to
 bfloat16 before PV, the port keeps it in float32); greedy tokens must be
-IDENTICAL to the JAX engine's.  The features have no backward kernel yet, so
-the training step and ``attention`` under autograd must refuse them before
-anything launches.
+IDENTICAL to the JAX engine's.  The training steps take such models, and
+``attention`` under autograd takes both options (their gradients against
+the JAX package: ``tests/test_torch_bwd_window.py``).
 """
 
 import dataclasses
@@ -29,6 +29,7 @@ from flashattention_tpu.runtime import engine as je
 from flashattention_tpu.runtime import kvcache as jk
 from flashattention_tpu_torch.models import train, transformer as tt
 from flashattention_tpu_torch.ops import backward, decode as td, flash as tf
+from flashattention_tpu_torch.ops import reference as tref
 from flashattention_tpu_torch.runtime import engine as te
 from flashattention_tpu_torch.runtime import kvcache as tk
 from flashattention_tpu_torch.utils.testing import validate_result
@@ -309,27 +310,35 @@ def test_engine_window_softcap_matches_jax(windowed, chunk):
         assert results[1][1] == 26 + 8 + 18 + 6
 
 
-# ── what still raises ───────────────────────────────────────────────────────
+# ── training and autograd ───────────────────────────────────────────────────
 
 
-def test_training_and_autograd_refuse_window_and_softcap(monkeypatch):
-    """No backward kernel takes a window or a softcap yet: the training steps
-    refuse such a model when they are made, and ``attention`` under autograd
-    refuses before the forward runs (the forward's wrapper is not called)."""
+def test_training_and_autograd_refuse_window_and_softcap():
+    """Once refused, now taken: the training steps build for Mistral- and
+    Gemma-2-class models, and ``attention`` / ``attention_vjp`` under
+    autograd with a window or a softcap give the gradients of the dense
+    oracle's autograd; outside autograd the forward serves, and the naive
+    kernel still has neither option."""
     for cfg in (tt.ModelConfig.mistral7b(), tt.ModelConfig.gemma2_9b()):
         for make in (train.make_train_step, train.make_train_step_packed):
-            with pytest.raises(NotImplementedError, match="backward kernels"):
-                make(cfg, device="cpu")
-    calls = []
-    monkeypatch.setattr(backward, "flash_attention", lambda *a, **k: calls.append(a))
-    q = torch.randn(1, 2, 8, 32, requires_grad=True)
-    k = v = torch.randn(1, 2, 8, 32)
-    for kw in (dict(window=4), dict(logit_softcap=30.0)):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            ft.attention(q, k, v, causal=True, **kw)
-        with pytest.raises(NotImplementedError, match="training slice"):
-            backward.attention_vjp(q[0], k[0], v[0], True, **kw)
-    assert calls == []
+            assert callable(make(cfg, device="cpu"))
+    rng = np.random.default_rng(11)
+    q = torch.tensor(_rand(rng, (1, 4, 40, 32)) * 4, requires_grad=True)
+    k = torch.tensor(_rand(rng, (1, 2, 40, 32)), requires_grad=True)
+    v = torch.tensor(_rand(rng, (1, 2, 40, 32)), requires_grad=True)
+    t = torch.tensor(_rand(rng, (1, 4, 40, 32)))
+    for kw in (dict(window=7), dict(logit_softcap=10.0), dict(window=7, logit_softcap=10.0)):
+        kw.update(causal=True, scale=32**-0.5)
+        ref = tref.attention_reference(q, k.repeat_interleave(2, 1), v.repeat_interleave(2, 1), **kw)
+        want = torch.autograd.grad((ref * t).sum(), (q, k, v))
+        got = torch.autograd.grad((ft.attention(q, k, v, **kw) * t).sum(), (q, k, v))
+        o = backward.attention_vjp(q.reshape(2, 2 * 40, 32), k[0], v[0], kw["causal"], kw["scale"],
+                                   q_seq_len=40, window=kw.get("window"),
+                                   logit_softcap=kw.get("logit_softcap"))
+        vjp = torch.autograd.grad((o.reshape(q.shape) * t).sum(), (q, k, v))
+        for name, a, b, w in zip("qkv", got, vjp, want):
+            validate_result(a, w, TOL["float32"], name=f"d{name}")
+            validate_result(b, w, TOL["float32"], name=f"d{name} (attention_vjp)")
     with torch.no_grad():  # serving: the forward runs
         assert ft.attention(q, k, v, causal=True, window=4).shape == q.shape
     with pytest.raises(TypeError):  # the naive kernel has neither (flash.py:1690)

@@ -6,8 +6,8 @@
 Copies the port (``flashattention_tpu_torch/`` and ``chip_smoke.py``) into a
 temporary directory once per mutant, breaks one thing in the 8-bit form of
 one serving kernel in the copy's CUDA sources, builds the copy's 8-bit
-kernel libraries (``*_quant``, one ``nvcc`` per library and copy, all
-started together) and runs chip_smoke's checks of that kernel on the copy
+kernel libraries (``*_quant``, paged decode's one per head_dim; one
+``nvcc`` per library and copy, all started together) and runs chip_smoke's checks of that kernel on the copy
 over int8 and fp8 K/V, q in bfloat16 and float32, at every shape they hold
 (the main shapes, and the windowed models': Gemma-2's d = 256 with window
 4096 and softcap 50, Mistral's d = 128 with window 4096).  The copies of the
@@ -161,10 +161,11 @@ def main() -> int:
             make_copy(roots[m], edits)
         builds = {  # parity's whole-prompt prefill runs flash_fwd's unquantized form
             m: subprocess.Popen([sys.executable, "-c", (
-                "import sys; sys.path.insert(0, sys.argv[1]); "
+                "import re, sys; sys.path.insert(0, sys.argv[1]); "
                 "from flashattention_tpu_torch.ops import kernels; "
-                "kernels.build_all(sys.argv[2:])"), roots[m], *(f"{n}_quant" for n in names),
-                *(["flash_fwd"] if parity[m] else [])])
+                "kernels.build_all([k for k in kernels.KERNELS "
+                "if any(re.fullmatch(n + r'(_d\\d+)?', k) for n in sys.argv[2:])])"),
+                roots[m], *(f"{n}_quant" for n in names), *(["flash_fwd"] if parity[m] else [])])
             for m, (names, _) in MUTANTS.items()
         }
         if any(p.wait() != 0 for p in builds.values()):
