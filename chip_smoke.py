@@ -44,7 +44,17 @@ Phases, each of which must pass (any failure exits non-zero):
                shows that these fail a backward kernel whose window is off
                by one, whose softcap derivative is dropped or taken at the
                uncapped score, or that skips the last query tile a window
-               reaches;
+               reaches; and paged_decode's draft form (speculative
+               verification, k = 4 rows per query head, k-minor) at the
+               Llama (G = 1), Mistral (G = 4, window 4096), Gemma-2 (G = 2,
+               d = 256, window 4096, softcap 50, also with q x 8), G = 8
+               (32 rows per KV head) and window-2 shapes, lengths 4, 256,
+               260, 4100 and 6000, its 8-bit forms at the Llama and Gemma-2
+               shapes; timed there against its plain version, SDPA under an
+               (R x S) mask and k launches of the k = 1 kernel;
+               ``torch_tools/draft_mutants.py`` shows that these checks fail
+               a draft form whose causal limit, row order, first page or
+               per-row window is wrong;
 3. serve     - run the engine with whole-prompt prefill (prefill_chunk=0) at
                Llama-7B width (32 layers unless --layers): 8 greedy requests,
                64-1024 token prompts from --seed, 32 new tokens each,
@@ -74,6 +84,18 @@ Phases, each of which must pass (any failure exits non-zero):
                launch; one layer's weight products timed against bf16
                weights; then a profile;
    serve_gemma2_fp8 - serve_gemma2 on an fp8 KV cache;
+   serve_multistep - serve's model with ``run(multi_step=8)``: 4 prompts of
+               100-1000 tokens, 33 new tokens (4 loops of 8), greedy and
+               sampled, each equal to its ``multi_step=1`` run; the greedy
+               loops run under ``torch.cuda.set_sync_debug_mode("error")``,
+               so a host sync inside ``decode_loop`` fails the phase;
+   serve_speculative - the same model and prompts with
+               ``run_speculative(k=4)`` and oracle (all accepted), garbage
+               (all rejected) and half-right drafts, then oracle drafts on
+               an int8 cache; tokens equal to the plain run's, the draft
+               form launched layers x verify steps;
+               serve_speculative_gemma2 - Gemma-2-9B-class at 42 layers,
+               two prompts past the window, oracle drafts;
 6. crosscheck - the naive kernel's path: ``flash_attention_naive`` and the
                flash kernel through the public entry points on the same
                inputs, each launched once, agreeing; quant_ops - the same
@@ -89,6 +111,10 @@ Phases, each of which must pass (any failure exits non-zero):
                parity_quant (int8 weights and cache) and parity_quant_gemma2
                (fp8 cache) within PARITY_QUANT_TOL, reporting how many pool
                elements the two sides round to neighbouring steps;
+               parity_speculative: ``verify_step`` logits at k = 4 on the
+               2-layer float32 Llama and Gemma-2 (window 128) cuts, card
+               against CPU and against the prefill logits at the fed
+               positions, within PARITY_TOL;
 8. train     - ``make_train_step`` at ``bench_train.py``'s configuration
                (Mistral-7B width, 2 layers, sliding_window=None, bf16, B = 8,
                S = 2048, random tokens from --seed, lr 1e-3), with remat off
@@ -118,8 +144,8 @@ Phases, each of which must pass (any failure exits non-zero):
 
 It prints one JSON line per check, the total seconds, a ``{"kernels":
 [...]}`` summary (with a ``quantized`` entry for each serving kernel's 8-bit
-form), the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``.
+form, and paged_decode's draft form as an entry of its own), the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``.
 Details go to ``chiprun_out/chip_smoke.json``.  It needs one CUDA card and
 imports nothing of JAX.
 """
@@ -224,9 +250,10 @@ _MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8", "13__nv_fp
 
 def _ptxas(log):
     """Registers and spill bytes of each kernel instantiation, from nvcc's
-    ``-Xptxas -v`` report (``name<dtype[,payload],D[,G][,window_cap]>`` read
-    off the mangled name: the payload type where it differs from q's, an
-    8-bit form's; ``window_cap`` marks paged_decode's window/softcap form)."""
+    ``-Xptxas -v`` report (``name<dtype[,payload],D[,G][,window_cap][,draft]>``
+    read off the mangled name: the payload type where it differs from q's, an
+    8-bit form's; ``window_cap`` marks a window/softcap form, ``draft``
+    paged_decode's draft form, whose G is its tile of rows)."""
     out, spills = [], (0, 0)
     types = "|".join(["S\\d*_", *_MANGLED_TYPES])
     for ln in log.splitlines():
@@ -234,8 +261,10 @@ def _ptxas(log):
         if m:
             args = [_MANGLED_TYPES[t] for t in re.findall("|".join(_MANGLED_TYPES), m.group(2))]
             args = args[:1] if args[1:] == args[:1] else args  # the payload is q's type
+            flags = iter(("window_cap", "draft"))  # the bool arguments, in order
             for kind, n in re.findall(r"L([ib])(\d+)E", m.group(3)):
-                args += [n] if kind == "i" else ["window_cap"] if n == "1" else []
+                flag = next(flags) if kind == "b" else None
+                args += [n] if kind == "i" else [flag] if n == "1" else []
             out.append({"kernel": f"{m.group(1)}<{','.join(args)}>"})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -737,6 +766,105 @@ def serving_checks(fa, flash, decode, benchit, gen, card, report, form=None):
                           prefill_window_checks(decode, benchit, gen, card, report, form)),
     }
 
+# The paged decode kernel's draft form (speculative verification) at the
+# engine's k = 4: q holds G * k rows per KV head, k-minor.  (name, KV heads,
+# G, d, window, softcap, q multiplier): Llama-7B's attention (G = 1, R = 4
+# rows per head), Mistral-7B's (G = 4, R = 16, window 4096), Gemma-2-9B's
+# (G = 2, R = 8, d = 256, window 4096, softcap 50; again with q x 8 so that
+# scores reach the cap), G = 8 (R = 32) and a window of 2 < k.  Lengths
+# cross a page and the window; the 8-bit forms run at the Llama and Gemma-2
+# shapes.  Timed in bfloat16 at those two: kernel, plain version, SDPA over
+# the gathered context with an (R x S) mask, and k launches of the k = 1
+# kernel on the same rows.
+DRAFT_K = 4
+DRAFT_LENGTHS = [4, 256, 260, 4100, 6000]
+DRAFT_CASES = (
+    ("llama", dict(kvh=32, g=1, d=128, window=None, cap=None, q_mult=1.0)),
+    ("mistral", dict(kvh=8, g=4, d=128, window=4096, cap=None, q_mult=1.0)),
+    ("gemma2", dict(kvh=8, g=2, d=256, window=4096, cap=50.0, q_mult=1.0)),
+    ("gemma2_q8", dict(kvh=8, g=2, d=256, window=4096, cap=50.0, q_mult=8.0)),
+    ("g8", dict(kvh=8, g=8, d=128, window=None, cap=None, q_mult=1.0)),
+    ("window2", dict(kvh=8, g=2, d=128, window=2, cap=50.0, q_mult=1.0)),
+)
+TIMED_DRAFT_CASES = ("llama", "gemma2")
+
+
+def _draft_limits(lengths, k, window):
+    """Per request: the K/V rows some draft row sees (from the first column
+    of row 0's window), and each row's visible columns."""
+    rows, seen = [], []
+    for n in lengths:
+        lims = [n - k + dp for dp in range(k)]
+        lo = 0 if window is None else max(0, n - k - window + 1)
+        rows.append(n - lo)
+        seen.append([lim + 1 if window is None else min(lim + 1, window) for lim in lims])
+    return rows, seen
+
+
+def draft_checks(decode, benchit, gen, card, report, form=None):
+    """Paged decode's draft form against its plain version in bfloat16 and
+    float32 (with ``form`` int8 or fp8: over 8-bit pages, at the timed
+    shapes only): {case: timed check} for TIMED_DRAFT_CASES."""
+    out = {}
+    ps, pps, pages, k = 256, 24, 128, DRAFT_K
+    lens = DRAFT_LENGTHS
+    b = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for name, c in DRAFT_CASES:
+        if form is not None and name not in TIMED_DRAFT_CASES:
+            continue
+        kvh, g, d, w = c["kvh"], c["g"], c["d"], c["window"]
+        rows = g * k
+        for dt in ("bfloat16", "float32"):
+            (kp, ks), (vp, vs), table = _paged_pool(gen, lens, pps, pages, (kvh, ps, d), DTYPES[dt], form)
+            kw = dict(scale=d**-0.5, draft_k=k, window=w, logit_softcap=c["cap"], **_page_scales(ks, vs))
+            q = (c["q_mult"] * torch.randn((b, kvh, rows, d), generator=gen, device="cuda")).to(DTYPES[dt])
+            o = decode.paged_attention(q, kp, vp, lengths, table, **kw)
+            plain = lambda: decode.paged_attention_plain(q, kp, vp, lengths, table, **kw)  # noqa: E731
+            want = plain()
+            torch.cuda.synchronize()
+            rec = _rec(_check_name("paged_decode", f"draft_k{k}_{name}", dt, form), o, want, dt,
+                       PAGED_TOL[dt], lengths=lens, draft_k=k, window=w, softcap=c["cap"],
+                       shape=f"B={b} KVH={kvh} G={g} R={rows} d={d} ps={ps}")
+            if dt == "bfloat16" and name in TIMED_DRAFT_CASES:
+                kernel = lambda: decode.paged_attention(q, kp, vp, lengths, table, **kw)  # noqa: E731
+                rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
+                rec["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=5, flush_bytes=256 << 20)
+                # k launches of the k = 1 kernel, row j of each head at length n - k + 1 + j.
+                ones = [(q[:, :, j::k].contiguous(), lengths - (k - 1 - j)) for j in range(k)]
+                one_kw = {**kw, "draft_k": 1}
+                rec["k_times_k1_ms"] = benchit.cuda_time_ms(
+                    lambda: [decode.paged_attention(qj, kp, vp, lj, table, **one_kw) for qj, lj in ones],
+                    flush_bytes=256 << 20)
+                cols = torch.arange(pps * ps, device="cuda")[None, None]
+                lim = (lengths.long()[:, None] - k + torch.arange(k, device="cuda")[None])[:, :, None]
+                mask = (cols <= lim) & (cols > lim - w) if w else cols <= lim
+                rec["library_ms"] = _gathered_sdpa_ms(
+                    benchit, q.reshape(b, kvh * g, k, d), _bf16(kp, ks), _bf16(vp, vs), table, mask,
+                    kw["scale"])
+                rec["library"] = (
+                    "scaled_dot_product_attention on the pre-gathered dense context (K/V repeated "
+                    "to the q heads), boolean (k x S) causal" + (" and window" if w else "")
+                    + " mask, gather not timed" + ("; no softcap (SDPA cannot express it)" if c["cap"] else "")
+                    + (_DEQUANT_NOTE if form else ""))
+                live, seen = _draft_limits(lens, k, w)
+                n_pages = sum(-(-n // ps) - (max(0, n - k - w + 1) // ps if w else 0) for n in lens)
+                kv_bytes = 2 * sum(live) * kvh * _row_bytes(kp, d, form)  # live K, V rows, once
+                nbytes = 2 * q.numel() * q.element_size() + kv_bytes + 4 * (b + n_pages)
+                tiles = rows // next(t for t in (8, 4, 2, 1) if rows % t == 0)
+                rec.update(live_rows=sum(live), row_tiles=tiles,
+                           kv_bytes_as_read=tiles * kv_bytes)  # each tile reads them again
+                rec.update(benchit.bound_ms(card, bytes_moved=nbytes,
+                                            flops=4 * d * kvh * g * sum(map(sum, seen)), dtype=dt))
+                out[name] = rec
+                del ones, mask
+            emit(rec)
+            report["checks"].append(rec)
+            del kp, vp, ks, vs, q, o, want
+            torch.cuda.empty_cache()
+    return out
+
+
 def naive_checks(flash, benchit, gen, card, report):
     """Naive kernel: B*H = 128, S = 1024, d = 128, causal; and a kv_len /
     q_offset case (256 query rows at positions 600.., 900 live KV rows)."""
@@ -811,7 +939,8 @@ QUANT_KERNELS = ("flash_fwd", "paged_decode", "paged_prefill")
 
 def _counters(flash, decode, backward):
     """Launch counters by name: ``(wrapper, attribute)``; ``<kernel>_quant``
-    counts the 8-bit form's launches, which ``<kernel>`` counts too."""
+    counts the 8-bit form's launches and ``paged_decode_draft`` the draft
+    form's, which ``<kernel>`` counts too."""
     fns = {
         "flash_fwd": flash.flash_attention,
         "paged_decode": decode.paged_attention,
@@ -823,6 +952,7 @@ def _counters(flash, decode, backward):
     }
     out = {k: (fn, "launches") for k, fn in fns.items()}
     out.update({f"{k}_quant": (fns[k], "launches_quantized") for k in QUANT_KERNELS})
+    out["paged_decode_draft"] = (decode.paged_attention, "launches_draft")
     return out
 
 
@@ -960,6 +1090,236 @@ def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report
     profile_key = "profile_chunked" if phase == "serve_chunked" else f"profile_{phase}"
     report[profile_key] = phase_profile(args, eng, cfg, prompt_len=1536, tag=phase)
     del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _serve_prompts(rng, vocab, lens):
+    return [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
+
+
+MULTI_STEP = 8
+SAMPLED = dict(greedy=False, temperature=0.8, top_k=50)
+
+
+def phase_serve_multistep(args, cfg, params, engine_mod, kvcache, counters, report):
+    """``run(multi_step=8)`` on the serve phase's model: 4 requests of
+    100-1000 prompt tokens (all admitted at once, so nothing waits and the
+    loop runs), 33 new tokens (the prefill's, then 4 loops of 8); whole-
+    prompt prefill.  Greedy and sampled (temperature 0.8, top-k 50, seed
+    --seed), each against ``multi_step=1`` on the same prompts: equal
+    tokens, decode ms per token of both.  The greedy multi-step run has
+    ``torch.cuda.set_sync_debug_mode("error")`` on around each
+    ``decode_loop`` call, so a host sync inside the loop fails the phase.
+    paged_decode must launch layers x steps, the loops' steps included."""
+    transformer = engine_mod.transformer
+    ccfg = kvcache.CacheConfig(
+        num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, page_size=256, num_pages=64, dtype="bfloat16",
+    )
+    prompts = _serve_prompts(np.random.default_rng(args.seed + 50), cfg.vocab_size,
+                             np.random.default_rng(args.seed + 51).integers(100, 1001, size=4))
+    budget = 1 + 4 * MULTI_STEP
+    loop = transformer.decode_loop
+
+    def no_sync_loop(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    runs, ok = {}, True
+    for mode in ("greedy", "sampled"):
+        for ms in (1, MULTI_STEP):
+            eng = engine_mod.Engine(params, cfg, ccfg, engine_mod.EngineConfig(
+                max_batch=4, pages_per_seq=8, prefill_chunk=0, **({} if mode == "greedy" else SAMPLED)),
+                seed=args.seed)
+            ids = [eng.add_request(p, budget) for p in prompts]
+            guard = mode == "greedy" and ms > 1
+            transformer.decode_loop = no_sync_loop if guard else loop
+            try:
+                wall, launches = _drive(counters, lambda: eng.run(multi_step=ms))
+            finally:
+                transformer.decode_loop = loop
+            st = eng.stats()
+            want = dict.fromkeys(counters, 0)
+            want.update(flash_fwd=cfg.num_layers * st["prefill_batches"],
+                        paged_decode=cfg.num_layers * st["decode_batches"])
+            rec = {
+                "multi_step": ms, "wall_s": wall, "stats": st, "launches": launches,
+                "launches_expected": want, "sync_debug_error_mode": guard,
+                "decode_ms_per_token": 1e3 * st["decode_s"] / st["decode_tokens"],
+                "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+                "tokens": [eng.requests[i].output for i in ids],
+            }
+            rec["ok"] = (
+                _finished(eng, ids, budget) and launches == want
+                and st["decode_batches"] == budget - 1 and st["free_pages"] == ccfg.num_pages
+                and st["steps"] == (budget - 1 if ms == 1 else (budget - 1) // ms)
+            )
+            ok = ok and rec["ok"]
+            runs[f"{mode}_ms{ms}"] = rec
+            del eng
+    same = {m: runs[f"{m}_ms1"]["tokens"] == runs[f"{m}_ms{MULTI_STEP}"]["tokens"]
+            for m in ("greedy", "sampled")}
+    rec = {"phase": "serve_multistep", "model": "llama7b_attention", "layers": cfg.num_layers,
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": budget,
+           "tokens_equal": same, "sampling": SAMPLED,
+           **{k: {x: v for x, v in r.items() if x != "tokens"} for k, r in runs.items()},
+           "ok": ok and all(same.values())}
+    emit(rec)
+    report["serve_multistep"] = rec
+    torch.cuda.empty_cache()
+    return rec
+
+
+SPEC_K = 4
+
+
+def _spec_drafts(truth, vocab):
+    """The three draft sources of serve_speculative, over ``truth`` (req id
+    -> prompt + the plain run's output): the true continuation (all
+    accepted), tokens it never has at that position (all rejected), and the
+    first true token then garbage."""
+
+    def oracle(req, n):
+        return truth[req.req_id][req.length: req.length + n]
+
+    def garbage(req, n):
+        nxt = truth[req.req_id][req.length: req.length + n]
+        return [(t + 1 + j) % vocab for j, t in enumerate(nxt + [0] * (n - len(nxt)))]
+
+    def half(req, n):
+        return oracle(req, n)[: n // 2] + garbage(req, n)[n // 2:]
+
+    return {"oracle": oracle, "garbage": garbage, "half": half}
+
+
+def _spec_run(counters, cfg, eng, prompts, budget, drafts=None, k=SPEC_K):
+    """One counted run: per token (``drafts`` None) or run_speculative."""
+    ids = [eng.add_request(p, budget) for p in prompts]
+    drive = eng.run if drafts is None else (lambda: eng.run_speculative(drafts, k=k))
+    wall, launches = _drive(counters, drive)
+    st = eng.stats()
+    want = dict.fromkeys(counters, 0)
+    steps = st["decode_batches"] + st["spec_steps"]
+    want.update(flash_fwd=cfg.num_layers * st["prefill_batches"],
+                paged_prefill=cfg.num_layers * st["chunk_rounds"],
+                paged_decode=cfg.num_layers * steps,
+                paged_decode_draft=cfg.num_layers * st["spec_steps"])
+    quantized = eng.cache.config.quantized
+    for kname in ("paged_decode", "paged_prefill"):
+        want[f"{kname}_quant"] = want[kname] if quantized else 0
+    rec = {"wall_s": wall, "stats": st, "launches": launches, "launches_expected": want,
+           "tokens": {i: eng.requests[i].output for i in ids}}
+    if drafts is not None:
+        rec.update(
+            accepted_per_verify_step=st["spec_accepted"] / max(1, st["spec_steps"]),
+            # the requests run in lockstep, all to the same budget
+            accepted_per_request_step=st["spec_accepted"] / max(1, st["spec_steps"]) / len(ids),
+            ms_per_verify_step=1e3 * st["spec_s"] / max(1, st["spec_steps"]),
+            decode_tok_s=st["decode_tokens"] / (st["decode_s"] + st["spec_s"]),
+        )
+    else:
+        rec.update(ms_per_step=1e3 * st["decode_s"] / st["decode_batches"],
+                   decode_tok_s=st["decode_tokens"] / st["decode_s"])
+    rec["ok"] = (_finished(eng, ids, budget) and launches == want
+                 and st["free_pages"] == eng.cache.config.num_pages
+                 and (drafts is None or launches["paged_decode_draft"] > 0))
+    return rec
+
+
+def _spec_cell(counters, cfg, make_engine, prompts, budget, kinds):
+    """A plain run, then run_speculative with each draft source of
+    ``kinds``; every run's tokens must equal the plain run's."""
+    plain = _spec_run(counters, cfg, make_engine(), prompts, budget)
+    truth = {i: p + plain["tokens"][i] for i, p in enumerate(prompts)}
+    sources = _spec_drafts(truth, cfg.vocab_size)
+    out = {"plain": plain}
+    for kind in kinds:
+        r = _spec_run(counters, cfg, make_engine(), prompts, budget, sources[kind])
+        r["tokens_equal"] = r["tokens"] == plain["tokens"]
+        r["ok"] = r["ok"] and r["tokens_equal"]
+        out[kind] = r
+    for r in out.values():
+        del r["tokens"]
+    return out
+
+
+# The speculative phases serve float32 models, so that their tokens can be
+# held equal to the plain run's.  A verify step computes the products of
+# B * k rows where the plain run computes B rows, and cuBLAS sums them in
+# another order: in bfloat16 the verify logits of the 32-layer Llama-7B-width
+# model differ from the per-token ones by up to ~0.1, where bfloat16 often
+# ties the top two logits exactly, and greedy tokens part; in float32 they
+# differ by ~1e-5 against top-two gaps of ~1e-2 and more
+# (torch_tools/spec_drift.py measures both).  serve_multistep's loop
+# computes the per-token step's own products, so it serves bfloat16.
+
+
+def phase_serve_speculative(args, transformer, engine_mod, kvcache, counters, report):
+    """``run_speculative(k=4)`` on Llama-7B's width and 32 layers in float32
+    (serve_multistep's prompts, whole-prompt prefill, 33 new tokens): oracle
+    drafts (the plain run's own continuation: all accepted), garbage (all
+    rejected) and half right; then on an int8 KV cache with oracle drafts
+    (the 8-bit draft form).  Tokens must equal the plain run's each time;
+    the draft form must launch layers x verify steps."""
+    cfg = dataclasses.replace(transformer.ModelConfig.llama7b_attention(), num_layers=args.layers,
+                              dtype="float32")
+    params = transformer.init_params(args.seed, cfg)
+    prompts = _serve_prompts(np.random.default_rng(args.seed + 50), cfg.vocab_size,
+                             np.random.default_rng(args.seed + 51).integers(100, 1001, size=4))
+    budget = 33
+
+    def make(dtype):
+        return lambda: engine_mod.Engine(params, cfg, kvcache.CacheConfig(
+            num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            page_size=256, num_pages=24, dtype=dtype,
+        ), engine_mod.EngineConfig(max_batch=4, pages_per_seq=8, prefill_chunk=0))
+
+    torch.cuda.reset_peak_memory_stats()
+    cells = {
+        "f32_cache": _spec_cell(counters, cfg, make("float32"), prompts, budget,
+                                ("oracle", "garbage", "half")),
+        "int8_cache": _spec_cell(counters, cfg, make("int8"), prompts, budget, ("oracle",)),
+    }
+    rec = {"phase": "serve_speculative", "model": "llama7b_attention", "dtype": "float32",
+           "layers": cfg.num_layers, "k": SPEC_K, "prompt_lens": [len(p) for p in prompts],
+           "new_tokens": budget, **cells, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "ok": all(r["ok"] for c in cells.values() for r in c.values())}
+    emit(rec)
+    report["serve_speculative"] = rec
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_speculative_gemma2(args, transformer, engine_mod, kvcache, counters, report):
+    """Gemma-2-9B-class at full width and 42 layers in float32 (40.6 GB) on
+    the chunked engine: two prompts of 4600-5000 tokens (past the window),
+    17 new tokens, plain and with oracle drafts at k = 4, so the draft form
+    runs with the window and softcap at d = 256; tokens must equal."""
+    cfg = dataclasses.replace(transformer.ModelConfig.gemma2_9b(num_layers=42), dtype="float32")
+    params = transformer.init_params(args.seed, cfg)
+    rng = np.random.default_rng(args.seed + 52)
+    prompts = _serve_prompts(rng, cfg.vocab_size, rng.integers(4600, 5001, size=2))
+    budget = 17
+
+    def make():
+        return engine_mod.Engine(params, cfg, _gemma_cache(kvcache, cfg, 44, "float32"),
+                                 engine_mod.EngineConfig(max_batch=4, pages_per_seq=24,
+                                                         prefill_chunk=512))
+
+    torch.cuda.reset_peak_memory_stats()
+    cell = _spec_cell(counters, cfg, make, prompts, budget, ("oracle",))
+    rec = {"phase": "serve_speculative_gemma2", "model": GEMMA_MODEL, "dtype": "float32",
+           "layers": cfg.num_layers, "k": SPEC_K, "prompt_lens": [len(p) for p in prompts],
+           "new_tokens": budget, **cell, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "ok": all(r["ok"] for r in cell.values())}
+    emit(rec)
+    report["serve_speculative_gemma2"] = rec
+    del params
     torch.cuda.empty_cache()
     return rec
 
@@ -1441,6 +1801,67 @@ def phase_parity_gemma2(args, transformer, kvcache, engine_mod, report):
         report[phase] = rec
     del gpu_params, cpu_params
     torch.cuda.empty_cache()
+    return rec
+
+
+def _verify_logits(transformer, kvcache, cfg, params, device, prompt, drafts):
+    """Whole-prompt prefill of ``prompt`` into a fresh float32 cache, then
+    one ``verify_step`` of [the prefill's greedy token, *drafts]: (verify
+    logits (k, V) on the CPU, the fed tokens)."""
+    cache = kvcache.PagedKVCache(kvcache.CacheConfig(
+        num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        page_size=256, num_pages=4, dtype="float32",
+    ), device=device)
+    logits, k, v = transformer.prefill(params, torch.tensor(prompt[None], device=device), cfg)
+    cache.append(0, k[:, 0], v[:, 0])
+    fed = [int(logits[0, -1].argmax())] + list(drafts)
+    start = cache.length(0)
+    slots = [cache.reserve_slot(0) for _ in fed]
+    _, table = cache.batch_view([0], 4)
+    out = transformer.verify_step(
+        params, torch.tensor([fed], device=device), torch.tensor([start], device=device),
+        cache.k_pages, cache.v_pages, table, torch.tensor([[p for p, _ in slots]]),
+        torch.tensor([[s for _, s in slots]]), cfg)
+    return out[0].float().cpu(), fed
+
+
+def phase_parity_speculative(args, transformer, kvcache, report):
+    """``verify_step`` on 2-layer float32 cuts at full width, k = 4, the
+    card (the draft form) against the CPU (plain versions) and against the
+    card's prefill logits of prompt + fed tokens at the fed positions
+    (JAX's test_verify_step_matches_prefill_logits), each within
+    PARITY_TOL: Llama-7B's attention after a 64-token prompt, and
+    Gemma-2-9B-class with its window cut to 128 after a 300-token prompt
+    (as parity_gemma2), so that the fed rows' windows start past column 0."""
+    recs = {}
+    for name, cfg, n in (
+        ("llama", dataclasses.replace(transformer.ModelConfig.llama7b_attention(), num_layers=2,
+                                      dtype="float32"), 64),
+        ("gemma2", dataclasses.replace(transformer.ModelConfig.gemma2_9b(num_layers=2),
+                                       dtype="float32", sliding_window=PARITY_WINDOW), 300),
+    ):
+        t0 = time.perf_counter()
+        gpu_params = transformer.init_params(args.seed, cfg)
+        cpu_params = _to_card(gpu_params, "cpu")
+        rng = np.random.default_rng(args.seed + 60)
+        prompt = rng.integers(0, cfg.vocab_size, size=n)
+        drafts = rng.integers(0, cfg.vocab_size, size=SPEC_K - 1).tolist()
+        want, fed = _verify_logits(transformer, kvcache, cfg, cpu_params, "cpu", prompt, drafts)
+        got, fed_card = _verify_logits(transformer, kvcache, cfg, gpu_params, "cuda", prompt, drafts)
+        full = torch.tensor(np.concatenate([prompt, fed])[None], device="cuda")
+        ref = transformer.prefill(gpu_params, full, cfg)[0][0, n:].float().cpu()
+        e_cpu, e_prefill = err(got, want), err(got, ref)
+        recs[name] = {"prompt_len": n, "k": SPEC_K, "window": cfg.sliding_window,
+                      "logit_softcap": cfg.logit_softcap, "fed_equal": fed == fed_card,
+                      "max_abs_err_vs_cpu": e_cpu, "max_abs_err_vs_prefill": e_prefill,
+                      "logit_absmax": float(want.abs().max()), "seconds": time.perf_counter() - t0,
+                      "ok": fed == fed_card and e_cpu <= PARITY_TOL and e_prefill <= PARITY_TOL}
+        del gpu_params, cpu_params
+        torch.cuda.empty_cache()
+    rec = {"phase": "parity_speculative", "layers": 2, "dtype": "float32", "tol": PARITY_TOL,
+           **recs, "ok": all(r["ok"] for r in recs.values())}
+    emit(rec)
+    report["parity_speculative"] = rec
     return rec
 
 
@@ -1977,6 +2398,23 @@ PARITY_WINDOW = 128
 PARITY_DOCS = (150, 70, 30)
 
 
+def _launch_sum(rec):
+    """The launches of every run a phase's record holds, summed by kernel."""
+    total: dict[str, int] = {}
+
+    def walk(x):
+        if isinstance(x, dict):
+            if "launches" in x and isinstance(x["launches"], dict):
+                for k, n in x["launches"].items():
+                    total[k] = total.get(k, 0) + n
+            for v in x.values():
+                if isinstance(v, dict) and v is not x.get("launches"):
+                    walk(v)
+
+    walk(rec)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2005,6 +2443,9 @@ def main() -> int:
     # {None, "int8", "fp8"}: {kernel: (main shape's timed check, Gemma-2 window's)}
     serving = {form: serving_checks(fa, flash, decode, benchit, gen, name, report, form)
                for form in (None, *QUANT_FORMS)}
+    # {None, "int8", "fp8"}: {"llama": timed draft-form check, "gemma2": ...}
+    drafts = {form: draft_checks(decode, benchit, gen, name, report, form)
+              for form in (None, *QUANT_FORMS)}
     mains = {
         **{k: main for k, (main, _) in serving[None].items()},
         "flash_naive": naive_checks(flash, benchit, gen, name, report),
@@ -2021,6 +2462,8 @@ def main() -> int:
     report["init_s"] = time.perf_counter() - t0
     serve = phase_serve(args, cfg, params, engine_mod, kvcache, counters, report)
     chunked = phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report)
+    multistep = phase_serve_multistep(args, cfg, params, engine_mod, kvcache, counters, report)
+    speculative = phase_serve_speculative(args, transformer, engine_mod, kvcache, counters, report)
     serve_int8 = phase_serve_int8(args, cfg, params, transformer, quant, engine_mod, kvcache,
                                   benchit, counters, report)  # quantizes params in place
     del params
@@ -2039,11 +2482,14 @@ def main() -> int:
                                    cache_dtype="fp8", phase="serve_gemma2_fp8")
     del gparams
     torch.cuda.empty_cache()
+    gemma_spec = phase_serve_speculative_gemma2(args, transformer, engine_mod, kvcache, counters,
+                                                report)
     cross = phase_crosscheck(fa, flash, gen, report)
     quant_ops = phase_quant_ops(fa, flash, quant, gen, report)
     phase_parity(args, transformer, kvcache, engine_mod, report)
     phase_parity_quant(args, transformer, quant, kvcache, engine_mod, report)
     phase_parity_gemma2(args, transformer, kvcache, engine_mod, report)
+    phase_parity_speculative(args, transformer, kvcache, report)
 
     tcfg = _train_cfg(transformer)
     tparams = transformer.init_params(args.seed, tcfg)
@@ -2070,6 +2516,8 @@ def main() -> int:
              "serve_int8": serve_int8["launches"],
              "serve_gemma2": gemma["launches"], "serve_gemma2_whole": gemma_whole["launches"],
              "serve_gemma2_fp8": gemma_fp8["launches"],
+             "serve_multistep": _launch_sum(multistep), "serve_speculative": _launch_sum(speculative),
+             "serve_speculative_gemma2": _launch_sum(gemma_spec),
              "crosscheck": cross["launches"], "quant_ops": quant_ops["launches"],
              **{p: r["launches"] for p, r in trained.items()}}
     summary = []
@@ -2105,6 +2553,23 @@ def main() -> int:
                 "fp8": {k: q8["fp8"][0][k] for k in timed},
                 "d256_window_softcap": {f: {k: q8[f][1][k] for k in timed} for f in QUANT_FORMS},
             }
+    # The draft form of paged_decode: its own entry, timed at the Llama and
+    # Gemma-2 shapes, its 8-bit forms beside it.
+    by_path = {p: n["paged_decode_draft"] for p, n in paths.items() if n.get("paged_decode_draft")}
+    timed = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "bytes_ms", "ops_ms", "library_ms", "k_times_k1_ms", "row_tiles", "kv_bytes_as_read")
+    main_rec = drafts[None]["llama"]
+    summary.append({
+        "name": "paged_decode_draft", "route": "cuda",
+        "source": "flashattention_tpu_torch/csrc/paged_decode.cu (built with -DFA_DRAFT)",
+        "replaces": "flashattention_tpu/ops/decode.py:89 (draft_k > 1)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": main_rec["max_abs_err"], "tol": main_rec["tol"], "shape": main_rec["check"],
+        "ms": main_rec["kernel_ms"], **{k: main_rec[k] for k in timed if k not in ("check", "shape")},
+        "gemma2": {k: drafts[None]["gemma2"][k] for k in timed},
+        "forms_8bit": {f: {case: {k: drafts[f][case][k] for k in timed} for case in TIMED_DRAFT_CASES}
+                       for f in QUANT_FORMS},
+    })
     report["kernels"] = summary
     report["seconds"] = time.perf_counter() - t_start
     emit({"phase": "total", "seconds": report["seconds"]})
@@ -2116,6 +2581,8 @@ def main() -> int:
     failed += [p for p in ("serve", "serve_chunked", "serve_int8", "serve_gemma2",
                            "serve_gemma2_whole", "serve_gemma2_fp8", "crosscheck", "quant_ops",
                            "parity", "parity_chunked", "parity_quant", "parity_quant_chunked",
+                           "serve_multistep", "serve_speculative", "serve_speculative_gemma2",
+                           "parity_speculative",
                            "parity_gemma2", "parity_gemma2_chunked", "parity_quant_gemma2",
                            "parity_quant_gemma2_chunked", "train", "train_remat", "train_packed",
                            "train_mistral", "train_gemma2", "train_gemma2_packed", "train_parity",

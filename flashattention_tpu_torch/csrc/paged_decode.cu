@@ -44,6 +44,24 @@
 // (head_dim, G) pair the unquantized form takes, into libraries of their own
 // (FA_QUANT), one head_dim (FA_HEAD_DIM) each, so that the four build in
 // parallel beside the others (see ops/kernels.py).
+//
+// The draft form (speculative verification, draft_k = k > 1; the Pallas
+// kernel's draft_k, decode.py:171-183): q holds R = G * k rows per KV head,
+// k-minor, row r at draft position dp = r % k, and lengths count all k fed
+// tokens.  Row dp sees the columns c <= length - k + dp, and with a window
+// also c > length - k + dp - window; the page loop starts at the page of the
+// first column of row 0's window, (length - k - window + 1) / page_size
+// (decode.py:117-125).  So the last page needs a per-row mask, and each
+// row's window starts at its own column.  A row that sees no column of the
+// pages visited so far keeps the finite kMaskValue as its running max; the
+// first real score rescales what it summed by exp(kMaskValue - m) = 0, as
+// in the Pallas kernel.  R reaches 32 (G = 8 at k = 4), and R rows of q and
+// of the accumulator do not fit in registers at d = 128-256, so the grid
+// has a third dimension over tiles of RT <= 8 rows (the largest of 8, 4, 2,
+// 1 dividing R): each tile reads the live K/V rows once, R / RT reads in
+// all.  Window and softcap are runtime values in this form (the per-row
+// mask is a select per score anyway), and it is built into libraries of
+// its own (FA_DRAFT), so that draft_k = 1 keeps the code above unchanged.
 #include "common.cuh"
 
 #include <type_traits>
@@ -74,14 +92,16 @@ __device__ __forceinline__ void load_row(const P* p, float sc, float (&out)[E]) 
 }
 
 // T: q and o; P: the K/V payload (T itself, or int8 / fp8 with scales).
-template <typename T, typename P, int D, int G, bool kWindowCap>
+// G: the query rows of a block (all of a KV head's, or a draft form's tile
+// of the head's `rows`, at blockIdx.z).
+template <typename T, typename P, int D, int G, bool kWindowCap, bool kDraft>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                     const P* __restrict__ v_pages, const float* __restrict__ k_scales,
                     const float* __restrict__ v_scales, const int* __restrict__ lengths,
                     const int* __restrict__ page_indices, T* __restrict__ o,
                     int page_size, int pages_per_seq, float scale, int window,
-                    float softcap) {
+                    float softcap, int draft_k, int draft_rows) {
   constexpr bool kQuant = !std::is_same<T, P>::value;
   constexpr int E = D / 32;
   static_assert(E >= 1 && D % 32 == 0, "head_dim must be a multiple of 32");
@@ -99,19 +119,32 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   const int n_pages =
       min((length + page_size - 1) / page_size, pages_per_seq);
   // Columns at or before win_lo lie outside the window of the query at
-  // position length - 1; the loop starts at the page of the first one inside.
-  const bool windowed = kWindowCap && window > 0;
+  // position length - 1; the loop starts at the page of the first column
+  // inside the window of the earliest query, at length - kq.
+  const int kq = kDraft ? draft_k : 1;
+  const bool windowed = (kWindowCap || kDraft) && window > 0;
   const int win_lo = windowed ? length - 1 - window : -1;
-  const int first_page = windowed ? max(0, (length - window) / page_size) : 0;
+  const int first_page = windowed ? max(0, (length - kq - window + 1) / page_size) : 0;
 
   const size_t head = static_cast<size_t>(b) * kvh + h;
+  // This block's rows of q and o: (head, row0 .. row0 + G).
+  const int rows = kDraft ? draft_rows : G;
+  const int row0 = kDraft ? blockIdx.z * G : 0;
+  const size_t qo = (head * rows + row0) * D;
   float qv[G][E], acc[G][E];
+  // The draft form's row g sees columns (lo[g], lim[g]].
+  int lim[kDraft ? G : 1], lo[kDraft ? G : 1];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      qv[g][e] = fa::load_f32(q + (head * G + g) * D + lane * E + e);
+      qv[g][e] = fa::load_f32(q + qo + g * D + lane * E + e);
       acc[g][e] = 0.f;
+    }
+    if constexpr (kDraft) {
+      const int dp = (row0 + g) % draft_k;  // k-minor rows
+      lim[g] = length - draft_k + dp;
+      lo[g] = windowed ? lim[g] - window : -1;
     }
   }
   if (threadIdx.x < G) {
@@ -155,8 +188,11 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
           dot = fa::warp_sum(dot);
           if (lane == 0 && j0 + u < valid) {
             float s = dot * scale;
-            if constexpr (kWindowCap)
-              s = i * page_size + j0 + u > win_lo ? fa::softcap(s, softcap) : fa::kMaskValue;
+            const int col = i * page_size + j0 + u;
+            if constexpr (kDraft)
+              s = col <= lim[g] && col > lo[g] ? fa::softcap(s, softcap) : fa::kMaskValue;
+            else if constexpr (kWindowCap)
+              s = col > win_lo ? fa::softcap(s, softcap) : fa::kMaskValue;
             scores[g * page_size + j0 + u] = s;
           }
         }
@@ -231,7 +267,7 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) sum += red[w * G * D + idx];
     const float l = l_run[idx / D];
-    fa::store_f32(o + head * G * D + idx, sum * (l == 0.f ? 1.f : 1.f / l));
+    fa::store_f32(o + qo + idx, sum * (l == 0.f ? 1.f : 1.f / l));
   }
 }
 
@@ -249,36 +285,46 @@ struct Args {
   float scale;
   int window;
   float softcap;
+  int draft_k, rows;  // rows: q rows per KV head (G, or G * draft_k)
   cudaStream_t stream;
 };
 
-template <typename T, typename P, int D, int G, bool kWindowCap>
+template <typename T, typename P, int D, int G, bool kWindowCap, bool kDraft = false>
 int launch(const Args& a) {
   const size_t floats = max(static_cast<size_t>(G) * a.page_size,
                             static_cast<size_t>(kWarps) * G * D);
   const size_t bytes = floats * sizeof(float);
-  auto kernel = paged_decode_kernel<T, P, D, G, kWindowCap>;
+  auto kernel = paged_decode_kernel<T, P, D, G, kWindowCap, kDraft>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(a.kvh, a.b), kThreads, bytes, a.stream>>>(
+  kernel<<<dim3(a.kvh, a.b, kDraft ? a.rows / G : 1), kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const P*>(a.k_pages),
       static_cast<const P*>(a.v_pages), a.k_scales, a.v_scales, a.lengths,
       a.page_indices, static_cast<T*>(a.o), a.page_size, a.pages_per_seq, a.scale,
-      a.window, a.softcap);
+      a.window, a.softcap, a.draft_k, a.rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename P, int D, int G>
 int launch_w(const Args& a) {
+#ifdef FA_DRAFT
+  return launch<T, P, D, G, false, true>(a);  // window and softcap at run time
+#else
   return a.window > 0 || a.softcap > 0.f ? launch<T, P, D, G, true>(a)
                                          : launch<T, P, D, G, false>(a);
+#endif
 }
 
+// g: the rows of a block.  The draft form tiles the head's a.rows rows by
+// the largest of 8, 4, 2, 1 that divides them.
 template <typename T, typename P, int D>
 int launch_g(int g, const Args& a) {
+#ifdef FA_DRAFT
+  if (a.draft_k < 2 || a.rows % a.draft_k || a.rows / g > 65535) return -1;
+#endif
   switch (g) {
     case 1: return launch_w<T, P, D, 1>(a);
     case 2: return launch_w<T, P, D, 2>(a);
@@ -322,19 +368,27 @@ int launch_kv(int kv_dtype, int d, int g, const Args& a) {
 // on the device; q and o of dtype code `dtype`, the pages of `kv_dtype`:
 // the same code (k_scales, v_scales null), or with FA_QUANT int8 / fp8 with
 // float32 scales (P, kvh, page_size).  window <= 0: no sliding window;
-// softcap <= 0: no logit softcap.
+// softcap <= 0: no logit softcap.  draft_k: 1, or with FA_DRAFT k >= 2, g
+// then holding the G * k rows of each KV head, k-minor.
 extern "C" int fa_paged_decode(int dtype, int kv_dtype, const void* q,
                                const void* k_pages, const void* v_pages,
                                const void* k_scales, const void* v_scales,
                                const void* lengths, const void* page_indices,
                                void* o, int b, int kvh, int g, int d,
-                               int page_size, int pages_per_seq, float scale,
-                               int window, float softcap, void* stream) {
+                               int page_size, int pages_per_seq, int draft_k,
+                               float scale, int window, float softcap, void* stream) {
+#ifdef FA_DRAFT
+  const int tile = g % 8 == 0 ? 8 : g % 4 == 0 ? 4 : g % 2 == 0 ? 2 : 1;
+#else
+  if (draft_k != 1) return -1;
+  const int tile = g;
+#endif
   const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
                static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
                static_cast<const int*>(page_indices), o, b, kvh, page_size,
-               pages_per_seq, scale, window, softcap, static_cast<cudaStream_t>(stream)};
-  if (dtype == fa::kFloat32) return launch_kv<float>(kv_dtype, d, g, a);
-  if (dtype == fa::kBFloat16) return launch_kv<__nv_bfloat16>(kv_dtype, d, g, a);
+               pages_per_seq, scale, window, softcap, draft_k, g,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == fa::kFloat32) return launch_kv<float>(kv_dtype, d, tile, a);
+  if (dtype == fa::kBFloat16) return launch_kv<__nv_bfloat16>(kv_dtype, d, tile, a);
   return -1;
 }

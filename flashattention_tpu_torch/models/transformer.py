@@ -14,7 +14,12 @@ serve the engine:
   (``ops/decode.paged_prefill_attention_batched``), writing the chunk's K/V
   rows into the pools;
 - :func:`decode_step`: one token for a whole continuous batch over the paged
-  cache (``ops/decode.paged_attention``).
+  cache (``ops/decode.paged_attention``);
+- :func:`decode_loop`: ``n_steps`` decode steps in one call, each feeding the
+  token it produced back in, with no host sync between steps;
+- :func:`verify_step`: speculative verification, k fed tokens per request
+  scored in one pass (``paged_attention(draft_k=k)``), with
+  :func:`speculative_accept` (greedy) deciding what to emit.
 
 Parameters are a plain dict with the JAX package's tree and names
 (``{"embed", "final_norm", "lm_head", "layers": [...]}``) and its ``x @ w``
@@ -49,6 +54,9 @@ __all__ = [
     "prefill_chunk_batched",
     "decode_step",
     "decode_step_impl",
+    "decode_loop",
+    "verify_step",
+    "speculative_accept",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -325,10 +333,18 @@ def decode_step_impl(
     dropped before the scatter: the JAX step's ``mode="drop"``, which torch
     indexing lacks.
     """
+    rows, wp, ws = _kept_rows(write_pages, write_slots, k_pages.shape[1], tokens.device)
+    return _decode_body(params, tokens, positions, k_pages, v_pages, lengths, page_indices,
+                        rows, wp, ws, cfg, k_scales, v_scales)
+
+
+def _decode_body(params, tokens, positions, k_pages, v_pages, lengths, page_indices, rows, wp,
+                 ws, cfg, k_scales, v_scales):
+    """One decode step with the kept rows ``rows`` written at pages ``wp``,
+    slots ``ws`` (device tensors): no host sync."""
     b = tokens.shape[0]
     x = _lookup(params["embed"], tokens)[:, None, :]  # (B, 1, d_model)
     pos = positions[:, None]
-    rows, wp, ws = _kept_rows(write_pages, write_slots, k_pages.shape[1], x.device)
     for li, layer in enumerate(params["layers"]):
         h = _rmsnorm(x, layer["attn_norm"])
         q, k, v = _qkv(h, layer, cfg, pos)  # (B, 1, H, d)
@@ -468,3 +484,143 @@ def prefill_chunk(
         params, tokens[None], k_pages, v_pages, positions[None], page_indices[None],
         write_pages[None], write_slots[None], cfg, k_scales, v_scales, ctx_lens=ctx,
     )[0]
+
+
+@torch.no_grad()
+def decode_loop(
+    params,
+    tokens: torch.Tensor,  # (B,) current tokens
+    positions: torch.Tensor,  # (B,) positions of those tokens
+    k_pages: torch.Tensor,  # (L, P, KVH, ps, d) head-major, updated in place
+    v_pages: torch.Tensor,  # updated in place
+    page_indices: torch.Tensor,  # (B, pages_per_seq) int32 tables covering positions + n_steps
+    cfg: ModelConfig,
+    n_steps: int = 1,
+    k_scales: torch.Tensor | None = None,  # (L, P, KVH, ps) for 8-bit pools, in place
+    v_scales: torch.Tensor | None = None,
+    active=None,  # (B,) bool on the host; None: every row
+    generator: torch.Generator | None = None,
+    temperature: float = 1.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+) -> torch.Tensor:
+    """``n_steps`` full decode steps in one call, each feeding the token it
+    produced back in: the JAX package's ``decode_loop`` (its ``fori_loop``
+    becomes a Python loop with no host sync in it).
+
+    Step i writes each row's K/V at ``page_indices[b, pos // ps]``, slot
+    ``pos % ps``, with ``pos = positions + i``, and attends ``pos + 1``
+    tokens; the write pages are gathered on the device.  Rows that
+    ``active`` marks False write nothing and attend nothing (length 0, as
+    the engine's inactive batch slots); ``active`` is a host mask, so the
+    kept rows are found once, before the loop.
+
+    ``generator`` None: greedy (the first maximum).  Otherwise each step
+    draws once from the filtered logits of the active rows with
+    :func:`~flashattention_tpu_torch.ops.sampling.sample_logits`, as the
+    engine's per-token step draws for them, so n steps of this loop give
+    the tokens of n per-token steps under one generator.
+
+    Returns the generated tokens ``(B, n_steps)`` int64, on the device; the
+    pools are updated in place."""
+    from flashattention_tpu_torch.ops.sampling import sample_logits
+
+    cfg.check_ported()
+    b = tokens.shape[0]
+    dev = tokens.device
+    ps = k_pages.shape[3]
+    mask = torch.ones(b, dtype=torch.bool) if active is None else torch.as_tensor(active).cpu()
+    if mask.shape != (b,):
+        raise ValueError(f"active {tuple(mask.shape)} does not match batch {b}")
+    # From a host mask, copied without a host sync (the pageable copy is
+    # staged before it returns).
+    rows = torch.nonzero(mask)[:, 0].to(dev, non_blocking=True)
+    live = mask.to(dev, non_blocking=True)
+    toks, pos = tokens.long(), positions.long()
+    out = torch.zeros((b, n_steps), dtype=torch.long, device=dev)
+    for i in range(n_steps):
+        wp = page_indices[rows, pos[rows] // ps].long()
+        lengths = torch.where(live, pos + 1, 0).to(torch.int32)
+        logits = _decode_body(params, toks, pos, k_pages, v_pages, lengths, page_indices, rows,
+                              wp, pos[rows] % ps, cfg, k_scales, v_scales)
+        if generator is None:
+            toks = torch.argmax(logits, dim=-1)
+        else:
+            toks = torch.zeros(b, dtype=torch.long, device=dev)
+            toks[rows] = sample_logits(generator, logits[rows], temperature=temperature,
+                                       top_k=top_k, top_p=top_p)
+        out[:, i] = toks
+        pos = pos + 1
+    return out
+
+
+@torch.no_grad()
+def verify_step(
+    params,
+    tokens: torch.Tensor,  # (B, k): the current token, then k - 1 drafts
+    positions: torch.Tensor,  # (B,) position of tokens[:, 0]
+    k_pages: torch.Tensor,  # (L, P, KVH, ps, d) head-major, updated in place
+    v_pages: torch.Tensor,  # updated in place
+    page_indices: torch.Tensor,  # (B, pages_per_seq) int32 covering positions + k
+    write_pages: torch.Tensor,  # (B, k) page per fed token (out of range: dropped)
+    write_slots: torch.Tensor,  # (B, k)
+    cfg: ModelConfig,
+    k_scales: torch.Tensor | None = None,  # (L, P, KVH, ps) for 8-bit pools, in place
+    v_scales: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Speculative verification: score k fed tokens per request in one pass.
+
+    Feeds ``tokens[:, j]`` at ``positions + j``, scatters all B * k K/V rows
+    (8-bit pools quantized per row), and attends with the paged decode
+    kernel's draft form (``paged_attention(draft_k=k)``: q folded to
+    ``(B, KVH, G * k, d)`` k-minor, row j seeing the columns up to its own
+    position), so verification reads the cache once, not k times.
+    ``logits[:, j]`` is the next-token distribution after token j.
+    Rejected drafts' rows stay in the pools: the caller trims the sequence
+    back (the engine's ``cache.trim``).  ``write_pages``/``write_slots`` may
+    be host tensors, and then no device sync is made.  Returns logits
+    ``(B, k, V)``."""
+    cfg.check_ported()
+    b, kk = tokens.shape
+    kvh, g, hd = cfg.num_kv_heads, cfg.group_size, cfg.head_dim
+    x = _lookup(params["embed"], tokens)  # (B, k, d_model)
+    pos = positions[:, None].long() + torch.arange(kk, device=x.device)[None]
+    lengths = (positions.long() + kk).to(torch.int32)  # every fed token included
+    rows, wp, ws = _kept_rows(write_pages, write_slots, k_pages.shape[1], x.device)
+    for li, layer in enumerate(params["layers"]):
+        h = _rmsnorm(x, layer["attn_norm"])
+        q, k, v = _qkv(h, layer, cfg, pos)  # (B, k, H, d)
+        _write_rows(k_pages, k_scales, li, wp, ws, k.reshape(b * kk, kvh, hd)[rows])
+        _write_rows(v_pages, v_scales, li, wp, ws, v.reshape(b * kk, kvh, hd)[rows])
+        # (B, k, H, d) -> (B, KVH, G * k, d), k-minor within each query head.
+        qg = q.reshape(b, kk, kvh, g, hd).permute(0, 2, 3, 1, 4).reshape(b, kvh, g * kk, hd)
+        o = paged_attention(
+            qg.contiguous(), k_pages[li], v_pages[li], lengths, page_indices,
+            scale=hd**-0.5, draft_k=kk, window=cfg.sliding_window,
+            logit_softcap=cfg.logit_softcap, **_layer_scales(k_scales, v_scales, li),
+        )  # (B, KVH, G * k, d)
+        o = o.reshape(b, kvh, g, kk, hd).permute(0, 3, 1, 2, 4).reshape(b, kk, kvh * g * hd)
+        x = x + _mm(o, layer["wo"])
+        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
+    x = _rmsnorm(x, params["final_norm"])
+    return _mm(x, params["lm_head"])
+
+
+def speculative_accept(drafts: torch.Tensor, logits: torch.Tensor):
+    """Greedy accept/reject for speculative decoding.
+
+    drafts ``(B, k - 1)``: the drafts fed to :func:`verify_step` after the
+    current token; logits ``(B, k, V)`` from it.  Draft j is accepted while
+    it equals the argmax of ``logits[:, j - 1]`` (the first maximum, as
+    ``jnp.argmax``); the first mismatch is replaced by the model's own
+    token, and when all match the model's next token follows.  Returns
+    ``(n_emitted (B,), emitted (B, k))``: each row appends
+    ``emitted[:n_emitted]``, 1 <= n_emitted <= k."""
+    km1 = drafts.shape[1]
+    preds = torch.argmax(logits, dim=-1).to(drafts.dtype)  # (B, k)
+    match = preds[:, :km1] == drafts
+    n_accept = torch.cumprod(match.long(), dim=1).sum(dim=1)
+    idx = torch.arange(km1 + 1, device=drafts.device)[None]
+    corr = torch.gather(preds, 1, n_accept.clamp(max=km1)[:, None])
+    emitted = torch.where(idx < n_accept[:, None], torch.nn.functional.pad(drafts, (0, 1)), corr)
+    return n_accept + 1, emitted

@@ -8,7 +8,9 @@ together, and a request's page-table row maps its logical pages to physical
 ones.  On a CUDA tensor :func:`paged_attention` launches the hand-written
 kernel in ``csrc/paged_decode.cu`` (replacing the Pallas ``_paged_kernel``,
 :89); on a CPU tensor it runs :func:`paged_attention_plain`.  A CUDA call
-launches the kernel or raises; there is no fallback.
+launches the kernel or raises; there is no fallback.  With ``draft_k = k >
+1`` (speculative verification) q holds k rows per query head, k-minor, each
+at its own causal limit, and the kernel's draft form runs.
 
 :func:`paged_prefill_attention_batched` (and its single-request form
 :func:`paged_prefill_attention`) is the chunked-prefill counterpart: q holds a
@@ -64,13 +66,20 @@ def _gather(pages, scales, page_indices):
     return rows.float().transpose(1, 2).reshape(b, kvh, pps * ps, d)
 
 
+def _row_limits(lengths, rows, draft_k, device):
+    """(B, rows) last column each q row sees: ``length - k + r % k`` (k-minor
+    draft rows; every row ``length - 1`` when k = 1)."""
+    dp = torch.arange(rows, device=device) % draft_k
+    return lengths.to(device).long()[:, None] - draft_k + dp[None, :]
+
+
 def paged_attention_reference(
-    q, k_pages, v_pages, lengths, page_indices, *, scale=1.0, window=None, logit_softcap=None,
-    k_scales_pages=None, v_scales_pages=None,
+    q, k_pages, v_pages, lengths, page_indices, *, scale=1.0, draft_k=1, window=None,
+    logit_softcap=None, k_scales_pages=None, v_scales_pages=None,
 ):
     """Dense oracle: gather every page of the table (dequantized in float32
-    for 8-bit pages), mask by length (and by the window of the query at
-    position ``length - 1``), attend.
+    for 8-bit pages), mask each row by its causal limit (``length - 1``, or
+    ``length - k + r % k`` for draft row r) and window, attend.
 
     A row of length 0 has every column masked, so like the JAX oracle it
     returns the mean of the gathered V rows (not zeros; see
@@ -80,12 +89,12 @@ def paged_attention_reference(
     k = _gather(k_pages, k_scales_pages, page_indices)
     v = _gather(v_pages, v_scales_pages, page_indices)
     s = softcap(torch.einsum("bhgd,bhkd->bhgk", q.float(), k) * scale, logit_softcap)
-    cols = torch.arange(s_max, device=q.device)[None, :]
-    lens = lengths.to(q.device).long()[:, None]
-    mask = cols < lens
+    cols = torch.arange(s_max, device=q.device)[None, None, :]
+    lim = _row_limits(lengths, q.shape[2], draft_k, q.device)[:, :, None]  # (B, rows, 1)
+    mask = cols <= lim
     if window is not None:
-        mask = mask & (cols > lens - 1 - window)
-    s = torch.where(mask[:, None, None, :], s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
+        mask = mask & (cols > lim - window)
+    s = torch.where(mask[:, None], s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     o = torch.einsum("bhgk,bhkd->bhgd", p, v) / p.sum(dim=-1, keepdim=True)
@@ -93,13 +102,13 @@ def paged_attention_reference(
 
 
 def paged_attention_plain(
-    q, k_pages, v_pages, lengths, page_indices, *, scale=1.0, window=None, logit_softcap=None,
-    k_scales_pages=None, v_scales_pages=None,
+    q, k_pages, v_pages, lengths, page_indices, *, scale=1.0, draft_k=1, window=None,
+    logit_softcap=None, k_scales_pages=None, v_scales_pages=None,
 ):
     """The kernel's function in plain PyTorch: the oracle, with zeros for
     rows of length 0 as the kernel writes them."""
     o = paged_attention_reference(
-        q, k_pages, v_pages, lengths, page_indices, scale=scale, window=window,
+        q, k_pages, v_pages, lengths, page_indices, scale=scale, draft_k=draft_k, window=window,
         logit_softcap=logit_softcap, k_scales_pages=k_scales_pages,
         v_scales_pages=v_scales_pages,
     )
@@ -123,33 +132,37 @@ def paged_attention(
     """Decode attention over a paged KV cache.
 
     Args:
-      q: ``(B, KVH, G, d)`` current-token queries, grouped by KV head.
+      q: ``(B, KVH, G, d)`` current-token queries, grouped by KV head.  With
+        ``draft_k = k > 1`` (speculative verification) its G rows are
+        ``G_heads * k`` rows laid out k-minor: row ``g * k + j`` is query
+        head g at draft position j, attending columns ``c <= len - k + j``.
       k_pages, v_pages: ``(P, KVH, page_size, d)`` head-major page pools, of
         q's dtype or (with the scale pools) int8 / fp8 payloads.
       k_scales_pages, v_scales_pages: float32 ``(P, KVH, page_size)``, given
         together for 8-bit pools: row j of a page is its payload times its
         scale.
       lengths: ``(B,)`` int32, tokens valid per request (q attends to
-        ``[0, len)``).  A row of length 0 gets zeros; the JAX kernel leaves
-        it unwritten (``decode.py:258``).
+        ``[0, len)``; with drafts they include all k fed tokens).  A row of
+        length 0 gets zeros; the JAX kernel leaves it unwritten
+        (``decode.py:258``).
       page_indices: ``(B, pages_per_seq)`` int32 logical -> physical pages;
         only the first ``ceil(len / page_size)`` entries of a row are read
-        (with a window, none before the page of column ``len - window``).
-      window: the query (at position ``len - 1``) sees columns
-        ``c > len - 1 - window``.
+        (with a window, none before the page of column ``len - k - window +
+        1``).
+      draft_k: k query rows per head, each at its own position (see q).
+      window: the query at position ``pos`` (``len - 1``, or ``len - k +
+        j``) sees columns ``c > pos - window``.
       logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
 
     Returns ``(B, KVH, G, d)`` in q's dtype.
     """
-    if draft_k != 1:
-        raise NotImplementedError(
-            "draft_k > 1 (speculative verification) is not ported yet: it "
-            "comes with the speculative-decoding slice"
-        )
     check_window(window, logit_softcap, causal=True)
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"expected q (B,KVH,G,d), pages (P,KVH,ps,d): {q.shape} {k_pages.shape}")
     b, kvh, g, d = q.shape
+    draft_k = int(draft_k)
+    if draft_k < 1 or g % draft_k:
+        raise ValueError(f"q group rows ({g}) must be a multiple of draft_k ({draft_k})")
     _, kvh2, page_size, d2 = k_pages.shape
     if (kvh2, d2) != (kvh, d):
         raise ValueError(f"q/k_pages mismatch: {tuple(q.shape)} vs {tuple(k_pages.shape)}")
@@ -167,8 +180,8 @@ def paged_attention(
         raise ValueError("paged_attention takes contiguous tensors")
     if q.device.type == "cpu":
         return paged_attention_plain(
-            q, k_pages, v_pages, lengths, page_indices, scale=scale, window=window,
-            logit_softcap=logit_softcap, k_scales_pages=k_scales_pages,
+            q, k_pages, v_pages, lengths, page_indices, scale=scale, draft_k=draft_k,
+            window=window, logit_softcap=logit_softcap, k_scales_pages=k_scales_pages,
             v_scales_pages=v_scales_pages,
         )
     devs = {t.device for t in (q, k_pages, v_pages, lengths, page_indices, *scales)}
@@ -176,7 +189,7 @@ def paged_attention(
         raise ValueError(f"paged_attention: tensors on {sorted(map(str, devs))}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"paged_attention kernel takes float32 or bfloat16, got {q.dtype}")
-    if d not in _HEAD_DIMS or g not in _GROUPS:
+    if d not in _HEAD_DIMS or (draft_k == 1 and g not in _GROUPS):
         raise ValueError(
             f"paged_attention kernel takes head_dim in {_HEAD_DIMS} and G in "
             f"{_GROUPS}, got d={d}, G={g}"
@@ -188,23 +201,28 @@ def paged_attention(
     if quantized:
         kernels.check_aligned("paged_attention", k_pages, v_pages)
     o = torch.empty_like(q)
-    name = f"paged_decode_quant_d{d}" if quantized else "paged_decode"  # a library per d
+    # The draft form and the 8-bit pages' forms (a library per d) build apart.
+    name = "paged_decode" + ("_draft" if draft_k > 1 else "") + (f"_quant_d{d}" if quantized else "")
     status = kernels.library(name).fa_paged_decode(
         _DTYPES[q.dtype], KV_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), *(t.data_ptr() if quantized else None for t in (k_scales_pages, v_scales_pages)),
         lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(),
-        b, kvh, g, d, page_size, page_indices.shape[1], float(scale),
+        b, kvh, g, d, page_size, page_indices.shape[1], draft_k, float(scale),
         *kernel_options(window, logit_softcap), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    kernels.check_launch(name, status, f"q {tuple(q.shape)} {q.dtype}, pages {k_pages.dtype}")
+    kernels.check_launch(name, status, f"q {tuple(q.shape)} {q.dtype}, pages {k_pages.dtype}, "
+                                       f"draft_k {draft_k}")
     paged_attention.launches += 1
     paged_attention.launches_quantized += quantized
+    paged_attention.launches_draft += draft_k > 1
     return o
 
 
-# Kernel launches, for the chip run's path check: all forms, and the 8-bit one.
+# Kernel launches, for the chip run's path check: all forms, the 8-bit ones
+# and the draft ones.
 paged_attention.launches = 0
 paged_attention.launches_quantized = 0
+paged_attention.launches_draft = 0
 
 
 # ── chunked prefill ──────────────────────────────────────────────────────────

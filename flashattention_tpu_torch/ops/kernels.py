@@ -8,7 +8,10 @@ scales) come from the same sources built with ``-DFA_QUANT`` into libraries
 of their own (``*_quant``; paged decode's, instantiated for every head_dim
 and group size, split further into one library per head_dim,
 ``paged_decode_quant_d<D>``), so they build beside the others instead of
-lengthening the longest build.
+lengthening the longest build.  Paged decode's draft form (speculative
+verification, ``draft_k > 1``) is the same source built with ``-DFA_DRAFT``,
+into ``paged_decode_draft`` and, for 8-bit pages, one library per head_dim
+(``paged_decode_draft_quant_d<D>``).
 The build runs at first use, from the sources in the checkout only, into
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``).  A
 library's file name carries a hash of its sources and flags, so an edited
@@ -43,7 +46,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 # configuration not instantiated.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FLASH_FWD = ("flash_fwd.cu", "fa_flash_fwd", [_I, _I, *[_P] * 10, *[_I] * 8, _F, _I, _F, _P])
-_PAGED_DECODE = ("paged_decode.cu", "fa_paged_decode", [_I, _I, *[_P] * 8, *[_I] * 6, _F, _I, _F, _P])
+_PAGED_DECODE = ("paged_decode.cu", "fa_paged_decode", [_I, _I, *[_P] * 8, *[_I] * 7, _F, _I, _F, _P])
 _PAGED_PREFILL = ("paged_prefill.cu", "fa_paged_prefill", [_I, _I, *[_P] * 8, *[_I] * 9, _F, _I, _F, _P])
 _BWD = [*[_I] * 8, _F, _I, _F, _P]  # ..., causal, scale, window, softcap, stream
 KERNELS = {
@@ -53,6 +56,9 @@ KERNELS = {
     "flash_fwd_quant": (*_FLASH_FWD, ["-DFA_QUANT"]),
     **{f"paged_decode_quant_d{d}": (*_PAGED_DECODE, ["-DFA_QUANT", f"-DFA_HEAD_DIM={d}"])
        for d in (32, 64, 128, 256)},
+    "paged_decode_draft": (*_PAGED_DECODE, ["-DFA_DRAFT"]),
+    **{f"paged_decode_draft_quant_d{d}": (
+        *_PAGED_DECODE, ["-DFA_QUANT", "-DFA_DRAFT", f"-DFA_HEAD_DIM={d}"]) for d in (32, 64, 128, 256)},
     "paged_prefill_quant": (*_PAGED_PREFILL, ["-DFA_QUANT"]),
     "flash_naive": (
         "flash_naive.cu",

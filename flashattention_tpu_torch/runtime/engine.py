@@ -22,8 +22,15 @@ decode steps quantize the K/V rows they write and attend on the kernels'
 cache quantizes them as it appends them, as in the JAX engine.  Parameters
 from ``ops.quant.quantize_weights`` serve unchanged.
 
-Not in this slice (each raises ``NotImplementedError``): multi-token steps
-(``multi_step > 1``) and speculative decoding.
+Multi-token steps: ``run(multi_step=n)`` decodes n tokens for the whole
+batch in one call (``transformer.decode_loop``) whenever no request waits,
+every request has n tokens of budget and engine-default sampling, and n
+slots per request can be reserved; otherwise it steps per token.
+Speculative decoding: ``run_speculative(draft_fn, k)`` verifies each
+request's current token and k - 1 drafts in one call
+(``transformer.verify_step``, on the paged decode kernel's draft form),
+emits the accepted drafts and one token of the model's, and trims the
+rejected rows from the cache.
 """
 
 from __future__ import annotations
@@ -123,14 +130,6 @@ def _bucket(n: int) -> int:
     return kv_bucket(n, lo=8)
 
 
-def _check_multi_step(n: int) -> None:
-    if n != 1:
-        raise NotImplementedError(
-            "multi_step > 1 (the multi-token decode loop) is not ported yet: "
-            "it comes with the decode-loop slice"
-        )
-
-
 class Engine:
     def __init__(
         self,
@@ -177,8 +176,11 @@ class Engine:
         self._n_prefill_batches = 0
         self._n_chunk_rounds = 0
         self._n_decode_batches = 0
+        self._n_spec_steps = 0
+        self._n_spec_accepted = 0
         self._prefill_s = 0.0
         self._decode_s = 0.0
+        self._spec_s = 0.0
 
     # ── public API ────────────────────────────────────────────────────────
 
@@ -225,13 +227,21 @@ class Engine:
         return True
 
     def run(self, max_steps: int = 10_000, multi_step: int = 1) -> dict[int, list]:
-        """Drive steps until all requests finish; returns outputs by id."""
-        _check_multi_step(multi_step)
+        """Drive steps until all requests finish; returns outputs by id.
+        ``multi_step > 1``: up to that many tokens per step in one call
+        (see :meth:`step`); the tokens are those of ``multi_step=1``."""
+        return self._drive(lambda: self.step(multi_step=multi_step), max_steps)
+
+    def run_speculative(self, draft_fn, k: int = 4, max_steps: int = 10_000) -> dict[int, list]:
+        """Drive :meth:`step_speculative` until all requests finish."""
+        return self._drive(lambda: self.step_speculative(draft_fn, k), max_steps)
+
+    def _drive(self, step, max_steps: int) -> dict[int, list]:
         for _ in range(max_steps):
             if not self.has_work():
                 break
             was_empty = not self.running
-            self.step()
+            step()
             if was_empty and self._last_admitted == 0 and self.scheduler.num_waiting() > 0:
                 # A step that began with an empty batch admitted nothing: the
                 # waiting requests can never fit.
@@ -243,27 +253,25 @@ class Engine:
         return {rid: r.output for rid, r in self.requests.items()}
 
     def step(self, multi_step: int = 1) -> None:
-        """Admit + prefill new requests, then decode one token for all."""
-        _check_multi_step(multi_step)
+        """Admit + prefill new requests, then decode one token for all, or
+        with ``multi_step = n > 1`` n tokens in one call when no request
+        waits (:meth:`_decode_batch_many`)."""
         self._n_steps += 1
         self._admit_and_prefill()
-        if self.running:
-            self._decode_batch()
-
-    def step_speculative(self, draft_fn, k: int) -> None:
-        raise NotImplementedError(
-            "speculative decoding is not ported yet: it comes with the "
-            "speculative-decoding slice"
-        )
-
-    def run_speculative(self, draft_fn, k: int = 4, max_steps: int = 10_000):
-        self.step_speculative(draft_fn, k)
+        if not self.running:
+            return
+        if multi_step > 1 and self.scheduler.num_waiting() == 0 and self._decode_batch_many(multi_step):
+            return
+        self._decode_batch()
 
     def stats(self) -> dict:
         """Serving counters: steps, tokens in/out, preemptions, occupancy,
         the whole-prompt prefill batches, chunked-prefill rounds and decode
-        batches, and the host seconds (ending in a device sync) spent in
-        prefill and decode."""
+        batches (a multi-step call counts its n steps), and the host seconds
+        (ending in a device sync) spent in prefill and decode.  Speculative
+        steps add ``spec_steps`` (verify calls), ``spec_accepted`` (drafts
+        accepted, within the requests' budgets) and ``spec_s``; their
+        tokens count in ``decode_tokens``."""
         return {
             "steps": self._n_steps,
             "prefill_tokens": self._n_prefill_tokens,
@@ -277,6 +285,9 @@ class Engine:
             "decode_batches": self._n_decode_batches,
             "prefill_s": self._prefill_s,
             "decode_s": self._decode_s,
+            "spec_steps": self._n_spec_steps,
+            "spec_accepted": self._n_spec_accepted,
+            "spec_s": self._spec_s,
         }
 
     # ── engine step ───────────────────────────────────────────────────────
@@ -489,6 +500,155 @@ class Engine:
         self._decode_s += time.perf_counter() - t0
         for req, tok, lp in zip(reqs, toks, lps):
             self._emit(req, tok, lp)
+
+    def _reserve_span(self, n: int) -> dict | None:
+        """Reserve n slots for every running request, without preemption.
+        Returns each request's cache length before, or None (the
+        reservation rolled back with ``trim``) when the pool runs dry."""
+        start = {rid: self.cache.length(rid) for rid in self.running}
+        try:
+            for rid in self.running:
+                for _ in range(n):
+                    self.cache.reserve_slot(rid)
+        except MemoryError:
+            for rid in self.running:
+                self.cache.trim(rid, start[rid])
+            return None
+        return start
+
+    def _decode_batch_many(self, n: int) -> bool:
+        """Decode n tokens for the whole running batch in one call
+        (:func:`transformer.decode_loop`).
+
+        Returns False (the caller steps per token) unless every running
+        request has n tokens of budget and engine-default sampling, and n
+        cache slots each can be reserved up front without preemption.  A
+        request that stops mid-span (eos, stop token, or a callback that
+        cancels it) keeps the tokens up to its stop; the rest are dropped
+        and its pages freed.  Sampled serving draws from ``sample_gen`` as
+        n per-token steps would."""
+        for rid in self.running:
+            req = self.requests[rid]
+            if req.max_new_tokens - len(req.output) < n or req.sampling is not None:
+                return False
+        t0 = time.perf_counter()
+        start = self._reserve_span(n)
+        if start is None:
+            return False
+        bmax = self.cfg.max_batch
+        batch = list(self.running)
+        host = np.zeros((2, bmax), np.int64)  # tokens, positions (the first write)
+        active = np.zeros(bmax, bool)
+        for i, rid in enumerate(batch):
+            req = self.requests[rid]
+            host[:, i] = (req.output[-1] if req.output else req.prompt[-1], start[rid])
+            active[i] = True
+        tokens, positions = torch.from_numpy(host).to(self.device)
+        _, page_indices = self.cache.batch_view(batch + [-1] * (bmax - len(batch)),
+                                                self.cfg.pages_per_seq)
+        p = self._default_sampling
+        sample = {} if p.greedy else dict(
+            generator=self.sample_gen, temperature=p.temperature, top_k=p.top_k, top_p=p.top_p)
+        out = transformer.decode_loop(
+            self.params, tokens, positions, self.cache.k_pages, self.cache.v_pages,
+            page_indices, self.model_cfg, n, self.cache.k_scales, self.cache.v_scales,
+            active=torch.from_numpy(active), **sample,
+        ).cpu().tolist()  # the pools are updated in place
+        self._n_decode_batches += n
+        self._decode_s += time.perf_counter() - t0
+        for i, rid in enumerate(batch):
+            req = self.requests[rid]
+            for tok in out[i]:
+                self._emit(req, tok)
+                self._n_decode_tokens += 1
+                if req.state != "running":
+                    break  # finished or cancelled: its pages are freed
+        return True
+
+    def step_speculative(self, draft_fn, k: int) -> None:
+        """One continuous-batching step with speculative decoding.
+
+        ``draft_fn(request, n) -> list[int]`` proposes n draft tokens for a
+        running request (a small model, an n-gram cache, prompt lookup);
+        short lists are padded with 0.  Each request's current token and its
+        k - 1 drafts are scored in one call (:func:`transformer.verify_step`);
+        the accepted drafts and one token of the model's are emitted (1 to k
+        per request), and the rejected drafts' rows are trimmed from the
+        cache.  Greedy serving accepts by argmax match
+        (:func:`transformer.speculative_accept`); sampled serving by the
+        point-mass rejection rule (:func:`sampling.speculative_accept_sampled`),
+        which leaves each token distributed as a per-token sample.  Steps
+        per token instead when a request has its own sampling params, when
+        ``length + k`` would pass the page-table view, or when the k slots
+        cannot be reserved."""
+        if k < 2:
+            raise ValueError("speculative decoding requires k >= 2")
+        self._n_steps += 1
+        self._admit_and_prefill()
+        if not self.running:
+            return
+        cap_tokens = self.cfg.pages_per_seq * self.cache.config.page_size
+        for rid in self.running:
+            req = self.requests[rid]
+            if (req.max_new_tokens - len(req.output) < 1 or req.sampling is not None
+                    or self.cache.length(rid) + k > cap_tokens):
+                self._decode_batch()
+                return
+        t0 = time.perf_counter()
+        start = self._reserve_span(k)
+        if start is None:
+            self._decode_batch()
+            return
+        bmax = self.cfg.max_batch
+        batch = list(self.running)
+        ps = self.cache.config.page_size
+        fed = np.zeros((bmax, k), np.int64)
+        positions = np.zeros(bmax, np.int64)
+        write_pages = np.full((bmax, k), self.cache.config.num_pages, np.int64)
+        write_slots = np.zeros((bmax, k), np.int64)
+        for i, rid in enumerate(batch):
+            req = self.requests[rid]
+            drafts = list(draft_fn(req, k - 1))[: k - 1]
+            fed[i, 0] = req.output[-1] if req.output else req.prompt[-1]
+            fed[i, 1:] = drafts + [0] * (k - 1 - len(drafts))
+            positions[i] = start[rid]
+            pages = self.cache.pages(rid)
+            for j in range(k):
+                write_pages[i, j] = pages[(start[rid] + j) // ps]
+                write_slots[i, j] = (start[rid] + j) % ps
+        _, page_indices = self.cache.batch_view(batch + [-1] * (bmax - len(batch)),
+                                                self.cfg.pages_per_seq)
+        fed_d = torch.from_numpy(fed).to(self.device)
+        logits = transformer.verify_step(
+            self.params, fed_d, torch.from_numpy(positions).to(self.device),
+            self.cache.k_pages, self.cache.v_pages, page_indices,
+            torch.from_numpy(write_pages), torch.from_numpy(write_slots),  # host: no sync
+            self.model_cfg, self.cache.k_scales, self.cache.v_scales,
+        )  # the pools are updated in place
+        p = self._default_sampling
+        if p.greedy:
+            n_emit, emitted = transformer.speculative_accept(fed_d[:, 1:], logits)
+        else:
+            n_emit, emitted = sampling.speculative_accept_sampled(
+                self.sample_gen, fed_d[:, 1:], logits, temperature=p.temperature,
+                top_k=p.top_k, top_p=p.top_p,
+            )
+        n_emit, emitted = n_emit.tolist(), emitted.tolist()
+        self._n_spec_steps += 1
+        self._spec_s += time.perf_counter() - t0
+        for i, rid in enumerate(batch):
+            req = self.requests[rid]
+            n = min(n_emit[i], req.max_new_tokens - len(req.output))
+            self._n_spec_accepted += n - 1
+            for tok in emitted[i][:n]:
+                self._emit(req, tok)
+                self._n_decode_tokens += 1
+                if req.state != "running":
+                    break  # finished or cancelled: its pages are freed
+            if req.state == "running":
+                # Keep the rows of the fed token and the accepted drafts, so
+                # that the cache holds the emitted length - 1 rows again.
+                self.cache.trim(rid, start[rid] + n)
 
     def _preempt(self, exclude: int) -> bool:
         """Evict the latest-admitted running request (recompute preemption):

@@ -521,3 +521,97 @@ def _check_train_card_vs_cpu(cfg, packed):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         validate_result(a, b, 1e-5)
+
+
+# The paged decode kernel's draft form (speculative verification): G * k
+# rows per KV head, k-minor, each at its own causal limit; lengths past
+# every row's k; a window of 2 < k and one of 20 across the 16-token pages.
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("k", [2, 3, 4])
+@pytest.mark.parametrize("window", [None, 2, 20], ids=["full", "window2_softcap", "window20_softcap"])
+def test_paged_kernel_draft_matches_plain(dtype, d, g, k, window):
+    kvh, ps, pages, pps = 2, 16, 30, 5
+    lengths = torch.tensor([4, 16, 20, 21, 80], dtype=torch.int32)
+    table = torch.randperm(pages, generator=torch.Generator().manual_seed(63))[: 5 * pps]
+    table = table.reshape(5, pps).to(torch.int32).contiguous()
+    q = _randn((5, kvh, g * k, d), dtype, 64)
+    kp, vp = _randn((pages, kvh, ps, d), dtype, 65), _randn((pages, kvh, ps, d), dtype, 66)
+    kw = dict(scale=d**-0.5, draft_k=k, window=window, logit_softcap=10.0 if window else None)
+    args = (q, kp, vp, lengths, table)
+    before = decode.paged_attention.launches_draft
+    got = decode.paged_attention(*(a.cuda() for a in args), **kw)
+    want = decode.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert decode.paged_attention.launches_draft == before + 1
+    validate_result(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(d, g) for d in decode._HEAD_DIMS for g in decode._GROUPS],
+                         ids=lambda s: f"d{s[0]}-g{s[1]}")
+@pytest.mark.parametrize("window", [None, 20], ids=["full", "window_softcap"])
+def test_quant_paged_kernel_draft_matches_plain(qdtype, dtype, shape, window):
+    d, g = shape
+    kvh, ps, pages, pps = 2, 16, 30, 5
+    lengths = torch.tensor([4, 16, 21, 37, 80], dtype=torch.int32)
+    table = torch.randperm(pages, generator=torch.Generator().manual_seed(73))[: 5 * pps]
+    table = table.reshape(5, pps).to(torch.int32).contiguous()
+    q = _randn((5, kvh, g * 4, d), dtype, 74)
+    (kp, ks), (vp, vs) = (_quant_rows((pages, kvh, ps, d), qdtype, s) for s in (75, 76))
+    kw = dict(scale=d**-0.5, draft_k=4, window=window, logit_softcap=10.0 if window else None)
+    args = (q, kp, vp, lengths, table)
+    got = decode.paged_attention(*(a.cuda() for a in args), k_scales_pages=ks.cuda(),
+                                 v_scales_pages=vs.cuda(), **kw)
+    want = decode.paged_attention(*args, k_scales_pages=ks, v_scales_pages=vs, **kw)
+    torch.cuda.synchronize()
+    validate_result(got, want, TOL[dtype])
+
+
+def test_paged_kernel_never_runs_plain_on_card(monkeypatch):
+    """A CUDA call launches a kernel form (k = 1 or draft) or raises; the
+    plain version is never its way out."""
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain version ran on a CUDA call")
+
+    monkeypatch.setattr(decode, "paged_attention_plain", refuse)
+    q = _randn((2, 2, 8, 64), torch.bfloat16, 80).cuda()
+    kp = _randn((6, 2, 16, 64), torch.bfloat16, 81).cuda()
+    lengths = torch.tensor([5, 30], dtype=torch.int32, device="cuda")
+    table = torch.arange(6, dtype=torch.int32, device="cuda").reshape(2, 3)
+    for k in (1, 4):
+        decode.paged_attention(q, kp, kp, lengths, table, draft_k=k)
+    with pytest.raises(ValueError, match="multiple of draft_k"):
+        decode.paged_attention(q, kp, kp, lengths, table, draft_k=3)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cache", ["float32", "int8"])
+def test_speculative_and_multi_step_engine_on_card_match_cpu(cache):
+    """Greedy tokens of the tiny float32 model with run(multi_step=4) and
+    run_speculative(k=3) on the card equal the CPU engine's, which equal
+    its per-token run's."""
+    cfg = dataclasses.replace(transformer.ModelConfig.tiny(), dtype="float32")
+    params = transformer.init_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (3, 9, 17)]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        p = {k: (v.to(dev) if torch.is_tensor(v) else [{n: w.to(dev) for n, w in lay.items()} for lay in v])
+             for k, v in params.items()}
+        for how in ("plain", "multi_step", "speculative"):
+            cc = kvcache.CacheConfig(num_layers=2, num_kv_heads=2, head_dim=32, page_size=8,
+                                     num_pages=16, dtype=cache)
+            eng = engine.Engine(p, cfg, cc, engine.EngineConfig(max_batch=3, pages_per_seq=4,
+                                                                prefill_chunk=0), device=dev)
+            for pr in prompts:
+                eng.add_request(pr, 9)
+            if how == "speculative":
+                outs.append(eng.run_speculative(lambda req, n: [req.length % 256] * n, k=3))
+            else:
+                outs.append(eng.run(multi_step=4 if how == "multi_step" else 1))
+            assert eng.cache.num_free_pages() == 16
+    assert all(o == outs[0] for o in outs)

@@ -133,19 +133,24 @@ def test_engine_sampled_is_seeded(models):
 
 
 def test_engine_unported_paths_raise(models):
-    """The default EngineConfig() (prefill_chunk=512) builds and serves;
-    multi-step and speculative decoding still raise."""
+    """The default EngineConfig() (prefill_chunk=512) builds and serves, per
+    token and with multi-step decode (ported, with speculative decoding,
+    since the two paths were the last of this engine to raise); a
+    speculative step with k < 2 raises ``ValueError``."""
     (_, _), (tcfg, tp) = models
     cc = tk.CacheConfig(num_layers=2, num_kv_heads=2, head_dim=32, page_size=8, num_pages=8,
                         dtype="float32")
     eng = te.Engine(tp, tcfg, cc, device="cpu")
     assert eng.cfg == te.EngineConfig() and eng.cfg.prefill_chunk == 512
     rid = eng.add_request([1, 2, 3], 3)
-    assert len(eng.run()[rid]) == 3 and eng.cache.num_free_pages() == 8
-    with pytest.raises(NotImplementedError):
-        eng.run(multi_step=4)
-    with pytest.raises(NotImplementedError):
-        eng.step_speculative(lambda req, n: [], 2)
+    want = eng.run()[rid]
+    assert len(want) == 3 and eng.cache.num_free_pages() == 8
+    rid = eng.add_request([1, 2, 3], 9)
+    out = eng.run(multi_step=4)[rid]
+    assert out[:3] == want and len(out) == 9 and eng.cache.num_free_pages() == 8
+    eng.add_request([1, 2, 3], 3)
+    with pytest.raises(ValueError, match="k >= 2"):
+        eng.step_speculative(lambda req, n: [], 1)
 
 
 # ── allocator / scheduler parity ────────────────────────────────────────────
