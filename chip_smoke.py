@@ -54,7 +54,21 @@ Phases, each of which must pass (any failure exits non-zero):
                (R x S) mask and k launches of the k = 1 kernel;
                ``torch_tools/draft_mutants.py`` shows that these checks fail
                a draft form whose causal limit, row order, first page or
-               per-row window is wrong;
+               per-row window is wrong; and attention dropout in the four
+               kernels at rates 0.1 and 0.5 (``dropout_checks``: the
+               training and packed layers, a ragged GQA S = 1000 through
+               ``attention()``, Gemma-2's windowed layer, the int8 form;
+               timed against the same kernel without dropout and SDPA with
+               dropout_p) and block masks in flash_fwd and the two-pass
+               backward (``block_mask_checks``: prefix-LM, 512-token
+               documents and strided masks at Llama-7B's layer, S = 4096,
+               and built at 4096 for S = 4000; timed against no mask and
+               SDPA with the boolean mask; the documents mask within a
+               quarter of the no-mask time; K/V rows only dead tiles touch
+               poisoned with NaN); ``torch_tools/dropout_mutants.py`` shows
+               that these fail each of nine dropout and block-mask mutants;
+   attention_block_mask - ``attention(block_mask=, dropout_rate=0.1)``
+               under autograd at that layer, the launches counted;
 3. serve     - run the engine with whole-prompt prefill (prefill_chunk=0) at
                Llama-7B width (32 layers unless --layers): 8 greedy requests,
                64-1024 token prompts from --seed, 32 new tokens each,
@@ -126,6 +140,9 @@ Phases, each of which must pass (any failure exits non-zero):
 9. train_packed - ``make_train_step_packed`` on the same model over 8 rows
                packed from random documents of 64-2048 tokens: the two-pass
                backward (flash_bwd_dq and flash_bwd_dkv L per step);
+   train_dropout, train_packed_dropout - train and train_packed with
+               ``attn_dropout=0.1``, seed = step index: the kernels' dropout
+               forms launch L times per step;
    train_mistral, train_gemma2 - the plain step on ``mistral7b`` (its
                window 4096) and ``gemma2_9b`` (window 4096, softcap 50,
                head_dim 256, vocab 256128) at full width in 2 layers, bf16,
@@ -139,12 +156,15 @@ Phases, each of which must pass (any failure exits non-zero):
                parameters; losses, updated parameters and the first step's
                gradients must agree; train_parity_mistral_w128 and
                train_parity_gemma2_w128 the same for the windowed models at
-               full width, their window cut to 128 (130-160 s of CPU work
-               for Gemma-2's 256128-wide logits).
+               full width, their window cut to 128 (about 120 s of CPU work
+               for Gemma-2's 256128-wide logits), and train_parity_dropout
+               with ``attn_dropout=0.1``; one CPU run without remat is the
+               reference of both card runs.
 
 It prints one JSON line per check, the total seconds, a ``{"kernels":
 [...]}`` summary (with a ``quantized`` entry for each serving kernel's 8-bit
-form, and paged_decode's draft form as an entry of its own), the card's name
+form, ``dropout`` and ``block_mask`` entries for flash_fwd and the backward
+kernels, and paged_decode's draft form as an entry of its own), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
 Details go to ``chiprun_out/chip_smoke.json``.  It needs one CUDA card and
 imports nothing of JAX.
@@ -246,14 +266,17 @@ def _rec(check, got, want, dt, tol, **extra):
 
 
 _MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8", "13__nv_fp8_e4m3": "fp8"}
+# Each kernel's bool template arguments, in order (the others': window_cap, extra).
+_FLAGS = {"paged_decode_kernel": ("window_cap", "draft"), "flash_fwd_kernel": ("extra",)}
 
 
 def _ptxas(log):
     """Registers and spill bytes of each kernel instantiation, from nvcc's
-    ``-Xptxas -v`` report (``name<dtype[,payload],D[,G][,window_cap][,draft]>``
-    read off the mangled name: the payload type where it differs from q's, an
-    8-bit form's; ``window_cap`` marks a window/softcap form, ``draft``
-    paged_decode's draft form, whose G is its tile of rows)."""
+    ``-Xptxas -v`` report (``name<dtype[,payload],D[,G][,flags]>`` read off
+    the mangled name: the payload type where it differs from q's, an 8-bit
+    form's; ``window_cap`` marks a window/softcap form, ``draft``
+    paged_decode's draft form, whose G is its tile of rows, and ``extra`` the
+    dropout / block-mask form of flash_fwd and the backward kernels)."""
     out, spills = [], (0, 0)
     types = "|".join(["S\\d*_", *_MANGLED_TYPES])
     for ln in log.splitlines():
@@ -261,7 +284,7 @@ def _ptxas(log):
         if m:
             args = [_MANGLED_TYPES[t] for t in re.findall("|".join(_MANGLED_TYPES), m.group(2))]
             args = args[:1] if args[1:] == args[:1] else args  # the payload is q's type
-            flags = iter(("window_cap", "draft"))  # the bool arguments, in order
+            flags = iter(_FLAGS.get(m.group(1), ("window_cap", "extra")))
             for kind, n in re.findall(r"L([ib])(\d+)E", m.group(3)):
                 flag = next(flags) if kind == "b" else None
                 args += [n] if kind == "i" else [flag] if n == "1" else []
@@ -935,12 +958,15 @@ def phase_crosscheck(fa, flash, gen, report):
 # The 8-bit forms of the serving kernels: their wrappers count those
 # launches apart (``launches_quantized``) as well as with all the others.
 QUANT_KERNELS = ("flash_fwd", "paged_decode", "paged_prefill")
+# The kernels with dropout (all four) and block masks (all but flash_bwd).
+EXTRA_KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _counters(flash, decode, backward):
     """Launch counters by name: ``(wrapper, attribute)``; ``<kernel>_quant``
-    counts the 8-bit form's launches and ``paged_decode_draft`` the draft
-    form's, which ``<kernel>`` counts too."""
+    counts the 8-bit form's launches, ``paged_decode_draft`` the draft
+    form's, ``<kernel>_dropout`` and ``<kernel>_block_mask`` the launches
+    with dropout and with a block mask, which ``<kernel>`` counts too."""
     fns = {
         "flash_fwd": flash.flash_attention,
         "paged_decode": decode.paged_attention,
@@ -953,6 +979,9 @@ def _counters(flash, decode, backward):
     out = {k: (fn, "launches") for k, fn in fns.items()}
     out.update({f"{k}_quant": (fns[k], "launches_quantized") for k in QUANT_KERNELS})
     out["paged_decode_draft"] = (decode.paged_attention, "launches_draft")
+    out.update({f"{k}_dropout": (fns[k], "launches_dropout") for k in EXTRA_KERNELS})
+    out.update({f"{k}_block_mask": (fns[k], "launches_block_mask") for k in EXTRA_KERNELS
+                if k != "flash_bwd"})
     return out
 
 
@@ -1911,7 +1940,7 @@ def _bwd_case(backward, flash, q, k, v, do, kw, segs):
     """One backward case: o and lse from the forward kernel, the plain
     backward (float32 from the same inputs) and the kernels' gradients.
     Returns (ins, plain, want, runs): ``runs`` holds the two-pass pair's and,
-    without segment ids, the fused kernel's ``(dq, dk, dv)``."""
+    without segment ids or a block mask, the fused kernel's ``(dq, dk, dv)``."""
     o, l, m = flash.flash_attention(q, k, v, save_residuals=True, **kw, **segs)
     lse = m + torch.log(torch.where(l == 0, 1.0, l))
     ins = (q, k, v, o, lse, do)
@@ -1919,7 +1948,7 @@ def _bwd_case(backward, flash, q, k, v, do, kw, segs):
     plain = lambda: backward.flash_attention_bwd_plain(*fp32, **kw, **segs)  # noqa: E731
     want = plain()
     runs = {"two_pass": backward.flash_attention_bwd(*ins, fused=False, **kw, **segs)}
-    if not segs:
+    if not segs and kw.get("block_mask") is None:
         runs["fused"] = backward.flash_attention_bwd(*ins, fused=True, **kw)
     torch.cuda.synchronize()
     return ins, plain, want, runs
@@ -2086,14 +2115,14 @@ def bwd_window_checks(backward, flash, benchit, gen, card, report, names=None, t
     return timed_recs
 
 
-def _bwd_yardsticks(benchit, ins, kw, c, plain):
+def _bwd_yardsticks(benchit, ins, kw, c, plain, dropout_p=0.0):
     """The plain backward's time and the library yardstick's: the backward
     of one scaled_dot_product_attention call, timed alone
     (torch.autograd.grad on a kept graph).  Causal with native GQA for a
     plain layer; with segment ids or a window, a boolean mask (causal, and
     same segment or inside the window) over K/V repeated to the q heads
     beforehand, untimed, since the masked kernels take no GQA.  SDPA has no
-    softcap."""
+    softcap; with ``dropout_p`` it drops weights with its own random bits."""
     q, k, v, o, lse, do = ins
     out = {"plain_ms": benchit.cuda_time_ms(plain, warmup=1, iters=3)}
     b, kvh, g, s, d = c["b"], c["kvh"], c["g"], c["s_q"], c["d"]
@@ -2112,16 +2141,19 @@ def _bwd_yardsticks(benchit, ins, kw, c, plain):
             mask = ((seg[:, :, None] == seg[:, None, :]) & mask)[:, None]
         k4 = k4.repeat_interleave(g, dim=1).requires_grad_()
         v4 = v4.repeat_interleave(g, dim=1).requires_grad_()
-        res = sdpa(q4, k4, v4, attn_mask=mask, scale=kw["scale"])
+        res = sdpa(q4, k4, v4, attn_mask=mask, scale=kw["scale"], dropout_p=dropout_p)
         parts = "+".join(["causal"] + ["window"] * bool(window) + ["segment"] * ("seg" in c))
         out["library"] = (f"scaled_dot_product_attention backward, boolean {parts} mask, K/V "
                           f"repeated to {kvh * g} heads untimed")
     else:
         k4, v4 = k4.requires_grad_(), v4.requires_grad_()
-        res = sdpa(q4, k4, v4, is_causal=True, scale=kw["scale"], enable_gqa=True)
+        res = sdpa(q4, k4, v4, is_causal=True, scale=kw["scale"], enable_gqa=True,
+                   dropout_p=dropout_p)
         out["library"] = "scaled_dot_product_attention backward, is_causal, enable_gqa"
     if kw.get("logit_softcap"):
         out["library"] += "; no softcap (SDPA cannot express it)"
+    if dropout_p:
+        out["library"] += f"; dropout_p={dropout_p} (its own random bits)"
     do4 = do.reshape(res.shape)
     out["library_ms"] = benchit.cuda_time_ms(
         lambda: torch.autograd.grad(res, (q4, k4, v4), do4, retain_graph=True), warmup=1, iters=5
@@ -2149,6 +2181,400 @@ def _time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, yardstick
     out["live_pairs"] = pairs
     out.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=per_pair * c["d"] * pairs, dtype=dt))
     return out
+
+
+# Attention dropout in the four kernels: each against its plain version (the
+# same keep bits, from the same hash) at rates 0.1 and 0.5, in bfloat16 and
+# float32 (float32 at B = 2): flash_fwd and flash_bwd at the training layer
+# (B = 8, 8 KV heads x G = 4, S = 2048, d = 128, causal), flash_bwd_dq and
+# flash_bwd_dkv at the packed layer (the same with segment ids from packed
+# documents); at rate 0.1, a ragged GQA S = 1000 through attention() (which
+# draws the JAX package's bits at rows padded to 1024 per group), Gemma-2's
+# windowed layer (d = 256, window 4096, softcap 50, S = 8192) and the 8-bit
+# form (int8 K/V) at the prefill shape.  Timed at rate 0.1 in bfloat16
+# against the plain version, the same kernel without dropout, and SDPA with
+# dropout_p = 0.1 forward and backward (a time yardstick only: its random
+# bits are its own).
+DROPOUT_RATES = (0.1, 0.5)
+DROPOUT_SEED = 1234567
+DROPOUT_RAGGED_S = 1000
+
+
+def _no_dropout(kw):
+    return {k: v for k, v in kw.items() if not k.startswith("dropout")}
+
+
+def _sdpa_fwd_ms(benchit, q4, k4, v4, **kw):
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return benchit.cuda_time_ms(lambda: sdpa(q4, k4, v4, **kw), warmup=1, iters=5)
+
+
+def _fwd_rec(check, flash, q, k, v, kw, segs, dt, **extra):
+    """The forward kernel against its plain version (o, and l, m relative):
+    ``(record, plain)``."""
+    o, l, m = flash.flash_attention(q, k, v, save_residuals=True, **kw, **segs)
+    plain = lambda: flash.flash_attention_plain(q, k, v, save_residuals=True, **kw, **segs)  # noqa: E731
+    wo, wl, wm = plain()
+    torch.cuda.synchronize()
+    e_l = err(l, wl) / float(wl.abs().max())
+    e_m = err(m, wm) / float(wm.abs().max())
+    rec = _rec(check, o, wo, dt, FLASH_TOL[dt], l_rel_err=e_l, m_rel_err=e_m,
+               stats_rtol=STATS_RTOL, **extra)
+    rec["ok"] = rec["ok"] and e_l <= STATS_RTOL and e_m <= STATS_RTOL
+    return rec, plain
+
+
+def _fwd_bound(benchit, card, q, k, v, d, pairs, dt, form=None):
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.shape[0] * k.shape[1] * _row_bytes(k, d, form)
+    return benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * d * pairs, dtype=dt)
+
+
+def dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, report, timed=True):
+    """The four kernels with dropout (see above), timed unless not ``timed``.
+    Returns ``{kernel: timed record}`` and, under ``"flash_fwd_quant"``, the
+    8-bit form's check."""
+    mains = {}
+    _, seg_np = _packed_ids(packing, args.seed + 5, TRAIN_B, TRAIN_S)
+    packed = torch.tensor(seg_np, device="cuda")
+    train = dict(kvh=8, g=4, s_q=TRAIN_S, s_kv=TRAIN_S, d=128)
+    cases = [("train_layer", dict(train, b=TRAIN_B), "bfloat16", DROPOUT_RATES),
+             ("train_layer_b2", dict(train, b=2), "float32", DROPOUT_RATES),
+             ("packed_layer", dict(train, b=TRAIN_B, seg=packed), "bfloat16", DROPOUT_RATES),
+             ("packed_layer_b2", dict(train, b=2, seg=packed[:2]), "float32", DROPOUT_RATES)]
+    cases += [("gemma2_d256_w4096_cap50", dict(_GEMMA_LAYER), dt, (0.1,))
+              for dt in ("bfloat16", "float32")]
+    for name, c, dt, rates in cases:
+        bh, rows, d = c["b"] * c["kvh"], c["g"] * c["s_q"], c["d"]
+        for rate in rates:
+            def rand(shape, mult=1.0):
+                return (mult * torch.randn(shape, generator=gen, device="cuda")).to(DTYPES[dt])
+
+            q, k, v = rand((bh, rows, d)), rand((bh, c["s_kv"], d)), rand((bh, c["s_kv"], d))
+            do = rand((bh, rows, d), 0.25)  # gradients below 4: see bwd_checks
+            kw = dict(causal=True, scale=d**-0.5, kv_len=None, q_offset=0, q_seq_len=c["s_q"],
+                      window=c.get("window"), logit_softcap=c.get("cap"), dropout_rate=rate,
+                      dropout_seed=DROPOUT_SEED)
+            segs = {}
+            if "seg" in c:
+                seg_q, seg_kv = _fold_ids(c["seg"], c["kvh"], c["g"])
+                segs = dict(q_segment_ids=seg_q, kv_segment_ids=seg_kv)
+            shape = {**{n: x for n, x in c.items() if n != "seg"}, "segment_ids": "seg" in c,
+                     "rate": rate}
+            timing = (timed and dt == "bfloat16" and rate == 0.1
+                      and name in ("train_layer", "packed_layer"))
+            if "seg" not in c:
+                rec, fwd_plain = _fwd_rec(f"flash_fwd/dropout/{name}/{rate}/{dt}", flash, q, k, v,
+                                          kw, segs, dt, shape=shape)
+                if timing:
+                    rec.update(_time_dropout_fwd(flash, benchit, card, q, k, v, kw, c, fwd_plain))
+                    mains["flash_fwd"] = rec
+                emit(rec)
+                report["checks"].append(rec)
+            ins, plain, want, runs = _bwd_case(backward, flash, q, k, v, do, kw, segs)
+            got = {"flash_bwd_dq": (runs["two_pass"][:1], want[:1]),
+                   "flash_bwd_dkv": (runs["two_pass"][1:], want[1:])}
+            if "fused" in runs:
+                got["flash_bwd"] = (runs["fused"], want)
+            yard = None
+            for kname, (gots, wants) in got.items():
+                rec = _bwd_rec(f"{kname}/dropout/{name}/{rate}/{dt}", gots, wants, dt, shape=shape,
+                               grad_absmax=[float(w.abs().max()) for w in wants])
+                if timing and (kname == "flash_bwd") == (name == "train_layer"):
+                    if yard is None:
+                        yard = _bwd_yardsticks(benchit, ins, kw, c, plain, dropout_p=rate)
+                    rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c,
+                                         yard, dt))
+                    rec["no_dropout_ms"] = _time_bwd(backward, flash, benchit, card, kname, ins,
+                                                     _no_dropout(kw), segs, c, yard, dt)["kernel_ms"]
+                    mains[kname] = rec
+                emit(rec)
+                report["checks"].append(rec)
+            del q, k, v, do, ins, plain, want, runs, got
+            torch.cuda.empty_cache()
+    for dt in ("bfloat16", "float32"):
+        rec = _ragged_gqa_dropout(fa, backward, flash, gen, dt)
+        emit(rec)
+        report["checks"].append(rec)
+    # The 8-bit form (int8 K/V with per-row scales) at the prefill shape.
+    b, h, hkv, s, d = 4, 32, 32, 1024, 128
+    for dt in ("bfloat16", "float32"):
+        q = torch.randn((b * h, s, d), generator=gen, device="cuda").to(DTYPES[dt])
+        (k, ks), (v, vs) = (_kv(gen, (b * hkv, s, d), DTYPES[dt], "int8") for _ in range(2))
+        kw = dict(causal=True, scale=d**-0.5, dropout_rate=0.1, dropout_seed=DROPOUT_SEED)
+        o = flash.flash_attention(q, k, v, k_scales=ks, v_scales=vs, **kw)
+        plain = lambda: flash.flash_attention_plain(  # noqa: E731
+            q, _plain_kv(k, ks), _plain_kv(v, vs), **kw)
+        rec = _rec(f"flash_fwd/dropout/quant/prefill/int8/{dt}", o, plain(), dt, FLASH_TOL[dt],
+                   shape=f"BH={b * h} S={s} d={d} causal, int8 K/V, rate 0.1")
+        if timed and dt == "bfloat16":
+            rec["kernel_ms"] = benchit.cuda_time_ms(
+                lambda: flash.flash_attention(q, k, v, k_scales=ks, v_scales=vs, **kw), warmup=1,
+                iters=5)
+            rec["no_dropout_ms"] = benchit.cuda_time_ms(
+                lambda: flash.flash_attention(q, k, v, k_scales=ks, v_scales=vs,
+                                              **_no_dropout(kw)), warmup=1, iters=5)
+            rec["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=3)
+            q4, kd, vd = (x.reshape(b, -1, s, d) for x in (q, _bf16(k, ks), _bf16(v, vs)))
+            rec["library_ms"] = _sdpa_fwd_ms(benchit, q4, kd, vd, is_causal=True, scale=d**-0.5,
+                                             dropout_p=0.1)
+            rec["library"] = "scaled_dot_product_attention, is_causal, dropout_p=0.1" + _DEQUANT_NOTE
+            rec.update(_fwd_bound(benchit, card, q, k, v, d, b * h * s * (s + 1) // 2, dt, "int8"))
+            mains["flash_fwd_quant"] = rec
+        emit(rec)
+        report["checks"].append(rec)
+    return mains
+
+
+def _time_dropout_fwd(flash, benchit, card, q, k, v, kw, c, plain):
+    """The forward kernel with dropout, without, its plain version and SDPA
+    with dropout_p (causal, native GQA), and its bound over live pairs."""
+    b, kvh, g, s, d = c["b"], c["kvh"], c["g"], c["s_q"], c["d"]
+    out = {
+        "kernel_ms": benchit.cuda_time_ms(lambda: flash.flash_attention(q, k, v, **kw),
+                                          warmup=1, iters=5),
+        "no_dropout_ms": benchit.cuda_time_ms(
+            lambda: flash.flash_attention(q, k, v, **_no_dropout(kw)), warmup=1, iters=5),
+        "plain_ms": benchit.cuda_time_ms(plain, warmup=1, iters=3),
+    }
+    q4, k4, v4 = q.reshape(b, kvh * g, s, d), k.reshape(b, kvh, s, d), v.reshape(b, kvh, s, d)
+    out["library_ms"] = _sdpa_fwd_ms(benchit, q4, k4, v4, is_causal=True, scale=kw["scale"],
+                                     dropout_p=kw["dropout_rate"], enable_gqa=True)
+    out["library"] = (f"scaled_dot_product_attention, is_causal, enable_gqa, "
+                      f"dropout_p={kw['dropout_rate']} (its own random bits)")
+    pairs = _live_pairs(flash, q.shape[0], q.shape[1], k.shape[1], kw, {})
+    out["live_pairs"] = pairs
+    out.update(_fwd_bound(benchit, card, q, k, v, d, pairs, "bfloat16"))
+    return out
+
+
+def _ragged_gqa_dropout(fa, backward, flash, gen, dt):
+    """attention() with dropout over a ragged GQA S (32 q / 8 KV heads, d =
+    128): the forward and the gradients under autograd against the plain
+    versions at the raw row stride round_up(S, 128)."""
+    b, h, hkv, s, d = 1, 32, 8, DROPOUT_RAGGED_S, 128
+    g, stride = h // hkv, -(-DROPOUT_RAGGED_S // 128) * 128
+    q4 = torch.randn((b, h, s, d), generator=gen, device="cuda").to(DTYPES[dt]).requires_grad_()
+    k4, v4 = (torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(DTYPES[dt])
+              .requires_grad_() for _ in range(2))
+    do4 = (0.25 * torch.randn((b, h, s, d), generator=gen, device="cuda")).to(DTYPES[dt])
+    kw = dict(causal=True, scale=d**-0.5, dropout_rate=0.1, dropout_seed=DROPOUT_SEED)
+    o4 = fa.attention(q4, k4, v4, **kw)
+    got = torch.autograd.grad(o4, (q4, k4, v4), do4)
+    q3, k3, v3, do3 = (x.detach().reshape(b * hkv, -1, d).float() for x in (q4, k4, v4, do4))
+    pkw = dict(kw, q_seq_len=s, dropout_row_stride=stride)
+    wo, wl, wm = flash.flash_attention_plain(q3, k3, v3, save_residuals=True, **pkw)
+    want = backward.flash_attention_bwd_plain(q3, k3, v3, wo, wm + torch.log(wl), do3, **pkw)
+    torch.cuda.synchronize()
+    # The plain gradients start from the plain forward's float32 o and lse,
+    # the kernels' from their own (o rounded to dt): max-abs bounds only.
+    e_o = err(o4.detach().reshape(wo.shape), wo)
+    e_g = max(err(x.reshape(w.shape), w) for x, w in zip(got, want))
+    return {"check": f"flash_fwd+bwd/dropout/ragged_gqa_s{s}/attention/{dt}",
+            "o_max_abs_err": e_o, "o_tol": FLASH_TOL[dt], "max_abs_err": e_g, "tol": BWD_TOL[dt],
+            "shape": f"B={b} H={h} KVH={hkv} S={s} d={d} causal, rate 0.1, row stride {stride}",
+            "ok": e_o <= FLASH_TOL[dt] and e_g <= BWD_TOL[dt]}
+
+
+# Block-sparse masks in flash_fwd, flash_bwd_dq and flash_bwd_dkv at
+# Llama-7B's layer (B = 4, 32 heads, S = 4096, d = 128; bfloat16 and float32):
+# a prefix-LM mask, 512-token documents and a strided mask, each also built
+# at the padded length (4096) of a ragged S = 4000; each against its plain
+# version.  Timed in bfloat16 at S = 4096 against the same kernels with no
+# mask and SDPA with the boolean mask; under the documents mask (live
+# fraction 1/8, no partial tile) each kernel must take at most a quarter of
+# its no-mask time, which shows dead tiles are skipped, not masked.  Then a
+# NaN-poison check: K/V rows that only dead tiles touch hold NaN, and every
+# output must be finite and equal the clean run's.
+BM_B, BM_H, BM_S, BM_D, BM_RAGGED_S = 4, 32, 4096, 128, 4000
+BM_SKIP_RATIO = 0.25
+
+
+def bm_prefix_lm(r, c):
+    return (c < 1024) | (c <= r)
+
+
+def bm_documents(r, c):
+    return r // 512 == c // 512
+
+
+def bm_strided(r, c):
+    return (abs(r - c) < 128) | (c % 256 == 0)
+
+
+def bm_poison(r, c):
+    # Columns 3072+ are seen by no row: only dead tiles touch them.
+    return (c < 3072) & ((r // 512 == c // 512) | (c < 512))
+
+
+BM_MASKS = {"prefix_lm": bm_prefix_lm, "documents": bm_documents, "strided": bm_strided}
+
+
+def block_mask_checks(backward, flash, benchit, gen, card, report, timed=True):
+    """The three kernels with block masks (see above), timed unless not
+    ``timed``.  Returns ``{kernel: {mask: timed record}}``."""
+    timed_recs = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    masks = {n: flash.BlockMask.from_mask_fn(fn, BM_S, BM_S) for n, fn in BM_MASKS.items()}
+    for dt in ("bfloat16", "float32"):
+        def rand(shape, mult=1.0):
+            return (mult * torch.randn(shape, generator=gen, device="cuda")).to(DTYPES[dt])
+
+        for s in (BM_S, BM_RAGGED_S):
+            bh = BM_B * BM_H
+            q, k, v = (rand((bh, s, BM_D)) for _ in range(3))
+            do = rand((bh, s, BM_D), 0.25)
+            base = dict(causal=False, scale=BM_D**-0.5, kv_len=None, q_offset=0, q_seq_len=None)
+            no_mask = None
+            for mname, bm in masks.items():
+                kw = dict(base, block_mask=bm)
+                shape = f"B={BM_B} H={BM_H} S={s} d={BM_D}, {mname} mask built at {BM_S}"
+                fwd, fwd_plain = _fwd_rec(f"flash_fwd/block_mask/{mname}/s{s}/{dt}", flash, q, k, v,
+                                          kw, {}, dt, shape=shape)
+                ins, plain, want, runs = _bwd_case(backward, flash, q, k, v, do, kw, {})
+                recs = {"flash_fwd": fwd}
+                for kname, gots, wants in (("flash_bwd_dq", runs["two_pass"][:1], want[:1]),
+                                           ("flash_bwd_dkv", runs["two_pass"][1:], want[1:])):
+                    recs[kname] = _bwd_rec(f"{kname}/block_mask/{mname}/s{s}/{dt}", gots, wants,
+                                           dt, shape=shape,
+                                           grad_absmax=[float(w.abs().max()) for w in wants])
+                if timed and dt == "bfloat16" and s == BM_S:
+                    if no_mask is None:
+                        no_mask = _bm_no_mask_times(backward, flash, benchit, ins, base)
+                    _time_block_mask(backward, flash, benchit, card, recs, ins, kw, fwd_plain,
+                                     plain, no_mask)
+                    for kname, rec in recs.items():
+                        timed_recs[kname][mname] = rec
+                for rec in recs.values():
+                    emit(rec)
+                    report["checks"].append(rec)
+                del ins, plain, want, runs
+                torch.cuda.empty_cache()
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    checks = [_bm_skip_check(timed_recs, masks)] if timed else []
+    checks.append(_bm_poison_check(backward, flash, gen))
+    for rec in checks:
+        emit(rec)
+        report["checks"].append(rec)
+    return timed_recs
+
+
+def _bm_skip_check(timed_recs, masks):
+    """Under the documents mask each kernel takes at most BM_SKIP_RATIO of
+    its no-mask time."""
+    docs = {k: timed_recs[k]["documents"] for k in timed_recs}
+    fwd_ratio = docs["flash_fwd"]["kernel_ms"] / docs["flash_fwd"]["no_mask_ms"]
+    bwd_ratio = ((docs["flash_bwd_dq"]["kernel_ms"] + docs["flash_bwd_dkv"]["kernel_ms"])
+                 / (docs["flash_bwd_dq"]["no_mask_ms"] + docs["flash_bwd_dkv"]["no_mask_ms"]))
+    rec = {"check": "block_mask/documents/dead_tiles_skipped", "flash_fwd_ratio": fwd_ratio,
+           "dq_plus_dkv_ratio": bwd_ratio, "max_ratio": BM_SKIP_RATIO,
+           "live_fraction": masks["documents"].element_live_fraction,
+           "ok": fwd_ratio <= BM_SKIP_RATIO and bwd_ratio <= BM_SKIP_RATIO}
+    return rec
+
+
+def _bm_no_mask_times(backward, flash, benchit, ins, base):
+    """The three kernels with no mask on the same inputs, and SDPA's
+    forward and backward with a boolean mask (filled in per mask)."""
+    q, k, v, o, lse, do = ins
+    di = (o.float() * do.float()).sum(dim=-1)
+    return {
+        "flash_fwd": benchit.cuda_time_ms(lambda: flash.flash_attention(q, k, v, **base),
+                                          warmup=1, iters=3),
+        "flash_bwd_dq": benchit.cuda_time_ms(lambda: backward.dq_kernel(q, k, v, do, lse, di, **base),
+                                             warmup=1, iters=3),
+        "flash_bwd_dkv": benchit.cuda_time_ms(
+            lambda: backward.dkv_kernel(q, k, v, do, lse, di, **base), warmup=1, iters=3),
+    }
+
+
+def _time_block_mask(backward, flash, benchit, card, recs, ins, kw, fwd_plain, bwd_plain, no_mask):
+    """Each kernel's time with the mask, beside its no-mask time, the plain
+    versions' and SDPA's with the boolean mask, and its bound over the
+    mask's live pairs."""
+    q, k, v, o, lse, do = ins
+    di = (o.float() * do.float()).sum(dim=-1)
+    bm = kw["block_mask"]
+    dense = bm.element_mask(BM_S, BM_S, "cuda")
+    pairs = int(dense.sum()) * q.shape[0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4, do4 = (x.reshape(BM_B, BM_H, BM_S, BM_D).detach() for x in (q, k, v, do))
+    fwd_lib = benchit.cuda_time_ms(lambda: sdpa(q4, k4, v4, attn_mask=dense, scale=kw["scale"]),
+                                   warmup=1, iters=3)
+    q4g, k4g, v4g = (x.clone().requires_grad_() for x in (q4, k4, v4))
+    res = sdpa(q4g, k4g, v4g, attn_mask=dense, scale=kw["scale"])
+    bwd_lib = benchit.cuda_time_ms(
+        lambda: torch.autograd.grad(res, (q4g, k4g, v4g), do4, retain_graph=True), warmup=1, iters=3)
+    bwd_plain_ms = benchit.cuda_time_ms(bwd_plain, warmup=1, iters=2)
+    calls = {
+        "flash_fwd": (lambda: flash.flash_attention(q, k, v, **kw), (q, k, v), (q,), 4, fwd_lib,
+                      benchit.cuda_time_ms(fwd_plain, warmup=1, iters=2)),
+        "flash_bwd_dq": (lambda: backward.dq_kernel(q, k, v, do, lse, di, **kw),
+                         (q, k, v, do, lse, di), (q,), 6, bwd_lib, bwd_plain_ms),
+        "flash_bwd_dkv": (lambda: backward.dkv_kernel(q, k, v, do, lse, di, **kw),
+                          (q, k, v, do, lse, di), (k, v), 8, bwd_lib, bwd_plain_ms),
+    }
+    for kname, (fn, reads, writes, per_pair, lib, plain_ms) in calls.items():
+        nbytes = sum(t.numel() * t.element_size() for t in reads + writes)
+        recs[kname].update(
+            kernel_ms=benchit.cuda_time_ms(fn, warmup=1, iters=3), no_mask_ms=no_mask[kname],
+            plain_ms=plain_ms, library_ms=lib, live_pairs=pairs,
+            live_fraction=bm.element_live_fraction,
+            library=("scaled_dot_product_attention" + (" backward" if kname != "flash_fwd" else "")
+                     + ", boolean (S, S) mask"),
+            **benchit.bound_ms(card, bytes_moved=nbytes, flops=per_pair * BM_D * pairs,
+                               dtype="bfloat16"))
+
+
+def _bm_poison_check(backward, flash, gen):
+    """NaN in the K/V rows only dead tiles touch (bm_poison: columns 3072+):
+    every output finite and equal to the clean run's (bf16, B = 1)."""
+    bm = flash.BlockMask.from_mask_fn(bm_poison, BM_S, BM_S)
+    shape = (BM_H, BM_S, BM_D)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    do = (0.25 * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+    outs = []
+    for poison in (False, True):
+        kk, vv = k.clone(), v.clone()
+        if poison:
+            kk[:, 3072:], vv[:, 3072:] = float("nan"), float("nan")
+        o, l, m = flash.flash_attention(q, kk, vv, save_residuals=True, block_mask=bm)
+        lse = m + torch.log(l)
+        outs.append((o, *backward.flash_attention_bwd(q, kk, vv, o, lse, do, block_mask=bm)))
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(x).all()) for x in outs[1])
+    equal = all(torch.equal(a, b) for a, b in zip(*outs))
+    return {"check": "block_mask/nan_poison_dead_tiles/bfloat16", "outputs": ["o", "dq", "dk", "dv"],
+            "poisoned_kv_rows": f"3072-{BM_S - 1}", "finite": finite, "equal_to_clean": equal,
+            "ok": finite and equal}
+
+
+def phase_attention_block_mask(fa, counters, gen, report):
+    """The block-mask path a user calls: attention() under autograd with
+    the documents mask and dropout at Llama-7B's layer (bf16), forward and
+    backward, with the launch counters zeroed just before."""
+    bm = fa.BlockMask.from_mask_fn(bm_documents, BM_S, BM_S)
+    q, k, v = (torch.randn((BM_B, BM_H, BM_S, BM_D), generator=gen, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    do = torch.randn((BM_B, BM_H, BM_S, BM_D), generator=gen, device="cuda").to(torch.bfloat16)
+    grads = []
+
+    def drive():
+        o = fa.attention(q, k, v, scale=BM_D**-0.5, block_mask=bm, dropout_rate=0.1,
+                         dropout_seed=DROPOUT_SEED)
+        grads.extend(torch.autograd.grad(o, (q, k, v), do))
+
+    wall, launches = _drive(counters, drive)
+    want = dict.fromkeys(counters, 0)
+    want.update({f"{k}{f}": 1 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                 for f in ("", "_dropout", "_block_mask")})
+    finite = all(bool(torch.isfinite(g_).all()) for g_ in grads)
+    rec = {"phase": "attention_block_mask", "shape": f"B={BM_B} H={BM_H} S={BM_S} d={BM_D}",
+           "mask": "documents (512)", "dropout_rate": 0.1, "wall_ms": 1e3 * wall,
+           "launches": launches, "launches_expected": want, "finite": finite,
+           "ok": finite and launches == want}
+    emit(rec)
+    report["attention_block_mask"] = rec
+    return rec
 
 
 def _train_cfg(transformer, dtype="bfloat16"):
@@ -2211,26 +2637,36 @@ def _attn_fwd_flops(benchit, cfg, batch, seq):
             * _window_pairs(seq, cfg.sliding_window))
 
 
+def _seeded(attn_dropout, seed):
+    """A step's trailing arguments: with dropout, its seed (the step index)."""
+    return (seed,) if attn_dropout else ()
+
+
 def phase_train(args, cfg, params, train, benchit, counters, card, report, *, remat,
-                phase=None, model=TRAIN_MODEL, batch=TRAIN_B, seq=TRAIN_S, profile=None):
+                phase=None, model=TRAIN_MODEL, batch=TRAIN_B, seq=TRAIN_S, profile=None,
+                attn_dropout=None):
     """The plain step: one warm-up step, then TRAIN_STEPS counted steps; a
-    profile of one more step (by default, without remat)."""
+    profile of one more step (by default, without remat).  With
+    ``attn_dropout``, seed = step index (the warm-up's 0)."""
     rng = np.random.default_rng(args.seed + 20)
     tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, seq)), dtype=torch.int32,
                           device="cuda")
-    step = train.make_train_step(cfg, lr=1e-3, remat=remat)
-    step(params, tokens)  # warm-up
+    step = train.make_train_step(cfg, lr=1e-3, remat=remat, attn_dropout=attn_dropout)
+    step(params, tokens, *_seeded(attn_dropout, 0))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = []
-    wall, launches = _drive(counters, lambda: out.extend(step(params, tokens)[0] for _ in range(TRAIN_STEPS)))
+    wall, launches = _drive(counters, lambda: out.extend(
+        step(params, tokens, *_seeded(attn_dropout, i + 1))[0] for i in range(TRAIN_STEPS)))
     layers = cfg.num_layers
     want = dict.fromkeys(counters, 0)
     want.update(flash_fwd=(2 if remat else 1) * layers * TRAIN_STEPS, flash_bwd=layers * TRAIN_STEPS)
+    if attn_dropout:
+        want.update(flash_fwd_dropout=want["flash_fwd"], flash_bwd_dropout=want["flash_bwd"])
     phase = phase or ("train_remat" if remat else "train")
     rec = _train_rec(phase, cfg, benchit, card, wall, TRAIN_STEPS, [float(x) for x in out],
-                     launches, want, _attn_fwd_flops(benchit, cfg, batch, seq), {"remat": remat},
-                     model, batch, seq)
+                     launches, want, _attn_fwd_flops(benchit, cfg, batch, seq),
+                     {"remat": remat, "attn_dropout": attn_dropout}, model, batch, seq)
     emit(rec)
     report[phase] = rec
     if profile is None:
@@ -2251,9 +2687,10 @@ def phase_train(args, cfg, params, train, benchit, counters, card, report, *, re
 
 def phase_train_packed(args, cfg, params, train, packing, flash, benchit, counters, card, report,
                        *, phase="train_packed", model=TRAIN_MODEL, batch=TRAIN_B, seq=TRAIN_S,
-                       docs=None):
+                       docs=None, attn_dropout=None):
     """The packed step over ``batch`` rows packed from random documents of
-    64-2048 tokens, or with ``docs`` one row of documents of those lengths."""
+    64-2048 tokens, or with ``docs`` one row of documents of those lengths;
+    ``attn_dropout`` as in phase_train."""
     if docs is None:
         tok_np, seg_np = _packed_ids(packing, args.seed + 21, batch, seq, cfg.vocab_size)
     else:
@@ -2262,18 +2699,20 @@ def phase_train_packed(args, cfg, params, train, packing, flash, benchit, counte
             [rng.integers(0, cfg.vocab_size, size=n) for n in docs], seq)
     tokens = torch.tensor(tok_np, device="cuda")
     segs = torch.tensor(seg_np, device="cuda")
-    step = train.make_train_step_packed(cfg, lr=1e-3)
-    step(params, tokens, segs)  # warm-up
+    step = train.make_train_step_packed(cfg, lr=1e-3, attn_dropout=attn_dropout)
+    step(params, tokens, segs, *_seeded(attn_dropout, 0))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = []
-    wall, launches = _drive(
-        counters, lambda: out.extend(step(params, tokens, segs)[0] for _ in range(TRAIN_STEPS))
-    )
+    wall, launches = _drive(counters, lambda: out.extend(
+        step(params, tokens, segs, *_seeded(attn_dropout, i + 1))[0] for i in range(TRAIN_STEPS)))
     layers = cfg.num_layers
     want = dict.fromkeys(counters, 0)
     want.update(flash_fwd=layers * TRAIN_STEPS, flash_bwd_dq=layers * TRAIN_STEPS,
                 flash_bwd_dkv=layers * TRAIN_STEPS)
+    if attn_dropout:
+        want.update({f"{k}_dropout": layers * TRAIN_STEPS
+                     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
     # Attention forward flops of this run's data: 4 d per live pair and head.
     pairs = _live_pairs(flash, batch, seq, seq,
                         dict(causal=True, kv_len=None, q_offset=0, q_seq_len=seq,
@@ -2283,6 +2722,7 @@ def phase_train_packed(args, cfg, params, train, packing, flash, benchit, counte
     valid = int(((segs[:, 1:] == segs[:, :-1]) & (segs[:, 1:] >= 0)).sum())
     rec = _train_rec(phase, cfg, benchit, card, wall, TRAIN_STEPS, [float(x) for x in out],
                      launches, want, attn_fwd, {
+                         "attn_dropout": attn_dropout,
                          "documents_per_row": [len(set(r.tolist()) - {-1}) for r in seg_np],
                          "pad_tokens": int((seg_np < 0).sum()), "valid_targets": valid,
                          "live_pairs_per_head": pairs,
@@ -2321,11 +2761,14 @@ def phase_train_windowed(args, transformer, train, packing, flash, benchit, coun
 
 
 def phase_train_parity(args, transformer, train, packing, report, *, phase="train_parity",
-                       cfg=None, docs=(70, 100, 50)):
+                       cfg=None, docs=(70, 100, 50), attn_dropout=None):
     """Plain and packed steps, remat off and on, two steps each, on the card
     and on the CPU from the same float32 parameters (2-layer cut at the
     training width, B=1, S=256; ``cfg`` another 2-layer float32 cut, its
-    parameters drawn on the card and copied, packed from ``docs``)."""
+    parameters drawn on the card and copied, packed from ``docs``); the
+    CPU's run without remat is the reference of both card runs.  With
+    ``attn_dropout``, seed = step index: the card's keep bits must be the
+    plain version's."""
     if cfg is None:
         cfg = _train_cfg(transformer, "float32")
         base = transformer.init_params(args.seed, cfg, device="cpu")
@@ -2352,21 +2795,24 @@ def phase_train_parity(args, transformer, train, packing, report, *, phase="trai
     for packed in (False, True):
         grads = {}
         for dev in ("cpu", "cuda"):
-            _, g = train.forward.make_grad_fn(cfg, packed=packed)(copy_to(dev), *data(packed, dev))
+            _, g = train.forward.make_grad_fn(cfg, packed=packed, attn_dropout=attn_dropout)(
+                copy_to(dev), *data(packed, dev), 0)
             grads[dev] = [x.cpu() for x in g]
         grad_rel = max(err(a, b) / max(float(b.abs().max()), 1e-30)
                        for a, b in zip(grads["cuda"], grads["cpu"]))
         del grads
+        def run(dev, remat):
+            params = copy_to(dev)
+            make = train.make_train_step_packed if packed else train.make_train_step
+            step = make(cfg, lr=1e-3, remat=remat, attn_dropout=attn_dropout, device=dev)
+            losses = [float(step(params, *data(packed, dev), seed)[0]) for seed in range(2)]
+            return losses, [p.cpu() for p in train.common.leaves(params)]
+
+        # One CPU run serves both card runs: on the CPU remat is bitwise the
+        # step without it (tests/test_torch_train.py pins that).
+        l_cpu, p_cpu = run("cpu", False)
         for remat in (False, True):
-            runs = {}
-            for dev in ("cpu", "cuda"):
-                params = copy_to(dev)
-                make = train.make_train_step_packed if packed else train.make_train_step
-                step = make(cfg, lr=1e-3, remat=remat, device=dev)
-                losses = [float(step(params, *data(packed, dev))[0]) for _ in range(2)]
-                runs[dev] = (losses, [p.cpu() for p in train.common.leaves(params)])
-                del params
-            (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+            l_gpu, p_gpu = run("cuda", remat)
             loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
             param_err = max(err(a, b) for a, b in zip(p_gpu, p_cpu))
             cases.append({
@@ -2376,9 +2822,10 @@ def phase_train_parity(args, transformer, train, packing, report, *, phase="trai
                 "ok": loss_rel <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_TOL
                 and grad_rel <= TRAIN_GRAD_RTOL,
             })
-            del runs, p_cpu, p_gpu
+            del p_gpu
+        del p_cpu
     rec = {"phase": phase, "layers": 2, "dtype": "float32", "batch": 1, "seq": 256,
-           "window": cfg.sliding_window, "logit_softcap": cfg.logit_softcap,
+           "attn_dropout": attn_dropout, "window": cfg.sliding_window, "logit_softcap": cfg.logit_softcap,
            "head_dim": cfg.head_dim, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "lr": 1e-3, "steps": 2, "packed_docs": [len(d) for d in docs], "cases": cases,
            "tol": {"loss_rel": TRAIN_LOSS_RTOL, "param_abs": TRAIN_PARAM_TOL,
@@ -2413,6 +2860,14 @@ def _launch_sum(rec):
 
     walk(rec)
     return total
+
+
+def _extra_entry(rec, paths, counter, keys):
+    """A kernel summary's entry for one of its forms: the form's timed check
+    and its launches, by path, from the counter ``counter``."""
+    by_path = {p: n[counter] for p, n in paths.items() if n.get(counter)}
+    return {**{k: rec[k] for k in keys}, "ms": rec["kernel_ms"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
 def main() -> int:
@@ -2453,6 +2908,11 @@ def main() -> int:
     }
     # {backward kernel: {windowed case: its timed check}}
     bwd_windowed = bwd_window_checks(backward, flash, benchit, gen, name, report)
+    # {kernel: timed dropout check}, and the 8-bit form's under "flash_fwd_quant"
+    dropout = dropout_checks(fa, backward, flash, benchit, packing, args, gen, name, report)
+    # {kernel: {mask: timed block-mask check}}
+    masked = block_mask_checks(backward, flash, benchit, gen, name, report)
+    attn_bm = phase_attention_block_mask(fa, counters, gen, report)
     cfg = dataclasses.replace(
         transformer.ModelConfig.llama7b_attention(), num_layers=args.layers
     )
@@ -2499,12 +2959,20 @@ def main() -> int:
                                    remat=True),
         "train_packed": phase_train_packed(args, tcfg, tparams, train, packing, flash, benchit,
                                            counters, name, report),
+        "train_dropout": phase_train(args, tcfg, tparams, train, benchit, counters, name, report,
+                                     remat=False, phase="train_dropout", profile=False,
+                                     attn_dropout=0.1),
+        "train_packed_dropout": phase_train_packed(
+            args, tcfg, tparams, train, packing, flash, benchit, counters, name, report,
+            phase="train_packed_dropout", attn_dropout=0.1),
     }
     del tparams
     torch.cuda.empty_cache()
     trained.update(phase_train_windowed(args, transformer, train, packing, flash, benchit,
                                         counters, name, report))
     phase_train_parity(args, transformer, train, packing, report)
+    phase_train_parity(args, transformer, train, packing, report, phase="train_parity_dropout",
+                       attn_dropout=0.1)
     for phase, make_cfg in (("train_parity_mistral_w128", transformer.ModelConfig.mistral7b),
                             ("train_parity_gemma2_w128", transformer.ModelConfig.gemma2_9b)):
         pcfg = dataclasses.replace(make_cfg(num_layers=2), dtype="float32",
@@ -2519,6 +2987,7 @@ def main() -> int:
              "serve_multistep": _launch_sum(multistep), "serve_speculative": _launch_sum(speculative),
              "serve_speculative_gemma2": _launch_sum(gemma_spec),
              "crosscheck": cross["launches"], "quant_ops": quant_ops["launches"],
+             "attention_block_mask": attn_bm["launches"],
              **{p: r["launches"] for p, r in trained.items()}}
     summary = []
     for kname, source, replaces in KERNELS:
@@ -2540,6 +3009,18 @@ def main() -> int:
         if kname in bwd_windowed:
             summary[-1]["windowed"] = {case: {k: rec[k] for k in timed}
                                        for case, rec in bwd_windowed[kname].items()}
+        if kname in EXTRA_KERNELS:  # the dropout form: its timed check and launches
+            summary[-1]["dropout"] = _extra_entry(dropout[kname], paths, f"{kname}_dropout",
+                                                  (*timed, "no_dropout_ms"))
+            if kname == "flash_fwd":
+                summary[-1]["dropout"]["quantized"] = {
+                    k: dropout["flash_fwd_quant"][k] for k in (*timed, "no_dropout_ms")}
+        if kname in masked:  # the block-mask form: the documents mask, the others beside it
+            keys = (*timed, "no_mask_ms", "live_pairs", "live_fraction")
+            summary[-1]["block_mask"] = _extra_entry(masked[kname]["documents"], paths,
+                                                     f"{kname}_block_mask", keys)
+            summary[-1]["block_mask"]["masks"] = {
+                m: {k: rec[k] for k in keys} for m, rec in masked[kname].items()}
         if kname in QUANT_KERNELS:
             summary[-1]["d256_window_softcap"] = {k: serving[None][kname][1][k] for k in timed}
             # The 8-bit form: int8's timed check, fp8's beside it, and both
@@ -2586,11 +3067,15 @@ def main() -> int:
                            "parity_gemma2", "parity_gemma2_chunked", "parity_quant_gemma2",
                            "parity_quant_gemma2_chunked", "train", "train_remat", "train_packed",
                            "train_mistral", "train_gemma2", "train_gemma2_packed", "train_parity",
-                           "train_parity_mistral_w128", "train_parity_gemma2_w128")
+                           "train_parity_mistral_w128", "train_parity_gemma2_w128",
+                           "attention_block_mask", "train_dropout", "train_packed_dropout",
+                           "train_parity_dropout")
                if not report[p]["ok"]]
     failed += [k["name"] for k in summary if k["launches"] == 0]
     failed += [f"{k['name']}/quantized" for k in summary
                if "quantized" in k and k["quantized"]["launches"] == 0]
+    failed += [f"{k['name']}/{form}" for k in summary for form in ("dropout", "block_mask")
+               if form in k and k[form]["launches"] == 0]
     emit({"kernels": summary})
     print(card, flush=True)
     if failed:

@@ -14,7 +14,12 @@ from flashattention_tpu_torch.ops.decode import (
     paged_prefill_attention_batched,
 )
 from flashattention_tpu_torch.ops.dispatch import attention, sdpa
-from flashattention_tpu_torch.ops.flash import BlockSizes, flash_attention, flash_attention_naive
+from flashattention_tpu_torch.ops.flash import (
+    BlockMask,
+    BlockSizes,
+    flash_attention,
+    flash_attention_naive,
+)
 from flashattention_tpu_torch.ops.quant import (
     QuantizedTensor,
     QuantizedWeight,
@@ -36,6 +41,7 @@ __version__ = "0.1.0"
 __all__ = [
     "attention",
     "sdpa",
+    "BlockMask",
     "BlockSizes",
     "flash_attention",
     "flash_attention_naive",

@@ -25,6 +25,18 @@
 // kernels): 4 at d = 16 (64-row tiles), 8 at d = 32-128 (32-row tiles), 16 at
 // d = 256 (16-row tiles).  Dot products meet through log2(kTpr) shuffles.
 // Everything is float32 on the CUDA cores.
+//
+// Dropout and block masks are a compile-time form of each kernel (kExtra;
+// common.cuh, Extras), beside the window/softcap form (kWindowCap).  With
+// Z_ij = keep_ij P_ij / (1 - rate) the dropout backward is
+// (backward.py:238-246, :353-378, :487-498)
+//   dV_j = sum_i Z_ij do_i,   dP_ij = keep_ij (do_i . v_j) / (1 - rate),
+// dS from that dP as above, and di = do_i . o_i unchanged (o is the dropped
+// output).  Each tile pair's keep bits are hashed once, into shared memory
+// (stage_kept), from the same absolute coordinates as the forward's.  A
+// block mask gives the dQ kernel each query tile's live key tiles and the
+// key-row kernel each key tile's live query tiles (the transposed table), so
+// dead tiles are skipped outright, not masked.
 #pragma once
 
 #include "common.cuh"
@@ -39,6 +51,9 @@ struct Layout {
   static constexpr int kTile = kThreads / kTpr;                 // rows per block and tile
   static constexpr int kVec = D / 4;                            // float4 per row
   static constexpr int kChunks = kVec / kTpr;                   // float4 per thread
+  // Words per row of a partial block-mask tile's element bits: pair (i, j)
+  // is bit i * 32 kMaskWords + j of its slot.
+  static constexpr int kMaskWords = (kTile + 31) / 32;
   static_assert(kChunks >= 1 && kVec % kTpr == 0, "head_dim must be 16, 32, 64, 128 or 256");
 };
 
@@ -109,6 +124,37 @@ __device__ __forceinline__ float2 p_ds(float s, float dp, float lse, float di, b
   }
   const float p = live ? expf(s - lse) : 0.f;
   return make_float2(p, p * (dp - di) * scale);
+}
+
+// Bit n of a bit array held in 32-bit words.
+__device__ __forceinline__ bool bit(const unsigned* words, int n) {
+  return (words[n >> 5] >> (n & 31)) & 1u;
+}
+
+// The dropout keep bits of the tile pair (query rows [r0, r0 + kTile), key
+// columns [c0, c0 + kTile)), row-major, 32 to a word: pair (i, j) is bit
+// i * kTile + j.  Each warp hashes 32 pairs at a time and a ballot packs
+// them.  Called by every thread of the block.
+template <int D>
+__device__ __forceinline__ void stage_kept(const fa::Extras& ex, int bh, int r0, int c0,
+                                           int q_seq_len, unsigned* kept_t) {
+  constexpr int kTile = Layout<D>::kTile;
+  const int lane = threadIdx.x % 32;
+  for (int w = threadIdx.x / 32; w < kTile * kTile / 32; w += kThreads / 32) {
+    const int p = w * 32 + lane;
+    const bool kept = fa::dropout_kept(fa::dropout_row_key(ex, bh, r0 + p / kTile, q_seq_len),
+                                       c0 + p % kTile, ex.threshold);
+    const unsigned word = __ballot_sync(0xffffffffu, kept);
+    if (lane == 0) kept_t[w] = word;
+  }
+}
+
+// Copy partial tile `slot`'s element bits to shared memory.
+template <int D>
+__device__ __forceinline__ void stage_mask(const fa::Extras& ex, int slot, unsigned* mask_t) {
+  constexpr int kWords = Layout<D>::kTile * Layout<D>::kMaskWords;
+  for (int i = threadIdx.x; i < kWords; i += kThreads)
+    mask_t[i] = ex.bm_bits[static_cast<size_t>(slot) * kWords + i];
 }
 
 // Load the d-vector chunks of one row that this thread keeps.

@@ -106,6 +106,55 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// Attention dropout and block-sparse masks, the options of the kernels'
+// kExtra forms (flash_fwd.cu and the three backward kernels).
+//
+// Dropout keeps pair (row i, column j) of head bh where a counter-based hash
+// of the absolute coordinates, flashattention_tpu/ops/flash.py::
+// dropout_keep_mask (:577-613) bit for bit, is at or above `threshold`
+// (ceil(float32(rate) 2^24), computed on the host): the forward and every
+// backward kernel regenerate the same bits, and no mask is stored.  The row
+// coordinate is the raw folded row, (r / q_seq_len) * row_stride + r mod
+// q_seq_len: the JAX package draws each folded GQA group independently, and
+// its attention() pads each group to row_stride rows first.
+//
+// A block mask is a table over the kernel's own tiles (built once per mask
+// on the host, ops/flash.py::BlockMask): for each tile of the axis a block
+// walks, [bm_ptr[t], bm_ptr[t + 1]) indexes the live tiles of the other axis
+// in bm_idx (ascending) and, in bm_part, each one's slot in bm_bits, or -1
+// for a tile whose pairs are all live.  A partial tile's element bits are
+// its rows' words of 32 columns each.  Dead tiles appear nowhere: no block
+// loads or computes them.
+struct Extras {
+  const int* bm_ptr;        // null: no block mask
+  const int* bm_idx;
+  const int* bm_part;
+  const unsigned* bm_bits;
+  int row_stride;
+  unsigned seed;            // the int32 seed, as uint32
+  unsigned threshold;       // 0: no dropout
+  float inv;                // 1 / (1 - rate), rounded to float32
+};
+
+// The part of a pair's hash that depends on its head and row, once per row.
+__device__ __forceinline__ unsigned dropout_row_key(const Extras& ex, int bh, int r,
+                                                    int q_seq_len) {
+  const unsigned raw = static_cast<unsigned>((r / q_seq_len) * ex.row_stride + r % q_seq_len);
+  return (raw * 0xCC9E2D51u) ^ (ex.seed * 0x9E3779B9u + static_cast<unsigned>(bh) * 0x85EBCA6Bu);
+}
+
+// Whether the pair (row of `row_key`, column `col`) is kept: murmur3's fmix32
+// of the mixed coordinates, top 24 bits against the threshold.
+__device__ __forceinline__ bool dropout_kept(unsigned row_key, int col, unsigned threshold) {
+  unsigned x = row_key ^ (static_cast<unsigned>(col) * 0x1B873593u);
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return (x >> 8) >= threshold;
+}
+
 }  // namespace fa
 
 // Defined here, not inline: each kernel library is one translation unit, and

@@ -32,7 +32,11 @@
 // reaches the block's key rows, the bound of backward.py:754), and one
 // atomic per (query row, element) per key tile, not per pair.  Window and
 // softcap are a compile-time choice (kWindowCap): a model with neither runs
-// the pair loop without their selects.
+// the pair loop without their selects.  Attention dropout (backward.py:
+// 487-498) is another (kExtra): dV sums the kept P / (1 - rate) and dS takes
+// the kept dP, from each tile pair's keep bits, hashed once into shared
+// memory.  Block masks go to the two-pass pair, as in the JAX package
+// (backward.py:781).
 //
 // Layout: one block per (bh, kTile key rows); Layout<D>::kTpr threads per
 // key row, as in csrc/flash_bwd_dkv.cu.  Shared memory: the query tile's q
@@ -55,14 +59,14 @@ constexpr size_t smem_bytes() {
          sizeof(float) * (kTile * (kTile + 1) + 5 * kTile);
 }
 
-template <typename T, int D, bool kWindowCap>
+template <typename T, int D, bool kWindowCap, bool kExtra>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ di, float* __restrict__ dq_acc,
                  T* __restrict__ dk, T* __restrict__ dv, int rows, int s_kv, int kv_len,
                  int q_offset, int q_seq_len, int causal, float scale, int window,
-                 float softcap) {
+                 float softcap, const fa::Extras ex) {
   using L = Layout<D>;
   constexpr int kTile = L::kTile;
   constexpr int kTpr = L::kTpr;
@@ -79,6 +83,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   int* first_t = reinterpret_cast<int*>(di_t + kTile);
   int* lim_t = first_t + kTile;
   int* seg_t = lim_t + kTile;  // written by the staging helper, unused here
+  __shared__ unsigned kept_t[kExtra ? kTile * kTile / 32 : 1];  // dropout keep bits
 
   const int bh = blockIdx.y;
   const int c0 = blockIdx.x * kTile;
@@ -119,6 +124,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     fa_bwd::stage_q_rows<T, D>(q + head * D, dout + head * D, lse + head, di + head, nullptr,
                                r0, rows, kv_len, q_offset, q_seq_len, causal, win, q_t, do_t,
                                lse_t, di_t, first_t, lim_t, seg_t);
+    if constexpr (kExtra) fa_bwd::stage_kept<D>(ex, bh, r0, c0, q_seq_len, kept_t);
     __syncthreads();
 #pragma unroll 2
     for (int i = 0; i < kTile; ++i) {
@@ -137,8 +143,13 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       s = fa_bwd::row_sum<kTpr>(s) * scale;
       dp = fa_bwd::row_sum<kTpr>(dp);
       const bool live_pair = col <= lim_t[i] && (!kWindowCap || col >= first_t[i]);
+      float z = 1.f;  // dropout: the pair's 1 / (1 - rate) or 0
+      if constexpr (kExtra) {
+        z = fa_bwd::bit(kept_t, i * kTile + jr) ? ex.inv : 0.f;
+        dp *= z;
+      }
       const float2 pd = fa_bwd::p_ds<kWindowCap>(s, dp, lse_t[i], di_t[i], live_pair, scale, cap);
-      const float p = pd.x, ds = pd.y;
+      const float p = kExtra ? pd.x * z : pd.x, ds = pd.y;  // dV sums Z = z P
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
         fa::fma4(dv_acc[c], p, doi[c]);
@@ -192,13 +203,14 @@ struct Args {
   float scale;
   int window;
   float softcap;
+  fa::Extras ex;
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool kWindowCap>
+template <typename T, int D, bool kWindowCap, bool kExtra>
 int launch(const Args& a) {
   constexpr size_t bytes = smem_bytes<D>();
-  auto kernel = flash_bwd_kernel<T, D, kWindowCap>;
+  auto kernel = flash_bwd_kernel<T, D, kWindowCap, kExtra>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -210,13 +222,25 @@ int launch(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.di, a.dq_acc, static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), a.rows, a.s_kv, a.kv_len, a.q_offset, a.q_seq_len, a.causal,
-      a.scale, a.window, a.softcap);
+      a.scale, a.window, a.softcap, a.ex);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dropout form is built with FA_EXTRA into a library of its own
+// (ops/kernels.py), so the two forms compile in parallel.
+template <typename T, int D, bool kWindowCap>
+int launch_x(const Args& a) {
+#ifdef FA_EXTRA
+  return launch<T, D, kWindowCap, true>(a);
+#else
+  if (a.ex.threshold != 0) return -1;
+  return launch<T, D, kWindowCap, false>(a);
+#endif
 }
 
 template <typename T, int D>
 int launch_w(const Args& a) {
-  return a.window > 0 || a.softcap > 0.f ? launch<T, D, true>(a) : launch<T, D, false>(a);
+  return a.window > 0 || a.softcap > 0.f ? launch_x<T, D, true>(a) : launch_x<T, D, false>(a);
 }
 
 template <typename T>
@@ -237,15 +261,20 @@ int launch_d(int d, const Args& a) {
 // float32; dq_acc: (bh, rows, d) float32, zeroed by the caller, to which
 // dQ is added.  All contiguous, on the device; q, k, v, do, dk, dv of one
 // dtype code.  window <= 0: no sliding window (else it requires causal);
-// softcap <= 0: no logit softcap.
+// softcap <= 0: no logit softcap.  dropout as in fa_flash_fwd (no block
+// masks here: the two-pass pair takes them).
 extern "C" int fa_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                             const void* dout, const void* lse, const void* di, void* dq_acc,
                             void* dk, void* dv, int bh, int rows, int s_kv, int d, int kv_len,
                             int q_offset, int q_seq_len, int causal, float scale, int window,
-                            float softcap, void* stream) {
+                            float softcap, int row_stride, int dropout_seed,
+                            int dropout_threshold, float dropout_inv, void* stream) {
+  const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, row_stride,
+                      static_cast<unsigned>(dropout_seed),
+                      static_cast<unsigned>(dropout_threshold), dropout_inv};
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(di),
                static_cast<float*>(dq_acc), dk, dv, bh, rows, s_kv, kv_len, q_offset,
-               q_seq_len, causal, scale, window, softcap, static_cast<cudaStream_t>(stream)};
+               q_seq_len, causal, scale, window, softcap, ex, static_cast<cudaStream_t>(stream)};
   if (dtype == fa::kFloat32) return launch_d<float>(d, a);
   if (dtype == fa::kBFloat16) return launch_d<__nv_bfloat16>(d, a);
   return -1;

@@ -47,6 +47,17 @@
 // tile is staged (payload x its row's scale, into the float32 tiles), four
 // payload bytes per 32-bit load, one rounding fewer.  These forms are built
 // into their own library (FA_QUANT, see ops/kernels.py).
+//
+// Attention dropout and block-sparse masks (flash.py:931-948, :1408-1428,
+// :845-858) live in a compile-time form of their own (kExtra), so the kernel
+// without them is the code it was.  Dropout multiplies each p fed to the PV
+// sum by 1/(1 - rate) or 0 after p has been added to l, so l, m and the
+// saved statistics stay the undropped softmax's, which the backward needs;
+// the tile's keep bits are hashed once per (row, column) by one warp per
+// row, a ballot making each row's 32-bit word (common.cuh, Extras).  A block
+// mask replaces the KV loop's range by the query tile's list of live KV
+// tiles, so a dead tile is neither loaded nor computed, and only a partial
+// tile tests its element bits (one word per row: kBlockKV = 32).
 #include "common.cuh"
 
 #include <type_traits>
@@ -67,16 +78,27 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return 2 * sizeof(float4) * kBlockKV * (D / 4) + sizeof(int) * kBlockKV;
 }
 
-// T: q and o; P: the K/V payload (T itself, or int8 / fp8 with scales).
-template <typename T, typename P, int D>
-__global__ void __launch_bounds__(kThreads)
+// The dropout / block-mask form (kExtra, built with FA_EXTRA) is held to two
+// blocks per SM: left alone ptxas gives it 184 registers and one block.  The
+// form without them keeps the bound it had (an explicit minimum of one block
+// moves it from 128 registers and two blocks to 168 and one, 1.5x slower).
+#ifdef FA_EXTRA
+#define FA_FWD_BOUNDS __launch_bounds__(kThreads, 2)
+#else
+#define FA_FWD_BOUNDS __launch_bounds__(kThreads)
+#endif
+
+// T: q and o; P: the K/V payload (T itself, or int8 / fp8 with scales);
+// kExtra: dropout and block masks (`ex`).
+template <typename T, typename P, int D, bool kExtra>
+__global__ void FA_FWD_BOUNDS
 flash_fwd_kernel(const T* __restrict__ q, const P* __restrict__ k,
                  const P* __restrict__ v, const float* __restrict__ k_scales,
                  const float* __restrict__ v_scales, T* __restrict__ o,
                  float* __restrict__ l_out, float* __restrict__ m_out,
                  const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int rows,
                  int s_kv, int kv_len, int q_offset, int q_seq_len, int causal,
-                 float scale, int window, float softcap) {
+                 float scale, int window, float softcap, const fa::Extras ex) {
   constexpr bool kQuant = !std::is_same<T, P>::value;
   constexpr int kThreadsPerRow = threads_per_row<D>();
   constexpr int kBlockQ = block_q<D>();
@@ -89,6 +111,9 @@ flash_fwd_kernel(const T* __restrict__ q, const P* __restrict__ k,
   float4* k_tile = smem;
   float4* v_tile = smem + kBlockKV * kVec;
   int* seg_tile = reinterpret_cast<int*>(smem + 2 * kBlockKV * kVec);
+  // kExtra: each query row's dropout hash key and the tile's keep words.
+  __shared__ unsigned row_key[kExtra ? kBlockQ : 1];
+  __shared__ unsigned kept_t[kExtra ? kBlockQ : 1];
 
   const int bh = blockIdx.y;
   const int r0 = blockIdx.x * kBlockQ;
@@ -133,6 +158,17 @@ flash_fwd_kernel(const T* __restrict__ q, const P* __restrict__ k,
     kv_begin -= kv_begin % kBlockKV;
   }
 
+  const bool dropout = kExtra && ex.threshold != 0;
+  // A block mask walks the query tile's live KV tiles [it, it_end) instead.
+  int it = 0, it_end = 0;
+  if constexpr (kExtra) {
+    if (ex.bm_ptr != nullptr) {
+      it = ex.bm_ptr[blockIdx.x];
+      it_end = ex.bm_ptr[blockIdx.x + 1];
+    }
+    if (dropout && tid < kBlockQ) row_key[tid] = fa::dropout_row_key(ex, bh, r0 + tid, q_seq_len);
+  }
+
   const P* k_head = k + static_cast<size_t>(bh) * s_kv * D;
   const P* v_head = v + static_cast<size_t>(bh) * s_kv * D;
   const float* ks_head = kQuant ? k_scales + static_cast<size_t>(bh) * s_kv : nullptr;
@@ -140,6 +176,16 @@ flash_fwd_kernel(const T* __restrict__ q, const P* __restrict__ k,
   float m_run = -INFINITY;  // flash.py:752 initialises m to -inf
   float l_run = 0.f;
   for (int t0 = kv_begin; t0 < kv_end; t0 += kBlockKV) {
+    unsigned bm_word = ~0u;  // block mask: this row's live columns of the tile
+    if constexpr (kExtra) {
+      if (ex.bm_ptr != nullptr) {
+        if (it == it_end) break;
+        t0 = ex.bm_idx[it] * kBlockKV;
+        if (t0 >= kv_end) break;
+        const int slot = ex.bm_part[it++];
+        if (slot >= 0) bm_word = ex.bm_bits[static_cast<size_t>(slot) * kBlockQ + tid / kThreadsPerRow];
+      }
+    }
     __syncthreads();  // every thread is done with the previous tile
     if constexpr (kQuant) {  // 8-bit rows: 4 payload bytes a load, then scaled
       for (int idx = tid; idx < kBlockKV * kVec; idx += kThreads) {
@@ -168,6 +214,16 @@ flash_fwd_kernel(const T* __restrict__ q, const P* __restrict__ k,
     }
     if (has_seg && tid < kBlockKV)
       seg_tile[tid] = t0 + tid < kv_end ? seg_head[t0 + tid] : 0;
+    if constexpr (kExtra) {
+      if (dropout) {  // warp w hashes rows w, w + 8, ...; lane = column
+        const int lane = tid % 32;
+        for (int i = tid / 32; i < kBlockQ; i += kThreads / 32) {
+          const unsigned word =
+              __ballot_sync(0xffffffffu, fa::dropout_kept(row_key[i], t0 + lane, ex.threshold));
+          if (lane == 0) kept_t[i] = word;
+        }
+      }
+    }
     __syncthreads();
 
     float s[kBlockKV];
@@ -185,7 +241,7 @@ flash_fwd_kernel(const T* __restrict__ q, const P* __restrict__ k,
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
       const int col = t0 + j;
       const bool keep = col < kv_len && (!causal || col <= pos) && col > win_lo &&
-                        (!has_seg || seg_tile[j] == my_seg);
+                        (!has_seg || seg_tile[j] == my_seg) && ((bm_word >> j) & 1u);
       s[j] = keep ? fa::softcap(dot * scale, softcap) : fa::kMaskValue;
       tile_max = fmaxf(tile_max, s[j]);
     }
@@ -199,6 +255,13 @@ flash_fwd_kernel(const T* __restrict__ q, const P* __restrict__ k,
     }
     l_run = alpha * l_run + p_sum;
     m_run = m_next;
+    if constexpr (kExtra) {
+      if (dropout) {  // l keeps the undropped sum; the PV sum takes the kept p
+        const unsigned word = kept_t[tid / kThreadsPerRow];
+#pragma unroll
+        for (int j = 0; j < kBlockKV; ++j) s[j] = (word >> j) & 1u ? s[j] * ex.inv : 0.f;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
       acc[i].x *= alpha;
@@ -253,13 +316,14 @@ struct Args {
   float scale;
   int window;
   float softcap;
+  fa::Extras ex;
   cudaStream_t stream;
 };
 
-template <typename T, typename P, int D>
+template <typename T, typename P, int D, bool kExtra>
 int launch(const Args& a) {
   constexpr size_t bytes = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, P, D>;
+  auto kernel = flash_fwd_kernel<T, P, D, kExtra>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -269,18 +333,31 @@ int launch(const Args& a) {
   kernel<<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const P*>(a.k), static_cast<const P*>(a.v),
       a.k_scales, a.v_scales, static_cast<T*>(a.o), a.l, a.m, a.q_seg, a.kv_seg, a.rows,
-      a.s_kv, a.kv_len, a.q_offset, a.q_seq_len, a.causal, a.scale, a.window, a.softcap);
+      a.s_kv, a.kv_len, a.q_offset, a.q_seq_len, a.causal, a.scale, a.window, a.softcap,
+      a.ex);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dropout / block-mask form is built with FA_EXTRA into libraries of
+// its own (ops/kernels.py), so the two forms compile in parallel.
+template <typename T, typename P, int D>
+int launch_x(const Args& a) {
+#ifdef FA_EXTRA
+  return launch<T, P, D, true>(a);
+#else
+  if (a.ex.bm_ptr != nullptr || a.ex.threshold != 0) return -1;
+  return launch<T, P, D, false>(a);
+#endif
 }
 
 template <typename T, typename P>
 int launch_d(int d, const Args& a) {
   switch (d) {
-    case 16: return launch<T, P, 16>(a);
-    case 32: return launch<T, P, 32>(a);
-    case 64: return launch<T, P, 64>(a);
-    case 128: return launch<T, P, 128>(a);
-    case 256: return launch<T, P, 256>(a);
+    case 16: return launch_x<T, P, 16>(a);
+    case 32: return launch_x<T, P, 32>(a);
+    case 64: return launch_x<T, P, 64>(a);
+    case 128: return launch_x<T, P, 128>(a);
+    case 256: return launch_x<T, P, 256>(a);
     default: return -1;
   }
 }
@@ -308,18 +385,29 @@ int launch_kv(int kv_dtype, int d, const Args& a) {
 // `dtype`, k and v of `kv_dtype`: the same code (k_scales, v_scales null),
 // or with FA_QUANT int8 / fp8 with float32 scales (bh, s_kv).  window <= 0:
 // no sliding window (else it requires causal); softcap <= 0: no logit
-// softcap.
+// softcap.  bm_ptr, bm_idx, bm_part, bm_bits: a block mask's table over
+// (kBlockQ, 32) tiles by query tile (common.cuh, Extras), or all null
+// (causal, window and the GQA fold excluded).  dropout_threshold 0: no
+// dropout; else the seed, threshold, 1 / (1 - rate) and the raw row stride.
 extern "C" int fa_flash_fwd(int dtype, int kv_dtype, const void* q, const void* k,
                             const void* v, const void* k_scales, const void* v_scales,
                             void* o, void* l, void* m, const void* q_seg,
-                            const void* kv_seg, int bh, int rows, int s_kv, int d,
-                            int kv_len, int q_offset, int q_seq_len, int causal,
-                            float scale, int window, float softcap, void* stream) {
+                            const void* kv_seg, const void* bm_ptr, const void* bm_idx,
+                            const void* bm_part, const void* bm_bits, int bh, int rows,
+                            int s_kv, int d, int kv_len, int q_offset, int q_seq_len,
+                            int causal, float scale, int window, float softcap,
+                            int row_stride, int dropout_seed, int dropout_threshold,
+                            float dropout_inv, void* stream) {
+  const fa::Extras ex{static_cast<const int*>(bm_ptr), static_cast<const int*>(bm_idx),
+                      static_cast<const int*>(bm_part), static_cast<const unsigned*>(bm_bits),
+                      row_stride, static_cast<unsigned>(dropout_seed),
+                      static_cast<unsigned>(dropout_threshold), dropout_inv};
   const Args a{q, k, v, static_cast<const float*>(k_scales),
                static_cast<const float*>(v_scales), o, static_cast<float*>(l),
                static_cast<float*>(m), static_cast<const int*>(q_seg),
                static_cast<const int*>(kv_seg), bh, rows, s_kv, kv_len, q_offset,
-               q_seq_len, causal, scale, window, softcap, static_cast<cudaStream_t>(stream)};
+               q_seq_len, causal, scale, window, softcap, ex,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == fa::kFloat32) return launch_kv<float>(kv_dtype, d, a);
   if (dtype == fa::kBFloat16) return launch_kv<__nv_bfloat16>(kv_dtype, d, a);
   return -1;

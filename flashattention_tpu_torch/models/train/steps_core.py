@@ -11,6 +11,8 @@ the CPU (``device="cpu"``), and refuse parameters or tokens elsewhere.
 
 from __future__ import annotations
 
+import torch
+
 from flashattention_tpu_torch.models.train.common import _make_step
 from flashattention_tpu_torch.models.train.forward import make_grad_fn
 from flashattention_tpu_torch.models.transformer import ModelConfig
@@ -25,7 +27,7 @@ def _on_device(step, device):
 
     def checked(params, tokens, *rest):
         where = {params["embed"].device.type, tokens.device.type}
-        where.update(t.device.type for t in rest)
+        where.update(t.device.type for t in rest if torch.is_tensor(t))
         if where != {dev.type}:
             raise ValueError(f"the step runs on {dev.type}; got tensors on {sorted(where)}")
         return step(params, tokens, *rest)
@@ -33,35 +35,31 @@ def _on_device(step, device):
     return checked
 
 
-def _check(cfg: ModelConfig, attn_dropout):
-    cfg.check_ported()
-    if attn_dropout:
-        raise NotImplementedError(
-            "attention dropout is not ported yet: it comes with the attention-dropout "
-            "slice (bit-for-bit keep masks)"
-        )
-
-
 def make_train_step(cfg: ModelConfig, *, lr: float = 1e-3, remat: bool = False,
                     attn_dropout: float | None = None, device=None):
-    """``step(params, tokens) -> (loss, params)``: one SGD step of
+    """``step(params, tokens, seed=0) -> (loss, params)``: one SGD step of
     next-token causal-LM cross-entropy.
 
     tokens: (B, S) integer tensor on the parameters' device.  ``remat=True``
     recomputes each layer in the backward: activation memory O(1) in depth,
-    the same loss and update.  (The JAX step's ``seed`` argument drives
-    attention dropout, which is not ported.)
+    the same loss and update.  ``attn_dropout`` drops attention weights at
+    that rate; ``seed`` (an int, the step counter; a tensor is read once on
+    the host, one sync per step) sets the keep bits as the JAX step's does,
+    and a recomputed layer draws the same ones.
     """
-    _check(cfg, attn_dropout)
-    return _on_device(_make_step(make_grad_fn(cfg, remat=remat), lr), device)
+    cfg.check_ported()
+    grad_fn = make_grad_fn(cfg, remat=remat, attn_dropout=attn_dropout)
+    return _on_device(_make_step(grad_fn, lr), device)
 
 
 def make_train_step_packed(cfg: ModelConfig, *, lr: float = 1e-3, remat: bool = False,
                            attn_dropout: float | None = None, device=None):
-    """``step(params, tokens, segment_ids) -> (loss, params)`` over
+    """``step(params, tokens, segment_ids, seed=0) -> (loss, params)`` over
     packed rows: each row holds several documents marked by ``segment_ids``
     (negative = padding, see :func:`utils.packing.pack_documents`).
     Attention stays within documents, RoPE restarts per document, and the
-    loss is the mean over valid next-token targets."""
-    _check(cfg, attn_dropout)
-    return _on_device(_make_step(make_grad_fn(cfg, packed=True, remat=remat), lr), device)
+    loss is the mean over valid next-token targets; ``attn_dropout`` and
+    ``seed`` as in :func:`make_train_step`."""
+    cfg.check_ported()
+    grad_fn = make_grad_fn(cfg, packed=True, remat=remat, attn_dropout=attn_dropout)
+    return _on_device(_make_step(grad_fn, lr), device)

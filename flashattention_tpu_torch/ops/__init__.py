@@ -4,6 +4,7 @@ kernels, the backward kernels, dispatch, 8-bit quantization, sampling."""
 from flashattention_tpu_torch.ops.backward import attention_vjp, flash_attention_bwd
 from flashattention_tpu_torch.ops.dispatch import attention, sdpa
 from flashattention_tpu_torch.ops.flash import (
+    BlockMask,
     BlockSizes,
     flash_attention,
     flash_attention_naive,

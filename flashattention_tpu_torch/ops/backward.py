@@ -12,15 +12,19 @@ lse_i)`` (backward.py:8-13, :216-249)::
 
 where ``c_ij = 1 - (s_ij / cap)^2``, the softcap's derivative at the capped
 score (1 without a cap).  A masked ``P`` (causal, sliding window, kv_len,
-segment ids) is exactly 0.  On CUDA tensors :func:`flash_attention_bwd`
-launches hand-written kernels: the fused one-pass ``csrc/flash_bwd.cu``
-(replaces ``_fused_bwd_kernel``, backward.py:401) by default, and the
-two-pass ``csrc/flash_bwd_dq.cu`` + ``csrc/flash_bwd_dkv.cu`` (replace
-``_dq_kernel`` :146 and ``_dkv_kernel`` :269) with segment ids or
-``fused=False``, as the JAX package chooses (backward.py:610-615).  On CPU
-tensors it runs :func:`flash_attention_bwd_plain`, the same function
-written from the formulas above in plain PyTorch.  There is no fallback
-between the two.
+segment ids, a block mask's dead pairs) is exactly 0.  With attention
+dropout at rate r and the forward's keep bits M (regenerated from the same
+seed and coordinates, ``ops.flash.dropout_keep_mask``), dV sums
+``Z = M P / (1 - r)`` and ``dP = M (dO_i . V_j) / (1 - r)``; D and dS keep
+their form (backward.py:238-246, :353-378, :487-498).  On CUDA tensors
+:func:`flash_attention_bwd` launches hand-written kernels: the fused
+one-pass ``csrc/flash_bwd.cu`` (replaces ``_fused_bwd_kernel``,
+backward.py:401) by default, and the two-pass ``csrc/flash_bwd_dq.cu`` +
+``csrc/flash_bwd_dkv.cu`` (replace ``_dq_kernel`` :146 and ``_dkv_kernel``
+:269) with segment ids, a block mask or ``fused=False``, as the JAX package
+chooses (backward.py:610-615).  On CPU tensors it runs
+:func:`flash_attention_bwd_plain`, the same function written from the
+formulas above in plain PyTorch.  There is no fallback between the two.
 
 :func:`attention_vjp` is the differentiable entry: a
 ``torch.autograd.Function`` whose forward is the flash forward kernel saving
@@ -41,12 +45,16 @@ from flashattention_tpu_torch.ops import kernels
 from flashattention_tpu_torch.ops.flash import (
     _DTYPES,
     _HEAD_DIMS,
-    check_ported,
+    check_block_mask,
+    check_dropout,
     check_window,
+    dense_keep,
+    dropout_options,
     flash_attention,
     fold_segment_ids,
     kernel_options,
     visible,
+    wrap_int32,
 )
 from flashattention_tpu_torch.ops.reference import softcap
 
@@ -74,7 +82,7 @@ def flash_attention_bwd(
     q, k, v, o, lse, do, *, causal=False, scale=1.0, block_sizes=None, kv_len=None,
     q_offset=0, precision=None, q_seq_len=None, interpret=None, fused=None,
     window=None, logit_softcap=None, dropout_rate=None, dropout_seed=0,
-    q_segment_ids=None, kv_segment_ids=None, block_mask=None,
+    q_segment_ids=None, kv_segment_ids=None, block_mask=None, dropout_row_stride=None,
 ):
     """dQ, dK, dV from the saved output and logsumexp.
 
@@ -84,17 +92,16 @@ def flash_attention_bwd(
         of the forward's statistics.
       causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap: as
         in the forward, whose ``lse`` this must be.
-      fused: the one-pass kernel (default without segment ids) or the
-        two-pass kernels (``False``; the default with segment ids).
+      fused: the one-pass kernel (default without segment ids or a block
+        mask) or the two-pass kernels (``False``; the default with either).
       q_segment_ids, kv_segment_ids: integer ``(BH, R)``, ``(BH, S_kv)``.
+      dropout_rate, dropout_seed, dropout_row_stride, block_mask: as in the
+        forward (:func:`ops.flash.flash_attention`), whose output this is.
 
     ``D = rowsum(O dO)`` is computed here in float32, outside the kernels
     (backward.py:707-709).  Returns ``(dq, dk, dv)`` in the input dtypes.
     """
     _check_tpu_options(block_sizes, precision, interpret)
-    if dropout_rate == 0.0:
-        dropout_rate = None  # rate 0 is the identity, not an error
-    check_ported(dropout_rate=dropout_rate, block_mask=block_mask)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"expected (BH, S, d) tensors, got {q.shape} {k.shape} {v.shape}")
     bh, rows, d = q.shape
@@ -107,48 +114,68 @@ def flash_attention_bwd(
         raise ValueError(f"lse must be (BH, R)=({bh}, {rows}), got {tuple(lse.shape)}")
     if not (q.dtype == k.dtype == v.dtype == do.dtype):
         raise ValueError(f"q/k/v/do dtypes differ: {q.dtype} {k.dtype} {v.dtype} {do.dtype}")
-    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap)
+    if block_mask is not None:
+        check_block_mask(block_mask, rows, s_kv, causal=causal, window=window,
+                         q_seq_len=q_seq_len)
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
+               dropout_rate, dropout_seed, dropout_row_stride)
     if not 0 <= kw["kv_len"] <= s_kv:
         raise ValueError(f"kv_len {kw['kv_len']} outside [0, {s_kv}]")
     if kw["q_seq_len"] <= 0 or rows % kw["q_seq_len"]:
         raise ValueError(f"q_seq_len ({kw['q_seq_len']}) must divide the rows ({rows})")
     seg_q, seg_kv = fold_segment_ids(q_segment_ids, kv_segment_ids, bh, rows, s_kv, q.device)
     if fused is None:
-        fused = seg_q is None
+        fused = seg_q is None and block_mask is None
     if fused and seg_q is not None:
         raise ValueError("fused backward does not support segment ids; use fused=False")
+    if fused and block_mask is not None:
+        raise ValueError("fused backward does not support block_mask; use fused=False")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
-            q, k, v, o, lse, do, q_segment_ids=seg_q, kv_segment_ids=seg_kv, **kw
+            q, k, v, o, lse, do, q_segment_ids=seg_q, kv_segment_ids=seg_kv,
+            block_mask=block_mask, **kw
         )
     di = (o.float() * do.float()).sum(dim=-1)
     lse = lse.float().contiguous()
     if fused:
         return fused_bwd_kernel(q, k, v, do, lse, di, **kw)
-    dq = dq_kernel(q, k, v, do, lse, di, q_segment_ids=seg_q, kv_segment_ids=seg_kv, **kw)
-    dk, dv = dkv_kernel(q, k, v, do, lse, di, q_segment_ids=seg_q, kv_segment_ids=seg_kv, **kw)
+    two_pass = dict(q_segment_ids=seg_q, kv_segment_ids=seg_kv, block_mask=block_mask, **kw)
+    dq = dq_kernel(q, k, v, do, lse, di, **two_pass)
+    dk, dv = dkv_kernel(q, k, v, do, lse, di, **two_pass)
     return dq, dk, dv
 
 
 def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_len,
-               window=None, logit_softcap=None, q_segment_ids=None, kv_segment_ids=None):
+               window=None, logit_softcap=None, q_segment_ids=None, kv_segment_ids=None,
+               dropout_rate=None, dropout_seed=0, dropout_row_stride=None, block_mask=None):
     """The backward from the formulas, float32 throughout: ``(dq, dk, dv)``
     in float32, with the capped score ``s``, ``P`` recomputed as
-    ``exp(s - lse)`` and 0 where masked, and dS times the softcap's
-    derivative ``1 - (s / cap)^2``."""
-    rows, s_kv = q.shape[1], k.shape[1]
+    ``exp(s - lse)`` and 0 where masked, dS times the softcap's derivative
+    ``1 - (s / cap)^2``, and with dropout dV from ``Z = M P / (1 - r)`` and
+    dS from the kept ``dP``."""
+    bh, rows, s_kv = q.shape[0], q.shape[1], k.shape[1]
     qf, kf, dof = q.float(), k.float(), do.float()
     mask = visible(
         rows, s_kv, causal=causal, kv_len=kv_len, q_offset=q_offset, q_seq_len=q_seq_len,
         q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, window=window,
-        device=q.device,
+        block_mask=block_mask, device=q.device,
     )
     s = softcap(torch.einsum("bqd,bkd->bqk", qf, kf) * scale, logit_softcap)
     p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
     cap_factor = None if logit_softcap is None else 1.0 - (s / logit_softcap) ** 2
     del s
-    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    keep = None
+    if dropout_rate:
+        keep = dense_keep(dropout_seed, dropout_rate, bh, rows, s_kv, q_seq_len,
+                          dropout_row_stride, q.device)
+        inv = 1.0 / (1.0 - dropout_rate)
+        dv = torch.einsum("bqk,bqd->bkd", torch.where(keep, p, 0.0) * inv, dof)
+    else:
+        dv = torch.einsum("bqk,bqd->bkd", p, dof)
     ds = torch.einsum("bqd,bkd->bqk", dof, v.float())
+    if keep is not None:
+        ds = torch.where(keep, ds, 0.0) * inv
+        del keep
     ds = p * (ds - di[..., None]) * scale
     del p
     if cap_factor is not None:
@@ -162,6 +189,7 @@ def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_l
 def flash_attention_bwd_plain(
     q, k, v, o, lse, do, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
     q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None, kv_segment_ids=None,
+    dropout_rate=None, dropout_seed=0, dropout_row_stride=None, block_mask=None,
 ):
     """The backward kernels' function in plain PyTorch: the CPU path of
     :func:`flash_attention_bwd` and the kernels' yardstick on the card.
@@ -173,6 +201,8 @@ def flash_attention_bwd_plain(
         kv_len=s_kv if kv_len is None else kv_len, q_offset=q_offset,
         q_seq_len=rows if q_seq_len is None else q_seq_len, window=window,
         logit_softcap=logit_softcap, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+        dropout_rate=check_dropout(dropout_rate), dropout_seed=wrap_int32(dropout_seed),
+        dropout_row_stride=dropout_row_stride, block_mask=block_mask,
     )
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -201,98 +231,145 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap):
-    """The launchers' options with kv_len and q_seq_len defaulted."""
+def _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
+          dropout_rate=None, dropout_seed=0, dropout_row_stride=None):
+    """The launchers' options with kv_len, q_seq_len and the dropout seed
+    defaulted (the seed as an int32)."""
     check_window(window, logit_softcap, causal)
     return dict(causal=bool(causal), scale=float(scale),
                 kv_len=k.shape[1] if kv_len is None else int(kv_len), q_offset=int(q_offset),
                 q_seq_len=q.shape[1] if q_seq_len is None else int(q_seq_len),
                 window=None if window is None else int(window),
-                logit_softcap=None if logit_softcap is None else float(logit_softcap))
+                logit_softcap=None if logit_softcap is None else float(logit_softcap),
+                dropout_rate=check_dropout(dropout_rate), dropout_seed=wrap_int32(dropout_seed),
+                dropout_row_stride=dropout_row_stride)
 
 
 def _scalars(kw):
     """The C entry points' trailing options, after the tensors and shapes."""
     return (kw["kv_len"], kw["q_offset"], kw["q_seq_len"], int(kw["causal"]), kw["scale"],
-            *kernel_options(kw["window"], kw["logit_softcap"]))
+            *kernel_options(kw["window"], kw["logit_softcap"]),
+            *dropout_options(kw["dropout_rate"], kw["dropout_seed"], kw["dropout_row_stride"],
+                             kw["q_seq_len"]))
+
+
+# Rows (and key columns) per tile of the backward kernels by head_dim
+# (``Layout<D>::kTile`` in csrc/bwd_common.cuh): a block mask's table is
+# built over (tile, tile) tiles.
+def bwd_tile(d: int) -> int:
+    return 16 if d >= 256 else 64 if d <= 16 else 32
+
+
+def _mask_tiles(block_mask, q, by_q):
+    """A block mask's (ptr, idx, part, bits) for the C interface, by query
+    tile (dQ) or by key tile (dK/dV); or four nulls."""
+    if block_mask is None:
+        return (None,) * 4
+    tile = bwd_tile(q.shape[2])
+    tiles = block_mask.tiles(tile, tile, q.device)
+    return tiles.by_q() if by_q else tiles.by_kv()
+
+
+def _library(name, kw, block_mask=None):
+    """The kernel's library: its dropout / block-mask form's with either."""
+    extra = kw["dropout_rate"] is not None or block_mask is not None
+    return name + "_extra" if extra else name
+
+
+def _count(fn, kw, block_mask=None):
+    fn.launches += 1
+    fn.launches_dropout += kw["dropout_rate"] is not None
+    if block_mask is not None:
+        fn.launches_block_mask += 1
 
 
 def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None,
-                     q_offset=0, q_seq_len=None, window=None, logit_softcap=None):
+                     q_offset=0, q_seq_len=None, window=None, logit_softcap=None,
+                     dropout_rate=None, dropout_seed=0, dropout_row_stride=None):
     """One launch of the fused one-pass kernel (``csrc/flash_bwd.cu``):
     ``(dq, dk, dv)``.  dQ is summed with float32 atomics into a zeroed
     buffer, then cast to q's dtype.  On CPU tensors: the plain version."""
-    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap)
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
+               dropout_rate, dropout_seed, dropout_row_stride)
     if q.device.type == "cpu":
         dq, dk, dv = _bwd_plain(q, k, v, do, lse, di, **kw)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     dtype, bh, rows, s_kv, d = _launch_args("flash_bwd", q, k, v, do, lse, di)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    status = kernels.library("flash_bwd").fa_flash_bwd(
+    lib = _library("flash_bwd", kw)
+    status = kernels.library(lib).fa_flash_bwd(
         dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, rows, s_kv, d,
         *_scalars(kw), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    kernels.check_launch("flash_bwd", status, f"q {tuple(q.shape)} {q.dtype}")
-    fused_bwd_kernel.launches += 1
+    kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype}")
+    _count(fused_bwd_kernel, kw)
     return dq_acc.to(q.dtype), dk, dv
 
 
 def dq_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
               q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None,
-              kv_segment_ids=None):
+              kv_segment_ids=None, dropout_rate=None, dropout_seed=0,
+              dropout_row_stride=None, block_mask=None):
     """One launch of the two-pass backward's dQ kernel
     (``csrc/flash_bwd_dq.cu``).  On CPU tensors: the plain version."""
-    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap)
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
+               dropout_rate, dropout_seed, dropout_row_stride)
     if q.device.type == "cpu":
         dq, _, _ = _bwd_plain(q, k, v, do, lse, di, q_segment_ids=q_segment_ids,
-                              kv_segment_ids=kv_segment_ids, **kw)
+                              kv_segment_ids=kv_segment_ids, block_mask=block_mask, **kw)
         return dq.to(q.dtype)
     dtype, bh, rows, s_kv, d = _launch_args(
         "flash_bwd_dq", q, k, v, do, lse, di, q_segment_ids, kv_segment_ids
     )
     dq = torch.empty_like(q)
-    status = kernels.library("flash_bwd_dq").fa_flash_bwd_dq(
+    lib = _library("flash_bwd_dq", kw, block_mask)
+    status = kernels.library(lib).fa_flash_bwd_dq(
         dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), _ptr(q_segment_ids), _ptr(kv_segment_ids), dq.data_ptr(), bh, rows,
-        s_kv, d, *_scalars(kw), torch.cuda.current_stream(q.device).cuda_stream,
+        di.data_ptr(), _ptr(q_segment_ids), _ptr(kv_segment_ids), dq.data_ptr(),
+        *_mask_tiles(block_mask, q, by_q=True), bh, rows, s_kv, d, *_scalars(kw),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    kernels.check_launch("flash_bwd_dq", status, f"q {tuple(q.shape)} {q.dtype}")
-    dq_kernel.launches += 1
+    kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype}")
+    _count(dq_kernel, kw, block_mask)
     return dq
 
 
 def dkv_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
                q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None,
-               kv_segment_ids=None):
+               kv_segment_ids=None, dropout_rate=None, dropout_seed=0,
+               dropout_row_stride=None, block_mask=None):
     """One launch of the two-pass backward's dK/dV kernel
     (``csrc/flash_bwd_dkv.cu``): ``(dk, dv)``, each KV head summed over all
     of its folded query rows.  On CPU tensors: the plain version."""
-    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap)
+    kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
+               dropout_rate, dropout_seed, dropout_row_stride)
     if q.device.type == "cpu":
         _, dk, dv = _bwd_plain(q, k, v, do, lse, di, q_segment_ids=q_segment_ids,
-                               kv_segment_ids=kv_segment_ids, **kw)
+                               kv_segment_ids=kv_segment_ids, block_mask=block_mask, **kw)
         return dk.to(k.dtype), dv.to(v.dtype)
     dtype, bh, rows, s_kv, d = _launch_args(
         "flash_bwd_dkv", q, k, v, do, lse, di, q_segment_ids, kv_segment_ids
     )
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    status = kernels.library("flash_bwd_dkv").fa_flash_bwd_dkv(
+    lib = _library("flash_bwd_dkv", kw, block_mask)
+    status = kernels.library(lib).fa_flash_bwd_dkv(
         dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), _ptr(q_segment_ids), _ptr(kv_segment_ids), dk.data_ptr(),
-        dv.data_ptr(), bh, rows, s_kv, d, *_scalars(kw),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        dv.data_ptr(), *_mask_tiles(block_mask, q, by_q=False), bh, rows, s_kv, d,
+        *_scalars(kw), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    kernels.check_launch("flash_bwd_dkv", status, f"q {tuple(q.shape)} {q.dtype}")
-    dkv_kernel.launches += 1
+    kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype}")
+    _count(dkv_kernel, kw, block_mask)
     return dk, dv
 
 
-# kernel launches, for the chip run's path check
-fused_bwd_kernel.launches = 0
-dq_kernel.launches = 0
-dkv_kernel.launches = 0
+# Kernel launches, for the chip run's path check: all forms, and the dropout
+# and block-mask ones among them.
+for _fn in (fused_bwd_kernel, dq_kernel, dkv_kernel):
+    _fn.launches = _fn.launches_dropout = _fn.launches_block_mask = 0
+del _fn
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -308,7 +385,7 @@ class _FlashAttention(torch.autograd.Function):
         )
         lse = m + torch.log(torch.where(l == 0.0, 1.0, l))  # the l == 0 guard
         ctx.save_for_backward(q, k, v, o, lse, q_segment_ids, kv_segment_ids)
-        ctx.opts = opts
+        ctx.opts = opts  # the dropout seed with them: the backward draws the same bits
         return o
 
     @staticmethod
@@ -325,6 +402,7 @@ def attention_vjp(
     q, k, v, causal=False, scale=1.0, block_sizes=None, precision=None, interpret=None,
     q_seq_len=None, window=None, logit_softcap=None, dropout_rate=None, dropout_seed=0,
     q_segment_ids=None, kv_segment_ids=None, block_mask=None, kv_len=None, q_offset=0,
+    *, dropout_row_stride=None,
 ):
     """Differentiable fused attention on ``(BH, R, d)``, with the JAX
     package's positional signature (backward.py:966-985).
@@ -335,13 +413,16 @@ def attention_vjp(
     (``BlockSizes()`` or None); ``precision`` and ``interpret`` are TPU
     options and must be None.  ``window`` and ``logit_softcap`` go to the
     forward (whose lse then holds the capped, windowed scores) and to the
-    backward.  Dropout and block masks raise ``NotImplementedError`` before
-    any launch until their slices.
+    backward.  ``dropout_rate`` / ``dropout_seed`` drop the softmax weights
+    with inverted scaling; both passes regenerate the keep bits from the
+    seed, which is an int (a tensor is read once on the host, one sync).
+    ``block_mask`` is a :class:`ops.flash.BlockMask` (not with causal,
+    window or the GQA fold); the backward then runs the two-pass kernels.
+    ``dropout_row_stride``: see :func:`ops.flash.flash_attention`.
     """
     _check_tpu_options(None, precision, interpret)
-    if dropout_rate == 0.0:
-        dropout_rate = None
-    check_ported(dropout_rate=dropout_rate, block_mask=block_mask)
     opts = dict(causal=bool(causal), scale=float(scale), q_seq_len=q_seq_len, kv_len=kv_len,
-                q_offset=int(q_offset), window=window, logit_softcap=logit_softcap)
+                q_offset=int(q_offset), window=window, logit_softcap=logit_softcap,
+                dropout_rate=check_dropout(dropout_rate), dropout_seed=wrap_int32(dropout_seed),
+                dropout_row_stride=dropout_row_stride, block_mask=block_mask)
     return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids, opts, block_sizes)

@@ -9,7 +9,7 @@ folds segment ids into the same layout, and calls
 requires a gradient (and no residuals are asked for), the call goes through
 :func:`ops.backward.attention_vjp` instead, so ``torch.autograd`` works
 through this public entry point (dispatch.py:295-308), sliding window and
-logit softcap included.  8-bit K/V (int8 or fp8
+logit softcap, attention dropout and block-sparse masks included.  8-bit K/V (int8 or fp8
 payloads with per-token scales ``k_scales``/``v_scales``) go to the forward
 kernel's 8-bit form only, as in the JAX package (dispatch.py:288-295); under
 autograd they raise before any launch.  Unlike the TPU
@@ -27,8 +27,11 @@ from flashattention_tpu_torch.ops import reference
 from flashattention_tpu_torch.ops.backward import attention_vjp
 from flashattention_tpu_torch.ops.reference import dequantize_rows
 from flashattention_tpu_torch.ops.flash import (
+    MIN_BLOCK,
+    BlockMask,
     BlockSizes,
-    check_ported,
+    _round_up,
+    check_dropout,
     check_window,
     flash_attention,
 )
@@ -54,7 +57,9 @@ def attention(
     logit_softcap: float | None = None,
     k_scales=None,
     v_scales=None,
-    **unported,
+    dropout_rate: float | None = None,
+    dropout_seed=0,
+    block_mask: BlockMask | None = None,
 ):
     """Fused attention ``O = softmax(scale * Q K^T) V``.
 
@@ -78,12 +83,17 @@ def attention(
       k_scales, v_scales: float32 per-token dequant scales of int8 / fp8 k,
         v payloads, given together: ``(B, H_kv, S_kv)`` for 4D inputs or
         ``(B*H_kv, S_kv)``.  Forward only: under autograd they raise.
-      unported: the JAX package's other options (dropout, block_mask) raise
-        ``NotImplementedError``.
+      dropout_rate, dropout_seed: attention dropout on the softmax weights,
+        inverted ``1 / (1 - rate)`` scaling; the keep bits are the JAX
+        package's at the same seed (with GQA, at its padded row layout).
+        The seed is an int (a tensor is read once on the host).
+      block_mask: a :class:`ops.flash.BlockMask` built at the lengths the JAX
+        package pads to (``S`` rounded up to the mask's blocks); not with
+        ``causal`` or GQA.
 
     Returns ``o`` with q's shape and dtype, or ``(o, l, m)``.
     """
-    check_ported(**unported)
+    dropout_rate = check_dropout(dropout_rate)
     check_window(window, logit_softcap, causal)
     q_shape = q.shape
     groups = 1
@@ -120,6 +130,17 @@ def attention(
         q_offset = s_kv - s_q if causal else 0
     if causal and s_kv < s_q:
         raise ValueError(f"causal attention requires S_kv >= S_q, got {s_kv} < {s_q}")
+    if block_mask is not None:
+        if causal:
+            raise ValueError("block_mask and causal are mutually exclusive; encode "
+                             "causality in the mask_fn instead")
+        padded = (_round_up(s_q, block_mask.block_q), _round_up(s_kv, block_mask.block_kv))
+        if (block_mask.s_q, block_mask.s_kv) != padded:
+            raise ValueError(
+                f"block_mask covers (S_q, S_kv)=({block_mask.s_q}, {block_mask.s_kv}) but "
+                f"the padded inputs are {padded}; build the mask at the padded lengths (its "
+                "mask_fn decides what padding rows may attend)"
+            )
 
     # Segment ids in the folded layout (dispatch.py:186-203).
     if q_segment_ids is not None and groups > 1:
@@ -139,10 +160,15 @@ def attention(
     vs3 = _fold_scales(v_scales, b_lead, k3.shape[0], s_kv, "v_scales")
 
     if implementation == "xla":
-        if seg_q3 is not None:
+        if dropout_rate is not None:
             raise NotImplementedError(
-                "segment ids via implementation='xla': use ops.reference directly "
-                "with an explicit mask"
+                "dropout is kernel-PRNG-defined; implementation='xla' has no matching "
+                "oracle (tests regenerate masks via dropout_keep_mask)"
+            )
+        if seg_q3 is not None or block_mask is not None:
+            raise NotImplementedError(
+                "segment ids / block_mask via implementation='xla': use ops.reference "
+                "directly with an explicit mask"
             )
         if ks3 is not None:  # the oracle over the dequantized K/V
             k3, v3 = dequantize_rows(k3, ks3), dequantize_rows(v3, vs3)
@@ -156,6 +182,10 @@ def attention(
         )
     elif implementation == "cuda":
         q_seq_len = s_q if groups > 1 else None
+        # Dropout draws its bits at the JAX package's raw rows, where each
+        # GQA segment is padded to a multiple of its smallest tile.
+        extra = dict(dropout_rate=dropout_rate, dropout_seed=dropout_seed, block_mask=block_mask,
+                     dropout_row_stride=_round_up(s_q, MIN_BLOCK) if groups > 1 else None)
         differentiable = torch.is_grad_enabled() and any(
             t.requires_grad for t in (q3, k3, v3)
         )
@@ -168,7 +198,7 @@ def attention(
             o = attention_vjp(
                 q3, k3, v3, causal, scale, block_sizes, None, None, q_seq_len,
                 window, logit_softcap, q_segment_ids=seg_q3, kv_segment_ids=seg_kv3,
-                kv_len=kv_len, q_offset=q_offset,
+                kv_len=kv_len, q_offset=q_offset, **extra,
             )
             l = m = None
         else:
@@ -177,6 +207,7 @@ def attention(
                 q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
                 block_sizes=block_sizes, q_segment_ids=seg_q3, kv_segment_ids=seg_kv3,
                 window=window, logit_softcap=logit_softcap, k_scales=ks3, v_scales=vs3,
+                **extra,
             )
             o, l, m = out if save_residuals else (out, None, None)
     else:

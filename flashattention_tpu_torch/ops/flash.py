@@ -14,10 +14,19 @@ at position ``pos`` sees columns ``c > pos - window``), a logit softcap
 length ``kv_len`` (ragged S is masked in the kernel, never padded), a score
 scale, segment ids (packed rows: row r sees column c only where their ids are
 equal; ``PAD_SEGMENT`` padding rows attend each other, as in the JAX
-kernel), ``save_residuals``, and 8-bit K/V: int8 or fp8 payloads with
+kernel), ``save_residuals``, 8-bit K/V: int8 or fp8 payloads with
 float32 per-row scales ``(BH, S_kv)`` (``k_scales``/``v_scales``), which a
 form of the kernel built for them dequantizes as it stages each tile
-(:func:`ops.quant.attention_quantized` is the public entry point).  The TPU tile-fitting regimes of
+(:func:`ops.quant.attention_quantized` is the public entry point), attention
+dropout and block-sparse masks.  Dropout (``dropout_rate``,
+``dropout_seed``) keeps each (head, row, column) pair by
+:func:`dropout_keep_mask`, a hash of its absolute coordinates that is bit for
+bit the JAX package's (flash.py:577), so the forward and both backward
+kernels regenerate the same bits and the JAX steps' losses are reproduced.
+A :class:`BlockMask` (flash.py:445) is classified on the host over the CUDA
+kernels' own tiles, once per mask and tile shape, and cached on the device
+with it: the kernels never load or compute a dead tile and apply element
+bits only in partial ones.  The TPU tile-fitting regimes of
 ``BlockSizes.fit`` are not ported: the CUDA kernel has one tile shape.
 
 :func:`flash_attention_naive` is the counterpart of the JAX package's naive
@@ -30,7 +39,10 @@ On a CUDA tensor it launches ``csrc/flash_naive.cu``; on a CPU tensor it runs
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Any
 
+import numpy as np
 import torch
 
 from flashattention_tpu_torch.ops import kernels
@@ -42,7 +54,9 @@ from flashattention_tpu_torch.ops.reference import (
 )
 
 __all__ = [
+    "BlockMask",
     "BlockSizes",
+    "dropout_keep_mask",
     "flash_attention",
     "flash_attention_naive",
     "flash_attention_naive_plain",
@@ -54,6 +68,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # with float32 scales.
 KV_DTYPES = {**_DTYPES, torch.int8: 2, torch.float8_e4m3fn: 3}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
+# The JAX package's smallest tile (flash.py MIN_BLOCK): its attention() pads
+# each GQA segment to a multiple of it, which sets the dropout row stride.
+MIN_BLOCK = 128
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def fwd_tile(d: int) -> int:
+    """Query rows per block of the forward kernel at head_dim ``d``
+    (``block_q<D>()`` in ``csrc/flash_fwd.cu``; its KV tile is 32)."""
+    return 32 if d >= 256 else 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,17 +93,295 @@ class BlockSizes:
     block_kv: int = 32
 
 
-def _unsupported(feature: str, slice_: str):
-    raise NotImplementedError(f"{feature} is not ported yet: it comes with {slice_}")
+_U32 = 0xFFFFFFFF
 
 
-def check_ported(*, dropout_rate=None, block_mask=None):
-    """Raise ``NotImplementedError`` for an option of the JAX package that
-    the forward kernel does not have yet."""
-    if dropout_rate:
-        _unsupported("attention dropout", "the attention-dropout slice (bit-for-bit keep masks)")
-    if block_mask is not None:
-        _unsupported("block-sparse masks", "the block-sparse slice")
+def wrap_int32(x) -> int:
+    """``x`` as the int32 it wraps to (the JAX steps' int32 seed arithmetic)."""
+    return (int(x) + 2**31) % 2**32 - 2**31
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``a * c mod 2**32`` for int64 ``a`` in [0, 2**32) and a constant
+    ``c`` < 2**32: ``c`` in 16-bit halves, so no product leaves int64
+    (torch has no uint32 shifts on the CPU)."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def dropout_threshold(rate: float) -> int:
+    """Keep iff the hash's top 24 bits are at or above this:
+    ``ceil(float32(rate) * 2**24)``, at most ``2**24`` (flash.py:607-612)."""
+    rate32 = float(np.float32(rate))
+    return min(math.ceil(rate32 * (1 << 24)), 1 << 24)
+
+
+def _keep_bits(seed, bh, rows: torch.Tensor, cols: torch.Tensor, threshold: int):
+    """The keep bits of (rows x cols) int64 coordinates, broadcast, for one
+    seed and head: uint32 arithmetic held in int64."""
+    h = (_mul32(torch.tensor(wrap_int32(seed) & _U32), 0x9E3779B9)
+         + _mul32(torch.tensor(int(bh) & _U32), 0x85EBCA6B)) & _U32
+    x = _mul32(rows & _U32, 0xCC9E2D51) ^ _mul32(cols & _U32, 0x1B873593) ^ h.to(rows.device)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return (x >> 8) >= threshold
+
+
+def dropout_keep_mask(seed, bh_idx, row_start, col_start, shape, rate: float, *, device=None):
+    """The keep mask of attention dropout (flash.py:577-613, bit for bit):
+    a bool ``shape`` tile, True = keep (probability ``1 - rate``), of head
+    ``bh_idx`` at rows ``row_start + i`` and columns ``col_start + j``.
+
+    A counter-based hash of the absolute coordinates (seed, batch x head,
+    query row, key column) with murmur3's fmix32, so the forward and
+    backward kernels regenerate every bit and no mask is stored.  The seed
+    is taken as an int32 (a negative one wraps) and then as uint32.
+    """
+    rows = torch.arange(shape[0], dtype=torch.int64, device=device)[:, None] + int(row_start)
+    cols = torch.arange(shape[1], dtype=torch.int64, device=device)[None, :] + int(col_start)
+    return _keep_bits(seed, bh_idx, rows, cols, dropout_threshold(rate))
+
+
+def check_dropout(rate):
+    """The dropout rate a kernel takes: None for no dropout (rate 0 is the
+    identity), else a rate in (0, 1) (flash.py:1232-1236)."""
+    if rate is None or rate == 0.0:
+        return None
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout_rate must be in (0, 1) or None (got {rate})")
+    return float(rate)
+
+
+def dropout_options(rate, seed, row_stride, q_seq_len):
+    """The C interface's dropout arguments: the raw row stride, the int32
+    seed, the keep threshold (0: no dropout) and ``1 / (1 - rate)``."""
+    if rate is None:
+        return (q_seq_len, 0, 0, 0.0)
+    stride = q_seq_len if row_stride is None else int(row_stride)
+    return (stride, wrap_int32(seed), dropout_threshold(rate), 1.0 / (1.0 - rate))
+
+
+def dense_keep(seed, rate, bh, rows, s_kv, q_seq_len, row_stride, device):
+    """The keep bits of every (head, row, column): ``(bh, rows, s_kv)`` bool,
+    rows at their raw folded coordinate ``(r // q_seq_len) * row_stride +
+    r % q_seq_len``; one head at a time, to bound the int64 temporaries."""
+    r = torch.arange(rows, dtype=torch.int64, device=device)
+    stride = q_seq_len if row_stride is None else row_stride
+    raw = ((r // q_seq_len) * stride + r % q_seq_len)[:, None]
+    cols = torch.arange(s_kv, dtype=torch.int64, device=device)[None, :]
+    threshold = dropout_threshold(rate)
+    return torch.stack([_keep_bits(seed, b, raw, cols, threshold) for b in range(bh)])
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskTiles:
+    """A :class:`BlockMask` over a kernel's ``(tile_q, tile_kv)`` tiles, on
+    one device: for each query tile, ``row_ptr[i]:row_ptr[i + 1]`` of
+    ``row_idx`` (its live KV tiles, ascending) and ``row_part`` (each one's
+    partial slot, -1 for a full tile); the same by KV tile in ``col_*``
+    (the transposed table, for the key-row backward kernel); ``bits``,
+    int32 words of the partial tiles' element bits, ``(slots, tile_q,
+    words)`` with ``words = ceil(tile_kv / 32)``."""
+
+    row_ptr: torch.Tensor
+    row_idx: torch.Tensor
+    row_part: torch.Tensor
+    col_ptr: torch.Tensor
+    col_idx: torch.Tensor
+    col_part: torch.Tensor
+    bits: torch.Tensor
+
+    def by_q(self):
+        """The C interface's (ptr, idx, part, bits) by query tile."""
+        return tuple(t.data_ptr() for t in (self.row_ptr, self.row_idx, self.row_part, self.bits))
+
+    def by_kv(self):
+        """The same by KV tile."""
+        return tuple(t.data_ptr() for t in (self.col_ptr, self.col_idx, self.col_part, self.bits))
+
+
+def _csr(kind, part):
+    """(ptr, idx, part) of the live entries of each row of ``kind``."""
+    rows, cols = np.nonzero(kind)
+    ptr = np.zeros(kind.shape[0] + 1, np.int32)
+    np.add.at(ptr, rows + 1, 1)
+    return np.cumsum(ptr).astype(np.int32), cols.astype(np.int32), part[rows, cols]
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockMask:
+    """Block-sparse attention mask (flash.py:445-575): the JAX package's
+    container, its pair tables at its own blocks, and the CUDA kernels'.
+
+    Built from a position-level predicate by :meth:`from_mask_fn`.
+    ``mask_fn(q_pos, kv_pos) -> bool`` is dual-use: evaluated on numpy int
+    arrays to classify blocks and tiles on the host, and on torch int
+    tensors by the plain versions; plain comparisons, arithmetic and logic
+    satisfy both.  ``qi``, ``kj``, ``first_kj``, ``last_kj``,
+    ``needs_element_mask`` and the fractions are the JAX package's, at its
+    blocks.  The kernels run on their own tiles instead: :meth:`tiles`
+    classifies them (dead, full or partial, with a partial tile's element
+    bits) once per tile shape, and caches the table on the device.
+    """
+
+    s_q: int
+    s_kv: int
+    block_q: int
+    block_kv: int
+    qi: tuple[int, ...]
+    kj: tuple[int, ...]
+    first_kj: tuple[int, ...]
+    last_kj: tuple[int, ...]
+    needs_element_mask: bool
+    mask_fn: Any
+    element_live_fraction: float = 1.0
+    _tiles: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    @classmethod
+    def from_mask_fn(cls, mask_fn, s_q: int, s_kv: int, *, block_q: int = 1024,
+                     block_kv: int = 1024) -> "BlockMask":
+        """Classify every (q, kv) block of ``mask_fn`` as dead, full or
+        partial (flash.py:474-560).  Raises if the lengths are not multiples
+        of the blocks, if ``mask_fn`` does not broadcast to a block, or if a
+        query row attends no key (its softmax is undefined)."""
+        block_q = min(block_q, _round_up(s_q, MIN_BLOCK))
+        block_kv = min(block_kv, _round_up(s_kv, MIN_BLOCK))
+        if s_q % block_q or s_kv % block_kv:
+            raise ValueError(
+                f"sequence lengths ({s_q}, {s_kv}) must be multiples of the "
+                f"mask block sizes ({block_q}, {block_kv})"
+            )
+        nq, nkv = s_q // block_q, s_kv // block_kv
+        qi, kj = [], []
+        first_kj = [-1] * nq
+        last_kj = [0] * nq
+        needs_element_mask = False
+        n_live_elements = 0
+        for i in range(nq):
+            rows = np.arange(i * block_q, (i + 1) * block_q)[:, None]
+            row_live = np.zeros(block_q, bool)
+            for j in range(nkv):
+                cols = np.arange(j * block_kv, (j + 1) * block_kv)[None, :]
+                m = np.asarray(mask_fn(rows, cols), bool)
+                if m.shape != (block_q, block_kv):
+                    raise ValueError(
+                        f"mask_fn must broadcast to (block_q, block_kv)="
+                        f"({block_q}, {block_kv}), got {m.shape}"
+                    )
+                if not m.any():
+                    continue
+                qi.append(i)
+                kj.append(j)
+                if first_kj[i] < 0:
+                    first_kj[i] = j
+                last_kj[i] = j
+                row_live |= m.any(axis=1)
+                n_live_elements += int(m.sum())
+                if not m.all():
+                    needs_element_mask = True
+            if not row_live.all():
+                bad = int(np.argmin(row_live)) + i * block_q
+                raise ValueError(
+                    f"mask_fn leaves query row {bad} with no live key — its "
+                    "softmax is undefined; give every query at least one key"
+                )
+        return cls(
+            s_q=s_q, s_kv=s_kv, block_q=block_q, block_kv=block_kv, qi=tuple(qi),
+            kj=tuple(kj), first_kj=tuple(first_kj), last_kj=tuple(last_kj),
+            needs_element_mask=needs_element_mask, mask_fn=mask_fn,
+            element_live_fraction=n_live_elements / (s_q * s_kv),
+        )
+
+    @property
+    def num_pairs(self) -> int:
+        return len(self.qi)
+
+    @property
+    def live_fraction(self) -> float:
+        """Fraction of the dense block grid with a live element."""
+        return self.num_pairs / ((self.s_q // self.block_q) * (self.s_kv // self.block_kv))
+
+    @property
+    def occupancy(self) -> float:
+        """Live elements over the elements of live blocks (1.0: no partial
+        block)."""
+        return self.element_live_fraction / max(self.live_fraction, 1e-12)
+
+    def element_mask(self, rows: int, s_kv: int, device=None) -> torch.Tensor:
+        """``mask_fn`` over query rows ``[0, rows)`` and key columns
+        ``[0, s_kv)``: ``(rows, s_kv)`` bool, from torch ints."""
+        r = torch.arange(rows, device=device)[:, None]
+        c = torch.arange(s_kv, device=device)[None, :]
+        return torch.as_tensor(self.mask_fn(r, c), dtype=torch.bool).expand(rows, s_kv)
+
+    def _classify(self, tile_q: int, tile_kv: int):
+        """Host classification over (tile_q, tile_kv) tiles: per tile 0
+        (dead), 1 (full) or 2 (partial), each partial tile's slot, and the
+        slots' element bits, uint32 ``(slots, tile_q, words)``."""
+        nq, nk = -(-self.s_q // tile_q), -(-self.s_kv // tile_kv)
+        words = -(-tile_kv // 32)
+        cols = np.arange(nk * tile_kv)[None, :]
+        kind = np.zeros((nq, nk), np.int8)
+        part = np.full((nq, nk), -1, np.int32)
+        weights = np.left_shift(np.uint64(1), np.arange(32, dtype=np.uint64))
+        bits = []
+        for i in range(nq):
+            rows = np.arange(i * tile_q, (i + 1) * tile_q)[:, None]
+            m = np.broadcast_to(np.asarray(self.mask_fn(rows, cols), bool),
+                                (tile_q, nk * tile_kv)) & (rows < self.s_q) & (cols < self.s_kv)
+            t = m.reshape(tile_q, nk, tile_kv)
+            live, full = t.any(axis=(0, 2)), t.all(axis=(0, 2))
+            kind[i] = np.where(full, 1, np.where(live, 2, 0))
+            partial = np.nonzero(live & ~full)[0]
+            if len(partial):
+                part[i, partial] = len(bits) + np.arange(len(partial))
+                x = np.zeros((len(partial), tile_q, words * 32), np.uint64)
+                x[..., :tile_kv] = t[:, partial, :].transpose(1, 0, 2)
+                bits.extend((x.reshape(len(partial), tile_q, words, 32) * weights).sum(-1)
+                            .astype(np.uint32))
+        bits = np.stack(bits) if bits else np.zeros((1, tile_q, words), np.uint32)
+        return kind, part, bits
+
+    def tiles(self, tile_q: int, tile_kv: int, device) -> MaskTiles:
+        """The kernels' table over (tile_q, tile_kv) tiles on ``device``,
+        classified on the host once per tile shape and cached."""
+        device = torch.device(device)
+        key = (tile_q, tile_kv, str(device))
+        if key not in self._tiles:
+            kind, part, bits = self._classify(tile_q, tile_kv)
+            rows = _csr(kind, part)
+            cols = _csr(kind.T, part.T)
+
+            def put(a):
+                return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+            self._tiles[key] = MaskTiles(*(put(a) for a in (*rows, *cols, bits)))
+        return self._tiles[key]
+
+
+def check_block_mask(block_mask, rows, s_kv, *, causal, window, q_seq_len):
+    """Raise ``ValueError`` for a block mask with causal masking, a window
+    or the GQA row fold, or built for other lengths than ``(rows, s_kv)``
+    rounded up to its blocks (the port never pads: the kernels mask the
+    ragged edge, and a mask built at the JAX package's padded lengths
+    serves as it is) (flash.py:1311-1340)."""
+    if causal or window is not None:
+        raise ValueError(
+            "block_mask is mutually exclusive with causal/window — encode them in the mask_fn"
+        )
+    if q_seq_len is not None:
+        raise ValueError(
+            "block_mask with the GQA row fold (q_seq_len) is not supported; un-fold or "
+            "bake the fold into the mask"
+        )
+    padded = (_round_up(rows, block_mask.block_q), _round_up(s_kv, block_mask.block_kv))
+    if (block_mask.s_q, block_mask.s_kv) != padded:
+        raise ValueError(
+            f"block_mask built for (S_q, S_kv)=({block_mask.s_q}, {block_mask.s_kv}) "
+            f"but inputs are ({rows}, {s_kv})"
+        )
 
 
 def check_kv(q, k, v, k_scales, v_scales, scales_shape) -> bool:
@@ -140,7 +445,7 @@ def kernel_options(window, logit_softcap):
 
 
 def visible(rows, s_kv, *, causal, kv_len, q_offset, q_seq_len, q_segment_ids=None,
-            kv_segment_ids=None, window=None, device=None):
+            kv_segment_ids=None, window=None, block_mask=None, device=None):
     """Boolean mask of the (query row, key column) pairs the kernels keep:
     ``(R, S_kv)``, or ``(BH, R, S_kv)`` with segment ids."""
     cols = torch.arange(s_kv, device=device)
@@ -150,6 +455,8 @@ def visible(rows, s_kv, *, causal, kv_len, q_offset, q_seq_len, q_segment_ids=No
         mask = mask & (cols[None, :] <= pos[:, None])
         if window is not None:
             mask = mask & (cols[None, :] > pos[:, None] - window)
+    if block_mask is not None:
+        mask = mask & block_mask.element_mask(rows, s_kv, device)
     if q_segment_ids is not None:
         mask = mask & (q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])
     return mask
@@ -170,11 +477,13 @@ def flash_attention(
     window: int | None = None,
     logit_softcap: float | None = None,
     dropout_rate: float | None = None,
+    dropout_seed=0,
     q_segment_ids=None,
     kv_segment_ids=None,
     k_scales=None,
     v_scales=None,
-    block_mask=None,
+    block_mask: BlockMask | None = None,
+    dropout_row_stride: int | None = None,
 ):
     """Fused attention forward ``O = softmax(scale * Q K^T) V``.
 
@@ -194,10 +503,21 @@ def flash_attention(
         given together: row r sees column c only where the ids are equal.
       k_scales, v_scales: float32 ``(BH, S_kv)``, given together, for int8 or
         fp8 k/v payloads: row j of K is ``k[:, j].float() * k_scales[:, j]``.
+      dropout_rate, dropout_seed: attention dropout on the softmax weights
+        with inverted ``1 / (1 - rate)`` scaling, keep bits from
+        :func:`dropout_keep_mask` at ``(dropout_seed, bh, raw row, column)``;
+        ``l`` and ``m`` stay the undropped statistics.  The seed is an int
+        (a tensor is read once on the host).
+      block_mask: a :class:`BlockMask` built for ``(R, S_kv)`` rounded up to
+        its blocks; not with causal, window or ``q_seq_len``.
+      dropout_row_stride: the raw row coordinate of folded row r is
+        ``(r // q_seq_len) * dropout_row_stride + r % q_seq_len``; default
+        ``q_seq_len`` (:func:`ops.dispatch.attention` passes the JAX
+        package's padded segment length).
 
     Returns ``o`` like q, or ``(o, l, m)``.
     """
-    check_ported(dropout_rate=dropout_rate, block_mask=block_mask)
+    dropout_rate = check_dropout(dropout_rate)
     check_window(window, logit_softcap, causal)
     if block_sizes is not None and block_sizes != BlockSizes():
         raise ValueError(f"the kernel is compiled for {BlockSizes()}, got {block_sizes}")
@@ -214,10 +534,15 @@ def flash_attention(
     kv_len = s_kv if kv_len is None else int(kv_len)
     if not 0 <= kv_len <= s_kv:
         raise ValueError(f"kv_len {kv_len} outside [0, {s_kv}]")
+    if block_mask is not None:
+        check_block_mask(block_mask, rows, s_kv, causal=causal, window=window,
+                         q_seq_len=q_seq_len)
     q_seq_len = rows if q_seq_len is None else int(q_seq_len)
     if q_seq_len <= 0 or rows % q_seq_len:
         raise ValueError(f"q_seq_len ({q_seq_len}) must divide the rows ({rows})")
     seg_q, seg_kv = fold_segment_ids(q_segment_ids, kv_segment_ids, bh, rows, s_kv, q.device)
+    dropout = dict(dropout_rate=dropout_rate, dropout_seed=wrap_int32(dropout_seed),
+                   dropout_row_stride=dropout_row_stride)
 
     scales = (k_scales, v_scales) if quantized else ()
     if not all(t.is_contiguous() for t in (q, k, v, *scales)):
@@ -229,7 +554,7 @@ def flash_attention(
             q, k, v, causal=causal, scale=scale, kv_len=kv_len,
             q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
             q_segment_ids=seg_q, kv_segment_ids=seg_kv, window=window,
-            logit_softcap=logit_softcap,
+            logit_softcap=logit_softcap, block_mask=block_mask, **dropout,
         )
     if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, *scales)):
         raise ValueError(f"flash_attention: tensors on {q.device}/{k.device}/{v.device}")
@@ -247,33 +572,48 @@ def flash_attention(
         l = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
         m = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
     name = "flash_fwd_quant" if quantized else "flash_fwd"
+    if dropout_rate is not None or block_mask is not None:
+        name += "_extra"  # the dropout / block-mask form's library
+    tiles = (None,) * 4
+    if block_mask is not None:
+        tiles = block_mask.tiles(fwd_tile(d), 32, q.device).by_q()
     status = kernels.library(name).fa_flash_fwd(
         _DTYPES[q.dtype], KV_DTYPES[k.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *(t.data_ptr() if quantized else None for t in (k_scales, v_scales)), o.data_ptr(),
         None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
         None if seg_q is None else seg_q.data_ptr(),
-        None if seg_kv is None else seg_kv.data_ptr(), bh, rows, s_kv, d, kv_len,
+        None if seg_kv is None else seg_kv.data_ptr(), *tiles, bh, rows, s_kv, d, kv_len,
         int(q_offset), q_seq_len, int(bool(causal)), float(scale),
-        *kernel_options(window, logit_softcap), torch.cuda.current_stream(q.device).cuda_stream,
+        *kernel_options(window, logit_softcap),
+        *dropout_options(dropout_rate, dropout["dropout_seed"], dropout_row_stride, q_seq_len),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check_launch(name, status, f"q {tuple(q.shape)} {q.dtype}, k {k.dtype}")
     flash_attention.launches += 1
     flash_attention.launches_quantized += quantized
+    flash_attention.launches_dropout += dropout_rate is not None
+    flash_attention.launches_block_mask += block_mask is not None
     return (o, l, m) if save_residuals else o
 
 
-# Kernel launches, for the chip run's path check: all forms, and the 8-bit one.
+# Kernel launches, for the chip run's path check: all forms, and the 8-bit,
+# dropout and block-mask ones among them.
 flash_attention.launches = 0
 flash_attention.launches_quantized = 0
+flash_attention.launches_dropout = 0
+flash_attention.launches_block_mask = 0
 
 
 def flash_attention_plain(
     q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
     q_seq_len=None, save_residuals=False, q_segment_ids=None, kv_segment_ids=None,
-    window=None, logit_softcap=None,
+    window=None, logit_softcap=None, block_mask=None, dropout_rate=None, dropout_seed=0,
+    dropout_row_stride=None,
 ):
     """The kernel's function in plain PyTorch, float32 throughout: the CPU
-    path of :func:`flash_attention` and its yardstick on the card."""
+    path of :func:`flash_attention` and its yardstick on the card.  The
+    block mask's element predicate and the dropout keep bits are computed
+    densely from the same functions the kernel's tables and hash come from."""
     bh, rows, _ = q.shape
     s_kv = k.shape[1]
     kv_len = s_kv if kv_len is None else kv_len
@@ -282,12 +622,17 @@ def flash_attention_plain(
     mask = visible(
         rows, s_kv, causal=causal, kv_len=kv_len, q_offset=q_offset, q_seq_len=q_seq_len,
         q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, window=window,
-        device=q.device,
+        block_mask=block_mask, device=q.device,
     )
     s = torch.where(mask, s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
+    if dropout_rate:  # l stays the undropped sum (flash.py:931-937)
+        keep = dense_keep(dropout_seed, dropout_rate, bh, rows, s_kv, q_seq_len,
+                          dropout_row_stride, q.device)
+        p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
+        del keep
     o = torch.einsum("bqk,bkd->bqd", p, v.float())
     o = (o / torch.where(l == 0, 1.0, l)[..., None]).to(q.dtype)
     return (o, l, m) if save_residuals else o

@@ -11,7 +11,10 @@ and group size, split further into one library per head_dim,
 lengthening the longest build.  Paged decode's draft form (speculative
 verification, ``draft_k > 1``) is the same source built with ``-DFA_DRAFT``,
 into ``paged_decode_draft`` and, for 8-bit pages, one library per head_dim
-(``paged_decode_draft_quant_d<D>``).
+(``paged_decode_draft_quant_d<D>``).  The forms of flash_fwd and of the three
+backward kernels with attention dropout or a block mask are the same sources
+built with ``-DFA_EXTRA`` into ``*_extra`` libraries; the wrappers take them
+only when a call has either.
 The build runs at first use, from the sources in the checkout only, into
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``).  A
 library's file name carries a hash of its sources and flags, so an edited
@@ -45,15 +48,19 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 # entry returns an int status: 0, a cudaError_t value, or -1 for a
 # configuration not instantiated.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FLASH_FWD = ("flash_fwd.cu", "fa_flash_fwd", [_I, _I, *[_P] * 10, *[_I] * 8, _F, _I, _F, _P])
+# ..., window, softcap, then dropout's row stride, seed, threshold, 1 / (1 - rate), stream
+_EXTRA = [_I, _I, _I, _F, _P]
+_FLASH_FWD = ("flash_fwd.cu", "fa_flash_fwd", [_I, _I, *[_P] * 14, *[_I] * 8, _F, _I, _F, *_EXTRA])
 _PAGED_DECODE = ("paged_decode.cu", "fa_paged_decode", [_I, _I, *[_P] * 8, *[_I] * 7, _F, _I, _F, _P])
 _PAGED_PREFILL = ("paged_prefill.cu", "fa_paged_prefill", [_I, _I, *[_P] * 8, *[_I] * 9, _F, _I, _F, _P])
-_BWD = [*[_I] * 8, _F, _I, _F, _P]  # ..., causal, scale, window, softcap, stream
+_BWD = [*[_I] * 8, _F, _I, _F, *_EXTRA]  # ..., causal, scale, window, softcap, dropout, stream
 KERNELS = {
     "flash_fwd": _FLASH_FWD,
     "paged_decode": _PAGED_DECODE,
     "paged_prefill": _PAGED_PREFILL,
     "flash_fwd_quant": (*_FLASH_FWD, ["-DFA_QUANT"]),
+    "flash_fwd_extra": (*_FLASH_FWD, ["-DFA_EXTRA"]),
+    "flash_fwd_quant_extra": (*_FLASH_FWD, ["-DFA_QUANT", "-DFA_EXTRA"]),
     **{f"paged_decode_quant_d{d}": (*_PAGED_DECODE, ["-DFA_QUANT", f"-DFA_HEAD_DIM={d}"])
        for d in (32, 64, 128, 256)},
     "paged_decode_draft": (*_PAGED_DECODE, ["-DFA_DRAFT"]),
@@ -65,9 +72,12 @@ KERNELS = {
         "fa_flash_naive",
         [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
-    "flash_bwd": ("flash_bwd.cu", "fa_flash_bwd", [_I, *[_P] * 9, *_BWD]),
-    "flash_bwd_dq": ("flash_bwd_dq.cu", "fa_flash_bwd_dq", [_I, *[_P] * 9, *_BWD]),
-    "flash_bwd_dkv": ("flash_bwd_dkv.cu", "fa_flash_bwd_dkv", [_I, *[_P] * 10, *_BWD]),
+    **{name + suffix: (source, entry, args, flags)
+       for name, source, entry, args in (
+           ("flash_bwd", "flash_bwd.cu", "fa_flash_bwd", [_I, *[_P] * 9, *_BWD]),
+           ("flash_bwd_dq", "flash_bwd_dq.cu", "fa_flash_bwd_dq", [_I, *[_P] * 13, *_BWD]),
+           ("flash_bwd_dkv", "flash_bwd_dkv.cu", "fa_flash_bwd_dkv", [_I, *[_P] * 14, *_BWD]))
+       for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
 }
 _HEADERS = ("common.cuh", "bwd_common.cuh")
 _FLAGS = [

@@ -10,7 +10,9 @@ only PyTorch::
 kernel is held, for every head_dim and group size it is instantiated for, to
 its plain version run on the CPU: 1e-4 in float32, 2e-2 in bfloat16 (one
 bf16 rounding of outputs of magnitude ~1); the serving kernels' 8-bit forms
-(int8 and fp8 K/V with per-row scales) likewise.
+(int8 and fp8 K/V with per-row scales) likewise, and the dropout and
+block-mask forms of the flash forward and the backward kernels (the same
+keep bits and element masks as the plain versions).
 """
 
 import dataclasses
@@ -501,7 +503,17 @@ def test_windowed_train_step_on_card_matches_cpu(head_dim, packed):
     _check_train_card_vs_cpu(cfg, packed)
 
 
-def _check_train_card_vs_cpu(cfg, packed):
+@pytest.mark.parametrize("packed", [False, True], ids=["plain", "packed"])
+@pytest.mark.parametrize("window", [None, 24], ids=["full", "window_softcap"])
+def test_dropout_train_step_on_card_matches_cpu(window, packed):
+    """The same with attn_dropout=0.1 and seed = step index: the card's
+    keep bits are the plain version's (also with window and softcap)."""
+    cfg = dataclasses.replace(transformer.ModelConfig.tiny(), dtype="float32",
+                              sliding_window=window, logit_softcap=window and 30.0)
+    _check_train_card_vs_cpu(cfg, packed, attn_dropout=0.1)
+
+
+def _check_train_card_vs_cpu(cfg, packed, attn_dropout=None):
     rng = np.random.default_rng(5)
     if packed:  # two rows of two documents each and PAD_SEGMENT padding
         docs = [rng.integers(0, 256, n) for n in (30, 50, 20, 60, 40)]
@@ -514,9 +526,9 @@ def _check_train_card_vs_cpu(cfg, packed):
         params = {k: (v.to(dev) if torch.is_tensor(v) else [{n: w.to(dev) for n, w in lay.items()} for lay in v])
                   for k, v in params.items()}
         make = train.make_train_step_packed if packed else train.make_train_step
-        step = make(cfg, lr=0.1, device=dev)
+        step = make(cfg, lr=0.1, attn_dropout=attn_dropout, device=dev)
         data = [torch.tensor(x, device=dev) for x in ((tokens, segs) if packed else (tokens,))]
-        losses = [float(step(params, *data)[0]) for _ in range(3)]
+        losses = [float(step(params, *data, seed)[0]) for seed in range(3)]
         out[dev] = (losses, [p.cpu() for p in train.common.leaves(params)])
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
@@ -615,3 +627,112 @@ def test_speculative_and_multi_step_engine_on_card_match_cpu(cache):
                 outs.append(eng.run(multi_step=4 if how == "multi_step" else 1))
             assert eng.cache.num_free_pages() == 16
     assert all(o == outs[0] for o in outs)
+
+
+# Attention dropout in the forward and the three backward kernels: each
+# against its plain version on the CPU (the same keep bits, from the same
+# hash), at every head_dim, with the GQA fold (and a raw row stride past the
+# group length, as attention() passes for a ragged S), a window with a
+# softcap, and segment ids for the two-pass pair.
+DROPOUT_CASES = {
+    "full": dict(bh=3, g=1, s=96, causal=False),
+    "causal_gqa_stride": dict(bh=2, g=3, s=70, causal=True, row_stride=128),
+    "window_softcap": dict(bh=2, g=2, s=100, causal=True, window=13, logit_softcap=20.0, qmul=8.0),
+    "segments": dict(bh=2, g=2, s=80, causal=True, segments=True),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("case", list(DROPOUT_CASES))
+def test_dropout_kernels_match_plain(dtype, d, rate, case):
+    c = DROPOUT_CASES[case]
+    rows, qmul = c["g"] * c["s"], c.get("qmul", 1.0)
+    q = _randn((c["bh"], rows, d), torch.float32, 30).mul(qmul).to(dtype)
+    k, v = _randn((c["bh"], c["s"], d), dtype, 31), _randn((c["bh"], c["s"], d), dtype, 32)
+    do = _randn((c["bh"], rows, d), dtype, 33) * (0.25 / qmul)
+    kw = dict(causal=c["causal"], scale=d**-0.5, q_seq_len=c["s"], window=c.get("window"),
+              logit_softcap=c.get("logit_softcap"), dropout_rate=rate, dropout_seed=-12345,
+              dropout_row_stride=c.get("row_stride"))
+    seg = {}
+    if c.get("segments"):
+        ids = torch.full((c["bh"], c["s"]), -1, dtype=torch.int32)
+        ids[0, :30], ids[0, 30:70] = 0, 1
+        ids[1, :50], ids[1, 50:] = 0, 1
+        seg = dict(q_segment_ids=ids.repeat(1, c["g"]), kv_segment_ids=ids)
+    seg_cuda = {n: t.cuda() for n, t in seg.items()}
+    o, l, m = flash.flash_attention(q.cuda(), k.cuda(), v.cuda(), save_residuals=True, **kw,
+                                    **seg_cuda)
+    wo, wl, wm = flash.flash_attention_plain(q.float(), k.float(), v.float(), save_residuals=True,
+                                             **kw, **seg)
+    torch.cuda.synchronize()
+    validate_result(o, wo, TOL[dtype], name="o")
+    validate_result(l, wl, 1e-5 * float(wl.abs().max()), name="l (undropped)")
+    lse = (m + torch.log(torch.where(l == 0, 1.0, l))).cpu()
+    args = (q, k, v, o.cpu(), lse, do)
+    want = backward.flash_attention_bwd_plain(*(a.float() for a in args), **kw, **seg)
+    runs = [backward.flash_attention_bwd(*(a.cuda() for a in args), fused=False, **kw, **seg_cuda)]
+    if not seg:
+        runs.append(backward.flash_attention_bwd(*(a.cuda() for a in args), fused=True, **kw))
+    torch.cuda.synchronize()
+    for got in runs:
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            validate_result(g, w, TOL[dtype], name=name)
+
+
+def _mask_fns():
+    return {
+        "prefix_lm": lambda r, c: (c < 96) | (c <= r),
+        "documents": lambda r, c: r // 64 == c // 64,
+        "strided": lambda r, c: (abs(r - c) < 20) | (c % 50 == 0),
+    }
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("family", ["prefix_lm", "documents", "strided"])
+@pytest.mark.parametrize("s", [256, 200], ids=["s256", "ragged_s200"])
+def test_block_mask_kernels_match_plain(dtype, d, family, s):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv with a block mask (built at
+    S rounded up to 128 for the ragged case) against the plain versions,
+    with dropout in the ragged case."""
+    bm = flash.BlockMask.from_mask_fn(_mask_fns()[family], 256, 256, block_q=128, block_kv=128)
+    q, k, v = (_randn((2, s, d), dtype, 40 + i) for i in range(3))
+    do = _randn((2, s, d), dtype, 43) * 0.25
+    kw = dict(scale=d**-0.5, block_mask=bm)
+    if s == 200:
+        kw.update(dropout_rate=0.2, dropout_seed=3)
+    o, l, m = flash.flash_attention(q.cuda(), k.cuda(), v.cuda(), save_residuals=True, **kw)
+    wo = flash.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    validate_result(o, wo, TOL[dtype], name="o")
+    lse = (m + torch.log(torch.where(l == 0, 1.0, l))).cpu()
+    args = (q, k, v, o.cpu(), lse, do)
+    want = backward.flash_attention_bwd_plain(*(a.float() for a in args), **kw)
+    got = backward.flash_attention_bwd(*(a.cuda() for a in args), **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        validate_result(g, w, TOL[dtype], name=name)
+
+
+@pytest.mark.parametrize("d", [16, 128, 256])
+def test_block_mask_kernels_skip_dead_tiles(d):
+    """K/V rows that only dead tiles touch hold NaN: the kernels never load
+    them, so every output is finite and equals the unpoisoned run's."""
+    s = 512
+    fn = lambda r, c: (c < 384) & ((r // 128 == c // 128) | (c < 128))  # noqa: E731
+    bm = flash.BlockMask.from_mask_fn(fn, s, s, block_q=128, block_kv=128)
+    q, k, v, do = (_randn((2, s, d), torch.float32, 50 + i).cuda() for i in range(4))
+    outs = []
+    for poison in (False, True):
+        kk, vv = k.clone(), v.clone()
+        if poison:
+            kk[:, 384:], vv[:, 384:] = float("nan"), float("nan")
+        o, l, m = flash.flash_attention(q, kk, vv, save_residuals=True, block_mask=bm)
+        lse = m + torch.log(l)
+        outs.append((o, *backward.flash_attention_bwd(q, kk, vv, o, lse, do, block_mask=bm)))
+    torch.cuda.synchronize()
+    for clean, poisoned in zip(*outs):
+        assert torch.isfinite(poisoned).all()
+        assert torch.equal(clean, poisoned)

@@ -5,7 +5,9 @@
 - its entry points run on the card unless the caller asks for the CPU, and
   raise instead of carrying on where there is no card;
 - options of later slices raise ``NotImplementedError``, each naming the
-  slice that brings it, and those ported since run.
+  slice that brings it, and those ported since run (attention dropout and
+  block masks with the JAX package's own refusals: a rate outside (0, 1),
+  dropout on the ``xla`` oracle, a block mask on the fused backward).
 """
 
 import ast
@@ -78,7 +80,7 @@ def test_chip_smoke_imports_no_jax():
 @pytest.mark.parametrize(
     "script",
     ["decode_ab.py", "window_mutants.py", "quant_mutants.py", "bwd_mutants.py", "draft_mutants.py",
-     "spec_drift.py"],
+     "spec_drift.py", "fwd_bwd_ab.py", "dropout_mutants.py"],
 )
 def test_tools_import_no_jax(script):
     """The card scripts in ``torch_tools/`` drive the port alone (all but
@@ -110,6 +112,8 @@ def test_entry_points_default_to_the_card(no_card):
     for make in (train.make_train_step, train.make_train_step_packed):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):  # dropout, too
+            make(cfg, attn_dropout=0.1)
     for dt in ("int8", "fp8"):  # an 8-bit cache, too, runs on the card unless asked
         qcfg = kvcache.CacheConfig(num_layers=2, num_kv_heads=2, head_dim=32, num_pages=4, dtype=dt)
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -156,22 +160,33 @@ def test_later_slices_raise():
         assert backward.attention_vjp(x3, x3, x3, True, **kw).shape == x3.shape
         grads = backward.flash_attention_bwd(x3, x3, x3, x3, x3[..., 0], x3, causal=True, **kw)
         assert [g.shape for g in grads] == [x3.shape] * 3
-    for kw, slice_ in (
-        (dict(dropout_rate=0.1), "attention-dropout slice"),
-        (dict(block_mask=object()), "block-sparse slice"),
-    ):
-        with pytest.raises(NotImplementedError, match=slice_):
-            ft.attention(x, x, x, causal=True, **kw)
-        with pytest.raises(NotImplementedError, match=slice_):
-            ft.attention(x, x, x, causal=True, implementation="xla", **kw)
-        with pytest.raises(NotImplementedError, match=slice_):
-            backward.attention_vjp(x3, x3, x3, True, **kw)
-        with pytest.raises(NotImplementedError, match=slice_):
-            backward.flash_attention_bwd(x3, x3, x3, x3, x3[..., 0], x3, **kw)
+    # Attention dropout: ported, with the JAX package's refusals.
+    assert ft.attention(x, x, x, causal=True, dropout_rate=0.1).shape == x.shape
+    assert backward.attention_vjp(x3, x3, x3, True, dropout_rate=0.1).shape == x3.shape
+    grads = backward.flash_attention_bwd(x3, x3, x3, x3, x3[..., 0], x3, dropout_rate=0.1)
+    assert [g.shape for g in grads] == [x3.shape] * 3
+    with pytest.raises(NotImplementedError, match="kernel-PRNG-defined"):
+        ft.attention(x, x, x, causal=True, implementation="xla", dropout_rate=0.1)
+    for rate in (1.0, -0.1, 1.5):
+        with pytest.raises(ValueError, match=r"dropout_rate must be in \(0, 1\)"):
+            ft.attention(x, x, x, causal=True, dropout_rate=rate)
+        with pytest.raises(ValueError, match=r"dropout_rate must be in \(0, 1\)"):
+            backward.attention_vjp(x3, x3, x3, True, dropout_rate=rate)
+        with pytest.raises(ValueError, match=r"dropout_rate must be in \(0, 1\)"):
+            backward.flash_attention_bwd(x3, x3, x3, x3, x3[..., 0], x3, dropout_rate=rate)
+    # Block masks: ported; the fused backward refuses them, as in JAX.
+    bm = ft.BlockMask.from_mask_fn(lambda r, c: c <= r, 8, 8, block_q=8, block_kv=8)
+    assert ft.attention(x, x, x, block_mask=bm).shape == x.shape
+    assert backward.attention_vjp(x3, x3, x3, False, block_mask=bm).shape == x3.shape
+    with pytest.raises(ValueError, match="fused backward does not support block_mask"):
+        backward.flash_attention_bwd(x3, x3, x3, x3, x3[..., 0], x3, block_mask=bm, fused=True)
+    with pytest.raises(NotImplementedError, match="block_mask"):
+        ft.attention(x, x, x, implementation="xla", block_mask=bm)
     cfg = transformer.ModelConfig.tiny()
     for make in (train.make_train_step, train.make_train_step_packed):
-        with pytest.raises(NotImplementedError, match="attention-dropout slice"):
-            make(cfg, attn_dropout=0.1, device="cpu")
+        assert callable(make(cfg, attn_dropout=0.1, device="cpu"))  # ported
+        with pytest.raises(ValueError, match="dropout_rate"):
+            make(cfg, attn_dropout=1.5, device="cpu")
     for cfg in (transformer.ModelConfig.mistral7b(), transformer.ModelConfig.gemma2_9b()):
         for make in (train.make_train_step, train.make_train_step_packed):  # ported
             assert callable(make(cfg, device="cpu"))
