@@ -18,8 +18,10 @@ seed and coordinates, ``ops.flash.dropout_keep_mask``), dV sums
 ``Z = M P / (1 - r)`` and ``dP = M (dO_i . V_j) / (1 - r)``; D and dS keep
 their form (backward.py:238-246, :353-378, :487-498).  On CUDA tensors
 :func:`flash_attention_bwd` launches hand-written kernels: the fused
-one-pass ``csrc/flash_bwd.cu`` (replaces ``_fused_bwd_kernel``,
-backward.py:401) by default, and the two-pass ``csrc/flash_bwd_dq.cu`` +
+one-pass kernel (replaces ``_fused_bwd_kernel``, backward.py:401) by
+default, in bf16 at head_dim 64 or 128 its tensor-core form
+``csrc/flash_bwd_tc.cu``, else ``csrc/flash_bwd.cu``
+(``ops.flash.kernel_form``); and the two-pass ``csrc/flash_bwd_dq.cu`` +
 ``csrc/flash_bwd_dkv.cu`` (replace ``_dq_kernel`` :146 and ``_dkv_kernel``
 :269) with segment ids, a block mask or ``fused=False``, as the JAX package
 chooses (backward.py:610-615).  On CPU tensors it runs
@@ -51,7 +53,11 @@ from flashattention_tpu_torch.ops.flash import (
     dense_keep,
     dropout_options,
     flash_attention,
+    _exp,
+    _two_term_bf16,
     fold_segment_ids,
+    head_chunks,
+    kernel_form,
     kernel_options,
     visible,
     wrap_int32,
@@ -133,7 +139,7 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, o, lse, do, q_segment_ids=seg_q, kv_segment_ids=seg_kv,
-            block_mask=block_mask, **kw
+            block_mask=block_mask, form=bwd_form(q, fused), **kw
         )
     di = (o.float() * do.float()).sum(dim=-1)
     lse = lse.float().contiguous()
@@ -147,31 +153,52 @@ def flash_attention_bwd(
 
 def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_len,
                window=None, logit_softcap=None, q_segment_ids=None, kv_segment_ids=None,
-               dropout_rate=None, dropout_seed=0, dropout_row_stride=None, block_mask=None):
-    """The backward from the formulas, float32 throughout: ``(dq, dk, dv)``
-    in float32, with the capped score ``s``, ``P`` recomputed as
-    ``exp(s - lse)`` and 0 where masked, dS times the softcap's derivative
-    ``1 - (s / cap)^2``, and with dropout dV from ``Z = M P / (1 - r)`` and
-    dS from the kept ``dP``."""
+               dropout_rate=None, dropout_seed=0, dropout_row_stride=None, block_mask=None,
+               form="scalar"):
+    """The backward from the formulas, float32 throughout (on the CPU
+    ``exp`` in float64, rounded once: see ``ops.flash._exp``): ``(dq, dk,
+    dv)`` in float32, with the capped score ``s``, ``P`` recomputed as ``exp(s -
+    lse)`` and 0 where masked, dS times the softcap's derivative ``1 - (s /
+    cap)^2``, and with dropout dV from ``Z = M P / (1 - r)`` and dS from the
+    kept ``dP``.  ``form="tc"`` mirrors the tensor-core kernel: Z and dS
+    fed to their products as two bfloat16 terms (``ops.flash._two_term_bf16``).  Head by head in
+    chunks, to bound the temporaries."""
     bh, rows, s_kv = q.shape[0], q.shape[1], k.shape[1]
-    qf, kf, dof = q.float(), k.float(), do.float()
     mask = visible(
         rows, s_kv, causal=causal, kv_len=kv_len, q_offset=q_offset, q_seq_len=q_seq_len,
-        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, window=window,
-        block_mask=block_mask, device=q.device,
+        window=window, block_mask=block_mask, device=q.device,
     )
+    outs = []
+    for heads in head_chunks(bh, rows * s_kv):
+        sl = slice(heads.start, heads.stop)
+        seg_mask = mask
+        if q_segment_ids is not None:
+            seg_mask = mask & (q_segment_ids[sl, :, None] == kv_segment_ids[sl, None, :])
+        keep = None
+        if dropout_rate:
+            keep = dense_keep(dropout_seed, dropout_rate, heads, rows, s_kv, q_seq_len,
+                              dropout_row_stride, q.device)
+        outs.append(_bwd_plain_heads(q[sl], k[sl], v[sl], do[sl], lse[sl], di[sl], seg_mask, keep,
+                                     scale=scale, logit_softcap=logit_softcap,
+                                     dropout_rate=dropout_rate, form=form))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def _bwd_plain_heads(q, k, v, do, lse, di, mask, keep, *, scale, logit_softcap, dropout_rate,
+                     form):
+    """_bwd_plain over some heads."""
+    qf, kf, dof = q.float(), k.float(), do.float()
     s = softcap(torch.einsum("bqd,bkd->bqk", qf, kf) * scale, logit_softcap)
-    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    p = torch.where(mask, _exp(s - lse.float()[..., None]), 0.0)
+    del mask
     cap_factor = None if logit_softcap is None else 1.0 - (s / logit_softcap) ** 2
     del s
-    keep = None
-    if dropout_rate:
-        keep = dense_keep(dropout_seed, dropout_rate, bh, rows, s_kv, q_seq_len,
-                          dropout_row_stride, q.device)
+    z = p
+    if keep is not None:
         inv = 1.0 / (1.0 - dropout_rate)
-        dv = torch.einsum("bqk,bqd->bkd", torch.where(keep, p, 0.0) * inv, dof)
-    else:
-        dv = torch.einsum("bqk,bqd->bkd", p, dof)
+        z = torch.where(keep, p, 0.0) * inv
+    dv = torch.einsum("bqk,bqd->bkd", _two_term_bf16(z) if form == "tc" else z, dof)
+    del z
     ds = torch.einsum("bqd,bkd->bqk", dof, v.float())
     if keep is not None:
         ds = torch.where(keep, ds, 0.0) * inv
@@ -181,6 +208,8 @@ def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_l
     if cap_factor is not None:
         ds *= cap_factor
         del cap_factor
+    if form == "tc":
+        ds = _two_term_bf16(ds)
     dq = torch.einsum("bqk,bkd->bqd", ds, kf)
     dk = torch.einsum("bqk,bqd->bkd", ds, qf)
     return dq, dk, dv
@@ -189,12 +218,18 @@ def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_l
 def flash_attention_bwd_plain(
     q, k, v, o, lse, do, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
     q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None, kv_segment_ids=None,
-    dropout_rate=None, dropout_seed=0, dropout_row_stride=None, block_mask=None,
+    dropout_rate=None, dropout_seed=0, dropout_row_stride=None, block_mask=None, form=None,
 ):
     """The backward kernels' function in plain PyTorch: the CPU path of
     :func:`flash_attention_bwd` and the kernels' yardstick on the card.
-    Computed in float32; returns ``(dq, dk, dv)`` in the input dtypes."""
+    Computed in float32; returns ``(dq, dk, dv)`` in the input dtypes.
+    ``form`` mirrors the rounding of a kernel form (see :func:`_bwd_plain`);
+    by default the form :func:`flash_attention_bwd` would take for these
+    inputs: the fused kernel's (``ops.flash.kernel_form``) without segment
+    ids or a block mask, else the scalar two-pass pair's."""
     rows, s_kv = q.shape[1], k.shape[1]
+    if form is None:
+        form = bwd_form(q, q_segment_ids is None and block_mask is None)
     di = (o.float() * do.float()).sum(dim=-1)
     dq, dk, dv = _bwd_plain(
         q, k, v, do, lse, di, causal=causal, scale=scale,
@@ -202,9 +237,15 @@ def flash_attention_bwd_plain(
         q_seq_len=rows if q_seq_len is None else q_seq_len, window=window,
         logit_softcap=logit_softcap, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
         dropout_rate=check_dropout(dropout_rate), dropout_seed=wrap_int32(dropout_seed),
-        dropout_row_stride=dropout_row_stride, block_mask=block_mask,
+        dropout_row_stride=dropout_row_stride, block_mask=block_mask, form=form,
     )
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_form(q, fused):
+    """The form of a backward call: the fused kernel's
+    (``ops.flash.kernel_form``), or the two-pass pair's, scalar only."""
+    return kernel_form("flash_bwd", q.dtype, q.shape[2]) if fused else "scalar"
 
 
 def _launch_args(name, q, k, v, do, lse, di, seg_q=None, seg_kv=None):
@@ -291,20 +332,30 @@ def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=No
     buffer, then cast to q's dtype.  On CPU tensors: the plain version."""
     kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
                dropout_rate, dropout_seed, dropout_row_stride)
+    form = bwd_form(q, True)
     if q.device.type == "cpu":
-        dq, dk, dv = _bwd_plain(q, k, v, do, lse, di, **kw)
+        dq, dk, dv = _bwd_plain(q, k, v, do, lse, di, form=form, **kw)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     dtype, bh, rows, s_kv, d = _launch_args("flash_bwd", q, k, v, do, lse, di)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _library("flash_bwd", kw)
-    status = kernels.library(lib).fa_flash_bwd(
-        dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, rows, s_kv, d,
-        *_scalars(kw), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    if form == "tc":
+        lib = _library("flash_bwd_tc", kw)
+        status = kernels.library(lib).fa_flash_bwd_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, rows, s_kv, d,
+            *_scalars(kw), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    else:
+        lib = _library("flash_bwd", kw)
+        status = kernels.library(lib).fa_flash_bwd(
+            dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, rows, s_kv, d,
+            *_scalars(kw), torch.cuda.current_stream(q.device).cuda_stream,
+        )
     kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype}")
     _count(fused_bwd_kernel, kw)
+    fused_bwd_kernel.launches_tc += form == "tc"
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -370,6 +421,7 @@ def dkv_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_
 for _fn in (fused_bwd_kernel, dq_kernel, dkv_kernel):
     _fn.launches = _fn.launches_dropout = _fn.launches_block_mask = 0
 del _fn
+fused_bwd_kernel.launches_tc = 0  # the tensor-core form's, among them
 
 
 class _FlashAttention(torch.autograd.Function):

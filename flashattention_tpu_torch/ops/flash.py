@@ -1,11 +1,14 @@
 """Flash-attention forward on folded ``(BH, R, d)`` tensors.
 
 Counterpart of ``flashattention_tpu/ops/flash.py::flash_attention`` (:1127).
-On a CUDA tensor it launches the hand-written kernel in
-``csrc/flash_fwd.cu``, which replaces the Pallas ``_kernel`` (:628); on a CPU
-tensor it runs :func:`flash_attention_plain`, the same function in plain
-PyTorch.  There is no fallback between the two: a CUDA call either launches
-the kernel or raises.
+On a CUDA tensor it launches a hand-written kernel that replaces the Pallas
+``_kernel`` (:628), in the form :func:`kernel_form` picks: for bf16 at head_dim
+64, 128 or 256 with 16-bit K/V and no block mask the tensor-core kernel in
+``csrc/flash_fwd_tc.cu``, otherwise the float32 CUDA-core kernel in
+``csrc/flash_fwd.cu``; on a CPU tensor it runs :func:`flash_attention_plain`,
+the same function in plain PyTorch, with the chosen form's rounding.  There
+is no fallback between the two, or between the forms: a CUDA call either
+launches the chosen kernel or raises.
 
 Supported: causal masking at absolute query position
 ``q_offset + (r mod q_seq_len)`` (the GQA row fold), a sliding window (a row
@@ -38,6 +41,7 @@ On a CUDA tensor it launches ``csrc/flash_naive.cu``; on a CPU tensor it runs
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -61,6 +65,8 @@ __all__ = [
     "flash_attention_naive",
     "flash_attention_naive_plain",
     "flash_attention_plain",
+    "kernel_form",
+    "scalar_forms",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,6 +81,77 @@ MIN_BLOCK = 128
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+# The tensor-core forms (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu): bf16
+# q/k/v at these head_dims, 16-bit K/V and no block mask.  Their KV tile
+# (kBlockN) sets where the forward's online softmax rescales, which the
+# plain version mirrors.
+TC_HEAD_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128)}
+TC_KV_TILE = {64: 128, 128: 128, 256: 64}
+
+
+def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
+                block_mask: bool = False) -> str:
+    """The form a call of ``kernel`` (``"flash_fwd"``, or ``"flash_bwd"``
+    for the fused backward) takes: ``"tc"``, the tensor-core kernel, for
+    bfloat16 at ``TC_HEAD_DIMS[kernel]`` with 16-bit K/V and no block mask;
+    else ``"scalar"``, the float32 CUDA-core kernel.  The two-pass backward
+    kernels are scalar only.  Inside :func:`scalar_forms`, always
+    ``"scalar"``."""
+    if (not _SCALAR_ONLY[0] and dtype == torch.bfloat16
+            and head_dim in TC_HEAD_DIMS.get(kernel, ()) and not quantized and not block_mask):
+        return "tc"
+    return "scalar"
+
+
+_SCALAR_ONLY = [False]
+
+
+@contextlib.contextmanager
+def scalar_forms():
+    """Within the block every call, and every plain version by default,
+    takes the scalar form: a way to time and check the scalar kernels in
+    bf16 beside the tensor-core ones (chip_smoke.py, the scalar kernels'
+    mutation tools).  Not thread-safe."""
+    _SCALAR_ONLY[0] = True
+    try:
+        yield
+    finally:
+        _SCALAR_ONLY[0] = False
+
+
+def _exp(x):
+    """``exp`` of the plain versions.  On the CPU in float64 through
+    ``exp2``, rounded to float32 once: torch's float32 ``exp`` there goes to
+    MKL's vector math, which, over inputs that hold masked scores (``s - m``
+    near -0.7 FLT_MAX), returns a last bit that varies from process to
+    process, and dropout's sparse 1 / (1 - rate) weights carry such a bit up
+    to 7e-5 into the output.  ``exp2`` does not go there, the clamp keeps
+    the masked scores in range, and a float64 result almost never differs in
+    float32 from one process to the next.  On the card torch's float32
+    ``exp``, as the kernels compute it."""
+    if x.device.type != "cpu":
+        return torch.exp(x)
+    return torch.exp2(x.double().clamp_min(-1e4) * _LOG2E).float()
+
+
+_LOG2E = 1.4426950408889634
+
+
+def _two_term_bf16(x):
+    """``x`` as the tensor-core forms feed it to a product: two bfloat16
+    terms, ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` (nearest even), summed
+    in float32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def head_chunks(bh: int, per_head: int, budget: int = 1 << 27):
+    """Ranges of heads whose ``per_head``-element temporaries together stay
+    near ``budget`` elements: the plain versions run chunk by chunk."""
+    step = max(1, budget // max(per_head, 1))
+    return [range(i, min(bh, i + step)) for i in range(0, bh, step)]
 
 
 def fwd_tile(d: int) -> int:
@@ -163,16 +240,18 @@ def dropout_options(rate, seed, row_stride, q_seq_len):
     return (stride, wrap_int32(seed), dropout_threshold(rate), 1.0 / (1.0 - rate))
 
 
-def dense_keep(seed, rate, bh, rows, s_kv, q_seq_len, row_stride, device):
-    """The keep bits of every (head, row, column): ``(bh, rows, s_kv)`` bool,
-    rows at their raw folded coordinate ``(r // q_seq_len) * row_stride +
-    r % q_seq_len``; one head at a time, to bound the int64 temporaries."""
+def dense_keep(seed, rate, heads, rows, s_kv, q_seq_len, row_stride, device):
+    """The keep bits of every (head, row, column): ``(len(heads), rows,
+    s_kv)`` bool for the heads in ``heads`` (a range, or a count from 0),
+    rows at their raw folded coordinate ``(r // q_seq_len) * row_stride + r
+    % q_seq_len``; one head at a time, to bound the int64 temporaries."""
+    heads = range(heads) if isinstance(heads, int) else heads
     r = torch.arange(rows, dtype=torch.int64, device=device)
     stride = q_seq_len if row_stride is None else row_stride
     raw = ((r // q_seq_len) * stride + r % q_seq_len)[:, None]
     cols = torch.arange(s_kv, dtype=torch.int64, device=device)[None, :]
     threshold = dropout_threshold(rate)
-    return torch.stack([_keep_bits(seed, b, raw, cols, threshold) for b in range(bh)])
+    return torch.stack([_keep_bits(seed, b, raw, cols, threshold) for b in heads])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -547,6 +626,8 @@ def flash_attention(
     scales = (k_scales, v_scales) if quantized else ()
     if not all(t.is_contiguous() for t in (q, k, v, *scales)):
         raise ValueError("flash_attention takes contiguous q, k, v and scales")
+    form = kernel_form("flash_fwd", q.dtype, d, quantized=quantized,
+                       block_mask=block_mask is not None)
     if q.device.type == "cpu":
         if quantized:  # the plain version of the 8-bit form: dequantize first
             k, v = dequantize_rows(k, k_scales), dequantize_rows(v, v_scales)
@@ -554,7 +635,7 @@ def flash_attention(
             q, k, v, causal=causal, scale=scale, kv_len=kv_len,
             q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
             q_segment_ids=seg_q, kv_segment_ids=seg_kv, window=window,
-            logit_softcap=logit_softcap, block_mask=block_mask, **dropout,
+            logit_softcap=logit_softcap, block_mask=block_mask, form=form, **dropout,
         )
     if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, *scales)):
         raise ValueError(f"flash_attention: tensors on {q.device}/{k.device}/{v.device}")
@@ -571,6 +652,15 @@ def flash_attention(
     if save_residuals:
         l = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
         m = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
+    if form == "tc":
+        _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, kv_len=kv_len, q_offset=int(q_offset),
+                      q_seq_len=q_seq_len, causal=bool(causal), scale=float(scale), window=window,
+                      logit_softcap=logit_softcap, dropout_rate=dropout_rate,
+                      dropout_seed=dropout["dropout_seed"], dropout_row_stride=dropout_row_stride)
+        flash_attention.launches_tc += 1
+        flash_attention.launches += 1
+        flash_attention.launches_dropout += dropout_rate is not None
+        return (o, l, m) if save_residuals else o
     name = "flash_fwd_quant" if quantized else "flash_fwd"
     if dropout_rate is not None or block_mask is not None:
         name += "_extra"  # the dropout / block-mask form's library
@@ -596,9 +686,30 @@ def flash_attention(
     return (o, l, m) if save_residuals else o
 
 
-# Kernel launches, for the chip run's path check: all forms, and the 8-bit,
-# dropout and block-mask ones among them.
+def _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, *, kv_len, q_offset, q_seq_len, causal,
+                  scale, window, logit_softcap, dropout_rate, dropout_seed, dropout_row_stride):
+    """One launch of the tensor-core forward (``csrc/flash_fwd_tc.cu``),
+    into ``o`` (and ``l``, ``m`` unless None).  Its TMA loads take 16-byte
+    aligned tensors."""
+    kernels.check_aligned("flash_attention", q, k, v)
+    bh, rows, d = q.shape
+    name = "flash_fwd_tc_extra" if dropout_rate is not None else "flash_fwd_tc"
+    status = kernels.library(name).fa_flash_fwd_tc(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
+        None if seg_q is None else seg_q.data_ptr(),
+        None if seg_kv is None else seg_kv.data_ptr(), bh, rows, k.shape[1], d, kv_len,
+        q_offset, q_seq_len, int(causal), scale, *kernel_options(window, logit_softcap),
+        *dropout_options(dropout_rate, dropout_seed, dropout_row_stride, q_seq_len),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check_launch(name, status, f"q {tuple(q.shape)} {q.dtype}")
+
+
+# Kernel launches, for chip_smoke.py's path check: all forms, and the
+# tensor-core, 8-bit, dropout and block-mask ones among them.
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
 flash_attention.launches_quantized = 0
 flash_attention.launches_dropout = 0
 flash_attention.launches_block_mask = 0
@@ -608,34 +719,77 @@ def flash_attention_plain(
     q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
     q_seq_len=None, save_residuals=False, q_segment_ids=None, kv_segment_ids=None,
     window=None, logit_softcap=None, block_mask=None, dropout_rate=None, dropout_seed=0,
-    dropout_row_stride=None,
+    dropout_row_stride=None, form=None,
 ):
-    """The kernel's function in plain PyTorch, float32 throughout: the CPU
-    path of :func:`flash_attention` and its yardstick on the card.  The
-    block mask's element predicate and the dropout keep bits are computed
-    densely from the same functions the kernel's tables and hash come from."""
-    bh, rows, _ = q.shape
+    """The kernel's function in plain PyTorch, float32 throughout (on the
+    CPU ``exp`` in float64, rounded once: see :func:`_exp`): the CPU path of
+    :func:`flash_attention` and its yardstick on the card.  The block mask's
+    element predicate and the dropout keep bits are computed densely from
+    the same functions the kernel's tables and hash come from.
+
+    ``form`` (default: :func:`kernel_form` of these inputs; K/V of another
+    type than q count as dequantized 8-bit rows) mirrors the kernel form's
+    rounding: ``"tc"`` feeds the PV product each p as the tensor-core kernel
+    does, as two bfloat16 terms (:func:`_two_term_bf16`) against the running
+    max of its online softmax (the row's max over the KV tiles of
+    ``TC_KV_TILE[d]`` columns up to p's own), then rescaled by ``exp(m_tile
+    - m)``; ``"scalar"`` keeps p in float32."""
+    bh, rows, d = q.shape
     s_kv = k.shape[1]
+    if form is None:
+        form = kernel_form("flash_fwd", q.dtype, d, quantized=k.dtype != q.dtype,
+                           block_mask=block_mask is not None)
     kv_len = s_kv if kv_len is None else kv_len
     q_seq_len = rows if q_seq_len is None else q_seq_len
-    s = softcap(torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale, logit_softcap)
     mask = visible(
         rows, s_kv, causal=causal, kv_len=kv_len, q_offset=q_offset, q_seq_len=q_seq_len,
-        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids, window=window,
-        block_mask=block_mask, device=q.device,
+        window=window, block_mask=block_mask, device=q.device,
     )
+    outs = []
+    for heads in head_chunks(bh, rows * s_kv):
+        sl = slice(heads.start, heads.stop)
+        seg_mask = mask
+        if q_segment_ids is not None:
+            seg_mask = mask & (q_segment_ids[sl, :, None] == kv_segment_ids[sl, None, :])
+        keep = None
+        if dropout_rate:
+            keep = dense_keep(dropout_seed, dropout_rate, heads, rows, s_kv, q_seq_len,
+                              dropout_row_stride, q.device)
+        outs.append(_fwd_plain_heads(q[sl], k[sl], v[sl], seg_mask, keep, scale=scale,
+                                     logit_softcap=logit_softcap, dropout_rate=dropout_rate,
+                                     form=form))
+    o, l, m = (torch.cat(x) for x in zip(*outs))
+    return (o, l, m) if save_residuals else o
+
+
+def _fwd_plain_heads(q, k, v, mask, keep, *, scale, logit_softcap, dropout_rate, form):
+    """flash_attention_plain over some heads: ``(o, l, m)``."""
+    bh, rows, d = q.shape
+    s_kv = k.shape[1]
+    s = softcap(torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale, logit_softcap)
     s = torch.where(mask, s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
+    del mask
     m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
+    p = _exp(s - m[..., None])
     l = p.sum(dim=-1)
+    if form == "tc":  # p against the running max, as two bf16 terms, rescaled
+        tile = TC_KV_TILE[d]
+        nt = -(-s_kv // tile)
+        padded = torch.nn.functional.pad(s, (0, nt * tile - s_kv), value=DEFAULT_MASK_VALUE)
+        m_run = padded.view(bh, rows, nt, tile).amax(dim=-1).cummax(dim=-1).values
+        del padded
+        m_run = m_run.repeat_interleave(tile, dim=-1)[..., :s_kv]
+        p = _exp(s - m_run)
+        m_run = _exp(m_run - m[..., None])
+    del s
     if dropout_rate:  # l stays the undropped sum (flash.py:931-937)
-        keep = dense_keep(dropout_seed, dropout_rate, bh, rows, s_kv, q_seq_len,
-                          dropout_row_stride, q.device)
-        p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
-        del keep
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
+    if form == "tc":
+        p = _two_term_bf16(p) * m_run
+        del m_run
     o = torch.einsum("bqk,bkd->bqd", p, v.float())
     o = (o / torch.where(l == 0, 1.0, l)[..., None]).to(q.dtype)
-    return (o, l, m) if save_residuals else o
+    return o, l, m
 
 
 _NAIVE_HEAD_DIMS = (32, 64, 128)

@@ -14,11 +14,15 @@ into ``paged_decode_draft`` and, for 8-bit pages, one library per head_dim
 (``paged_decode_draft_quant_d<D>``).  The forms of flash_fwd and of the three
 backward kernels with attention dropout or a block mask are the same sources
 built with ``-DFA_EXTRA`` into ``*_extra`` libraries; the wrappers take them
-only when a call has either.
+only when a call has either.  The tensor-core forms of the forward and the
+fused backward (``flash_fwd_tc``, ``flash_bwd_tc``, and their dropout forms
+``*_tc_extra``) are sources of their own; ``probe_mma`` is the forward's
+loop bodies alone, for ``torch_tools/probe_mma.py``.
 The build runs at first use, from the sources in the checkout only, into
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``).  A
-library's file name carries a hash of its sources and flags, so an edited
-source is rebuilt and a stale library is never loaded.  :func:`build_all`
+library's file name carries a hash of its source, the headers it includes
+and its flags, so an edited source is rebuilt and a stale library is never
+loaded.  :func:`build_all`
 starts one ``nvcc`` per source, all at once.
 
 Nothing here runs when the module is imported: the CPU tests import every
@@ -31,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -76,10 +81,17 @@ KERNELS = {
        for name, source, entry, args in (
            ("flash_bwd", "flash_bwd.cu", "fa_flash_bwd", [_I, *[_P] * 9, *_BWD]),
            ("flash_bwd_dq", "flash_bwd_dq.cu", "fa_flash_bwd_dq", [_I, *[_P] * 13, *_BWD]),
-           ("flash_bwd_dkv", "flash_bwd_dkv.cu", "fa_flash_bwd_dkv", [_I, *[_P] * 14, *_BWD]))
+           ("flash_bwd_dkv", "flash_bwd_dkv.cu", "fa_flash_bwd_dkv", [_I, *[_P] * 14, *_BWD]),
+           ("flash_fwd_tc", "flash_fwd_tc.cu", "fa_flash_fwd_tc",
+            [*[_P] * 8, *[_I] * 8, _F, _I, _F, *_EXTRA]),
+           ("flash_bwd_tc", "flash_bwd_tc.cu", "fa_flash_bwd_tc", [*[_P] * 9, *_BWD]))
        for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
+    # The tensor-core forward's loop bodies alone (torch_tools/probe_mma.py).
+    "probe_mma": ("probe_mma.cu", "fa_probe_mma", [_I, *[_P] * 6, *[_I] * 4, _F, _P]),
 }
-_HEADERS = ("common.cuh", "bwd_common.cuh")
+# Status codes from 10000 up: a TMA tensor map could not be encoded
+# (tc_common.cuh's tc_encode_map; 10000 + the driver's CUresult).
+_MAP_ERROR = 10000
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -110,10 +122,22 @@ def _flags(name: str) -> list[str]:
     return [*_FLAGS, *(KERNELS[name][3] if len(KERNELS[name]) > 3 else [])]
 
 
+def _sources(src: str) -> list[str]:
+    """``src`` and the headers of ``csrc/`` it includes, transitively."""
+    out, todo = [], [src]
+    while todo:
+        f = todo.pop()
+        if f in out:
+            continue
+        out.append(f)
+        with open(os.path.join(_CSRC, f)) as fh:
+            todo += re.findall(r'^#include "([^"]+)"', fh.read(), re.M)
+    return out
+
+
 def _so_path(name: str) -> str:
-    src = KERNELS[name][0]
     h = hashlib.sha256(" ".join(_flags(name)).encode())
-    for f in (src, *_HEADERS):
+    for f in _sources(KERNELS[name][0]):
         with open(os.path.join(_CSRC, f), "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
@@ -187,5 +211,8 @@ def check_launch(name: str, status: int, what: str) -> None:
         return
     if status < 0:
         raise ValueError(f"{name}: no kernel instantiated for {what}")
+    if status >= _MAP_ERROR:
+        raise RuntimeError(f"{name}: TMA tensor map not encoded for {what} "
+                           f"(CUresult {status - _MAP_ERROR}; 0: no driver entry point)")
     msg = library(name).fa_error_string(status).decode()
     raise RuntimeError(f"{name}: launch failed for {what}: {msg} ({status})")

@@ -137,6 +137,49 @@ def test_forward_and_vjp_match_jax(case):
     assert (to.detach().float() - undropped.float()).abs().max() > 0.05
 
 
+# One process's float32 plain forward and backward with dropout, on the
+# "causal" case's inputs: the hash of every output's bytes.
+_PROCESS_DIGEST = """
+import hashlib, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+torch.set_num_threads(2)
+from test_torch_dropout import CASES, RATE, SEED, _case_inputs
+from flashattention_tpu_torch.ops import backward, flash
+q, k, v, do, _, kw, _ = _case_inputs(CASES[0])
+q, k, v, do = (torch.tensor(x) for x in (q, k, v, do))
+kw = dict(causal=kw["causal"], scale=kw["scale"], dropout_rate=RATE, dropout_seed=SEED)
+o, l, m = flash.flash_attention_plain(q, k, v, save_residuals=True, **kw)
+grads = backward.flash_attention_bwd_plain(q, k, v, o, m + torch.log(l), do, **kw)
+h = hashlib.sha256()
+for t in (o, l, m, *grads):
+    h.update(t.numpy().tobytes())
+print(h.hexdigest())
+"""
+
+
+def test_plain_dropout_is_the_same_in_every_process():
+    """The float32 plain forward and backward with dropout give the same
+    bytes in 4 fresh processes started together.  torch's float32 exp on
+    the CPU (MKL's vector math) once varied in its last bit between
+    processes over masked scores, which moved test_forward_and_vjp_match_jax
+    [causal] by 7e-5 in some runs (ops/flash.py::_exp)."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([here, os.path.dirname(here)]))
+    procs = [subprocess.Popen([sys.executable, "-c", _PROCESS_DIGEST, os.path.dirname(here)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=here)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [err[-2000:] for _, err in outs]
+    digests = {out.strip() for out, _ in outs}
+    assert len(digests) == 1, digests
+
+
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "two_pass"])
 def test_bwd_forms_match_jax(fused):
     """flash_attention_bwd on the same saved statistics, each form against

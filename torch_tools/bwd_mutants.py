@@ -112,8 +112,9 @@ def run_checks(root: str, names) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     report = {"checks": []}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cs.bwd_window_checks(backward, flash, benchit, gen, torch.cuda.get_device_name(0), report,
-                         names=names or None, timed=False)
+    with flash.scalar_forms():  # the scalar kernels, also in bf16
+        cs.bwd_window_checks(backward, flash, benchit, gen, torch.cuda.get_device_name(0), report,
+                             names=names or None, timed=False)
     return {c["check"]: {k: c.get(k) for k in ("ok", "max_abs_err", "elem_err")}
             for c in report["checks"]}
 

@@ -129,9 +129,10 @@ def run_checks(root: str, which: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     card = torch.cuda.get_device_name(0)
     args = argparse.Namespace(seed=0)
-    if which in ("dropout", "both"):
-        cs.dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, report,
-                          timed=False)
+    if which in ("dropout", "both"):  # the scalar kernels, also in bf16
+        with flash.scalar_forms():
+            cs.dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, report,
+                              timed=False)
     if which in ("block_mask", "both"):
         cs.block_mask_checks(backward, flash, benchit, gen, card, report, timed=False)
     return {c["check"]: {k: c.get(k) for k in ("ok", "max_abs_err", "elem_err", "finite")}

@@ -91,8 +91,9 @@ def run_checks(root: str, names) -> dict:
     report = {"checks": []}
     for name in names:
         gen = torch.Generator(device="cuda").manual_seed(0)
-        if name == "flash_fwd":
-            cs.flash_window_checks(fa, flash, benchit, gen, card, report)
+        if name == "flash_fwd":  # the scalar kernel, also in bf16 (not its tensor-core form)
+            with flash.scalar_forms():
+                cs.flash_window_checks(fa, flash, benchit, gen, card, report)
         else:
             getattr(cs, CHECKS[name])(decode, benchit, gen, card, report)
     return {c["check"]: {k: c.get(k) for k in ("ok", "max_abs_err", "elem_err")}
