@@ -67,21 +67,29 @@ Phases, each of which must pass (any failure exits non-zero):
                quarter of the no-mask time; K/V rows only dead tiles touch
                poisoned with NaN); ``torch_tools/dropout_mutants.py`` shows
                that these fail each of nine dropout and block-mask mutants;
-               in bf16 the flash forward (d = 64, 128, 256) and the fused
-               backward (d = 64, 128) run their tensor-core forms
-               (``flash_fwd_tc``, ``flash_bwd_tc``; ``ops.flash.kernel_form``),
-               whose checks (named ``flash_fwd_tc/...``,
-               ``flash_bwd_tc/...``) hold them against plain versions that
-               feed P, Z and dS to their products as the kernels do (two
-               bf16 terms each) at every bf16 shape above,
+               in bf16 the flash forward (d = 64, 128, 256), the fused
+               backward (d = 64, 128, 256) and paged prefill (d = 64, 128,
+               256 on pages of 256 rows) run their tensor-core forms
+               (``flash_fwd_tc``, ``flash_bwd_tc``, ``paged_prefill_tc``;
+               ``ops.flash.kernel_form``), whose checks (named
+               ``flash_fwd_tc/...``, ``flash_bwd_tc/...``,
+               ``paged_prefill_tc/...``) hold them against plain versions
+               that feed P, Z and dS to their products as the kernels do
+               (two bf16 terms each) at every bf16 shape above,
                plus the forward at the training and packed layers (segment
                ids), and both with a window and a softcap at d = 128 over a
                ragged S = 1000; the timed ones carry
                the scalar form's time on the same inputs (``scalar_ms``,
                under ``ops.flash.scalar_forms``), and the scalar form's own
-               check at row 1's shape and the training layer keeps the
-               scalar rows; ``torch_tools/tc_mutants.py`` shows that they
-               fail each of eight tensor-core mutants;
+               check at row 1's shape, the training layer and paged
+               prefill's MHA and Gemma-2 shapes keeps the scalar rows;
+               ``prefill_poison_check`` fills every pool row no query row
+               may see (past each ctx_len, pages past the live ones, rows
+               before the window) with NaN, at Gemma-2's shape, GQA with
+               seg > chunk and a 32-row page, and the tensor-core paged
+               prefill's output must equal the clean pool's bit for bit;
+               ``torch_tools/tc_mutants.py`` shows that they fail each of
+               fourteen tensor-core mutants;
    attention_block_mask - ``attention(block_mask=, dropout_rate=0.1)``
                under autograd at that layer, the launches counted;
 3. serve     - run the engine with whole-prompt prefill (prefill_chunk=0) at
@@ -177,8 +185,11 @@ Phases, each of which must pass (any failure exits non-zero):
                reference of both card runs.
 
 The serve and train phases' launch counts include the tensor-core forms':
-every bf16 flash forward and fused backward launch at their head_dims goes
-through them (``launches_tc``).  It prints one JSON line per check, the
+every bf16 flash forward and fused backward launch at their head_dims, and
+every paged prefill launch on bf16 pages, goes through them
+(``launches_tc``); the 8-bit caches' paged prefill stays on the scalar
+kernel's 8-bit form.  The float32 train_parity phases' card launches are
+counted as paths too (float32 training runs the scalar kernels).  It prints one JSON line per check, the
 total seconds, a ``{"kernels": [...]}`` summary (with a ``quantized`` entry
 for each serving kernel's 8-bit form, ``dropout`` and ``block_mask`` entries
 for flash_fwd and the backward kernels, paged_decode's draft form and the
@@ -256,8 +267,11 @@ KERNELS = (
     # The tensor-core forms (bf16 at their head_dims, 16-bit K/V, no block mask).
     ("flash_fwd_tc", "flash_fwd_tc.cu", "ops/flash.py:628"),
     ("flash_bwd_tc", "flash_bwd_tc.cu", "ops/backward.py:401"),
+    ("paged_prefill_tc", "paged_prefill_tc.cu", "ops/decode.py:375"),
 )
-TC_KERNELS = {"flash_fwd": "flash_fwd_tc", "flash_bwd": "flash_bwd_tc"}
+TC_KERNELS = {"flash_fwd": "flash_fwd_tc", "flash_bwd": "flash_bwd_tc",
+              "paged_prefill": "paged_prefill_tc"}
+PAGE_SIZE = 256  # the serving phases' and the paged kernel checks' page
 
 
 def emit(obj) -> None:
@@ -291,7 +305,7 @@ def _rec(check, got, want, dt, tol, **extra):
 _MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8", "13__nv_fp8_e4m3": "fp8"}
 # Each kernel's bool template arguments, in order (the others': window_cap, extra).
 _FLAGS = {"paged_decode_kernel": ("window_cap", "draft"), "flash_fwd_kernel": ("extra",),
-          "flash_fwd_tc_kernel": ("window_cap", "extra")}
+          "flash_fwd_tc_kernel": ("window_cap", "extra", "paged")}
 
 
 def _ptxas(log):
@@ -304,7 +318,8 @@ def _ptxas(log):
     out, spills = [], (0, 0)
     types = "|".join(["S\\d*_", *_MANGLED_TYPES])
     for ln in log.splitlines():
-        m = re.search(rf"Compiling entry function '\w*?\d+([a-z_]+_kernel)I((?:{types})*)((?:L[ib]\d+E)+)", ln)
+        m = re.search(rf"Compiling entry function '\w*?\d+(flash_bwd_tc_d256_kernel|[a-z_]+_kernel)I"
+                      rf"((?:{types})*)((?:L[ib]\d+E)+)", ln)
         if m:
             args = [_MANGLED_TYPES[t] for t in re.findall("|".join(_MANGLED_TYPES), m.group(2))]
             args = args[:1] if args[1:] == args[:1] else args  # the payload is q's type
@@ -375,15 +390,16 @@ def _check_name(kernel, case, dt, form):
     return f"{kernel}/{case}/{dt}" if form is None else f"{kernel}/quant/{case}/{form}/{dt}"
 
 
-def _kname(kernel, q, quantized=False, block_mask=False):
+def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE):
     """The kernel a call of ``kernel`` on ``q`` launches: its tensor-core
     form's name where ``ops.flash.kernel_form`` picks it (bf16 at its
-    head_dims, 16-bit K/V, no block mask), else ``kernel``."""
+    head_dims, 16-bit K/V, no block mask; paged prefill: a page size it
+    takes), else ``kernel``."""
     from flashattention_tpu_torch.ops import flash
 
     tc = TC_KERNELS.get(kernel)
     if tc and flash.kernel_form(kernel, q.dtype, q.shape[-1], quantized=quantized,
-                                block_mask=block_mask) == "tc":
+                                block_mask=block_mask, page_size=page_size) == "tc":
         return tc
     return kernel
 
@@ -576,9 +592,14 @@ def _prefill_work(ctx_lens, chunk, seg, g, kvh, d, window=None):
 def prefill_checks(decode, benchit, gen, card, report, form=None):
     """Paged prefill: MHA (32 KV heads, G=1) at the engine's chunk, GQA
     (8 KV heads, G=4) with seg > chunk and a ctx = 0 row, the single form;
-    with ``form`` (int8 or fp8) over 8-bit pages with per-row scales."""
+    with ``form`` (int8 or fp8) over 8-bit pages with per-row scales.  In
+    bf16 the tensor-core form runs (``paged_prefill_tc/...``, against the
+    plain version with its rounding); at the MHA shape the scalar form is
+    timed and checked beside it."""
+    from flashattention_tpu_torch.ops import flash
+
     out = {}
-    ps, pps, pages, d = 256, 8, 64, 128
+    ps, pps, pages, d = PAGE_SIZE, 8, 64, 128
     cases = [
         ("prefill_mha", dict(kvh=32, g=1, chunk=512, seg=512, ctx=[512, 1024, 1536, 2048])),
         ("prefill_gqa_g4", dict(kvh=8, g=4, chunk=200, seg=256, ctx=[0, 200, 713, 1480])),
@@ -597,7 +618,8 @@ def prefill_checks(decode, benchit, gen, card, report, form=None):
             torch.cuda.synchronize()
             zero_rows = [i for i, n in enumerate(c["ctx"]) if n == 0]
             zeros_ok = all(int(torch.count_nonzero(o[i])) == 0 for i in zero_rows)
-            rec = _rec(_check_name("paged_prefill", name, dt, form), o, want, dt, PREFILL_TOL[dt],
+            kname = _kname("paged_prefill", q, form is not None)
+            rec = _rec(_check_name(kname, name, dt, form), o, want, dt, PREFILL_TOL[dt],
                        ctx_lens=c["ctx"], chunk=c["chunk"], seg=c["seg"], ctx0_rows_zero=zeros_ok,
                        shape=f"B={b} KVH={kvh} G={c['g']} d={d} ps={ps}")
             rec["ok"] = rec["ok"] and zeros_ok
@@ -629,11 +651,73 @@ def prefill_checks(decode, benchit, gen, card, report, form=None):
                 rec["live_pairs"] = pairs
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dt))
                 out["main"] = rec
+                if kname == "paged_prefill_tc":
+                    twin = _scalar_twin(flash, benchit, rec, kernel, plain, dt, PREFILL_TOL[dt])
+                    report.setdefault("tc_timed", {})["paged_prefill_tc"] = rec
+                    emit(twin)
+                    report["checks"].append(twin)
+                    out["main"] = twin
             emit(rec)
             report["checks"].append(rec)
             del kp, vp, ks, vs, q, o, want
     torch.cuda.empty_cache()
     return out["main"]
+
+
+def prefill_poison_check(decode, gen, report):
+    """The tensor-core paged prefill reads no K/V row that no query row may
+    see: at the Gemma-2 window shape, GQA with seg > chunk, and a page size
+    below the KV tile (the tile built from several pages), every pool row
+    past each request's ctx_len, every page its table names past the live
+    ones and every row before the first column any row's window reaches are
+    filled with NaN; the output must equal the clean pool's, bit for bit
+    (and be finite)."""
+    cases = (
+        ("gemma2_d256_w4096_cap50", dict(kvh=8, g=2, d=256, ps=PAGE_SIZE, pps=24, chunk=512,
+                                         seg=512, window=4096, cap=50.0,
+                                         ctx=[4608, 5000, 5633, 6100])),
+        ("gqa_g4_d128_seg256", dict(kvh=8, g=4, d=128, ps=PAGE_SIZE, pps=8, chunk=200, seg=256,
+                                    window=None, cap=None, ctx=[0, 200, 713, 1480])),
+        ("page32_d64_w100", dict(kvh=4, g=2, d=64, ps=32, pps=40, chunk=96, seg=128, window=100,
+                                 cap=None, ctx=[96, 300, 777, 1270])),
+    )
+    recs = []
+    for name, c in cases:
+        b, ps, pps, d = len(c["ctx"]), c["ps"], c["pps"], c["d"]
+        pages = b * pps + 4
+        ctx = torch.tensor(c["ctx"], dtype=torch.int32, device="cuda")
+        (kp, _), (vp, _), table = _paged_pool(gen, c["ctx"], pps, pages, (c["kvh"], ps, d),
+                                              torch.bfloat16)
+        q = torch.randn((b, c["kvh"], c["g"] * c["seg"], d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        kw = dict(chunk=c["chunk"], seg=c["seg"], scale=d**-0.5, window=c["window"],
+                  logit_softcap=c["cap"])
+        clean = decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)
+        kn, vn = kp.clone(), vp.clone()
+        for i, n in enumerate(c["ctx"]):
+            # Columns [first, n) are the only ones some row sees.
+            first = 0 if c["window"] is None else max(0, n - c["chunk"] - c["window"] + 1)
+            for j in range(pps):
+                page = int(table[i, j])
+                lo, hi = max(0, min(ps, first - j * ps)), max(0, min(ps, n - j * ps))
+                for pool in (kn, vn):
+                    pool[page, :, :lo] = float("nan")
+                    pool[page, :, max(lo, hi):] = float("nan")
+        poisoned = decode.paged_prefill_attention_batched(q, kn, vn, table, ctx, **kw)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(poisoned, clean))
+        finite = bool(torch.isfinite(poisoned).all())
+        rec = {"check": f"{_kname('paged_prefill', q, page_size=ps)}/nan_poison/{name}/bfloat16",
+               "shape": f"B={b} KVH={c['kvh']} G={c['g']} d={d} ps={ps} chunk={c['chunk']} "
+                        f"seg={c['seg']} window={c['window']} cap={c['cap']}",
+               "ctx_lens": c["ctx"], "bitwise_equal": equal, "finite": finite,
+               "max_abs_err": err(poisoned.nan_to_num(), clean), "ok": equal and finite}
+        emit(rec)
+        report["checks"].append(rec)
+        recs.append(rec)
+        del kp, vp, kn, vn, q, clean, poisoned
+    torch.cuda.empty_cache()
+    return recs
 
 
 # Gemma-2-9B-class attention: 16 q / 8 KV heads (G = 2), d = 256, window
@@ -799,9 +883,12 @@ def prefill_window_checks(decode, benchit, gen, card, report, form=None):
     """Paged prefill with the window: a 512-row chunk (the engine's) at
     contexts 4608-6144, page_size 256, 24 pages per request; the chunk's
     tiles start past the first 0-7 pages; with ``form`` (int8 or fp8) over
-    8-bit pages."""
+    8-bit pages.  In bf16 the tensor-core form runs; at Gemma-2's shape the
+    scalar form is timed and checked beside it."""
+    from flashattention_tpu_torch.ops import flash
+
     out = {}
-    ps, pps, pages, chunk = 256, 24, 100, 512
+    ps, pps, pages, chunk = PAGE_SIZE, 24, 100, 512
     ctxs = [4608, 5120, 5632, 6144]
     b = len(ctxs)
     ctx = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
@@ -816,7 +903,8 @@ def prefill_window_checks(decode, benchit, gen, card, report, form=None):
             plain = lambda: decode.paged_prefill_attention_plain(q, kp, vp, table, ctx, **kw)  # noqa: E731
             want = plain()
             torch.cuda.synchronize()
-            rec = _rec(_check_name("paged_prefill", name, dt, form), o, want, dt, PREFILL_TOL[dt],
+            kname = _kname("paged_prefill", q, form is not None)
+            rec = _rec(_check_name(kname, name, dt, form), o, want, dt, PREFILL_TOL[dt],
                        ctx_lens=ctxs, chunk=chunk, shape=f"KVH={kvh} G={g} d={d} ps={ps}")
             if dt == "bfloat16" and name == TIMED_WINDOW_CASE:
                 kernel = lambda: decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)  # noqa: E731
@@ -843,6 +931,12 @@ def prefill_window_checks(decode, benchit, gen, card, report, form=None):
                 rec["live_pairs"] = pairs
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dt))
                 out["main"] = rec
+                if kname == "paged_prefill_tc":
+                    twin = _scalar_twin(flash, benchit, rec, kernel, plain, dt, PREFILL_TOL[dt])
+                    report.setdefault("tc_timed", {})["paged_prefill_tc/d256_window_softcap"] = rec
+                    emit(twin)
+                    report["checks"].append(twin)
+                    out["main"] = twin
                 del mask
             emit(rec)
             report["checks"].append(rec)
@@ -1064,10 +1158,11 @@ def _counters(flash, decode, backward):
     return out
 
 
-def _tc_expect(want, cfg):
+def _tc_expect(want, cfg, page_size=PAGE_SIZE):
     """``want`` with the tensor-core forms' expected launches: every
     flash_fwd launch of a bf16 model at their head_dims but the 8-bit and
-    block-mask ones, and every fused backward launch at theirs."""
+    block-mask ones, every fused backward launch at theirs, and every paged
+    prefill launch on bf16 pages of ``page_size`` rows."""
     from flashattention_tpu_torch.ops import flash
 
     dt = DTYPES[cfg.dtype]
@@ -1076,6 +1171,8 @@ def _tc_expect(want, cfg):
                                 - want.get("flash_fwd_block_mask", 0))
     if flash.kernel_form("flash_bwd", dt, cfg.head_dim) == "tc":
         want["flash_bwd_tc"] = want["flash_bwd"]
+    if flash.kernel_form("paged_prefill", dt, cfg.head_dim, page_size=page_size) == "tc":
+        want["paged_prefill_tc"] = want.get("paged_prefill", 0) - want.get("paged_prefill_quant", 0)
     return want
 
 
@@ -1590,6 +1687,19 @@ def phase_profile(args, eng, cfg, *, prompt_len, tag):
     )
 
 
+def _kernel_of(name):
+    """The KERNELS entry a profiled device kernel belongs to, or None: the
+    forward template's paged form (its last template argument, kPaged, true)
+    is paged_prefill_tc, the d = 256 backward kernel flash_bwd_tc's."""
+    m = re.search(r"flash_fwd_tc_kernel<([^<>]*)>", name)
+    if m:
+        return ("paged_prefill_tc" if m.group(1).split(",")[-1].strip() in ("true", "1", "(bool)1")
+                else "flash_fwd_tc")
+    if "flash_bwd_tc_d256_kernel" in name:
+        return "flash_bwd_tc"
+    return next((k for k, _, _ in KERNELS if f"{k}_kernel" in name), None)
+
+
 def _profile(workload, phase, extra):
     """Run ``workload(run)`` (returns its wall microseconds) once untraced
     for the wall time (run 0) and once under torch.profiler (run 1; device
@@ -1615,10 +1725,11 @@ def _profile(workload, phase, extra):
         agg[0] += 1
         agg[1] += e - s
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    ours = {
-        k: sum(t for n, (_, t) in by_name.items() if f"{k}_kernel" in n) / 1e3
-        for k, _, _ in KERNELS
-    }
+    ours = dict.fromkeys((k for k, _, _ in KERNELS), 0.0)
+    for n, (_, t) in by_name.items():
+        k = _kernel_of(n)
+        if k:
+            ours[k] += t / 1e3
     # cuBLAS matrix products (the model's projections, MLP and LM head).
     gemm = sum(t for n, (_, t) in by_name.items() if any(g in n for g in ("nvjet", "gemm", "xmma")))
     # Copies and dtype casts (on the int8-weight path: each weight's upcast
@@ -2928,15 +3039,17 @@ def phase_train_windowed(args, transformer, train, packing, flash, benchit, coun
     return out
 
 
-def phase_train_parity(args, transformer, train, packing, report, *, phase="train_parity",
-                       cfg=None, docs=(70, 100, 50), attn_dropout=None):
+def phase_train_parity(args, transformer, train, packing, counters, report, *,
+                       phase="train_parity", cfg=None, docs=(70, 100, 50), attn_dropout=None):
     """Plain and packed steps, remat off and on, two steps each, on the card
     and on the CPU from the same float32 parameters (2-layer cut at the
     training width, B=1, S=256; ``cfg`` another 2-layer float32 cut, its
     parameters drawn on the card and copied, packed from ``docs``); the
     CPU's run without remat is the reference of both card runs.  With
     ``attn_dropout``, seed = step index: the card's keep bits must be the
-    plain version's."""
+    plain version's.  The card's launches over the phase are its record's
+    (float32 training: the scalar kernels' path; the CPU runs launch
+    nothing)."""
     if cfg is None:
         cfg = _train_cfg(transformer, "float32")
         base = transformer.init_params(args.seed, cfg, device="cpu")
@@ -2960,6 +3073,8 @@ def phase_train_parity(args, transformer, train, packing, report, *, phase="trai
 
     cases = []
     t0 = time.perf_counter()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     for packed in (False, True):
         grads = {}
         for dev in ("cpu", "cuda"):
@@ -2999,6 +3114,7 @@ def phase_train_parity(args, transformer, train, packing, report, *, phase="trai
            "tol": {"loss_rel": TRAIN_LOSS_RTOL, "param_abs": TRAIN_PARAM_TOL,
                    "grad_rel": TRAIN_GRAD_RTOL},
            "seconds": time.perf_counter() - t0,
+           "launches": {k: getattr(fn, attr) for k, (fn, attr) in counters.items()},
            "ok": all(c["ok"] for c in cases)}
     emit(rec)
     report[phase] = rec
@@ -3073,6 +3189,7 @@ def main() -> int:
     # {None, "int8", "fp8"}: {kernel: (main shape's timed check, Gemma-2 window's)}
     serving = {form: serving_checks(fa, flash, decode, benchit, gen, name, report, form)
                for form in (None, *QUANT_FORMS)}
+    poison = prefill_poison_check(decode, gen, report)
     lap("serving_checks")
     # {None, "int8", "fp8"}: {"llama": timed draft-form check, "gemma2": ...}
     drafts = {form: draft_checks(decode, benchit, gen, name, report, form)
@@ -3155,15 +3272,18 @@ def main() -> int:
     trained.update(phase_train_windowed(args, transformer, train, packing, flash, benchit,
                                         counters, name, report))
     lap("train")
-    phase_train_parity(args, transformer, train, packing, report)
-    phase_train_parity(args, transformer, train, packing, report, phase="train_parity_dropout",
-                       attn_dropout=0.1)
+    # Float32 training on the card: the scalar fused backward's path.
+    parity = {"train_parity": phase_train_parity(args, transformer, train, packing, counters,
+                                                 report),
+              "train_parity_dropout": phase_train_parity(
+                  args, transformer, train, packing, counters, report,
+                  phase="train_parity_dropout", attn_dropout=0.1)}
     for phase, make_cfg in (("train_parity_mistral_w128", transformer.ModelConfig.mistral7b),
                             ("train_parity_gemma2_w128", transformer.ModelConfig.gemma2_9b)):
         pcfg = dataclasses.replace(make_cfg(num_layers=2), dtype="float32",
                                    sliding_window=PARITY_WINDOW)
-        phase_train_parity(args, transformer, train, packing, report, phase=phase, cfg=pcfg,
-                           docs=PARITY_DOCS)
+        parity[phase] = phase_train_parity(args, transformer, train, packing, counters, report,
+                                           phase=phase, cfg=pcfg, docs=PARITY_DOCS)
     lap("train_parity")
 
     paths = {"serve": serve["launches"], "serve_chunked": chunked["launches"],
@@ -3174,9 +3294,11 @@ def main() -> int:
              "serve_speculative_gemma2": _launch_sum(gemma_spec),
              "crosscheck": cross["launches"], "quant_ops": quant_ops["launches"],
              "attention_block_mask": attn_bm["launches"],
-             **{p: r["launches"] for p, r in trained.items()}}
+             **{p: r["launches"] for p, r in trained.items()},
+             **{p: r["launches"] for p, r in parity.items()}}
     summary = []
     mains["flash_fwd_tc"] = report["tc_timed"]["flash_fwd_tc"]
+    mains["paged_prefill_tc"] = report["tc_timed"]["paged_prefill_tc"]
     scalar_of = {tc: k for k, tc in TC_KERNELS.items()}
     for kname, source, replaces in KERNELS:
         main_rec = mains[kname]
@@ -3214,6 +3336,11 @@ def main() -> int:
                                                      f"{kname}_block_mask", keys)
             summary[-1]["block_mask"]["masks"] = {
                 m: {k: rec[k] for k in keys} for m, rec in masked[kname].items()}
+        if kname == "paged_prefill_tc":  # Gemma-2's window, and the NaN-poison checks
+            summary[-1]["d256_window_softcap"] = {
+                k: report["tc_timed"]["paged_prefill_tc/d256_window_softcap"][k]
+                for k in (*timed, "scalar_ms")}
+            summary[-1]["nan_poison"] = {r["check"]: r["ok"] for r in poison}
         if kname in QUANT_KERNELS:
             summary[-1]["d256_window_softcap"] = {k: serving[None][kname][1][k] for k in timed}
             # The 8-bit form: int8's timed check, fp8's beside it, and both

@@ -1,5 +1,7 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a): the kernel
-// template of flash_fwd_tc.cu (and of the probe in probe_mma.cu).
+// template of flash_fwd_tc.cu, of chunked-prefill attention over a paged KV
+// cache (the paged form, paged_prefill_tc.cu) and of the probes in
+// probe_mma.cu.
 //
 // Replaces flashattention_tpu/ops/flash.py::_kernel (the Pallas forward,
 // pallas_call in _flash_attention) for bf16 q/k/v at head_dim 64, 128 and
@@ -49,9 +51,17 @@
 // the second term costs a second PV product (probe_mma.cu measures it).
 // ops/flash.py::flash_attention_plain mirrors this form (TC_KV_TILE).
 //
+// kPaged (paged_prefill_tc.cu): K and V come from a page pool through each
+// request's page table, the request's context length and the position of its
+// chunk's first row are read on the device (Paged), and rows that see no
+// column are written as zeros; see paged_prefill_tc.cu.
+//
 // kProbe (probe_mma.cu only): 1 runs the QK^T products and the softmax
 // without the PV products, 2 the PV products on a constant P without the
-// rest; 0 is the kernel.
+// rest; 3 the "local" softmax (each tile's p against the tile's own max,
+// its PV part and its sum then rescaled by exp(m_tile - m_next)); 4 and 5
+// the tiles dealt round-robin to 2 and 4 independent (m, l, O) chains,
+// merged in the epilogue; 0 is the kernel.
 #pragma once
 
 #include "common.cuh"
@@ -83,23 +93,32 @@ struct Cfg {
 // The KV columns [kv_begin, kv_end) the query rows [r0, r0 + kBlockM) may
 // see, kv_begin a multiple of the tile: the same in producer and consumers.
 struct Range {
-  int begin, end;
+  int begin, end, first;  // first: begin before its rounding to the tile
 };
 template <int kN, bool kWindowCap>
 __device__ __forceinline__ Range kv_range(int r0, int rows, int kv_len, int q_offset,
                                           int q_seq_len, int causal, int window) {
   const int r1 = min(rows, r0 + kBlockM) - 1;
   const bool one_segment = r0 / q_seq_len == r1 / q_seq_len;
-  Range r{0, kv_len};
+  Range r{0, kv_len, 0};
   if (causal) r.end = min(r.end, q_offset + (one_segment ? r1 % q_seq_len : q_seq_len - 1) + 1);
   if (kWindowCap && window > 0) {
-    r.begin = max(0, q_offset + (one_segment ? r0 % q_seq_len : 0) - window + 1);
-    r.begin -= r.begin % kN;
+    r.first = max(0, q_offset + (one_segment ? r0 % q_seq_len : 0) - window + 1);
+    r.begin = r.first - r.first % kN;
   }
   return r;
 }
 
-template <int D, bool kWindowCap, bool kExtra, int kProbe>
+// The paged form's arguments: per request b = blockIdx.z, its table row
+// page_indices[b] (pages_per_seq entries) and its context ctx_lens[b]; row r
+// of the chunk sits at ctx_lens[b] - chunk + r % q_seq_len.
+struct Paged {
+  const int* page_indices;
+  const int* ctx_lens;
+  int pages_per_seq, page_size, chunk;
+};
+
+template <int D, bool kWindowCap, bool kExtra, int kProbe, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -107,9 +126,11 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     float* __restrict__ l_out, float* __restrict__ m_out,
                     const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int rows,
                     int s_kv, int kv_len, int q_offset, int q_seq_len, int causal, float scale,
-                    int window, float softcap, const fa::Extras ex) {
+                    int window, float softcap, const fa::Extras ex, const Paged pg) {
   using C = Cfg<D>;
   constexpr int kN = C::kN;
+  constexpr bool kLocal = kProbe == 3;
+  constexpr int kChains = kProbe == 4 ? 2 : kProbe == 5 ? 4 : 1;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + tc::kAtomBytes - 1) &
@@ -119,7 +140,13 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* q_bar = empty + kStages;
   int* seg_t = reinterpret_cast<int*>(smem + C::kSeg);
 
-  const int bh = blockIdx.y;
+  // Paged: grid (row tiles, KV heads, requests); q and o are (B, KVH, rows, d).
+  const int bh = kPaged ? blockIdx.z * gridDim.y + blockIdx.y : blockIdx.y;
+  if constexpr (kPaged) {
+    const int ctx = pg.ctx_lens[blockIdx.z];
+    kv_len = min(ctx, pg.pages_per_seq * pg.page_size);
+    q_offset = ctx - pg.chunk;
+  }
   // The longest query tiles (causal: the last) first, for a shorter tail.
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
   const bool has_seg = q_seg != nullptr;
@@ -150,6 +177,33 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = i % kStages;
       if (i >= kStages) tc::mbar_wait(&empty[s], (i / kStages - 1) & 1);
       const int t0 = kv.begin + i * kN;
+      if constexpr (kPaged) {
+        // The tile in boxes of min(kN, page_size) rows, each inside one
+        // page: only those that hold a column in [kv.first, kv.end), so no
+        // table entry outside the pages the block needs is read.
+        if (lane == 0) {
+          const int box = min(kN, pg.page_size);
+          const int* table = pg.page_indices + static_cast<size_t>(blockIdx.z) * pg.pages_per_seq;
+          int n_box = 0;
+          for (int j = 0; j < kN; j += box) n_box += t0 + j + box > kv.first && t0 + j < kv.end;
+          tc::mbar_arrive_tx(&full[s], 2 * C::kChunks * n_box * box * tc::kChunkRowBytes);
+          for (int j = 0; j < kN; j += box) {
+            const int t = t0 + j;
+            if (t + box <= kv.first || t >= kv.end) continue;
+            const int page = table[t / pg.page_size];
+            for (int c = 0; c < C::kChunks; ++c) {
+              const int off = s * C::kTileBytes + c * C::kKVChunk + j * tc::kChunkRowBytes;
+              tc::tma_load4(smem + C::kK + off, &tm_k, &full[s], c * tc::kChunk, t % pg.page_size,
+                            blockIdx.y, page);
+              tc::tma_load4(smem + C::kV + off, &tm_v, &full[s], c * tc::kChunk, t % pg.page_size,
+                            blockIdx.y, page);
+            }
+          }
+        } else {
+          tc::mbar_arrive(&full[s]);
+        }
+        continue;
+      }
       if (has_seg)
         for (int j = lane; j < kN; j += 32)
           seg_t[s * kN + j] = t0 + j < kv_len ? kv_seg[static_cast<size_t>(bh) * s_kv + t0 + j] : 0;
@@ -194,10 +248,16 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     key_b = fa::dropout_row_key(ex, bh, rb, q_seq_len);
   }
 
-  float acc[D / 2];
+  // One (m, l, O) chain, or kChains of them (probe modes 4 and 5).
+  float acc[kChains][D / 2];
+  float m_a[kChains], m_b[kChains], l_a[kChains], l_b[kChains];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  for (int c = 0; c < kChains; ++c) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[c][i] = 0.f;
+    m_a[c] = m_b[c] = -INFINITY;
+    l_a[c] = l_b[c] = 0.f;
+  }
   const uint32_t q_base = tc::smem_u32(smem) + cw * 64 * tc::kChunkRowBytes;
   tc::mbar_wait(q_bar, 0);
 
@@ -205,11 +265,29 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int s = i % kStages;
     tc::mbar_wait(&full[s], (i / kStages) & 1);
     const int t0 = kv.begin + i * kN;
+    if constexpr (kPaged) {
+      // V rows outside [kv.first, kv.end) (boxes not loaded, the last live
+      // page past ctx_len) may hold anything, NaN too, and P = 0 times NaN
+      // is NaN: both consumer warpgroups zero them before either reads V.
+      if (t0 < kv.first || t0 + kN > kv.end) {
+        const int lo = kv.first - t0, hi = kv.end - t0;
+        uint4* vt = reinterpret_cast<uint4*>(smem + C::kV + s * C::kTileBytes);
+        for (int u = threadIdx.x - 128; u < C::kChunks * kN * 8; u += 256) {
+          const int row = (u / 8) % kN;  // 16-byte unit u of row `row` of its chunk
+          if (row < lo || row >= hi) vt[u] = make_uint4(0u, 0u, 0u, 0u);
+        }
+        tc::fence_async_smem();
+        tc::named_sync(1, 256);
+      }
+    }
     const bool skip = !wg_live || (causal && t0 > pmax) || (win > 0 && t0 + kN - 1 <= pmin - win);
-    if (!skip) {
+#pragma unroll
+    for (int ch = 0; ch < kChains; ++ch) {
+      if (skip || i % kChains != ch) continue;
       const uint32_t k_base = tc::smem_u32(smem + C::kK + s * C::kTileBytes);
       const uint32_t v_base = tc::smem_u32(smem + C::kV + s * C::kTileBytes);
       float sc[kN / 2];
+      float beta_a = 1.f, beta_b = 1.f;  // the tile's factor (the local softmax's)
       if constexpr (kProbe != 2) {
         tc::wgmma_fence();
 #pragma unroll
@@ -223,9 +301,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         tc::wgmma_wait<0>();
         tc::fence_regs(sc);
 
-        const bool need_mask = has_seg || t0 + kN > kv_len || (causal && t0 + kN - 1 > pmin) ||
-                               (win > 0 && t0 <= pmax - win);
-        float mx_a = m_a, mx_b = m_b;
+        const bool need_mask = has_seg || t0 + kN > kv_len || t0 + kN > kv.end ||
+                               (causal && t0 + kN - 1 > pmin) || (win > 0 && t0 <= pmax - win);
+        float mx_a = kLocal ? -INFINITY : m_a[ch], mx_b = kLocal ? -INFINITY : m_b[ch];
 #pragma unroll
         for (int j = 0; j < kN / 8; ++j) {
 #pragma unroll
@@ -251,16 +329,27 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
         }
         // exp(s - m) as 2^((s - m) log2 e), the difference taken first.
-        const float alpha_a = tc::ex2((m_a - mx_a) * tc::kLog2e);
-        const float alpha_b = tc::ex2((m_b - mx_b) * tc::kLog2e);
-        m_a = mx_a;
-        m_b = mx_b;
+        float alpha_a, alpha_b;
+        if constexpr (kLocal) {  // p against the tile's max mx, then scaled by beta
+          const float mn_a = fmaxf(m_a[ch], mx_a), mn_b = fmaxf(m_b[ch], mx_b);
+          alpha_a = tc::ex2((m_a[ch] - mn_a) * tc::kLog2e);
+          alpha_b = tc::ex2((m_b[ch] - mn_b) * tc::kLog2e);
+          beta_a = tc::ex2((mx_a - mn_a) * tc::kLog2e);
+          beta_b = tc::ex2((mx_b - mn_b) * tc::kLog2e);
+          m_a[ch] = mn_a;
+          m_b[ch] = mn_b;
+        } else {
+          alpha_a = tc::ex2((m_a[ch] - mx_a) * tc::kLog2e);
+          alpha_b = tc::ex2((m_b[ch] - mx_b) * tc::kLog2e);
+          m_a[ch] = mx_a;
+          m_b[ch] = mx_b;
+        }
         float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
         for (int j = 0; j < kN / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float p = tc::ex2((sc[4 * j + e] - (e < 2 ? m_a : m_b)) * tc::kLog2e);
+            float p = tc::ex2((sc[4 * j + e] - (e < 2 ? mx_a : mx_b)) * tc::kLog2e);
             if (e < 2) sum_a += p;
             else sum_b += p;
             if (dropout) {  // l keeps the undropped sum; the PV product takes the kept p
@@ -270,14 +359,14 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             sc[4 * j + e] = p;
           }
         }
-        l_a = alpha_a * l_a + sum_a;
-        l_b = alpha_b * l_b + sum_b;
+        l_a[ch] = alpha_a * l_a[ch] + beta_a * sum_a;
+        l_b[ch] = alpha_b * l_b[ch] + beta_b * sum_b;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
-          acc[4 * j + 0] *= alpha_a;
-          acc[4 * j + 1] *= alpha_a;
-          acc[4 * j + 2] *= alpha_b;
-          acc[4 * j + 3] *= alpha_b;
+          acc[ch][4 * j + 0] *= alpha_a;
+          acc[ch][4 * j + 1] *= alpha_a;
+          acc[ch][4 * j + 2] *= alpha_b;
+          acc[ch][4 * j + 3] *= alpha_b;
         }
       } else {
 #pragma unroll
@@ -307,7 +396,10 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           tc::wgmma_wait<0>();
           tc::fence_regs(part);
 #pragma unroll
-          for (int x = 0; x < 32; ++x) acc[32 * c + x] += part[x];
+          for (int x = 0; x < 32; ++x) {
+            if constexpr (kLocal) acc[ch][32 * c + x] += part[x] * (x % 4 < 2 ? beta_a : beta_b);
+            else acc[ch][32 * c + x] += part[x];
+          }
         }
 #pragma unroll
         for (int kk = 0; kk < kN / 16; ++kk)
@@ -318,34 +410,71 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     tc::mbar_arrive(&empty[s]);
   }
 
+  if constexpr (kChains > 1) {  // merge the chains into chain 0
+    float mm_a = m_a[0], mm_b = m_b[0];
+#pragma unroll
+    for (int c = 1; c < kChains; ++c) {
+      mm_a = fmaxf(mm_a, m_a[c]);
+      mm_b = fmaxf(mm_b, m_b[c]);
+    }
+    float la = 0.f, lb = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) {
+      const float fa_ = mm_a == -INFINITY ? 1.f : tc::ex2((m_a[c] - mm_a) * tc::kLog2e);
+      const float fb_ = mm_b == -INFINITY ? 1.f : tc::ex2((m_b[c] - mm_b) * tc::kLog2e);
+      la += fa_ * l_a[c];
+      lb += fb_ * l_b[c];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const float a0 = acc[c][4 * j] * fa_, a1 = acc[c][4 * j + 1] * fa_;
+        const float b0 = acc[c][4 * j + 2] * fb_, b1 = acc[c][4 * j + 3] * fb_;
+        acc[0][4 * j] = c == 0 ? a0 : acc[0][4 * j] + a0;
+        acc[0][4 * j + 1] = c == 0 ? a1 : acc[0][4 * j + 1] + a1;
+        acc[0][4 * j + 2] = c == 0 ? b0 : acc[0][4 * j + 2] + b0;
+        acc[0][4 * j + 3] = c == 0 ? b1 : acc[0][4 * j + 3] + b1;
+      }
+    }
+    m_a[0] = mm_a;
+    m_b[0] = mm_b;
+    l_a[0] = la;
+    l_b[0] = lb;
+  }
+  float la = l_a[0], lb = l_b[0];
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    la += __shfl_xor_sync(0xffffffffu, la, off);
+    lb += __shfl_xor_sync(0xffffffffu, lb, off);
   }
   // The l == 0 guard of the Pallas epilogue (flash.py:1118).
-  const float inv_a = l_a == 0.f ? 1.f : 1.f / l_a;
-  const float inv_b = l_b == 0.f ? 1.f : 1.f / l_b;
+  const float inv_a = la == 0.f ? 1.f : 1.f / la;
+  const float inv_b = lb == 0.f ? 1.f : 1.f / lb;
+  // Paged: a row that sees no column (a ctx_len == 0 request, a pad row
+  // whose window lies past the context) is written as zeros.
+  bool seen_a = true, seen_b = true;
+  if constexpr (kPaged) {
+    seen_a = min(pos_a, kv_len - 1) >= (win > 0 ? max(0, pos_a - win + 1) : 0);
+    seen_b = min(pos_b, kv_len - 1) >= (win > 0 ? max(0, pos_b - win + 1) : 0);
+  }
   __nv_bfloat16* o_head = o + static_cast<size_t>(bh) * rows * D;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + 2 * t;
     if (ra < rows)
       *reinterpret_cast<uint32_t*>(o_head + static_cast<size_t>(ra) * D + c) =
-          tc::pack_bf16(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
+          seen_a ? tc::pack_bf16(acc[0][4 * j] * inv_a, acc[0][4 * j + 1] * inv_a) : 0u;
     if (rb < rows)
       *reinterpret_cast<uint32_t*>(o_head + static_cast<size_t>(rb) * D + c) =
-          tc::pack_bf16(acc[4 * j + 2] * inv_b, acc[4 * j + 3] * inv_b);
+          seen_b ? tc::pack_bf16(acc[0][4 * j + 2] * inv_b, acc[0][4 * j + 3] * inv_b) : 0u;
   }
   if (l_out != nullptr && t == 0) {
     const size_t head = static_cast<size_t>(bh) * rows;
     if (ra < rows) {
-      l_out[head + ra] = l_a;
-      m_out[head + ra] = m_a;
+      l_out[head + ra] = la;
+      m_out[head + ra] = m_a[0];
     }
     if (rb < rows) {
-      l_out[head + rb] = l_b;
-      m_out[head + rb] = m_b;
+      l_out[head + rb] = lb;
+      m_out[head + rb] = m_b[0];
     }
   }
 }
@@ -380,14 +509,14 @@ int launch(const Args& a) {
   if (st == 0)
     st = tc_encode_map(&mv, a.v, D, kv_rows, a.bh, static_cast<long long>(a.s_kv) * D, C::kN);
   if (st != 0) return st;
-  auto kernel = flash_fwd_tc_kernel<D, kWindowCap, kExtra, kProbe>;
+  auto kernel = flash_fwd_tc_kernel<D, kWindowCap, kExtra, kProbe, false>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.rows + kBlockM - 1) / kBlockM, a.bh);
   kernel<<<grid, kThreads, C::kBytes, a.stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), a.l, a.m, a.q_seg, a.kv_seg, a.rows, a.s_kv,
-      a.kv_len, a.q_offset, a.q_seq_len, a.causal, a.scale, a.window, a.softcap, a.ex);
+      a.kv_len, a.q_offset, a.q_seq_len, a.causal, a.scale, a.window, a.softcap, a.ex, Paged{});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -144,9 +144,27 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
-// Named barriers among some warps (id 0 is __syncthreads').
+// One 4-D TMA tile load (columns, rows, head, page) into shared memory, as
+// tma_load: a box of a page pool (paged_prefill_tc.cu).
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                          int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Named barriers among some warps (id 0 is __syncthreads').  named_arrive
+// marks this thread's arrival and goes on; the barrier completes when
+// `threads` threads have arrived or synced, so a pair of warpgroups can hand
+// shared memory from one to the other (the writer arrives, the reader syncs).
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 // Make this thread's shared-memory stores visible to wgmma's reads.
 __device__ __forceinline__ void fence_async_smem() {
@@ -329,15 +347,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 }  // namespace tc
 
 // The driver's cuTensorMapEncodeTiled, found through the runtime, so that
-// the library does not link libcuda itself.  A bf16 tensor of `heads`
-// matrices of `rows` x `cols` (row stride `cols`, head stride
-// `head_stride` elements) as boxes of 64 columns x `box_rows` rows, swizzled
-// by 128 bytes; rows past `rows` read as zeros.  Returns 0, or
-// kTcMapError + the CUresult (kTcMapError alone: no driver entry point).
+// the library does not link libcuda itself: a bf16 tensor of `rank`
+// dimensions (`dims`, innermost first; `strides` in elements for dimensions
+// 1 .. rank - 1) read as boxes of 64 columns x `box_rows` rows (x 1 in the
+// others), swizzled by 128 bytes; what lies past a dimension's end reads as
+// zeros.  Returns 0, or kTcMapError + the CUresult (kTcMapError alone: no
+// driver entry point).
 constexpr int kTcMapError = 10000;
 
-static int tc_encode_map(CUtensorMap* map, const void* base, int cols, int rows, int heads,
-                         long long head_stride, int box_rows) {
+static int tc_encode(CUtensorMap* map, const void* base, int rank, const long long* dims,
+                     const long long* strides, int box_rows) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -356,15 +375,26 @@ static int tc_encode_map(CUtensorMap* map, const void* base, int cols, int rows,
 #endif
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
-                                 static_cast<cuuint64_t>(head_stride) * 2};
-  const cuuint32_t box[3] = {tc::kChunk, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  cuuint64_t d[5], st[4];
+  cuuint32_t box[5], elem[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    box[i] = i == 0 ? tc::kChunk : i == 1 ? static_cast<cuuint32_t>(box_rows) : 1;
+    elem[i] = 1;
+    if (i > 0) st[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * 2;
+  }
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                            d, st, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTcMapError + static_cast<int>(r);
+}
+
+// `heads` matrices of `rows` x `cols` (row stride `cols`, head stride
+// `head_stride` elements); rows past `rows` read as zeros.
+static int tc_encode_map(CUtensorMap* map, const void* base, int cols, int rows, int heads,
+                         long long head_stride, int box_rows) {
+  const long long dims[3] = {cols, rows, heads};
+  const long long strides[2] = {cols, head_stride};
+  return tc_encode(map, base, 3, dims, strides, box_rows);
 }

@@ -15,9 +15,13 @@ at its own causal limit, and the kernel's draft form runs.
 :func:`paged_prefill_attention_batched` (and its single-request form
 :func:`paged_prefill_attention`) is the chunked-prefill counterpart: q holds a
 chunk of rows per request, GQA-folded into ``(B, KVH, G * seg, d)``, that
-attend their context straight off the pool.  On a CUDA tensor it launches
-``csrc/paged_prefill.cu`` (replacing the Pallas ``_paged_prefill_kernel``,
-:375); on a CPU tensor it runs :func:`paged_prefill_attention_plain`.
+attend their context straight off the pool.  On a CUDA tensor it launches a
+kernel that replaces the Pallas ``_paged_prefill_kernel`` (:375), in the form
+``ops.flash.kernel_form`` picks: for bf16 at head_dim 64, 128 or 256 with
+bf16 pages of a size it takes (``ops.flash.tc_page_size``) the tensor-core
+kernel in ``csrc/paged_prefill_tc.cu``, otherwise the float32 CUDA-core
+kernel in ``csrc/paged_prefill.cu``; on a CPU tensor it runs
+:func:`paged_prefill_attention_plain` with the chosen form's rounding.
 
 Both take a sliding window (a query at position ``pos`` sees columns
 ``c > pos - window``) and a logit softcap (``s -> cap * tanh(s / cap)`` after
@@ -34,7 +38,14 @@ from __future__ import annotations
 import torch
 
 from flashattention_tpu_torch.ops import kernels
-from flashattention_tpu_torch.ops.flash import KV_DTYPES, check_kv, check_window, kernel_options
+from flashattention_tpu_torch.ops.flash import (
+    KV_DTYPES,
+    check_kv,
+    check_window,
+    flash_attention_plain,
+    kernel_form,
+    kernel_options,
+)
 from flashattention_tpu_torch.ops.quant import byte_view
 from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE, dequantize_rows, softcap
 
@@ -268,17 +279,40 @@ def paged_prefill_attention_reference(
 
 def paged_prefill_attention_plain(
     q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, seg=None, scale=1.0,
-    window=None, logit_softcap=None, k_scales_pages=None, v_scales_pages=None,
+    window=None, logit_softcap=None, k_scales_pages=None, v_scales_pages=None, form=None,
 ):
     """The kernel's function in plain PyTorch: the oracle, with zeros for a
     row that sees no column (every row of a ``ctx_len == 0`` request, and a
-    pad row whose window lies past the context), as the kernel writes them."""
-    kw = dict(chunk=chunk, seg=seg, scale=scale, window=window, logit_softcap=logit_softcap,
-              k_scales_pages=k_scales_pages, v_scales_pages=v_scales_pages)
-    o = paged_prefill_attention_reference(q, k_pages, v_pages, page_indices, ctx_lens, **kw)
+    pad row whose window lies past the context), as the kernel writes them.
+
+    ``form`` (default: ``ops.flash.kernel_form`` of these inputs) mirrors
+    the kernel form's rounding: ``"tc"`` attends each request's gathered
+    context through the tensor-core forward's plain version
+    (``ops.flash.flash_attention_plain(form="tc")``: p as two bf16 terms
+    against the running max of ``TC_KV_TILE`` columns, tiles aligned to
+    column 0, as the paged kernel's are), its chunk's rows at ``ctx_len -
+    chunk + r % seg``; ``"scalar"`` attends in float32."""
+    seg = seg or q.shape[2]
+    if form is None:
+        form = kernel_form("paged_prefill", q.dtype, q.shape[3],
+                           quantized=k_scales_pages is not None, page_size=k_pages.shape[2])
     s_max = page_indices.shape[1] * k_pages.shape[2]
     rows = q.shape[2]
-    seen = _prefill_mask(ctx_lens, rows, chunk, seg or rows, s_max, window, q.device).any(-1)
+    if form == "tc":
+        k = _gather(k_pages, k_scales_pages, page_indices)
+        v = _gather(v_pages, v_scales_pages, page_indices)
+        o = torch.stack([
+            flash_attention_plain(
+                q[b], k[b], v[b], causal=True, scale=scale, kv_len=min(n, s_max),
+                q_offset=n - chunk, q_seq_len=seg, window=window, logit_softcap=logit_softcap,
+                form="tc")
+            for b, n in enumerate(ctx_lens.tolist())])
+    else:
+        o = paged_prefill_attention_reference(
+            q, k_pages, v_pages, page_indices, ctx_lens, chunk=chunk, seg=seg, scale=scale,
+            window=window, logit_softcap=logit_softcap, k_scales_pages=k_scales_pages,
+            v_scales_pages=v_scales_pages)
+    seen = _prefill_mask(ctx_lens, rows, chunk, seg, s_max, window, q.device).any(-1)
     return torch.where(seen[:, None, :, None], o, torch.zeros_like(o))
 
 
@@ -325,14 +359,16 @@ def paged_prefill_attention_batched(
         request with ``ctx_lens[b] == 0`` (batch padding) gets zeros; the
         JAX kernel leaves it unwritten.
       block_q: the JAX kernel's q tile, accepted for parity; the CUDA tile is
-        the kernel's own (32 rows, 16 at d = 256).
+        the kernel's own (the tensor-core form's 128 rows; the scalar
+        form's 32, 16 at d = 256).
       window: row p sees columns ``c > pos - window``; no table entry of a
         page wholly before a tile's window is read.
       logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
 
     Returns ``(B, KVH, R, d)`` in q's dtype.  The launch count is kept on
-    this function (``.launches``); :func:`paged_prefill_attention` launches
-    through it.
+    this function (``.launches``; ``.launches_tc`` and
+    ``.launches_quantized`` count the tensor-core and the 8-bit forms'
+    among them); :func:`paged_prefill_attention` launches through it.
     """
     check_window(window, logit_softcap, causal=True)
     if q.dim() != 4 or k_pages.dim() != 4:
@@ -359,10 +395,11 @@ def paged_prefill_attention_batched(
     args = (q, k_pages, v_pages, page_indices, ctx_lens)
     if not all(t.is_contiguous() for t in (*args, *scales)):
         raise ValueError("paged_prefill_attention takes contiguous tensors")
+    form = kernel_form("paged_prefill", q.dtype, d, quantized=quantized, page_size=page_size)
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
             *args, chunk=chunk, seg=seg, scale=scale, window=window, logit_softcap=logit_softcap,
-            k_scales_pages=k_scales_pages, v_scales_pages=v_scales_pages,
+            k_scales_pages=k_scales_pages, v_scales_pages=v_scales_pages, form=form,
         )
     devs = {t.device for t in (*args, *scales)}
     if q.device.type != "cuda" or len(devs) != 1:
@@ -377,14 +414,25 @@ def paged_prefill_attention_batched(
         raise ValueError(f"paged_prefill_attention kernel takes B, KVH <= 65535, got {b}, {kvh}")
     kernels.check_aligned("paged_prefill_attention", q, k_pages, v_pages)
     o = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if form == "tc":
+        status = kernels.library("paged_prefill_tc").fa_paged_prefill_tc(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_indices.data_ptr(),
+            ctx_lens.data_ptr(), o.data_ptr(), b, kvh, rows, d, num_pages, page_size,
+            page_indices.shape[1], int(chunk), seg, float(scale),
+            *kernel_options(window, logit_softcap), stream,
+        )
+        kernels.check_launch("paged_prefill_tc", status, f"q {tuple(q.shape)}, page {page_size}")
+        paged_prefill_attention_batched.launches += 1
+        paged_prefill_attention_batched.launches_tc += 1
+        return o
     name = "paged_prefill_quant" if quantized else "paged_prefill"
     status = kernels.library(name).fa_paged_prefill(
         _DTYPES[q.dtype], KV_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), *(t.data_ptr() if quantized else None for t in (k_scales_pages, v_scales_pages)),
         page_indices.data_ptr(), ctx_lens.data_ptr(), o.data_ptr(),
         b, kvh, rows, d, num_pages, page_size, page_indices.shape[1], int(chunk),
-        seg, float(scale), *kernel_options(window, logit_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        seg, float(scale), *kernel_options(window, logit_softcap), stream,
     )
     kernels.check_launch(name, status, f"q {tuple(q.shape)} {q.dtype}, pages {k_pages.dtype}")
     paged_prefill_attention_batched.launches += 1
@@ -392,8 +440,10 @@ def paged_prefill_attention_batched(
     return o
 
 
-# Kernel launches, for the chip run's path check: all forms, and the 8-bit one.
+# Kernel launches, for the chip run's path check: all forms, and the
+# tensor-core and 8-bit ones among them.
 paged_prefill_attention_batched.launches = 0
+paged_prefill_attention_batched.launches_tc = 0
 paged_prefill_attention_batched.launches_quantized = 0
 
 

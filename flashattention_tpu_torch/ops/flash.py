@@ -83,24 +83,37 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-# The tensor-core forms (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu): bf16
-# q/k/v at these head_dims, 16-bit K/V and no block mask.  Their KV tile
-# (kBlockN) sets where the forward's online softmax rescales, which the
-# plain version mirrors.
-TC_HEAD_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128)}
+# The tensor-core forms (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu,
+# csrc/paged_prefill_tc.cu): bf16 q/k/v at these head_dims, 16-bit K/V and
+# no block mask.  The forward's KV tile (kBlockN, also the paged form's) sets
+# where its online softmax rescales, which the plain versions mirror.
+TC_HEAD_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128, 256),
+                "paged_prefill": (64, 128, 256)}
 TC_KV_TILE = {64: 128, 128: 128, 256: 64}
 
 
+def tc_page_size(page_size, head_dim: int) -> bool:
+    """Whether the paged tensor-core form takes pages of ``page_size`` rows
+    at ``head_dim``: a multiple of 8 that divides the KV tile
+    (``TC_KV_TILE``) or that the tile divides, so that each TMA box of
+    ``min(tile, page_size)`` rows lies in one page and on a swizzle atom."""
+    tile = TC_KV_TILE.get(head_dim)
+    return (page_size is not None and tile is not None and page_size > 0 and page_size % 8 == 0
+            and (tile % page_size == 0 or page_size % tile == 0))
+
+
 def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
-                block_mask: bool = False) -> str:
-    """The form a call of ``kernel`` (``"flash_fwd"``, or ``"flash_bwd"``
-    for the fused backward) takes: ``"tc"``, the tensor-core kernel, for
-    bfloat16 at ``TC_HEAD_DIMS[kernel]`` with 16-bit K/V and no block mask;
-    else ``"scalar"``, the float32 CUDA-core kernel.  The two-pass backward
-    kernels are scalar only.  Inside :func:`scalar_forms`, always
-    ``"scalar"``."""
+                block_mask: bool = False, page_size: int | None = None) -> str:
+    """The form a call of ``kernel`` (``"flash_fwd"``, ``"flash_bwd"`` for
+    the fused backward, or ``"paged_prefill"``) takes: ``"tc"``, the
+    tensor-core kernel, for bfloat16 at ``TC_HEAD_DIMS[kernel]`` with 16-bit
+    K/V and no block mask (paged prefill: pages of a ``page_size`` that
+    :func:`tc_page_size` takes); else ``"scalar"``, the float32 CUDA-core
+    kernel.  The two-pass backward kernels are scalar only.  Inside
+    :func:`scalar_forms`, always ``"scalar"``."""
     if (not _SCALAR_ONLY[0] and dtype == torch.bfloat16
-            and head_dim in TC_HEAD_DIMS.get(kernel, ()) and not quantized and not block_mask):
+            and head_dim in TC_HEAD_DIMS.get(kernel, ()) and not quantized and not block_mask
+            and (kernel != "paged_prefill" or tc_page_size(page_size, head_dim))):
         return "tc"
     return "scalar"
 

@@ -14,10 +14,11 @@ into ``paged_decode_draft`` and, for 8-bit pages, one library per head_dim
 (``paged_decode_draft_quant_d<D>``).  The forms of flash_fwd and of the three
 backward kernels with attention dropout or a block mask are the same sources
 built with ``-DFA_EXTRA`` into ``*_extra`` libraries; the wrappers take them
-only when a call has either.  The tensor-core forms of the forward and the
-fused backward (``flash_fwd_tc``, ``flash_bwd_tc``, and their dropout forms
-``*_tc_extra``) are sources of their own; ``probe_mma`` is the forward's
-loop bodies alone, for ``torch_tools/probe_mma.py``.
+only when a call has either.  The tensor-core forms of the forward, the
+fused backward and chunked prefill (``flash_fwd_tc``, ``flash_bwd_tc``, their
+dropout forms ``*_tc_extra``, and ``paged_prefill_tc``) are sources of their
+own; ``probe_mma`` is the forward's loop bodies alone and its softmax
+probes, for ``torch_tools/probe_mma.py`` and ``torch_tools/probe_softmax.py``.
 The build runs at first use, from the sources in the checkout only, into
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``).  A
 library's file name carries a hash of its source, the headers it includes
@@ -72,6 +73,8 @@ KERNELS = {
     **{f"paged_decode_draft_quant_d{d}": (
         *_PAGED_DECODE, ["-DFA_QUANT", "-DFA_DRAFT", f"-DFA_HEAD_DIM={d}"]) for d in (32, 64, 128, 256)},
     "paged_prefill_quant": (*_PAGED_PREFILL, ["-DFA_QUANT"]),
+    "paged_prefill_tc": ("paged_prefill_tc.cu", "fa_paged_prefill_tc",
+                         [*[_P] * 6, *[_I] * 9, _F, _I, _F, _P]),
     "flash_naive": (
         "flash_naive.cu",
         "fa_flash_naive",
@@ -86,8 +89,9 @@ KERNELS = {
             [*[_P] * 8, *[_I] * 8, _F, _I, _F, *_EXTRA]),
            ("flash_bwd_tc", "flash_bwd_tc.cu", "fa_flash_bwd_tc", [*[_P] * 9, *_BWD]))
        for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
-    # The tensor-core forward's loop bodies alone (torch_tools/probe_mma.py).
-    "probe_mma": ("probe_mma.cu", "fa_probe_mma", [_I, *[_P] * 6, *[_I] * 4, _F, _P]),
+    # The tensor-core forward's loop bodies alone and its softmax probes
+    # (torch_tools/probe_mma.py, torch_tools/probe_softmax.py).
+    "probe_mma": ("probe_mma.cu", "fa_probe_mma", [_I, *[_P] * 6, *[_I] * 5, _F, _P]),
 }
 # Status codes from 10000 up: a TMA tensor map could not be encoded
 # (tc_common.cuh's tc_encode_map; 10000 + the driver's CUresult).

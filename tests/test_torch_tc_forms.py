@@ -35,7 +35,7 @@ DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _expected(kernel, dtype, d, quantized, block_mask):
-    dims = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128)}.get(kernel, ())
+    dims = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128, 256)}.get(kernel, ())
     ok = dtype == torch.bfloat16 and d in dims and not quantized and not block_mask
     return "tc" if ok else "scalar"
 
@@ -64,7 +64,8 @@ def test_backward_form_follows_the_pass():
     assert tbwd.bwd_form(q, True) == "tc"
     assert tbwd.bwd_form(q, False) == "scalar"
     assert tbwd.bwd_form(q.float(), True) == "scalar"
-    assert tbwd.bwd_form(torch.zeros(1, 8, 256, dtype=torch.bfloat16), True) == "scalar"
+    assert tbwd.bwd_form(torch.zeros(1, 8, 256, dtype=torch.bfloat16), True) == "tc"
+    assert tbwd.bwd_form(torch.zeros(1, 8, 32, dtype=torch.bfloat16), True) == "scalar"
 
 
 # (name, BH, G, S per group, d, causal, window, softcap, q scale, kv_len);

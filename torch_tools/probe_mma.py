@@ -56,7 +56,7 @@ def main() -> int:
 
     def run(mode):
         status = lib.fa_probe_mma(mode, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                  l.data_ptr(), m.data_ptr(), bh, s, s, 1, d**-0.5, stream)
+                                  l.data_ptr(), m.data_ptr(), bh, s, s, d, 1, d**-0.5, stream)
         kernels.check_launch("probe_mma", status, f"mode {mode}")
 
     pairs = bh * s * (s + 1) // 2  # live (row, column) pairs, causal

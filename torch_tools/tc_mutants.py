@@ -5,8 +5,9 @@
 
 Copies the port (``flashattention_tpu_torch/`` and ``chip_smoke.py``) into a
 temporary directory once per mutant, breaks one thing in the tensor-core
-kernels' CUDA sources in the copy (``csrc/flash_fwd_tc.cuh``,
-``csrc/flash_bwd_tc.cu``), builds what the checks launch (the unmutated copy
+kernels' CUDA sources in the copy (``csrc/flash_fwd_tc.cuh``, whose paged
+form ``csrc/paged_prefill_tc.cu`` builds, and ``csrc/flash_bwd_tc.cu``),
+builds what the checks launch (the unmutated copy
 every library, each mutant only the libraries its edit changes, taking the
 others from the unmutated copy; one ``nvcc`` per library, all started
 together) and runs chip_smoke's checks of the mutated kernel on the copy:
@@ -22,14 +23,30 @@ together) and runs chip_smoke's checks of the mutated kernel on the copy:
 - ``dv_from_undropped_p``: the backward's dV sums P, not the dropped Z;
 - ``last_tma_stage_skipped/<kernel>``: the producer and the consumers stop
   one tile early (the forward's last KV tile, the backward's last query
-  tile).
+  tile, in both backward kernels);
+- ``page_index_off_by_one``: the paged form loads each box from the next
+  physical page;
+- ``v_tail_rows_unmasked``: the paged form leaves the V rows past the
+  block's last visible column as the page holds them (the NaN-poison check);
+- ``window_first_tile_late``: the KV loop starts one tile after the first
+  tile a window reaches (the forward and the paged form);
+- ``other_request_ctx_len``: each paged block reads the next request's
+  context length;
+- ``dk_dv_swapped/d256``: the d = 256 backward writes each warpgroup's
+  accumulator to the other's output (dK as dV);
+- ``y_read_before_barrier/d256``: its dS side reads P^T c (Y^T) from shared
+  memory before the barrier that says it is written (the barrier stays, so
+  the hand-offs keep their pairing).
 
-Forward mutants run ``flash_checks`` and ``flash_window_checks``, backward
-mutants ``bwd_checks``, ``bwd_window_checks`` (its q x 8 cases) and
+Forward mutants run ``flash_checks`` and ``flash_window_checks``, paged
+mutants ``prefill_checks``, ``prefill_window_checks`` and
+``prefill_poison_check``, backward mutants ``bwd_checks``,
+``bwd_window_checks`` (its q x 8 cases, Gemma-2's d = 256 among them) and
 ``dropout_checks``, untimed where the functions allow.  The unmutated copy
 runs all of them and must pass every check; a mutant is caught when a bf16
-check of the kernel it changed (``flash_fwd_tc/...`` or
-``flash_bwd_tc/...``) fails.  Prints one JSON line per copy and writes them
+check of the kernel it changed (``flash_fwd_tc/...``,
+``paged_prefill_tc/...`` or ``flash_bwd_tc/...``) fails.  ``--mutants``
+runs some of them (and the unmutated copy).  Prints one JSON line per copy and writes them
 to ``chiprun_out/tc_mutants.json``; exits non-zero when a mutant goes
 uncaught or the unmutated copy fails a check.  Imports nothing of JAX.
 """
@@ -46,7 +63,7 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FWD, BWD = "flash_fwd_tc", "flash_bwd_tc"
+FWD, BWD, PP = "flash_fwd_tc", "flash_bwd_tc", "paged_prefill_tc"
 # name -> (kernel, [(source, text, replacement)])
 MUTANTS = {
     "unmutated": (None, []),
@@ -54,8 +71,8 @@ MUTANTS = {
         "flash_fwd_tc.cuh", "const int pos = e < 2 ? pos_a : pos_b;",
         "const int pos = e < 2 ? pos_b : pos_a;")]),
     "alpha_not_applied": (FWD, [(
-        "flash_fwd_tc.cuh", "acc[4 * j + 0] *= alpha_a;\n          acc[4 * j + 1] *= alpha_a;\n"
-        "          acc[4 * j + 2] *= alpha_b;\n          acc[4 * j + 3] *= alpha_b;", "")]),
+        "flash_fwd_tc.cuh", "acc[ch][4 * j + 0] *= alpha_a;\n          acc[ch][4 * j + 1] *= alpha_a;\n"
+        "          acc[ch][4 * j + 2] *= alpha_b;\n          acc[ch][4 * j + 3] *= alpha_b;", "")]),
     "causal_off_by_one/flash_fwd_tc": (FWD, [(
         "flash_fwd_tc.cuh", "(!causal || col <= pos)", "(!causal || col <= pos + 1)")]),
     "causal_off_by_one/flash_bwd_tc": (BWD, [(
@@ -68,12 +85,35 @@ MUTANTS = {
     "last_tma_stage_skipped/flash_fwd_tc": (FWD, [(
         "flash_fwd_tc.cuh", "(kv.end - kv.begin + kN - 1) / kN : 0;",
         "(kv.end - kv.begin + kN - 1) / kN - 1 : 0;")]),
-    "last_tma_stage_skipped/flash_bwd_tc": (BWD, [(
-        "flash_bwd_tc.cu", "(rows + kBlockM - 1) / kBlockM : 0;",
-        "(rows + kBlockM - 1) / kBlockM - 1 : 0;")]),
+    "last_tma_stage_skipped/flash_bwd_tc": (BWD, [
+        ("flash_bwd_tc.cu", f"{n} = c0 < kv_len ? (rows + kBlockM - 1) / kBlockM : 0;",
+         f"{n} = c0 < kv_len ? (rows + kBlockM - 1) / kBlockM - 1 : 0;") for n in ("n_r", "n_q")]),
+    "page_index_off_by_one": (PP, [(
+        "flash_fwd_tc.cuh", "const int page = table[t / pg.page_size];",
+        "const int page = table[t / pg.page_size] + 1;")]),
+    "v_tail_rows_unmasked": (PP, [(
+        "flash_fwd_tc.cuh", "if (row < lo || row >= hi) vt[u]", "if (row < lo) vt[u]")]),
+    "window_first_tile_late": (PP, [(
+        "flash_fwd_tc.cuh", "r.begin = r.first - r.first % kN;",
+        "r.begin = r.first - r.first % kN + kN;")]),
+    "other_request_ctx_len": (PP, [(
+        "flash_fwd_tc.cuh", "const int ctx = pg.ctx_lens[blockIdx.z];",
+        "const int ctx = pg.ctx_lens[(blockIdx.z + 1) % gridDim.z];")]),
+    "dk_dv_swapped/d256": (BWD, [(
+        "flash_bwd_tc.cu", "__nv_bfloat16* out = p_side ? dv : dk;",
+        "__nv_bfloat16* out = p_side ? dk : dv;")]),
+    "y_read_before_barrier/d256": (BWD, [(
+        "flash_bwd_tc.cu",
+        "      tc::named_sync(1, 256);  // Y^T written\n      float y[kBlockM / 2];\n"
+        "#pragma unroll\n      for (int j = 0; j < kBlockM / 2; ++j) y[j] = x_f[j * 128 + tid];\n",
+        "      float y[kBlockM / 2];\n"
+        "#pragma unroll\n      for (int j = 0; j < kBlockM / 2; ++j) y[j] = x_f[j * 128 + tid];\n"
+        "      tc::named_sync(1, 256);  // Y^T written\n")]),
 }
-# The libraries an edit of each source changes.
-LIBS = {FWD: ["flash_fwd_tc", "flash_fwd_tc_extra"], BWD: ["flash_bwd_tc", "flash_bwd_tc_extra"]}
+MUTANT_SECONDS = 900  # one copy's checks; the unmutated copy's take about 4 minutes
+# The libraries an edit of each kernel's source changes, that its checks launch.
+LIBS = {FWD: ["flash_fwd_tc", "flash_fwd_tc_extra"], BWD: ["flash_bwd_tc", "flash_bwd_tc_extra"],
+        PP: ["paged_prefill_tc"]}
 
 
 def make_copy(dest: str, edits) -> None:
@@ -99,7 +139,7 @@ def run_checks(root: str, kernel) -> dict:
 
     import chip_smoke as cs
     import flashattention_tpu_torch as fa
-    from flashattention_tpu_torch.ops import backward, flash
+    from flashattention_tpu_torch.ops import backward, decode, flash
     from flashattention_tpu_torch.utils import benchit, packing
 
     if not os.path.abspath(flash.__file__).startswith(root + os.sep):
@@ -112,9 +152,14 @@ def run_checks(root: str, kernel) -> dict:
     if kernel in (None, FWD):
         cs.flash_checks(fa, flash, benchit, gen, card, report)
         cs.flash_window_checks(fa, flash, benchit, gen, card, report)
+    if kernel in (None, PP):
+        cs.prefill_checks(decode, benchit, gen, card, report)
+        cs.prefill_window_checks(decode, benchit, gen, card, report)
+        cs.prefill_poison_check(decode, gen, report)
     if kernel in (None, BWD):
         cs.bwd_checks(backward, flash, benchit, packing, args, gen, card, report)
-        q8 = [n for n, c in cs.BWD_WINDOW_CASES if c["q_mult"] > 1 and c["d"] in (64, 128)]
+        q8 = [n for n, c in cs.BWD_WINDOW_CASES
+              if c["q_mult"] > 1 and c["d"] in (64, 128, 256) and "docs" not in c]
         cs.bwd_window_checks(backward, flash, benchit, gen, card, report, names=q8, timed=False)
         cs.dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, report,
                           timed=False)
@@ -125,39 +170,49 @@ def run_checks(root: str, kernel) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keep", action="store_true", help="keep the copies")
+    ap.add_argument("--mutants", nargs="+", choices=[m for m in MUTANTS if m != "unmutated"],
+                    help="run only these mutants (and the unmutated copy)")
     ap.add_argument("--one", nargs="+", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
         kernel = args.one[1] if len(args.one) > 1 else None
         print(json.dumps(run_checks(args.one[0], kernel)), flush=True)
         return 0
+    mutants = {m: MUTANTS[m] for m in ["unmutated", *(args.mutants or MUTANTS)] if m in MUTANTS}
     tmp = tempfile.mkdtemp(prefix="tc_mutants-")
     try:
-        roots = {m: os.path.join(tmp, m.replace("/", "-")) for m in MUTANTS}
-        for m, (_, edits) in MUTANTS.items():
+        roots = {m: os.path.join(tmp, m.replace("/", "-")) for m in mutants}
+        for m, (_, edits) in mutants.items():
             make_copy(roots[m], edits)
         build = ("import sys; sys.path.insert(0, sys.argv[1]); "
                  "from flashattention_tpu_torch.ops import kernels; "
                  "kernels.build_all(sys.argv[2:] or None)")
         procs = {m: subprocess.Popen([sys.executable, "-c", build, roots[m],
                                       *(LIBS[kernel] if kernel else [])])
-                 for m, (kernel, _) in MUTANTS.items()}
+                 for m, (kernel, _) in mutants.items()}
         if any(p.wait() != 0 for p in procs.values()):
             print("tc_mutants: a build failed", file=sys.stderr)
             return 1
         # A library's file name hashes its source and headers: the ones a
         # mutant left alone are the unmutated copy's.
         built = glob.glob(os.path.join(roots["unmutated"], "build", "torch_kernels", "*.so"))
-        for m in MUTANTS:
+        for m in mutants:
             dest = os.path.join(roots[m], "build", "torch_kernels")
             for so in built:
                 if not os.path.exists(os.path.join(dest, os.path.basename(so))):
                     shutil.copy(so, dest)
         results, ok = {}, True
-        for m, (kernel, _) in MUTANTS.items():
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--one", roots[m],
-                 *([kernel] if kernel else [])], stdout=subprocess.PIPE, text=True)
+        for m, (kernel, _) in mutants.items():
+            try:
+                proc = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__), "--one", roots[m],
+                     *([kernel] if kernel else [])], stdout=subprocess.PIPE, text=True,
+                    timeout=MUTANT_SECONDS)
+            except subprocess.TimeoutExpired:  # a mutant that hangs is not caught by a check
+                print(json.dumps({"copy": m, "kernel": kernel, "timeout_s": MUTANT_SECONDS,
+                                  "caught": False}), flush=True)
+                ok = False
+                continue
             lines = proc.stdout.strip().splitlines()
             if proc.returncode != 0 or not lines:
                 print(f"tc_mutants: {m} did not run (exit {proc.returncode})", file=sys.stderr)
