@@ -87,9 +87,24 @@ Phases, each of which must pass (any failure exits non-zero):
                may see (past each ctx_len, pages past the live ones, rows
                before the window) with NaN, at Gemma-2's shape, GQA with
                seg > chunk and a 32-row page, and the tensor-core paged
-               prefill's output must equal the clean pool's bit for bit;
+               prefill's output must equal the clean pool's bit for bit
+               (again over fp8 pools, the 8-bit form, whose such bytes are
+               0x7F, e4m3's NaN, and scales NaN); in bf16 the 8-bit K/V of
+               the flash forward and of paged prefill run the tensor-core
+               forms' 8-bit forms (``flash_fwd_tc_quant``,
+               ``paged_prefill_tc_quant``; checks ``flash_fwd_tc/quant/...``
+               and ``paged_prefill_tc/quant/...``) at every 8-bit shape
+               above, int8 and fp8, against the plain versions with their
+               rounding, the timed ones beside the scalar 8-bit form, SDPA
+               over the dequantized K/V and the bound;
                ``torch_tools/tc_mutants.py`` shows that they fail each of
-               fourteen tensor-core mutants;
+               eighteen tensor-core mutants; ``head_dim_pad_check``: ``sdpa``
+               at head_dim 80 (zero-padded to 128 by ``attention``),
+               forward and gradients under autograd, against the same call
+               on the CPU; the float32 forms the float32 paths launch
+               (flash_fwd at row 1, paged prefill at its MHA shape, the
+               fused backward at the training layer at B = 2) timed against
+               their plain versions, SDPA in float32 and their bound;
    attention_block_mask - ``attention(block_mask=, dropout_rate=0.1)``
                under autograd at that layer, the launches counted;
 3. serve     - run the engine with whole-prompt prefill (prefill_chunk=0) at
@@ -186,15 +201,17 @@ Phases, each of which must pass (any failure exits non-zero):
 
 The serve and train phases' launch counts include the tensor-core forms':
 every bf16 flash forward and fused backward launch at their head_dims, and
-every paged prefill launch on bf16 pages, goes through them
-(``launches_tc``); the 8-bit caches' paged prefill stays on the scalar
-kernel's 8-bit form.  The float32 train_parity phases' card launches are
+every paged prefill launch of a bf16 model, goes through them
+(``launches_tc``); the 8-bit caches' paged prefill (serve_int8,
+serve_gemma2_fp8) and quant_ops' 8-bit flash forward through their 8-bit
+forms (``launches_tc_quantized``).  The float32 train_parity phases' card launches are
 counted as paths too (float32 training runs the scalar kernels).  It prints one JSON line per check, the
 total seconds, a ``{"kernels": [...]}`` summary (with a ``quantized`` entry
 for each serving kernel's 8-bit form, ``dropout`` and ``block_mask`` entries
 for flash_fwd and the backward kernels, paged_decode's draft form and the
-two tensor-core forms as entries of their own, the scalar entries counting
-their own launches only), the card's name
+tensor-core forms and their 8-bit forms as entries of their own, each
+entry counting its own launches only, the scalar ones a ``float32`` entry
+where the float32 paths launch them), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
 Details go to ``chiprun_out/chip_smoke.json``.  It needs one CUDA card and
 imports nothing of JAX.
@@ -268,9 +285,13 @@ KERNELS = (
     ("flash_fwd_tc", "flash_fwd_tc.cu", "ops/flash.py:628"),
     ("flash_bwd_tc", "flash_bwd_tc.cu", "ops/backward.py:401"),
     ("paged_prefill_tc", "paged_prefill_tc.cu", "ops/decode.py:375"),
+    # Their 8-bit forms (bf16 q over int8 / fp8 K/V), built with -DFA_QUANT.
+    ("flash_fwd_tc_quant", "flash_fwd_tc.cu", "ops/flash.py:628"),
+    ("paged_prefill_tc_quant", "paged_prefill_tc.cu", "ops/decode.py:375"),
 )
 TC_KERNELS = {"flash_fwd": "flash_fwd_tc", "flash_bwd": "flash_bwd_tc",
               "paged_prefill": "paged_prefill_tc"}
+TC_QUANT_KERNELS = {"flash_fwd": "flash_fwd_tc_quant", "paged_prefill": "paged_prefill_tc_quant"}
 PAGE_SIZE = 256  # the serving phases' and the paged kernel checks' page
 
 
@@ -312,7 +333,8 @@ def _ptxas(log):
     """Registers and spill bytes of each kernel instantiation, from nvcc's
     ``-Xptxas -v`` report (``name<dtype[,payload],D[,G][,flags]>`` read off
     the mangled name: the payload type where it differs from q's, an 8-bit
-    form's; ``window_cap`` marks a window/softcap form, ``draft``
+    form's, and for the tensor-core forward its 8-bit payload; ``window_cap``
+    marks a window/softcap form, ``draft``
     paged_decode's draft form, whose G is its tile of rows, and ``extra`` the
     dropout / block-mask form of flash_fwd and the backward kernels)."""
     out, spills = [], (0, 0)
@@ -327,6 +349,8 @@ def _ptxas(log):
             for kind, n in re.findall(r"L([ib])(\d+)E", m.group(3)):
                 flag = next(flags) if kind == "b" else None
                 args += [n] if kind == "i" else [flag] if n == "1" else []
+            if m.group(1) == "flash_fwd_tc_kernel":  # its last int: the K/V payload form
+                args = args[:-1] + {"1": ["int8"], "2": ["fp8"]}.get(args[-1], [])
             out.append({"kernel": f"{m.group(1)}<{','.join(args)}>"})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -375,6 +399,14 @@ def _plain_kv(kv, scales):
     return kv if scales is None else dequantize_rows(kv, scales)
 
 
+def _plain_scales(kv3):
+    """The plain forward's K/V arguments from ``[(k, k_scales), (v,
+    v_scales)]``: 8-bit payloads with their scales (the plain version
+    mirrors the form the kernel takes), or K/V as they are."""
+    (k, ks), (v, vs) = kv3
+    return (k, v), ({} if ks is None else dict(k_scales=ks, v_scales=vs))
+
+
 def _bf16(kv, scales):
     """The library yardsticks' K/V: bfloat16 rows as they are, 8-bit rows
     dequantized to bfloat16."""
@@ -393,8 +425,10 @@ def _check_name(kernel, case, dt, form):
 def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE):
     """The kernel a call of ``kernel`` on ``q`` launches: its tensor-core
     form's name where ``ops.flash.kernel_form`` picks it (bf16 at its
-    head_dims, 16-bit K/V, no block mask; paged prefill: a page size it
-    takes), else ``kernel``."""
+    head_dims, no block mask, 8-bit K/V in the forwards too; paged prefill:
+    a page size it takes), else ``kernel``.  A check of an 8-bit form is
+    named ``<kernel>/quant/...`` (``_check_name``), so the tensor-core 8-bit
+    forms' checks read ``flash_fwd_tc/quant/...``, ``paged_prefill_tc/quant/...``."""
     from flashattention_tpu_torch.ops import flash
 
     tc = TC_KERNELS.get(kernel)
@@ -402,6 +436,11 @@ def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE):
                                 block_mask=block_mask, page_size=page_size) == "tc":
         return tc
     return kernel
+
+
+def _tc_key(kernel, case, form):
+    """The key of a timed tensor-core check in ``report["tc_timed"]``."""
+    return "/".join(x for x in (kernel, case, form) if x)
 
 
 _TIMED_KEYS = ("library_ms", "library", "bound_ms", "bound_by", "bytes_ms", "ops_ms")
@@ -452,9 +491,9 @@ def flash_checks(fa, flash, benchit, gen, card, report, form=None):
             q3 = q.reshape(b * hkv, (h // hkv) * s_q, d)
             kv3 = [(x.reshape(-1, s_kv, d), None if sc is None else sc.reshape(-1, s_kv))
                    for x, sc in ((k, ks), (v, vs))]
+            (k3, v3), sk3 = _plain_scales(kv3)
             plain = lambda: flash.flash_attention_plain(  # noqa: E731
-                q3, *(_plain_kv(*x) for x in kv3), causal=True, scale=scale,
-                q_offset=s_kv - s_q, q_seq_len=s_q,
+                q3, k3, v3, causal=True, scale=scale, q_offset=s_kv - s_q, q_seq_len=s_q, **sk3,
             )
             want = plain().reshape(q.shape)
             torch.cuda.synchronize()
@@ -480,13 +519,24 @@ def flash_checks(fa, flash, benchit, gen, card, report, form=None):
                 ))
                 out["main"] = rec
                 if kname == "flash_fwd_tc":  # the scalar form beside it: the scalar row
-                    run = lambda: fa.attention(q, k, v, causal=True, scale=scale)  # noqa: E731
+                    run = lambda: fa.attention(q, k, v, causal=True, scale=scale, **sk)  # noqa: E731
                     twin = _scalar_twin(flash, benchit, rec, run, lambda: plain().reshape(q.shape),
                                         dt, FLASH_TOL[dt])
-                    report.setdefault("tc_timed", {})["flash_fwd_tc"] = rec
+                    report.setdefault("tc_timed", {})[_tc_key(kname, None, form)] = rec
                     emit(twin)
                     report["checks"].append(twin)
                     out["main"] = twin
+            if name == "prefill" and dt == "float32" and form is None:  # the float32 paths' form
+                kernel = lambda: fa.attention(q, k, v, causal=True, scale=scale)  # noqa: E731
+                rec.update(kernel_ms=benchit.cuda_time_ms(kernel, warmup=1, iters=5),
+                           plain_ms=benchit.cuda_time_ms(plain, warmup=1, iters=3),
+                           library_ms=benchit.cuda_time_ms(
+                               lambda: torch.nn.functional.scaled_dot_product_attention(
+                                   q, k, v, is_causal=True, scale=scale), warmup=1, iters=5),
+                           library="scaled_dot_product_attention, is_causal, float32")
+                rec.update(benchit.bound_ms(card, bytes_moved=4 * q.numel() * 4,
+                                            flops=4 * b * h * (s_q * (s_q + 1) // 2) * d, dtype=dt))
+                report.setdefault("float32_timed", {})["flash_fwd"] = rec
             emit(rec)
             report["checks"].append(rec)
     # save_residuals with a live length: cross-attention rows at the end of
@@ -497,8 +547,7 @@ def flash_checks(fa, flash, benchit, gen, card, report, form=None):
         sk = {} if form is None else dict(k_scales=ks, v_scales=vs)
         kw = dict(causal=True, scale=128**-0.5, kv_len=250, q_offset=122)
         o, l, m = flash.flash_attention(q, k, v, save_residuals=True, **kw, **sk)
-        wo, wl, wm = flash.flash_attention_plain(q, _plain_kv(k, ks), _plain_kv(v, vs),
-                                                 save_residuals=True, **kw)
+        wo, wl, wm = flash.flash_attention_plain(q, k, v, save_residuals=True, **kw, **sk)
         torch.cuda.synchronize()
         e_l = err(l, wl) / float(wl.abs().max())
         e_m = err(m, wm) / float(wm.abs().max())
@@ -628,7 +677,8 @@ def prefill_checks(decode, benchit, gen, card, report, form=None):
                 torch.cuda.synchronize()
                 rec["single_form_err"] = err(one, want[3])
                 rec["ok"] = rec["ok"] and rec["single_form_err"] <= PREFILL_TOL[dt]
-            if name == "prefill_mha" and dt == "bfloat16":
+            if name == "prefill_mha" and (dt == "bfloat16" or form is None):
+                # bf16, and float32 (the float32 paths' form) unquantized
                 kernel = lambda: decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)  # noqa: E731
                 rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
                 rec["plain_ms"] = benchit.cuda_time_ms(plain, flush_bytes=256 << 20)
@@ -650,10 +700,13 @@ def prefill_checks(decode, benchit, gen, card, report, form=None):
                 )
                 rec["live_pairs"] = pairs
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dt))
-                out["main"] = rec
+                if dt == "float32":
+                    report.setdefault("float32_timed", {})["paged_prefill"] = rec
+                else:
+                    out["main"] = rec
                 if kname == "paged_prefill_tc":
                     twin = _scalar_twin(flash, benchit, rec, kernel, plain, dt, PREFILL_TOL[dt])
-                    report.setdefault("tc_timed", {})["paged_prefill_tc"] = rec
+                    report.setdefault("tc_timed", {})[_tc_key(kname, None, form)] = rec
                     emit(twin)
                     report["checks"].append(twin)
                     out["main"] = twin
@@ -671,7 +724,9 @@ def prefill_poison_check(decode, gen, report):
     past each request's ctx_len, every page its table names past the live
     ones and every row before the first column any row's window reaches are
     filled with NaN; the output must equal the clean pool's, bit for bit
-    (and be finite)."""
+    (and be finite).  The fp8 cases do the same over fp8 pages, through the
+    8-bit form: those rows' payload bytes are 0x7F (NaN in e4m3) and their
+    scales NaN."""
     cases = (
         ("gemma2_d256_w4096_cap50", dict(kvh=8, g=2, d=256, ps=PAGE_SIZE, pps=24, chunk=512,
                                          seg=512, window=4096, cap=50.0,
@@ -681,33 +736,47 @@ def prefill_poison_check(decode, gen, report):
         ("page32_d64_w100", dict(kvh=4, g=2, d=64, ps=32, pps=40, chunk=96, seg=128, window=100,
                                  cap=None, ctx=[96, 300, 777, 1270])),
     )
+    cases += tuple((name, {**c, "form": "fp8"}) for name, c in cases
+                   if name in ("gemma2_d256_w4096_cap50", "page32_d64_w100"))
     recs = []
     for name, c in cases:
         b, ps, pps, d = len(c["ctx"]), c["ps"], c["pps"], c["d"]
+        form = c.get("form")
         pages = b * pps + 4
         ctx = torch.tensor(c["ctx"], dtype=torch.int32, device="cuda")
-        (kp, _), (vp, _), table = _paged_pool(gen, c["ctx"], pps, pages, (c["kvh"], ps, d),
-                                              torch.bfloat16)
+        (kp, ks), (vp, vs), table = _paged_pool(gen, c["ctx"], pps, pages, (c["kvh"], ps, d),
+                                                torch.bfloat16, form)
         q = torch.randn((b, c["kvh"], c["g"] * c["seg"], d), generator=gen,
                         device="cuda").to(torch.bfloat16)
         kw = dict(chunk=c["chunk"], seg=c["seg"], scale=d**-0.5, window=c["window"],
                   logit_softcap=c["cap"])
-        clean = decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)
+        clean = decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw,
+                                                       **_page_scales(ks, vs))
         kn, vn = kp.clone(), vp.clone()
+        sn = [None if x is None else x.clone() for x in (ks, vs)]
+        # The poison: NaN, or in an fp8 pool the byte 0x7F (e4m3's NaN).
+        pools = [x.view(torch.uint8) if form else x for x in (kn, vn)]
+        nan = 0x7F if form else float("nan")
         for i, n in enumerate(c["ctx"]):
             # Columns [first, n) are the only ones some row sees.
             first = 0 if c["window"] is None else max(0, n - c["chunk"] - c["window"] + 1)
             for j in range(pps):
                 page = int(table[i, j])
                 lo, hi = max(0, min(ps, first - j * ps)), max(0, min(ps, n - j * ps))
-                for pool in (kn, vn):
-                    pool[page, :, :lo] = float("nan")
-                    pool[page, :, max(lo, hi):] = float("nan")
-        poisoned = decode.paged_prefill_attention_batched(q, kn, vn, table, ctx, **kw)
+                for pool in pools:
+                    pool[page, :, :lo] = nan
+                    pool[page, :, max(lo, hi):] = nan
+                for sc in sn if form else ():
+                    sc[page, :, :lo] = float("nan")
+                    sc[page, :, max(lo, hi):] = float("nan")
+        poisoned = decode.paged_prefill_attention_batched(q, kn, vn, table, ctx, **kw,
+                                                          **_page_scales(*sn))
         torch.cuda.synchronize()
         equal = bool(torch.equal(poisoned, clean))
         finite = bool(torch.isfinite(poisoned).all())
-        rec = {"check": f"{_kname('paged_prefill', q, page_size=ps)}/nan_poison/{name}/bfloat16",
+        check = _check_name(_kname("paged_prefill", q, form is not None, page_size=ps),
+                            f"nan_poison/{name}", "bfloat16", form)
+        rec = {"check": check,
                "shape": f"B={b} KVH={c['kvh']} G={c['g']} d={d} ps={ps} chunk={c['chunk']} "
                         f"seg={c['seg']} window={c['window']} cap={c['cap']}",
                "ctx_lens": c["ctx"], "bitwise_equal": equal, "finite": finite,
@@ -715,9 +784,61 @@ def prefill_poison_check(decode, gen, report):
         emit(rec)
         report["checks"].append(rec)
         recs.append(rec)
-        del kp, vp, kn, vn, q, clean, poisoned
+        del kp, vp, ks, vs, kn, vn, sn, pools, q, clean, poisoned
     torch.cuda.empty_cache()
     return recs
+
+
+# attention() at a head_dim no kernel is built for: B = 1, 16 q / 4 KV heads
+# (G = 4), a ragged S = 1000, d = 80 (padded to 128 on every device).
+HEAD_DIM_PAD = dict(b=1, h=16, hkv=4, s=1000, d=80)
+
+
+def head_dim_pad_check(fa, flash, backward, gen, report):
+    """``sdpa`` (``attention`` with its default scale, 1 / sqrt(80)) at
+    head_dim 80, causal GQA, bf16, forward and gradients under autograd on
+    the card, where the call zero-pads q/k/v to 128 and slices O, against
+    the same call on float32 CPU copies of the inputs, which runs the plain
+    versions; max abs error within FLASH_TOL (BWD_TOL for the gradients)
+    times the larger of 1 and the reference's largest magnitude (the bf16
+    outputs' rounding), each bf16 element's error against BF16_ELEM_TOL
+    reported.  The forward's and the fused backward's tensor-core forms
+    must launch once each."""
+    c = HEAD_DIM_PAD
+    b, h, hkv, s, d = (c[x] for x in ("b", "h", "hkv", "s", "d"))
+    q = torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    flash.flash_attention.launches_tc = backward.fused_bwd_kernel.launches_tc = 0
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = fa.sdpa(*ins, causal=True)
+    grads = torch.autograd.grad(o, ins, do)
+    torch.cuda.synchronize()
+    launches = {"flash_fwd_tc": flash.flash_attention.launches_tc,
+                "flash_bwd_tc": backward.fused_bwd_kernel.launches_tc}
+    cpu = [x.detach().float().cpu().requires_grad_() for x in (q, k, v)]
+    wo = fa.sdpa(*cpu, causal=True)
+    wgrads = torch.autograd.grad(wo, cpu, do.float().cpu())
+    recs = []
+    for name, got, want, tol in (("o", o, wo, FLASH_TOL["bfloat16"]),
+                                 *((f"d{n}", g_, w, BWD_TOL["bfloat16"])
+                                   for n, g_, w in zip("qkv", grads, wgrads))):
+        want = want.detach().to("cuda")
+        bound = tol * max(1.0, float(want.abs().max()))
+        e = err(got.detach(), want)
+        recs.append({"what": name, "max_abs_err": e, "bound": bound, "ok": e <= bound,
+                     "elem_err": elem_err(got.detach(), want)})
+    rec = {"check": f"attention/head_dim_80/{_kname('flash_fwd', q.new_empty(1, 128))}/bfloat16",
+           "shape": f"B={b} H={h} KVH={hkv} S={s} d={d} (padded to 128) causal, sdpa's scale",
+           "max_abs_err": max(r["max_abs_err"] for r in recs), "parts": recs,
+           "launches": launches,
+           "ok": all(r["ok"] for r in recs) and launches == {"flash_fwd_tc": 1, "flash_bwd_tc": 1}}
+    emit(rec)
+    report["checks"].append(rec)
+    del q, k, v, do, ins, o, grads, cpu, wo, wgrads
+    torch.cuda.empty_cache()
+    return rec
 
 
 # Gemma-2-9B-class attention: 16 q / 8 KV heads (G = 2), d = 256, window
@@ -794,8 +915,8 @@ def flash_window_checks(fa, flash, benchit, gen, card, report, form=None):
             q3 = q.reshape(b * kvh, g * s, d)
             kv3 = [(x.reshape(b * kvh, s, d), None if sc is None else sc.reshape(b * kvh, s))
                    for x, sc in ((k, ks), (v, vs))]
-            plain = lambda: flash.flash_attention_plain(  # noqa: E731
-                q3, *(_plain_kv(*x) for x in kv3), q_seq_len=s, **kw)
+            (k3, v3), sk3 = _plain_scales(kv3)
+            plain = lambda: flash.flash_attention_plain(q3, k3, v3, q_seq_len=s, **kw, **sk3)  # noqa: E731
             want = plain().reshape(q.shape)
             torch.cuda.synchronize()
             rec = _rec(_check_name(_kname("flash_fwd", q, form is not None), name, dt, form), o,
@@ -819,16 +940,17 @@ def flash_window_checks(fa, flash, benchit, gen, card, report, form=None):
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * d * pairs, dtype=dt))
                 out["main"] = rec
                 if rec["check"].startswith("flash_fwd_tc/"):
-                    twin = _scalar_twin(flash, benchit, rec, lambda: fa.attention(q, k, v, **kw),
+                    twin = _scalar_twin(flash, benchit, rec, lambda: fa.attention(q, k, v, **kw, **sk),
                                         lambda: plain().reshape(q.shape), dt, FLASH_TOL[dt])
-                    report.setdefault("tc_timed", {})["flash_fwd_tc/d256_window_softcap"] = rec
+                    report.setdefault("tc_timed", {})[
+                        _tc_key("flash_fwd_tc", "d256_window_softcap", form)] = rec
                     emit(twin)
                     report["checks"].append(twin)
                     out["main"] = twin
                 del kr, vr, mask
             emit(rec)
             report["checks"].append(rec)
-            del q, k, v, ks, vs, o, want, q3, kv3
+            del q, k, v, ks, vs, o, want, q3, kv3, k3, v3, sk3
             torch.cuda.empty_cache()
     return out["main"]
 
@@ -933,7 +1055,8 @@ def prefill_window_checks(decode, benchit, gen, card, report, form=None):
                 out["main"] = rec
                 if kname == "paged_prefill_tc":
                     twin = _scalar_twin(flash, benchit, rec, kernel, plain, dt, PREFILL_TOL[dt])
-                    report.setdefault("tc_timed", {})["paged_prefill_tc/d256_window_softcap"] = rec
+                    report.setdefault("tc_timed", {})[
+                        _tc_key(kname, "d256_window_softcap", form)] = rec
                     emit(twin)
                     report["checks"].append(twin)
                     out["main"] = twin
@@ -1136,9 +1259,11 @@ def _counters(flash, decode, backward):
     """Launch counters by name: ``(wrapper, attribute)``; ``<kernel>_quant``
     counts the 8-bit form's launches, ``paged_decode_draft`` the draft
     form's, ``<kernel>_dropout`` and ``<kernel>_block_mask`` the launches
-    with dropout and with a block mask, ``flash_fwd_tc`` and
-    ``flash_bwd_tc`` the tensor-core forms', which ``<kernel>`` counts
-    too."""
+    with dropout and with a block mask, ``flash_fwd_tc``, ``flash_bwd_tc``
+    and ``paged_prefill_tc`` the tensor-core forms', which ``<kernel>``
+    counts too, and ``flash_fwd_tc_quant`` and ``paged_prefill_tc_quant``
+    their 8-bit forms', which ``<kernel>_quant`` and the tensor-core counter
+    count too."""
     fns = {
         "flash_fwd": flash.flash_attention,
         "paged_decode": decode.paged_attention,
@@ -1155,24 +1280,28 @@ def _counters(flash, decode, backward):
     out.update({f"{k}_block_mask": (fns[k], "launches_block_mask") for k in EXTRA_KERNELS
                 if k != "flash_bwd"})
     out.update({tc: (fns[k], "launches_tc") for k, tc in TC_KERNELS.items()})
+    out.update({tc: (fns[k], "launches_tc_quantized") for k, tc in TC_QUANT_KERNELS.items()})
     return out
 
 
 def _tc_expect(want, cfg, page_size=PAGE_SIZE):
     """``want`` with the tensor-core forms' expected launches: every
-    flash_fwd launch of a bf16 model at their head_dims but the 8-bit and
-    block-mask ones, every fused backward launch at theirs, and every paged
-    prefill launch on bf16 pages of ``page_size`` rows."""
+    flash_fwd launch of a bf16 model at their head_dims but the block-mask
+    ones (the 8-bit ones, none with dropout on these paths, in its 8-bit
+    form too), every fused backward launch at theirs, and every paged
+    prefill launch of a bf16 model on pages of ``page_size`` rows (on 8-bit
+    pages in its 8-bit form too)."""
     from flashattention_tpu_torch.ops import flash
 
     dt = DTYPES[cfg.dtype]
     if flash.kernel_form("flash_fwd", dt, cfg.head_dim) == "tc":
-        want["flash_fwd_tc"] = (want["flash_fwd"] - want.get("flash_fwd_quant", 0)
-                                - want.get("flash_fwd_block_mask", 0))
+        want["flash_fwd_tc"] = want["flash_fwd"] - want.get("flash_fwd_block_mask", 0)
+        want["flash_fwd_tc_quant"] = want.get("flash_fwd_quant", 0)
     if flash.kernel_form("flash_bwd", dt, cfg.head_dim) == "tc":
         want["flash_bwd_tc"] = want["flash_bwd"]
     if flash.kernel_form("paged_prefill", dt, cfg.head_dim, page_size=page_size) == "tc":
-        want["paged_prefill_tc"] = want.get("paged_prefill", 0) - want.get("paged_prefill_quant", 0)
+        want["paged_prefill_tc"] = want.get("paged_prefill", 0)
+        want["paged_prefill_tc_quant"] = want.get("paged_prefill_quant", 0)
     return want
 
 
@@ -1689,12 +1818,15 @@ def phase_profile(args, eng, cfg, *, prompt_len, tag):
 
 def _kernel_of(name):
     """The KERNELS entry a profiled device kernel belongs to, or None: the
-    forward template's paged form (its last template argument, kPaged, true)
-    is paged_prefill_tc, the d = 256 backward kernel flash_bwd_tc's."""
+    forward template's paged form (its fifth template argument, kPaged,
+    true) is paged_prefill_tc, and its 8-bit form (the sixth, kKV, not 0)
+    the ``_quant`` one; the d = 256 backward kernel is flash_bwd_tc's."""
     m = re.search(r"flash_fwd_tc_kernel<([^<>]*)>", name)
     if m:
-        return ("paged_prefill_tc" if m.group(1).split(",")[-1].strip() in ("true", "1", "(bool)1")
-                else "flash_fwd_tc")
+        args = [a.strip() for a in m.group(1).split(",")]
+        paged = args[4] in ("true", "1", "(bool)1")
+        quant = len(args) > 5 and args[5] not in ("0", "(int)0")
+        return ("paged_prefill_tc" if paged else "flash_fwd_tc") + ("_quant" if quant else "")
     if "flash_bwd_tc_d256_kernel" in name:
         return "flash_bwd_tc"
     return next((k for k, _, _ in KERNELS if f"{k}_kernel" in name), None)
@@ -1885,11 +2017,12 @@ def phase_quant_ops(fa, flash, quant, gen, report):
     folded (B*H, S, d) tensors and ``attention(k_scales=, v_scales=)`` on
     (B, H, S, d) ones with (B, H_kv, S) scales, B = 4, H = 32, S = 1024,
     d = 128, causal, bfloat16 q, int8 K/V; each launches the flash
-    kernel's 8-bit form once and the two agree."""
+    kernel's tensor-core 8-bit form once and the two agree."""
     b, h, s, d = 4, 32, 1024, 128
     kq, vq = (_kv(gen, (b * h, s, d), None, "int8") for _ in range(2))
     q = torch.randn((b * h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     flash.flash_attention.launches = flash.flash_attention.launches_quantized = 0
+    flash.flash_attention.launches_tc = flash.flash_attention.launches_tc_quantized = 0
     o1 = fa.attention_quantized(q, quant.QuantizedTensor(*kq), quant.QuantizedTensor(*vq),
                                 causal=True, scale=d**-0.5)
     o2 = fa.attention(q.reshape(b, h, s, d), kq[0].reshape(b, h, s, d), vq[0].reshape(b, h, s, d),
@@ -1897,11 +2030,14 @@ def phase_quant_ops(fa, flash, quant, gen, report):
                       v_scales=vq[1].reshape(b, h, s))
     torch.cuda.synchronize()
     launches = {"flash_fwd": flash.flash_attention.launches,
-                "flash_fwd_quant": flash.flash_attention.launches_quantized}
+                "flash_fwd_quant": flash.flash_attention.launches_quantized,
+                "flash_fwd_tc": flash.flash_attention.launches_tc,
+                "flash_fwd_tc_quant": flash.flash_attention.launches_tc_quantized}
     e = err(o1.reshape(o2.shape), o2)
     rec = {"phase": "quant_ops", "shape": f"B={b} H={h} S={s} d={d} causal, bf16 q, int8 K/V",
            "max_abs_err": e, "tol": 0.0, "launches": launches,
-           "ok": e == 0.0 and launches == {"flash_fwd": 2, "flash_fwd_quant": 2}}
+           "ok": e == 0.0 and launches == {"flash_fwd": 2, "flash_fwd_quant": 2, "flash_fwd_tc": 2,
+                                           "flash_fwd_tc_quant": 2}}
     emit(rec)
     report["quant_ops"] = rec
     return rec
@@ -2245,6 +2381,12 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
                    "ok": e <= BWD_TOL[dt], "grad_absmax": absmax,
                    "shape": {**{n: x for n, x in c.items() if n != "seg"}, "segment_ids": "seg" in c}}
             timed = (name, dt) in (("train_layer", "bfloat16"), ("packed_layer", "bfloat16"))
+            if (name, dt) == ("train_layer_b2", "float32") and kname == fused:
+                # the float32 paths' form (float32 training runs the scalar kernel)
+                yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
+                rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c,
+                                     yard, dt))
+                report.setdefault("float32_timed", {})["flash_bwd"] = rec
             if timed and (kname == fused) == (name == "train_layer"):
                 if name not in yardsticks:
                     yardsticks[name] = _bwd_yardsticks(benchit, ins, kw, c, plain)
@@ -3190,6 +3332,7 @@ def main() -> int:
     serving = {form: serving_checks(fa, flash, decode, benchit, gen, name, report, form)
                for form in (None, *QUANT_FORMS)}
     poison = prefill_poison_check(decode, gen, report)
+    head_dim_pad_check(fa, flash, backward, gen, report)
     lap("serving_checks")
     # {None, "int8", "fp8"}: {"llama": timed draft-form check, "gemma2": ...}
     drafts = {form: draft_checks(decode, benchit, gen, name, report, form)
@@ -3297,16 +3440,25 @@ def main() -> int:
              **{p: r["launches"] for p, r in trained.items()},
              **{p: r["launches"] for p, r in parity.items()}}
     summary = []
-    mains["flash_fwd_tc"] = report["tc_timed"]["flash_fwd_tc"]
-    mains["paged_prefill_tc"] = report["tc_timed"]["paged_prefill_tc"]
+    tc_timed = report["tc_timed"]
+    mains["flash_fwd_tc"] = tc_timed["flash_fwd_tc"]
+    mains["paged_prefill_tc"] = tc_timed["paged_prefill_tc"]
+    mains["flash_fwd_tc_quant"] = tc_timed["flash_fwd_tc/int8"]
+    mains["paged_prefill_tc_quant"] = tc_timed["paged_prefill_tc/int8"]
     scalar_of = {tc: k for k, tc in TC_KERNELS.items()}
+    scalar_of.update({tc: f"{k} (its 8-bit form, -DFA_QUANT)" for k, tc in TC_QUANT_KERNELS.items()})
+    # A kernel's own launches: its counter's less those of the form counted
+    # within it (the scalar kernel's wrapper counts the tensor-core form's,
+    # the tensor-core form's counter its 8-bit form's).
+    within = {**TC_KERNELS, **{TC_KERNELS[k]: tc for k, tc in TC_QUANT_KERNELS.items()}}
     for kname, source, replaces in KERNELS:
         main_rec = mains[kname]
-        # A scalar kernel's own launches: its wrapper's less the tensor-core form's.
-        by_path = {p: n.get(kname, 0) - n.get(TC_KERNELS.get(kname), 0) for p, n in paths.items()}
+        by_path = {p: n.get(kname, 0) - n.get(within.get(kname), 0) for p, n in paths.items()}
         by_path = {p: x for p, x in by_path.items() if x}
+        built = " (built with -DFA_QUANT)" if kname in TC_QUANT_KERNELS.values() else ""
         summary.append({
-            "name": kname, "route": "cuda", "source": f"flashattention_tpu_torch/csrc/{source}",
+            "name": kname, "route": "cuda",
+            "source": f"flashattention_tpu_torch/csrc/{source}{built}",
             "replaces": f"flashattention_tpu/{replaces}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": main_rec["max_abs_err"],
@@ -3316,6 +3468,11 @@ def main() -> int:
             "bound_by": main_rec["bound_by"], "bytes_ms": main_rec["bytes_ms"],
             "ops_ms": main_rec["ops_ms"], "library_ms": main_rec["library_ms"],
         })
+        if kname in report.get("float32_timed", {}):  # the float32 paths' form, timed
+            rec32 = report["float32_timed"][kname]
+            summary[-1]["float32"] = {k: rec32[k] for k in (
+                "check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "bytes_ms", "ops_ms", "library_ms", "library")}
         if kname in scalar_of:  # the tensor-core form: the scalar form's time beside it
             summary[-1]["scalar_form"] = scalar_of[kname]
             summary[-1]["scalar_ms"] = main_rec["scalar_ms"]
@@ -3336,16 +3493,26 @@ def main() -> int:
                                                      f"{kname}_block_mask", keys)
             summary[-1]["block_mask"]["masks"] = {
                 m: {k: rec[k] for k in keys} for m, rec in masked[kname].items()}
-        if kname == "paged_prefill_tc":  # Gemma-2's window, and the NaN-poison checks
+        if kname in ("paged_prefill_tc", "paged_prefill_tc_quant"):  # the NaN-poison checks
+            summary[-1]["nan_poison"] = {r["check"]: r["ok"] for r in poison
+                                         if ("/quant/" in r["check"]) == kname.endswith("_quant")}
+        if kname in ("flash_fwd_tc", "paged_prefill_tc"):  # Gemma-2's window
             summary[-1]["d256_window_softcap"] = {
-                k: report["tc_timed"]["paged_prefill_tc/d256_window_softcap"][k]
-                for k in (*timed, "scalar_ms")}
-            summary[-1]["nan_poison"] = {r["check"]: r["ok"] for r in poison}
+                k: tc_timed[f"{kname}/d256_window_softcap"][k] for k in (*timed, "scalar_ms")}
+        if kname in TC_QUANT_KERNELS.values():  # fp8 beside int8, and Gemma-2's window
+            tc = kname.removesuffix("_quant")
+            summary[-1]["fp8"] = {k: tc_timed[f"{tc}/fp8"][k] for k in (*timed, "scalar_ms")}
+            summary[-1]["d256_window_softcap"] = {
+                f: {k: tc_timed[f"{tc}/d256_window_softcap/{f}"][k] for k in (*timed, "scalar_ms")}
+                for f in QUANT_FORMS}
         if kname in QUANT_KERNELS:
             summary[-1]["d256_window_softcap"] = {k: serving[None][kname][1][k] for k in timed}
             # The 8-bit form: int8's timed check, fp8's beside it, and both
-            # at the Gemma-2 window's shape.
-            by_path = {p: n[f"{kname}_quant"] for p, n in paths.items() if n.get(f"{kname}_quant")}
+            # at the Gemma-2 window's shape; its own launches (less the
+            # tensor-core 8-bit form's).
+            by_path = {p: n.get(f"{kname}_quant", 0) - n.get(TC_QUANT_KERNELS.get(kname), 0)
+                       for p, n in paths.items()}
+            by_path = {p: x for p, x in by_path.items() if x}
             q8 = {f: serving[f][kname] for f in QUANT_FORMS}
             summary[-1]["quantized"] = {
                 **{k: q8["int8"][0][k] for k in timed}, "ms": q8["int8"][0]["kernel_ms"],
@@ -3393,8 +3560,11 @@ def main() -> int:
                            "train_parity_dropout")
                if not report[p]["ok"]]
     failed += [k["name"] for k in summary if k["launches"] == 0]
+    # The scalar 8-bit forms of the two forwards left the paths for their
+    # tensor-core forms (which must launch, above); paged_decode's must.
     failed += [f"{k['name']}/quantized" for k in summary
-               if "quantized" in k and k["quantized"]["launches"] == 0]
+               if "quantized" in k and k["name"] not in TC_QUANT_KERNELS
+               and k["quantized"]["launches"] == 0]
     failed += [f"{k['name']}/{form}" for k in summary for form in ("dropout", "block_mask")
                if form in k and k[form]["launches"] == 0]
     emit({"kernels": summary})

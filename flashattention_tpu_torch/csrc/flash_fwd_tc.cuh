@@ -56,6 +56,25 @@
 // chunk's first row are read on the device (Paged), and rows that see no
 // column are written as zeros; see paged_prefill_tc.cu.
 //
+// kKV (1 int8, 2 fp8 e4m3; 0 bf16): 8-bit K/V payloads with float32
+// per-row scales, flat (BH, S_kv) or, paged, scale pools (P, KVH, ps) read
+// through the page table.  Replaces the Pallas kernels' quantized path
+// (flash.py:816-828, 968-978; decode.py:453, 481) in its order: the payload
+// converted to bf16 (exact), the bf16 QK^T product on wgmma, score column j
+// times k_scale[j], then the scale, softcap and masks; v_scale[j] folded
+// into P's column j before its two-term split for PV.  The TMA ring carries
+// the 8-bit tiles (whole rows of d bytes, unswizzled: half the bytes of a
+// bf16 ring), and one bf16 K tile and one bf16 V tile take the converted
+// stage: both consumer warpgroups convert it into the swizzled layout wgmma
+// reads (rows outside [first, end) as zeros, so stale bytes, an fp8 NaN
+// among them, never reach a product) and stage its scales (0 outside), then
+// fence.proxy.async and a named barrier; the 8-bit stage is freed at once.
+// The price: two barriers a tile (before the conversion, so that neither
+// warpgroup still reads the last tile's bf16 copy, and after it), which put
+// the two warpgroups in lockstep.  Shared memory at d = 256: Q 64 KB, the
+// 8-bit ring 64 KB, the bf16 K and V 64 KB (192 KB, as the bf16 form's);
+// 160 KB at d = 128.
+//
 // kProbe (probe_mma.cu only): 1 runs the QK^T products and the softmax
 // without the PV products, 2 the PV products on a constant P without the
 // rest; 3 the "local" softmax (each tile's p against the tile's own max,
@@ -75,20 +94,52 @@ constexpr int kThreads = 384;
 constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 
-template <int D>
+template <int D, int kKV = 0>
 struct Cfg {
+  static constexpr bool kQuant = kKV != 0;
   static constexpr int kN = D >= 256 ? 64 : 128;            // KV rows per tile
   static constexpr int kChunks = D / tc::kChunk;
   static constexpr int kQChunk = kBlockM * tc::kChunkRowBytes;   // one chunk of Q
   static constexpr int kKVChunk = kN * tc::kChunkRowBytes;       // one chunk of a K/V tile
-  static constexpr int kTileBytes = kChunks * kKVChunk;
-  // Q | K stages | V stages | kv segment ids by stage | barriers
+  static constexpr int kTileBytes = kChunks * kKVChunk;          // a bf16 K or V tile
+  // A ring stage's K or V tile, and how TMA loads it: bf16 in kChunks boxes
+  // of 128-byte rows; 8-bit in one box of D-byte rows.
+  static constexpr int kStageBytes = kQuant ? kN * D : kTileBytes;
+  static constexpr int kLoads = kQuant ? 1 : kChunks;
+  static constexpr int kRowBytes = kQuant ? D : tc::kChunkRowBytes;
+  // Q | K stages | V stages | (8-bit: bf16 K | bf16 V | K, V scales) | kv
+  // segment ids by stage | barriers
   static constexpr int kK = kChunks * kQChunk;
-  static constexpr int kV = kK + kStages * kTileBytes;
-  static constexpr int kSeg = kV + kStages * kTileBytes;
+  static constexpr int kV = kK + kStages * kStageBytes;
+  static constexpr int kKb = kV + kStages * kStageBytes;
+  static constexpr int kVb = kKb + (kQuant ? kTileBytes : 0);
+  static constexpr int kScales = kVb + (kQuant ? kTileBytes : 0);
+  static constexpr int kSeg = kScales + (kQuant ? 2 * kN * 4 : 0);
   static constexpr int kBar = kSeg + kStages * kN * 4;
   static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + tc::kAtomBytes;  // + alignment
 };
+
+// The 8-bit form's conversion of one staged K or V tile (kN rows of D
+// payload bytes) into the bf16 tile wgmma reads (D / 64 chunks of kN rows x
+// 128 bytes, 16-byte unit u of row r at u ^ (r % 8)), by the 256 consumer
+// threads (ct): each takes 8 payload bytes of a row, neighbouring threads
+// neighbouring bytes, and writes one 16-byte unit.  Rows outside [lo, hi)
+// are written as zeros without being read.
+template <int D, int kKV, int kN>
+__device__ __forceinline__ void convert_tile(const unsigned char* src, unsigned char* dst, int lo,
+                                             int hi, int ct) {
+  constexpr int kGroups = D / 8;  // 8-byte groups of a payload row
+#pragma unroll 4
+  for (int u = ct; u < kN * kGroups; u += 256) {
+    const int row = u / kGroups, grp = u % kGroups;
+    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    if (row >= lo && row < hi)
+      out = tc::cvt8_bf16<kKV>(*reinterpret_cast<const uint2*>(src + row * D + grp * 8));
+    const int unit = grp % 8;
+    *reinterpret_cast<uint4*>(dst + (grp / 8) * kN * tc::kChunkRowBytes +
+                              row * tc::kChunkRowBytes + ((unit ^ (row % 8)) * 16)) = out;
+  }
+}
 
 // The KV columns [kv_begin, kv_end) the query rows [r0, r0 + kBlockM) may
 // see, kv_begin a multiple of the tile: the same in producer and consumers.
@@ -118,7 +169,7 @@ struct Paged {
   int pages_per_seq, page_size, chunk;
 };
 
-template <int D, bool kWindowCap, bool kExtra, int kProbe, bool kPaged>
+template <int D, bool kWindowCap, bool kExtra, int kProbe, bool kPaged, int kKV = 0>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -126,8 +177,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     float* __restrict__ l_out, float* __restrict__ m_out,
                     const int* __restrict__ q_seg, const int* __restrict__ kv_seg, int rows,
                     int s_kv, int kv_len, int q_offset, int q_seq_len, int causal, float scale,
-                    int window, float softcap, const fa::Extras ex, const Paged pg) {
-  using C = Cfg<D>;
+                    int window, float softcap, const fa::Extras ex, const Paged pg,
+                    const float* __restrict__ k_scales, const float* __restrict__ v_scales) {
+  using C = Cfg<D, kKV>;
   constexpr int kN = C::kN;
   constexpr bool kLocal = kProbe == 3;
   constexpr int kChains = kProbe == 4 ? 2 : kProbe == 5 ? 4 : 1;
@@ -186,13 +238,13 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           const int* table = pg.page_indices + static_cast<size_t>(blockIdx.z) * pg.pages_per_seq;
           int n_box = 0;
           for (int j = 0; j < kN; j += box) n_box += t0 + j + box > kv.first && t0 + j < kv.end;
-          tc::mbar_arrive_tx(&full[s], 2 * C::kChunks * n_box * box * tc::kChunkRowBytes);
+          tc::mbar_arrive_tx(&full[s], 2 * C::kLoads * n_box * box * C::kRowBytes);
           for (int j = 0; j < kN; j += box) {
             const int t = t0 + j;
             if (t + box <= kv.first || t >= kv.end) continue;
             const int page = table[t / pg.page_size];
-            for (int c = 0; c < C::kChunks; ++c) {
-              const int off = s * C::kTileBytes + c * C::kKVChunk + j * tc::kChunkRowBytes;
+            for (int c = 0; c < C::kLoads; ++c) {
+              const int off = s * C::kStageBytes + c * C::kKVChunk + j * C::kRowBytes;
               tc::tma_load4(smem + C::kK + off, &tm_k, &full[s], c * tc::kChunk, t % pg.page_size,
                             blockIdx.y, page);
               tc::tma_load4(smem + C::kV + off, &tm_v, &full[s], c * tc::kChunk, t % pg.page_size,
@@ -208,11 +260,11 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int j = lane; j < kN; j += 32)
           seg_t[s * kN + j] = t0 + j < kv_len ? kv_seg[static_cast<size_t>(bh) * s_kv + t0 + j] : 0;
       if (lane == 0) {
-        tc::mbar_arrive_tx(&full[s], 2 * C::kTileBytes);
-        for (int c = 0; c < C::kChunks; ++c) {
-          tc::tma_load(smem + C::kK + s * C::kTileBytes + c * C::kKVChunk, &tm_k, &full[s],
+        tc::mbar_arrive_tx(&full[s], 2 * C::kStageBytes);
+        for (int c = 0; c < C::kLoads; ++c) {
+          tc::tma_load(smem + C::kK + s * C::kStageBytes + c * C::kKVChunk, &tm_k, &full[s],
                        c * tc::kChunk, t0, bh);
-          tc::tma_load(smem + C::kV + s * C::kTileBytes + c * C::kKVChunk, &tm_v, &full[s],
+          tc::tma_load(smem + C::kV + s * C::kStageBytes + c * C::kKVChunk, &tm_v, &full[s],
                        c * tc::kChunk, t0, bh);
         }
       } else {
@@ -259,13 +311,43 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     l_a[c] = l_b[c] = 0.f;
   }
   const uint32_t q_base = tc::smem_u32(smem) + cw * 64 * tc::kChunkRowBytes;
+  // The 8-bit form frees a stage once it is converted, unless the masks
+  // still read its segment ids.
+  const bool early_free = C::kQuant && !has_seg;
   tc::mbar_wait(q_bar, 0);
 
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % kStages;
     tc::mbar_wait(&full[s], (i / kStages) & 1);
     const int t0 = kv.begin + i * kN;
-    if constexpr (kPaged) {
+    if constexpr (C::kQuant) {
+      // The 8-bit stage into the bf16 K and V tiles and the scales, once
+      // neither warpgroup reads the last tile's (rows outside [kv.first,
+      // kv.end) as zeros: unloaded boxes, pages past ctx_len, stale bytes).
+      const int lo = kv.first - t0, hi = kv.end - t0, ct = threadIdx.x - 128;
+      tc::named_sync(1, 256);
+      convert_tile<D, kKV, kN>(smem + C::kK + s * C::kStageBytes, smem + C::kKb, lo, hi, ct);
+      convert_tile<D, kKV, kN>(smem + C::kV + s * C::kStageBytes, smem + C::kVb, lo, hi, ct);
+      if (ct < 2 * kN) {
+        const int row = ct % kN, col = t0 + row;
+        const float* scales = ct < kN ? k_scales : v_scales;
+        float x = 0.f;
+        if (row >= lo && row < hi) {
+          size_t at = static_cast<size_t>(bh) * s_kv + col;
+          if constexpr (kPaged) {
+            const int page = pg.page_indices[static_cast<size_t>(blockIdx.z) * pg.pages_per_seq +
+                                             col / pg.page_size];
+            at = (static_cast<size_t>(page) * gridDim.y + blockIdx.y) * pg.page_size +
+                 col % pg.page_size;
+          }
+          x = __ldg(scales + at);
+        }
+        reinterpret_cast<float*>(smem + C::kScales)[ct] = x;
+      }
+      tc::fence_async_smem();
+      tc::named_sync(1, 256);
+      if (early_free) tc::mbar_arrive(&empty[s]);
+    } else if constexpr (kPaged) {
       // V rows outside [kv.first, kv.end) (boxes not loaded, the last live
       // page past ctx_len) may hold anything, NaN too, and P = 0 times NaN
       // is NaN: both consumer warpgroups zero them before either reads V.
@@ -284,8 +366,12 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int ch = 0; ch < kChains; ++ch) {
       if (skip || i % kChains != ch) continue;
-      const uint32_t k_base = tc::smem_u32(smem + C::kK + s * C::kTileBytes);
-      const uint32_t v_base = tc::smem_u32(smem + C::kV + s * C::kTileBytes);
+      const uint32_t k_base =
+          tc::smem_u32(smem + (C::kQuant ? C::kKb : C::kK + s * C::kTileBytes));
+      const uint32_t v_base =
+          tc::smem_u32(smem + (C::kQuant ? C::kVb : C::kV + s * C::kTileBytes));
+      const float* ks_t = reinterpret_cast<const float*>(smem + C::kScales);  // 8-bit: k, v scales
+      const float* vs_t = ks_t + kN;
       float sc[kN / 2];
       float beta_a = 1.f, beta_b = 1.f;  // the tile's factor (the local softmax's)
       if constexpr (kProbe != 2) {
@@ -308,7 +394,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int j = 0; j < kN / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float x = sc[4 * j + e] * scale;
+            float x = sc[4 * j + e];
+            if constexpr (C::kQuant) x *= ks_t[8 * j + 2 * t + (e & 1)];
+            x *= scale;
             if (kWindowCap && cap > 0.f) x = fa::softcap(x, cap);
             if (need_mask) {
               const int col = t0 + 8 * j + 2 * t + (e & 1);
@@ -352,6 +440,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             float p = tc::ex2((sc[4 * j + e] - (e < 2 ? mx_a : mx_b)) * tc::kLog2e);
             if (e < 2) sum_a += p;
             else sum_b += p;
+            if constexpr (C::kQuant) p *= vs_t[8 * j + 2 * t + (e & 1)];  // v_scale into P
             if (dropout) {  // l keeps the undropped sum; the PV product takes the kept p
               const int col = t0 + 8 * j + 2 * t + (e & 1);
               p = fa::dropout_kept(e < 2 ? key_a : key_b, col, ex.threshold) ? p * ex.inv : 0.f;
@@ -407,7 +496,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int w = 0; w < 4; ++w) asm volatile("" : "+r"(pa[kk][w]), "+r"(pl[kk][w])::"memory");
       }
     }
-    tc::mbar_arrive(&empty[s]);
+    if (!early_free) tc::mbar_arrive(&empty[s]);
   }
 
   if constexpr (kChains > 1) {  // merge the chains into chain 0
@@ -495,28 +584,32 @@ struct Args {
   float softcap;
   fa::Extras ex;
   cudaStream_t stream;
+  const float* k_scales = nullptr;  // 8-bit K/V: (bh, s_kv) or, paged, (P, KVH, ps)
+  const float* v_scales = nullptr;
 };
 
-template <int D, bool kWindowCap, bool kExtra, int kProbe>
+template <int D, bool kWindowCap, bool kExtra, int kProbe, int kKV = 0>
 int launch(const Args& a) {
-  using C = Cfg<D>;
+  using C = Cfg<D, kKV>;
   CUtensorMap mq, mk, mv;
   // K/V rows past kv_len read as zeros: V's there may be anything.
   const int kv_rows = a.kv_len > 0 ? a.kv_len : 1;
+  const int eb = C::kQuant ? 1 : 2;  // K/V element bytes
   int st = tc_encode_map(&mq, a.q, D, a.rows, a.bh, static_cast<long long>(a.rows) * D, kBlockM);
   if (st == 0)
-    st = tc_encode_map(&mk, a.k, D, kv_rows, a.bh, static_cast<long long>(a.s_kv) * D, C::kN);
+    st = tc_encode_map(&mk, a.k, D, kv_rows, a.bh, static_cast<long long>(a.s_kv) * D, C::kN, eb);
   if (st == 0)
-    st = tc_encode_map(&mv, a.v, D, kv_rows, a.bh, static_cast<long long>(a.s_kv) * D, C::kN);
+    st = tc_encode_map(&mv, a.v, D, kv_rows, a.bh, static_cast<long long>(a.s_kv) * D, C::kN, eb);
   if (st != 0) return st;
-  auto kernel = flash_fwd_tc_kernel<D, kWindowCap, kExtra, kProbe, false>;
+  auto kernel = flash_fwd_tc_kernel<D, kWindowCap, kExtra, kProbe, false, kKV>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.rows + kBlockM - 1) / kBlockM, a.bh);
   kernel<<<grid, kThreads, C::kBytes, a.stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), a.l, a.m, a.q_seg, a.kv_seg, a.rows, a.s_kv,
-      a.kv_len, a.q_offset, a.q_seq_len, a.causal, a.scale, a.window, a.softcap, a.ex, Paged{});
+      a.kv_len, a.q_offset, a.q_seq_len, a.causal, a.scale, a.window, a.softcap, a.ex, Paged{},
+      a.k_scales, a.v_scales);
   return static_cast<int>(cudaGetLastError());
 }
 

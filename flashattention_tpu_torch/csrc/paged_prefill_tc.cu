@@ -11,8 +11,12 @@
 // col < ctx_len and, with a sliding window, col > pos - window; the logit
 // softcap bends each scaled score before the masks; a row that sees no
 // column (a ctx_len == 0 request, a pad row whose window lies past the
-// context) gets zeros.  8-bit pages stay on the scalar kernel's FA_QUANT
-// form.
+// context) gets zeros.  Built with FA_QUANT (paged_prefill_tc_quant): over
+// int8 or fp8 e4m3 pages with float32 scale pools (P, KVH, ps), the
+// template's 8-bit form (kKV): 8-bit boxes of whole d-byte rows through the
+// same page table, converted to bf16 in shared memory by the consumers,
+// score columns times k_scale and P's columns times v_scale as the Pallas
+// kernel orders them (decode.py:453, 481).
 //
 // Bound on this card: operations at the serving shapes (4 d flops a live
 // pair against 2 d bytes of K/V per 128-row query tile), so both products
@@ -44,35 +48,47 @@
 
 namespace {
 
-template <int D, bool kWindowCap>
+template <int D, bool kWindowCap, int kKV>
 int launch(const fwd_tc::Args& a, const fwd_tc::Paged& pg, int num_pages, int kvh, int b) {
-  using C = fwd_tc::Cfg<D>;
+  using C = fwd_tc::Cfg<D, kKV>;
   if (pg.page_size % 8 || (C::kN % pg.page_size && pg.page_size % C::kN)) return -1;
   CUtensorMap mq, mk, mv;
   const int box = pg.page_size < C::kN ? pg.page_size : C::kN;
+  const int eb = C::kQuant ? 1 : 2;  // K/V element bytes
   const long long pool_dims[4] = {D, pg.page_size, kvh, num_pages};
   const long long pool_strides[3] = {D, static_cast<long long>(pg.page_size) * D,
                                      static_cast<long long>(kvh) * pg.page_size * D};
   int st = tc_encode_map(&mq, a.q, D, a.rows, a.bh, static_cast<long long>(a.rows) * D,
                          fwd_tc::kBlockM);
-  if (st == 0) st = tc_encode(&mk, a.k, 4, pool_dims, pool_strides, box);
-  if (st == 0) st = tc_encode(&mv, a.v, 4, pool_dims, pool_strides, box);
+  if (st == 0) st = tc_encode(&mk, a.k, 4, pool_dims, pool_strides, box, eb);
+  if (st == 0) st = tc_encode(&mv, a.v, 4, pool_dims, pool_strides, box, eb);
   if (st != 0) return st;
-  auto kernel = fwd_tc::flash_fwd_tc_kernel<D, kWindowCap, false, 0, true>;
+  auto kernel = fwd_tc::flash_fwd_tc_kernel<D, kWindowCap, false, 0, true, kKV>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.rows + fwd_tc::kBlockM - 1) / fwd_tc::kBlockM, kvh, b);
   kernel<<<grid, fwd_tc::kThreads, C::kBytes, a.stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), nullptr, nullptr, nullptr, nullptr, a.rows,
-      0, 0, 0, a.q_seq_len, 1, a.scale, a.window, a.softcap, a.ex, pg);
+      0, 0, 0, a.q_seq_len, 1, a.scale, a.window, a.softcap, a.ex, pg, a.k_scales, a.v_scales);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int kKV>
 int launch_w(const fwd_tc::Args& a, const fwd_tc::Paged& pg, int num_pages, int kvh, int b) {
-  return a.window > 0 || a.softcap > 0.f ? launch<D, true>(a, pg, num_pages, kvh, b)
-                                         : launch<D, false>(a, pg, num_pages, kvh, b);
+  return a.window > 0 || a.softcap > 0.f ? launch<D, true, kKV>(a, pg, num_pages, kvh, b)
+                                         : launch<D, false, kKV>(a, pg, num_pages, kvh, b);
+}
+
+template <int kKV>
+int launch_d(const fwd_tc::Args& a, const fwd_tc::Paged& pg, int d, int num_pages, int kvh,
+             int b) {
+  switch (d) {
+    case 64: return launch_w<64, kKV>(a, pg, num_pages, kvh, b);
+    case 128: return launch_w<128, kKV>(a, pg, num_pages, kvh, b);
+    case 256: return launch_w<256, kKV>(a, pg, num_pages, kvh, b);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -82,6 +98,7 @@ int launch_w(const fwd_tc::Args& a, const fwd_tc::Paged& pg, int num_pages, int 
 // like q.  All contiguous, on the device, 16-byte aligned (TMA); entries of
 // a table row that cover live columns name pool pages.  window <= 0: no
 // sliding window; softcap <= 0: none.
+#ifndef FA_QUANT
 extern "C" int fa_paged_prefill_tc(const void* q, const void* k_pages, const void* v_pages,
                                    const void* page_indices, const void* ctx_lens, void* o, int b,
                                    int kvh, int rows, int d, int num_pages, int page_size,
@@ -93,10 +110,28 @@ extern "C" int fa_paged_prefill_tc(const void* q, const void* k_pages, const voi
                        static_cast<cudaStream_t>(stream)};
   const fwd_tc::Paged pg{static_cast<const int*>(page_indices), static_cast<const int*>(ctx_lens),
                          pages_per_seq, page_size, chunk};
-  switch (d) {
-    case 64: return launch_w<64>(a, pg, num_pages, kvh, b);
-    case 128: return launch_w<128>(a, pg, num_pages, kvh, b);
-    case 256: return launch_w<256>(a, pg, num_pages, kvh, b);
+  return launch_d<0>(a, pg, d, num_pages, kvh, b);
+}
+#else
+// The 8-bit form: the pools int8 (kv_dtype 2) or fp8 e4m3 (3) payloads,
+// k_scales, v_scales their (num_pages, kvh, page_size) float32 scale pools.
+extern "C" int fa_paged_prefill_tc_quant(int kv_dtype, const void* k_scales, const void* v_scales,
+                                         const void* q, const void* k_pages, const void* v_pages,
+                                         const void* page_indices, const void* ctx_lens, void* o,
+                                         int b, int kvh, int rows, int d, int num_pages,
+                                         int page_size, int pages_per_seq, int chunk, int seg,
+                                         float scale, int window, float softcap, void* stream) {
+  const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, seg, 0u, 0u, 0.f};
+  fwd_tc::Args a{q, k_pages, v_pages, o, nullptr, nullptr, nullptr, nullptr, b * kvh, rows,
+                 0, 0, 0, seg, 1, scale, window, softcap, ex, static_cast<cudaStream_t>(stream)};
+  a.k_scales = static_cast<const float*>(k_scales);
+  a.v_scales = static_cast<const float*>(v_scales);
+  const fwd_tc::Paged pg{static_cast<const int*>(page_indices), static_cast<const int*>(ctx_lens),
+                         pages_per_seq, page_size, chunk};
+  switch (kv_dtype) {
+    case 2: return launch_d<1>(a, pg, d, num_pages, kvh, b);
+    case 3: return launch_d<2>(a, pg, d, num_pages, kvh, b);
     default: return -1;
   }
 }
+#endif

@@ -22,6 +22,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is not linked
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -101,6 +102,38 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// 8-bit payloads to bf16, exactly (every int8 and every e4m3 value is a
+// bf16 value): eight payload bytes to eight bf16, the lower byte in the
+// lower half of each word.  int8 by the float32 magic number: byte b ^ 0x80
+// as the low mantissa byte of 2^23 is 2^23 + 128 + b.  e4m3 by the
+// hardware's pair conversion to f16x2 (sm_89 and later), then float32.
+template <int kKV>
+__device__ __forceinline__ uint4 cvt8_bf16(uint2 x) {
+  uint32_t w[2] = {x.x, x.y}, out[4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if constexpr (kKV == 1) {  // int8
+      const uint32_t b = w[h] ^ 0x80808080u;
+      float f[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        f[i] = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7540u | i)) - 8388736.f;
+      out[2 * h] = pack_bf16(f[0], f[1]);
+      out[2 * h + 1] = pack_bf16(f[2], f[3]);
+    } else {  // e4m3
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint32_t h2;
+        const unsigned short pair = static_cast<unsigned short>(w[h] >> (16 * i));
+        asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h2) : "h"(pair));
+        const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h2));
+        out[2 * h + i] = pack_bf16(f.x, f.y);
+      }
+    }
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
 }
 
 // mbarriers (PTX ISA, "mbarrier").
@@ -344,19 +377,61 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 }
 
 
+// wgmma m64n128k32, s8 x s8 -> s32 (accumulate unless scale_d is 0), both
+// operands from shared memory in the K-major form (an 8-bit product takes no
+// other), swizzled by 128 bytes: a k-step of 32 moves the start by 32 bytes.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 }  // namespace tc
 
 // The driver's cuTensorMapEncodeTiled, found through the runtime, so that
-// the library does not link libcuda itself: a bf16 tensor of `rank`
-// dimensions (`dims`, innermost first; `strides` in elements for dimensions
-// 1 .. rank - 1) read as boxes of 64 columns x `box_rows` rows (x 1 in the
-// others), swizzled by 128 bytes; what lies past a dimension's end reads as
-// zeros.  Returns 0, or kTcMapError + the CUresult (kTcMapError alone: no
-// driver entry point).
+// the library does not link libcuda itself: a tensor of `rank` dimensions
+// (`dims`, innermost first; `strides` in elements for dimensions 1 .. rank -
+// 1) read as boxes of `box_rows` rows (x 1 in the others): bf16 (elem_bytes
+// 2) in boxes of 64 columns swizzled by 128 bytes, the layout wgmma reads;
+// 8-bit payloads (elem_bytes 1, int8 or fp8 as bytes) in boxes of whole
+// rows, unswizzled (rows of dims[0] bytes, at most 256), which the
+// consumers convert to bf16 themselves, or with `swizzle8` in boxes of 128
+// columns swizzled by 128 bytes, the layout an 8-bit wgmma reads
+// (probe_mma.cu's native int8 products).  What lies past a dimension's end
+// reads as zeros.  Returns 0, or kTcMapError + the CUresult (kTcMapError
+// alone: no driver entry point).
 constexpr int kTcMapError = 10000;
 
 static int tc_encode(CUtensorMap* map, const void* base, int rank, const long long* dims,
-                     const long long* strides, int box_rows) {
+                     const long long* strides, int box_rows, int elem_bytes = 2,
+                     bool swizzle8 = false) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -379,22 +454,28 @@ static int tc_encode(CUtensorMap* map, const void* base, int rank, const long lo
   cuuint32_t box[5], elem[5];
   for (int i = 0; i < rank; ++i) {
     d[i] = static_cast<cuuint64_t>(dims[i]);
-    box[i] = i == 0 ? tc::kChunk : i == 1 ? static_cast<cuuint32_t>(box_rows) : 1;
+    const cuuint32_t cols = elem_bytes == 2 ? tc::kChunk
+                            : swizzle8      ? 128u
+                                            : static_cast<cuuint32_t>(dims[0]);
+    box[i] = i == 0 ? cols : i == 1 ? static_cast<cuuint32_t>(box_rows) : 1;
     elem[i] = 1;
-    if (i > 0) st[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * 2;
+    if (i > 0) st[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * elem_bytes;
   }
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                            d, st, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const bool wide = elem_bytes == 2;
+  const CUresult r = encode(map, wide ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                            rank, const_cast<void*>(base), d, st, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            wide || swizzle8 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTcMapError + static_cast<int>(r);
 }
 
 // `heads` matrices of `rows` x `cols` (row stride `cols`, head stride
 // `head_stride` elements); rows past `rows` read as zeros.
 static int tc_encode_map(CUtensorMap* map, const void* base, int cols, int rows, int heads,
-                         long long head_stride, int box_rows) {
+                         long long head_stride, int box_rows, int elem_bytes = 2,
+                         bool swizzle8 = false) {
   const long long dims[3] = {cols, rows, heads};
   const long long strides[2] = {cols, head_stride};
-  return tc_encode(map, base, 3, dims, strides, box_rows);
+  return tc_encode(map, base, 3, dims, strides, box_rows, elem_bytes, swizzle8);
 }

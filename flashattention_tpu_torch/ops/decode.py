@@ -17,9 +17,10 @@ at its own causal limit, and the kernel's draft form runs.
 chunk of rows per request, GQA-folded into ``(B, KVH, G * seg, d)``, that
 attend their context straight off the pool.  On a CUDA tensor it launches a
 kernel that replaces the Pallas ``_paged_prefill_kernel`` (:375), in the form
-``ops.flash.kernel_form`` picks: for bf16 at head_dim 64, 128 or 256 with
-bf16 pages of a size it takes (``ops.flash.tc_page_size``) the tensor-core
-kernel in ``csrc/paged_prefill_tc.cu``, otherwise the float32 CUDA-core
+``ops.flash.kernel_form`` picks: for bf16 q at head_dim 64, 128 or 256 over
+bf16 or 8-bit pages of a size it takes (``ops.flash.tc_page_size``) the
+tensor-core kernel in ``csrc/paged_prefill_tc.cu`` (``paged_prefill_tc``, and
+for 8-bit pages ``paged_prefill_tc_quant``), otherwise the float32 CUDA-core
 kernel in ``csrc/paged_prefill.cu``; on a CPU tensor it runs
 :func:`paged_prefill_attention_plain` with the chosen form's rounding.
 
@@ -28,9 +29,11 @@ Both take a sliding window (a query at position ``pos`` sees columns
 the scale, before the masks), as the Pallas kernels do, and 8-bit pages:
 int8 or fp8 payload pools with float32 scale pools ``(P, KVH, page_size)``,
 one scale per K/V row (``k_scales_pages``/``v_scales_pages``).  Those launch
-the kernels' 8-bit forms (the same sources built with ``FA_QUANT``), which
-dequantize each row as they load it; their plain versions dequantize the
-gathered pages in float32 and attend as for float pages.
+the kernels' 8-bit forms (the same sources built with ``FA_QUANT``): the
+scalar ones dequantize each row as they load it, and their plain versions
+dequantize the gathered pages in float32 and attend as for float pages;
+chunked prefill's tensor-core form converts each staged tile to bf16 and
+scales the score columns and P, and its plain version mirrors that.
 """
 
 from __future__ import annotations
@@ -290,8 +293,9 @@ def paged_prefill_attention_plain(
     context through the tensor-core forward's plain version
     (``ops.flash.flash_attention_plain(form="tc")``: p as two bf16 terms
     against the running max of ``TC_KV_TILE`` columns, tiles aligned to
-    column 0, as the paged kernel's are), its chunk's rows at ``ctx_len -
-    chunk + r % seg``; ``"scalar"`` attends in float32."""
+    column 0, as the paged kernel's are; 8-bit pages as payloads with their
+    gathered scales), its chunk's rows at ``ctx_len - chunk + r % seg``;
+    ``"scalar"`` attends in float32."""
     seg = seg or q.shape[2]
     if form is None:
         form = kernel_form("paged_prefill", q.dtype, q.shape[3],
@@ -299,13 +303,17 @@ def paged_prefill_attention_plain(
     s_max = page_indices.shape[1] * k_pages.shape[2]
     rows = q.shape[2]
     if form == "tc":
-        k = _gather(k_pages, k_scales_pages, page_indices)
-        v = _gather(v_pages, v_scales_pages, page_indices)
+        k = _gather(k_pages, None, page_indices)
+        v = _gather(v_pages, None, page_indices)
+        ks = vs = [None] * len(k)
+        if k_scales_pages is not None:  # (B, KVH, S_max) per-row scales
+            ks, vs = (sc[page_indices.long()].transpose(1, 2).reshape(*k.shape[:3])
+                      for sc in (k_scales_pages, v_scales_pages))
         o = torch.stack([
             flash_attention_plain(
                 q[b], k[b], v[b], causal=True, scale=scale, kv_len=min(n, s_max),
                 q_offset=n - chunk, q_seq_len=seg, window=window, logit_softcap=logit_softcap,
-                form="tc")
+                form="tc", k_scales=ks[b], v_scales=vs[b])
             for b, n in enumerate(ctx_lens.tolist())])
     else:
         o = paged_prefill_attention_reference(
@@ -366,9 +374,10 @@ def paged_prefill_attention_batched(
       logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
 
     Returns ``(B, KVH, R, d)`` in q's dtype.  The launch count is kept on
-    this function (``.launches``; ``.launches_tc`` and
-    ``.launches_quantized`` count the tensor-core and the 8-bit forms'
-    among them); :func:`paged_prefill_attention` launches through it.
+    this function (``.launches``; ``.launches_tc``, ``.launches_quantized``
+    and ``.launches_tc_quantized`` count the tensor-core, the 8-bit and the
+    tensor-core 8-bit forms' among them); :func:`paged_prefill_attention`
+    launches through it.
     """
     check_window(window, logit_softcap, causal=True)
     if q.dim() != 4 or k_pages.dim() != 4:
@@ -416,15 +425,21 @@ def paged_prefill_attention_batched(
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if form == "tc":
-        status = kernels.library("paged_prefill_tc").fa_paged_prefill_tc(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_indices.data_ptr(),
+        name, quant = "paged_prefill_tc", ()
+        if quantized:  # the 8-bit form: the payload's type code and the scale pools
+            name = "paged_prefill_tc_quant"
+            quant = (KV_DTYPES[k_pages.dtype], k_scales_pages.data_ptr(), v_scales_pages.data_ptr())
+        status = getattr(kernels.library(name), kernels.KERNELS[name][1])(
+            *quant, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_indices.data_ptr(),
             ctx_lens.data_ptr(), o.data_ptr(), b, kvh, rows, d, num_pages, page_size,
             page_indices.shape[1], int(chunk), seg, float(scale),
             *kernel_options(window, logit_softcap), stream,
         )
-        kernels.check_launch("paged_prefill_tc", status, f"q {tuple(q.shape)}, page {page_size}")
+        kernels.check_launch(name, status, f"q {tuple(q.shape)}, pages {k_pages.dtype} {page_size}")
         paged_prefill_attention_batched.launches += 1
         paged_prefill_attention_batched.launches_tc += 1
+        paged_prefill_attention_batched.launches_quantized += quantized
+        paged_prefill_attention_batched.launches_tc_quantized += quantized
         return o
     name = "paged_prefill_quant" if quantized else "paged_prefill"
     status = kernels.library(name).fa_paged_prefill(
@@ -441,10 +456,11 @@ def paged_prefill_attention_batched(
 
 
 # Kernel launches, for the chip run's path check: all forms, and the
-# tensor-core and 8-bit ones among them.
+# tensor-core, 8-bit and tensor-core 8-bit ones among them.
 paged_prefill_attention_batched.launches = 0
 paged_prefill_attention_batched.launches_tc = 0
 paged_prefill_attention_batched.launches_quantized = 0
+paged_prefill_attention_batched.launches_tc_quantized = 0
 
 
 def paged_prefill_attention(

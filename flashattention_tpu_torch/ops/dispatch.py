@@ -14,9 +14,15 @@ payloads with per-token scales ``k_scales``/``v_scales``) go to the forward
 kernel's 8-bit form only, as in the JAX package (dispatch.py:288-295); under
 autograd they raise before any launch.  Unlike the TPU
 package it does not pad ragged lengths to the tile: the CUDA kernels mask
-the ragged edge.  ``implementation="xla"`` keeps the JAX package's name for
-its oracle path and runs the plain reference (:mod:`ops.reference`) instead
-of the kernel.
+the ragged edge.  It pads the head_dim instead, on every device, so that the
+CPU runs the route the card takes: the kernels are built for head_dims 16,
+32, 64, 128 and 256, and any other d up to 256 is zero-padded to the next of
+them (80 and 96 to 128, 48 to 64; 8-bit payloads with zeros, their scales
+as they are), with the caller's scale; zero columns add nothing to Q K^T or
+to O, whose pad columns are sliced off (and their gradients dropped).  A
+head_dim above 256 is refused by name.  ``implementation="xla"`` keeps the
+JAX package's name for its oracle path and runs the plain reference
+(:mod:`ops.reference`) instead of the kernel.
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ import torch
 
 from flashattention_tpu_torch.ops import reference
 from flashattention_tpu_torch.ops.backward import attention_vjp
+from flashattention_tpu_torch.ops.quant import byte_view
 from flashattention_tpu_torch.ops.reference import dequantize_rows
 from flashattention_tpu_torch.ops.flash import (
+    _HEAD_DIMS,
     MIN_BLOCK,
     BlockMask,
     BlockSizes,
@@ -181,6 +189,9 @@ def attention(
             window=window, logit_softcap=logit_softcap,
         )
     elif implementation == "cuda":
+        d_pad = padded_head_dim(d)
+        if d_pad != d:
+            q3, k3, v3 = (_pad_head_dim(x, d_pad) for x in (q3, k3, v3))
         q_seq_len = s_q if groups > 1 else None
         # Dropout draws its bits at the JAX package's raw rows, where each
         # GQA segment is padded to a multiple of its smallest tile.
@@ -210,6 +221,7 @@ def attention(
                 **extra,
             )
             o, l, m = out if save_residuals else (out, None, None)
+        o = o[..., :d]
     else:
         raise ValueError(f"unknown implementation: {implementation!r}")
 
@@ -218,6 +230,24 @@ def attention(
         stat_shape = q_shape[:-1]
         return o, l.reshape(stat_shape), m.reshape(stat_shape)
     return o
+
+
+def padded_head_dim(d: int) -> int:
+    """The head_dim the kernels run a call of head_dim ``d`` at: the
+    smallest built one at or above ``d``.  Raises for ``d`` above 256."""
+    for size in _HEAD_DIMS:
+        if d <= size:
+            return size
+    raise ValueError(f"attention takes head_dim <= {_HEAD_DIMS[-1]}, got {d}")
+
+
+def _pad_head_dim(x, d_pad):
+    """``x`` with its last dim zero-padded to ``d_pad`` (an fp8 payload
+    through its bytes: a zero byte is 0 in e4m3, as in int8)."""
+    pad = (0, d_pad - x.shape[-1])
+    if x.dtype == torch.float8_e4m3fn:
+        return torch.nn.functional.pad(byte_view(x), pad).view(x.dtype)
+    return torch.nn.functional.pad(x, pad)
 
 
 def _fold_side_input(ids, b_lead, bh, s, name):

@@ -2,9 +2,10 @@
 
 Counterpart of ``flashattention_tpu/ops/flash.py::flash_attention`` (:1127).
 On a CUDA tensor it launches a hand-written kernel that replaces the Pallas
-``_kernel`` (:628), in the form :func:`kernel_form` picks: for bf16 at head_dim
-64, 128 or 256 with 16-bit K/V and no block mask the tensor-core kernel in
-``csrc/flash_fwd_tc.cu``, otherwise the float32 CUDA-core kernel in
+``_kernel`` (:628), in the form :func:`kernel_form` picks: for bf16 q at
+head_dim 64, 128 or 256 with no block mask the tensor-core kernel in
+``csrc/flash_fwd_tc.cu`` (over 8-bit K/V without dropout, its 8-bit form,
+``flash_fwd_tc_quant``), otherwise the float32 CUDA-core kernel in
 ``csrc/flash_fwd.cu``; on a CPU tensor it runs :func:`flash_attention_plain`,
 the same function in plain PyTorch, with the chosen form's rounding.  There
 is no fallback between the two, or between the forms: a CUDA call either
@@ -18,8 +19,10 @@ length ``kv_len`` (ragged S is masked in the kernel, never padded), a score
 scale, segment ids (packed rows: row r sees column c only where their ids are
 equal; ``PAD_SEGMENT`` padding rows attend each other, as in the JAX
 kernel), ``save_residuals``, 8-bit K/V: int8 or fp8 payloads with
-float32 per-row scales ``(BH, S_kv)`` (``k_scales``/``v_scales``), which a
-form of the kernel built for them dequantizes as it stages each tile
+float32 per-row scales ``(BH, S_kv)`` (``k_scales``/``v_scales``): the
+scalar kernel's 8-bit form dequantizes each row as it stages its tile, the
+tensor-core form converts each staged tile to bf16 and applies the scales
+to the score columns and to P as the Pallas kernel does
 (:func:`ops.quant.attention_quantized` is the public entry point), attention
 dropout and block-sparse masks.  Dropout (``dropout_rate``,
 ``dropout_seed``) keeps each (head, row, column) pair by
@@ -84,9 +87,10 @@ def _round_up(x: int, m: int) -> int:
 
 
 # The tensor-core forms (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu,
-# csrc/paged_prefill_tc.cu): bf16 q/k/v at these head_dims, 16-bit K/V and
-# no block mask.  The forward's KV tile (kBlockN, also the paged form's) sets
-# where its online softmax rescales, which the plain versions mirror.
+# csrc/paged_prefill_tc.cu): bf16 q at these head_dims and no block mask;
+# the two forwards also over 8-bit K/V (without dropout).  The forward's KV
+# tile (kBlockN, also the paged form's) sets where its online softmax
+# rescales, which the plain versions mirror.
 TC_HEAD_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128, 256),
                 "paged_prefill": (64, 128, 256)}
 TC_KV_TILE = {64: 128, 128: 128, 256: 64}
@@ -103,19 +107,23 @@ def tc_page_size(page_size, head_dim: int) -> bool:
 
 
 def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
-                block_mask: bool = False, page_size: int | None = None) -> str:
+                block_mask: bool = False, dropout: bool = False,
+                page_size: int | None = None) -> str:
     """The form a call of ``kernel`` (``"flash_fwd"``, ``"flash_bwd"`` for
     the fused backward, or ``"paged_prefill"``) takes: ``"tc"``, the
-    tensor-core kernel, for bfloat16 at ``TC_HEAD_DIMS[kernel]`` with 16-bit
-    K/V and no block mask (paged prefill: pages of a ``page_size`` that
-    :func:`tc_page_size` takes); else ``"scalar"``, the float32 CUDA-core
-    kernel.  The two-pass backward kernels are scalar only.  Inside
-    :func:`scalar_forms`, always ``"scalar"``."""
-    if (not _SCALAR_ONLY[0] and dtype == torch.bfloat16
-            and head_dim in TC_HEAD_DIMS.get(kernel, ()) and not quantized and not block_mask
-            and (kernel != "paged_prefill" or tc_page_size(page_size, head_dim))):
-        return "tc"
-    return "scalar"
+    tensor-core kernel, for bfloat16 q at ``TC_HEAD_DIMS[kernel]`` with no
+    block mask, over 16-bit K/V or, in the two forwards without dropout,
+    over 8-bit K/V (``quantized``); paged prefill only on pages of a
+    ``page_size`` that :func:`tc_page_size` takes.  Else ``"scalar"``, the
+    float32 CUDA-core kernel (float32 q over 8-bit pages too, and 8-bit K/V
+    with dropout or a block mask).  The two-pass backward kernels are
+    scalar only.  Inside :func:`scalar_forms`, always ``"scalar"``."""
+    if (_SCALAR_ONLY[0] or dtype != torch.bfloat16 or block_mask
+            or head_dim not in TC_HEAD_DIMS.get(kernel, ())
+            or (quantized and (kernel == "flash_bwd" or dropout))
+            or (kernel == "paged_prefill" and not tc_page_size(page_size, head_dim))):
+        return "scalar"
+    return "tc"
 
 
 _SCALAR_ONLY = [False]
@@ -640,15 +648,14 @@ def flash_attention(
     if not all(t.is_contiguous() for t in (q, k, v, *scales)):
         raise ValueError("flash_attention takes contiguous q, k, v and scales")
     form = kernel_form("flash_fwd", q.dtype, d, quantized=quantized,
-                       block_mask=block_mask is not None)
+                       block_mask=block_mask is not None, dropout=dropout_rate is not None)
     if q.device.type == "cpu":
-        if quantized:  # the plain version of the 8-bit form: dequantize first
-            k, v = dequantize_rows(k, k_scales), dequantize_rows(v, v_scales)
         return flash_attention_plain(
             q, k, v, causal=causal, scale=scale, kv_len=kv_len,
             q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
             q_segment_ids=seg_q, kv_segment_ids=seg_kv, window=window,
-            logit_softcap=logit_softcap, block_mask=block_mask, form=form, **dropout,
+            logit_softcap=logit_softcap, block_mask=block_mask, form=form,
+            k_scales=k_scales, v_scales=v_scales, **dropout,
         )
     if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, *scales)):
         raise ValueError(f"flash_attention: tensors on {q.device}/{k.device}/{v.device}")
@@ -666,12 +673,15 @@ def flash_attention(
         l = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
         m = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
     if form == "tc":
-        _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, kv_len=kv_len, q_offset=int(q_offset),
-                      q_seq_len=q_seq_len, causal=bool(causal), scale=float(scale), window=window,
-                      logit_softcap=logit_softcap, dropout_rate=dropout_rate,
-                      dropout_seed=dropout["dropout_seed"], dropout_row_stride=dropout_row_stride)
+        _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, scales, kv_len=kv_len,
+                      q_offset=int(q_offset), q_seq_len=q_seq_len, causal=bool(causal),
+                      scale=float(scale), window=window, logit_softcap=logit_softcap,
+                      dropout_rate=dropout_rate, dropout_seed=dropout["dropout_seed"],
+                      dropout_row_stride=dropout_row_stride)
         flash_attention.launches_tc += 1
         flash_attention.launches += 1
+        flash_attention.launches_quantized += quantized
+        flash_attention.launches_tc_quantized += quantized
         flash_attention.launches_dropout += dropout_rate is not None
         return (o, l, m) if save_residuals else o
     name = "flash_fwd_quant" if quantized else "flash_fwd"
@@ -699,16 +709,22 @@ def flash_attention(
     return (o, l, m) if save_residuals else o
 
 
-def _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, *, kv_len, q_offset, q_seq_len, causal,
-                  scale, window, logit_softcap, dropout_rate, dropout_seed, dropout_row_stride):
+def _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, scales, *, kv_len, q_offset, q_seq_len,
+                  causal, scale, window, logit_softcap, dropout_rate, dropout_seed,
+                  dropout_row_stride):
     """One launch of the tensor-core forward (``csrc/flash_fwd_tc.cu``),
-    into ``o`` (and ``l``, ``m`` unless None).  Its TMA loads take 16-byte
-    aligned tensors."""
+    into ``o`` (and ``l``, ``m`` unless None); ``scales`` ``(k_scales,
+    v_scales)`` for 8-bit K/V (its ``flash_fwd_tc_quant`` form), else ``()``.
+    Its TMA loads take 16-byte aligned tensors."""
     kernels.check_aligned("flash_attention", q, k, v)
     bh, rows, d = q.shape
     name = "flash_fwd_tc_extra" if dropout_rate is not None else "flash_fwd_tc"
-    status = kernels.library(name).fa_flash_fwd_tc(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    quant = ()
+    if scales:  # the 8-bit form: the payload's type code and the two scale arrays
+        name = "flash_fwd_tc_quant"
+        quant = (KV_DTYPES[k.dtype], *(t.data_ptr() for t in scales))
+    status = getattr(kernels.library(name), kernels.KERNELS[name][1])(
+        *quant, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
         None if seg_q is None else seg_q.data_ptr(),
         None if seg_kv is None else seg_kv.data_ptr(), bh, rows, k.shape[1], d, kv_len,
@@ -720,10 +736,11 @@ def _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, *, kv_len, q_offset, q_seq_le
 
 
 # Kernel launches, for chip_smoke.py's path check: all forms, and the
-# tensor-core, 8-bit, dropout and block-mask ones among them.
+# tensor-core, 8-bit, tensor-core 8-bit, dropout and block-mask ones among them.
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_quantized = 0
+flash_attention.launches_tc_quantized = 0
 flash_attention.launches_dropout = 0
 flash_attention.launches_block_mask = 0
 
@@ -732,7 +749,7 @@ def flash_attention_plain(
     q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
     q_seq_len=None, save_residuals=False, q_segment_ids=None, kv_segment_ids=None,
     window=None, logit_softcap=None, block_mask=None, dropout_rate=None, dropout_seed=0,
-    dropout_row_stride=None, form=None,
+    dropout_row_stride=None, form=None, k_scales=None, v_scales=None,
 ):
     """The kernel's function in plain PyTorch, float32 throughout (on the
     CPU ``exp`` in float64, rounded once: see :func:`_exp`): the CPU path of
@@ -741,17 +758,30 @@ def flash_attention_plain(
     the same functions the kernel's tables and hash come from.
 
     ``form`` (default: :func:`kernel_form` of these inputs; K/V of another
-    type than q count as dequantized 8-bit rows) mirrors the kernel form's
-    rounding: ``"tc"`` feeds the PV product each p as the tensor-core kernel
-    does, as two bfloat16 terms (:func:`_two_term_bf16`) against the running
-    max of its online softmax (the row's max over the KV tiles of
-    ``TC_KV_TILE[d]`` columns up to p's own), then rescaled by ``exp(m_tile
-    - m)``; ``"scalar"`` keeps p in float32."""
+    type than q without scales count as 8-bit rows the scalar form
+    dequantized) mirrors the kernel form's rounding: ``"tc"`` feeds the PV
+    product each p as the tensor-core kernel does, as two bfloat16 terms
+    (:func:`_two_term_bf16`) against the running max of its online softmax
+    (the row's max over the KV tiles of ``TC_KV_TILE[d]`` columns up to p's
+    own), then rescaled by ``exp(m_tile - m)``; ``"scalar"`` keeps p in
+    float32.  With ``k_scales``/``v_scales`` (float32 ``(BH, S_kv)``) k and
+    v hold 8-bit payloads (int8 or fp8, or their values in float32): the
+    scalar form dequantizes the rows first; the tc form takes the payload's
+    values as they are (exact in bf16), multiplies score column j by
+    ``k_scales[j]`` before the scale, softcap and masks, and folds
+    ``v_scales[j]`` into p's column j before its two-term split, as the
+    Pallas kernel orders them (flash.py:816-828, 968-978)."""
     bh, rows, d = q.shape
     s_kv = k.shape[1]
     if form is None:
-        form = kernel_form("flash_fwd", q.dtype, d, quantized=k.dtype != q.dtype,
-                           block_mask=block_mask is not None)
+        if k_scales is None and k.dtype != q.dtype:
+            form = "scalar"
+        else:
+            form = kernel_form("flash_fwd", q.dtype, d, quantized=k_scales is not None,
+                               block_mask=block_mask is not None, dropout=bool(dropout_rate))
+    if k_scales is not None and form != "tc":  # the scalar form: dequantize first
+        k, v = dequantize_rows(k, k_scales), dequantize_rows(v, v_scales)
+        k_scales = v_scales = None
     kv_len = s_kv if kv_len is None else kv_len
     q_seq_len = rows if q_seq_len is None else q_seq_len
     mask = visible(
@@ -768,18 +798,24 @@ def flash_attention_plain(
         if dropout_rate:
             keep = dense_keep(dropout_seed, dropout_rate, heads, rows, s_kv, q_seq_len,
                               dropout_row_stride, q.device)
-        outs.append(_fwd_plain_heads(q[sl], k[sl], v[sl], seg_mask, keep, scale=scale,
+        kv_scales = None if k_scales is None else (k_scales[sl], v_scales[sl])
+        outs.append(_fwd_plain_heads(q[sl], k[sl], v[sl], seg_mask, keep, kv_scales, scale=scale,
                                      logit_softcap=logit_softcap, dropout_rate=dropout_rate,
                                      form=form))
     o, l, m = (torch.cat(x) for x in zip(*outs))
     return (o, l, m) if save_residuals else o
 
 
-def _fwd_plain_heads(q, k, v, mask, keep, *, scale, logit_softcap, dropout_rate, form):
-    """flash_attention_plain over some heads: ``(o, l, m)``."""
+def _fwd_plain_heads(q, k, v, mask, keep, kv_scales, *, scale, logit_softcap, dropout_rate,
+                     form):
+    """flash_attention_plain over some heads: ``(o, l, m)``; ``kv_scales``
+    the 8-bit tc form's ``(k_scales, v_scales)`` of these heads, or None."""
     bh, rows, d = q.shape
     s_kv = k.shape[1]
-    s = softcap(torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale, logit_softcap)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+    if kv_scales is not None:
+        s = s * kv_scales[0][:, None, :]
+    s = softcap(s * scale, logit_softcap)
     s = torch.where(mask, s, torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
     del mask
     m = s.amax(dim=-1)
@@ -798,6 +834,8 @@ def _fwd_plain_heads(q, k, v, mask, keep, *, scale, logit_softcap, dropout_rate,
     if dropout_rate:  # l stays the undropped sum (flash.py:931-937)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     if form == "tc":
+        if kv_scales is not None:
+            p = p * kv_scales[1][:, None, :]
         p = _two_term_bf16(p) * m_run
         del m_run
     o = torch.einsum("bqk,bkd->bqd", p, v.float())

@@ -17,7 +17,8 @@ built with ``-DFA_EXTRA`` into ``*_extra`` libraries; the wrappers take them
 only when a call has either.  The tensor-core forms of the forward, the
 fused backward and chunked prefill (``flash_fwd_tc``, ``flash_bwd_tc``, their
 dropout forms ``*_tc_extra``, and ``paged_prefill_tc``) are sources of their
-own; ``probe_mma`` is the forward's loop bodies alone and its softmax
+own, and the two forwards' 8-bit forms are the same sources built with
+``-DFA_QUANT`` (``flash_fwd_tc_quant``, ``paged_prefill_tc_quant``); ``probe_mma`` is the forward's loop bodies alone and its softmax
 probes, for ``torch_tools/probe_mma.py`` and ``torch_tools/probe_softmax.py``.
 The build runs at first use, from the sources in the checkout only, into
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``).  A
@@ -75,6 +76,12 @@ KERNELS = {
     "paged_prefill_quant": (*_PAGED_PREFILL, ["-DFA_QUANT"]),
     "paged_prefill_tc": ("paged_prefill_tc.cu", "fa_paged_prefill_tc",
                          [*[_P] * 6, *[_I] * 9, _F, _I, _F, _P]),
+    # The 8-bit forms of the two tensor-core forwards: the payload's type
+    # code and the two scale arrays first, then the bf16 form's arguments.
+    "paged_prefill_tc_quant": ("paged_prefill_tc.cu", "fa_paged_prefill_tc_quant",
+                               [_I, _P, _P, *[_P] * 6, *[_I] * 9, _F, _I, _F, _P], ["-DFA_QUANT"]),
+    "flash_fwd_tc_quant": ("flash_fwd_tc.cu", "fa_flash_fwd_tc_quant",
+                           [_I, _P, _P, *[_P] * 8, *[_I] * 8, _F, _I, _F, *_EXTRA], ["-DFA_QUANT"]),
     "flash_naive": (
         "flash_naive.cu",
         "fa_flash_naive",

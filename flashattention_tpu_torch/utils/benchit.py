@@ -23,9 +23,10 @@ __all__ = [
 # Dense peaks from NVIDIA's data sheets at the full power limit: TFLOP/s by
 # operand type, device-memory TB/s.  Keys match `nvidia-smi` names.
 CARD_PEAKS = {
-    "H100 80GB HBM3": {"bfloat16": 989.0, "float32": 67.0, "tf32": 495.0, "tb_s": 3.35},
-    "H100 SXM": {"bfloat16": 989.0, "float32": 67.0, "tf32": 495.0, "tb_s": 3.35},
-    "H100 PCIe": {"bfloat16": 756.0, "float32": 51.0, "tf32": 378.0, "tb_s": 2.0},
+    "H100 80GB HBM3": {"bfloat16": 989.0, "float32": 67.0, "tf32": 495.0, "int8": 1979.0,
+                       "tb_s": 3.35},
+    "H100 SXM": {"bfloat16": 989.0, "float32": 67.0, "tf32": 495.0, "int8": 1979.0, "tb_s": 3.35},
+    "H100 PCIe": {"bfloat16": 756.0, "float32": 51.0, "tf32": 378.0, "int8": 1513.0, "tb_s": 2.0},
     "H100 NVL": {"bfloat16": 835.0, "float32": 60.0, "tf32": 417.0, "tb_s": 3.9},
     "H200": {"bfloat16": 989.0, "float32": 67.0, "tf32": 495.0, "tb_s": 4.8},
 }
@@ -58,7 +59,7 @@ def card_peaks(name: str) -> dict:
 def bound_ms(name: str, *, bytes_moved: float, flops: float, dtype: str) -> dict:
     """Least time (ms) the card could take for the work: the larger of the
     bytes over the memory rate (``bytes_ms``) and the flops over the peak
-    rate of ``dtype`` ("bfloat16" or "float32") (``ops_ms``), and which of
+    rate of ``dtype`` ("bfloat16", "float32" or "int8") (``ops_ms``), and which of
     the two bounds it (``bound_by``)."""
     peaks = card_peaks(name)
     t_bytes = bytes_moved / (peaks["tb_s"] * 1e12) * 1e3

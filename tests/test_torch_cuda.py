@@ -9,8 +9,10 @@ only PyTorch::
 (``--noconftest``: the suite's conftest sets up JAX's CPU devices).  Each
 kernel is held, for every head_dim and group size it is instantiated for, to
 its plain version run on the CPU: 1e-4 in float32, 2e-2 in bfloat16 (one
-bf16 rounding of outputs of magnitude ~1); the serving kernels' 8-bit forms
-(int8 and fp8 K/V with per-row scales) likewise, and the dropout and
+bf16 rounding of outputs of magnitude ~1); ``attention`` at head_dims 80 and
+96 (padded to 128) with its gradients; the serving kernels' 8-bit forms
+(int8 and fp8 K/V with per-row scales; in bf16 the forwards' tensor-core
+8-bit forms) likewise, and the dropout and
 block-mask forms of the flash forward and the backward kernels (the same
 keep bits and element masks as the plain versions).
 """
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import flashattention_tpu_torch as ft_attention
 from flashattention_tpu_torch.models import train, transformer
 from flashattention_tpu_torch.ops import backward, decode, flash, quant
 from flashattention_tpu_torch.runtime import engine, kvcache
@@ -70,6 +73,27 @@ def test_flash_kernel_matches_plain(dtype, d, kw):
             validate_result(g, w, 1e-5 * float(w.abs().max()))
         got, want = got[0], want[0]
     validate_result(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [80, 96])
+def test_attention_padded_head_dim_matches_cpu(dtype, d):
+    """``sdpa`` at a head_dim no kernel is built for (zero-padded to 128 on
+    every device, 1 / sqrt(d) kept), causal GQA, under autograd: o and the
+    gradients on the card against the same call on the CPU (the plain
+    versions)."""
+    q, k, v = _randn((2, 4, 150, d), dtype, 90), _randn((2, 2, 150, d), dtype, 91), \
+        _randn((2, 2, 150, d), dtype, 92)
+    do = _randn((2, 4, 150, d), dtype, 93) * 0.25
+    outs = []
+    for dev in ("cuda", "cpu"):
+        ins = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        o = ft_attention.sdpa(*ins, causal=True)
+        outs.append((o, *torch.autograd.grad(o, ins, do.to(dev))))
+    torch.cuda.synchronize()
+    for name, got, want in zip(("o", "dq", "dk", "dv"), *outs):
+        assert got.shape == want.shape and got.dtype == dtype
+        validate_result(got.detach().cpu(), want.detach(), TOL[dtype], name=name)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

@@ -2,8 +2,9 @@
 backward at head_dim 256.
 
 ``ops.flash.kernel_form("paged_prefill", ...)`` sends bf16 q over bf16 pages
-at head_dim 64, 128 and 256 to ``csrc/paged_prefill_tc.cu`` when the page
-size is one its TMA boxes take (``ops.flash.tc_page_size``), and every other
+at head_dim 64, 128 and 256 (and, since its 8-bit form, bf16 q over int8 /
+fp8 pages) to ``csrc/paged_prefill_tc.cu`` when the page size is one its TMA
+boxes take (``ops.flash.tc_page_size``), and every other
 call to the scalar ``csrc/paged_prefill.cu``; the fused backward's
 tensor-core form now covers head_dim 256.  The plain versions mirror the
 tensor-core rounding (p as two bf16 terms against the running max of
@@ -49,10 +50,10 @@ def _tc_page(ps, d):
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda t: str(t).split(".")[1])
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_prefill_form_selector(dtype, d):
-    """bf16, a tensor-core head_dim, 16-bit pages and a page size the tc
-    form's boxes take; scalar otherwise (and without a page size)."""
+    """bf16 q, a tensor-core head_dim, bf16 or 8-bit pages and a page size
+    the tc form's boxes take; scalar otherwise (and without a page size)."""
     for ps, quantized in itertools.product(PAGE_SIZES, (False, True)):
-        want = ("tc" if dtype == torch.bfloat16 and d in (64, 128, 256) and not quantized
+        want = ("tc" if dtype == torch.bfloat16 and d in (64, 128, 256)
                 and _tc_page(ps, d) else "scalar")
         got = tflash.kernel_form("paged_prefill", dtype, d, quantized=quantized, page_size=ps)
         assert got == want, (ps, quantized)
@@ -264,7 +265,8 @@ def test_tc_backward_d256_rounding_moves_the_result(case):
 # ── the probe and mutation tools ────────────────────────────────────────────
 
 
-@pytest.mark.parametrize("script", ["probe_mma.py", "probe_softmax.py", "tc_mutants.py"])
+@pytest.mark.parametrize("script", ["probe_mma.py", "probe_softmax.py", "tc_mutants.py",
+                                    "probe_int8.py"])
 def test_tensor_core_tools_import_no_jax(script):
     """The tensor-core forms' card scripts drive the port alone."""
     with open(os.path.join(ROOT, "torch_tools", script)) as fh:

@@ -6,7 +6,8 @@ on the card: the tensor-core kernels (``csrc/flash_fwd_tc.cu``,
 no block mask, the scalar kernels otherwise.  The plain versions mirror the
 chosen form's rounding (p, and in the backward Z and dS, fed to their
 products as two bf16 terms; the forward's p against the online softmax's
-running max over ``TC_KV_TILE`` columns).  Here: the choice for every combination, the
+running max over ``TC_KV_TILE`` columns).  The forward's tensor-core form
+also takes 8-bit K/V (``tests/test_torch_quant_tc.py``).  Here: the choice for every combination, the
 mirrored plain forward and backward against the JAX package's bf16
 functions (Pallas kernels in interpret mode on the CPU) within 2e-2, the
 bf16 tolerance of the port's other differential tests, and that the
@@ -35,8 +36,11 @@ DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _expected(kernel, dtype, d, quantized, block_mask):
+    """bf16 q at the form's head_dims without a block mask; 8-bit K/V only
+    in the forward (the backward takes none)."""
     dims = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128, 256)}.get(kernel, ())
-    ok = dtype == torch.bfloat16 and d in dims and not quantized and not block_mask
+    ok = (dtype == torch.bfloat16 and d in dims and not block_mask
+          and (not quantized or kernel == "flash_fwd"))
     return "tc" if ok else "scalar"
 
 

@@ -36,16 +36,26 @@ together) and runs chip_smoke's checks of the mutated kernel on the copy:
   accumulator to the other's output (dK as dV);
 - ``y_read_before_barrier/d256``: its dS side reads P^T c (Y^T) from shared
   memory before the barrier that says it is written (the barrier stays, so
-  the hand-offs keep their pairing).
+  the hand-offs keep their pairing);
+- the 8-bit form of the forward template (``flash_fwd_tc_quant``,
+  ``paged_prefill_tc_quant``): ``k_scale_dropped`` (score columns not
+  multiplied by k_scale), ``v_scale_twice`` (P's columns multiplied by
+  v_scale squared), ``convert_wrong_half`` (each bf16 chunk's conversion
+  reads the payload bytes of the other half of its 64 columns),
+  ``stale_fp8_row_not_zeroed`` (rows past the block's last visible column
+  converted from the stage as it holds them: the fp8 NaN-poison check).
 
 Forward mutants run ``flash_checks`` and ``flash_window_checks``, paged
 mutants ``prefill_checks``, ``prefill_window_checks`` and
 ``prefill_poison_check``, backward mutants ``bwd_checks``,
 ``bwd_window_checks`` (its q x 8 cases, Gemma-2's d = 256 among them) and
-``dropout_checks``, untimed where the functions allow.  The unmutated copy
-runs all of them and must pass every check; a mutant is caught when a bf16
-check of the kernel it changed (``flash_fwd_tc/...``,
-``paged_prefill_tc/...`` or ``flash_bwd_tc/...``) fails.  ``--mutants``
+``dropout_checks``, untimed where the functions allow, and the 8-bit
+form's mutants the same forward and paged checks over int8 and fp8 K/V and
+``prefill_poison_check``.  The unmutated copy runs all of them and must
+pass every check; a mutant is caught when a bf16 check of the kernel it
+changed (``flash_fwd_tc/...``, ``paged_prefill_tc/...`` or
+``flash_bwd_tc/...``; the 8-bit form's: ``flash_fwd_tc/quant/...`` or
+``paged_prefill_tc/quant/...``) fails.  ``--mutants``
 runs some of them (and the unmutated copy).  Prints one JSON line per copy and writes them
 to ``chiprun_out/tc_mutants.json``; exits non-zero when a mutant goes
 uncaught or the unmutated copy fails a check.  Imports nothing of JAX.
@@ -63,7 +73,7 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FWD, BWD, PP = "flash_fwd_tc", "flash_bwd_tc", "paged_prefill_tc"
+FWD, BWD, PP, Q8 = "flash_fwd_tc", "flash_bwd_tc", "paged_prefill_tc", "tc_quant"
 # name -> (kernel, [(source, text, replacement)])
 MUTANTS = {
     "unmutated": (None, []),
@@ -109,11 +119,24 @@ MUTANTS = {
         "      float y[kBlockM / 2];\n"
         "#pragma unroll\n      for (int j = 0; j < kBlockM / 2; ++j) y[j] = x_f[j * 128 + tid];\n"
         "      tc::named_sync(1, 256);  // Y^T written\n")]),
+    "k_scale_dropped": (Q8, [(
+        "flash_fwd_tc.cuh", "if constexpr (C::kQuant) x *= ks_t[8 * j + 2 * t + (e & 1)];", "")]),
+    "v_scale_twice": (Q8, [(
+        "flash_fwd_tc.cuh", "if constexpr (C::kQuant) p *= vs_t[8 * j + 2 * t + (e & 1)];",
+        "if constexpr (C::kQuant) p *= vs_t[8 * j + 2 * t + (e & 1)] * vs_t[8 * j + 2 * t + (e & 1)];")]),
+    "convert_wrong_half": (Q8, [(
+        "flash_fwd_tc.cuh", "src + row * D + grp * 8", "src + row * D + (grp ^ 4) * 8")]),
+    "stale_fp8_row_not_zeroed": (Q8, [(
+        "flash_fwd_tc.cuh", "if (row >= lo && row < hi)\n      out = tc::cvt8_bf16",
+        "if (row >= lo)\n      out = tc::cvt8_bf16")]),
 }
 MUTANT_SECONDS = 900  # one copy's checks; the unmutated copy's take about 4 minutes
 # The libraries an edit of each kernel's source changes, that its checks launch.
 LIBS = {FWD: ["flash_fwd_tc", "flash_fwd_tc_extra"], BWD: ["flash_bwd_tc", "flash_bwd_tc_extra"],
-        PP: ["paged_prefill_tc"]}
+        PP: ["paged_prefill_tc"], Q8: ["flash_fwd_tc_quant", "paged_prefill_tc_quant"]}
+# The check names that catch each kind's mutants (bf16 checks only).
+CATCH = {FWD: ("flash_fwd_tc/",), BWD: ("flash_bwd_tc/",), PP: ("paged_prefill_tc/",),
+         Q8: ("flash_fwd_tc/quant/", "paged_prefill_tc/quant/")}
 
 
 def make_copy(dest: str, edits) -> None:
@@ -156,6 +179,14 @@ def run_checks(root: str, kernel) -> dict:
         cs.prefill_checks(decode, benchit, gen, card, report)
         cs.prefill_window_checks(decode, benchit, gen, card, report)
         cs.prefill_poison_check(decode, gen, report)
+    if kernel in (None, Q8):
+        for form in ("int8", "fp8"):
+            cs.flash_checks(fa, flash, benchit, gen, card, report, form)
+            cs.flash_window_checks(fa, flash, benchit, gen, card, report, form)
+            cs.prefill_checks(decode, benchit, gen, card, report, form)
+            cs.prefill_window_checks(decode, benchit, gen, card, report, form)
+        if kernel:
+            cs.prefill_poison_check(decode, gen, report)
     if kernel in (None, BWD):
         cs.bwd_checks(backward, flash, benchit, packing, args, gen, card, report)
         q8 = [n for n, c in cs.BWD_WINDOW_CASES
@@ -221,7 +252,7 @@ def main() -> int:
             failed = {c: r for c, r in checks.items() if not r["ok"]}
             caught = None
             if kernel:
-                caught = any(c.startswith(f"{kernel}/") and c.endswith("/bfloat16") for c in failed)
+                caught = any(c.startswith(CATCH[kernel]) and c.endswith("/bfloat16") for c in failed)
             ok = ok and (caught if kernel else not failed)
             rec = {"copy": m, "kernel": kernel, "checks": len(checks), "failed": failed,
                    "caught": caught}
