@@ -97,8 +97,23 @@ Phases, each of which must pass (any failure exits non-zero):
                above, int8 and fp8, against the plain versions with their
                rounding, the timed ones beside the scalar 8-bit form, SDPA
                over the dequantized K/V and the bound;
+               in bf16 the two-pass pair (d = 64, 128, 256, no block mask)
+               runs its tensor-core forms (``flash_bwd_dq_tc``,
+               ``flash_bwd_dkv_tc``: checks ``flash_bwd_dq_tc/...``,
+               ``flash_bwd_dkv_tc/...``) at every bf16 pair shape above
+               (the packed layer, the ragged S = 300 with PAD rows, kv_len /
+               q_offset, d = 64 with segment ids, the windowed layers,
+               Gemma-2's packed layer, dropout), each beside the scalar
+               pair's check on the same inputs under
+               ``ops.flash.scalar_forms``, with every element within
+               BF16_ELEM_TOL; the pair's dQ must give the same bits in two
+               launches; timed at the packed layer, Gemma-2's packed layer
+               and with dropout beside the scalar pair and SDPA's masked
+               backward, and at the plain training layer beside the fused
+               form (``pair_vs_fused``, the JAX package's
+               scripts/probe_fused_bwd.py A/B);
                ``torch_tools/tc_mutants.py`` shows that they fail each of
-               eighteen tensor-core mutants; ``head_dim_pad_check``: ``sdpa``
+               twenty-three tensor-core mutants; ``head_dim_pad_check``: ``sdpa``
                at head_dim 80 (zero-padded to 128 by ``attention``),
                forward and gradients under autograd, against the same call
                on the CPU; the float32 forms the float32 paths launch
@@ -177,7 +192,8 @@ Phases, each of which must pass (any failure exits non-zero):
                L, or 2 L with remat); then a profile of one step;
 9. train_packed - ``make_train_step_packed`` on the same model over 8 rows
                packed from random documents of 64-2048 tokens: the two-pass
-               backward (flash_bwd_dq and flash_bwd_dkv L per step);
+               backward (flash_bwd_dq and flash_bwd_dkv L per step, in
+               their tensor-core forms);
    train_dropout, train_packed_dropout - train and train_packed with
                ``attn_dropout=0.1``, seed = step index: the kernels' dropout
                forms launch L times per step;
@@ -200,9 +216,10 @@ Phases, each of which must pass (any failure exits non-zero):
                reference of both card runs.
 
 The serve and train phases' launch counts include the tensor-core forms':
-every bf16 flash forward and fused backward launch at their head_dims, and
-every paged prefill launch of a bf16 model, goes through them
-(``launches_tc``); the 8-bit caches' paged prefill (serve_int8,
+every bf16 flash forward, fused backward and two-pass pair launch at their
+head_dims (but the block-mask ones), and every paged prefill launch of a
+bf16 model, goes through them (``launches_tc``; the pair's with dropout
+also ``launches_tc_dropout``); the 8-bit caches' paged prefill (serve_int8,
 serve_gemma2_fp8) and quant_ops' 8-bit flash forward through their 8-bit
 forms (``launches_tc_quantized``).  The float32 train_parity phases' card launches are
 counted as paths too (float32 training runs the scalar kernels).  It prints one JSON line per check, the
@@ -220,6 +237,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -285,12 +303,17 @@ KERNELS = (
     ("flash_fwd_tc", "flash_fwd_tc.cu", "ops/flash.py:628"),
     ("flash_bwd_tc", "flash_bwd_tc.cu", "ops/backward.py:401"),
     ("paged_prefill_tc", "paged_prefill_tc.cu", "ops/decode.py:375"),
+    # The two-pass pair's (the dK/dV pass: the fused source built with -DFA_PAIR).
+    ("flash_bwd_dq_tc", "flash_bwd_dq_tc.cu", "ops/backward.py:146"),
+    ("flash_bwd_dkv_tc", "flash_bwd_tc.cu", "ops/backward.py:269"),
     # Their 8-bit forms (bf16 q over int8 / fp8 K/V), built with -DFA_QUANT.
     ("flash_fwd_tc_quant", "flash_fwd_tc.cu", "ops/flash.py:628"),
     ("paged_prefill_tc_quant", "paged_prefill_tc.cu", "ops/decode.py:375"),
 )
 TC_KERNELS = {"flash_fwd": "flash_fwd_tc", "flash_bwd": "flash_bwd_tc",
-              "paged_prefill": "paged_prefill_tc"}
+              "paged_prefill": "paged_prefill_tc", "flash_bwd_dq": "flash_bwd_dq_tc",
+              "flash_bwd_dkv": "flash_bwd_dkv_tc"}
+PAIR = ("flash_bwd_dq", "flash_bwd_dkv")
 TC_QUANT_KERNELS = {"flash_fwd": "flash_fwd_tc_quant", "paged_prefill": "paged_prefill_tc_quant"}
 PAGE_SIZE = 256  # the serving phases' and the paged kernel checks' page
 
@@ -326,7 +349,9 @@ def _rec(check, got, want, dt, tol, **extra):
 _MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8", "13__nv_fp8_e4m3": "fp8"}
 # Each kernel's bool template arguments, in order (the others': window_cap, extra).
 _FLAGS = {"paged_decode_kernel": ("window_cap", "draft"), "flash_fwd_kernel": ("extra",),
-          "flash_fwd_tc_kernel": ("window_cap", "extra", "paged")}
+          "flash_fwd_tc_kernel": ("window_cap", "extra", "paged"),
+          "flash_bwd_tc_kernel": ("window_cap", "extra", "pair"),
+          "flash_bwd_tc_d256_kernel": ("window_cap", "extra", "pair")}
 
 
 def _ptxas(log):
@@ -1280,6 +1305,7 @@ def _counters(flash, decode, backward):
     out.update({f"{k}_block_mask": (fns[k], "launches_block_mask") for k in EXTRA_KERNELS
                 if k != "flash_bwd"})
     out.update({tc: (fns[k], "launches_tc") for k, tc in TC_KERNELS.items()})
+    out.update({f"{TC_KERNELS[k]}_dropout": (fns[k], "launches_tc_dropout") for k in PAIR})
     out.update({tc: (fns[k], "launches_tc_quantized") for k, tc in TC_QUANT_KERNELS.items()})
     return out
 
@@ -1288,7 +1314,8 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE):
     """``want`` with the tensor-core forms' expected launches: every
     flash_fwd launch of a bf16 model at their head_dims but the block-mask
     ones (the 8-bit ones, none with dropout on these paths, in its 8-bit
-    form too), every fused backward launch at theirs, and every paged
+    form too), every fused backward launch at theirs, every launch of the
+    two-pass pair at theirs but the block-mask ones, and every paged
     prefill launch of a bf16 model on pages of ``page_size`` rows (on 8-bit
     pages in its 8-bit form too)."""
     from flashattention_tpu_torch.ops import flash
@@ -1299,6 +1326,10 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE):
         want["flash_fwd_tc_quant"] = want.get("flash_fwd_quant", 0)
     if flash.kernel_form("flash_bwd", dt, cfg.head_dim) == "tc":
         want["flash_bwd_tc"] = want["flash_bwd"]
+    for k in PAIR:  # the two-pass pair's, but the block-mask launches
+        if flash.kernel_form(k, dt, cfg.head_dim) == "tc":
+            want[f"{k}_tc"] = want.get(k, 0) - want.get(f"{k}_block_mask", 0)
+            want[f"{k}_tc_dropout"] = want.get(f"{k}_dropout", 0)
     if flash.kernel_form("paged_prefill", dt, cfg.head_dim, page_size=page_size) == "tc":
         want["paged_prefill_tc"] = want.get("paged_prefill", 0)
         want["paged_prefill_tc_quant"] = want.get("paged_prefill_quant", 0)
@@ -2268,6 +2299,22 @@ def _live_pairs(flash, bh, rows, s_kv, kw, segs):
     return int(mask.sum()) * (1 if segs else bh)
 
 
+def _bwd_got(q, kw, runs, wants):
+    """``{kernel: (gradients, plain gradients)}`` of a ``_bwd_case``: the
+    fused kernel's (dq, dk, dv), and each kernel of the pair its own (dq;
+    dk, dv), the scalar pair's beside the tensor-core form's."""
+    bm = kw.get("block_mask") is not None
+    got = {}
+    if "fused" in runs:
+        got[_kname("flash_bwd", q)] = (runs["fused"], wants["fused"])
+    for run in ("two_pass", "two_pass_scalar"):
+        if run in runs:
+            for k, part in zip(PAIR, (slice(0, 1), slice(1, 3))):
+                kname = _kname(k, q, block_mask=bm) if run == "two_pass" else k
+                got[kname] = (runs[run][part], wants[run][part])
+    return got
+
+
 def _bwd_rec(check, got, want, dt, **extra):
     """A backward kernel check's record over the gradients it returns:
     ``_rec``'s max-abs bound (BWD_TOL) on each, and in bfloat16 each element
@@ -2283,12 +2330,14 @@ def _bwd_rec(check, got, want, dt, **extra):
 def _bwd_case(backward, flash, q, k, v, do, kw, segs):
     """One backward case: o and lse from the forward kernel, the plain
     backward (float32 from the same inputs) and the kernels' gradients.
-    Returns (ins, plain, wants, runs): ``runs`` holds the two-pass pair's and,
-    without segment ids or a block mask, the fused kernel's ``(dq, dk, dv)``;
-    ``wants`` the plain backward's for each, with the rounding of the form
-    that ran (the fused kernel's tensor-core form splits Z and dS into two
-    bf16 terms);
-    ``plain`` computes the fused one's where it ran."""
+    Returns (ins, plain, wants, runs): ``runs`` holds the two-pass pair's
+    (``two_pass``; where that is its tensor-core form, the scalar pair's
+    beside it under ``ops.flash.scalar_forms``, ``two_pass_scalar``) and,
+    without segment ids or a block mask, the fused kernel's ``(dq, dk,
+    dv)``; ``wants`` the plain backward's for each, with the rounding of the
+    form that ran (the tensor-core forms split Z and dS into two bf16
+    terms); ``plain`` computes the fused one's where it ran, else the
+    pair's."""
     o, l, m = flash.flash_attention(q, k, v, save_residuals=True, **kw, **segs)
     lse = m + torch.log(torch.where(l == 0, 1.0, l))
     ins = (q, k, v, o, lse, do)
@@ -2297,15 +2346,19 @@ def _bwd_case(backward, flash, q, k, v, do, kw, segs):
     def plain_of(form):
         return lambda: backward.flash_attention_bwd_plain(*fp32, form=form, **kw, **segs)
 
-    plain = plain_of("scalar")
+    pair = backward.bwd_form(q, False, kw.get("block_mask") is not None)
+    plain = plain_of(pair)
     wants = {"two_pass": plain()}
     runs = {"two_pass": backward.flash_attention_bwd(*ins, fused=False, **kw, **segs)}
+    if pair != "scalar":
+        wants["two_pass_scalar"] = plain_of("scalar")()
+        with flash.scalar_forms():
+            runs["two_pass_scalar"] = backward.flash_attention_bwd(*ins, fused=False, **kw, **segs)
     if not segs and kw.get("block_mask") is None:
         runs["fused"] = backward.flash_attention_bwd(*ins, fused=True, **kw)
         form = backward.bwd_form(q, True)
-        if form != "scalar":
-            plain = plain_of(form)
-        wants["fused"] = plain() if form != "scalar" else wants["two_pass"]
+        plain = plain_of(form)
+        wants["fused"] = wants["two_pass"] if form == pair else plain()
     torch.cuda.synchronize()
     return ins, plain, wants, runs
 
@@ -2315,19 +2368,25 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
     the same inputs).  Cases: the training layer (B=8, 8 KV heads x G=4,
     S=2048, d=128, causal; float32 at B=2), the packed training layer (the
     same with segment ids from packed documents), a ragged S=300 with and
-    without segment ids (PAD_SEGMENT rows included), and kv_len / q_offset.
-    The fused kernel runs every case without segment ids, the two-pass pair
-    every case.  o and lse come from the forward kernel; do is drawn at a
-    quarter of the scale of q, k, v (see below), and each record carries the
-    gradients' largest magnitudes.  Timed at the bf16
-    training shapes: the fused backward (``flash_attention_bwd``, which
-    computes di and casts dQ too) on the plain layer, each two-pass kernel
-    on the packed layer."""
+    without segment ids (PAD_SEGMENT rows included), kv_len / q_offset, and
+    head_dim 64 with segment ids (B=2, 4 KV heads x G=2, S=1000, documents
+    of 64-600 tokens and padding).  The fused kernel runs every case
+    without segment ids, the two-pass pair every case (in bf16 its
+    tensor-core form, and the scalar pair beside it under
+    ``ops.flash.scalar_forms``); each gradient within BWD_TOL and, in bf16,
+    each element within BF16_ELEM_TOL (``_bwd_rec``).  o and lse come from
+    the forward kernel; do is drawn at a quarter of the scale of q, k, v
+    (see below), and each record carries the gradients' largest magnitudes.
+    Timed at the bf16 training shapes: the fused backward
+    (``flash_attention_bwd``, which computes di and casts dQ too) on the
+    plain layer with the pair beside it (``report["pair_vs_fused"]``), each
+    two-pass kernel, both forms, on the packed layer."""
     mains, yardsticks = {}, {}
     _, seg_np = _packed_ids(packing, args.seed + 5, TRAIN_B, TRAIN_S)
     packed = torch.tensor(seg_np, device="cuda")
     short = torch.full((1, 300), -1, dtype=torch.int32, device="cuda")
     short[0, :120], short[0, 120:270] = 0, 1
+    _, seg64 = _packed_ids(packing, args.seed + 6, 2, 1000, lo=64, hi=600)
     train = dict(kvh=8, g=4, s_q=TRAIN_S, s_kv=TRAIN_S, d=128)
     cases = [
         ("train_layer", dict(train, b=TRAIN_B), "bfloat16"),
@@ -2341,6 +2400,8 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
             ("segments_s300", dict(b=1, kvh=8, g=4, s_q=300, s_kv=300, d=128, seg=short), dt),
             ("kvlen_qoffset", dict(b=2, kvh=8, g=1, s_q=256, s_kv=1024, d=128, kv_len=900,
                                    q_offset=600), dt),
+            ("segments_d64_s1000", dict(b=2, kvh=4, g=2, s_q=1000, s_kv=1000, d=64,
+                                        seg=torch.tensor(seg64, device="cuda")), dt),
         ]
     for name, c, dt in cases:
         bh, rows, d = c["b"] * c["kvh"], c["g"] * c["s_q"], c["d"]
@@ -2367,47 +2428,69 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
             emit(rec)
             report["checks"].append(rec)
         ins, plain, wants, runs = _bwd_case(backward, flash, q, k, v, do, kw, segs)
-        errs = {run: [err(g_, w) for g_, w in zip(got, wants[run])] for run, got in runs.items()}
-        want = wants["two_pass"]
-        absmax = [float(w.abs().max()) for w in want]
-        recs = {}
+        shape = {**{n: x for n, x in c.items() if n != "seg"}, "segment_ids": "seg" in c}
+        absmax = [float(w.abs().max()) for w in wants["two_pass"]]
         fused = _kname("flash_bwd", q)
-        if "fused" in errs:
-            recs[fused] = max(errs["fused"])
-        recs["flash_bwd_dq"] = errs["two_pass"][0]
-        recs["flash_bwd_dkv"] = max(errs["two_pass"][1:])
-        for kname, e in recs.items():
-            rec = {"check": f"{kname}/{name}/{dt}", "max_abs_err": e, "tol": BWD_TOL[dt],
-                   "ok": e <= BWD_TOL[dt], "grad_absmax": absmax,
-                   "shape": {**{n: x for n, x in c.items() if n != "seg"}, "segment_ids": "seg" in c}}
-            timed = (name, dt) in (("train_layer", "bfloat16"), ("packed_layer", "bfloat16"))
-            if (name, dt) == ("train_layer_b2", "float32") and kname == fused:
-                # the float32 paths' form (float32 training runs the scalar kernel)
-                yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
-                rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c,
-                                     yard, dt))
-                report.setdefault("float32_timed", {})["flash_bwd"] = rec
-            if timed and (kname == fused) == (name == "train_layer"):
-                if name not in yardsticks:
-                    yardsticks[name] = _bwd_yardsticks(benchit, ins, kw, c, plain)
-                rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c,
-                                     yardsticks[name], dt))
-                mains[kname] = rec
-                if kname == "flash_bwd_tc":  # the scalar form beside it: the scalar row
-                    with flash.scalar_forms():
-                        got = backward.flash_attention_bwd(*ins, fused=True, **kw)
-                        e = max(err(g_, w) for g_, w in zip(got, wants["two_pass"]))
-                        twin = {**rec, "check": f"flash_bwd/{name}/{dt}", "max_abs_err": e,
-                                "ok": e <= BWD_TOL[dt], "form": "scalar (ops.flash.scalar_forms)"}
-                        twin.update(_time_bwd(backward, flash, benchit, card, "flash_bwd", ins, kw,
-                                              segs, c, yardsticks[name], dt))
-                    rec["scalar_ms"] = twin["kernel_ms"]
-                    mains["flash_bwd"] = twin
-                    emit(twin)
-                    report["checks"].append(twin)
+        recs = {kname: _bwd_rec(f"{kname}/{name}/{dt}", gots, wants_k, dt, grad_absmax=absmax,
+                                shape=shape)
+                for kname, (gots, wants_k) in _bwd_got(q, kw, runs, wants).items()}
+        # Timed in bf16: at the training layer the fused kernel and, beside
+        # it, the pair's tensor-core form (fused=False: the JAX package's
+        # scripts/probe_fused_bwd.py A/B); at the packed layer the pair, both
+        # forms.
+        timed = {("train_layer", "bfloat16"): (fused, *(_kname(k, q) for k in PAIR)),
+                 ("packed_layer", "bfloat16"): tuple(_kname(k, q) for k in PAIR),
+                 }.get((name, dt), ())
+        if (name, dt) == ("train_layer_b2", "float32"):
+            # the float32 paths' form (float32 training runs the scalar kernel)
+            yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
+            recs[fused].update(_time_bwd(backward, flash, benchit, card, fused, ins, kw, segs, c,
+                                         yard, dt))
+            report.setdefault("float32_timed", {})["flash_bwd"] = recs[fused]
+        dq_tc = _kname("flash_bwd_dq", q)
+        if dq_tc != "flash_bwd_dq" and "seg" in c and dt == "bfloat16":
+            # The pair's dQ takes no atomics: two launches give the same bits.
+            q_, k_, v_, o_, lse_, do_ = ins
+            di_ = (o_.float() * do_.float()).sum(dim=-1)
+            twice = [backward.dq_kernel(q_, k_, v_, do_, lse_, di_, **kw, **segs) for _ in range(2)]
+            recs[dq_tc]["deterministic"] = bool(torch.equal(*twice))
+            recs[dq_tc]["ok"] = recs[dq_tc]["ok"] and recs[dq_tc]["deterministic"]
+        for kname in timed:
+            if kname not in recs:
+                continue
+            if name not in yardsticks:
+                yardsticks[name] = _bwd_yardsticks(benchit, ins, kw, c, plain)
+            rec = recs[kname]
+            rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c,
+                                 yardsticks[name], dt))
+            if name == "train_layer" and kname != fused:  # the pair beside the fused form
+                report.setdefault("pair_vs_fused", {})[kname] = rec
+                rec["fused_ms"] = recs[fused]["kernel_ms"]
+                continue
+            mains[kname] = rec
+            if kname in TC_KERNELS.values() and kname != fused:  # the scalar pair beside it
+                scalar = kname.removesuffix("_tc")
+                with flash.scalar_forms():
+                    recs[scalar].update(_time_bwd(backward, flash, benchit, card, scalar, ins, kw,
+                                                  segs, c, yardsticks[name], dt))
+                rec["scalar_ms"] = recs[scalar]["kernel_ms"]
+                mains[scalar] = recs[scalar]
+            if kname == "flash_bwd_tc":  # the scalar form beside it: the scalar row
+                with flash.scalar_forms():
+                    got = backward.flash_attention_bwd(*ins, fused=True, **kw)
+                    twin = _bwd_rec(f"flash_bwd/{name}/{dt}", got,
+                                    wants.get("two_pass_scalar", wants["two_pass"]), dt,
+                                    grad_absmax=absmax, shape=shape,
+                                    form="scalar (ops.flash.scalar_forms)")
+                    twin.update(_time_bwd(backward, flash, benchit, card, "flash_bwd", ins, kw,
+                                          segs, c, yardsticks[name], dt))
+                rec["scalar_ms"] = twin["kernel_ms"]
+                mains["flash_bwd"] = twin
+                recs["flash_bwd"] = twin
+        for rec in recs.values():
             emit(rec)
             report["checks"].append(rec)
-        del q, k, v, do, ins, plain, want, runs
+        del q, k, v, do, ins, plain, runs
         torch.cuda.empty_cache()
     return mains
 
@@ -2441,7 +2524,8 @@ BWD_WINDOW_CASES = (
     ("d128_s1000_w300_cap30_q8", dict(b=1, kvh=8, g=2, s_q=1000, s_kv=1000, d=128, window=300,
                                       cap=30.0, q_mult=8.0)),
 )
-TIMED_BWD_WINDOW_CASES = ("gemma2_d256_w4096_cap50", "mistral_d128_w4096")
+TIMED_BWD_WINDOW_CASES = ("gemma2_d256_w4096_cap50", "mistral_d128_w4096",
+                          "gemma2_packed_w4096_cap50_q8")
 
 
 def bwd_window_checks(backward, flash, benchit, gen, card, report, names=None, timed=True):
@@ -2484,34 +2568,30 @@ def bwd_window_checks(backward, flash, benchit, gen, card, report, names=None, t
                 emit(rec)
                 report["checks"].append(rec)
             ins, plain, wants, runs = _bwd_case(backward, flash, q, k, v, do, kw, segs)
-            want = wants["two_pass"]
-            got = {"flash_bwd_dq": (runs["two_pass"][0], want[:1]),
-                   "flash_bwd_dkv": (runs["two_pass"][1:], want[1:])}
-            fused = _kname("flash_bwd", q)
-            if "fused" in runs:
-                got[fused] = (runs["fused"], wants["fused"])
-            yard = None
-            for kname in (fused, "flash_bwd_dq", "flash_bwd_dkv"):
-                if kname not in got:
-                    continue
-                gots, wants = got[kname]
-                gots = gots if isinstance(gots, tuple) else (gots,)
-                rec = _bwd_rec(f"{kname}/{name}/{dt}", gots, wants, dt, shape=shape,
-                               grad_absmax=[float(w.abs().max()) for w in wants])
-                if timed and dt == "bfloat16" and name in TIMED_BWD_WINDOW_CASES:
-                    if yard is None:
-                        yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
-                    rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c,
-                                         yard, dt))
+            recs = {kname: _bwd_rec(f"{kname}/{name}/{dt}", gots, wants_k, dt, shape=shape,
+                                    grad_absmax=[float(w.abs().max()) for w in wants_k])
+                    for kname, (gots, wants_k) in _bwd_got(q, kw, runs, wants).items()}
+            if timed and dt == "bfloat16" and name in TIMED_BWD_WINDOW_CASES:
+                yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
+                for kname, rec in recs.items():
+                    # The scalar pair beside the tensor-core pair: under scalar_forms.
+                    scalar = kname in PAIR and "two_pass_scalar" in runs
+                    with flash.scalar_forms() if scalar else contextlib.nullcontext():
+                        rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs,
+                                             c, yard, dt))
                     if kname == "flash_bwd_tc":  # the scalar form's time beside it
                         with flash.scalar_forms():
                             rec["scalar_ms"] = _time_bwd(backward, flash, benchit, card,
                                                          "flash_bwd", ins, kw, segs, c, yard,
                                                          dt)["kernel_ms"]
                     timed_recs.setdefault(kname, {})[name] = rec
+                for k in PAIR:
+                    if TC_KERNELS[k] in recs and k in recs:
+                        recs[TC_KERNELS[k]]["scalar_ms"] = recs[k]["kernel_ms"]
+            for rec in recs.values():
                 emit(rec)
                 report["checks"].append(rec)
-            del q, k, v, do, ins, plain, want, runs, got
+            del q, k, v, do, ins, plain, runs
             torch.cuda.empty_cache()
     return timed_recs
 
@@ -2567,7 +2647,8 @@ def _time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, yardstick
     and its bound from this case's live pairs."""
     q, k, v, o, lse, do = ins
     di = (o.float() * do.float()).sum(dim=-1)
-    if kname in ("flash_bwd", "flash_bwd_tc"):
+    kname = kname.removesuffix("_tc")  # the form that runs is the caller's choice
+    if kname == "flash_bwd":
         kernel = lambda: backward.flash_attention_bwd(*ins, fused=True, **kw)  # noqa: E731
         reads, writes, per_pair = (q, k, v, o, do, lse), (q, k, v), 10
     elif kname == "flash_bwd_dq":
@@ -2676,32 +2757,36 @@ def dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, repor
                 emit(rec)
                 report["checks"].append(rec)
             ins, plain, wants, runs = _bwd_case(backward, flash, q, k, v, do, kw, segs)
-            want = wants["two_pass"]
-            got = {"flash_bwd_dq": (runs["two_pass"][:1], want[:1]),
-                   "flash_bwd_dkv": (runs["two_pass"][1:], want[1:])}
             fused = _kname("flash_bwd", q)
-            if "fused" in runs:
-                got[fused] = (runs["fused"], wants["fused"])
             yard = None
-            for kname, (gots, wants_k) in got.items():
+            recs = {}
+            for kname, (gots, wants_k) in _bwd_got(q, kw, runs, wants).items():
                 rec = _bwd_rec(f"{kname}/dropout/{name}/{rate}/{dt}", gots, wants_k, dt,
                                shape=shape, grad_absmax=[float(w.abs().max()) for w in wants_k])
+                recs[kname] = rec
                 if timing and (kname == fused) == (name == "train_layer"):
                     if yard is None:
                         yard = _bwd_yardsticks(benchit, ins, kw, c, plain, dropout_p=rate)
-                    rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c,
-                                         yard, dt))
-                    rec["no_dropout_ms"] = _time_bwd(backward, flash, benchit, card, kname, ins,
-                                                     _no_dropout(kw), segs, c, yard, dt)["kernel_ms"]
+                    # The scalar pair beside the tensor-core pair: under scalar_forms.
+                    scalar = kname in PAIR and "two_pass_scalar" in runs
+                    with flash.scalar_forms() if scalar else contextlib.nullcontext():
+                        rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs,
+                                             c, yard, dt))
+                        rec["no_dropout_ms"] = _time_bwd(backward, flash, benchit, card, kname,
+                                                         ins, _no_dropout(kw), segs, c, yard,
+                                                         dt)["kernel_ms"]
                     if kname == "flash_bwd_tc":
                         with flash.scalar_forms():
                             rec["scalar_ms"] = _time_bwd(backward, flash, benchit, card,
                                                          "flash_bwd", ins, kw, segs, c, yard,
                                                          dt)["kernel_ms"]
+                    if scalar:
+                        recs[TC_KERNELS[kname]]["scalar_ms"] = rec["kernel_ms"]
                     mains["flash_bwd" if kname == fused else kname] = rec
+            for rec in recs.values():
                 emit(rec)
                 report["checks"].append(rec)
-            del q, k, v, do, ins, plain, want, runs, got
+            del q, k, v, do, ins, plain, runs
             torch.cuda.empty_cache()
     for dt in ("bfloat16", "float32"):
         rec = _ragged_gqa_dropout(fa, backward, flash, gen, dt)
@@ -2890,21 +2975,20 @@ def _bm_skip_check(timed_recs, masks):
 
 def _bm_no_mask_times(backward, flash, benchit, ins, base):
     """The three kernels with no mask on the same inputs, and SDPA's
-    forward and backward with a boolean mask (filled in per mask).  The
-    forward in its scalar form, the one a block mask runs, so that the
+    forward and backward with a boolean mask (filled in per mask).  All
+    three in their scalar forms, the ones a block mask runs, so that the
     ratio measures the skipped tiles."""
     q, k, v, o, lse, do = ins
     di = (o.float() * do.float()).sum(dim=-1)
     with flash.scalar_forms():
-        fwd_ms = benchit.cuda_time_ms(lambda: flash.flash_attention(q, k, v, **base),
-                                      warmup=1, iters=3)
-    return {
-        "flash_fwd": fwd_ms,
-        "flash_bwd_dq": benchit.cuda_time_ms(lambda: backward.dq_kernel(q, k, v, do, lse, di, **base),
-                                             warmup=1, iters=3),
-        "flash_bwd_dkv": benchit.cuda_time_ms(
-            lambda: backward.dkv_kernel(q, k, v, do, lse, di, **base), warmup=1, iters=3),
-    }
+        return {
+            "flash_fwd": benchit.cuda_time_ms(lambda: flash.flash_attention(q, k, v, **base),
+                                              warmup=1, iters=3),
+            "flash_bwd_dq": benchit.cuda_time_ms(
+                lambda: backward.dq_kernel(q, k, v, do, lse, di, **base), warmup=1, iters=3),
+            "flash_bwd_dkv": benchit.cuda_time_ms(
+                lambda: backward.dkv_kernel(q, k, v, do, lse, di, **base), warmup=1, iters=3),
+        }
 
 
 def _time_block_mask(backward, flash, benchit, card, recs, ins, kw, fwd_plain, bwd_plain, no_mask):
@@ -3288,10 +3372,12 @@ def _launch_sum(rec):
     return total
 
 
-def _extra_entry(rec, paths, counter, keys):
+def _extra_entry(rec, paths, counter, keys, less=None):
     """A kernel summary's entry for one of its forms: the form's timed check
-    and its launches, by path, from the counter ``counter``."""
-    by_path = {p: n[counter] for p, n in paths.items() if n.get(counter)}
+    and its launches, by path, from the counter ``counter`` (less those of
+    the counter ``less``, a form counted within it)."""
+    by_path = {p: n.get(counter, 0) - n.get(less, 0) for p, n in paths.items()}
+    by_path = {p: x for p, x in by_path.items() if x}
     return {**{k: rec[k] for k in keys}, "ms": rec["kernel_ms"],
             "launches": sum(by_path.values()), "launches_by_path": by_path}
 
@@ -3455,7 +3541,8 @@ def main() -> int:
         main_rec = mains[kname]
         by_path = {p: n.get(kname, 0) - n.get(within.get(kname), 0) for p, n in paths.items()}
         by_path = {p: x for p, x in by_path.items() if x}
-        built = " (built with -DFA_QUANT)" if kname in TC_QUANT_KERNELS.values() else ""
+        built = (" (built with -DFA_QUANT)" if kname in TC_QUANT_KERNELS.values()
+                 else " (built with -DFA_PAIR)" if kname == "flash_bwd_dkv_tc" else "")
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"flashattention_tpu_torch/csrc/{source}{built}",
@@ -3479,11 +3566,20 @@ def main() -> int:
         timed = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                  "bytes_ms", "ops_ms", "library_ms")
         if kname in bwd_windowed:
-            summary[-1]["windowed"] = {case: {k: rec[k] for k in timed}
+            summary[-1]["windowed"] = {case: {k: rec[k] for k in (*timed, "scalar_ms") if k in rec}
                                        for case, rec in bwd_windowed[kname].items()}
         if kname in EXTRA_KERNELS:  # the dropout form: its timed check and launches
+            less = f"{TC_KERNELS[kname]}_dropout" if kname in PAIR else None
             summary[-1]["dropout"] = _extra_entry(dropout[kname], paths, f"{kname}_dropout",
-                                                  (*timed, "no_dropout_ms"))
+                                                  (*timed, "no_dropout_ms"), less)
+        if kname in (TC_KERNELS[k] for k in PAIR):
+            # The pair's tensor-core form: its dropout form (the packed layer at
+            # rate 0.1), Gemma-2's packed layer, and the training layer with
+            # the fused form's time beside it.
+            summary[-1]["dropout"] = _extra_entry(dropout[kname], paths, f"{kname}_dropout",
+                                                  (*timed, "no_dropout_ms", "scalar_ms"))
+            summary[-1]["train_layer_vs_fused"] = {
+                k: report["pair_vs_fused"][kname][k] for k in (*timed, "fused_ms")}
             if kname == "flash_fwd":
                 summary[-1]["dropout"]["quantized"] = {
                     k: dropout["flash_fwd_quant"][k] for k in (*timed, "no_dropout_ms")}

@@ -1,5 +1,6 @@
-// Pieces shared by the three flash-attention backward kernels
-// (flash_bwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// Pieces shared by the flash-attention backward kernels (flash_bwd.cu,
+// flash_bwd_dq.cu, flash_bwd_dkv.cu, and the row helpers and segment tables
+// of the tensor-core forms flash_bwd_tc.cu and flash_bwd_dq_tc.cu).
 //
 // Every backward kernel recomputes, for each live (query row i, key column j)
 // pair, the forward's probability and the score gradient from the saved
@@ -125,6 +126,34 @@ __device__ __forceinline__ float2 p_ds(float s, float dp, float lse, float di, b
   const float p = live ? expf(s - lse) : 0.f;
   return make_float2(p, p * (dp - di) * scale);
 }
+
+// Segment ids of the two-pass pair's tensor-core forms (flash_bwd_dq_tc.cu,
+// flash_bwd_tc.cu with FA_PAIR): the folded ids of the query rows (bh, rows)
+// and key rows (bh, s_kv), and for each head the [min, max] id of every
+// kSegTile rows (the last tile's existing rows; ops/backward.py builds them),
+// so that a pair of tiles whose ranges are disjoint, and so share no id, is
+// skipped.  All null: no segment ids.
+constexpr int kSegTile = 64;
+struct Segs {
+  const int* q;
+  const int* kv;
+  const int* q_rng;   // (bh, ceil(rows / kSegTile), 2)
+  const int* kv_rng;  // (bh, ceil(s_kv / kSegTile), 2)
+};
+
+// The [min, max] id of rows [r0, r0 + n) (r0 and n multiples of kSegTile)
+// from one head's table of `tiles` entries; an empty range past the end.
+__device__ __forceinline__ int2 seg_range(const int* rng, int tiles, int r0, int n) {
+  int2 r = make_int2(INT_MAX, INT_MIN);
+  for (int t = r0 / kSegTile; t < min(tiles, (r0 + n) / kSegTile); ++t) {
+    r.x = min(r.x, rng[2 * t]);
+    r.y = max(r.y, rng[2 * t + 1]);
+  }
+  return r;
+}
+
+// Whether two id ranges overlap: disjoint ones share no id.
+__device__ __forceinline__ bool seg_meet(int2 a, int2 b) { return a.x <= b.y && b.x <= a.y; }
 
 // Bit n of a bit array held in 32-bit words.
 __device__ __forceinline__ bool bit(const unsigned* words, int n) {

@@ -54,6 +54,23 @@
 // them to about 2^-17 where the Pallas kernels' bf16 mode rounds them once
 // (see flash_fwd_tc.cuh); ops/backward.py's plain version mirrors this
 // form.  The atomics make dQ's summation order vary from run to run.
+//
+// kPair (built with FA_PAIR into flash_bwd_dkv_tc[_extra]): the two-pass
+// pair's dK/dV pass, which replaces flashattention_tpu/ops/backward.py::
+// _dkv_kernel (the pallas_call at backward.py:912) for the same calls plus
+// segment ids; its dQ pass is flash_bwd_dq_tc.cu.  The form drops what only dQ
+// needs: the dS^T buffers, the barrier between the consumer warpgroups, the
+// dQ product and its atomics (at d = 256 the dS^T hand-off and dq_half; the
+// dS side frees X once it has read Y^T).  It adds segment ids: each consumer
+// thread reads its two key rows' ids once, with K/V, and each query row's id
+// is the sixth word of the stage table; the pair's ids must be equal for it to
+// be live.  With segment ids the wrapper also gives each head's [min, max] id
+// of every 64 rows (fa_bwd::Segs): the producer and the consumers skip a query
+// tile whose range is disjoint from the block's key rows', as they skip one
+// outside the band (disjoint ranges share no id, so the skip is exact), and a
+// d <= 128 consumer warpgroup one disjoint from its own 64 key rows' (it
+// waits for the tile and frees it).  The GQA fold, kv_len, the causal and
+// window skips, the softcap and dropout are the fused form's.
 #include "bwd_common.cuh"
 #include "tc_common.cuh"
 
@@ -66,7 +83,11 @@ constexpr int kThreads = 384;
 constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 
-template <int D>
+// Words of a stage's table per query row: lse, di, first and last visible
+// column, dropout row key, segment id (kPair).
+constexpr int kTabRows = 6;
+
+template <int D, bool kPair>
 struct Cfg {
   static constexpr int kChunks = D / tc::kChunk;
   static constexpr int kKVChunk = kBlockN * tc::kChunkRowBytes;
@@ -82,8 +103,8 @@ struct Cfg {
   static constexpr int kQ = kV + kChunks * kKVChunk;
   static constexpr int kDo = kQ + kStages * kQTile;
   static constexpr int kDs = kDo + kStages * kQTile;
-  static constexpr int kTab = kDs + 4 * kDsBytes;  // hi and lo terms, double-buffered
-  static constexpr int kTabWords = 5 * kBlockM;  // lse, di, first, last, dropout key
+  static constexpr int kTab = kDs + (kPair ? 0 : 4 * kDsBytes);  // hi and lo terms, double-buffered
+  static constexpr int kTabWords = kTabRows * kBlockM;
   static constexpr int kBar = kTab + kStages * kTabWords * 4;
   static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + tc::kAtomBytes;
 };
@@ -101,11 +122,23 @@ __device__ __forceinline__ bool live_tile(int r0, int c0, int rows, int q_offset
   return true;
 }
 
+// With segment ids (kPair), whether the query tile [r0, r0 + kBlockM) and key
+// ids `keys` may meet: their id ranges overlap.  No segment ids: true.
+template <bool kPair>
+__device__ __forceinline__ bool ids_meet(const int* q_rng, int n_qt, int r0, int2 keys,
+                                         int2* q_ids) {
+  if (!kPair || q_rng == nullptr) return true;
+  *q_ids = fa_bwd::seg_range(q_rng, n_qt, r0, kBlockM);
+  return fa_bwd::seg_meet(*q_ids, keys);
+}
+
 // The producer warp of both kernels: K and V of the block's kKeys key rows
 // once, then for each live query tile its Q and dO tiles into the ring,
-// with the tile's lse, di, each row's first and last visible column and its
-// dropout row key in the stage's table (5 kBlockM words).
-template <bool kWindowCap, bool kExtra, int kKeys, int kChunks>
+// with the tile's lse, di, each row's first and last visible column, its
+// dropout row key and (kPair) its segment id in the stage's table (kTabRows
+// kBlockM words).  kPair: a tile whose ids do not meet the block's key ids
+// `keys` is skipped (ids_meet).
+template <bool kWindowCap, bool kExtra, bool kPair, int kKeys, int kChunks>
 __device__ __forceinline__ void produce(unsigned char* smem, int v_off, int q_off, int do_off,
                                         int tab_off, uint64_t* full, uint64_t* empty,
                                         uint64_t* kv_bar, const CUtensorMap* tm_q,
@@ -113,11 +146,12 @@ __device__ __forceinline__ void produce(unsigned char* smem, int v_off, int q_of
                                         const CUtensorMap* tm_do, const float* lse,
                                         const float* di, int bh, int c0, int n_r, int rows,
                                         int kv_len, int q_offset, int q_seq_len, int causal,
-                                        int win, const fa::Extras& ex) {
+                                        int win, const fa::Extras& ex, const fa_bwd::Segs& sg,
+                                        const int* q_rng, int n_qt, int2 keys) {
   constexpr int kKVChunk = kKeys * tc::kChunkRowBytes;
   constexpr int kQChunk = kBlockM * tc::kChunkRowBytes;
   constexpr int kQTile = kChunks * kQChunk;
-  constexpr int kTabWords = 5 * kBlockM;
+  constexpr int kTabWords = kTabRows * kBlockM;
   const int lane = threadIdx.x;
   const bool dropout = kExtra && ex.threshold != 0;
   if (lane == 0) {
@@ -133,6 +167,8 @@ __device__ __forceinline__ void produce(unsigned char* smem, int v_off, int q_of
   for (int it = 0, i = 0; it < n_r; ++it) {
     const int r0 = it * kBlockM;
     if (!live_tile<kWindowCap, kKeys>(r0, c0, rows, q_offset, q_seq_len, causal, win)) continue;
+    int2 q_ids;
+    if (!ids_meet<kPair>(q_rng, n_qt, r0, keys, &q_ids)) continue;
     const int s = i % kStages;
     if (i >= kStages) tc::mbar_wait(&empty[s], (i / kStages - 1) & 1);
     float* tf = tab_f + s * kTabWords;
@@ -146,6 +182,7 @@ __device__ __forceinline__ void produce(unsigned char* smem, int v_off, int q_of
       ti[3 * kBlockM + x] = fa_bwd::row_limit(r, rows, kv_len, q_offset, q_seq_len, causal);
       ti[4 * kBlockM + x] =
           dropout ? static_cast<int>(fa::dropout_row_key(ex, bh, r, q_seq_len)) : 0;
+      ti[5 * kBlockM + x] = kPair && in && sg.q != nullptr ? sg.q[head + r] : 0;
     }
     if (lane == 0) {
       tc::mbar_arrive_tx(&full[s], 2 * kQTile);
@@ -162,7 +199,7 @@ __device__ __forceinline__ void produce(unsigned char* smem, int v_off, int q_of
   }
 }
 
-template <int D, bool kWindowCap, bool kExtra>
+template <int D, bool kWindowCap, bool kExtra, bool kPair>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -171,8 +208,8 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ di, float* __restrict__ dq_acc,
                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int rows,
                     int s_kv, int kv_len, int q_offset, int q_seq_len, int causal, float scale,
-                    int window, float softcap, const fa::Extras ex) {
-  using C = Cfg<D>;
+                    int window, float softcap, const fa::Extras ex, const fa_bwd::Segs sg) {
+  using C = Cfg<D, kPair>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + tc::kAtomBytes - 1) &
@@ -180,7 +217,7 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBar);
   uint64_t* empty = full + kStages;
   uint64_t* kv_bar = empty + kStages;
-  // Per stage: lse, di, first and last visible column, dropout row key.
+  // Per stage: lse, di, first and last visible column, dropout row key, segment id.
   float* tab_f = reinterpret_cast<float*>(smem + C::kTab);
   int* tab_i = reinterpret_cast<int*>(smem + C::kTab);
 
@@ -190,6 +227,13 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float cap = kWindowCap ? softcap : 0.f;
   const bool dropout = kExtra && ex.threshold != 0;
   const int n_r = c0 < kv_len ? (rows + kBlockM - 1) / kBlockM : 0;  // query tiles to walk
+  // kPair, segment ids: each head's id ranges, and the block's key rows'.
+  const bool has_seg = kPair && sg.q != nullptr;
+  const int n_qt = (rows + fa_bwd::kSegTile - 1) / fa_bwd::kSegTile;
+  const int n_kt = (s_kv + fa_bwd::kSegTile - 1) / fa_bwd::kSegTile;
+  const int* q_rng = has_seg ? sg.q_rng + static_cast<size_t>(bh) * n_qt * 2 : nullptr;
+  const int* kv_rng = has_seg ? sg.kv_rng + static_cast<size_t>(bh) * n_kt * 2 : nullptr;
+  const int2 keys = has_seg ? fa_bwd::seg_range(kv_rng, n_kt, c0, kBlockN) : make_int2(0, 0);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -205,9 +249,10 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {  // producer
     tc::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x >= 32) return;
-    produce<kWindowCap, kExtra, kBlockN, C::kChunks>(
+    produce<kWindowCap, kExtra, kPair, kBlockN, C::kChunks>(
         smem, C::kV, C::kQ, C::kDo, C::kTab, full, empty, kv_bar, &tm_q, &tm_k, &tm_v, &tm_do,
-        lse, di, bh, c0, n_r, rows, kv_len, q_offset, q_seq_len, causal, win, ex);
+        lse, di, bh, c0, n_r, rows, kv_len, q_offset, q_seq_len, causal, win, ex, sg, q_rng, n_qt,
+        keys);
     return;
   }
 
@@ -219,6 +264,11 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kw0 = c0 + 64 * cw;
   const int kl_a = 64 * cw + 16 * warp + g;  // this thread's key rows in the block
   const int key_a = c0 + kl_a, key_b = key_a + 8;
+  // kPair: this thread's key rows' segment ids, and this warpgroup's range.
+  const size_t kv_head = static_cast<size_t>(bh) * s_kv;
+  const int seg_ka = has_seg && key_a < s_kv ? sg.kv[kv_head + key_a] : 0;
+  const int seg_kb = has_seg && key_b < s_kv ? sg.kv[kv_head + key_b] : 0;
+  const int2 wg_keys = has_seg ? fa_bwd::seg_range(kv_rng, n_kt, kw0, 64) : make_int2(0, 0);
 
   float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
@@ -230,8 +280,15 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int it = 0, i = 0; it < n_r; ++it) {
     const int r0 = it * kBlockM;
     if (!live_tile<kWindowCap, kBlockN>(r0, c0, rows, q_offset, q_seq_len, causal, win)) continue;
+    int2 q_ids = make_int2(0, 0);
+    if (!ids_meet<kPair>(q_rng, n_qt, r0, keys, &q_ids)) continue;
     const int s = i % kStages;
     tc::mbar_wait(&full[s], (i / kStages) & 1);
+    if (has_seg && !fa_bwd::seg_meet(q_ids, wg_keys)) {  // none of this warpgroup's key rows
+      tc::mbar_arrive(&empty[s]);
+      ++i;
+      continue;
+    }
     const uint32_t q_tile = tc::smem_u32(smem + C::kQ + s * C::kQTile);
     const uint32_t do_tile = tc::smem_u32(smem + C::kDo + s * C::kQTile);
     const float* tf = tab_f + s * C::kTabWords;
@@ -261,7 +318,9 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // Whether any pair of this warpgroup's key rows and the tile is masked.
     const int pmin = q_offset + fa_bwd::tile_first_pos(r0, kBlockM, rows, q_seq_len);
     const int pmax = q_offset + fa_bwd::tile_last_pos(r0, kBlockM, rows, q_seq_len);
-    const bool need_mask = r0 + kBlockM > rows || kw0 + 63 >= kv_len ||
+    const bool mixed_ids = has_seg && !(q_ids.x == q_ids.y && wg_keys.x == wg_keys.y &&
+                                        q_ids.x == wg_keys.x);
+    const bool need_mask = mixed_ids || r0 + kBlockM > rows || kw0 + 63 >= kv_len ||
                            (causal && kw0 + 63 > pmin) || (win > 0 && kw0 <= pmax - win);
 #pragma unroll
     for (int j = 0; j < kBlockM / 8; ++j) {
@@ -278,7 +337,9 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             c_fac = 1.f - th * th;
           }
         }
-        const bool live = !need_mask || (key <= ti[3 * kBlockM + x] && key >= ti[2 * kBlockM + x]);
+        const bool live = !need_mask ||
+                          (key <= ti[3 * kBlockM + x] && key >= ti[2 * kBlockM + x] &&
+                           (!has_seg || ti[5 * kBlockM + x] == (e < 2 ? seg_ka : seg_kb)));
         const float p = live ? tc::ex2((sc - tf[x]) * tc::kLog2e) : 0.f;
         float dp = dpt[4 * j + e];
         float z = 1.f;  // dropout: the pair's 1 / (1 - rate) or 0
@@ -334,53 +395,55 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 
-    // dS^T (128 key rows x 64 query rows, its hi and lo bf16 terms) into this
-    // tile's buffers, 16-byte unit u of key row r at u ^ (r % 8), as TMA
-    // would swizzle it.
-    unsigned char* ds_hi = smem + C::kDs + (i % 2) * 2 * C::kDsBytes;
-    unsigned char* ds_lo = ds_hi + C::kDsBytes;
+    if constexpr (!kPair) {  // the fused form: dQ = dS K, added by atomics
+      // dS^T (128 key rows x 64 query rows, its hi and lo bf16 terms) into this
+      // tile's buffers, 16-byte unit u of key row r at u ^ (r % 8), as TMA
+      // would swizzle it.
+      unsigned char* ds_hi = smem + C::kDs + (i % 2) * 2 * C::kDsBytes;
+      unsigned char* ds_lo = ds_hi + C::kDsBytes;
 #pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk) {
+      for (int kk = 0; kk < kBlockM / 16; ++kk) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {  // query columns 16kk + 8h + 2t, +1
-        const int u = 2 * kk + h;
-        const int ra = kl_a, rb = kl_a + 8;
-        const int oa = ra * 128 + ((u ^ (ra & 7)) * 16) + 4 * t;
-        const int ob = rb * 128 + ((u ^ (rb & 7)) * 16) + 4 * t;
-        *reinterpret_cast<uint32_t*>(ds_hi + oa) = dsa[kk][2 * h];
-        *reinterpret_cast<uint32_t*>(ds_hi + ob) = dsa[kk][2 * h + 1];
-        *reinterpret_cast<uint32_t*>(ds_lo + oa) = dsl[kk][2 * h];
-        *reinterpret_cast<uint32_t*>(ds_lo + ob) = dsl[kk][2 * h + 1];
+        for (int h = 0; h < 2; ++h) {  // query columns 16kk + 8h + 2t, +1
+          const int u = 2 * kk + h;
+          const int ra = kl_a, rb = kl_a + 8;
+          const int oa = ra * 128 + ((u ^ (ra & 7)) * 16) + 4 * t;
+          const int ob = rb * 128 + ((u ^ (rb & 7)) * 16) + 4 * t;
+          *reinterpret_cast<uint32_t*>(ds_hi + oa) = dsa[kk][2 * h];
+          *reinterpret_cast<uint32_t*>(ds_hi + ob) = dsa[kk][2 * h + 1];
+          *reinterpret_cast<uint32_t*>(ds_lo + oa) = dsl[kk][2 * h];
+          *reinterpret_cast<uint32_t*>(ds_lo + ob) = dsl[kk][2 * h + 1];
+        }
       }
-    }
-    tc::fence_async_smem();
-    tc::named_sync(1, 256);  // both warpgroups' dS^T rows are in
+      tc::fence_async_smem();
+      tc::named_sync(1, 256);  // both warpgroups' dS^T rows are in
 
-    if (cw < C::kDqSplit) {
-      float dq[C::kDqN / 2];
-      const uint32_t hi_base = tc::smem_u32(ds_hi), lo_base = tc::smem_u32(ds_lo);
-      const uint32_t kc_base = tc::smem_u32(smem) + cw * C::kKVChunk;  // K columns 64cw..
-      tc::wgmma_fence();
+      if (cw < C::kDqSplit) {
+        float dq[C::kDqN / 2];
+        const uint32_t hi_base = tc::smem_u32(ds_hi), lo_base = tc::smem_u32(ds_lo);
+        const uint32_t kc_base = tc::smem_u32(smem) + cw * C::kKVChunk;  // K columns 64cw..
+        tc::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        const uint64_t db = tc::make_desc(kc_base + kk * 2048, C::kKVChunk, 1024);
-        tc::wgmma_ss<1, 1>(dq, tc::make_desc(hi_base + kk * 2048, C::kDsBytes, 1024), db, kk > 0);
-        tc::wgmma_ss<1, 1>(dq, tc::make_desc(lo_base + kk * 2048, C::kDsBytes, 1024), db, 1);
-      }
-      tc::wgmma_commit();
-      tc::wgmma_wait<0>();
-      tc::fence_regs(dq);
-      float* dst = dq_acc + (static_cast<size_t>(bh) * rows + r0) * D + cw * C::kDqN;
+        for (int kk = 0; kk < kBlockN / 16; ++kk) {
+          const uint64_t db = tc::make_desc(kc_base + kk * 2048, C::kKVChunk, 1024);
+          tc::wgmma_ss<1, 1>(dq, tc::make_desc(hi_base + kk * 2048, C::kDsBytes, 1024), db, kk > 0);
+          tc::wgmma_ss<1, 1>(dq, tc::make_desc(lo_base + kk * 2048, C::kDsBytes, 1024), db, 1);
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+        tc::fence_regs(dq);
+        float* dst = dq_acc + (static_cast<size_t>(bh) * rows + r0) * D + cw * C::kDqN;
 #pragma unroll
-      for (int j = 0; j < C::kDqN / 8; ++j) {
-        const int ra = 16 * warp + g, c = 8 * j + 2 * t;
-        if (r0 + ra < rows)
-          tc::atomic_add2(dst + static_cast<size_t>(ra) * D + c, dq[4 * j], dq[4 * j + 1]);
-        if (r0 + ra + 8 < rows)
-          tc::atomic_add2(dst + static_cast<size_t>(ra + 8) * D + c, dq[4 * j + 2], dq[4 * j + 3]);
+        for (int j = 0; j < C::kDqN / 8; ++j) {
+          const int ra = 16 * warp + g, c = 8 * j + 2 * t;
+          if (r0 + ra < rows)
+            tc::atomic_add2(dst + static_cast<size_t>(ra) * D + c, dq[4 * j], dq[4 * j + 1]);
+          if (r0 + ra + 8 < rows)
+            tc::atomic_add2(dst + static_cast<size_t>(ra + 8) * D + c, dq[4 * j + 2], dq[4 * j + 3]);
+        }
+      } else {
+        tc::wgmma_wait<0>();
       }
-    } else {
-      tc::wgmma_wait<0>();
     }
 #pragma unroll
     for (int kk = 0; kk < kBlockM / 16; ++kk)
@@ -433,6 +496,8 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 // products have read dS^T (2 arrives, 1 syncs before writing the next Y^T;
 // one arrival ahead, consumed after the loop).  Each barrier has at most one
 // arrival pending, since each side's next arrival waits on the other's.
+// kPair: no dS^T and no dQ, so barriers 2 and 4 go; the dS side arrives on 3
+// as soon as it has read Y^T.
 namespace d256 {
 
 constexpr int D = 256;
@@ -448,7 +513,7 @@ constexpr int kQ = kV + kChunks * kKVChunk;
 constexpr int kDo = kQ + kStages * kQTile;
 constexpr int kX = kDo + kStages * kQTile;
 constexpr int kTab = kX + 2 * kDsBytes;
-constexpr int kTabWords = 5 * kBlockM;
+constexpr int kTabWords = kTabRows * kBlockM;
 constexpr int kBar = kTab + kStages * kTabWords * 4;
 constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + tc::kAtomBytes;
 static_assert(2 * kDsBytes == 4 * kKeys * kBlockM, "X holds Y^T in float32 and dS^T's two terms");
@@ -508,7 +573,7 @@ __device__ __forceinline__ void dq_half(unsigned char* smem, float* dq_acc, int 
   }
 }
 
-template <bool kWindowCap, bool kExtra>
+template <bool kWindowCap, bool kExtra, bool kPair>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -517,7 +582,8 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const float* __restrict__ di, float* __restrict__ dq_acc,
                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int rows,
                          int s_kv, int kv_len, int q_offset, int q_seq_len, int causal,
-                         float scale, int window, float softcap, const fa::Extras ex) {
+                         float scale, int window, float softcap, const fa::Extras ex,
+                         const fa_bwd::Segs sg) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + tc::kAtomBytes - 1) &
@@ -534,6 +600,13 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float cap = kWindowCap ? softcap : 0.f;
   const bool dropout = kExtra && ex.threshold != 0;
   const int n_q = c0 < kv_len ? (rows + kBlockM - 1) / kBlockM : 0;  // query tiles to walk
+  // kPair, segment ids: each head's id ranges, and the block's key rows'.
+  const bool has_seg = kPair && sg.q != nullptr;
+  const int n_qt = (rows + fa_bwd::kSegTile - 1) / fa_bwd::kSegTile;
+  const int n_kt = (s_kv + fa_bwd::kSegTile - 1) / fa_bwd::kSegTile;
+  const int* q_rng = has_seg ? sg.q_rng + static_cast<size_t>(bh) * n_qt * 2 : nullptr;
+  const int* kv_rng = has_seg ? sg.kv_rng + static_cast<size_t>(bh) * n_kt * 2 : nullptr;
+  const int2 keys = has_seg ? fa_bwd::seg_range(kv_rng, n_kt, c0, kKeys) : make_int2(0, 0);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -549,10 +622,9 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {  // producer
     tc::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x >= 32) return;
-    produce<kWindowCap, kExtra, kKeys, kChunks>(smem, kV, kQ, kDo, kTab, full, empty, kv_bar,
-                                                &tm_q, &tm_k, &tm_v, &tm_do, lse, di, bh, c0,
-                                                n_q, rows, kv_len, q_offset, q_seq_len, causal,
-                                                win, ex);
+    produce<kWindowCap, kExtra, kPair, kKeys, kChunks>(
+        smem, kV, kQ, kDo, kTab, full, empty, kv_bar, &tm_q, &tm_k, &tm_v, &tm_do, lse, di, bh, c0,
+        n_q, rows, kv_len, q_offset, q_seq_len, causal, win, ex, sg, q_rng, n_qt, keys);
     return;
   }
 
@@ -562,6 +634,10 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
   const int kl_a = 16 * warp + g;  // this thread's key rows in the block: kl_a, kl_a + 8
   const int key_a = c0 + kl_a, key_b = key_a + 8;
+  // kPair: this thread's key rows' segment ids.
+  const size_t kv_head = static_cast<size_t>(bh) * s_kv;
+  const int seg_ka = has_seg && key_a < s_kv ? sg.kv[kv_head + key_a] : 0;
+  const int seg_kb = has_seg && key_b < s_kv ? sg.kv[kv_head + key_b] : 0;
   float* x_f = reinterpret_cast<float*>(smem + kX);  // Y^T: word j of thread tid at j 128 + tid
   unsigned char* ds_hi = smem + kX;
   unsigned char* ds_lo = ds_hi + kDsBytes;
@@ -577,6 +653,8 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int it = 0, i = 0; it < n_q; ++it) {
     const int r0 = it * kBlockM;
     if (!live_tile<kWindowCap, kKeys>(r0, c0, rows, q_offset, q_seq_len, causal, win)) continue;
+    int2 q_ids = make_int2(0, 0);
+    if (!ids_meet<kPair>(q_rng, n_qt, r0, keys, &q_ids)) continue;
     const int s = i % kStages;
     tc::mbar_wait(&full[s], (i / kStages) & 1);
     const uint32_t q_tile = tc::smem_u32(smem + kQ + s * kQTile);
@@ -602,7 +680,9 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (p_side) {
       const int pmin = q_offset + fa_bwd::tile_first_pos(r0, kBlockM, rows, q_seq_len);
       const int pmax = q_offset + fa_bwd::tile_last_pos(r0, kBlockM, rows, q_seq_len);
-      const bool need_mask = r0 + kBlockM > rows || c0 + kKeys - 1 >= kv_len ||
+      const bool mixed_ids =
+          has_seg && !(q_ids.x == q_ids.y && keys.x == keys.y && q_ids.x == keys.x);
+      const bool need_mask = mixed_ids || r0 + kBlockM > rows || c0 + kKeys - 1 >= kv_len ||
                              (causal && c0 + kKeys - 1 > pmin) || (win > 0 && c0 <= pmax - win);
       float y[kBlockM / 2];
 #pragma unroll
@@ -621,7 +701,8 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
             }
           }
           const bool live =
-              !need_mask || (key <= ti[3 * kBlockM + x] && key >= ti[2 * kBlockM + x]);
+              !need_mask || (key <= ti[3 * kBlockM + x] && key >= ti[2 * kBlockM + x] &&
+                             (!has_seg || ti[5 * kBlockM + x] == (e < 2 ? seg_ka : seg_kb)));
           const float p = live ? tc::ex2((sc - tf[x]) * tc::kLog2e) : 0.f;
           y[4 * j + e] = p * c_fac;
           float z = p;  // Z = keep P / (1 - rate)
@@ -638,14 +719,17 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < kBlockM / 16; ++kk) tc::pack_a2(ah[kk], al[kk], st, kk);
       add_products(acc, ah, al, do_tile);  // dV += Z^T dO
-      tc::named_sync(2, 256);  // dS^T written
-      dq_half(smem, dq_acc, bh, rows, r0, 0, warp, g, t);
+      if constexpr (!kPair) {
+        tc::named_sync(2, 256);  // dS^T written
+        dq_half(smem, dq_acc, bh, rows, r0, 0, warp, g, t);
+      }
     } else {
       tc::named_sync(1, 256);  // Y^T written
       float y[kBlockM / 2];
 #pragma unroll
       for (int j = 0; j < kBlockM / 2; ++j) y[j] = x_f[j * 128 + tid];
-      tc::named_sync(4, 128);  // every thread of this side has read its Y^T
+      if constexpr (kPair) tc::named_arrive(3, 256);  // done with X
+      else tc::named_sync(4, 128);  // every thread of this side has read its Y^T
 #pragma unroll
       for (int j = 0; j < kBlockM / 8; ++j) {
 #pragma unroll
@@ -660,27 +744,31 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 #pragma unroll
       for (int kk = 0; kk < kBlockM / 16; ++kk) tc::pack_a2(ah[kk], al[kk], st, kk);
-      // dS^T (64 key rows x 64 query rows, hi and lo) into X, 16-byte unit u
-      // of key row r at u ^ (r % 8), as TMA would swizzle it.
+      if constexpr (!kPair) {
+        // dS^T (64 key rows x 64 query rows, hi and lo) into X, 16-byte unit
+        // u of key row r at u ^ (r % 8), as TMA would swizzle it.
 #pragma unroll
-      for (int kk = 0; kk < kBlockM / 16; ++kk) {
+        for (int kk = 0; kk < kBlockM / 16; ++kk) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {  // query columns 16kk + 8h + 2t, +1
-          const int u = 2 * kk + h;
-          const int ra = kl_a, rb = kl_a + 8;
-          const int oa = ra * 128 + ((u ^ (ra & 7)) * 16) + 4 * t;
-          const int ob = rb * 128 + ((u ^ (rb & 7)) * 16) + 4 * t;
-          *reinterpret_cast<uint32_t*>(ds_hi + oa) = ah[kk][2 * h];
-          *reinterpret_cast<uint32_t*>(ds_hi + ob) = ah[kk][2 * h + 1];
-          *reinterpret_cast<uint32_t*>(ds_lo + oa) = al[kk][2 * h];
-          *reinterpret_cast<uint32_t*>(ds_lo + ob) = al[kk][2 * h + 1];
+          for (int h = 0; h < 2; ++h) {  // query columns 16kk + 8h + 2t, +1
+            const int u = 2 * kk + h;
+            const int ra = kl_a, rb = kl_a + 8;
+            const int oa = ra * 128 + ((u ^ (ra & 7)) * 16) + 4 * t;
+            const int ob = rb * 128 + ((u ^ (rb & 7)) * 16) + 4 * t;
+            *reinterpret_cast<uint32_t*>(ds_hi + oa) = ah[kk][2 * h];
+            *reinterpret_cast<uint32_t*>(ds_hi + ob) = ah[kk][2 * h + 1];
+            *reinterpret_cast<uint32_t*>(ds_lo + oa) = al[kk][2 * h];
+            *reinterpret_cast<uint32_t*>(ds_lo + ob) = al[kk][2 * h + 1];
+          }
         }
+        tc::fence_async_smem();
+        tc::named_arrive(2, 256);  // dS^T written
       }
-      tc::fence_async_smem();
-      tc::named_arrive(2, 256);  // dS^T written
       add_products(acc, ah, al, q_tile);  // dK += dS^T Q
-      dq_half(smem, dq_acc, bh, rows, r0, 2, warp, g, t);
-      tc::named_arrive(3, 256);  // done with X
+      if constexpr (!kPair) {
+        dq_half(smem, dq_acc, bh, rows, r0, 2, warp, g, t);
+        tc::named_arrive(3, 256);  // done with X
+      }
     }
 #pragma unroll
     for (int kk = 0; kk < kBlockM / 16; ++kk)
@@ -723,12 +811,21 @@ struct Args {
   float softcap;
   fa::Extras ex;
   cudaStream_t stream;
+  fa_bwd::Segs sg;  // kPair only
 };
+
+// The library's form: the fused backward, or (FA_PAIR) the pair's dK/dV pass.
+#ifdef FA_PAIR
+constexpr bool kPairLib = true;
+#else
+constexpr bool kPairLib = false;
+#endif
 
 template <int D, bool kWindowCap, bool kExtra>
 int launch(const Args& a) {
+  constexpr bool kPair = kPairLib;
   constexpr int kKeys = D == 256 ? d256::kKeys : kBlockN;  // key rows per block
-  constexpr int kBytes = D == 256 ? d256::kBytes : Cfg<D == 256 ? 128 : D>::kBytes;
+  constexpr int kBytes = D == 256 ? d256::kBytes : Cfg<D == 256 ? 128 : D, kPair>::kBytes;
   CUtensorMap mq, mk, mv, mdo;
   // K/V rows past kv_len read as zeros (dP there would meet V's garbage).
   const int kv_rows = a.kv_len > 0 ? a.kv_len : 1;
@@ -740,8 +837,8 @@ int launch(const Args& a) {
   if (st == 0) st = tc_encode_map(&mv, a.v, D, kv_rows, a.bh, kv_stride, kKeys);
   if (st != 0) return st;
   auto kernel = [] {
-    if constexpr (D == 256) return d256::flash_bwd_tc_d256_kernel<kWindowCap, kExtra>;
-    else return flash_bwd_tc_kernel<D, kWindowCap, kExtra>;
+    if constexpr (D == 256) return d256::flash_bwd_tc_d256_kernel<kWindowCap, kExtra, kPair>;
+    else return flash_bwd_tc_kernel<D, kWindowCap, kExtra, kPair>;
   }();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
@@ -750,7 +847,7 @@ int launch(const Args& a) {
   kernel<<<grid, kThreads, kBytes, a.stream>>>(
       mq, mk, mv, mdo, a.lse, a.di, a.dq_acc, static_cast<__nv_bfloat16*>(a.dk),
       static_cast<__nv_bfloat16*>(a.dv), a.rows, a.s_kv, a.kv_len, a.q_offset, a.q_seq_len,
-      a.causal, a.scale, a.window, a.softcap, a.ex);
+      a.causal, a.scale, a.window, a.softcap, a.ex, a.sg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -771,6 +868,44 @@ int launch_w(const Args& a) {
 
 }  // namespace
 
+namespace {
+
+int launch_d(const Args& a, int d) {
+  switch (d) {
+    case 64: return launch_w<64>(a);
+    case 128: return launch_w<128>(a);
+    case 256: return launch_w<256>(a);
+    default: return -1;
+  }
+}
+
+}  // namespace
+
+#ifdef FA_PAIR
+// The pair's dK/dV pass.  q, do: (bh, rows, d); k, v, dk, dv: (bh, s_kv, d);
+// all bf16, contiguous, 16-byte aligned (TMA); lse, di: (bh, rows) float32;
+// q_seg (bh, rows) and kv_seg (bh, s_kv) int32 with their tile tables q_rng
+// (bh, ceil(rows / 64), 2) and kv_rng (bh, ceil(s_kv / 64), 2), each 64
+// rows' [min, max] id, all four or none null.  Options as fa_flash_bwd_tc's.
+extern "C" int fa_flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse, const void* di,
+                                   const void* q_seg, const void* kv_seg, const void* q_rng,
+                                   const void* kv_rng, void* dk, void* dv, int bh, int rows,
+                                   int s_kv, int d, int kv_len, int q_offset, int q_seq_len,
+                                   int causal, float scale, int window, float softcap,
+                                   int row_stride, int dropout_seed, int dropout_threshold,
+                                   float dropout_inv, void* stream) {
+  const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, row_stride,
+                      static_cast<unsigned>(dropout_seed),
+                      static_cast<unsigned>(dropout_threshold), dropout_inv};
+  const fa_bwd::Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+                        static_cast<const int*>(q_rng), static_cast<const int*>(kv_rng)};
+  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(di),
+               nullptr, dk, dv, bh, rows, s_kv, kv_len, q_offset, q_seq_len, causal, scale,
+               window, softcap, ex, static_cast<cudaStream_t>(stream), sg};
+  return launch_d(a, d);
+}
+#else
 // q, do: (bh, rows, d); k, v, dk, dv: (bh, s_kv, d); all bf16, contiguous,
 // 16-byte aligned (TMA); lse, di: (bh, rows) float32; dq_acc: (bh, rows, d)
 // float32, zeroed by the caller, to which dQ is added.  window <= 0: no
@@ -787,11 +922,8 @@ extern "C" int fa_flash_bwd_tc(const void* q, const void* k, const void* v, cons
                       static_cast<unsigned>(dropout_threshold), dropout_inv};
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(di),
                static_cast<float*>(dq_acc), dk, dv, bh, rows, s_kv, kv_len, q_offset,
-               q_seq_len, causal, scale, window, softcap, ex, static_cast<cudaStream_t>(stream)};
-  switch (d) {
-    case 64: return launch_w<64>(a);
-    case 128: return launch_w<128>(a);
-    case 256: return launch_w<256>(a);
-    default: return -1;
-  }
+               q_seq_len, causal, scale, window, softcap, ex, static_cast<cudaStream_t>(stream),
+               fa_bwd::Segs{nullptr, nullptr, nullptr, nullptr}};
+  return launch_d(a, d);
 }
+#endif

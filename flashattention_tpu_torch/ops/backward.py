@@ -19,12 +19,16 @@ seed and coordinates, ``ops.flash.dropout_keep_mask``), dV sums
 their form (backward.py:238-246, :353-378, :487-498).  On CUDA tensors
 :func:`flash_attention_bwd` launches hand-written kernels: the fused
 one-pass kernel (replaces ``_fused_bwd_kernel``, backward.py:401) by
-default, in bf16 at head_dim 64 or 128 its tensor-core form
+default, in bf16 at head_dim 64, 128 or 256 its tensor-core form
 ``csrc/flash_bwd_tc.cu``, else ``csrc/flash_bwd.cu``
-(``ops.flash.kernel_form``); and the two-pass ``csrc/flash_bwd_dq.cu`` +
-``csrc/flash_bwd_dkv.cu`` (replace ``_dq_kernel`` :146 and ``_dkv_kernel``
-:269) with segment ids, a block mask or ``fused=False``, as the JAX package
-chooses (backward.py:610-615).  On CPU tensors it runs
+(``ops.flash.kernel_form``); and the two-pass pair (replaces ``_dq_kernel``
+:146 and ``_dkv_kernel`` :269) with segment ids, a block mask or
+``fused=False``, as the JAX package chooses (backward.py:610-615): in bf16
+at head_dim 64, 128 or 256 without a block mask its tensor-core forms
+``csrc/flash_bwd_dq_tc.cu`` and ``csrc/flash_bwd_tc.cu`` built with
+``-DFA_PAIR``, which skip the pairs of tiles whose segment ids never meet
+(:func:`seg_tile_ranges`), else ``csrc/flash_bwd_dq.cu`` +
+``csrc/flash_bwd_dkv.cu``.  On CPU tensors it runs
 :func:`flash_attention_bwd_plain`, the same function written from the
 formulas above in plain PyTorch.  There is no fallback between the two.
 
@@ -71,6 +75,7 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_bwd_plain",
     "fused_bwd_kernel",
+    "seg_tile_ranges",
 ]
 
 def _check_tpu_options(block_sizes=None, precision=None, interpret=None):
@@ -139,7 +144,7 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, o, lse, do, q_segment_ids=seg_q, kv_segment_ids=seg_kv,
-            block_mask=block_mask, form=bwd_form(q, fused), **kw
+            block_mask=block_mask, form=bwd_form(q, fused, block_mask is not None), **kw
         )
     di = (o.float() * do.float()).sum(dim=-1)
     lse = lse.float().contiguous()
@@ -225,11 +230,11 @@ def flash_attention_bwd_plain(
     Computed in float32; returns ``(dq, dk, dv)`` in the input dtypes.
     ``form`` mirrors the rounding of a kernel form (see :func:`_bwd_plain`);
     by default the form :func:`flash_attention_bwd` would take for these
-    inputs: the fused kernel's (``ops.flash.kernel_form``) without segment
-    ids or a block mask, else the scalar two-pass pair's."""
+    inputs: the fused kernel's without segment ids or a block mask, else
+    the two-pass pair's (:func:`bwd_form`)."""
     rows, s_kv = q.shape[1], k.shape[1]
     if form is None:
-        form = bwd_form(q, q_segment_ids is None and block_mask is None)
+        form = bwd_form(q, q_segment_ids is None and block_mask is None, block_mask is not None)
     di = (o.float() * do.float()).sum(dim=-1)
     dq, dk, dv = _bwd_plain(
         q, k, v, do, lse, di, causal=causal, scale=scale,
@@ -242,15 +247,40 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def bwd_form(q, fused):
-    """The form of a backward call: the fused kernel's
-    (``ops.flash.kernel_form``), or the two-pass pair's, scalar only."""
-    return kernel_form("flash_bwd", q.dtype, q.shape[2]) if fused else "scalar"
+def bwd_form(q, fused, block_mask=False):
+    """The form of a backward call (``ops.flash.kernel_form``): the fused
+    kernel's, or the two-pass pair's (``block_mask``: the call has one,
+    which the pair's tensor-core forms do not take).  Both kernels of the
+    pair take the same form."""
+    if fused:
+        return kernel_form("flash_bwd", q.dtype, q.shape[2])
+    return kernel_form("flash_bwd_dq", q.dtype, q.shape[2], block_mask=block_mask)
+
+
+# Rows per entry of the pair's segment range tables (fa_bwd::kSegTile in
+# csrc/bwd_common.cuh).
+SEG_TILE = 64
+
+
+def seg_tile_ranges(ids, tile=SEG_TILE):
+    """The ``[min, max]`` of every ``tile`` rows of folded segment ids
+    ``(BH, n)``: an int32 ``(BH, ceil(n / tile), 2)`` table (the last tile
+    over its existing rows).  The pair's tensor-core kernels skip a pair of
+    tiles whose ranges are disjoint: they share no id, whatever the order
+    of the ids, so the skip is exact."""
+    bh, n = ids.shape
+    pad = -n % tile
+    if pad:  # repeat the last id: the range stays the existing rows'
+        ids = torch.cat([ids, ids[:, -1:].expand(bh, pad)], dim=1)
+    tiles = ids.reshape(bh, -1, tile)
+    return torch.stack([tiles.amin(dim=2), tiles.amax(dim=2)], dim=2).to(torch.int32).contiguous()
 
 
 def _launch_args(name, q, k, v, do, lse, di, seg_q=None, seg_kv=None):
     """Check what a backward kernel takes; raise on anything else."""
     tensors = (q, k, v, do, lse, di) + (() if seg_q is None else (seg_q, seg_kv))
+    if seg_q is not None and (seg_q.dtype != torch.int32 or seg_kv.dtype != torch.int32):
+        raise ValueError(f"{name}: segment ids must be int32, got {seg_q.dtype} {seg_kv.dtype}")
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}")
     if q.dtype not in _DTYPES:
@@ -317,11 +347,14 @@ def _library(name, kw, block_mask=None):
     return name + "_extra" if extra else name
 
 
-def _count(fn, kw, block_mask=None):
+def _count(fn, kw, block_mask=None, form="scalar"):
     fn.launches += 1
     fn.launches_dropout += kw["dropout_rate"] is not None
     if block_mask is not None:
         fn.launches_block_mask += 1
+    if form == "tc":
+        fn.launches_tc += 1
+        fn.launches_tc_dropout += kw["dropout_rate"] is not None
 
 
 def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None,
@@ -354,36 +387,56 @@ def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=No
             *_scalars(kw), torch.cuda.current_stream(q.device).cuda_stream,
         )
     kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype}")
-    _count(fused_bwd_kernel, kw)
-    fused_bwd_kernel.launches_tc += form == "tc"
+    _count(fused_bwd_kernel, kw, form=form)
     return dq_acc.to(q.dtype), dk, dv
+
+
+def _pair_launch(name, q, k, v, do, lse, di, outs, kw, seg_q, seg_kv, block_mask):
+    """One launch of a kernel of the two-pass pair: its tensor-core form
+    (``<name>_tc``: the pair's segment range tables from the ids) where
+    :func:`bwd_form` picks it, else the scalar kernel.  Returns the form."""
+    dtype, bh, rows, s_kv, d = _launch_args(name, q, k, v, do, lse, di, seg_q, seg_kv)
+    form = bwd_form(q, False, block_mask is not None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), _ptr(seg_q), _ptr(seg_kv))
+    if form == "tc":
+        lib = _library(name + "_tc", kw)
+        ranges = (None, None) if seg_q is None else tuple(map(seg_tile_ranges, (seg_q, seg_kv)))
+        status = getattr(kernels.library(lib), f"fa_{name}_tc")(
+            *ptrs, *map(_ptr, ranges), *(t.data_ptr() for t in outs), bh, rows, s_kv, d,
+            *_scalars(kw), stream,
+        )
+    else:
+        lib = _library(name, kw, block_mask)
+        status = getattr(kernels.library(lib), f"fa_{name}")(
+            dtype, *ptrs, *(t.data_ptr() for t in outs),
+            *_mask_tiles(block_mask, q, by_q=name == "flash_bwd_dq"), bh, rows, s_kv, d,
+            *_scalars(kw), stream,
+        )
+    kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype}")
+    return form
 
 
 def dq_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
               q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None,
               kv_segment_ids=None, dropout_rate=None, dropout_seed=0,
               dropout_row_stride=None, block_mask=None):
-    """One launch of the two-pass backward's dQ kernel
-    (``csrc/flash_bwd_dq.cu``).  On CPU tensors: the plain version."""
+    """One launch of the two-pass backward's dQ kernel: in bf16 at head_dim
+    64, 128 or 256 without a block mask its tensor-core form
+    (``csrc/flash_bwd_dq_tc.cu``), else ``csrc/flash_bwd_dq.cu``.  On CPU
+    tensors: the plain version, with that form's rounding."""
     kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
                dropout_rate, dropout_seed, dropout_row_stride)
     if q.device.type == "cpu":
         dq, _, _ = _bwd_plain(q, k, v, do, lse, di, q_segment_ids=q_segment_ids,
-                              kv_segment_ids=kv_segment_ids, block_mask=block_mask, **kw)
+                              kv_segment_ids=kv_segment_ids, block_mask=block_mask,
+                              form=bwd_form(q, False, block_mask is not None), **kw)
         return dq.to(q.dtype)
-    dtype, bh, rows, s_kv, d = _launch_args(
-        "flash_bwd_dq", q, k, v, do, lse, di, q_segment_ids, kv_segment_ids
-    )
     dq = torch.empty_like(q)
-    lib = _library("flash_bwd_dq", kw, block_mask)
-    status = kernels.library(lib).fa_flash_bwd_dq(
-        dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), _ptr(q_segment_ids), _ptr(kv_segment_ids), dq.data_ptr(),
-        *_mask_tiles(block_mask, q, by_q=True), bh, rows, s_kv, d, *_scalars(kw),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype}")
-    _count(dq_kernel, kw, block_mask)
+    form = _pair_launch("flash_bwd_dq", q, k, v, do, lse, di, (dq,), kw, q_segment_ids,
+                        kv_segment_ids, block_mask)
+    _count(dq_kernel, kw, block_mask, form)
     return dq
 
 
@@ -391,37 +444,33 @@ def dkv_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_
                q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None,
                kv_segment_ids=None, dropout_rate=None, dropout_seed=0,
                dropout_row_stride=None, block_mask=None):
-    """One launch of the two-pass backward's dK/dV kernel
-    (``csrc/flash_bwd_dkv.cu``): ``(dk, dv)``, each KV head summed over all
-    of its folded query rows.  On CPU tensors: the plain version."""
+    """One launch of the two-pass backward's dK/dV kernel: ``(dk, dv)``, each
+    KV head summed over all of its folded query rows; in bf16 at head_dim
+    64, 128 or 256 without a block mask its tensor-core form
+    (``csrc/flash_bwd_tc.cu`` built with ``-DFA_PAIR``), else
+    ``csrc/flash_bwd_dkv.cu``.  On CPU tensors: the plain version, with that
+    form's rounding."""
     kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
                dropout_rate, dropout_seed, dropout_row_stride)
     if q.device.type == "cpu":
         _, dk, dv = _bwd_plain(q, k, v, do, lse, di, q_segment_ids=q_segment_ids,
-                               kv_segment_ids=kv_segment_ids, block_mask=block_mask, **kw)
+                               kv_segment_ids=kv_segment_ids, block_mask=block_mask,
+                               form=bwd_form(q, False, block_mask is not None), **kw)
         return dk.to(k.dtype), dv.to(v.dtype)
-    dtype, bh, rows, s_kv, d = _launch_args(
-        "flash_bwd_dkv", q, k, v, do, lse, di, q_segment_ids, kv_segment_ids
-    )
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _library("flash_bwd_dkv", kw, block_mask)
-    status = kernels.library(lib).fa_flash_bwd_dkv(
-        dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), _ptr(q_segment_ids), _ptr(kv_segment_ids), dk.data_ptr(),
-        dv.data_ptr(), *_mask_tiles(block_mask, q, by_q=False), bh, rows, s_kv, d,
-        *_scalars(kw), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype}")
-    _count(dkv_kernel, kw, block_mask)
+    form = _pair_launch("flash_bwd_dkv", q, k, v, do, lse, di, (dk, dv), kw, q_segment_ids,
+                        kv_segment_ids, block_mask)
+    _count(dkv_kernel, kw, block_mask, form)
     return dk, dv
 
 
 # Kernel launches, for the chip run's path check: all forms, and the dropout
-# and block-mask ones among them.
+# and block-mask ones among them, and the tensor-core forms' among them (with
+# dropout among those).
 for _fn in (fused_bwd_kernel, dq_kernel, dkv_kernel):
     _fn.launches = _fn.launches_dropout = _fn.launches_block_mask = 0
+    _fn.launches_tc = _fn.launches_tc_dropout = 0
 del _fn
-fused_bwd_kernel.launches_tc = 0  # the tensor-core form's, among them
 
 
 class _FlashAttention(torch.autograd.Function):

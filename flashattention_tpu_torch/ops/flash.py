@@ -87,11 +87,13 @@ def _round_up(x: int, m: int) -> int:
 
 
 # The tensor-core forms (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu,
-# csrc/paged_prefill_tc.cu): bf16 q at these head_dims and no block mask;
-# the two forwards also over 8-bit K/V (without dropout).  The forward's KV
-# tile (kBlockN, also the paged form's) sets where its online softmax
-# rescales, which the plain versions mirror.
+# csrc/paged_prefill_tc.cu, and the two-pass pair's csrc/flash_bwd_dq_tc.cu
+# and flash_bwd_tc.cu built with -DFA_PAIR): bf16 q at these head_dims and
+# no block mask; the two forwards also over 8-bit K/V (without dropout).
+# The forward's KV tile (kBlockN, also the paged form's) sets where its
+# online softmax rescales, which the plain versions mirror.
 TC_HEAD_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128, 256),
+                "flash_bwd_dq": (64, 128, 256), "flash_bwd_dkv": (64, 128, 256),
                 "paged_prefill": (64, 128, 256)}
 TC_KV_TILE = {64: 128, 128: 128, 256: 64}
 
@@ -110,17 +112,18 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
                 block_mask: bool = False, dropout: bool = False,
                 page_size: int | None = None) -> str:
     """The form a call of ``kernel`` (``"flash_fwd"``, ``"flash_bwd"`` for
-    the fused backward, or ``"paged_prefill"``) takes: ``"tc"``, the
-    tensor-core kernel, for bfloat16 q at ``TC_HEAD_DIMS[kernel]`` with no
-    block mask, over 16-bit K/V or, in the two forwards without dropout,
-    over 8-bit K/V (``quantized``); paged prefill only on pages of a
-    ``page_size`` that :func:`tc_page_size` takes.  Else ``"scalar"``, the
-    float32 CUDA-core kernel (float32 q over 8-bit pages too, and 8-bit K/V
-    with dropout or a block mask).  The two-pass backward kernels are
-    scalar only.  Inside :func:`scalar_forms`, always ``"scalar"``."""
+    the fused backward, ``"flash_bwd_dq"`` / ``"flash_bwd_dkv"`` for the
+    two-pass pair, or ``"paged_prefill"``) takes: ``"tc"``, the tensor-core
+    kernel, for bfloat16 q at ``TC_HEAD_DIMS[kernel]`` with no block mask,
+    over 16-bit K/V or, in the two forwards without dropout, over 8-bit K/V
+    (``quantized``); paged prefill only on pages of a ``page_size`` that
+    :func:`tc_page_size` takes.  Else ``"scalar"``, the float32 CUDA-core
+    kernel (float32 q over 8-bit pages too, 8-bit K/V with dropout or a
+    block mask, and the two-pass pair with a block mask).  Inside
+    :func:`scalar_forms`, always ``"scalar"``."""
     if (_SCALAR_ONLY[0] or dtype != torch.bfloat16 or block_mask
             or head_dim not in TC_HEAD_DIMS.get(kernel, ())
-            or (quantized and (kernel == "flash_bwd" or dropout))
+            or (quantized and (kernel.startswith("flash_bwd") or dropout))
             or (kernel == "paged_prefill" and not tc_page_size(page_size, head_dim))):
         return "scalar"
     return "tc"

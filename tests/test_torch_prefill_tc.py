@@ -78,10 +78,11 @@ def test_backward_form_includes_head_dim_256():
     q = torch.zeros(1, 8, 256, dtype=torch.bfloat16)
     assert tflash.kernel_form("flash_bwd", torch.bfloat16, 256) == "tc"
     assert tbwd.bwd_form(q, True) == "tc"
-    assert tbwd.bwd_form(q, False) == "scalar"
+    assert tbwd.bwd_form(q, False) == "tc"
     assert tbwd.bwd_form(q.float(), True) == "scalar"
     with tflash.scalar_forms():
         assert tbwd.bwd_form(q, True) == "scalar"
+        assert tbwd.bwd_form(q, False) == "scalar"
         assert tflash.kernel_form("paged_prefill", torch.bfloat16, 128, page_size=256) == "scalar"
 
 

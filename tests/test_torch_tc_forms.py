@@ -36,15 +36,17 @@ DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _expected(kernel, dtype, d, quantized, block_mask):
-    """bf16 q at the form's head_dims without a block mask; 8-bit K/V only
-    in the forward (the backward takes none)."""
-    dims = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128, 256)}.get(kernel, ())
+    """bf16 q at the form's head_dims without a block mask (the fused
+    backward and both kernels of the two-pass pair at the forward's); 8-bit
+    K/V only in the forward (no backward takes them)."""
+    dims = (64, 128, 256) if kernel in ("flash_fwd", "flash_bwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv") else ()
     ok = (dtype == torch.bfloat16 and d in dims and not block_mask
           and (not quantized or kernel == "flash_fwd"))
     return "tc" if ok else "scalar"
 
 
-@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd", "flash_bwd_dq"])
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda t: str(t).split(".")[1])
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_form_selector(kernel, dtype, d):
@@ -62,12 +64,14 @@ def test_scalar_forms_overrides_the_choice():
 
 
 def test_backward_form_follows_the_pass():
-    """The fused backward takes the selector's form; the two-pass pair
-    (segment ids, block masks) is scalar only."""
+    """The fused backward and the two-pass pair (segment ids) take the
+    selector's form; the pair with a block mask is scalar only."""
     q = torch.zeros(1, 8, 128, dtype=torch.bfloat16)
     assert tbwd.bwd_form(q, True) == "tc"
-    assert tbwd.bwd_form(q, False) == "scalar"
+    assert tbwd.bwd_form(q, False) == "tc"
+    assert tbwd.bwd_form(q, False, block_mask=True) == "scalar"
     assert tbwd.bwd_form(q.float(), True) == "scalar"
+    assert tbwd.bwd_form(q.float(), False) == "scalar"
     assert tbwd.bwd_form(torch.zeros(1, 8, 256, dtype=torch.bfloat16), True) == "tc"
     assert tbwd.bwd_form(torch.zeros(1, 8, 32, dtype=torch.bfloat16), True) == "scalar"
 

@@ -8,14 +8,20 @@ Each ROOT is a checkout of the repo: this one (``.``), or another commit
 unpacked with ``git archive`` into an ignored directory such as ``build/``.
 Each runs in a process of its own, in the order given, so that an order
 like "parent change change parent" cancels drift between runs.  In each,
-ROOT's own ``flashattention_tpu_torch`` builds flash_fwd and the three
-backward kernels and times, in bfloat16 with random inputs from seed 0:
-flash_fwd at its prefill check shape (B = 4, 32 heads, S = 1024, d = 128,
-causal) and flash_bwd, flash_bwd_dq and flash_bwd_dkv at the training layer
-(B = 8, 8 KV heads x G = 4, S = 2048, d = 128, causal); and reads each
-library's ptxas registers and spill bytes for those instantiations (the
-forms without dropout or block masks).  One JSON line per ROOT, and all of
-them in ``chiprun_out/fwd_bwd_ab.json``.  Imports nothing of JAX.
+ROOT's own ``flashattention_tpu_torch`` builds flash_fwd and the backward
+kernels and times, in bfloat16 with random inputs from seed 0: flash_fwd at
+its prefill check shape (B = 4, 32 heads, S = 1024, d = 128, causal);
+flash_bwd, flash_bwd_dq and flash_bwd_dkv at the training layer (B = 8, 8
+KV heads x G = 4, S = 2048, d = 128, causal), each in the form ROOT picks
+(since the pair's tensor-core forms, the pair's is theirs: the fused form
+beside the pair, the counterpart of the JAX package's
+``scripts/probe_fused_bwd.py``); and the pair at the packed layer (the same
+with segment ids from packed documents, ``chip_smoke._packed_ids``) in the
+form ROOT picks and in the scalar form (``ops.flash.scalar_forms``).  It
+reads each library's ptxas registers and spill bytes for the timed
+instantiations (the forms without dropout or block masks; the libraries
+ROOT has).  One JSON line per ROOT, and all of them in
+``chiprun_out/fwd_bwd_ab.json``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +40,10 @@ PTXAS = {
     "flash_bwd": "flash_bwd_kernel<bf16,128>",
     "flash_bwd_dq": "flash_bwd_dq_kernel<bf16,128>",
     "flash_bwd_dkv": "flash_bwd_dkv_kernel<bf16,128>",
+    "flash_fwd_tc": "flash_fwd_tc_kernel<128>",
+    "flash_bwd_tc": "flash_bwd_tc_kernel<128>",
+    "flash_bwd_dq_tc": "flash_bwd_dq_tc_kernel<128>",
+    "flash_bwd_dkv_tc": "flash_bwd_tc_kernel<128,pair>",
 }
 
 
@@ -50,7 +60,7 @@ def one(root: str) -> dict:
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, not {root}")
     t0 = time.perf_counter()
-    built = kernels.build_all(list(PTXAS))
+    built = kernels.build_all([n for n in PTXAS if n in kernels.KERNELS])
     build_s = time.perf_counter() - t0
     ptxas = {}
     for name, info in built.items():
@@ -78,8 +88,26 @@ def one(root: str) -> dict:
         "flash_bwd_dkv": lambda: backward.dkv_kernel(q, k, v, do, lse, di, **kw),
     }
     out = {"root": root, "card": benchit.card_info(), "build_s": build_s,
-           "flash_fwd_ms": fwd_ms}
+           "flash_fwd_ms": fwd_ms,
+           "pair_form": flash.kernel_form("flash_bwd_dq", torch.bfloat16, 128)}
     out.update({f"{n}_ms": benchit.cuda_time_ms(fn, warmup=1, iters=5) for n, fn in times.items()})
+    # The pair at the packed layer, in ROOT's form and in the scalar one.
+    from flashattention_tpu_torch.utils import packing
+
+    _, ids = cs._packed_ids(packing, 5, 8, s)
+    seg_q, seg_kv = cs._fold_ids(torch.tensor(ids, device="cuda"), 8, g)
+    segs = dict(q_segment_ids=seg_q, kv_segment_ids=seg_kv)
+    o, l, m = flash.flash_attention(q, k, v, save_residuals=True, **kw, **segs)
+    lse = m + torch.log(torch.where(l == 0, 1.0, l))
+    di = (o.float() * do.float()).sum(dim=-1)
+    packed = {
+        "packed_dq": lambda: backward.dq_kernel(q, k, v, do, lse, di, **kw, **segs),
+        "packed_dkv": lambda: backward.dkv_kernel(q, k, v, do, lse, di, **kw, **segs),
+    }
+    out.update({f"{n}_ms": benchit.cuda_time_ms(fn, warmup=1, iters=5) for n, fn in packed.items()})
+    with flash.scalar_forms():
+        out.update({f"{n}_scalar_ms": benchit.cuda_time_ms(fn, warmup=1, iters=5)
+                    for n, fn in packed.items()})
     out["ptxas"] = ptxas
     return out
 

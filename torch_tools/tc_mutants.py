@@ -43,19 +43,30 @@ together) and runs chip_smoke's checks of the mutated kernel on the copy:
   v_scale squared), ``convert_wrong_half`` (each bf16 chunk's conversion
   reads the payload bytes of the other half of its 64 columns),
   ``stale_fp8_row_not_zeroed`` (rows past the block's last visible column
-  converted from the stage as it holds them: the fp8 NaN-poison check).
+  converted from the stage as it holds them: the fp8 NaN-poison check);
+- the two-pass pair's tensor-core forms (``flash_bwd_dq_tc``,
+  ``flash_bwd_dkv_tc``): ``segment_compare_dropped/dq`` (dQ's pairs live
+  across documents), ``range_skip_off_by_one_tile`` (each tile's id range
+  read from the next tile's entry, ``bwd_common.cuh``'s seg_range, in both
+  kernels), ``dropout_inv_missing_from_dv`` (dV sums keep P, not keep P /
+  (1 - rate); d <= 128), ``softcap_derivative_dropped_from_dk/d256`` (the
+  d = 256 form's dS side takes Y^T = P, not P c) and
+  ``dkv_first_gqa_group_only`` (dK/dV walk the query tiles of the first GQA
+  group only).
 
 Forward mutants run ``flash_checks`` and ``flash_window_checks``, paged
 mutants ``prefill_checks``, ``prefill_window_checks`` and
 ``prefill_poison_check``, backward mutants ``bwd_checks``,
 ``bwd_window_checks`` (its q x 8 cases, Gemma-2's d = 256 among them) and
-``dropout_checks``, untimed where the functions allow, and the 8-bit
+``dropout_checks``, untimed where the functions allow, the pair's mutants
+the same with ``bwd_window_checks``' Gemma-2 packed case too, and the 8-bit
 form's mutants the same forward and paged checks over int8 and fp8 K/V and
 ``prefill_poison_check``.  The unmutated copy runs all of them and must
 pass every check; a mutant is caught when a bf16 check of the kernel it
 changed (``flash_fwd_tc/...``, ``paged_prefill_tc/...`` or
 ``flash_bwd_tc/...``; the 8-bit form's: ``flash_fwd_tc/quant/...`` or
-``paged_prefill_tc/quant/...``) fails.  ``--mutants``
+``paged_prefill_tc/quant/...``; the pair's: ``flash_bwd_dq_tc/...`` or
+``flash_bwd_dkv_tc/...``) fails.  ``--mutants``
 runs some of them (and the unmutated copy).  Prints one JSON line per copy and writes them
 to ``chiprun_out/tc_mutants.json``; exits non-zero when a mutant goes
 uncaught or the unmutated copy fails a check.  Imports nothing of JAX.
@@ -74,6 +85,7 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FWD, BWD, PP, Q8 = "flash_fwd_tc", "flash_bwd_tc", "paged_prefill_tc", "tc_quant"
+PAIR, PAIR_ALL = "pair_tc", "pair_tc_common"  # the latter: an edit of bwd_common.cuh
 # name -> (kernel, [(source, text, replacement)])
 MUTANTS = {
     "unmutated": (None, []),
@@ -129,14 +141,35 @@ MUTANTS = {
     "stale_fp8_row_not_zeroed": (Q8, [(
         "flash_fwd_tc.cuh", "if (row >= lo && row < hi)\n      out = tc::cvt8_bf16",
         "if (row >= lo)\n      out = tc::cvt8_bf16")]),
+    "segment_compare_dropped/dq": (PAIR, [(
+        "flash_bwd_dq_tc.cu", "(!has_seg || seg_s[x] == (a ? seg_a : seg_b))", "true")]),
+    "range_skip_off_by_one_tile": (PAIR_ALL, [(
+        "bwd_common.cuh", "for (int t = r0 / kSegTile; t <",
+        "for (int t = r0 / kSegTile + 1; t <")]),
+    "dropout_inv_missing_from_dv": (PAIR, [(
+        "flash_bwd_tc.cu", "st[4 * j + e] = dropout ? p * z : p;",
+        "st[4 * j + e] = dropout && z == 0.f ? 0.f : p;")]),
+    "softcap_derivative_dropped_from_dk/d256": (PAIR, [(
+        "flash_bwd_tc.cu", "y[4 * j + e] = p * c_fac;", "y[4 * j + e] = p;")]),
+    "dkv_first_gqa_group_only": (PAIR, [
+        ("flash_bwd_tc.cu", f"{n} = c0 < kv_len ? (rows + kBlockM - 1) / kBlockM : 0;",
+         f"{n} = c0 < kv_len ? (min(rows, q_seq_len) + kBlockM - 1) / kBlockM : 0;")
+        for n in ("n_r", "n_q")]),
 }
 MUTANT_SECONDS = 900  # one copy's checks; the unmutated copy's take about 4 minutes
 # The libraries an edit of each kernel's source changes, that its checks launch.
+_PAIR_LIBS = ["flash_bwd_dq_tc", "flash_bwd_dq_tc_extra", "flash_bwd_dkv_tc",
+              "flash_bwd_dkv_tc_extra", "flash_bwd_tc", "flash_bwd_tc_extra"]
 LIBS = {FWD: ["flash_fwd_tc", "flash_fwd_tc_extra"], BWD: ["flash_bwd_tc", "flash_bwd_tc_extra"],
-        PP: ["paged_prefill_tc"], Q8: ["flash_fwd_tc_quant", "paged_prefill_tc_quant"]}
+        PP: ["paged_prefill_tc"], Q8: ["flash_fwd_tc_quant", "paged_prefill_tc_quant"],
+        PAIR: _PAIR_LIBS,
+        PAIR_ALL: [*_PAIR_LIBS, *(k + x for k in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
+                                   for x in ("", "_extra"))]}
 # The check names that catch each kind's mutants (bf16 checks only).
 CATCH = {FWD: ("flash_fwd_tc/",), BWD: ("flash_bwd_tc/",), PP: ("paged_prefill_tc/",),
-         Q8: ("flash_fwd_tc/quant/", "paged_prefill_tc/quant/")}
+         Q8: ("flash_fwd_tc/quant/", "paged_prefill_tc/quant/"),
+         PAIR: ("flash_bwd_dq_tc/", "flash_bwd_dkv_tc/"),
+         PAIR_ALL: ("flash_bwd_dq_tc/", "flash_bwd_dkv_tc/")}
 
 
 def make_copy(dest: str, edits) -> None:
@@ -187,10 +220,11 @@ def run_checks(root: str, kernel) -> dict:
             cs.prefill_window_checks(decode, benchit, gen, card, report, form)
         if kernel:
             cs.prefill_poison_check(decode, gen, report)
-    if kernel in (None, BWD):
+    if kernel in (None, BWD, PAIR, PAIR_ALL):
         cs.bwd_checks(backward, flash, benchit, packing, args, gen, card, report)
         q8 = [n for n, c in cs.BWD_WINDOW_CASES
-              if c["q_mult"] > 1 and c["d"] in (64, 128, 256) and "docs" not in c]
+              if c["q_mult"] > 1 and c["d"] in (64, 128, 256)
+              and ("docs" not in c or kernel in (None, PAIR, PAIR_ALL))]
         cs.bwd_window_checks(backward, flash, benchit, gen, card, report, names=q8, timed=False)
         cs.dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, report,
                           timed=False)
