@@ -112,8 +112,27 @@ Phases, each of which must pass (any failure exits non-zero):
                backward, and at the plain training layer beside the fused
                form (``pair_vs_fused``, the JAX package's
                scripts/probe_fused_bwd.py A/B);
+               in bf16 paged decode (d = 64, 128, 256, at most 32 q rows
+               per KV head, bf16, int8 and fp8 pages) runs its tensor-core
+               form (``paged_decode_tc``, ``paged_decode_tc_quant``:
+               checks ``paged_decode_tc/...``, ``paged_decode_tc/quant/...``)
+               at every paged_checks, paged_window_checks and draft_checks
+               shape (the draft form's 8-bit ones at every shape in bf16),
+               against the plain version with its rounding (the splits and
+               their merge included), each timed one beside the scalar
+               form's check and time (``scalar_ms``, cold L2), SDPA and the
+               bound, and at serve_gemma2's profile decode shape
+               (``decode_serve_shape_timing``: 4 requests of ~1540 tokens,
+               bf16 and fp8); ``decode_poison_check`` fills every pool row
+               no row may see (past each length, stale pages, before the
+               window; fp8: bytes 0x7F and NaN scales) with NaN at Gemma-2's
+               layer, its draft form, Llama's and a one-split page-16
+               shape, output bitwise the clean pool's; ``split_edge_checks``
+               puts lengths where a split boundary falls among the draft
+               rows' last columns and at a window's start (a split holding
+               only masked columns for some rows);
                ``torch_tools/tc_mutants.py`` shows that they fail each of
-               twenty-three tensor-core mutants; ``head_dim_pad_check``: ``sdpa``
+               twenty-seven tensor-core mutants; ``head_dim_pad_check``: ``sdpa``
                at head_dim 80 (zero-padded to 128 by ``attention``),
                forward and gradients under autograd, against the same call
                on the CPU; the float32 forms the float32 paths launch
@@ -217,11 +236,13 @@ Phases, each of which must pass (any failure exits non-zero):
 
 The serve and train phases' launch counts include the tensor-core forms':
 every bf16 flash forward, fused backward and two-pass pair launch at their
-head_dims (but the block-mask ones), and every paged prefill launch of a
-bf16 model, goes through them (``launches_tc``; the pair's with dropout
-also ``launches_tc_dropout``); the 8-bit caches' paged prefill (serve_int8,
-serve_gemma2_fp8) and quant_ops' 8-bit flash forward through their 8-bit
-forms (``launches_tc_quantized``).  The float32 train_parity phases' card launches are
+head_dims (but the block-mask ones), and every paged prefill and paged
+decode launch of a bf16 model, goes through them (``launches_tc``; the
+pair's with dropout also ``launches_tc_dropout``); the 8-bit caches' paged
+prefill and paged decode (serve_int8, serve_gemma2_fp8) and quant_ops'
+8-bit flash forward through their 8-bit forms (``launches_tc_quantized``);
+the float32 speculative phases keep the scalar paged decode, its draft and
+its 8-bit forms.  The float32 train_parity phases' card launches are
 counted as paths too (float32 training runs the scalar kernels).  It prints one JSON line per check, the
 total seconds, a ``{"kernels": [...]}`` summary (with a ``quantized`` entry
 for each serving kernel's 8-bit form, ``dropout`` and ``block_mask`` entries
@@ -309,12 +330,16 @@ KERNELS = (
     # Their 8-bit forms (bf16 q over int8 / fp8 K/V), built with -DFA_QUANT.
     ("flash_fwd_tc_quant", "flash_fwd_tc.cu", "ops/flash.py:628"),
     ("paged_prefill_tc_quant", "paged_prefill_tc.cu", "ops/decode.py:375"),
+    # Paged decode's (bf16 q over bf16 pages; over 8-bit pages with -DFA_QUANT).
+    ("paged_decode_tc", "paged_decode_tc.cu", "ops/decode.py:89"),
+    ("paged_decode_tc_quant", "paged_decode_tc.cu", "ops/decode.py:89"),
 )
 TC_KERNELS = {"flash_fwd": "flash_fwd_tc", "flash_bwd": "flash_bwd_tc",
               "paged_prefill": "paged_prefill_tc", "flash_bwd_dq": "flash_bwd_dq_tc",
-              "flash_bwd_dkv": "flash_bwd_dkv_tc"}
+              "flash_bwd_dkv": "flash_bwd_dkv_tc", "paged_decode": "paged_decode_tc"}
 PAIR = ("flash_bwd_dq", "flash_bwd_dkv")
-TC_QUANT_KERNELS = {"flash_fwd": "flash_fwd_tc_quant", "paged_prefill": "paged_prefill_tc_quant"}
+TC_QUANT_KERNELS = {"flash_fwd": "flash_fwd_tc_quant", "paged_prefill": "paged_prefill_tc_quant",
+                    "paged_decode": "paged_decode_tc_quant"}
 PAGE_SIZE = 256  # the serving phases' and the paged kernel checks' page
 
 
@@ -450,15 +475,19 @@ def _check_name(kernel, case, dt, form):
 def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE):
     """The kernel a call of ``kernel`` on ``q`` launches: its tensor-core
     form's name where ``ops.flash.kernel_form`` picks it (bf16 at its
-    head_dims, no block mask, 8-bit K/V in the forwards too; paged prefill:
-    a page size it takes), else ``kernel``.  A check of an 8-bit form is
-    named ``<kernel>/quant/...`` (``_check_name``), so the tensor-core 8-bit
-    forms' checks read ``flash_fwd_tc/quant/...``, ``paged_prefill_tc/quant/...``."""
+    head_dims, no block mask, 8-bit K/V in the forwards and paged decode
+    too; the paged kernels: a page size they take; paged decode: at most
+    32 q rows per KV head, q's second-to-last dimension), else ``kernel``.
+    A check of an 8-bit form is named ``<kernel>/quant/...``
+    (``_check_name``), so the tensor-core 8-bit forms' checks read
+    ``flash_fwd_tc/quant/...``, ``paged_prefill_tc/quant/...``,
+    ``paged_decode_tc/quant/...``."""
     from flashattention_tpu_torch.ops import flash
 
     tc = TC_KERNELS.get(kernel)
+    rows = q.shape[-2] if kernel == "paged_decode" else 1
     if tc and flash.kernel_form(kernel, q.dtype, q.shape[-1], quantized=quantized,
-                                block_mask=block_mask, page_size=page_size) == "tc":
+                                block_mask=block_mask, page_size=page_size, rows=rows) == "tc":
         return tc
     return kernel
 
@@ -471,20 +500,22 @@ def _tc_key(kernel, case, form):
 _TIMED_KEYS = ("library_ms", "library", "bound_ms", "bound_by", "bytes_ms", "ops_ms")
 
 
-def _scalar_twin(flash, benchit, rec, run, plain, dt, tol):
+def _scalar_twin(flash, benchit, rec, run, plain, dt, tol, flush_bytes=0):
     """The scalar form of a timed tensor-core check, at the same inputs and
     in the same call (``ops.flash.scalar_forms``): ``rec`` gains its time
     (``scalar_ms``), and the scalar form's own check (against the scalar
     plain version), with the same yardsticks, is returned under the scalar
-    kernel's name."""
+    kernel's name.  ``flush_bytes``: as ``benchit.cuda_time_ms``'s (the
+    decode checks time each call with a cold L2, as the kernels' own)."""
     with flash.scalar_forms():
         got, want = run(), plain()
         torch.cuda.synchronize()
         twin = _rec(rec["check"].replace("_tc/", "/", 1), got, want, dt, tol,
                     form="scalar (ops.flash.scalar_forms)",
-                    **{k: rec[k] for k in ("shape", "live_pairs") if k in rec})
-        twin["kernel_ms"] = benchit.cuda_time_ms(run, warmup=1, iters=5)
-        twin["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=3)
+                    **{k: rec[k] for k in ("shape", "live_pairs", "live_rows", "lengths")
+                       if k in rec})
+        twin["kernel_ms"] = benchit.cuda_time_ms(run, warmup=1, iters=5, flush_bytes=flush_bytes)
+        twin["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=3, flush_bytes=flush_bytes)
     twin.update({k: rec[k] for k in _TIMED_KEYS if k in rec})
     rec["scalar_ms"] = twin["kernel_ms"]
     return twin
@@ -598,9 +629,26 @@ def _paged_pool(gen, ctx_lens, pps, pages, shape_tail, dtype, form=None):
     return k, v, table
 
 
+def _decode_twin(flash, benchit, report, rec, kernel, plain, dt, key):
+    """A timed paged-decode check of the tensor-core form (``rec``): its
+    scalar form beside it (``_scalar_twin``, a cold L2 for both), ``rec``
+    kept in ``report["tc_timed"][key]``; returns the scalar form's check
+    (the scalar kernel's row), which is emitted and recorded."""
+    twin = _scalar_twin(flash, benchit, rec, kernel, plain, dt, PAGED_TOL[dt], flush_bytes=256 << 20)
+    report.setdefault("tc_timed", {})[key] = rec
+    emit(twin)
+    report["checks"].append(twin)
+    return twin
+
+
 def paged_checks(decode, benchit, gen, card, report, form=None):
     """Paged decode: MHA (32 KV heads, G=1) and GQA (8 KV heads, G=4); with
-    ``form`` (int8 or fp8) over 8-bit pages with per-row scales."""
+    ``form`` (int8 or fp8) over 8-bit pages with per-row scales.  In bf16
+    the tensor-core form runs (``paged_decode_tc/...``, against the plain
+    version with its rounding); at the MHA shape the scalar form is timed
+    and checked beside it."""
+    from flashattention_tpu_torch.ops import flash
+
     out = {}
     ps, pps, pages, d = 256, 8, 64, 128
     cases = [
@@ -621,7 +669,8 @@ def paged_checks(decode, benchit, gen, card, report, form=None):
             )
             want = plain()
             torch.cuda.synchronize()
-            rec = _rec(_check_name("paged_decode", name, dt, form), o, want, dt, PAGED_TOL[dt],
+            kname = _kname("paged_decode", q, form is not None)
+            rec = _rec(_check_name(kname, name, dt, form), o, want, dt, PAGED_TOL[dt],
                        lengths=c["lengths"], shape=f"B={b} KVH={kvh} G={c['g']} d={d} ps={ps}")
             if name == "decode_mha" and dt == "bfloat16":
                 kernel = lambda: decode.paged_attention(q, kp, vp, lengths, table, **kw)  # noqa: E731
@@ -642,6 +691,9 @@ def paged_checks(decode, benchit, gen, card, report, form=None):
                 flops = 4 * live * kvh * c["g"] * d
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dt))
                 out["main"] = rec
+                if kname == "paged_decode_tc":
+                    out["main"] = _decode_twin(flash, benchit, report, rec, kernel, plain, dt,
+                                               _tc_key(kname, None, form))
             emit(rec)
             report["checks"].append(rec)
             del kp, vp, ks, vs, q, o, want
@@ -742,6 +794,21 @@ def prefill_checks(decode, benchit, gen, card, report, form=None):
     return out["main"]
 
 
+def _poison_pool(pools, scales, table, lens, first_of, ps, nan):
+    """Fill every pool row no query row may see with ``nan``: per request
+    ``i``, the rows of its table's pages before ``first_of(n)`` and at or
+    past its length ``n`` (whole pages past the live ones); 8-bit pools'
+    ``scales`` there with NaN."""
+    for i, n in enumerate(lens):
+        first = first_of(n)
+        for j in range(table.shape[1]):
+            page = int(table[i, j])
+            lo, hi = max(0, min(ps, first - j * ps)), max(0, min(ps, n - j * ps))
+            for x, v in [(p, nan) for p in pools] + [(sc, float("nan")) for sc in scales]:
+                x[page, :, :lo] = v
+                x[page, :, max(lo, hi):] = v
+
+
 def prefill_poison_check(decode, gen, report):
     """The tensor-core paged prefill reads no K/V row that no query row may
     see: at the Gemma-2 window shape, GQA with seg > chunk, and a page size
@@ -779,21 +846,13 @@ def prefill_poison_check(decode, gen, report):
                                                        **_page_scales(ks, vs))
         kn, vn = kp.clone(), vp.clone()
         sn = [None if x is None else x.clone() for x in (ks, vs)]
-        # The poison: NaN, or in an fp8 pool the byte 0x7F (e4m3's NaN).
-        pools = [x.view(torch.uint8) if form else x for x in (kn, vn)]
-        nan = 0x7F if form else float("nan")
-        for i, n in enumerate(c["ctx"]):
-            # Columns [first, n) are the only ones some row sees.
-            first = 0 if c["window"] is None else max(0, n - c["chunk"] - c["window"] + 1)
-            for j in range(pps):
-                page = int(table[i, j])
-                lo, hi = max(0, min(ps, first - j * ps)), max(0, min(ps, n - j * ps))
-                for pool in pools:
-                    pool[page, :, :lo] = nan
-                    pool[page, :, max(lo, hi):] = nan
-                for sc in sn if form else ():
-                    sc[page, :, :lo] = float("nan")
-                    sc[page, :, max(lo, hi):] = float("nan")
+        # The poison: NaN, or in an fp8 pool the byte 0x7F (e4m3's NaN); the
+        # columns [first, n) are the only ones some row sees.
+        w = c["window"]
+        _poison_pool([x.view(torch.uint8) if form else x for x in (kn, vn)],
+                     [x for x in sn if x is not None], table, c["ctx"],
+                     lambda n: 0 if w is None else max(0, n - c["chunk"] - w + 1), ps,
+                     0x7F if form else float("nan"))
         poisoned = decode.paged_prefill_attention_batched(q, kn, vn, table, ctx, **kw,
                                                           **_page_scales(*sn))
         torch.cuda.synchronize()
@@ -809,9 +868,165 @@ def prefill_poison_check(decode, gen, report):
         emit(rec)
         report["checks"].append(rec)
         recs.append(rec)
-        del kp, vp, ks, vs, kn, vn, sn, pools, q, clean, poisoned
+        del kp, vp, ks, vs, kn, vn, sn, q, clean, poisoned
     torch.cuda.empty_cache()
     return recs
+
+
+# The decode NaN-poison cases: (name, KV heads, G, draft k, d, page size,
+# pages per request, lengths, window, softcap).  Gemma-2's layer (window
+# 4096, softcap 50, d = 256) at the serving page, its draft form (k = 4),
+# Llama's MHA layer, and a page of 16 rows whose table holds one KV tile, so
+# one split and the kernel's own epilogue (no merge); the Gemma-2 and page-16
+# cases again over fp8 pages.
+DECODE_POISON_CASES = (
+    ("gemma2_d256_w4096_cap50", dict(kvh=8, g=2, k=1, d=256, ps=PAGE_SIZE, pps=24, window=4096,
+                                     cap=50.0, lens=[1, 4096, 4097, 6000])),
+    ("gemma2_draft_k4", dict(kvh=8, g=2, k=4, d=256, ps=PAGE_SIZE, pps=24, window=4096, cap=50.0,
+                             lens=[4, 260, 4100, 6000])),
+    ("mha_d128", dict(kvh=32, g=1, k=1, d=128, ps=PAGE_SIZE, pps=8, window=None, cap=None,
+                      lens=[1, 255, 257, 1088])),
+    ("page16_d64_one_split", dict(kvh=4, g=8, k=1, d=64, ps=16, pps=4, window=None, cap=None,
+                                  lens=[0, 1, 17, 64])),
+)
+
+
+def decode_poison_check(decode, gen, report):
+    """The tensor-core paged decode reads no K/V row that no query row may
+    see: every pool row past each request's length, every page its table
+    names past the live ones and every row before the first column any
+    row's window reaches are filled with NaN; the output must equal the
+    clean pool's, bit for bit (and be finite).  The fp8 cases do the same
+    over fp8 pages, through the 8-bit form: those rows' payload bytes are
+    0x7F (NaN in e4m3) and their scales NaN."""
+    cases = DECODE_POISON_CASES + tuple(
+        (name, {**c, "form": "fp8"}) for name, c in DECODE_POISON_CASES
+        if name in ("gemma2_d256_w4096_cap50", "page16_d64_one_split"))
+    recs = []
+    for name, c in cases:
+        lens, ps, pps, d, k = c["lens"], c["ps"], c["pps"], c["d"], c["k"]
+        b, form = len(lens), c.get("form")
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        (kp, ks), (vp, vs), table = _paged_pool(gen, lens, pps, b * pps + 4, (c["kvh"], ps, d),
+                                                torch.bfloat16, form)
+        q = torch.randn((b, c["kvh"], c["g"] * k, d), generator=gen, device="cuda").to(torch.bfloat16)
+        kw = dict(scale=d**-0.5, draft_k=k, window=c["window"], logit_softcap=c["cap"])
+        clean = decode.paged_attention(q, kp, vp, lengths, table, **kw, **_page_scales(ks, vs))
+        kn, vn = kp.clone(), vp.clone()
+        sn = [None if x is None else x.clone() for x in (ks, vs)]
+        w = c["window"]
+        _poison_pool([x.view(torch.uint8) if form else x for x in (kn, vn)],
+                     [x for x in sn if x is not None], table, lens,
+                     lambda n: 0 if w is None else max(0, n - k - w + 1), ps,
+                     0x7F if form else float("nan"))
+        poisoned = decode.paged_attention(q, kn, vn, lengths, table, **kw, **_page_scales(*sn))
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(poisoned, clean))
+        finite = bool(torch.isfinite(poisoned).all())
+        rec = {"check": _check_name(_kname("paged_decode", q, form is not None, page_size=ps),
+                                    f"nan_poison/{name}", "bfloat16", form),
+               "shape": f"B={b} KVH={c['kvh']} G={c['g']} k={k} d={d} ps={ps} pps={pps} "
+                        f"window={w} cap={c['cap']}",
+               "lengths": lens, "splits": list(decode.decode_splits(
+                   b, c["kvh"], pps, ps, sms=decode._sm_count(q.device))),
+               "bitwise_equal": equal, "finite": finite,
+               "max_abs_err": err(poisoned.nan_to_num(), clean), "ok": equal and finite}
+        emit(rec)
+        report["checks"].append(rec)
+        recs.append(rec)
+        del kp, vp, ks, vs, kn, vn, sn, q, clean, poisoned
+    torch.cuda.empty_cache()
+    return recs
+
+
+def split_edge_checks(decode, gen, report):
+    """paged_decode_tc against its plain version where its splits meet the
+    rows' edges, in bf16 and over fp8 pages: at Gemma-2's draft layer (k =
+    4, window 4096, softcap 50; B = 4, 24 pages a request) and Llama's MHA
+    layer (k = 1), with lengths placed by the split length S (``decode_splits``
+    on this card): S + 1 and 2 S + 2 (a split boundary among the last k
+    columns, so the split past it holds, for the first draft rows, only
+    columns past their causal limits: their running max there is the mask
+    value and the merge must weight that partial by 0), 3 S + k + window - 2
+    (row 0's window starts on the last column before a boundary, so the
+    later rows see nothing before it) and the table's end."""
+    cases = (("gemma2_draft_k4", dict(kvh=8, g=2, k=4, d=256, window=4096, cap=50.0)),
+             ("llama_mha", dict(kvh=32, g=1, k=1, d=128, window=None, cap=None)))
+    ps, pps, b = PAGE_SIZE, 24, 4
+    recs = []
+    for name, c in cases:
+        k, w = c["k"], c["window"]
+        n, per = decode.decode_splits(b, c["kvh"], pps, ps, sms=decode._sm_count(torch.device("cuda")))
+        span, cap = per * decode.TC_DECODE_TILE, pps * ps
+        lens = [span + 1, 2 * span + 2, 3 * span + k + (w or 0) - 2, cap]
+        lens = [min(x, cap) for x in lens]
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for form in (None, "fp8"):
+            (kp, ks), (vp, vs), table = _paged_pool(gen, lens, pps, b * pps + 4, (c["kvh"], ps, c["d"]),
+                                                    torch.bfloat16, form)
+            q = torch.randn((b, c["kvh"], c["g"] * k, c["d"]), generator=gen, device="cuda")
+            q = q.to(torch.bfloat16)
+            kw = dict(scale=c["d"]**-0.5, draft_k=k, window=w, logit_softcap=c["cap"],
+                      **_page_scales(ks, vs))
+            o = decode.paged_attention(q, kp, vp, lengths, table, **kw)
+            want = decode.paged_attention_plain(q, kp, vp, lengths, table, **kw)
+            torch.cuda.synchronize()
+            rec = _rec(_check_name(_kname("paged_decode", q, form is not None), f"split_edges/{name}",
+                                   "bfloat16", form), o, want, "bfloat16", PAGED_TOL["bfloat16"],
+                       lengths=lens, splits=[n, per], draft_k=k, window=w, softcap=c["cap"])
+            emit(rec)
+            report["checks"].append(rec)
+            recs.append(rec)
+            del kp, vp, ks, vs, q, o, want
+    torch.cuda.empty_cache()
+    return recs
+
+
+def decode_serve_shape_timing(decode, benchit, gen, card, report):
+    """Paged decode at serve_gemma2's profile decode shape: 4 requests of
+    about 1540 tokens (1536-token prompts and their first new tokens) on
+    Gemma-2's layer (8 KV heads, G = 2, d = 256, window 4096, softcap 50),
+    the engine's table (24 pages of 256 rows), bf16 and fp8 pages; the
+    tensor-core form beside the scalar one, SDPA and the bound:
+    {form: the tensor-core form's timed check}."""
+    from flashattention_tpu_torch.ops import flash
+
+    ps, pps, kvh, g, d, w, cap = PAGE_SIZE, 24, 8, 2, 256, 4096, 50.0
+    lens = [1537, 1539, 1541, 1543]
+    b = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = {}
+    for form in (None, "fp8"):
+        (kp, ks), (vp, vs), table = _paged_pool(gen, lens, pps, b * pps + 4, (kvh, ps, d),
+                                                torch.bfloat16, form)
+        q = torch.randn((b, kvh, g, d), generator=gen, device="cuda").to(torch.bfloat16)
+        kw = dict(scale=d**-0.5, window=w, logit_softcap=cap, **_page_scales(ks, vs))
+        kernel = lambda: decode.paged_attention(q, kp, vp, lengths, table, **kw)  # noqa: E731
+        plain = lambda: decode.paged_attention_plain(q, kp, vp, lengths, table, **kw)  # noqa: E731
+        o, want = kernel(), plain()
+        torch.cuda.synchronize()
+        kname = _kname("paged_decode", q, form is not None)
+        rec = _rec(_check_name(kname, "serve_profile_gemma2", "bfloat16", form), o, want,
+                   "bfloat16", PAGED_TOL["bfloat16"], lengths=lens,
+                   shape=f"B={b} KVH={kvh} G={g} d={d} ps={ps} pps={pps} window={w} cap={cap}")
+        rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
+        rec["plain_ms"] = benchit.cuda_time_ms(plain, flush_bytes=256 << 20)
+        rec.update(_decode_library(benchit, q, _bf16(kp, ks), _bf16(vp, vs), lengths, table,
+                                   kw["scale"], w))
+        rec["library"] += _DEQUANT_NOTE if form else ""
+        n_pages = sum(-(-n // ps) for n in lens)
+        nbytes = (2 * q.numel() * q.element_size() + 2 * sum(lens) * kvh * _row_bytes(kp, d, form)
+                  + 4 * (b + n_pages))
+        rec.update(live_rows=sum(lens), **benchit.bound_ms(
+            card, bytes_moved=nbytes, flops=4 * sum(lens) * kvh * g * d, dtype="bfloat16"))
+        _decode_twin(flash, benchit, report, rec, kernel, plain, "bfloat16",
+                     _tc_key(kname, "serve_profile_gemma2", form))
+        emit(rec)
+        report["checks"].append(rec)
+        out[form or "bf16"] = rec
+        del kp, vp, ks, vs, q, o, want
+    torch.cuda.empty_cache()
+    return out
 
 
 # attention() at a head_dim no kernel is built for: B = 1, 16 q / 4 KV heads
@@ -983,7 +1198,11 @@ def flash_window_checks(fa, flash, benchit, gen, card, report, form=None):
 def paged_window_checks(decode, benchit, gen, card, report, form=None):
     """Paged decode with the window: lengths 1, 4096, 4097 and 6000 (the
     last reads 16 of its 24 pages), page_size 256, 24 pages per request;
-    with ``form`` (int8 or fp8) over 8-bit pages."""
+    with ``form`` (int8 or fp8) over 8-bit pages.  In bf16 the tensor-core
+    form runs; at Gemma-2's shape the scalar form is timed and checked
+    beside it."""
+    from flashattention_tpu_torch.ops import flash
+
     out = {}
     ps, pps, pages = 256, 24, 100
     lens = [1, 4096, 4097, 6000]
@@ -999,7 +1218,8 @@ def paged_window_checks(decode, benchit, gen, card, report, form=None):
             plain = lambda: decode.paged_attention_plain(q, kp, vp, lengths, table, **kw)  # noqa: E731
             want = plain()
             torch.cuda.synchronize()
-            rec = _rec(_check_name("paged_decode", name, dt, form), o, want, dt, PAGED_TOL[dt],
+            kname = _kname("paged_decode", q, form is not None)
+            rec = _rec(_check_name(kname, name, dt, form), o, want, dt, PAGED_TOL[dt],
                        lengths=lens, shape=f"KVH={kvh} G={g} d={d} ps={ps}")
             if dt == "bfloat16" and name == TIMED_WINDOW_CASE:
                 kernel = lambda: decode.paged_attention(q, kp, vp, lengths, table, **kw)  # noqa: E731
@@ -1019,6 +1239,9 @@ def paged_window_checks(decode, benchit, gen, card, report, form=None):
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * live * kvh * g * d,
                                             dtype=dt))
                 out["main"] = rec
+                if kname == "paged_decode_tc":
+                    out["main"] = _decode_twin(flash, benchit, report, rec, kernel, plain, dt,
+                                               _tc_key(kname, "d256_window_softcap", form))
             emit(rec)
             report["checks"].append(rec)
             del kp, vp, ks, vs, q, o, want
@@ -1113,10 +1336,11 @@ def serving_checks(fa, flash, decode, benchit, gen, card, report, form=None):
 # rows per head), Mistral-7B's (G = 4, R = 16, window 4096), Gemma-2-9B's
 # (G = 2, R = 8, d = 256, window 4096, softcap 50; again with q x 8 so that
 # scores reach the cap), G = 8 (R = 32) and a window of 2 < k.  Lengths
-# cross a page and the window; the 8-bit forms run at the Llama and Gemma-2
-# shapes.  Timed in bfloat16 at those two: kernel, plain version, SDPA over
+# cross a page and the window; the scalar 8-bit forms (float32 q) run at
+# the Llama and Gemma-2 shapes, the tensor-core form's (bf16 q) at every
+# shape.  Timed in bfloat16 at those two: kernel, plain version, SDPA over
 # the gathered context with an (R x S) mask, and k launches of the k = 1
-# kernel on the same rows.
+# kernel on the same rows; the tensor-core form beside the scalar one.
 DRAFT_K = 4
 DRAFT_LENGTHS = [4, 256, 260, 4100, 6000]
 DRAFT_CASES = (
@@ -1144,19 +1368,22 @@ def _draft_limits(lengths, k, window):
 
 def draft_checks(decode, benchit, gen, card, report, form=None):
     """Paged decode's draft form against its plain version in bfloat16 and
-    float32 (with ``form`` int8 or fp8: over 8-bit pages, at the timed
-    shapes only): {case: timed check} for TIMED_DRAFT_CASES."""
+    float32 (with ``form`` int8 or fp8: over 8-bit pages, float32 at the
+    timed shapes only): {case: timed check} for TIMED_DRAFT_CASES, the
+    scalar form's (the tensor-core form's in ``report["tc_timed"]``)."""
+    from flashattention_tpu_torch.ops import flash
+
     out = {}
     ps, pps, pages, k = 256, 24, 128, DRAFT_K
     lens = DRAFT_LENGTHS
     b = len(lens)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     for name, c in DRAFT_CASES:
-        if form is not None and name not in TIMED_DRAFT_CASES:
-            continue
         kvh, g, d, w = c["kvh"], c["g"], c["d"], c["window"]
         rows = g * k
         for dt in ("bfloat16", "float32"):
+            if form is not None and dt == "float32" and name not in TIMED_DRAFT_CASES:
+                continue
             (kp, ks), (vp, vs), table = _paged_pool(gen, lens, pps, pages, (kvh, ps, d), DTYPES[dt], form)
             kw = dict(scale=d**-0.5, draft_k=k, window=w, logit_softcap=c["cap"], **_page_scales(ks, vs))
             q = (c["q_mult"] * torch.randn((b, kvh, rows, d), generator=gen, device="cuda")).to(DTYPES[dt])
@@ -1164,7 +1391,8 @@ def draft_checks(decode, benchit, gen, card, report, form=None):
             plain = lambda: decode.paged_attention_plain(q, kp, vp, lengths, table, **kw)  # noqa: E731
             want = plain()
             torch.cuda.synchronize()
-            rec = _rec(_check_name("paged_decode", f"draft_k{k}_{name}", dt, form), o, want, dt,
+            kname = _kname("paged_decode", q, form is not None)
+            rec = _rec(_check_name(kname, f"draft_k{k}_{name}", dt, form), o, want, dt,
                        PAGED_TOL[dt], lengths=lens, draft_k=k, window=w, softcap=c["cap"],
                        shape=f"B={b} KVH={kvh} G={g} R={rows} d={d} ps={ps}")
             if dt == "bfloat16" and name in TIMED_DRAFT_CASES:
@@ -1192,12 +1420,26 @@ def draft_checks(decode, benchit, gen, card, report, form=None):
                 n_pages = sum(-(-n // ps) - (max(0, n - k - w + 1) // ps if w else 0) for n in lens)
                 kv_bytes = 2 * sum(live) * kvh * _row_bytes(kp, d, form)  # live K, V rows, once
                 nbytes = 2 * q.numel() * q.element_size() + kv_bytes + 4 * (b + n_pages)
-                tiles = rows // next(t for t in (8, 4, 2, 1) if rows % t == 0)
+                # The scalar form tiles the R rows by at most 8 and reads the
+                # live K/V once per tile; the tensor-core form once.
+                tiles = 1 if kname == "paged_decode_tc" else rows // next(
+                    t for t in (8, 4, 2, 1) if rows % t == 0)
                 rec.update(live_rows=sum(live), row_tiles=tiles,
-                           kv_bytes_as_read=tiles * kv_bytes)  # each tile reads them again
+                           kv_bytes_as_read=tiles * kv_bytes)
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes,
                                             flops=4 * d * kvh * g * sum(map(sum, seen)), dtype=dt))
                 out[name] = rec
+                if kname == "paged_decode_tc":
+                    twin = _decode_twin(flash, benchit, report, rec, kernel, plain, dt,
+                                        _tc_key(kname, f"draft_{name}", form))
+                    twin.update(row_tiles=rows // next(t for t in (8, 4, 2, 1) if rows % t == 0),
+                                k_times_k1_ms=None)
+                    twin["kv_bytes_as_read"] = twin["row_tiles"] * kv_bytes
+                    with flash.scalar_forms():  # k launches of the scalar k = 1 form
+                        twin["k_times_k1_ms"] = benchit.cuda_time_ms(
+                            lambda: [decode.paged_attention(qj, kp, vp, lj, table, **one_kw)
+                                     for qj, lj in ones], warmup=1, iters=5, flush_bytes=256 << 20)
+                    out[name] = twin
                 del ones, mask
             emit(rec)
             report["checks"].append(rec)
@@ -1284,11 +1526,13 @@ def _counters(flash, decode, backward):
     """Launch counters by name: ``(wrapper, attribute)``; ``<kernel>_quant``
     counts the 8-bit form's launches, ``paged_decode_draft`` the draft
     form's, ``<kernel>_dropout`` and ``<kernel>_block_mask`` the launches
-    with dropout and with a block mask, ``flash_fwd_tc``, ``flash_bwd_tc``
-    and ``paged_prefill_tc`` the tensor-core forms', which ``<kernel>``
-    counts too, and ``flash_fwd_tc_quant`` and ``paged_prefill_tc_quant``
-    their 8-bit forms', which ``<kernel>_quant`` and the tensor-core counter
-    count too."""
+    with dropout and with a block mask, ``flash_fwd_tc``, ``flash_bwd_tc``,
+    ``paged_prefill_tc`` and ``paged_decode_tc`` the tensor-core forms',
+    which ``<kernel>`` counts too, ``paged_decode_tc_draft`` the latter's
+    draft launches (``paged_decode_draft`` counts them too), and
+    ``flash_fwd_tc_quant``, ``paged_prefill_tc_quant`` and
+    ``paged_decode_tc_quant`` their 8-bit forms', which ``<kernel>_quant``
+    and the tensor-core counter count too."""
     fns = {
         "flash_fwd": flash.flash_attention,
         "paged_decode": decode.paged_attention,
@@ -1301,6 +1545,7 @@ def _counters(flash, decode, backward):
     out = {k: (fn, "launches") for k, fn in fns.items()}
     out.update({f"{k}_quant": (fns[k], "launches_quantized") for k in QUANT_KERNELS})
     out["paged_decode_draft"] = (decode.paged_attention, "launches_draft")
+    out["paged_decode_tc_draft"] = (decode.paged_attention, "launches_tc_draft")
     out.update({f"{k}_dropout": (fns[k], "launches_dropout") for k in EXTRA_KERNELS})
     out.update({f"{k}_block_mask": (fns[k], "launches_block_mask") for k in EXTRA_KERNELS
                 if k != "flash_bwd"})
@@ -1316,8 +1561,9 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE):
     ones (the 8-bit ones, none with dropout on these paths, in its 8-bit
     form too), every fused backward launch at theirs, every launch of the
     two-pass pair at theirs but the block-mask ones, and every paged
-    prefill launch of a bf16 model on pages of ``page_size`` rows (on 8-bit
-    pages in its 8-bit form too)."""
+    prefill and paged decode launch of a bf16 model on pages of
+    ``page_size`` rows (on 8-bit pages in their 8-bit forms too; paged
+    decode's draft launches at k = SPEC_K in the draft form's count too)."""
     from flashattention_tpu_torch.ops import flash
 
     dt = DTYPES[cfg.dtype]
@@ -1333,6 +1579,13 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE):
     if flash.kernel_form("paged_prefill", dt, cfg.head_dim, page_size=page_size) == "tc":
         want["paged_prefill_tc"] = want.get("paged_prefill", 0)
         want["paged_prefill_tc_quant"] = want.get("paged_prefill_quant", 0)
+    if flash.kernel_form("paged_decode", dt, cfg.head_dim, page_size=page_size,
+                         rows=cfg.group_size) == "tc":
+        want["paged_decode_tc"] = want.get("paged_decode", 0)
+        want["paged_decode_tc_quant"] = want.get("paged_decode_quant", 0)
+        if flash.kernel_form("paged_decode", dt, cfg.head_dim, page_size=page_size,
+                             rows=cfg.group_size * SPEC_K) == "tc":
+            want["paged_decode_tc_draft"] = want.get("paged_decode_draft", 0)
     return want
 
 
@@ -1851,13 +2104,19 @@ def _kernel_of(name):
     """The KERNELS entry a profiled device kernel belongs to, or None: the
     forward template's paged form (its fifth template argument, kPaged,
     true) is paged_prefill_tc, and its 8-bit form (the sixth, kKV, not 0)
-    the ``_quant`` one; the d = 256 backward kernel is flash_bwd_tc's."""
+    the ``_quant`` one; paged_decode_tc's kernel and its merge kernel are
+    paged_decode_tc's (``_quant`` where their last argument, kKV, is not
+    0); the d = 256 backward kernel is flash_bwd_tc's."""
     m = re.search(r"flash_fwd_tc_kernel<([^<>]*)>", name)
     if m:
         args = [a.strip() for a in m.group(1).split(",")]
         paged = args[4] in ("true", "1", "(bool)1")
         quant = len(args) > 5 and args[5] not in ("0", "(int)0")
         return ("paged_prefill_tc" if paged else "flash_fwd_tc") + ("_quant" if quant else "")
+    m = re.search(r"paged_decode_tc(?:_merge)?_kernel<([^<>]*)>", name)
+    if m:
+        quant = m.group(1).split(",")[-1].strip() not in ("0", "(int)0")
+        return "paged_decode_tc" + ("_quant" if quant else "")
     if "flash_bwd_tc_d256_kernel" in name:
         return "flash_bwd_tc"
     return next((k for k, _, _ in KERNELS if f"{k}_kernel" in name), None)
@@ -3418,6 +3677,9 @@ def main() -> int:
     serving = {form: serving_checks(fa, flash, decode, benchit, gen, name, report, form)
                for form in (None, *QUANT_FORMS)}
     poison = prefill_poison_check(decode, gen, report)
+    decode_poison = decode_poison_check(decode, gen, report)
+    split_edge_checks(decode, gen, report)
+    decode_serve = decode_serve_shape_timing(decode, benchit, gen, name, report)
     head_dim_pad_check(fa, flash, backward, gen, report)
     lap("serving_checks")
     # {None, "int8", "fp8"}: {"llama": timed draft-form check, "gemma2": ...}
@@ -3531,6 +3793,10 @@ def main() -> int:
     mains["paged_prefill_tc"] = tc_timed["paged_prefill_tc"]
     mains["flash_fwd_tc_quant"] = tc_timed["flash_fwd_tc/int8"]
     mains["paged_prefill_tc_quant"] = tc_timed["paged_prefill_tc/int8"]
+    mains["paged_decode_tc"] = tc_timed["paged_decode_tc"]
+    mains["paged_decode_tc_quant"] = tc_timed["paged_decode_tc/int8"]
+    timed_keys = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                  "bytes_ms", "ops_ms", "library_ms")
     scalar_of = {tc: k for k, tc in TC_KERNELS.items()}
     scalar_of.update({tc: f"{k} (its 8-bit form, -DFA_QUANT)" for k, tc in TC_QUANT_KERNELS.items()})
     # A kernel's own launches: its counter's less those of the form counted
@@ -3563,8 +3829,7 @@ def main() -> int:
         if kname in scalar_of:  # the tensor-core form: the scalar form's time beside it
             summary[-1]["scalar_form"] = scalar_of[kname]
             summary[-1]["scalar_ms"] = main_rec["scalar_ms"]
-        timed = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                 "bytes_ms", "ops_ms", "library_ms")
+        timed = timed_keys
         if kname in bwd_windowed:
             summary[-1]["windowed"] = {case: {k: rec[k] for k in (*timed, "scalar_ms") if k in rec}
                                        for case, rec in bwd_windowed[kname].items()}
@@ -3589,10 +3854,27 @@ def main() -> int:
                                                      f"{kname}_block_mask", keys)
             summary[-1]["block_mask"]["masks"] = {
                 m: {k: rec[k] for k in keys} for m, rec in masked[kname].items()}
-        if kname in ("paged_prefill_tc", "paged_prefill_tc_quant"):  # the NaN-poison checks
-            summary[-1]["nan_poison"] = {r["check"]: r["ok"] for r in poison
-                                         if ("/quant/" in r["check"]) == kname.endswith("_quant")}
-        if kname in ("flash_fwd_tc", "paged_prefill_tc"):  # Gemma-2's window
+        if kname in ("paged_prefill_tc", "paged_prefill_tc_quant",
+                     "paged_decode_tc", "paged_decode_tc_quant"):  # the NaN-poison checks
+            summary[-1]["nan_poison"] = {
+                r["check"]: r["ok"] for r in (decode_poison if "decode" in kname else poison)
+                if ("/quant/" in r["check"]) == kname.endswith("_quant")}
+        if kname in ("paged_decode_tc", "paged_decode_tc_quant"):
+            # The draft form (k = 4) at the Llama and Gemma-2 shapes, and
+            # serve_gemma2's profile decode shape; their launches by path.
+            tc = "paged_decode_tc"
+            forms = (None,) if kname == tc else QUANT_FORMS
+            draft_keys = (*timed_keys, "scalar_ms", "row_tiles", "kv_bytes_as_read")
+            summary[-1]["draft"] = {
+                **{_tc_key(f"draft_{case}", None, f): {
+                    k: tc_timed[_tc_key(tc, f"draft_{case}", f)][k] for k in draft_keys}
+                   for case in TIMED_DRAFT_CASES for f in forms},
+                "launches_by_path": {p: n["paged_decode_tc_draft"] for p, n in paths.items()
+                                     if n.get("paged_decode_tc_draft")}}
+            summary[-1]["serve_profile_gemma2"] = {
+                k: decode_serve["bf16" if kname == tc else "fp8"][k]
+                for k in (*timed_keys, "scalar_ms")}
+        if kname in ("flash_fwd_tc", "paged_prefill_tc", "paged_decode_tc"):  # Gemma-2's window
             summary[-1]["d256_window_softcap"] = {
                 k: tc_timed[f"{kname}/d256_window_softcap"][k] for k in (*timed, "scalar_ms")}
         if kname in TC_QUANT_KERNELS.values():  # fp8 beside int8, and Gemma-2's window
@@ -3618,8 +3900,11 @@ def main() -> int:
                 "d256_window_softcap": {f: {k: q8[f][1][k] for k in timed} for f in QUANT_FORMS},
             }
     # The draft form of paged_decode: its own entry, timed at the Llama and
-    # Gemma-2 shapes, its 8-bit forms beside it.
-    by_path = {p: n["paged_decode_draft"] for p, n in paths.items() if n.get("paged_decode_draft")}
+    # Gemma-2 shapes, its 8-bit forms beside it (the scalar form's; the
+    # tensor-core form's draft launches are in paged_decode_tc's entry).
+    by_path = {p: n.get("paged_decode_draft", 0) - n.get("paged_decode_tc_draft", 0)
+               for p, n in paths.items()}
+    by_path = {p: x for p, x in by_path.items() if x}
     timed = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
              "bytes_ms", "ops_ms", "library_ms", "k_times_k1_ms", "row_tiles", "kv_bytes_as_read")
     main_rec = drafts[None]["llama"]
@@ -3657,9 +3942,10 @@ def main() -> int:
                if not report[p]["ok"]]
     failed += [k["name"] for k in summary if k["launches"] == 0]
     # The scalar 8-bit forms of the two forwards left the paths for their
-    # tensor-core forms (which must launch, above); paged_decode's must.
+    # tensor-core forms (which must launch, above); paged_decode's must (the
+    # float32 speculative phase's int8 cache).
     failed += [f"{k['name']}/quantized" for k in summary
-               if "quantized" in k and k["name"] not in TC_QUANT_KERNELS
+               if "quantized" in k and k["name"] not in ("flash_fwd", "paged_prefill")
                and k["quantized"]["launches"] == 0]
     failed += [f"{k['name']}/{form}" for k in summary for form in ("dropout", "block_mask")
                if form in k and k[form]["launches"] == 0]

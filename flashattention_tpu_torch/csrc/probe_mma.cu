@@ -28,6 +28,19 @@
 // shared memory each tile (byte by byte), and P goes through shared memory
 // (its accumulator layout is not an 8-bit A fragment).  Flavor 2 computes
 // a different function (8-bit q and p): a measurement, not a kernel form.
+//
+// torch_tools/probe_stream.py, fa_probe_stream: the port of
+// scripts/probe_small_fp32.py's hbm_floor (:35, pallas_call :43), a copy
+// kernel that streams the bytes an attention call must move and does
+// nothing else, so that a kernel's time can be set beside what a plain
+// stream of the same bytes reaches on this card.  Mode 0 is the TPU
+// probe's own: o = q + k + v over float32 (BH, S, d) tensors, 16 bytes a
+// thread per load.  Mode 1 walks paged decode's pages: for each (split, KV
+// head, request) block it reads, through the page table, the K and V rows
+// paged_decode_tc's block reads (the split's 64-row tiles in [first, end),
+// first the window's first column), 16 bytes a thread per load, four loads
+// in flight, and folds them into one word per block (written, so that no
+// load is dropped).
 #include "flash_fwd_tc.cuh"
 
 namespace {
@@ -350,4 +363,87 @@ extern "C" int fa_probe_int8(int flavor, const void* q, const void* k, const voi
     case 2: return probe_i8::launch(a);
     default: return -1;
   }
+}
+
+namespace {
+
+__global__ void __launch_bounds__(256) stream_sum_kernel(const float4* __restrict__ a,
+                                                         const float4* __restrict__ b,
+                                                         const float4* __restrict__ c,
+                                                         float4* __restrict__ o, long long n4) {
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n4; i += 256ll * gridDim.x) {
+    const float4 x = a[i], y = b[i], z = c[i];
+    o[i] = make_float4(x.x + y.x + z.x, x.y + y.y + z.y, x.z + y.z + z.z, x.w + y.w + z.w);
+  }
+}
+
+__global__ void __launch_bounds__(256) page_walk_kernel(const uint4* __restrict__ k,
+                                                        const uint4* __restrict__ v,
+                                                        const int* __restrict__ lengths,
+                                                        const int* __restrict__ table,
+                                                        unsigned* __restrict__ out, int units,
+                                                        int page_size, int pages_per_seq,
+                                                        int tiles_per_split, int window) {
+  constexpr int kTile = 64;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z, kvh = gridDim.y;
+  const int length = lengths[b];
+  const int end = min(length, pages_per_seq * page_size);
+  const int first = window > 0 ? max(0, length - window) : 0;
+  const int c0 = max(split * tiles_per_split * kTile, first);
+  const int c1 = min((split + 1) * tiles_per_split * kTile, end);
+  const int* row = table + static_cast<size_t>(b) * pages_per_seq;
+  unsigned acc = 0u;
+  const long long n = c1 > c0 ? static_cast<long long>(c1 - c0) * units : 0;
+  for (long long e0 = threadIdx.x; e0 < n; e0 += 4 * 256) {
+    uint4 x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long e = e0 + 256ll * j;
+      x[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (e < n) {
+        const int col = c0 + static_cast<int>(e / units), u = static_cast<int>(e % units);
+        const size_t at = ((static_cast<size_t>(row[col / page_size]) * kvh + h) * page_size +
+                           col % page_size) * units + u;
+        const uint4 kx = k[at], vx = v[at];
+        x[j] = make_uint4(kx.x ^ vx.x, kx.y ^ vx.y, kx.z ^ vx.z, kx.w ^ vx.w);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc ^= x[j].x ^ x[j].y ^ x[j].z ^ x[j].w;
+  }
+  for (int off = 16; off > 0; off >>= 1) acc ^= __shfl_xor_sync(0xffffffffu, acc, off);
+  if (threadIdx.x % 32 == 0) atomicXor(out + (static_cast<size_t>(b) * kvh + h) * gridDim.x + split, acc);
+}
+
+}  // namespace
+
+// Mode 0: o = a + b + c over n float32 elements (n a multiple of 4, 16-byte
+// aligned).  Mode 1: a, b the K and V page pools (P, kvh, page_size,
+// row_bytes / elem) of any element type, lengths (nb,) and table (nb,
+// pages_per_seq) int32, o (nb, kvh, splits) uint32, zeroed by the caller;
+// row_bytes a multiple of 16; window <= 0: none.
+extern "C" int fa_probe_stream(int mode, const void* a, const void* b, const void* c, void* o,
+                               const void* lengths, const void* table, long long n, int nb,
+                               int kvh, int row_bytes, int page_size, int pages_per_seq,
+                               int splits, int tiles_per_split, int window, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == 0) {
+    if (n % 4) return -1;
+    const long long n4 = n / 4;
+    const int blocks = static_cast<int>(n4 / 256 < 132 * 16 ? (n4 + 255) / 256 : 132 * 16);
+    stream_sum_kernel<<<blocks, 256, 0, st>>>(static_cast<const float4*>(a),
+                                              static_cast<const float4*>(b),
+                                              static_cast<const float4*>(c),
+                                              static_cast<float4*>(o), n4);
+  } else if (mode == 1) {
+    if (row_bytes % 16) return -1;
+    page_walk_kernel<<<dim3(splits, kvh, nb), 256, 0, st>>>(
+        static_cast<const uint4*>(a), static_cast<const uint4*>(b),
+        static_cast<const int*>(lengths), static_cast<const int*>(table),
+        static_cast<unsigned*>(o), row_bytes / 16, page_size, pages_per_seq, tiles_per_split,
+        window);
+  } else {
+    return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -5,9 +5,16 @@ Counterpart of ``flashattention_tpu/ops/decode.py``: the physical pool is
 head-major, ``(P, KVH, page_size, d)`` (one page holds a token range of all
 KV heads), q is ``(B, KVH, G, d)`` with the G query heads of each KV head
 together, and a request's page-table row maps its logical pages to physical
-ones.  On a CUDA tensor :func:`paged_attention` launches the hand-written
-kernel in ``csrc/paged_decode.cu`` (replacing the Pallas ``_paged_kernel``,
-:89); on a CPU tensor it runs :func:`paged_attention_plain`.  A CUDA call
+ones.  On a CUDA tensor :func:`paged_attention` launches a hand-written
+kernel that replaces the Pallas ``_paged_kernel`` (:89), in the form
+``ops.flash.kernel_form`` picks: for bf16 q at head_dim 64, 128 or 256 with
+at most 32 q rows per KV head, over bf16 or 8-bit pages of a size its TMA
+boxes take, the tensor-core kernel in ``csrc/paged_decode_tc.cu``
+(``paged_decode_tc``, for 8-bit pages ``paged_decode_tc_quant``: the cache
+split across blocks, pages staged by TMA, products by ``mma.sync``, the
+splits' partials merged by a second kernel), otherwise the float32
+CUDA-core kernel in ``csrc/paged_decode.cu``; on a CPU tensor it runs
+:func:`paged_attention_plain` with the chosen form's rounding.  A CUDA call
 launches the kernel or raises; there is no fallback.  With ``draft_k = k >
 1`` (speculative verification) q holds k rows per query head, k-minor, each
 at its own causal limit, and the kernel's draft form runs.
@@ -43,6 +50,9 @@ import torch
 from flashattention_tpu_torch.ops import kernels
 from flashattention_tpu_torch.ops.flash import (
     KV_DTYPES,
+    TC_DECODE_TILE,
+    _exp,
+    _two_term_bf16,
     check_kv,
     check_window,
     flash_attention_plain,
@@ -53,6 +63,7 @@ from flashattention_tpu_torch.ops.quant import byte_view
 from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE, dequantize_rows, softcap
 
 __all__ = [
+    "decode_splits",
     "paged_attention",
     "paged_attention_plain",
     "paged_attention_reference",
@@ -65,6 +76,38 @@ __all__ = [
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
 _GROUPS = (1, 2, 4, 8)
+# paged_decode_tc: at most this many splits of a request's cache (the merge
+# kernel's table), and the SM count the splits are sized for where no card
+# is asked (the plain version on the CPU): an H100's.
+_TC_MAX_SPLITS = 64
+H100_SMS = 132
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    """SMs of the card ``device`` lies on (H100_SMS off the card)."""
+    if device.type != "cuda":
+        return H100_SMS
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def decode_splits(b, kvh, pages_per_seq, page_size, *, sms=H100_SMS, splits=None):
+    """``(splits, tiles_per_split)`` of ``paged_decode_tc``: each request's
+    table, ``pages_per_seq * page_size`` columns in tiles of
+    ``TC_DECODE_TILE``, cut into splits of whole tiles, each a block of its
+    own.  From host-known numbers only (never the lengths, which would
+    sync): ``splits`` blocks per (request, KV head) (default: enough for
+    four blocks an SM over ``sms`` SMs, since the splits past a request's
+    length exit at once), at most one per tile and ``_TC_MAX_SPLITS``."""
+    tiles = max(1, -(-pages_per_seq * page_size // TC_DECODE_TILE))
+    if splits is None:
+        splits = -(-4 * sms // max(1, b * kvh))
+    n = max(1, min(tiles, int(splits), _TC_MAX_SPLITS))
+    per = -(-tiles // n)
+    return -(-tiles // per), per
 
 
 def _gather(pages, scales, page_indices):
@@ -117,16 +160,106 @@ def paged_attention_reference(
 
 def paged_attention_plain(
     q, k_pages, v_pages, lengths, page_indices, *, scale=1.0, draft_k=1, window=None,
-    logit_softcap=None, k_scales_pages=None, v_scales_pages=None,
+    logit_softcap=None, k_scales_pages=None, v_scales_pages=None, form=None, splits=None,
 ):
     """The kernel's function in plain PyTorch: the oracle, with zeros for
-    rows of length 0 as the kernel writes them."""
+    rows of length 0 as the kernel writes them.
+
+    ``form`` (default: ``ops.flash.kernel_form`` of these inputs) mirrors
+    the kernel form's rounding: ``"tc"`` that of ``paged_decode_tc``
+    (:func:`_paged_attention_tc_plain`; ``splits`` the split count to ask
+    :func:`decode_splits` for, by default the one the kernel takes on the
+    card the inputs lie on); ``"scalar"`` attends in float32 over 8-bit
+    rows dequantized in float32."""
+    if form is None:
+        form = kernel_form("paged_decode", q.dtype, q.shape[3], quantized=k_scales_pages is not None,
+                           page_size=k_pages.shape[2], rows=q.shape[2])
+    if form == "tc":
+        return _paged_attention_tc_plain(
+            q, k_pages, v_pages, lengths, page_indices, scale=scale, draft_k=draft_k,
+            window=window, logit_softcap=logit_softcap, k_scales_pages=k_scales_pages,
+            v_scales_pages=v_scales_pages, splits=splits)
     o = paged_attention_reference(
         q, k_pages, v_pages, lengths, page_indices, scale=scale, draft_k=draft_k, window=window,
         logit_softcap=logit_softcap, k_scales_pages=k_scales_pages,
         v_scales_pages=v_scales_pages,
     )
     return torch.where((lengths > 0)[:, None, None, None].to(o.device), o, torch.zeros_like(o))
+
+
+def _pad_cols(x, width, dim):
+    """``x`` zero-padded along ``dim`` to ``width`` columns."""
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, width - x.shape[dim]]
+    return torch.nn.functional.pad(x, pad)
+
+
+def _paged_attention_tc_plain(
+    q, k_pages, v_pages, lengths, page_indices, *, scale, draft_k, window, logit_softcap,
+    k_scales_pages, v_scales_pages, splits,
+):
+    """``paged_decode_tc``'s function and rounding in plain PyTorch.
+
+    Each request's table is cut into the kernel's splits
+    (:func:`decode_splits`) of ``TC_DECODE_TILE``-column tiles aligned to
+    column 0; a split visits the tiles that hold a column in [first, end)
+    (first: the first column of row 0's window; end: the length).  Per
+    split: the scores (8-bit pages: the payload's values, exact in bf16,
+    times the column's k_scale) scaled, softcapped and masked (a masked
+    column's score is the finite mask value, a column of a tile the split
+    does not visit -inf), p against the running max of the visited tiles,
+    l the sum of the float32 p, P (times the column's v_scale) as two bf16
+    terms, V rows and the scales outside [first, end) as zeros; then the
+    partials merged, each weighted by ``exp(m_split - M)`` (0 for a split
+    that visits nothing), O times ``1 / L`` (zeros where L is 0: a length-0
+    request)."""
+    b, kvh, rows, d = q.shape
+    ps, pps = k_pages.shape[2], page_indices.shape[1]
+    dev = q.device
+    n, per = decode_splits(b, kvh, pps, ps, sms=_sm_count(dev), splits=splits)
+    tile, s_max = TC_DECODE_TILE, pps * ps
+    width = n * per * tile
+    cols = torch.arange(width, device=dev)
+    length = lengths.to(dev).long()
+    end = length.clamp(max=s_max)
+    first = (length - draft_k - window + 1).clamp(min=0) if window else torch.zeros_like(length)
+    live = (cols[None] >= first[:, None]) & (cols[None] < end[:, None])  # (B, width)
+    visited = ((cols[None] // tile >= (first // tile)[:, None])
+               & (cols[None] // tile < ((end + tile - 1) // tile)[:, None]))
+    k = _pad_cols(_gather(k_pages, None, page_indices), width, 2)
+    v = _pad_cols(_gather(v_pages, None, page_indices), width, 2)
+    v = torch.where(live[:, None, :, None], v, 0.0)
+    s = torch.einsum("bhrd,bhkd->bhrk", q.float(), k)
+    vs = None
+    if k_scales_pages is not None:  # (B, KVH, width) per-row scales, 0 outside [first, end)
+        ks, vs = (torch.where(live[:, None], _pad_cols(
+            sc[page_indices.long()].transpose(1, 2).reshape(b, kvh, s_max), width, 2), 0.0)
+                  for sc in (k_scales_pages, v_scales_pages))
+        s = s * ks[:, :, None, :]
+    s = softcap(s * scale, logit_softcap)
+    lim = _row_limits(length, rows, draft_k, dev)  # (B, rows)
+    hi = torch.minimum(lim, end[:, None] - 1)
+    lo = lim - window if window else torch.full_like(lim, -1)
+    seen = (cols[None, None] <= hi[..., None]) & (cols[None, None] > lo[..., None])
+    s = torch.where(seen[:, None], s, torch.tensor(DEFAULT_MASK_VALUE, device=dev))
+    s = torch.where(visited[:, None, None], s, torch.tensor(-float("inf"), device=dev))
+    s = s.view(b, kvh, rows, n, per, tile)
+    m_run = s.amax(-1).cummax(-1).values  # (B, KVH, rows, n, per)
+    m_split = m_run[..., -1]
+    vis = visited.view(b, 1, 1, n, per, tile)
+    p = torch.where(vis, _exp(s - m_run[..., None]), 0.0)
+    resc = torch.where(vis[..., 0], _exp(m_run - m_split[..., None]), 0.0)
+    l_split = (p.sum(-1) * resc).sum(-1)  # (B, KVH, rows, n)
+    if vs is not None:
+        p = p * vs.view(b, kvh, 1, n, per, tile)
+    p = _two_term_bf16(p) * resc[..., None]
+    acc = torch.einsum("bhrnpk,bhnpkd->bhrnd", p, v.view(b, kvh, n, per, tile, d))
+    if n == 1:
+        l, o = l_split[..., 0], acc[..., 0, :]
+    else:
+        top = m_split.amax(-1, keepdim=True)
+        w = torch.where(m_split == -float("inf"), 0.0, _exp(m_split - top))
+        l, o = (w * l_split).sum(-1), (w[..., None] * acc).sum(-2)
+    return (o * torch.where(l == 0, 1.0, 1.0 / l)[..., None]).to(q.dtype)
 
 
 def paged_attention(
@@ -168,7 +301,11 @@ def paged_attention(
         j``) sees columns ``c > pos - window``.
       logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
 
-    Returns ``(B, KVH, G, d)`` in q's dtype.
+    Returns ``(B, KVH, G, d)`` in q's dtype.  The launch count is kept on
+    this function (``.launches``; ``.launches_quantized`` and
+    ``.launches_draft`` count the 8-bit and draft launches among them, and
+    ``.launches_tc``, ``.launches_tc_quantized`` and ``.launches_tc_draft``
+    the tensor-core form's).
     """
     check_window(window, logit_softcap, causal=True)
     if q.dim() != 4 or k_pages.dim() != 4:
@@ -192,11 +329,12 @@ def paged_attention(
 
     if not all(t.is_contiguous() for t in (q, k_pages, v_pages, lengths, page_indices, *scales)):
         raise ValueError("paged_attention takes contiguous tensors")
+    form = kernel_form("paged_decode", q.dtype, d, quantized=quantized, page_size=page_size, rows=g)
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, lengths, page_indices, scale=scale, draft_k=draft_k,
             window=window, logit_softcap=logit_softcap, k_scales_pages=k_scales_pages,
-            v_scales_pages=v_scales_pages,
+            v_scales_pages=v_scales_pages, form=form,
         )
     devs = {t.device for t in (q, k_pages, v_pages, lengths, page_indices, *scales)}
     if q.device.type != "cuda" or len(devs) != 1:
@@ -212,31 +350,59 @@ def paged_attention(
         raise ValueError("paged_attention kernel takes int32 lengths and page_indices")
     if b > 65535:
         raise ValueError(f"paged_attention kernel takes B <= 65535, got {b}")
-    if quantized:
-        kernels.check_aligned("paged_attention", k_pages, v_pages)
+    if quantized or form == "tc":
+        kernels.check_aligned("paged_attention", *((q, k_pages, v_pages) if form == "tc"
+                                                   else (k_pages, v_pages)))
     o = torch.empty_like(q)
-    # The draft form and the 8-bit pages' forms (a library per d) build apart.
-    name = "paged_decode" + ("_draft" if draft_k > 1 else "") + (f"_quant_d{d}" if quantized else "")
-    status = kernels.library(name).fa_paged_decode(
-        _DTYPES[q.dtype], KV_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), *(t.data_ptr() if quantized else None for t in (k_scales_pages, v_scales_pages)),
-        lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(),
-        b, kvh, g, d, page_size, page_indices.shape[1], draft_k, float(scale),
-        *kernel_options(window, logit_softcap), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    kernels.check_launch(name, status, f"q {tuple(q.shape)} {q.dtype}, pages {k_pages.dtype}, "
-                                       f"draft_k {draft_k}")
+    what = f"q {tuple(q.shape)} {q.dtype}, pages {k_pages.dtype}, draft_k {draft_k}"
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale_ptrs = [t.data_ptr() if quantized else None for t in (k_scales_pages, v_scales_pages)]
+    if form == "tc":
+        # The splits' partials, O then (m, l) (none with one split: the
+        # kernel writes O itself).
+        pps = page_indices.shape[1]
+        n, per = decode_splits(b, kvh, pps, page_size, sms=_sm_count(q.device))
+        part = torch.empty(b * kvh * n * g * (d + 2) if n > 1 else 0, dtype=torch.float32,
+                           device=q.device)
+        part_o = part.data_ptr() or None
+        part_ml = part_o and part_o + 4 * b * kvh * n * g * d
+        name = "paged_decode_tc" + ("_quant" if quantized else "")
+        status = kernels.library(name).fa_paged_decode_tc(
+            KV_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            *scale_ptrs, lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(), part_o,
+            part_ml, b, kvh, g, d, k_pages.shape[0], page_size, pps, n, per, draft_k,
+            float(scale), *kernel_options(window, logit_softcap), stream,
+        )
+        kernels.check_launch(name, status, what)
+    else:
+        # The draft form and the 8-bit pages' forms (a library per d) build apart.
+        name = "paged_decode" + ("_draft" if draft_k > 1 else "") + (f"_quant_d{d}" if quantized else "")
+        status = kernels.library(name).fa_paged_decode(
+            _DTYPES[q.dtype], KV_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), *scale_ptrs, lengths.data_ptr(), page_indices.data_ptr(),
+            o.data_ptr(), b, kvh, g, d, page_size, page_indices.shape[1], draft_k, float(scale),
+            *kernel_options(window, logit_softcap), stream,
+        )
+        kernels.check_launch(name, status, what)
+    tc = form == "tc"
     paged_attention.launches += 1
     paged_attention.launches_quantized += quantized
     paged_attention.launches_draft += draft_k > 1
+    paged_attention.launches_tc += tc
+    paged_attention.launches_tc_quantized += tc and quantized
+    paged_attention.launches_tc_draft += tc and draft_k > 1
     return o
 
 
 # Kernel launches, for the chip run's path check: all forms, the 8-bit ones
-# and the draft ones.
+# and the draft ones, and the tensor-core form's (all, 8-bit, draft) among
+# them.
 paged_attention.launches = 0
 paged_attention.launches_quantized = 0
 paged_attention.launches_draft = 0
+paged_attention.launches_tc = 0
+paged_attention.launches_tc_quantized = 0
+paged_attention.launches_tc_draft = 0
 
 
 # ── chunked prefill ──────────────────────────────────────────────────────────

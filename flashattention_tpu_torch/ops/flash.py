@@ -87,44 +87,55 @@ def _round_up(x: int, m: int) -> int:
 
 
 # The tensor-core forms (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu,
-# csrc/paged_prefill_tc.cu, and the two-pass pair's csrc/flash_bwd_dq_tc.cu
-# and flash_bwd_tc.cu built with -DFA_PAIR): bf16 q at these head_dims and
-# no block mask; the two forwards also over 8-bit K/V (without dropout).
-# The forward's KV tile (kBlockN, also the paged form's) sets where its
-# online softmax rescales, which the plain versions mirror.
+# csrc/paged_prefill_tc.cu, csrc/paged_decode_tc.cu, and the two-pass pair's
+# csrc/flash_bwd_dq_tc.cu and flash_bwd_tc.cu built with -DFA_PAIR): bf16 q
+# at these head_dims and no block mask; the two forwards and paged decode
+# also over 8-bit K/V (without dropout).  The forward's KV tile (kBlockN,
+# also the paged form's) sets where its online softmax rescales, which the
+# plain versions mirror; paged decode's tile is 64 rows at every head_dim
+# (TC_DECODE_TILE), and it takes at most TC_DECODE_ROWS q rows per KV head.
 TC_HEAD_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128, 256),
                 "flash_bwd_dq": (64, 128, 256), "flash_bwd_dkv": (64, 128, 256),
-                "paged_prefill": (64, 128, 256)}
+                "paged_prefill": (64, 128, 256), "paged_decode": (64, 128, 256)}
 TC_KV_TILE = {64: 128, 128: 128, 256: 64}
+TC_DECODE_TILE = 64
+TC_DECODE_ROWS = 32
 
 
-def tc_page_size(page_size, head_dim: int) -> bool:
-    """Whether the paged tensor-core form takes pages of ``page_size`` rows
-    at ``head_dim``: a multiple of 8 that divides the KV tile
-    (``TC_KV_TILE``) or that the tile divides, so that each TMA box of
-    ``min(tile, page_size)`` rows lies in one page and on a swizzle atom."""
-    tile = TC_KV_TILE.get(head_dim)
+def tc_page_size(page_size, head_dim: int, tile: int | None = None) -> bool:
+    """Whether a paged tensor-core form takes pages of ``page_size`` rows
+    at ``head_dim``: a multiple of 8 that divides the KV tile (``tile``;
+    by default the forward's, ``TC_KV_TILE``) or that the tile divides, so
+    that each TMA box of ``min(tile, page_size)`` rows lies in one page and
+    on a swizzle atom."""
+    tile = tile or TC_KV_TILE.get(head_dim)
     return (page_size is not None and tile is not None and page_size > 0 and page_size % 8 == 0
             and (tile % page_size == 0 or page_size % tile == 0))
 
 
 def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
                 block_mask: bool = False, dropout: bool = False,
-                page_size: int | None = None) -> str:
+                page_size: int | None = None, rows: int = 1) -> str:
     """The form a call of ``kernel`` (``"flash_fwd"``, ``"flash_bwd"`` for
     the fused backward, ``"flash_bwd_dq"`` / ``"flash_bwd_dkv"`` for the
-    two-pass pair, or ``"paged_prefill"``) takes: ``"tc"``, the tensor-core
-    kernel, for bfloat16 q at ``TC_HEAD_DIMS[kernel]`` with no block mask,
-    over 16-bit K/V or, in the two forwards without dropout, over 8-bit K/V
-    (``quantized``); paged prefill only on pages of a ``page_size`` that
-    :func:`tc_page_size` takes.  Else ``"scalar"``, the float32 CUDA-core
-    kernel (float32 q over 8-bit pages too, 8-bit K/V with dropout or a
-    block mask, and the two-pass pair with a block mask).  Inside
-    :func:`scalar_forms`, always ``"scalar"``."""
+    two-pass pair, ``"paged_prefill"`` or ``"paged_decode"``) takes:
+    ``"tc"``, the tensor-core kernel, for bfloat16 q at
+    ``TC_HEAD_DIMS[kernel]`` with no block mask, over 16-bit K/V or, in the
+    two forwards without dropout and in paged decode, over 8-bit K/V
+    (``quantized``); the paged kernels only on pages of a ``page_size`` that
+    :func:`tc_page_size` takes (paged decode's at ``TC_DECODE_TILE``), paged
+    decode only with at most ``TC_DECODE_ROWS`` q ``rows`` per KV head (G,
+    or G * draft_k).  Else ``"scalar"``, the float32 CUDA-core kernel
+    (float32 q over 8-bit pages too, 8-bit K/V with dropout or a block mask,
+    and the two-pass pair with a block mask).  Inside :func:`scalar_forms`,
+    always ``"scalar"``."""
     if (_SCALAR_ONLY[0] or dtype != torch.bfloat16 or block_mask
             or head_dim not in TC_HEAD_DIMS.get(kernel, ())
             or (quantized and (kernel.startswith("flash_bwd") or dropout))
-            or (kernel == "paged_prefill" and not tc_page_size(page_size, head_dim))):
+            or (kernel == "paged_prefill" and not tc_page_size(page_size, head_dim))
+            or (kernel == "paged_decode"
+                and (not tc_page_size(page_size, head_dim, TC_DECODE_TILE)
+                     or rows > TC_DECODE_ROWS))):
         return "scalar"
     return "tc"
 

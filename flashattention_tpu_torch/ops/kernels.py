@@ -18,7 +18,9 @@ only when a call has either.  The tensor-core forms of the forward, the
 fused backward and chunked prefill (``flash_fwd_tc``, ``flash_bwd_tc``, their
 dropout forms ``*_tc_extra``, and ``paged_prefill_tc``) are sources of their
 own, and the two forwards' 8-bit forms are the same sources built with
-``-DFA_QUANT`` (``flash_fwd_tc_quant``, ``paged_prefill_tc_quant``).  The
+``-DFA_QUANT`` (``flash_fwd_tc_quant``, ``paged_prefill_tc_quant``); paged
+decode's tensor-core form is ``paged_decode_tc`` and, for 8-bit pages, the
+same source built with ``-DFA_QUANT`` (``paged_decode_tc_quant``).  The
 two-pass backward pair's tensor-core forms are ``flash_bwd_dq_tc`` (a
 source of its own) and ``flash_bwd_dkv_tc`` (the fused backward's source
 built with ``-DFA_PAIR``), each with its dropout form ``*_extra``.
@@ -80,6 +82,11 @@ KERNELS = {
     "paged_prefill_quant": (*_PAGED_PREFILL, ["-DFA_QUANT"]),
     "paged_prefill_tc": ("paged_prefill_tc.cu", "fa_paged_prefill_tc",
                          [*[_P] * 6, *[_I] * 9, _F, _I, _F, _P]),
+    # Paged decode's tensor-core form (bf16 q; bf16 pages, or 8-bit pages
+    # built with -DFA_QUANT): the payload's type code, then its pointers.
+    **{"paged_decode_tc" + suffix: ("paged_decode_tc.cu", "fa_paged_decode_tc",
+                                    [_I, *[_P] * 10, *[_I] * 10, _F, _I, _F, _P], flags)
+       for suffix, flags in (("", []), ("_quant", ["-DFA_QUANT"]))},
     # The 8-bit forms of the two tensor-core forwards: the payload's type
     # code and the two scale arrays first, then the bf16 form's arguments.
     "paged_prefill_tc_quant": ("paged_prefill_tc.cu", "fa_paged_prefill_tc_quant",

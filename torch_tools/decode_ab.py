@@ -9,12 +9,15 @@ unpacked with ``git archive`` into an ignored directory such as ``build/``.
 Each runs in a process of its own, in the order given, so that an order
 like "parent change change parent" cancels drift between runs.  In each,
 ROOT's own ``chip_smoke.py`` and ``flashattention_tpu_torch`` build the
-three serving kernels, time paged_decode at its d = 128 check shape
-(``paged_checks``: B = 4, 32 KV heads, G = 1, page 256, lengths
-1/256/257/1088, bfloat16, L2 flushed between calls) and run the ``serve``
+serving kernels the phases launch (their tensor-core forms where ROOT has
+them), time paged_decode at its d = 128 check shape (``paged_checks``: B =
+4, 32 KV heads, G = 1, page 256, lengths 1/256/257/1088, bfloat16, L2
+flushed between calls; the form a bf16 call takes in ROOT, which is the
+tensor-core ``paged_decode_tc`` where ROOT has it) and run the ``serve``
 and ``serve_chunked`` phases at Llama-7B width (32 layers, bfloat16, random
-weights from seed 0), whose profiles give paged_decode's device time in
-the engine (224 calls each).  One JSON line per ROOT, and all of them in
+weights from seed 0), whose profiles give paged decode's device time in
+the engine (224 calls each; both forms' kernels, the merge kernel
+included).  One JSON line per ROOT, and all of them in
 ``chiprun_out/decode_ab.json``.  Imports nothing of JAX.
 """
 
@@ -48,10 +51,12 @@ def one(root: str) -> dict:
     name = torch.cuda.get_device_name(0)
     report = {"card": benchit.card_info(), "device": name, "build": {}, "checks": []}
     t0 = time.perf_counter()
-    kernels.build_all(["flash_fwd", "paged_decode", "paged_prefill"])
+    kernels.build_all([k for k in ("flash_fwd", "flash_fwd_tc", "paged_decode", "paged_decode_tc",
+                                   "paged_prefill", "paged_prefill_tc") if k in kernels.KERNELS])
     build_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(0)
     dec = cs.paged_checks(decode, benchit, gen, name, report)
+    dec = report.get("tc_timed", {}).get("paged_decode_tc", dec)  # the form bf16 takes
     counters = cs._counters(flash, decode, backward)
     args = argparse.Namespace(seed=0, layers=32)
     cfg = dataclasses.replace(transformer.ModelConfig.llama7b_attention(), num_layers=32)
@@ -62,6 +67,7 @@ def one(root: str) -> dict:
     return {
         "root": root, "card": report["card"], "build_s": build_s,
         "checks_ok": all(c["ok"] for c in report["checks"]),
+        "paged_decode_check": dec["check"],
         "paged_decode_ms": dec["kernel_ms"], "paged_decode_plain_ms": dec["plain_ms"],
         **{f"{tag}_ok": rec["ok"] for tag, rec in (("serve", serve), ("serve_chunked", chunked))},
         **{f"{tag}_decode_step_ms": rec["decode_step_ms"]
@@ -69,7 +75,8 @@ def one(root: str) -> dict:
         **{f"{tag}_profile": {
             "wall_ms": p["wall_ms"], "device_busy_ms": p["device_busy_ms"],
             "device_idle_share": p["device_idle_share"],
-            "paged_decode_device_ms": p["kernel_device_ms"]["paged_decode"],
+            "paged_decode_device_ms": sum(p["kernel_device_ms"].get(k, 0.0)
+                                          for k in ("paged_decode", "paged_decode_tc")),
             "top_kernels": p["top_kernels"],
         } for tag, p in prof.items()},
     }

@@ -52,7 +52,15 @@ together) and runs chip_smoke's checks of the mutated kernel on the copy:
   (1 - rate); d <= 128), ``softcap_derivative_dropped_from_dk/d256`` (the
   d = 256 form's dS side takes Y^T = P, not P c) and
   ``dkv_first_gqa_group_only`` (dK/dV walk the query tiles of the first GQA
-  group only).
+  group only);
+- paged decode's tensor-core form (``paged_decode_tc``,
+  ``paged_decode_tc_quant``): ``merge_empty_split_weight_one`` (the merge
+  weights by 1 a split that is empty for a row: one that visited nothing,
+  m = -inf, or saw only columns the row may not see, m = the mask value),
+  ``v_rows_past_length_not_zeroed`` (a bf16 tile's V rows past the length
+  kept as the stage holds them), ``v_scale_dropped`` (P's columns not
+  multiplied by v_scale) and ``draft_row_limit_off_by_one`` (each row sees
+  the column past its causal limit).
 
 Forward mutants run ``flash_checks`` and ``flash_window_checks``, paged
 mutants ``prefill_checks``, ``prefill_window_checks`` and
@@ -61,12 +69,15 @@ mutants ``prefill_checks``, ``prefill_window_checks`` and
 ``dropout_checks``, untimed where the functions allow, the pair's mutants
 the same with ``bwd_window_checks``' Gemma-2 packed case too, and the 8-bit
 form's mutants the same forward and paged checks over int8 and fp8 K/V and
-``prefill_poison_check``.  The unmutated copy runs all of them and must
-pass every check; a mutant is caught when a bf16 check of the kernel it
+``prefill_poison_check``, paged decode's mutants ``paged_checks``,
+``paged_window_checks`` and ``draft_checks`` in bf16, int8 and fp8,
+``decode_poison_check`` and ``split_edge_checks``.  The unmutated copy runs
+the checks of every kind (of the kinds ``--mutants`` names, with it) and
+must pass every check; a mutant is caught when a bf16 check of the kernel it
 changed (``flash_fwd_tc/...``, ``paged_prefill_tc/...`` or
 ``flash_bwd_tc/...``; the 8-bit form's: ``flash_fwd_tc/quant/...`` or
 ``paged_prefill_tc/quant/...``; the pair's: ``flash_bwd_dq_tc/...`` or
-``flash_bwd_dkv_tc/...``) fails.  ``--mutants``
+``flash_bwd_dkv_tc/...``; paged decode's: ``paged_decode_tc/...``) fails.  ``--mutants``
 runs some of them (and the unmutated copy).  Prints one JSON line per copy and writes them
 to ``chiprun_out/tc_mutants.json``; exits non-zero when a mutant goes
 uncaught or the unmutated copy fails a check.  Imports nothing of JAX.
@@ -86,6 +97,7 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FWD, BWD, PP, Q8 = "flash_fwd_tc", "flash_bwd_tc", "paged_prefill_tc", "tc_quant"
 PAIR, PAIR_ALL = "pair_tc", "pair_tc_common"  # the latter: an edit of bwd_common.cuh
+PD = "paged_decode_tc"
 # name -> (kernel, [(source, text, replacement)])
 MUTANTS = {
     "unmutated": (None, []),
@@ -155,6 +167,17 @@ MUTANTS = {
         ("flash_bwd_tc.cu", f"{n} = c0 < kv_len ? (rows + kBlockM - 1) / kBlockM : 0;",
          f"{n} = c0 < kv_len ? (min(rows, q_seq_len) + kBlockM - 1) / kBlockM : 0;")
         for n in ("n_r", "n_q")]),
+    "merge_empty_split_weight_one": (PD, [(
+        "paged_decode_tc.cu", "const float w = m == -INFINITY ? 0.f : tc::ex2((m - mm) * tc::kLog2e);",
+        "const float w = m <= fa::kMaskValue ? 1.f : tc::ex2((m - mm) * tc::kLog2e);")]),
+    "v_rows_past_length_not_zeroed": (PD, [(
+        "paged_decode_tc.cu", "if (row < lo || row >= hi) vt[u]", "if (row < lo) vt[u]")]),
+    "v_scale_dropped": (PD, [(
+        "paged_decode_tc.cu",
+        "if constexpr (C::kQuant) p[e] *= vs_t[kKeysW * warp + 8 * nb + 2 * t4 + (e & 1)];", "")]),
+    "draft_row_limit_off_by_one": (PD, [(
+        "paged_decode_tc.cu", "const int lim = length - draft_k + r % draft_k;",
+        "const int lim = length - draft_k + r % draft_k + 1;")]),
 }
 MUTANT_SECONDS = 900  # one copy's checks; the unmutated copy's take about 4 minutes
 # The libraries an edit of each kernel's source changes, that its checks launch.
@@ -162,14 +185,14 @@ _PAIR_LIBS = ["flash_bwd_dq_tc", "flash_bwd_dq_tc_extra", "flash_bwd_dkv_tc",
               "flash_bwd_dkv_tc_extra", "flash_bwd_tc", "flash_bwd_tc_extra"]
 LIBS = {FWD: ["flash_fwd_tc", "flash_fwd_tc_extra"], BWD: ["flash_bwd_tc", "flash_bwd_tc_extra"],
         PP: ["paged_prefill_tc"], Q8: ["flash_fwd_tc_quant", "paged_prefill_tc_quant"],
-        PAIR: _PAIR_LIBS,
+        PAIR: _PAIR_LIBS, PD: ["paged_decode_tc", "paged_decode_tc_quant"],
         PAIR_ALL: [*_PAIR_LIBS, *(k + x for k in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
                                    for x in ("", "_extra"))]}
 # The check names that catch each kind's mutants (bf16 checks only).
 CATCH = {FWD: ("flash_fwd_tc/",), BWD: ("flash_bwd_tc/",), PP: ("paged_prefill_tc/",),
          Q8: ("flash_fwd_tc/quant/", "paged_prefill_tc/quant/"),
          PAIR: ("flash_bwd_dq_tc/", "flash_bwd_dkv_tc/"),
-         PAIR_ALL: ("flash_bwd_dq_tc/", "flash_bwd_dkv_tc/")}
+         PAIR_ALL: ("flash_bwd_dq_tc/", "flash_bwd_dkv_tc/"), PD: ("paged_decode_tc/",)}
 
 
 def make_copy(dest: str, edits) -> None:
@@ -187,9 +210,9 @@ def make_copy(dest: str, edits) -> None:
             fh.write(code.replace(text, replacement))
 
 
-def run_checks(root: str, kernel) -> dict:
-    """In this process: chip_smoke's checks of ``kernel`` (both with None)
-    on the copy at ``root``."""
+def run_checks(root: str, kernel, kinds=None) -> dict:
+    """In this process: chip_smoke's checks of ``kernel`` (with None, of
+    every kind, or of ``kinds`` where given) on the copy at ``root``."""
     sys.path.insert(0, root)
     import torch
 
@@ -205,6 +228,10 @@ def run_checks(root: str, kernel) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     card = torch.cuda.get_device_name(0)
     args = argparse.Namespace(seed=0)
+    if kernel is None and kinds:  # the unmutated copy beside some mutants: their kinds' checks
+        for kind in kinds:
+            run_checks(root, kind)
+        return _checks_so_far
     if kernel in (None, FWD):
         cs.flash_checks(fa, flash, benchit, gen, card, report)
         cs.flash_window_checks(fa, flash, benchit, gen, card, report)
@@ -228,8 +255,19 @@ def run_checks(root: str, kernel) -> dict:
         cs.bwd_window_checks(backward, flash, benchit, gen, card, report, names=q8, timed=False)
         cs.dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, report,
                           timed=False)
-    return {c["check"]: {k: c.get(k) for k in ("ok", "max_abs_err", "elem_err")}
-            for c in report["checks"]}
+    if kernel in (None, PD):
+        for form in (None, "int8", "fp8"):
+            cs.paged_checks(decode, benchit, gen, card, report, form)
+            cs.paged_window_checks(decode, benchit, gen, card, report, form)
+            cs.draft_checks(decode, benchit, gen, card, report, form)
+        cs.decode_poison_check(decode, gen, report)
+        cs.split_edge_checks(decode, gen, report)
+    _checks_so_far.update({c["check"]: {k: c.get(k) for k in ("ok", "max_abs_err", "elem_err")}
+                           for c in report["checks"]})
+    return _checks_so_far
+
+
+_checks_so_far: dict = {}
 
 
 def main() -> int:
@@ -240,8 +278,10 @@ def main() -> int:
     ap.add_argument("--one", nargs="+", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        kernel = args.one[1] if len(args.one) > 1 else None
-        print(json.dumps(run_checks(args.one[0], kernel)), flush=True)
+        sel = args.one[1] if len(args.one) > 1 else None
+        kernel = None if sel is None or sel.startswith("kinds=") else sel
+        kinds = sel[len("kinds="):].split(",") if sel and sel.startswith("kinds=") else None
+        print(json.dumps(run_checks(args.one[0], kernel, kinds)), flush=True)
         return 0
     mutants = {m: MUTANTS[m] for m in ["unmutated", *(args.mutants or MUTANTS)] if m in MUTANTS}
     tmp = tempfile.mkdtemp(prefix="tc_mutants-")
@@ -267,12 +307,14 @@ def main() -> int:
                 if not os.path.exists(os.path.join(dest, os.path.basename(so))):
                     shutil.copy(so, dest)
         results, ok = {}, True
+        # With --mutants, the unmutated copy runs the checks of their kinds only.
+        kinds = sorted({k for k, _ in mutants.values() if k}) if args.mutants else []
         for m, (kernel, _) in mutants.items():
+            extra = [kernel] if kernel else ([f"kinds={','.join(kinds)}"] if kinds else [])
             try:
                 proc = subprocess.run(
-                    [sys.executable, os.path.abspath(__file__), "--one", roots[m],
-                     *([kernel] if kernel else [])], stdout=subprocess.PIPE, text=True,
-                    timeout=MUTANT_SECONDS)
+                    [sys.executable, os.path.abspath(__file__), "--one", roots[m], *extra],
+                    stdout=subprocess.PIPE, text=True, timeout=MUTANT_SECONDS)
             except subprocess.TimeoutExpired:  # a mutant that hangs is not caught by a check
                 print(json.dumps({"copy": m, "kernel": kernel, "timeout_s": MUTANT_SECONDS,
                                   "caught": False}), flush=True)
