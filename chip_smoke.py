@@ -170,6 +170,14 @@ Phases, each of which must pass (any failure exits non-zero):
                launch; one layer's weight products timed against bf16
                weights; then a profile;
    serve_gemma2_fp8 - serve_gemma2 on an fp8 KV cache;
+   serve_mixtral_int8 - Mixtral-8x7B-class (``ModelConfig.mixtral8x7b``,
+               8 experts, top-2) at full width and its published 32 layers
+               on int8 weights (46.7 GB, made and quantized one layer at a
+               time) and a bf16 cache, on serve_chunked's engine and
+               prompts: every logits row finite, launches and pages as in
+               serve_chunked (paged decode at G = 4, d = 128), weights and
+               peak GB; one layer's MoE MLP timed (upcasts, products over
+               all experts and over the top-2); then a profile;
    serve_multistep - serve's model with ``run(multi_step=8)``: 4 prompts of
                100-1000 tokens, 33 new tokens (4 loops of 8), greedy and
                sampled, each equal to its ``multi_step=1`` run; the greedy
@@ -200,7 +208,9 @@ Phases, each of which must pass (any failure exits non-zero):
                parity_speculative: ``verify_step`` logits at k = 4 on the
                2-layer float32 Llama and Gemma-2 (window 128) cuts, card
                against CPU and against the prefill logits at the fed
-               positions, within PARITY_TOL;
+               positions, within PARITY_TOL; parity_mixtral: the MoE model
+               at full width in 2 float32 layers, whole-prompt and chunked
+               (a 300-token prompt, then one sharing 256 of it);
 8. train     - ``make_train_step`` at ``bench_train.py``'s configuration
                (Mistral-7B width, 2 layers, sliding_window=None, bf16, B = 8,
                S = 2048, random tokens from --seed, lr 1e-3), with remat off
@@ -223,6 +233,19 @@ Phases, each of which must pass (any failure exits non-zero):
                attention flops counted over the window's live pairs, and a
                profile of one Gemma-2 step; train_gemma2_packed - the packed
                step on Gemma-2 over documents of 5000, 2100 and 1000 tokens;
+   train_mixtral, train_mixtral_packed - ``mixtral8x7b`` at full width
+               in 2 layers, bf16, B = 1, S = 8192, with the AdamW step
+               (``make_train_step_optax``, ``make_train_step_packed(
+               optimizer=)``): step ms, tokens/s, peak memory, the fused
+               backward's or the pair's launches, the loss falling over
+               the counted steps;
+   checkpoint - ``save_checkpoint`` / ``load_checkpoint`` on the card: a
+               2-layer float32 Mixtral cut with int8 weights and an engine
+               stopped mid-run, resumed with ``Engine.from_state`` (every
+               tensor bitwise, greedy and seeded sampled tokens those of an
+               uninterrupted run); a 1-layer train_mixtral cut saved with
+               its AdamW state after 2 steps, the third step from the
+               restored state against the uninterrupted one's;
 10. train_parity - a 2-layer float32 cut at the same width (B = 1, S = 256):
                plain and packed steps, remat off and on, two steps each, on
                the card and on the CPU (plain versions) from the same
@@ -263,6 +286,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import sys
 import time
 
@@ -1668,16 +1692,33 @@ def _quant_launches(want, launches, cache_quantized):
         launches[f"{k}_quant"] > 0 for k in ("paged_decode", "paged_prefill"))
 
 
+def _finite_engine(engine_mod):
+    """The engine with every logits row it samples from checked finite on
+    the device (``eng.finite``, read once at the end: no host sync)."""
+
+    class Checked(engine_mod.Engine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.finite = torch.ones((), dtype=torch.bool, device=self.device)
+
+        def _sample_rows(self, reqs, logits):
+            self.finite &= torch.isfinite(logits).all()
+            return super()._sample_rows(reqs, logits)
+
+    return Checked
+
+
 def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report, *,
-                        cache_dtype="bfloat16", phase="serve_chunked", extra=None):
+                        cache_dtype="bfloat16", phase="serve_chunked", extra=None,
+                        model="llama7b_attention"):
     """The default configuration's path: chunked prefill and prefix hits.
     With ``cache_dtype`` int8 or fp8, an 8-bit KV cache (the serve_int8
-    phase, on int8 weights)."""
+    phase, on int8 weights).  Every logits row sampled must be finite."""
     ccfg = kvcache.CacheConfig(
         num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim, page_size=256, num_pages=64, dtype=cache_dtype,
     )
-    eng = engine_mod.Engine(
+    eng = _finite_engine(engine_mod)(
         params, cfg, ccfg,
         engine_mod.EngineConfig(max_batch=4, pages_per_seq=12, prefill_chunk=512),
     )
@@ -1707,14 +1748,15 @@ def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report
                 paged_prefill=cfg.num_layers * st["chunk_rounds"])
     quant_ok = _quant_launches(want, launches, ccfg.quantized)
     want_prefill = sum(len(p) for p in prompts) - 3 * shared
+    finite = bool(eng.finite)
     rec = _serve_rec(phase, cfg, st, full, wall, launches, want, {
         "prompt_lens": [len(p) for p in prompts], "shared_prefix": shared,
         "new_tokens": budget, "prefill_tokens_expected": want_prefill,
         "cache_dtype": cache_dtype, "cache_pages": ccfg.num_pages, "cache_gb": _cache_gb(eng),
-        **(extra or {}),
-    })
+        "logits_finite": finite, **(extra or {}),
+    }, model)
     rec["ok"] = (
-        full and launches == want and quant_ok
+        full and finite and launches == want and quant_ok
         and all(launches[k] > 0 for k in ("flash_fwd", "paged_decode", "paged_prefill"))
         and st["free_pages"] == ccfg.num_pages and st["preemptions"] == 0
         and st["prefill_tokens"] == want_prefill
@@ -2378,6 +2420,123 @@ def phase_serve_int8(args, cfg, params, transformer, quant, engine_mod, kvcache,
              "mm_chunk": _mm_times(transformer, benchit, qparams["layers"][0], 2048)}
     rec = phase_serve_chunked(args, cfg, qparams, engine_mod, kvcache, counters, report,
                               cache_dtype="int8", phase="serve_int8", extra=extra)
+    torch.cuda.empty_cache()
+    return rec
+
+
+MIXTRAL_MODEL = ("mixtral8x7b: 32 q / 8 KV heads, d=128, 8 experts of intermediate 14336, "
+                 "top-2")
+
+
+def _weights_gb(params, quant):
+    """Bytes of a parameter tree (payloads and scales of quantized leaves)."""
+    from flashattention_tpu_torch.models.train.common import leaves
+
+    return sum(
+        t.numel() * t.element_size() for leaf in leaves(params)
+        for t in ((leaf.payload, leaf.scales) if isinstance(leaf, quant.QuantizedWeight)
+                  else (leaf,))) / 1e9
+
+
+def _moe_times(transformer, benchit, layer, rows, top_k):
+    """One MoE layer's MLP at ``rows`` bf16 activation rows on int8 expert
+    stacks (ms): the whole ``_mlp``; the three stacks' upcasts to bfloat16
+    alone; the expert products on bfloat16 stacks (dequantized beforehand)
+    over all E experts, as the dense MoE computes them, and over top_k
+    experts only (the products a routed MoE would make at most)."""
+    d = layer["w_gate"].shape[1]
+    x = torch.randn((rows, d), device="cuda").to(torch.bfloat16)
+    out = {"rows": rows, "int8_mlp_ms": benchit.cuda_time_ms(
+        lambda: transformer._mlp(x, layer, top_k))}
+    stacks = [layer[n] for n in ("w_gate", "w_up", "w_down")]
+    out["upcast_ms"] = sum(benchit.cuda_time_ms(lambda w=w: w.payload.to(torch.bfloat16))
+                           for w in stacks)
+    wb = [(w.payload.float() * w.scales[:, None, :]).to(torch.bfloat16) for w in stacks]
+
+    def products(k):
+        h = torch.matmul(x, wb[0][:k]) * torch.matmul(x, wb[1][:k])
+        return torch.matmul(h, wb[2][:k])
+
+    out["bf16_expert_mm_ms"] = benchit.cuda_time_ms(lambda: products(len(wb[0])))
+    out["bf16_routed_mm_ms"] = benchit.cuda_time_ms(lambda: products(top_k))
+    del wb
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mixtral_int8_params(args, cfg, transformer, quant):
+    """``mixtral8x7b`` at ``cfg.num_layers`` layers with int8 weights, made
+    one layer at a time: layer i drawn as the layer of a one-layer model
+    from seed ``args.seed + i`` and quantized at once, so that no more than
+    one layer's bfloat16 weights exist (embedding, final norm and LM head
+    from the first draw)."""
+    one = dataclasses.replace(cfg, num_layers=1)
+    params = None
+    for i in range(cfg.num_layers):
+        drawn = transformer.init_params(args.seed + i, one)
+        layer = quant.quantize_weights(drawn["layers"][0], "int8")
+        if params is None:
+            params = quant.quantize_weights({k: v for k, v in drawn.items() if k != "layers"},
+                                            "int8")
+            params["layers"] = []
+        params["layers"].append(layer)
+        del drawn
+    return params
+
+
+def phase_serve_mixtral_int8(args, transformer, quant, engine_mod, kvcache, benchit, counters,
+                             report):
+    """Mixtral-8x7B-class at full width and its published 32 layers on one
+    card: int8 weights (46.7 GB; bfloat16's 93 GB would not fit), a bf16 KV
+    cache, serve_chunked's engine and prompts, then a profile of 4 requests
+    with 1536-token prompts.  Also times one layer's MoE MLP on the int8
+    path against its upcasts and its products on bfloat16 stacks (over all
+    experts and over the top-2)."""
+    cfg = transformer.ModelConfig.mixtral8x7b(num_layers=args.layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _mixtral_int8_params(args, cfg, transformer, quant)
+    torch.cuda.synchronize()
+    extra = {"weights": "int8", "weights_gb": _weights_gb(params, quant),
+             "init_quantize_s": time.perf_counter() - t0,
+             "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+             "moe_decode": _moe_times(transformer, benchit, params["layers"][0], 4,
+                                      cfg.experts_per_token),
+             "moe_chunk": _moe_times(transformer, benchit, params["layers"][0], 2048,
+                                     cfg.experts_per_token),
+             "unrouted_expert_share": 1 - cfg.experts_per_token / cfg.num_experts}
+    rec = phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report,
+                              phase="serve_mixtral_int8", extra=extra, model=MIXTRAL_MODEL)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_parity_mixtral(args, transformer, kvcache, engine_mod, report):
+    """Mixtral-8x7B-class at full width, cut to 2 float32 layers (drawn on
+    the card and copied): one 64-token request through whole-prompt
+    prefill and 4 decode steps, and the chunked engine (a 300-token prompt,
+    then one sharing its first 256 tokens), card against CPU within
+    PARITY_TOL.  float32, so that no route flips on a one-ulp difference of
+    the router logits."""
+    cfg = dataclasses.replace(transformer.ModelConfig.mixtral8x7b(num_layers=2), dtype="float32")
+    gpu_params = transformer.init_params(args.seed, cfg)
+    cpu_params = _to_card(gpu_params, "cpu")
+    t0 = time.perf_counter()
+    prompt = np.random.default_rng(args.seed + 1).integers(0, cfg.vocab_size, size=64)
+    e, absmax, _ = _parity_whole(transformer, kvcache, cfg, cpu_params, gpu_params, prompt)
+    rec = {"phase": "parity_mixtral", "model": MIXTRAL_MODEL, "layers": 2, "dtype": "float32",
+           "prompt_len": 64, "decode_steps": 4, "max_abs_err": e, "tol": PARITY_TOL,
+           "logit_absmax": absmax, "ok": e <= PARITY_TOL}
+    emit(rec)
+    report["parity_mixtral"] = rec
+    rng = np.random.default_rng(args.seed + 4)
+    first = rng.integers(0, cfg.vocab_size, size=300).tolist()
+    second = first[:256] + rng.integers(0, cfg.vocab_size, size=50).tolist()
+    report["parity_mixtral_chunked"] = parity_chunked(
+        cfg, cpu_params, gpu_params, kvcache, engine_mod, first, second, "parity_mixtral_chunked")
+    report["parity_mixtral_chunked"]["seconds"] = rec["seconds"] = time.perf_counter() - t0
+    del gpu_params, cpu_params
     torch.cuda.empty_cache()
     return rec
 
@@ -3360,13 +3519,20 @@ WTRAIN_MODELS = {
 WTRAIN_DOCS = (5000, 2100, 1000)
 
 
-def _matmul_params(cfg):
-    """bench_train.py's count: matmul parameters, lm_head in, embedding out."""
+def _matmul_params(cfg, experts=None):
+    """bench_train.py's count: matmul parameters, lm_head in, embedding out.
+    A MoE layer's MLP counts ``experts`` experts (default: all of them, as
+    the dense MoE computes every expert on every token) and its router."""
+    if cfg.num_experts is None:
+        mlp = 3 * cfg.d_model * cfg.intermediate
+    else:
+        mlp = (3 * cfg.d_model * cfg.intermediate * (experts or cfg.num_experts)
+               + cfg.d_model * cfg.num_experts)
     per_layer = (
         cfg.d_model * cfg.num_q_heads * cfg.head_dim
         + 2 * cfg.d_model * cfg.num_kv_heads * cfg.head_dim
         + cfg.num_q_heads * cfg.head_dim * cfg.d_model
-        + 3 * cfg.d_model * cfg.intermediate
+        + mlp
     )
     return cfg.num_layers * per_layer + cfg.d_model * cfg.vocab_size
 
@@ -3379,6 +3545,9 @@ def _train_rec(phase, cfg, benchit, card, wall, steps, losses, launches, want, a
     flops = 6 * _matmul_params(cfg) * tokens + 3.5 * attn_fwd
     tflops = flops * steps / wall / 1e12
     finite = all(np.isfinite(x) for x in losses)
+    if cfg.num_experts is not None:  # the top-k experts' share: a routed MoE's work
+        extra = {**extra, "routed_tflop_per_step": (
+            6 * _matmul_params(cfg, cfg.experts_per_token) * tokens + 3.5 * attn_fwd) / 1e12}
     return {
         "phase": phase, "model": model, "dtype": cfg.dtype,
         "batch": batch, "seq": seq, "steps": steps, **extra, "losses": losses,
@@ -3406,22 +3575,46 @@ def _seeded(attn_dropout, seed):
     return (seed,) if attn_dropout else ()
 
 
+def _stepper(train, cfg, params, optimizer, packed, **kw):
+    """``call(*data)``: the SGD step (lr 1e-3) on ``params``, or with
+    ``optimizer`` the optimizer step threading its state."""
+    if optimizer is None:
+        make = train.make_train_step_packed if packed else train.make_train_step
+        step = make(cfg, lr=1e-3, **kw)
+        return lambda *data: step(params, *data)
+    if packed:
+        step = train.make_train_step_packed(cfg, optimizer=optimizer, **kw)
+    else:
+        step = train.make_train_step_optax(cfg, optimizer, **kw)
+    state = train.init_opt_state(optimizer, params)
+    return lambda *data: step(params, state, *data)
+
+
+def _falls(rec, optimizer):
+    """An optimizer phase's loss must fall over its counted steps."""
+    if optimizer is not None:
+        rec["loss_falls"] = rec["losses"][-1] < rec["losses"][0]
+        rec["ok"] = rec["ok"] and rec["loss_falls"]
+
+
 def phase_train(args, cfg, params, train, benchit, counters, card, report, *, remat,
                 phase=None, model=TRAIN_MODEL, batch=TRAIN_B, seq=TRAIN_S, profile=None,
-                attn_dropout=None):
+                attn_dropout=None, optimizer=None):
     """The plain step: one warm-up step, then TRAIN_STEPS counted steps; a
     profile of one more step (by default, without remat).  With
-    ``attn_dropout``, seed = step index (the warm-up's 0)."""
+    ``attn_dropout``, seed = step index (the warm-up's 0).  With
+    ``optimizer`` (``train.adamw(...)``), the optimizer step, and the loss
+    must fall over the counted steps."""
     rng = np.random.default_rng(args.seed + 20)
     tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, seq)), dtype=torch.int32,
                           device="cuda")
-    step = train.make_train_step(cfg, lr=1e-3, remat=remat, attn_dropout=attn_dropout)
-    step(params, tokens, *_seeded(attn_dropout, 0))  # warm-up
+    call = _stepper(train, cfg, params, optimizer, False, remat=remat, attn_dropout=attn_dropout)
+    call(tokens, *_seeded(attn_dropout, 0))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = []
     wall, launches = _drive(counters, lambda: out.extend(
-        step(params, tokens, *_seeded(attn_dropout, i + 1))[0] for i in range(TRAIN_STEPS)))
+        call(tokens, *_seeded(attn_dropout, i + 1))[0] for i in range(TRAIN_STEPS)))
     layers = cfg.num_layers
     want = dict.fromkeys(counters, 0)
     want.update(flash_fwd=(2 if remat else 1) * layers * TRAIN_STEPS, flash_bwd=layers * TRAIN_STEPS)
@@ -3430,7 +3623,10 @@ def phase_train(args, cfg, params, train, benchit, counters, card, report, *, re
     phase = phase or ("train_remat" if remat else "train")
     rec = _train_rec(phase, cfg, benchit, card, wall, TRAIN_STEPS, [float(x) for x in out],
                      launches, want, _attn_fwd_flops(benchit, cfg, batch, seq),
-                     {"remat": remat, "attn_dropout": attn_dropout}, model, batch, seq)
+                     {"remat": remat, "attn_dropout": attn_dropout,
+                      "optimizer": None if optimizer is None else repr(optimizer)},
+                     model, batch, seq)
+    _falls(rec, optimizer)
     emit(rec)
     report[phase] = rec
     if profile is None:
@@ -3440,7 +3636,7 @@ def phase_train(args, cfg, params, train, benchit, counters, card, report, *, re
         def one_step(run):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            step(params, tokens)
+            call(tokens, *_seeded(attn_dropout, TRAIN_STEPS + 1 + run))
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e6
 
@@ -3451,10 +3647,10 @@ def phase_train(args, cfg, params, train, benchit, counters, card, report, *, re
 
 def phase_train_packed(args, cfg, params, train, packing, flash, benchit, counters, card, report,
                        *, phase="train_packed", model=TRAIN_MODEL, batch=TRAIN_B, seq=TRAIN_S,
-                       docs=None, attn_dropout=None):
+                       docs=None, attn_dropout=None, optimizer=None):
     """The packed step over ``batch`` rows packed from random documents of
     64-2048 tokens, or with ``docs`` one row of documents of those lengths;
-    ``attn_dropout`` as in phase_train."""
+    ``attn_dropout`` and ``optimizer`` as in phase_train."""
     if docs is None:
         tok_np, seg_np = _packed_ids(packing, args.seed + 21, batch, seq, cfg.vocab_size)
     else:
@@ -3463,13 +3659,13 @@ def phase_train_packed(args, cfg, params, train, packing, flash, benchit, counte
             [rng.integers(0, cfg.vocab_size, size=n) for n in docs], seq)
     tokens = torch.tensor(tok_np, device="cuda")
     segs = torch.tensor(seg_np, device="cuda")
-    step = train.make_train_step_packed(cfg, lr=1e-3, attn_dropout=attn_dropout)
-    step(params, tokens, segs, *_seeded(attn_dropout, 0))  # warm-up
+    call = _stepper(train, cfg, params, optimizer, True, attn_dropout=attn_dropout)
+    call(tokens, segs, *_seeded(attn_dropout, 0))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = []
     wall, launches = _drive(counters, lambda: out.extend(
-        step(params, tokens, segs, *_seeded(attn_dropout, i + 1))[0] for i in range(TRAIN_STEPS)))
+        call(tokens, segs, *_seeded(attn_dropout, i + 1))[0] for i in range(TRAIN_STEPS)))
     layers = cfg.num_layers
     want = dict.fromkeys(counters, 0)
     want.update(flash_fwd=layers * TRAIN_STEPS, flash_bwd_dq=layers * TRAIN_STEPS,
@@ -3490,7 +3686,9 @@ def phase_train_packed(args, cfg, params, train, packing, flash, benchit, counte
                          "documents_per_row": [len(set(r.tolist()) - {-1}) for r in seg_np],
                          "pad_tokens": int((seg_np < 0).sum()), "valid_targets": valid,
                          "live_pairs_per_head": pairs,
+                         "optimizer": None if optimizer is None else repr(optimizer),
                      }, model, batch, seq)
+    _falls(rec, optimizer)
     emit(rec)
     report[phase] = rec
     return rec
@@ -3522,6 +3720,159 @@ def phase_train_windowed(args, transformer, train, packing, flash, benchit, coun
         del params
         torch.cuda.empty_cache()
     return out
+
+
+MIXTRAL_ADAMW = dict(learning_rate=1e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def phase_train_mixtral(args, transformer, train, packing, flash, benchit, counters, card,
+                        report):
+    """Mixtral-8x7B-class at full width in 2 layers, bf16, B = 1, S = 8192
+    (train_mistral's row; the dense MoE computes all 8 experts on every
+    token), with the AdamW step (``train.adamw``): train_mixtral, the plain
+    step (the fused backward; a profile of one step), and
+    train_mixtral_packed, the packed step on WTRAIN_DOCS (the two-pass
+    pair).  Each: one warm-up step, then TRAIN_STEPS counted, over which
+    the loss must fall."""
+    cfg = transformer.ModelConfig.mixtral8x7b(num_layers=2)
+    out = {}
+    for phase in ("train_mixtral", "train_mixtral_packed"):
+        params = transformer.init_params(args.seed, cfg)
+        opt = train.adamw(**MIXTRAL_ADAMW)
+        if phase == "train_mixtral":
+            out[phase] = phase_train(args, cfg, params, train, benchit, counters, card, report,
+                                     remat=False, phase=phase, model=MIXTRAL_MODEL,
+                                     batch=WTRAIN_B, seq=WTRAIN_S, optimizer=opt)
+        else:
+            out[phase] = phase_train_packed(args, cfg, params, train, packing, flash, benchit,
+                                            counters, card, report, phase=phase,
+                                            model=MIXTRAL_MODEL, batch=WTRAIN_B, seq=WTRAIN_S,
+                                            docs=WTRAIN_DOCS, optimizer=opt)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+CHECKPOINT_DIR = os.path.join("build", "chip_smoke_checkpoint")
+
+
+def _tree_bitwise(a, b, quant):
+    """Whether two trees hold the same structure and the same bits (a
+    tensor of ``a`` may lie on another device than ``b``'s)."""
+    if torch.is_tensor(b):
+        return (torch.is_tensor(a) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(quant.byte_view(a), quant.byte_view(b).to(a.device)))
+    if isinstance(b, quant.QuantizedWeight):
+        return (isinstance(a, quant.QuantizedWeight) and a.ldtype == b.ldtype
+                and _tree_bitwise(a.payload, b.payload, quant)
+                and _tree_bitwise(a.scales, b.scales, quant))
+    if isinstance(b, dict):
+        return (isinstance(a, dict) and list(a) == list(b)
+                and all(_tree_bitwise(a[k], b[k], quant) for k in b))
+    if isinstance(b, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_tree_bitwise(x, y, quant) for x, y in zip(a, b)))
+    return a == b
+
+
+def _save_load(ckpt, tree, engine_state=None):
+    """Save then load (on the card): (tree, engine_state, record)."""
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(CHECKPOINT_DIR, tree, engine_state=engine_state)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(CHECKPOINT_DIR, f))
+                 for f in os.listdir(CHECKPOINT_DIR))
+    t0 = time.perf_counter()
+    got, state = ckpt.load_checkpoint(CHECKPOINT_DIR)
+    torch.cuda.synchronize()
+    return got, state, {"bytes": nbytes, "save_s": save_s, "load_s": time.perf_counter() - t0}
+
+
+def phase_checkpoint(args, transformer, quant, train, engine_mod, kvcache, report):
+    """Checkpoint and resume on the card (files under the git-ignored build
+    directory, removed afterwards).
+
+    Serving: a 2-layer float32 cut of Mixtral-8x7B-class with int8 weights;
+    three requests (two greedy, one seeded sampled) run 6 engine steps,
+    then ``save_checkpoint`` (weights and ``state_dict``) ->
+    ``load_checkpoint`` (card) -> ``Engine.from_state`` -> ``run``: every
+    tensor bitwise the saved one, the tokens those of an uninterrupted run.
+    Training: a 1-layer cut of train_mixtral (bf16, B = 1, S = 8192); two
+    AdamW steps, ``{params, opt_state}`` saved and loaded, step 3 from the
+    restored state against step 3 of the uninterrupted run: the restored
+    state bitwise, the loss within 1e-3 relative (the fused backward's dQ
+    atomics vary between runs) and the parameters within BF16_ELEM_TOL."""
+    from flashattention_tpu_torch.utils import checkpoint as ckpt
+
+    os.makedirs("build", exist_ok=True)
+    rec = {"phase": "checkpoint", "dir": CHECKPOINT_DIR,
+           "disk_free_gb": shutil.disk_usage("build").free / 1e9}
+    cfg = dataclasses.replace(transformer.ModelConfig.mixtral8x7b(num_layers=2), dtype="float32")
+    params = quant.quantize_weights(transformer.init_params(args.seed, cfg), "int8")
+    ccfg = kvcache.CacheConfig(num_layers=2, num_kv_heads=cfg.num_kv_heads,
+                               head_dim=cfg.head_dim, page_size=PAGE_SIZE, num_pages=16,
+                               dtype="float32")
+    ecfg = engine_mod.EngineConfig(max_batch=4, pages_per_seq=4, prefill_chunk=512)
+    rng = np.random.default_rng(args.seed + 40)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (700, 90, 300)]
+    sampled = engine_mod.SamplingParams(greedy=False, temperature=0.8, top_k=50, seed=5)
+
+    def engine():
+        eng = engine_mod.Engine(params, cfg, ccfg, ecfg)
+        for i, p in enumerate(prompts):
+            eng.add_request(p, 12, sampling=sampled if i == 2 else None)
+        return eng
+
+    want = engine().run()
+    eng = engine()
+    for _ in range(6):
+        eng.step()
+    state = eng.state_dict()
+    got_params, got_state, io = _save_load(ckpt, params, state)
+    resumed = engine_mod.Engine.from_state(got_state, got_params, cfg, ccfg, ecfg)
+    got = resumed.run()
+    serving = {"layers": 2, "dtype": "float32", "weights": "int8", **io,
+               "tokens_at_save": [len(r["output"]) for r in state["requests"]],
+               "state_equal": got_state == json.loads(json.dumps(state)),
+               "tensors_bitwise": _tree_bitwise(got_params, params, quant),
+               "tokens_equal": got == want}
+    serving["ok"] = (serving["state_equal"] and serving["tensors_bitwise"]
+                     and serving["tokens_equal"] and 0 < min(serving["tokens_at_save"]))
+    rec["serving"] = serving
+    del params, got_params, eng, resumed
+    torch.cuda.empty_cache()
+
+    tcfg = transformer.ModelConfig.mixtral8x7b(num_layers=1)
+    params = transformer.init_params(args.seed, tcfg)
+    opt = train.adamw(**MIXTRAL_ADAMW)
+    step = train.make_train_step_optax(tcfg, opt)
+    opt_state = train.init_opt_state(opt, params)
+    tokens = torch.tensor(rng.integers(0, tcfg.vocab_size, (WTRAIN_B, WTRAIN_S)),
+                          dtype=torch.int32, device="cuda")
+    losses = [float(step(params, opt_state, tokens)[0]) for _ in range(2)]
+    saved = {"params": params, "opt_state": opt_state.state_dict()}
+    got, _, io = _save_load(ckpt, saved)
+    restored_bitwise = _tree_bitwise(got, saved, quant)  # the AdamW step counts included
+    restored = train.init_opt_state(opt, got["params"])
+    restored.load_state_dict(got["opt_state"])
+    loss3 = float(step(params, opt_state, tokens)[0])
+    loss3_r = float(step(got["params"], restored, tokens)[0])
+    param_err = max(elem_err(a, b) for a, b in zip(train.leaves(got["params"]),
+                                                  train.leaves(params)))
+    training = {"layers": 1, "dtype": "bfloat16", "batch": WTRAIN_B, "seq": WTRAIN_S,
+                "adamw": MIXTRAL_ADAMW, **io, "losses": losses + [loss3],
+                "loss3_restored": loss3_r, "loss_rel_err": abs(loss3_r - loss3) / abs(loss3),
+                "restored_bitwise": restored_bitwise, "param_elem_err": param_err}
+    training["ok"] = restored_bitwise and training["loss_rel_err"] <= 1e-3 and param_err <= 1.0
+    rec["training"] = training
+    del params, opt_state, saved, got, restored
+    torch.cuda.empty_cache()
+    shutil.rmtree(CHECKPOINT_DIR)
+    rec["removed"] = not os.path.exists(CHECKPOINT_DIR)
+    rec["ok"] = serving["ok"] and training["ok"] and rec["removed"]
+    emit(rec)
+    report["checkpoint"] = rec
+    return rec
 
 
 def phase_train_parity(args, transformer, train, packing, counters, report, *,
@@ -3735,14 +4086,18 @@ def main() -> int:
     gemma_spec = phase_serve_speculative_gemma2(args, transformer, engine_mod, kvcache, counters,
                                                 report)
     lap("serve_gemma2")
+    mixtral = phase_serve_mixtral_int8(args, transformer, quant, engine_mod, kvcache, benchit,
+                                       counters, report)
+    lap("serve_mixtral")
     cross = phase_crosscheck(fa, flash, gen, report)
     quant_ops = phase_quant_ops(fa, flash, quant, gen, report)
     phase_parity(args, transformer, kvcache, engine_mod, report)
     phase_parity_quant(args, transformer, quant, kvcache, engine_mod, report)
     phase_parity_gemma2(args, transformer, kvcache, engine_mod, report)
     phase_parity_speculative(args, transformer, kvcache, report)
-
     lap("crosscheck_parity")
+    phase_parity_mixtral(args, transformer, kvcache, engine_mod, report)
+    lap("parity_mixtral")
     tcfg = _train_cfg(transformer)
     tparams = transformer.init_params(args.seed, tcfg)
     trained = {
@@ -3763,6 +4118,11 @@ def main() -> int:
     trained.update(phase_train_windowed(args, transformer, train, packing, flash, benchit,
                                         counters, name, report))
     lap("train")
+    trained.update(phase_train_mixtral(args, transformer, train, packing, flash, benchit,
+                                       counters, name, report))
+    lap("train_mixtral")
+    phase_checkpoint(args, transformer, quant, train, engine_mod, kvcache, report)
+    lap("checkpoint")
     # Float32 training on the card: the scalar fused backward's path.
     parity = {"train_parity": phase_train_parity(args, transformer, train, packing, counters,
                                                  report),
@@ -3778,7 +4138,7 @@ def main() -> int:
     lap("train_parity")
 
     paths = {"serve": serve["launches"], "serve_chunked": chunked["launches"],
-             "serve_int8": serve_int8["launches"],
+             "serve_int8": serve_int8["launches"], "serve_mixtral_int8": mixtral["launches"],
              "serve_gemma2": gemma["launches"], "serve_gemma2_whole": gemma_whole["launches"],
              "serve_gemma2_fp8": gemma_fp8["launches"],
              "serve_multistep": _launch_sum(multistep), "serve_speculative": _launch_sum(speculative),
@@ -3938,7 +4298,9 @@ def main() -> int:
                            "train_mistral", "train_gemma2", "train_gemma2_packed", "train_parity",
                            "train_parity_mistral_w128", "train_parity_gemma2_w128",
                            "attention_block_mask", "train_dropout", "train_packed_dropout",
-                           "train_parity_dropout")
+                           "train_parity_dropout", "serve_mixtral_int8", "parity_mixtral",
+                           "parity_mixtral_chunked", "train_mixtral", "train_mixtral_packed",
+                           "checkpoint")
                if not report[p]["ok"]]
     failed += [k["name"] for k in summary if k["launches"] == 0]
     # The scalar 8-bit forms of the two forwards left the paths for their

@@ -2,11 +2,23 @@
 ``flashattention_tpu/models/train``): the causal-LM loss through the
 transformer with :func:`~flashattention_tpu_torch.ops.backward.attention_vjp`
 (the flash forward kernel and the hand-written backward kernels behind a
-``torch.autograd.Function``), plain and packed-sequence SGD.  The sharded
-step families come with the multi-device slice.
+``torch.autograd.Function``), plain and packed-sequence steps, SGD or a
+``torch.optim`` optimizer threaded as the JAX steps thread optax state.
+The sharded step families come with the multi-device slice.
 """
 
-from flashattention_tpu_torch.models.train.common import packed_positions, token_nll
-from flashattention_tpu_torch.models.train.steps_core import make_train_step, make_train_step_packed
+from flashattention_tpu_torch.models.train.common import (
+    adamw,
+    init_opt_state,
+    leaves,
+    packed_positions,
+    token_nll,
+)
+from flashattention_tpu_torch.models.train.steps_core import (
+    make_train_step,
+    make_train_step_optax,
+    make_train_step_packed,
+)
 
-__all__ = ["make_train_step", "make_train_step_packed", "packed_positions", "token_nll"]
+__all__ = ["adamw", "init_opt_state", "leaves", "make_train_step", "make_train_step_optax",
+           "make_train_step_packed", "packed_positions", "token_nll"]

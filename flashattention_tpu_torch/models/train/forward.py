@@ -86,7 +86,7 @@ def forward_logits(params, tokens, cfg: ModelConfig, *, segment_ids=None, remat=
         )
         o = o.reshape(b, hq, s, hd).transpose(1, 2).reshape(b, s, hq * hd)
         x = x + o @ layer["wo"]
-        return x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
+        return x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer, cfg.experts_per_token)
 
     for layer, lseed in zip(layers, seeds):
         if remat:

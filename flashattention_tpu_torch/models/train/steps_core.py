@@ -1,12 +1,15 @@
-"""Training steps on one device: plain and packed-sequence SGD.
+"""Training steps on one device: plain and packed-sequence, SGD or an
+optimizer.
 
 Counterpart of ``flashattention_tpu/models/train/steps_core.py``
-(``make_train_step`` :16, ``make_train_step_packed`` :101) without a mesh:
-the data-parallel and tensor-parallel axes, the optax step, vocab-parallel
-logits and mixed precision come with later slices.  Where the JAX step
-returns new parameters, this one updates the caller's tensors in place
-(and returns them).  The steps run on the card unless the caller asks for
-the CPU (``device="cpu"``), and refuse parameters or tokens elsewhere.
+(``make_train_step`` :16, ``make_train_step_optax`` :57,
+``make_train_step_packed`` :101) without a mesh: the data-parallel and
+tensor-parallel axes, vocab-parallel logits and mixed precision come with
+later slices.  Where the JAX step returns new parameters (and optimizer
+state), this one updates the caller's tensors (and ``torch.optim`` state)
+in place and returns them.  The steps run on the card unless the caller
+asks for the CPU (``device="cpu"``), and refuse parameters or tokens
+elsewhere.
 """
 
 from __future__ import annotations
@@ -18,19 +21,21 @@ from flashattention_tpu_torch.models.train.forward import make_grad_fn
 from flashattention_tpu_torch.models.transformer import ModelConfig
 from flashattention_tpu_torch.utils.device import resolve_device
 
-__all__ = ["make_train_step", "make_train_step_packed"]
+__all__ = ["make_train_step", "make_train_step_optax", "make_train_step_packed"]
 
 
-def _on_device(step, device):
-    """Check the configuration's device once, and each call's tensors."""
+def _on_device(step, device, threads_state=False):
+    """Check the configuration's device once, and each call's tensors (past
+    the optimizer state, with ``threads_state``)."""
     dev = resolve_device(device)
 
-    def checked(params, tokens, *rest):
+    def checked(params, *rest):
+        state, (tokens, *rest) = (rest[:1], rest[1:]) if threads_state else ((), rest)
         where = {params["embed"].device.type, tokens.device.type}
         where.update(t.device.type for t in rest if torch.is_tensor(t))
         if where != {dev.type}:
             raise ValueError(f"the step runs on {dev.type}; got tensors on {sorted(where)}")
-        return step(params, tokens, *rest)
+        return step(params, *state, tokens, *rest)
 
     return checked
 
@@ -47,19 +52,42 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 1e-3, remat: bool = False,
     the host, one sync per step) sets the keep bits as the JAX step's does,
     and a recomputed layer draws the same ones.
     """
-    cfg.check_ported()
     grad_fn = make_grad_fn(cfg, remat=remat, attn_dropout=attn_dropout)
     return _on_device(_make_step(grad_fn, lr), device)
 
 
+def make_train_step_optax(cfg: ModelConfig, optimizer, *, remat: bool = False,
+                          attn_dropout: float | None = None, device=None):
+    """``step(params, opt_state, tokens, seed=0) -> (loss, params,
+    opt_state)``: :func:`make_train_step`'s loss and gradients, the update
+    made by an optimizer.
+
+    ``optimizer`` builds a ``torch.optim.Optimizer`` over a list of tensors
+    (``train.adamw(...)``, or e.g. ``functools.partial(torch.optim.SGD,
+    lr=...)``); ``opt_state = train.init_opt_state(optimizer, params)``
+    builds it over the parameters, as ``optimizer.init(params)`` does in
+    optax.  Usage::
+
+        opt = train.adamw(3e-4, weight_decay=0.01)
+        step = train.make_train_step_optax(cfg, opt)
+        opt_state = train.init_opt_state(opt, params)
+        loss, params, opt_state = step(params, opt_state, tokens)
+    """
+    grad_fn = make_grad_fn(cfg, remat=remat, attn_dropout=attn_dropout)
+    return _on_device(_make_step(grad_fn, None, optimizer), device, threads_state=True)
+
+
 def make_train_step_packed(cfg: ModelConfig, *, lr: float = 1e-3, remat: bool = False,
-                           attn_dropout: float | None = None, device=None):
+                           attn_dropout: float | None = None, optimizer=None, device=None):
     """``step(params, tokens, segment_ids, seed=0) -> (loss, params)`` over
     packed rows: each row holds several documents marked by ``segment_ids``
     (negative = padding, see :func:`utils.packing.pack_documents`).
     Attention stays within documents, RoPE restarts per document, and the
     loss is the mean over valid next-token targets; ``attn_dropout`` and
-    ``seed`` as in :func:`make_train_step`."""
-    cfg.check_ported()
+    ``seed`` as in :func:`make_train_step`.  With ``optimizer`` (as in
+    :func:`make_train_step_optax`) the update is the optimizer's and the
+    step threads its state: ``step(params, opt_state, tokens, segment_ids,
+    seed=0) -> (loss, params, opt_state)``."""
     grad_fn = make_grad_fn(cfg, packed=True, remat=remat, attn_dropout=attn_dropout)
-    return _on_device(_make_step(grad_fn, lr), device)
+    return _on_device(_make_step(grad_fn, lr, optimizer), device,
+                      threads_state=optimizer is not None)

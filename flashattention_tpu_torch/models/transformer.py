@@ -25,6 +25,8 @@ Parameters are a plain dict with the JAX package's tree and names
 (``{"embed", "final_norm", "lm_head", "layers": [...]}``) and its ``x @ w``
 weight layout, so :func:`params_from_jax` is a copy, not a transpose.  Large
 matrix products stay ``torch.matmul``, as the JAX package left them to XLA.
+A layer that holds a ``router`` (``ModelConfig.num_experts``, Mixtral-class)
+has a top-k MoE MLP: every expert runs on every token, as in the JAX model.
 A leaf may be an 8-bit :class:`~flashattention_tpu_torch.ops.quant.QuantizedWeight`
 (``quantize_weights``): its payload is upcast to the activations' dtype for
 the product and its per-column scales applied to the output, as the JAX
@@ -88,14 +90,6 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for model features the serving path
-        does not have yet (training checks its own, see ``models/train``)."""
-        if self.num_experts is not None:
-            raise NotImplementedError(
-                "MoE MLPs are not ported yet: they come with the Mixtral slice"
-            )
-
     @classmethod
     def tiny(cls) -> "ModelConfig":
         return cls(
@@ -146,8 +140,10 @@ class ModelConfig:
 def init_params(seed: int, cfg: ModelConfig, *, device=None) -> dict:
     """Random parameters (scaled normal, fan-in), drawn on ``device`` (the
     card unless the caller asks for the CPU) from a generator seeded with
-    ``seed``.  One matrix at a time is drawn in float32, then cast."""
-    cfg.check_ported()
+    ``seed``.  One matrix at a time is drawn in float32, then cast.  With
+    ``cfg.num_experts`` each layer's MLP is a Mixtral-style MoE: a router
+    ``(d, E)`` and expert stacks ``w_gate``/``w_up`` ``(E, d, f)`` and
+    ``w_down`` ``(E, f, d)`` (the JAX ``init_params``' layout)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, hq, hkv, hd = cfg.d_model, cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
@@ -166,18 +162,23 @@ def init_params(seed: int, cfg: ModelConfig, *, device=None) -> dict:
         "lm_head": dense((d, cfg.vocab_size), d),
         "layers": [],
     }
+    f = cfg.intermediate
+    stack = () if cfg.num_experts is None else (cfg.num_experts,)
     for _ in range(cfg.num_layers):
-        params["layers"].append({
+        layer = {
             "attn_norm": ones(d),
             "wq": dense((d, hq * hd), d),
             "wk": dense((d, hkv * hd), d),
             "wv": dense((d, hkv * hd), d),
             "wo": dense((hq * hd, d), hq * hd),
             "mlp_norm": ones(d),
-            "w_gate": dense((d, cfg.intermediate), d),
-            "w_up": dense((d, cfg.intermediate), d),
-            "w_down": dense((cfg.intermediate, d), cfg.intermediate),
-        })
+            "w_gate": dense((*stack, d, f), d),
+            "w_up": dense((*stack, d, f), d),
+            "w_down": dense((*stack, f, d), f),
+        }
+        if stack:
+            layer["router"] = dense((d, cfg.num_experts), d)
+        params["layers"].append(layer)
     return params
 
 
@@ -239,10 +240,50 @@ def _lookup(emb, tokens):
     return emb[tokens.long()]
 
 
-def _mlp(x, layer):
-    """Dense SwiGLU."""
-    gate = torch.nn.functional.silu(_mm(x, layer["w_gate"]))
-    return _mm(gate * _mm(x, layer["w_up"]), layer["w_down"])
+def _es(x, w):
+    """Every expert's product ``x @ w[e]`` over an expert stack ``w``
+    ``(E, d_in, d_out)``: x ``(N, d_in)``, the same rows for every expert,
+    or ``(E, N, d_in)``, each expert's own; returns ``(E, N, d_out)``.  The
+    JAX ``_es`` (``einsum("...d,edf->...ef")`` and ``"...ef,efd->...ed"``)
+    with the expert axis leading, so that no stack is copied; for a
+    :class:`QuantizedWeight` the payload is cast to x's dtype and its
+    ``(E, d_out)`` scales applied to the output."""
+    if isinstance(w, QuantizedWeight):
+        return torch.matmul(x, w.payload.to(x.dtype)) * w.scales.to(x.dtype)[:, None, :]
+    return torch.matmul(x, w)
+
+
+def _top_k(logits, k):
+    """The k largest logits along the last axis and their indices, largest
+    first and, among equal values, the lower index first, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order for
+    ties): a stable descending sort."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _mlp(x, layer, top_k: int = 2):
+    """Dense SwiGLU or, for a layer with a router, the top-k MoE MLP.
+
+    As in the JAX ``_mlp``, every expert runs on every token and the top-k
+    outputs are combined by their softmaxed routing weights (float32, cast
+    to x's dtype for the final sum): static shapes, no host sync.  Router
+    logits are computed in x's dtype, as in JAX."""
+    if "router" not in layer:
+        gate = torch.nn.functional.silu(_mm(x, layer["w_gate"]))
+        return _mm(gate * _mm(x, layer["w_up"]), layer["w_down"])
+    lead, d = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, d)  # (N, d)
+    logits = _mm(x2, layer["router"])  # (N, E)
+    wk, idx = _top_k(logits, top_k)
+    wk = torch.softmax(wk.float(), dim=-1)
+    gate = torch.nn.functional.silu(_es(x2, layer["w_gate"]))  # (E, N, f)
+    ye = _es(gate * _es(x2, layer["w_up"]), layer["w_down"])  # (E, N, d)
+    # The routing weights of the chosen experts, 0 elsewhere (JAX's one-hot
+    # sum: each token chooses k distinct experts).
+    w_e = torch.zeros_like(logits, dtype=torch.float32).scatter(-1, idx, wk)  # (N, E)
+    out = torch.einsum("ne,end->nd", w_e.to(x.dtype), ye)
+    return out.reshape(*lead, d)
 
 
 def _qkv(x, layer, cfg, positions):
@@ -263,7 +304,6 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig):
     (logits (B, S, V), k_rows, v_rows) with k_rows/v_rows (L, B, S, KVH, d)
     for the paged cache.
     """
-    cfg.check_ported()
     b, s = tokens.shape
     x = _lookup(params["embed"], tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -282,7 +322,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig):
             window=cfg.sliding_window, logit_softcap=cfg.logit_softcap,
         )
         x = x + _mm(o.transpose(1, 2).reshape(b, s, -1), layer["wo"])
-        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
+        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer, cfg.experts_per_token)
     x = _rmsnorm(x, params["final_norm"])
     logits = _mm(x, params["lm_head"])
     return logits, torch.stack(k_rows), torch.stack(v_rows)
@@ -358,7 +398,7 @@ def _decode_body(params, tokens, positions, k_pages, v_pages, lengths, page_indi
             logit_softcap=cfg.logit_softcap, **_layer_scales(k_scales, v_scales, li),
         )  # (B, KVH, G, d)
         x = x + _mm(o.reshape(b, 1, cfg.num_q_heads * cfg.head_dim), layer["wo"])
-        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
+        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer, cfg.experts_per_token)
     x = _rmsnorm(x[:, 0], params["final_norm"])
     return _mm(x, params["lm_head"])
 
@@ -384,7 +424,6 @@ def decode_step(
     rows are dropped) and have length 0.  Returns logits (B, V); the pools
     are updated in place (the JAX step donates them and returns new ones).
     """
-    cfg.check_ported()
     return decode_step_impl(
         params, tokens, positions, k_pages, v_pages, lengths, page_indices,
         write_pages, write_slots, cfg, k_scales, v_scales,
@@ -423,7 +462,6 @@ def prefill_chunk_batched(
     write pages; their logits are garbage the engine never reads.  Returns
     logits ``(B, T, V)``.
     """
-    cfg.check_ported()
     if ctx_lens is None:
         raise ValueError("prefill_chunk_batched requires per-request ctx_lens")
     b, t = tokens.shape
@@ -450,7 +488,7 @@ def prefill_chunk_batched(
         )  # (B, KVH, G * T, d)
         o = o.reshape(b, kvh * g, t, hd).transpose(1, 2).reshape(b, t, kvh * g * hd)
         x = x + _mm(o, layer["wo"])
-        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
+        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer, cfg.experts_per_token)
     # The JAX function's 2-D final stage: (B*T, dm) @ (dm, V) reduces each
     # row as the single-request (T, dm) @ (dm, V) does.
     x2 = _rmsnorm(x.reshape(b * t, -1), params["final_norm"])
@@ -525,7 +563,6 @@ def decode_loop(
     pools are updated in place."""
     from flashattention_tpu_torch.ops.sampling import sample_logits
 
-    cfg.check_ported()
     b = tokens.shape[0]
     dev = tokens.device
     ps = k_pages.shape[3]
@@ -580,7 +617,6 @@ def verify_step(
     back (the engine's ``cache.trim``).  ``write_pages``/``write_slots`` may
     be host tensors, and then no device sync is made.  Returns logits
     ``(B, k, V)``."""
-    cfg.check_ported()
     b, kk = tokens.shape
     kvh, g, hd = cfg.num_kv_heads, cfg.group_size, cfg.head_dim
     x = _lookup(params["embed"], tokens)  # (B, k, d_model)
@@ -601,7 +637,7 @@ def verify_step(
         )  # (B, KVH, G * k, d)
         o = o.reshape(b, kvh, g, kk, hd).permute(0, 3, 1, 2, 4).reshape(b, kk, kvh * g * hd)
         x = x + _mm(o, layer["wo"])
-        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer)
+        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer, cfg.experts_per_token)
     x = _rmsnorm(x, params["final_norm"])
     return _mm(x, params["lm_head"])
 

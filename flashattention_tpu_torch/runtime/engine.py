@@ -31,6 +31,12 @@ request's current token and k - 1 drafts in one call
 (``transformer.verify_step``, on the paged decode kernel's draft form),
 emits the accepted drafts and one token of the model's, and trims the
 rejected rows from the cache.
+
+Checkpoint and resume: :meth:`Engine.state_dict` snapshots the requests'
+tokens and the sampling generator's state as JSON, and
+:meth:`Engine.from_state` rebuilds an engine that re-queues and re-prefills
+every unfinished request (``utils/checkpoint.py`` writes both beside the
+parameters).
 """
 
 from __future__ import annotations
@@ -147,7 +153,6 @@ class Engine:
                 f"prefill_chunk ({engine_cfg.prefill_chunk}) must be a "
                 f"multiple of page_size ({cache_cfg.page_size})"
             )
-        model_cfg.check_ported()
         self.params = params
         self.model_cfg = model_cfg
         self.cache = PagedKVCache(cache_cfg, device=self.device)
@@ -251,6 +256,70 @@ class Engine:
                     "an empty batch)"
                 )
         return {rid: r.output for rid, r in self.requests.items()}
+
+    # ── checkpoint / resume ───────────────────────────────────────────────
+
+    def state_dict(self) -> dict:
+        """Snapshot of the serving state, JSON-serializable (the JAX
+        ``Engine.state_dict``).
+
+        Recompute-style: each request's prompt, generated output, budget,
+        state, sampling parameters and logprobs; the K/V pages derive from
+        the tokens, so on restore unfinished requests re-queue and re-prefill
+        their context, the path preemption takes.  In place of the JAX
+        engine's ``sample_key``, ``sample_gen`` holds the state of the
+        engine's ``torch.Generator`` as a list of ints, so that sampled
+        serving resumes on the draws an uninterrupted engine would make.
+        Seeded requests re-derive their stream from (seed, position)
+        (:meth:`_seeded`), so nothing of theirs is stored.  ``on_token``
+        callbacks do not survive a restore."""
+        return {
+            "next_id": self._next_id,
+            "sample_gen": self.sample_gen.get_state().tolist(),
+            "requests": [
+                {
+                    "req_id": r.req_id,
+                    "prompt": list(r.prompt),
+                    "max_new_tokens": r.max_new_tokens,
+                    "output": list(r.output),
+                    "state": r.state,
+                    "sampling": dataclasses.asdict(r.sampling) if r.sampling is not None else None,
+                    "logprobs": list(r.logprobs),
+                }
+                for r in self.requests.values()
+            ],
+        }
+
+    @classmethod
+    def from_state(cls, state: dict, params, model_cfg, cache_cfg, engine_cfg=None,
+                   **kw) -> "Engine":
+        """An engine rebuilt from :meth:`state_dict` (fresh pools):
+        unfinished requests re-queue, their whole context (prompt and
+        output so far) re-prefilled on admission.  ``kw`` go to the
+        constructor (``device``, ``seed``)."""
+        eng = cls(params, model_cfg, cache_cfg, engine_cfg or EngineConfig(), **kw)
+        eng._next_id = state["next_id"]
+        if "sample_gen" in state:
+            eng.sample_gen.set_state(torch.tensor(state["sample_gen"], dtype=torch.uint8))
+        for r in state["requests"]:
+            sp = r.get("sampling")
+            if sp is not None:
+                sp = SamplingParams(**{
+                    **sp,
+                    # JSON turns tuples into lists: back to tuples.
+                    "stop_tokens": tuple(sp.get("stop_tokens", ())),
+                    "stop_sequences": tuple(tuple(s) for s in sp.get("stop_sequences", ())),
+                })
+            req = Request(
+                r["req_id"], list(r["prompt"]), r["max_new_tokens"], output=list(r["output"]),
+                state=r["state"], sampling=sp, logprobs=list(r.get("logprobs", ())),
+            )
+            eng.requests[req.req_id] = req
+            if req.state in ("finished", "cancelled"):
+                continue
+            req.state = "waiting"  # waiting or running: re-queued, re-prefilled
+            eng.scheduler.add_request(req.req_id, req.length, req.max_new_tokens - len(req.output))
+        return eng
 
     def step(self, multi_step: int = 1) -> None:
         """Admit + prefill new requests, then decode one token for all, or

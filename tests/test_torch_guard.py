@@ -39,6 +39,8 @@ def test_import_loads_no_jax():
         "import sys, flashattention_tpu_torch\n"
         "import flashattention_tpu_torch.runtime.engine\n"
         "import flashattention_tpu_torch.utils.benchit\n"
+        "import flashattention_tpu_torch.utils.checkpoint\n"
+        "import flashattention_tpu_torch.models.train\n"
         "print('\\n'.join(sys.modules))\n"
     )
     out = subprocess.run(
@@ -46,6 +48,7 @@ def test_import_loads_no_jax():
         check=True, timeout=120, env={**os.environ, "PYTHONPATH": ROOT},
     ).stdout.split()
     assert "flashattention_tpu_torch.runtime.engine" in out
+    assert "flashattention_tpu_torch.utils.checkpoint" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -122,6 +125,31 @@ def test_entry_points_default_to_the_card(no_card):
     step = train.make_train_step(cfg, device="cpu")
     with pytest.raises(ValueError, match="runs on cpu"):
         step(params, torch.zeros(1, 8, dtype=torch.int32, device="meta"))
+
+
+def test_moe_and_checkpoint_default_to_the_card(no_card, tmp_path):
+    """The MoE model, the optimizer step and ``load_checkpoint`` run on the
+    card unless the caller asks for the CPU."""
+    from flashattention_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = transformer.ModelConfig(vocab_size=32, num_layers=1, d_model=32, num_q_heads=2,
+                                  num_kv_heads=1, head_dim=16, intermediate=32,
+                                  num_experts=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_params(0, cfg)
+    params = transformer.init_params(0, cfg, device="cpu")
+    assert params["layers"][0]["router"].device.type == "cpu"
+    path = str(tmp_path / "ckpt")
+    save_checkpoint(path, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint(path)
+    assert load_checkpoint(path, device="cpu")[0]["embed"].device.type == "cpu"
+    opt = train.adamw(1e-3)
+    for make in (lambda **kw: train.make_train_step_optax(cfg, opt, **kw),
+                 lambda **kw: train.make_train_step_packed(cfg, optimizer=opt, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert callable(make(device="cpu"))
 
 
 def test_later_slices_raise():

@@ -136,15 +136,22 @@ def test_bf16_prefill_close_to_jax():
 
 
 def test_unported_model_features_raise():
-    """MoE is not ported.  The windowed and softcapped presets serve (their
-    serving check passes; ``tests/test_torch_window.py`` runs them) and
-    train: the steps build for them (``tests/test_torch_train.py`` holds a
-    windowed, softcapped step to the JAX package's)."""
+    """Every preset is ported: ``mixtral8x7b`` (MoE, 8 experts, top-2; its
+    MLP held to the JAX package's in ``tests/test_torch_moe.py``) inits and
+    runs a prefill, here cut to a small width on the CPU, and the windowed
+    and softcapped presets serve (``tests/test_torch_window.py``) and train
+    (``tests/test_torch_train.py``): the steps build for all three."""
     from flashattention_tpu_torch.models import train
 
-    with pytest.raises(NotImplementedError):
-        tt.init_params(0, tt.ModelConfig.mixtral8x7b(num_layers=1), device="cpu")
-    for name in ("mistral7b", "gemma2_9b"):
+    cfg = dataclasses.replace(tt.ModelConfig.mixtral8x7b(num_layers=1), vocab_size=256,
+                              d_model=64, num_q_heads=4, num_kv_heads=1, head_dim=16,
+                              intermediate=96, dtype="float32")
+    params = tt.init_params(0, cfg, device="cpu")
+    assert tuple(params["layers"][0]["w_gate"].shape) == (8, 64, 96)
+    toks = torch.tensor(np.random.default_rng(3).integers(0, 256, (2, 12)))
+    logits, k, v = tt.prefill(params, toks, cfg)
+    assert logits.shape == (2, 12, 256) and bool(torch.isfinite(logits).all())
+    assert k.shape == v.shape == (1, 2, 12, 1, 16)
+    for name in ("mistral7b", "gemma2_9b", "mixtral8x7b"):
         cfg = getattr(tt.ModelConfig, name)(num_layers=1)
-        cfg.check_ported()
         assert callable(train.make_train_step(cfg, device="cpu"))
