@@ -255,7 +255,35 @@ Phases, each of which must pass (any failure exits non-zero):
                full width, their window cut to 128 (about 120 s of CPU work
                for Gemma-2's 256128-wide logits), and train_parity_dropout
                with ``attn_dropout=0.1``; one CPU run without remat is the
-               reference of both card runs.
+               reference of both card runs;
+               train_parity_lora - the LoRA step at Mistral-7B's widths in 1
+               float32 layer (B = 1, S = 256, rank 8 on wq / wv, A and B
+               shifted by 0.01), two SGD steps, card against CPU; and on the
+               card ``tests/test_train.py:955``'s chain rule: dA = dW B^T s
+               and dB = A^T dW s, dW from the merged model's full step;
+11. train_lora - LoRA fine-tuning (``make_train_step_lora``) of Mistral-7B
+               at its published 32 layers, window off, bf16, B = 8, S =
+               2048, remat, rank 8 on wq and wv, alpha 16, AdamW on the
+               adapters: one warm-up step, 3 counted (ms, tokens/s, TFLOP/s
+               and MFU by the LoRA step's own count: no base dW, plus the
+               recompute; peak memory; flash_fwd 2 L and flash_bwd L per
+               step), the loss falling, every base tensor's checksum
+               unchanged, B moved from zero, a profile of one step;
+   serve_lora_merged - ``merge_lora`` of those adapters into the 32-layer
+               base, served whole-prompt (bf16 cache) on four of
+               serve_chunked's prompts, 16 new tokens each, then on
+               ``quantize_weights`` of the merge (serve_lora_merged_int8):
+               each prompt's prefill logits against ``forward_logits`` of
+               base and adapters (the training forward, merging per layer)
+               within 2e-2 of their largest magnitude, the engine's first
+               tokens that forward's greedy tokens;
+   train_mixed, train_mixed_optax, train_mixed_packed - the train phase's
+               model with float32 masters and ``compute_dtype="bfloat16"``
+               through the three steps (SGD, AdamW, packed): the first loss
+               bitwise that of the masters cast to bf16 through the bf16
+               step, the masters float32 and moving, the tensor-core forms'
+               launches; train_mixed_remat_dropout - remat with dropout 0.1,
+               finite.
 
 The serve and train phases' launch counts include the tensor-core forms':
 every bf16 flash forward, fused backward and two-pass pair launch at their
@@ -1708,6 +1736,21 @@ def _finite_engine(engine_mod):
     return Checked
 
 
+def _chunked_prompts(args, vocab):
+    """serve_chunked's prompts from ``--seed``, and the length of the prefix
+    the first four share: a donor, three prompts that share its first 1024
+    tokens (prefix hits), three long unique prompts and one short one."""
+    rng = np.random.default_rng(args.seed + 10)
+    tok = lambda n: rng.integers(0, vocab, size=int(n)).tolist()  # noqa: E731
+    shared = 1024
+    prefix = tok(shared)
+    prompts = [prefix + tok(100)]  # the donor
+    prompts += [prefix + tok(n) for n in rng.integers(64, 401, size=3)]  # prefix hits
+    prompts += [tok(n) for n in rng.integers(513, 2049, size=3)]  # long, unique
+    prompts += [tok(rng.integers(64, 513))]  # short: whole-prompt on flash_fwd
+    return prompts, shared
+
+
 def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report, *,
                         cache_dtype="bfloat16", phase="serve_chunked", extra=None,
                         model="llama7b_attention"):
@@ -1722,14 +1765,8 @@ def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report
         params, cfg, ccfg,
         engine_mod.EngineConfig(max_batch=4, pages_per_seq=12, prefill_chunk=512),
     )
-    rng = np.random.default_rng(args.seed + 10)
-    tok = lambda n: rng.integers(0, cfg.vocab_size, size=int(n)).tolist()  # noqa: E731
-    budget, shared = 32, 1024
-    prefix = tok(shared)
-    prompts = [prefix + tok(100)]  # the donor
-    prompts += [prefix + tok(n) for n in rng.integers(64, 401, size=3)]  # prefix hits
-    prompts += [tok(n) for n in rng.integers(513, 2049, size=3)]  # long, unique
-    prompts += [tok(rng.integers(64, 513))]  # short: whole-prompt on flash_fwd
+    budget = 32
+    prompts, shared = _chunked_prompts(args, cfg.vocab_size)
     ids = []
 
     def drive():
@@ -3538,11 +3575,13 @@ def _matmul_params(cfg, experts=None):
 
 
 def _train_rec(phase, cfg, benchit, card, wall, steps, losses, launches, want, attn_fwd, extra,
-               model=TRAIN_MODEL, batch=TRAIN_B, seq=TRAIN_S):
-    """bench_train.py's accounting: 6 N_matmul tokens + 3.5 x attention forward."""
+               model=TRAIN_MODEL, batch=TRAIN_B, seq=TRAIN_S, flops=None):
+    """bench_train.py's accounting: 6 N_matmul tokens + 3.5 x attention
+    forward, unless the step's ``flops`` are given."""
     _tc_expect(want, cfg)
     tokens = batch * seq
-    flops = 6 * _matmul_params(cfg) * tokens + 3.5 * attn_fwd
+    if flops is None:
+        flops = 6 * _matmul_params(cfg) * tokens + 3.5 * attn_fwd
     tflops = flops * steps / wall / 1e12
     finite = all(np.isfinite(x) for x in losses)
     if cfg.num_experts is not None:  # the top-k experts' share: a routed MoE's work
@@ -3751,6 +3790,350 @@ def phase_train_mixtral(args, transformer, train, packing, flash, benchit, count
         del params
         torch.cuda.empty_cache()
     return out
+
+
+LORA_MODEL = "mistral7b(num_layers=32), sliding_window=None; LoRA rank 8 on wq, wv, alpha 16"
+LORA_RANK, LORA_ALPHA = 8, 16.0
+LORA_ADAMW = dict(learning_rate=1e-3)  # optax.adamw's other defaults
+LORA_SERVE_NEW = 16
+LORA_LOGITS_RTOL = 2e-2  # the bf16 gate, of the logits' largest magnitude
+
+
+def _lora_cfg(transformer, num_layers=32, dtype="bfloat16"):
+    """Mistral-7B's published widths and depth, the window off (as the
+    train phase takes it)."""
+    return dataclasses.replace(transformer.ModelConfig.mistral7b(num_layers=num_layers),
+                               sliding_window=None, dtype=dtype)
+
+
+def _checksums(tensors):
+    """Each tensor's 16-bit words summed on the card, each weighted by its
+    position (mod 65521, plus one), as int64: a changed word changes its
+    tensor's sum unless another change cancels it."""
+    out = []
+    for t in tensors:
+        words = t.reshape(-1).view(torch.int16).to(torch.int64)
+        pos = torch.arange(words.numel(), device=t.device) % 65521 + 1
+        out.append((words * pos).sum())
+        del words, pos
+    return torch.stack(out).tolist()
+
+
+def _lora_flops(cfg, batch, seq, targets, attn_fwd):
+    """A remat LoRA step's work: the forward (2 N tokens), each layer's
+    recompute (2 N_layers tokens), the products' input gradients (2 N
+    tokens), the weight gradients of the targets alone (the base takes
+    none), and attention 4.5 x its forward (forward, recompute, backward
+    2.5); the adapters' own products (rank 8) are left out."""
+    tokens = batch * seq
+    n_all = _matmul_params(cfg)
+    n_layers = n_all - cfg.d_model * cfg.vocab_size
+    widths = {"wq": cfg.num_q_heads * cfg.head_dim, "wk": cfg.num_kv_heads * cfg.head_dim,
+              "wv": cfg.num_kv_heads * cfg.head_dim}
+    n_targets = cfg.num_layers * sum(cfg.d_model * widths[t] for t in targets)
+    return 2 * tokens * (2 * n_all + n_layers + n_targets) + 4.5 * attn_fwd
+
+
+def phase_train_lora(args, transformer, train, benchit, counters, card, report):
+    """LoRA fine-tuning of Mistral-7B's widths at its published 32 layers,
+    bf16, B = 8, S = 2048, remat, rank 8 on wq and wv, alpha 16, AdamW on
+    the adapters: one warm-up step, then TRAIN_STEPS counted, and a profile
+    of one more.  The loss must fall over the four steps, every base tensor
+    keep its checksum, and B move from zero.  Returns the record, the base
+    and the trained adapters (for serve_lora_merged)."""
+    cfg = _lora_cfg(transformer)
+    t0 = time.perf_counter()
+    base = transformer.init_params(args.seed, cfg)
+    lora = train.init_lora(args.seed + 1, base, rank=LORA_RANK)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sums = _checksums(train.leaves(base))
+    opt = train.adamw(**LORA_ADAMW)
+    state = train.init_opt_state(opt, lora)
+    step = train.make_train_step_lora(cfg, alpha=LORA_ALPHA, optimizer=opt, remat=True)
+    rng = np.random.default_rng(args.seed + 20)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)), dtype=torch.int32,
+                          device="cuda")
+    warm = float(step(base, lora, state, tokens)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    wall, launches = _drive(counters, lambda: out.extend(
+        step(base, lora, state, tokens)[0] for _ in range(TRAIN_STEPS)))
+    losses = [warm] + [float(x) for x in out]
+    layers = cfg.num_layers
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_fwd=2 * layers * TRAIN_STEPS, flash_bwd=layers * TRAIN_STEPS)
+    attn_fwd = _attn_fwd_flops(benchit, cfg, TRAIN_B, TRAIN_S)
+    base_same = _checksums(train.leaves(base)) == sums
+    b_moved = all(bool(ab["b"].any()) for adapters in lora for ab in adapters.values())
+    rec = _train_rec("train_lora", cfg, benchit, card, wall, TRAIN_STEPS, losses[1:], launches,
+                     want, attn_fwd, {
+                         "remat": True, "rank": LORA_RANK, "alpha": LORA_ALPHA,
+                         "targets": ["wq", "wv"], "optimizer": repr(opt), "init_s": init_s,
+                         "base_params": sum(t.numel() for t in train.leaves(base)),
+                         "adapter_params": sum(t.numel() for t in train.leaves(lora)),
+                         "base_gb": sum(t.numel() * t.element_size()
+                                        for t in train.leaves(base)) / 1e9,
+                         "flops_counted": "forward, each layer's recompute, input gradients, "
+                                          "wq/wv weight gradients (no base dW), attention x 4.5",
+                         "losses_with_warmup": losses, "base_checksums_equal": base_same,
+                         "b_moved_from_zero": b_moved,
+                     }, LORA_MODEL, flops=_lora_flops(cfg, TRAIN_B, TRAIN_S, ("wq", "wv"),
+                                                      attn_fwd))
+    rec["loss_falls"] = all(b < a for a, b in zip(losses, losses[1:]))
+    rec["ok"] = rec["ok"] and rec["loss_falls"] and base_same and b_moved
+    emit(rec)
+    report["train_lora"] = rec
+
+    def one_step(run):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(base, lora, state, tokens)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e6
+
+    report["profile_train_lora"] = _profile(one_step, "profile/train_lora",
+                                            {"steps": 1, "remat": True})
+    del state
+    return rec, base, lora
+
+
+def phase_serve_lora_merged(args, transformer, train, quant, engine_mod, kvcache, counters,
+                            report, base, lora):
+    """``merge_lora`` of train_lora's adapters into its 32-layer base, served
+    whole-prompt (prefill_chunk=0, bf16 cache) on four of serve_chunked's
+    prompts, LORA_SERVE_NEW new tokens each; then the same on
+    ``quantize_weights(merged)`` (int8, ``tests/test_quant.py:247``'s
+    export path).  Each prompt's logits from the merged model's prefill
+    must match ``forward_logits`` of base and adapters (the training
+    forward, merging per layer) within LORA_LOGITS_RTOL of their largest
+    magnitude, and the engine's first token must be that forward's greedy
+    token."""
+    cfg = _lora_cfg(transformer)
+    t0 = time.perf_counter()
+    merged = train.merge_lora(base, lora, LORA_ALPHA)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    prompts = _chunked_prompts(args, cfg.vocab_size)[0][:4]
+    checks, greedy = [], []
+    with torch.no_grad():
+        for p in prompts:
+            tokens = torch.tensor([p], dtype=torch.int32, device="cuda")
+            want = train.lora._lora_logits(base, lora, tokens, cfg, alpha=LORA_ALPHA)
+            got = transformer.prefill(merged, tokens, cfg)[0]
+            scale = float(want.float().abs().max())
+            e = err(got, want)
+            greedy.append(int(want[0, -1].float().argmax()))
+            checks.append({"prompt_len": len(p), "max_abs_err": e, "logits_max_abs": scale,
+                           "tol": LORA_LOGITS_RTOL * scale, "bitwise": bool(torch.equal(got, want)),
+                           "ok": e <= LORA_LOGITS_RTOL * scale})
+            del want, got
+    recs = {}
+    for phase, params in (("serve_lora_merged", merged), ("serve_lora_merged_int8", None)):
+        extra = {"prompt_lens": [len(p) for p in prompts], "new_tokens": LORA_SERVE_NEW,
+                 "weights": "bf16, merged" if params is not None else "int8, merged"}
+        if params is None:
+            t0 = time.perf_counter()
+            params = quant.quantize_weights(merged, "int8")
+            torch.cuda.synchronize()
+            extra["quantize_s"] = time.perf_counter() - t0
+        ccfg = kvcache.CacheConfig(num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+                                   head_dim=cfg.head_dim, page_size=PAGE_SIZE, num_pages=64,
+                                   dtype="bfloat16")
+        eng = _finite_engine(engine_mod)(
+            params, cfg, ccfg,
+            engine_mod.EngineConfig(max_batch=4, pages_per_seq=8, prefill_chunk=0))
+        ids = [eng.add_request(p, LORA_SERVE_NEW) for p in prompts]
+        torch.cuda.reset_peak_memory_stats()
+        wall, launches = _drive(counters, eng.run)
+        full = _finished(eng, ids, LORA_SERVE_NEW)
+        st = eng.stats()
+        want = dict.fromkeys(counters, 0)
+        want.update(flash_fwd=cfg.num_layers * st["prefill_batches"],
+                    paged_decode=cfg.num_layers * st["decode_batches"])
+        first = [eng.requests[i].output[0] for i in ids]
+        rec = _serve_rec(phase, cfg, st, full, wall, launches, want,
+                         {**extra, "first_tokens": first, "logits_finite": bool(eng.finite)},
+                         LORA_MODEL)
+        rec["ok"] = (full and rec["logits_finite"] and launches == want
+                     and st["free_pages"] == ccfg.num_pages)
+        if phase == "serve_lora_merged":
+            rec.update(merge_s=merge_s, logits_checks=checks, forward_first_tokens=greedy,
+                       first_tokens_equal=first == greedy)
+            rec["ok"] = rec["ok"] and all(c["ok"] for c in checks) and first == greedy
+        emit(rec)
+        report[phase] = rec
+        recs[phase] = rec
+        del eng
+    del merged, params
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_train_mixed(args, transformer, train, packing, flash, benchit, counters, card, report):
+    """The train phase's model (Mistral-7B widths, 2 layers, no window, B =
+    8, S = 2048) with float32 masters and ``compute_dtype="bfloat16"``
+    through ``make_train_step`` (SGD), ``make_train_step_optax`` (AdamW) and
+    ``make_train_step_packed``: each one warm-up step, then TRAIN_STEPS
+    counted.  The SGD step's first loss must equal, bit for bit, that of
+    the masters cast to bf16 through the bf16 step (the same bf16 inputs
+    meet the same kernels); the masters must stay float32 and move; one
+    step with remat and dropout 0.1 must be finite."""
+    cfg32 = _train_cfg(transformer, "float32")
+    cfg16 = _train_cfg(transformer)
+    params = transformer.init_params(args.seed, cfg32)
+    rng = np.random.default_rng(args.seed + 20)
+    tokens = torch.tensor(rng.integers(0, cfg32.vocab_size, (TRAIN_B, TRAIN_S)),
+                          dtype=torch.int32, device="cuda")
+    cast = train.common._cast_floats(params, "bfloat16")
+    loss16 = float(train.make_train_step(cfg16, lr=1e-3)(cast, tokens)[0])
+    del cast
+    torch.cuda.empty_cache()
+    before = params["layers"][0]["wq"].clone()
+    out = {}
+    for phase, kind in (("train_mixed", "sgd"), ("train_mixed_optax", "adamw"),
+                        ("train_mixed_packed", "packed")):
+        opt = train.adamw(1e-4) if kind == "adamw" else None
+        call = _stepper(train, cfg32, params, opt, kind == "packed", compute_dtype="bfloat16")
+        if kind == "packed":
+            tok_np, seg_np = _packed_ids(packing, args.seed + 21, TRAIN_B, TRAIN_S,
+                                         cfg32.vocab_size)
+            data = (torch.tensor(tok_np, device="cuda"), torch.tensor(seg_np, device="cuda"))
+        else:
+            data = (tokens,)
+        first = float(call(*data)[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        wall, launches = _drive(counters, lambda: losses.extend(
+            call(*data)[0] for _ in range(TRAIN_STEPS)))
+        layers = cfg32.num_layers
+        want = dict.fromkeys(counters, 0)
+        if kind == "packed":
+            want.update(flash_fwd=layers * TRAIN_STEPS, flash_bwd_dq=layers * TRAIN_STEPS,
+                        flash_bwd_dkv=layers * TRAIN_STEPS)
+            segs = data[1]
+            attn_fwd = layers * 4 * cfg32.head_dim * cfg32.num_q_heads * _live_pairs(
+                flash, TRAIN_B, TRAIN_S, TRAIN_S,
+                dict(causal=True, kv_len=None, q_offset=0, q_seq_len=TRAIN_S, window=None),
+                dict(q_segment_ids=segs, kv_segment_ids=segs))
+        else:
+            want.update(flash_fwd=layers * TRAIN_STEPS, flash_bwd=layers * TRAIN_STEPS)
+            attn_fwd = _attn_fwd_flops(benchit, cfg32, TRAIN_B, TRAIN_S)
+        # The kernels run in bf16: their tensor-core forms' launches.
+        rec = _train_rec(phase, cfg16, benchit, card, wall, TRAIN_STEPS,
+                         [float(x) for x in losses], launches, want, attn_fwd,
+                         {"compute_dtype": "bfloat16", "masters": "float32",
+                          "optimizer": repr(opt) if opt else "sgd lr 1e-3",
+                          "first_loss": first}, TRAIN_MODEL + ", float32 masters")
+        rec["dtype"] = "float32 masters, bfloat16 compute"
+        if kind == "sgd":
+            rec["bf16_model_first_loss"] = loss16
+            rec["first_loss_diff"] = first - loss16
+            rec["first_loss_bitwise"] = first == loss16
+            rec["ok"] = rec["ok"] and first == loss16
+        _falls(rec, opt)
+        rec["masters_float32"] = all(t.dtype == torch.float32 for t in train.leaves(params))
+        rec["masters_moved"] = not torch.equal(params["layers"][0]["wq"], before)
+        rec["ok"] = rec["ok"] and rec["masters_float32"] and rec["masters_moved"]
+        emit(rec)
+        report[phase] = rec
+        out[phase] = rec
+    drop = train.make_train_step(cfg32, lr=1e-3, remat=True, attn_dropout=0.1,
+                                 compute_dtype="bfloat16")
+    losses = []
+    wall, launches = _drive(counters, lambda: losses.extend(
+        float(drop(params, tokens, i)[0]) for i in range(2)))
+    rec = {"phase": "train_mixed_remat_dropout", "compute_dtype": "bfloat16",
+           "attn_dropout": 0.1, "remat": True, "losses": losses, "launches": launches,
+           "step_ms": 1e3 * wall / 2, "ok": all(np.isfinite(x) for x in losses)
+           and launches["flash_fwd_dropout"] == 2 * 2 * cfg32.num_layers}
+    emit(rec)
+    report[rec["phase"]] = rec
+    out[rec["phase"]] = rec
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_parity_lora(args, transformer, train, counters, report):
+    """The LoRA step on the card against the CPU: Mistral-7B's widths in 1
+    float32 layer (window off), B = 1, S = 256, rank 8 on wq and wv with A
+    and B shifted by 0.01 off their init (so that B shapes the forward), two
+    SGD steps (lr 1e-3) from the same tensors: losses within TRAIN_LOSS_RTOL
+    and adapters within TRAIN_PARAM_TOL.  Then on the card the chain rule of
+    ``tests/test_train.py:955``: one step at lr 1 gives dA and dB, the full
+    step of the merged model at lr 1 gives dW, and dA = dW B^T (alpha/r),
+    dB = A^T dW (alpha/r) within TRAIN_GRAD_RTOL of their largest
+    magnitude; the first LoRA loss must be the merged model's within
+    TRAIN_LOSS_RTOL."""
+    cfg = _lora_cfg(transformer, num_layers=1, dtype="float32")
+    t0 = time.perf_counter()
+    base = transformer.init_params(args.seed, cfg, device="cpu")
+    lora0 = train.init_lora(args.seed + 1, base, rank=LORA_RANK)
+    lora0 = [{t: {k: v + 0.01 for k, v in ab.items()} for t, ab in adapters.items()}
+             for adapters in lora0]
+    tokens = np.random.default_rng(args.seed + 30).integers(0, cfg.vocab_size, (1, 256))
+    tokens = tokens.astype(np.int32)
+
+    def on(dev, tree):
+        if isinstance(tree, list):
+            return [{t: {k: v.to(dev, copy=True) for k, v in ab.items()}
+                     for t, ab in adapters.items()} for adapters in tree]
+        return {k: (v.to(dev, copy=True) if torch.is_tensor(v)
+                    else [{n: w.to(dev, copy=True) for n, w in lay.items()} for lay in v])
+                for k, v in tree.items()}
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        b, lo = on(dev, base), on(dev, lora0)
+        step = train.make_train_step_lora(cfg, alpha=LORA_ALPHA, lr=1e-3, device=dev)
+        tok = torch.tensor(tokens, device=dev)
+        losses = [float(step(b, lo, tok)[0]) for _ in range(2)]
+        runs[dev] = (losses, [t.cpu() for t in train.leaves(lo)])
+        del b, lo
+    loss_rel = max(abs(a - c) / abs(c) for a, c in zip(runs["cuda"][0], runs["cpu"][0]))
+    lora_err = max(err(a, c) for a, c in zip(runs["cuda"][1], runs["cpu"][1]))
+    # The chain rule on the card.
+    b, lo = on("cuda", base), on("cuda", lora0)
+    tok = torch.tensor(tokens, device="cuda")
+    merged = train.merge_lora(b, lo, LORA_ALPHA)
+    merged = {**merged, "layers": [{k: v.clone() for k, v in lay.items()}
+                                   for lay in merged["layers"]]}
+    w0 = {t: merged["layers"][0][t].clone() for t in ("wq", "wv")}
+    ab0 = {t: {k: v.clone() for k, v in lo[0][t].items()} for t in ("wq", "wv")}
+    loss_l = float(train.make_train_step_lora(cfg, alpha=LORA_ALPHA, lr=1.0)(b, lo, tok)[0])
+    loss_f = float(train.make_train_step(cfg, lr=1.0)(merged, tok)[0])
+    s = LORA_ALPHA / LORA_RANK
+    chain = {}
+    for t in ("wq", "wv"):
+        d_w = w0[t] - merged["layers"][0][t]
+        d_a = ab0[t]["a"] - lo[0][t]["a"]
+        d_b = ab0[t]["b"] - lo[0][t]["b"]
+        want_a, want_b = d_w @ ab0[t]["b"].T * s, ab0[t]["a"].T @ d_w * s
+        chain[t] = {"dA_rel_err": err(d_a, want_a) / max(float(want_a.abs().max()), 1e-30),
+                    "dB_rel_err": err(d_b, want_b) / max(float(want_b.abs().max()), 1e-30)}
+    chain_ok = all(v <= TRAIN_GRAD_RTOL for c in chain.values() for v in c.values())
+    merged_rel = abs(loss_l - loss_f) / abs(loss_f)
+    rec = {"phase": "train_parity_lora", "model": "mistral7b widths, 1 layer, no window",
+           "dtype": "float32", "batch": 1, "seq": 256, "rank": LORA_RANK, "alpha": LORA_ALPHA,
+           "lr": 1e-3, "steps": 2, "losses_cpu": runs["cpu"][0], "losses_card": runs["cuda"][0],
+           "loss_rel_err": loss_rel, "lora_max_abs_err": lora_err,
+           "chain_rule": chain, "lora_vs_merged_loss_rel": merged_rel,
+           "tol": {"loss_rel": TRAIN_LOSS_RTOL, "lora_abs": TRAIN_PARAM_TOL,
+                   "chain_rel": TRAIN_GRAD_RTOL},
+           "seconds": time.perf_counter() - t0,
+           "launches": {k: getattr(fn, attr) for k, (fn, attr) in counters.items()},
+           "ok": loss_rel <= TRAIN_LOSS_RTOL and lora_err <= TRAIN_PARAM_TOL and chain_ok
+           and merged_rel <= TRAIN_LOSS_RTOL}
+    emit(rec)
+    report["train_parity_lora"] = rec
+    del b, lo, merged, base
+    torch.cuda.empty_cache()
+    return rec
 
 
 CHECKPOINT_DIR = os.path.join("build", "chip_smoke_checkpoint")
@@ -4121,6 +4504,16 @@ def main() -> int:
     trained.update(phase_train_mixtral(args, transformer, train, packing, flash, benchit,
                                        counters, name, report))
     lap("train_mixtral")
+    trained["train_lora"], base, lora = phase_train_lora(args, transformer, train, benchit,
+                                                         counters, name, report)
+    lora_served = phase_serve_lora_merged(args, transformer, train, quant, engine_mod, kvcache,
+                                          counters, report, base, lora)
+    del base, lora
+    torch.cuda.empty_cache()
+    lap("train_lora")
+    trained.update(phase_train_mixed(args, transformer, train, packing, flash, benchit,
+                                     counters, name, report))
+    lap("train_mixed")
     phase_checkpoint(args, transformer, quant, train, engine_mod, kvcache, report)
     lap("checkpoint")
     # Float32 training on the card: the scalar fused backward's path.
@@ -4135,6 +4528,8 @@ def main() -> int:
                                    sliding_window=PARITY_WINDOW)
         parity[phase] = phase_train_parity(args, transformer, train, packing, counters, report,
                                            phase=phase, cfg=pcfg, docs=PARITY_DOCS)
+    parity["train_parity_lora"] = phase_train_parity_lora(args, transformer, train, counters,
+                                                          report)
     lap("train_parity")
 
     paths = {"serve": serve["launches"], "serve_chunked": chunked["launches"],
@@ -4145,6 +4540,7 @@ def main() -> int:
              "serve_speculative_gemma2": _launch_sum(gemma_spec),
              "crosscheck": cross["launches"], "quant_ops": quant_ops["launches"],
              "attention_block_mask": attn_bm["launches"],
+             **{p: r["launches"] for p, r in lora_served.items()},
              **{p: r["launches"] for p, r in trained.items()},
              **{p: r["launches"] for p, r in parity.items()}}
     summary = []
@@ -4300,7 +4696,10 @@ def main() -> int:
                            "attention_block_mask", "train_dropout", "train_packed_dropout",
                            "train_parity_dropout", "serve_mixtral_int8", "parity_mixtral",
                            "parity_mixtral_chunked", "train_mixtral", "train_mixtral_packed",
-                           "checkpoint")
+                           "checkpoint", "train_lora", "serve_lora_merged",
+                           "serve_lora_merged_int8", "train_mixed", "train_mixed_optax",
+                           "train_mixed_packed", "train_mixed_remat_dropout",
+                           "train_parity_lora")
                if not report[p]["ok"]]
     failed += [k["name"] for k in summary if k["launches"] == 0]
     # The scalar 8-bit forms of the two forwards left the paths for their

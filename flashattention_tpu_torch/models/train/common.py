@@ -1,10 +1,11 @@
 """Shared training-step plumbing for one device.
 
 Counterpart of ``flashattention_tpu/models/train/common.py``: the per-token
-NLL (:194), per-document RoPE positions for packed rows (:164) and the step
-tail (:205), plain SGD or an optimizer.  The Megatron f/g collective pair,
-the vocab-parallel NLL and the parameter sharding specs come with the
-multi-device slice.
+NLL (:194), per-document RoPE positions for packed rows (:164), the
+floating-leaf cast of mixed precision (:184) and the step tail (:205), plain
+SGD or an optimizer, over a model tree or a LoRA adapter tree.  The Megatron
+f/g collective pair, the vocab-parallel NLL and the parameter sharding specs
+come with the multi-device slice.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import functools
 
 import torch
 
-__all__ = ["adamw", "init_opt_state", "leaves", "packed_positions", "token_nll"]
+__all__ = ["adamw", "init_opt_state", "leaves", "packed_positions", "token_nll", "torch_dtype"]
 
 
 def packed_positions(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -37,18 +38,50 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
 
 
-def leaves(params: dict) -> list:
-    """The parameter tensors of a model tree, in a fixed order."""
+def torch_dtype(dtype) -> torch.dtype:
+    """``dtype`` as a ``torch.dtype``: one already, or the JAX package's
+    name of one (``"bfloat16"``, ``"float32"``, ...)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    out = getattr(torch, str(dtype), None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f"not a dtype: {dtype!r}")
+    return out
+
+
+def _cast_floats(tree, dtype):
+    """``tree`` (dicts, lists and tensors) with every floating tensor cast
+    to ``dtype`` (a ``torch.dtype`` or its JAX name) and every other leaf
+    as it is (common.py:184): mixed precision's just-in-time weight cast,
+    whose autograd returns the gradient in the master's dtype."""
+    dtype = torch_dtype(dtype)
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floats(v, dtype) for v in tree)
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def leaves(params) -> list:
+    """The tensors of a model tree, in a fixed order; or of a LoRA tree (a
+    list of ``{target: {"a": A, "b": B}}``, one per layer), layer by layer,
+    each target's A then B."""
+    if isinstance(params, list):
+        return [ab[k] for adapters in params for ab in adapters.values() for k in ("a", "b")]
     out = [params["embed"], params["final_norm"], params["lm_head"]]
     for layer in params["layers"]:
         out.extend(layer.values())
     return out
 
 
-def with_leaves(params: dict, new: list) -> dict:
-    """The tree of ``params`` with its tensors replaced, in :func:`leaves`
-    order, by ``new``."""
+def with_leaves(params, new: list):
+    """The tree of ``params`` (a model or a LoRA tree) with its tensors
+    replaced, in :func:`leaves` order, by ``new``."""
     it = iter(new)
+    if isinstance(params, list):
+        return [{t: {"a": next(it), "b": next(it)} for t in adapters} for adapters in params]
     tree = {"embed": next(it), "final_norm": next(it), "lm_head": next(it), "layers": []}
     for layer in params["layers"]:
         tree["layers"].append({name: next(it) for name in layer})
@@ -65,12 +98,12 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float =
                              weight_decay=weight_decay)
 
 
-def init_opt_state(optimizer, params: dict) -> torch.optim.Optimizer:
+def init_opt_state(optimizer, params) -> torch.optim.Optimizer:
     """The optimizer state of ``params`` (``optimizer.init(params)`` in
-    optax): ``optimizer``, a factory such as :func:`adamw` or
-    ``functools.partial(torch.optim.SGD, lr=...)``, built over the tree's
-    tensors in :func:`leaves` order.  Its ``state_dict()`` is what a
-    checkpoint stores; ``load_state_dict`` restores it."""
+    optax), a model tree or a LoRA tree: ``optimizer``, a factory such as
+    :func:`adamw` or ``functools.partial(torch.optim.SGD, lr=...)``, built
+    over the tree's tensors in :func:`leaves` order.  Its ``state_dict()``
+    is what a checkpoint stores; ``load_state_dict`` restores it."""
     return optimizer(leaves(params))
 
 

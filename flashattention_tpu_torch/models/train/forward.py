@@ -10,6 +10,10 @@ final norm and the LM head.  ``remat`` recomputes each layer in the backward
 runs twice per layer and step.  Attention dropout folds the step's seed as
 the JAX package's one-device mesh does, and each layer's index into it, so
 each layer draws its own keep bits, the same in a recomputed layer.
+``layer_transform`` (LoRA's per-layer merge) and ``compute_dtype`` (mixed
+precision: each layer's weights cast just in time) run inside the layer, in
+that order, so that under ``remat`` no merged or cast weight outlives its
+layer.
 """
 
 from __future__ import annotations
@@ -18,9 +22,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from flashattention_tpu_torch.models.train.common import (
+    _cast_floats,
     leaves,
     packed_positions,
     token_nll,
+    torch_dtype,
     with_leaves,
 )
 from flashattention_tpu_torch.models.transformer import ModelConfig, _lookup, _mlp, _rmsnorm, _rope
@@ -43,7 +49,7 @@ def dropout_seeds(seed, num_layers: int) -> list[int]:
 
 
 def forward_logits(params, tokens, cfg: ModelConfig, *, segment_ids=None, remat=False,
-                   attn_dropout=None, seed=0):
+                   attn_dropout=None, seed=0, layer_transform=None, compute_dtype=None):
     """Logits ``(B, S, V)`` of ``tokens`` ``(B, S)`` (forward.py:16).
 
     With ``segment_ids`` (B, S), each row packs several documents: RoPE
@@ -51,10 +57,20 @@ def forward_logits(params, tokens, cfg: ModelConfig, *, segment_ids=None, remat=
     ids folded like the q rows, g-major per KV head; forward.py:73-86).
     ``attn_dropout`` drops attention weights at that rate, layer by layer
     from :func:`dropout_seeds` of ``seed`` (an int: no host sync).
+    ``layer_transform`` maps each layer's tree to the one it computes with,
+    inside the (checkpointed) layer.  ``compute_dtype`` (a ``torch.dtype``
+    or its JAX name) is mixed precision (forward.py:69-72, :91-92,
+    :134-136): the embedding rows after the lookup, each layer's floating
+    leaves after ``layer_transform``, and the final norm and ``lm_head`` are
+    cast to it; the masters keep their dtype, and so do their gradients.
     """
     b, s = tokens.shape
     hq, hkv, g, hd = cfg.num_q_heads, cfg.num_kv_heads, cfg.group_size, cfg.head_dim
+    if compute_dtype is not None:
+        compute_dtype = torch_dtype(compute_dtype)
     x = _lookup(params["embed"], tokens)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)  # the rows, never the table
     if segment_ids is not None:
         positions = packed_positions(segment_ids)
         seg = segment_ids.to(torch.int32)
@@ -69,6 +85,10 @@ def forward_logits(params, tokens, cfg: ModelConfig, *, segment_ids=None, remat=
     seeds = dropout_seeds(seed, len(layers)) if attn_dropout else [0] * len(layers)
 
     def one_layer(x, layer, lseed):
+        if layer_transform is not None:
+            layer = layer_transform(layer)
+        if compute_dtype is not None:
+            layer = _cast_floats(layer, compute_dtype)
         h = _rmsnorm(x, layer["attn_norm"])
         q = (h @ layer["wq"]).reshape(b, s, hq, hd)
         k = (h @ layer["wk"]).reshape(b, s, hkv, hd)
@@ -93,11 +113,14 @@ def forward_logits(params, tokens, cfg: ModelConfig, *, segment_ids=None, remat=
             x = checkpoint(one_layer, x, layer, lseed, use_reentrant=False)
         else:
             x = one_layer(x, layer, lseed)
-    x = _rmsnorm(x, params["final_norm"])
-    return x @ params["lm_head"]
+    fn_w, head_w = params["final_norm"], params["lm_head"]
+    if compute_dtype is not None:
+        fn_w, head_w = fn_w.to(compute_dtype), head_w.to(compute_dtype)
+    return _rmsnorm(x, fn_w) @ head_w
 
 
-def make_grad_fn(cfg: ModelConfig, *, packed=False, remat=False, attn_dropout=None):
+def make_grad_fn(cfg: ModelConfig, *, packed=False, remat=False, attn_dropout=None,
+                 compute_dtype=None):
     """``(params, tokens[, seed]) -> (loss, grads)``, or with ``packed``
     ``(params, tokens, segment_ids[, seed]) -> (loss, grads)``; the stand-in
     for ``_make_grad_map`` (forward.py:198) on one device.  ``seed`` (an
@@ -106,13 +129,15 @@ def make_grad_fn(cfg: ModelConfig, *, packed=False, remat=False, attn_dropout=No
     The loss is the mean next-token NLL (forward.py:289-300), or for packed
     rows the sum over valid next-token targets (same document, not padding)
     over their count (:260-284).  ``grads`` follow
-    :func:`~flashattention_tpu_torch.models.train.common.leaves` order.
+    :func:`~flashattention_tpu_torch.models.train.common.leaves` order, in
+    the parameters' dtypes; ``compute_dtype`` as in :func:`forward_logits`.
     """
     attn_dropout = check_dropout(attn_dropout)
 
     def loss_of(tree, tokens, segment_ids, seed):
         logits = forward_logits(tree, tokens, cfg, segment_ids=segment_ids, remat=remat,
-                                attn_dropout=attn_dropout, seed=seed)
+                                attn_dropout=attn_dropout, seed=seed,
+                                compute_dtype=compute_dtype)
         nll = token_nll(logits[:, :-1], tokens[:, 1:])
         if segment_ids is None:
             return nll.mean()

@@ -32,7 +32,9 @@ A leaf may be an 8-bit :class:`~flashattention_tpu_torch.ops.quant.QuantizedWeig
 the product and its per-column scales applied to the output, as the JAX
 model does.  With an int8/fp8 KV cache the K/V rows are quantized per row
 and head as they are written, and the scale pools ride beside the payload
-pools into the paged kernels.
+pools into the paged kernels.  Each entry point accepts the JAX package's
+``interpret`` keyword and ignores it (a CPU tensor runs the kernels' plain
+versions).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ __all__ = [
     "ModelConfig",
     "init_params",
     "params_from_jax",
+    "lora_from_jax",
     "prefill",
     "prefill_chunk",
     "prefill_chunk_batched",
@@ -203,6 +206,15 @@ def params_from_jax(tree, *, device=None) -> dict:
     }
 
 
+def lora_from_jax(lora, *, device=None) -> list:
+    """The JAX package's LoRA tree (a list, one entry per layer, of
+    ``{target: {"a", "b"}}``), given as numpy arrays, as the port's on
+    ``device``: the same structure, names and dtypes."""
+    dev = resolve_device(device)
+    return [{t: {k: to_torch(ab[k], dev) for k in ("a", "b")} for t, ab in adapters.items()}
+            for adapters in lora]
+
+
 def _rmsnorm(x, w, eps=1e-6):
     xf = x.float()
     norm = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
@@ -297,7 +309,7 @@ def _qkv(x, layer, cfg, positions):
 
 
 @torch.no_grad()
-def prefill(params, tokens: torch.Tensor, cfg: ModelConfig):
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, interpret=None):
     """Full-sequence forward.
 
     tokens: (B, S) integer tensor on the parameters' device.  Returns
@@ -362,6 +374,7 @@ def _layer_scales(k_scales, v_scales, li):
 def decode_step_impl(
     params, tokens, positions, k_pages, v_pages, lengths, page_indices,
     write_pages, write_slots, cfg: ModelConfig, k_scales=None, v_scales=None,
+    interpret=None,
 ):
     """Decode-step body: see :func:`decode_step`.
 
@@ -417,6 +430,7 @@ def decode_step(
     cfg: ModelConfig,
     k_scales: torch.Tensor | None = None,  # (L, P, KVH, ps) for 8-bit pools, in place
     v_scales: torch.Tensor | None = None,
+    interpret=None,
 ) -> torch.Tensor:
     """One decode token for a whole continuous batch over the paged cache.
 
@@ -444,6 +458,7 @@ def prefill_chunk_batched(
     k_scales: torch.Tensor | None = None,  # (L, P, KVH, ps) for 8-bit pools, in place
     v_scales: torch.Tensor | None = None,
     ctx_lens: torch.Tensor | None = None,  # (B,) int32 live context incl. this chunk
+    interpret=None,
 ) -> torch.Tensor:
     """One chunk step of chunked prefill for many requests.
 
@@ -509,6 +524,7 @@ def prefill_chunk(
     k_scales: torch.Tensor | None = None,  # (L, P, KVH, ps) for 8-bit pools, in place
     v_scales: torch.Tensor | None = None,
     ctx_len=None,  # live context tokens incl. this chunk (None: the whole table)
+    interpret=None,
 ) -> torch.Tensor:
     """One chunk of a chunked prefill for one request: :func:`prefill_chunk_batched`
     with a batch of one.  Returns logits ``(T, V)``."""
@@ -541,6 +557,7 @@ def decode_loop(
     temperature: float = 1.0,
     top_k: int | None = None,
     top_p: float | None = None,
+    interpret=None,
 ) -> torch.Tensor:
     """``n_steps`` full decode steps in one call, each feeding the token it
     produced back in: the JAX package's ``decode_loop`` (its ``fori_loop``
@@ -604,6 +621,7 @@ def verify_step(
     cfg: ModelConfig,
     k_scales: torch.Tensor | None = None,  # (L, P, KVH, ps) for 8-bit pools, in place
     v_scales: torch.Tensor | None = None,
+    interpret=None,
 ) -> torch.Tensor:
     """Speculative verification: score k fed tokens per request in one pass.
 

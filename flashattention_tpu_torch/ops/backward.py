@@ -63,6 +63,7 @@ from flashattention_tpu_torch.ops.flash import (
     head_chunks,
     kernel_form,
     kernel_options,
+    resolve_precision,
     visible,
     wrap_int32,
 )
@@ -78,14 +79,16 @@ __all__ = [
     "seg_tile_ranges",
 ]
 
-def _check_tpu_options(block_sizes=None, precision=None, interpret=None):
-    """The JAX signature's TPU tiling and MXU-precision knobs have no
-    counterpart: the CUDA kernels have their own tiles and compute in
-    float32."""
-    if block_sizes is not None or precision is not None or interpret is not None:
+def _check_tpu_options(dtype, block_sizes=None, precision=None, interpret=None):
+    """The JAX signature's TPU knobs: ``precision`` is validated as the JAX
+    package validates it (:func:`ops.flash.resolve_precision`; every mode
+    runs the exact float32 path), ``interpret`` is accepted and ignored,
+    and ``block_sizes`` has no counterpart: the CUDA kernels have their own
+    tiles."""
+    resolve_precision(precision, dtype)
+    if block_sizes is not None:
         raise ValueError(
-            "block_sizes, precision and interpret are TPU options; the CUDA "
-            "backward kernels have their own tiles and compute in float32"
+            "block_sizes is a TPU option; the CUDA backward kernels have their own tiles"
         )
 
 
@@ -112,7 +115,7 @@ def flash_attention_bwd(
     ``D = rowsum(O dO)`` is computed here in float32, outside the kernels
     (backward.py:707-709).  Returns ``(dq, dk, dv)`` in the input dtypes.
     """
-    _check_tpu_options(block_sizes, precision, interpret)
+    _check_tpu_options(q.dtype, block_sizes, precision, interpret)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"expected (BH, S, d) tensors, got {q.shape} {k.shape} {v.shape}")
     bh, rows, d = q.shape
@@ -511,17 +514,17 @@ def attention_vjp(
     ``q_seq_len`` folds GQA groups into the rows (q is ``(B*KVH, G*S, d)``
     against k/v ``(B*KVH, S_kv, d)``); the backward sums dK/dV over all G
     groups' rows.  ``block_sizes`` is the forward kernel's tile
-    (``BlockSizes()`` or None); ``precision`` and ``interpret`` are TPU
-    options and must be None.  ``window`` and ``logit_softcap`` go to the
-    forward (whose lse then holds the capped, windowed scores) and to the
-    backward.  ``dropout_rate`` / ``dropout_seed`` drop the softmax weights
+    (``BlockSizes()`` or None); ``precision`` is validated as in
+    :func:`ops.flash.flash_attention` and ``interpret`` is ignored.
+    ``window`` and ``logit_softcap`` go to the forward (whose lse then holds
+    the capped, windowed scores) and to the backward.  ``dropout_rate`` / ``dropout_seed`` drop the softmax weights
     with inverted scaling; both passes regenerate the keep bits from the
     seed, which is an int (a tensor is read once on the host, one sync).
     ``block_mask`` is a :class:`ops.flash.BlockMask` (not with causal,
     window or the GQA fold); the backward then runs the two-pass kernels.
     ``dropout_row_stride``: see :func:`ops.flash.flash_attention`.
     """
-    _check_tpu_options(None, precision, interpret)
+    _check_tpu_options(q.dtype, None, precision, interpret)
     opts = dict(causal=bool(causal), scale=float(scale), q_seq_len=q_seq_len, kv_len=kv_len,
                 q_offset=int(q_offset), window=window, logit_softcap=logit_softcap,
                 dropout_rate=check_dropout(dropout_rate), dropout_seed=wrap_int32(dropout_seed),

@@ -272,9 +272,11 @@ def paged_attention(
     k_scales_pages=None,
     v_scales_pages=None,
     scale: float = 1.0,
+    pages_per_compute_block: int = 1,
     draft_k: int = 1,
     window: int | None = None,
     logit_softcap: float | None = None,
+    interpret: bool | None = None,
 ) -> torch.Tensor:
     """Decode attention over a paged KV cache.
 
@@ -300,6 +302,10 @@ def paged_attention(
       window: the query at position ``pos`` (``len - 1``, or ``len - k +
         j``) sees columns ``c > pos - window``.
       logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
+      pages_per_compute_block, interpret: the JAX package's keywords,
+        accepted and ignored (its kernel ignores the first too; the CUDA
+        kernels choose their own tiles, and a CPU tensor runs the plain
+        version).
 
     Returns ``(B, KVH, G, d)`` in q's dtype.  The launch count is kept on
     this function (``.launches``; ``.launches_quantized`` and
@@ -514,6 +520,7 @@ def paged_prefill_attention_batched(
     block_q: int = 512,
     window: int | None = None,
     logit_softcap: float | None = None,
+    interpret: bool | None = None,
 ) -> torch.Tensor:
     """Chunked-prefill attention straight off the paged pool, many requests
     in one launch.
@@ -535,6 +542,8 @@ def paged_prefill_attention_batched(
       block_q: the JAX kernel's q tile, accepted for parity; the CUDA tile is
         the kernel's own (the tensor-core form's 128 rows; the scalar
         form's 32, 16 at d = 256).
+      interpret: the JAX package's Pallas interpreter switch, accepted and
+        ignored.
       window: row p sees columns ``c > pos - window``; no table entry of a
         page wholly before a tile's window is read.
       logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
@@ -644,6 +653,7 @@ def paged_prefill_attention(
     block_q: int = 512,
     window: int | None = None,
     logit_softcap: float | None = None,
+    interpret: bool | None = None,
 ) -> torch.Tensor:
     """Chunked-prefill attention for one request: q ``(KVH, R, d)``,
     page_indices ``(pps,)``, ctx_len an int or a one-element int32 tensor.

@@ -20,9 +20,12 @@ CPU runs the route the card takes: the kernels are built for head_dims 16,
 them (80 and 96 to 128, 48 to 64; 8-bit payloads with zeros, their scales
 as they are), with the caller's scale; zero columns add nothing to Q K^T or
 to O, whose pad columns are sliced off (and their gradients dropped).  A
-head_dim above 256 is refused by name.  ``implementation="xla"`` keeps the
-JAX package's name for its oracle path and runs the plain reference
-(:mod:`ops.reference`) instead of the kernel.
+head_dim above 256 is refused by name.  ``implementation="pallas"`` (the
+default, as in the JAX package) and its alias ``"cuda"`` run the kernel;
+``implementation="xla"`` keeps the JAX package's name for its oracle path
+and runs the plain reference (:mod:`ops.reference`) instead.  The JAX
+keywords ``precision`` (validated as the JAX package does; every mode runs
+the exact float32 path) and ``interpret`` (ignored) are accepted.
 """
 
 from __future__ import annotations
@@ -56,7 +59,9 @@ def attention(
     scale: float = 1.0,
     block_sizes: BlockSizes | None = None,
     save_residuals: bool = False,
-    implementation: str = "cuda",
+    implementation: str = "pallas",
+    precision: str | None = None,
+    interpret: bool | None = None,
     kv_len: int | None = None,
     q_offset: int | None = None,
     q_segment_ids=None,
@@ -77,8 +82,17 @@ def attention(
         attention.
       causal: lower-triangular masking, queries aligned to the end of the KV
         sequence (``q_offset`` defaults to ``S_kv - S_q``).
-      implementation: ``"cuda"`` (the kernel; plain PyTorch on CPU tensors)
-        or ``"xla"`` (the dense oracle, the JAX package's name for it).
+      implementation: ``"pallas"``, the JAX package's default and name for
+        its kernel, or its alias ``"cuda"``: the hand-written kernel (plain
+        PyTorch on CPU tensors); or ``"xla"`` (the dense oracle, the JAX
+        package's name for it).
+      precision: the JAX package's matmul precision mode for float32 inputs
+        (``"bf16"``, ``"bf16_3x"``, ``"float32"``, None or ``"auto"``),
+        validated on the kernel route as the JAX package does
+        (:func:`ops.flash.resolve_precision`); every mode runs the kernels'
+        exact float32 path.
+      interpret: the JAX package's Pallas interpreter switch, accepted and
+        ignored.
       kv_len: live KV length; columns at or past it are masked.
       save_residuals: also return the softmax stats ``(l, m)`` shaped like
         ``q[..., 0]``.
@@ -188,7 +202,7 @@ def attention(
             q3, k3, v3, causal=causal, scale=scale, kv_len=kv_len, q_offset=q_offset,
             window=window, logit_softcap=logit_softcap,
         )
-    elif implementation == "cuda":
+    elif implementation in ("pallas", "cuda"):
         d_pad = padded_head_dim(d)
         if d_pad != d:
             q3, k3, v3 = (_pad_head_dim(x, d_pad) for x in (q3, k3, v3))
@@ -207,7 +221,7 @@ def attention(
             )
         if differentiable and not save_residuals:
             o = attention_vjp(
-                q3, k3, v3, causal, scale, block_sizes, None, None, q_seq_len,
+                q3, k3, v3, causal, scale, block_sizes, precision, interpret, q_seq_len,
                 window, logit_softcap, q_segment_ids=seg_q3, kv_segment_ids=seg_kv3,
                 kv_len=kv_len, q_offset=q_offset, **extra,
             )
@@ -218,7 +232,7 @@ def attention(
                 q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
                 block_sizes=block_sizes, q_segment_ids=seg_q3, kv_segment_ids=seg_kv3,
                 window=window, logit_softcap=logit_softcap, k_scales=ks3, v_scales=vs3,
-                **extra,
+                precision=precision, interpret=interpret, **extra,
             )
             o, l, m = out if save_residuals else (out, None, None)
         o = o[..., :d]

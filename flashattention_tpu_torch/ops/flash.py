@@ -63,12 +63,14 @@ from flashattention_tpu_torch.ops.reference import (
 __all__ = [
     "BlockMask",
     "BlockSizes",
+    "PRECISIONS",
     "dropout_keep_mask",
     "flash_attention",
     "flash_attention_naive",
     "flash_attention_naive_plain",
     "flash_attention_plain",
     "kernel_form",
+    "resolve_precision",
     "scalar_forms",
 ]
 
@@ -84,6 +86,27 @@ MIN_BLOCK = 128
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+# The JAX package's matmul precision modes for float32 inputs (flash.py:116).
+PRECISIONS = ("bf16", "bf16_3x", "float32")
+
+
+def resolve_precision(precision: str | None, dtype) -> str:
+    """The mode ``precision`` names for inputs of ``dtype``, validated as
+    the JAX ``resolve_precision`` (flash.py:119) does: None or ``"auto"``
+    is ``"bf16_3x"`` for float32 and ``"bf16"`` otherwise, any other value
+    outside :data:`PRECISIONS` raises ``ValueError``, and inputs below
+    float32 always resolve to ``"bf16"``.  The CUDA kernels and their plain
+    versions compute float32 inputs exactly in float32 whatever the mode,
+    which is within every mode's error of the JAX kernels."""
+    if precision in (None, "auto"):
+        return "bf16_3x" if dtype == torch.float32 else "bf16"
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if dtype != torch.float32:
+        return "bf16"
+    return precision
 
 
 # The tensor-core forms (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu,
@@ -580,6 +603,8 @@ def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
+    k_scales=None,
+    v_scales=None,
     *,
     causal: bool = False,
     scale: float = 1.0,
@@ -594,10 +619,10 @@ def flash_attention(
     dropout_seed=0,
     q_segment_ids=None,
     kv_segment_ids=None,
-    k_scales=None,
-    v_scales=None,
     block_mask: BlockMask | None = None,
     dropout_row_stride: int | None = None,
+    precision: str | None = None,
+    interpret: bool | None = None,
 ):
     """Fused attention forward ``O = softmax(scale * Q K^T) V``.
 
@@ -628,9 +653,14 @@ def flash_attention(
         ``(r // q_seq_len) * dropout_row_stride + r % q_seq_len``; default
         ``q_seq_len`` (:func:`ops.dispatch.attention` passes the JAX
         package's padded segment length).
+      precision: the JAX package's mode, validated by
+        :func:`resolve_precision`; every mode runs the exact float32 path.
+      interpret: the JAX package's Pallas interpreter switch, accepted and
+        ignored (a CPU tensor runs the plain version).
 
     Returns ``o`` like q, or ``(o, l, m)``.
     """
+    resolve_precision(precision, q.dtype)
     dropout_rate = check_dropout(dropout_rate)
     check_window(window, logit_softcap, causal)
     if block_sizes is not None and block_sizes != BlockSizes():
@@ -870,9 +900,11 @@ def flash_attention_naive(
     block_q: int = 128,
     kv_len: int | None = None,
     q_offset: int = 0,
+    interpret: bool | None = None,
 ) -> torch.Tensor:
     """Naive attention: each query row's dense softmax over the whole KV
-    stripe, float32 throughout.
+    stripe, float32 throughout.  ``interpret``, the JAX package's Pallas
+    interpreter switch, is accepted and ignored.
 
     Args:
       q: ``(BH, S_q, d)``; k, v: ``(BH, S_kv, d)``, one dtype, contiguous.

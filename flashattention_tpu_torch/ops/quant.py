@@ -148,21 +148,25 @@ def attention_quantized(
     kv_len: int | None = None,
     q_offset: int = 0,
     save_residuals: bool = False,
+    precision: str | None = None,
     q_seq_len: int | None = None,
+    interpret: bool | None = None,
     window: int | None = None,
     logit_softcap: float | None = None,
 ):
     """Flash attention of q ``(BH, S_q, d)`` over a quantized K/V pair, with
     the dequantization fused into the kernel.  Any S_q and S_kv; with
     ``q_seq_len``, q holds ``S_q // q_seq_len`` GQA segments of that many
-    rows (any length).  Returns ``o`` like q, or ``(o, l, m)``."""
+    rows (any length).  ``precision`` and ``interpret`` as in
+    :func:`ops.flash.flash_attention`.  Returns ``o`` like q, or
+    ``(o, l, m)``."""
     if q_seq_len is not None and q.shape[1] % q_seq_len:
         raise ValueError(f"q_seq_len ({q_seq_len}) must divide s_q ({q.shape[1]})")
     return flash_attention(
         q, k.payload, v.payload, k_scales=k.scales, v_scales=v.scales, causal=causal,
         scale=scale, block_sizes=block_sizes, kv_len=kv_len, q_offset=q_offset,
         save_residuals=save_residuals, q_seq_len=q_seq_len, window=window,
-        logit_softcap=logit_softcap,
+        logit_softcap=logit_softcap, precision=precision, interpret=interpret,
     )
 
 

@@ -20,7 +20,8 @@ With an int8/fp8 cache (``CacheConfig(dtype="int8" | "fp8")``) the chunk and
 decode steps quantize the K/V rows they write and attend on the kernels'
 8-bit forms; whole-prompt prefill attends to the unquantized K/V and the
 cache quantizes them as it appends them, as in the JAX engine.  Parameters
-from ``ops.quant.quantize_weights`` serve unchanged.
+from ``ops.quant.quantize_weights`` serve unchanged.  The constructor takes
+the JAX engine's ``interpret`` keyword and ignores it.
 
 Multi-token steps: ``run(multi_step=n)`` decodes n tokens for the whole
 batch in one call (``transformer.decode_loop``) whenever no request waits,
@@ -144,6 +145,7 @@ class Engine:
         cache_cfg: CacheConfig,
         engine_cfg: EngineConfig = EngineConfig(),
         *,
+        interpret: bool | None = None,
         device=None,
         seed: int = 0,
     ):
@@ -296,7 +298,7 @@ class Engine:
         """An engine rebuilt from :meth:`state_dict` (fresh pools):
         unfinished requests re-queue, their whole context (prompt and
         output so far) re-prefilled on admission.  ``kw`` go to the
-        constructor (``device``, ``seed``)."""
+        constructor (``interpret``, ``device``, ``seed``)."""
         eng = cls(params, model_cfg, cache_cfg, engine_cfg or EngineConfig(), **kw)
         eng._next_id = state["next_id"]
         if "sample_gen" in state:

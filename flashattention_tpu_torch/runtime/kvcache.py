@@ -116,6 +116,12 @@ class PagedKVCache:
     def num_free_pages(self) -> int:
         return self.allocator.num_free() + len(self._cached_free)
 
+    def can_append(self, seq_id: int, num_tokens: int) -> bool:
+        """Whether ``num_tokens`` more tokens of ``seq_id`` (a new sequence
+        if it has none) fit in the free pages, parked prefix pages counted
+        as free (kvcache.py:158)."""
+        return self._pages_needed(seq_id, num_tokens) <= self.num_free_pages()
+
     def _pages_needed(self, seq_id: int, num_tokens: int) -> int:
         cur = self._seqs[seq_id].length if seq_id in self._seqs else 0
         ps = self.config.page_size
@@ -302,3 +308,12 @@ class PagedKVCache:
             torch.tensor(lengths, dtype=torch.int32, device=self.device),
             torch.tensor(table, dtype=torch.int32, device=self.device),
         )
+
+    def layer_pages(self, layer: int):
+        """``(k_pages, v_pages, k_scales, v_scales)`` of one layer, as
+        ``ops.decode.paged_attention`` takes them (kvcache.py:397): views of
+        the pools, the scales None for an unquantized cache."""
+        if self.config.quantized:
+            return (self.k_pages[layer], self.v_pages[layer],
+                    self.k_scales[layer], self.v_scales[layer])
+        return self.k_pages[layer], self.v_pages[layer], None, None
