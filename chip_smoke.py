@@ -284,6 +284,21 @@ Phases, each of which must pass (any failure exits non-zero):
                step, the masters float32 and moving, the tensor-core forms'
                launches; train_mixed_remat_dropout - remat with dropout 0.1,
                finite.
+12. selftest  - right after the build, ``utils/selftest.py``'s 21 checks
+               (the JAX battery's names, shapes and tolerances) on the
+               card's kernels, each asserting that its kernel launched;
+   probes    - every H100 probe mode of ``ops/probes.py`` (``probe_mma``'s
+               modes, ``probe_int8``'s flavors, the stream and the page
+               walk, ``probe_d128``'s stages) at a small shape against its
+               plain version (PROBE_TOL of the output's magnitude in bf16,
+               STREAM_RTOL for the float32 stream, the page walk's words
+               equal), then each timed at its TPU probe's own shape beside
+               its plain version and, where one exists, SDPA, with
+               flash_fwd_tc beside the forward probes (the counted run);
+   benches   - every CLI of ``flashattention_tpu_torch/cli/`` in this
+               process with its defaults (``bench_serving`` at the
+               published 32 layers); each must exit 0 and each of its rows
+               carry the card's ``nvidia-smi`` line.
 
 The serve and train phases' launch counts include the tensor-core forms':
 every bf16 flash forward, fused backward and two-pass pair launch at their
@@ -428,7 +443,8 @@ _MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8", "13__nv_fp
 _FLAGS = {"paged_decode_kernel": ("window_cap", "draft"), "flash_fwd_kernel": ("extra",),
           "flash_fwd_tc_kernel": ("window_cap", "extra", "paged"),
           "flash_bwd_tc_kernel": ("window_cap", "extra", "pair"),
-          "flash_bwd_tc_d256_kernel": ("window_cap", "extra", "pair")}
+          "flash_bwd_tc_d256_kernel": ("window_cap", "extra", "pair"),
+          "probe_kernel": ("vt", "kt")}
 
 
 def _ptxas(log):
@@ -3556,37 +3572,21 @@ WTRAIN_MODELS = {
 WTRAIN_DOCS = (5000, 2100, 1000)
 
 
-def _matmul_params(cfg, experts=None):
-    """bench_train.py's count: matmul parameters, lm_head in, embedding out.
-    A MoE layer's MLP counts ``experts`` experts (default: all of them, as
-    the dense MoE computes every expert on every token) and its router."""
-    if cfg.num_experts is None:
-        mlp = 3 * cfg.d_model * cfg.intermediate
-    else:
-        mlp = (3 * cfg.d_model * cfg.intermediate * (experts or cfg.num_experts)
-               + cfg.d_model * cfg.num_experts)
-    per_layer = (
-        cfg.d_model * cfg.num_q_heads * cfg.head_dim
-        + 2 * cfg.d_model * cfg.num_kv_heads * cfg.head_dim
-        + cfg.num_q_heads * cfg.head_dim * cfg.d_model
-        + mlp
-    )
-    return cfg.num_layers * per_layer + cfg.d_model * cfg.vocab_size
-
-
 def _train_rec(phase, cfg, benchit, card, wall, steps, losses, launches, want, attn_fwd, extra,
                model=TRAIN_MODEL, batch=TRAIN_B, seq=TRAIN_S, flops=None):
     """bench_train.py's accounting: 6 N_matmul tokens + 3.5 x attention
     forward, unless the step's ``flops`` are given."""
+    from flashattention_tpu_torch.cli.bench_train import matmul_params
+
     _tc_expect(want, cfg)
     tokens = batch * seq
     if flops is None:
-        flops = 6 * _matmul_params(cfg) * tokens + 3.5 * attn_fwd
+        flops = 6 * matmul_params(cfg, cfg.num_experts) * tokens + 3.5 * attn_fwd
     tflops = flops * steps / wall / 1e12
     finite = all(np.isfinite(x) for x in losses)
     if cfg.num_experts is not None:  # the top-k experts' share: a routed MoE's work
         extra = {**extra, "routed_tflop_per_step": (
-            6 * _matmul_params(cfg, cfg.experts_per_token) * tokens + 3.5 * attn_fwd) / 1e12}
+            6 * matmul_params(cfg, cfg.experts_per_token) * tokens + 3.5 * attn_fwd) / 1e12}
     return {
         "phase": phase, "model": model, "dtype": cfg.dtype,
         "batch": batch, "seq": seq, "steps": steps, **extra, "losses": losses,
@@ -3825,8 +3825,10 @@ def _lora_flops(cfg, batch, seq, targets, attn_fwd):
     tokens), the weight gradients of the targets alone (the base takes
     none), and attention 4.5 x its forward (forward, recompute, backward
     2.5); the adapters' own products (rank 8) are left out."""
+    from flashattention_tpu_torch.cli.bench_train import matmul_params
+
     tokens = batch * seq
-    n_all = _matmul_params(cfg)
+    n_all = matmul_params(cfg)
     n_layers = n_all - cfg.d_model * cfg.vocab_size
     widths = {"wq": cfg.num_q_heads * cfg.head_dim, "wk": cfg.num_kv_heads * cfg.head_dim,
               "wv": cfg.num_kv_heads * cfg.head_dim}
@@ -4375,6 +4377,535 @@ def _extra_entry(rec, paths, counter, keys, less=None):
             "launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
+# ------------------------------------------------------------------ probes
+# B8: every H100 probe (ops/probes.py) held against its plain version at a
+# small shape and over inputs whose output is P's second bf16 term alone,
+# then timed at its own TPU probe's shape beside its plain version and the
+# library call, its output there held against the plain version's too
+# (torch_tools/probe_*.py print these).
+PROBE_TOL = 2e-2  # of the output's largest magnitude: bf16 outputs
+STREAM_RTOL = 1e-5  # the float32 stream's, relative
+PROBE_CHECK = dict(bh=4, s=512)
+# probe_mma.py's shape (row 1's, causal) at d = 128; probe_softmax.py's at d = 64.
+MMA_SHAPES = {128: dict(bh=128, s=1024, causal=True, modes=(0, 1, 2)),
+              64: dict(bh=16, s=8192, causal=False, modes=(0, 1, 2, 3, 4, 5))}
+# probe_int8.py's: name -> (BH, rows, S_kv, causal, scale)
+INT8_SHAPES = {"decode_tpu_probe": (8, 8, 16 * 256, False, 1.0),
+               "prefill_mha": (4 * 32, 512, 2048, True, 128**-0.5)}
+# probe_stream.py's: hbm_floor's tensors, and the page walks' decode shapes:
+# name -> (KV heads, G, d, pages per request, lengths, window, softcap)
+HBM_FLOOR = dict(bh=128, s=1024, d=64)
+WALKS = {
+    "gemma2_window_check": (8, 2, 256, 24, [1, 4096, 4097, 6000], 4096, 50.0),
+    "gemma2_serve_profile": (8, 2, 256, 24, [1537, 1539, 1541, 1543], 4096, 50.0),
+    "llama_mha": (32, 1, 128, 8, [1, 256, 257, 1088], None, None),
+}
+D128_SHAPE = dict(bh=128, s=2048, d=128)  # the d = 128 probes' (Llama-7B's layer), non-causal
+# torch_tools/probe_d128.py's rows by subcommand: (row, source, mode); source
+# "d128" a probe_d128.cu mode, "mma" a probe_mma.cu mode at d = 128, "ones"
+# the probe_d128.cu mode over an all-ones V.
+PROBE_D128_ROWS = {
+    "pipeline": [("skeleton", "d128", "skeleton"), ("exp", "d128", "exp"),
+                 ("maxexp", "d128", "maxexp"), ("full", "mma", 0), ("split2", "mma", 4)],
+    "b": [("skeleton", "d128", "skeleton"), ("skeleton2", "d128", "skeleton"),
+          ("pcast", "d128", "pcast"), ("qk_heavy", "mma", 1), ("pv_heavy", "mma", 2),
+          ("bq64", "d128", "bq64"), ("bq192", "d128", "bq192"), ("bh2", "d128", "bh2"),
+          ("pcast_bq192", "d128", "pcast_bq192"), ("pcast_bh2", "d128", "pcast_bh2")],
+    "c": [("base", "d128", "skeleton"), ("pv_split2", "d128", "pv_split2"),
+          ("pv_split4", "d128", "pv_split4"), ("vt", "d128", "vt"),
+          ("vt_split2", "d128", "vt_split2"), ("qk_nn", "d128", "qk_nn"),
+          ("ones", "ones", "skeleton")],
+    "f": [("bq128_split1", "mma", 0), ("bq128_split1_probe", "d128", "full_bq128_split1"),
+          ("bq128_split2", "d128", "full_bq128_split2"),
+          ("bq192_split1", "d128", "full_bq192_split1"),
+          ("bq192_split2", "d128", "full_bq192_split2")],
+}
+
+
+def _rel(got, want) -> float:
+    return err(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def _probe_rec(report, check, got, want, tol, norm=None, **extra):
+    """A probe check's record: the largest error over the largest magnitude
+    of the plain version's output (or over ``norm``) within ``tol``."""
+    e = err(got, want)
+    rel = _rel(got, want) if norm is None else e / norm
+    rec = {"check": f"probe/{check}", "max_abs_err": e, "rel_err": rel, "tol": tol, **extra}
+    rec["ok"] = rec["rel_err"] <= tol and rec.get("ok", True)
+    report["checks"].append(rec)
+    return rec
+
+
+def _mma_rec(report, check, mode, got, want):
+    """``probe_mma``'s ``(o, l, m)`` against its plain version's: o within
+    PROBE_TOL, l and m within STATS_RTOL (mode 2, no softmax: l all 0 and m
+    all -inf, exactly)."""
+    (o, l, m), (wo, wl, wm) = got, want
+    if mode == 2:
+        stats = dict(ok=bool(torch.equal(l, wl)) and bool(torch.equal(m, wm)))
+    else:
+        stats = dict(l_rel_err=_rel(l, wl), m_rel_err=_rel(m, wm), stats_rtol=STATS_RTOL)
+        stats["ok"] = stats["l_rel_err"] <= STATS_RTOL and stats["m_rel_err"] <= STATS_RTOL
+    return _probe_rec(report, check, o, wo, PROBE_TOL, **stats)
+
+
+def _walk_rec(report, check, got, want):
+    """The page walk's folded words against its plain version's, bit for bit."""
+    return _probe_rec(report, check, got, want, 0.0, ok=bool(torch.equal(got, want)))
+
+
+def _layouts(cfg, k, v):
+    """``k, v`` as a probe_d128 mode stores them (``kt``, ``vt``: (BH, d, S))."""
+    return (k.transpose(1, 2).contiguous() if cfg.kt else k,
+            v.transpose(1, 2).contiguous() if cfg.vt else v)
+
+
+def _bf16_qkv(gen, bh, s, d):
+    return tuple(torch.randn((bh, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(3))
+
+
+def _walk_case(decode, quant, gen, kvh, d, pps, lens, form, page=PAGE_SIZE):
+    """Pools, table and lengths of a page walk, and its split count."""
+    b = len(lens)
+    pages = b * pps + 4
+    pools = [torch.randn((pages, kvh, page, d), generator=gen, device="cuda") for _ in range(2)]
+    if form:
+        (kp, ks), (vp, vs) = (quant.quantize_rows(x, form) for x in pools)
+        sc = dict(k_scales_pages=ks, v_scales_pages=vs)
+    else:
+        kp, vp = (x.to(torch.bfloat16) for x in pools)
+        sc = {}
+    perm = torch.randperm(pages, generator=gen, device="cuda")
+    table = perm[: b * pps].reshape(b, pps).to(torch.int32).contiguous()
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n, per = decode.decode_splits(b, kvh, pps, page, sms=decode._sm_count(kp.device))
+    return kp, vp, sc, table, lengths, n, per
+
+
+def lo_term_checks(probes, gen, report):
+    """Every probe mode that feeds P (or S) to PV as bf16 terms, over
+    ``probes.lo_term_qkv``'s inputs at scale 1, where the first terms cancel
+    pair by pair: a mode that dropped the second term would give 0 (or
+    whole bf16 steps) where its plain version gives the second terms' sum.
+    Within PROBE_TOL of the plain version's largest magnitude; the one-term
+    modes (plain output all 0) of the two-term skeleton's.  Returns the
+    records."""
+    recs = []
+    bh, s = PROBE_CHECK["bh"], PROBE_CHECK["s"]
+    for mode, (_, dims, _) in probes.MMA_MODES.items():
+        for d in dims if mode not in (1, 2) else ():  # 1 and 2 take no P into PV
+            q, k, v = probes.lo_term_qkv(bh, s, d, generator=gen, device="cuda")
+            recs.append(_mma_rec(report, f"mma/lo_term/mode{mode}/d{d}", mode,
+                                 probes.probe_mma(mode, q, k, v, scale=1.0),
+                                 probes.probe_mma_plain(mode, q, k, v, scale=1.0)))
+    q, k, v = probes.lo_term_qkv(bh, s, 128, generator=gen, device="cuda")
+    two = float(probes.probe_d128_plain("skeleton", q, k, v, scale=1.0).float().abs().max())
+    for name, cfg in probes.D128_MODES.items():
+        kk, vv = _layouts(cfg, k, v)
+        recs.append(_probe_rec(report, f"d128/lo_term/{name}",
+                               probes.probe_d128(name, q, kk, vv, scale=1.0),
+                               probes.probe_d128_plain(name, q, kk, vv, scale=1.0), PROBE_TOL,
+                               norm=two if cfg.terms == 1 else None))
+    return recs
+
+
+def probe_checks(probes, decode, quant, gen, report):
+    """Every probe mode once at a small shape against its plain version:
+    outputs within PROBE_TOL of their largest magnitude (bf16; an output
+    the plain version has all zero must be all zero), l and m within
+    STATS_RTOL, the float32 stream within STREAM_RTOL, the page walk's
+    folded words equal; then :func:`lo_term_checks`.  Returns the records."""
+    recs = []
+    bh, s = PROBE_CHECK["bh"], PROBE_CHECK["s"]
+    for d, causal in ((128, True), (64, False)):
+        q, k, v = _bf16_qkv(gen, bh, s, d)
+        for mode, (_, dims, _) in probes.MMA_MODES.items():
+            if d not in dims:
+                continue
+            recs.append(_mma_rec(report, f"mma/mode{mode}/d{d}{'/causal' if causal else ''}",
+                                 mode, probes.probe_mma(mode, q, k, v, causal=causal),
+                                 probes.probe_mma_plain(mode, q, k, v, causal=causal,
+                                                        scale=d**-0.5)))
+    q = torch.randn((bh, 256, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    kb, vb = (torch.randn((bh, 4 * 256, 128), generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    k8, v8 = (torch.randint(-127, 127, (bh, 4 * 256, 128), generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (0.005 + 0.015 * torch.rand((bh, 4 * 256), generator=gen, device="cuda")
+              for _ in range(2))
+    kw = dict(q_offset=3 * 256, causal=True, scale=128**-0.5)
+    for fl in probes.INT8_FLAVORS:
+        k, v = (kb, vb) if fl == "bf16" else (k8, v8)
+        recs.append(_probe_rec(report, f"int8/{fl}", probes.probe_int8(fl, q, k, v, ks, vs, **kw),
+                               probes.probe_int8_plain(fl, q, k, v, ks, vs, **kw), PROBE_TOL))
+    a, b_, c = (torch.randn((bh, s, 64), generator=gen, device="cuda") for _ in range(3))
+    recs.append(_probe_rec(report, "stream/hbm_floor", probes.probe_stream_sum(a, b_, c),
+                           probes.probe_stream_sum_plain(a, b_, c), STREAM_RTOL))
+    for form, d in ((None, 128), ("fp8", 256)):
+        for window in (None, 100):
+            kp, vp, _, table, lengths, n, per = _walk_case(
+                decode, quant, gen, 2, d, 6, [1, 130, 300], form, page=64)
+            kw = dict(splits=n, tiles_per_split=per, window=window)
+            recs.append(_walk_rec(report, f"stream/page_walk/{form or 'bf16'}/window{window}",
+                                  probes.probe_page_walk(kp, vp, lengths, table, **kw),
+                                  probes.probe_page_walk_plain(kp, vp, lengths, table, **kw)))
+    q, k, v = _bf16_qkv(gen, bh, s, 128)
+    for name, cfg in probes.D128_MODES.items():
+        kk, vv = _layouts(cfg, k, v)
+        recs.append(_probe_rec(report, f"d128/{name}", probes.probe_d128(name, q, kk, vv),
+                               probes.probe_d128_plain(name, q, kk, vv, scale=128**-0.5),
+                               PROBE_TOL))
+    ones = torch.ones_like(v)
+    recs.append(_probe_rec(report, "d128/ones", probes.probe_d128("skeleton", q, k, ones),
+                           probes.probe_d128_plain("skeleton", q, k, ones, scale=128**-0.5),
+                           PROBE_TOL))
+    recs += lo_term_checks(probes, gen, report)
+    emit({"phase": "probe_checks", "checks": len(recs), "ok": all(r["ok"] for r in recs),
+          "failed": [r["check"] for r in recs if not r["ok"]]})
+    return recs
+
+
+def _probe_row(benchit, card, run, plain, hold, *, nbytes, flops, iters, flush=0,
+               dtype="bfloat16", plain_iters=3, want=None):
+    """A probe's time and rate, its bound, and its plain version's time
+    (``plain`` None: the time is another row's); the probe's output at
+    these inputs held against the plain version's (``want``, else
+    ``plain()``) by ``hold(got, want)``, which makes the check record."""
+    rec = hold(run(), plain() if want is None else want)
+    ms = benchit.cuda_time_ms(run, warmup=3, iters=iters, flush_bytes=flush)
+    row = {"ms": ms, "tflop_s": flops / ms / 1e9 if flops else None,
+           **benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dtype),
+           "check": rec["check"], "rel_err": rec["rel_err"], "check_ok": rec["ok"]}
+    if plain is not None:
+        row["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=plain_iters)
+    return row
+
+
+def _sdpa_ms(benchit, q, k, v, causal, scale, flush=0):
+    f = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (x[None] for x in (q, k, v))
+    return benchit.cuda_time_ms(lambda: f(q4, k4, v4, is_causal=causal, scale=scale),
+                                warmup=3, iters=20, flush_bytes=flush)
+
+
+def time_probe_mma(probes, flash, benchit, gen, card, report, d, iters=20):
+    """``probe_mma``'s modes at its own shape for head_dim ``d``
+    (MMA_SHAPES), each held against its plain version there, beside
+    flash_fwd_tc and SDPA on the same inputs."""
+    c = MMA_SHAPES[d]
+    bh, s, causal = c["bh"], c["s"], c["causal"]
+    q, k, v = _bf16_qkv(gen, bh, s, d)
+    pairs = bh * s * (s + 1) // 2 if causal else bh * s * s
+    out = {"shape": f"BH={bh} S={s} d={d} {'causal' if causal else 'non-causal'} bf16",
+           "live_pairs": pairs, "modes": {}}
+    sdpa = _sdpa_ms(benchit, q, k, v, causal, d**-0.5)
+    for mode in c["modes"]:
+        row = _probe_row(
+            benchit, card, lambda mode=mode: probes.probe_mma(mode, q, k, v, causal=causal),
+            lambda mode=mode: probes.probe_mma_plain(mode, q, k, v, causal=causal, scale=d**-0.5),
+            lambda got, want, mode=mode: _mma_rec(report, f"mma/timed/d{d}/mode{mode}", mode,
+                                                  got, want),
+            nbytes=4 * q.numel() * 2, flops=(2 if mode in (1, 2) else 4) * d * pairs, iters=iters)
+        out["modes"][str(mode)] = {"what": probes.MMA_MODES[mode][0],
+                                   "replaces": probes.MMA_MODES[mode][2], **row,
+                                   "library_ms": sdpa}
+    out["flash_fwd_tc_ms"] = benchit.cuda_time_ms(
+        lambda: flash.flash_attention(q, k, v, causal=causal, scale=d**-0.5), warmup=3,
+        iters=iters)
+    out["sdpa_ms"] = sdpa
+    return out
+
+
+def time_probe_int8(probes, benchit, gen, card, report, iters=20):
+    """``probe_int8``'s three flavors at probe_int8.py's two shapes, each
+    held against its plain version there, the L2 flushed before every call;
+    SDPA over the K/V dequantized to bf16 as the library call."""
+    out = {}
+    for shape, (bh, rows, s_kv, causal, scale) in INT8_SHAPES.items():
+        q = torch.randn((bh, rows, 128), generator=gen, device="cuda").to(torch.bfloat16)
+        kb, vb = (torch.randn((bh, s_kv, 128), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        k8, v8 = (torch.randint(-127, 127, (bh, s_kv, 128), generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        sc = torch.full((bh, s_kv), 0.01, dtype=torch.float32, device="cuda")
+        kw = dict(q_offset=s_kv - rows if causal else 0, causal=causal, scale=scale)
+        pairs = bh * (rows * s_kv if not causal else sum(
+            min(s_kv, kw["q_offset"] + r + 1) for r in range(rows)))
+        kd, vd = ((x.float() * 0.01).to(torch.bfloat16) for x in (k8, v8))
+        mask = None  # SDPA's causal mask is anchored at row 0: pass the rows' limits
+        if causal:
+            mask = (torch.arange(s_kv, device="cuda")[None, :]
+                    <= kw["q_offset"] + torch.arange(rows, device="cuda")[:, None])
+        f = torch.nn.functional.scaled_dot_product_attention
+        sdpa = benchit.cuda_time_ms(lambda: f(q[None], kd[None], vd[None], attn_mask=mask,
+                                              scale=scale),
+                                    warmup=3, iters=iters, flush_bytes=256 << 20)
+        rec = {"shape": f"BH={bh} rows={rows} S_kv={s_kv} d=128 "
+                        f"{'causal' if causal else 'non-causal'} scale={scale:.6g}",
+               "live_pairs": pairs, "flavors": {}, "sdpa_dequantized_ms": sdpa}
+        for fl in probes.INT8_FLAVORS:
+            k, v = (kb, vb) if fl == "bf16" else (k8, v8)
+            kv_bytes = 2 * bh * s_kv * (128 * k.element_size() + (0 if fl == "bf16" else 4))
+            row = _probe_row(
+                benchit, card, lambda fl=fl, k=k, v=v: probes.probe_int8(fl, q, k, v, sc, sc, **kw),
+                lambda fl=fl, k=k, v=v: probes.probe_int8_plain(fl, q, k, v, sc, sc, **kw),
+                lambda got, want, fl=fl: _probe_rec(report, f"int8/timed/{shape}/{fl}", got, want,
+                                                    PROBE_TOL),
+                nbytes=kv_bytes + 4 * q.numel(), flops=4 * 128 * pairs, iters=iters,
+                flush=256 << 20, dtype="int8" if fl == "int8mma" else "bfloat16")
+            rec["flavors"][fl] = {**row, "kv_bytes": kv_bytes,
+                                  "gb_s_equiv": kv_bytes / (row["ms"] * 1e-3) / 1e9,
+                                  "library_ms": sdpa}
+        t = {fl: rec["flavors"][fl]["ms"] for fl in probes.INT8_FLAVORS}
+        rec["int8cvt_over_bf16"] = t["int8cvt"] / t["bf16"]
+        rec["int8mma_over_int8cvt"] = t["int8mma"] / t["int8cvt"]
+        out[shape] = rec
+        del q, kb, vb, k8, v8, kd, vd
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_probe_stream(probes, decode, quant, benchit, gen, card, report, iters=20):
+    """``hbm_floor`` at the TPU probe's shape and the page walk beside
+    ``paged_attention`` (the tensor-core form) at the decode shapes of
+    WALKS, each held against its plain version there (the walk bit for
+    bit), the L2 flushed before every call."""
+    c = HBM_FLOOR
+    a, b_, cc = (torch.randn((c["bh"], c["s"], c["d"]), generator=gen, device="cuda")
+                 for _ in range(3))
+    nbytes = 4 * a.numel() * 4
+    floor = _probe_row(benchit, card, lambda: probes.probe_stream_sum(a, b_, cc),
+                       lambda: probes.probe_stream_sum_plain(a, b_, cc),
+                       lambda got, want: _probe_rec(report, "stream/timed/hbm_floor", got, want,
+                                                    STREAM_RTOL),
+                       nbytes=nbytes, flops=0, iters=iters, flush=256 << 20, dtype="float32")
+    out = {"hbm_floor": {"shape": f"BH={c['bh']} S={c['s']} d={c['d']} float32, o = q + k + v",
+                         **floor, "bytes": nbytes, "gb_s": nbytes / (floor["ms"] * 1e-3) / 1e9,
+                         "library_ms": None},
+           "page_walk": {}}
+    del a, b_, cc
+    for shape, (kvh, g, d, pps, lens, window, cap) in WALKS.items():
+        for form in (None, "fp8") if shape.startswith("gemma2") else (None,):
+            kp, vp, sc, table, lengths, n, per = _walk_case(decode, quant, gen, kvh, d, pps, lens,
+                                                            form)
+            qd = torch.randn((len(lens), kvh, g, d), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            kw = dict(splits=n, tiles_per_split=per, window=window)
+            live = sum(min(x, window) if window else x for x in lens)
+            walk_bytes = 2 * live * kvh * d * kp.element_size()
+            row = _probe_row(benchit, card, lambda: probes.probe_page_walk(kp, vp, lengths, table,
+                                                                           **kw),
+                             lambda: probes.probe_page_walk_plain(kp, vp, lengths, table, **kw),
+                             lambda got, want: _walk_rec(
+                                 report, f"stream/timed/page_walk/{shape}/{form or 'bf16'}", got,
+                                 want),
+                             nbytes=walk_bytes, flops=0, iters=iters, flush=256 << 20,
+                             plain_iters=1)
+            dec_kw = dict(scale=d**-0.5, window=window, logit_softcap=cap, **sc)
+            dec_ms = benchit.cuda_time_ms(
+                lambda: decode.paged_attention(qd, kp, vp, lengths, table, **dec_kw), warmup=3,
+                iters=iters, flush_bytes=256 << 20)
+            out["page_walk"][f"{shape}/{form or 'bf16'}"] = {
+                "shape": f"B={len(lens)} KVH={kvh} G={g} d={d} ps={PAGE_SIZE} pps={pps} "
+                         f"window={window} cap={cap} lengths={lens}",
+                "splits": [n, per], **row, "walk_bytes": walk_bytes,
+                "walk_gb_s": walk_bytes / (row["ms"] * 1e-3) / 1e9, "paged_decode_tc_ms": dec_ms,
+                "decode_over_walk": dec_ms / row["ms"], "library_ms": None}
+            del kp, vp, sc, table, lengths, qd
+            torch.cuda.empty_cache()
+    return out
+
+
+def time_probe_d128(probes, flash, benchit, gen, card, report, groups=tuple(PROBE_D128_ROWS),
+                    iters=20):
+    """The rows of PROBE_D128_ROWS at D128_SHAPE, each row's output held
+    against its plain version there, beside flash_fwd_tc and SDPA on the
+    same inputs; each (source, mode)'s plain version run and timed once."""
+    bh, s, d = D128_SHAPE["bh"], D128_SHAPE["s"], D128_SHAPE["d"]
+    q, k, v = _bf16_qkv(gen, bh, s, d)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    ones = torch.ones_like(v)
+    pairs = bh * s * s
+    sdpa = _sdpa_ms(benchit, q, k, v, False, d**-0.5)
+    out = {"shape": f"BH={bh} S={s} d={d} non-causal bf16", "live_pairs": pairs,
+           "flash_fwd_tc_ms": benchit.cuda_time_ms(
+               lambda: flash.flash_attention(q, k, v, scale=d**-0.5), warmup=3, iters=iters),
+           "sdpa_ms": sdpa}
+    plains = {}  # (source, mode) -> (its plain output, its plain ms)
+
+    def fns(source, mode):
+        if source == "mma":
+            return (lambda: probes.probe_mma(mode, q, k, v),
+                    lambda: probes.probe_mma_plain(mode, q, k, v, scale=d**-0.5))
+        cfg = probes.D128_MODES[mode]
+        kk = kt if cfg.kt else k
+        vv = ones if source == "ones" else vt if cfg.vt else v
+        return (lambda: probes.probe_d128(mode, q, kk, vv),
+                lambda: probes.probe_d128_plain(mode, q, kk, vv, scale=d**-0.5))
+
+    for group in groups:
+        rows = {}
+        for row, source, mode in PROBE_D128_ROWS[group]:
+            run, plain_fn = fns(source, mode)
+            if (source, mode) not in plains:
+                plains[(source, mode)] = (plain_fn(), benchit.cuda_time_ms(plain_fn, warmup=1,
+                                                                           iters=3))
+            want, plain_ms = plains[(source, mode)]
+            check = f"d128/timed/{group}/{row}"
+            hold = ((lambda got, want, mode=mode, check=check: _mma_rec(report, check, mode, got,
+                                                                        want))
+                    if source == "mma" else
+                    (lambda got, want, check=check: _probe_rec(report, check, got, want,
+                                                               PROBE_TOL)))
+            rec = _probe_row(benchit, card, run, None, hold, want=want, nbytes=4 * q.numel() * 2,
+                             flops=(2 if source == "mma" and mode in (1, 2) else 4) * d * pairs,
+                             iters=iters)
+            form = ({"tpu": probes.MMA_MODES[mode][2]} if source == "mma"
+                    else dataclasses.asdict(probes.D128_MODES[mode]))
+            rows[row] = {"source": f"{source} {mode}", "form": form, **rec,
+                         "plain_ms": plain_ms, "library_ms": sdpa,
+                         "vs_flash_fwd_tc": rec["ms"] / out["flash_fwd_tc_ms"]}
+        out[group] = rows
+    return out
+
+
+def probe_timings(probes, flash, decode, quant, benchit, gen, card, report, iters=20):
+    """Every probe group timed at its own shape, each output held against
+    its plain version there (the probes phase's path)."""
+    return {
+        "mma": {f"d{d}": time_probe_mma(probes, flash, benchit, gen, card, report, d, iters)
+                for d in MMA_SHAPES},
+        "int8": time_probe_int8(probes, benchit, gen, card, report, iters),
+        "stream": time_probe_stream(probes, decode, quant, benchit, gen, card, report, iters),
+        "d128": time_probe_d128(probes, flash, benchit, gen, card, report, iters=iters),
+    }
+
+
+# The probe libraries' entries of the kernels line: (name, source, the TPU
+# kernel it ports, launch counters, its representative check and timed row).
+PROBE_ENTRIES = (
+    ("probe_mma", "probe_mma.cu (fa_probe_mma)",
+     "scripts/probe_mxu.py:73 (_qk_like; _pv_like :114), scripts/probe_local_softmax.py:100, "
+     "scripts/probe_chain.py:98, scripts/probe_d128.py:178 (split2)",
+     ("probe_mma",), "probe/mma/timed/d128/mode0", ("mma", "d128", "modes", "0")),
+    ("probe_int8", "probe_mma.cu (fa_probe_int8)", "scripts/probe_int8_decode.py:109",
+     ("probe_int8",), "probe/int8/timed/prefill_mha/int8mma",
+     ("int8", "prefill_mha", "flavors", "int8mma")),
+    ("probe_stream", "probe_mma.cu (fa_probe_stream)", "scripts/probe_small_fp32.py:43",
+     ("probe_stream_sum", "probe_page_walk"), "probe/stream/timed/hbm_floor",
+     ("stream", "hbm_floor")),
+    ("probe_d128", "probe_d128.cu (probe_d128_0, probe_d128_1)",
+     "scripts/probe_d128.py:178, scripts/probe_d128b.py:73, scripts/probe_d128c.py:92, "
+     "scripts/probe_d128f.py:56", ("probe_d128",), "probe/d128/timed/pipeline/skeleton",
+     ("d128", "pipeline", "skeleton")),
+)
+_ROW_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes_ms", "ops_ms", "library_ms")
+
+
+def _probe_entries(report, launches):
+    """The probes' entries of the kernels line, each with its modes' checks."""
+    checks = {r["check"]: r for r in report["checks"] if r["check"].startswith("probe/")}
+    out = []
+    for name, source, replaces, counters, check, path in PROBE_ENTRIES:
+        row = report["probes"]["timings"]
+        for key in path:
+            row = row[key]
+        group = check.split("/")[1]
+        out.append({
+            "name": name, "route": "cuda", "source": f"flashattention_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": sum(launches[c] for c in counters),
+            "launches_by_mode": {m: n for c in counters
+                                 for m, n in report["probes"]["launches_by_mode"][c].items()},
+            "max_abs_err": checks[check]["max_abs_err"], "rel_err": checks[check]["rel_err"],
+            "tol": checks[check]["tol"], "check": check, "shape": "/".join(path),
+            **{k: row.get(k) for k in _ROW_KEYS},
+            "checks": {c: {"rel_err": r["rel_err"], "ok": r["ok"]} for c, r in checks.items()
+                       if c.split("/")[1] == group},
+        })
+    return out
+
+
+def _probe_counters(probes):
+    """The probe wrappers' launch counters."""
+    return {"probe_mma": (probes.probe_mma, "launches"),
+            "probe_int8": (probes.probe_int8, "launches"),
+            "probe_stream_sum": (probes.probe_stream_sum, "launches"),
+            "probe_page_walk": (probes.probe_page_walk, "launches"),
+            "probe_d128": (probes.probe_d128, "launches")}
+
+
+def phase_selftest(counters, report):
+    """``utils/selftest.py``'s 21 checks on the card's kernels; each check
+    asserts that the kernel it is named for launched."""
+    from flashattention_tpu_torch.utils import selftest
+
+    recs, res = [], []
+    wall, launches = _drive(counters, lambda: res.append(
+        selftest.run(verbose=False, records=recs)))
+    passed, failed, failures = res[0]
+    rec = {"phase": "selftest", "passed": passed, "failed": failed, "failures": failures,
+           "ok": failed == 0 and passed == len(selftest.CHECKS), "checks": recs,
+           "launches": launches, "seconds": wall}
+    report["selftest"] = rec
+    emit({k: rec[k] for k in ("phase", "passed", "failed", "failures", "ok", "seconds")})
+    return rec
+
+
+# The CLIs (flashattention_tpu_torch/cli/) the benches phase runs: (module, argv).
+BENCH_RUNS = (("bench", []), ("bench_flashattention", []), ("bench_decode", []),
+              ("bench_serving", ["--layers", "32"]), ("bench_train", []), ("lab", ["--all"]),
+              ("smoke", []))
+
+
+def _run_cli(name, argv):
+    """``cli.<name>.main(argv)`` in this process: its exit code, JSON rows
+    and other lines."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"flashattention_tpu_torch.cli.{name}")
+    buf, rc, error = io.StringIO(), 0, None
+    try:
+        with contextlib.redirect_stdout(buf):
+            mod.main(argv)
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+        error = None if isinstance(e.code, int) else str(e.code)
+    except Exception as e:  # noqa: BLE001 — reported as the CLI's failure
+        rc, error = 1, f"{type(e).__name__}: {e}"
+    lines = buf.getvalue().splitlines()
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    return rc, rows, [ln for ln in lines if not ln.startswith("{")], error
+
+
+def phase_benches(card, counters, report):
+    """Every CLI of ``flashattention_tpu_torch/cli/`` on the card with its
+    defaults (``bench_serving`` at the published 32 layers), each row
+    re-emitted; a CLI passes if it exits 0 and its rows (smoke: its text)
+    carry the card's ``nvidia-smi`` line."""
+    recs = {}
+
+    def drive():
+        for name, argv in BENCH_RUNS:
+            t0 = time.perf_counter()
+            rc, rows, text, error = _run_cli(name, argv)
+            carded = [r for r in rows if "card" in r] or [{"card": t.split(": ", 1)[1]}
+                                                         for t in text if t.startswith("card: ")]
+            rec = {"cli": name, "argv": argv, "rc": rc, "error": error, "rows": rows,
+                   "text": text, "seconds": time.perf_counter() - t0,
+                   "ok": rc == 0 and bool(carded) and all(r["card"] == card for r in carded)}
+            recs[name] = rec
+            emit({"phase": "benches", **rec})
+
+    wall, launches = _drive(counters, drive)
+    rec = {"ok": all(r["ok"] for r in recs.values()), "clis": recs, "launches": launches,
+           "seconds": wall}
+    report["benches"] = rec
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4384,7 +4915,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from flashattention_tpu_torch.models import train, transformer
-    from flashattention_tpu_torch.ops import backward, decode, flash, kernels, quant
+    from flashattention_tpu_torch.ops import backward, decode, flash, kernels, probes, quant
     from flashattention_tpu_torch.runtime import engine as engine_mod
     from flashattention_tpu_torch.runtime import kvcache
     from flashattention_tpu_torch.utils import benchit, packing
@@ -4396,7 +4927,7 @@ def main() -> int:
     card = benchit.card_info()
     name = torch.cuda.get_device_name(0)
     report = {"card": card, "device": name, "build": {}, "checks": []}
-    counters = _counters(flash, decode, backward)
+    counters = {**_counters(flash, decode, backward), **_probe_counters(probes)}
 
     laps, t_lap = {}, [t_start]
 
@@ -4406,6 +4937,8 @@ def main() -> int:
 
     phase_build(kernels, report)
     lap("build")
+    selftest = phase_selftest(counters, report)
+    lap("selftest")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     # {None, "int8", "fp8"}: {kernel: (main shape's timed check, Gemma-2 window's)}
     serving = {form: serving_checks(fa, flash, decode, benchit, gen, name, report, form)
@@ -4436,6 +4969,24 @@ def main() -> int:
     lap("dropout_block_mask_checks")
     attn_bm = phase_attention_block_mask(fa, counters, gen, report)
     lap("attention_block_mask")
+    # The probes: each held against its plain version, then timed at its
+    # own shape (the counted run).
+    probe_checks(probes, decode, quant, gen, report)
+    probe_times = {}
+    for fn, _ in _probe_counters(probes).values():
+        fn.launches_by_mode = {}
+    n_checks = len(report["checks"])
+    wall, probe_launches = _drive(counters, lambda: probe_times.update(
+        probe_timings(probes, flash, decode, quant, benchit, gen, name, report)))
+    timed = report["checks"][n_checks:]
+    report["probes"] = {"timings": probe_times, "launches": probe_launches, "seconds": wall,
+                        "launches_by_mode": {k: dict(fn.launches_by_mode)
+                                             for k, (fn, _) in _probe_counters(probes).items()}}
+    emit({"phase": "probes", "seconds": wall,
+          "launches": {k: probe_launches[k] for k in _probe_counters(probes)},
+          "timed_checks": len(timed), "ok": all(r["ok"] for r in timed),
+          "failed": [r["check"] for r in timed if not r["ok"]]})
+    lap("probes")
     cfg = dataclasses.replace(
         transformer.ModelConfig.llama7b_attention(), num_layers=args.layers
     )
@@ -4472,6 +5023,8 @@ def main() -> int:
     mixtral = phase_serve_mixtral_int8(args, transformer, quant, engine_mod, kvcache, benchit,
                                        counters, report)
     lap("serve_mixtral")
+    benches = phase_benches(card, counters, report)
+    lap("benches")
     cross = phase_crosscheck(fa, flash, gen, report)
     quant_ops = phase_quant_ops(fa, flash, quant, gen, report)
     phase_parity(args, transformer, kvcache, engine_mod, report)
@@ -4539,7 +5092,8 @@ def main() -> int:
              "serve_multistep": _launch_sum(multistep), "serve_speculative": _launch_sum(speculative),
              "serve_speculative_gemma2": _launch_sum(gemma_spec),
              "crosscheck": cross["launches"], "quant_ops": quant_ops["launches"],
-             "attention_block_mask": attn_bm["launches"],
+             "attention_block_mask": attn_bm["launches"], "selftest": selftest["launches"],
+             "probes": probe_launches, "benches": benches["launches"],
              **{p: r["launches"] for p, r in lora_served.items()},
              **{p: r["launches"] for p, r in trained.items()},
              **{p: r["launches"] for p, r in parity.items()}}
@@ -4675,6 +5229,7 @@ def main() -> int:
         "forms_8bit": {f: {case: {k: drafts[f][case][k] for k in timed} for case in TIMED_DRAFT_CASES}
                        for f in QUANT_FORMS},
     })
+    summary += _probe_entries(report, probe_launches)
     report["kernels"] = summary
     report["seconds"] = time.perf_counter() - t_start
     report["phase_seconds"] = laps
@@ -4699,7 +5254,7 @@ def main() -> int:
                            "checkpoint", "train_lora", "serve_lora_merged",
                            "serve_lora_merged_int8", "train_mixed", "train_mixed_optax",
                            "train_mixed_packed", "train_mixed_remat_dropout",
-                           "train_parity_lora")
+                           "train_parity_lora", "selftest", "benches")
                if not report[p]["ok"]]
     failed += [k["name"] for k in summary if k["launches"] == 0]
     # The scalar 8-bit forms of the two forwards left the paths for their

@@ -13,6 +13,8 @@
 // rescales by exp(m_tile - m_next), so that no exponential waits for the
 // running max; modes 4 and 5 deal the tiles round-robin to 2 and 4
 // independent (m, l, O) chains, merged in the epilogue; beside mode 0.
+// Mode 4 at head_dim 128 is scripts/probe_d128.py's split2 (:73-81, two
+// independent (m, l, acc) chains merged at the end; torch_tools/probe_d128.py).
 //
 // At head_dim 128 (torch_tools/probe_int8.py, fa_probe_int8), the port of
 // scripts/probe_int8_decode.py's make (:35, pallas_call :109), which asks
@@ -322,6 +324,8 @@ int launch_mode(int mode, const fwd_tc::Args& a) {
       case 5: return fwd_tc::launch<D, false, false, 5>(a);
       default: break;
     }
+  } else if (mode == 4) {  // probe_d128.py's split2: two chains at d = 128
+    return fwd_tc::launch<D, false, false, 4>(a);
   }
   return -1;
 }
@@ -329,7 +333,7 @@ int launch_mode(int mode, const fwd_tc::Args& a) {
 }  // namespace
 
 // q, k, v, o: (bh, rows | s_kv, d) bf16; l, m: (bh, rows) float32.  Modes
-// 0-2 at d = 64 and 128, modes 3-5 at d = 64.
+// 0-2 at d = 64 and 128, modes 3-5 at d = 64, mode 4 also at d = 128.
 extern "C" int fa_probe_mma(int mode, const void* q, const void* k, const void* v, void* o,
                             void* l, void* m, int bh, int rows, int s_kv, int d, int causal,
                             float scale, void* stream) {

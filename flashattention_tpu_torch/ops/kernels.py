@@ -25,7 +25,9 @@ two-pass backward pair's tensor-core forms are ``flash_bwd_dq_tc`` (a
 source of its own) and ``flash_bwd_dkv_tc`` (the fused backward's source
 built with ``-DFA_PAIR``), each with its dropout form ``*_extra``.
 ``probe_mma`` is the forward's loop bodies alone and its softmax probes, for
-``torch_tools/probe_mma.py`` and ``torch_tools/probe_softmax.py``.
+``torch_tools/probe_mma.py`` and ``torch_tools/probe_softmax.py``, and
+``probe_d128_0`` / ``probe_d128_1`` the d = 128 forward's probes, half of the
+modes each (``torch_tools/probe_d128.py``); ``ops/probes.py`` wraps them.
 The build runs at first use, from the sources in the checkout only, into
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``).  A
 library's file name carries a hash of its source, the headers it includes
@@ -113,8 +115,13 @@ KERNELS = {
                                      [*[_P] * 12, *_BWD], ["-DFA_PAIR", *flags])
        for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
     # The tensor-core forward's loop bodies alone and its softmax probes
-    # (torch_tools/probe_mma.py, torch_tools/probe_softmax.py).
+    # (torch_tools/probe_mma.py, torch_tools/probe_softmax.py; the same
+    # library's fa_probe_int8 and fa_probe_stream, ops/probes.py).
     "probe_mma": ("probe_mma.cu", "fa_probe_mma", [_I, *[_P] * 6, *[_I] * 5, _F, _P]),
+    # The d = 128 forward's probes (torch_tools/probe_d128.py), half of the
+    # modes in each library.
+    **{f"probe_d128_{half}": ("probe_d128.cu", "fa_probe_d128", [_I, *[_P] * 4, *[_I] * 3, _F, _P],
+                              [f"-DFA_PROBE_HALF={half}"]) for half in (0, 1)},
 }
 # Status codes from 10000 up: a TMA tensor map could not be encoded
 # (tc_common.cuh's tc_encode_map; 10000 + the driver's CUresult).

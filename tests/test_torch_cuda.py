@@ -14,7 +14,10 @@ bf16 rounding of outputs of magnitude ~1); ``attention`` at head_dims 80 and
 (int8 and fp8 K/V with per-row scales; in bf16 the forwards' tensor-core
 8-bit forms) likewise, and the dropout and
 block-mask forms of the flash forward and the backward kernels (the same
-keep bits and element masks as the plain versions).
+keep bits and element masks as the plain versions); the d = 128 probe modes
+(``ops/probes.py``) against their plain versions, on random inputs and on
+inputs whose output is P's second bf16 term alone, the self-test's 21 checks
+on the card, and a CLI's rows carrying the card's line.
 """
 
 import dataclasses
@@ -25,7 +28,7 @@ import torch
 
 import flashattention_tpu_torch as ft_attention
 from flashattention_tpu_torch.models import train, transformer
-from flashattention_tpu_torch.ops import backward, decode, flash, quant
+from flashattention_tpu_torch.ops import backward, decode, flash, probes, quant
 from flashattention_tpu_torch.runtime import engine, kvcache
 from flashattention_tpu_torch.utils.packing import pack_documents
 from flashattention_tpu_torch.utils.testing import validate_result
@@ -760,3 +763,66 @@ def test_block_mask_kernels_skip_dead_tiles(d):
     for clean, poisoned in zip(*outs):
         assert torch.isfinite(poisoned).all()
         assert torch.equal(clean, poisoned)
+
+
+# ── the measurement path: probes, the self-test, the CLIs ──────────────────
+
+
+@pytest.mark.parametrize("name", ["mma0", "mma1", "mma2", "mma4", *probes.D128_MODES])
+def test_probe_modes_against_plain(name):
+    """Every d = 128 probe mode on the card against its plain version on the
+    CPU, within 2e-2 of the output's magnitude."""
+    q, k, v = (_randn((2, 384, 128), torch.bfloat16, s) for s in (1, 2, 3))
+    if name.startswith("mma"):
+        mode = int(name[3:])
+        got = probes.probe_mma(mode, q.cuda(), k.cuda(), v.cuda(), causal=True)[0]
+        want = probes.probe_mma_plain(mode, q, k, v, causal=True, scale=128**-0.5)[0]
+    else:
+        cfg = probes.D128_MODES[name]
+        kk = k.transpose(1, 2).contiguous() if cfg.kt else k
+        vv = v.transpose(1, 2).contiguous() if cfg.vt else v
+        got = probes.probe_d128(name, q.cuda(), kk.cuda(), vv.cuda())
+        want = probes.probe_d128_plain(name, q, kk, vv, scale=128**-0.5)
+    err = float((got.cpu().float() - want.float()).abs().max())
+    assert err <= 2e-2 * max(float(want.float().abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("name", ["mma0", "mma4", *probes.D128_MODES])
+def test_probe_modes_keep_the_second_term(name):
+    """Over ``lo_term_qkv``'s inputs at scale 1, whose output is P's second
+    bf16 term alone, every d = 128 mode that feeds P (or S) to PV on the
+    card against its plain version on the CPU: within 2e-2 of the output's
+    magnitude (the one-term modes' all-0 output: of the two-term
+    skeleton's)."""
+    q, k, v = probes.lo_term_qkv(2, 512, 128, generator=torch.Generator().manual_seed(6))
+    if name.startswith("mma"):
+        mode = int(name[3:])
+        got = probes.probe_mma(mode, q.cuda(), k.cuda(), v.cuda(), scale=1.0)[0]
+        want = norm_of = probes.probe_mma_plain(mode, q, k, v, scale=1.0)[0]
+    else:
+        cfg = probes.D128_MODES[name]
+        kk = k.transpose(1, 2).contiguous() if cfg.kt else k
+        vv = v.transpose(1, 2).contiguous() if cfg.vt else v
+        got = probes.probe_d128(name, q.cuda(), kk.cuda(), vv.cuda(), scale=1.0)
+        want = norm_of = probes.probe_d128_plain(name, q, kk, vv, scale=1.0)
+        if cfg.terms == 1:
+            norm_of = probes.probe_d128_plain("skeleton", q, k, v, scale=1.0)
+    norm = float(norm_of.float().abs().max())
+    assert float((got.cpu().float() - want.float()).abs().max()) <= 2e-2 * norm
+    from flashattention_tpu_torch.utils import selftest
+
+    recs = []
+    assert selftest.run(verbose=False, records=recs) == (21, 0, [])
+    assert all(r["launches"] for r in recs)
+
+
+def test_cli_rows_carry_the_card(capsys):
+    import json
+
+    from flashattention_tpu_torch.cli import bench_decode
+    from flashattention_tpu_torch.utils import benchit
+
+    bench_decode.main(["--batch", "2", "--seq_len", "512", "--kv_dtypes", "bfloat16,int8"])
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    assert [r["card"] for r in rows] == [benchit.card_info()] * 2
+    assert all(r["valid"] and r["hbm_frac"] > 0 for r in rows)

@@ -1,7 +1,9 @@
 """Guards on the port's boundaries.
 
 - ``flashattention_tpu_torch`` imports neither JAX nor the JAX package, when
-  imported (checked in a fresh interpreter) or anywhere in its sources;
+  imported (checked in a fresh interpreter, the CLIs, ``ops/probes.py`` and
+  the self-test among the modules) or anywhere in its sources; nor do
+  ``chip_smoke.py`` and the card scripts of ``torch_tools/``;
 - its entry points run on the card unless the caller asks for the CPU, and
   raise instead of carrying on where there is no card;
 - options of later slices raise ``NotImplementedError``, each naming the
@@ -41,6 +43,10 @@ def test_import_loads_no_jax():
         "import flashattention_tpu_torch.utils.benchit\n"
         "import flashattention_tpu_torch.utils.checkpoint\n"
         "import flashattention_tpu_torch.models.train\n"
+        "import flashattention_tpu_torch.ops.probes\n"
+        "import flashattention_tpu_torch.utils.selftest\n"
+        "from flashattention_tpu_torch.cli import (bench, bench_decode, bench_flashattention,\n"
+        "    bench_serving, bench_train, lab, smoke)\n"
         "print('\\n'.join(sys.modules))\n"
     )
     out = subprocess.run(
@@ -49,6 +55,8 @@ def test_import_loads_no_jax():
     ).stdout.split()
     assert "flashattention_tpu_torch.runtime.engine" in out
     assert "flashattention_tpu_torch.utils.checkpoint" in out
+    assert "flashattention_tpu_torch.cli.bench_serving" in out
+    assert "flashattention_tpu_torch.ops.probes" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -83,11 +91,12 @@ def test_chip_smoke_imports_no_jax():
 @pytest.mark.parametrize(
     "script",
     ["decode_ab.py", "window_mutants.py", "quant_mutants.py", "bwd_mutants.py", "draft_mutants.py",
-     "spec_drift.py", "fwd_bwd_ab.py", "dropout_mutants.py"],
+     "spec_drift.py", "fwd_bwd_ab.py", "dropout_mutants.py", "probe_d128.py"],
 )
 def test_tools_import_no_jax(script):
     """The card scripts in ``torch_tools/`` drive the port alone (all but
-    spec_drift.py through chip_smoke's checks)."""
+    spec_drift.py through chip_smoke's checks; probe_d128.py through its
+    probe checks and timings, over ``ops/probes.py``)."""
     with open(os.path.join(ROOT, "torch_tools", script)) as fh:
         tree = ast.parse(fh.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
