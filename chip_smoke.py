@@ -289,12 +289,18 @@ Phases, each of which must pass (any failure exits non-zero):
                card's kernels, each asserting that its kernel launched;
    probes    - every H100 probe mode of ``ops/probes.py`` (``probe_mma``'s
                modes, ``probe_int8``'s flavors, the stream and the page
-               walk, ``probe_d128``'s stages) at a small shape against its
-               plain version (PROBE_TOL of the output's magnitude in bf16,
-               STREAM_RTOL for the float32 stream, the page walk's words
-               equal), then each timed at its TPU probe's own shape beside
-               its plain version and, where one exists, SDPA, with
-               flash_fwd_tc beside the forward probes (the counted run);
+               walk, ``probe_d128``'s stages, ``probe_d128de``'s transposed
+               and thin-shape modes, ``probe_fp32``'s float32 as two bf16
+               terms) at a small shape against its plain version (PROBE_TOL
+               of the output's magnitude in bf16, PROBE_FP32_TOL for the
+               packed float32 modes, STREAM_RTOL for the float32 stream, the
+               page walk's words equal), float32 q over bf16 pages through
+               the three paged entry points (``c4_checks``), then each timed
+               at its TPU probe's own shape beside its plain version and,
+               where one exists, SDPA (the thin-shape group also four
+               cuBLAS products; float32 as two terms also SDPA float32 and
+               the port's float32 ``flash_attention``), with flash_fwd_tc
+               beside the forward probes (the counted run);
    benches   - every CLI of ``flashattention_tpu_torch/cli/`` in this
                process with its defaults (``bench_serving`` at the
                published 32 layers); each must exit 0 and each of its rows
@@ -444,7 +450,7 @@ _FLAGS = {"paged_decode_kernel": ("window_cap", "draft"), "flash_fwd_kernel": ("
           "flash_fwd_tc_kernel": ("window_cap", "extra", "paged"),
           "flash_bwd_tc_kernel": ("window_cap", "extra", "pair"),
           "flash_bwd_tc_d256_kernel": ("window_cap", "extra", "pair"),
-          "probe_kernel": ("vt", "kt")}
+          "probe_kernel": ("vt", "kt"), "probe_t_kernel": ("vt", "o_norm")}
 
 
 def _ptxas(log):
@@ -458,18 +464,23 @@ def _ptxas(log):
     out, spills = [], (0, 0)
     types = "|".join(["S\\d*_", *_MANGLED_TYPES])
     for ln in log.splitlines():
-        m = re.search(rf"Compiling entry function '\w*?\d+(flash_bwd_tc_d256_kernel|[a-z_]+_kernel)I"
-                      rf"((?:{types})*)((?:L[ib]\d+E)+)", ln)
+        # The mangled name's length prefix must be the name's length: the
+        # namespace before it may end in digits too (fwd_tc::).
+        m = "Compiling entry function" in ln and next(
+            (c for c in re.finditer(rf"(?=(\d+)([a-z_][a-z0-9_]*_kernel)I((?:{types})*)"
+                                    rf"((?:L[ib]\d+E)+))", ln)
+             if int(c.group(1)) == len(c.group(2))), None)
         if m:
-            args = [_MANGLED_TYPES[t] for t in re.findall("|".join(_MANGLED_TYPES), m.group(2))]
+            _, name, type_args, value_args = m.groups()
+            args = [_MANGLED_TYPES[t] for t in re.findall("|".join(_MANGLED_TYPES), type_args)]
             args = args[:1] if args[1:] == args[:1] else args  # the payload is q's type
-            flags = iter(_FLAGS.get(m.group(1), ("window_cap", "extra")))
-            for kind, n in re.findall(r"L([ib])(\d+)E", m.group(3)):
-                flag = next(flags) if kind == "b" else None
+            flags = iter(_FLAGS.get(name, ("window_cap", "extra")))
+            for kind, n in re.findall(r"L([ib])(\d+)E", value_args):
+                flag = next(flags, "flag") if kind == "b" else None
                 args += [n] if kind == "i" else [flag] if n == "1" else []
-            if m.group(1) == "flash_fwd_tc_kernel":  # its last int: the K/V payload form
+            if name == "flash_fwd_tc_kernel":  # its last int: the K/V payload form
                 args = args[:-1] + {"1": ["int8"], "2": ["fp8"]}.get(args[-1], [])
-            out.append({"kernel": f"{m.group(1)}<{','.join(args)}>"})
+            out.append({"kernel": f"{name}<{','.join(args)}>"})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spills = (int(m.group(1)), int(m.group(2)))
@@ -4384,6 +4395,7 @@ def _extra_entry(rec, paths, counter, keys, less=None):
 # library call, its output there held against the plain version's too
 # (torch_tools/probe_*.py print these).
 PROBE_TOL = 2e-2  # of the output's largest magnitude: bf16 outputs
+PROBE_FP32_TOL = 1e-4  # of the output's largest magnitude: the packed float32 modes
 STREAM_RTOL = 1e-5  # the float32 stream's, relative
 PROBE_CHECK = dict(bh=4, s=512)
 # probe_mma.py's shape (row 1's, causal) at d = 128; probe_softmax.py's at d = 64.
@@ -4420,6 +4432,19 @@ PROBE_D128_ROWS = {
           ("bq192_split1", "d128", "full_bq192_split1"),
           ("bq192_split2", "d128", "full_bq192_split2")],
 }
+
+
+# scripts/probe_d128d.py's and probe_d128e.py's rows (their shape,
+# D128_SHAPE, unscaled) by subcommand of torch_tools/probe_d128.py: mode
+# names of probes.D128DE_MODES; and probe_d128e.py's xla_m products (:98),
+# cuBLAS here: name -> (M, K, N).
+PROBE_D128DE_ROWS = {
+    "d": ("base", "t_vt", "t_vtk", "t_full", "t_o_norm"),
+    "e": ("t_qk_heavy", "t_pv_heavy", "pv_bf16out"),
+}
+CUBLAS_ROWS = {"M128_wide": (128, 2048, 4096), "M128_o_t": (128, 2048, 512),
+               "M256_wide": (256, 2048, 4096), "M512_wide": (512, 2048, 4096)}
+FP32_SHAPE = dict(bh=128, s=1024, d=64)  # scripts/probe_small_fp32b.py's, unscaled
 
 
 def _rel(got, want) -> float:
@@ -4466,6 +4491,20 @@ def _bf16_qkv(gen, bh, s, d):
                  for _ in range(3))
 
 
+def _uniform(gen, *shape):
+    """Uniform in [-1, 1), as the TPU probes draw their inputs
+    (``utils/testing.make_random``), float32 on the card."""
+    return torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+
+
+def _d128de_args(probes, name, q, k, v, vt):
+    return q, k, vt if probes.D128DE_MODES[name].vt else v
+
+
+def _fp32_tol(mode):
+    return PROBE_TOL if mode == "bf16_skel" else PROBE_FP32_TOL
+
+
 def _walk_case(decode, quant, gen, kvh, d, pps, lens, form, page=PAGE_SIZE):
     """Pools, table and lengths of a page walk, and its split count."""
     b = len(lens)
@@ -4508,6 +4547,22 @@ def lo_term_checks(probes, gen, report):
                                probes.probe_d128(name, q, kk, vv, scale=1.0),
                                probes.probe_d128_plain(name, q, kk, vv, scale=1.0), PROBE_TOL,
                                norm=two if cfg.terms == 1 else None))
+    vt = v.transpose(1, 2).contiguous()
+    for name in probes.D128DE_MODES:  # unscaled, as lo_term_qkv's scale 1 asks
+        args = _d128de_args(probes, name, q, k, v, vt)
+        recs.append(_probe_rec(report, f"d128de/lo_term/{name}", probes.probe_d128de(name, *args),
+                               probes.probe_d128de_plain(name, *args), PROBE_TOL))
+    # float32 as two terms: lo_term_qkv's values as float32 inputs (their
+    # second bf16 terms 0; S's carries the output, about 2^-9 of p, so the
+    # bf16 tolerance); bf16_skel takes one term (its plain output all 0).
+    q, k, v = (x.float() for x in probes.lo_term_qkv(bh, s, 64, generator=gen, device="cuda"))
+    two = float(probes.probe_fp32_plain("skeleton", *probes.fp32_inputs(q, k, v, "skeleton"))
+                .abs().max())
+    for mode in probes.FP32_MODES:
+        args = probes.fp32_inputs(q, k, v, mode)
+        recs.append(_probe_rec(report, f"fp32/lo_term/{mode}", probes.probe_fp32(mode, *args),
+                               probes.probe_fp32_plain(mode, *args), PROBE_TOL,
+                               norm=two if mode == "bf16_skel" else None))
     return recs
 
 
@@ -4561,8 +4616,78 @@ def probe_checks(probes, decode, quant, gen, report):
     recs.append(_probe_rec(report, "d128/ones", probes.probe_d128("skeleton", q, k, ones),
                            probes.probe_d128_plain("skeleton", q, k, ones, scale=128**-0.5),
                            PROBE_TOL))
+    q, k, v = (_uniform(gen, bh, s, 128).to(torch.bfloat16) for _ in range(3))
+    vt = v.transpose(1, 2).contiguous()
+    for name in probes.D128DE_MODES:
+        args = _d128de_args(probes, name, q, k, v, vt)
+        recs.append(_probe_rec(report, f"d128de/{name}", probes.probe_d128de(name, *args),
+                               probes.probe_d128de_plain(name, *args), PROBE_TOL))
+    q, k, v = (_uniform(gen, bh, s, 64) for _ in range(3))
+    for mode in probes.FP32_MODES:
+        args = probes.fp32_inputs(q, k, v, mode)
+        recs.append(_probe_rec(report, f"fp32/{mode}", probes.probe_fp32(mode, *args),
+                               probes.probe_fp32_plain(mode, *args), _fp32_tol(mode)))
     recs += lo_term_checks(probes, gen, report)
+    recs += c4_checks(decode, gen, report)
     emit({"phase": "probe_checks", "checks": len(recs), "ok": all(r["ok"] for r in recs),
+          "failed": [r["check"] for r in recs if not r["ok"]]})
+    return recs
+
+
+# Float32 q over bf16 pages (C4): (entry point, head_dim, G or GQA rows, page
+# size, lengths or ctx lens): the tensor-core forms at the serving shapes'
+# d = 128 and page 256, the scalar form at d = 32.
+C4_CASES = (("decode", 128, 4, 256, [1, 300, 1100]), ("decode", 32, 2, 16, [5, 60, 200]),
+            ("prefill_batched", 128, 2, 256, [64, 700]), ("prefill", 128, 1, 256, [300]),
+            ("prefill_batched", 32, 2, 16, [16, 90]))
+
+
+def c4_checks(decode, gen, report):
+    """Float32 q over bf16 pages through ``paged_attention``,
+    ``paged_prefill_attention_batched`` and ``paged_prefill_attention``:
+    the kernel takes q in bf16, as the JAX kernels do, and returns float32
+    (the tensor-core forms from their float32 sums: not every element a
+    bf16 value; the scalar form through a bf16 store), held against the
+    plain version on the card within PROBE_TOL of the output's magnitude
+    (q is taken in bf16); each call's launch counted.  Returns the records."""
+    from flashattention_tpu_torch.ops.flash import kernel_form
+
+    recs = []
+    kvh, chunk = 2, 64
+    for entry, d, g, ps, lens in C4_CASES:
+        b = len(lens)
+        pps = -(-max(lens) // ps)
+        pool = b * pps + 2
+        kp, vp = (torch.randn((pool, kvh, ps, d), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        table = torch.randperm(pool, generator=gen, device="cuda")[: b * pps].reshape(b, pps).to(
+            torch.int32)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        tc = (kernel_form("paged_decode", torch.bfloat16, d, page_size=ps, rows=g)
+              if entry == "decode" else kernel_form("paged_prefill", torch.bfloat16, d, page_size=ps))
+        if entry == "decode":
+            q = torch.randn((b, kvh, g, d), generator=gen, device="cuda")
+            counter, before = decode.paged_attention, decode.paged_attention.launches
+            got = decode.paged_attention(q, kp, vp, lengths, table, scale=d**-0.5)
+            want = decode.paged_attention_plain(q, kp, vp, lengths, table, scale=d**-0.5)
+        else:
+            seg = chunk if entry == "prefill_batched" else 128
+            q = torch.randn((b, kvh, g * seg, d), generator=gen, device="cuda")
+            kw = dict(chunk=chunk, seg=seg, scale=d**-0.5)
+            counter = decode.paged_prefill_attention_batched
+            before = counter.launches
+            if entry == "prefill":
+                got = decode.paged_prefill_attention(q[0], kp, vp, table[0], lengths[0], **kw)[None]
+            else:
+                got = decode.paged_prefill_attention_batched(q, kp, vp, table, lengths, **kw)
+            want = decode.paged_prefill_attention_plain(q, kp, vp, table, lengths, **kw)
+        torch.cuda.synchronize()
+        rounded = bool(torch.equal(got.to(torch.bfloat16).float(), got))
+        ok = (got.dtype == torch.float32 and counter.launches == before + 1
+              and rounded == (tc == "scalar"))
+        recs.append(_probe_rec(report, f"c4/{entry}/d{d}_ps{ps}_{tc}", got, want, PROBE_TOL, ok=ok,
+                               form=tc, out_dtype=str(got.dtype), bf16_valued=rounded))
+    emit({"phase": "c4_checks", "checks": len(recs), "ok": all(r["ok"] for r in recs),
           "failed": [r["check"] for r in recs if not r["ok"]]})
     return recs
 
@@ -4771,6 +4896,110 @@ def time_probe_d128(probes, flash, benchit, gen, card, report, groups=tuple(PROB
     return out
 
 
+def _d128de_flops(cfg, bh, s, d):
+    """The products' flops of a D128DE mode: both over every pair, or one
+    over every pair and the other over the first 128 keys (the heavy
+    modes)."""
+    if cfg.var in ("qk_heavy", "pv_heavy"):
+        return 2 * d * bh * s * s + 2 * d * bh * s * 128
+    return 4 * d * bh * s * s
+
+
+def _cublas_fn(a, b):
+    """probe_d128e.py's xla_m body: a bf16 product into float32, its
+    reshape-sum (N >= K) or tile to K columns, the cast to bf16."""
+    try:
+        out = torch.mm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):  # no out_dtype here: the bf16 product, then float32
+        out = torch.matmul(a, b).float()
+    k = a.shape[1]
+    if out.shape[1] >= k:
+        out = out.reshape(a.shape[0], -1, k).sum(1)
+    else:
+        out = out.repeat(1, k // out.shape[1])
+    return out.to(a.dtype)
+
+
+def time_probe_d128de(probes, benchit, gen, card, report, groups=tuple(PROBE_D128DE_ROWS),
+                      iters=20):
+    """Items 4 and 5 (scripts/probe_d128d.py, probe_d128e.py) at their
+    shape, unscaled, uniform inputs: each mode held against its plain
+    version there, beside its bound and SDPA (scale 1); group ``e`` also
+    times its xla_m products on cuBLAS (yardsticks, never a port)."""
+    bh, s, d = D128_SHAPE["bh"], D128_SHAPE["s"], D128_SHAPE["d"]
+    q, k, v = (_uniform(gen, bh, s, d).to(torch.bfloat16) for _ in range(3))
+    vt = v.transpose(1, 2).contiguous()
+    sdpa = _sdpa_ms(benchit, q, k, v, False, 1.0)
+    out = {"shape": f"BH={bh} S={s} d={d} non-causal bf16 unscaled, float32 out",
+           "live_pairs": bh * s * s, "sdpa_ms": sdpa}
+    for group in groups:
+        rows = {}
+        for name in PROBE_D128DE_ROWS[group]:
+            cfg = probes.D128DE_MODES[name]
+            args = _d128de_args(probes, name, q, k, v, vt)
+            flops = _d128de_flops(cfg, bh, s, d)
+            rec = _probe_row(
+                benchit, card, lambda name=name, args=args: probes.probe_d128de(name, *args),
+                lambda name=name, args=args: probes.probe_d128de_plain(name, *args),
+                lambda got, want, name=name: _probe_rec(report, f"d128de/timed/{group}/{name}", got,
+                                                        want, PROBE_TOL),
+                nbytes=3 * q.numel() * 2 + q.numel() * 4, flops=flops, iters=iters)
+            rows[name] = {"tpu": cfg.item, "form": dataclasses.asdict(cfg), **rec,
+                          "library_ms": sdpa}
+            torch.cuda.empty_cache()
+        if group == "e":
+            cub = {}
+            for name, (m, kk, n) in CUBLAS_ROWS.items():
+                a = _uniform(gen, m, kk).to(torch.bfloat16)
+                b = _uniform(gen, kk, n).to(torch.bfloat16)
+                ms = benchit.cuda_time_ms(lambda a=a, b=b: _cublas_fn(a, b), warmup=3, iters=iters)
+                fl = 2 * m * kk * n
+                cub[name] = {"shape": f"({m},{kk})@({kk},{n})", "ms": ms, "tflop_s": fl / ms / 1e9,
+                             **benchit.bound_ms(card, bytes_moved=2 * (m * kk + kk * n + m * kk),
+                                                flops=fl, dtype="bfloat16")}
+            rows["cublas"] = cub
+        out[group] = rows
+    return out
+
+
+def time_probe_fp32(probes, flash, benchit, gen, card, report, iters=20):
+    """Item 7 (scripts/probe_small_fp32b.py) at its shape, unscaled, uniform
+    float32 inputs packed as the script packs them: each mode held against
+    its plain version there, beside its bound (the logical work, 4 d flops
+    a pair over the bf16 peak; ``machine_bound_ms`` beside it: the packed
+    modes' products take four times that work on bf16 tensor cores), SDPA
+    in float32 and the port's own float32 ``flash_attention`` (the scalar
+    kernel) on the same float32 inputs."""
+    bh, s, d = FP32_SHAPE["bh"], FP32_SHAPE["s"], FP32_SHAPE["d"]
+    qf, kf, vf = (_uniform(gen, bh, s, d) for _ in range(3))
+    f = torch.nn.functional.scaled_dot_product_attention
+    sdpa = benchit.cuda_time_ms(lambda: f(qf[None], kf[None], vf[None], scale=1.0), warmup=3,
+                                iters=iters)
+    fwd = benchit.cuda_time_ms(lambda: flash.flash_attention(qf, kf, vf, scale=1.0), warmup=3,
+                               iters=iters)
+    logical = 4 * d * bh * s * s
+    out = {"shape": f"BH={bh} S={s} d={d} non-causal float32 unscaled, as two bf16 terms",
+           "live_pairs": bh * s * s, "sdpa_float32_ms": sdpa, "flash_fwd_float32_ms": fwd,
+           "modes": {}}
+    for mode in probes.FP32_MODES:
+        args = probes.fp32_inputs(qf, kf, vf, mode)
+        nbytes = sum(x.numel() * 2 for x in args) + bh * s * d * 4
+        rec = _probe_row(
+            benchit, card, lambda mode=mode, args=args: probes.probe_fp32(mode, *args),
+            lambda mode=mode, args=args: probes.probe_fp32_plain(mode, *args),
+            lambda got, want, mode=mode: _probe_rec(report, f"fp32/timed/{mode}", got, want,
+                                                    _fp32_tol(mode)),
+            nbytes=nbytes, flops=logical, iters=iters)
+        machine = benchit.bound_ms(card, bytes_moved=nbytes,
+                                   flops=logical * (1 if mode == "bf16_skel" else 4),
+                                   dtype="bfloat16")
+        out["modes"][mode] = {**rec, "machine_bound_ms": machine["bound_ms"],
+                              "library_ms": sdpa, "flash_fwd_float32_ms": fwd}
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 def probe_timings(probes, flash, decode, quant, benchit, gen, card, report, iters=20):
     """Every probe group timed at its own shape, each output held against
     its plain version there (the probes phase's path)."""
@@ -4780,11 +5009,14 @@ def probe_timings(probes, flash, decode, quant, benchit, gen, card, report, iter
         "int8": time_probe_int8(probes, benchit, gen, card, report, iters),
         "stream": time_probe_stream(probes, decode, quant, benchit, gen, card, report, iters),
         "d128": time_probe_d128(probes, flash, benchit, gen, card, report, iters=iters),
+        "d128de": time_probe_d128de(probes, benchit, gen, card, report, iters=iters),
+        "fp32": time_probe_fp32(probes, flash, benchit, gen, card, report, iters),
     }
 
 
 # The probe libraries' entries of the kernels line: (name, source, the TPU
-# kernel it ports, launch counters, its representative check and timed row).
+# kernel it ports, launch counters, its representative check and timed row,
+# and, where one library holds only some of the counters' modes, those).
 PROBE_ENTRIES = (
     ("probe_mma", "probe_mma.cu (fa_probe_mma)",
      "scripts/probe_mxu.py:73 (_qk_like; _pv_like :114), scripts/probe_local_softmax.py:100, "
@@ -4800,6 +5032,15 @@ PROBE_ENTRIES = (
      "scripts/probe_d128.py:178, scripts/probe_d128b.py:73, scripts/probe_d128c.py:92, "
      "scripts/probe_d128f.py:56", ("probe_d128",), "probe/d128/timed/pipeline/skeleton",
      ("d128", "pipeline", "skeleton")),
+    ("probe_d128_2", "probe_d128.cu (probe_d128_2: base, pv_bf16out)",
+     "scripts/probe_d128d.py:75 (base), scripts/probe_d128e.py:71 (pv_bf16out)", ("probe_d128de",),
+     "probe/d128de/timed/d/base", ("d128de", "d", "base"), ("base", "pv_bf16out")),
+    ("probe_d128t", "probe_d128t.cu",
+     "scripts/probe_d128d.py:75 (t_vt, t_vtk, t_full, t_o_norm), scripts/probe_d128e.py:71 "
+     "(t_qk_heavy, t_pv_heavy)", ("probe_d128de",), "probe/d128de/timed/d/t_vt",
+     ("d128de", "d", "t_vt"), ("t_vt", "t_vtk", "t_full", "t_o_norm", "t_qk_heavy", "t_pv_heavy")),
+    ("probe_fp32", "probe_fp32.cu", "scripts/probe_small_fp32b.py:101", ("probe_fp32",),
+     "probe/fp32/timed/full", ("fp32", "modes", "full")),
 )
 _ROW_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes_ms", "ops_ms", "library_ms")
 
@@ -4808,16 +5049,19 @@ def _probe_entries(report, launches):
     """The probes' entries of the kernels line, each with its modes' checks."""
     checks = {r["check"]: r for r in report["checks"] if r["check"].startswith("probe/")}
     out = []
-    for name, source, replaces, counters, check, path in PROBE_ENTRIES:
+    for name, source, replaces, counters, check, path, *modes in PROBE_ENTRIES:
         row = report["probes"]["timings"]
         for key in path:
             row = row[key]
         group = check.split("/")[1]
+        by_mode = {m: n for c in counters
+                   for m, n in report["probes"]["launches_by_mode"][c].items()
+                   if not modes or m in modes[0]}
         out.append({
             "name": name, "route": "cuda", "source": f"flashattention_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": sum(launches[c] for c in counters),
-            "launches_by_mode": {m: n for c in counters
-                                 for m, n in report["probes"]["launches_by_mode"][c].items()},
+            "replaces": replaces,
+            "launches": sum(by_mode.values()) if modes else sum(launches[c] for c in counters),
+            "launches_by_mode": by_mode,
             "max_abs_err": checks[check]["max_abs_err"], "rel_err": checks[check]["rel_err"],
             "tol": checks[check]["tol"], "check": check, "shape": "/".join(path),
             **{k: row.get(k) for k in _ROW_KEYS},
@@ -4833,7 +5077,9 @@ def _probe_counters(probes):
             "probe_int8": (probes.probe_int8, "launches"),
             "probe_stream_sum": (probes.probe_stream_sum, "launches"),
             "probe_page_walk": (probes.probe_page_walk, "launches"),
-            "probe_d128": (probes.probe_d128, "launches")}
+            "probe_d128": (probes.probe_d128, "launches"),
+            "probe_d128de": (probes.probe_d128de, "launches"),
+            "probe_fp32": (probes.probe_fp32, "launches")}
 
 
 def phase_selftest(counters, report):

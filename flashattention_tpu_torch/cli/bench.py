@@ -61,16 +61,17 @@ def _start_watchdog(seconds: float, metric: str) -> threading.Timer:
 
 def _decode_tokens_per_s(device, b=8, kvh=8, g=4, d=128, s=2048, ps=256, kv="bf16"):
     """Paged-decode tokens/s (``bench.py:101``): int8 pools with per-token
-    scales on 1024-token pages.  q is made in float32 and, as the Pallas
-    kernel computes over 16- and 8-bit pages (decode.py:150), taken in
-    bf16."""
+    scales on 1024-token pages.  q is made in float32 and passed so over
+    bf16 pages, which ``paged_attention`` takes in bf16 as the Pallas kernel
+    does (decode.py:150); over int8 pages it is taken in bf16 here, since
+    float32 q there runs the scalar 8-bit form, which keeps q in float32."""
     from flashattention_tpu_torch.ops.decode import paged_attention
     from flashattention_tpu_torch.utils.benchit import devtime_ms
 
     if kv == "int8":
         ps = 1024
     pps = s // ps
-    q = make_random(0, (b, kvh, g, d), torch.float32, device).to(torch.bfloat16)
+    q = make_random(0, (b, kvh, g, d), torch.float32, device)
     extra = {}
     if kv == "int8":
         from flashattention_tpu_torch.ops.quant import quantize
@@ -79,6 +80,7 @@ def _decode_tokens_per_s(device, b=8, kvh=8, g=4, d=128, s=2048, ps=256, kv="bf1
         vq = quantize(make_random(2, (b * pps + 2, kvh, ps, d), torch.float32, device), "int8")
         kp, vp = kq.payload, vq.payload
         extra = dict(k_scales_pages=kq.scales, v_scales_pages=vq.scales)
+        q = q.to(torch.bfloat16)
     else:
         kp = make_random(1, (b * pps + 8, kvh, ps, d), torch.bfloat16, device)
         vp = make_random(2, (b * pps + 8, kvh, ps, d), torch.bfloat16, device)

@@ -71,7 +71,11 @@ def main(argv=None):
             extra = dict(k_scales_pages=kq.scales, v_scales_pages=vq.scales)
             kv_bytes = 2 * b * kvh * s * (d * 1 + 4)  # payload + f32 scale
             tol = 5e-2 if name == "int8" else 2e-1  # e4m3: 3 mantissa bits
-        qk = q if name == "float32" else q.to(torch.bfloat16)
+        # float32 q, as the JAX bench passes it: over bf16 pages the entry
+        # point takes it in bf16, as the Pallas kernel does.  Over 8-bit pages
+        # float32 q runs the scalar 8-bit form (q kept in float32), so there
+        # q is taken in bf16 here, as the Pallas kernel takes it.
+        qk = q if name in ("float32", "bfloat16") else q.to(torch.bfloat16)
 
         def fn(q, kp=kp, vp=vp, extra=extra):
             return paged_attention(q, kp, vp, lengths, page_indices, **extra)

@@ -162,11 +162,15 @@ __device__ __forceinline__ Range kv_range(int r0, int rows, int kv_len, int q_of
 
 // The paged form's arguments: per request b = blockIdx.z, its table row
 // page_indices[b] (pages_per_seq entries) and its context ctx_lens[b]; row r
-// of the chunk sits at ctx_lens[b] - chunk + r % q_seq_len.
+// of the chunk sits at ctx_lens[b] - chunk + r % q_seq_len.  With o32, O
+// is written there in float32, straight from the float32 sums (float32 q over
+// bf16 pages, taken in bf16 as the Pallas kernel takes it, decode.py:440-445,
+// whose output is q's type), and `o` is not written.
 struct Paged {
   const int* page_indices;
   const int* ctx_lens;
   int pages_per_seq, page_size, chunk;
+  float* o32;
 };
 
 template <int D, bool kWindowCap, bool kExtra, int kProbe, bool kPaged, int kKV = 0>
@@ -545,15 +549,28 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     seen_b = min(pos_b, kv_len - 1) >= (win > 0 ? max(0, pos_b - win + 1) : 0);
   }
   __nv_bfloat16* o_head = o + static_cast<size_t>(bh) * rows * D;
+  float* o32_head = nullptr;
+  if constexpr (kPaged) {
+    if (pg.o32 != nullptr) o32_head = pg.o32 + static_cast<size_t>(bh) * rows * D;
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + 2 * t;
-    if (ra < rows)
-      *reinterpret_cast<uint32_t*>(o_head + static_cast<size_t>(ra) * D + c) =
-          seen_a ? tc::pack_bf16(acc[0][4 * j] * inv_a, acc[0][4 * j + 1] * inv_a) : 0u;
-    if (rb < rows)
-      *reinterpret_cast<uint32_t*>(o_head + static_cast<size_t>(rb) * D + c) =
-          seen_b ? tc::pack_bf16(acc[0][4 * j + 2] * inv_b, acc[0][4 * j + 3] * inv_b) : 0u;
+    const float2 xa = seen_a ? make_float2(acc[0][4 * j] * inv_a, acc[0][4 * j + 1] * inv_a)
+                             : make_float2(0.f, 0.f);
+    const float2 xb = seen_b ? make_float2(acc[0][4 * j + 2] * inv_b, acc[0][4 * j + 3] * inv_b)
+                             : make_float2(0.f, 0.f);
+    if (o32_head != nullptr) {
+      if (ra < rows) *reinterpret_cast<float2*>(o32_head + static_cast<size_t>(ra) * D + c) = xa;
+      if (rb < rows) *reinterpret_cast<float2*>(o32_head + static_cast<size_t>(rb) * D + c) = xb;
+    } else {
+      if (ra < rows)
+        *reinterpret_cast<uint32_t*>(o_head + static_cast<size_t>(ra) * D + c) =
+            tc::pack_bf16(xa.x, xa.y);
+      if (rb < rows)
+        *reinterpret_cast<uint32_t*>(o_head + static_cast<size_t>(rb) * D + c) =
+            tc::pack_bf16(xb.x, xb.y);
+    }
   }
   if (l_out != nullptr && t == 0) {
     const size_t head = static_cast<size_t>(bh) * rows;

@@ -172,17 +172,17 @@ __device__ __forceinline__ void convert_tile(const unsigned char* src, unsigned 
 }
 
 // Grid (splits, KVH, B), Cfg::kThreads threads: warps 0 .. kWarps - 1
-// consume, warp kWarps produces.  o: (B, KVH, rows, D) bf16 when gridDim.x
-// == 1; else part_o (B, KVH, splits, rows, D) and part_ml (B, KVH, splits,
-// rows, 2) float32.
+// consume, warp kWarps produces.  o: (B, KVH, rows, D) bf16 (o32 in
+// float32 where it is given) when gridDim.x == 1; else part_o (B, KVH,
+// splits, rows, D) and part_ml (B, KVH, splits, rows, 2) float32.
 template <int D, int kMB, int kKV>
 __global__ void __launch_bounds__(Cfg<D, kMB, kKV>::kThreads)
 paged_decode_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const __nv_bfloat16* __restrict__ q,
                        const float* __restrict__ k_scales, const float* __restrict__ v_scales,
                        const int* __restrict__ lengths, const int* __restrict__ page_indices,
-                       __nv_bfloat16* __restrict__ o, float* __restrict__ part_o,
-                       float* __restrict__ part_ml, int rows, int page_size, int pages_per_seq,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ o32,
+                       float* __restrict__ part_o, float* __restrict__ part_ml, int rows, int page_size, int pages_per_seq,
                        int tiles_per_split, int draft_k, float scale, int window, float softcap) {
   using C = Cfg<D, kMB, kKV>;
   constexpr int kM = C::kM, kWarps = C::kWarps, kCThreads = C::kCThreads;
@@ -505,8 +505,11 @@ paged_decode_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
         for (int nb = 0; nb < kPN; ++nb) {
           const int c = warp * (D / kWarps) + 8 * nb + 2 * t4;
-          *reinterpret_cast<uint32_t*>(o + (head * rows + r) * D + c) =
-              tc::pack_bf16(acc[mb][nb][2 * ri] * inv, acc[mb][nb][2 * ri + 1] * inv);
+          const float x0 = acc[mb][nb][2 * ri] * inv, x1 = acc[mb][nb][2 * ri + 1] * inv;
+          if (o32 != nullptr)
+            *reinterpret_cast<float2*>(o32 + (head * rows + r) * D + c) = make_float2(x0, x1);
+          else
+            *reinterpret_cast<uint32_t*>(o + (head * rows + r) * D + c) = tc::pack_bf16(x0, x1);
         }
       } else {
 #pragma unroll
@@ -524,12 +527,14 @@ paged_decode_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
 
 // O from the splits' partials: per row, M = max_s m_s, w_s = exp(m_s - M)
 // (0 for an empty split, m_s = -inf), O = sum_s w_s O_s / sum_s w_s l_s
-// (zeros where every split is empty: a length-0 request).  Grid B * KVH.
-// kKV only names the form the profiles count it under.
+// (zeros where every split is empty: a length-0 request), in bf16 or, where
+// o32 is given, float32.  Grid B * KVH.  kKV only names the form the
+// profiles count it under.
 template <int D, int kKV>
 __global__ void __launch_bounds__(256)
 paged_decode_tc_merge_kernel(const float* __restrict__ part_o, const float* __restrict__ part_ml,
-                             __nv_bfloat16* __restrict__ o, int rows, int ns) {
+                             __nv_bfloat16* __restrict__ o, float* __restrict__ o32, int rows,
+                             int ns) {
   __shared__ float w_s[32 * kMaxSplits];
   __shared__ float inv_s[32];
   const size_t head = blockIdx.x;
@@ -552,7 +557,8 @@ paged_decode_tc_merge_kernel(const float* __restrict__ part_o, const float* __re
     const int r = x / D;
     float a = 0.f;
     for (int s = 0; s < ns; ++s) a += w_s[r * kMaxSplits + s] * po[static_cast<size_t>(s) * rows * D + x];
-    o[head * rows * D + x] = __float2bfloat16(a * inv_s[r]);
+    if (o32 != nullptr) o32[head * rows * D + x] = a * inv_s[r];
+    else o[head * rows * D + x] = __float2bfloat16(a * inv_s[r]);
   }
 }
 
@@ -572,6 +578,7 @@ struct Args {
   float scale;
   int window;
   float softcap;
+  int o_f32;
   cudaStream_t stream;
 };
 
@@ -594,14 +601,16 @@ int launch(const Args& a) {
     if (err != cudaSuccess) return static_cast<int>(err);
     attr = true;
   }
+  __nv_bfloat16* o = a.o_f32 ? nullptr : static_cast<__nv_bfloat16*>(a.o);
+  float* o32 = a.o_f32 ? static_cast<float*>(a.o) : nullptr;
   kernel<<<dim3(a.splits, a.kvh, a.b), C::kThreads, C::kBytes, a.stream>>>(
       mk, mv, static_cast<const __nv_bfloat16*>(a.q), a.k_scales, a.v_scales, a.lengths,
-      a.page_indices, static_cast<__nv_bfloat16*>(a.o), a.part_o, a.part_ml, a.rows, a.page_size,
-      a.pages_per_seq, a.tiles_per_split, a.draft_k, a.scale, a.window, a.softcap);
+      a.page_indices, o, o32, a.part_o, a.part_ml, a.rows, a.page_size, a.pages_per_seq,
+      a.tiles_per_split, a.draft_k, a.scale, a.window, a.softcap);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
   paged_decode_tc_merge_kernel<D, kKV><<<a.b * a.kvh, 256, 0, a.stream>>>(
-      a.part_o, a.part_ml, static_cast<__nv_bfloat16*>(a.o), a.rows, a.splits);
+      a.part_o, a.part_ml, o, o32, a.rows, a.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -626,7 +635,9 @@ int launch_d(int d, const Args& a) {
 // v_pages: (num_pages, kvh, page_size, d), bf16 (kv_dtype 1) or, built with
 // FA_QUANT, int8 (2) / fp8 e4m3 (3) payloads with float32 scale pools
 // k_scales, v_scales (num_pages, kvh, page_size); lengths: (b,) int32;
-// page_indices: (b, pages_per_seq) int32; o like q; part_o, part_ml:
+// page_indices: (b, pages_per_seq) int32; o like q, or float32 with o_f32
+// (float32 q over bf16 pages, taken in bf16 as the Pallas kernel takes it,
+// decode.py:145-150: O from the float32 sums, no bf16 rounding); part_o, part_ml:
 // float32 scratch of b * kvh * splits * rows * d and * 2 elements (unused
 // when splits is 1).  All contiguous, on the device, 16-byte aligned
 // (TMA).  The page size is a multiple of 8 that divides 64 or that 64
@@ -639,7 +650,7 @@ extern "C" int fa_paged_decode_tc(int kv_dtype, const void* q, const void* k_pag
                                   void* part_o, void* part_ml, int b, int kvh, int rows, int d,
                                   int num_pages, int page_size, int pages_per_seq, int splits,
                                   int tiles_per_split, int draft_k, float scale, int window,
-                                  float softcap, void* stream) {
+                                  float softcap, int o_f32, void* stream) {
   if (rows < 1 || rows > 32 || draft_k < 1 || rows % draft_k || splits < 1 ||
       splits > kMaxSplits || tiles_per_split < 1 || page_size % 8 ||
       (kTile % page_size && page_size % kTile))
@@ -648,7 +659,7 @@ extern "C" int fa_paged_decode_tc(int kv_dtype, const void* q, const void* k_pag
                static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
                static_cast<const int*>(page_indices), o, static_cast<float*>(part_o),
                static_cast<float*>(part_ml), b, kvh, rows, num_pages, page_size, pages_per_seq,
-               splits, tiles_per_split, draft_k, scale, window, softcap,
+               splits, tiles_per_split, draft_k, scale, window, softcap, o_f32,
                static_cast<cudaStream_t>(stream)};
 #ifdef FA_QUANT
   if (kv_dtype == fa::kInt8) return launch_d<1>(d, a);

@@ -95,21 +95,24 @@ int launch_d(const fwd_tc::Args& a, const fwd_tc::Paged& pg, int d, int num_page
 
 // q: (b, kvh, rows, d) bf16; k_pages, v_pages: (num_pages, kvh, page_size,
 // d) bf16; page_indices: (b, pages_per_seq) int32; ctx_lens: (b,) int32; o
-// like q.  All contiguous, on the device, 16-byte aligned (TMA); entries of
-// a table row that cover live columns name pool pages.  window <= 0: no
-// sliding window; softcap <= 0: none.
+// like q, or float32 with o_f32 (float32 q over bf16 pages, taken in bf16:
+// O from the float32 sums, no bf16 rounding).  All contiguous, on the
+// device, 16-byte aligned (TMA); entries of a table row that cover live
+// columns name pool pages.  window <= 0: no sliding window; softcap <= 0:
+// none.
 #ifndef FA_QUANT
 extern "C" int fa_paged_prefill_tc(const void* q, const void* k_pages, const void* v_pages,
                                    const void* page_indices, const void* ctx_lens, void* o, int b,
                                    int kvh, int rows, int d, int num_pages, int page_size,
                                    int pages_per_seq, int chunk, int seg, float scale,
-                                   int window, float softcap, void* stream) {
+                                   int window, float softcap, int o_f32, void* stream) {
   const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, seg, 0u, 0u, 0.f};
   const fwd_tc::Args a{q, k_pages, v_pages, o, nullptr, nullptr, nullptr, nullptr, b * kvh, rows,
                        0, 0, 0, seg, 1, scale, window, softcap, ex,
                        static_cast<cudaStream_t>(stream)};
   const fwd_tc::Paged pg{static_cast<const int*>(page_indices), static_cast<const int*>(ctx_lens),
-                         pages_per_seq, page_size, chunk};
+                         pages_per_seq, page_size, chunk,
+                         o_f32 ? static_cast<float*>(o) : nullptr};
   return launch_d<0>(a, pg, d, num_pages, kvh, b);
 }
 #else
@@ -127,7 +130,7 @@ extern "C" int fa_paged_prefill_tc_quant(int kv_dtype, const void* k_scales, con
   a.k_scales = static_cast<const float*>(k_scales);
   a.v_scales = static_cast<const float*>(v_scales);
   const fwd_tc::Paged pg{static_cast<const int*>(page_indices), static_cast<const int*>(ctx_lens),
-                         pages_per_seq, page_size, chunk};
+                         pages_per_seq, page_size, chunk, nullptr};
   switch (kv_dtype) {
     case 2: return launch_d<1>(a, pg, d, num_pages, kvh, b);
     case 3: return launch_d<2>(a, pg, d, num_pages, kvh, b);

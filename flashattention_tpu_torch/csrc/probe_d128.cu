@@ -46,8 +46,18 @@
 //   kernel itself (flash_fwd_tc.cuh, with its masks, segment ids and
 //   dropout paths), which computes what full_bq128_split1 computes.
 //
-// Built twice (FA_PROBE_HALF 0 and 1), each library holding half of the
-// modes, so that neither lengthens the build.
+// items 4 and 5's normal orientation (probe_d128d.py::build :45, pallas_call
+// :75; probe_d128e.py::build :41, :71), unscaled, O float32 (BH, S, d):
+//   base       O = sum exp(S - m) V unnormalized, m the max over the whole
+//              key row: streaming, O is rescaled whenever the running max
+//              moves (the other orientation is csrc/probe_d128t.cu);
+//   pv_bf16out P = exp(S - 5), O = P V rounded once to bf16 and stored as
+//              float32: wgmma with bf16 operands sums only in float32, so
+//              the counterpart of the TPU product that emits bf16 is the
+//              bf16 rounding and store of the float32 accumulator.
+//
+// Built three times (FA_PROBE_HALF 0, 1 and 2), each library holding part
+// of the modes, so that none lengthens the build.
 #include "common.cuh"
 #include "tc_common.cuh"
 
@@ -58,7 +68,9 @@ constexpr int kHalf = kN * tc::kChunkRowBytes;  // one 64-column chunk of a tile
 constexpr int kTile = kChunks * kHalf;          // a K or V tile: 32 KB
 constexpr int kProducerRegs = 24;
 
-enum Var { kSkeleton, kExp, kMaxExp, kFull };
+enum Var { kSkeleton, kExp, kMaxExp, kFull, kRescale };
+// O as stored: bf16; float32; float32 of O rounded once to bf16.
+enum Out { kOutBf16, kOutF32, kOutF32ViaBf16 };
 
 template <int kCons, int kTiles>
 struct Layout {
@@ -81,11 +93,12 @@ __device__ __forceinline__ void pack_a1(uint32_t (&hi)[4], const float (&x)[R], 
   for (int w = 0; w < 4; ++w) hi[w] = tc::pack_bf16(x[8 * kk + 2 * w], x[8 * kk + 2 * w + 1]);
 }
 
-template <int kVar, int kTerms, int kCons, int kTiles, int kSplit, bool kVT, bool kKT>
+template <int kVar, int kTerms, int kCons, int kTiles, int kSplit, bool kVT, bool kKT,
+          int kOut = kOutBf16>
 __global__ void __launch_bounds__(Layout<kCons, kTiles>::kThreads, 1)
 probe_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-             const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int rows,
-             int s_kv, float scale) {
+             const __grid_constant__ CUtensorMap tm_v, void* __restrict__ o, int rows, int s_kv,
+             float scale) {
   using L = Layout<kCons, kTiles>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -181,7 +194,7 @@ probe_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
       } else if constexpr (kVar == kExp) {
 #pragma unroll
         for (int x = 0; x < kN / 2; ++x) sc[x] = tc::ex2((sc[x] * scale - 5.f) * tc::kLog2e);
-      } else {  // the running row max (and, for kFull, the recurrence)
+      } else {  // the running row max (kFull, kRescale: and the rescale of O)
         float mx_a = m_a, mx_b = m_b;
 #pragma unroll
         for (int x = 0; x < kN / 2; ++x) {
@@ -209,6 +222,8 @@ probe_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
         if constexpr (kVar == kFull) {
           l_a = alpha_a * l_a + sum_a;
           l_b = alpha_b * l_b + sum_b;
+        }
+        if constexpr (kVar == kFull || kVar == kRescale) {
 #pragma unroll
           for (int x = 0; x < D / 2; ++x) acc[x] *= x % 4 < 2 ? alpha_a : alpha_b;
         }
@@ -273,21 +288,36 @@ probe_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
       inv_a = l_a == 0.f ? 1.f : 1.f / l_a;
       inv_b = l_b == 0.f ? 1.f : 1.f / l_b;
     }
-    __nv_bfloat16* o_head = o + static_cast<size_t>(bh) * rows * D;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
       const int c = 8 * jj + 2 * t;
-      if (ra < rows)
-        *reinterpret_cast<uint32_t*>(o_head + static_cast<size_t>(ra) * D + c) =
-            tc::pack_bf16(acc[4 * jj] * inv_a, acc[4 * jj + 1] * inv_a);
-      if (rb < rows)
-        *reinterpret_cast<uint32_t*>(o_head + static_cast<size_t>(rb) * D + c) =
-            tc::pack_bf16(acc[4 * jj + 2] * inv_b, acc[4 * jj + 3] * inv_b);
+      float2 xa = make_float2(acc[4 * jj] * inv_a, acc[4 * jj + 1] * inv_a);
+      float2 xb = make_float2(acc[4 * jj + 2] * inv_b, acc[4 * jj + 3] * inv_b);
+      if constexpr (kOut == kOutBf16) {
+        __nv_bfloat16* o_head = static_cast<__nv_bfloat16*>(o) + static_cast<size_t>(bh) * rows * D;
+        if (ra < rows)
+          *reinterpret_cast<uint32_t*>(o_head + static_cast<size_t>(ra) * D + c) =
+              tc::pack_bf16(xa.x, xa.y);
+        if (rb < rows)
+          *reinterpret_cast<uint32_t*>(o_head + static_cast<size_t>(rb) * D + c) =
+              tc::pack_bf16(xb.x, xb.y);
+      } else {
+        if constexpr (kOut == kOutF32ViaBf16) {
+          xa = make_float2(__bfloat162float(__float2bfloat16(xa.x)),
+                           __bfloat162float(__float2bfloat16(xa.y)));
+          xb = make_float2(__bfloat162float(__float2bfloat16(xb.x)),
+                           __bfloat162float(__float2bfloat16(xb.y)));
+        }
+        float* o_head = static_cast<float*>(o) + static_cast<size_t>(bh) * rows * D;
+        if (ra < rows) *reinterpret_cast<float2*>(o_head + static_cast<size_t>(ra) * D + c) = xa;
+        if (rb < rows) *reinterpret_cast<float2*>(o_head + static_cast<size_t>(rb) * D + c) = xb;
+      }
     }
   }
 }
 
-template <int kVar, int kTerms, int kCons, int kTiles, int kSplit, bool kVT, bool kKT>
+template <int kVar, int kTerms, int kCons, int kTiles, int kSplit, bool kVT, bool kKT,
+          int kOut = kOutBf16>
 int launch(const void* q, const void* k, const void* v, void* o, int bh, int rows, int s_kv,
            float scale, cudaStream_t stream) {
   using L = Layout<kCons, kTiles>;
@@ -303,13 +333,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int row
     st = kVT ? tc_encode_map(&mv, v, s_kv, D, bh, head, D)
              : tc_encode_map(&mv, v, D, s_kv, bh, head, kN);
   if (st != 0) return st;
-  auto kernel = probe_kernel<kVar, kTerms, kCons, kTiles, kSplit, kVT, kKT>;
+  auto kernel = probe_kernel<kVar, kTerms, kCons, kTiles, kSplit, kVT, kKT, kOut>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((rows + L::kBlockM - 1) / L::kBlockM, bh / kTiles);
-  kernel<<<grid, L::kThreads, L::kBytes, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o),
-                                                   rows, s_kv, scale);
+  kernel<<<grid, L::kThreads, L::kBytes, stream>>>(mq, mk, mv, o, rows, s_kv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -319,19 +348,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int row
 
 }  // namespace
 
-// q, o: (bh, rows, 128) bf16; k, v: (bh, s_kv, 128) bf16, or (bh, 128,
-// s_kv) where the mode stores them transposed (qk_nn: k; vt, vt_split2: v);
-// s_kv a multiple of 128, bh even for the two-tile modes.  Modes (the
-// names of ops/probes.py's D128_MODES): 0 skeleton, 1 exp, 2 maxexp, 3
-// pcast, 4 bq64, 5 bq192, 6 bh2, 7 pcast_bq192, 8 pcast_bh2 (FA_PROBE_HALF
-// 0); 9 pv_split2, 10 pv_split4, 11 vt, 12 vt_split2, 13 qk_nn, 14
-// full_bq128_split2, 15 full_bq192_split1, 16 full_bq192_split2, 17
-// full_bq128_split1 (FA_PROBE_HALF 1).  -1 for a mode the library does not hold.
+// q: (bh, rows, 128) bf16; o: (bh, rows, 128), bf16 (modes 0-17) or
+// float32 (18, 19); k, v: (bh, s_kv, 128) bf16, or (bh, 128, s_kv) where
+// the mode stores them transposed (qk_nn: k; vt, vt_split2: v); s_kv a
+// multiple of 128, bh even for the two-tile modes.  Modes (the names of
+// ops/probes.py's D128_MODES, then D128DE_MODES): 0 skeleton, 1 exp, 2
+// maxexp, 3 pcast, 4 bq64, 5 bq192, 6 bh2, 7 pcast_bq192, 8 pcast_bh2
+// (FA_PROBE_HALF 0); 9 pv_split2, 10 pv_split4, 11 vt, 12 vt_split2, 13
+// qk_nn, 14 full_bq128_split2, 15 full_bq192_split1, 16 full_bq192_split2,
+// 17 full_bq128_split1 (FA_PROBE_HALF 1); 18 base, 19 pv_bf16out
+// (FA_PROBE_HALF 2).  -1 for a mode the library does not hold.
 extern "C" int fa_probe_d128(int mode, const void* q, const void* k, const void* v, void* o,
                              int bh, int rows, int s_kv, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FA_PROBE_OUT(var, terms, cons, tiles, split, vt, kt, out) \
+  launch<var, terms, cons, tiles, split, vt, kt, out>(q, k, v, o, bh, rows, s_kv, scale, st)
 #define FA_PROBE(var, terms, cons, tiles, split, vt, kt) \
-  launch<var, terms, cons, tiles, split, vt, kt>(q, k, v, o, bh, rows, s_kv, scale, st)
+  FA_PROBE_OUT(var, terms, cons, tiles, split, vt, kt, kOutBf16)
 #if FA_PROBE_HALF == 0
   switch (mode) {
     case 0: return FA_PROBE(kSkeleton, 2, 2, 1, 1, false, false);
@@ -345,7 +378,7 @@ extern "C" int fa_probe_d128(int mode, const void* q, const void* k, const void*
     case 8: return FA_PROBE(kSkeleton, 1, 2, 2, 1, false, false);
     default: return -1;
   }
-#else
+#elif FA_PROBE_HALF == 1
   switch (mode) {
     case 9: return FA_PROBE(kSkeleton, 2, 2, 1, 2, false, false);
     case 10: return FA_PROBE(kSkeleton, 2, 2, 1, 4, false, false);
@@ -358,6 +391,13 @@ extern "C" int fa_probe_d128(int mode, const void* q, const void* k, const void*
     case 17: return FA_PROBE(kFull, 2, 2, 1, 1, false, false);
     default: return -1;
   }
+#else
+  switch (mode) {
+    case 18: return FA_PROBE_OUT(kRescale, 2, 2, 1, 1, false, false, kOutF32);
+    case 19: return FA_PROBE_OUT(kExp, 2, 2, 1, 1, false, false, kOutF32ViaBf16);
+    default: return -1;
+  }
 #endif
 #undef FA_PROBE
+#undef FA_PROBE_OUT
 }

@@ -123,6 +123,16 @@ def _gather(pages, scales, page_indices):
     return rows.float().transpose(1, 2).reshape(b, kvh, pps * ps, d)
 
 
+def _f32_over_bf16(q, k_pages, k_scales_pages) -> bool:
+    """Float32 q over bf16 pages: taken in bf16, as the Pallas kernels take
+    q over 16- and 8-bit pages (decode.py:145-150, :440-445), with O in
+    float32, their ``out_shape`` being q's type (:359, :637, :773).  The
+    tensor-core forms write that O straight from their float32 sums; a call
+    the bf16 form of which is scalar stores bf16 and casts it."""
+    return (q.dtype == torch.float32 and k_pages.dtype == torch.bfloat16
+            and k_scales_pages is None)
+
+
 def _row_limits(lengths, rows, draft_k, device):
     """(B, rows) last column each q row sees: ``length - k + r % k`` (k-minor
     draft rows; every row ``length - 1`` when k = 1)."""
@@ -170,7 +180,22 @@ def paged_attention_plain(
     (:func:`_paged_attention_tc_plain`; ``splits`` the split count to ask
     :func:`decode_splits` for, by default the one the kernel takes on the
     card the inputs lie on); ``"scalar"`` attends in float32 over 8-bit
-    rows dequantized in float32."""
+    rows dequantized in float32.  Float32 q over bf16 pages is taken in bf16
+    (:func:`_f32_over_bf16`): the form is the bf16 call's, and O comes back
+    in float32, from the float32 sums (tc) or through a bf16 store
+    (scalar)."""
+    kw = dict(scale=scale, draft_k=draft_k, window=window, logit_softcap=logit_softcap)
+    if _f32_over_bf16(q, k_pages, k_scales_pages):
+        qb = q.to(torch.bfloat16)
+        if form is None:
+            form = kernel_form("paged_decode", qb.dtype, q.shape[3], page_size=k_pages.shape[2],
+                               rows=q.shape[2])
+        if form == "tc":
+            return _paged_attention_tc_plain(qb.float(), k_pages, v_pages, lengths, page_indices,
+                                             k_scales_pages=None, v_scales_pages=None,
+                                             splits=splits, **kw)
+        return paged_attention_plain(qb, k_pages, v_pages, lengths, page_indices, form=form,
+                                     **kw).float()
     if form is None:
         form = kernel_form("paged_decode", q.dtype, q.shape[3], quantized=k_scales_pages is not None,
                            page_size=k_pages.shape[2], rows=q.shape[2])
@@ -307,7 +332,9 @@ def paged_attention(
         kernels choose their own tiles, and a CPU tensor runs the plain
         version).
 
-    Returns ``(B, KVH, G, d)`` in q's dtype.  The launch count is kept on
+    Returns ``(B, KVH, G, d)`` in q's dtype.  Float32 q over bf16 pages is
+    taken in bf16, as the JAX kernel takes it (:func:`_f32_over_bf16`), and
+    O comes back in float32.  The launch count is kept on
     this function (``.launches``; ``.launches_quantized`` and
     ``.launches_draft`` count the 8-bit and draft launches among them, and
     ``.launches_tc``, ``.launches_tc_quantized`` and ``.launches_tc_draft``
@@ -320,6 +347,8 @@ def paged_attention(
     draft_k = int(draft_k)
     if draft_k < 1 or g % draft_k:
         raise ValueError(f"q group rows ({g}) must be a multiple of draft_k ({draft_k})")
+    f32_q = _f32_over_bf16(q, k_pages, k_scales_pages)
+    qk = q.to(torch.bfloat16) if f32_q else q  # the q the kernel takes
     _, kvh2, page_size, d2 = k_pages.shape
     if (kvh2, d2) != (kvh, d):
         raise ValueError(f"q/k_pages mismatch: {tuple(q.shape)} vs {tuple(k_pages.shape)}")
@@ -330,12 +359,13 @@ def paged_attention(
             f"lengths {tuple(lengths.shape)} / page_indices {tuple(page_indices.shape)} "
             f"do not match batch {b}"
         )
-    quantized = _check_pages(q, k_pages, v_pages, k_scales_pages, v_scales_pages)
+    quantized = _check_pages(qk, k_pages, v_pages, k_scales_pages, v_scales_pages)
     scales = (k_scales_pages, v_scales_pages) if quantized else ()
 
     if not all(t.is_contiguous() for t in (q, k_pages, v_pages, lengths, page_indices, *scales)):
         raise ValueError("paged_attention takes contiguous tensors")
-    form = kernel_form("paged_decode", q.dtype, d, quantized=quantized, page_size=page_size, rows=g)
+    form = kernel_form("paged_decode", qk.dtype, d, quantized=quantized, page_size=page_size,
+                       rows=g)
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, lengths, page_indices, scale=scale, draft_k=draft_k,
@@ -357,9 +387,10 @@ def paged_attention(
     if b > 65535:
         raise ValueError(f"paged_attention kernel takes B <= 65535, got {b}")
     if quantized or form == "tc":
-        kernels.check_aligned("paged_attention", *((q, k_pages, v_pages) if form == "tc"
+        kernels.check_aligned("paged_attention", *((qk, k_pages, v_pages) if form == "tc"
                                                    else (k_pages, v_pages)))
-    o = torch.empty_like(q)
+    # The tensor-core form writes float32 O itself for float32 q.
+    o = torch.empty_like(q if form == "tc" else qk)
     what = f"q {tuple(q.shape)} {q.dtype}, pages {k_pages.dtype}, draft_k {draft_k}"
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale_ptrs = [t.data_ptr() if quantized else None for t in (k_scales_pages, v_scales_pages)]
@@ -374,17 +405,17 @@ def paged_attention(
         part_ml = part_o and part_o + 4 * b * kvh * n * g * d
         name = "paged_decode_tc" + ("_quant" if quantized else "")
         status = kernels.library(name).fa_paged_decode_tc(
-            KV_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            KV_DTYPES[k_pages.dtype], qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             *scale_ptrs, lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(), part_o,
             part_ml, b, kvh, g, d, k_pages.shape[0], page_size, pps, n, per, draft_k,
-            float(scale), *kernel_options(window, logit_softcap), stream,
+            float(scale), *kernel_options(window, logit_softcap), int(f32_q), stream,
         )
         kernels.check_launch(name, status, what)
     else:
         # The draft form and the 8-bit pages' forms (a library per d) build apart.
         name = "paged_decode" + ("_draft" if draft_k > 1 else "") + (f"_quant_d{d}" if quantized else "")
         status = kernels.library(name).fa_paged_decode(
-            _DTYPES[q.dtype], KV_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
+            _DTYPES[qk.dtype], KV_DTYPES[k_pages.dtype], qk.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), *scale_ptrs, lengths.data_ptr(), page_indices.data_ptr(),
             o.data_ptr(), b, kvh, g, d, page_size, page_indices.shape[1], draft_k, float(scale),
             *kernel_options(window, logit_softcap), stream,
@@ -397,7 +428,7 @@ def paged_attention(
     paged_attention.launches_tc += tc
     paged_attention.launches_tc_quantized += tc and quantized
     paged_attention.launches_tc_draft += tc and draft_k > 1
-    return o
+    return o.to(q.dtype)
 
 
 # Kernel launches, for the chip run's path check: all forms, the 8-bit ones
@@ -467,11 +498,28 @@ def paged_prefill_attention_plain(
     against the running max of ``TC_KV_TILE`` columns, tiles aligned to
     column 0, as the paged kernel's are; 8-bit pages as payloads with their
     gathered scales), its chunk's rows at ``ctx_len - chunk + r % seg``;
-    ``"scalar"`` attends in float32."""
+    ``"scalar"`` attends in float32.  Float32 q over bf16 pages is taken in
+    bf16 (:func:`_f32_over_bf16`): the form is the bf16 call's, and O comes
+    back in float32, from the float32 sums (tc) or through a bf16 store
+    (scalar)."""
     seg = seg or q.shape[2]
+    args = (k_pages, v_pages, page_indices, ctx_lens)
+    kw = dict(chunk=chunk, seg=seg, scale=scale, window=window, logit_softcap=logit_softcap,
+              k_scales_pages=k_scales_pages, v_scales_pages=v_scales_pages)
+    f32_q = _f32_over_bf16(q, k_pages, k_scales_pages)
     if form is None:
-        form = kernel_form("paged_prefill", q.dtype, q.shape[3],
+        form = kernel_form("paged_prefill", torch.bfloat16 if f32_q else q.dtype, q.shape[3],
                            quantized=k_scales_pages is not None, page_size=k_pages.shape[2])
+    if f32_q:
+        qb = q.to(torch.bfloat16)
+        return _paged_prefill_plain(qb.float() if form == "tc" else qb, *args, form=form,
+                                    **kw).float()
+    return _paged_prefill_plain(q, *args, form=form, **kw)
+
+
+def _paged_prefill_plain(q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, seg, scale,
+                         window, logit_softcap, k_scales_pages, v_scales_pages, form):
+    """:func:`paged_prefill_attention_plain` in the form ``form``."""
     s_max = page_indices.shape[1] * k_pages.shape[2]
     rows = q.shape[2]
     if form == "tc":
@@ -548,8 +596,9 @@ def paged_prefill_attention_batched(
         page wholly before a tile's window is read.
       logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
 
-    Returns ``(B, KVH, R, d)`` in q's dtype.  The launch count is kept on
-    this function (``.launches``; ``.launches_tc``, ``.launches_quantized``
+    Returns ``(B, KVH, R, d)`` in q's dtype (float32 q over bf16 pages is
+    taken in bf16, as the JAX kernel takes it: :func:`_f32_over_bf16`).  The
+    launch count is kept on this function (``.launches``; ``.launches_tc``, ``.launches_quantized``
     and ``.launches_tc_quantized`` count the tensor-core, the 8-bit and the
     tensor-core 8-bit forms' among them); :func:`paged_prefill_attention`
     launches through it.
@@ -573,13 +622,15 @@ def paged_prefill_attention_batched(
         raise ValueError(f"q rows ({rows}) must be a multiple of seg ({seg})")
     if not 0 < chunk <= seg:
         raise ValueError(f"chunk ({chunk}) must lie in [1, seg={seg}]")
-    quantized = _check_pages(q, k_pages, v_pages, k_scales_pages, v_scales_pages)
+    f32_q = _f32_over_bf16(q, k_pages, k_scales_pages)
+    qk = q.to(torch.bfloat16) if f32_q else q  # the q the kernel takes
+    quantized = _check_pages(qk, k_pages, v_pages, k_scales_pages, v_scales_pages)
     scales = (k_scales_pages, v_scales_pages) if quantized else ()
 
     args = (q, k_pages, v_pages, page_indices, ctx_lens)
     if not all(t.is_contiguous() for t in (*args, *scales)):
         raise ValueError("paged_prefill_attention takes contiguous tensors")
-    form = kernel_form("paged_prefill", q.dtype, d, quantized=quantized, page_size=page_size)
+    form = kernel_form("paged_prefill", qk.dtype, d, quantized=quantized, page_size=page_size)
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
             *args, chunk=chunk, seg=seg, scale=scale, window=window, logit_softcap=logit_softcap,
@@ -596,19 +647,20 @@ def paged_prefill_attention_batched(
         raise ValueError("paged_prefill_attention kernel takes int32 ctx_lens and page_indices")
     if b > 65535 or kvh > 65535:
         raise ValueError(f"paged_prefill_attention kernel takes B, KVH <= 65535, got {b}, {kvh}")
-    kernels.check_aligned("paged_prefill_attention", q, k_pages, v_pages)
-    o = torch.empty_like(q)
+    kernels.check_aligned("paged_prefill_attention", qk, k_pages, v_pages)
+    # The tensor-core form writes float32 O itself for float32 q.
+    o = torch.empty_like(q if form == "tc" else qk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if form == "tc":
-        name, quant = "paged_prefill_tc", ()
+        name, quant, out = "paged_prefill_tc", (), (int(f32_q),)
         if quantized:  # the 8-bit form: the payload's type code and the scale pools
-            name = "paged_prefill_tc_quant"
+            name, out = "paged_prefill_tc_quant", ()
             quant = (KV_DTYPES[k_pages.dtype], k_scales_pages.data_ptr(), v_scales_pages.data_ptr())
         status = getattr(kernels.library(name), kernels.KERNELS[name][1])(
-            *quant, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_indices.data_ptr(),
+            *quant, qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_indices.data_ptr(),
             ctx_lens.data_ptr(), o.data_ptr(), b, kvh, rows, d, num_pages, page_size,
             page_indices.shape[1], int(chunk), seg, float(scale),
-            *kernel_options(window, logit_softcap), stream,
+            *kernel_options(window, logit_softcap), *out, stream,
         )
         kernels.check_launch(name, status, f"q {tuple(q.shape)}, pages {k_pages.dtype} {page_size}")
         paged_prefill_attention_batched.launches += 1
@@ -618,7 +670,7 @@ def paged_prefill_attention_batched(
         return o
     name = "paged_prefill_quant" if quantized else "paged_prefill"
     status = kernels.library(name).fa_paged_prefill(
-        _DTYPES[q.dtype], KV_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
+        _DTYPES[qk.dtype], KV_DTYPES[k_pages.dtype], qk.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), *(t.data_ptr() if quantized else None for t in (k_scales_pages, v_scales_pages)),
         page_indices.data_ptr(), ctx_lens.data_ptr(), o.data_ptr(),
         b, kvh, rows, d, num_pages, page_size, page_indices.shape[1], int(chunk),
@@ -627,7 +679,7 @@ def paged_prefill_attention_batched(
     kernels.check_launch(name, status, f"q {tuple(q.shape)} {q.dtype}, pages {k_pages.dtype}")
     paged_prefill_attention_batched.launches += 1
     paged_prefill_attention_batched.launches_quantized += quantized
-    return o
+    return o.to(q.dtype)
 
 
 # Kernel launches, for the chip run's path check: all forms, and the

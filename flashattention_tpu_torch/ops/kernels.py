@@ -25,9 +25,12 @@ two-pass backward pair's tensor-core forms are ``flash_bwd_dq_tc`` (a
 source of its own) and ``flash_bwd_dkv_tc`` (the fused backward's source
 built with ``-DFA_PAIR``), each with its dropout form ``*_extra``.
 ``probe_mma`` is the forward's loop bodies alone and its softmax probes, for
-``torch_tools/probe_mma.py`` and ``torch_tools/probe_softmax.py``, and
-``probe_d128_0`` / ``probe_d128_1`` the d = 128 forward's probes, half of the
-modes each (``torch_tools/probe_d128.py``); ``ops/probes.py`` wraps them.
+``torch_tools/probe_mma.py`` and ``torch_tools/probe_softmax.py``,
+``probe_d128_0`` / ``probe_d128_1`` / ``probe_d128_2`` the d = 128
+forward's probes, part of the modes each, and ``probe_d128t`` the
+transposed schedule's (``torch_tools/probe_d128.py``), ``probe_fp32``
+float32 attention as two bf16 terms (``torch_tools/probe_fp32.py``);
+``ops/probes.py`` wraps them.
 The build runs at first use, from the sources in the checkout only, into
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``).  A
 library's file name carries a hash of its source, the headers it includes
@@ -82,12 +85,15 @@ KERNELS = {
     **{f"paged_decode_draft_quant_d{d}": (
         *_PAGED_DECODE, ["-DFA_QUANT", "-DFA_DRAFT", f"-DFA_HEAD_DIM={d}"]) for d in (32, 64, 128, 256)},
     "paged_prefill_quant": (*_PAGED_PREFILL, ["-DFA_QUANT"]),
+    # ..., window, softcap, then whether O is float32 (float32 q over bf16
+    # pages, taken in bf16), stream.
     "paged_prefill_tc": ("paged_prefill_tc.cu", "fa_paged_prefill_tc",
-                         [*[_P] * 6, *[_I] * 9, _F, _I, _F, _P]),
+                         [*[_P] * 6, *[_I] * 9, _F, _I, _F, _I, _P]),
     # Paged decode's tensor-core form (bf16 q; bf16 pages, or 8-bit pages
-    # built with -DFA_QUANT): the payload's type code, then its pointers.
+    # built with -DFA_QUANT): the payload's type code, then its pointers;
+    # float32 O as in paged_prefill_tc.
     **{"paged_decode_tc" + suffix: ("paged_decode_tc.cu", "fa_paged_decode_tc",
-                                    [_I, *[_P] * 10, *[_I] * 10, _F, _I, _F, _P], flags)
+                                    [_I, *[_P] * 10, *[_I] * 10, _F, _I, _F, _I, _P], flags)
        for suffix, flags in (("", []), ("_quant", ["-DFA_QUANT"]))},
     # The 8-bit forms of the two tensor-core forwards: the payload's type
     # code and the two scale arrays first, then the bf16 form's arguments.
@@ -118,10 +124,14 @@ KERNELS = {
     # (torch_tools/probe_mma.py, torch_tools/probe_softmax.py; the same
     # library's fa_probe_int8 and fa_probe_stream, ops/probes.py).
     "probe_mma": ("probe_mma.cu", "fa_probe_mma", [_I, *[_P] * 6, *[_I] * 5, _F, _P]),
-    # The d = 128 forward's probes (torch_tools/probe_d128.py), half of the
-    # modes in each library.
+    # The d = 128 forward's probes (torch_tools/probe_d128.py), part of the
+    # modes in each library (probe_d128_2: the normal-orientation modes of
+    # scripts/probe_d128d.py and probe_d128e.py), the transposed schedule's
+    # probes, and float32 as two bf16 terms (torch_tools/probe_fp32.py).
     **{f"probe_d128_{half}": ("probe_d128.cu", "fa_probe_d128", [_I, *[_P] * 4, *[_I] * 3, _F, _P],
-                              [f"-DFA_PROBE_HALF={half}"]) for half in (0, 1)},
+                              [f"-DFA_PROBE_HALF={half}"]) for half in (0, 1, 2)},
+    "probe_d128t": ("probe_d128t.cu", "fa_probe_d128t", [_I, *[_P] * 4, _I, _I, _P]),
+    "probe_fp32": ("probe_fp32.cu", "fa_probe_fp32", [_I, *[_P] * 4, *[_I] * 3, _P]),
 }
 # Status codes from 10000 up: a TMA tensor map could not be encoded
 # (tc_common.cuh's tc_encode_map; 10000 + the driver's CUresult).

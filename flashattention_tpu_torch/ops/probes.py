@@ -3,7 +3,7 @@ PyTorch version of the function its mode computes.
 
 The JAX package's ``scripts/probe_*.py`` are TPU loop-body timers: each
 builds a Pallas kernel (``pl.pallas_call``) that does part of the forward's
-work, to see what each part costs.  Their ports are modes of two sources:
+work, to see what each part costs.  Their ports are modes of these sources:
 
 - ``csrc/probe_mma.cu`` (library ``probe_mma``): ``fa_probe_mma`` runs
   ``flash_fwd_tc.cuh``'s kernel in its probe modes (:data:`MMA_MODES`; 0 is
@@ -12,7 +12,14 @@ work, to see what each part costs.  Their ports are modes of two sources:
   attention call's bytes and paged decode's page walk (:func:`probe_stream_sum`,
   :func:`probe_page_walk`);
 - ``csrc/probe_d128.cu`` (libraries ``probe_d128_0`` and ``probe_d128_1``):
-  the d = 128 forward built up stage by stage (:data:`D128_MODES`).
+  the d = 128 forward built up stage by stage (:data:`D128_MODES`);
+- ``csrc/probe_d128t.cu`` (``probe_d128t``) and ``probe_d128.cu``'s
+  ``probe_d128_2``: the transposed schedule and the thin shapes of
+  scripts/probe_d128d.py and probe_d128e.py, unscaled, float32 O
+  (:data:`D128DE_MODES`, :func:`probe_d128de`);
+- ``csrc/probe_fp32.cu`` (``probe_fp32``): float32 attention as two bf16
+  terms, scripts/probe_small_fp32b.py (:data:`FP32_MODES`,
+  :func:`probe_fp32`, inputs packed by :func:`fp32_inputs`).
 
 On a CUDA tensor each wrapper launches its kernel or raises, and adds one to
 its ``launches`` count (and to ``launches_by_mode``); on a CPU tensor it runs
@@ -37,12 +44,19 @@ from flashattention_tpu_torch.ops.flash import _exp, _two_term_bf16
 from flashattention_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
 __all__ = [
+    "D128DE_MODES",
     "D128_MODES",
+    "FP32_MODES",
     "INT8_FLAVORS",
     "MMA_MODES",
+    "fp32_inputs",
     "lo_term_qkv",
     "probe_d128",
     "probe_d128_plain",
+    "probe_d128de",
+    "probe_d128de_plain",
+    "probe_fp32",
+    "probe_fp32_plain",
     "probe_int8",
     "probe_int8_plain",
     "probe_mma",
@@ -564,3 +578,222 @@ def probe_d128_plain(name: str, q, k, v, *, scale: float = 1.0):
     if cfg.var == "full":
         o = o / torch.where(l == 0, 1.0, l)[..., None]
     return o.to(q.dtype)
+
+
+# ------------------------------------------- probe_d128de: items 4 and 5
+
+
+@dataclasses.dataclass(frozen=True)
+class D128DEMode:
+    """One mode of scripts/probe_d128d.py or probe_d128e.py on the card:
+    its entry's mode number, what it computes (see :func:`probe_d128de_plain`)
+    and how it runs and stores."""
+
+    mode: int
+    item: str  # the TPU probe's variant
+    var: str  # rescale | full | exp | qk_heavy | pv_heavy
+    transposed: bool = True  # S^T = K Q^T and O^T = V^T P^T (csrc/probe_d128t.cu)
+    vt: bool = True  # V stored (BH, d, S)
+    o_t: bool = True  # O stored (BH, d, S)
+    bf16_out: bool = False  # O rounded once to bf16 (stored as float32)
+
+    @property
+    def library(self) -> str:
+        return "probe_d128t" if self.transposed else "probe_d128_2"
+
+
+D128DE_MODES = {
+    "base": D128DEMode(18, "probe_d128d.py base", "rescale", transposed=False, vt=False,
+                       o_t=False),
+    "t_vt": D128DEMode(0, "probe_d128d.py t_vt", "rescale"),
+    "t_vtk": D128DEMode(1, "probe_d128d.py t_vtk", "rescale", vt=False),
+    "t_full": D128DEMode(2, "probe_d128d.py t_full", "full"),
+    "t_o_norm": D128DEMode(3, "probe_d128d.py t_o_norm", "rescale", o_t=False),
+    "t_qk_heavy": D128DEMode(4, "probe_d128e.py t_qk_heavy", "qk_heavy"),
+    "t_pv_heavy": D128DEMode(5, "probe_d128e.py t_pv_heavy", "pv_heavy"),
+    "pv_bf16out": D128DEMode(19, "probe_d128e.py pv_bf16out", "exp", transposed=False, vt=False,
+                             o_t=False, bf16_out=True),
+}
+
+
+def probe_d128de(name: str, q, k, v):
+    """Mode ``name`` of :data:`D128DE_MODES`, unscaled and non-causal, over
+    bf16 ``q, k (BH, S, 128)`` and ``v`` ``(BH, 128, S)`` where the mode
+    stores it so (``vt``), else ``(BH, S, 128)``; S a multiple of 128.
+    Returns float32 O, ``(BH, 128, S)`` where the mode stores it so
+    (``o_t``), else ``(BH, S, 128)``."""
+    cfg = D128DE_MODES[name]
+    bh, s, d = q.shape
+    v_shape = (bh, d, s) if cfg.vt else (bh, s, d)
+    if d != 128 or s % KV_TILE or tuple(k.shape) != (bh, s, d) or tuple(v.shape) != v_shape:
+        raise ValueError(f"probe_d128de {name}: q, k (BH, S, 128), v {v_shape}, S a multiple of "
+                         f"{KV_TILE}; got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if not _on_card("probe_d128de", q, k, v):
+        return probe_d128de_plain(name, q, k, v)
+    _bf16("probe_d128de", q, k, v)
+    o = torch.empty((bh, d, s) if cfg.o_t else (bh, s, d), dtype=torch.float32, device=q.device)
+    lib = kernels.library(cfg.library)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if cfg.transposed:
+        status = lib.fa_probe_d128t(cfg.mode, *ptrs, bh, s, _stream(q))
+    else:
+        status = lib.fa_probe_d128(cfg.mode, *ptrs, bh, s, s, 1.0, _stream(q))
+    kernels.check_launch(cfg.library, status, f"mode {name}")
+    _count(probe_d128de, name)
+    return o
+
+
+probe_d128de.launches = 0
+probe_d128de.launches_by_mode = {}
+
+
+def probe_d128de_plain(name: str, q, k, v):
+    """The function of mode ``name``, 128-key tile by tile, unscaled (S = Q
+    K^T), P (S itself in the heavy modes) entering PV as two bf16 terms:
+    ``rescale`` O = sum exp(S - m) V, unnormalized, m the row's running max,
+    O rescaled when it moves (scripts/probe_d128d.py's base and t_* modes:
+    the transposed schedule's per-query max along the keys is the same
+    max); ``full`` that divided by l, the sum of the float32 p;
+    ``exp`` P = exp(S - 5), O = P V rounded once to bf16 (pv_bf16out);
+    ``qk_heavy`` O = S[:, :128] V[:128]; ``pv_heavy`` O = sum over the V
+    tiles of S_small V_tile, S_small = Q K[:128]^T.  Float32 O in the
+    mode's layout."""
+    cfg = D128DE_MODES[name]
+    qf, kf = q.float(), k.float()
+    vf = (v.transpose(1, 2) if cfg.vt else v).float()
+    bh, rows, d = q.shape
+    o = torch.zeros((bh, rows, d), device=q.device)
+    if cfg.var == "qk_heavy":
+        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, :KV_TILE])
+        o = torch.einsum("bqk,bkd->bqd", _two_term_bf16(s), vf[:, :KV_TILE])
+    elif cfg.var == "pv_heavy":
+        p = _two_term_bf16(torch.einsum("bqd,bkd->bqk", qf, kf[:, :KV_TILE]))
+        for t0 in range(0, vf.shape[1], KV_TILE):
+            o = o + torch.einsum("bqk,bkd->bqd", p, vf[:, t0:t0 + KV_TILE])
+    else:
+        m = torch.full((bh, rows), -torch.inf, device=q.device)
+        l = torch.zeros((bh, rows), device=q.device)
+        for t0 in range(0, kf.shape[1], KV_TILE):
+            s = torch.einsum("bqd,bkd->bqk", qf, kf[:, t0:t0 + KV_TILE])
+            if cfg.var == "exp":
+                p, alpha = _exp(s - 5.0), torch.ones_like(m)
+            else:
+                mx = torch.maximum(m, s.amax(dim=-1))
+                alpha, m = _exp(m - mx), mx
+                p = _exp(s - mx[..., None])
+            l = alpha * l + p.sum(dim=-1)
+            o = o * alpha[..., None] + torch.einsum("bqk,bkd->bqd", _two_term_bf16(p),
+                                                    vf[:, t0:t0 + KV_TILE])
+        if cfg.var == "full":
+            o = o / torch.where(l == 0, 1.0, l)[..., None]
+    if cfg.bf16_out:
+        o = o.to(torch.bfloat16).float()
+    return o.transpose(1, 2).contiguous() if cfg.o_t else o
+
+
+# ---------------------------------------------------------------- probe_fp32
+
+# scripts/probe_small_fp32b.py's variants: their mode numbers in
+# csrc/probe_fp32.cu.  All but bf16_skel take packed [hi | lo] operands.
+FP32_MODES = {"skeleton": 0, "exp": 1, "full": 2, "bf16_skel": 3}
+
+
+def _row_padded(x):
+    """``x (BH, S, w)`` as a view of a zero-padded buffer whose rows are a
+    multiple of 8 elements (16 bytes) apart, as TMA reads them."""
+    w = x.shape[2]
+    buf = torch.zeros((*x.shape[:2], -(-w // 8) * 8), dtype=x.dtype, device=x.device)
+    buf[..., :w] = x
+    return buf[..., :w]
+
+
+def _pack2(x):
+    """scripts/probe_small_fp32b.py's ``pack2`` (:39): ``[hi | lo]`` with
+    hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16)
+    return torch.cat([hi, (x - hi.float()).to(torch.bfloat16)], dim=-1)
+
+
+def fp32_inputs(q, k, v, mode: str):
+    """The operands of mode ``mode`` from float32 ``q, k, v (BH, S, d)``, as
+    the script's main builds them: packed ``q, k (BH, S, 2d)`` and ``v (BH,
+    S, 2d + 1)`` = ``[v_hi | v_lo | 1]``; for ``bf16_skel`` q, k in bf16 and
+    ``v = [v | 1]``.  v is a view whose rows lie a multiple of 16 bytes
+    apart (:func:`_row_padded`)."""
+    ones = torch.ones((*v.shape[:2], 1), dtype=torch.bfloat16, device=v.device)
+    if mode == "bf16_skel":
+        return (q.to(torch.bfloat16), k.to(torch.bfloat16),
+                _row_padded(torch.cat([v.to(torch.bfloat16), ones], dim=-1)))
+    return _pack2(q), _pack2(k), _row_padded(torch.cat([_pack2(v), ones], dim=-1))
+
+
+def probe_fp32(mode: str, q, k, v):
+    """``fa_probe_fp32`` (scripts/probe_small_fp32b.py), mode ``mode`` of
+    :data:`FP32_MODES`, unscaled and non-causal, over :func:`fp32_inputs`'
+    operands: q, k ``(BH, S, 2d)`` bf16 ``[hi | lo]`` and v ``(BH, S, 2d +
+    1)`` ``[v_hi | v_lo | 1]`` (bf16_skel: ``(BH, S, d)`` and ``(BH, S, d +
+    1)``), d = 64, v's rows a multiple of 8 elements apart; S a multiple of
+    128.  Returns acc float32 ``(BH, S, 64)`` (the TPU probe's output holds
+    it twice, ``[acc | acc]``, only for its timer's chaining)."""
+    packed = mode != "bf16_skel"
+    bh, s, w = q.shape
+    vw = w + 1
+    if (mode not in FP32_MODES or w != (128 if packed else 64) or s % KV_TILE
+            or tuple(k.shape) != (bh, s, w) or tuple(v.shape) != (bh, s, vw)):
+        raise ValueError(f"probe_fp32 {mode}: q, k (BH, S, {128 if packed else 64}), v (BH, S, "
+                         f"{(128 if packed else 64) + 1}), S a multiple of {KV_TILE}; got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if not _on_card("probe_fp32", q, k, v):
+        return probe_fp32_plain(mode, q, k, v)
+    _bf16("probe_fp32", q, k)
+    row = v.stride(1)
+    if (v.dtype != torch.bfloat16 or v.stride(2) != 1 or row % 8 or v.stride(0) != s * row):
+        raise ValueError(f"probe_fp32 takes v in bf16 with rows a multiple of 8 elements apart, "
+                         f"got {v.dtype} strides {v.stride()}")
+    kernels.check_aligned("probe_fp32", q, k, v)
+    o = torch.empty((bh, s, 64), dtype=torch.float32, device=q.device)
+    status = kernels.library("probe_fp32").fa_probe_fp32(
+        FP32_MODES[mode], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, s, row,
+        _stream(q))
+    kernels.check_launch("probe_fp32", status, f"mode {mode}")
+    _count(probe_fp32, mode)
+    return o
+
+
+probe_fp32.launches = 0
+probe_fp32.launches_by_mode = {}
+
+
+def probe_fp32_plain(mode: str, q, k, v):
+    """The function of mode ``mode`` in the kernel's tile order (128 keys):
+    S = q . k + q . k_swap over the packed rows (bf16_skel: q . k), P = S,
+    exp(S - 5) or, for ``full``, exp(S - m) against the running max with
+    every column rescaled when it moves; P as two bf16 terms against v
+    (bf16_skel: one), ones column included; acc = out[:, :d] + out[:, d:2d]
+    (bf16_skel: out[:, :d]), ``full`` divided by l = out[:, 2d]."""
+    packed = mode != "bf16_skel"
+    d = q.shape[2] // 2 if packed else q.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    bh, rows, _ = q.shape
+    m = torch.full((bh, rows), -torch.inf, device=q.device)
+    out = torch.zeros((bh, rows, vf.shape[2]), device=q.device)
+    for t0 in range(0, kf.shape[1], KV_TILE):
+        kt, vt = kf[:, t0:t0 + KV_TILE], vf[:, t0:t0 + KV_TILE]
+        s = torch.einsum("bqd,bkd->bqk", qf, kt)
+        if packed:
+            s = s + torch.einsum("bqd,bkd->bqk", qf, torch.cat([kt[..., d:], kt[..., :d]], dim=-1))
+        alpha = torch.ones_like(m)
+        if mode == "exp":
+            s = _exp(s - 5.0)
+        elif mode == "full":
+            mx = torch.maximum(m, s.amax(dim=-1))
+            alpha, m = _exp(m - mx), mx
+            s = _exp(s - mx[..., None])
+        p = _two_term_bf16(s) if packed else s.to(torch.bfloat16).float()
+        out = out * alpha[..., None] + torch.einsum("bqk,bkd->bqd", p, vt)
+    acc = out[..., :d] + out[..., d:2 * d] if packed else out[..., :d]
+    if mode == "full":
+        l = out[..., 2 * d]
+        acc = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return acc

@@ -113,6 +113,36 @@ def test_bench_decode(capsys):
     assert all(r["valid"] for r in rows)
 
 
+def test_clis_pass_float32_q_over_bf16_pages(monkeypatch, capsys):
+    """As the JAX benches do, ``bench_decode``'s bf16 row and ``bench``'s
+    decode rate call ``paged_attention`` with float32 q over bf16 pages (the
+    entry point takes it in bf16, as the Pallas kernel does, and returns
+    float32); over 8-bit pages they take q in bf16 themselves, float32 q
+    there running the scalar 8-bit form."""
+    from flashattention_tpu_torch.ops import decode
+
+    seen, real = [], decode.paged_attention
+
+    def spy(q, k_pages, *args, **kw):
+        o = real(q, k_pages, *args, **kw)
+        seen.append((q.dtype, k_pages.dtype, o.dtype))
+        return o
+
+    monkeypatch.setattr(decode, "paged_attention", spy)
+    bench_decode.main(["--device", "cpu", "--batch", "2", "--kv_heads", "2", "--seq_len", "256",
+                       "--page_size", "64", "--kv_dtypes", "bfloat16,int8"])
+    rows, _ = _rows(capsys)
+    assert all(r["valid"] for r in rows)
+    assert set(seen) == {(torch.float32, torch.bfloat16, torch.float32),
+                         (torch.bfloat16, torch.int8, torch.bfloat16)}
+    seen.clear()
+    for kv in ("bf16", "int8"):
+        bench._decode_tokens_per_s(torch.device("cpu"), b=2, kvh=2, g=2, d=64, s=1024, ps=256,
+                                   kv=kv)
+    assert set(seen) == {(torch.float32, torch.bfloat16, torch.float32),
+                         (torch.bfloat16, torch.int8, torch.bfloat16)}
+
+
 def test_bench_serving(monkeypatch, capsys):
     monkeypatch.setattr(bench_serving, "WIDTHS", dict(
         vocab_size=128, d_model=64, num_q_heads=4, num_kv_heads=2, head_dim=32, intermediate=64))

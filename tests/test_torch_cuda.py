@@ -768,6 +768,91 @@ def test_block_mask_kernels_skip_dead_tiles(d):
 # ── the measurement path: probes, the self-test, the CLIs ──────────────────
 
 
+def _uniform(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(shape, generator=g) * 2 - 1
+
+
+@pytest.mark.parametrize("name", list(probes.D128DE_MODES))
+@pytest.mark.parametrize("inputs", ["uniform", "lo_term"])
+def test_probe_d128de_modes_against_plain(name, inputs):
+    """The transposed-schedule and thin-shape modes (scripts/probe_d128d.py,
+    probe_d128e.py) on the card against their plain versions on the CPU,
+    within 2e-2 of the output's magnitude, on uniform inputs and on
+    ``lo_term_qkv``'s, whose output is P's (S's) second bf16 term alone."""
+    if inputs == "uniform":
+        q, k, v = (_uniform((2, 384, 128), s).to(torch.bfloat16) for s in (1, 2, 3))
+    else:
+        q, k, v = probes.lo_term_qkv(2, 512, 128, generator=torch.Generator().manual_seed(7))
+    if probes.D128DE_MODES[name].vt:
+        v = v.transpose(1, 2).contiguous()
+    got = probes.probe_d128de(name, q.cuda(), k.cuda(), v.cuda())
+    want = probes.probe_d128de_plain(name, q, k, v)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("mode", list(probes.FP32_MODES))
+@pytest.mark.parametrize("inputs", ["uniform", "lo_term"])
+def test_probe_fp32_modes_against_plain(mode, inputs):
+    """Float32 as two bf16 terms (scripts/probe_small_fp32b.py) on the card
+    against the plain version on the CPU: within 1e-4 of the output's
+    magnitude on uniform inputs (bf16_skel: 2e-2), within 2e-2 on
+    ``lo_term_qkv``'s values (the output about 2^-9 of p there; bf16_skel,
+    all 0 there, of the packed skeleton's magnitude)."""
+    if inputs == "uniform":
+        q, k, v = (_uniform((2, 384, 64), s) for s in (4, 5, 6))
+        tol = 2e-2 if mode == "bf16_skel" else 1e-4
+    else:
+        q, k, v = (x.float() for x in probes.lo_term_qkv(
+            2, 512, 64, generator=torch.Generator().manual_seed(8)))
+        tol = 2e-2
+    args = probes.fp32_inputs(q, k, v, mode)
+    got = probes.probe_fp32(mode, *probes.fp32_inputs(q.cuda(), k.cuda(), v.cuda(), mode))
+    want = probes.probe_fp32_plain(mode, *args)
+    norm = want if mode != "bf16_skel" or inputs == "uniform" else probes.probe_fp32_plain(
+        "skeleton", *probes.fp32_inputs(q, k, v, "skeleton"))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= tol * float(norm.abs().max())
+
+
+@pytest.mark.parametrize("entry", ["decode", "prefill_batched", "prefill"])
+@pytest.mark.parametrize("d,ps", [(128, 256), (64, 16), (32, 16)])
+def test_f32_q_over_bf16_pages_matches_plain(entry, d, ps):
+    """C4: float32 q over bf16 pages through the three paged entry points on
+    the card, against the CPU path (the plain version of the bf16 form over
+    q's bf16 values): float32 out, within 2e-2 of its magnitude; the
+    tensor-core forms' O from float32 sums (not all bf16 values), the scalar
+    form's (d = 32) through a bf16 store."""
+    g = torch.Generator().manual_seed(d + ps)
+    kvh, b, lens = 2, 3, [5, 200, 300]
+    pps = -(-max(lens) // ps)
+    pool = b * pps + 1
+    kp, vp = (torch.randn((pool, kvh, ps, d), generator=g).to(torch.bfloat16) for _ in range(2))
+    table = torch.randperm(pool, generator=g)[: b * pps].reshape(b, pps).to(torch.int32)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    if entry == "decode":
+        q = torch.randn((b, kvh, 4, d), generator=g)
+        run = lambda *a: decode.paged_attention(*a, scale=d**-0.5)
+        args = (q, kp, vp, lengths, table)
+        tc = flash.kernel_form("paged_decode", torch.bfloat16, d, page_size=ps, rows=4)
+    else:
+        kw = dict(chunk=5, seg=8, scale=d**-0.5)
+        q = torch.randn((b, kvh, 16, d), generator=g)
+        if entry == "prefill":
+            run = lambda *a: decode.paged_prefill_attention(*a, **kw)
+            args = (q[1], kp, vp, table[1], lengths[1])
+        else:
+            run = lambda *a: decode.paged_prefill_attention_batched(*a, **kw)
+            args = (q, kp, vp, table, lengths)
+        tc = flash.kernel_form("paged_prefill", torch.bfloat16, d, page_size=ps)
+    got = run(*(x.cuda() for x in args)).cpu()
+    want = run(*args)
+    assert got.dtype == want.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    assert torch.equal(got.to(torch.bfloat16).float(), got) == (tc == "scalar")
+
+
 @pytest.mark.parametrize("name", ["mma0", "mma1", "mma2", "mma4", *probes.D128_MODES])
 def test_probe_modes_against_plain(name):
     """Every d = 128 probe mode on the card against its plain version on the

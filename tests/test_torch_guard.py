@@ -91,12 +91,13 @@ def test_chip_smoke_imports_no_jax():
 @pytest.mark.parametrize(
     "script",
     ["decode_ab.py", "window_mutants.py", "quant_mutants.py", "bwd_mutants.py", "draft_mutants.py",
-     "spec_drift.py", "fwd_bwd_ab.py", "dropout_mutants.py", "probe_d128.py"],
+     "spec_drift.py", "fwd_bwd_ab.py", "dropout_mutants.py", "probe_d128.py", "probe_fp32.py"],
 )
 def test_tools_import_no_jax(script):
     """The card scripts in ``torch_tools/`` drive the port alone (all but
-    spec_drift.py through chip_smoke's checks; probe_d128.py through its
-    probe checks and timings, over ``ops/probes.py``)."""
+    spec_drift.py through chip_smoke's checks; probe_d128.py and
+    probe_fp32.py through its probe checks and timings, over
+    ``ops/probes.py``)."""
     with open(os.path.join(ROOT, "torch_tools", script)) as fh:
         tree = ast.parse(fh.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]

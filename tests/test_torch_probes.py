@@ -303,3 +303,111 @@ def test_lo_term_inputs_tell_one_term_from_two_mma(mode, d, monkeypatch):
     _one_term(monkeypatch)
     flipped = probes.probe_mma(mode, q, k, v, scale=1.0)[0]
     assert _rel(flipped, got.numpy().astype(np.float64)) > 5 * TOL
+
+
+# ── items 4, 5 and 7: scripts/probe_d128d.py, probe_d128e.py, probe_small_fp32b.py
+
+
+def _uniform_bf16(rng, *shape):
+    return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(torch.bfloat16)
+
+
+def _round_bf16(x):
+    return x.astype(np.float32).astype(ml_dtypes.bfloat16).astype(np.float64)
+
+
+def _d128de_want(name, q, k, v):
+    """Float64 renditions of probe_d128d.py's and probe_d128e.py's kernel
+    bodies, unscaled, over V stored (BH, S, d): exp(S - m) V with the
+    row's max (base, t_*), divided by l (t_full), exp(S - 5) V rounded to
+    bf16 (pv_bf16out), S[:, :128] V[:128] (t_qk_heavy), S_small tiled down
+    the keys times V (t_pv_heavy); O in the mode's layout."""
+    cfg = probes.D128DE_MODES[name]
+    s = np.einsum("bqd,bkd->bqk", q, k)
+    if cfg.var == "full":
+        o = _attention(q, k, v, 1.0)[0]
+    elif cfg.var == "rescale":
+        o = np.einsum("bqk,bkd->bqd", np.exp(s - s.max(-1, keepdims=True)), v)
+    elif cfg.var == "exp":
+        o = _round_bf16(np.einsum("bqk,bkd->bqd", np.exp(s - 5.0), v))
+    elif cfg.var == "qk_heavy":
+        o = np.einsum("bqk,bkd->bqd", s[..., :128], v[:, :128])
+    else:
+        o = np.einsum("bqk,bkd->bqd", s[..., :128], v.reshape(v.shape[0], -1, 128, 128).sum(1))
+    return o.transpose(0, 2, 1) if cfg.o_t else o
+
+
+def _d128de_layout(cfg, v):
+    return v.transpose(1, 2).contiguous() if cfg.vt else v
+
+
+@pytest.mark.parametrize("name", list(probes.D128DE_MODES))
+def test_d128de_modes(name):
+    rng = np.random.default_rng(21)
+    q, k, v = (_uniform_bf16(rng, 2, 256, 128) for _ in range(3))
+    cfg = probes.D128DE_MODES[name]
+    got = probes.probe_d128de(name, q, k, _d128de_layout(cfg, v))
+    assert got.dtype == torch.float32
+    assert _rel(got, _d128de_want(name, _np(q), _np(k), _np(v))) <= TOL
+
+
+def _fp32_want(mode, q, k, v):
+    """Float64 renditions of probe_small_fp32b.py's kernel body over the
+    packed operands' values (hi + lo; bf16_skel: the bf16 values): S, P =
+    S, exp(S - 5) or the softmax, P (bf16_skel: bf16(P)) times V."""
+    if mode != "bf16_skel":
+        q, k = q[..., :64] + q[..., 64:], k[..., :64] + k[..., 64:]
+        v = v[..., :64] + v[..., 64:128]
+    else:
+        v = v[..., :64]
+    s = np.einsum("bqd,bkd->bqk", q, k)
+    if mode == "full":
+        return _attention(q, k, v, 1.0)[0]
+    p = np.exp(s - 5.0) if mode == "exp" else _round_bf16(s) if mode == "bf16_skel" else s
+    return np.einsum("bqk,bkd->bqd", p, v)
+
+
+@pytest.mark.parametrize("mode", list(probes.FP32_MODES))
+def test_fp32_modes(mode):
+    """Each mode over float32 inputs packed as the script packs them:
+    within 1e-4 of the output's magnitude where P enters PV as two terms
+    (float32 to about 2^-17), within the bf16 tolerance for bf16_skel."""
+    rng = np.random.default_rng(22)
+    qf, kf, vf = (torch.from_numpy(rng.uniform(-1, 1, (2, 256, 64)).astype(np.float32))
+                  for _ in range(3))
+    args = probes.fp32_inputs(qf, kf, vf, mode)
+    assert args[2].stride(1) % 8 == 0
+    got = probes.probe_fp32(mode, *args)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 256, 64)
+    want = _fp32_want(mode, *(_np(x) for x in args))
+    assert _rel(got, want) <= (TOL if mode == "bf16_skel" else 1e-4)
+
+
+@pytest.mark.parametrize("name", list(probes.D128DE_MODES))
+def test_lo_term_inputs_tell_one_term_from_two_d128de(name, monkeypatch):
+    """Every mode of items 4 and 5 feeds P (or S) to PV as two bf16 terms:
+    over ``lo_term_qkv``'s inputs, dropping the second term moves the
+    output by far more than the probes' check tolerance."""
+    cfg = probes.D128DE_MODES[name]
+    q, k, v = probes.lo_term_qkv(2, 512, 128, generator=torch.Generator().manual_seed(23))
+    got = probes.probe_d128de(name, q, k, _d128de_layout(cfg, v))
+    assert _rel(got, _d128de_want(name, _np(q), _np(k), _np(v))) <= TOL
+    _one_term(monkeypatch)
+    flipped = probes.probe_d128de(name, q, k, _d128de_layout(cfg, v))
+    assert _rel(flipped, got.numpy().astype(np.float64)) > 5 * TOL
+
+
+@pytest.mark.parametrize("mode", [m for m in probes.FP32_MODES if m != "bf16_skel"])
+def test_lo_term_inputs_tell_one_term_from_two_fp32(mode, monkeypatch):
+    """The same for the packed float32 modes, over ``lo_term_qkv``'s values
+    packed as float32 inputs (their second terms 0, S's second bf16 term
+    carrying the output; two terms hold p to about 2^-17 of p, and the
+    output here is the pairs' differences of p, about 2^-9 of p: so the
+    bf16 tolerance)."""
+    q, k, v = probes.lo_term_qkv(2, 512, 64, generator=torch.Generator().manual_seed(24))
+    args = probes.fp32_inputs(q.float(), k.float(), v.float(), mode)
+    got = probes.probe_fp32(mode, *args)
+    assert _rel(got, _fp32_want(mode, *(_np(x) for x in args))) <= TOL
+    _one_term(monkeypatch)
+    flipped = probes.probe_fp32(mode, *args)
+    assert _rel(flipped, got.numpy().astype(np.float64)) > 5 * TOL
