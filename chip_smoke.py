@@ -139,6 +139,15 @@ Phases, each of which must pass (any failure exits non-zero):
                (flash_fwd at row 1, paged prefill at its MHA shape, the
                fused backward at the training layer at B = 2) timed against
                their plain versions, SDPA in float32 and their bound;
+               ``f32_form_checks``: the flash forward's float32 form
+               (``flash_fwd_tc_f32``, the JAX modes "bf16_3x" and "bf16"
+               at d = 64 and 128) against its plain version and the exact
+               kernel over seven input cases, lo-term ones among them, NaN
+               past kv_len and past a ragged S, timed at row 1 (beside
+               the exact kernel, its "bf16" mode, SDPA float32 and its
+               bound) and at ``cli/bench.py``'s headline shape;
+               ``torch_tools/f32_mutants.py`` shows that they fail a form
+               missing a cross product or a second term;
    attention_block_mask - ``attention(block_mask=, dropout_rate=0.1)``
                under autograd at that layer, the launches counted;
 3. serve     - run the engine with whole-prompt prefill (prefill_chunk=0) at
@@ -332,6 +341,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -406,6 +416,9 @@ KERNELS = (
     # Paged decode's (bf16 q over bf16 pages; over 8-bit pages with -DFA_QUANT).
     ("paged_decode_tc", "paged_decode_tc.cu", "ops/decode.py:89"),
     ("paged_decode_tc_quant", "paged_decode_tc.cu", "ops/decode.py:89"),
+    # The forward's float32 form (float32 q, k, v as bf16 terms: the JAX
+    # precision modes "bf16_3x" and "bf16"), built with -DFA_F32.
+    ("flash_fwd_tc_f32", "flash_fwd_tc.cu", "ops/flash.py:628"),
 )
 TC_KERNELS = {"flash_fwd": "flash_fwd_tc", "flash_bwd": "flash_bwd_tc",
               "paged_prefill": "paged_prefill_tc", "flash_bwd_dq": "flash_bwd_dq_tc",
@@ -478,8 +491,10 @@ def _ptxas(log):
             for kind, n in re.findall(r"L([ib])(\d+)E", value_args):
                 flag = next(flags, "flag") if kind == "b" else None
                 args += [n] if kind == "i" else [flag] if n == "1" else []
-            if name == "flash_fwd_tc_kernel":  # its last int: the K/V payload form
-                args = args[:-1] + {"1": ["int8"], "2": ["fp8"]}.get(args[-1], [])
+            if name == "flash_fwd_tc_kernel":  # its last ints: the K/V payload form, the terms
+                *args, kv, terms = args
+                args += {"1": ["int8"], "2": ["fp8"]}.get(kv, [])
+                args += {"0": [], "1": ["f32_1_term"]}.get(terms, [f"f32_{terms}_products"])
             out.append({"kernel": f"{name}<{','.join(args)}>"})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -551,12 +566,14 @@ def _check_name(kernel, case, dt, form):
     return f"{kernel}/{case}/{dt}" if form is None else f"{kernel}/quant/{case}/{form}/{dt}"
 
 
-def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE):
+def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dropout=False):
     """The kernel a call of ``kernel`` on ``q`` launches: its tensor-core
     form's name where ``ops.flash.kernel_form`` picks it (bf16 at its
     head_dims, no block mask, 8-bit K/V in the forwards and paged decode
     too; the paged kernels: a page size they take; paged decode: at most
-    32 q rows per KV head, q's second-to-last dimension), else ``kernel``.
+    32 q rows per KV head, q's second-to-last dimension), the forward's
+    float32 form's (``flash_fwd_tc_f32``) for float32 q at its head_dims,
+    else ``kernel``.
     A check of an 8-bit form is named ``<kernel>/quant/...``
     (``_check_name``), so the tensor-core 8-bit forms' checks read
     ``flash_fwd_tc/quant/...``, ``paged_prefill_tc/quant/...``,
@@ -565,10 +582,12 @@ def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE):
 
     tc = TC_KERNELS.get(kernel)
     rows = q.shape[-2] if kernel == "paged_decode" else 1
-    if tc and flash.kernel_form(kernel, q.dtype, q.shape[-1], quantized=quantized,
-                                block_mask=block_mask, page_size=page_size, rows=rows) == "tc":
-        return tc
-    return kernel
+    form = tc and flash.kernel_form(kernel, q.dtype, q.shape[-1], quantized=quantized,
+                                    block_mask=block_mask, page_size=page_size, rows=rows,
+                                    dropout=dropout)
+    if form == "tc_f32":  # float32 in the default "bf16_3x"
+        return "flash_fwd_tc_f32"
+    return tc if form == "tc" else kernel
 
 
 def _tc_key(kernel, case, form):
@@ -661,17 +680,18 @@ def flash_checks(fa, flash, benchit, gen, card, report, form=None):
                     emit(twin)
                     report["checks"].append(twin)
                     out["main"] = twin
-            if name == "prefill" and dt == "float32" and form is None:  # the float32 paths' form
-                kernel = lambda: fa.attention(q, k, v, causal=True, scale=scale)  # noqa: E731
-                rec.update(kernel_ms=benchit.cuda_time_ms(kernel, warmup=1, iters=5),
-                           plain_ms=benchit.cuda_time_ms(plain, warmup=1, iters=3),
-                           library_ms=benchit.cuda_time_ms(
-                               lambda: torch.nn.functional.scaled_dot_product_attention(
-                                   q, k, v, is_causal=True, scale=scale), warmup=1, iters=5),
-                           library="scaled_dot_product_attention, is_causal, float32")
-                rec.update(benchit.bound_ms(card, bytes_moved=4 * q.numel() * 4,
-                                            flops=4 * b * h * (s_q * (s_q + 1) // 2) * d, dtype=dt))
-                report.setdefault("float32_timed", {})["flash_fwd"] = rec
+            if name == "prefill" and dt == "float32" and form is None:
+                # Row 1's float32 forms: this check's (the float32 form in
+                # "bf16_3x"), its "bf16" mode and the exact kernel's row.
+                scalar_plain = lambda: flash.flash_attention_plain(  # noqa: E731
+                    q3, k3, v3, causal=True, scale=scale, q_offset=s_kv - s_q, q_seq_len=s_q,
+                    form="scalar").reshape(q.shape)
+                twin = _f32_timed(fa, flash, benchit, card, rec, q, k, v, plain, scalar_plain,
+                                  dict(causal=True, scale=scale))
+                report.setdefault("tc_timed", {})["flash_fwd_tc_f32"] = rec
+                report.setdefault("float32_timed", {})["flash_fwd"] = twin
+                emit(twin)
+                report["checks"].append(twin)
             emit(rec)
             report["checks"].append(rec)
     # save_residuals with a live length: cross-attention rows at the end of
@@ -693,6 +713,173 @@ def flash_checks(fa, flash, benchit, gen, card, report, form=None):
         emit(rec)
         report["checks"].append(rec)
     return out["main"]
+
+
+def _f32_timed(fa, flash, benchit, card, rec, q, k, v, plain, scalar_plain, kw):
+    """Times of one float32 ``attention`` call's forms on the same inputs
+    (``(B, H, S, d)``, S_q = S_kv): ``rec``, the default call's check (the
+    float32 form in "bf16_3x"), gains its kernel, plain and SDPA float32
+    times, its one-pass "bf16" mode's (``bf16_mode_ms``), the exact
+    kernel's (``scalar_ms``) and its bound: float32 q, k, v and o once over
+    the memory rate, or the machine's bf16 products (``f32_products`` each
+    for S and PV, 2 d flops a live pair each) over the bf16 peak.  Returns
+    the exact kernel's own check (``precision="float32"`` against the
+    scalar plain version, ``scalar_plain``), with its times and bound."""
+    b, h, s, d = q.shape
+    pairs = b * h * (s * (s + 1) // 2 if kw["causal"] else s * s)
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=kw["causal"], scale=kw["scale"])
+    run = lambda mode=None: fa.attention(q, k, v, precision=mode, **kw)  # noqa: E731
+    n = flash.f32_products(d)
+    rec.update(kernel_ms=benchit.cuda_time_ms(run, warmup=1, iters=5),
+               plain_ms=benchit.cuda_time_ms(plain, warmup=1, iters=3),
+               bf16_mode_ms=benchit.cuda_time_ms(lambda: run("bf16"), warmup=1, iters=5),
+               library_ms=benchit.cuda_time_ms(sdpa, warmup=1, iters=5),
+               library="scaled_dot_product_attention, float32"
+               + (", is_causal" if kw["causal"] else ""),
+               products=f"{n} for S, {n} for PV", live_pairs=pairs,
+               **benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * n * d * pairs,
+                                  dtype="bfloat16"))
+    got, want = run("float32"), scalar_plain()
+    torch.cuda.synchronize()
+    twin = _rec(rec["check"].replace("flash_fwd_tc_f32/", "flash_fwd/", 1), got, want, "float32",
+                FLASH_TOL["float32"], shape=rec.get("shape"),
+                form='exact float32 (precision="float32")')
+    twin.update(kernel_ms=benchit.cuda_time_ms(lambda: run("float32"), warmup=1, iters=5),
+                plain_ms=benchit.cuda_time_ms(scalar_plain, warmup=1, iters=3),
+                library_ms=rec["library_ms"], library=rec["library"],
+                **benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * d * pairs,
+                                   dtype="float32"))
+    rec["scalar_ms"] = twin["kernel_ms"]
+    return twin
+
+
+# The forward's float32 form (flash_fwd_tc_f32): float32 q, k, v in the
+# JAX precision modes "bf16_3x" (the default) and "bf16", at d = 64 and 128,
+# held against its plain version (F32_FORM_TOL of the output's magnitude)
+# and, in "bf16_3x", within 1e-4 of the exact scalar kernel's output.
+F32_FORM_TOL = {"bf16_3x": 1e-4, "bf16": 2e-2}
+F32_EXACT_TOL = 1e-4  # "bf16_3x" against the exact kernel ("bf16": recorded only)
+# (BH, G, S_q, S_kv, kwargs): folded q (BH, G S_q, d) against (BH, S_kv, d)
+F32_FORM_CASES = {
+    "causal": (16, 1, 1000, 1000, dict(causal=True)),
+    "full": (16, 1, 1000, 1000, dict(causal=False)),
+    "gqa_fold": (8, 4, 512, 512, dict(causal=True)),
+    "kv_len_residuals": (16, 1, 128, 300, dict(causal=True, kv_len=250, q_offset=122,
+                                               save_residuals=True)),
+    "window_softcap": (16, 1, 1000, 1000, dict(causal=True, window=300, logit_softcap=30.0)),
+    "segments": (16, 1, 1000, 1000, dict(causal=False, segments=True)),
+    "lo_term": (8, 1, 512, 512, dict(causal=True, lo_term=True)),
+}
+F32_HEADLINE = dict(b=2, h=8, s=8192, d=64)  # cli/bench.py's headline, non-causal
+
+
+def _f32_case(probes, gen, d, case):
+    """The inputs and keywords of one F32_FORM_CASES case at head_dim d."""
+    bh, g, s_q, s_kv, kw = F32_FORM_CASES[case]
+    kw = dict(kw)
+    if kw.pop("lo_term", False):
+        q, k, v = probes.lo_term_f32_qkv(bh, s_kv, d, generator=gen, device="cuda")
+        return q, k, v, dict(kw, scale=1.0)
+    q = torch.randn((bh, g * s_q, d), generator=gen, device="cuda")
+    k, v = (torch.randn((bh, s_kv, d), generator=gen, device="cuda") for _ in range(2))
+    if g > 1:
+        kw["q_seq_len"] = s_q
+    if kw.pop("segments", False):
+        kw["q_segment_ids"], kw["kv_segment_ids"] = (
+            torch.randint(0, 4, (bh, n), generator=gen, device="cuda").sort(-1).values
+            for n in (g * s_q, s_kv))
+    return q, k, v, dict(kw, scale=d**-0.5)
+
+
+def _f32_hold(flash, check, q, k, v, mode, kw):
+    """One call of the float32 form on the card against its plain version
+    and the exact kernel (``precision="float32"``, which must launch the
+    scalar kernel); the residuals within STATS_RTOL."""
+    n = flash.flash_attention.launches_tc_f32
+    got = flash.flash_attention(q, k, v, precision=mode, **kw)
+    launched = flash.flash_attention.launches_tc_f32 - n
+    want = flash.flash_attention_plain(q, k, v, precision=mode, **kw)
+    n = flash.flash_attention.launches, flash.flash_attention.launches_tc_f32
+    exact = flash.flash_attention(q, k, v, precision="float32", **kw)
+    scalar = (flash.flash_attention.launches - n[0], flash.flash_attention.launches_tc_f32 - n[1])
+    torch.cuda.synchronize()
+    stats = {}
+    if kw.get("save_residuals"):
+        stats = {f"{x}_rel_err": err(a, b) / float(b.abs().max())
+                 for x, a, b in zip("lm", got[1:], want[1:])}
+        got, want, exact = got[0], want[0], exact[0]
+    norm = float(want.abs().max())
+    rec = {"check": check, "max_abs_err": err(got, want), "rel_err": err(got, want) / norm,
+           "tol": F32_FORM_TOL[mode], "exact_rel_err": err(got, exact) / norm,
+           "exact_tol": F32_EXACT_TOL if mode == "bf16_3x" else None, "launches": launched,
+           "exact_launched_scalar": scalar == (1, 0), **stats,
+           "tol_of": "the output's largest magnitude"}
+    rec["ok"] = (launched == 1 and scalar == (1, 0) and rec["rel_err"] <= rec["tol"]
+                 and (rec["exact_tol"] is None or rec["exact_rel_err"] <= rec["exact_tol"])
+                 and all(x <= STATS_RTOL for x in stats.values()))
+    return rec
+
+
+def f32_form_checks(fa, flash, probes, benchit, gen, card, report, timed=True):
+    """The float32 form at d = 64 and 128 in both modes over F32_FORM_CASES
+    (causal and not, the GQA fold, kv_len / q_offset with the residuals, a
+    window with a softcap, segment ids, and ``probes.lo_term_f32_qkv``'s
+    inputs, on which a form without a cross product or a second term misses
+    by far more than the tolerance), each against its plain version and the
+    exact kernel; NaN in K/V rows past kv_len, and in every row of the
+    next head (behind kv_len; behind a ragged S, where the last tiles of q,
+    K and V reach in memory), the first head's output bitwise the clean
+    inputs'; then (``timed``) timed at cli/bench.py's headline shape beside
+    the exact kernel, SDPA float32 and the bound.  Returns the headline's
+    record (None untimed); ``torch_tools/f32_mutants.py`` shows that these
+    checks fail a form without one of its cross products or second terms."""
+    for d, mode, case in itertools.product(flash.TC_F32_HEAD_DIMS, ("bf16_3x", "bf16"),
+                                           F32_FORM_CASES):
+        q, k, v, kw = _f32_case(probes, gen, d, case)
+        rec = _f32_hold(flash, f"flash_fwd_tc_f32/{case}/d{d}/{mode}", q, k, v, mode, kw)
+        emit(rec)
+        report["checks"].append(rec)
+    for d, mode, past in itertools.product(flash.TC_F32_HEAD_DIMS, ("bf16_3x", "bf16"),
+                                           ("kv_len", "s")):
+        if past == "kv_len":
+            q, k, v, kw = _f32_case(probes, gen, d, "kv_len_residuals")
+            kw.pop("save_residuals")
+        else:  # a ragged S = 200: the last 128-row tiles of q, K and V reach past it
+            q, k, v = (torch.randn((4, 200, d), generator=gen, device="cuda") for _ in range(3))
+            kw = dict(causal=False, scale=d**-0.5)
+        clean = flash.flash_attention(q, k, v, precision=mode, **kw)
+        kp, vp, qp = k.clone(), v.clone(), q.clone()
+        if past == "kv_len":
+            kp[:, kw["kv_len"]:] = float("nan")
+            vp[:, kw["kv_len"]:] = float("nan")
+        qp[1:], kp[1:], vp[1:] = float("nan"), float("nan"), float("nan")
+        got = flash.flash_attention(qp, kp, vp, precision=mode, **kw)
+        torch.cuda.synchronize()
+        rec = {"check": f"flash_fwd_tc_f32/nan_poison/past_{past}/d{d}/{mode}",
+               "ok": bool(torch.equal(got[0], clean[0]))}
+        emit(rec)
+        report["checks"].append(rec)
+    if not timed:
+        return None
+    b, h, s, d = (F32_HEADLINE[x] for x in ("b", "h", "s", "d"))
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda") for _ in range(3))
+    kw = dict(causal=False, scale=d**-0.5)
+    q3, k3, v3 = (x.reshape(b * h, s, d) for x in (q, k, v))
+    plain = lambda form=None: flash.flash_attention_plain(  # noqa: E731
+        q3, k3, v3, form=form, **kw).reshape(q.shape)
+    o = fa.attention(q, k, v, **kw)
+    rec = _rec("flash_fwd_tc_f32/headline/float32", o, plain(), "float32", FLASH_TOL["float32"],
+               shape=f"B={b} H={h} S={s} d={d} non-causal (cli/bench.py's headline)")
+    twin = _f32_timed(fa, flash, benchit, card, rec, q, k, v, plain, lambda: plain("scalar"), kw)
+    for r in (rec, twin):
+        emit(r)
+        report["checks"].append(r)
+    report.setdefault("tc_timed", {})["flash_fwd_tc_f32/headline"] = rec
+    del q, k, v, q3, k3, v3
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _paged_pool(gen, ctx_lens, pps, pages, shape_tail, dtype, form=None):
@@ -1611,7 +1798,9 @@ def _counters(flash, decode, backward):
     draft launches (``paged_decode_draft`` counts them too), and
     ``flash_fwd_tc_quant``, ``paged_prefill_tc_quant`` and
     ``paged_decode_tc_quant`` their 8-bit forms', which ``<kernel>_quant``
-    and the tensor-core counter count too."""
+    and the tensor-core counter count too; ``flash_fwd_tc_f32`` the
+    forward's float32 form's (``flash_fwd`` counts them too) and
+    ``flash_fwd_tc_f32_bf16`` its one-pass "bf16" mode's among them."""
     fns = {
         "flash_fwd": flash.flash_attention,
         "paged_decode": decode.paged_attention,
@@ -1631,6 +1820,8 @@ def _counters(flash, decode, backward):
     out.update({tc: (fns[k], "launches_tc") for k, tc in TC_KERNELS.items()})
     out.update({f"{TC_KERNELS[k]}_dropout": (fns[k], "launches_tc_dropout") for k in PAIR})
     out.update({tc: (fns[k], "launches_tc_quantized") for k, tc in TC_QUANT_KERNELS.items()})
+    out["flash_fwd_tc_f32"] = (flash.flash_attention, "launches_tc_f32")
+    out["flash_fwd_tc_f32_bf16"] = (flash.flash_attention, "launches_tc_f32_bf16")
     return out
 
 
@@ -1642,13 +1833,19 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE):
     two-pass pair at theirs but the block-mask ones, and every paged
     prefill and paged decode launch of a bf16 model on pages of
     ``page_size`` rows (on 8-bit pages in their 8-bit forms too; paged
-    decode's draft launches at k = SPEC_K in the draft form's count too)."""
+    decode's draft launches at k = SPEC_K in the draft form's count too);
+    every flash_fwd launch of a float32 model at the float32 form's
+    head_dims but the block-mask, dropout and 8-bit ones, in the default
+    "bf16_3x" mode."""
     from flashattention_tpu_torch.ops import flash
 
     dt = DTYPES[cfg.dtype]
     if flash.kernel_form("flash_fwd", dt, cfg.head_dim) == "tc":
         want["flash_fwd_tc"] = want["flash_fwd"] - want.get("flash_fwd_block_mask", 0)
         want["flash_fwd_tc_quant"] = want.get("flash_fwd_quant", 0)
+    if flash.kernel_form("flash_fwd", dt, cfg.head_dim) == "tc_f32":
+        want["flash_fwd_tc_f32"] = want["flash_fwd"] - sum(
+            want.get(f"flash_fwd_{x}", 0) for x in ("block_mask", "dropout", "quant"))
     if flash.kernel_form("flash_bwd", dt, cfg.head_dim) == "tc":
         want["flash_bwd_tc"] = want["flash_bwd"]
     for k in PAIR:  # the two-pass pair's, but the block-mask launches
@@ -3227,7 +3424,8 @@ def dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, repor
             timing = (timed and dt == "bfloat16" and rate == 0.1
                       and name in ("train_layer", "packed_layer"))
             if "seg" not in c:
-                rec, fwd_plain = _fwd_rec(f"{_kname('flash_fwd', q)}/dropout/{name}/{rate}/{dt}",
+                rec, fwd_plain = _fwd_rec(f"{_kname('flash_fwd', q, dropout=True)}/dropout/"
+                                          f"{name}/{rate}/{dt}",
                                           flash, q, k, v, kw, segs, dt, shape=shape)
                 if timing:
                     rec.update(_time_dropout_fwd(flash, benchit, card, q, k, v, kw, c, fwd_plain))
@@ -4139,9 +4337,10 @@ def phase_train_parity_lora(args, transformer, train, counters, report):
            "tol": {"loss_rel": TRAIN_LOSS_RTOL, "lora_abs": TRAIN_PARAM_TOL,
                    "chain_rel": TRAIN_GRAD_RTOL},
            "seconds": time.perf_counter() - t0,
-           "launches": {k: getattr(fn, attr) for k, (fn, attr) in counters.items()},
-           "ok": loss_rel <= TRAIN_LOSS_RTOL and lora_err <= TRAIN_PARAM_TOL and chain_ok
-           and merged_rel <= TRAIN_LOSS_RTOL}
+           "launches": {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}}
+    rec["f32_form_ok"] = _f32_form_launched(rec["launches"], cfg)
+    rec["ok"] = (loss_rel <= TRAIN_LOSS_RTOL and lora_err <= TRAIN_PARAM_TOL and chain_ok
+                 and merged_rel <= TRAIN_LOSS_RTOL and rec["f32_form_ok"])
     emit(rec)
     report["train_parity_lora"] = rec
     del b, lo, merged, base
@@ -4271,6 +4470,20 @@ def phase_checkpoint(args, transformer, quant, train, engine_mod, kvcache, repor
     return rec
 
 
+def _f32_form_launched(launches, cfg):
+    """A float32 phase's forward launches took their form: at the float32
+    form's head_dims every one but those with dropout or a block mask (the
+    exact kernel's) in the default "bf16_3x" (at least one), elsewhere none."""
+    from flashattention_tpu_torch.ops import flash
+
+    n = launches["flash_fwd_tc_f32"]
+    if flash.kernel_form("flash_fwd", torch.float32, cfg.head_dim) != "tc_f32":
+        return n == 0
+    rest = launches["flash_fwd_dropout"] + launches["flash_fwd_block_mask"]
+    return n == launches["flash_fwd"] - rest and launches["flash_fwd_tc_f32_bf16"] == 0 and (
+        n > 0 or rest > 0)
+
+
 def phase_train_parity(args, transformer, train, packing, counters, report, *,
                        phase="train_parity", cfg=None, docs=(70, 100, 50), attn_dropout=None):
     """Plain and packed steps, remat off and on, two steps each, on the card
@@ -4280,7 +4493,8 @@ def phase_train_parity(args, transformer, train, packing, counters, report, *,
     CPU's run without remat is the reference of both card runs.  With
     ``attn_dropout``, seed = step index: the card's keep bits must be the
     plain version's.  The card's launches over the phase are its record's
-    (float32 training: the scalar kernels' path; the CPU runs launch
+    (float32 training: the forward's float32 form at its head_dims, in the
+    default "bf16_3x", and the exact scalar backward; the CPU runs launch
     nothing)."""
     if cfg is None:
         cfg = _train_cfg(transformer, "float32")
@@ -4346,8 +4560,9 @@ def phase_train_parity(args, transformer, train, packing, counters, report, *,
            "tol": {"loss_rel": TRAIN_LOSS_RTOL, "param_abs": TRAIN_PARAM_TOL,
                    "grad_rel": TRAIN_GRAD_RTOL},
            "seconds": time.perf_counter() - t0,
-           "launches": {k: getattr(fn, attr) for k, (fn, attr) in counters.items()},
-           "ok": all(c["ok"] for c in cases)}
+           "launches": {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}}
+    rec["f32_form_ok"] = _f32_form_launched(rec["launches"], cfg)
+    rec["ok"] = all(c["ok"] for c in cases) and rec["f32_form_ok"]
     emit(rec)
     report[phase] = rec
     del base
@@ -4968,19 +5183,24 @@ def time_probe_fp32(probes, flash, benchit, gen, card, report, iters=20):
     its plain version there, beside its bound (the logical work, 4 d flops
     a pair over the bf16 peak; ``machine_bound_ms`` beside it: the packed
     modes' products take four times that work on bf16 tensor cores), SDPA
-    in float32 and the port's own float32 ``flash_attention`` (the scalar
-    kernel) on the same float32 inputs."""
+    in float32 and the port's own float32 ``flash_attention`` on the same
+    float32 inputs: its float32 form in the default "bf16_3x" (the probe's
+    function with the kernel's masks and tiles) and the exact scalar
+    kernel."""
     bh, s, d = FP32_SHAPE["bh"], FP32_SHAPE["s"], FP32_SHAPE["d"]
     qf, kf, vf = (_uniform(gen, bh, s, d) for _ in range(3))
     f = torch.nn.functional.scaled_dot_product_attention
     sdpa = benchit.cuda_time_ms(lambda: f(qf[None], kf[None], vf[None], scale=1.0), warmup=3,
                                 iters=iters)
-    fwd = benchit.cuda_time_ms(lambda: flash.flash_attention(qf, kf, vf, scale=1.0), warmup=3,
-                               iters=iters)
+    fwd = benchit.cuda_time_ms(
+        lambda: flash.flash_attention(qf, kf, vf, scale=1.0, precision="float32"), warmup=3,
+        iters=iters)
+    fwd_tc = benchit.cuda_time_ms(lambda: flash.flash_attention(qf, kf, vf, scale=1.0),
+                                  warmup=3, iters=iters)
     logical = 4 * d * bh * s * s
     out = {"shape": f"BH={bh} S={s} d={d} non-causal float32 unscaled, as two bf16 terms",
            "live_pairs": bh * s * s, "sdpa_float32_ms": sdpa, "flash_fwd_float32_ms": fwd,
-           "modes": {}}
+           "flash_fwd_tc_f32_ms": fwd_tc, "modes": {}}
     for mode in probes.FP32_MODES:
         args = probes.fp32_inputs(qf, kf, vf, mode)
         nbytes = sum(x.numel() * 2 for x in args) + bh * s * d * 4
@@ -4994,7 +5214,8 @@ def time_probe_fp32(probes, flash, benchit, gen, card, report, iters=20):
                                    flops=logical * (1 if mode == "bf16_skel" else 4),
                                    dtype="bfloat16")
         out["modes"][mode] = {**rec, "machine_bound_ms": machine["bound_ms"],
-                              "library_ms": sdpa, "flash_fwd_float32_ms": fwd}
+                              "library_ms": sdpa, "flash_fwd_float32_ms": fwd,
+                              "flash_fwd_tc_f32_ms": fwd_tc}
         del args
         torch.cuda.empty_cache()
     return out
@@ -5084,15 +5305,18 @@ def _probe_counters(probes):
 
 def phase_selftest(counters, report):
     """``utils/selftest.py``'s 21 checks on the card's kernels; each check
-    asserts that the kernel it is named for launched."""
+    asserts that the kernel it is named for launched, the two float32
+    checks at d = 64 the float32 form (the JAX default, "bf16_3x")."""
     from flashattention_tpu_torch.utils import selftest
 
     recs, res = [], []
     wall, launches = _drive(counters, lambda: res.append(
         selftest.run(verbose=False, records=recs)))
     passed, failed, failures = res[0]
+    # fwd_fp32_default and lane_packed_d64 run the float32 form ("bf16_3x")
     rec = {"phase": "selftest", "passed": passed, "failed": failed, "failures": failures,
-           "ok": failed == 0 and passed == len(selftest.CHECKS), "checks": recs,
+           "ok": failed == 0 and passed == len(selftest.CHECKS)
+           and launches["flash_fwd_tc_f32"] >= 2, "checks": recs,
            "launches": launches, "seconds": wall}
     report["selftest"] = rec
     emit({k: rec[k] for k in ("phase", "passed", "failed", "failures", "ok", "seconds")})
@@ -5146,7 +5370,10 @@ def phase_benches(card, counters, report):
             emit({"phase": "benches", **rec})
 
     wall, launches = _drive(counters, drive)
-    rec = {"ok": all(r["ok"] for r in recs.values()), "clis": recs, "launches": launches,
+    # bench's headline, bench_flashattention and lab's rung 4 take float32's
+    # default form; bench's fp32_fast its one-pass "bf16" mode.
+    rec = {"ok": all(r["ok"] for r in recs.values()) and launches["flash_fwd_tc_f32"] > 0
+           and launches["flash_fwd_tc_f32_bf16"] > 0, "clis": recs, "launches": launches,
            "seconds": wall}
     report["benches"] = rec
     return rec
@@ -5195,6 +5422,8 @@ def main() -> int:
     decode_serve = decode_serve_shape_timing(decode, benchit, gen, name, report)
     head_dim_pad_check(fa, flash, backward, gen, report)
     lap("serving_checks")
+    f32_headline = f32_form_checks(fa, flash, probes, benchit, gen, name, report)
+    lap("f32_form_checks")
     # {None, "int8", "fp8"}: {"llama": timed draft-form check, "gemma2": ...}
     drafts = {form: draft_checks(decode, benchit, gen, name, report, form)
               for form in (None, *QUANT_FORMS)}
@@ -5351,20 +5580,26 @@ def main() -> int:
     mains["paged_prefill_tc_quant"] = tc_timed["paged_prefill_tc/int8"]
     mains["paged_decode_tc"] = tc_timed["paged_decode_tc"]
     mains["paged_decode_tc_quant"] = tc_timed["paged_decode_tc/int8"]
+    mains["flash_fwd_tc_f32"] = tc_timed["flash_fwd_tc_f32"]
     timed_keys = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                   "bytes_ms", "ops_ms", "library_ms")
     scalar_of = {tc: k for k, tc in TC_KERNELS.items()}
     scalar_of.update({tc: f"{k} (its 8-bit form, -DFA_QUANT)" for k, tc in TC_QUANT_KERNELS.items()})
-    # A kernel's own launches: its counter's less those of the form counted
-    # within it (the scalar kernel's wrapper counts the tensor-core form's,
+    scalar_of["flash_fwd_tc_f32"] = 'flash_fwd (exact float32, precision="float32")'
+    # A kernel's own launches: its counter's less those of the forms counted
+    # within it (the scalar kernel's wrapper counts the tensor-core forms',
     # the tensor-core form's counter its 8-bit form's).
-    within = {**TC_KERNELS, **{TC_KERNELS[k]: tc for k, tc in TC_QUANT_KERNELS.items()}}
+    within = {**{k: (tc,) for k, tc in TC_KERNELS.items()},
+              **{TC_KERNELS[k]: (tc,) for k, tc in TC_QUANT_KERNELS.items()},
+              "flash_fwd": ("flash_fwd_tc", "flash_fwd_tc_f32")}
     for kname, source, replaces in KERNELS:
         main_rec = mains[kname]
-        by_path = {p: n.get(kname, 0) - n.get(within.get(kname), 0) for p, n in paths.items()}
+        by_path = {p: n.get(kname, 0) - sum(n.get(w, 0) for w in within.get(kname, ()))
+                   for p, n in paths.items()}
         by_path = {p: x for p, x in by_path.items() if x}
         built = (" (built with -DFA_QUANT)" if kname in TC_QUANT_KERNELS.values()
-                 else " (built with -DFA_PAIR)" if kname == "flash_bwd_dkv_tc" else "")
+                 else " (built with -DFA_PAIR)" if kname == "flash_bwd_dkv_tc"
+                 else " (built with -DFA_F32)" if kname == "flash_fwd_tc_f32" else "")
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"flashattention_tpu_torch/csrc/{source}{built}",
@@ -5385,6 +5620,13 @@ def main() -> int:
         if kname in scalar_of:  # the tensor-core form: the scalar form's time beside it
             summary[-1]["scalar_form"] = scalar_of[kname]
             summary[-1]["scalar_ms"] = main_rec["scalar_ms"]
+        if kname == "flash_fwd_tc_f32":  # its "bf16" mode, and cli/bench.py's headline shape
+            summary[-1]["bf16_mode_ms"] = main_rec["bf16_mode_ms"]
+            summary[-1]["bf16_mode_launches_by_path"] = {
+                p: n["flash_fwd_tc_f32_bf16"] for p, n in paths.items()
+                if n.get("flash_fwd_tc_f32_bf16")}
+            summary[-1]["headline"] = {k: f32_headline[k] for k in (
+                *timed_keys, "scalar_ms", "bf16_mode_ms", "products")}
         timed = timed_keys
         if kname in bwd_windowed:
             summary[-1]["windowed"] = {case: {k: rec[k] for k in (*timed, "scalar_ms") if k in rec}

@@ -3,9 +3,10 @@
 Counterpart of the root ``bench.py`` (:139-232).  Metric: forward-attention
 latency at the reference's headline config (B = 2, H = 8, d = 64, S = 8192,
 non-causal, float32; ``vs_baseline`` is the speedup over the reference's
-119 ms on an RTX 3060).  The JAX headline times the default float32 path
-(``precision="bf16_3x"``); the port runs every precision mode as exact
-float32 (``fp32_path``), so the headline and ``fp32_fast`` time one path.
+119 ms on an RTX 3060).  As the JAX headline, it times the default float32
+path, ``precision="bf16_3x"``: on the card the forward's float32
+tensor-core form (``fp32_path`` names the form and mode that ran), and
+``fp32_fast`` the one-pass ``"bf16"`` mode, the same form over one bf16 term.
 Secondary keys: native bf16 (3-run spread), causal bf16 (3-run spread), the
 Llama-7B shape (BH = 128, S = 2048, d = 128, bf16) and paged-decode tokens/s
 over bf16 and int8 pages (2-run spreads).
@@ -36,6 +37,15 @@ BASELINE_MS = 119.0  # reference "Ours" on RTX 3060, README.md:11
 B, H, D, S = 2, 8, 64, 8192
 LLAMA = (128, 2048)  # the Llama-7B layer's (BH, S) at d = 128
 DECODE_S = 2048  # paged decode's context
+
+
+def _fp32_path(mode) -> str:
+    """The form and mode the headline's float32 calls take."""
+    from flashattention_tpu_torch.ops.flash import kernel_form, resolve_precision
+
+    mode = resolve_precision(mode, torch.float32)
+    form = kernel_form("flash_fwd", torch.float32, D, precision=mode)
+    return {"tc_f32": "flash_fwd_tc_f32", "scalar": "flash_fwd (exact float32)"}[form] + f", {mode}"
 
 
 def _metric() -> str:
@@ -128,7 +138,7 @@ def main(argv=None):
             "unit": "ms",
             "vs_baseline": round(BASELINE_MS / ms, 2),
             "tflops_per_s": round(flops / ms / 1e9, 1),
-            "fp32_path": "exact float32 (every precision mode)",
+            "fp32_path": f"{_fp32_path(None)}; fp32_fast: {_fp32_path('bf16')}",
             "fp32_fast_ms": round(ms_fast, 3),
             "fp32_fast_tflops_per_s": round(flops / ms_fast / 1e9, 1),
             "bf16_ms": round(min(bf16_runs), 3),

@@ -8,7 +8,10 @@ with heads folded into the batch, the eager reference
 n_head = 8, d = 64 and scale = 1.0 by default, as there.  ``--profile DIR``
 writes a ``torch.profiler`` Chrome trace of one kernel call into DIR.
 Prints JSON rows with TFLOP/s and, on the card, the roofline fraction over
-its peak.
+its peak: the reference's over the card's peak for the dtype, the fused
+kernel's over the ceiling of the form it runs (``form``; float32 inputs take
+the JAX default precision, ``"bf16_3x"``, on the float32 tensor-core form at
+d = 64 and 128: ``utils.benchit.attention_ceiling_tflops``).
 
     python -m flashattention_tpu_torch.cli.bench_flashattention [--device cpu] ...
 """
@@ -42,7 +45,10 @@ def main(argv=None):
 
     from flashattention_tpu_torch.ops.dispatch import attention
     from flashattention_tpu_torch.ops.reference import attention_reference
-    from flashattention_tpu_torch.utils.benchit import attention_flops, chip_peak, devtime_ms
+    from flashattention_tpu_torch.ops.dispatch import padded_head_dim
+    from flashattention_tpu_torch.ops.flash import kernel_form, resolve_precision
+    from flashattention_tpu_torch.utils.benchit import (attention_ceiling_tflops, attention_flops,
+                                                        chip_peak, devtime_ms)
 
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
     bh = args.batch_size * args.n_head
@@ -72,6 +78,9 @@ def main(argv=None):
     ms_ours = devtime_ms(ours, (q, k, v), n_hi=args.repeats, trials=3)
     ms_ref = devtime_ms(ref, (q, k, v), n_hi=args.repeats, trials=3)
     peak = chip_peak(16 if dtype == torch.bfloat16 else 32, device=dev)
+    mode, d_run = resolve_precision(None, dtype), padded_head_dim(args.d)
+    form = kernel_form("flash_fwd", dtype, d_run, precision=mode)
+    ceiling = attention_ceiling_tflops(d_run, mode, device=dev)
     card = card_of(dev)
     for name, ms in (("torch_reference", ms_ref), ("flash_cuda", ms_ours)):
         row = {
@@ -86,8 +95,11 @@ def main(argv=None):
             "tflops_per_s": round(flops / ms / 1e9, 2),
             "card": card,
         }
-        if peak:
-            row["roofline_frac"] = round(flops / ms / 1e9 / peak[0], 3)
+        if name == "flash_cuda":
+            row["form"] = f"{form}, {mode}"
+        top = ceiling if name == "flash_cuda" else peak and peak[0]
+        if top:
+            row["roofline_frac"] = round(flops / ms / 1e9 / top, 3)
         print(json.dumps(row))
     print(json.dumps({"speedup_vs_reference": round(ms_ref / ms_ours, 2),
                       "max_abs_err": max_err, "allclose_atol_1e-1": ok}))

@@ -80,15 +80,20 @@ def build(kernel_num, causal, scale, kq=None, vq=None):
 
 def _tile(q, kernel_num) -> str:
     """The tile a rung of the port's flash kernel runs: the tensor-core
-    form's (128 query rows by its KV tile) or the scalar kernel's
-    ``BlockSizes``; "auto" for the other rungs."""
-    from flashattention_tpu_torch.ops.flash import TC_KV_TILE, BlockSizes, kernel_form
+    form's (128 query rows by its KV tile; float32 inputs in the default
+    "bf16_3x" mode: the float32 form's, over two bf16 terms) or the scalar
+    kernel's ``BlockSizes``; "auto" for the other rungs."""
+    from flashattention_tpu_torch.ops.flash import (TC_F32_KV_TILE, TC_KV_TILE, BlockSizes,
+                                                    kernel_form)
 
     if kernel_num not in (4, 5, 6):
         return "auto"
     d = q.shape[-1]
-    if kernel_form("flash_fwd", q.dtype, d, quantized=kernel_num != 4) == "tc":
+    form = kernel_form("flash_fwd", q.dtype, d, quantized=kernel_num != 4)
+    if form == "tc":
         return f"tensor cores: 128 query rows x {TC_KV_TILE[d]} KV rows"
+    if form == "tc_f32":
+        return f"tensor cores, float32 as bf16_3x: 128 query rows x {TC_F32_KV_TILE[d]} KV rows"
     return str(BlockSizes())
 
 

@@ -1,10 +1,12 @@
 // The tensor-core flash-attention forward's library (flash_fwd_tc, and with
 // FA_EXTRA flash_fwd_tc_extra, the attention-dropout form; with FA_QUANT
-// flash_fwd_tc_quant, the form over 8-bit K/V with float32 per-row scales):
-// the C entry point over the kernel of flash_fwd_tc.cuh, instantiated at
-// head_dim 64, 128 and 256 with and without the window/softcap form (the
-// 8-bit library: for int8 and for fp8 e4m3 payloads).  See flash_fwd_tc.cuh
-// for what it replaces and its design.
+// flash_fwd_tc_quant, the form over 8-bit K/V with float32 per-row scales;
+// with FA_F32 flash_fwd_tc_f32, float32 inputs as the JAX precision modes
+// compute them): the C entry point over the kernel of flash_fwd_tc.cuh,
+// instantiated at head_dim 64, 128 and 256 with and without the
+// window/softcap form (the 8-bit library: for int8 and for fp8 e4m3
+// payloads; the float32 one at 64 and 128).  See flash_fwd_tc.cuh for what
+// it replaces and its design.
 #include "flash_fwd_tc.cuh"
 
 namespace {
@@ -52,13 +54,88 @@ Args make_args(const void* q, const void* k, const void* v, void* o, void* l, vo
 
 }  // namespace
 
+#ifdef FA_F32
+namespace {
+
+// The split pass: `rows` float32 rows of d elements into bf16 rows of
+// terms * d, [hi | lo] (terms 2) or [hi] (1), hi = bf16(x) and lo = bf16(x -
+// hi), both rounded to nearest even; eight elements a thread.
+__global__ void split_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ out,
+                             long long rows, int d, int terms) {
+  const int units = d / 8;
+  const long long n = rows * units;
+  for (long long u = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; u < n;
+       u += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = u / units;
+    const int c = static_cast<int>(u % units) * 8;
+    const float4 a = *reinterpret_cast<const float4*>(x + r * d + c);
+    const float4 b = *reinterpret_cast<const float4*>(x + r * d + c + 4);
+    const float e[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      hi[w] = tc::pack_bf16(e[2 * w], e[2 * w + 1]);
+      lo[w] = tc::pack_lo(e[2 * w], e[2 * w + 1], hi[w]);
+    }
+    __nv_bfloat16* row = out + r * terms * d;
+    *reinterpret_cast<uint4*>(row + c) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    if (terms == 2) *reinterpret_cast<uint4*>(row + d + c) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+int split(const void* x, void* out, long long rows, int d, int terms, cudaStream_t stream) {
+  const long long n = rows * (d / 8);
+  const int blocks = static_cast<int>(n < 132LL * 16 * 256 ? (n + 255) / 256 : 132LL * 16);
+  if (blocks > 0)
+    split_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(x),
+                                             static_cast<__nv_bfloat16*>(out), rows, d, terms);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two terms: all four products at d = 64 (the JAX packed form), three above.
+template <int D, bool kWindowCap>
+int launch_f32(const Args& a, int terms) {
+  if (terms == 1) return fwd_tc::launch<D, kWindowCap, false, 0, 0, 1>(a);
+  return fwd_tc::launch<D, kWindowCap, false, 0, 0, D == 64 ? 4 : 3>(a);
+}
+
+template <int D>
+int launch_f32_w(const Args& a, int terms) {
+  return a.window > 0 || a.softcap > 0.f ? launch_f32<D, true>(a, terms)
+                                         : launch_f32<D, false>(a, terms);
+}
+
+}  // namespace
+
+// Float32 q, k, v (bh, rows, d) / (bh, s_kv, d), contiguous, 16-byte aligned;
+// q2, k2, v2: bf16 buffers of the same rows and terms * d columns, which the
+// split pass fills before the kernel reads them; o: float32 like q.  terms 2
+// is "bf16_3x" (two bf16 terms a value), terms 1 "bf16" (one).  The other
+// arguments as in fa_flash_fwd_tc, without dropout.
+extern "C" int fa_flash_fwd_tc_f32(int terms, const void* q, const void* k, const void* v,
+                                   void* q2, void* k2, void* v2, void* o, void* l, void* m,
+                                   const void* q_seg, const void* kv_seg, int bh, int rows,
+                                   int s_kv, int d, int kv_len, int q_offset, int q_seq_len,
+                                   int causal, float scale, int window, float softcap,
+                                   void* stream) {
+  if ((terms != 1 && terms != 2) || (d != 64 && d != 128)) return -1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int status = split(q, q2, static_cast<long long>(bh) * rows, d, terms, st);
+  if (status == 0) status = split(k, k2, static_cast<long long>(bh) * s_kv, d, terms, st);
+  if (status == 0) status = split(v, v2, static_cast<long long>(bh) * s_kv, d, terms, st);
+  if (status != 0) return status;
+  Args a = make_args(q2, k2, v2, nullptr, l, m, q_seg, kv_seg, bh, rows, s_kv, kv_len, q_offset,
+                     q_seq_len, causal, scale, window, softcap, q_seq_len, 0, 0, 0.f, stream);
+  a.o32 = static_cast<float*>(o);
+  return d == 64 ? launch_f32_w<64>(a, terms) : launch_f32_w<128>(a, terms);
+}
+#elif !defined(FA_QUANT)
 // q: (bh, rows, d); k, v: (bh, s_kv, d); o like q; all bf16, contiguous, on
 // the device, 16-byte aligned (TMA); l, m: (bh, rows) float32 or both null;
 // q_seg: (bh, rows) and kv_seg: (bh, s_kv) int32, both or neither null.
 // window <= 0: no sliding window (else it requires causal); softcap <= 0:
 // none.  dropout_threshold 0: no dropout; else (FA_EXTRA only) the seed,
 // threshold, 1 / (1 - rate) and the raw row stride, as in fa_flash_fwd.
-#ifndef FA_QUANT
 extern "C" int fa_flash_fwd_tc(const void* q, const void* k, const void* v, void* o, void* l,
                                void* m, const void* q_seg, const void* kv_seg, int bh, int rows,
                                int s_kv, int d, int kv_len, int q_offset, int q_seq_len,

@@ -75,6 +75,24 @@
 // 8-bit ring 64 KB, the bf16 K and V 64 KB (192 KB, as the bf16 form's);
 // 160 KB at d = 128.
 //
+// kTerms (1, 3 or 4; 0 for bf16 inputs): float32 q, k and v as two bf16 terms,
+// the JAX package's "bf16_3x" precision (flash.py:136-181; its lane-packed
+// form at d <= 64, :783-797, :955-967), built with FA_F32.  A split pass
+// (flash_fwd_tc.cu) writes each row as [hi | lo], hi = bf16(x) and lo =
+// bf16(x - hi): the same bytes as float32, stored and loaded as a bf16 row
+// of width 2 D.  So the ring, the tensor maps and the shared-memory layout
+// are the bf16 form's at width 2 D (Cfg<2 D>: 128-row KV tiles at D = 64,
+// 64-row ones at D = 128, where Q's two terms take 64 KB and two stages of K
+// and V 128 KB), and the products pick their terms by chunk descriptor: S
+// sums q_hi k_hi + q_hi k_lo + q_lo k_hi (+ q_lo k_lo at kTerms 4, JAX's
+// packed form at d = 64), each a chain of wgmmas into the one float32
+// accumulator; P, float32 after the online softmax, enters PV as its two
+// bf16 terms against V's: p_hi v_hi + p_lo v_hi + p_hi v_lo (+ p_lo v_lo at
+// kTerms 4), each V chunk's part summed afresh and added to O in float32.
+// l sums the float32 p; O is stored in float32 (Paged::o32, also set in
+// the flat form).  JAX's "bf16" mode for float32 inputs is kTerms 1: the
+// bf16 form over a one-term split (bf16(x)), with O in float32.
+//
 // kProbe (probe_mma.cu only): 1 runs the QK^T products and the softmax
 // without the PV products, 2 the PV products on a constant P without the
 // rest; 3 the "local" softmax (each tile's p against the tile's own max,
@@ -165,7 +183,8 @@ __device__ __forceinline__ Range kv_range(int r0, int rows, int kv_len, int q_of
 // of the chunk sits at ctx_lens[b] - chunk + r % q_seq_len.  With o32, O
 // is written there in float32, straight from the float32 sums (float32 q over
 // bf16 pages, taken in bf16 as the Pallas kernel takes it, decode.py:440-445,
-// whose output is q's type), and `o` is not written.
+// whose output is q's type), and `o` is not written; the flat form reads
+// o32 alone, in its float32 forms (kTerms).
 struct Paged {
   const int* page_indices;
   const int* ctx_lens;
@@ -173,7 +192,12 @@ struct Paged {
   float* o32;
 };
 
-template <int D, bool kWindowCap, bool kExtra, int kProbe, bool kPaged, int kKV = 0>
+// The width of the rows the ring carries: two bf16 terms of a float32 row.
+template <int D, int kTerms>
+constexpr int kStoredWidth = kTerms >= 3 ? 2 * D : D;
+
+template <int D, bool kWindowCap, bool kExtra, int kProbe, bool kPaged, int kKV = 0,
+          int kTerms = 0>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -183,8 +207,15 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     int s_kv, int kv_len, int q_offset, int q_seq_len, int causal, float scale,
                     int window, float softcap, const fa::Extras ex, const Paged pg,
                     const float* __restrict__ k_scales, const float* __restrict__ v_scales) {
-  using C = Cfg<D, kKV>;
+  static_assert(kTerms == 0 || ((kTerms == 1 || kTerms == 3 || kTerms == 4) && kKV == 0 &&
+                                 !kPaged && !kExtra && kProbe == 0),
+                "float32 inputs: the plain flat form only");
+  using C = Cfg<kStoredWidth<D, kTerms>, kKV>;
   constexpr int kN = C::kN;
+  // Chunks of one term of a row, and the products of S: (q term, k term)
+  // pairs (0, 0), (0, 1), (1, 0), (1, 1), the first kQK of them.
+  constexpr int kLC = D / tc::kChunk;
+  constexpr int kQK = kTerms >= 3 ? kTerms : 1;
   constexpr bool kLocal = kProbe == 3;
   constexpr int kChains = kProbe == 4 ? 2 : kProbe == 5 ? 4 : 1;
   extern __shared__ unsigned char smem_raw[];
@@ -383,9 +414,13 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;  // a k-step inside the swizzled row
-          const uint64_t da = tc::make_desc(q_base + (kk / 4) * C::kQChunk + off, 16, 1024);
-          const uint64_t db = tc::make_desc(k_base + (kk / 4) * C::kKVChunk + off, 16, 1024);
-          tc::wgmma_ss<0, 0>(sc, da, db, kk > 0);
+#pragma unroll
+          for (int pr = 0; pr < kQK; ++pr) {  // the chunk of q's term pr / 2, k's pr % 2
+            const int qc = (pr / 2) * kLC + kk / 4, kc = (pr % 2) * kLC + kk / 4;
+            const uint64_t da = tc::make_desc(q_base + qc * C::kQChunk + off, 16, 1024);
+            const uint64_t db = tc::make_desc(k_base + kc * C::kKVChunk + off, 16, 1024);
+            tc::wgmma_ss<0, 0>(sc, da, db, kk > 0 || pr > 0);
+          }
         }
         tc::wgmma_commit();
         tc::wgmma_wait<0>();
@@ -474,8 +509,12 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         // tile into O on the tensor cores instead chains 2 kN / 16 k-steps
         // a tile through their truncating float32 addition, which moves the
         // small outputs of a peaked softmax (q x 8, S = 5000) by about 1e-5.
+        // Two-term V (kTerms): chunk c holds columns c % kLC of V's term
+        // c / kLC, and both terms' parts go to the same columns of O; p_lo
+        // meets v_lo only at kTerms 4.
 #pragma unroll
         for (int c = 0; c < C::kChunks; ++c) {
+          const bool p_lo = kTerms != 3 || c < kLC;
           float part[32];
           tc::wgmma_fence();
 #pragma unroll
@@ -483,15 +522,16 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             const uint64_t db = tc::make_desc(
                 v_base + c * C::kKVChunk + kk * 16 * tc::kChunkRowBytes, C::kKVChunk, 1024);
             tc::wgmma_rs<1>(part, pa[kk], db, kk > 0);
-            tc::wgmma_rs<1>(part, pl[kk], db, 1);
+            if (p_lo) tc::wgmma_rs<1>(part, pl[kk], db, 1);
           }
           tc::wgmma_commit();
           tc::wgmma_wait<0>();
           tc::fence_regs(part);
 #pragma unroll
           for (int x = 0; x < 32; ++x) {
-            if constexpr (kLocal) acc[ch][32 * c + x] += part[x] * (x % 4 < 2 ? beta_a : beta_b);
-            else acc[ch][32 * c + x] += part[x];
+            const int at = 32 * (c % kLC) + x;
+            if constexpr (kLocal) acc[ch][at] += part[x] * (x % 4 < 2 ? beta_a : beta_b);
+            else acc[ch][at] += part[x];
           }
         }
 #pragma unroll
@@ -550,7 +590,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __nv_bfloat16* o_head = o + static_cast<size_t>(bh) * rows * D;
   float* o32_head = nullptr;
-  if constexpr (kPaged) {
+  if constexpr (kPaged || kTerms != 0) {
     if (pg.o32 != nullptr) o32_head = pg.o32 + static_cast<size_t>(bh) * rows * D;
   }
 #pragma unroll
@@ -603,29 +643,34 @@ struct Args {
   cudaStream_t stream;
   const float* k_scales = nullptr;  // 8-bit K/V: (bh, s_kv) or, paged, (P, KVH, ps)
   const float* v_scales = nullptr;
+  float* o32 = nullptr;  // float32 O in place of o (float32 inputs)
 };
 
-template <int D, bool kWindowCap, bool kExtra, int kProbe, int kKV = 0>
+// q, k, v: bf16 rows of kStoredWidth<D, kTerms> (kTerms: [hi | lo]).
+template <int D, bool kWindowCap, bool kExtra, int kProbe, int kKV = 0, int kTerms = 0>
 int launch(const Args& a) {
-  using C = Cfg<D, kKV>;
+  constexpr int W = kStoredWidth<D, kTerms>;
+  using C = Cfg<W, kKV>;
   CUtensorMap mq, mk, mv;
   // K/V rows past kv_len read as zeros: V's there may be anything.
   const int kv_rows = a.kv_len > 0 ? a.kv_len : 1;
   const int eb = C::kQuant ? 1 : 2;  // K/V element bytes
-  int st = tc_encode_map(&mq, a.q, D, a.rows, a.bh, static_cast<long long>(a.rows) * D, kBlockM);
+  int st = tc_encode_map(&mq, a.q, W, a.rows, a.bh, static_cast<long long>(a.rows) * W, kBlockM);
   if (st == 0)
-    st = tc_encode_map(&mk, a.k, D, kv_rows, a.bh, static_cast<long long>(a.s_kv) * D, C::kN, eb);
+    st = tc_encode_map(&mk, a.k, W, kv_rows, a.bh, static_cast<long long>(a.s_kv) * W, C::kN, eb);
   if (st == 0)
-    st = tc_encode_map(&mv, a.v, D, kv_rows, a.bh, static_cast<long long>(a.s_kv) * D, C::kN, eb);
+    st = tc_encode_map(&mv, a.v, W, kv_rows, a.bh, static_cast<long long>(a.s_kv) * W, C::kN, eb);
   if (st != 0) return st;
-  auto kernel = flash_fwd_tc_kernel<D, kWindowCap, kExtra, kProbe, false, kKV>;
+  auto kernel = flash_fwd_tc_kernel<D, kWindowCap, kExtra, kProbe, false, kKV, kTerms>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.rows + kBlockM - 1) / kBlockM, a.bh);
+  Paged pg{};
+  pg.o32 = a.o32;
   kernel<<<grid, kThreads, C::kBytes, a.stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), a.l, a.m, a.q_seg, a.kv_seg, a.rows, a.s_kv,
-      a.kv_len, a.q_offset, a.q_seq_len, a.causal, a.scale, a.window, a.softcap, a.ex, Paged{},
+      a.kv_len, a.q_offset, a.q_seq_len, a.causal, a.scale, a.window, a.softcap, a.ex, pg,
       a.k_scales, a.v_scales);
   return static_cast<int>(cudaGetLastError());
 }

@@ -81,8 +81,9 @@ __all__ = [
 
 def _check_tpu_options(dtype, block_sizes=None, precision=None, interpret=None):
     """The JAX signature's TPU knobs: ``precision`` is validated as the JAX
-    package validates it (:func:`ops.flash.resolve_precision`; every mode
-    runs the exact float32 path), ``interpret`` is accepted and ignored,
+    package validates it (:func:`ops.flash.resolve_precision`; the backward
+    kernels compute float32 exactly in every mode), ``interpret`` is
+    accepted and ignored,
     and ``block_sizes`` has no counterpart: the CUDA kernels have their own
     tiles."""
     resolve_precision(precision, dtype)
@@ -514,8 +515,10 @@ def attention_vjp(
     ``q_seq_len`` folds GQA groups into the rows (q is ``(B*KVH, G*S, d)``
     against k/v ``(B*KVH, S_kv, d)``); the backward sums dK/dV over all G
     groups' rows.  ``block_sizes`` is the forward kernel's tile
-    (``BlockSizes()`` or None); ``precision`` is validated as in
-    :func:`ops.flash.flash_attention` and ``interpret`` is ignored.
+    (``BlockSizes()`` or None); ``precision`` goes to the forward
+    (:func:`ops.flash.flash_attention`: its residuals come from the form the
+    mode takes) and is validated by the backward, which computes float32
+    exactly in every mode; ``interpret`` is ignored.
     ``window`` and ``logit_softcap`` go to the forward (whose lse then holds
     the capped, windowed scores) and to the backward.  ``dropout_rate`` / ``dropout_seed`` drop the softmax weights
     with inverted scaling; both passes regenerate the keep bits from the
@@ -527,6 +530,7 @@ def attention_vjp(
     _check_tpu_options(q.dtype, None, precision, interpret)
     opts = dict(causal=bool(causal), scale=float(scale), q_seq_len=q_seq_len, kv_len=kv_len,
                 q_offset=int(q_offset), window=window, logit_softcap=logit_softcap,
+                precision=precision,
                 dropout_rate=check_dropout(dropout_rate), dropout_seed=wrap_int32(dropout_seed),
                 dropout_row_stride=dropout_row_stride, block_mask=block_mask)
     return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids, opts, block_sizes)

@@ -24,8 +24,10 @@ head_dim above 256 is refused by name.  ``implementation="pallas"`` (the
 default, as in the JAX package) and its alias ``"cuda"`` run the kernel;
 ``implementation="xla"`` keeps the JAX package's name for its oracle path
 and runs the plain reference (:mod:`ops.reference`) instead.  The JAX
-keywords ``precision`` (validated as the JAX package does; every mode runs
-the exact float32 path) and ``interpret`` (ignored) are accepted.
+keywords ``precision`` (the JAX package's modes for float32 inputs: the
+default ``"bf16_3x"`` and ``"bf16"`` run the forward's float32 tensor-core
+form at head_dims 64 and 128, ``"float32"`` the exact kernel;
+:func:`ops.flash.kernel_form`) and ``interpret`` (ignored) are accepted.
 """
 
 from __future__ import annotations
@@ -88,9 +90,12 @@ def attention(
         package's name for it).
       precision: the JAX package's matmul precision mode for float32 inputs
         (``"bf16"``, ``"bf16_3x"``, ``"float32"``, None or ``"auto"``),
-        validated on the kernel route as the JAX package does
-        (:func:`ops.flash.resolve_precision`); every mode runs the kernels'
-        exact float32 path.
+        resolved on the kernel route as the JAX package resolves it
+        (:func:`ops.flash.resolve_precision`; None is ``"bf16_3x"``) and
+        passed to the forward (:func:`ops.flash.kernel_form`: the float32
+        tensor-core form computes ``"bf16_3x"`` and ``"bf16"`` at head_dims
+        64 and 128, the exact kernel ``"float32"`` and the rest); the
+        backward computes float32 exactly in every mode.
       interpret: the JAX package's Pallas interpreter switch, accepted and
         ignored.
       kv_len: live KV length; columns at or past it are masked.

@@ -5,7 +5,11 @@ On a CUDA tensor it launches a hand-written kernel that replaces the Pallas
 ``_kernel`` (:628), in the form :func:`kernel_form` picks: for bf16 q at
 head_dim 64, 128 or 256 with no block mask the tensor-core kernel in
 ``csrc/flash_fwd_tc.cu`` (over 8-bit K/V without dropout, its 8-bit form,
-``flash_fwd_tc_quant``), otherwise the float32 CUDA-core kernel in
+``flash_fwd_tc_quant``); for float32 q, k and v at head_dim 64 or 128 with
+no block mask or dropout, in the JAX package's ``"bf16_3x"`` (the default)
+and ``"bf16"`` precision modes, its float32 form ``flash_fwd_tc_f32``, the
+same kernel over each value's two bf16 terms (or one); otherwise, and for
+``precision="float32"``, the float32 CUDA-core kernel in
 ``csrc/flash_fwd.cu``; on a CPU tensor it runs :func:`flash_attention_plain`,
 the same function in plain PyTorch, with the chosen form's rounding.  There
 is no fallback between the two, or between the forms: a CUDA call either
@@ -97,9 +101,9 @@ def resolve_precision(precision: str | None, dtype) -> str:
     the JAX ``resolve_precision`` (flash.py:119) does: None or ``"auto"``
     is ``"bf16_3x"`` for float32 and ``"bf16"`` otherwise, any other value
     outside :data:`PRECISIONS` raises ``ValueError``, and inputs below
-    float32 always resolve to ``"bf16"``.  The CUDA kernels and their plain
-    versions compute float32 inputs exactly in float32 whatever the mode,
-    which is within every mode's error of the JAX kernels."""
+    float32 always resolve to ``"bf16"``.  For float32 inputs the flash
+    forward computes the mode (:func:`kernel_form`'s ``"tc_f32"``) where
+    its float32 tensor-core form is built, and exact float32 elsewhere."""
     if precision in (None, "auto"):
         return "bf16_3x" if dtype == torch.float32 else "bf16"
     if precision not in PRECISIONS:
@@ -123,6 +127,21 @@ TC_HEAD_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128, 256),
 TC_KV_TILE = {64: 128, 128: 128, 256: 64}
 TC_DECODE_TILE = 64
 TC_DECODE_ROWS = 32
+# The forward's float32 form (csrc/flash_fwd_tc.cu built with -DFA_F32):
+# float32 q, k and v at these head_dims in the "bf16_3x" and "bf16" modes.
+# In "bf16_3x" its ring carries rows of two bf16 terms, twice as wide, so
+# its KV tile is the bf16 form's at 2 d (TC_F32_KV_TILE); in "bf16" it is
+# the bf16 form over one term (TC_KV_TILE).
+TC_F32_HEAD_DIMS = (64, 128)
+TC_F32_KV_TILE = {64: 128, 128: 64}
+
+
+def f32_products(d: int) -> int:
+    """The products of the "bf16_3x" form's S and PV at head_dim ``d``: all
+    four of the two terms' at d = 64, where the JAX package streams
+    ``[hi | lo]`` pairs (its lane-packed form, flash.py:1433-1441); above,
+    hi hi + hi lo + lo hi, as its ``_dot_g`` (flash.py:150-181)."""
+    return 4 if 2 * d <= 128 else 3
 
 
 def tc_page_size(page_size, head_dim: int, tile: int | None = None) -> bool:
@@ -138,7 +157,8 @@ def tc_page_size(page_size, head_dim: int, tile: int | None = None) -> bool:
 
 def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
                 block_mask: bool = False, dropout: bool = False,
-                page_size: int | None = None, rows: int = 1) -> str:
+                page_size: int | None = None, rows: int = 1,
+                precision: str | None = None) -> str:
     """The form a call of ``kernel`` (``"flash_fwd"``, ``"flash_bwd"`` for
     the fused backward, ``"flash_bwd_dq"`` / ``"flash_bwd_dkv"`` for the
     two-pass pair, ``"paged_prefill"`` or ``"paged_decode"``) takes:
@@ -148,10 +168,17 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
     (``quantized``); the paged kernels only on pages of a ``page_size`` that
     :func:`tc_page_size` takes (paged decode's at ``TC_DECODE_TILE``), paged
     decode only with at most ``TC_DECODE_ROWS`` q ``rows`` per KV head (G,
-    or G * draft_k).  Else ``"scalar"``, the float32 CUDA-core kernel
-    (float32 q over 8-bit pages too, 8-bit K/V with dropout or a block mask,
-    and the two-pass pair with a block mask).  Inside :func:`scalar_forms`,
-    always ``"scalar"``."""
+    or G * draft_k).  ``"tc_f32"``, the flash forward's float32 form, for
+    float32 q, k and v at ``TC_F32_HEAD_DIMS`` with no block mask, dropout or
+    8-bit K/V, in the mode ``precision`` resolves to (:func:`resolve_precision`:
+    by default ``"bf16_3x"``) unless that is ``"float32"``.  Else
+    ``"scalar"``, the float32 CUDA-core kernel (float32 q over 8-bit pages
+    too, 8-bit K/V with dropout or a block mask, and the two-pass pair with
+    a block mask).  Inside :func:`scalar_forms`, always ``"scalar"``."""
+    if (kernel == "flash_fwd" and dtype == torch.float32 and not _SCALAR_ONLY[0]
+            and resolve_precision(precision, dtype) != "float32"
+            and head_dim in TC_F32_HEAD_DIMS and not (quantized or block_mask or dropout)):
+        return "tc_f32"
     if (_SCALAR_ONLY[0] or dtype != torch.bfloat16 or block_mask
             or head_dim not in TC_HEAD_DIMS.get(kernel, ())
             or (quantized and (kernel.startswith("flash_bwd") or dropout))
@@ -197,12 +224,19 @@ def _exp(x):
 _LOG2E = 1.4426950408889634
 
 
-def _two_term_bf16(x):
-    """``x`` as the tensor-core forms feed it to a product: two bfloat16
-    terms, ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` (nearest even), summed
-    in float32."""
+def _split_bf16(x):
+    """``x`` as two bfloat16 terms, ``hi = bf16(x)`` and ``lo = bf16(x -
+    hi)`` (nearest even), as float32 tensors: the JAX package's
+    ``_split_bf16`` (flash.py:136) and the float32 form's split pass."""
     hi = x.to(torch.bfloat16).float()
-    return hi + (x - hi).to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _two_term_bf16(x):
+    """``x`` as the tensor-core forms feed it to a product: its two bfloat16
+    terms (:func:`_split_bf16`) summed in float32."""
+    hi, lo = _split_bf16(x)
+    return hi + lo
 
 
 def head_chunks(bh: int, per_head: int, budget: int = 1 << 27):
@@ -653,14 +687,16 @@ def flash_attention(
         ``(r // q_seq_len) * dropout_row_stride + r % q_seq_len``; default
         ``q_seq_len`` (:func:`ops.dispatch.attention` passes the JAX
         package's padded segment length).
-      precision: the JAX package's mode, validated by
-        :func:`resolve_precision`; every mode runs the exact float32 path.
+      precision: the JAX package's mode for float32 inputs, resolved by
+        :func:`resolve_precision` (default ``"bf16_3x"``); ``"float32"``
+        runs the exact float32 kernel, the others the float32 form where
+        :func:`kernel_form` takes it.
       interpret: the JAX package's Pallas interpreter switch, accepted and
         ignored (a CPU tensor runs the plain version).
 
     Returns ``o`` like q, or ``(o, l, m)``.
     """
-    resolve_precision(precision, q.dtype)
+    precision = resolve_precision(precision, q.dtype)
     dropout_rate = check_dropout(dropout_rate)
     check_window(window, logit_softcap, causal)
     if block_sizes is not None and block_sizes != BlockSizes():
@@ -692,14 +728,15 @@ def flash_attention(
     if not all(t.is_contiguous() for t in (q, k, v, *scales)):
         raise ValueError("flash_attention takes contiguous q, k, v and scales")
     form = kernel_form("flash_fwd", q.dtype, d, quantized=quantized,
-                       block_mask=block_mask is not None, dropout=dropout_rate is not None)
+                       block_mask=block_mask is not None, dropout=dropout_rate is not None,
+                       precision=precision)
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, scale=scale, kv_len=kv_len,
             q_offset=q_offset, q_seq_len=q_seq_len, save_residuals=save_residuals,
             q_segment_ids=seg_q, kv_segment_ids=seg_kv, window=window,
             logit_softcap=logit_softcap, block_mask=block_mask, form=form,
-            k_scales=k_scales, v_scales=v_scales, **dropout,
+            k_scales=k_scales, v_scales=v_scales, precision=precision, **dropout,
         )
     if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, *scales)):
         raise ValueError(f"flash_attention: tensors on {q.device}/{k.device}/{v.device}")
@@ -727,6 +764,14 @@ def flash_attention(
         flash_attention.launches_quantized += quantized
         flash_attention.launches_tc_quantized += quantized
         flash_attention.launches_dropout += dropout_rate is not None
+        return (o, l, m) if save_residuals else o
+    if form == "tc_f32":
+        _flash_fwd_tc_f32(q, k, v, o, l, m, seg_q, seg_kv, precision, kv_len=kv_len,
+                          q_offset=int(q_offset), q_seq_len=q_seq_len, causal=bool(causal),
+                          scale=float(scale), window=window, logit_softcap=logit_softcap)
+        flash_attention.launches_tc_f32 += 1
+        flash_attention.launches_tc_f32_bf16 += precision == "bf16"
+        flash_attention.launches += 1
         return (o, l, m) if save_residuals else o
     name = "flash_fwd_quant" if quantized else "flash_fwd"
     if dropout_rate is not None or block_mask is not None:
@@ -779,10 +824,35 @@ def _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, scales, *, kv_len, q_offset, 
     kernels.check_launch(name, status, f"q {tuple(q.shape)} {q.dtype}")
 
 
+def _flash_fwd_tc_f32(q, k, v, o, l, m, seg_q, seg_kv, precision, *, kv_len, q_offset,
+                      q_seq_len, causal, scale, window, logit_softcap):
+    """One call of the float32 form (``csrc/flash_fwd_tc.cu`` built with
+    ``-DFA_F32``): its split pass writes q, k and v as rows of two bf16
+    terms (``"bf16_3x"``) or one (``"bf16"``) into buffers made here, then
+    the tensor-core forward reads them and writes float32 ``o``."""
+    kernels.check_aligned("flash_attention", q, k, v)
+    bh, rows, d = q.shape
+    terms = 2 if precision == "bf16_3x" else 1
+    q2, k2, v2 = (torch.empty((bh, x.shape[1], terms * d), dtype=torch.bfloat16, device=q.device)
+                  for x in (q, k, v))
+    status = kernels.library("flash_fwd_tc_f32").fa_flash_fwd_tc_f32(
+        terms, *(t.data_ptr() for t in (q, k, v, q2, k2, v2, o)),
+        None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
+        None if seg_q is None else seg_q.data_ptr(),
+        None if seg_kv is None else seg_kv.data_ptr(), bh, rows, k.shape[1], d, kv_len,
+        q_offset, q_seq_len, int(causal), scale, *kernel_options(window, logit_softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check_launch("flash_fwd_tc_f32", status, f"q {tuple(q.shape)} {precision}")
+
+
 # Kernel launches, for chip_smoke.py's path check: all forms, and the
-# tensor-core, 8-bit, tensor-core 8-bit, dropout and block-mask ones among them.
+# tensor-core, 8-bit, tensor-core 8-bit, dropout and block-mask ones among
+# them; the float32 form's, and its "bf16" mode's among those.
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
+flash_attention.launches_tc_f32 = 0
+flash_attention.launches_tc_f32_bf16 = 0
 flash_attention.launches_quantized = 0
 flash_attention.launches_tc_quantized = 0
 flash_attention.launches_dropout = 0
@@ -793,7 +863,7 @@ def flash_attention_plain(
     q, k, v, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
     q_seq_len=None, save_residuals=False, q_segment_ids=None, kv_segment_ids=None,
     window=None, logit_softcap=None, block_mask=None, dropout_rate=None, dropout_seed=0,
-    dropout_row_stride=None, form=None, k_scales=None, v_scales=None,
+    dropout_row_stride=None, form=None, k_scales=None, v_scales=None, precision=None,
 ):
     """The kernel's function in plain PyTorch, float32 throughout (on the
     CPU ``exp`` in float64, rounded once: see :func:`_exp`): the CPU path of
@@ -814,7 +884,15 @@ def flash_attention_plain(
     values as they are (exact in bf16), multiplies score column j by
     ``k_scales[j]`` before the scale, softcap and masks, and folds
     ``v_scales[j]`` into p's column j before its two-term split, as the
-    Pallas kernel orders them (flash.py:816-828, 968-978)."""
+    Pallas kernel orders them (flash.py:816-828, 968-978).  ``"tc_f32"``
+    (float32 inputs) computes the mode ``precision`` resolves to as the
+    float32 form does: in ``"bf16_3x"`` S is the sum of the products of q's
+    and k's bf16 terms (:func:`_split_bf16`; :func:`f32_products` of them),
+    p (against the running max of ``TC_F32_KV_TILE[d]``-column tiles) enters
+    PV as its two terms against V's, ``(p_hi + p_lo) v_hi + p_hi v_lo`` (+
+    ``p_lo v_lo`` at four products), and l sums the float32 p; in ``"bf16"``
+    q, k and v are rounded to bf16 once and the ``"tc"`` form follows, its O
+    in float32."""
     bh, rows, d = q.shape
     s_kv = k.shape[1]
     if form is None:
@@ -822,7 +900,15 @@ def flash_attention_plain(
             form = "scalar"
         else:
             form = kernel_form("flash_fwd", q.dtype, d, quantized=k_scales is not None,
-                               block_mask=block_mask is not None, dropout=bool(dropout_rate))
+                               block_mask=block_mask is not None, dropout=bool(dropout_rate),
+                               precision=precision)
+    products = 0
+    if form == "tc_f32":
+        if resolve_precision(precision, q.dtype) == "bf16":
+            q, k, v = (x.to(torch.bfloat16).float() for x in (q, k, v))
+            form = "tc"
+        else:
+            products = f32_products(d)
     if k_scales is not None and form != "tc":  # the scalar form: dequantize first
         k, v = dequantize_rows(k, k_scales), dequantize_rows(v, v_scales)
         k_scales = v_scales = None
@@ -845,18 +931,25 @@ def flash_attention_plain(
         kv_scales = None if k_scales is None else (k_scales[sl], v_scales[sl])
         outs.append(_fwd_plain_heads(q[sl], k[sl], v[sl], seg_mask, keep, kv_scales, scale=scale,
                                      logit_softcap=logit_softcap, dropout_rate=dropout_rate,
-                                     form=form))
+                                     form=form, products=products))
     o, l, m = (torch.cat(x) for x in zip(*outs))
     return (o, l, m) if save_residuals else o
 
 
 def _fwd_plain_heads(q, k, v, mask, keep, kv_scales, *, scale, logit_softcap, dropout_rate,
-                     form):
+                     form, products=0):
     """flash_attention_plain over some heads: ``(o, l, m)``; ``kv_scales``
-    the 8-bit tc form's ``(k_scales, v_scales)`` of these heads, or None."""
+    the 8-bit tc form's ``(k_scales, v_scales)`` of these heads, or None;
+    ``products`` the "bf16_3x" form's (3 or 4; 0 otherwise)."""
     bh, rows, d = q.shape
     s_kv = k.shape[1]
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+    if products:  # S from the terms' products: hi hi, hi lo, lo hi (, lo lo)
+        (qh, ql), (kh, kl) = _split_bf16(q), _split_bf16(k)
+        pairs = ((qh, kh), (qh, kl), (ql, kh), (ql, kl))[:products]
+        s = sum(torch.einsum("bqd,bkd->bqk", a, b) for a, b in pairs)
+        del qh, ql, kh, kl, pairs
+    else:
+        s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
     if kv_scales is not None:
         s = s * kv_scales[0][:, None, :]
     s = softcap(s * scale, logit_softcap)
@@ -865,8 +958,8 @@ def _fwd_plain_heads(q, k, v, mask, keep, kv_scales, *, scale, logit_softcap, dr
     m = s.amax(dim=-1)
     p = _exp(s - m[..., None])
     l = p.sum(dim=-1)
-    if form == "tc":  # p against the running max, as two bf16 terms, rescaled
-        tile = TC_KV_TILE[d]
+    if form in ("tc", "tc_f32"):  # p against the running max, as two bf16 terms, rescaled
+        tile = TC_F32_KV_TILE[d] if products else TC_KV_TILE[d]
         nt = -(-s_kv // tile)
         padded = torch.nn.functional.pad(s, (0, nt * tile - s_kv), value=DEFAULT_MASK_VALUE)
         m_run = padded.view(bh, rows, nt, tile).amax(dim=-1).cummax(dim=-1).values
@@ -877,12 +970,19 @@ def _fwd_plain_heads(q, k, v, mask, keep, kv_scales, *, scale, logit_softcap, dr
     del s
     if dropout_rate:  # l stays the undropped sum (flash.py:931-937)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
-    if form == "tc":
-        if kv_scales is not None:
-            p = p * kv_scales[1][:, None, :]
-        p = _two_term_bf16(p) * m_run
-        del m_run
-    o = torch.einsum("bqk,bkd->bqd", p, v.float())
+    if products:  # P's two terms against V's: (p_hi + p_lo) v_hi + p_hi v_lo (+ p_lo v_lo)
+        ph, pl = _split_bf16(p)
+        vh, vl = _split_bf16(v)
+        o = (torch.einsum("bqk,bkd->bqd", (ph + pl) * m_run, vh)
+             + torch.einsum("bqk,bkd->bqd", (ph + pl if products == 4 else ph) * m_run, vl))
+        del ph, pl, m_run
+    else:
+        if form == "tc":
+            if kv_scales is not None:
+                p = p * kv_scales[1][:, None, :]
+            p = _two_term_bf16(p) * m_run
+            del m_run
+        o = torch.einsum("bqk,bkd->bqd", p, v.float())
     o = (o / torch.where(l == 0, 1.0, l)[..., None]).to(q.dtype)
     return o, l, m
 

@@ -18,7 +18,9 @@ only when a call has either.  The tensor-core forms of the forward, the
 fused backward and chunked prefill (``flash_fwd_tc``, ``flash_bwd_tc``, their
 dropout forms ``*_tc_extra``, and ``paged_prefill_tc``) are sources of their
 own, and the two forwards' 8-bit forms are the same sources built with
-``-DFA_QUANT`` (``flash_fwd_tc_quant``, ``paged_prefill_tc_quant``); paged
+``-DFA_QUANT`` (``flash_fwd_tc_quant``, ``paged_prefill_tc_quant``), and the
+forward's float32 form, over each value's bf16 terms, is its source built
+with ``-DFA_F32`` (``flash_fwd_tc_f32``); paged
 decode's tensor-core form is ``paged_decode_tc`` and, for 8-bit pages, the
 same source built with ``-DFA_QUANT`` (``paged_decode_tc_quant``).  The
 two-pass backward pair's tensor-core forms are ``flash_bwd_dq_tc`` (a
@@ -101,6 +103,10 @@ KERNELS = {
                                [_I, _P, _P, *[_P] * 6, *[_I] * 9, _F, _I, _F, _P], ["-DFA_QUANT"]),
     "flash_fwd_tc_quant": ("flash_fwd_tc.cu", "fa_flash_fwd_tc_quant",
                            [_I, _P, _P, *[_P] * 8, *[_I] * 8, _F, _I, _F, *_EXTRA], ["-DFA_QUANT"]),
+    # The forward's float32 form: the number of bf16 terms, float32 q, k, v,
+    # their split buffers, float32 o, then as flash_fwd_tc without dropout.
+    "flash_fwd_tc_f32": ("flash_fwd_tc.cu", "fa_flash_fwd_tc_f32",
+                         [_I, *[_P] * 11, *[_I] * 8, _F, _I, _F, _P], ["-DFA_F32"]),
     "flash_naive": (
         "flash_naive.cu",
         "fa_flash_naive",

@@ -50,6 +50,7 @@ __all__ = [
     "INT8_FLAVORS",
     "MMA_MODES",
     "fp32_inputs",
+    "lo_term_f32_qkv",
     "lo_term_qkv",
     "probe_d128",
     "probe_d128_plain",
@@ -195,6 +196,32 @@ def lo_term_qkv(bh: int, s: int, d: int, *, generator=None, device="cpu"):
     vj = torch.where(torch.rand((bh, n, d), **kw) < 0.5, -mag, mag)
     v = torch.stack([vj, -vj], dim=2)
     return tuple(x.reshape(bh, s, d).to(torch.bfloat16).contiguous() for x in (q, k, v))
+
+
+def lo_term_f32_qkv(bh: int, s: int, d: int, *, generator=None, device="cpu"):
+    """float32 ``q, k, v (BH, S, d)`` on which, at scale 1, the float32
+    form's every cross product and second term moves the output: a form
+    that drops one misses by far more than 1e-4 of the output's magnitude.
+    Query row r is ``(1024 + u, 1024, 0, ...)`` with u in {1, 2, 3}, q_hi
+    = (1024, 1024) and q_lo = (u, 0); key j is ``(h, 4 - h + e 2^-11, 0,
+    ...)`` with h in (1, 2) on a 1/64 grid and e in {-2, ..., 2}, k_hi = (h,
+    4 - h) and k_lo = (0, e 2^-11).  So q_hi k_hi = 4096 for every key, and
+    the scores' differences come from q_lo k_hi = u h and q_hi k_lo = e / 2
+    alone (q_lo k_lo = 0; every partial sum exact in float32).  V's rows
+    are +/-(1 + n / 4), n normal, a random sign per key: where a row sees
+    few keys of either sign (causal rows), its output is a difference of
+    P's values, of which P's second terms, and V's, carry about 2^-9."""
+    kw = dict(generator=generator, device=device)
+    q = torch.zeros((bh, s, d), device=device)
+    q[..., 0] = 1024 + torch.randint(1, 4, (bh, s), **kw).float()
+    q[..., 1] = 1024
+    h = 1 + torch.randint(1, 64, (bh, s), **kw) / 64
+    k = torch.zeros((bh, s, d), device=device)
+    k[..., 0] = h
+    k[..., 1] = 4 - h + torch.randint(-2, 3, (bh, s), **kw) * 2.0**-11
+    sign = torch.where(torch.rand((bh, s, 1), **kw) < 0.5, -1.0, 1.0)
+    v = sign * (1 + torch.randn((bh, s, d), **kw) / 4)
+    return q.contiguous(), k.contiguous(), v.contiguous()
 
 
 # ---------------------------------------------------------------- probe_mma

@@ -231,28 +231,36 @@ def roofline(result: BenchResult, *, dtype_bits: int = 16, device=None,
     return result.tflops_per_s / peak[0]
 
 
-# The modes the port runs as exact float32 (the JAX keywords).
-_FLOAT32_MODES = ("float32", "bf16_3x", "packed")
+# The JAX keywords of the float32 modes with two bf16 terms a value.
+_TWO_TERM_MODES = ("bf16_3x", "packed")
 
 
 def attention_ceiling_tflops(d: int, precision: str = "bf16", *, device=None,
                              card: str | None = None) -> float | None:
-    """Ceiling of attention's useful TFLOP/s at head_dim ``d``.
+    """Ceiling of attention's useful TFLOP/s at head_dim ``d``, in the form
+    the forward runs for the mode (``ops.flash.kernel_form``).
 
     ``"bf16"``: the card's bf16 peak at every head_dim.  The JAX function
     charges a TPU pass over 128 MXU lanes for a d-wide product (peak x d /
     128 below d = 128) and, on a v5e at d = 128, a measured 0.78 factor;
     ``wgmma`` tiles N and K in steps of 8 and 16, so no built head_dim
     wastes a pass, and the v5e's factor is a TPU measurement.
-    ``"float32"``, ``"bf16_3x"`` and ``"packed"``: the card's float32 peak,
-    since the port runs those modes as exact float32.  None off the card or
-    for another precision."""
+    ``"bf16_3x"`` and ``"packed"``: at the float32 tensor-core form's head_dims
+    (``ops.flash.TC_F32_HEAD_DIMS``) the bf16 peak over the products each
+    useful one takes there (``ops.flash.f32_products``: four at d = 64,
+    three at 128); at the others, where the exact kernel runs, and for
+    ``"float32"``, the card's float32 peak.  None off the card or for
+    another precision."""
+    from flashattention_tpu_torch.ops.flash import TC_F32_HEAD_DIMS, f32_products
+
     peak = chip_peak(16, device=device, card=card)
     if peak is None:
         return None
     if precision == "bf16":
         return peak[0]
-    if precision in _FLOAT32_MODES:
+    if precision in _TWO_TERM_MODES and d in TC_F32_HEAD_DIMS:
+        return peak[0] / f32_products(d)
+    if precision in (*_TWO_TERM_MODES, "float32"):
         return chip_peak(32, device=device, card=card)[0]
     return None
 
@@ -266,9 +274,13 @@ def attention_bwd_ceiling_tflops(d: int, precision: str = "bf16", *, s: int = 40
     query blocks runs the (n + 1) / (2 n) of the pairs at or below the
     diagonal where the nominal count halves:
     ``per_product * (5 c) / (n_products * live)``, c = 1/2 if causal.  The
-    per-product rate is the card's peak for ``precision`` (as in
-    :func:`attention_ceiling_tflops`)."""
-    per_mm = attention_ceiling_tflops(d, precision, device=device, card=card)
+    per-product rate is the card's peak for ``precision``: bf16's for
+    ``"bf16"``, float32's for the float32 modes, which the backward
+    kernels compute exactly."""
+    if precision not in ("bf16", *_TWO_TERM_MODES, "float32"):
+        return None
+    per_mm = attention_ceiling_tflops(d, "bf16" if precision == "bf16" else "float32",
+                                      device=device, card=card)
     if per_mm is None:
         return None
     n_mm = 7 if two_pass else 5

@@ -19,9 +19,12 @@ grid step), ``windowed_tri_grid`` / ``tri_grid_deep`` (the triangular pair
 grid), ``one_shot_stateless`` (one KV block, no scratch) and
 ``traced_offsets`` (scalar-prefetched q_offset / kv_len).  Each keeps its
 function and shape, and the H100 kernel runs it in whichever form it takes:
-the float32 kernel is exact float32, the forward has one tile shape (the
-TPU block sizes are not passed), a causal grid skips the tiles past the
-diagonal, and q_offset / kv_len are launch arguments.
+float32 at d = 64 and 128 runs the JAX default precision, ``"bf16_3x"``, on
+the forward's float32 tensor-core form (``fwd_fp32_default`` and
+``lane_packed_d64`` assert that form's launch), float32 at d = 32 the exact
+kernel, the forward has one tile shape (the TPU block sizes are not
+passed), a causal grid skips the tiles past the diagonal, and q_offset /
+kv_len are launch arguments.
 ``one_shot_stateless`` and ``block_h_batched`` therefore compare two
 launches of one kernel at the same inputs (equal bits), where the TPU
 compares two block configurations.  ``traced_offsets`` asks for kv_len =
@@ -56,6 +59,7 @@ def _counters():
         "flash_fwd_quant": (flash.flash_attention, "launches_quantized"),
         "flash_fwd_dropout": (flash.flash_attention, "launches_dropout"),
         "flash_fwd_block_mask": (flash.flash_attention, "launches_block_mask"),
+        "flash_fwd_tc_f32": (flash.flash_attention, "launches_tc_f32"),
         "flash_bwd": (backward.fused_bwd_kernel, "launches"),
         "flash_bwd_dq": (backward.dq_kernel, "launches"),
         "flash_bwd_dkv": (backward.dkv_kernel, "launches"),
@@ -98,11 +102,12 @@ def _ops():
 
 
 def check_fwd_fp32_default(device=None):
-    """fp32 (the JAX default precision; here exact float32), non-causal."""
+    """fp32 at the JAX default precision ("bf16_3x": the float32
+    tensor-core form), non-causal."""
     dev = resolve_device(device)
     flash, _, _, _, ref = _ops()
     q, k, v = _qkv((4, 1024, 64), seed=1, device=dev)
-    with _launches(dev, "flash_fwd"):
+    with _launches(dev, "flash_fwd_tc_f32"):
         o = flash.flash_attention(q, k, v)
     validate_result(o, ref.attention_reference(q, k, v), TOL_FP32)
 
@@ -152,7 +157,8 @@ def check_fwd_traced_offsets(device=None):
 
 
 def check_fwd_lane_packed_d32(device=None):
-    """fp32 at d = 32 (the TPU's lane-packed hi/lo form)."""
+    """fp32 at d = 32 (the TPU's lane-packed hi/lo form; here the exact
+    kernel, the float32 tensor-core form being built at d = 64 and 128)."""
     dev = resolve_device(device)
     flash, _, _, _, ref = _ops()
     q, k, v = _qkv((4, 1024, 32), seed=6, device=dev)
@@ -384,11 +390,12 @@ def check_fwd_one_shot_stateless(device=None):
 
 def check_fwd_lane_packed_d64(device=None):
     """fp32 at d = 64 with the softmax statistics (the TPU's 2-pass hi/lo
-    packing and its MXU row sum)."""
+    packing and its MXU row sum; here the float32 tensor-core form's
+    four-product "bf16_3x")."""
     dev = resolve_device(device)
     flash, _, _, _, ref = _ops()
     q, k, v = _qkv((4, 1024, 64), seed=26, device=dev)
-    with _launches(dev, "flash_fwd"):
+    with _launches(dev, "flash_fwd_tc_f32"):
         o, l, m = flash.flash_attention(q, k, v, save_residuals=True)
     want, lw, mw = ref.attention_reference_with_stats(q, k, v)
     validate_result(o, want, TOL_FP32)

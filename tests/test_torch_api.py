@@ -5,8 +5,8 @@ The same numpy inputs go through each JAX entry point (Pallas kernels in
 interpret mode on the CPU) called with its TPU keywords (``precision`` in
 every valid mode, ``interpret``, ``implementation="pallas"``, positional
 8-bit scales, ``pages_per_compute_block``) and through the port's entry
-point called with the same keywords, where every precision mode runs the
-exact float32 path.  Tolerances: 1e-4 where the JAX side computes float32
+point called with the same keywords, where each precision mode runs its
+form (``tests/test_torch_precision.py``).  Tolerances: 1e-4 where the JAX side computes float32
 products exactly or as three bf16 passes (``"float32"``, ``"bf16_3x"``, the
 default), 2e-2 for its one-pass ``"bf16"`` mode and for bf16 inputs, and
 2e-2 of the output's magnitude over 8-bit K/V (``tests/test_quant.py``'s

@@ -187,8 +187,9 @@ def test_lab_rungs_pass_their_gate(capsys, dtype, masking):
     assert [r["kernel"] for r in rows] == list(range(1, 8))
     assert all(r["valid"] == "OK" and r["max_abs_err"] <= r["tol"] for r in rows)
     _assert_keys("lab.py", rows, card_rows=7)
+    # d = 64: the bf16 tensor-core form, or float32's in its default "bf16_3x"
     tile = "tensor cores: 128 query rows x 128 KV rows" if dtype == "bfloat16" else (
-        "BlockSizes(block_q=64, block_kv=32)")
+        "tensor cores, float32 as bf16_3x: 128 query rows x 128 KV rows")
     assert rows[3]["blocks"] == tile
 
 

@@ -911,3 +911,100 @@ def test_cli_rows_carry_the_card(capsys):
     rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
     assert [r["card"] for r in rows] == [benchit.card_info()] * 2
     assert all(r["valid"] and r["hbm_frac"] > 0 for r in rows)
+
+
+# The float32 form (``flash_fwd_tc_f32``): float32 q, k, v at d = 64 and 128
+# in the "bf16_3x" (default) and "bf16" modes, against its plain version on
+# the CPU (1e-4 of the output's magnitude; "bf16": 2e-2) and, in "bf16_3x",
+# within 1e-4 of the exact scalar kernel.
+F32_CASES = {
+    "causal": dict(causal=True),
+    "full": dict(causal=False),
+    "gqa_fold": dict(causal=True, q_seq_len=70, q_offset=30),
+    "kv_len_residuals": dict(causal=True, kv_len=177, q_offset=150, save_residuals=True),
+    "window_softcap": dict(causal=True, window=50, logit_softcap=5.0),
+    "segments": dict(causal=False, segments=True),
+}
+
+
+def _f32_case(d, case, inputs, s_kv=250):
+    kw = dict(F32_CASES[case])
+    rows = 210
+    if inputs == "lo_term":
+        q, k, v = probes.lo_term_f32_qkv(3, max(rows, s_kv), d,
+                                         generator=torch.Generator().manual_seed(9))
+        q, k, v = q[:, :rows].contiguous(), k[:, :s_kv].contiguous(), v[:, :s_kv].contiguous()
+        scale = 1.0
+    else:
+        q = _randn((3, rows, d), torch.float32, 0)
+        k, v = _randn((3, s_kv, d), torch.float32, 1), _randn((3, s_kv, d), torch.float32, 2)
+        scale = d**-0.5
+    if kw.pop("segments", False):
+        g = torch.Generator().manual_seed(3)
+        kw["q_segment_ids"] = torch.randint(0, 3, (3, rows), generator=g).sort(-1).values
+        kw["kv_segment_ids"] = torch.randint(0, 3, (3, s_kv), generator=g).sort(-1).values
+    return q, k, v, dict(scale=scale, **kw)
+
+
+def _on(kw, dev):
+    return {k: x.to(dev) if torch.is_tensor(x) else x for k, x in kw.items()}
+
+
+def _f32_err(got, want):
+    return float((got.cpu() - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+@pytest.mark.parametrize("case", list(F32_CASES))
+@pytest.mark.parametrize("inputs", ["random", "lo_term"])
+def test_f32_form_matches_plain(d, mode, case, inputs):
+    q, k, v, kw = _f32_case(d, case, inputs)
+    assert flash.kernel_form("flash_fwd", torch.float32, d, precision=mode) == "tc_f32"
+    n = flash.flash_attention.launches_tc_f32
+    got = flash.flash_attention(q.cuda(), k.cuda(), v.cuda(), precision=mode, **_on(kw, "cuda"))
+    want = flash.flash_attention(q, k, v, precision=mode, **kw)
+    torch.cuda.synchronize()
+    assert flash.flash_attention.launches_tc_f32 == n + 1
+    if kw.get("save_residuals"):
+        for g, w in zip(got[1:], want[1:]):
+            assert _f32_err(g, w) <= 1e-5
+        got, want = got[0], want[0]
+    assert got.dtype == torch.float32
+    assert _f32_err(got, want) <= (1e-4 if mode == "bf16_3x" else 2e-2)
+    if mode == "bf16_3x":  # and within 1e-4 of the exact scalar kernel
+        exact = flash.flash_attention(q.cuda(), k.cuda(), v.cuda(), precision="float32",
+                                      **_on(kw, "cuda"))
+        exact = exact[0] if kw.get("save_residuals") else exact
+        assert _f32_err(got.cuda(), exact.cpu()) <= 1e-4
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+def test_f32_form_ignores_poisoned_rows(d, mode):
+    """K/V rows past kv_len NaN, and a second head all NaN behind a ragged
+    S (rows past S in memory): the first head's output bit for bit the
+    clean inputs'."""
+    q, k, v, kw = _f32_case(d, "kv_len_residuals", "random")
+    kw.pop("save_residuals")
+    q, k, v = (x.cuda() for x in (q, k, v))
+    clean = flash.flash_attention(q, k, v, precision=mode, **kw)
+    kp, vp = k.clone(), v.clone()
+    kp[:, kw["kv_len"]:] = float("nan")
+    vp[:, kw["kv_len"]:] = float("nan")
+    qp = q.clone()
+    qp[1:], kp[1:], vp[1:] = float("nan"), float("nan"), float("nan")
+    got = flash.flash_attention(qp, kp, vp, precision=mode, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], clean[0])
+
+
+def test_f32_modes_launch_their_forms():
+    q = _randn((2, 128, 64), torch.float32, 0).cuda()
+    counts = lambda: (flash.flash_attention.launches,  # noqa: E731
+                      flash.flash_attention.launches_tc_f32,
+                      flash.flash_attention.launches_tc_f32_bf16)
+    for mode, step in ((None, (1, 1, 0)), ("bf16", (1, 1, 1)), ("float32", (1, 0, 0))):
+        before = counts()
+        flash.flash_attention(q, q, q, precision=mode)
+        assert tuple(a - b for a, b in zip(counts(), before)) == step, mode

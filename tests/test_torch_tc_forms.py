@@ -38,7 +38,13 @@ DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 def _expected(kernel, dtype, d, quantized, block_mask):
     """bf16 q at the form's head_dims without a block mask (the fused
     backward and both kernels of the two-pass pair at the forward's); 8-bit
-    K/V only in the forward (no backward takes them)."""
+    K/V only in the forward (no backward takes them).  float32 q, k and v
+    in the forward at d = 64 and 128 without 8-bit K/V or a block mask: the
+    float32 form, in the default precision ("bf16_3x";
+    tests/test_torch_precision.py holds every mode)."""
+    if (kernel == "flash_fwd" and dtype == torch.float32 and d in (64, 128)
+            and not (quantized or block_mask)):
+        return "tc_f32"
     dims = (64, 128, 256) if kernel in ("flash_fwd", "flash_bwd", "flash_bwd_dq",
                                         "flash_bwd_dkv") else ()
     ok = (dtype == torch.bfloat16 and d in dims and not block_mask
@@ -148,7 +154,9 @@ def test_tc_backward_matches_jax_bf16(case):
 def test_tc_rounding_moves_the_forward(case):
     """The mirrored rounding is live: the tc form's plain forward differs
     from the scalar form's, by no more than bf16 rounding, and with q, k, v
-    in float32 (the scalar form) the default is the scalar one."""
+    in float32 at ``precision="float32"`` (the scalar form) the default is
+    the scalar one; at the default precision float32 takes the float32
+    form (tests/test_torch_precision.py)."""
     q, k, v, _ = _inputs(case, 3)
     kw = _kw(case)
     tc = tflash.flash_attention_plain(q, k, v, form="tc", **kw)
@@ -157,8 +165,10 @@ def test_tc_rounding_moves_the_forward(case):
     assert 0.0 < gap < TOL
     assert torch.equal(tflash.flash_attention_plain(q, k, v, **kw), tc)
     f32 = [x.float() for x in (q, k, v)]
-    assert torch.equal(tflash.flash_attention_plain(*f32, **kw),
+    assert torch.equal(tflash.flash_attention_plain(*f32, precision="float32", **kw),
                        tflash.flash_attention_plain(*f32, form="scalar", **kw))
+    assert torch.equal(tflash.flash_attention_plain(*f32, **kw),
+                       tflash.flash_attention_plain(*f32, form="tc_f32", **kw))
 
 
 @pytest.mark.parametrize("case", CASES[:3], ids=[c[0] for c in CASES[:3]])
