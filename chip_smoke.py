@@ -62,11 +62,18 @@ Phases, each of which must pass (any failure exits non-zero):
                dropout_p) and block masks in flash_fwd and the two-pass
                backward (``block_mask_checks``: prefix-LM, 512-token
                documents and strided masks at Llama-7B's layer, S = 4096,
-               and built at 4096 for S = 4000; timed against no mask and
-               SDPA with the boolean mask; the documents mask within a
+               and built at 4096 for S = 4000, in bf16 the tensor-core
+               forms, each beside the scalar form's check under
+               ``ops.flash.scalar_forms``, in float32 the scalar forms; the
+               tensor-core forms also at d = 64 and 256 (B*H = 8), and with
+               dropout 0.1 under the strided mask at each head_dim; timed
+               in bf16 against no mask in the same form, the scalar forms
+               and SDPA with the boolean mask; the documents mask within a
                quarter of the no-mask time; K/V rows only dead tiles touch
-               poisoned with NaN); ``torch_tools/dropout_mutants.py`` shows
-               that these fail each of nine dropout and block-mask mutants;
+               poisoned with NaN);
+               ``torch_tools/dropout_mutants.py`` shows that these fail
+               each of nine dropout and block-mask mutants of the scalar
+               kernels;
                in bf16 the flash forward (d = 64, 128, 256), the fused
                backward (d = 64, 128, 256) and paged prefill (d = 64, 128,
                256 on pages of 256 rows) run their tensor-core forms
@@ -97,8 +104,8 @@ Phases, each of which must pass (any failure exits non-zero):
                above, int8 and fp8, against the plain versions with their
                rounding, the timed ones beside the scalar 8-bit form, SDPA
                over the dequantized K/V and the bound;
-               in bf16 the two-pass pair (d = 64, 128, 256, no block mask)
-               runs its tensor-core forms (``flash_bwd_dq_tc``,
+               in bf16 the two-pass pair (d = 64, 128, 256) runs its
+               tensor-core forms (``flash_bwd_dq_tc``,
                ``flash_bwd_dkv_tc``: checks ``flash_bwd_dq_tc/...``,
                ``flash_bwd_dkv_tc/...``) at every bf16 pair shape above
                (the packed layer, the ragged S = 300 with PAD rows, kv_len /
@@ -132,13 +139,16 @@ Phases, each of which must pass (any failure exits non-zero):
                rows' last columns and at a window's start (a split holding
                only masked columns for some rows);
                ``torch_tools/tc_mutants.py`` shows that they fail each of
-               twenty-seven tensor-core mutants; ``head_dim_pad_check``: ``sdpa``
+               thirty-three tensor-core mutants (six of them in the
+               block-mask forms); ``head_dim_pad_check``: ``sdpa``
                at head_dim 80 (zero-padded to 128 by ``attention``),
                forward and gradients under autograd, against the same call
                on the CPU; the float32 forms the float32 paths launch
-               (flash_fwd at row 1, paged prefill at its MHA shape, the
-               fused backward at the training layer at B = 2) timed against
-               their plain versions, SDPA in float32 and their bound;
+               (flash_fwd at row 1, paged prefill and paged decode at their
+               MHA shapes, paged decode's draft form at the Llama and
+               Gemma-2 shapes, the fused backward at the training layer at
+               B = 2) timed against their plain versions, SDPA in float32
+               and their bound;
                ``f32_form_checks``: the flash forward's float32 form
                (``flash_fwd_tc_f32``, the JAX modes "bf16_3x" and "bf16"
                at d = 64 and 128) against its plain version and the exact
@@ -149,7 +159,8 @@ Phases, each of which must pass (any failure exits non-zero):
                ``torch_tools/f32_mutants.py`` shows that they fail a form
                missing a cross product or a second term;
    attention_block_mask - ``attention(block_mask=, dropout_rate=0.1)``
-               under autograd at that layer, the launches counted;
+               under autograd at that layer, bf16, the launches counted: one
+               of each tensor-core form (forward, dQ, dK/dV), none scalar;
 3. serve     - run the engine with whole-prompt prefill (prefill_chunk=0) at
                Llama-7B width (32 layers unless --layers): 8 greedy requests,
                64-1024 token prompts from --seed, 32 new tokens each,
@@ -317,17 +328,19 @@ Phases, each of which must pass (any failure exits non-zero):
 
 The serve and train phases' launch counts include the tensor-core forms':
 every bf16 flash forward, fused backward and two-pass pair launch at their
-head_dims (but the block-mask ones), and every paged prefill and paged
-decode launch of a bf16 model, goes through them (``launches_tc``; the
-pair's with dropout also ``launches_tc_dropout``); the 8-bit caches' paged
+head_dims, and every paged prefill and paged decode launch of a bf16 model,
+goes through them (``launches_tc``; the pair's with dropout also
+``launches_tc_dropout``, the forward's and the pair's with a block mask
+``launches_tc_block_mask``); the 8-bit caches' paged
 prefill and paged decode (serve_int8, serve_gemma2_fp8) and quant_ops'
 8-bit flash forward through their 8-bit forms (``launches_tc_quantized``);
 the float32 speculative phases keep the scalar paged decode, its draft and
 its 8-bit forms.  The float32 train_parity phases' card launches are
 counted as paths too (float32 training runs the scalar kernels).  It prints one JSON line per check, the
 total seconds, a ``{"kernels": [...]}`` summary (with a ``quantized`` entry
-for each serving kernel's 8-bit form, ``dropout`` and ``block_mask`` entries
-for flash_fwd and the backward kernels, paged_decode's draft form and the
+for each serving kernel's 8-bit form, ``dropout`` entries for flash_fwd and
+the backward kernels, ``block_mask`` entries for the tensor-core forms of
+flash_fwd and the pair, paged_decode's draft form and the
 tensor-core forms and their 8-bit forms as entries of their own, each
 entry counting its own launches only, the scalar ones a ``float32`` entry
 where the float32 paths launch them), the card's name
@@ -569,9 +582,10 @@ def _check_name(kernel, case, dt, form):
 def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dropout=False):
     """The kernel a call of ``kernel`` on ``q`` launches: its tensor-core
     form's name where ``ops.flash.kernel_form`` picks it (bf16 at its
-    head_dims, no block mask, 8-bit K/V in the forwards and paged decode
-    too; the paged kernels: a page size they take; paged decode: at most
-    32 q rows per KV head, q's second-to-last dimension), the forward's
+    head_dims, a block mask in the flash forward and the pair over 16-bit
+    K/V, 8-bit K/V in the forwards and paged decode too; the paged kernels:
+    a page size they take; paged decode: at most 32 q rows per KV head,
+    q's second-to-last dimension), the forward's
     float32 form's (``flash_fwd_tc_f32``) for float32 q at its head_dims,
     else ``kernel``.
     A check of an 8-bit form is named ``<kernel>/quant/...``
@@ -912,7 +926,8 @@ def paged_checks(decode, benchit, gen, card, report, form=None):
     ``form`` (int8 or fp8) over 8-bit pages with per-row scales.  In bf16
     the tensor-core form runs (``paged_decode_tc/...``, against the plain
     version with its rounding); at the MHA shape the scalar form is timed
-    and checked beside it."""
+    and checked beside it, and timed in float32 (the float32 paths' form,
+    unquantized, beside SDPA in float32)."""
     from flashattention_tpu_torch.ops import flash
 
     out = {}
@@ -938,7 +953,7 @@ def paged_checks(decode, benchit, gen, card, report, form=None):
             kname = _kname("paged_decode", q, form is not None)
             rec = _rec(_check_name(kname, name, dt, form), o, want, dt, PAGED_TOL[dt],
                        lengths=c["lengths"], shape=f"B={b} KVH={kvh} G={c['g']} d={d} ps={ps}")
-            if name == "decode_mha" and dt == "bfloat16":
+            if name == "decode_mha" and (dt == "bfloat16" or form is None):
                 kernel = lambda: decode.paged_attention(q, kp, vp, lengths, table, **kw)  # noqa: E731
                 # The pool (2 x 0.5 GB in bf16) is larger than L2, but this
                 # call's pages were just read: flush so each call finds them cold.
@@ -956,7 +971,10 @@ def paged_checks(decode, benchit, gen, card, report, form=None):
                 )
                 flops = 4 * live * kvh * c["g"] * d
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dt))
-                out["main"] = rec
+                if dt == "float32":
+                    report.setdefault("float32_timed", {})["paged_decode"] = rec
+                else:
+                    out["main"] = rec
                 if kname == "paged_decode_tc":
                     out["main"] = _decode_twin(flash, benchit, report, rec, kernel, plain, dt,
                                                _tc_key(kname, None, form))
@@ -1636,7 +1654,9 @@ def draft_checks(decode, benchit, gen, card, report, form=None):
     """Paged decode's draft form against its plain version in bfloat16 and
     float32 (with ``form`` int8 or fp8: over 8-bit pages, float32 at the
     timed shapes only): {case: timed check} for TIMED_DRAFT_CASES, the
-    scalar form's (the tensor-core form's in ``report["tc_timed"]``)."""
+    scalar form's (the tensor-core form's in ``report["tc_timed"]``); also
+    timed there in float32 unquantized, the float32 paths' form
+    (``report["float32_timed"]["paged_decode_draft"]``)."""
     from flashattention_tpu_torch.ops import flash
 
     out = {}
@@ -1661,7 +1681,7 @@ def draft_checks(decode, benchit, gen, card, report, form=None):
             rec = _rec(_check_name(kname, f"draft_k{k}_{name}", dt, form), o, want, dt,
                        PAGED_TOL[dt], lengths=lens, draft_k=k, window=w, softcap=c["cap"],
                        shape=f"B={b} KVH={kvh} G={g} R={rows} d={d} ps={ps}")
-            if dt == "bfloat16" and name in TIMED_DRAFT_CASES:
+            if name in TIMED_DRAFT_CASES and (dt == "bfloat16" or form is None):
                 kernel = lambda: decode.paged_attention(q, kp, vp, lengths, table, **kw)  # noqa: E731
                 rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
                 rec["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=5, flush_bytes=256 << 20)
@@ -1694,7 +1714,11 @@ def draft_checks(decode, benchit, gen, card, report, form=None):
                            kv_bytes_as_read=tiles * kv_bytes)
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes,
                                             flops=4 * d * kvh * g * sum(map(sum, seen)), dtype=dt))
-                out[name] = rec
+                if dt == "float32":
+                    report.setdefault("float32_timed", {}).setdefault(
+                        "paged_decode_draft", {})[name] = rec
+                else:
+                    out[name] = rec
                 if kname == "paged_decode_tc":
                     twin = _decode_twin(flash, benchit, report, rec, kernel, plain, dt,
                                         _tc_key(kname, f"draft_{name}", form))
@@ -1794,7 +1818,9 @@ def _counters(flash, decode, backward):
     form's, ``<kernel>_dropout`` and ``<kernel>_block_mask`` the launches
     with dropout and with a block mask, ``flash_fwd_tc``, ``flash_bwd_tc``,
     ``paged_prefill_tc`` and ``paged_decode_tc`` the tensor-core forms',
-    which ``<kernel>`` counts too, ``paged_decode_tc_draft`` the latter's
+    which ``<kernel>`` counts too (``<tc form>_block_mask`` the block-mask
+    launches of the forward's and the pair's, which ``<kernel>_block_mask``
+    counts too), ``paged_decode_tc_draft`` the latter's
     draft launches (``paged_decode_draft`` counts them too), and
     ``flash_fwd_tc_quant``, ``paged_prefill_tc_quant`` and
     ``paged_decode_tc_quant`` their 8-bit forms', which ``<kernel>_quant``
@@ -1819,6 +1845,8 @@ def _counters(flash, decode, backward):
                 if k != "flash_bwd"})
     out.update({tc: (fns[k], "launches_tc") for k, tc in TC_KERNELS.items()})
     out.update({f"{TC_KERNELS[k]}_dropout": (fns[k], "launches_tc_dropout") for k in PAIR})
+    out.update({f"{TC_KERNELS[k]}_block_mask": (fns[k], "launches_tc_block_mask")
+                for k in ("flash_fwd", *PAIR)})
     out.update({tc: (fns[k], "launches_tc_quantized") for k, tc in TC_QUANT_KERNELS.items()})
     out["flash_fwd_tc_f32"] = (flash.flash_attention, "launches_tc_f32")
     out["flash_fwd_tc_f32_bf16"] = (flash.flash_attention, "launches_tc_f32_bf16")
@@ -1827,11 +1855,12 @@ def _counters(flash, decode, backward):
 
 def _tc_expect(want, cfg, page_size=PAGE_SIZE):
     """``want`` with the tensor-core forms' expected launches: every
-    flash_fwd launch of a bf16 model at their head_dims but the block-mask
-    ones (the 8-bit ones, none with dropout on these paths, in its 8-bit
-    form too), every fused backward launch at theirs, every launch of the
-    two-pass pair at theirs but the block-mask ones, and every paged
-    prefill and paged decode launch of a bf16 model on pages of
+    flash_fwd launch of a bf16 model at their head_dims (the 8-bit ones,
+    none with dropout or a block mask on these paths, in its 8-bit form
+    too), every fused backward launch at theirs, every launch of the
+    two-pass pair at theirs (the block-mask ones of both also in their
+    own count), and every paged prefill and paged decode launch of a bf16
+    model on pages of
     ``page_size`` rows (on 8-bit pages in their 8-bit forms too; paged
     decode's draft launches at k = SPEC_K in the draft form's count too);
     every flash_fwd launch of a float32 model at the float32 form's
@@ -1841,17 +1870,19 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE):
 
     dt = DTYPES[cfg.dtype]
     if flash.kernel_form("flash_fwd", dt, cfg.head_dim) == "tc":
-        want["flash_fwd_tc"] = want["flash_fwd"] - want.get("flash_fwd_block_mask", 0)
+        want["flash_fwd_tc"] = want["flash_fwd"]
         want["flash_fwd_tc_quant"] = want.get("flash_fwd_quant", 0)
+        want["flash_fwd_tc_block_mask"] = want.get("flash_fwd_block_mask", 0)
     if flash.kernel_form("flash_fwd", dt, cfg.head_dim) == "tc_f32":
         want["flash_fwd_tc_f32"] = want["flash_fwd"] - sum(
             want.get(f"flash_fwd_{x}", 0) for x in ("block_mask", "dropout", "quant"))
     if flash.kernel_form("flash_bwd", dt, cfg.head_dim) == "tc":
         want["flash_bwd_tc"] = want["flash_bwd"]
-    for k in PAIR:  # the two-pass pair's, but the block-mask launches
+    for k in PAIR:  # the two-pass pair's
         if flash.kernel_form(k, dt, cfg.head_dim) == "tc":
-            want[f"{k}_tc"] = want.get(k, 0) - want.get(f"{k}_block_mask", 0)
+            want[f"{k}_tc"] = want.get(k, 0)
             want[f"{k}_tc_dropout"] = want.get(f"{k}_dropout", 0)
+            want[f"{k}_tc_block_mask"] = want.get(f"{k}_block_mask", 0)
     if flash.kernel_form("paged_prefill", dt, cfg.head_dim, page_size=page_size) == "tc":
         want["paged_prefill_tc"] = want.get("paged_prefill", 0)
         want["paged_prefill_tc_quant"] = want.get("paged_prefill_quant", 0)
@@ -3567,6 +3598,11 @@ def _ragged_gqa_dropout(fa, backward, flash, gen, dt):
 # output must be finite and equal the clean run's.
 BM_B, BM_H, BM_S, BM_D, BM_RAGGED_S = 4, 32, 4096, 128, 4000
 BM_SKIP_RATIO = 0.25
+# The tensor-core forms a bf16 block mask runs, and the other head_dims
+# they are held at (B*H = BM_SMALL_BH).
+BM_TC = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+BM_TC_DIMS = (64, 256)
+BM_SMALL_BH = 8
 
 
 def bm_prefix_lm(r, c):
@@ -3591,44 +3627,52 @@ BM_MASKS = {"prefix_lm": bm_prefix_lm, "documents": bm_documents, "strided": bm_
 
 def block_mask_checks(backward, flash, benchit, gen, card, report, timed=True):
     """The three kernels with block masks (see above), timed unless not
-    ``timed``.  Returns ``{kernel: {mask: timed record}}``."""
-    timed_recs = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    ``timed``.  Returns ``{tensor-core form: {mask: timed record}}``."""
+    timed_recs = {tc: {} for tc in BM_TC}
     masks = {n: flash.BlockMask.from_mask_fn(fn, BM_S, BM_S) for n, fn in BM_MASKS.items()}
     for dt in ("bfloat16", "float32"):
-        def rand(shape, mult=1.0):
-            return (mult * torch.randn(shape, generator=gen, device="cuda")).to(DTYPES[dt])
-
         for s in (BM_S, BM_RAGGED_S):
-            bh = BM_B * BM_H
-            q, k, v = (rand((bh, s, BM_D)) for _ in range(3))
-            do = rand((bh, s, BM_D), 0.25)
+            q, k, v, do = _bm_inputs(gen, BM_B * BM_H, s, BM_D, dt)
             base = dict(causal=False, scale=BM_D**-0.5, kv_len=None, q_offset=0, q_seq_len=None)
             no_mask = None
-            for mname, bm in masks.items():
-                kw = dict(base, block_mask=bm)
+            cases = [(m, dict(base, block_mask=bm)) for m, bm in masks.items()]
+            if dt == "bfloat16" and s == BM_S:
+                cases.append(("strided_dropout", dict(base, block_mask=masks["strided"],
+                                                      dropout_rate=0.1, dropout_seed=DROPOUT_SEED)))
+            for mname, kw in cases:
                 shape = f"B={BM_B} H={BM_H} S={s} d={BM_D}, {mname} mask built at {BM_S}"
-                fwd, fwd_plain = _fwd_rec(f"flash_fwd/block_mask/{mname}/s{s}/{dt}", flash, q, k, v,
-                                          kw, {}, dt, shape=shape)
-                ins, plain, wants, runs = _bwd_case(backward, flash, q, k, v, do, kw, {})
-                want = wants["two_pass"]
-                recs = {"flash_fwd": fwd}
-                for kname, gots, wants in (("flash_bwd_dq", runs["two_pass"][:1], want[:1]),
-                                           ("flash_bwd_dkv", runs["two_pass"][1:], want[1:])):
-                    recs[kname] = _bwd_rec(f"{kname}/block_mask/{mname}/s{s}/{dt}", gots, wants,
-                                           dt, shape=shape,
-                                           grad_absmax=[float(w.abs().max()) for w in wants])
-                if timed and dt == "bfloat16" and s == BM_S:
+                recs, ins, fwd_plain, plain = _bm_case(backward, flash, q, k, v, do, kw, dt,
+                                                       f"{mname}/s{s}", shape)
+                if timed and dt == "bfloat16" and s == BM_S and mname in masks:
                     if no_mask is None:
                         no_mask = _bm_no_mask_times(backward, flash, benchit, ins, base)
                     _time_block_mask(backward, flash, benchit, card, recs, ins, kw, fwd_plain,
                                      plain, no_mask)
-                    for kname, rec in recs.items():
-                        timed_recs[kname][mname] = rec
+                    for kname in BM_TC:
+                        timed_recs[kname][mname] = recs[kname]
                 for rec in recs.values():
                     emit(rec)
                     report["checks"].append(rec)
-                del ins, plain, want, runs
+                del ins, plain, fwd_plain
                 torch.cuda.empty_cache()
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    # Every instantiation of the tensor-core forms: d = 64 and 256 at B*H = 8.
+    for d in BM_TC_DIMS:
+        for s in (BM_S, BM_RAGGED_S):
+            q, k, v, do = _bm_inputs(gen, BM_SMALL_BH, s, d, "bfloat16")
+            base = dict(causal=False, scale=d**-0.5, kv_len=None, q_offset=0, q_seq_len=None)
+            cases = [(m, dict(base, block_mask=bm)) for m, bm in masks.items()]
+            if s == BM_S:
+                cases.append(("strided_dropout", dict(base, block_mask=masks["strided"],
+                                                      dropout_rate=0.1, dropout_seed=DROPOUT_SEED)))
+            for mname, kw in cases:
+                shape = f"B*H={BM_SMALL_BH} S={s} d={d}, {mname} mask built at {BM_S}"
+                recs = _bm_case(backward, flash, q, k, v, do, kw, "bfloat16", f"{mname}/s{s}/d{d}",
+                                shape)[0]
+                for rec in recs.values():
+                    emit(rec)
+                    report["checks"].append(rec)
             del q, k, v, do
             torch.cuda.empty_cache()
     checks = [_bm_skip_check(timed_recs, masks)] if timed else []
@@ -3639,44 +3683,82 @@ def block_mask_checks(backward, flash, benchit, gen, card, report, timed=True):
     return timed_recs
 
 
+def _bm_inputs(gen, bh, s, d, dt):
+    """q, k, v and do (a quarter of their scale) of a block-mask case."""
+    def rand(shape, mult=1.0):
+        return (mult * torch.randn(shape, generator=gen, device="cuda")).to(DTYPES[dt])
+
+    return (*(rand((bh, s, d)) for _ in range(3)), rand((bh, s, d), 0.25))
+
+
+def _bm_case(backward, flash, q, k, v, do, kw, dt, case, shape):
+    """One block-mask case: the forward and the two-pass pair against their
+    plain versions, each kernel's check named by the form that ran (in bf16
+    the tensor-core forms, and the scalar forms beside them under
+    ``ops.flash.scalar_forms``).  Returns ``(records by kernel name, the
+    backward's inputs, the forward's plain version, the pair's)``."""
+    fwd = _kname("flash_fwd", q, block_mask=True)
+    recs = {}
+    recs[fwd], fwd_plain = _fwd_rec(f"{fwd}/block_mask/{case}/{dt}", flash, q, k, v, kw, {}, dt,
+                                    shape=shape)
+    if fwd != "flash_fwd":
+        with flash.scalar_forms():
+            recs["flash_fwd"] = _fwd_rec(f"flash_fwd/block_mask/{case}/{dt}", flash, q, k, v, kw,
+                                         {}, dt, shape=shape,
+                                         form="scalar (ops.flash.scalar_forms)")[0]
+    ins, plain, wants, runs = _bwd_case(backward, flash, q, k, v, do, kw, {})
+    for kname, (gots, want) in _bwd_got(q, kw, runs, wants).items():
+        recs[kname] = _bwd_rec(f"{kname}/block_mask/{case}/{dt}", gots, want, dt, shape=shape,
+                               grad_absmax=[float(w.abs().max()) for w in want])
+    del wants, runs
+    return recs, ins, fwd_plain, plain
+
+
 def _bm_skip_check(timed_recs, masks):
-    """Under the documents mask each kernel takes at most BM_SKIP_RATIO of
-    its no-mask time."""
+    """Under the documents mask each tensor-core form takes at most
+    BM_SKIP_RATIO of its no-mask time."""
     docs = {k: timed_recs[k]["documents"] for k in timed_recs}
-    fwd_ratio = docs["flash_fwd"]["kernel_ms"] / docs["flash_fwd"]["no_mask_ms"]
-    bwd_ratio = ((docs["flash_bwd_dq"]["kernel_ms"] + docs["flash_bwd_dkv"]["kernel_ms"])
-                 / (docs["flash_bwd_dq"]["no_mask_ms"] + docs["flash_bwd_dkv"]["no_mask_ms"]))
-    rec = {"check": "block_mask/documents/dead_tiles_skipped", "flash_fwd_ratio": fwd_ratio,
-           "dq_plus_dkv_ratio": bwd_ratio, "max_ratio": BM_SKIP_RATIO,
-           "live_fraction": masks["documents"].element_live_fraction,
+    fwd, dq, dkv = (docs[k] for k in BM_TC)
+    fwd_ratio = fwd["kernel_ms"] / fwd["no_mask_ms"]
+    bwd_ratio = ((dq["kernel_ms"] + dkv["kernel_ms"]) / (dq["no_mask_ms"] + dkv["no_mask_ms"]))
+    rec = {"check": "block_mask/documents/dead_tiles_skipped", "forms": list(BM_TC),
+           "flash_fwd_ratio": fwd_ratio, "dq_plus_dkv_ratio": bwd_ratio,
+           "max_ratio": BM_SKIP_RATIO, "live_fraction": masks["documents"].element_live_fraction,
            "ok": fwd_ratio <= BM_SKIP_RATIO and bwd_ratio <= BM_SKIP_RATIO}
     return rec
 
 
 def _bm_no_mask_times(backward, flash, benchit, ins, base):
-    """The three kernels with no mask on the same inputs, and SDPA's
-    forward and backward with a boolean mask (filled in per mask).  All
-    three in their scalar forms, the ones a block mask runs, so that the
-    ratio measures the skipped tiles."""
+    """The three kernels with no mask on the same inputs, in the forms a
+    block mask runs in bf16 (the tensor-core forms), so that the ratio
+    measures the skipped tiles."""
     q, k, v, o, lse, do = ins
     di = (o.float() * do.float()).sum(dim=-1)
-    with flash.scalar_forms():
-        return {
-            "flash_fwd": benchit.cuda_time_ms(lambda: flash.flash_attention(q, k, v, **base),
-                                              warmup=1, iters=3),
-            "flash_bwd_dq": benchit.cuda_time_ms(
-                lambda: backward.dq_kernel(q, k, v, do, lse, di, **base), warmup=1, iters=3),
-            "flash_bwd_dkv": benchit.cuda_time_ms(
-                lambda: backward.dkv_kernel(q, k, v, do, lse, di, **base), warmup=1, iters=3),
-        }
+    return {
+        "flash_fwd": benchit.cuda_time_ms(lambda: flash.flash_attention(q, k, v, **base),
+                                          warmup=1, iters=3),
+        "flash_bwd_dq": benchit.cuda_time_ms(
+            lambda: backward.dq_kernel(q, k, v, do, lse, di, **base), warmup=1, iters=3),
+        "flash_bwd_dkv": benchit.cuda_time_ms(
+            lambda: backward.dkv_kernel(q, k, v, do, lse, di, **base), warmup=1, iters=3),
+    }
+
+
+def _bm_calls(backward, q, k, v, o, lse, do, kw):
+    """The three kernels' calls on a block-mask case's inputs."""
+    from flashattention_tpu_torch.ops import flash
+
+    di = (o.float() * do.float()).sum(dim=-1)
+    return {"flash_fwd": lambda: flash.flash_attention(q, k, v, **kw),
+            "flash_bwd_dq": lambda: backward.dq_kernel(q, k, v, do, lse, di, **kw),
+            "flash_bwd_dkv": lambda: backward.dkv_kernel(q, k, v, do, lse, di, **kw)}
 
 
 def _time_block_mask(backward, flash, benchit, card, recs, ins, kw, fwd_plain, bwd_plain, no_mask):
-    """Each kernel's time with the mask, beside its no-mask time, the plain
-    versions' and SDPA's with the boolean mask, and its bound over the
-    mask's live pairs."""
+    """Each tensor-core form's time with the mask, beside its no-mask time,
+    the scalar form's (``scalar_ms``), the plain versions' and SDPA's with
+    the boolean mask, and its bound over the mask's live pairs."""
     q, k, v, o, lse, do = ins
-    di = (o.float() * do.float()).sum(dim=-1)
     bm = kw["block_mask"]
     dense = bm.element_mask(BM_S, BM_S, "cuda")
     pairs = int(dense.sum()) * q.shape[0]
@@ -3689,19 +3771,19 @@ def _time_block_mask(backward, flash, benchit, card, recs, ins, kw, fwd_plain, b
     bwd_lib = benchit.cuda_time_ms(
         lambda: torch.autograd.grad(res, (q4g, k4g, v4g), do4, retain_graph=True), warmup=1, iters=3)
     bwd_plain_ms = benchit.cuda_time_ms(bwd_plain, warmup=1, iters=2)
-    calls = {
-        "flash_fwd": (lambda: flash.flash_attention(q, k, v, **kw), (q, k, v), (q,), 4, fwd_lib,
-                      benchit.cuda_time_ms(fwd_plain, warmup=1, iters=2)),
-        "flash_bwd_dq": (lambda: backward.dq_kernel(q, k, v, do, lse, di, **kw),
-                         (q, k, v, do, lse, di), (q,), 6, bwd_lib, bwd_plain_ms),
-        "flash_bwd_dkv": (lambda: backward.dkv_kernel(q, k, v, do, lse, di, **kw),
-                          (q, k, v, do, lse, di), (k, v), 8, bwd_lib, bwd_plain_ms),
-    }
-    for kname, (fn, reads, writes, per_pair, lib, plain_ms) in calls.items():
+    calls = _bm_calls(backward, q, k, v, o, lse, do, kw)
+    di = (o.float() * do.float()).sum(dim=-1)
+    work = {"flash_fwd": ((q, k, v), (q,), 4, fwd_lib,
+                          benchit.cuda_time_ms(fwd_plain, warmup=1, iters=2)),
+            "flash_bwd_dq": ((q, k, v, do, lse, di), (q,), 6, bwd_lib, bwd_plain_ms),
+            "flash_bwd_dkv": ((q, k, v, do, lse, di), (k, v), 8, bwd_lib, bwd_plain_ms)}
+    for kname, (reads, writes, per_pair, lib, plain_ms) in work.items():
         nbytes = sum(t.numel() * t.element_size() for t in reads + writes)
-        recs[kname].update(
-            kernel_ms=benchit.cuda_time_ms(fn, warmup=1, iters=3), no_mask_ms=no_mask[kname],
-            plain_ms=plain_ms, library_ms=lib, live_pairs=pairs,
+        with flash.scalar_forms():
+            scalar_ms = benchit.cuda_time_ms(calls[kname], warmup=1, iters=3)
+        recs[_kname(kname, q, block_mask=True)].update(
+            kernel_ms=benchit.cuda_time_ms(calls[kname], warmup=1, iters=5), scalar_ms=scalar_ms,
+            no_mask_ms=no_mask[kname], plain_ms=plain_ms, library_ms=lib, live_pairs=pairs,
             live_fraction=bm.element_live_fraction,
             library=("scaled_dot_product_attention" + (" backward" if kname != "flash_fwd" else "")
                      + ", boolean (S, S) mask"),
@@ -3735,7 +3817,8 @@ def _bm_poison_check(backward, flash, gen):
 def phase_attention_block_mask(fa, counters, gen, report):
     """The block-mask path a user calls: attention() under autograd with
     the documents mask and dropout at Llama-7B's layer (bf16), forward and
-    backward, with the launch counters zeroed just before."""
+    backward, with the launch counters zeroed just before: the tensor-core
+    forms' dropout / block-mask builds (``*_tc_extra``) launch once each."""
     bm = fa.BlockMask.from_mask_fn(bm_documents, BM_S, BM_S)
     q, k, v = (torch.randn((BM_B, BM_H, BM_S, BM_D), generator=gen, device="cuda")
                .to(torch.bfloat16).requires_grad_() for _ in range(3))
@@ -3749,8 +3832,10 @@ def phase_attention_block_mask(fa, counters, gen, report):
 
     wall, launches = _drive(counters, drive)
     want = dict.fromkeys(counters, 0)
+    # One launch of each tensor-core form, with dropout and the mask; none scalar.
     want.update({f"{k}{f}": 1 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-                 for f in ("", "_dropout", "_block_mask")})
+                 for f in ("", "_dropout", "_block_mask", "_tc", "_tc_block_mask")})
+    want.update({f"{k}_tc_dropout": 1 for k in PAIR})
     finite = all(bool(torch.isfinite(g_).all()) for g_ in grads)
     rec = {"phase": "attention_block_mask", "shape": f"B={BM_B} H={BM_H} S={BM_S} d={BM_D}",
            "mask": "documents (512)", "dropout_rate": 0.1, "wall_ms": 1e3 * wall,
@@ -5647,7 +5732,7 @@ def main() -> int:
                 summary[-1]["dropout"]["quantized"] = {
                     k: dropout["flash_fwd_quant"][k] for k in (*timed, "no_dropout_ms")}
         if kname in masked:  # the block-mask form: the documents mask, the others beside it
-            keys = (*timed, "no_mask_ms", "live_pairs", "live_fraction")
+            keys = (*timed, "no_mask_ms", "scalar_ms", "live_pairs", "live_fraction")
             summary[-1]["block_mask"] = _extra_entry(masked[kname]["documents"], paths,
                                                      f"{kname}_block_mask", keys)
             summary[-1]["block_mask"]["masks"] = {
@@ -5716,6 +5801,8 @@ def main() -> int:
         "gemma2": {k: drafts[None]["gemma2"][k] for k in timed},
         "forms_8bit": {f: {case: {k: drafts[f][case][k] for k in timed} for case in TIMED_DRAFT_CASES}
                        for f in QUANT_FORMS},
+        "float32": {case: {k: report["float32_timed"]["paged_decode_draft"][case][k]
+                           for k in (*timed, "library")} for case in TIMED_DRAFT_CASES},
     })
     summary += _probe_entries(report, probe_launches)
     report["kernels"] = summary

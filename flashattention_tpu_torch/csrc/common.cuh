@@ -136,6 +136,59 @@ struct Extras {
   float inv;                // 1 / (1 - rate), rounded to float32
 };
 
+// A block mask's walk for tile `t` of the axis a block walks: the index of
+// its first live tile in bm_idx (x), and how many of its live tiles (y) start
+// before `end` (kv_len, or the rows): the table covers the mask's padded
+// lengths.
+__device__ __forceinline__ int2 bm_walk(const Extras& ex, int t, int tile, int end) {
+  const int lo = ex.bm_ptr[t];
+  int n = ex.bm_ptr[t + 1] - lo;
+  while (n > 0 && ex.bm_idx[lo + n - 1] * tile >= end) --n;
+  return make_int2(lo, n);
+}
+
+// The tensor-core forms' element bits: in the accumulator layout a thread
+// holds rows r and r + 8 of a tile at columns 8 j + 2 t + h (h = 0, 1).  Its
+// two rows' words of a partial tile (`bits`: slots of kRows rows of kCols
+// columns, bit c % 32 of word c / 32), shifted right by 2 t, so that column
+// 8 j + 2 t + h is bit 8 (j % 4) + h of word j / 4 (tile_bit): one test a
+// score.  All ones for a full tile (slot < 0).
+template <int kRows, int kCols>
+__device__ __forceinline__ void tile_bits(const unsigned* bits, int slot, int r, int t,
+                                          unsigned (&a)[kCols / 32], unsigned (&b)[kCols / 32]) {
+#pragma unroll
+  for (int w = 0; w < kCols / 32; ++w) a[w] = b[w] = ~0u;
+  if (slot < 0) return;
+  const unsigned* row = bits + (static_cast<size_t>(slot) * kRows + r) * (kCols / 32);
+#pragma unroll
+  for (int w = 0; w < kCols / 32; ++w) {
+    a[w] = row[w] >> (2 * t);
+    b[w] = row[8 * (kCols / 32) + w] >> (2 * t);
+  }
+}
+
+template <int kWords>
+__device__ __forceinline__ bool tile_bit(const unsigned (&w)[kWords], int j, int h) {
+  return (w[j / 4] >> (8 * (j % 4) + h)) & 1u;
+}
+
+// The three forms of a tensor-core tile's mask loop, picked once a tile so
+// that no score pays for a test its tile does not need: kMaskNone, a tile no
+// mask reaches; kMaskBits, a partial block-mask tile whose bits are its only
+// mask (one test a score); kMaskAll, a tile that crosses a bound or holds
+// other segment ids (every test, the bits too).
+enum { kMaskNone, kMaskBits, kMaskAll };
+template <int kForm>
+struct MaskForm {
+  static constexpr int value = kForm;
+};
+template <class Loop>
+__device__ __forceinline__ void with_mask_form(bool all, bool bits, Loop&& loop) {
+  if (all) loop(MaskForm<kMaskAll>{});
+  else if (bits) loop(MaskForm<kMaskBits>{});
+  else loop(MaskForm<kMaskNone>{});
+}
+
 // The part of a pair's hash that depends on its head and row, once per row.
 __device__ __forceinline__ unsigned dropout_row_key(const Extras& ex, int bh, int r,
                                                     int q_seq_len) {

@@ -10,8 +10,8 @@
 // ids are equal), a sliding window and a logit softcap with its derivative on
 // dS (the compile-time form kWindowCap), and attention dropout in the
 // compile-time form kExtra (built with FA_EXTRA; the keep bits of common.cuh,
-// bit for bit).  See bwd_common.cuh for the formulas.  Block masks stay on
-// the scalar csrc/flash_bwd_dq.cu.
+// bit for bit), and block-sparse masks in the same form.  See bwd_common.cuh
+// for the formulas.
 //
 // Bound on this card: operations, 6 d flops a live pair (S = q.k, dP = do.v,
 // dQ += dS k) against q, do, k, v read once.  All three run as wgmma (bf16 x
@@ -47,6 +47,15 @@
 // that cross a bound, or whose ids are not one id on both sides, are masked
 // element by element.  K/V rows past kv_len and query rows past the end
 // arrive from TMA as zeros.
+//
+// Block masks (kExtra; backward.py:123-137, :224): the table over this
+// kernel's (128, 64) tiles by query tile (ops/flash.py::BlockMask), walked
+// as the forward walks its own (flash_fwd_tc.cuh): producer and consumers
+// take key tile i of the block from bm_idx, beside the segment-range skip,
+// so a dead tile is never loaded; a partial tile's element bits join the
+// masks, and P, so dS, is exactly 0 where they are clear.  The mask loop
+// takes one of three forms a tile (fa::with_mask_form): no test, the bits
+// alone, or every test.
 //
 // head_dim 256: Q and dO of 128 rows take 128 KB of shared memory and a K/V
 // stage of 64 keys another 64 KB, so the ring has one stage there (two below,
@@ -128,7 +137,9 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int bh = blockIdx.y;
   // The longest query tiles (causal: the last) first, for a shorter tail.
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const bool use_bm = kExtra && ex.bm_ptr != nullptr;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int r0 = qt * kBlockM;
   const int win = kWindowCap ? window : 0;
   const float cap = kWindowCap ? softcap : 0.f;
   const bool dropout = kExtra && ex.threshold != 0;
@@ -138,7 +149,13 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int* q_rng = has_seg ? sg.q_rng + static_cast<size_t>(bh) * n_qt * 2 : nullptr;
   const int* kv_rng = has_seg ? sg.kv_rng + static_cast<size_t>(bh) * n_kt * 2 : nullptr;
   const Range kv = kv_range<kWindowCap>(r0, rows, kv_len, q_offset, q_seq_len, causal, win);
-  const int n_tiles = kv.end > kv.begin ? (kv.end - kv.begin + kN - 1) / kN : 0;
+  int n_tiles = kv.end > kv.begin ? (kv.end - kv.begin + kN - 1) / kN : 0;
+  // A block mask walks the query tile's live key tiles instead (below kv_len).
+  int2 bm = make_int2(0, 0);
+  if (use_bm) {
+    bm = fa::bm_walk(ex, qt, kN, kv.end);
+    n_tiles = bm.y;
+  }
   // The block's ids: a key tile whose range is disjoint from them is skipped.
   const int2 block_ids = has_seg ? fa_bwd::seg_range(q_rng, n_qt, r0, kBlockM) : make_int2(0, 0);
 
@@ -165,7 +182,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
     for (int i = 0, j = 0; i < n_tiles; ++i) {
-      const int t0 = kv.begin + i * kN;
+      const int t0 = use_bm ? ex.bm_idx[bm.x + i] * kN : kv.begin + i * kN;
       if (has_seg && !fa_bwd::seg_meet(block_ids, fa_bwd::seg_range(kv_rng, n_kt, t0, kN)))
         continue;
       const int s = j % kStages;
@@ -229,7 +246,8 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   tc::mbar_wait(q_bar, 0);
 
   for (int i = 0, j = 0; i < n_tiles; ++i) {
-    const int t0 = kv.begin + i * kN;
+    const int t0 = use_bm ? ex.bm_idx[bm.x + i] * kN : kv.begin + i * kN;
+    const int slot = use_bm ? ex.bm_part[bm.x + i] : -1;  // a partial tile's element bits
     int2 tile_ids = make_int2(0, 0);
     if (has_seg) {
       tile_ids = fa_bwd::seg_range(kv_rng, n_kt, t0, kN);
@@ -266,36 +284,48 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     tc::wgmma_wait<0>();
     tc::fence_regs(st);
     tc::fence_regs(dpt);
+    // A partial tile's element bits of rows ra and rb.
+    unsigned bits_a[kN / 32], bits_b[kN / 32];
+    fa::tile_bits<kBlockM, kN>(ex.bm_bits, slot, ra - r0, t, bits_a, bits_b);
 
     const bool mixed_ids = has_seg && !(wg_ids.x == wg_ids.y && tile_ids.x == tile_ids.y &&
                                         wg_ids.x == tile_ids.x);
+    // The bounds' and segment ids' masks, or a partial tile's bits alone
+    // (fa::with_mask_form).
     const bool need_mask = mixed_ids || rw0 + 64 > rows || t0 + kN > kv_len ||
                            (causal && t0 + kN - 1 > pmin) || (win > 0 && t0 <= pmax - win);
+    fa::with_mask_form(need_mask, slot >= 0, [&](auto form) {
+      constexpr int kForm = decltype(form)::value;
 #pragma unroll
-    for (int jj = 0; jj < kN / 8; ++jj) {
+      for (int jj = 0; jj < kN / 8; ++jj) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool a = e < 2;
-        const int x = 8 * jj + 2 * t + (e & 1);  // key column in the tile
-        const int col = t0 + x;
-        float sc = st[4 * jj + e] * scale;
-        float c_fac = 1.f;  // the softcap's derivative at the capped score
-        if constexpr (kWindowCap) {
-          if (cap > 0.f) {
-            sc = fa::softcap(sc, cap);
-            const float th = sc / cap;
-            c_fac = 1.f - th * th;
+        for (int e = 0; e < 4; ++e) {
+          const bool a = e < 2;
+          const int x = 8 * jj + 2 * t + (e & 1);  // key column in the tile
+          const int col = t0 + x;
+          float sc = st[4 * jj + e] * scale;
+          float c_fac = 1.f;  // the softcap's derivative at the capped score
+          if constexpr (kWindowCap) {
+            if (cap > 0.f) {
+              sc = fa::softcap(sc, cap);
+              const float th = sc / cap;
+              c_fac = 1.f - th * th;
+            }
           }
+          bool live = true;
+          if constexpr (kForm != fa::kMaskNone)
+            live = a ? fa::tile_bit(bits_a, jj, e & 1) : fa::tile_bit(bits_b, jj, e & 1);
+          if constexpr (kForm == fa::kMaskAll)
+            live = live && col <= (a ? last_a : last_b) && col >= (a ? first_a : first_b) &&
+                   (!has_seg || seg_s[x] == (a ? seg_a : seg_b));
+          const float p = live ? tc::ex2((sc - (a ? lse_a : lse_b)) * tc::kLog2e) : 0.f;
+          float dp = dpt[4 * jj + e];
+          if (dropout)
+            dp = fa::dropout_kept(a ? key_a : key_b, col, ex.threshold) ? dp * ex.inv : 0.f;
+          st[4 * jj + e] = p * (dp - (a ? di_a : di_b)) * scale * c_fac;
         }
-        const bool live = !need_mask || (col <= (a ? last_a : last_b) &&
-                                         col >= (a ? first_a : first_b) &&
-                                         (!has_seg || seg_s[x] == (a ? seg_a : seg_b)));
-        const float p = live ? tc::ex2((sc - (a ? lse_a : lse_b)) * tc::kLog2e) : 0.f;
-        float dp = dpt[4 * jj + e];
-        if (dropout) dp = fa::dropout_kept(a ? key_a : key_b, col, ex.threshold) ? dp * ex.inv : 0.f;
-        st[4 * jj + e] = p * (dp - (a ? di_a : di_b)) * scale * c_fac;
       }
-    }
+    });
     // dS as two bf16 terms (tc_common.cuh, pack_a2).
     uint32_t dsa[kN / 16][4], dsl[kN / 16][4];
 #pragma unroll
@@ -385,7 +415,7 @@ int launch_x(const Args& a) {
 #ifdef FA_EXTRA
   return launch<D, kWindowCap, true>(a);
 #else
-  if (a.ex.threshold != 0) return -1;
+  if (a.ex.threshold != 0 || a.ex.bm_ptr != nullptr) return -1;
   return launch<D, kWindowCap, false>(a);
 #endif
 }
@@ -403,15 +433,20 @@ int launch_w(const Args& a) {
 // 2) and kv_rng (bh, ceil(s_kv / 64), 2), each 64 rows' [min, max] id, all
 // four or none null.  window <= 0: no sliding window (else it requires
 // causal); softcap <= 0: none; dropout as in fa_flash_fwd (FA_EXTRA only).
+// bm_ptr null: no block mask; else (FA_EXTRA only) its table over (128, 64)
+// tiles by query tile (common.cuh, Extras).
 extern "C" int fa_flash_bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* di, const void* q_seg,
                                   const void* kv_seg, const void* q_rng, const void* kv_rng,
-                                  void* dq, int bh, int rows, int s_kv, int d, int kv_len,
-                                  int q_offset, int q_seq_len, int causal, float scale,
-                                  int window, float softcap, int row_stride, int dropout_seed,
-                                  int dropout_threshold, float dropout_inv, void* stream) {
-  const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, row_stride,
-                      static_cast<unsigned>(dropout_seed),
+                                  void* dq, const void* bm_ptr, const void* bm_idx,
+                                  const void* bm_part, const void* bm_bits, int bh, int rows,
+                                  int s_kv, int d, int kv_len, int q_offset, int q_seq_len,
+                                  int causal, float scale, int window, float softcap,
+                                  int row_stride, int dropout_seed, int dropout_threshold,
+                                  float dropout_inv, void* stream) {
+  const fa::Extras ex{static_cast<const int*>(bm_ptr), static_cast<const int*>(bm_idx),
+                      static_cast<const int*>(bm_part), static_cast<const unsigned*>(bm_bits),
+                      row_stride, static_cast<unsigned>(dropout_seed),
                       static_cast<unsigned>(dropout_threshold), dropout_inv};
   const fa_bwd::Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
                         static_cast<const int*>(q_rng), static_cast<const int*>(kv_rng)};

@@ -8,8 +8,8 @@
 // score scale, a sliding window and a logit softcap with its derivative on
 // dS (the compile-time form kWindowCap), and attention dropout in the
 // compile-time form kExtra (built with FA_EXTRA).  See bwd_common.cuh for
-// the formulas.  Segment ids and block masks stay on the scalar two-pass
-// pair, as in the JAX package.
+// the formulas.  Segment ids and block masks go to the two-pass pair (in
+// bf16 its tensor-core form, kPair below), as in the JAX package.
 //
 // Bound on this card: operations, 10 d flops a live pair (five products:
 // S = q.k, dP = do.v, dV += P do, dK += dS q, dQ += dS k) against q, do, k, v
@@ -70,7 +70,17 @@
 // outside the band (disjoint ranges share no id, so the skip is exact), and a
 // d <= 128 consumer warpgroup one disjoint from its own 64 key rows' (it
 // waits for the tile and frees it).  The GQA fold, kv_len, the causal and
-// window skips, the softcap and dropout are the fused form's.
+// window skips, the softcap and dropout are the fused form's.  And it takes
+// block masks (kExtra; backward.py:123-137, :224): the transposed table over
+// its (64, kKeys) tiles by key tile (ops/flash.py::BlockMask, tc_by_kv),
+// kKeys = 128 at d <= 128 and 64 at d = 256.  Producer and consumers walk the
+// block's key tile's live query tiles from bm_idx in place of every query
+// tile, beside the band and segment-range skips, so a dead tile is never
+// loaded; a partial tile's element bits, stored by key row (the transposed
+// bits, so that a thread reads its two key rows' words once a tile), join
+// the masks, and P, so Z and dS, is exactly 0 where they are clear.
+// In both forms (fused and kPair) the mask loop takes one of three forms a
+// tile (fa::with_mask_form): no test, the bits alone, or every test.
 #include "bwd_common.cuh"
 #include "tc_common.cuh"
 
@@ -132,19 +142,35 @@ __device__ __forceinline__ bool ids_meet(const int* q_rng, int n_qt, int r0, int
   return fa_bwd::seg_meet(*q_ids, keys);
 }
 
+// The query tile of step `it` of a block's walk: the it-th, or under a block
+// mask (bm.x: the block's first entry in bm_idx) the it-th live one.
+__device__ __forceinline__ int walk_tile(const fa::Extras& ex, bool use_bm, int2 bm, int it) {
+  return (use_bm ? ex.bm_idx[bm.x + it] : it) * kBlockM;
+}
+
+// A block's walk: how many steps it takes (the query tiles, or under a block
+// mask the key tile's live ones that hold rows) and, under one, where its
+// entries start in bm_idx; none past kv_len.
+__device__ __forceinline__ int2 walk(const fa::Extras& ex, bool use_bm, int kt, int c0, int rows,
+                                     int kv_len) {
+  if (c0 >= kv_len) return make_int2(0, 0);
+  if (use_bm) return fa::bm_walk(ex, kt, kBlockM, rows);
+  return make_int2(0, (rows + kBlockM - 1) / kBlockM);
+}
+
 // The producer warp of both kernels: K and V of the block's kKeys key rows
 // once, then for each live query tile its Q and dO tiles into the ring,
 // with the tile's lse, di, each row's first and last visible column, its
 // dropout row key and (kPair) its segment id in the stage's table (kTabRows
 // kBlockM words).  kPair: a tile whose ids do not meet the block's key ids
-// `keys` is skipped (ids_meet).
+// `keys` is skipped (ids_meet).  It takes the wk.y steps of the block's walk.
 template <bool kWindowCap, bool kExtra, bool kPair, int kKeys, int kChunks>
 __device__ __forceinline__ void produce(unsigned char* smem, int v_off, int q_off, int do_off,
                                         int tab_off, uint64_t* full, uint64_t* empty,
                                         uint64_t* kv_bar, const CUtensorMap* tm_q,
                                         const CUtensorMap* tm_k, const CUtensorMap* tm_v,
                                         const CUtensorMap* tm_do, const float* lse,
-                                        const float* di, int bh, int c0, int n_r, int rows,
+                                        const float* di, int bh, int c0, int2 wk, int rows,
                                         int kv_len, int q_offset, int q_seq_len, int causal,
                                         int win, const fa::Extras& ex, const fa_bwd::Segs& sg,
                                         const int* q_rng, int n_qt, int2 keys) {
@@ -164,8 +190,9 @@ __device__ __forceinline__ void produce(unsigned char* smem, int v_off, int q_of
   float* tab_f = reinterpret_cast<float*>(smem + tab_off);
   int* tab_i = reinterpret_cast<int*>(smem + tab_off);
   const size_t head = static_cast<size_t>(bh) * rows;
-  for (int it = 0, i = 0; it < n_r; ++it) {
-    const int r0 = it * kBlockM;
+  const bool use_bm = kExtra && ex.bm_ptr != nullptr;
+  for (int it = 0, i = 0; it < wk.y; ++it) {
+    const int r0 = walk_tile(ex, use_bm, wk, it);
     if (!live_tile<kWindowCap, kKeys>(r0, c0, rows, q_offset, q_seq_len, causal, win)) continue;
     int2 q_ids;
     if (!ids_meet<kPair>(q_rng, n_qt, r0, keys, &q_ids)) continue;
@@ -222,11 +249,13 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   int* tab_i = reinterpret_cast<int*>(smem + C::kTab);
 
   const int bh = blockIdx.y;
-  const int c0 = blockIdx.x * kBlockN;
+  const bool use_bm = kExtra && ex.bm_ptr != nullptr;
+  const int kt = blockIdx.x;
+  const int c0 = kt * kBlockN;
   const int win = kWindowCap ? window : 0;
   const float cap = kWindowCap ? softcap : 0.f;
   const bool dropout = kExtra && ex.threshold != 0;
-  const int n_r = c0 < kv_len ? (rows + kBlockM - 1) / kBlockM : 0;  // query tiles to walk
+  const int2 wk = walk(ex, use_bm, kt, c0, rows, kv_len);  // the query tiles to walk
   // kPair, segment ids: each head's id ranges, and the block's key rows'.
   const bool has_seg = kPair && sg.q != nullptr;
   const int n_qt = (rows + fa_bwd::kSegTile - 1) / fa_bwd::kSegTile;
@@ -251,7 +280,7 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x >= 32) return;
     produce<kWindowCap, kExtra, kPair, kBlockN, C::kChunks>(
         smem, C::kV, C::kQ, C::kDo, C::kTab, full, empty, kv_bar, &tm_q, &tm_k, &tm_v, &tm_do,
-        lse, di, bh, c0, n_r, rows, kv_len, q_offset, q_seq_len, causal, win, ex, sg, q_rng, n_qt,
+        lse, di, bh, c0, wk, rows, kv_len, q_offset, q_seq_len, causal, win, ex, sg, q_rng, n_qt,
         keys);
     return;
   }
@@ -277,8 +306,9 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t v_base = tc::smem_u32(smem + C::kV) + cw * 64 * tc::kChunkRowBytes;
   tc::mbar_wait(kv_bar, 0);
 
-  for (int it = 0, i = 0; it < n_r; ++it) {
-    const int r0 = it * kBlockM;
+  for (int it = 0, i = 0; it < wk.y; ++it) {
+    const int r0 = walk_tile(ex, use_bm, wk, it);
+    const int slot = use_bm ? ex.bm_part[wk.x + it] : -1;  // a partial tile's element bits
     if (!live_tile<kWindowCap, kBlockN>(r0, c0, rows, q_offset, q_seq_len, causal, win)) continue;
     int2 q_ids = make_int2(0, 0);
     if (!ids_meet<kPair>(q_rng, n_qt, r0, keys, &q_ids)) continue;
@@ -314,45 +344,57 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     tc::wgmma_wait<0>();
     tc::fence_regs(st);
     tc::fence_regs(dpt);
+    // A partial tile's element bits of key rows kl_a and kl_a + 8 (over the
+    // tile's query rows).
+    unsigned bits_a[kBlockM / 32], bits_b[kBlockM / 32];
+    fa::tile_bits<kBlockN, kBlockM>(ex.bm_bits, slot, kl_a, t, bits_a, bits_b);
 
-    // Whether any pair of this warpgroup's key rows and the tile is masked.
+    // Whether any pair of this warpgroup's key rows and the tile is masked
+    // by the bounds or segment ids, or by a partial tile's bits alone
+    // (fa::with_mask_form).
     const int pmin = q_offset + fa_bwd::tile_first_pos(r0, kBlockM, rows, q_seq_len);
     const int pmax = q_offset + fa_bwd::tile_last_pos(r0, kBlockM, rows, q_seq_len);
     const bool mixed_ids = has_seg && !(q_ids.x == q_ids.y && wg_keys.x == wg_keys.y &&
                                         q_ids.x == wg_keys.x);
     const bool need_mask = mixed_ids || r0 + kBlockM > rows || kw0 + 63 >= kv_len ||
                            (causal && kw0 + 63 > pmin) || (win > 0 && kw0 <= pmax - win);
+    fa::with_mask_form(need_mask, slot >= 0, [&](auto form) {
+      constexpr int kForm = decltype(form)::value;
 #pragma unroll
-    for (int j = 0; j < kBlockM / 8; ++j) {
+      for (int j = 0; j < kBlockM / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int x = 8 * j + 2 * t + (e & 1);  // query row in the tile
-        const int key = e < 2 ? key_a : key_b;
-        float sc = st[4 * j + e] * scale;
-        float c_fac = 1.f;  // the softcap's derivative at the capped score
-        if constexpr (kWindowCap) {
-          if (cap > 0.f) {
-            sc = fa::softcap(sc, cap);
-            const float th = sc / cap;
-            c_fac = 1.f - th * th;
+        for (int e = 0; e < 4; ++e) {
+          const int x = 8 * j + 2 * t + (e & 1);  // query row in the tile
+          const int key = e < 2 ? key_a : key_b;
+          float sc = st[4 * j + e] * scale;
+          float c_fac = 1.f;  // the softcap's derivative at the capped score
+          if constexpr (kWindowCap) {
+            if (cap > 0.f) {
+              sc = fa::softcap(sc, cap);
+              const float th = sc / cap;
+              c_fac = 1.f - th * th;
+            }
           }
+          bool live = true;
+          if constexpr (kForm != fa::kMaskNone)
+            live = e < 2 ? fa::tile_bit(bits_a, j, e & 1) : fa::tile_bit(bits_b, j, e & 1);
+          if constexpr (kForm == fa::kMaskAll)
+            live = live && key <= ti[3 * kBlockM + x] && key >= ti[2 * kBlockM + x] &&
+                   (!has_seg || ti[5 * kBlockM + x] == (e < 2 ? seg_ka : seg_kb));
+          const float p = live ? tc::ex2((sc - tf[x]) * tc::kLog2e) : 0.f;
+          float dp = dpt[4 * j + e];
+          float z = 1.f;  // dropout: the pair's 1 / (1 - rate) or 0
+          if (dropout) {
+            z = fa::dropout_kept(static_cast<unsigned>(ti[4 * kBlockM + x]), key, ex.threshold)
+                    ? ex.inv
+                    : 0.f;
+            dp *= z;
+          }
+          st[4 * j + e] = dropout ? p * z : p;  // dV sums Z = z P
+          dpt[4 * j + e] = p * (dp - tf[kBlockM + x]) * scale * c_fac;
         }
-        const bool live = !need_mask ||
-                          (key <= ti[3 * kBlockM + x] && key >= ti[2 * kBlockM + x] &&
-                           (!has_seg || ti[5 * kBlockM + x] == (e < 2 ? seg_ka : seg_kb)));
-        const float p = live ? tc::ex2((sc - tf[x]) * tc::kLog2e) : 0.f;
-        float dp = dpt[4 * j + e];
-        float z = 1.f;  // dropout: the pair's 1 / (1 - rate) or 0
-        if (dropout) {
-          z = fa::dropout_kept(static_cast<unsigned>(ti[4 * kBlockM + x]), key, ex.threshold)
-                  ? ex.inv
-                  : 0.f;
-          dp *= z;
-        }
-        st[4 * j + e] = dropout ? p * z : p;  // dV sums Z = z P
-        dpt[4 * j + e] = p * (dp - tf[kBlockM + x]) * scale * c_fac;
       }
-    }
+    });
     // Z and dS as two bf16 terms each (tc_common.cuh, pack_a2).
     uint32_t za[kBlockM / 16][4], zl[kBlockM / 16][4], dsa[kBlockM / 16][4], dsl[kBlockM / 16][4];
 #pragma unroll
@@ -595,11 +637,13 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int* tab_i = reinterpret_cast<const int*>(smem + kTab);
 
   const int bh = blockIdx.y;
-  const int c0 = blockIdx.x * kKeys;
+  const bool use_bm = kExtra && ex.bm_ptr != nullptr;
+  const int kt = blockIdx.x;
+  const int c0 = kt * kKeys;
   const int win = kWindowCap ? window : 0;
   const float cap = kWindowCap ? softcap : 0.f;
   const bool dropout = kExtra && ex.threshold != 0;
-  const int n_q = c0 < kv_len ? (rows + kBlockM - 1) / kBlockM : 0;  // query tiles to walk
+  const int2 wk = walk(ex, use_bm, kt, c0, rows, kv_len);  // the query tiles, as above
   // kPair, segment ids: each head's id ranges, and the block's key rows'.
   const bool has_seg = kPair && sg.q != nullptr;
   const int n_qt = (rows + fa_bwd::kSegTile - 1) / fa_bwd::kSegTile;
@@ -624,7 +668,7 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x >= 32) return;
     produce<kWindowCap, kExtra, kPair, kKeys, kChunks>(
         smem, kV, kQ, kDo, kTab, full, empty, kv_bar, &tm_q, &tm_k, &tm_v, &tm_do, lse, di, bh, c0,
-        n_q, rows, kv_len, q_offset, q_seq_len, causal, win, ex, sg, q_rng, n_qt, keys);
+        wk, rows, kv_len, q_offset, q_seq_len, causal, win, ex, sg, q_rng, n_qt, keys);
     return;
   }
 
@@ -650,8 +694,9 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (!p_side) tc::named_arrive(3, 256);  // X starts free
   tc::mbar_wait(kv_bar, 0);
 
-  for (int it = 0, i = 0; it < n_q; ++it) {
-    const int r0 = it * kBlockM;
+  for (int it = 0, i = 0; it < wk.y; ++it) {
+    const int r0 = walk_tile(ex, use_bm, wk, it);
+    const int slot = use_bm ? ex.bm_part[wk.x + it] : -1;  // a partial tile's element bits
     if (!live_tile<kWindowCap, kKeys>(r0, c0, rows, q_offset, q_seq_len, causal, win)) continue;
     int2 q_ids = make_int2(0, 0);
     if (!ids_meet<kPair>(q_rng, n_qt, r0, keys, &q_ids)) continue;
@@ -678,6 +723,10 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     uint32_t ah[kBlockM / 16][4], al[kBlockM / 16][4];
     if (p_side) {
+      // A partial tile's element bits of key rows kl_a and kl_a + 8 (over
+      // the tile's query rows).
+      unsigned bits_a[kBlockM / 32], bits_b[kBlockM / 32];
+      fa::tile_bits<kKeys, kBlockM>(ex.bm_bits, slot, kl_a, t, bits_a, bits_b);
       const int pmin = q_offset + fa_bwd::tile_first_pos(r0, kBlockM, rows, q_seq_len);
       const int pmax = q_offset + fa_bwd::tile_last_pos(r0, kBlockM, rows, q_seq_len);
       const bool mixed_ids =
@@ -685,33 +734,39 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
       const bool need_mask = mixed_ids || r0 + kBlockM > rows || c0 + kKeys - 1 >= kv_len ||
                              (causal && c0 + kKeys - 1 > pmin) || (win > 0 && c0 <= pmax - win);
       float y[kBlockM / 2];
+      fa::with_mask_form(need_mask, slot >= 0, [&](auto form) {  // as the d <= 128 kernel's
+        constexpr int kForm = decltype(form)::value;
 #pragma unroll
-      for (int j = 0; j < kBlockM / 8; ++j) {
+        for (int j = 0; j < kBlockM / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int x = 8 * j + 2 * t + (e & 1);  // query row in the tile
-          const int key = e < 2 ? key_a : key_b;
-          float sc = st[4 * j + e] * scale;
-          float c_fac = 1.f;  // the softcap's derivative at the capped score
-          if constexpr (kWindowCap) {
-            if (cap > 0.f) {
-              sc = fa::softcap(sc, cap);
-              const float th = sc / cap;
-              c_fac = 1.f - th * th;
+          for (int e = 0; e < 4; ++e) {
+            const int x = 8 * j + 2 * t + (e & 1);  // query row in the tile
+            const int key = e < 2 ? key_a : key_b;
+            float sc = st[4 * j + e] * scale;
+            float c_fac = 1.f;  // the softcap's derivative at the capped score
+            if constexpr (kWindowCap) {
+              if (cap > 0.f) {
+                sc = fa::softcap(sc, cap);
+                const float th = sc / cap;
+                c_fac = 1.f - th * th;
+              }
             }
+            bool live = true;
+            if constexpr (kForm != fa::kMaskNone)
+              live = e < 2 ? fa::tile_bit(bits_a, j, e & 1) : fa::tile_bit(bits_b, j, e & 1);
+            if constexpr (kForm == fa::kMaskAll)
+              live = live && key <= ti[3 * kBlockM + x] && key >= ti[2 * kBlockM + x] &&
+                     (!has_seg || ti[5 * kBlockM + x] == (e < 2 ? seg_ka : seg_kb));
+            const float p = live ? tc::ex2((sc - tf[x]) * tc::kLog2e) : 0.f;
+            y[4 * j + e] = p * c_fac;
+            float z = p;  // Z = keep P / (1 - rate)
+            if (dropout && !fa::dropout_kept(static_cast<unsigned>(ti[4 * kBlockM + x]), key,
+                                             ex.threshold))
+              z = 0.f;
+            st[4 * j + e] = dropout ? z * ex.inv : z;
           }
-          const bool live =
-              !need_mask || (key <= ti[3 * kBlockM + x] && key >= ti[2 * kBlockM + x] &&
-                             (!has_seg || ti[5 * kBlockM + x] == (e < 2 ? seg_ka : seg_kb)));
-          const float p = live ? tc::ex2((sc - tf[x]) * tc::kLog2e) : 0.f;
-          y[4 * j + e] = p * c_fac;
-          float z = p;  // Z = keep P / (1 - rate)
-          if (dropout && !fa::dropout_kept(static_cast<unsigned>(ti[4 * kBlockM + x]), key,
-                                           ex.threshold))
-            z = 0.f;
-          st[4 * j + e] = dropout ? z * ex.inv : z;
         }
-      }
+      });
       tc::named_sync(3, 256);  // the dS side's dQ products are done with X
 #pragma unroll
       for (int j = 0; j < kBlockM / 2; ++j) x_f[j * 128 + tid] = y[j];
@@ -856,7 +911,7 @@ int launch_x(const Args& a) {
 #ifdef FA_EXTRA
   return launch<D, kWindowCap, true>(a);
 #else
-  if (a.ex.threshold != 0) return -1;
+  if (a.ex.threshold != 0 || a.ex.bm_ptr != nullptr) return -1;
   return launch<D, kWindowCap, false>(a);
 #endif
 }
@@ -887,16 +942,21 @@ int launch_d(const Args& a, int d) {
 // q_seg (bh, rows) and kv_seg (bh, s_kv) int32 with their tile tables q_rng
 // (bh, ceil(rows / 64), 2) and kv_rng (bh, ceil(s_kv / 64), 2), each 64
 // rows' [min, max] id, all four or none null.  Options as fa_flash_bwd_tc's.
+// bm_ptr null: no block mask; else (FA_EXTRA only) its table over (64, 128)
+// tiles (d = 256: (64, 64)) by key tile (common.cuh, Extras), bm_bits by key
+// row (each slot's 128 (64) key rows' words over its 64 query rows).
 extern "C" int fa_flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* di,
                                    const void* q_seg, const void* kv_seg, const void* q_rng,
-                                   const void* kv_rng, void* dk, void* dv, int bh, int rows,
-                                   int s_kv, int d, int kv_len, int q_offset, int q_seq_len,
-                                   int causal, float scale, int window, float softcap,
-                                   int row_stride, int dropout_seed, int dropout_threshold,
-                                   float dropout_inv, void* stream) {
-  const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, row_stride,
-                      static_cast<unsigned>(dropout_seed),
+                                   const void* kv_rng, void* dk, void* dv, const void* bm_ptr,
+                                   const void* bm_idx, const void* bm_part, const void* bm_bits,
+                                   int bh, int rows, int s_kv, int d, int kv_len, int q_offset,
+                                   int q_seq_len, int causal, float scale, int window,
+                                   float softcap, int row_stride, int dropout_seed,
+                                   int dropout_threshold, float dropout_inv, void* stream) {
+  const fa::Extras ex{static_cast<const int*>(bm_ptr), static_cast<const int*>(bm_idx),
+                      static_cast<const int*>(bm_part), static_cast<const unsigned*>(bm_bits),
+                      row_stride, static_cast<unsigned>(dropout_seed),
                       static_cast<unsigned>(dropout_threshold), dropout_inv};
   const fa_bwd::Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
                         static_cast<const int*>(q_rng), static_cast<const int*>(kv_rng)};

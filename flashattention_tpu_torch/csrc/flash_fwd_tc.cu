@@ -1,5 +1,5 @@
 // The tensor-core flash-attention forward's library (flash_fwd_tc, and with
-// FA_EXTRA flash_fwd_tc_extra, the attention-dropout form; with FA_QUANT
+// FA_EXTRA flash_fwd_tc_extra, the attention-dropout and block-mask form; with FA_QUANT
 // flash_fwd_tc_quant, the form over 8-bit K/V with float32 per-row scales;
 // with FA_F32 flash_fwd_tc_f32, float32 inputs as the JAX precision modes
 // compute them): the C entry point over the kernel of flash_fwd_tc.cuh,
@@ -18,7 +18,7 @@ int launch_x(const Args& a) {
 #ifdef FA_EXTRA
   return fwd_tc::launch<D, kWindowCap, true, 0>(a);
 #else
-  if (a.ex.threshold != 0) return -1;
+  if (a.ex.threshold != 0 || a.ex.bm_ptr != nullptr) return -1;
   return fwd_tc::launch<D, kWindowCap, false, 0, kKV>(a);
 #endif
 }
@@ -38,14 +38,22 @@ int launch_d(const Args& a, int d) {
   }
 }
 
+// bm: a block mask's table over (128, kN) tiles by query tile (ptr, idx,
+// part, bits; common.cuh, Extras), or null.
 Args make_args(const void* q, const void* k, const void* v, void* o, void* l, void* m,
-               const void* q_seg, const void* kv_seg, int bh, int rows, int s_kv, int kv_len,
-               int q_offset, int q_seq_len, int causal, float scale, int window, float softcap,
-               int row_stride, int dropout_seed, int dropout_threshold, float dropout_inv,
-               void* stream) {
-  const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, row_stride,
-                      static_cast<unsigned>(dropout_seed),
-                      static_cast<unsigned>(dropout_threshold), dropout_inv};
+               const void* q_seg, const void* kv_seg, const void* const* bm, int bh, int rows,
+               int s_kv, int kv_len, int q_offset, int q_seq_len, int causal, float scale,
+               int window, float softcap, int row_stride, int dropout_seed,
+               int dropout_threshold, float dropout_inv, void* stream) {
+  fa::Extras ex{nullptr, nullptr, nullptr, nullptr, row_stride,
+                static_cast<unsigned>(dropout_seed), static_cast<unsigned>(dropout_threshold),
+                dropout_inv};
+  if (bm != nullptr) {
+    ex.bm_ptr = static_cast<const int*>(bm[0]);
+    ex.bm_idx = static_cast<const int*>(bm[1]);
+    ex.bm_part = static_cast<const int*>(bm[2]);
+    ex.bm_bits = static_cast<const unsigned*>(bm[3]);
+  }
   return Args{q, k, v, o, static_cast<float*>(l), static_cast<float*>(m),
               static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), bh, rows, s_kv,
               kv_len, q_offset, q_seq_len, causal, scale, window, softcap, ex,
@@ -124,8 +132,9 @@ extern "C" int fa_flash_fwd_tc_f32(int terms, const void* q, const void* k, cons
   if (status == 0) status = split(k, k2, static_cast<long long>(bh) * s_kv, d, terms, st);
   if (status == 0) status = split(v, v2, static_cast<long long>(bh) * s_kv, d, terms, st);
   if (status != 0) return status;
-  Args a = make_args(q2, k2, v2, nullptr, l, m, q_seg, kv_seg, bh, rows, s_kv, kv_len, q_offset,
-                     q_seq_len, causal, scale, window, softcap, q_seq_len, 0, 0, 0.f, stream);
+  Args a = make_args(q2, k2, v2, nullptr, l, m, q_seg, kv_seg, nullptr, bh, rows, s_kv, kv_len,
+                     q_offset, q_seq_len, causal, scale, window, softcap, q_seq_len, 0, 0, 0.f,
+                     stream);
   a.o32 = static_cast<float*>(o);
   return d == 64 ? launch_f32_w<64>(a, terms) : launch_f32_w<128>(a, terms);
 }
@@ -136,15 +145,21 @@ extern "C" int fa_flash_fwd_tc_f32(int terms, const void* q, const void* k, cons
 // window <= 0: no sliding window (else it requires causal); softcap <= 0:
 // none.  dropout_threshold 0: no dropout; else (FA_EXTRA only) the seed,
 // threshold, 1 / (1 - rate) and the raw row stride, as in fa_flash_fwd.
+// bm_ptr null: no block mask; else (FA_EXTRA only, not with causal or a
+// window) its table over (128, kN) tiles by query tile, kN = 128 at d = 64
+// and 128 and 64 at d = 256, as in fa_flash_fwd.
 extern "C" int fa_flash_fwd_tc(const void* q, const void* k, const void* v, void* o, void* l,
-                               void* m, const void* q_seg, const void* kv_seg, int bh, int rows,
-                               int s_kv, int d, int kv_len, int q_offset, int q_seq_len,
-                               int causal, float scale, int window, float softcap,
+                               void* m, const void* q_seg, const void* kv_seg, const void* bm_ptr,
+                               const void* bm_idx, const void* bm_part, const void* bm_bits,
+                               int bh, int rows, int s_kv, int d, int kv_len, int q_offset,
+                               int q_seq_len, int causal, float scale, int window, float softcap,
                                int row_stride, int dropout_seed, int dropout_threshold,
                                float dropout_inv, void* stream) {
-  const Args a = make_args(q, k, v, o, l, m, q_seg, kv_seg, bh, rows, s_kv, kv_len, q_offset,
-                           q_seq_len, causal, scale, window, softcap, row_stride, dropout_seed,
-                           dropout_threshold, dropout_inv, stream);
+  const void* const bm[4] = {bm_ptr, bm_idx, bm_part, bm_bits};
+  const Args a = make_args(q, k, v, o, l, m, q_seg, kv_seg, bm_ptr != nullptr ? bm : nullptr, bh,
+                           rows, s_kv, kv_len, q_offset, q_seq_len, causal, scale, window,
+                           softcap, row_stride, dropout_seed, dropout_threshold, dropout_inv,
+                           stream);
   return launch_d<0>(a, d);
 }
 #else
@@ -157,7 +172,7 @@ extern "C" int fa_flash_fwd_tc_quant(int kv_dtype, const void* k_scales, const v
                                      int q_seq_len, int causal, float scale, int window,
                                      float softcap, int row_stride, int dropout_seed,
                                      int dropout_threshold, float dropout_inv, void* stream) {
-  Args a = make_args(q, k, v, o, l, m, q_seg, kv_seg, bh, rows, s_kv, kv_len, q_offset,
+  Args a = make_args(q, k, v, o, l, m, q_seg, kv_seg, nullptr, bh, rows, s_kv, kv_len, q_offset,
                      q_seq_len, causal, scale, window, softcap, row_stride, dropout_seed,
                      dropout_threshold, dropout_inv, stream);
   a.k_scales = static_cast<const float*>(k_scales);

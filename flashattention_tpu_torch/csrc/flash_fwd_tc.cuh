@@ -8,8 +8,9 @@
 // 256: causal masking at position q_offset + (r mod q_seq_len) (the GQA row
 // fold), kv_len, the score scale and a ragged S, a sliding window and a
 // logit softcap (the compile-time form kWindowCap), segment ids, the softmax
-// statistics (l, m) in float32, and attention dropout in the compile-time
-// form kExtra (built with FA_EXTRA), with the hash of common.cuh bit for bit.
+// statistics (l, m) in float32, and attention dropout and block-sparse
+// masks in the compile-time form kExtra (built with FA_EXTRA), with the hash
+// of common.cuh bit for bit.
 //
 // Bound on this card: at the prefill and training shapes (S >= 1024, d >=
 // 64) attention is bound by operations: 4 d flops a live (row, column) pair
@@ -35,11 +36,26 @@
 // starts at the first tile the window of the block's smallest position
 // reaches and stops at the causal diagonal of its largest and at kv_len; a
 // consumer whose own rows see none of a tile only waits for it and frees
-// it, and only tiles that cross a bound are masked element by element.
-// Rows past the end and K/V rows past kv_len arrive from TMA as zeros.  At
-// d = 256 the 64 x 256 float32 O is 128 registers a thread, so the KV tile
-// is 64 rows there (128 below), and Q (64 KB) plus two stages of K and V
-// (128 KB) fill 192 KB of shared memory.
+// it, and only tiles that cross a bound are masked element by element: the
+// scale-and-mask loop is built in three forms (fa::with_mask_form) and each
+// tile takes one, so a tile no mask reaches runs a loop with no test in it
+// (the per-score test of a runtime flag cost the unmasked tiles about 1.7x
+// on this card, PERF.md PR 20).  Rows past the end and K/V rows past kv_len
+// arrive from TMA as zeros.
+//
+// Block masks (kExtra; ops/flash.py::BlockMask, the Pallas kernel's
+// pair-table grid, flash.py:445-466 and :845-858): the host classifies the
+// mask over this kernel's (128, kN) tiles once and caches the table on the
+// device (common.cuh, Extras).  The Pallas grid over the live (q block, kv
+// block) pairs becomes a loop inside the block over its query tile's row of
+// the table: producer and consumers both take KV tile i from bm_idx, so a
+// dead tile is never loaded by TMA and never computed, and a partial tile's
+// element bits (each consumer thread its two rows' words, read once a
+// tile) mask S where the segment ids and the causal bound do, before the
+// online max: a tile whose bits are its only mask takes one test a score
+// (kMaskBits), a full tile none.  At d = 256 the 64 x 256 float32 O is 128
+// registers a thread, so the KV tile is 64 rows there (128 below), and Q
+// (64 KB) plus two stages of K and V (128 KB) fill 192 KB of shared memory.
 //
 // Rounding: P (against the running max of the tiles seen so far) enters the
 // PV product as two bf16 terms, hi = bf16(p) and lo = bf16(p - hi), each
@@ -235,10 +251,19 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     q_offset = ctx - pg.chunk;
   }
   // The longest query tiles (causal: the last) first, for a shorter tail.
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const bool use_bm = kExtra && ex.bm_ptr != nullptr;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int r0 = qt * kBlockM;
   const bool has_seg = q_seg != nullptr;
   const Range kv = kv_range<kN, kWindowCap>(r0, rows, kv_len, q_offset, q_seq_len, causal, window);
-  const int n_tiles = kv.end > kv.begin ? (kv.end - kv.begin + kN - 1) / kN : 0;
+  int n_tiles = kv.end > kv.begin ? (kv.end - kv.begin + kN - 1) / kN : 0;
+  // A block mask walks the query tile's live KV tiles instead, bm_idx[bm.x
+  // + i] for i < n_tiles (those below kv_len): a dead tile is never loaded.
+  int2 bm = make_int2(0, 0);
+  if (use_bm) {
+    bm = fa::bm_walk(ex, qt, kN, kv.end);
+    n_tiles = bm.y;
+  }
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -263,7 +288,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       if (i >= kStages) tc::mbar_wait(&empty[s], (i / kStages - 1) & 1);
-      const int t0 = kv.begin + i * kN;
+      const int t0 = use_bm ? ex.bm_idx[bm.x + i] * kN : kv.begin + i * kN;
       if constexpr (kPaged) {
         // The tile in boxes of min(kN, page_size) rows, each inside one
         // page: only those that hold a column in [kv.first, kv.end), so no
@@ -353,8 +378,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % kStages;
+    const int t0 = use_bm ? ex.bm_idx[bm.x + i] * kN : kv.begin + i * kN;
+    const int slot = use_bm ? ex.bm_part[bm.x + i] : -1;  // a partial tile's element bits
     tc::mbar_wait(&full[s], (i / kStages) & 1);
-    const int t0 = kv.begin + i * kN;
     if constexpr (C::kQuant) {
       // The 8-bit stage into the bf16 K and V tiles and the scales, once
       // neither warpgroup reads the last tile's (rows outside [kv.first,
@@ -425,31 +451,44 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         tc::wgmma_commit();
         tc::wgmma_wait<0>();
         tc::fence_regs(sc);
+        // A partial tile's element bits of rows ra and rb.
+        unsigned bits_a[kN / 32], bits_b[kN / 32];
+        fa::tile_bits<kBlockM, kN>(ex.bm_bits, slot, ra - r0, t, bits_a, bits_b);
 
+        // The bounds' and segment ids' masks, or a partial tile's bits alone
+        // (fa::with_mask_form).
         const bool need_mask = has_seg || t0 + kN > kv_len || t0 + kN > kv.end ||
                                (causal && t0 + kN - 1 > pmin) || (win > 0 && t0 <= pmax - win);
         float mx_a = kLocal ? -INFINITY : m_a[ch], mx_b = kLocal ? -INFINITY : m_b[ch];
+        fa::with_mask_form(need_mask, slot >= 0, [&](auto form) {
+          constexpr int kForm = decltype(form)::value;
 #pragma unroll
-        for (int j = 0; j < kN / 8; ++j) {
+          for (int j = 0; j < kN / 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float x = sc[4 * j + e];
-            if constexpr (C::kQuant) x *= ks_t[8 * j + 2 * t + (e & 1)];
-            x *= scale;
-            if (kWindowCap && cap > 0.f) x = fa::softcap(x, cap);
-            if (need_mask) {
-              const int col = t0 + 8 * j + 2 * t + (e & 1);
-              const int pos = e < 2 ? pos_a : pos_b;
-              const bool keep = col < kv_len && (!causal || col <= pos) &&
-                                (win <= 0 || col > pos - win) &&
-                                (!has_seg || seg_t[s * kN + col - t0] == (e < 2 ? seg_a : seg_b));
-              if (!keep) x = fa::kMaskValue;
+            for (int e = 0; e < 4; ++e) {
+              float x = sc[4 * j + e];
+              if constexpr (C::kQuant) x *= ks_t[8 * j + 2 * t + (e & 1)];
+              x *= scale;
+              if (kWindowCap && cap > 0.f) x = fa::softcap(x, cap);
+              if constexpr (kForm != fa::kMaskNone) {
+                const bool bit =
+                    e < 2 ? fa::tile_bit(bits_a, j, e & 1) : fa::tile_bit(bits_b, j, e & 1);
+                bool keep = bit;
+                if constexpr (kForm == fa::kMaskAll) {
+                  const int col = t0 + 8 * j + 2 * t + (e & 1);
+                  const int pos = e < 2 ? pos_a : pos_b;
+                  keep = keep && col < kv_len && (!causal || col <= pos) &&
+                         (win <= 0 || col > pos - win) &&
+                         (!has_seg || seg_t[s * kN + col - t0] == (e < 2 ? seg_a : seg_b));
+                }
+                if (!keep) x = fa::kMaskValue;
+              }
+              sc[4 * j + e] = x;
+              if (e < 2) mx_a = fmaxf(mx_a, x);
+              else mx_b = fmaxf(mx_b, x);
             }
-            sc[4 * j + e] = x;
-            if (e < 2) mx_a = fmaxf(mx_a, x);
-            else mx_b = fmaxf(mx_b, x);
           }
-        }
+        });
 #pragma unroll
         for (int off = 1; off < 4; off <<= 1) {
           mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));

@@ -24,10 +24,11 @@ default, in bf16 at head_dim 64, 128 or 256 its tensor-core form
 (``ops.flash.kernel_form``); and the two-pass pair (replaces ``_dq_kernel``
 :146 and ``_dkv_kernel`` :269) with segment ids, a block mask or
 ``fused=False``, as the JAX package chooses (backward.py:610-615): in bf16
-at head_dim 64, 128 or 256 without a block mask its tensor-core forms
-``csrc/flash_bwd_dq_tc.cu`` and ``csrc/flash_bwd_tc.cu`` built with
-``-DFA_PAIR``, which skip the pairs of tiles whose segment ids never meet
-(:func:`seg_tile_ranges`), else ``csrc/flash_bwd_dq.cu`` +
+at head_dim 64, 128 or 256 its tensor-core forms ``csrc/flash_bwd_dq_tc.cu``
+and ``csrc/flash_bwd_tc.cu`` built with ``-DFA_PAIR``, which skip the pairs
+of tiles whose segment ids never meet (:func:`seg_tile_ranges`) and a block
+mask's dead tiles (its table over their own tiles, :data:`TC_DQ_TILE` and
+:func:`tc_dkv_tile`), else ``csrc/flash_bwd_dq.cu`` +
 ``csrc/flash_bwd_dkv.cu``.  On CPU tensors it runs
 :func:`flash_attention_bwd_plain`, the same function written from the
 formulas above in plain PyTorch.  There is no fallback between the two.
@@ -253,9 +254,8 @@ def flash_attention_bwd_plain(
 
 def bwd_form(q, fused, block_mask=False):
     """The form of a backward call (``ops.flash.kernel_form``): the fused
-    kernel's, or the two-pass pair's (``block_mask``: the call has one,
-    which the pair's tensor-core forms do not take).  Both kernels of the
-    pair take the same form."""
+    kernel's, or the two-pass pair's (``block_mask``: the call has one).
+    Both kernels of the pair take the same form."""
     if fused:
         return kernel_form("flash_bwd", q.dtype, q.shape[2])
     return kernel_form("flash_bwd_dq", q.dtype, q.shape[2], block_mask=block_mask)
@@ -345,6 +345,27 @@ def _mask_tiles(block_mask, q, by_q):
     return tiles.by_q() if by_q else tiles.by_kv()
 
 
+# The pair's tensor-core tiles (csrc/flash_bwd_dq_tc.cu's kBlockM x kN, and
+# flash_bwd_tc.cu's query tile x its block's key rows): a block mask's table
+# is built over them.
+TC_DQ_TILE = (128, 64)
+
+
+def tc_dkv_tile(d: int) -> tuple[int, int]:
+    return (64, 64 if d >= 256 else 128)
+
+
+def _tc_mask_tiles(block_mask, q, by_q):
+    """A block mask's (ptr, idx, part, bits) for a tensor-core form of the
+    pair, by query tile (dQ) or by key tile (dK/dV, the bits by key row); or
+    four nulls."""
+    if block_mask is None:
+        return (None,) * 4
+    tile_q, tile_kv = TC_DQ_TILE if by_q else tc_dkv_tile(q.shape[2])
+    tiles = block_mask.tiles(tile_q, tile_kv, q.device)
+    return tiles.by_q() if by_q else tiles.tc_by_kv()
+
+
 def _library(name, kw, block_mask=None):
     """The kernel's library: its dropout / block-mask form's with either."""
     extra = kw["dropout_rate"] is not None or block_mask is not None
@@ -359,6 +380,7 @@ def _count(fn, kw, block_mask=None, form="scalar"):
     if form == "tc":
         fn.launches_tc += 1
         fn.launches_tc_dropout += kw["dropout_rate"] is not None
+        fn.launches_tc_block_mask += block_mask is not None
 
 
 def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None,
@@ -405,10 +427,11 @@ def _pair_launch(name, q, k, v, do, lse, di, outs, kw, seg_q, seg_kv, block_mask
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), _ptr(seg_q), _ptr(seg_kv))
     if form == "tc":
-        lib = _library(name + "_tc", kw)
+        lib = _library(name + "_tc", kw, block_mask)
         ranges = (None, None) if seg_q is None else tuple(map(seg_tile_ranges, (seg_q, seg_kv)))
         status = getattr(kernels.library(lib), f"fa_{name}_tc")(
-            *ptrs, *map(_ptr, ranges), *(t.data_ptr() for t in outs), bh, rows, s_kv, d,
+            *ptrs, *map(_ptr, ranges), *(t.data_ptr() for t in outs),
+            *_tc_mask_tiles(block_mask, q, by_q=name == "flash_bwd_dq"), bh, rows, s_kv, d,
             *_scalars(kw), stream,
         )
     else:
@@ -427,9 +450,9 @@ def dq_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_o
               kv_segment_ids=None, dropout_rate=None, dropout_seed=0,
               dropout_row_stride=None, block_mask=None):
     """One launch of the two-pass backward's dQ kernel: in bf16 at head_dim
-    64, 128 or 256 without a block mask its tensor-core form
-    (``csrc/flash_bwd_dq_tc.cu``), else ``csrc/flash_bwd_dq.cu``.  On CPU
-    tensors: the plain version, with that form's rounding."""
+    64, 128 or 256 its tensor-core form (``csrc/flash_bwd_dq_tc.cu``), else
+    ``csrc/flash_bwd_dq.cu``.  On CPU tensors: the plain version, with that
+    form's rounding."""
     kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
                dropout_rate, dropout_seed, dropout_row_stride)
     if q.device.type == "cpu":
@@ -450,8 +473,8 @@ def dkv_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_
                dropout_row_stride=None, block_mask=None):
     """One launch of the two-pass backward's dK/dV kernel: ``(dk, dv)``, each
     KV head summed over all of its folded query rows; in bf16 at head_dim
-    64, 128 or 256 without a block mask its tensor-core form
-    (``csrc/flash_bwd_tc.cu`` built with ``-DFA_PAIR``), else
+    64, 128 or 256 its tensor-core form (``csrc/flash_bwd_tc.cu`` built
+    with ``-DFA_PAIR``), else
     ``csrc/flash_bwd_dkv.cu``.  On CPU tensors: the plain version, with that
     form's rounding."""
     kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
@@ -470,10 +493,10 @@ def dkv_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_
 
 # Kernel launches, for the chip run's path check: all forms, and the dropout
 # and block-mask ones among them, and the tensor-core forms' among them (with
-# dropout among those).
+# dropout and with a block mask among those).
 for _fn in (fused_bwd_kernel, dq_kernel, dkv_kernel):
     _fn.launches = _fn.launches_dropout = _fn.launches_block_mask = 0
-    _fn.launches_tc = _fn.launches_tc_dropout = 0
+    _fn.launches_tc = _fn.launches_tc_dropout = _fn.launches_tc_block_mask = 0
 del _fn
 
 

@@ -3,8 +3,8 @@
 Counterpart of ``flashattention_tpu/ops/flash.py::flash_attention`` (:1127).
 On a CUDA tensor it launches a hand-written kernel that replaces the Pallas
 ``_kernel`` (:628), in the form :func:`kernel_form` picks: for bf16 q at
-head_dim 64, 128 or 256 with no block mask the tensor-core kernel in
-``csrc/flash_fwd_tc.cu`` (over 8-bit K/V without dropout, its 8-bit form,
+head_dim 64, 128 or 256 the tensor-core kernel in ``csrc/flash_fwd_tc.cu``
+(over 8-bit K/V without dropout or a block mask, its 8-bit form,
 ``flash_fwd_tc_quant``); for float32 q, k and v at head_dim 64 or 128 with
 no block mask or dropout, in the JAX package's ``"bf16_3x"`` (the default)
 and ``"bf16"`` precision modes, its float32 form ``flash_fwd_tc_f32``, the
@@ -116,8 +116,9 @@ def resolve_precision(precision: str | None, dtype) -> str:
 # The tensor-core forms (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu,
 # csrc/paged_prefill_tc.cu, csrc/paged_decode_tc.cu, and the two-pass pair's
 # csrc/flash_bwd_dq_tc.cu and flash_bwd_tc.cu built with -DFA_PAIR): bf16 q
-# at these head_dims and no block mask; the two forwards and paged decode
-# also over 8-bit K/V (without dropout).  The forward's KV tile (kBlockN,
+# at these head_dims; the two forwards and paged decode also over 8-bit K/V
+# (without dropout or a block mask).  The flash forward and the pair also
+# take block masks (TC_BLOCK_MASK).  The forward's KV tile (kBlockN,
 # also the paged form's) sets where its online softmax rescales, which the
 # plain versions mirror; paged decode's tile is 64 rows at every head_dim
 # (TC_DECODE_TILE), and it takes at most TC_DECODE_ROWS q rows per KV head.
@@ -125,6 +126,11 @@ TC_HEAD_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128, 256),
                 "flash_bwd_dq": (64, 128, 256), "flash_bwd_dkv": (64, 128, 256),
                 "paged_prefill": (64, 128, 256), "paged_decode": (64, 128, 256)}
 TC_KV_TILE = {64: 128, 128: 128, 256: 64}
+# The tensor-core forms that take a block mask, and the query rows of the
+# forward's and dQ's blocks: a mask's table is built over the forward's
+# (TC_BLOCK_Q, TC_KV_TILE[d]) tiles (dQ's and dK/dV's: ops/backward.py).
+TC_BLOCK_MASK = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+TC_BLOCK_Q = 128
 TC_DECODE_TILE = 64
 TC_DECODE_ROWS = 32
 # The forward's float32 form (csrc/flash_fwd_tc.cu built with -DFA_F32):
@@ -163,23 +169,25 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
     the fused backward, ``"flash_bwd_dq"`` / ``"flash_bwd_dkv"`` for the
     two-pass pair, ``"paged_prefill"`` or ``"paged_decode"``) takes:
     ``"tc"``, the tensor-core kernel, for bfloat16 q at
-    ``TC_HEAD_DIMS[kernel]`` with no block mask, over 16-bit K/V or, in the
-    two forwards without dropout and in paged decode, over 8-bit K/V
-    (``quantized``); the paged kernels only on pages of a ``page_size`` that
-    :func:`tc_page_size` takes (paged decode's at ``TC_DECODE_TILE``), paged
+    ``TC_HEAD_DIMS[kernel]``, over 16-bit K/V or, in the two forwards
+    without dropout or a block mask and in paged decode, over 8-bit K/V
+    (``quantized``); with a block mask only the kernels of
+    ``TC_BLOCK_MASK`` (over 16-bit K/V); the paged kernels only on pages of
+    a ``page_size`` that :func:`tc_page_size` takes (paged decode's at ``TC_DECODE_TILE``), paged
     decode only with at most ``TC_DECODE_ROWS`` q ``rows`` per KV head (G,
     or G * draft_k).  ``"tc_f32"``, the flash forward's float32 form, for
     float32 q, k and v at ``TC_F32_HEAD_DIMS`` with no block mask, dropout or
     8-bit K/V, in the mode ``precision`` resolves to (:func:`resolve_precision`:
     by default ``"bf16_3x"``) unless that is ``"float32"``.  Else
     ``"scalar"``, the float32 CUDA-core kernel (float32 q over 8-bit pages
-    too, 8-bit K/V with dropout or a block mask, and the two-pass pair with
-    a block mask).  Inside :func:`scalar_forms`, always ``"scalar"``."""
+    too, float32 or 8-bit K/V with a block mask, 8-bit K/V with dropout).
+    Inside :func:`scalar_forms`, always ``"scalar"``."""
     if (kernel == "flash_fwd" and dtype == torch.float32 and not _SCALAR_ONLY[0]
             and resolve_precision(precision, dtype) != "float32"
             and head_dim in TC_F32_HEAD_DIMS and not (quantized or block_mask or dropout)):
         return "tc_f32"
-    if (_SCALAR_ONLY[0] or dtype != torch.bfloat16 or block_mask
+    if (_SCALAR_ONLY[0] or dtype != torch.bfloat16
+            or (block_mask and (quantized or kernel not in TC_BLOCK_MASK))
             or head_dim not in TC_HEAD_DIMS.get(kernel, ())
             or (quantized and (kernel.startswith("flash_bwd") or dropout))
             or (kernel == "paged_prefill" and not tc_page_size(page_size, head_dim))
@@ -354,7 +362,9 @@ class MaskTiles:
     partial slot, -1 for a full tile); the same by KV tile in ``col_*``
     (the transposed table, for the key-row backward kernel); ``bits``,
     int32 words of the partial tiles' element bits, ``(slots, tile_q,
-    words)`` with ``words = ceil(tile_kv / 32)``."""
+    words)`` with ``words = ceil(tile_kv / 32)``, and ``bits_t`` the same
+    by KV row, ``(slots, tile_kv, ceil(tile_q / 32))`` (the tensor-core
+    dK/dV form reads its key rows' words)."""
 
     row_ptr: torch.Tensor
     row_idx: torch.Tensor
@@ -363,6 +373,7 @@ class MaskTiles:
     col_idx: torch.Tensor
     col_part: torch.Tensor
     bits: torch.Tensor
+    bits_t: torch.Tensor
 
     def by_q(self):
         """The C interface's (ptr, idx, part, bits) by query tile."""
@@ -371,6 +382,25 @@ class MaskTiles:
     def by_kv(self):
         """The same by KV tile."""
         return tuple(t.data_ptr() for t in (self.col_ptr, self.col_idx, self.col_part, self.bits))
+
+    def tc_by_kv(self):
+        """The same by KV tile with the bits by KV row (``bits_t``), as the
+        tensor-core dK/dV form reads them."""
+        return (*self.by_kv()[:3], self.bits_t.data_ptr())
+
+
+
+_BIT_WEIGHTS = np.left_shift(np.uint64(1), np.arange(32, dtype=np.uint64))
+
+
+def _pack_bits(m):
+    """Boolean ``(n, rows, cols)`` as uint32 ``(n, rows, ceil(cols /
+    32))``: column c is bit c % 32 of word c // 32."""
+    n, rows, cols = m.shape
+    words = -(-cols // 32)
+    x = np.zeros((n, rows, words * 32), np.uint64)
+    x[..., :cols] = m
+    return (x.reshape(n, rows, words, 32) * _BIT_WEIGHTS).sum(-1).astype(np.uint32)
 
 
 def _csr(kind, part):
@@ -490,14 +520,13 @@ class BlockMask:
     def _classify(self, tile_q: int, tile_kv: int):
         """Host classification over (tile_q, tile_kv) tiles: per tile 0
         (dead), 1 (full) or 2 (partial), each partial tile's slot, and the
-        slots' element bits, uint32 ``(slots, tile_q, words)``."""
+        slots' element bits, uint32 ``(slots, tile_q, words)``, and by KV
+        row, ``(slots, tile_kv, words_q)``."""
         nq, nk = -(-self.s_q // tile_q), -(-self.s_kv // tile_kv)
-        words = -(-tile_kv // 32)
         cols = np.arange(nk * tile_kv)[None, :]
         kind = np.zeros((nq, nk), np.int8)
         part = np.full((nq, nk), -1, np.int32)
-        weights = np.left_shift(np.uint64(1), np.arange(32, dtype=np.uint64))
-        bits = []
+        bits, bits_t = [], []
         for i in range(nq):
             rows = np.arange(i * tile_q, (i + 1) * tile_q)[:, None]
             m = np.broadcast_to(np.asarray(self.mask_fn(rows, cols), bool),
@@ -508,12 +537,13 @@ class BlockMask:
             partial = np.nonzero(live & ~full)[0]
             if len(partial):
                 part[i, partial] = len(bits) + np.arange(len(partial))
-                x = np.zeros((len(partial), tile_q, words * 32), np.uint64)
-                x[..., :tile_kv] = t[:, partial, :].transpose(1, 0, 2)
-                bits.extend((x.reshape(len(partial), tile_q, words, 32) * weights).sum(-1)
-                            .astype(np.uint32))
-        bits = np.stack(bits) if bits else np.zeros((1, tile_q, words), np.uint32)
-        return kind, part, bits
+                tiles = t[:, partial, :].transpose(1, 0, 2)
+                bits.extend(_pack_bits(tiles))
+                bits_t.extend(_pack_bits(tiles.transpose(0, 2, 1)))
+        if not bits:  # no partial tile: one zero slot, so that no table is empty
+            bits = [np.zeros((tile_q, -(-tile_kv // 32)), np.uint32)]
+            bits_t = [np.zeros((tile_kv, -(-tile_q // 32)), np.uint32)]
+        return kind, part, np.stack(bits), np.stack(bits_t)
 
     def tiles(self, tile_q: int, tile_kv: int, device) -> MaskTiles:
         """The kernels' table over (tile_q, tile_kv) tiles on ``device``,
@@ -521,14 +551,14 @@ class BlockMask:
         device = torch.device(device)
         key = (tile_q, tile_kv, str(device))
         if key not in self._tiles:
-            kind, part, bits = self._classify(tile_q, tile_kv)
+            kind, part, bits, bits_t = self._classify(tile_q, tile_kv)
             rows = _csr(kind, part)
             cols = _csr(kind.T, part.T)
 
             def put(a):
                 return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
 
-            self._tiles[key] = MaskTiles(*(put(a) for a in (*rows, *cols, bits)))
+            self._tiles[key] = MaskTiles(*(put(a) for a in (*rows, *cols, bits, bits_t)))
         return self._tiles[key]
 
 
@@ -754,7 +784,10 @@ def flash_attention(
         l = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
         m = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
     if form == "tc":
-        _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, scales, kv_len=kv_len,
+        tiles = None
+        if block_mask is not None:
+            tiles = block_mask.tiles(TC_BLOCK_Q, TC_KV_TILE[d], q.device).by_q()
+        _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, scales, tiles, kv_len=kv_len,
                       q_offset=int(q_offset), q_seq_len=q_seq_len, causal=bool(causal),
                       scale=float(scale), window=window, logit_softcap=logit_softcap,
                       dropout_rate=dropout_rate, dropout_seed=dropout["dropout_seed"],
@@ -764,6 +797,8 @@ def flash_attention(
         flash_attention.launches_quantized += quantized
         flash_attention.launches_tc_quantized += quantized
         flash_attention.launches_dropout += dropout_rate is not None
+        flash_attention.launches_block_mask += block_mask is not None
+        flash_attention.launches_tc_block_mask += block_mask is not None
         return (o, l, m) if save_residuals else o
     if form == "tc_f32":
         _flash_fwd_tc_f32(q, k, v, o, l, m, seg_q, seg_kv, precision, kv_len=kv_len,
@@ -798,25 +833,27 @@ def flash_attention(
     return (o, l, m) if save_residuals else o
 
 
-def _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, scales, *, kv_len, q_offset, q_seq_len,
-                  causal, scale, window, logit_softcap, dropout_rate, dropout_seed,
+def _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, scales, tiles, *, kv_len, q_offset,
+                  q_seq_len, causal, scale, window, logit_softcap, dropout_rate, dropout_seed,
                   dropout_row_stride):
     """One launch of the tensor-core forward (``csrc/flash_fwd_tc.cu``),
     into ``o`` (and ``l``, ``m`` unless None); ``scales`` ``(k_scales,
-    v_scales)`` for 8-bit K/V (its ``flash_fwd_tc_quant`` form), else ``()``.
+    v_scales)`` for 8-bit K/V (its ``flash_fwd_tc_quant`` form), else ``()``;
+    ``tiles`` a block mask's table (:meth:`MaskTiles.by_q`) or None.
     Its TMA loads take 16-byte aligned tensors."""
     kernels.check_aligned("flash_attention", q, k, v)
     bh, rows, d = q.shape
-    name = "flash_fwd_tc_extra" if dropout_rate is not None else "flash_fwd_tc"
-    quant = ()
-    if scales:  # the 8-bit form: the payload's type code and the two scale arrays
+    extra = dropout_rate is not None or tiles is not None
+    name = "flash_fwd_tc_extra" if extra else "flash_fwd_tc"
+    quant, table = (), tiles or (None,) * 4  # the bf16 form takes the block mask's table
+    if scales:  # the 8-bit form: the payload's type code and the two scale arrays, no table
         name = "flash_fwd_tc_quant"
-        quant = (KV_DTYPES[k.dtype], *(t.data_ptr() for t in scales))
+        quant, table = (KV_DTYPES[k.dtype], *(t.data_ptr() for t in scales)), ()
     status = getattr(kernels.library(name), kernels.KERNELS[name][1])(
         *quant, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
         None if seg_q is None else seg_q.data_ptr(),
-        None if seg_kv is None else seg_kv.data_ptr(), bh, rows, k.shape[1], d, kv_len,
+        None if seg_kv is None else seg_kv.data_ptr(), *table, bh, rows, k.shape[1], d, kv_len,
         q_offset, q_seq_len, int(causal), scale, *kernel_options(window, logit_softcap),
         *dropout_options(dropout_rate, dropout_seed, dropout_row_stride, q_seq_len),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -847,8 +884,9 @@ def _flash_fwd_tc_f32(q, k, v, o, l, m, seg_q, seg_kv, precision, *, kv_len, q_o
 
 
 # Kernel launches, for chip_smoke.py's path check: all forms, and the
-# tensor-core, 8-bit, tensor-core 8-bit, dropout and block-mask ones among
-# them; the float32 form's, and its "bf16" mode's among those.
+# tensor-core, 8-bit, tensor-core 8-bit, dropout, block-mask and tensor-core
+# block-mask ones among them; the float32 form's, and its "bf16" mode's
+# among those.
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_tc_f32 = 0
@@ -857,6 +895,7 @@ flash_attention.launches_quantized = 0
 flash_attention.launches_tc_quantized = 0
 flash_attention.launches_dropout = 0
 flash_attention.launches_block_mask = 0
+flash_attention.launches_tc_block_mask = 0
 
 
 def flash_attention_plain(

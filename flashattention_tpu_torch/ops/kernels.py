@@ -16,7 +16,8 @@ backward kernels with attention dropout or a block mask are the same sources
 built with ``-DFA_EXTRA`` into ``*_extra`` libraries; the wrappers take them
 only when a call has either.  The tensor-core forms of the forward, the
 fused backward and chunked prefill (``flash_fwd_tc``, ``flash_bwd_tc``, their
-dropout forms ``*_tc_extra``, and ``paged_prefill_tc``) are sources of their
+dropout forms ``*_tc_extra`` (the forward's also its block-mask form), and
+``paged_prefill_tc``) are sources of their
 own, and the two forwards' 8-bit forms are the same sources built with
 ``-DFA_QUANT`` (``flash_fwd_tc_quant``, ``paged_prefill_tc_quant``), and the
 forward's float32 form, over each value's bf16 terms, is its source built
@@ -25,7 +26,8 @@ decode's tensor-core form is ``paged_decode_tc`` and, for 8-bit pages, the
 same source built with ``-DFA_QUANT`` (``paged_decode_tc_quant``).  The
 two-pass backward pair's tensor-core forms are ``flash_bwd_dq_tc`` (a
 source of its own) and ``flash_bwd_dkv_tc`` (the fused backward's source
-built with ``-DFA_PAIR``), each with its dropout form ``*_extra``.
+built with ``-DFA_PAIR``), each with its dropout and block-mask form
+``*_extra``.
 ``probe_mma`` is the forward's loop bodies alone and its softmax probes, for
 ``torch_tools/probe_mma.py`` and ``torch_tools/probe_softmax.py``,
 ``probe_d128_0`` / ``probe_d128_1`` / ``probe_d128_2`` the d = 128
@@ -118,13 +120,13 @@ KERNELS = {
            ("flash_bwd_dq", "flash_bwd_dq.cu", "fa_flash_bwd_dq", [_I, *[_P] * 13, *_BWD]),
            ("flash_bwd_dkv", "flash_bwd_dkv.cu", "fa_flash_bwd_dkv", [_I, *[_P] * 14, *_BWD]),
            ("flash_fwd_tc", "flash_fwd_tc.cu", "fa_flash_fwd_tc",
-            [*[_P] * 8, *[_I] * 8, _F, _I, _F, *_EXTRA]),
+            [*[_P] * 12, *[_I] * 8, _F, _I, _F, *_EXTRA]),
            ("flash_bwd_tc", "flash_bwd_tc.cu", "fa_flash_bwd_tc", [*[_P] * 9, *_BWD]),
-           ("flash_bwd_dq_tc", "flash_bwd_dq_tc.cu", "fa_flash_bwd_dq_tc", [*[_P] * 11, *_BWD]))
+           ("flash_bwd_dq_tc", "flash_bwd_dq_tc.cu", "fa_flash_bwd_dq_tc", [*[_P] * 15, *_BWD]))
        for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
     # The pair's dK/dV pass: the fused backward's source in its pair form.
     **{"flash_bwd_dkv_tc" + suffix: ("flash_bwd_tc.cu", "fa_flash_bwd_dkv_tc",
-                                     [*[_P] * 12, *_BWD], ["-DFA_PAIR", *flags])
+                                     [*[_P] * 16, *_BWD], ["-DFA_PAIR", *flags])
        for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
     # The tensor-core forward's loop bodies alone and its softmax probes
     # (torch_tools/probe_mma.py, torch_tools/probe_softmax.py; the same

@@ -9,8 +9,13 @@ every family in float32 and bfloat16 (``tests/test_block_mask.py``'s bounds,
 2e-5 and 2e-2); the composition with segment ids and ``save_residuals``
 through ``attention()``; a ragged S_q = S_kv = 300 through ``attention()``
 with the mask built at the padded 384; gradients through ``attention()``
-under autograd against ``jax.grad`` of the JAX ``attention()`` (5e-4); and
-the block-mask backward against the segment-id backward for a document mask.
+under autograd against ``jax.grad`` of the JAX ``attention()`` (5e-4); the
+block-mask backward against the segment-id backward for a document mask;
+and the bf16 route, which on the card runs the tensor-core forms
+(``ops.flash.kernel_form``, over their own tiles, walked longest first):
+its rounding (``form="tc"``), and its output and gradients through
+``attention()`` against the JAX package's in bf16 (2e-2) for prefix-LM,
+document and strided masks and a ragged S.
 """
 
 import jax
@@ -98,13 +103,25 @@ def test_errors_match_jax(fn, s, match):
     assert str(info.value) == want
 
 
-@pytest.mark.parametrize("tile_q, tile_kv", [(64, 32), (32, 32), (16, 16), (64, 64)])
-def test_kernel_tiles_cover_the_mask(tile_q, tile_kv):
+@pytest.mark.parametrize("tile_q, tile_kv, fn", [
+    pytest.param(64, 32, strided_fn, id="64-32"),
+    pytest.param(32, 32, strided_fn, id="32-32"),
+    pytest.param(16, 16, strided_fn, id="16-16"),
+    pytest.param(64, 64, strided_fn, id="64-64"),
+    # The tensor-core forms' tiles: the forward's at d = 64 / 128 and dQ's
+    # (and the forward's at d = 256), and dK/dV's.  Each 128-key tile holds
+    # a strided column, so these take the prefix-LM mask, which leaves dead,
+    # full and partial tiles there.
+    pytest.param(128, 128, prefix_lm_fn, id="128-128"),
+    pytest.param(128, 64, prefix_lm_fn, id="128-64"),
+    pytest.param(64, 128, prefix_lm_fn, id="64-128"),
+])
+def test_kernel_tiles_cover_the_mask(tile_q, tile_kv, fn):
     """Walk the kernels' tables as the CUDA kernels do (by query tile and,
     transposed, by key tile): live tiles' element bits, full tiles' ones,
     and nothing else, rebuild the dense mask exactly."""
-    bm = tflash.BlockMask.from_mask_fn(strided_fn, S, S, block_q=BLOCK, block_kv=BLOCK)
-    dense = np.asarray(strided_fn(np.arange(S)[:, None], np.arange(S)[None, :]))
+    bm = tflash.BlockMask.from_mask_fn(fn, S, S, block_q=BLOCK, block_kv=BLOCK)
+    dense = np.asarray(fn(np.arange(S)[:, None], np.arange(S)[None, :]))
     t = bm.tiles(tile_q, tile_kv, "cpu")
     words = -(-tile_kv // 32)
     bits = t.bits.numpy().view(np.uint32).reshape(-1, tile_q, words)
@@ -229,3 +246,90 @@ def test_block_mask_refusals():
         tbwd.flash_attention_bwd(x, x, x, x, lse, x, block_mask=bm, causal=True)
     with pytest.raises(NotImplementedError, match="block_mask"):
         ft.attention(x, x, x, block_mask=bm, implementation="xla")
+
+
+@pytest.mark.parametrize("tile_q, tile_kv", [(64, 128), (64, 64)])
+@pytest.mark.parametrize("fn", [prefix_lm_fn, strided_fn, document_fn], ids=lambda f: f.__name__)
+def test_kv_row_bits_cover_the_mask(fn, tile_q, tile_kv):
+    """The tensor-core dK/dV form's table (``tc_by_kv``): its key tiles'
+    live query tiles, with each partial tile's bits read by key row from
+    ``bits_t``, as the kernel reads them, rebuild the dense mask."""
+    bm = tflash.BlockMask.from_mask_fn(fn, S, S, block_q=BLOCK, block_kv=BLOCK)
+    dense = np.asarray(fn(np.arange(S)[:, None], np.arange(S)[None, :]))
+    t = bm.tiles(tile_q, tile_kv, "cpu")
+    bits_t = t.bits_t.numpy().view(np.uint32).reshape(-1, tile_kv, -(-tile_q // 32))
+    assert t.tc_by_kv()[3] == t.bits_t.data_ptr()
+    got = np.zeros_like(dense)
+    r = np.arange(tile_q)
+    for kt in range(S // tile_kv):
+        for e in range(int(t.col_ptr[kt]), int(t.col_ptr[kt + 1])):
+            qt, slot = int(t.col_idx[e]), int(t.col_part[e])
+            rows = slice(qt * tile_q, (qt + 1) * tile_q)
+            cols = slice(kt * tile_kv, (kt + 1) * tile_kv)
+            if slot < 0:
+                got[rows, cols] = True
+            else:  # key row c's words over the query rows
+                got[rows, cols] = ((bits_t[slot][:, r // 32] >> (r % 32).astype(np.uint32)) & 1).T
+    np.testing.assert_array_equal(got, dense)
+
+
+# The tensor-core forms' route in bf16: masks at 256 tokens, head_dim 64
+# (the forward's (128, 128) tiles, dQ's (128, 64), dK/dV's (64, 128)); the
+# ragged case at S = 200 with the strided mask built at the padded 256.
+TC_S = 256
+TC_CASES = [("prefix_lm", prefix_lm_fn, TC_S), ("documents", document_fn, TC_S),
+            ("strided", strided_fn, TC_S), ("strided_ragged_s200", strided_fn, 200)]
+TC_TOL = 2e-2
+
+
+def _tc_inputs(seed, s):
+    rng = np.random.default_rng(seed)
+    q, k, v = (_rand(rng, (1, 2, s, 64), "bfloat16") for _ in range(3))
+    t = _rand(rng, (1, 2, s, 64), "bfloat16") * np.float32(0.25)
+    return q, k, v, t
+
+
+def test_bf16_route_takes_the_tc_rounding():
+    """On CPU tensors the bf16 route with a block mask is the tensor-core
+    forms' plain version (P, and dS, as two bf16 terms; P against the
+    running max of 128-key tiles), which differs from the scalar form's by
+    no more than bf16 rounding."""
+    q, k, v, t = (torch.tensor(x[0]).to(torch.bfloat16) for x in _tc_inputs(3, TC_S))
+    bm = tflash.BlockMask.from_mask_fn(strided_fn, TC_S, TC_S, block_q=BLOCK, block_kv=BLOCK)
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert tflash.kernel_form(kernel, torch.bfloat16, 64, block_mask=True) == "tc"
+    o, l, m = tflash.flash_attention(q, k, v, block_mask=bm, save_residuals=True)
+    tc = tflash.flash_attention_plain(q, k, v, block_mask=bm, form="tc")
+    scalar = tflash.flash_attention_plain(q, k, v, block_mask=bm, form="scalar")
+    assert torch.equal(o, tc)
+    assert 0.0 < float((tc.float() - scalar.float()).abs().max()) < TC_TOL
+    lse = m + torch.log(l)
+    got = tbwd.flash_attention_bwd(q, k, v, o, lse, t, block_mask=bm)
+    want = tbwd.flash_attention_bwd_plain(q, k, v, o, lse, t, block_mask=bm, form="tc")
+    other = tbwd.flash_attention_bwd_plain(q, k, v, o, lse, t, block_mask=bm, form="scalar")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert max(float((a.float() - b.float()).abs().max()) for a, b in zip(want, other)) > 0.0
+
+
+@pytest.mark.parametrize("name, fn, s", TC_CASES, ids=[c[0] for c in TC_CASES])
+def test_bf16_tc_route_through_attention_matches_jax(name, fn, s):
+    """bf16 output and gradients through ``attention(block_mask=)`` under
+    autograd, in the tensor-core forms' rounding, against the JAX
+    ``attention()`` and ``jax.grad`` of it in bf16 (Pallas kernels in
+    interpret mode) within 2e-2."""
+    q, k, v, t = _tc_inputs(41, s)
+    jm, tm = _masks(fn, s=TC_S)
+
+    def j_loss(q, k, v):
+        o = fj.attention(q, k, v, block_mask=jm, interpret=True)
+        return jnp.sum(o.astype(jnp.float32) * t), o
+
+    jargs = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    jgrads, jo = jax.grad(j_loss, argnums=(0, 1, 2), has_aux=True)(*jargs)
+    targs = [torch.tensor(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v)]
+    to = ft.attention(*targs, block_mask=tm)
+    tgrads = torch.autograd.grad((to.float() * torch.tensor(t)).sum(), targs)
+    validate_result(to.detach(), np.asarray(jo, np.float32), TC_TOL, name=f"{name} o")
+    for gname, g_, w in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        assert g_.dtype == torch.bfloat16
+        validate_result(g_, np.asarray(w, np.float32), TC_TOL, name=f"{name} {gname}")

@@ -2,8 +2,9 @@
 
 ``ops.flash.kernel_form`` picks, for every call, the kernel form that runs
 on the card: the tensor-core kernels (``csrc/flash_fwd_tc.cu``,
-``csrc/flash_bwd_tc.cu``) for bf16 at their head_dims with 16-bit K/V and
-no block mask, the scalar kernels otherwise.  The plain versions mirror the
+``csrc/flash_bwd_tc.cu``) for bf16 at their head_dims with 16-bit K/V (the
+flash forward and the two-pass pair also with a block mask), the scalar
+kernels otherwise.  The plain versions mirror the
 chosen form's rounding (p, and in the backward Z and dS, fed to their
 products as two bf16 terms; the forward's p against the online softmax's
 running max over ``TC_KV_TILE`` columns).  The forward's tensor-core form
@@ -36,8 +37,9 @@ DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _expected(kernel, dtype, d, quantized, block_mask):
-    """bf16 q at the form's head_dims without a block mask (the fused
-    backward and both kernels of the two-pass pair at the forward's); 8-bit
+    """bf16 q at the form's head_dims (the fused backward and both kernels
+    of the two-pass pair at the forward's); a block mask only in the forward
+    and the pair (the fused backward refuses one), over 16-bit K/V; 8-bit
     K/V only in the forward (no backward takes them).  float32 q, k and v
     in the forward at d = 64 and 128 without 8-bit K/V or a block mask: the
     float32 form, in the default precision ("bf16_3x";
@@ -47,7 +49,8 @@ def _expected(kernel, dtype, d, quantized, block_mask):
         return "tc_f32"
     dims = (64, 128, 256) if kernel in ("flash_fwd", "flash_bwd", "flash_bwd_dq",
                                         "flash_bwd_dkv") else ()
-    ok = (dtype == torch.bfloat16 and d in dims and not block_mask
+    ok = (dtype == torch.bfloat16 and d in dims
+          and not (block_mask and (quantized or kernel == "flash_bwd"))
           and (not quantized or kernel == "flash_fwd"))
     return "tc" if ok else "scalar"
 
@@ -70,16 +73,18 @@ def test_scalar_forms_overrides_the_choice():
 
 
 def test_backward_form_follows_the_pass():
-    """The fused backward and the two-pass pair (segment ids) take the
-    selector's form; the pair with a block mask is scalar only."""
+    """The fused backward and the two-pass pair (segment ids, a block
+    mask) take the selector's form; float32 and d = 32 the scalar one."""
     q = torch.zeros(1, 8, 128, dtype=torch.bfloat16)
     assert tbwd.bwd_form(q, True) == "tc"
     assert tbwd.bwd_form(q, False) == "tc"
-    assert tbwd.bwd_form(q, False, block_mask=True) == "scalar"
+    assert tbwd.bwd_form(q, False, block_mask=True) == "tc"
+    assert tbwd.bwd_form(q.float(), False, block_mask=True) == "scalar"
     assert tbwd.bwd_form(q.float(), True) == "scalar"
     assert tbwd.bwd_form(q.float(), False) == "scalar"
     assert tbwd.bwd_form(torch.zeros(1, 8, 256, dtype=torch.bfloat16), True) == "tc"
     assert tbwd.bwd_form(torch.zeros(1, 8, 32, dtype=torch.bfloat16), True) == "scalar"
+    assert tbwd.bwd_form(torch.zeros(1, 8, 32, dtype=torch.bfloat16), False, True) == "scalar"
 
 
 # (name, BH, G, S per group, d, causal, window, softcap, q scale, kv_len);

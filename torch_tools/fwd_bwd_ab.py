@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Compare flash_fwd and the backward kernels without dropout or a block
-mask between checkouts of the port, on one card.
+"""Compare flash_fwd and the backward kernels between checkouts of the
+port, on one card.
 
     python3 torch_tools/fwd_bwd_ab.py ROOT [ROOT ...]
 
@@ -17,10 +17,15 @@ KV heads x G = 4, S = 2048, d = 128, causal), each in the form ROOT picks
 beside the pair, the counterpart of the JAX package's
 ``scripts/probe_fused_bwd.py``); and the pair at the packed layer (the same
 with segment ids from packed documents, ``chip_smoke._packed_ids``) in the
-form ROOT picks and in the scalar form (``ops.flash.scalar_forms``).  It
-reads each library's ptxas registers and spill bytes for the timed
-instantiations (the forms without dropout or block masks; the libraries
-ROOT has).  One JSON line per ROOT, and all of them in
+form ROOT picks and in the scalar form (``ops.flash.scalar_forms``); and
+flash_fwd, flash_bwd_dq and flash_bwd_dkv at ``chip_smoke.block_mask_checks``'
+shape (B = 4, 32 heads, S = 4096, d = 128, not causal) with no mask and under
+each of ``chip_smoke.BM_MASKS`` (prefix-LM, 512-token documents, strided),
+each in the form ROOT picks (``kernel_form``: before the tensor-core forms
+took block masks, the masked calls ran the scalar kernels).  It reads each
+library's ptxas registers and spill bytes for the timed instantiations
+without dropout or block masks (the libraries ROOT has, when this process
+built them).  One JSON line per ROOT, and all of them in
 ``chiprun_out/fwd_bwd_ab.json``.  Imports nothing of JAX.
 """
 
@@ -108,6 +113,24 @@ def one(root: str) -> dict:
     with flash.scalar_forms():
         out.update({f"{n}_scalar_ms": benchit.cuda_time_ms(fn, warmup=1, iters=5)
                     for n, fn in packed.items()})
+    # Block masks at S = 4096, and no mask on the same inputs.
+    del q, k, v, do, o, l, m, lse, di
+    bh, s, d = 4 * 32, 4096, 128
+    q, k, v, do = rand((bh, s, d)), rand((bh, s, d)), rand((bh, s, d)), rand((bh, s, d), 0.25)
+    base = dict(causal=False, scale=d**-0.5)
+    o, l, m = flash.flash_attention(q, k, v, save_residuals=True, **base)
+    lse = m + torch.log(l)
+    di = (o.float() * do.float()).sum(dim=-1)
+    out["block_mask_form"] = flash.kernel_form("flash_fwd", torch.bfloat16, d, block_mask=True)
+    masks = {"no_mask": None, **{n: flash.BlockMask.from_mask_fn(fn, s, s)
+                                 for n, fn in cs.BM_MASKS.items()}}
+    for name, bm in masks.items():
+        kw = dict(base, block_mask=bm)
+        calls = {"flash_fwd": lambda: flash.flash_attention(q, k, v, **kw),
+                 "flash_bwd_dq": lambda: backward.dq_kernel(q, k, v, do, lse, di, **kw),
+                 "flash_bwd_dkv": lambda: backward.dkv_kernel(q, k, v, do, lse, di, **kw)}
+        out[f"s4096_{name}_ms"] = {n: benchit.cuda_time_ms(fn, warmup=1, iters=5)
+                                   for n, fn in calls.items()}
     out["ptxas"] = ptxas
     return out
 

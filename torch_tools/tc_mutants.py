@@ -60,7 +60,11 @@ together) and runs chip_smoke's checks of the mutated kernel on the copy:
   ``v_rows_past_length_not_zeroed`` (a bf16 tile's V rows past the length
   kept as the stage holds them), ``v_scale_dropped`` (P's columns not
   multiplied by v_scale) and ``draft_row_limit_off_by_one`` (each row sees
-  the column past its causal limit).
+  the column past its causal limit);
+- the block-mask forms of the forward and the pair (their ``*_extra``
+  libraries): ``bm_bits_ignored/<kernel>`` (a partial tile's element bits
+  ignored, the tile taken as full) and ``bm_first_live_tile_skipped/<kernel>``
+  (each block's walk starts at its second live tile).
 
 Forward mutants run ``flash_checks`` and ``flash_window_checks``, paged
 mutants ``prefill_checks``, ``prefill_window_checks`` and
@@ -71,13 +75,15 @@ the same with ``bwd_window_checks``' Gemma-2 packed case too, and the 8-bit
 form's mutants the same forward and paged checks over int8 and fp8 K/V and
 ``prefill_poison_check``, paged decode's mutants ``paged_checks``,
 ``paged_window_checks`` and ``draft_checks`` in bf16, int8 and fp8,
-``decode_poison_check`` and ``split_edge_checks``.  The unmutated copy runs
+``decode_poison_check`` and ``split_edge_checks``, the block-mask mutants
+``block_mask_checks`` untimed.  The unmutated copy runs
 the checks of every kind (of the kinds ``--mutants`` names, with it) and
 must pass every check; a mutant is caught when a bf16 check of the kernel it
 changed (``flash_fwd_tc/...``, ``paged_prefill_tc/...`` or
 ``flash_bwd_tc/...``; the 8-bit form's: ``flash_fwd_tc/quant/...`` or
 ``paged_prefill_tc/quant/...``; the pair's: ``flash_bwd_dq_tc/...`` or
-``flash_bwd_dkv_tc/...``; paged decode's: ``paged_decode_tc/...``) fails.  ``--mutants``
+``flash_bwd_dkv_tc/...``; paged decode's: ``paged_decode_tc/...``; the
+block-mask forms': ``<kernel>/block_mask/...``) fails.  ``--mutants``
 runs some of them (and the unmutated copy).  Prints one JSON line per copy and writes them
 to ``chiprun_out/tc_mutants.json``; exits non-zero when a mutant goes
 uncaught or the unmutated copy fails a check.  Imports nothing of JAX.
@@ -98,6 +104,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FWD, BWD, PP, Q8 = "flash_fwd_tc", "flash_bwd_tc", "paged_prefill_tc", "tc_quant"
 PAIR, PAIR_ALL = "pair_tc", "pair_tc_common"  # the latter: an edit of bwd_common.cuh
 PD = "paged_decode_tc"
+# The block-mask forms of the forward and the pair (their *_extra libraries).
+BM_FWD, BM_DQ, BM_DKV = "bm_flash_fwd_tc", "bm_flash_bwd_dq_tc", "bm_flash_bwd_dkv_tc"
 # name -> (kernel, [(source, text, replacement)])
 MUTANTS = {
     "unmutated": (None, []),
@@ -119,9 +127,9 @@ MUTANTS = {
     "last_tma_stage_skipped/flash_fwd_tc": (FWD, [(
         "flash_fwd_tc.cuh", "(kv.end - kv.begin + kN - 1) / kN : 0;",
         "(kv.end - kv.begin + kN - 1) / kN - 1 : 0;")]),
-    "last_tma_stage_skipped/flash_bwd_tc": (BWD, [
-        ("flash_bwd_tc.cu", f"{n} = c0 < kv_len ? (rows + kBlockM - 1) / kBlockM : 0;",
-         f"{n} = c0 < kv_len ? (rows + kBlockM - 1) / kBlockM - 1 : 0;") for n in ("n_r", "n_q")]),
+    "last_tma_stage_skipped/flash_bwd_tc": (BWD, [(
+        "flash_bwd_tc.cu", "return make_int2(0, (rows + kBlockM - 1) / kBlockM);",
+        "return make_int2(0, (rows + kBlockM - 1) / kBlockM - 1);")]),
     "page_index_off_by_one": (PP, [(
         "flash_fwd_tc.cuh", "const int page = table[t / pg.page_size];",
         "const int page = table[t / pg.page_size] + 1;")]),
@@ -164,9 +172,9 @@ MUTANTS = {
     "softcap_derivative_dropped_from_dk/d256": (PAIR, [(
         "flash_bwd_tc.cu", "y[4 * j + e] = p * c_fac;", "y[4 * j + e] = p;")]),
     "dkv_first_gqa_group_only": (PAIR, [
-        ("flash_bwd_tc.cu", f"{n} = c0 < kv_len ? (rows + kBlockM - 1) / kBlockM : 0;",
-         f"{n} = c0 < kv_len ? (min(rows, q_seq_len) + kBlockM - 1) / kBlockM : 0;")
-        for n in ("n_r", "n_q")]),
+        ("flash_bwd_tc.cu", f"walk(ex, use_bm, kt, c0, rows, kv_len);  // the query tiles{end}",
+         f"walk(ex, use_bm, kt, c0, min(rows, q_seq_len), kv_len);  // the query tiles{end}")
+        for end in (" to walk\n", ", as above\n")]),
     "merge_empty_split_weight_one": (PD, [(
         "paged_decode_tc.cu", "const float w = m == -INFINITY ? 0.f : tc::ex2((m - mm) * tc::kLog2e);",
         "const float w = m <= fa::kMaskValue ? 1.f : tc::ex2((m - mm) * tc::kLog2e);")]),
@@ -178,6 +186,26 @@ MUTANTS = {
     "draft_row_limit_off_by_one": (PD, [(
         "paged_decode_tc.cu", "const int lim = length - draft_k + r % draft_k;",
         "const int lim = length - draft_k + r % draft_k + 1;")]),
+    "bm_bits_ignored/flash_fwd_tc": (BM_FWD, [(
+        "flash_fwd_tc.cuh", "bool keep = bit;", "bool keep = true;")]),
+    "bm_bits_ignored/flash_bwd_dq_tc": (BM_DQ, [(
+        "flash_bwd_dq_tc.cu",
+        "live = a ? fa::tile_bit(bits_a, jj, e & 1) : fa::tile_bit(bits_b, jj, e & 1);",
+        "live = true;")]),
+    "bm_bits_ignored/flash_bwd_dkv_tc": (BM_DKV, [
+        ("flash_bwd_tc.cu",
+         f"\n{pad}live = e < 2 ? fa::tile_bit(bits_a, j, e & 1) : fa::tile_bit(bits_b, j, e & 1);",
+         f"\n{pad}live = true;") for pad in (" " * 12, " " * 14)]),
+    "bm_first_live_tile_skipped/flash_fwd_tc": (BM_FWD, [(
+        "flash_fwd_tc.cuh", "bm = fa::bm_walk(ex, qt, kN, kv.end);\n    n_tiles = bm.y;",
+        "bm = fa::bm_walk(ex, qt, kN, kv.end);\n    n_tiles = bm.y - 1;\n    bm.x += 1;")]),
+    "bm_first_live_tile_skipped/flash_bwd_dq_tc": (BM_DQ, [(
+        "flash_bwd_dq_tc.cu", "bm = fa::bm_walk(ex, qt, kN, kv.end);\n    n_tiles = bm.y;",
+        "bm = fa::bm_walk(ex, qt, kN, kv.end);\n    n_tiles = bm.y - 1;\n    bm.x += 1;")]),
+    "bm_first_live_tile_skipped/flash_bwd_dkv_tc": (BM_DKV, [(
+        "flash_bwd_tc.cu", "if (use_bm) return fa::bm_walk(ex, kt, kBlockM, rows);",
+        "if (use_bm) {\n    const int2 w = fa::bm_walk(ex, kt, kBlockM, rows);\n"
+        "    return make_int2(w.x + 1, w.y - 1);\n  }")]),
 }
 MUTANT_SECONDS = 900  # one copy's checks; the unmutated copy's take about 4 minutes
 # The libraries an edit of each kernel's source changes, that its checks launch.
@@ -187,12 +215,16 @@ LIBS = {FWD: ["flash_fwd_tc", "flash_fwd_tc_extra"], BWD: ["flash_bwd_tc", "flas
         PP: ["paged_prefill_tc"], Q8: ["flash_fwd_tc_quant", "paged_prefill_tc_quant"],
         PAIR: _PAIR_LIBS, PD: ["paged_decode_tc", "paged_decode_tc_quant"],
         PAIR_ALL: [*_PAIR_LIBS, *(k + x for k in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
-                                   for x in ("", "_extra"))]}
+                                   for x in ("", "_extra"))],
+        BM_FWD: ["flash_fwd_tc_extra"], BM_DQ: ["flash_bwd_dq_tc_extra"],
+        BM_DKV: ["flash_bwd_dkv_tc_extra"]}
 # The check names that catch each kind's mutants (bf16 checks only).
 CATCH = {FWD: ("flash_fwd_tc/",), BWD: ("flash_bwd_tc/",), PP: ("paged_prefill_tc/",),
          Q8: ("flash_fwd_tc/quant/", "paged_prefill_tc/quant/"),
          PAIR: ("flash_bwd_dq_tc/", "flash_bwd_dkv_tc/"),
-         PAIR_ALL: ("flash_bwd_dq_tc/", "flash_bwd_dkv_tc/"), PD: ("paged_decode_tc/",)}
+         PAIR_ALL: ("flash_bwd_dq_tc/", "flash_bwd_dkv_tc/"), PD: ("paged_decode_tc/",),
+         BM_FWD: ("flash_fwd_tc/block_mask/",), BM_DQ: ("flash_bwd_dq_tc/block_mask/",),
+         BM_DKV: ("flash_bwd_dkv_tc/block_mask/",)}
 
 
 def make_copy(dest: str, edits) -> None:
@@ -229,7 +261,9 @@ def run_checks(root: str, kernel, kinds=None) -> dict:
     card = torch.cuda.get_device_name(0)
     args = argparse.Namespace(seed=0)
     if kernel is None and kinds:  # the unmutated copy beside some mutants: their kinds' checks
-        for kind in kinds:
+        # Each kind's checks draw their inputs from a generator of their own
+        # (seed 0); the three block-mask kinds run the same checks, once.
+        for kind in dict.fromkeys(BM_FWD if k in (BM_FWD, BM_DQ, BM_DKV) else k for k in kinds):
             run_checks(root, kind)
         return _checks_so_far
     if kernel in (None, FWD):
@@ -262,8 +296,11 @@ def run_checks(root: str, kernel, kinds=None) -> dict:
             cs.draft_checks(decode, benchit, gen, card, report, form)
         cs.decode_poison_check(decode, gen, report)
         cs.split_edge_checks(decode, gen, report)
-    _checks_so_far.update({c["check"]: {k: c.get(k) for k in ("ok", "max_abs_err", "elem_err")}
-                           for c in report["checks"]})
+    if kernel in (None, BM_FWD, BM_DQ, BM_DKV):
+        cs.block_mask_checks(backward, flash, benchit, gen, card, report, timed=False)
+    for c in report["checks"]:  # a check two kinds run fails if either run failed it
+        if _checks_so_far.get(c["check"], {}).get("ok", True):
+            _checks_so_far[c["check"]] = {k: c.get(k) for k in ("ok", "max_abs_err", "elem_err")}
     return _checks_so_far
 
 
