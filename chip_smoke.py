@@ -103,7 +103,10 @@ Phases, each of which must pass (any failure exits non-zero):
                and ``paged_prefill_tc/quant/...``) at every 8-bit shape
                above, int8 and fp8, against the plain versions with their
                rounding, the timed ones beside the scalar 8-bit form, SDPA
-               over the dequantized K/V and the bound;
+               over the dequantized K/V and the bound; in float32 the
+               8-bit checks take q in bf16, as the JAX kernels do, through
+               the same tensor-core 8-bit forms where they take the call
+               (O float32), elsewhere the exact scalar 8-bit forms;
                in bf16 the two-pass pair (d = 64, 128, 256) runs its
                tensor-core forms (``flash_bwd_dq_tc``,
                ``flash_bwd_dkv_tc``: checks ``flash_bwd_dq_tc/...``,
@@ -214,7 +217,8 @@ Phases, each of which must pass (any failure exits non-zero):
                flash kernel through the public entry points on the same
                inputs, each launched once, agreeing; quant_ops - the same
                for ``attention_quantized`` and ``attention(k_scales=,
-               v_scales=)``, the path of flash_fwd's 8-bit form;
+               v_scales=)``, the path of flash_fwd's 8-bit form, in bf16
+               and in float32 q (taken in bf16, O float32);
 7. parity    - one 64-token request through prefill and 4 decode steps on a
                2-layer float32 cut at the same width, on the card (kernels)
                and on the CPU (plain versions); and the same cut through the
@@ -314,8 +318,10 @@ Phases, each of which must pass (any failure exits non-zero):
                terms) at a small shape against its plain version (PROBE_TOL
                of the output's magnitude in bf16, PROBE_FP32_TOL for the
                packed float32 modes, STREAM_RTOL for the float32 stream, the
-               page walk's words equal), float32 q over bf16 pages through
-               the three paged entry points (``c4_checks``), then each timed
+               page walk's words equal), float32 q over bf16 and 8-bit
+               pages through the three paged entry points (the draft form
+               too) and over 8-bit K/V through the flash forward
+               (``c4_checks``), then each timed
                at its TPU probe's own shape beside its plain version and,
                where one exists, SDPA (the thin-shape group also four
                cuBLAS products; float32 as two terms also SDPA float32 and
@@ -334,8 +340,12 @@ goes through them (``launches_tc``; the pair's with dropout also
 ``launches_tc_block_mask``); the 8-bit caches' paged
 prefill and paged decode (serve_int8, serve_gemma2_fp8) and quant_ops'
 8-bit flash forward through their 8-bit forms (``launches_tc_quantized``);
-the float32 speculative phases keep the scalar paged decode, its draft and
-its 8-bit forms.  The float32 train_parity phases' card launches are
+the float32 speculative phases keep the scalar paged decode and its draft
+over float32 pages, and their int8 cache runs the tensor-core 8-bit form
+(q taken in bf16), k = 1 and draft, with no scalar 8-bit launch; each
+scalar 8-bit form must launch in the kernel checks (its ``quantized``
+entry's ``check_launches``).  Float32 q over 8-bit K/V and pages is timed
+at rows 1, 2 and 4 (``f32q_timings``, its own lap).  The float32 train_parity phases' card launches are
 counted as paths too (float32 training runs the scalar kernels).  It prints one JSON line per check, the
 total seconds, a ``{"kernels": [...]}`` summary (with a ``quantized`` entry
 for each serving kernel's 8-bit form, ``dropout`` entries for flash_fwd and
@@ -587,7 +597,8 @@ def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dr
     a page size they take; paged decode: at most 32 q rows per KV head,
     q's second-to-last dimension), the forward's
     float32 form's (``flash_fwd_tc_f32``) for float32 q at its head_dims,
-    else ``kernel``.
+    else ``kernel``.  Float32 q over 8-bit K/V is taken in bf16 (the JAX
+    kernels' default), so its form is the bf16 call's.
     A check of an 8-bit form is named ``<kernel>/quant/...``
     (``_check_name``), so the tensor-core 8-bit forms' checks read
     ``flash_fwd_tc/quant/...``, ``paged_prefill_tc/quant/...``,
@@ -596,7 +607,8 @@ def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dr
 
     tc = TC_KERNELS.get(kernel)
     rows = q.shape[-2] if kernel == "paged_decode" else 1
-    form = tc and flash.kernel_form(kernel, q.dtype, q.shape[-1], quantized=quantized,
+    dt = torch.bfloat16 if quantized else q.dtype
+    form = tc and flash.kernel_form(kernel, dt, q.shape[-1], quantized=quantized,
                                     block_mask=block_mask, page_size=page_size, rows=rows,
                                     dropout=dropout)
     if form == "tc_f32":  # float32 in the default "bf16_3x"
@@ -1620,9 +1632,9 @@ def serving_checks(fa, flash, decode, benchit, gen, card, report, form=None):
 # rows per head), Mistral-7B's (G = 4, R = 16, window 4096), Gemma-2-9B's
 # (G = 2, R = 8, d = 256, window 4096, softcap 50; again with q x 8 so that
 # scores reach the cap), G = 8 (R = 32) and a window of 2 < k.  Lengths
-# cross a page and the window; the scalar 8-bit forms (float32 q) run at
-# the Llama and Gemma-2 shapes, the tensor-core form's (bf16 q) at every
-# shape.  Timed in bfloat16 at those two: kernel, plain version, SDPA over
+# cross a page and the window; the 8-bit forms run at every shape in bf16
+# and at the Llama and Gemma-2 shapes in float32 q (taken in bf16: the
+# tensor-core form's there too).  Timed in bfloat16 at those two: kernel, plain version, SDPA over
 # the gathered context with an (R x S) mask, and k launches of the k = 1
 # kernel on the same rows; the tensor-core form beside the scalar one.
 DRAFT_K = 4
@@ -1824,8 +1836,10 @@ def _counters(flash, decode, backward):
     draft launches (``paged_decode_draft`` counts them too), and
     ``flash_fwd_tc_quant``, ``paged_prefill_tc_quant`` and
     ``paged_decode_tc_quant`` their 8-bit forms', which ``<kernel>_quant``
-    and the tensor-core counter count too; ``flash_fwd_tc_f32`` the
-    forward's float32 form's (``flash_fwd`` counts them too) and
+    and the tensor-core counter count too (``flash_fwd_tc_quant_f32q``
+    those of its launches over float32 q, taken in bf16);
+    ``flash_fwd_tc_f32`` the forward's float32 form's (``flash_fwd`` counts
+    them too) and
     ``flash_fwd_tc_f32_bf16`` its one-pass "bf16" mode's among them."""
     fns = {
         "flash_fwd": flash.flash_attention,
@@ -1848,12 +1862,13 @@ def _counters(flash, decode, backward):
     out.update({f"{TC_KERNELS[k]}_block_mask": (fns[k], "launches_tc_block_mask")
                 for k in ("flash_fwd", *PAIR)})
     out.update({tc: (fns[k], "launches_tc_quantized") for k, tc in TC_QUANT_KERNELS.items()})
+    out["flash_fwd_tc_quant_f32q"] = (flash.flash_attention, "launches_tc_quantized_f32q")
     out["flash_fwd_tc_f32"] = (flash.flash_attention, "launches_tc_f32")
     out["flash_fwd_tc_f32_bf16"] = (flash.flash_attention, "launches_tc_f32_bf16")
     return out
 
 
-def _tc_expect(want, cfg, page_size=PAGE_SIZE):
+def _tc_expect(want, cfg, page_size=PAGE_SIZE, cache_dtype=None):
     """``want`` with the tensor-core forms' expected launches: every
     flash_fwd launch of a bf16 model at their head_dims (the 8-bit ones,
     none with dropout or a block mask on these paths, in its 8-bit form
@@ -1865,10 +1880,12 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE):
     decode's draft launches at k = SPEC_K in the draft form's count too);
     every flash_fwd launch of a float32 model at the float32 form's
     head_dims but the block-mask, dropout and 8-bit ones, in the default
-    "bf16_3x" mode."""
+    "bf16_3x" mode.  A float32 model's paged launches over a ``cache_dtype``
+    that is not float32 take q in bf16, so their forms are the bf16 calls'."""
     from flashattention_tpu_torch.ops import flash
 
     dt = DTYPES[cfg.dtype]
+    pdt = torch.bfloat16 if cache_dtype not in (None, "float32") else dt  # the paged kernels' q
     if flash.kernel_form("flash_fwd", dt, cfg.head_dim) == "tc":
         want["flash_fwd_tc"] = want["flash_fwd"]
         want["flash_fwd_tc_quant"] = want.get("flash_fwd_quant", 0)
@@ -1883,14 +1900,14 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE):
             want[f"{k}_tc"] = want.get(k, 0)
             want[f"{k}_tc_dropout"] = want.get(f"{k}_dropout", 0)
             want[f"{k}_tc_block_mask"] = want.get(f"{k}_block_mask", 0)
-    if flash.kernel_form("paged_prefill", dt, cfg.head_dim, page_size=page_size) == "tc":
+    if flash.kernel_form("paged_prefill", pdt, cfg.head_dim, page_size=page_size) == "tc":
         want["paged_prefill_tc"] = want.get("paged_prefill", 0)
         want["paged_prefill_tc_quant"] = want.get("paged_prefill_quant", 0)
-    if flash.kernel_form("paged_decode", dt, cfg.head_dim, page_size=page_size,
+    if flash.kernel_form("paged_decode", pdt, cfg.head_dim, page_size=page_size,
                          rows=cfg.group_size) == "tc":
         want["paged_decode_tc"] = want.get("paged_decode", 0)
         want["paged_decode_tc_quant"] = want.get("paged_decode_quant", 0)
-        if flash.kernel_form("paged_decode", dt, cfg.head_dim, page_size=page_size,
+        if flash.kernel_form("paged_decode", pdt, cfg.head_dim, page_size=page_size,
                              rows=cfg.group_size * SPEC_K) == "tc":
             want["paged_decode_tc_draft"] = want.get("paged_decode_draft", 0)
     return want
@@ -2180,7 +2197,7 @@ def _spec_run(counters, cfg, eng, prompts, budget, drafts=None, k=SPEC_K):
     quantized = eng.cache.config.quantized
     for kname in ("paged_decode", "paged_prefill"):
         want[f"{kname}_quant"] = want[kname] if quantized else 0
-    _tc_expect(want, cfg)
+    _tc_expect(want, cfg, cache_dtype=eng.cache.config.dtype)
     rec = {"wall_s": wall, "stats": st, "launches": launches, "launches_expected": want,
            "tokens": {i: eng.requests[i].output for i in ids}}
     if drafts is not None:
@@ -2640,28 +2657,43 @@ def phase_quant_ops(fa, flash, quant, gen, report):
     """The public 8-bit attention entry points: ``attention_quantized`` on
     folded (B*H, S, d) tensors and ``attention(k_scales=, v_scales=)`` on
     (B, H, S, d) ones with (B, H_kv, S) scales, B = 4, H = 32, S = 1024,
-    d = 128, causal, bfloat16 q, int8 K/V; each launches the flash
-    kernel's tensor-core 8-bit form once and the two agree."""
+    d = 128, causal, int8 K/V, in bfloat16 q and in float32 q (of the same
+    values, taken in bf16 at the default precision, O float32 from the
+    float32 sums, so that its bf16 rounding is the bf16 call's O); each
+    launches the flash kernel's tensor-core 8-bit form once and the calls
+    agree."""
     b, h, s, d = 4, 32, 1024, 128
     kq, vq = (_kv(gen, (b * h, s, d), None, "int8") for _ in range(2))
     q = torch.randn((b * h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
-    flash.flash_attention.launches = flash.flash_attention.launches_quantized = 0
-    flash.flash_attention.launches_tc = flash.flash_attention.launches_tc_quantized = 0
-    o1 = fa.attention_quantized(q, quant.QuantizedTensor(*kq), quant.QuantizedTensor(*vq),
-                                causal=True, scale=d**-0.5)
-    o2 = fa.attention(q.reshape(b, h, s, d), kq[0].reshape(b, h, s, d), vq[0].reshape(b, h, s, d),
-                      causal=True, scale=d**-0.5, k_scales=kq[1].reshape(b, h, s),
-                      v_scales=vq[1].reshape(b, h, s))
+    fn = flash.flash_attention
+    attrs = {"flash_fwd": "launches", "flash_fwd_quant": "launches_quantized",
+             "flash_fwd_tc": "launches_tc", "flash_fwd_tc_quant": "launches_tc_quantized",
+             "flash_fwd_tc_quant_f32q": "launches_tc_quantized_f32q"}
+    for attr in attrs.values():
+        setattr(fn, attr, 0)
+    outs = {}
+    for dt in ("bfloat16", "float32"):
+        x = q.to(DTYPES[dt])
+        outs[dt] = (
+            fa.attention_quantized(x, quant.QuantizedTensor(*kq), quant.QuantizedTensor(*vq),
+                                   causal=True, scale=d**-0.5),
+            fa.attention(x.reshape(b, h, s, d), kq[0].reshape(b, h, s, d),
+                         vq[0].reshape(b, h, s, d), causal=True, scale=d**-0.5,
+                         k_scales=kq[1].reshape(b, h, s), v_scales=vq[1].reshape(b, h, s)))
     torch.cuda.synchronize()
-    launches = {"flash_fwd": flash.flash_attention.launches,
-                "flash_fwd_quant": flash.flash_attention.launches_quantized,
-                "flash_fwd_tc": flash.flash_attention.launches_tc,
-                "flash_fwd_tc_quant": flash.flash_attention.launches_tc_quantized}
+    launches = {k: getattr(fn, attr) for k, attr in attrs.items()}
+    (o1, o2), (o3, o4) = outs["bfloat16"], outs["float32"]
     e = err(o1.reshape(o2.shape), o2)
-    rec = {"phase": "quant_ops", "shape": f"B={b} H={h} S={s} d={d} causal, bf16 q, int8 K/V",
-           "max_abs_err": e, "tol": 0.0, "launches": launches,
-           "ok": e == 0.0 and launches == {"flash_fwd": 2, "flash_fwd_quant": 2, "flash_fwd_tc": 2,
-                                           "flash_fwd_tc_quant": 2}}
+    e32 = err(o3.reshape(o4.shape), o4)
+    e_rounded = err(o3.to(torch.bfloat16), o1)
+    rec = {"phase": "quant_ops", "shape": f"B={b} H={h} S={s} d={d} causal, bf16 and float32 q, "
+                                          "int8 K/V",
+           "max_abs_err": e, "float32_q_max_abs_err": e32, "float32_q_rounded_vs_bf16": e_rounded,
+           "float32_q_dtypes": [str(o3.dtype), str(o4.dtype)], "tol": 0.0, "launches": launches,
+           "ok": e == 0.0 and e32 == 0.0 and e_rounded == 0.0
+           and o3.dtype == o4.dtype == torch.float32
+           and launches == {"flash_fwd": 4, "flash_fwd_quant": 4, "flash_fwd_tc": 4,
+                            "flash_fwd_tc_quant": 4, "flash_fwd_tc_quant_f32q": 2}}
     emit(rec)
     report["quant_ops"] = rec
     return rec
@@ -4934,62 +4966,260 @@ def probe_checks(probes, decode, quant, gen, report):
     return recs
 
 
-# Float32 q over bf16 pages (C4): (entry point, head_dim, G or GQA rows, page
-# size, lengths or ctx lens): the tensor-core forms at the serving shapes'
-# d = 128 and page 256, the scalar form at d = 32.
-C4_CASES = (("decode", 128, 4, 256, [1, 300, 1100]), ("decode", 32, 2, 16, [5, 60, 200]),
-            ("prefill_batched", 128, 2, 256, [64, 700]), ("prefill", 128, 1, 256, [300]),
-            ("prefill_batched", 32, 2, 16, [16, 90]))
+# Float32 q over bf16 pages (C4) and over 8-bit K/V and pages: (entry point,
+# head_dim, G or GQA rows, page size, lengths or ctx lens (the flash
+# forward's: its S), the payload (None: bf16 pages)): the tensor-core forms
+# at the serving shapes' d = 128 and page 256, the scalar form at d = 32.
+C4_CASES = tuple(
+    case for payload in (None, *QUANT_FORMS) for case in (
+        ("decode", 128, 4, 256, [1, 300, 1100], payload),
+        ("decode", 32, 2, 16, [5, 60, 200], payload),
+        ("prefill_batched", 128, 2, 256, [64, 700], payload),
+        ("prefill", 128, 1, 256, [300], payload),
+        ("prefill_batched", 32, 2, 16, [16, 90], payload),
+    )) + tuple(
+    case for payload in QUANT_FORMS for case in (
+        ("draft", 128, 1, 256, [4, 300, 1100], payload),
+        ("flash", 128, 2, 0, [1000], payload),
+        ("flash", 32, 2, 0, [300], payload),
+    ))
 
 
 def c4_checks(decode, gen, report):
-    """Float32 q over bf16 pages through ``paged_attention``,
-    ``paged_prefill_attention_batched`` and ``paged_prefill_attention``:
-    the kernel takes q in bf16, as the JAX kernels do, and returns float32
-    (the tensor-core forms from their float32 sums: not every element a
-    bf16 value; the scalar form through a bf16 store), held against the
-    plain version on the card within PROBE_TOL of the output's magnitude
-    (q is taken in bf16); each call's launch counted.  Returns the records."""
-    from flashattention_tpu_torch.ops.flash import kernel_form
+    """Float32 q over bf16 (C4) and 8-bit pages through ``paged_attention``
+    (k = 1 and the draft form, k = DRAFT_K), ``paged_prefill_attention_batched``
+    and ``paged_prefill_attention``, and over 8-bit K/V through
+    ``flash_attention``: the kernel takes q in bf16, as the JAX kernels do
+    (the flash forward in its quantized default mode, "bf16"), and returns
+    float32 (the tensor-core forms from their float32 sums: not every element
+    a bf16 value; over bf16 pages the scalar form through a bf16 store; over
+    8-bit K/V the scalar form keeps q float32, exact), held against the
+    plain version on the card within PROBE_TOL of the output's magnitude (q
+    is taken in bf16); each call's launch counted, an 8-bit one in its
+    form's 8-bit count.  Returns the records."""
+    from flashattention_tpu_torch.ops import flash
 
+    fwd = flash.flash_attention
     recs = []
     kvh, chunk = 2, 64
-    for entry, d, g, ps, lens in C4_CASES:
+    for entry, d, g, ps, lens, payload in C4_CASES:
         b = len(lens)
-        pps = -(-max(lens) // ps)
-        pool = b * pps + 2
-        kp, vp = (torch.randn((pool, kvh, ps, d), generator=gen, device="cuda").to(torch.bfloat16)
-                  for _ in range(2))
-        table = torch.randperm(pool, generator=gen, device="cuda")[: b * pps].reshape(b, pps).to(
-            torch.int32)
-        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        tc = (kernel_form("paged_decode", torch.bfloat16, d, page_size=ps, rows=g)
-              if entry == "decode" else kernel_form("paged_prefill", torch.bfloat16, d, page_size=ps))
-        if entry == "decode":
-            q = torch.randn((b, kvh, g, d), generator=gen, device="cuda")
-            counter, before = decode.paged_attention, decode.paged_attention.launches
-            got = decode.paged_attention(q, kp, vp, lengths, table, scale=d**-0.5)
-            want = decode.paged_attention_plain(q, kp, vp, lengths, table, scale=d**-0.5)
+        k_draft = DRAFT_K if entry == "draft" else 1
+        if entry == "flash":  # (BH, S, d) K/V, q GQA-folded: g segments of S rows
+            s = lens[0]
+            (k, ks), (v, vs) = (_kv(gen, (b * kvh, s, d), torch.bfloat16, payload)
+                                for _ in range(2))
+            q = torch.randn((b * kvh, g * s, d), generator=gen, device="cuda")
+            kw = dict(causal=True, scale=d**-0.5, q_seq_len=s)
+            tc = flash.kernel_form("flash_fwd", torch.bfloat16, d, quantized=True)
+            counter, attr = fwd, "launches_tc_quantized_f32q"
+            before = (fwd.launches, getattr(fwd, attr))
+            got = fwd(q, k, v, ks, vs, **kw)
+            want = flash.flash_attention_plain(q, k, v, k_scales=ks, v_scales=vs, **kw)
         else:
-            seg = chunk if entry == "prefill_batched" else 128
-            q = torch.randn((b, kvh, g * seg, d), generator=gen, device="cuda")
-            kw = dict(chunk=chunk, seg=seg, scale=d**-0.5)
-            counter = decode.paged_prefill_attention_batched
-            before = counter.launches
-            if entry == "prefill":
-                got = decode.paged_prefill_attention(q[0], kp, vp, table[0], lengths[0], **kw)[None]
+            pps = -(-max(lens) // ps)
+            pool = b * pps + 2
+            (kp, ks), (vp, vs) = (_kv(gen, (pool, kvh, ps, d), torch.bfloat16, payload)
+                                  for _ in range(2))
+            sc = _page_scales(ks, vs)
+            table = torch.randperm(pool, generator=gen, device="cuda")[: b * pps].reshape(
+                b, pps).to(torch.int32)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            if entry in ("decode", "draft"):
+                tc = flash.kernel_form("paged_decode", torch.bfloat16, d, page_size=ps,
+                                       rows=g * k_draft)
+                q = torch.randn((b, kvh, g * k_draft, d), generator=gen, device="cuda")
+                kw = dict(scale=d**-0.5, draft_k=k_draft, **sc)
+                counter = decode.paged_attention
+                attr = "launches_tc_draft" if entry == "draft" else "launches_tc_quantized"
+                before = (counter.launches, getattr(counter, attr))
+                got = decode.paged_attention(q, kp, vp, lengths, table, **kw)
+                want = decode.paged_attention_plain(q, kp, vp, lengths, table, **kw)
             else:
-                got = decode.paged_prefill_attention_batched(q, kp, vp, table, lengths, **kw)
-            want = decode.paged_prefill_attention_plain(q, kp, vp, table, lengths, **kw)
+                tc = flash.kernel_form("paged_prefill", torch.bfloat16, d, page_size=ps)
+                seg = chunk if entry == "prefill_batched" else 128
+                q = torch.randn((b, kvh, g * seg, d), generator=gen, device="cuda")
+                kw = dict(chunk=chunk, seg=seg, scale=d**-0.5, **sc)
+                counter = decode.paged_prefill_attention_batched
+                attr = "launches_tc_quantized"
+                before = (counter.launches, getattr(counter, attr))
+                if entry == "prefill":
+                    got = decode.paged_prefill_attention(q[0], kp, vp, table[0], lengths[0],
+                                                         **kw)[None]
+                else:
+                    got = decode.paged_prefill_attention_batched(q, kp, vp, table, lengths, **kw)
+                want = decode.paged_prefill_attention_plain(q, kp, vp, table, lengths, **kw)
         torch.cuda.synchronize()
         rounded = bool(torch.equal(got.to(torch.bfloat16).float(), got))
-        ok = (got.dtype == torch.float32 and counter.launches == before + 1
-              and rounded == (tc == "scalar"))
-        recs.append(_probe_rec(report, f"c4/{entry}/d{d}_ps{ps}_{tc}", got, want, PROBE_TOL, ok=ok,
-                               form=tc, out_dtype=str(got.dtype), bf16_valued=rounded))
+        # The scalar form stores bf16 over bf16 pages; over 8-bit K/V it keeps q float32.
+        bf16_store = tc == "scalar" and payload is None
+        # A tensor-core launch over 8-bit K/V (or a draft one) counts in its form's count too.
+        counted = tc != "tc" or (payload is None and entry != "draft") or (
+            getattr(counter, attr) == before[1] + 1)
+        ok = (got.dtype == torch.float32 and counter.launches == before[0] + 1 and counted
+              and rounded == bf16_store)
+        name = f"c4/{entry}/d{d}_ps{ps}_{tc}" + (f"/{payload}" if payload else "")
+        recs.append(_probe_rec(report, name, got, want, PROBE_TOL, ok=ok, form=tc,
+                               payload=payload or "bfloat16", out_dtype=str(got.dtype),
+                               bf16_valued=rounded))
     emit({"phase": "c4_checks", "checks": len(recs), "ok": all(r["ok"] for r in recs),
           "failed": [r["check"] for r in recs if not r["ok"]]})
     return recs
+
+
+def _f32q_rec(flash, benchit, card, report, key, run, plain, *, lib, lib32, nbytes, flops,
+              flush=0, exact=None, **extra):
+    """One timed route of float32 q over 8-bit K/V or pages (``run``),
+    held against its plain version within FLASH_TOL["float32"] and timed
+    beside it, beside the scalar form of the same call
+    (``ops.flash.scalar_forms``: the scalar 8-bit kernel over the same bf16
+    q), beside ``exact`` where given (the exact float32 route the call took
+    before), and beside ``lib`` (one SDPA call over q in bf16 and K/V
+    dequantized to bf16: the same function) and ``lib32`` (SDPA in float32
+    over float32 dequantized K/V); its bound at the bf16 rate (q is taken in
+    bf16).  Recorded in ``report["f32q_timed"][key]``."""
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    rec = _rec(key.replace("/", "/f32q/", 1) + "/float32", got, want, "float32",
+               FLASH_TOL["float32"], out_dtype=str(got.dtype), **extra)
+    rec["ok"] = rec["ok"] and got.dtype == torch.float32
+    rec["kernel_ms"] = benchit.cuda_time_ms(run, flush_bytes=flush)
+    rec["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=3, flush_bytes=flush)
+    with flash.scalar_forms():
+        rec["scalar_ms"] = benchit.cuda_time_ms(run, warmup=1, iters=5, flush_bytes=flush)
+    if exact is not None:
+        rec["exact_ms"] = benchit.cuda_time_ms(exact, warmup=1, iters=5, flush_bytes=flush)
+    rec["library_ms"] = lib()
+    rec["library_f32_ms"] = lib32()
+    rec["library"] = ("scaled_dot_product_attention over q in bf16 and K/V dequantized to bf16 "
+                      "(library_f32_ms: float32, K/V dequantized to float32), q's cast and the "
+                      "dequantization not timed")
+    rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype="bfloat16"))
+    report.setdefault("f32q_timed", {})[key] = rec
+    emit(rec)
+    report["checks"].append(rec)
+    return rec
+
+
+def f32q_timings(fa, flash, decode, benchit, gen, card, report):
+    """Float32 q over 8-bit K/V and pages, as the JAX kernels take it (q in
+    bf16, O in float32 from the tensor-core 8-bit forms' float32 sums), at
+    the rows' timed shapes: the flash forward at row 1's (B=4, H=32,
+    S=1024, d=128, causal; int8 and fp8), chunked prefill at the MHA shape
+    (int8 pages), paged decode at the MHA shape and its draft form (k = 4)
+    at Llama's (int8 pages); each through ``_f32q_rec``.  Then float32
+    under a block mask (the documents mask at the block-mask checks' shape,
+    the scalar kernel: the tensor-core forms take no float32 mask) beside
+    SDPA float32 with the boolean mask (``report["float32_block_mask"]``)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf = torch.bfloat16
+    b, h, s, d = 4, 32, 1024, 128
+    scale = d**-0.5
+    for form in QUANT_FORMS:
+        q = torch.randn((b, h, s, d), generator=gen, device="cuda")
+        (k, ks), (v, vs) = (_kv(gen, (b, h, s, d), None, form) for _ in range(2))
+        sk = dict(k_scales=ks, v_scales=vs)
+        q3, k3, v3 = (x.reshape(b * h, s, d) for x in (q, k, v))
+        sk3 = {n: x.reshape(b * h, s) for n, x in sk.items()}
+        kd, vd = _plain_kv(k, ks), _plain_kv(v, vs)
+        q16, kd16, vd16 = q.to(bf), kd.to(bf), vd.to(bf)
+        _f32q_rec(
+            flash, benchit, card, report, f"flash_fwd_tc_quant/prefill/{form}",
+            lambda: fa.attention(q, k, v, causal=True, scale=scale, **sk),
+            lambda: flash.flash_attention_plain(q3, k3, v3, causal=True, scale=scale,
+                                                **sk3).reshape(q.shape),
+            exact=lambda: fa.attention(q, k, v, causal=True, scale=scale, precision="float32",
+                                       **sk),
+            lib=lambda: benchit.cuda_time_ms(lambda: sdpa(q16, kd16, vd16, is_causal=True,
+                                                          scale=scale)),
+            lib32=lambda: benchit.cuda_time_ms(lambda: sdpa(q, kd, vd, is_causal=True,
+                                                            scale=scale)),
+            nbytes=2 * q.numel() * 4 + 2 * b * h * s * _row_bytes(k, d, form),
+            flops=4 * b * h * (s * (s + 1) // 2) * d,
+            shape=f"B={b} H={h} S={s} d={d} causal, float32 q, {form} K/V")
+        del q, k, v, kd, vd, q16, kd16, vd16
+    ps, d = PAGE_SIZE, 128
+    # Chunked prefill at prefill_checks' MHA shape.
+    kvh, chunk, ctx = 32, 512, [512, 1024, 1536, 2048]
+    b, pps = len(ctx), 8
+    (kp, ks), (vp, vs), table = _paged_pool(gen, ctx, pps, 64, (kvh, ps, d), None, "int8")
+    q = torch.randn((b, kvh, chunk, d), generator=gen, device="cuda")
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    kw = dict(chunk=chunk, seg=chunk, scale=scale, **_page_scales(ks, vs))
+    cols = torch.arange(pps * ps, device="cuda")
+    pos = ctx_t[:, None] - chunk + torch.arange(chunk, device="cuda")[None]
+    mask = (cols[None, None] <= pos[:, :, None]) & (cols[None, None] < ctx_t[:, None, None])
+    kd, vd = _plain_kv(kp, ks), _plain_kv(vp, vs)
+    _, flops = _prefill_work(ctx, chunk, chunk, 1, kvh, d)
+    _f32q_rec(
+        flash, benchit, card, report, "paged_prefill_tc_quant/prefill_mha/int8",
+        lambda: decode.paged_prefill_attention_batched(q, kp, vp, table, ctx_t, **kw),
+        lambda: decode.paged_prefill_attention_plain(q, kp, vp, table, ctx_t, **kw),
+        lib=lambda: _gathered_sdpa_ms(benchit, q.to(bf), kd.to(bf), vd.to(bf), table, mask, scale),
+        lib32=lambda: _gathered_sdpa_ms(benchit, q, kd, vd, table, mask, scale),
+        nbytes=(2 * q.numel() * 4 + 2 * sum(ctx) * kvh * _row_bytes(kp, d, "int8")
+                + 4 * (b + sum(-(-n // ps) for n in ctx))),
+        flops=flops, flush=256 << 20, ctx_lens=ctx,
+        shape=f"B={b} KVH={kvh} G=1 d={d} ps={ps}, chunk {chunk}, float32 q, int8 pages")
+    del kp, vp, ks, vs, kd, vd, q, mask
+    # Paged decode at paged_checks' MHA shape, and its draft form at Llama's.
+    for key, kvh, lens, k_draft, pps, pages in (
+            ("decode_mha", 32, [1, 256, 257, 1088], 1, 8, 64),
+            ("draft_llama", 32, DRAFT_LENGTHS, DRAFT_K, 24, 128)):
+        b = len(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        (kp, ks), (vp, vs), table = _paged_pool(gen, lens, pps, pages, (kvh, ps, d), None, "int8")
+        q = torch.randn((b, kvh, k_draft, d), generator=gen, device="cuda")
+        kw = dict(scale=scale, draft_k=k_draft, **_page_scales(ks, vs))
+        cols = torch.arange(pps * ps, device="cuda")[None, None]
+        lim = (lengths.long()[:, None] - k_draft + torch.arange(k_draft, device="cuda")[None])
+        mask = cols <= lim[:, :, None]
+        kd, vd = _plain_kv(kp, ks), _plain_kv(vp, vs)
+        live, seen = _draft_limits(lens, k_draft, None)
+        _f32q_rec(
+            flash, benchit, card, report, f"paged_decode_tc_quant/{key}/int8",
+            lambda: decode.paged_attention(q, kp, vp, lengths, table, **kw),
+            lambda: decode.paged_attention_plain(q, kp, vp, lengths, table, **kw),
+            lib=lambda: _gathered_sdpa_ms(benchit, q.to(bf), kd.to(bf), vd.to(bf), table, mask,
+                                          scale),
+            lib32=lambda: _gathered_sdpa_ms(benchit, q, kd, vd, table, mask, scale),
+            nbytes=(2 * q.numel() * 4 + 2 * sum(live) * kvh * _row_bytes(kp, d, "int8")
+                    + 4 * (b + sum(-(-n // ps) for n in lens))),
+            flops=4 * d * kvh * sum(map(sum, seen)), flush=256 << 20, lengths=lens,
+            draft_k=k_draft, shape=f"B={b} KVH={kvh} G=1 R={k_draft} d={d} ps={ps}, float32 q, "
+                                   "int8 pages")
+        del kp, vp, ks, vs, kd, vd, q, mask
+        torch.cuda.empty_cache()
+    # Float32 under the documents mask, beside SDPA float32.
+    bm = flash.BlockMask.from_mask_fn(bm_documents, BM_S, BM_S)
+    q, k, v = (torch.randn((BM_B * BM_H, BM_S, BM_D), generator=gen, device="cuda")
+               for _ in range(3))
+    kw = dict(scale=BM_D**-0.5, block_mask=bm)
+    got = flash.flash_attention(q, k, v, **kw)
+    plain = lambda: flash.flash_attention_plain(q, k, v, **kw)  # noqa: E731
+    want = plain()
+    torch.cuda.synchronize()
+    dense = bm.element_mask(BM_S, BM_S, "cuda")
+    pairs = int(dense.sum()) * q.shape[0]
+    q4, k4, v4 = (x.reshape(BM_B, BM_H, BM_S, BM_D) for x in (q, k, v))
+    rec = _rec("flash_fwd/block_mask/documents/float32_timed", got, want, "float32",
+               FLASH_TOL["float32"], shape=f"B={BM_B} H={BM_H} S={BM_S} d={BM_D}, documents mask",
+               form=_kname("flash_fwd", q, block_mask=True), live_pairs=pairs)
+    rec["kernel_ms"] = benchit.cuda_time_ms(lambda: flash.flash_attention(q, k, v, **kw),
+                                            warmup=1, iters=5)
+    rec["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=2)
+    rec["library_ms"] = benchit.cuda_time_ms(
+        lambda: sdpa(q4, k4, v4, attn_mask=dense, scale=kw["scale"]), warmup=1, iters=5)
+    rec["library"] = "scaled_dot_product_attention in float32, boolean (S, S) mask"
+    rec.update(benchit.bound_ms(card, bytes_moved=4 * q.numel() * 4, flops=4 * BM_D * pairs,
+                                dtype="float32"))
+    report["float32_block_mask"] = rec
+    emit(rec)
+    report["checks"].append(rec)
+    del q, k, v, got, want, dense
+    torch.cuda.empty_cache()
+    emit({"phase": "f32q_timings", "ok": all(r["ok"] for r in report["f32q_timed"].values())
+          and rec["ok"]})
 
 
 def _probe_row(benchit, card, run, plain, hold, *, nbytes, flops, iters, flush=0,
@@ -5498,6 +5728,11 @@ def main() -> int:
     selftest = phase_selftest(counters, report)
     lap("selftest")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def counts():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    before_checks = counts()
     # {None, "int8", "fp8"}: {kernel: (main shape's timed check, Gemma-2 window's)}
     serving = {form: serving_checks(fa, flash, decode, benchit, gen, name, report, form)
                for form in (None, *QUANT_FORMS)}
@@ -5513,6 +5748,10 @@ def main() -> int:
     drafts = {form: draft_checks(decode, benchit, gen, name, report, form)
               for form in (None, *QUANT_FORMS)}
     lap("draft_checks")
+    # The kernel checks' launches (the scalar 8-bit forms launch only there).
+    check_launches = {k: n - before_checks[k] for k, n in counts().items()}
+    f32q_timings(fa, flash, decode, benchit, gen, name, report)
+    lap("f32q_timings")
     mains = {
         **{k: main for k, (main, _) in serving[None].items()},
         "flash_naive": naive_checks(flash, benchit, gen, name, report),
@@ -5763,6 +6002,15 @@ def main() -> int:
         if kname in TC_QUANT_KERNELS.values():  # fp8 beside int8, and Gemma-2's window
             tc = kname.removesuffix("_quant")
             summary[-1]["fp8"] = {k: tc_timed[f"{tc}/fp8"][k] for k in (*timed, "scalar_ms")}
+            # Float32 q over 8-bit K/V or pages, taken in bf16 (f32q_timings).
+            summary[-1]["f32_q"] = {
+                key.split("/", 1)[1]: {k: rec[k] for k in (
+                    *timed, "scalar_ms", "exact_ms", "library_f32_ms") if k in rec}
+                for key, rec in report["f32q_timed"].items() if key.startswith(kname + "/")}
+            if kname == "flash_fwd_tc_quant":
+                summary[-1]["f32_q"]["launches_by_path"] = {
+                    p: n["flash_fwd_tc_quant_f32q"] for p, n in paths.items()
+                    if n.get("flash_fwd_tc_quant_f32q")}
             summary[-1]["d256_window_softcap"] = {
                 f: {k: tc_timed[f"{tc}/d256_window_softcap/{f}"][k] for k in (*timed, "scalar_ms")}
                 for f in QUANT_FORMS}
@@ -5779,6 +6027,8 @@ def main() -> int:
                 **{k: q8["int8"][0][k] for k in timed}, "ms": q8["int8"][0]["kernel_ms"],
                 "source": f"flashattention_tpu_torch/csrc/{source} (built with -DFA_QUANT)",
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "check_launches": (check_launches[f"{kname}_quant"]
+                                   - check_launches[TC_QUANT_KERNELS[kname]]),
                 "fp8": {k: q8["fp8"][0][k] for k in timed},
                 "d256_window_softcap": {f: {k: q8[f][1][k] for k in timed} for f in QUANT_FORMS},
             }
@@ -5832,12 +6082,20 @@ def main() -> int:
                            "train_parity_lora", "selftest", "benches")
                if not report[p]["ok"]]
     failed += [k["name"] for k in summary if k["launches"] == 0]
-    # The scalar 8-bit forms of the two forwards left the paths for their
-    # tensor-core forms (which must launch, above); paged_decode's must (the
-    # float32 speculative phase's int8 cache).
+    # The scalar 8-bit forms left the paths for their tensor-core forms
+    # (which must launch, above): since float32 q over 8-bit pages is taken
+    # in bf16, the float32 speculative phase's int8 cache runs paged
+    # decode's tensor-core 8-bit form, k = 1 and draft, and no scalar 8-bit
+    # form.  The scalar 8-bit forms must still launch in their kernel checks
+    # (ops.flash.scalar_forms).
     failed += [f"{k['name']}/quantized" for k in summary
-               if "quantized" in k and k["name"] not in ("flash_fwd", "paged_prefill")
-               and k["quantized"]["launches"] == 0]
+               if "quantized" in k and k["quantized"]["check_launches"] == 0]
+    for run, rec in report["serve_speculative"]["int8_cache"].items():
+        n = rec["launches"]
+        if not (n["paged_decode_tc_quant"] > 0 and n["paged_decode_quant"] == n["paged_decode_tc_quant"]
+                and n["paged_decode_draft"] == n["paged_decode_tc_draft"]
+                and (run == "plain" or n["paged_decode_tc_draft"] > 0)):
+            failed.append(f"serve_speculative/int8_cache/{run}/launches")
     failed += [f"{k['name']}/{form}" for k in summary for form in ("dropout", "block_mask")
                if form in k and k[form]["launches"] == 0]
     emit({"kernels": summary})

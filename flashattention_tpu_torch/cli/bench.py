@@ -73,8 +73,8 @@ def _decode_tokens_per_s(device, b=8, kvh=8, g=4, d=128, s=2048, ps=256, kv="bf1
     """Paged-decode tokens/s (``bench.py:101``): int8 pools with per-token
     scales on 1024-token pages.  q is made in float32 and passed so over
     bf16 pages, which ``paged_attention`` takes in bf16 as the Pallas kernel
-    does (decode.py:150); over int8 pages it is taken in bf16 here, since
-    float32 q there runs the scalar 8-bit form, which keeps q in float32."""
+    does (decode.py:150), O in float32; over int8 pages it is cast to bf16
+    here, so that O is stored in bf16."""
     from flashattention_tpu_torch.ops.decode import paged_attention
     from flashattention_tpu_torch.utils.benchit import devtime_ms
 

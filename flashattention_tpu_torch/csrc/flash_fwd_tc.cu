@@ -164,8 +164,12 @@ extern "C" int fa_flash_fwd_tc(const void* q, const void* k, const void* v, void
 }
 #else
 // The 8-bit form: k, v int8 (kv_dtype 2) or fp8 e4m3 (3) payloads, k_scales
-// and v_scales (bh, s_kv) float32; no dropout (dropout_threshold 0).
-extern "C" int fa_flash_fwd_tc_quant(int kv_dtype, const void* k_scales, const void* v_scales,
+// and v_scales (bh, s_kv) float32; no dropout (dropout_threshold 0).  o_f32:
+// o is float32 (float32 q taken in bf16, as the Pallas kernel's "bf16" mode
+// takes it, flash.py:825, whose output is q's type), written straight from
+// the float32 sums.
+extern "C" int fa_flash_fwd_tc_quant(int kv_dtype, int o_f32, const void* k_scales,
+                                     const void* v_scales,
                                      const void* q, const void* k, const void* v, void* o,
                                      void* l, void* m, const void* q_seg, const void* kv_seg,
                                      int bh, int rows, int s_kv, int d, int kv_len, int q_offset,
@@ -177,6 +181,7 @@ extern "C" int fa_flash_fwd_tc_quant(int kv_dtype, const void* k_scales, const v
                      dropout_threshold, dropout_inv, stream);
   a.k_scales = static_cast<const float*>(k_scales);
   a.v_scales = static_cast<const float*>(v_scales);
+  if (o_f32) a.o32 = static_cast<float*>(o);
   switch (kv_dtype) {
     case 2: return launch_d<1>(a, d);
     case 3: return launch_d<2>(a, d);

@@ -198,9 +198,10 @@ __device__ __forceinline__ Range kv_range(int r0, int rows, int kv_len, int q_of
 // page_indices[b] (pages_per_seq entries) and its context ctx_lens[b]; row r
 // of the chunk sits at ctx_lens[b] - chunk + r % q_seq_len.  With o32, O
 // is written there in float32, straight from the float32 sums (float32 q over
-// bf16 pages, taken in bf16 as the Pallas kernel takes it, decode.py:440-445,
-// whose output is q's type), and `o` is not written; the flat form reads
-// o32 alone, in its float32 forms (kTerms).
+// bf16 or 8-bit pages, taken in bf16 as the Pallas kernel takes it,
+// decode.py:440-445, whose output is q's type), and `o` is not written; the
+// flat form reads o32 alone, in its float32 forms (kTerms) and its 8-bit
+// forms (kKV: float32 q taken in bf16, flash.py:825).
 struct Paged {
   const int* page_indices;
   const int* ctx_lens;
@@ -629,7 +630,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __nv_bfloat16* o_head = o + static_cast<size_t>(bh) * rows * D;
   float* o32_head = nullptr;
-  if constexpr (kPaged || kTerms != 0) {
+  if constexpr (kPaged || kKV != 0 || kTerms != 0) {
     if (pg.o32 != nullptr) o32_head = pg.o32 + static_cast<size_t>(bh) * rows * D;
   }
 #pragma unroll

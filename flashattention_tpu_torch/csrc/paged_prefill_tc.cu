@@ -117,20 +117,23 @@ extern "C" int fa_paged_prefill_tc(const void* q, const void* k_pages, const voi
 }
 #else
 // The 8-bit form: the pools int8 (kv_dtype 2) or fp8 e4m3 (3) payloads,
-// k_scales, v_scales their (num_pages, kvh, page_size) float32 scale pools.
+// k_scales, v_scales their (num_pages, kvh, page_size) float32 scale pools;
+// o_f32 as above (float32 q over 8-bit pages, taken in bf16).
 extern "C" int fa_paged_prefill_tc_quant(int kv_dtype, const void* k_scales, const void* v_scales,
                                          const void* q, const void* k_pages, const void* v_pages,
                                          const void* page_indices, const void* ctx_lens, void* o,
                                          int b, int kvh, int rows, int d, int num_pages,
                                          int page_size, int pages_per_seq, int chunk, int seg,
-                                         float scale, int window, float softcap, void* stream) {
+                                         float scale, int window, float softcap, int o_f32,
+                                         void* stream) {
   const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, seg, 0u, 0u, 0.f};
   fwd_tc::Args a{q, k_pages, v_pages, o, nullptr, nullptr, nullptr, nullptr, b * kvh, rows,
                  0, 0, 0, seg, 1, scale, window, softcap, ex, static_cast<cudaStream_t>(stream)};
   a.k_scales = static_cast<const float*>(k_scales);
   a.v_scales = static_cast<const float*>(v_scales);
   const fwd_tc::Paged pg{static_cast<const int*>(page_indices), static_cast<const int*>(ctx_lens),
-                         pages_per_seq, page_size, chunk, nullptr};
+                         pages_per_seq, page_size, chunk,
+                         o_f32 ? static_cast<float*>(o) : nullptr};
   switch (kv_dtype) {
     case 2: return launch_d<1>(a, pg, d, num_pages, kvh, b);
     case 3: return launch_d<2>(a, pg, d, num_pages, kvh, b);

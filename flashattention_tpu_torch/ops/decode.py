@@ -7,9 +7,10 @@ KV heads), q is ``(B, KVH, G, d)`` with the G query heads of each KV head
 together, and a request's page-table row maps its logical pages to physical
 ones.  On a CUDA tensor :func:`paged_attention` launches a hand-written
 kernel that replaces the Pallas ``_paged_kernel`` (:89), in the form
-``ops.flash.kernel_form`` picks: for bf16 q at head_dim 64, 128 or 256 with
-at most 32 q rows per KV head, over bf16 or 8-bit pages of a size its TMA
-boxes take, the tensor-core kernel in ``csrc/paged_decode_tc.cu``
+``ops.flash.kernel_form`` picks: for bf16 q (float32 q over bf16 or 8-bit
+pages is taken in bf16, as the Pallas kernels take it) at head_dim 64, 128
+or 256 with at most 32 q rows per KV head, over bf16 or 8-bit pages of a
+size its TMA boxes take, the tensor-core kernel in ``csrc/paged_decode_tc.cu``
 (``paged_decode_tc``, for 8-bit pages ``paged_decode_tc_quant``: the cache
 split across blocks, pages staged by TMA, products by ``mma.sync``, the
 splits' partials merged by a second kernel), otherwise the float32
@@ -24,7 +25,8 @@ at its own causal limit, and the kernel's draft form runs.
 chunk of rows per request, GQA-folded into ``(B, KVH, G * seg, d)``, that
 attend their context straight off the pool.  On a CUDA tensor it launches a
 kernel that replaces the Pallas ``_paged_prefill_kernel`` (:375), in the form
-``ops.flash.kernel_form`` picks: for bf16 q at head_dim 64, 128 or 256 over
+``ops.flash.kernel_form`` picks: for bf16 q (float32 q over bf16 or 8-bit
+pages taken in bf16) at head_dim 64, 128 or 256 over
 bf16 or 8-bit pages of a size it takes (``ops.flash.tc_page_size``) the
 tensor-core kernel in ``csrc/paged_prefill_tc.cu`` (``paged_prefill_tc``, and
 for 8-bit pages ``paged_prefill_tc_quant``), otherwise the float32 CUDA-core
@@ -123,14 +125,33 @@ def _gather(pages, scales, page_indices):
     return rows.float().transpose(1, 2).reshape(b, kvh, pps * ps, d)
 
 
-def _f32_over_bf16(q, k_pages, k_scales_pages) -> bool:
-    """Float32 q over bf16 pages: taken in bf16, as the Pallas kernels take
-    q over 16- and 8-bit pages (decode.py:145-150, :440-445), with O in
-    float32, their ``out_shape`` being q's type (:359, :637, :773).  The
-    tensor-core forms write that O straight from their float32 sums; a call
-    the bf16 form of which is scalar stores bf16 and casts it."""
-    return (q.dtype == torch.float32 and k_pages.dtype == torch.bfloat16
-            and k_scales_pages is None)
+def _f32_q_in_bf16(q, k_pages, kernel: str, rows: int = 1) -> bool:
+    """Whether a call of ``kernel`` (``"paged_decode"`` with ``rows`` q rows
+    per KV head, or ``"paged_prefill"``) takes float32 q in bf16, as the
+    Pallas kernels take q over every page that is not float32
+    (decode.py:145-150, :440-445; p times v_scale rounded to bf16 too, :202,
+    :481-483), with O in float32, their ``out_shape`` being q's type (:359,
+    :637, :773): over bf16 pages always (a call whose bf16 form is scalar
+    stores bf16 and casts it); over 8-bit pages where the tensor-core 8-bit
+    form takes the bf16 call, which writes O straight from its float32
+    sums.  Elsewhere (head_dim 32, a page size the TMA boxes do not take,
+    more than 32 decode rows per KV head, ``ops.flash.scalar_forms``) the
+    scalar 8-bit form keeps float32 q, exact."""
+    if q.dtype != torch.float32 or k_pages.dtype == torch.float32:
+        return False
+    return k_pages.dtype == torch.bfloat16 or kernel_form(
+        kernel, torch.bfloat16, q.shape[-1], quantized=True, page_size=k_pages.shape[2],
+        rows=rows) == "tc"
+
+
+def _plain_f32_q(q, k_pages, form, kernel: str, rows: int = 1) -> bool:
+    """Whether a plain version of ``form`` (None: the kernel's own) takes
+    float32 q in bf16: the tensor-core forms and bf16 pages always, the
+    kernel's own form as :func:`_f32_q_in_bf16` says."""
+    if q.dtype != torch.float32 or k_pages.dtype == torch.float32:
+        return False
+    return (form == "tc" or k_pages.dtype == torch.bfloat16
+            or (form is None and _f32_q_in_bf16(q, k_pages, kernel, rows)))
 
 
 def _row_limits(lengths, rows, draft_k, device):
@@ -180,19 +201,20 @@ def paged_attention_plain(
     (:func:`_paged_attention_tc_plain`; ``splits`` the split count to ask
     :func:`decode_splits` for, by default the one the kernel takes on the
     card the inputs lie on); ``"scalar"`` attends in float32 over 8-bit
-    rows dequantized in float32.  Float32 q over bf16 pages is taken in bf16
-    (:func:`_f32_over_bf16`): the form is the bf16 call's, and O comes back
-    in float32, from the float32 sums (tc) or through a bf16 store
-    (scalar)."""
-    kw = dict(scale=scale, draft_k=draft_k, window=window, logit_softcap=logit_softcap)
-    if _f32_over_bf16(q, k_pages, k_scales_pages):
+    rows dequantized in float32.  Float32 q that the kernel takes in bf16
+    (:func:`_f32_q_in_bf16`) is taken so here: the form is the bf16 call's,
+    and O comes back in float32, from the float32 sums (tc) or through a
+    bf16 store (scalar, bf16 pages)."""
+    kw = dict(scale=scale, draft_k=draft_k, window=window, logit_softcap=logit_softcap,
+              k_scales_pages=k_scales_pages, v_scales_pages=v_scales_pages)
+    if _plain_f32_q(q, k_pages, form, "paged_decode", q.shape[2]):
         qb = q.to(torch.bfloat16)
         if form is None:
-            form = kernel_form("paged_decode", qb.dtype, q.shape[3], page_size=k_pages.shape[2],
+            form = kernel_form("paged_decode", qb.dtype, q.shape[3],
+                               quantized=k_scales_pages is not None, page_size=k_pages.shape[2],
                                rows=q.shape[2])
         if form == "tc":
             return _paged_attention_tc_plain(qb.float(), k_pages, v_pages, lengths, page_indices,
-                                             k_scales_pages=None, v_scales_pages=None,
                                              splits=splits, **kw)
         return paged_attention_plain(qb, k_pages, v_pages, lengths, page_indices, form=form,
                                      **kw).float()
@@ -200,15 +222,9 @@ def paged_attention_plain(
         form = kernel_form("paged_decode", q.dtype, q.shape[3], quantized=k_scales_pages is not None,
                            page_size=k_pages.shape[2], rows=q.shape[2])
     if form == "tc":
-        return _paged_attention_tc_plain(
-            q, k_pages, v_pages, lengths, page_indices, scale=scale, draft_k=draft_k,
-            window=window, logit_softcap=logit_softcap, k_scales_pages=k_scales_pages,
-            v_scales_pages=v_scales_pages, splits=splits)
-    o = paged_attention_reference(
-        q, k_pages, v_pages, lengths, page_indices, scale=scale, draft_k=draft_k, window=window,
-        logit_softcap=logit_softcap, k_scales_pages=k_scales_pages,
-        v_scales_pages=v_scales_pages,
-    )
+        return _paged_attention_tc_plain(q, k_pages, v_pages, lengths, page_indices,
+                                         splits=splits, **kw)
+    o = paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, **kw)
     return torch.where((lengths > 0)[:, None, None, None].to(o.device), o, torch.zeros_like(o))
 
 
@@ -332,9 +348,9 @@ def paged_attention(
         kernels choose their own tiles, and a CPU tensor runs the plain
         version).
 
-    Returns ``(B, KVH, G, d)`` in q's dtype.  Float32 q over bf16 pages is
-    taken in bf16, as the JAX kernel takes it (:func:`_f32_over_bf16`), and
-    O comes back in float32.  The launch count is kept on
+    Returns ``(B, KVH, G, d)`` in q's dtype.  Float32 q over bf16 or 8-bit
+    pages is taken in bf16, as the JAX kernel takes it, where
+    :func:`_f32_q_in_bf16` says so, and O comes back in float32.  The launch count is kept on
     this function (``.launches``; ``.launches_quantized`` and
     ``.launches_draft`` count the 8-bit and draft launches among them, and
     ``.launches_tc``, ``.launches_tc_quantized`` and ``.launches_tc_draft``
@@ -347,7 +363,7 @@ def paged_attention(
     draft_k = int(draft_k)
     if draft_k < 1 or g % draft_k:
         raise ValueError(f"q group rows ({g}) must be a multiple of draft_k ({draft_k})")
-    f32_q = _f32_over_bf16(q, k_pages, k_scales_pages)
+    f32_q = _f32_q_in_bf16(q, k_pages, "paged_decode", g)
     qk = q.to(torch.bfloat16) if f32_q else q  # the q the kernel takes
     _, kvh2, page_size, d2 = k_pages.shape
     if (kvh2, d2) != (kvh, d):
@@ -498,15 +514,15 @@ def paged_prefill_attention_plain(
     against the running max of ``TC_KV_TILE`` columns, tiles aligned to
     column 0, as the paged kernel's are; 8-bit pages as payloads with their
     gathered scales), its chunk's rows at ``ctx_len - chunk + r % seg``;
-    ``"scalar"`` attends in float32.  Float32 q over bf16 pages is taken in
-    bf16 (:func:`_f32_over_bf16`): the form is the bf16 call's, and O comes
-    back in float32, from the float32 sums (tc) or through a bf16 store
-    (scalar)."""
+    ``"scalar"`` attends in float32.  Float32 q that the kernel takes in
+    bf16 (:func:`_f32_q_in_bf16`) is taken so here: the form is the bf16
+    call's, and O comes back in float32, from the float32 sums (tc) or
+    through a bf16 store (scalar, bf16 pages)."""
     seg = seg or q.shape[2]
     args = (k_pages, v_pages, page_indices, ctx_lens)
     kw = dict(chunk=chunk, seg=seg, scale=scale, window=window, logit_softcap=logit_softcap,
               k_scales_pages=k_scales_pages, v_scales_pages=v_scales_pages)
-    f32_q = _f32_over_bf16(q, k_pages, k_scales_pages)
+    f32_q = _plain_f32_q(q, k_pages, form, "paged_prefill")
     if form is None:
         form = kernel_form("paged_prefill", torch.bfloat16 if f32_q else q.dtype, q.shape[3],
                            quantized=k_scales_pages is not None, page_size=k_pages.shape[2])
@@ -596,8 +612,9 @@ def paged_prefill_attention_batched(
         page wholly before a tile's window is read.
       logit_softcap: scores become ``cap * tanh(s / cap)`` before the masks.
 
-    Returns ``(B, KVH, R, d)`` in q's dtype (float32 q over bf16 pages is
-    taken in bf16, as the JAX kernel takes it: :func:`_f32_over_bf16`).  The
+    Returns ``(B, KVH, R, d)`` in q's dtype (float32 q over bf16 or 8-bit
+    pages is taken in bf16, as the JAX kernel takes it, where
+    :func:`_f32_q_in_bf16` says so).  The
     launch count is kept on this function (``.launches``; ``.launches_tc``, ``.launches_quantized``
     and ``.launches_tc_quantized`` count the tensor-core, the 8-bit and the
     tensor-core 8-bit forms' among them); :func:`paged_prefill_attention`
@@ -622,7 +639,7 @@ def paged_prefill_attention_batched(
         raise ValueError(f"q rows ({rows}) must be a multiple of seg ({seg})")
     if not 0 < chunk <= seg:
         raise ValueError(f"chunk ({chunk}) must lie in [1, seg={seg}]")
-    f32_q = _f32_over_bf16(q, k_pages, k_scales_pages)
+    f32_q = _f32_q_in_bf16(q, k_pages, "paged_prefill")
     qk = q.to(torch.bfloat16) if f32_q else q  # the q the kernel takes
     quantized = _check_pages(qk, k_pages, v_pages, k_scales_pages, v_scales_pages)
     scales = (k_scales_pages, v_scales_pages) if quantized else ()
@@ -652,15 +669,15 @@ def paged_prefill_attention_batched(
     o = torch.empty_like(q if form == "tc" else qk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if form == "tc":
-        name, quant, out = "paged_prefill_tc", (), (int(f32_q),)
+        name, quant = "paged_prefill_tc", ()
         if quantized:  # the 8-bit form: the payload's type code and the scale pools
-            name, out = "paged_prefill_tc_quant", ()
+            name = "paged_prefill_tc_quant"
             quant = (KV_DTYPES[k_pages.dtype], k_scales_pages.data_ptr(), v_scales_pages.data_ptr())
         status = getattr(kernels.library(name), kernels.KERNELS[name][1])(
             *quant, qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_indices.data_ptr(),
             ctx_lens.data_ptr(), o.data_ptr(), b, kvh, rows, d, num_pages, page_size,
             page_indices.shape[1], int(chunk), seg, float(scale),
-            *kernel_options(window, logit_softcap), *out, stream,
+            *kernel_options(window, logit_softcap), int(f32_q), stream,
         )
         kernels.check_launch(name, status, f"q {tuple(q.shape)}, pages {k_pages.dtype} {page_size}")
         paged_prefill_attention_batched.launches += 1

@@ -91,7 +91,10 @@ def attention(
       precision: the JAX package's matmul precision mode for float32 inputs
         (``"bf16"``, ``"bf16_3x"``, ``"float32"``, None or ``"auto"``),
         resolved on the kernel route as the JAX package resolves it
-        (:func:`ops.flash.resolve_precision`; None is ``"bf16_3x"``) and
+        (:func:`ops.flash.resolve_precision`; None is ``"bf16_3x"``, and
+        ``"bf16"`` over 8-bit K/V, where the tensor-core 8-bit form takes
+        float32 q in bf16 and O comes back in float32:
+        :func:`ops.flash.f32_q_in_bf16`) and
         passed to the forward (:func:`ops.flash.kernel_form`: the float32
         tensor-core form computes ``"bf16_3x"`` and ``"bf16"`` at head_dims
         64 and 128, the exact kernel ``"float32"`` and the rest); the

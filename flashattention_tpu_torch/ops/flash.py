@@ -5,7 +5,9 @@ On a CUDA tensor it launches a hand-written kernel that replaces the Pallas
 ``_kernel`` (:628), in the form :func:`kernel_form` picks: for bf16 q at
 head_dim 64, 128 or 256 the tensor-core kernel in ``csrc/flash_fwd_tc.cu``
 (over 8-bit K/V without dropout or a block mask, its 8-bit form,
-``flash_fwd_tc_quant``); for float32 q, k and v at head_dim 64 or 128 with
+``flash_fwd_tc_quant``, which also takes float32 q over 8-bit K/V in bf16,
+as the Pallas kernel's quantized default takes it, with O in float32 from
+the float32 sums: :func:`f32_q_in_bf16`); for float32 q, k and v at head_dim 64 or 128 with
 no block mask or dropout, in the JAX package's ``"bf16_3x"`` (the default)
 and ``"bf16"`` precision modes, its float32 form ``flash_fwd_tc_f32``, the
 same kernel over each value's two bf16 terms (or one); otherwise, and for
@@ -96,6 +98,29 @@ def _round_up(x: int, m: int) -> int:
 PRECISIONS = ("bf16", "bf16_3x", "float32")
 
 
+def quant_precision(precision: str | None, quantized: bool) -> str | None:
+    """``precision`` over 8-bit K/V: None or ``"auto"`` is ``"bf16"``, the
+    JAX package's quantized default (flash.py:1352-1360), whose kernel then
+    takes float32 q in bf16; otherwise ``precision`` as given."""
+    return "bf16" if quantized and precision in (None, "auto") else precision
+
+
+def f32_q_in_bf16(dtype, quantized: bool, precision: str | None, head_dim: int, *,
+                  block_mask: bool = False, dropout: bool = False) -> bool:
+    """Whether the flash forward takes float32 q over 8-bit K/V in bf16, as
+    the Pallas kernel does in its ``"bf16"`` mode (flash.py:825, :971-976;
+    the default there, :func:`quant_precision`): where the bf16 call's form
+    is the tensor-core 8-bit form, it runs over ``q.to(bfloat16)`` and
+    writes O in float32 from its float32 sums.  Elsewhere (dropout, a block
+    mask, head_dim 16 or 32, :func:`scalar_forms`) and in the explicit
+    ``"bf16_3x"`` and ``"float32"`` modes, q stays float32, on the exact
+    scalar kernel."""
+    return (quantized and dtype == torch.float32
+            and resolve_precision(quant_precision(precision, quantized), dtype) == "bf16"
+            and kernel_form("flash_fwd", torch.bfloat16, head_dim, quantized=True,
+                            block_mask=block_mask, dropout=dropout) == "tc")
+
+
 def resolve_precision(precision: str | None, dtype) -> str:
     """The mode ``precision`` names for inputs of ``dtype``, validated as
     the JAX ``resolve_precision`` (flash.py:119) does: None or ``"auto"``
@@ -179,9 +204,13 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
     float32 q, k and v at ``TC_F32_HEAD_DIMS`` with no block mask, dropout or
     8-bit K/V, in the mode ``precision`` resolves to (:func:`resolve_precision`:
     by default ``"bf16_3x"``) unless that is ``"float32"``.  Else
-    ``"scalar"``, the float32 CUDA-core kernel (float32 q over 8-bit pages
-    too, float32 or 8-bit K/V with a block mask, 8-bit K/V with dropout).
-    Inside :func:`scalar_forms`, always ``"scalar"``."""
+    ``"scalar"``, the float32 CUDA-core kernel (float32 or 8-bit K/V with a
+    block mask, 8-bit K/V with dropout, float32 q over 8-bit K/V that the
+    tensor-core form does not take in bf16 or in the exact modes).
+    ``dtype`` is q's type as the kernel takes it: float32 q over 8-bit K/V
+    (:func:`f32_q_in_bf16`) or pages (``ops.decode._f32_q_in_bf16``) taken
+    in bf16 asks for the bf16 form.  Inside :func:`scalar_forms`, always
+    ``"scalar"``."""
     if (kernel == "flash_fwd" and dtype == torch.float32 and not _SCALAR_ONLY[0]
             and resolve_precision(precision, dtype) != "float32"
             and head_dim in TC_F32_HEAD_DIMS and not (quantized or block_mask or dropout)):
@@ -726,7 +755,7 @@ def flash_attention(
 
     Returns ``o`` like q, or ``(o, l, m)``.
     """
-    precision = resolve_precision(precision, q.dtype)
+    precision = resolve_precision(quant_precision(precision, k_scales is not None), q.dtype)
     dropout_rate = check_dropout(dropout_rate)
     check_window(window, logit_softcap, causal)
     if block_sizes is not None and block_sizes != BlockSizes():
@@ -757,7 +786,10 @@ def flash_attention(
     scales = (k_scales, v_scales) if quantized else ()
     if not all(t.is_contiguous() for t in (q, k, v, *scales)):
         raise ValueError("flash_attention takes contiguous q, k, v and scales")
-    form = kernel_form("flash_fwd", q.dtype, d, quantized=quantized,
+    f32_q = f32_q_in_bf16(q.dtype, quantized, precision, d, block_mask=block_mask is not None,
+                          dropout=dropout_rate is not None)
+    qk = q.to(torch.bfloat16) if f32_q else q  # the q the kernel takes
+    form = kernel_form("flash_fwd", qk.dtype, d, quantized=quantized,
                        block_mask=block_mask is not None, dropout=dropout_rate is not None,
                        precision=precision)
     if q.device.type == "cpu":
@@ -778,7 +810,7 @@ def flash_attention(
         raise ValueError(f"flash_attention kernel takes BH <= 65535, got {bh}")
     if quantized:
         kernels.check_aligned("flash_attention", k, v)
-    o = torch.empty_like(q)
+    o = torch.empty_like(q)  # the tensor-core forms write float32 O for float32 q
     l = m = None
     if save_residuals:
         l = torch.empty((bh, rows), dtype=torch.float32, device=q.device)
@@ -787,7 +819,7 @@ def flash_attention(
         tiles = None
         if block_mask is not None:
             tiles = block_mask.tiles(TC_BLOCK_Q, TC_KV_TILE[d], q.device).by_q()
-        _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, scales, tiles, kv_len=kv_len,
+        _flash_fwd_tc(qk, k, v, o, l, m, seg_q, seg_kv, scales, tiles, kv_len=kv_len,
                       q_offset=int(q_offset), q_seq_len=q_seq_len, causal=bool(causal),
                       scale=float(scale), window=window, logit_softcap=logit_softcap,
                       dropout_rate=dropout_rate, dropout_seed=dropout["dropout_seed"],
@@ -796,6 +828,7 @@ def flash_attention(
         flash_attention.launches += 1
         flash_attention.launches_quantized += quantized
         flash_attention.launches_tc_quantized += quantized
+        flash_attention.launches_tc_quantized_f32q += f32_q
         flash_attention.launches_dropout += dropout_rate is not None
         flash_attention.launches_block_mask += block_mask is not None
         flash_attention.launches_tc_block_mask += block_mask is not None
@@ -839,16 +872,19 @@ def _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, scales, tiles, *, kv_len, q_o
     """One launch of the tensor-core forward (``csrc/flash_fwd_tc.cu``),
     into ``o`` (and ``l``, ``m`` unless None); ``scales`` ``(k_scales,
     v_scales)`` for 8-bit K/V (its ``flash_fwd_tc_quant`` form), else ``()``;
-    ``tiles`` a block mask's table (:meth:`MaskTiles.by_q`) or None.
-    Its TMA loads take 16-byte aligned tensors."""
+    ``tiles`` a block mask's table (:meth:`MaskTiles.by_q`) or None; a
+    float32 ``o`` (the 8-bit form over float32 q taken in bf16) is written
+    straight from the float32 sums.  Its TMA loads take 16-byte aligned
+    tensors."""
     kernels.check_aligned("flash_attention", q, k, v)
     bh, rows, d = q.shape
     extra = dropout_rate is not None or tiles is not None
     name = "flash_fwd_tc_extra" if extra else "flash_fwd_tc"
     quant, table = (), tiles or (None,) * 4  # the bf16 form takes the block mask's table
-    if scales:  # the 8-bit form: the payload's type code and the two scale arrays, no table
+    if scales:  # the 8-bit form: the payload's type code, float32 O, the two scale arrays, no table
         name = "flash_fwd_tc_quant"
-        quant, table = (KV_DTYPES[k.dtype], *(t.data_ptr() for t in scales)), ()
+        quant = (KV_DTYPES[k.dtype], int(o.dtype == torch.float32), *(t.data_ptr() for t in scales))
+        table = ()
     status = getattr(kernels.library(name), kernels.KERNELS[name][1])(
         *quant, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
@@ -885,7 +921,8 @@ def _flash_fwd_tc_f32(q, k, v, o, l, m, seg_q, seg_kv, precision, *, kv_len, q_o
 
 # Kernel launches, for chip_smoke.py's path check: all forms, and the
 # tensor-core, 8-bit, tensor-core 8-bit, dropout, block-mask and tensor-core
-# block-mask ones among them; the float32 form's, and its "bf16" mode's
+# block-mask ones among them; the tensor-core 8-bit form's over float32 q
+# taken in bf16 among those; the float32 form's, and its "bf16" mode's
 # among those.
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
@@ -893,6 +930,7 @@ flash_attention.launches_tc_f32 = 0
 flash_attention.launches_tc_f32_bf16 = 0
 flash_attention.launches_quantized = 0
 flash_attention.launches_tc_quantized = 0
+flash_attention.launches_tc_quantized_f32q = 0
 flash_attention.launches_dropout = 0
 flash_attention.launches_block_mask = 0
 flash_attention.launches_tc_block_mask = 0
@@ -931,9 +969,16 @@ def flash_attention_plain(
     PV as its two terms against V's, ``(p_hi + p_lo) v_hi + p_hi v_lo`` (+
     ``p_lo v_lo`` at four products), and l sums the float32 p; in ``"bf16"``
     q, k and v are rounded to bf16 once and the ``"tc"`` form follows, its O
-    in float32."""
+    in float32.  Float32 q over 8-bit K/V in the ``"tc"`` form (by default
+    where the kernel takes it in bf16, :func:`f32_q_in_bf16`) runs over q's
+    bf16 values, O in float32."""
     bh, rows, d = q.shape
     s_kv = k.shape[1]
+    if k_scales is not None and q.dtype == torch.float32 and (form == "tc" or (
+            form is None and f32_q_in_bf16(q.dtype, True, precision, d,
+                                           block_mask=block_mask is not None,
+                                           dropout=bool(dropout_rate)))):
+        q, form = q.to(torch.bfloat16).float(), "tc"  # bf16 values; O stays float32
     if form is None:
         if k_scales is None and k.dtype != q.dtype:
             form = "scalar"
@@ -988,7 +1033,14 @@ def _fwd_plain_heads(q, k, v, mask, keep, kv_scales, *, scale, logit_softcap, dr
         s = sum(torch.einsum("bqd,bkd->bqk", a, b) for a, b in pairs)
         del qh, ql, kh, kl, pairs
     else:
-        s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+        # The tensor-core forms' S as their float32 accumulator holds it: the
+        # bf16 products (exact) summed, rounded to float32 once.  A float32
+        # product rounds every partial sum in an order of its own, which
+        # moves s by a few ulps and p with it, and where p's second bf16
+        # term lies near a rounding boundary that term by a unit, a step
+        # the two-term P resolves (torch_tools/c5_oracle.py measures it).
+        x = torch.float64 if form == "tc" else torch.float32
+        s = torch.einsum("bqd,bkd->bqk", q.to(x), k.to(x)).float()
     if kv_scales is not None:
         s = s * kv_scales[0][:, None, :]
     s = softcap(s * scale, logit_softcap)

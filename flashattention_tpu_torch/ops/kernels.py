@@ -100,11 +100,15 @@ KERNELS = {
                                     [_I, *[_P] * 10, *[_I] * 10, _F, _I, _F, _I, _P], flags)
        for suffix, flags in (("", []), ("_quant", ["-DFA_QUANT"]))},
     # The 8-bit forms of the two tensor-core forwards: the payload's type
-    # code and the two scale arrays first, then the bf16 form's arguments.
+    # code (the flat form's then whether O is float32) and the two scale
+    # arrays first, then the bf16 form's arguments (the paged form's with
+    # its float32 O flag).
     "paged_prefill_tc_quant": ("paged_prefill_tc.cu", "fa_paged_prefill_tc_quant",
-                               [_I, _P, _P, *[_P] * 6, *[_I] * 9, _F, _I, _F, _P], ["-DFA_QUANT"]),
+                               [_I, _P, _P, *[_P] * 6, *[_I] * 9, _F, _I, _F, _I, _P],
+                               ["-DFA_QUANT"]),
     "flash_fwd_tc_quant": ("flash_fwd_tc.cu", "fa_flash_fwd_tc_quant",
-                           [_I, _P, _P, *[_P] * 8, *[_I] * 8, _F, _I, _F, *_EXTRA], ["-DFA_QUANT"]),
+                           [_I, _I, _P, _P, *[_P] * 8, *[_I] * 8, _F, _I, _F, *_EXTRA],
+                           ["-DFA_QUANT"]),
     # The forward's float32 form: the number of bf16 terms, float32 q, k, v,
     # their split buffers, float32 o, then as flash_fwd_tc without dropout.
     "flash_fwd_tc_f32": ("flash_fwd_tc.cu", "fa_flash_fwd_tc_f32",

@@ -158,7 +158,10 @@ def attention_quantized(
     the dequantization fused into the kernel.  Any S_q and S_kv; with
     ``q_seq_len``, q holds ``S_q // q_seq_len`` GQA segments of that many
     rows (any length).  ``precision`` and ``interpret`` as in
-    :func:`ops.flash.flash_attention`.  Returns ``o`` like q, or
+    :func:`ops.flash.flash_attention`: by default ``"bf16"``, float32 q
+    taken in bf16 as the JAX kernel takes it where the tensor-core 8-bit
+    form takes the call, O in float32; ``"bf16_3x"`` and ``"float32"`` keep
+    q in float32 (the exact scalar form).  Returns ``o`` like q, or
     ``(o, l, m)``."""
     if q_seq_len is not None and q.shape[1] % q_seq_len:
         raise ValueError(f"q_seq_len ({q_seq_len}) must divide s_q ({q.shape[1]})")

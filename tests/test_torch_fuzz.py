@@ -148,7 +148,9 @@ def test_padded_head_dim_gradients_vs_oracle(case):
 def test_padded_head_dim_8bit_kv_vs_oracle(qdtype, dtype):
     """``attention(k_scales=, v_scales=)`` at d = 80: the 8-bit payloads
     padded with zero bytes, the scales as they are, against the oracle over
-    the dequantized K/V (1e-4 in float32, the bf16 class's 5e-2 in bf16)."""
+    the dequantized K/V and q as the kernels take it over 8-bit K/V, in bf16
+    (1e-4 in float32, whose O comes from the float32 sums; the bf16 class's
+    5e-2 in bf16)."""
     b, h, hkv, s, d = 2, 4, 2, 120, 80
     (q, qf), (k, _), (v, _) = _inputs(80, [(b, h, s, d), (b * hkv, s, d), (b * hkv, s, d)], dtype)
     kq, vq = tq.quantize_kv(k.float(), v.float(), qdtype)
@@ -157,7 +159,8 @@ def test_padded_head_dim_8bit_kv_vs_oracle(qdtype, dtype):
                      v_scales=vq.scales.reshape(b, hkv, s))
     assert o.shape == q.shape and o.dtype == q.dtype
     kd, vd = (tq.dequantize(x).reshape(b, hkv, s, d).numpy() for x in (kq, vq))
-    want = _oracle(qf, kd, vd, causal=True, scale=d**-0.5)
+    qb = torch.from_numpy(qf).to(torch.bfloat16).float().numpy()
+    want = _oracle(qb, kd, vd, causal=True, scale=d**-0.5)
     validate_result(o.float().reshape(b * h, s, d), np.asarray(want),
                     1e-4 if dtype == "float32" else 5e-2)
 

@@ -128,8 +128,10 @@ def test_prefill_f32_q_over_bf16_pages(case):
 
 
 def test_8bit_route_is_unchanged():
-    """Float32 q over int8 pages keeps the scalar 8-bit form (q in float32,
-    rows dequantized): the same as before, not the bf16 cast."""
+    """Float32 q over int8 pages takes the route of bf16 pages: q cast to
+    bf16, the bf16 call's form (here the tensor-core 8-bit form), O in
+    float32 from its sums (tests/test_torch_quant_f32q.py holds it to the
+    JAX kernels)."""
     rng = np.random.default_rng(13)
     kp, vp = (torch.from_numpy(rng.integers(-127, 128, (6, 2, 16, 64)).astype(np.int8))
               for _ in range(2))
@@ -141,4 +143,8 @@ def test_8bit_route_is_unchanged():
     kw = dict(k_scales_pages=ks, v_scales_pages=vs, scale=0.125)
     got = td.paged_attention(q, kp, vp, lens, table, **kw)
     assert got.dtype == torch.float32
-    assert torch.equal(got, td.paged_attention_plain(q, kp, vp, lens, table, form="scalar", **kw))
+    assert tflash.kernel_form("paged_decode", torch.bfloat16, 64, quantized=True, page_size=16,
+                              rows=2) == "tc"
+    qb = q.to(torch.bfloat16).float()
+    assert torch.equal(got, td.paged_attention_plain(qb, kp, vp, lens, table, form="tc", **kw))
+    assert not _bf16_rounded(got)

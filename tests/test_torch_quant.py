@@ -7,12 +7,14 @@ tensors):
 - ``quantize``/``quantize_weight(s)`` and the int8/fp8 cache writes give the
   same payloads and scales, bit for bit;
 - the attention ops over 8-bit K/V agree with the JAX kernels within 2e-2
-  (``tests/test_quant.py``'s bound: the JAX kernels round q and p * v_scale
-  to bfloat16 on the 8-bit path, the port keeps float32), and with the
-  float32 oracle over the dequantized K/V within 1e-5 (the JAX oracle; 1e-4
-  against the JAX kernel's exact float32 path where a window or softcap is
-  on), both relative to the outputs' magnitude, since K/V spread over two
-  decades;
+  (``tests/test_quant.py``'s bound: the JAX kernels round p * v_scale to
+  bfloat16 on the 8-bit path, the port's forms keep it as two bf16 terms or
+  in float32; both take float32 q in bf16 there), and with the float32
+  oracle over the dequantized K/V and q rounded to bf16 within 1e-4 (the
+  JAX kernel's exact float32 path) where the tensor-core forms write O from
+  their float32 sums, 2^-8 where the scalar form stores bf16, and within
+  1e-5 in the exact ``"float32"`` mode of ``attention_quantized``, all
+  relative to the outputs' magnitude, since K/V spread over two decades;
 - the model steps and the engine serve 8-bit pools and weights: logits
   within 2e-2 of the JAX steps, greedy tokens equal to the JAX engine's.
 """
@@ -191,15 +193,24 @@ def test_attention_quantized_matches_jax(case, dtype):
         _vs_jax(gl, wl)
     assert got.shape == (bh, s_q, d) and got.dtype == torch.float32
     _vs_jax(got, want)
-    # The float32 oracle over the dequantized K/V, group by group.
+    # The float32 oracle over the dequantized K/V, group by group: at the
+    # default precision over q rounded to bf16 where the tensor-core form
+    # takes q in bf16, as the JAX kernel does (1e-4: P as two bf16 terms),
+    # over q itself where the exact scalar form runs (d = 32), and exactly
+    # in the "float32" mode.
+    exact = tq.attention_quantized(torch.from_numpy(q), tk_, tv, precision="float32", **kw)
+    exact = exact[0] if res else exact
     kd, vd = jq.dequantize(jk_), jq.dequantize(jv)
+    tc = tf.f32_q_in_bf16(torch.float32, True, None, d)
+    qb = np.asarray(jnp.asarray(q).astype(jnp.bfloat16).astype(jnp.float32)) if tc else q
     for g in range(s_q // rows):
         sl = slice(g * rows, (g + 1) * rows)
-        oracle = jref.attention_reference(
-            jnp.asarray(q[:, sl]), kd, vd, causal=causal, scale=d**-0.5,
-            q_offset=kw.get("q_offset", 0),
-        )
-        _vs_oracle(got[:, sl], oracle)
+        for x, out, tol in ((qb, got, 1e-4 if tc else None), (q, exact, None)):
+            oracle = jref.attention_reference(
+                jnp.asarray(x[:, sl]), kd, vd, causal=causal, scale=d**-0.5,
+                q_offset=kw.get("q_offset", 0),
+            )
+            _vs_oracle(out[:, sl], oracle, tol)
 
 
 @pytest.mark.parametrize("dtype", QDTYPES)
@@ -289,8 +300,14 @@ def test_paged_attention_quantized_matches_jax(case, dtype):
     got = td.paged_attention(torch.from_numpy(q), tkp, tvp, torch.from_numpy(lengths),
                              torch.from_numpy(table), k_scales_pages=tks, v_scales_pages=tvs, **kw)
     _vs_jax(got, want)
-    # The JAX kernel's exact float32 path over the dequantized pools.
-    exact = jd.paged_attention(jnp.asarray(q), jnp.asarray(kf), jnp.asarray(vf), *args, **kw)
+    # The JAX kernel's exact float32 path over the dequantized pools, with q
+    # rounded to bf16 where the tensor-core form takes it so (as the JAX
+    # kernel's 8-bit path does), as it is where the exact scalar form runs
+    # (d = 32).
+    form = tf.kernel_form("paged_decode", torch.bfloat16, d, quantized=True, page_size=ps, rows=g)
+    qo = jnp.asarray(q)
+    qo = qo.astype(jnp.bfloat16).astype(jnp.float32) if form == "tc" else qo
+    exact = jd.paged_attention(qo, jnp.asarray(kf), jnp.asarray(vf), *args, **kw)
     _vs_oracle(got, exact, 1e-4)
     # bfloat16 q: the output keeps q's dtype.
     got16 = td.paged_attention(torch.from_numpy(q).bfloat16(), tkp, tvp, torch.from_numpy(lengths),
@@ -322,8 +339,10 @@ def test_paged_prefill_quantized_matches_jax(case, dtype):
         k_scales_pages=tks, v_scales_pages=tvs, **kw)
     _vs_jax(got[:2], want[:2])
     assert torch.count_nonzero(got[2]) == 0
-    exact = jd.paged_prefill_attention_batched(jnp.asarray(q), jnp.asarray(kf), jnp.asarray(vf),
-                                               *jargs, **kw)
+    # q rounded to bf16, as both kernels take it over 8-bit pages.
+    qb = jnp.asarray(q).astype(jnp.bfloat16).astype(jnp.float32)
+    exact = jd.paged_prefill_attention_batched(qb, jnp.asarray(kf), jnp.asarray(vf), *jargs, **kw)
+    assert tf.kernel_form("paged_prefill", torch.bfloat16, d, quantized=True, page_size=ps) == "tc"
     _vs_oracle(got[:2], exact[:2], 1e-4)
     one = td.paged_prefill_attention(torch.from_numpy(q[0]), tkp, tvp, torch.from_numpy(table[0]),
                                      48, k_scales_pages=tks, v_scales_pages=tvs, **kw)

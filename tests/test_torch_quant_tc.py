@@ -4,8 +4,10 @@ K/V (``flash_fwd_tc_quant``).
 
 ``ops.flash.kernel_form`` sends bf16 q over 8-bit K/V at head_dim 64, 128
 and 256 to the tensor-core forms (paged prefill only on a page size their
-TMA boxes take), and float32 q, or 8-bit K/V with dropout or a block mask,
-to the scalar kernels' 8-bit forms.  The tensor-core forms compute what the
+TMA boxes take), float32 q over 8-bit K/V there too (taken in bf16, as the
+JAX kernels' default takes it: ``tests/test_torch_quant_f32q.py``), and
+8-bit K/V with dropout or a block mask, or float32 q in the exact
+precision modes, to the scalar kernels' 8-bit forms.  The tensor-core forms compute what the
 Pallas kernels compute, in their order: the payload converted to bf16
 (exact), the bf16 QK^T product in float32, score column j times
 ``k_scale[j]``, then the scale, softcap and masks; ``v_scale[j]`` folded into
@@ -143,7 +145,7 @@ def test_tc_prefill_8bit_rounding_moves_the_result(case, dtype):
     """The tc mirror (scales on the score columns and on P, P as two bf16
     terms) differs from the scalar form's (rows dequantized first, P in
     float32) by no more than the bound; it is the default for bf16 q, and
-    float32 q takes the scalar form."""
+    float32 q is taken in bf16 by the same form, O in float32."""
     (_, tq_), (_, (tkp, tks)), (_, (tvp, tvs)), table, ctx = _prefill_inputs(case, dtype, 2)
     kw = dict(_prefill_kw(case), k_scales_pages=tks, v_scales_pages=tvs)
     args = (tq_, tkp, tvp, torch.from_numpy(table), torch.from_numpy(ctx))
@@ -153,8 +155,8 @@ def test_tc_prefill_8bit_rounding_moves_the_result(case, dtype):
     assert 0.0 < gap < QUANT_TOL * max(1.0, float(scalar.float().abs().max()))
     assert torch.equal(td.paged_prefill_attention_plain(*args, **kw), tc)
     f32 = (tq_.float(), *args[1:])
-    assert torch.equal(td.paged_prefill_attention_plain(*f32, **kw),
-                       td.paged_prefill_attention_plain(*f32, form="scalar", **kw))
+    got = td.paged_prefill_attention_plain(*f32, **kw)
+    assert got.dtype == torch.float32 and torch.equal(got.to(torch.bfloat16), tc)
 
 
 def test_tc_prefill_8bit_is_the_forward_mirror_over_payloads():
@@ -244,7 +246,11 @@ def test_tc_flash_8bit_rounding_moves_the_result(case, dtype):
     # The scalar form is the float32 one over the rows dequantized first.
     deq = [x.payload.float() * x.scales[..., None] for x in (tk, tv)]
     assert torch.equal(scalar, tflash.flash_attention_plain(tq_, *deq, form="scalar", **kw))
-    # float32 q over 8-bit K/V: the scalar form.
+    # float32 q over 8-bit K/V: taken in bf16 by the tc form (the JAX
+    # default "bf16" mode), O in float32; the "float32" mode: the scalar form.
     f32 = (tq_.float(), *args[1:])
-    assert torch.equal(tflash.flash_attention(*f32, **sc, **kw),
-                       tflash.flash_attention_plain(*f32, form="scalar", **sc, **kw))
+    got = tflash.flash_attention(*f32, **sc, **kw)
+    assert got.dtype == torch.float32 and torch.equal(got.to(torch.bfloat16), tc)
+    assert torch.equal(tflash.flash_attention(*f32, precision="float32", **sc, **kw),
+                       tflash.flash_attention_plain(*f32, form="scalar", precision="float32",
+                                                    **sc, **kw))

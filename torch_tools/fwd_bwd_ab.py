@@ -22,10 +22,12 @@ flash_fwd, flash_bwd_dq and flash_bwd_dkv at ``chip_smoke.block_mask_checks``'
 shape (B = 4, 32 heads, S = 4096, d = 128, not causal) with no mask and under
 each of ``chip_smoke.BM_MASKS`` (prefix-LM, 512-token documents, strided),
 each in the form ROOT picks (``kernel_form``: before the tensor-core forms
-took block masks, the masked calls ran the scalar kernels).  It reads each
-library's ptxas registers and spill bytes for the timed instantiations
-without dropout or block masks (the libraries ROOT has, when this process
-built them).  One JSON line per ROOT, and all of them in
+took block masks, the masked calls ran the scalar kernels); and the
+forward's tensor-core 8-bit form (bf16 q over int8 K/V) at the prefill
+shape.  It reads each library's ptxas registers and spill bytes for the
+timed instantiations without dropout or block masks, and for every d = 128
+instantiation of the two 8-bit tensor-core forms' libraries (the libraries
+ROOT has, when this process built them).  One JSON line per ROOT, and all of them in
 ``chiprun_out/fwd_bwd_ab.json``.  Imports nothing of JAX.
 """
 
@@ -50,6 +52,8 @@ PTXAS = {
     "flash_bwd_dq_tc": "flash_bwd_dq_tc_kernel<128>",
     "flash_bwd_dkv_tc": "flash_bwd_tc_kernel<128,pair>",
 }
+# The 8-bit tensor-core forms' libraries: each d = 128 instantiation.
+PTXAS_8BIT = ("flash_fwd_tc_quant", "paged_prefill_tc_quant")
 
 
 def one(root: str) -> dict:
@@ -65,13 +69,16 @@ def one(root: str) -> dict:
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, not {root}")
     t0 = time.perf_counter()
-    built = kernels.build_all([n for n in PTXAS if n in kernels.KERNELS])
+    built = kernels.build_all([n for n in (*PTXAS, *PTXAS_8BIT) if n in kernels.KERNELS])
     build_s = time.perf_counter() - t0
     ptxas = {}
     for name, info in built.items():
         for rec in cs._ptxas(info["log"]):
-            if rec["kernel"] == PTXAS[name]:
-                ptxas[name] = {k: rec.get(k) for k in ("registers", "spill_stores", "spill_loads")}
+            regs = {k: rec.get(k) for k in ("registers", "spill_stores", "spill_loads")}
+            if name in PTXAS_8BIT and "<128" in rec["kernel"]:
+                ptxas.setdefault(name, {})[rec["kernel"]] = regs
+            elif rec["kernel"] == PTXAS.get(name):
+                ptxas[name] = regs
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, mult=1.0):
@@ -80,6 +87,9 @@ def one(root: str) -> dict:
     q, k, v = rand((4 * 32, 1024, 128)), rand((4 * 32, 1024, 128)), rand((4 * 32, 1024, 128))
     fwd_ms = benchit.cuda_time_ms(lambda: flash.flash_attention(q, k, v, causal=True,
                                                                 scale=128**-0.5))
+    (k8, ks), (v8, vs) = (cs._kv(gen, (4 * 32, 1024, 128), None, "int8") for _ in range(2))
+    fwd_q8_ms = benchit.cuda_time_ms(lambda: flash.flash_attention(
+        q, k8, v8, ks, vs, causal=True, scale=128**-0.5))
     bh, s, g = 8 * 8, 2048, 4
     q, k, v = rand((bh, g * s, 128)), rand((bh, s, 128)), rand((bh, s, 128))
     do = rand((bh, g * s, 128), 0.25)
@@ -93,7 +103,7 @@ def one(root: str) -> dict:
         "flash_bwd_dkv": lambda: backward.dkv_kernel(q, k, v, do, lse, di, **kw),
     }
     out = {"root": root, "card": benchit.card_info(), "build_s": build_s,
-           "flash_fwd_ms": fwd_ms,
+           "flash_fwd_ms": fwd_ms, "flash_fwd_int8_kv_ms": fwd_q8_ms,
            "pair_form": flash.kernel_form("flash_bwd_dq", torch.bfloat16, 128)}
     out.update({f"{n}_ms": benchit.cuda_time_ms(fn, warmup=1, iters=5) for n, fn in times.items()})
     # The pair at the packed layer, in ROOT's form and in the scalar one.

@@ -8,7 +8,10 @@ temporary directory once per mutant, breaks one thing in the 8-bit form of
 one serving kernel in the copy's CUDA sources, builds the copy's 8-bit
 kernel libraries (``*_quant``, paged decode's one per head_dim; one
 ``nvcc`` per library and copy, all started together) and runs chip_smoke's checks of that kernel on the copy
-over int8 and fp8 K/V, q in bfloat16 and float32, at every shape they hold
+over int8 and fp8 K/V, q in bfloat16 and float32, at every shape they hold,
+under ``ops.flash.scalar_forms`` so that they hold the scalar 8-bit forms
+this tool mutates (float32 q over 8-bit K/V is taken in bf16 there too, as
+on the serving route)
 (the main shapes, and the windowed models': Gemma-2's d = 256 with window
 4096 and softcap 50, Mistral's d = 128 with window 4096).  The copies of the
 paged kernels, and the unmutated one, also run chip_smoke's parity_quant
@@ -134,7 +137,8 @@ def run_checks(root: str, names, parity: bool) -> dict:
         for form in cs.QUANT_FORMS:
             for fn in CHECKS[name]:
                 gen = torch.Generator(device="cuda").manual_seed(0)
-                getattr(cs, fn)(*mods, benchit, gen, card, report, form)
+                with flash.scalar_forms():
+                    getattr(cs, fn)(*mods, benchit, gen, card, report, form)
     out = {"checks": {c["check"]: {k: c.get(k) for k in ("ok", "max_abs_err", "elem_err")}
                       for c in report["checks"]}}
     if parity:

@@ -2,10 +2,12 @@
 """How far ``verify_step``'s logits lie from the per-token ``decode_step``
 logits on the same cache, by depth and dtype, on one card.
 
-    python3 torch_tools/spec_drift.py [--seed N]
+    python3 torch_tools/spec_drift.py [--seed N] [--int8-cache]
 
 Llama-7B's attention width (random weights from --seed), cut to 2, 8 and 32
-layers, in bfloat16 and float32: four prompts of 100-1000 tokens (the
+layers, in bfloat16 and float32 (with ``--int8-cache``: float32 over an int8
+cache, as chip_smoke's serve_speculative ``int8_cache`` cell serves it,
+paged attention taking q in bf16): four prompts of 100-1000 tokens (the
 prompts of chip_smoke's serve_multistep and serve_speculative) are
 prefilled into a paged cache; four per-token decode steps then feed each
 request its own greedy tokens, and one verify step (k = 4) feeds the same
@@ -37,10 +39,11 @@ from flashattention_tpu_torch.runtime import kvcache  # noqa: E402
 K = 4
 
 
-def drift(params, cfg, prompts) -> dict:
+def drift(params, cfg, prompts, cache_dtype=None) -> dict:
     cache = kvcache.PagedKVCache(kvcache.CacheConfig(
         num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-        page_size=256, num_pages=24, dtype=cfg.dtype))
+        page_size=256, num_pages=24, dtype=cache_dtype or cfg.dtype))
+    scales = (cache.k_scales, cache.v_scales)
     b = len(prompts)
     fed = []
     for i, prompt in enumerate(prompts):
@@ -56,7 +59,7 @@ def drift(params, cfg, prompts) -> dict:
             params, torch.tensor([f[j] for f in fed], device="cuda"),
             torch.tensor([s + j for s in start], device="cuda"), cache.k_pages, cache.v_pages,
             lengths, table, torch.tensor([p for p, _ in slots]), torch.tensor([s for _, s in slots]),
-            cfg).float()
+            cfg, *scales).float()
         per_token.append(logits)
         for i in range(b):
             fed[i].append(int(logits[i].argmax()))
@@ -67,7 +70,7 @@ def drift(params, cfg, prompts) -> dict:
     verify = T.verify_step(
         params, torch.tensor([f[:K] for f in fed], device="cuda"), torch.tensor(start, device="cuda"),
         cache.k_pages, cache.v_pages, table, torch.tensor([[p for p, _ in r] for r in slots]),
-        torch.tensor([[s for _, s in r] for r in slots]), cfg).float()
+        torch.tensor([[s for _, s in r] for r in slots]), cfg, *scales).float()
     per_token = torch.stack(per_token, 1)  # (B, K, V)
     diff = (verify - per_token).abs().amax(-1)
     top2 = per_token.topk(2, dim=-1).values
@@ -81,6 +84,8 @@ def drift(params, cfg, prompts) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--int8-cache", action="store_true",
+                    help="float32 over an int8 cache only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("spec_drift: no CUDA device", file=sys.stderr)
@@ -90,19 +95,23 @@ def main() -> int:
     rng = np.random.default_rng(args.seed + 50)
     prompts = [rng.integers(0, 32000, size=int(n)) for n in lens]
     out = {"card": torch.cuda.get_device_name(0)}
-    for dtype in ("bfloat16", "float32"):
+    runs = [("float32", "int8")] if args.int8_cache else [("bfloat16", None), ("float32", None)]
+    for dtype, cache_dtype in runs:
         full = dataclasses.replace(T.ModelConfig.llama7b_attention(), num_layers=32, dtype=dtype)
         params = T.init_params(args.seed, full)
         for layers in (2, 8, 32):
             cfg = dataclasses.replace(full, num_layers=layers)
-            rec = drift({**params, "layers": params["layers"][:layers]}, cfg, prompts)
-            out[f"{dtype}_L{layers}"] = rec
-            print(json.dumps({"dtype": dtype, "layers": layers, **rec}), flush=True)
+            rec = drift({**params, "layers": params["layers"][:layers]}, cfg, prompts, cache_dtype)
+            tag = dtype + (f"_{cache_dtype}_cache" if cache_dtype else "")
+            out[f"{tag}_L{layers}"] = rec
+            print(json.dumps({"dtype": dtype, "cache": cache_dtype or dtype, "layers": layers,
+                              **rec}), flush=True)
             torch.cuda.empty_cache()
         del params
         torch.cuda.empty_cache()
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "spec_drift.json"), "w") as fh:
+    name = "spec_drift_int8.json" if args.int8_cache else "spec_drift.json"
+    with open(os.path.join("chiprun_out", name), "w") as fh:
         json.dump(out, fh, indent=1)
     return 0
 
