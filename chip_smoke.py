@@ -442,6 +442,12 @@ KERNELS = (
     # The forward's float32 form (float32 q, k, v as bf16 terms: the JAX
     # precision modes "bf16_3x" and "bf16"), built with -DFA_F32.
     ("flash_fwd_tc_f32", "flash_fwd_tc.cu", "ops/flash.py:628"),
+    # Float32 split into bf16 terms in shared memory (csrc/flash_fwd_f32.cuh):
+    # the forward's "float32" mode (XLA's HIGHEST, six products) at d = 64,
+    # 128 and 256 and its "bf16_3x" at 256, built into flash_fwd_tc_f32; and
+    # chunked prefill over float32 pools, paged_prefill_tc.cu with -DFA_F32.
+    ("flash_fwd_f32", "flash_fwd_f32.cuh", "ops/flash.py:628"),
+    ("paged_prefill_tc_f32", "paged_prefill_tc.cu", "ops/decode.py:375"),
 )
 TC_KERNELS = {"flash_fwd": "flash_fwd_tc", "flash_bwd": "flash_bwd_tc",
               "paged_prefill": "paged_prefill_tc", "flash_bwd_dq": "flash_bwd_dq_tc",
@@ -484,6 +490,7 @@ _MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8", "13__nv_fp
 # Each kernel's bool template arguments, in order (the others': window_cap, extra).
 _FLAGS = {"paged_decode_kernel": ("window_cap", "draft"), "flash_fwd_kernel": ("extra",),
           "flash_fwd_tc_kernel": ("window_cap", "extra", "paged"),
+          "flash_fwd_f32_kernel": ("window_cap", "paged"),
           "flash_bwd_tc_kernel": ("window_cap", "extra", "pair"),
           "flash_bwd_tc_d256_kernel": ("window_cap", "extra", "pair"),
           "probe_kernel": ("vt", "kt"), "probe_t_kernel": ("vt", "o_norm")}
@@ -589,15 +596,18 @@ def _check_name(kernel, case, dt, form):
     return f"{kernel}/{case}/{dt}" if form is None else f"{kernel}/quant/{case}/{form}/{dt}"
 
 
-def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dropout=False):
+def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dropout=False,
+           precision=None):
     """The kernel a call of ``kernel`` on ``q`` launches: its tensor-core
     form's name where ``ops.flash.kernel_form`` picks it (bf16 at its
     head_dims, a block mask in the flash forward and the pair over 16-bit
     K/V, 8-bit K/V in the forwards and paged decode too; the paged kernels:
     a page size they take; paged decode: at most 32 q rows per KV head,
     q's second-to-last dimension), the forward's
-    float32 form's (``flash_fwd_tc_f32``) for float32 q at its head_dims,
-    else ``kernel``.  Float32 q over 8-bit K/V is taken in bf16 (the JAX
+    float32 form's for float32 q at its head_dims (``flash_fwd_f32``, the
+    kernel that splits in shared memory, in ``precision`` "float32" and in
+    "bf16_3x" at d = 256, else ``flash_fwd_tc_f32``), chunked prefill's over
+    float32 pools (``paged_prefill_tc_f32``), else ``kernel``.  Float32 q over 8-bit K/V is taken in bf16 (the JAX
     kernels' default), so its form is the bf16 call's.
     A check of an 8-bit form is named ``<kernel>/quant/...``
     (``_check_name``), so the tensor-core 8-bit forms' checks read
@@ -611,8 +621,11 @@ def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dr
     form = tc and flash.kernel_form(kernel, dt, q.shape[-1], quantized=quantized,
                                     block_mask=block_mask, page_size=page_size, rows=rows,
                                     dropout=dropout)
-    if form == "tc_f32":  # float32 in the default "bf16_3x"
-        return "flash_fwd_tc_f32"
+    if form == "tc_f32":
+        if kernel == "paged_prefill":
+            return "paged_prefill_tc_f32"
+        mode = flash.resolve_precision(precision, torch.float32)
+        return "flash_fwd_f32" if flash.f32_split(q.shape[-1], mode) else "flash_fwd_tc_f32"
     return tc if form == "tc" else kernel
 
 
@@ -634,7 +647,7 @@ def _scalar_twin(flash, benchit, rec, run, plain, dt, tol, flush_bytes=0):
     with flash.scalar_forms():
         got, want = run(), plain()
         torch.cuda.synchronize()
-        twin = _rec(rec["check"].replace("_tc/", "/", 1), got, want, dt, tol,
+        twin = _rec(re.sub(r"_tc(_f32)?/", "/", rec["check"], count=1), got, want, dt, tol,
                     form="scalar (ops.flash.scalar_forms)",
                     **{k: rec[k] for k in ("shape", "live_pairs", "live_rows", "lengths")
                        if k in rec})
@@ -708,16 +721,28 @@ def flash_checks(fa, flash, benchit, gen, card, report, form=None):
                     out["main"] = twin
             if name == "prefill" and dt == "float32" and form is None:
                 # Row 1's float32 forms: this check's (the float32 form in
-                # "bf16_3x"), its "bf16" mode and the exact kernel's row.
-                scalar_plain = lambda: flash.flash_attention_plain(  # noqa: E731
-                    q3, k3, v3, causal=True, scale=scale, q_offset=s_kv - s_q, q_seq_len=s_q,
-                    form="scalar").reshape(q.shape)
-                twin = _f32_timed(fa, flash, benchit, card, rec, q, k, v, plain, scalar_plain,
-                                  dict(causal=True, scale=scale))
+                # "bf16_3x"), its "bf16" mode, the "float32" mode's
+                # (flash_fwd_f32) and the scalar kernel's row.
+                kw1 = dict(causal=True, scale=scale, q_offset=s_kv - s_q, q_seq_len=s_q)
+                twin, exact = _f32_timed(
+                    flash, benchit, card, rec,
+                    lambda mode=None: fa.attention(q, k, v, causal=True, scale=scale,
+                                                   precision=mode),
+                    lambda mode=None: flash.flash_attention_plain(
+                        q3, k3, v3, precision=mode, **kw1).reshape(q.shape),
+                    lambda: flash.flash_attention_plain(q3, k3, v3, form="scalar",
+                                                        **kw1).reshape(q.shape),
+                    d=d, pairs=b * h * s_q * (s_q + 1) // 2,
+                    nbytes=4 * (2 * q.numel() + 2 * k.numel()),
+                    sdpa=lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, scale=scale),
+                    library="scaled_dot_product_attention, float32, is_causal")
                 report.setdefault("tc_timed", {})["flash_fwd_tc_f32"] = rec
+                report["tc_timed"]["flash_fwd_f32"] = exact
                 report.setdefault("float32_timed", {})["flash_fwd"] = twin
-                emit(twin)
-                report["checks"].append(twin)
+                for r in (twin, exact):
+                    emit(r)
+                    report["checks"].append(r)
             emit(rec)
             report["checks"].append(rec)
     # save_residuals with a live length: cross-attention rows at the end of
@@ -741,52 +766,65 @@ def flash_checks(fa, flash, benchit, gen, card, report, form=None):
     return out["main"]
 
 
-def _f32_timed(fa, flash, benchit, card, rec, q, k, v, plain, scalar_plain, kw):
-    """Times of one float32 ``attention`` call's forms on the same inputs
-    (``(B, H, S, d)``, S_q = S_kv): ``rec``, the default call's check (the
-    float32 form in "bf16_3x"), gains its kernel, plain and SDPA float32
-    times, its one-pass "bf16" mode's (``bf16_mode_ms``), the exact
-    kernel's (``scalar_ms``) and its bound: float32 q, k, v and o once over
-    the memory rate, or the machine's bf16 products (``f32_products`` each
-    for S and PV, 2 d flops a live pair each) over the bf16 peak.  Returns
-    the exact kernel's own check (``precision="float32"`` against the
-    scalar plain version, ``scalar_plain``), with its times and bound."""
-    b, h, s, d = q.shape
-    pairs = b * h * (s * (s + 1) // 2 if kw["causal"] else s * s)
-    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, is_causal=kw["causal"], scale=kw["scale"])
-    run = lambda mode=None: fa.attention(q, k, v, precision=mode, **kw)  # noqa: E731
+def _f32_timed(flash, benchit, card, rec, run, plain, scalar_plain, *, d, pairs, nbytes, sdpa,
+               library):
+    """Times of one float32 ``attention`` call's forms on the same inputs:
+    ``rec``, the default call's check (``run()``, the float32 form in
+    "bf16_3x"), gains its kernel, plain (``plain()``) and ``sdpa`` times
+    (``library``), its one-pass "bf16" mode's (``bf16_mode_ms``), the
+    "float32" mode's (``exact_ms``), the scalar kernel's (``scalar_ms``) and
+    its bound: ``nbytes`` (float32 q, k, v and o once) over the memory rate,
+    or the bf16 products (``f32_products`` each for S and PV, 2 d flops a
+    live pair each, over ``pairs``) over the bf16 peak.  Returns the scalar
+    kernel's own check (``precision="float32"`` under
+    ``ops.flash.scalar_forms`` against ``scalar_plain()``) and the
+    "float32" mode's (``flash_fwd_f32``: ``run("float32")`` against
+    ``plain("float32")``, six products each for S and PV over the bf16
+    peak), each with its times and bound."""
     n = flash.f32_products(d)
     rec.update(kernel_ms=benchit.cuda_time_ms(run, warmup=1, iters=5),
                plain_ms=benchit.cuda_time_ms(plain, warmup=1, iters=3),
                bf16_mode_ms=benchit.cuda_time_ms(lambda: run("bf16"), warmup=1, iters=5),
-               library_ms=benchit.cuda_time_ms(sdpa, warmup=1, iters=5),
-               library="scaled_dot_product_attention, float32"
-               + (", is_causal" if kw["causal"] else ""),
+               library_ms=benchit.cuda_time_ms(sdpa, warmup=1, iters=5), library=library,
                products=f"{n} for S, {n} for PV", live_pairs=pairs,
                **benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * n * d * pairs,
                                   dtype="bfloat16"))
-    got, want = run("float32"), scalar_plain()
+    case = rec["check"].split("/", 1)[1]
+    got, want = run("float32"), plain("float32")
     torch.cuda.synchronize()
-    twin = _rec(rec["check"].replace("flash_fwd_tc_f32/", "flash_fwd/", 1), got, want, "float32",
-                FLASH_TOL["float32"], shape=rec.get("shape"),
-                form='exact float32 (precision="float32")')
-    twin.update(kernel_ms=benchit.cuda_time_ms(lambda: run("float32"), warmup=1, iters=5),
-                plain_ms=benchit.cuda_time_ms(scalar_plain, warmup=1, iters=3),
-                library_ms=rec["library_ms"], library=rec["library"],
+    exact = _rec(f"flash_fwd_f32/{case}/precision_float32", got, want, "float32",
+                 FLASH_TOL["float32"], shape=rec.get("shape"),
+                 form='the float32 form in "float32" (three bf16 terms, six products)')
+    exact.update(kernel_ms=benchit.cuda_time_ms(lambda: run("float32"), warmup=1, iters=5),
+                 plain_ms=benchit.cuda_time_ms(lambda: plain("float32"), warmup=1, iters=3),
+                 library_ms=rec["library_ms"], library=library, products="6 for S, 6 for PV",
+                 live_pairs=pairs,
+                 **benchit.bound_ms(card, bytes_moved=nbytes, flops=24 * d * pairs,
+                                    dtype="bfloat16"))
+    with flash.scalar_forms():
+        got, want = run("float32"), scalar_plain()
+        torch.cuda.synchronize()
+        twin = _rec(f"flash_fwd/{case}", got, want, "float32", FLASH_TOL["float32"],
+                    shape=rec.get("shape"), form='exact float32 (the scalar kernel)')
+        twin["kernel_ms"] = benchit.cuda_time_ms(lambda: run("float32"), warmup=1, iters=3)
+    twin.update(plain_ms=benchit.cuda_time_ms(scalar_plain, warmup=1, iters=3),
+                library_ms=rec["library_ms"], library=library, live_pairs=pairs,
                 **benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * d * pairs,
                                    dtype="float32"))
-    rec["scalar_ms"] = twin["kernel_ms"]
-    return twin
+    rec["scalar_ms"] = exact["scalar_ms"] = twin["kernel_ms"]
+    rec["exact_ms"] = exact["kernel_ms"]
+    return twin, exact
 
 
-# The forward's float32 form (flash_fwd_tc_f32): float32 q, k, v in the
-# JAX precision modes "bf16_3x" (the default) and "bf16", at d = 64 and 128,
-# held against its plain version (F32_FORM_TOL of the output's magnitude)
-# and, in "bf16_3x", within 1e-4 of the exact scalar kernel's output.
-F32_FORM_TOL = {"bf16_3x": 1e-4, "bf16": 2e-2}
-F32_EXACT_TOL = 1e-4  # "bf16_3x" against the exact kernel ("bf16": recorded only)
+# The forward's float32 form: float32 q, k, v in the JAX precision modes
+# "bf16_3x" (the default), "bf16" and "float32" (XLA's HIGHEST), at d = 64,
+# 128 and 256 (flash_fwd_tc_f32, and flash_fwd_f32 where ops.flash.f32_split
+# says so), held against its plain version (F32_FORM_TOL of the output's
+# magnitude) and, in "bf16_3x" and "float32", within 1e-4 of the scalar
+# kernel's exact float32 output.
+F32_MODES = ("bf16_3x", "bf16", "float32")
+F32_FORM_TOL = {"bf16_3x": 1e-4, "bf16": 2e-2, "float32": 1e-4}
+F32_EXACT_TOL = 1e-4  # against the scalar kernel ("bf16": recorded only)
 # (BH, G, S_q, S_kv, kwargs): folded q (BH, G S_q, d) against (BH, S_kv, d)
 F32_FORM_CASES = {
     "causal": (16, 1, 1000, 1000, dict(causal=True)),
@@ -797,7 +835,16 @@ F32_FORM_CASES = {
     "window_softcap": (16, 1, 1000, 1000, dict(causal=True, window=300, logit_softcap=30.0)),
     "segments": (16, 1, 1000, 1000, dict(causal=False, segments=True)),
     "lo_term": (8, 1, 512, 512, dict(causal=True, lo_term=True)),
+    # "float32" alone: probes.lo3_term_f32_qkv's inputs, whose third-term
+    # products move the output by far more than the tolerance, and
+    # probes.v3_term_f32_qkv's, whose rows are V's (a form without V's third
+    # term misses by 3.7e-4, held at FLASH_TOL absolute).  The scalar kernel
+    # rounds their scores near 4096 to float32 once a product (2^-12), which
+    # is the size of those terms: they are not held to it.
+    "lo3_term": (8, 1, 512, 512, dict(causal=True, lo3_term=True)),
+    "v3_term": (16, 1, 0, 0, dict(causal=True, v3_term=True)),
 }
+F32_EXACT_ONLY = ("lo3_term", "v3_term")
 F32_HEADLINE = dict(b=2, h=8, s=8192, d=64)  # cli/bench.py's headline, non-causal
 
 
@@ -807,6 +854,12 @@ def _f32_case(probes, gen, d, case):
     kw = dict(kw)
     if kw.pop("lo_term", False):
         q, k, v = probes.lo_term_f32_qkv(bh, s_kv, d, generator=gen, device="cuda")
+        return q, k, v, dict(kw, scale=1.0)
+    if kw.pop("lo3_term", False):
+        q, k, v = probes.lo3_term_f32_qkv(bh, s_kv, d, generator=gen, device="cuda")
+        return q, k, v, dict(kw, scale=1.0)
+    if kw.pop("v3_term", False):
+        q, k, v = probes.v3_term_f32_qkv(bh, d, generator=gen, device="cuda")
         return q, k, v, dict(kw, scale=1.0)
     q = torch.randn((bh, g * s_q, d), generator=gen, device="cuda")
     k, v = (torch.randn((bh, s_kv, d), generator=gen, device="cuda") for _ in range(2))
@@ -819,16 +872,23 @@ def _f32_case(probes, gen, d, case):
     return q, k, v, dict(kw, scale=d**-0.5)
 
 
-def _f32_hold(flash, check, q, k, v, mode, kw):
+def _f32_hold(flash, check, q, k, v, mode, kw, exact_tol=F32_EXACT_TOL, abs_tol=None):
     """One call of the float32 form on the card against its plain version
-    and the exact kernel (``precision="float32"``, which must launch the
-    scalar kernel); the residuals within STATS_RTOL."""
-    n = flash.flash_attention.launches_tc_f32
+    and the scalar kernel's exact float32 (``precision="float32"`` under
+    ``ops.flash.scalar_forms``, which must launch it) within ``exact_tol``
+    (None: recorded only; never in "bf16"), and, with ``abs_tol``, within
+    that of its plain version absolutely; the call must launch the form's
+    kernel (``flash_fwd_f32`` where ``ops.flash.f32_split`` says so); the
+    residuals within STATS_RTOL."""
+    fa_ = flash.flash_attention
+    n = fa_.launches_tc_f32, fa_.launches_tc_f32_split
     got = flash.flash_attention(q, k, v, precision=mode, **kw)
-    launched = flash.flash_attention.launches_tc_f32 - n
+    launched = fa_.launches_tc_f32 - n[0]
+    split = fa_.launches_tc_f32_split - n[1] == int(flash.f32_split(q.shape[-1], mode))
     want = flash.flash_attention_plain(q, k, v, precision=mode, **kw)
     n = flash.flash_attention.launches, flash.flash_attention.launches_tc_f32
-    exact = flash.flash_attention(q, k, v, precision="float32", **kw)
+    with flash.scalar_forms():
+        exact = flash.flash_attention(q, k, v, precision="float32", **kw)
     scalar = (flash.flash_attention.launches - n[0], flash.flash_attention.launches_tc_f32 - n[1])
     torch.cuda.synchronize()
     stats = {}
@@ -839,36 +899,45 @@ def _f32_hold(flash, check, q, k, v, mode, kw):
     norm = float(want.abs().max())
     rec = {"check": check, "max_abs_err": err(got, want), "rel_err": err(got, want) / norm,
            "tol": F32_FORM_TOL[mode], "exact_rel_err": err(got, exact) / norm,
-           "exact_tol": F32_EXACT_TOL if mode == "bf16_3x" else None, "launches": launched,
+           "exact_tol": exact_tol if mode != "bf16" else None, "abs_tol": abs_tol,
+           "launches": launched, "launched_its_kernel": split,
            "exact_launched_scalar": scalar == (1, 0), **stats,
            "tol_of": "the output's largest magnitude"}
-    rec["ok"] = (launched == 1 and scalar == (1, 0) and rec["rel_err"] <= rec["tol"]
+    rec["ok"] = (launched == 1 and split and scalar == (1, 0) and rec["rel_err"] <= rec["tol"]
                  and (rec["exact_tol"] is None or rec["exact_rel_err"] <= rec["exact_tol"])
+                 and (abs_tol is None or rec["max_abs_err"] <= abs_tol)
                  and all(x <= STATS_RTOL for x in stats.values()))
     return rec
 
 
 def f32_form_checks(fa, flash, probes, benchit, gen, card, report, timed=True):
-    """The float32 form at d = 64 and 128 in both modes over F32_FORM_CASES
-    (causal and not, the GQA fold, kv_len / q_offset with the residuals, a
-    window with a softcap, segment ids, and ``probes.lo_term_f32_qkv``'s
-    inputs, on which a form without a cross product or a second term misses
-    by far more than the tolerance), each against its plain version and the
-    exact kernel; NaN in K/V rows past kv_len, and in every row of the
-    next head (behind kv_len; behind a ragged S, where the last tiles of q,
-    K and V reach in memory), the first head's output bitwise the clean
-    inputs'; then (``timed``) timed at cli/bench.py's headline shape beside
-    the exact kernel, SDPA float32 and the bound.  Returns the headline's
-    record (None untimed); ``torch_tools/f32_mutants.py`` shows that these
-    checks fail a form without one of its cross products or second terms."""
-    for d, mode, case in itertools.product(flash.TC_F32_HEAD_DIMS, ("bf16_3x", "bf16"),
-                                           F32_FORM_CASES):
+    """The float32 form at d = 64, 128 and 256 in the three modes over
+    F32_FORM_CASES (causal and not, the GQA fold, kv_len / q_offset with
+    the residuals, a window with a softcap, segment ids, and
+    ``probes.lo_term_f32_qkv``'s inputs, on which a form without a cross
+    product or a second term misses by far more than the tolerance; in
+    "float32" also ``probes.lo3_term_f32_qkv``'s and ``v3_term_f32_qkv``'s,
+    on which a form without a third-term product or V's third term misses),
+    each against its plain version and the scalar kernel; NaN in K/V rows
+    past kv_len, and in every row of the next head (behind kv_len; behind a
+    ragged S, where the last tiles of q, K and V reach in memory), the
+    first head's output bitwise the clean inputs'; then (``timed``) timed
+    at cli/bench.py's headline shape beside the "float32" mode, the scalar
+    kernel, SDPA float32 and the bound.  Returns the headline's record
+    (None untimed); ``torch_tools/f32_mutants.py`` shows that these checks
+    fail a form without one of its cross products or its terms.  A check is
+    named by the kernel that runs it (``_kname``)."""
+    for d, mode, case in itertools.product(flash.TC_F32_HEAD_DIMS, F32_MODES, F32_FORM_CASES):
+        if case in F32_EXACT_ONLY and mode != "float32":
+            continue
         q, k, v, kw = _f32_case(probes, gen, d, case)
-        rec = _f32_hold(flash, f"flash_fwd_tc_f32/{case}/d{d}/{mode}", q, k, v, mode, kw)
+        rec = _f32_hold(flash, f"{_kname('flash_fwd', q, precision=mode)}/{case}/d{d}/{mode}",
+                        q, k, v, mode, kw,
+                        exact_tol=None if case in F32_EXACT_ONLY else F32_EXACT_TOL,
+                        abs_tol=FLASH_TOL["float32"] if case == "v3_term" else None)
         emit(rec)
         report["checks"].append(rec)
-    for d, mode, past in itertools.product(flash.TC_F32_HEAD_DIMS, ("bf16_3x", "bf16"),
-                                           ("kv_len", "s")):
+    for d, mode, past in itertools.product(flash.TC_F32_HEAD_DIMS, F32_MODES, ("kv_len", "s")):
         if past == "kv_len":
             q, k, v, kw = _f32_case(probes, gen, d, "kv_len_residuals")
             kw.pop("save_residuals")
@@ -883,7 +952,8 @@ def f32_form_checks(fa, flash, probes, benchit, gen, card, report, timed=True):
         qp[1:], kp[1:], vp[1:] = float("nan"), float("nan"), float("nan")
         got = flash.flash_attention(qp, kp, vp, precision=mode, **kw)
         torch.cuda.synchronize()
-        rec = {"check": f"flash_fwd_tc_f32/nan_poison/past_{past}/d{d}/{mode}",
+        kname = _kname("flash_fwd", q, precision=mode)
+        rec = {"check": f"{kname}/nan_poison/past_{past}/d{d}/{mode}",
                "ok": bool(torch.equal(got[0], clean[0]))}
         emit(rec)
         report["checks"].append(rec)
@@ -893,16 +963,22 @@ def f32_form_checks(fa, flash, probes, benchit, gen, card, report, timed=True):
     q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda") for _ in range(3))
     kw = dict(causal=False, scale=d**-0.5)
     q3, k3, v3 = (x.reshape(b * h, s, d) for x in (q, k, v))
-    plain = lambda form=None: flash.flash_attention_plain(  # noqa: E731
-        q3, k3, v3, form=form, **kw).reshape(q.shape)
+    plain = lambda mode=None, form=None: flash.flash_attention_plain(  # noqa: E731
+        q3, k3, v3, form=form, precision=mode, **kw).reshape(q.shape)
     o = fa.attention(q, k, v, **kw)
     rec = _rec("flash_fwd_tc_f32/headline/float32", o, plain(), "float32", FLASH_TOL["float32"],
                shape=f"B={b} H={h} S={s} d={d} non-causal (cli/bench.py's headline)")
-    twin = _f32_timed(fa, flash, benchit, card, rec, q, k, v, plain, lambda: plain("scalar"), kw)
-    for r in (rec, twin):
+    twin, exact = _f32_timed(
+        flash, benchit, card, rec, lambda mode=None: fa.attention(q, k, v, precision=mode, **kw),
+        plain, lambda: plain(form="scalar"), d=d, pairs=b * h * s * s,
+        nbytes=4 * 4 * q.numel(),
+        sdpa=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=kw["scale"]),
+        library="scaled_dot_product_attention, float32")
+    for r in (rec, twin, exact):
         emit(r)
         report["checks"].append(r)
     report.setdefault("tc_timed", {})["flash_fwd_tc_f32/headline"] = rec
+    report["tc_timed"]["flash_fwd_f32/headline"] = exact
     del q, k, v, q3, k3, v3
     torch.cuda.empty_cache()
     return rec
@@ -1011,13 +1087,26 @@ def _prefill_work(ctx_lens, chunk, seg, g, kvh, d, window=None):
     return pairs * g * kvh, 4 * pairs * g * kvh * d
 
 
+def _prefill_bound(benchit, card, rec, kname, nbytes, flops, dt):
+    """A paged-prefill record's bound: ``flops`` (one product each for S
+    and PV) over ``dt``'s peak, or, for the float32 form, the six bf16
+    products each that XLA's HIGHEST takes over the bf16 peak."""
+    if kname == "paged_prefill_tc_f32":
+        rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=6 * flops, dtype="bfloat16"),
+                   products="6 for S, 6 for PV")
+    else:
+        rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dt))
+
+
 def prefill_checks(decode, benchit, gen, card, report, form=None):
     """Paged prefill: MHA (32 KV heads, G=1) at the engine's chunk, GQA
     (8 KV heads, G=4) with seg > chunk and a ctx = 0 row, the single form;
     with ``form`` (int8 or fp8) over 8-bit pages with per-row scales.  In
     bf16 the tensor-core form runs (``paged_prefill_tc/...``, against the
-    plain version with its rounding); at the MHA shape the scalar form is
-    timed and checked beside it."""
+    plain version with its rounding), over float32 pools its float32 form
+    (``paged_prefill_tc_f32/...``); at the MHA shape the scalar form is
+    timed and checked beside each (its float32 record is the scalar row's,
+    ``float32_timed``)."""
     from flashattention_tpu_torch.ops import flash
 
     out = {}
@@ -1072,17 +1161,22 @@ def prefill_checks(decode, benchit, gen, card, report, form=None):
                     + 4 * (b + live_pages)  # ctx_lens, the table entries read
                 )
                 rec["live_pairs"] = pairs
-                rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dt))
-                if dt == "float32":
+                _prefill_bound(benchit, card, rec, kname, nbytes, flops, dt)
+                if dt == "float32" and kname != "paged_prefill_tc_f32":
                     report.setdefault("float32_timed", {})["paged_prefill"] = rec
-                else:
+                elif dt == "bfloat16":
                     out["main"] = rec
-                if kname == "paged_prefill_tc":
+                if kname in ("paged_prefill_tc", "paged_prefill_tc_f32"):
                     twin = _scalar_twin(flash, benchit, rec, kernel, plain, dt, PREFILL_TOL[dt])
                     report.setdefault("tc_timed", {})[_tc_key(kname, None, form)] = rec
+                    if kname == "paged_prefill_tc_f32":  # the scalar kernel's own bound
+                        twin.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops,
+                                                     dtype="float32"))
+                        report.setdefault("float32_timed", {})["paged_prefill"] = twin
+                    else:
+                        out["main"] = twin
                     emit(twin)
                     report["checks"].append(twin)
-                    out["main"] = twin
             emit(rec)
             report["checks"].append(rec)
             del kp, vp, ks, vs, q, o, want
@@ -1105,7 +1199,7 @@ def _poison_pool(pools, scales, table, lens, first_of, ps, nan):
                 x[page, :, max(lo, hi):] = v
 
 
-def prefill_poison_check(decode, gen, report):
+def prefill_poison_check(decode, gen, report, dtypes=("bfloat16", "float32")):
     """The tensor-core paged prefill reads no K/V row that no query row may
     see: at the Gemma-2 window shape, GQA with seg > chunk, and a page size
     below the KV tile (the tile built from several pages), every pool row
@@ -1114,7 +1208,10 @@ def prefill_poison_check(decode, gen, report):
     filled with NaN; the output must equal the clean pool's, bit for bit
     (and be finite).  The fp8 cases do the same over fp8 pages, through the
     8-bit form: those rows' payload bytes are 0x7F (NaN in e4m3) and their
-    scales NaN."""
+    scales NaN; the float32 cases over float32 pools and q, through the
+    float32 form (``paged_prefill_tc_f32``), whose output is also held
+    against its plain version.  ``dtypes``: the pools' types to run (fp8
+    with "bfloat16")."""
     cases = (
         ("gemma2_d256_w4096_cap50", dict(kvh=8, g=2, d=256, ps=PAGE_SIZE, pps=24, chunk=512,
                                          seg=512, window=4096, cap=50.0,
@@ -1126,16 +1223,20 @@ def prefill_poison_check(decode, gen, report):
     )
     cases += tuple((name, {**c, "form": "fp8"}) for name, c in cases
                    if name in ("gemma2_d256_w4096_cap50", "page32_d64_w100"))
+    cases += tuple((name, {**c, "dtype": "float32"}) for name, c in cases[:3])
     recs = []
     for name, c in cases:
+        if c.get("dtype", "bfloat16") not in dtypes:
+            continue
         b, ps, pps, d = len(c["ctx"]), c["ps"], c["pps"], c["d"]
         form = c.get("form")
         pages = b * pps + 4
         ctx = torch.tensor(c["ctx"], dtype=torch.int32, device="cuda")
+        dt = c.get("dtype", "bfloat16")
         (kp, ks), (vp, vs), table = _paged_pool(gen, c["ctx"], pps, pages, (c["kvh"], ps, d),
-                                                torch.bfloat16, form)
+                                                DTYPES[dt], form)
         q = torch.randn((b, c["kvh"], c["g"] * c["seg"], d), generator=gen,
-                        device="cuda").to(torch.bfloat16)
+                        device="cuda").to(DTYPES[dt])
         kw = dict(chunk=c["chunk"], seg=c["seg"], scale=d**-0.5, window=c["window"],
                   logit_softcap=c["cap"])
         clean = decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw,
@@ -1155,12 +1256,16 @@ def prefill_poison_check(decode, gen, report):
         equal = bool(torch.equal(poisoned, clean))
         finite = bool(torch.isfinite(poisoned).all())
         check = _check_name(_kname("paged_prefill", q, form is not None, page_size=ps),
-                            f"nan_poison/{name}", "bfloat16", form)
+                            f"nan_poison/{name}", dt, form)
         rec = {"check": check,
                "shape": f"B={b} KVH={c['kvh']} G={c['g']} d={d} ps={ps} chunk={c['chunk']} "
                         f"seg={c['seg']} window={c['window']} cap={c['cap']}",
                "ctx_lens": c["ctx"], "bitwise_equal": equal, "finite": finite,
                "max_abs_err": err(poisoned.nan_to_num(), clean), "ok": equal and finite}
+        if dt == "float32":  # the float32 form against its plain version too
+            want = decode.paged_prefill_attention_plain(q, kp, vp, table, ctx, **kw)
+            rec.update(plain_err=err(clean, want), tol=PREFILL_TOL[dt])
+            rec["ok"] = rec["ok"] and rec["plain_err"] <= PREFILL_TOL[dt]
         emit(rec)
         report["checks"].append(rec)
         recs.append(rec)
@@ -1437,7 +1542,9 @@ def flash_window_checks(fa, flash, benchit, gen, card, report, form=None):
     the window of 4096; 5000 rows per segment, so 32-row tiles cross GQA
     segments), causal; with ``form`` (int8 or fp8) over 8-bit K/V.  Timed
     at Gemma's shape in bfloat16: kernel, plain version, and SDPA with the
-    window as a boolean mask and no softcap."""
+    window as a boolean mask and no softcap; unquantized in float32 too,
+    the float32 form in "bf16_3x" (flash_fwd_f32 at d = 256) beside its
+    "float32" mode and the scalar kernel (``_f32_timed``)."""
     out = {}
     b, s = 1, 5000
     for name, c in WINDOW_CASES:
@@ -1457,6 +1564,32 @@ def flash_window_checks(fa, flash, benchit, gen, card, report, form=None):
             torch.cuda.synchronize()
             rec = _rec(_check_name(_kname("flash_fwd", q, form is not None), name, dt, form), o,
                        want, dt, FLASH_TOL[dt], shape=f"B={b} H={kvh * g} KVH={kvh} S={s} d={d}")
+            if dt == "float32" and name == TIMED_WINDOW_CASE and form is None:
+                pos = torch.arange(s, device="cuda")
+                mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - c["window"])
+                kr, vr = (x.repeat_interleave(g, dim=1) for x in (k, v))
+                twin, exact = _f32_timed(
+                    flash, benchit, card, rec,
+                    lambda mode=None: fa.attention(q, k, v, precision=mode, **kw),
+                    lambda mode=None: flash.flash_attention_plain(
+                        q3, k3, v3, q_seq_len=s, precision=mode, **kw).reshape(q.shape),
+                    lambda: flash.flash_attention_plain(q3, k3, v3, q_seq_len=s, form="scalar",
+                                                        **kw).reshape(q.shape),
+                    d=d, pairs=b * kvh * g * _window_pairs(s, c["window"]),
+                    nbytes=4 * (2 * q.numel() + 2 * k.numel()),
+                    sdpa=lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, kr, vr, attn_mask=mask, scale=kw["scale"]),
+                    library=("scaled_dot_product_attention, float32, boolean causal+window mask, "
+                             "K/V repeated to 16 heads untimed; no softcap (SDPA cannot "
+                             "express it)"))
+                kname = _kname("flash_fwd", q)
+                report.setdefault("tc_timed", {})[f"{kname}/d256_window_softcap"] = rec
+                report["tc_timed"]["flash_fwd_f32/d256_window_softcap/precision_float32"] = exact
+                report.setdefault("float32_timed", {})["flash_fwd/d256_window_softcap"] = twin
+                for r in (twin, exact):
+                    emit(r)
+                    report["checks"].append(r)
+                del kr, vr, mask
             if dt == "bfloat16" and name == TIMED_WINDOW_CASE:
                 rec["kernel_ms"] = benchit.cuda_time_ms(lambda: fa.attention(q, k, v, **kw, **sk))
                 rec["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=5)
@@ -1549,8 +1682,9 @@ def prefill_window_checks(decode, benchit, gen, card, report, form=None):
     """Paged prefill with the window: a 512-row chunk (the engine's) at
     contexts 4608-6144, page_size 256, 24 pages per request; the chunk's
     tiles start past the first 0-7 pages; with ``form`` (int8 or fp8) over
-    8-bit pages.  In bf16 the tensor-core form runs; at Gemma-2's shape the
-    scalar form is timed and checked beside it."""
+    8-bit pages.  In bf16 the tensor-core form runs, over float32 pools its
+    float32 form; at Gemma-2's shape each is timed, the scalar form checked
+    and timed beside it."""
     from flashattention_tpu_torch.ops import flash
 
     out = {}
@@ -1572,7 +1706,7 @@ def prefill_window_checks(decode, benchit, gen, card, report, form=None):
             kname = _kname("paged_prefill", q, form is not None)
             rec = _rec(_check_name(kname, name, dt, form), o, want, dt, PREFILL_TOL[dt],
                        ctx_lens=ctxs, chunk=chunk, shape=f"KVH={kvh} G={g} d={d} ps={ps}")
-            if dt == "bfloat16" and name == TIMED_WINDOW_CASE:
+            if name == TIMED_WINDOW_CASE and (dt == "bfloat16" or form is None):
                 kernel = lambda: decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)  # noqa: E731
                 rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
                 rec["plain_ms"] = benchit.cuda_time_ms(plain, warmup=1, iters=5, flush_bytes=256 << 20)
@@ -1595,15 +1729,22 @@ def prefill_window_checks(decode, benchit, gen, card, report, form=None):
                     + 4 * (b + pages_read)  # ctx_lens, the table entries read
                 )
                 rec["live_pairs"] = pairs
-                rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dt))
-                out["main"] = rec
-                if kname == "paged_prefill_tc":
+                _prefill_bound(benchit, card, rec, kname, nbytes, flops, dt)
+                if dt == "bfloat16":
+                    out["main"] = rec
+                if kname in ("paged_prefill_tc", "paged_prefill_tc_f32"):
                     twin = _scalar_twin(flash, benchit, rec, kernel, plain, dt, PREFILL_TOL[dt])
                     report.setdefault("tc_timed", {})[
                         _tc_key(kname, "d256_window_softcap", form)] = rec
+                    if dt == "float32":  # the scalar kernel's own bound
+                        twin.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops,
+                                                     dtype="float32"))
+                        report.setdefault("float32_timed", {})[
+                            "paged_prefill/d256_window_softcap"] = twin
+                    else:
+                        out["main"] = twin
                     emit(twin)
                     report["checks"].append(twin)
-                    out["main"] = twin
                 del mask
             emit(rec)
             report["checks"].append(rec)
@@ -1793,25 +1934,49 @@ def naive_checks(flash, benchit, gen, card, report):
     return out["main"]
 
 
-def phase_crosscheck(fa, flash, gen, report):
-    """The naive kernel's path: the public ``flash_attention_naive`` and
-    ``attention`` (the flash kernel) on the same bfloat16 inputs, B*H = 128,
-    S = 1024, causal; each launches once and the two agree."""
+def phase_crosscheck(fa, flash, decode, gen, report):
+    """Kernels held against independent kernels on the card.  The naive
+    kernel's path: the public ``flash_attention_naive`` and ``attention``
+    (the flash kernel's tensor-core form) on the same bfloat16 inputs, B*H
+    = 128, S = 1024, causal; each launches once and the two agree.  And
+    chunked prefill over float32 pools at Gemma-2's serving shape (d = 256,
+    G = 2, page 256, chunk 512, window 4096, softcap 50, contexts past the
+    window): its float32 form against the scalar kernel's exact float32
+    (``ops.flash.scalar_forms``), the kernel it replaced on the serving
+    paths, within PREFILL_TOL; each launches once."""
     q, k, v = (
         torch.randn((128, 1024, 128), generator=gen, device="cuda").to(torch.bfloat16)
         for _ in range(3)
     )
-    flash.flash_attention_naive.launches = 0
-    flash.flash_attention.launches = 0
+    fwd, pre = flash.flash_attention, decode.paged_prefill_attention_batched
+    for fn, attr in ((flash.flash_attention_naive, "launches"), (fwd, "launches"),
+                     (fwd, "launches_tc"), (pre, "launches"), (pre, "launches_tc_f32")):
+        setattr(fn, attr, 0)
     o_naive = fa.flash_attention_naive(q, k, v, causal=True, scale=128**-0.5)
     o_flash = fa.attention(q, k, v, causal=True, scale=128**-0.5)
+    ctxs, kvh, g, d, chunk = [4608, 5633], 8, 2, 256, 512
+    ctx = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+    (kp, _), (vp, _), table = _paged_pool(gen, ctxs, 24, 52, (kvh, PAGE_SIZE, d), torch.float32)
+    qp = torch.randn((len(ctxs), kvh, g * chunk, d), generator=gen, device="cuda")
+    kw = dict(chunk=chunk, seg=chunk, scale=d**-0.5, window=4096, logit_softcap=50.0)
+    o_f32 = decode.paged_prefill_attention_batched(qp, kp, vp, table, ctx, **kw)
+    with flash.scalar_forms():
+        o_scalar = decode.paged_prefill_attention_batched(qp, kp, vp, table, ctx, **kw)
     torch.cuda.synchronize()
     launches = {"flash_naive": flash.flash_attention_naive.launches,
-                "flash_fwd": flash.flash_attention.launches}
-    e = err(o_naive, o_flash)
+                "flash_fwd": fwd.launches, "flash_fwd_tc": fwd.launches_tc,
+                "paged_prefill": pre.launches, "paged_prefill_tc_f32": pre.launches_tc_f32}
+    e, e32 = err(o_naive, o_flash), err(o_f32, o_scalar)
     rec = {"phase": "crosscheck", "shape": "BH=128 S=1024 d=128 causal bf16",
-           "max_abs_err": e, "tol": CROSS_TOL, "launches": launches,
-           "ok": e <= CROSS_TOL and launches == {"flash_naive": 1, "flash_fwd": 1}}
+           "max_abs_err": e, "tol": CROSS_TOL,
+           "paged_prefill_f32": {
+               "shape": f"B={len(ctxs)} KVH={kvh} G={g} d={d} ps={PAGE_SIZE} chunk={chunk} "
+                        "window=4096 cap=50 float32", "ctx_lens": ctxs,
+               "max_abs_err": e32, "tol": PREFILL_TOL["float32"]},
+           "launches": launches,
+           "ok": e <= CROSS_TOL and e32 <= PREFILL_TOL["float32"] and launches == {
+               "flash_naive": 1, "flash_fwd": 1, "flash_fwd_tc": 1, "paged_prefill": 2,
+               "paged_prefill_tc_f32": 1}}
     emit(rec)
     report["crosscheck"] = rec
     return rec
@@ -1839,8 +2004,11 @@ def _counters(flash, decode, backward):
     and the tensor-core counter count too (``flash_fwd_tc_quant_f32q``
     those of its launches over float32 q, taken in bf16);
     ``flash_fwd_tc_f32`` the forward's float32 form's (``flash_fwd`` counts
-    them too) and
-    ``flash_fwd_tc_f32_bf16`` its one-pass "bf16" mode's among them."""
+    them too),
+    ``flash_fwd_tc_f32_bf16`` its one-pass "bf16" mode's among them and
+    ``flash_fwd_f32`` those of csrc/flash_fwd_f32.cuh's kernel ("float32",
+    and "bf16_3x" at d = 256); ``paged_prefill_tc_f32`` chunked prefill's
+    float32 form's (``paged_prefill`` counts them too)."""
     fns = {
         "flash_fwd": flash.flash_attention,
         "paged_decode": decode.paged_attention,
@@ -1865,6 +2033,8 @@ def _counters(flash, decode, backward):
     out["flash_fwd_tc_quant_f32q"] = (flash.flash_attention, "launches_tc_quantized_f32q")
     out["flash_fwd_tc_f32"] = (flash.flash_attention, "launches_tc_f32")
     out["flash_fwd_tc_f32_bf16"] = (flash.flash_attention, "launches_tc_f32_bf16")
+    out["flash_fwd_f32"] = (flash.flash_attention, "launches_tc_f32_split")
+    out["paged_prefill_tc_f32"] = (decode.paged_prefill_attention_batched, "launches_tc_f32")
     return out
 
 
@@ -1880,8 +2050,11 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE, cache_dtype=None):
     decode's draft launches at k = SPEC_K in the draft form's count too);
     every flash_fwd launch of a float32 model at the float32 form's
     head_dims but the block-mask, dropout and 8-bit ones, in the default
-    "bf16_3x" mode.  A float32 model's paged launches over a ``cache_dtype``
-    that is not float32 take q in bf16, so their forms are the bf16 calls'."""
+    "bf16_3x" mode (at d = 256 csrc/flash_fwd_f32.cuh's kernel's), and
+    every paged prefill launch of a float32 model over float32 pages in
+    chunked prefill's float32 form.  A float32 model's paged launches over
+    a ``cache_dtype`` that is not float32 take q in bf16, so their forms are
+    the bf16 calls'."""
     from flashattention_tpu_torch.ops import flash
 
     dt = DTYPES[cfg.dtype]
@@ -1893,6 +2066,8 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE, cache_dtype=None):
     if flash.kernel_form("flash_fwd", dt, cfg.head_dim) == "tc_f32":
         want["flash_fwd_tc_f32"] = want["flash_fwd"] - sum(
             want.get(f"flash_fwd_{x}", 0) for x in ("block_mask", "dropout", "quant"))
+        if flash.f32_split(cfg.head_dim, "bf16_3x"):
+            want["flash_fwd_f32"] = want["flash_fwd_tc_f32"]
     if flash.kernel_form("flash_bwd", dt, cfg.head_dim) == "tc":
         want["flash_bwd_tc"] = want["flash_bwd"]
     for k in PAIR:  # the two-pass pair's
@@ -1903,6 +2078,8 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE, cache_dtype=None):
     if flash.kernel_form("paged_prefill", pdt, cfg.head_dim, page_size=page_size) == "tc":
         want["paged_prefill_tc"] = want.get("paged_prefill", 0)
         want["paged_prefill_tc_quant"] = want.get("paged_prefill_quant", 0)
+    if flash.kernel_form("paged_prefill", pdt, cfg.head_dim, page_size=page_size) == "tc_f32":
+        want["paged_prefill_tc_f32"] = want.get("paged_prefill", 0)
     if flash.kernel_form("paged_decode", pdt, cfg.head_dim, page_size=page_size,
                          rows=cfg.group_size) == "tc":
         want["paged_decode_tc"] = want.get("paged_decode", 0)
@@ -2286,7 +2463,9 @@ def phase_serve_speculative_gemma2(args, transformer, engine_mod, kvcache, count
     """Gemma-2-9B-class at full width and 42 layers in float32 (40.6 GB) on
     the chunked engine: two prompts of 4600-5000 tokens (past the window),
     17 new tokens, plain and with oracle drafts at k = 4, so the draft form
-    runs with the window and softcap at d = 256; tokens must equal."""
+    runs with the window and softcap at d = 256; tokens must equal.  Every
+    chunk runs chunked prefill's float32 form (paged_prefill_tc_f32), none
+    the scalar kernel."""
     cfg = dataclasses.replace(transformer.ModelConfig.gemma2_9b(num_layers=42), dtype="float32")
     params = transformer.init_params(args.seed, cfg)
     rng = np.random.default_rng(args.seed + 52)
@@ -2300,10 +2479,14 @@ def phase_serve_speculative_gemma2(args, transformer, engine_mod, kvcache, count
 
     torch.cuda.reset_peak_memory_stats()
     cell = _spec_cell(counters, cfg, make, prompts, budget, ("oracle",))
+    scalar_prefill = {run: r["launches"]["paged_prefill"] - r["launches"]["paged_prefill_tc"]
+                      - r["launches"]["paged_prefill_tc_f32"] for run, r in cell.items()}
     rec = {"phase": "serve_speculative_gemma2", "model": GEMMA_MODEL, "dtype": "float32",
            "layers": cfg.num_layers, "k": SPEC_K, "prompt_lens": [len(p) for p in prompts],
            "new_tokens": budget, **cell, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-           "ok": all(r["ok"] for r in cell.values())}
+           "scalar_paged_prefill_launches": scalar_prefill,
+           "ok": all(r["ok"] and r["launches"]["paged_prefill_tc_f32"] > 0 for r in cell.values())
+           and not any(scalar_prefill.values())}
     emit(rec)
     report["serve_speculative_gemma2"] = rec
     del params
@@ -4590,15 +4773,17 @@ def phase_checkpoint(args, transformer, quant, train, engine_mod, kvcache, repor
 def _f32_form_launched(launches, cfg):
     """A float32 phase's forward launches took their form: at the float32
     form's head_dims every one but those with dropout or a block mask (the
-    exact kernel's) in the default "bf16_3x" (at least one), elsewhere none."""
+    exact kernel's) in the default "bf16_3x" (at least one; at d = 256 on
+    csrc/flash_fwd_f32.cuh's kernel), elsewhere none."""
     from flashattention_tpu_torch.ops import flash
 
     n = launches["flash_fwd_tc_f32"]
     if flash.kernel_form("flash_fwd", torch.float32, cfg.head_dim) != "tc_f32":
         return n == 0
     rest = launches["flash_fwd_dropout"] + launches["flash_fwd_block_mask"]
-    return n == launches["flash_fwd"] - rest and launches["flash_fwd_tc_f32_bf16"] == 0 and (
-        n > 0 or rest > 0)
+    split = n if flash.f32_split(cfg.head_dim, "bf16_3x") else 0
+    return (n == launches["flash_fwd"] - rest and launches["flash_fwd_tc_f32_bf16"] == 0
+            and launches["flash_fwd_f32"] == split and (n > 0 or rest > 0))
 
 
 def phase_train_parity(args, transformer, train, packing, counters, report, *,
@@ -5500,8 +5685,8 @@ def time_probe_fp32(probes, flash, benchit, gen, card, report, iters=20):
     modes' products take four times that work on bf16 tensor cores), SDPA
     in float32 and the port's own float32 ``flash_attention`` on the same
     float32 inputs: its float32 form in the default "bf16_3x" (the probe's
-    function with the kernel's masks and tiles) and the exact scalar
-    kernel."""
+    function with the kernel's masks and tiles), in "float32" (three bf16
+    terms, six products) and the scalar kernel's exact float32."""
     bh, s, d = FP32_SHAPE["bh"], FP32_SHAPE["s"], FP32_SHAPE["d"]
     qf, kf, vf = (_uniform(gen, bh, s, d) for _ in range(3))
     f = torch.nn.functional.scaled_dot_product_attention
@@ -5512,10 +5697,14 @@ def time_probe_fp32(probes, flash, benchit, gen, card, report, iters=20):
         iters=iters)
     fwd_tc = benchit.cuda_time_ms(lambda: flash.flash_attention(qf, kf, vf, scale=1.0),
                                   warmup=3, iters=iters)
+    with flash.scalar_forms():
+        scalar = benchit.cuda_time_ms(
+            lambda: flash.flash_attention(qf, kf, vf, scale=1.0, precision="float32"), warmup=1,
+            iters=5)
     logical = 4 * d * bh * s * s
     out = {"shape": f"BH={bh} S={s} d={d} non-causal float32 unscaled, as two bf16 terms",
            "live_pairs": bh * s * s, "sdpa_float32_ms": sdpa, "flash_fwd_float32_ms": fwd,
-           "flash_fwd_tc_f32_ms": fwd_tc, "modes": {}}
+           "flash_fwd_tc_f32_ms": fwd_tc, "flash_fwd_scalar_ms": scalar, "modes": {}}
     for mode in probes.FP32_MODES:
         args = probes.fp32_inputs(qf, kf, vf, mode)
         nbytes = sum(x.numel() * 2 for x in args) + bh * s * d * 4
@@ -5530,7 +5719,7 @@ def time_probe_fp32(probes, flash, benchit, gen, card, report, iters=20):
                                    dtype="bfloat16")
         out["modes"][mode] = {**rec, "machine_bound_ms": machine["bound_ms"],
                               "library_ms": sdpa, "flash_fwd_float32_ms": fwd,
-                              "flash_fwd_tc_f32_ms": fwd_tc}
+                              "flash_fwd_tc_f32_ms": fwd_tc, "flash_fwd_scalar_ms": scalar}
         del args
         torch.cuda.empty_cache()
     return out
@@ -5824,7 +6013,7 @@ def main() -> int:
     lap("serve_mixtral")
     benches = phase_benches(card, counters, report)
     lap("benches")
-    cross = phase_crosscheck(fa, flash, gen, report)
+    cross = phase_crosscheck(fa, flash, decode, gen, report)
     quant_ops = phase_quant_ops(fa, flash, quant, gen, report)
     phase_parity(args, transformer, kvcache, engine_mod, report)
     phase_parity_quant(args, transformer, quant, kvcache, engine_mod, report)
@@ -5905,17 +6094,24 @@ def main() -> int:
     mains["paged_decode_tc"] = tc_timed["paged_decode_tc"]
     mains["paged_decode_tc_quant"] = tc_timed["paged_decode_tc/int8"]
     mains["flash_fwd_tc_f32"] = tc_timed["flash_fwd_tc_f32"]
+    mains["flash_fwd_f32"] = tc_timed["flash_fwd_f32"]
+    mains["paged_prefill_tc_f32"] = tc_timed["paged_prefill_tc_f32"]
     timed_keys = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                   "bytes_ms", "ops_ms", "library_ms")
     scalar_of = {tc: k for k, tc in TC_KERNELS.items()}
     scalar_of.update({tc: f"{k} (its 8-bit form, -DFA_QUANT)" for k, tc in TC_QUANT_KERNELS.items()})
-    scalar_of["flash_fwd_tc_f32"] = 'flash_fwd (exact float32, precision="float32")'
+    scalar_of["flash_fwd_tc_f32"] = 'flash_fwd (exact float32, the scalar kernel)'
+    scalar_of["flash_fwd_f32"] = 'flash_fwd (exact float32, the scalar kernel)'
+    scalar_of["paged_prefill_tc_f32"] = "paged_prefill (exact float32, the scalar kernel)"
     # A kernel's own launches: its counter's less those of the forms counted
     # within it (the scalar kernel's wrapper counts the tensor-core forms',
-    # the tensor-core form's counter its 8-bit form's).
+    # the tensor-core form's counter its 8-bit form's, the float32 form's
+    # csrc/flash_fwd_f32.cuh's).
     within = {**{k: (tc,) for k, tc in TC_KERNELS.items()},
               **{TC_KERNELS[k]: (tc,) for k, tc in TC_QUANT_KERNELS.items()},
-              "flash_fwd": ("flash_fwd_tc", "flash_fwd_tc_f32")}
+              "flash_fwd": ("flash_fwd_tc", "flash_fwd_tc_f32"),
+              "flash_fwd_tc_f32": ("flash_fwd_f32",),
+              "paged_prefill": ("paged_prefill_tc", "paged_prefill_tc_f32")}
     for kname, source, replaces in KERNELS:
         main_rec = mains[kname]
         by_path = {p: n.get(kname, 0) - sum(n.get(w, 0) for w in within.get(kname, ()))
@@ -5923,7 +6119,10 @@ def main() -> int:
         by_path = {p: x for p, x in by_path.items() if x}
         built = (" (built with -DFA_QUANT)" if kname in TC_QUANT_KERNELS.values()
                  else " (built with -DFA_PAIR)" if kname == "flash_bwd_dkv_tc"
-                 else " (built with -DFA_F32)" if kname == "flash_fwd_tc_f32" else "")
+                 else " (built with -DFA_F32)" if kname in ("flash_fwd_tc_f32",
+                                                           "paged_prefill_tc_f32")
+                 else " (built into flash_fwd_tc_f32: csrc/flash_fwd_tc.cu with -DFA_F32)"
+                 if kname == "flash_fwd_f32" else "")
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"flashattention_tpu_torch/csrc/{source}{built}",
@@ -5936,11 +6135,13 @@ def main() -> int:
             "bound_by": main_rec["bound_by"], "bytes_ms": main_rec["bytes_ms"],
             "ops_ms": main_rec["ops_ms"], "library_ms": main_rec["library_ms"],
         })
-        if kname in report.get("float32_timed", {}):  # the float32 paths' form, timed
-            rec32 = report["float32_timed"][kname]
-            summary[-1]["float32"] = {k: rec32[k] for k in (
-                "check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "bytes_ms", "ops_ms", "library_ms", "library")}
+        for key, label in ((kname, "float32"),
+                           (f"{kname}/d256_window_softcap", "float32_d256_window_softcap")):
+            if key in report.get("float32_timed", {}):  # the scalar kernel in float32, timed
+                rec32 = report["float32_timed"][key]
+                summary[-1][label] = {k: rec32.get(k) for k in (
+                    "check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                    "bound_by", "bytes_ms", "ops_ms", "library_ms", "library")}
         if kname in scalar_of:  # the tensor-core form: the scalar form's time beside it
             summary[-1]["scalar_form"] = scalar_of[kname]
             summary[-1]["scalar_ms"] = main_rec["scalar_ms"]
@@ -5950,7 +6151,7 @@ def main() -> int:
                 p: n["flash_fwd_tc_f32_bf16"] for p, n in paths.items()
                 if n.get("flash_fwd_tc_f32_bf16")}
             summary[-1]["headline"] = {k: f32_headline[k] for k in (
-                *timed_keys, "scalar_ms", "bf16_mode_ms", "products")}
+                *timed_keys, "scalar_ms", "bf16_mode_ms", "exact_ms", "products")}
         timed = timed_keys
         if kname in bwd_windowed:
             summary[-1]["windowed"] = {case: {k: rec[k] for k in (*timed, "scalar_ms") if k in rec}
@@ -5976,11 +6177,25 @@ def main() -> int:
                                                      f"{kname}_block_mask", keys)
             summary[-1]["block_mask"]["masks"] = {
                 m: {k: rec[k] for k in keys} for m, rec in masked[kname].items()}
-        if kname in ("paged_prefill_tc", "paged_prefill_tc_quant",
+        if kname in ("paged_prefill_tc", "paged_prefill_tc_quant", "paged_prefill_tc_f32",
                      "paged_decode_tc", "paged_decode_tc_quant"):  # the NaN-poison checks
             summary[-1]["nan_poison"] = {
                 r["check"]: r["ok"] for r in (decode_poison if "decode" in kname else poison)
-                if ("/quant/" in r["check"]) == kname.endswith("_quant")}
+                if ("/quant/" in r["check"]) == kname.endswith("_quant")
+                and r["check"].startswith("paged_prefill_tc_f32/") == kname.endswith("_f32")}
+        if kname in ("flash_fwd_f32", "paged_prefill_tc_f32"):
+            # Gemma-2's shape (d = 256, window 4096, softcap 50): the forward's
+            # "bf16_3x" and "float32" modes, chunked prefill's float32 form,
+            # each with the scalar kernel's time, SDPA float32 and the bound.
+            keys = (*timed_keys, "scalar_ms", "products", "live_pairs")
+            gem = {"d256_window_softcap": tc_timed[f"{kname}/d256_window_softcap"]}
+            if kname == "flash_fwd_f32":
+                gem["d256_window_softcap/precision_float32"] = tc_timed[
+                    "flash_fwd_f32/d256_window_softcap/precision_float32"]
+                summary[-1]["headline"] = {k: tc_timed["flash_fwd_f32/headline"].get(k)
+                                           for k in keys}
+            summary[-1].update({case: {k: rec.get(k) for k in keys} for case, rec in gem.items()})
+            summary[-1]["products"] = main_rec.get("products")
         if kname in ("paged_decode_tc", "paged_decode_tc_quant"):
             # The draft form (k = 4) at the Llama and Gemma-2 shapes, and
             # serve_gemma2's profile decode shape; their launches by path.

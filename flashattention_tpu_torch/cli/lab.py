@@ -84,7 +84,7 @@ def _tile(q, kernel_num) -> str:
     "bf16_3x" mode: the float32 form's, over two bf16 terms) or the scalar
     kernel's ``BlockSizes``; "auto" for the other rungs."""
     from flashattention_tpu_torch.ops.flash import (TC_F32_KV_TILE, TC_KV_TILE, BlockSizes,
-                                                    kernel_form)
+                                                    f32_split, kernel_form)
 
     if kernel_num not in (4, 5, 6):
         return "auto"
@@ -93,7 +93,8 @@ def _tile(q, kernel_num) -> str:
     if form == "tc":
         return f"tensor cores: 128 query rows x {TC_KV_TILE[d]} KV rows"
     if form == "tc_f32":
-        return f"tensor cores, float32 as bf16_3x: 128 query rows x {TC_F32_KV_TILE[d]} KV rows"
+        rows = 64 if f32_split(d, "bf16_3x") else 128
+        return f"tensor cores, float32 as bf16_3x: {rows} query rows x {TC_F32_KV_TILE[d]} KV rows"
     return str(BlockSizes())
 
 

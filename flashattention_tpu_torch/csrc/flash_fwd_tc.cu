@@ -5,9 +5,14 @@
 // compute them): the C entry point over the kernel of flash_fwd_tc.cuh,
 // instantiated at head_dim 64, 128 and 256 with and without the
 // window/softcap form (the 8-bit library: for int8 and for fp8 e4m3
-// payloads; the float32 one at 64 and 128).  See flash_fwd_tc.cuh for what
-// it replaces and its design.
+// payloads; the float32 one: "bf16" at 64, 128 and 256, "bf16_3x" at 64 and
+// 128 over a split pass, and flash_fwd_f32.cuh's kernel for "float32" at
+// every head_dim and "bf16_3x" at 256).  See flash_fwd_tc.cuh and
+// flash_fwd_f32.cuh for what they replace and their design.
 #include "flash_fwd_tc.cuh"
+#ifdef FA_F32
+#include "flash_fwd_f32.cuh"
+#endif
 
 namespace {
 
@@ -100,11 +105,13 @@ int split(const void* x, void* out, long long rows, int d, int terms, cudaStream
   return static_cast<int>(cudaGetLastError());
 }
 
-// Two terms: all four products at d = 64 (the JAX packed form), three above.
+// Two terms: all four products at d = 64 (the JAX packed form), three at
+// 128; one term: the bf16 form.
 template <int D, bool kWindowCap>
 int launch_f32(const Args& a, int terms) {
   if (terms == 1) return fwd_tc::launch<D, kWindowCap, false, 0, 0, 1>(a);
-  return fwd_tc::launch<D, kWindowCap, false, 0, 0, D == 64 ? 4 : 3>(a);
+  if constexpr (D == 256) return -1;
+  else return fwd_tc::launch<D, kWindowCap, false, 0, 0, D == 64 ? 4 : 3>(a);
 }
 
 template <int D>
@@ -116,17 +123,33 @@ int launch_f32_w(const Args& a, int terms) {
 }  // namespace
 
 // Float32 q, k, v (bh, rows, d) / (bh, s_kv, d), contiguous, 16-byte aligned;
-// q2, k2, v2: bf16 buffers of the same rows and terms * d columns, which the
-// split pass fills before the kernel reads them; o: float32 like q.  terms 2
-// is "bf16_3x" (two bf16 terms a value), terms 1 "bf16" (one).  The other
-// arguments as in fa_flash_fwd_tc, without dropout.
+// o: float32 like q.  terms 3 is "float32" (three bf16 terms a value, six
+// products), 2 "bf16_3x" (two terms), 1 "bf16" (one).  Where a split pass
+// runs (terms 1; terms 2 at d = 64 and 128), q2, k2, v2 are bf16 buffers of
+// the same rows and terms * d columns, which it fills before the kernel
+// reads them; flash_fwd_f32.cuh's kernel (terms 3; terms 2 at d = 256)
+// splits in shared memory and takes none.  The other arguments as in
+// fa_flash_fwd_tc, without dropout.
 extern "C" int fa_flash_fwd_tc_f32(int terms, const void* q, const void* k, const void* v,
                                    void* q2, void* k2, void* v2, void* o, void* l, void* m,
                                    const void* q_seg, const void* kv_seg, int bh, int rows,
                                    int s_kv, int d, int kv_len, int q_offset, int q_seq_len,
                                    int causal, float scale, int window, float softcap,
                                    void* stream) {
-  if ((terms != 1 && terms != 2) || (d != 64 && d != 128)) return -1;
+  if (terms < 1 || terms > 3 || (d != 64 && d != 128 && d != 256)) return -1;
+  if (terms == 3 || (terms == 2 && d == 256)) {
+    Args a = make_args(q, k, v, nullptr, l, m, q_seg, kv_seg, nullptr, bh, rows, s_kv, kv_len,
+                       q_offset, q_seq_len, causal, scale, window, softcap, q_seq_len, 0, 0, 0.f,
+                       stream);
+    a.o32 = static_cast<float*>(o);
+    const fwd_tc::Paged pg{};
+    if (terms == 2) return f32tc::launch_w<256, 2, false>(a, pg);
+    switch (d) {
+      case 64: return f32tc::launch_w<64, 3, false>(a, pg);
+      case 128: return f32tc::launch_w<128, 3, false>(a, pg);
+      default: return f32tc::launch_w<256, 3, false>(a, pg);
+    }
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int status = split(q, q2, static_cast<long long>(bh) * rows, d, terms, st);
   if (status == 0) status = split(k, k2, static_cast<long long>(bh) * s_kv, d, terms, st);
@@ -136,7 +159,11 @@ extern "C" int fa_flash_fwd_tc_f32(int terms, const void* q, const void* k, cons
                      q_offset, q_seq_len, causal, scale, window, softcap, q_seq_len, 0, 0, 0.f,
                      stream);
   a.o32 = static_cast<float*>(o);
-  return d == 64 ? launch_f32_w<64>(a, terms) : launch_f32_w<128>(a, terms);
+  switch (d) {
+    case 64: return launch_f32_w<64>(a, terms);
+    case 128: return launch_f32_w<128>(a, terms);
+    default: return launch_f32_w<256>(a, terms);
+  }
 }
 #elif !defined(FA_QUANT)
 // q: (bh, rows, d); k, v: (bh, s_kv, d); o like q; all bf16, contiguous, on

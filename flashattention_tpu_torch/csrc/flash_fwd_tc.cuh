@@ -175,15 +175,15 @@ __device__ __forceinline__ void convert_tile(const unsigned char* src, unsigned 
   }
 }
 
-// The KV columns [kv_begin, kv_end) the query rows [r0, r0 + kBlockM) may
+// The KV columns [kv_begin, kv_end) the query rows [r0, r0 + kRows) may
 // see, kv_begin a multiple of the tile: the same in producer and consumers.
 struct Range {
   int begin, end, first;  // first: begin before its rounding to the tile
 };
-template <int kN, bool kWindowCap>
+template <int kN, bool kWindowCap, int kRows = kBlockM>
 __device__ __forceinline__ Range kv_range(int r0, int rows, int kv_len, int q_offset,
                                           int q_seq_len, int causal, int window) {
-  const int r1 = min(rows, r0 + kBlockM) - 1;
+  const int r1 = min(rows, r0 + kRows) - 1;
   const bool one_segment = r0 / q_seq_len == r1 / q_seq_len;
   Range r{0, kv_len, 0};
   if (causal) r.end = min(r.end, q_offset + (one_segment ? r1 % q_seq_len : q_seq_len - 1) + 1);

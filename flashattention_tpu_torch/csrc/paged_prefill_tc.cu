@@ -16,7 +16,11 @@
 // template's 8-bit form (kKV): 8-bit boxes of whole d-byte rows through the
 // same page table, converted to bf16 in shared memory by the consumers,
 // score columns times k_scale and P's columns times v_scale as the Pallas
-// kernel orders them (decode.py:453, 481).
+// kernel orders them (decode.py:453, 481).  Built with FA_F32
+// (paged_prefill_tc_f32): float32 q over float32 pools, the exact form of
+// flash_fwd_f32.cuh (each value as three bf16 terms split in shared memory,
+// six products), as the Pallas kernel computes float32 pools at HIGHEST
+// (decode.py:438-447).
 //
 // Bound on this card: operations at the serving shapes (4 d flops a live
 // pair against 2 d bytes of K/V per 128-row query tile), so both products
@@ -45,6 +49,9 @@
 // or that kN divides (ops/flash.py::kernel_form), so that a box stays in one
 // page and lands on a 1024-byte swizzle atom.
 #include "flash_fwd_tc.cuh"
+#ifdef FA_F32
+#include "flash_fwd_f32.cuh"
+#endif
 
 namespace {
 
@@ -100,7 +107,29 @@ int launch_d(const fwd_tc::Args& a, const fwd_tc::Paged& pg, int d, int num_page
 // device, 16-byte aligned (TMA); entries of a table row that cover live
 // columns name pool pages.  window <= 0: no sliding window; softcap <= 0:
 // none.
-#ifndef FA_QUANT
+#ifdef FA_F32
+// The float32 form: q (b, kvh, rows, d), the pools and o float32; no o_f32
+// flag (O is float32).  Page sizes: multiples of 8 that divide the form's KV
+// tile (64 rows, 32 at d = 256) or that it divides.
+extern "C" int fa_paged_prefill_tc_f32(const void* q, const void* k_pages, const void* v_pages,
+                                       const void* page_indices, const void* ctx_lens, void* o,
+                                       int b, int kvh, int rows, int d, int num_pages,
+                                       int page_size, int pages_per_seq, int chunk, int seg,
+                                       float scale, int window, float softcap, void* stream) {
+  const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, seg, 0u, 0u, 0.f};
+  fwd_tc::Args a{q, k_pages, v_pages, nullptr, nullptr, nullptr, nullptr, nullptr, b * kvh, rows,
+                 0, 0, 0, seg, 1, scale, window, softcap, ex, static_cast<cudaStream_t>(stream)};
+  a.o32 = static_cast<float*>(o);
+  const fwd_tc::Paged pg{static_cast<const int*>(page_indices), static_cast<const int*>(ctx_lens),
+                         pages_per_seq, page_size, chunk, a.o32};
+  switch (d) {
+    case 64: return f32tc::launch_w<64, 3, true>(a, pg, num_pages, kvh, b);
+    case 128: return f32tc::launch_w<128, 3, true>(a, pg, num_pages, kvh, b);
+    case 256: return f32tc::launch_w<256, 3, true>(a, pg, num_pages, kvh, b);
+    default: return -1;
+  }
+}
+#elif !defined(FA_QUANT)
 extern "C" int fa_paged_prefill_tc(const void* q, const void* k_pages, const void* v_pages,
                                    const void* page_indices, const void* ctx_lens, void* o, int b,
                                    int kvh, int rows, int d, int num_pages, int page_size,

@@ -228,6 +228,21 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // wgmma_ss takes A and B from shared memory (descriptors; kTransA / kTransB
 // 1 for the MN-major form), wgmma_rs A from registers (pack_a2).
 template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -420,6 +435,8 @@ __device__ __forceinline__ void fence_regs(int (&d)[R]) {
 // (`dims`, innermost first; `strides` in elements for dimensions 1 .. rank -
 // 1) read as boxes of `box_rows` rows (x 1 in the others): bf16 (elem_bytes
 // 2) in boxes of 64 columns swizzled by 128 bytes, the layout wgmma reads;
+// float32 (elem_bytes 4) in boxes of 64 columns (256 bytes a row),
+// unswizzled, which the consumers split into bf16 terms themselves;
 // 8-bit payloads (elem_bytes 1, int8 or fp8 as bytes) in boxes of whole
 // rows, unswizzled (rows of dims[0] bytes, at most 256), which the
 // consumers convert to bf16 themselves, or with `swizzle8` in boxes of 128
@@ -454,7 +471,7 @@ static int tc_encode(CUtensorMap* map, const void* base, int rank, const long lo
   cuuint32_t box[5], elem[5];
   for (int i = 0; i < rank; ++i) {
     d[i] = static_cast<cuuint64_t>(dims[i]);
-    const cuuint32_t cols = elem_bytes == 2 ? tc::kChunk
+    const cuuint32_t cols = elem_bytes == 2 || elem_bytes == 4 ? tc::kChunk
                             : swizzle8      ? 128u
                                             : static_cast<cuuint32_t>(dims[0]);
     box[i] = i == 0 ? cols : i == 1 ? static_cast<cuuint32_t>(box_rows) : 1;
@@ -462,7 +479,10 @@ static int tc_encode(CUtensorMap* map, const void* base, int rank, const long lo
     if (i > 0) st[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * elem_bytes;
   }
   const bool wide = elem_bytes == 2;
-  const CUresult r = encode(map, wide ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+  const CUtensorMapDataType type = wide              ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                                     : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const CUresult r = encode(map, type,
                             rank, const_cast<void*>(base), d, st, box, elem,
                             CU_TENSOR_MAP_INTERLEAVE_NONE,
                             wide || swizzle8 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,

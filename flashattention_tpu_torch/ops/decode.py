@@ -29,8 +29,11 @@ kernel that replaces the Pallas ``_paged_prefill_kernel`` (:375), in the form
 pages taken in bf16) at head_dim 64, 128 or 256 over
 bf16 or 8-bit pages of a size it takes (``ops.flash.tc_page_size``) the
 tensor-core kernel in ``csrc/paged_prefill_tc.cu`` (``paged_prefill_tc``, and
-for 8-bit pages ``paged_prefill_tc_quant``), otherwise the float32 CUDA-core
-kernel in ``csrc/paged_prefill.cu``; on a CPU tensor it runs
+for 8-bit pages ``paged_prefill_tc_quant``), for float32 q over float32
+pools at those head_dims the same source's float32 form
+(``paged_prefill_tc_f32``: each value as three bf16 terms split in shared
+memory, six products, as the Pallas kernel's HIGHEST), otherwise the float32
+CUDA-core kernel in ``csrc/paged_prefill.cu``; on a CPU tensor it runs
 :func:`paged_prefill_attention_plain` with the chosen form's rounding.
 
 Both take a sliding window (a query at position ``pos`` sees columns
@@ -514,6 +517,9 @@ def paged_prefill_attention_plain(
     against the running max of ``TC_KV_TILE`` columns, tiles aligned to
     column 0, as the paged kernel's are; 8-bit pages as payloads with their
     gathered scales), its chunk's rows at ``ctx_len - chunk + r % seg``;
+    ``"tc_f32"`` (float32 pools) the same through the forward's float32
+    form in the ``"float32"`` mode (three bf16 terms, six products, p
+    against the running max of ``TC_F32_SPLIT_KV_TILE`` columns);
     ``"scalar"`` attends in float32.  Float32 q that the kernel takes in
     bf16 (:func:`_f32_q_in_bf16`) is taken so here: the form is the bf16
     call's, and O comes back in float32, from the float32 sums (tc) or
@@ -538,7 +544,7 @@ def _paged_prefill_plain(q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, 
     """:func:`paged_prefill_attention_plain` in the form ``form``."""
     s_max = page_indices.shape[1] * k_pages.shape[2]
     rows = q.shape[2]
-    if form == "tc":
+    if form in ("tc", "tc_f32"):
         k = _gather(k_pages, None, page_indices)
         v = _gather(v_pages, None, page_indices)
         ks = vs = [None] * len(k)
@@ -549,7 +555,8 @@ def _paged_prefill_plain(q, k_pages, v_pages, page_indices, ctx_lens, *, chunk, 
             flash_attention_plain(
                 q[b], k[b], v[b], causal=True, scale=scale, kv_len=min(n, s_max),
                 q_offset=n - chunk, q_seq_len=seg, window=window, logit_softcap=logit_softcap,
-                form="tc", k_scales=ks[b], v_scales=vs[b])
+                form=form, k_scales=ks[b], v_scales=vs[b],
+                precision="float32" if form == "tc_f32" else None)
             for b, n in enumerate(ctx_lens.tolist())])
     else:
         o = paged_prefill_attention_reference(
@@ -617,8 +624,8 @@ def paged_prefill_attention_batched(
     :func:`_f32_q_in_bf16` says so).  The
     launch count is kept on this function (``.launches``; ``.launches_tc``, ``.launches_quantized``
     and ``.launches_tc_quantized`` count the tensor-core, the 8-bit and the
-    tensor-core 8-bit forms' among them); :func:`paged_prefill_attention`
-    launches through it.
+    tensor-core 8-bit forms' among them, ``.launches_tc_f32`` the float32
+    form's); :func:`paged_prefill_attention` launches through it.
     """
     check_window(window, logit_softcap, causal=True)
     if q.dim() != 4 or k_pages.dim() != 4:
@@ -665,9 +672,21 @@ def paged_prefill_attention_batched(
     if b > 65535 or kvh > 65535:
         raise ValueError(f"paged_prefill_attention kernel takes B, KVH <= 65535, got {b}, {kvh}")
     kernels.check_aligned("paged_prefill_attention", qk, k_pages, v_pages)
-    # The tensor-core form writes float32 O itself for float32 q.
-    o = torch.empty_like(q if form == "tc" else qk)
+    # The tensor-core forms write float32 O themselves for float32 q.
+    o = torch.empty_like(q if form in ("tc", "tc_f32") else qk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if form == "tc_f32":  # float32 q over float32 pools, three bf16 terms
+        status = kernels.library("paged_prefill_tc_f32").fa_paged_prefill_tc_f32(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_indices.data_ptr(),
+            ctx_lens.data_ptr(), o.data_ptr(), b, kvh, rows, d, num_pages, page_size,
+            page_indices.shape[1], int(chunk), seg, float(scale),
+            *kernel_options(window, logit_softcap), stream,
+        )
+        kernels.check_launch("paged_prefill_tc_f32", status,
+                             f"q {tuple(q.shape)}, float32 pages {page_size}")
+        paged_prefill_attention_batched.launches += 1
+        paged_prefill_attention_batched.launches_tc_f32 += 1
+        return o
     if form == "tc":
         name, quant = "paged_prefill_tc", ()
         if quantized:  # the 8-bit form: the payload's type code and the scale pools
@@ -700,9 +719,11 @@ def paged_prefill_attention_batched(
 
 
 # Kernel launches, for the chip run's path check: all forms, and the
-# tensor-core, 8-bit and tensor-core 8-bit ones among them.
+# tensor-core, 8-bit, tensor-core 8-bit and float32 tensor-core ones among
+# them.
 paged_prefill_attention_batched.launches = 0
 paged_prefill_attention_batched.launches_tc = 0
+paged_prefill_attention_batched.launches_tc_f32 = 0
 paged_prefill_attention_batched.launches_quantized = 0
 paged_prefill_attention_batched.launches_tc_quantized = 0
 

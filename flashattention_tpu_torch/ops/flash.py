@@ -7,11 +7,13 @@ head_dim 64, 128 or 256 the tensor-core kernel in ``csrc/flash_fwd_tc.cu``
 (over 8-bit K/V without dropout or a block mask, its 8-bit form,
 ``flash_fwd_tc_quant``, which also takes float32 q over 8-bit K/V in bf16,
 as the Pallas kernel's quantized default takes it, with O in float32 from
-the float32 sums: :func:`f32_q_in_bf16`); for float32 q, k and v at head_dim 64 or 128 with
-no block mask or dropout, in the JAX package's ``"bf16_3x"`` (the default)
-and ``"bf16"`` precision modes, its float32 form ``flash_fwd_tc_f32``, the
-same kernel over each value's two bf16 terms (or one); otherwise, and for
-``precision="float32"``, the float32 CUDA-core kernel in
+the float32 sums: :func:`f32_q_in_bf16`); for float32 q, k and v at head_dim
+64, 128 or 256 with no block mask or dropout, in each of the JAX package's
+precision modes, its float32 form ``flash_fwd_tc_f32``: in ``"bf16"`` the
+same kernel over each value's one bf16 term, in ``"bf16_3x"`` over its two
+(at d = 256 ``csrc/flash_fwd_f32.cuh``'s kernel, which splits them in
+shared memory), and in ``"float32"`` (XLA's HIGHEST) that kernel over three
+terms and six products; otherwise the float32 CUDA-core kernel in
 ``csrc/flash_fwd.cu``; on a CPU tensor it runs :func:`flash_attention_plain`,
 the same function in plain PyTorch, with the chosen form's rounding.  There
 is no fallback between the two, or between the forms: a CUDA call either
@@ -159,20 +161,48 @@ TC_BLOCK_Q = 128
 TC_DECODE_TILE = 64
 TC_DECODE_ROWS = 32
 # The forward's float32 form (csrc/flash_fwd_tc.cu built with -DFA_F32):
-# float32 q, k and v at these head_dims in the "bf16_3x" and "bf16" modes.
-# In "bf16_3x" its ring carries rows of two bf16 terms, twice as wide, so
-# its KV tile is the bf16 form's at 2 d (TC_F32_KV_TILE); in "bf16" it is
-# the bf16 form over one term (TC_KV_TILE).
-TC_F32_HEAD_DIMS = (64, 128)
-TC_F32_KV_TILE = {64: 128, 128: 64}
+# float32 q, k and v at these head_dims in every precision mode.  In
+# "bf16_3x" at d = 64 and 128 its ring carries rows of two bf16 terms, twice
+# as wide, so its KV tile is the bf16 form's at 2 d (TC_F32_KV_TILE); in
+# "bf16" it is the bf16 form over one term (TC_KV_TILE); in "float32", and
+# in "bf16_3x" at d = 256, it is csrc/flash_fwd_f32.cuh's kernel, which
+# splits float32 tiles into bf16 terms in shared memory, over 64 query rows
+# and TC_F32_SPLIT_KV_TILE KV rows.  The same kernel is chunked prefill's
+# form over float32 pools (csrc/paged_prefill_tc.cu built with -DFA_F32,
+# "float32" always, as the Pallas kernel computes them).
+TC_F32_HEAD_DIMS = (64, 128, 256)
+TC_F32_KV_TILE = {64: 128, 128: 64, 256: 32}
+TC_F32_SPLIT_KV_TILE = {64: 64, 128: 64, 256: 32}
 
 
-def f32_products(d: int) -> int:
-    """The products of the "bf16_3x" form's S and PV at head_dim ``d``: all
-    four of the two terms' at d = 64, where the JAX package streams
-    ``[hi | lo]`` pairs (its lane-packed form, flash.py:1433-1441); above,
-    hi hi + hi lo + lo hi, as its ``_dot_g`` (flash.py:150-181)."""
+def f32_products(d: int, precision: str = "bf16_3x") -> int:
+    """The products of the float32 form's S and PV at head_dim ``d`` in
+    ``precision``: in ``"bf16_3x"`` all four of the two terms' at d = 64,
+    where the JAX package streams ``[hi | lo]`` pairs (its lane-packed form,
+    flash.py:1433-1441), above hi hi + hi lo + lo hi, as its ``_dot_g``
+    (flash.py:150-181); in ``"float32"`` the six of XLA's HIGHEST over three
+    terms (flash.py:40), x1 y1, x1 y2, x2 y1, x1 y3, x2 y2, x3 y1."""
+    if precision == "float32":
+        return 6
     return 4 if 2 * d <= 128 else 3
+
+
+def f32_split(d: int, precision: str) -> bool:
+    """Whether the float32 form in the mode ``precision`` (resolved) runs
+    ``csrc/flash_fwd_f32.cuh``'s kernel, which splits float32 tiles into
+    bf16 terms in shared memory: in ``"float32"`` at every head_dim, in
+    ``"bf16_3x"`` at d = 256 (two terms of a 128-row block of Q would take
+    128 KB of shared memory in the split-pass form)."""
+    return precision == "float32" or (precision == "bf16_3x" and d == 256)
+
+
+def f32_kv_tile(d: int, precision: str) -> int:
+    """The KV tile of the float32 form's online softmax at head_dim ``d``
+    in the mode ``precision`` (resolved): where it rescales, which the plain
+    mirror follows."""
+    if precision == "bf16":
+        return TC_KV_TILE[d]
+    return TC_F32_SPLIT_KV_TILE[d] if f32_split(d, precision) else TC_F32_KV_TILE[d]
 
 
 def tc_page_size(page_size, head_dim: int, tile: int | None = None) -> bool:
@@ -203,7 +233,9 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
     or G * draft_k).  ``"tc_f32"``, the flash forward's float32 form, for
     float32 q, k and v at ``TC_F32_HEAD_DIMS`` with no block mask, dropout or
     8-bit K/V, in the mode ``precision`` resolves to (:func:`resolve_precision`:
-    by default ``"bf16_3x"``) unless that is ``"float32"``.  Else
+    by default ``"bf16_3x"``); and chunked prefill's over float32 pools at
+    those head_dims, on pages :func:`tc_page_size` takes at
+    ``TC_F32_SPLIT_KV_TILE``.  Else
     ``"scalar"``, the float32 CUDA-core kernel (float32 or 8-bit K/V with a
     block mask, 8-bit K/V with dropout, float32 q over 8-bit K/V that the
     tensor-core form does not take in bf16 or in the exact modes).
@@ -211,10 +243,12 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
     (:func:`f32_q_in_bf16`) or pages (``ops.decode._f32_q_in_bf16``) taken
     in bf16 asks for the bf16 form.  Inside :func:`scalar_forms`, always
     ``"scalar"``."""
-    if (kernel == "flash_fwd" and dtype == torch.float32 and not _SCALAR_ONLY[0]
-            and resolve_precision(precision, dtype) != "float32"
-            and head_dim in TC_F32_HEAD_DIMS and not (quantized or block_mask or dropout)):
-        return "tc_f32"
+    if (dtype == torch.float32 and not _SCALAR_ONLY[0] and head_dim in TC_F32_HEAD_DIMS
+            and not (quantized or block_mask or dropout)):
+        resolve_precision(precision, dtype)  # raises on an unknown mode
+        if kernel == "flash_fwd" or (kernel == "paged_prefill" and tc_page_size(
+                page_size, head_dim, TC_F32_SPLIT_KV_TILE[head_dim])):
+            return "tc_f32"
     if (_SCALAR_ONLY[0] or dtype != torch.bfloat16
             or (block_mask and (quantized or kernel not in TC_BLOCK_MASK))
             or head_dim not in TC_HEAD_DIMS.get(kernel, ())
@@ -267,6 +301,16 @@ def _split_bf16(x):
     ``_split_bf16`` (flash.py:136) and the float32 form's split pass."""
     hi = x.to(torch.bfloat16).float()
     return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _split3_bf16(x):
+    """``x`` as three bfloat16 terms, ``x1 = bf16(x)``, ``x2 = bf16(x -
+    x1)``, ``x3 = bf16(x - x1 - x2)`` (nearest even; :func:`_split_bf16`
+    twice), as float32 tensors: the float32 form's split in the
+    ``"float32"`` mode, XLA's HIGHEST as the JAX package documents it
+    (flash.py:40)."""
+    x1 = x.to(torch.bfloat16).float()
+    return (x1, *_split_bf16(x - x1))
 
 
 def _two_term_bf16(x):
@@ -747,9 +791,10 @@ def flash_attention(
         ``q_seq_len`` (:func:`ops.dispatch.attention` passes the JAX
         package's padded segment length).
       precision: the JAX package's mode for float32 inputs, resolved by
-        :func:`resolve_precision` (default ``"bf16_3x"``); ``"float32"``
-        runs the exact float32 kernel, the others the float32 form where
-        :func:`kernel_form` takes it.
+        :func:`resolve_precision` (default ``"bf16_3x"``), computed by the
+        float32 form where :func:`kernel_form` takes it (``"float32"``:
+        three bf16 terms and six products, XLA's HIGHEST), else by the exact
+        float32 kernel.
       interpret: the JAX package's Pallas interpreter switch, accepted and
         ignored (a CPU tensor runs the plain version).
 
@@ -839,6 +884,7 @@ def flash_attention(
                           scale=float(scale), window=window, logit_softcap=logit_softcap)
         flash_attention.launches_tc_f32 += 1
         flash_attention.launches_tc_f32_bf16 += precision == "bf16"
+        flash_attention.launches_tc_f32_split += f32_split(d, precision)
         flash_attention.launches += 1
         return (o, l, m) if save_residuals else o
     name = "flash_fwd_quant" if quantized else "flash_fwd"
@@ -900,16 +946,22 @@ def _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, scales, tiles, *, kv_len, q_o
 def _flash_fwd_tc_f32(q, k, v, o, l, m, seg_q, seg_kv, precision, *, kv_len, q_offset,
                       q_seq_len, causal, scale, window, logit_softcap):
     """One call of the float32 form (``csrc/flash_fwd_tc.cu`` built with
-    ``-DFA_F32``): its split pass writes q, k and v as rows of two bf16
-    terms (``"bf16_3x"``) or one (``"bf16"``) into buffers made here, then
-    the tensor-core forward reads them and writes float32 ``o``."""
+    ``-DFA_F32``) into float32 ``o``: in ``"float32"`` (three bf16 terms)
+    and in ``"bf16_3x"`` at d = 256 (two) ``csrc/flash_fwd_f32.cuh``'s
+    kernel over q, k and v themselves, split in shared memory; else a split
+    pass writes them as rows of two bf16 terms (``"bf16_3x"``) or one
+    (``"bf16"``) into buffers made here, which the tensor-core forward
+    reads."""
     kernels.check_aligned("flash_attention", q, k, v)
     bh, rows, d = q.shape
-    terms = 2 if precision == "bf16_3x" else 1
-    q2, k2, v2 = (torch.empty((bh, x.shape[1], terms * d), dtype=torch.bfloat16, device=q.device)
-                  for x in (q, k, v))
+    terms = {"bf16": 1, "bf16_3x": 2, "float32": 3}[precision]
+    split = ()
+    if not f32_split(d, precision):
+        split = tuple(torch.empty((bh, x.shape[1], terms * d), dtype=torch.bfloat16,
+                                  device=q.device) for x in (q, k, v))
     status = kernels.library("flash_fwd_tc_f32").fa_flash_fwd_tc_f32(
-        terms, *(t.data_ptr() for t in (q, k, v, q2, k2, v2, o)),
+        terms, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        *([t.data_ptr() for t in split] if split else [None] * 3), o.data_ptr(),
         None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
         None if seg_q is None else seg_q.data_ptr(),
         None if seg_kv is None else seg_kv.data_ptr(), bh, rows, k.shape[1], d, kv_len,
@@ -922,12 +974,14 @@ def _flash_fwd_tc_f32(q, k, v, o, l, m, seg_q, seg_kv, precision, *, kv_len, q_o
 # Kernel launches, for chip_smoke.py's path check: all forms, and the
 # tensor-core, 8-bit, tensor-core 8-bit, dropout, block-mask and tensor-core
 # block-mask ones among them; the tensor-core 8-bit form's over float32 q
-# taken in bf16 among those; the float32 form's, and its "bf16" mode's
-# among those.
+# taken in bf16 among those; the float32 form's, and its "bf16" mode's and
+# its split-in-shared-memory kernel's (csrc/flash_fwd_f32.cuh,
+# :func:`f32_split`) among those.
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_tc_f32 = 0
 flash_attention.launches_tc_f32_bf16 = 0
+flash_attention.launches_tc_f32_split = 0
 flash_attention.launches_quantized = 0
 flash_attention.launches_tc_quantized = 0
 flash_attention.launches_tc_quantized_f32q = 0
@@ -965,9 +1019,12 @@ def flash_attention_plain(
     (float32 inputs) computes the mode ``precision`` resolves to as the
     float32 form does: in ``"bf16_3x"`` S is the sum of the products of q's
     and k's bf16 terms (:func:`_split_bf16`; :func:`f32_products` of them),
-    p (against the running max of ``TC_F32_KV_TILE[d]``-column tiles) enters
+    p (against the running max of :func:`f32_kv_tile`-column tiles) enters
     PV as its two terms against V's, ``(p_hi + p_lo) v_hi + p_hi v_lo`` (+
-    ``p_lo v_lo`` at four products), and l sums the float32 p; in ``"bf16"``
+    ``p_lo v_lo`` at four products), and l sums the float32 p; in
+    ``"float32"`` each value is three terms (:func:`_split3_bf16`), S and PV
+    sum the six products x1 y1, x1 y2, x2 y1, x1 y3, x2 y2, x3 y1 exactly
+    (float64, rounded once to float32); in ``"bf16"``
     q, k and v are rounded to bf16 once and the ``"tc"`` form follows, its O
     in float32.  Float32 q over 8-bit K/V in the ``"tc"`` form (by default
     where the kernel takes it in bf16, :func:`f32_q_in_bf16`) runs over q's
@@ -988,11 +1045,12 @@ def flash_attention_plain(
                                precision=precision)
     products = 0
     if form == "tc_f32":
-        if resolve_precision(precision, q.dtype) == "bf16":
+        mode = resolve_precision(precision, q.dtype)
+        if mode == "bf16":
             q, k, v = (x.to(torch.bfloat16).float() for x in (q, k, v))
             form = "tc"
         else:
-            products = f32_products(d)
+            products = f32_products(d, mode)
     if k_scales is not None and form != "tc":  # the scalar form: dequantize first
         k, v = dequantize_rows(k, k_scales), dequantize_rows(v, v_scales)
         k_scales = v_scales = None
@@ -1015,19 +1073,27 @@ def flash_attention_plain(
         kv_scales = None if k_scales is None else (k_scales[sl], v_scales[sl])
         outs.append(_fwd_plain_heads(q[sl], k[sl], v[sl], seg_mask, keep, kv_scales, scale=scale,
                                      logit_softcap=logit_softcap, dropout_rate=dropout_rate,
-                                     form=form, products=products))
+                                     form=form, products=products,
+                                     tile=f32_kv_tile(d, mode) if products else None))
     o, l, m = (torch.cat(x) for x in zip(*outs))
     return (o, l, m) if save_residuals else o
 
 
 def _fwd_plain_heads(q, k, v, mask, keep, kv_scales, *, scale, logit_softcap, dropout_rate,
-                     form, products=0):
+                     form, products=0, tile=None):
     """flash_attention_plain over some heads: ``(o, l, m)``; ``kv_scales``
     the 8-bit tc form's ``(k_scales, v_scales)`` of these heads, or None;
-    ``products`` the "bf16_3x" form's (3 or 4; 0 otherwise)."""
+    ``products`` the float32 form's (3 or 4 in "bf16_3x", 6 in "float32";
+    0 otherwise); ``tile`` the float32 form's KV tile (:func:`f32_kv_tile`;
+    default the tensor-core forms', ``TC_KV_TILE``)."""
     bh, rows, d = q.shape
     s_kv = k.shape[1]
-    if products:  # S from the terms' products: hi hi, hi lo, lo hi (, lo lo)
+    if products == 6:  # x1 (y1 + y2 + y3) + x2 (y1 + y2) + x3 y1, exactly
+        (q1, q2, q3), (k1, k2, k3) = _split3_bf16(q), _split3_bf16(k)
+        s = sum(torch.einsum("bqd,bkd->bqk", a.double(), b.double())
+                for a, b in ((q1, k1 + k2 + k3), (q2, k1 + k2), (q3, k1))).float()
+        del q1, q2, q3, k1, k2, k3
+    elif products:  # S from the terms' products: hi hi, hi lo, lo hi (, lo lo)
         (qh, ql), (kh, kl) = _split_bf16(q), _split_bf16(k)
         pairs = ((qh, kh), (qh, kl), (ql, kh), (ql, kl))[:products]
         s = sum(torch.einsum("bqd,bkd->bqk", a, b) for a, b in pairs)
@@ -1049,8 +1115,8 @@ def _fwd_plain_heads(q, k, v, mask, keep, kv_scales, *, scale, logit_softcap, dr
     m = s.amax(dim=-1)
     p = _exp(s - m[..., None])
     l = p.sum(dim=-1)
-    if form in ("tc", "tc_f32"):  # p against the running max, as two bf16 terms, rescaled
-        tile = TC_F32_KV_TILE[d] if products else TC_KV_TILE[d]
+    if form in ("tc", "tc_f32"):  # p against the running max, as bf16 terms, rescaled
+        tile = tile or TC_KV_TILE[d]
         nt = -(-s_kv // tile)
         padded = torch.nn.functional.pad(s, (0, nt * tile - s_kv), value=DEFAULT_MASK_VALUE)
         m_run = padded.view(bh, rows, nt, tile).amax(dim=-1).cummax(dim=-1).values
@@ -1061,7 +1127,13 @@ def _fwd_plain_heads(q, k, v, mask, keep, kv_scales, *, scale, logit_softcap, dr
     del s
     if dropout_rate:  # l stays the undropped sum (flash.py:931-937)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
-    if products:  # P's two terms against V's: (p_hi + p_lo) v_hi + p_hi v_lo (+ p_lo v_lo)
+    if products == 6:  # P's three terms against V's: six products, exactly
+        (p1, p2, p3), (v1, v2, v3) = _split3_bf16(p), _split3_bf16(v)
+        f = m_run.double()
+        o = sum(torch.einsum("bqk,bkd->bqd", a.double() * f, b.double())
+                for a, b in ((p1 + p2 + p3, v1), (p1 + p2, v2), (p1, v3))).float()
+        del p1, p2, p3, f, m_run
+    elif products:  # P's two terms against V's: (p_hi + p_lo) v_hi + p_hi v_lo (+ p_lo v_lo)
         ph, pl = _split_bf16(p)
         vh, vl = _split_bf16(v)
         o = (torch.einsum("bqk,bkd->bqd", (ph + pl) * m_run, vh)

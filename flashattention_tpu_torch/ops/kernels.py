@@ -21,7 +21,8 @@ dropout forms ``*_tc_extra`` (the forward's also its block-mask form), and
 own, and the two forwards' 8-bit forms are the same sources built with
 ``-DFA_QUANT`` (``flash_fwd_tc_quant``, ``paged_prefill_tc_quant``), and the
 forward's float32 form, over each value's bf16 terms, is its source built
-with ``-DFA_F32`` (``flash_fwd_tc_f32``); paged
+with ``-DFA_F32`` (``flash_fwd_tc_f32``), as is chunked prefill's over
+float32 pools (``paged_prefill_tc_f32``); paged
 decode's tensor-core form is ``paged_decode_tc`` and, for 8-bit pages, the
 same source built with ``-DFA_QUANT`` (``paged_decode_tc_quant``).  The
 two-pass backward pair's tensor-core forms are ``flash_bwd_dq_tc`` (a
@@ -93,6 +94,10 @@ KERNELS = {
     # pages, taken in bf16), stream.
     "paged_prefill_tc": ("paged_prefill_tc.cu", "fa_paged_prefill_tc",
                          [*[_P] * 6, *[_I] * 9, _F, _I, _F, _I, _P]),
+    # Its float32 form (float32 q over float32 pools, csrc/flash_fwd_f32.cuh's
+    # kernel): the same arguments without the float32 O flag.
+    "paged_prefill_tc_f32": ("paged_prefill_tc.cu", "fa_paged_prefill_tc_f32",
+                             [*[_P] * 6, *[_I] * 9, _F, _I, _F, _P], ["-DFA_F32"]),
     # Paged decode's tensor-core form (bf16 q; bf16 pages, or 8-bit pages
     # built with -DFA_QUANT): the payload's type code, then its pointers;
     # float32 O as in paged_prefill_tc.

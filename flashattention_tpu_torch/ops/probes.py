@@ -50,6 +50,7 @@ __all__ = [
     "INT8_FLAVORS",
     "MMA_MODES",
     "fp32_inputs",
+    "lo3_term_f32_qkv",
     "lo_term_f32_qkv",
     "lo_term_qkv",
     "probe_d128",
@@ -66,6 +67,7 @@ __all__ = [
     "probe_page_walk_plain",
     "probe_stream_sum",
     "probe_stream_sum_plain",
+    "v3_term_f32_qkv",
 ]
 
 KV_TILE = 128  # KV rows a tile: every probe kernel's, at d = 64 and 128
@@ -222,6 +224,56 @@ def lo_term_f32_qkv(bh: int, s: int, d: int, *, generator=None, device="cpu"):
     sign = torch.where(torch.rand((bh, s, 1), **kw) < 0.5, -1.0, 1.0)
     v = sign * (1 + torch.randn((bh, s, d), **kw) / 4)
     return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def lo3_term_f32_qkv(bh: int, s: int, d: int, *, generator=None, device="cpu"):
+    """float32 ``q, k, v (BH, S, d)`` on which, at scale 1, each third-term
+    product of the ``"float32"`` mode (XLA's HIGHEST: x1 y3, x2 y2, x3 y1)
+    moves the scores by 2^-9 to 2^-7 and the output by far more than 1e-4
+    of its magnitude, so a form that drops one, or that keeps two terms a
+    value, misses, while every partial sum of the six products stays exact
+    in float32.  Query row r is ``(1024 + u + j 2^-8, 1024 + u', 0, ...)``
+    with u, u' in {2, 3} and j = +/-1 (terms 1024, u, j 2^-8 and 1024, u');
+    key j is ``(h, 4 - h + e 2^-11 + g 2^-19, 0, ...)`` with h in (1, 2) on a
+    1/8 grid, e in {+/-2, +/-3} and g = +/-1 (terms h; 4 - h, e 2^-11, g
+    2^-19).  So x1 y1 = 4096 for every key; x1 y2 = e / 2, x2 y1 = u h + u'
+    (4 - h); x1 y3 = g 2^-9, x2 y2 = u' e 2^-11, x3 y1 = j h 2^-8, all
+    multiples of 2^-11, the float32 step at 4096; the products HIGHEST
+    drops (x2 y3 = u' g 2^-19) are 4e-6 and less.  V's rows are +/-(1 + n /
+    4), n normal, a random sign per key, as in :func:`lo_term_f32_qkv`."""
+    kw = dict(generator=generator, device=device)
+
+    def pm(*shape):  # +/-1
+        return torch.where(torch.rand(shape, **kw) < 0.5, -1.0, 1.0)
+
+    q = torch.zeros((bh, s, d), device=device)
+    q[..., 0] = 1024 + torch.randint(2, 4, (bh, s), **kw).float() + pm(bh, s) * 2.0**-8
+    q[..., 1] = 1024 + torch.randint(2, 4, (bh, s), **kw).float()
+    h = 1 + torch.randint(1, 8, (bh, s), **kw) / 8
+    e = torch.randint(2, 4, (bh, s), **kw) * pm(bh, s)
+    k = torch.zeros((bh, s, d), device=device)
+    k[..., 0] = h
+    k[..., 1] = 4 - h + e * 2.0**-11 + pm(bh, s) * 2.0**-19
+    v = pm(bh, s, 1) * (1 + torch.randn((bh, s, d), **kw) / 4)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def v3_term_f32_qkv(bh: int, d: int, *, generator=None, device="cpu"):
+    """float32 ``q, k, v (BH, d, d)`` on which, at scale 1 and causal, row r
+    attends key r alone (q and k rows are 16 e_r: a score of 256 against 0,
+    every other weight exactly 0), so its output is V's row r exactly, each
+    value ``+/-64 (1 + 1.5 2^-9 + 1.5 b 2^-18)`` with b = +/-1, whose three
+    bf16 terms are 64, 1.5 2^-3 and 1.5 b 2^-12 (signed): a form that drops
+    V's third term misses by 3.7e-4, while the six products' sums stay
+    exact in float32 (the output is V's row to the last bit)."""
+    kw = dict(generator=generator, device=device)
+
+    def pm(*shape):
+        return torch.where(torch.rand(shape, **kw) < 0.5, -1.0, 1.0)
+
+    eye = 16 * torch.eye(d, device=device).expand(bh, d, d)
+    v = 64 * pm(bh, d, d) * (1 + 1.5 * 2.0**-9 + 1.5 * pm(bh, d, d) * 2.0**-18)
+    return eye.contiguous(), eye.contiguous(), v.contiguous()
 
 
 # ---------------------------------------------------------------- probe_mma

@@ -245,12 +245,14 @@ def attention_ceiling_tflops(d: int, precision: str = "bf16", *, device=None,
     128 below d = 128) and, on a v5e at d = 128, a measured 0.78 factor;
     ``wgmma`` tiles N and K in steps of 8 and 16, so no built head_dim
     wastes a pass, and the v5e's factor is a TPU measurement.
-    ``"bf16_3x"`` and ``"packed"``: at the float32 tensor-core form's head_dims
-    (``ops.flash.TC_F32_HEAD_DIMS``) the bf16 peak over the products each
-    useful one takes there (``ops.flash.f32_products``: four at d = 64,
-    three at 128); at the others, where the exact kernel runs, and for
-    ``"float32"``, the card's float32 peak.  None off the card or for
-    another precision."""
+    ``"bf16_3x"`` and ``"packed"``: at the float32 tensor-core form's
+    head_dims (``ops.flash.TC_F32_HEAD_DIMS``) the bf16 peak over the
+    products each useful one takes there (``ops.flash.f32_products``: four
+    at d = 64, three at 128 and 256); at the others, where the exact kernel
+    runs, the card's float32 peak.  ``"float32"``: the card's float32 peak,
+    the JAX package's accounting of exact float32 products (its form on the
+    tensor cores, six bf16 products a useful one, would be the bf16 peak
+    over six, above it).  None off the card or for another precision."""
     from flashattention_tpu_torch.ops.flash import TC_F32_HEAD_DIMS, f32_products
 
     peak = chip_peak(16, device=device, card=card)

@@ -913,10 +913,12 @@ def test_cli_rows_carry_the_card(capsys):
     assert all(r["valid"] and r["hbm_frac"] > 0 for r in rows)
 
 
-# The float32 form (``flash_fwd_tc_f32``): float32 q, k, v at d = 64 and 128
-# in the "bf16_3x" (default) and "bf16" modes, against its plain version on
-# the CPU (1e-4 of the output's magnitude; "bf16": 2e-2) and, in "bf16_3x",
-# within 1e-4 of the exact scalar kernel.
+# The float32 form (``flash_fwd_tc_f32``; in "float32" and at d = 256 in
+# "bf16_3x" csrc/flash_fwd_f32.cuh's kernel): float32 q, k, v at d = 64, 128
+# and 256 in the "bf16_3x" (default), "bf16" and "float32" modes, against
+# its plain version on the CPU (1e-4 of the output's magnitude; "bf16":
+# 2e-2) and, but in "bf16", within 1e-4 of the scalar kernel's exact
+# float32.
 F32_CASES = {
     "causal": dict(causal=True),
     "full": dict(causal=False),
@@ -954,8 +956,8 @@ def _f32_err(got, want):
     return float((got.cpu() - want).abs().max()) / float(want.abs().max())
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16", "float32"])
 @pytest.mark.parametrize("case", list(F32_CASES))
 @pytest.mark.parametrize("inputs", ["random", "lo_term"])
 def test_f32_form_matches_plain(d, mode, case, inputs):
@@ -971,16 +973,17 @@ def test_f32_form_matches_plain(d, mode, case, inputs):
             assert _f32_err(g, w) <= 1e-5
         got, want = got[0], want[0]
     assert got.dtype == torch.float32
-    assert _f32_err(got, want) <= (1e-4 if mode == "bf16_3x" else 2e-2)
-    if mode == "bf16_3x":  # and within 1e-4 of the exact scalar kernel
-        exact = flash.flash_attention(q.cuda(), k.cuda(), v.cuda(), precision="float32",
-                                      **_on(kw, "cuda"))
+    assert _f32_err(got, want) <= (2e-2 if mode == "bf16" else 1e-4)
+    if mode != "bf16":  # and within 1e-4 of the scalar kernel's exact float32
+        with flash.scalar_forms():
+            exact = flash.flash_attention(q.cuda(), k.cuda(), v.cuda(), precision="float32",
+                                          **_on(kw, "cuda"))
         exact = exact[0] if kw.get("save_residuals") else exact
         assert _f32_err(got.cuda(), exact.cpu()) <= 1e-4
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16", "float32"])
 def test_f32_form_ignores_poisoned_rows(d, mode):
     """K/V rows past kv_len NaN, and a second head all NaN behind a ragged
     S (rows past S in memory): the first head's output bit for bit the
@@ -1000,11 +1003,64 @@ def test_f32_form_ignores_poisoned_rows(d, mode):
 
 
 def test_f32_modes_launch_their_forms():
-    q = _randn((2, 128, 64), torch.float32, 0).cuda()
+    """Every mode launches the float32 form; "float32" (and "bf16_3x" at
+    d = 256) csrc/flash_fwd_f32.cuh's kernel; the scalar kernel only under
+    scalar_forms."""
     counts = lambda: (flash.flash_attention.launches,  # noqa: E731
                       flash.flash_attention.launches_tc_f32,
-                      flash.flash_attention.launches_tc_f32_bf16)
-    for mode, step in ((None, (1, 1, 0)), ("bf16", (1, 1, 1)), ("float32", (1, 0, 0))):
+                      flash.flash_attention.launches_tc_f32_bf16,
+                      flash.flash_attention.launches_tc_f32_split)
+    for d in (64, 256):
+        q = _randn((2, 128, d), torch.float32, 0).cuda()
+        for mode, step in ((None, (1, 1, 0, int(d == 256))), ("bf16", (1, 1, 1, 0)),
+                           ("float32", (1, 1, 0, 1))):
+            before = counts()
+            flash.flash_attention(q, q, q, precision=mode)
+            assert tuple(a - b for a, b in zip(counts(), before)) == step, (d, mode)
         before = counts()
-        flash.flash_attention(q, q, q, precision=mode)
-        assert tuple(a - b for a, b in zip(counts(), before)) == step, mode
+        with flash.scalar_forms():
+            flash.flash_attention(q, q, q, precision="float32")
+        assert tuple(a - b for a, b in zip(counts(), before)) == (1, 0, 0, 0)
+
+
+@pytest.mark.parametrize("d,ps", [(64, 16), (128, 256), (256, 256), (256, 32)])
+def test_paged_prefill_f32_form_matches_plain(d, ps):
+    """Float32 q over float32 pools: chunked prefill's float32 form (GQA
+    with seg > chunk, a ctx = 0 request, window + softcap at d = 256)
+    against its plain version on the CPU within 1e-4, one launch counted;
+    NaN in every pool row no query row may see leaves the output bitwise
+    the clean pools'."""
+    kvh, g, chunk, seg = 2, 2, 48, 64
+    ctx_list = [0, chunk, 3 * ps + 5 if ps < 64 else 300]
+    pps = -(-max(ctx_list) // ps) + 1
+    pool = len(ctx_list) * pps + 2
+    kp = _randn((pool, kvh, ps, d), torch.float32, 0)
+    vp = _randn((pool, kvh, ps, d), torch.float32, 1)
+    q = _randn((len(ctx_list), kvh, g * seg, d), torch.float32, 2)
+    table = torch.randperm(pool, generator=torch.Generator().manual_seed(3))[
+        : len(ctx_list) * pps].reshape(len(ctx_list), pps).int()
+    ctx = torch.tensor(ctx_list, dtype=torch.int32)
+    kw = dict(chunk=chunk, seg=seg, scale=d**-0.5)
+    if d == 256:
+        kw.update(window=40, logit_softcap=20.0)
+    assert flash.kernel_form("paged_prefill", torch.float32, d, page_size=ps) == "tc_f32"
+    n = decode.paged_prefill_attention_batched.launches_tc_f32
+    args = (q.cuda(), kp.cuda(), vp.cuda(), table.cuda(), ctx.cuda())
+    got = decode.paged_prefill_attention_batched(*args, **kw)
+    want = decode.paged_prefill_attention_batched(q, kp, vp, table, ctx, **kw)
+    torch.cuda.synchronize()
+    assert decode.paged_prefill_attention_batched.launches_tc_f32 == n + 1
+    assert got.dtype == torch.float32 and _f32_err(got, want) <= 1e-4
+    used = torch.zeros(pool, dtype=torch.bool)
+    for b, c in enumerate(ctx_list):
+        used[table[b, : -(-c // ps)].long()] = True
+    kn, vn = kp.clone(), vp.clone()
+    kn[~used], vn[~used] = float("nan"), float("nan")
+    for b, c in enumerate(ctx_list):  # rows past ctx_len in the last live page
+        if c % ps:
+            last = int(table[b, c // ps])
+            kn[last, :, c % ps:], vn[last, :, c % ps:] = float("nan"), float("nan")
+    poisoned = decode.paged_prefill_attention_batched(q.cuda(), kn.cuda(), vn.cuda(),
+                                                      *args[3:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, got)

@@ -56,11 +56,11 @@ def _jax_mode(mode, dtype, quantized):
                          ids=str)
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_resolution_and_form_follow_jax(mode, quantized, d):
-    """float32 q, k, v at d = 64 and 128 take the float32 form in every mode
-    JAX computes with bf16 passes, the exact kernel for "float32"; float32 q
-    over 8-bit K/V and the other head_dims keep the exact kernel (more exact
-    than asked); bf16 inputs resolve to "bf16" and keep their form.  The
-    four-product form is where JAX packs."""
+    """float32 q, k, v at d = 64, 128 and 256 take the float32 form in
+    every mode, "float32" (XLA's HIGHEST) included; float32 q over 8-bit
+    K/V and the other head_dims keep the exact kernel (more exact than
+    asked); bf16 inputs resolve to "bf16" and keep their form.  The
+    four-product form is where JAX packs, six products are "float32"'s."""
     for tdt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
         want = _jax_mode(mode, jdt, quantized)
         if not quantized:
@@ -69,11 +69,12 @@ def test_resolution_and_form_follow_jax(mode, quantized, d):
         if tdt == torch.bfloat16:
             assert want == "bf16"
             assert form == ("tc" if d in (64, 128, 256) else "scalar")
-        elif want != "float32" and d in (64, 128) and not quantized:
+        elif d in (64, 128, 256) and not quantized:
             assert form == "tc_f32"
         else:
             assert form == "scalar"
     assert (tflash.f32_products(d) == 4) == (2 * d <= jflash.NUM_LANES)
+    assert tflash.f32_products(d, "float32") == 6
 
 
 def test_scalar_forms_and_options_keep_the_exact_kernel():
@@ -127,8 +128,7 @@ def test_flash_attention_matches_jax_mode(d, mode, case):
     got = tflash.flash_attention(*map(torch.tensor, (q, k, v)), precision=mode,
                                  **{n: torch.tensor(x) if isinstance(x, np.ndarray) else x
                                     for n, x in kw.items()})
-    assert tflash.kernel_form("flash_fwd", torch.float32, d, precision=mode) == (
-        "scalar" if mode == "float32" else "tc_f32")
+    assert tflash.kernel_form("flash_fwd", torch.float32, d, precision=mode) == "tc_f32"
     if kw.get("save_residuals"):  # of their magnitude: 1e-5, and bf16's 2e-2 in "bf16"
         rtol = 2e-2 if mode == "bf16" else 1e-5
         for name, a, b in zip(("l", "m"), got[1:], want[1:]):

@@ -51,10 +51,16 @@ def _tc_page(ps, d):
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_prefill_form_selector(dtype, d):
     """bf16 q, a tensor-core head_dim, bf16 or 8-bit pages and a page size
-    the tc form's boxes take; scalar otherwise (and without a page size)."""
+    the tc form's boxes take; float32 q over float32 pages at those
+    head_dims: the float32 form, on pages its own tile's boxes take (64
+    rows, 32 at d = 256); scalar otherwise (and without a page size)."""
     for ps, quantized in itertools.product(PAGE_SIZES, (False, True)):
         want = ("tc" if dtype == torch.bfloat16 and d in (64, 128, 256)
                 and _tc_page(ps, d) else "scalar")
+        if dtype == torch.float32 and d in (64, 128, 256) and not quantized:
+            tile = {64: 64, 128: 64, 256: 32}[d]
+            want = ("tc_f32" if ps % 8 == 0 and (tile % ps == 0 or ps % tile == 0)
+                    else "scalar")
         got = tflash.kernel_form("paged_prefill", dtype, d, quantized=quantized, page_size=ps)
         assert got == want, (ps, quantized)
     assert tflash.kernel_form("paged_prefill", dtype, d) == "scalar"
@@ -147,7 +153,8 @@ def test_tc_prefill_matches_jax_bf16(case):
 def test_tc_prefill_rounding_moves_the_result(case):
     """The mirrored rounding is live: the tc form's plain version differs
     from the scalar form's by no more than bf16 rounding; it is the default
-    in bf16, and in float32 the scalar one is."""
+    in bf16, and in float32 the float32 form (three bf16 terms) is, within
+    float32 rounding of the scalar one."""
     (_, tq), (_, tk), (_, tv), table, ctx = _prefill_inputs(case, 2)
     kw = _prefill_kw(case)
     args = (tq, tk, tv, torch.from_numpy(table), torch.from_numpy(ctx))
@@ -157,8 +164,10 @@ def test_tc_prefill_rounding_moves_the_result(case):
     assert 0.0 < gap < TOL
     assert torch.equal(td.paged_prefill_attention_plain(*args, **kw), tc)
     f32 = (tq.float(), tk.float(), tv.float(), *args[3:])
-    assert torch.equal(td.paged_prefill_attention_plain(*f32, **kw),
-                       td.paged_prefill_attention_plain(*f32, form="scalar", **kw))
+    exact = td.paged_prefill_attention_plain(*f32, **kw)
+    assert torch.equal(exact, td.paged_prefill_attention_plain(*f32, form="tc_f32", **kw))
+    scalar32 = td.paged_prefill_attention_plain(*f32, form="scalar", **kw)
+    assert float((exact - scalar32).abs().max()) <= 1e-5 * float(scalar32.abs().max())
 
 
 def test_tc_prefill_zero_rows_match_the_scalar_form():

@@ -41,10 +41,10 @@ def _expected(kernel, dtype, d, quantized, block_mask):
     of the two-pass pair at the forward's); a block mask only in the forward
     and the pair (the fused backward refuses one), over 16-bit K/V; 8-bit
     K/V only in the forward (no backward takes them).  float32 q, k and v
-    in the forward at d = 64 and 128 without 8-bit K/V or a block mask: the
-    float32 form, in the default precision ("bf16_3x";
+    in the forward at d = 64, 128 and 256 without 8-bit K/V or a block mask:
+    the float32 form, in the default precision ("bf16_3x";
     tests/test_torch_precision.py holds every mode)."""
-    if (kernel == "flash_fwd" and dtype == torch.float32 and d in (64, 128)
+    if (kernel == "flash_fwd" and dtype == torch.float32 and d in (64, 128, 256)
             and not (quantized or block_mask)):
         return "tc_f32"
     dims = (64, 128, 256) if kernel in ("flash_fwd", "flash_bwd", "flash_bwd_dq",
@@ -158,10 +158,11 @@ def test_tc_backward_matches_jax_bf16(case):
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_tc_rounding_moves_the_forward(case):
     """The mirrored rounding is live: the tc form's plain forward differs
-    from the scalar form's, by no more than bf16 rounding, and with q, k, v
-    in float32 at ``precision="float32"`` (the scalar form) the default is
-    the scalar one; at the default precision float32 takes the float32
-    form (tests/test_torch_precision.py)."""
+    from the scalar form's, by no more than bf16 rounding; with q, k, v in
+    float32 the default is the float32 form in every precision, at
+    ``precision="float32"`` its three-term mode, which differs from the
+    scalar form's exact float32 by float32 rounding alone
+    (tests/test_torch_precision.py, tests/test_torch_f32_highest.py)."""
     q, k, v, _ = _inputs(case, 3)
     kw = _kw(case)
     tc = tflash.flash_attention_plain(q, k, v, form="tc", **kw)
@@ -170,8 +171,11 @@ def test_tc_rounding_moves_the_forward(case):
     assert 0.0 < gap < TOL
     assert torch.equal(tflash.flash_attention_plain(q, k, v, **kw), tc)
     f32 = [x.float() for x in (q, k, v)]
-    assert torch.equal(tflash.flash_attention_plain(*f32, precision="float32", **kw),
-                       tflash.flash_attention_plain(*f32, form="scalar", **kw))
+    exact = tflash.flash_attention_plain(*f32, precision="float32", **kw)
+    assert torch.equal(exact, tflash.flash_attention_plain(*f32, form="tc_f32",
+                                                           precision="float32", **kw))
+    scalar32 = tflash.flash_attention_plain(*f32, form="scalar", **kw)
+    assert float((exact - scalar32).abs().max()) <= 1e-5 * float(scalar32.abs().max())
     assert torch.equal(tflash.flash_attention_plain(*f32, **kw),
                        tflash.flash_attention_plain(*f32, form="tc_f32", **kw))
 
