@@ -161,6 +161,22 @@ Phases, each of which must pass (any failure exits non-zero):
                bound) and at ``cli/bench.py``'s headline shape;
                ``torch_tools/f32_mutants.py`` shows that they fail a form
                missing a cross product or a second term;
+               ``f32_train_checks``: float32 training's forms, the fused
+               backward's float32 form (``flash_bwd_tc_f32``, the five
+               products over bf16 terms as the JAX ``_dot_g`` computes
+               them, "bf16_3x" and "bf16") and the forward's dropout form
+               (``flash_fwd_tc_f32_extra``) at d = 64 and 128 against their
+               plain versions over the GQA fold, a ragged S, kv_len /
+               q_offset, a window with a softcap (q x 8) and dropout, NaN
+               past kv_len and behind a ragged S, and the keep bits against
+               the plain version's; both timed at the training layer (B =
+               2, rate 0.1 for the forward) beside the scalar kernels,
+               SDPA float32 and their bound (``bwd_checks``,
+               ``dropout_checks``), and the scalar pair in float32 at the
+               packed layer beside SDPA float32's masked backward;
+               ``f32_mutants.py`` shows that these fail a backward missing
+               one of the three products of any of its five matmuls, dO's
+               lo term, or with Z's dropout bits on dS;
    attention_block_mask - ``attention(block_mask=, dropout_rate=0.1)``
                under autograd at that layer, bf16, the launches counted: one
                of each tensor-core form (forward, dQ, dK/dV), none scalar;
@@ -346,7 +362,9 @@ over float32 pages, and their int8 cache runs the tensor-core 8-bit form
 scalar 8-bit form must launch in the kernel checks (its ``quantized``
 entry's ``check_launches``).  Float32 q over 8-bit K/V and pages is timed
 at rows 1, 2 and 4 (``f32q_timings``, its own lap).  The float32 train_parity phases' card launches are
-counted as paths too (float32 training runs the scalar kernels).  It prints one JSON line per check, the
+counted as paths too: at d = 64 and 128 float32 training runs the forward's
+float32 form (its dropout form with dropout) and the fused backward's
+float32 form, and no scalar fused backward (``_f32_form_launched``).  It prints one JSON line per check, the
 total seconds, a ``{"kernels": [...]}`` summary (with a ``quantized`` entry
 for each serving kernel's 8-bit form, ``dropout`` entries for flash_fwd and
 the backward kernels, ``block_mask`` entries for the tensor-core forms of
@@ -448,6 +466,12 @@ KERNELS = (
     # chunked prefill over float32 pools, paged_prefill_tc.cu with -DFA_F32.
     ("flash_fwd_f32", "flash_fwd_f32.cuh", "ops/flash.py:628"),
     ("paged_prefill_tc_f32", "paged_prefill_tc.cu", "ops/decode.py:375"),
+    # Float32 training's forms ("bf16_3x" and "bf16" at d = 64 and 128): the
+    # fused backward over bf16 terms (flash_bwd_tc.cu with -DFA_F32; its
+    # dropout form with -DFA_EXTRA too) and the forward's dropout form
+    # (flash_fwd_tc.cu with -DFA_F32 -DFA_EXTRA).
+    ("flash_bwd_tc_f32", "flash_bwd_tc.cu", "ops/backward.py:401"),
+    ("flash_fwd_tc_f32_extra", "flash_fwd_tc.cu", "ops/flash.py:628"),
 )
 TC_KERNELS = {"flash_fwd": "flash_fwd_tc", "flash_bwd": "flash_bwd_tc",
               "paged_prefill": "paged_prefill_tc", "flash_bwd_dq": "flash_bwd_dq_tc",
@@ -492,7 +516,7 @@ _FLAGS = {"paged_decode_kernel": ("window_cap", "draft"), "flash_fwd_kernel": ("
           "flash_fwd_tc_kernel": ("window_cap", "extra", "paged"),
           "flash_fwd_f32_kernel": ("window_cap", "paged"),
           "flash_bwd_tc_kernel": ("window_cap", "extra", "pair"),
-          "flash_bwd_tc_d256_kernel": ("window_cap", "extra", "pair"),
+          "flash_bwd_tc_wide_kernel": ("window_cap", "extra", "pair"),
           "probe_kernel": ("vt", "kt"), "probe_t_kernel": ("vt", "o_norm")}
 
 
@@ -525,6 +549,9 @@ def _ptxas(log):
                 *args, kv, terms = args
                 args += {"1": ["int8"], "2": ["fp8"]}.get(kv, [])
                 args += {"0": [], "1": ["f32_1_term"]}.get(terms, [f"f32_{terms}_products"])
+            if name in ("flash_bwd_tc_kernel", "flash_bwd_tc_wide_kernel"):  # its last int: terms
+                *args, terms = args
+                args += {"0": [], "1": ["f32_1_term"]}.get(terms, [f"f32_{terms}_terms"])
             out.append({"kernel": f"{name}<{','.join(args)}>"})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -606,8 +633,10 @@ def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dr
     q's second-to-last dimension), the forward's
     float32 form's for float32 q at its head_dims (``flash_fwd_f32``, the
     kernel that splits in shared memory, in ``precision`` "float32" and in
-    "bf16_3x" at d = 256, else ``flash_fwd_tc_f32``), chunked prefill's over
-    float32 pools (``paged_prefill_tc_f32``), else ``kernel``.  Float32 q over 8-bit K/V is taken in bf16 (the JAX
+    "bf16_3x" at d = 256, else ``flash_fwd_tc_f32``; with dropout its
+    dropout form ``flash_fwd_tc_f32_extra``), chunked prefill's over float32
+    pools (``paged_prefill_tc_f32``), the fused backward's over float32
+    (``flash_bwd_tc_f32``), else ``kernel``.  Float32 q over 8-bit K/V is taken in bf16 (the JAX
     kernels' default), so its form is the bf16 call's.
     A check of an 8-bit form is named ``<kernel>/quant/...``
     (``_check_name``), so the tensor-core 8-bit forms' checks read
@@ -620,10 +649,12 @@ def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dr
     dt = torch.bfloat16 if quantized else q.dtype
     form = tc and flash.kernel_form(kernel, dt, q.shape[-1], quantized=quantized,
                                     block_mask=block_mask, page_size=page_size, rows=rows,
-                                    dropout=dropout)
+                                    dropout=dropout, precision=precision)
     if form == "tc_f32":
-        if kernel == "paged_prefill":
-            return "paged_prefill_tc_f32"
+        if kernel in ("paged_prefill", "flash_bwd"):
+            return f"{kernel}_tc_f32"
+        if dropout:
+            return "flash_fwd_tc_f32_extra"
         mode = flash.resolve_precision(precision, torch.float32)
         return "flash_fwd_f32" if flash.f32_split(q.shape[-1], mode) else "flash_fwd_tc_f32"
     return tc if form == "tc" else kernel
@@ -2007,8 +2038,11 @@ def _counters(flash, decode, backward):
     them too),
     ``flash_fwd_tc_f32_bf16`` its one-pass "bf16" mode's among them and
     ``flash_fwd_f32`` those of csrc/flash_fwd_f32.cuh's kernel ("float32",
-    and "bf16_3x" at d = 256); ``paged_prefill_tc_f32`` chunked prefill's
-    float32 form's (``paged_prefill`` counts them too)."""
+    and "bf16_3x" at d = 256), ``flash_fwd_tc_f32_extra`` those of its
+    dropout form; ``paged_prefill_tc_f32`` chunked prefill's float32 form's
+    (``paged_prefill`` counts them too); ``flash_bwd_tc_f32`` the fused
+    backward's float32 form's (``flash_bwd`` counts them too), with dropout
+    among them ``flash_bwd_tc_f32_dropout``."""
     fns = {
         "flash_fwd": flash.flash_attention,
         "paged_decode": decode.paged_attention,
@@ -2034,7 +2068,10 @@ def _counters(flash, decode, backward):
     out["flash_fwd_tc_f32"] = (flash.flash_attention, "launches_tc_f32")
     out["flash_fwd_tc_f32_bf16"] = (flash.flash_attention, "launches_tc_f32_bf16")
     out["flash_fwd_f32"] = (flash.flash_attention, "launches_tc_f32_split")
+    out["flash_fwd_tc_f32_extra"] = (flash.flash_attention, "launches_tc_f32_dropout")
     out["paged_prefill_tc_f32"] = (decode.paged_prefill_attention_batched, "launches_tc_f32")
+    out["flash_bwd_tc_f32"] = (backward.fused_bwd_kernel, "launches_tc_f32")
+    out["flash_bwd_tc_f32_dropout"] = (backward.fused_bwd_kernel, "launches_tc_f32_dropout")
     return out
 
 
@@ -2050,7 +2087,10 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE, cache_dtype=None):
     decode's draft launches at k = SPEC_K in the draft form's count too);
     every flash_fwd launch of a float32 model at the float32 form's
     head_dims but the block-mask, dropout and 8-bit ones, in the default
-    "bf16_3x" mode (at d = 256 csrc/flash_fwd_f32.cuh's kernel's), and
+    "bf16_3x" mode (at d = 256 csrc/flash_fwd_f32.cuh's kernel's; the
+    dropout ones too at d = 64 / 128, in its dropout form's count too),
+    every fused backward launch of a float32 model at d = 64 / 128 in its
+    float32 form (the dropout ones in that form's dropout count too), and
     every paged prefill launch of a float32 model over float32 pages in
     chunked prefill's float32 form.  A float32 model's paged launches over
     a ``cache_dtype`` that is not float32 take q in bf16, so their forms are
@@ -2064,12 +2104,19 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE, cache_dtype=None):
         want["flash_fwd_tc_quant"] = want.get("flash_fwd_quant", 0)
         want["flash_fwd_tc_block_mask"] = want.get("flash_fwd_block_mask", 0)
     if flash.kernel_form("flash_fwd", dt, cfg.head_dim) == "tc_f32":
+        f32_dropout = flash.kernel_form("flash_fwd", dt, cfg.head_dim, dropout=True) == "tc_f32"
         want["flash_fwd_tc_f32"] = want["flash_fwd"] - sum(
             want.get(f"flash_fwd_{x}", 0) for x in ("block_mask", "dropout", "quant"))
         if flash.f32_split(cfg.head_dim, "bf16_3x"):
             want["flash_fwd_f32"] = want["flash_fwd_tc_f32"]
+        if f32_dropout:
+            want["flash_fwd_tc_f32_extra"] = want.get("flash_fwd_dropout", 0)
+            want["flash_fwd_tc_f32"] += want["flash_fwd_tc_f32_extra"]
     if flash.kernel_form("flash_bwd", dt, cfg.head_dim) == "tc":
         want["flash_bwd_tc"] = want["flash_bwd"]
+    if flash.kernel_form("flash_bwd", dt, cfg.head_dim) == "tc_f32":
+        want["flash_bwd_tc_f32"] = want["flash_bwd"]
+        want["flash_bwd_tc_f32_dropout"] = want.get("flash_bwd_dropout", 0)
     for k in PAIR:  # the two-pass pair's
         if flash.kernel_form(k, dt, cfg.head_dim) == "tc":
             want[f"{k}_tc"] = want.get(k, 0)
@@ -2640,19 +2687,35 @@ def _kernel_of(name):
     true) is paged_prefill_tc, and its 8-bit form (the sixth, kKV, not 0)
     the ``_quant`` one; paged_decode_tc's kernel and its merge kernel are
     paged_decode_tc's (``_quant`` where their last argument, kKV, is not
-    0); the d = 256 backward kernel is flash_bwd_tc's."""
+    0); the float32 forms (the last argument, kTerms, not 0) are
+    flash_fwd_tc_f32's (``_extra`` with dropout, the third argument) and
+    flash_bwd_tc_f32's; the backward's two kernels (d = 256 and d = 128
+    over two terms: the wide one) are flash_bwd_tc's, or flash_bwd_dkv_tc's
+    in the pair's form (the fourth argument, kPair)."""
+    def flag(a):
+        return a in ("true", "1", "(bool)1")
+
+    def nonzero(a):
+        return a not in ("0", "(int)0")
+
     m = re.search(r"flash_fwd_tc_kernel<([^<>]*)>", name)
     if m:
         args = [a.strip() for a in m.group(1).split(",")]
-        paged = args[4] in ("true", "1", "(bool)1")
-        quant = len(args) > 5 and args[5] not in ("0", "(int)0")
+        if len(args) > 6 and nonzero(args[6]):
+            return "flash_fwd_tc_f32" + ("_extra" if flag(args[2]) else "")
+        paged = flag(args[4])
+        quant = len(args) > 5 and nonzero(args[5])
         return ("paged_prefill_tc" if paged else "flash_fwd_tc") + ("_quant" if quant else "")
     m = re.search(r"paged_decode_tc(?:_merge)?_kernel<([^<>]*)>", name)
     if m:
-        quant = m.group(1).split(",")[-1].strip() not in ("0", "(int)0")
+        quant = nonzero(m.group(1).split(",")[-1].strip())
         return "paged_decode_tc" + ("_quant" if quant else "")
-    if "flash_bwd_tc_d256_kernel" in name:
-        return "flash_bwd_tc"
+    m = re.search(r"flash_bwd_tc(?:_wide)?_kernel<([^<>]*)>", name)
+    if m:
+        args = [a.strip() for a in m.group(1).split(",")]
+        if flag(args[3]):
+            return "flash_bwd_dkv_tc"
+        return "flash_bwd_tc_f32" if nonzero(args[4]) else "flash_bwd_tc"
     return next((k for k, _, _ in KERNELS if f"{k}_kernel" in name), None)
 
 
@@ -3305,7 +3368,10 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
     Timed at the bf16 training shapes: the fused backward
     (``flash_attention_bwd``, which computes di and casts dQ too) on the
     plain layer with the pair beside it (``report["pair_vs_fused"]``), each
-    two-pass kernel, both forms, on the packed layer."""
+    two-pass kernel, both forms, on the packed layer; and in float32 at B =
+    2: the fused backward's float32 form (its "bf16" mode too) beside the
+    scalar kernel (``report["float32_timed"]["flash_bwd"]``) on the plain
+    layer, the scalar pair on the packed layer."""
     mains, yardsticks = {}, {}
     _, seg_np = _packed_ids(packing, args.seed + 5, TRAIN_B, TRAIN_S)
     packed = torch.tensor(seg_np, device="cuda")
@@ -3367,11 +3433,35 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
                  ("packed_layer", "bfloat16"): tuple(_kname(k, q) for k in PAIR),
                  }.get((name, dt), ())
         if (name, dt) == ("train_layer_b2", "float32"):
-            # the float32 paths' form (float32 training runs the scalar kernel)
+            # Row 5 in float32: the fused backward's float32 form (the float32
+            # training paths' form at d = 128) in "bf16_3x" and its "bf16"
+            # mode, beside the scalar kernel (exact float32; its own check,
+            # timed: the scalar row) and SDPA float32's backward.
             yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
-            recs[fused].update(_time_bwd(backward, flash, benchit, card, fused, ins, kw, segs, c,
-                                         yard, dt))
-            report.setdefault("float32_timed", {})["flash_bwd"] = recs[fused]
+            rec = recs[fused]
+            rec.update(_time_bwd(backward, flash, benchit, card, fused, ins, kw, segs, c, yard, dt))
+            rec["bf16_mode_ms"] = benchit.cuda_time_ms(
+                lambda: backward.flash_attention_bwd(*ins, fused=True, precision="bf16", **kw),
+                warmup=1, iters=5)
+            with flash.scalar_forms():
+                got = backward.flash_attention_bwd(*ins, fused=True, **kw)
+                twin = _bwd_rec(f"flash_bwd/{name}/{dt}", got, wants["two_pass"], dt,
+                                grad_absmax=absmax, shape=shape,
+                                form="exact float32 (the scalar kernel, ops.flash.scalar_forms)")
+                twin.update(_time_bwd(backward, flash, benchit, card, "flash_bwd", ins, kw, segs, c,
+                                      yard, dt))
+            rec["scalar_ms"] = twin["kernel_ms"]
+            recs["flash_bwd"] = twin
+            mains[fused] = rec
+            report.setdefault("float32_timed", {})["flash_bwd"] = twin
+        if (name, dt) == ("packed_layer_b2", "float32"):
+            # Rows 6-7 in float32 (the scalar pair, float32 packed training's
+            # form) beside SDPA float32's backward under the boolean mask.
+            yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
+            for k in PAIR:
+                recs[k].update(_time_bwd(backward, flash, benchit, card, k, ins, kw, segs, c, yard,
+                                         dt))
+                report.setdefault("float32_timed", {})[k] = recs[k]
         dq_tc = _kname("flash_bwd_dq", q)
         if dq_tc != "flash_bwd_dq" and "seg" in c and dt == "bfloat16":
             # The pair's dQ takes no atomics: two launches give the same bits.
@@ -3569,10 +3659,14 @@ def _bwd_yardsticks(benchit, ins, kw, c, plain, dropout_p=0.0):
 
 def _time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, yardsticks, dt):
     """One backward kernel's time beside its case's ``_bwd_yardsticks``,
-    and its bound from this case's live pairs."""
+    and its bound from this case's live pairs (the fused backward's float32
+    form, ``flash_bwd_tc_f32``: its bf16 products in the default "bf16_3x",
+    15 of 2 d flops a live pair, over the bf16 peak)."""
     q, k, v, o, lse, do = ins
     di = (o.float() * do.float()).sum(dim=-1)
-    kname = kname.removesuffix("_tc")  # the form that runs is the caller's choice
+    f32_form = kname == "flash_bwd_tc_f32"
+    # The form that runs is the caller's choice.
+    kname = kname.removesuffix("_tc_f32").removesuffix("_tc")
     if kname == "flash_bwd":
         kernel = lambda: backward.flash_attention_bwd(*ins, fused=True, **kw)  # noqa: E731
         reads, writes, per_pair = (q, k, v, o, do, lse), (q, k, v), 10
@@ -3586,6 +3680,9 @@ def _time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, yardstick
     pairs = _live_pairs(flash, q.shape[0], q.shape[1], k.shape[1], kw, segs)
     nbytes = sum(t.numel() * t.element_size() for t in reads + writes)
     out["live_pairs"] = pairs
+    if f32_form:
+        per_pair, dt = 30, "bfloat16"
+        out["products"] = "15 bf16 products of 2 d flops a live pair (bf16_3x)"
     out.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=per_pair * c["d"] * pairs, dtype=dt))
     return out
 
@@ -3669,10 +3766,19 @@ def dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, repor
                      "rate": rate}
             timing = (timed and dt == "bfloat16" and rate == 0.1
                       and name in ("train_layer", "packed_layer"))
+            # The float32 forms' dropout forms at the training layer (rows 1
+            # and 5), each beside the scalar kernel's (its own check, timed).
+            timing32 = timed and (name, dt, rate) == ("train_layer_b2", "float32", 0.1)
             if "seg" not in c:
                 rec, fwd_plain = _fwd_rec(f"{_kname('flash_fwd', q, dropout=True)}/dropout/"
                                           f"{name}/{rate}/{dt}",
                                           flash, q, k, v, kw, segs, dt, shape=shape)
+                if timing32:
+                    mains["flash_fwd_tc_f32_extra"], twin = _time_f32_dropout_fwd(
+                        flash, benchit, card, rec, q, k, v, kw, segs, c, fwd_plain, shape)
+                    report.setdefault("float32_timed", {})["flash_fwd/dropout"] = twin
+                    emit(twin)
+                    report["checks"].append(twin)
                 if timing:
                     rec.update(_time_dropout_fwd(flash, benchit, card, q, k, v, kw, c, fwd_plain))
                     if rec["check"].startswith("flash_fwd_tc/"):
@@ -3690,6 +3796,25 @@ def dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, repor
                 rec = _bwd_rec(f"{kname}/dropout/{name}/{rate}/{dt}", gots, wants_k, dt,
                                shape=shape, grad_absmax=[float(w.abs().max()) for w in wants_k])
                 recs[kname] = rec
+                if timing32 and kname == fused:
+                    yard32 = _bwd_yardsticks(benchit, ins, kw, c, plain, dropout_p=rate)
+                    rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c,
+                                         yard32, dt))
+                    rec["no_dropout_ms"] = _time_bwd(backward, flash, benchit, card, kname, ins,
+                                                     _no_dropout(kw), segs, c, yard32,
+                                                     dt)["kernel_ms"]
+                    with flash.scalar_forms():
+                        got = backward.flash_attention_bwd(*ins, fused=True, **kw)
+                        twin = _bwd_rec(f"flash_bwd/dropout/{name}/{rate}/{dt}", got,
+                                        wants["two_pass"], dt, shape=shape,
+                                        form="exact float32 (the scalar kernel, "
+                                             "ops.flash.scalar_forms)")
+                        twin.update(_time_bwd(backward, flash, benchit, card, "flash_bwd", ins,
+                                              kw, segs, c, yard32, dt))
+                    rec["scalar_ms"] = twin["kernel_ms"]
+                    recs["flash_bwd"] = twin
+                    mains["flash_bwd_tc_f32/dropout"] = rec
+                    report.setdefault("float32_timed", {})["flash_bwd/dropout"] = twin
                 if timing and (kname == fused) == (name == "train_layer"):
                     if yard is None:
                         yard = _bwd_yardsticks(benchit, ins, kw, c, plain, dropout_p=rate)
@@ -3770,6 +3895,35 @@ def _time_dropout_fwd(flash, benchit, card, q, k, v, kw, c, plain):
     return out
 
 
+def _time_f32_dropout_fwd(flash, benchit, card, rec, q, k, v, kw, segs, c, plain, shape):
+    """The float32 forward's dropout form (``flash_fwd_tc_f32_extra``,
+    "bf16_3x") timed as ``_time_dropout_fwd`` times a form, SDPA float32
+    with dropout_p beside it, its bound over its bf16 products
+    (``ops.flash.f32_products`` each for S and PV, 2 d flops a live pair
+    each); and the scalar kernel's dropout form on the same inputs
+    (``ops.flash.scalar_forms``: its own check, timed, bound at the float32
+    rate).  Returns ``(rec, the scalar form's record)``."""
+    d = c["d"]
+    rec.update(_time_dropout_fwd(flash, benchit, card, q, k, v, kw, c, plain))
+    rec["library"] = rec["library"].replace("scaled_dot_product_attention",
+                                            "scaled_dot_product_attention float32", 1)
+    n = flash.f32_products(d)
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+    rec.update(products=f"{n} for S, {n} for PV",
+               **benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * n * d * rec["live_pairs"],
+                                  dtype="bfloat16"))
+    with flash.scalar_forms():
+        twin, scalar_plain = _fwd_rec(rec["check"].replace("flash_fwd_tc_f32_extra/", "flash_fwd/", 1),
+                                      flash, q, k, v, kw, segs, "float32", shape=shape,
+                                      form="exact float32 (the scalar kernel, ops.flash.scalar_forms)")
+        twin.update(_time_dropout_fwd(flash, benchit, card, q, k, v, kw, c, scalar_plain))
+    twin.update(library_ms=rec["library_ms"], library=rec["library"],
+                **benchit.bound_ms(card, bytes_moved=nbytes, flops=4 * d * rec["live_pairs"],
+                                   dtype="float32"))
+    rec["scalar_ms"] = twin["kernel_ms"]
+    return rec, twin
+
+
 def _ragged_gqa_dropout(fa, backward, flash, gen, dt):
     """attention() with dropout over a ragged GQA S (32 q / 8 KV heads, d =
     128): the forward and the gradients under autograd against the plain
@@ -3799,6 +3953,175 @@ def _ragged_gqa_dropout(fa, backward, flash, gen, dt):
             "o_max_abs_err": e_o, "o_tol": FLASH_TOL[dt], "max_abs_err": e_g, "tol": BWD_TOL[dt],
             "shape": f"B={b} H={h} KVH={hkv} S={s} d={d} causal, rate 0.1, row stride {stride}",
             "ok": e_o <= FLASH_TOL[dt] and e_g <= BWD_TOL[dt]}
+
+
+# The float32 training forms: the fused backward's float32 form
+# (flash_bwd_tc_f32, its dropout form built into flash_bwd_tc_f32_extra) and
+# the forward's dropout form (flash_fwd_tc_f32_extra), in the JAX modes
+# "bf16_3x" and "bf16" at d = 64 and 128, over F32_TRAIN_CASES: the GQA fold
+# with causal rows, a ragged S = 300 with no mask, kv_len / q_offset, a window
+# with a softcap and q x 8 (scores near the cap), dropout at rates 0.1 and
+# 0.5 (with the window and softcap), the forward of each dropout case against
+# its plain version (F32_FORM_TOL of the output's magnitude, the residuals
+# within STATS_RTOL) and the gradients against the plain backward in the same
+# mode (BWD_TOL, float32: absolute, gradients below 4), each call launching
+# its form once and no scalar kernel.  Then NaN in K/V rows past kv_len and
+# in every row of the next heads behind a ragged S (the forward with dropout
+# and the gradients of the first head as the clean inputs': o, dK and dV
+# bitwise, dQ, summed by atomics, within 1e-6); and the keep bits: with V and
+# dO the identity (S = d, every pair live) the forward's zeros and dV^T's are
+# exactly the plain version's dropped pairs (ops.flash.dense_keep).
+F32_TRAIN_MODES = ("bf16_3x", "bf16")
+# (BH, G, S_q, S_kv, kwargs): folded q (BH, G S_q, d) against (BH, S_kv, d)
+F32_TRAIN_CASES = {
+    "causal_gqa": (4, 2, 1000, 1000, dict(causal=True)),
+    "full_ragged": (4, 1, 300, 300, dict(causal=False)),
+    "kv_len_q_offset": (4, 1, 128, 300, dict(causal=True, kv_len=250, q_offset=122)),
+    "window_softcap_q8": (4, 2, 1000, 1000, dict(causal=True, window=300, logit_softcap=30.0,
+                                                 q_mult=8.0)),
+    "dropout": (4, 2, 1000, 1000, dict(causal=True, dropout_rate=0.1)),
+    "dropout_window_softcap": (4, 1, 600, 600, dict(causal=True, window=100, logit_softcap=30.0,
+                                                    dropout_rate=0.5)),
+}
+
+
+def _f32_train_inputs(gen, d, case):
+    """q, k, v, dO (float32, on the card) and the keywords of one
+    F32_TRAIN_CASES case at head_dim d; dO at a quarter of the scale
+    (divided by q's multiplier), so the gradients stay below 4."""
+    bh, g, s_q, s_kv, kw = F32_TRAIN_CASES[case]
+    kw = dict(kw, scale=d**-0.5)
+    mult = kw.pop("q_mult", 1.0)
+    q = mult * torch.randn((bh, g * s_q, d), generator=gen, device="cuda")
+    k, v = (torch.randn((bh, s_kv, d), generator=gen, device="cuda") for _ in range(2))
+    do = (0.25 / mult) * torch.randn(q.shape, generator=gen, device="cuda")
+    if g > 1:
+        kw["q_seq_len"] = s_q
+    if "dropout_rate" in kw:
+        kw["dropout_seed"] = DROPOUT_SEED
+    return q, k, v, do, kw
+
+
+def _f32_train_counts(flash, backward):
+    fa_, fb = flash.flash_attention, backward.fused_bwd_kernel
+    return (fa_.launches, fa_.launches_tc_f32, fa_.launches_tc_f32_dropout, fb.launches,
+            fb.launches_tc_f32, fb.launches_tc_f32_dropout)
+
+
+def _f32_train_hold(flash, backward, q, k, v, do, kw, mode, check):
+    """One case's records: the forward (with dropout) and the gradients
+    against their plain versions in ``mode``, and each call's launches."""
+    recs = []
+    dropout = "dropout_rate" in kw
+    n0 = _f32_train_counts(flash, backward)
+    o, l, m = flash.flash_attention(q, k, v, save_residuals=True, precision=mode, **kw)
+    n1 = _f32_train_counts(flash, backward)
+    lse = m + torch.log(torch.where(l == 0, 1.0, l))
+    got = backward.flash_attention_bwd(q, k, v, o, lse, do, precision=mode, **kw)
+    n2 = _f32_train_counts(flash, backward)
+    want = backward.flash_attention_bwd_plain(q, k, v, o, lse, do, precision=mode, **kw)
+    if dropout:
+        wo, wl, wm = flash.flash_attention_plain(q, k, v, save_residuals=True, precision=mode,
+                                                 **kw)
+        torch.cuda.synchronize()
+        norm = float(wo.abs().max())
+        stats = {f"{x}_rel_err": err(a, b) / float(b.abs().max())
+                 for x, a, b in zip("lm", (l, m), (wl, wm))}
+        fwd_launched = [b - a for a, b in zip(n0[:3], n1[:3])] == [1, 1, 1]
+        rec = {"check": f"flash_fwd_tc_f32_extra/{check}", "max_abs_err": err(o, wo),
+               "rel_err": err(o, wo) / norm, "tol": F32_FORM_TOL[mode],
+               "tol_of": "the output's largest magnitude", **stats, "stats_rtol": STATS_RTOL,
+               "launched_its_form": fwd_launched}
+        rec["ok"] = (rec["rel_err"] <= rec["tol"] and fwd_launched
+                     and all(x <= STATS_RTOL for x in stats.values()))
+        recs.append(rec)
+    bwd_launched = [b - a for a, b in zip(n1[3:], n2[3:])] == [1, 1, int(dropout)]
+    rec = _bwd_rec(f"flash_bwd_tc_f32/{check}", got, want, "float32",
+                   grad_absmax=[float(w.abs().max()) for w in want],
+                   launched_its_form=bwd_launched)
+    rec["ok"] = rec["ok"] and bwd_launched and all(g.dtype == torch.float32 for g in got)
+    recs.append(rec)
+    return recs
+
+
+def _f32_train_poison(flash, backward, gen, d, mode):
+    """NaN past kv_len, and in the next heads behind a ragged S: the first
+    head's o (with dropout), dK and dV bitwise the clean inputs', dQ within
+    1e-6 and finite."""
+    recs = []
+    for past in ("kv_len", "s"):
+        if past == "kv_len":
+            q, k, v, do, kw = _f32_train_inputs(gen, d, "kv_len_q_offset")
+        else:
+            q, k, v, do = (torch.randn((4, 200, d), generator=gen, device="cuda") for _ in range(4))
+            do *= 0.25
+            kw = dict(causal=False, scale=d**-0.5)
+        kw.update(dropout_rate=0.1, dropout_seed=DROPOUT_SEED)
+        outs = []
+        for poison in (False, True):
+            qp, kp, vp, dop = (x.clone() for x in (q, k, v, do))
+            if poison:
+                if past == "kv_len":
+                    kp[:, kw["kv_len"]:] = float("nan")
+                    vp[:, kw["kv_len"]:] = float("nan")
+                for x in (qp, kp, vp, dop):
+                    x[1:] = float("nan")
+            o, l, m = flash.flash_attention(qp, kp, vp, save_residuals=True, precision=mode, **kw)
+            lse = m + torch.log(torch.where(l == 0, 1.0, l))
+            outs.append((o, *backward.flash_attention_bwd(qp, kp, vp, o, lse, dop,
+                                                          precision=mode, **kw)))
+        torch.cuda.synchronize()
+        (o0, dq0, dk0, dv0), (o1, dq1, dk1, dv1) = outs
+        rec = {"check": f"flash_bwd_tc_f32/nan_poison/past_{past}/d{d}/{mode}",
+               "o_bitwise": bool(torch.equal(o1[0], o0[0])),
+               "dk_dv_bitwise": bool(torch.equal(dk1[0], dk0[0]) and torch.equal(dv1[0], dv0[0])),
+               "dq_max_abs_err": err(dq1[0], dq0[0]), "dq_tol": 1e-6}
+        rec["ok"] = (rec["o_bitwise"] and rec["dk_dv_bitwise"]
+                     and rec["dq_max_abs_err"] <= rec["dq_tol"])
+        recs.append(rec)
+    return recs
+
+
+def _f32_keep_bits(flash, backward, gen, d, mode):
+    """With V and dO the identity (S_q = S_kv = d, no mask) the forward's
+    o[i, j] is P's kept (i, j) and dV[j, i] is Z's: their zeros must be
+    exactly the plain version's dropped pairs."""
+    bh, rate = 4, 0.5
+    q, k = (torch.randn((bh, d, d), generator=gen, device="cuda") for _ in range(2))
+    eye = torch.eye(d, device="cuda").expand(bh, d, d).contiguous()
+    kw = dict(causal=False, scale=d**-0.5, dropout_rate=rate, dropout_seed=DROPOUT_SEED)
+    o, l, m = flash.flash_attention(q, k, eye, save_residuals=True, precision=mode, **kw)
+    lse = m + torch.log(l)
+    _, _, dv = backward.flash_attention_bwd(q, k, eye, o, lse, eye, precision=mode, **kw)
+    keep = flash.dense_keep(DROPOUT_SEED, rate, range(bh), d, d, d, None, "cuda")
+    torch.cuda.synchronize()
+    rec = {"check": f"flash_fwd_tc_f32_extra+flash_bwd_tc_f32/keep_bits/d{d}/{mode}",
+           "dropped": int((~keep).sum()), "pairs": keep.numel(),
+           "fwd_keep_equal": bool(torch.equal(o != 0, keep)),
+           "bwd_keep_equal": bool(torch.equal(dv.transpose(1, 2) != 0, keep))}
+    rec["ok"] = rec["fwd_keep_equal"] and rec["bwd_keep_equal"] and 0 < rec["dropped"] < rec["pairs"]
+    return rec
+
+
+def f32_train_checks(backward, flash, gen, report):
+    """The float32 training forms at d = 64 and 128 in both modes (see
+    above), untimed (their timed rows: bwd_checks' and dropout_checks'
+    training layer at B = 2); ``torch_tools/f32_mutants.py`` shows that
+    these checks fail a form missing one of its products, dO's lo term or
+    with Z's dropout bits on dS."""
+    recs = []
+    for d, mode in itertools.product((64, 128), F32_TRAIN_MODES):
+        for case in F32_TRAIN_CASES:
+            q, k, v, do, kw = _f32_train_inputs(gen, d, case)
+            recs += _f32_train_hold(flash, backward, q, k, v, do, kw, mode, f"{case}/d{d}/{mode}")
+            del q, k, v, do
+        recs += _f32_train_poison(flash, backward, gen, d, mode)
+        recs.append(_f32_keep_bits(flash, backward, gen, d, mode))
+    for rec in recs:
+        emit(rec)
+        report["checks"].append(rec)
+    torch.cuda.empty_cache()
+    return recs
 
 
 # Block-sparse masks in flash_fwd, flash_bwd_dq and flash_bwd_dkv at
@@ -4771,18 +5094,30 @@ def phase_checkpoint(args, transformer, quant, train, engine_mod, kvcache, repor
 
 
 def _f32_form_launched(launches, cfg):
-    """A float32 phase's forward launches took their form: at the float32
-    form's head_dims every one but those with dropout or a block mask (the
-    exact kernel's) in the default "bf16_3x" (at least one; at d = 256 on
-    csrc/flash_fwd_f32.cuh's kernel), elsewhere none."""
+    """A float32 phase's launches took their forms, in the default
+    "bf16_3x": at the forward's float32 head_dims every forward launch but
+    those with a block mask, and with dropout, in the float32 form (at d =
+    256 csrc/flash_fwd_f32.cuh's kernel, and dropout there the exact
+    kernel's; at d = 64 / 128 the dropout ones all in its dropout form);
+    at d = 64 / 128 every fused backward launch (at least one) in its
+    float32 form, the dropout ones in its dropout form, and no scalar fused
+    backward; elsewhere neither form."""
     from flashattention_tpu_torch.ops import flash
 
-    n = launches["flash_fwd_tc_f32"]
-    if flash.kernel_form("flash_fwd", torch.float32, cfg.head_dim) != "tc_f32":
-        return n == 0
-    rest = launches["flash_fwd_dropout"] + launches["flash_fwd_block_mask"]
+    n, n_bwd = launches["flash_fwd_tc_f32"], launches["flash_bwd_tc_f32"]
+    f32 = torch.float32
+    bwd_ok = (n_bwd == launches["flash_bwd"] > 0
+              and launches["flash_bwd_tc_f32_dropout"] == launches["flash_bwd_dropout"]
+              if flash.kernel_form("flash_bwd", f32, cfg.head_dim) == "tc_f32" else n_bwd == 0)
+    if flash.kernel_form("flash_fwd", f32, cfg.head_dim) != "tc_f32":
+        return n == 0 and bwd_ok
+    dropout_form = flash.kernel_form("flash_fwd", f32, cfg.head_dim, dropout=True) == "tc_f32"
+    extra = launches["flash_fwd_dropout"] if dropout_form else 0
+    rest = launches["flash_fwd_dropout"] - extra + launches["flash_fwd_block_mask"]
     split = n if flash.f32_split(cfg.head_dim, "bf16_3x") else 0
-    return (n == launches["flash_fwd"] - rest and launches["flash_fwd_tc_f32_bf16"] == 0
+    return (bwd_ok and n == launches["flash_fwd"] - rest
+            and launches["flash_fwd_tc_f32_extra"] == extra
+            and launches["flash_fwd_tc_f32_bf16"] == 0
             and launches["flash_fwd_f32"] == split and (n > 0 or rest > 0))
 
 
@@ -4795,9 +5130,11 @@ def phase_train_parity(args, transformer, train, packing, counters, report, *,
     CPU's run without remat is the reference of both card runs.  With
     ``attn_dropout``, seed = step index: the card's keep bits must be the
     plain version's.  The card's launches over the phase are its record's
-    (float32 training: the forward's float32 form at its head_dims, in the
-    default "bf16_3x", and the exact scalar backward; the CPU runs launch
-    nothing)."""
+    (float32 training, in the default "bf16_3x": the forward's float32 form
+    at its head_dims, with dropout its dropout form at d = 64 / 128, the
+    fused backward's float32 form at d = 64 / 128, the scalar kernels
+    elsewhere and for the two-pass pair; the CPU runs launch nothing;
+    ``_f32_form_launched``)."""
     if cfg is None:
         cfg = _train_cfg(transformer, "float32")
         base = transformer.init_params(args.seed, cfg, device="cpu")
@@ -5933,6 +6270,8 @@ def main() -> int:
     lap("serving_checks")
     f32_headline = f32_form_checks(fa, flash, probes, benchit, gen, name, report)
     lap("f32_form_checks")
+    f32_train_checks(backward, flash, gen, report)
+    lap("f32_train_checks")
     # {None, "int8", "fp8"}: {"llama": timed draft-form check, "gemma2": ...}
     drafts = {form: draft_checks(decode, benchit, gen, name, report, form)
               for form in (None, *QUANT_FORMS)}
@@ -6096,6 +6435,7 @@ def main() -> int:
     mains["flash_fwd_tc_f32"] = tc_timed["flash_fwd_tc_f32"]
     mains["flash_fwd_f32"] = tc_timed["flash_fwd_f32"]
     mains["paged_prefill_tc_f32"] = tc_timed["paged_prefill_tc_f32"]
+    mains["flash_fwd_tc_f32_extra"] = dropout["flash_fwd_tc_f32_extra"]
     timed_keys = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                   "bytes_ms", "ops_ms", "library_ms")
     scalar_of = {tc: k for k, tc in TC_KERNELS.items()}
@@ -6103,6 +6443,8 @@ def main() -> int:
     scalar_of["flash_fwd_tc_f32"] = 'flash_fwd (exact float32, the scalar kernel)'
     scalar_of["flash_fwd_f32"] = 'flash_fwd (exact float32, the scalar kernel)'
     scalar_of["paged_prefill_tc_f32"] = "paged_prefill (exact float32, the scalar kernel)"
+    scalar_of["flash_bwd_tc_f32"] = "flash_bwd (exact float32, the scalar kernel)"
+    scalar_of["flash_fwd_tc_f32_extra"] = "flash_fwd (exact float32, its dropout form)"
     # A kernel's own launches: its counter's less those of the forms counted
     # within it (the scalar kernel's wrapper counts the tensor-core forms',
     # the tensor-core form's counter its 8-bit form's, the float32 form's
@@ -6110,7 +6452,8 @@ def main() -> int:
     within = {**{k: (tc,) for k, tc in TC_KERNELS.items()},
               **{TC_KERNELS[k]: (tc,) for k, tc in TC_QUANT_KERNELS.items()},
               "flash_fwd": ("flash_fwd_tc", "flash_fwd_tc_f32"),
-              "flash_fwd_tc_f32": ("flash_fwd_f32",),
+              "flash_fwd_tc_f32": ("flash_fwd_f32", "flash_fwd_tc_f32_extra"),
+              "flash_bwd": ("flash_bwd_tc", "flash_bwd_tc_f32"),
               "paged_prefill": ("paged_prefill_tc", "paged_prefill_tc_f32")}
     for kname, source, replaces in KERNELS:
         main_rec = mains[kname]
@@ -6120,7 +6463,9 @@ def main() -> int:
         built = (" (built with -DFA_QUANT)" if kname in TC_QUANT_KERNELS.values()
                  else " (built with -DFA_PAIR)" if kname == "flash_bwd_dkv_tc"
                  else " (built with -DFA_F32)" if kname in ("flash_fwd_tc_f32",
-                                                           "paged_prefill_tc_f32")
+                                                           "paged_prefill_tc_f32",
+                                                           "flash_bwd_tc_f32")
+                 else " (built with -DFA_F32 -DFA_EXTRA)" if kname == "flash_fwd_tc_f32_extra"
                  else " (built into flash_fwd_tc_f32: csrc/flash_fwd_tc.cu with -DFA_F32)"
                  if kname == "flash_fwd_f32" else "")
         summary.append({
@@ -6135,7 +6480,7 @@ def main() -> int:
             "bound_by": main_rec["bound_by"], "bytes_ms": main_rec["bytes_ms"],
             "ops_ms": main_rec["ops_ms"], "library_ms": main_rec["library_ms"],
         })
-        for key, label in ((kname, "float32"),
+        for key, label in ((kname, "float32"), (f"{kname}/dropout", "float32_dropout"),
                            (f"{kname}/d256_window_softcap", "float32_d256_window_softcap")):
             if key in report.get("float32_timed", {}):  # the scalar kernel in float32, timed
                 rec32 = report["float32_timed"][key]
@@ -6145,6 +6490,15 @@ def main() -> int:
         if kname in scalar_of:  # the tensor-core form: the scalar form's time beside it
             summary[-1]["scalar_form"] = scalar_of[kname]
             summary[-1]["scalar_ms"] = main_rec["scalar_ms"]
+        if kname == "flash_bwd_tc_f32":  # its "bf16" mode, and its dropout form (rate 0.1)
+            summary[-1]["bf16_mode_ms"] = main_rec["bf16_mode_ms"]
+            summary[-1]["products"] = main_rec["products"]
+            summary[-1]["dropout"] = _extra_entry(
+                dropout["flash_bwd_tc_f32/dropout"], paths, "flash_bwd_tc_f32_dropout",
+                (*timed_keys, "no_dropout_ms", "scalar_ms"))
+        if kname == "flash_fwd_tc_f32_extra":
+            summary[-1]["products"] = main_rec["products"]
+            summary[-1]["no_dropout_ms"] = main_rec["no_dropout_ms"]
         if kname == "flash_fwd_tc_f32":  # its "bf16" mode, and cli/bench.py's headline shape
             summary[-1]["bf16_mode_ms"] = main_rec["bf16_mode_ms"]
             summary[-1]["bf16_mode_launches_by_path"] = {

@@ -42,7 +42,7 @@
 //   the 64 x 64 dQ part goes to dq_acc by vector float32 atomics.
 // At d = 256 the dK and dV accumulators of 64 key rows are 256 float32
 // registers a thread, and K, V and a 2-stage ring of Q and dO tiles take
-// 192 KB: see flash_bwd_tc_d256_kernel below for the design there.
+// 192 KB: see flash_bwd_tc_wide_kernel below for the design there.
 // Query tiles outside the band are skipped as in flash_bwd.cu (above the
 // diagonal of the block's first key row within each GQA segment, and past
 // the last tile whose window still reaches its key rows); only tiles that
@@ -81,6 +81,26 @@
 // the masks, and P, so Z and dS, is exactly 0 where they are clear.
 // In both forms (fused and kPair) the mask loop takes one of three forms a
 // tile (fa::with_mask_form): no test, the bits alone, or every test.
+//
+// kTerms (built with FA_F32 into flash_bwd_tc_f32[_extra]): the fused form
+// over float32 q, k, v and dO at head_dim 64 and 128, as _fused_bwd_kernel
+// computes them in the JAX package's precision modes (backward.py:573, its
+// _dot_g, flash.py:149-181).  A split pass (tc_common.cuh, tc::split) writes
+// each row as bf16 terms: kTerms 2 ("bf16_3x") [hi | lo], hi = bf16(x), lo =
+// bf16(x - hi), the same bytes as float32 read as a bf16 row of width 2 d;
+// kTerms 1 ("bf16") [hi] alone, and the kernel is the bf16 form.  With two
+// terms each of the five products is hi hi + hi lo + lo hi, three wgmma
+// chains into one float32 accumulator: S^T and dP^T over the terms of K and
+// Q (V and dO) picked by chunk descriptor; dV, dK and dQ over Z's or dS's two
+// register or shared-memory terms against dO's, Q's or K's hi and their hi
+// against its lo.  So a live pair costs 30 d tensor flops (15 products of
+// 2 d) where the bf16 form's costs 16 d.  dK and dV are written in float32.
+// Room: with rows of 2 d the d <= 128 layout at d = 64 is the bf16 one at
+// 128 (192 KB); at d = 128 it would take 320 KB, so the d = 128 two-term
+// form is the d = 256 kernel's (64 key rows a block, dV and dK split
+// between the consumer warpgroups): its rows of 256 bf16 are d = 256's.
+#include <type_traits>
+
 #include "bwd_common.cuh"
 #include "tc_common.cuh"
 
@@ -97,9 +117,30 @@ constexpr int kProducerRegs = 24;
 // column, dropout row key, segment id (kPair).
 constexpr int kTabRows = 6;
 
-template <int D, bool kPair>
+// The width of the rows the ring carries: a float32 row's two bf16 terms.
+template <int D, int kTerms>
+constexpr int kStoredWidth = kTerms == 2 ? 2 * D : D;
+
+// The products of S^T and dP^T: (A term, B term) pairs (0, 0), (0, 1), (1,
+// 0), the first kPairs, the chunk of each term picked by descriptor.
+template <int kTerms>
+constexpr int kPairs = kTerms == 2 ? 3 : 1;
+
+// dK and dV as the kernel writes them: float32 for float32 inputs.
+template <int kTerms>
+using OutT = std::conditional_t<kTerms != 0, float, __nv_bfloat16>;
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = tc::pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <int D, bool kPair, int kTerms = 0>
 struct Cfg {
-  static constexpr int kChunks = D / tc::kChunk;
+  static constexpr int kChunks = kStoredWidth<D, kTerms> / tc::kChunk;  // of a stored row
+  static constexpr int kLC = D / tc::kChunk;                           // of one term
   static constexpr int kKVChunk = kBlockN * tc::kChunkRowBytes;
   static constexpr int kQChunk = kBlockM * tc::kChunkRowBytes;
   static constexpr int kQTile = kChunks * kQChunk;
@@ -118,6 +159,27 @@ struct Cfg {
   static constexpr int kBar = kTab + kStages * kTabWords * 4;
   static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + tc::kAtomBytes;
 };
+
+// acc = A B^T over d, A a 64-row slice of K or V (its chunks a_chunk bytes
+// apart) and B a 64-row tile of Q or dO (b_chunk apart), both K-major in
+// swizzled 64-column chunks, a term's kLC chunks before the next term's:
+// the kPairs<kTerms> products of their terms, (A hi, B hi), (A hi, B lo),
+// (A lo, B hi), each k-step's in turn, one float32 chain from zero.
+template <int D, int kTerms>
+__device__ __forceinline__ void term_products(float (&acc)[32], uint32_t a, uint32_t a_chunk,
+                                              uint32_t b, uint32_t b_chunk) {
+  constexpr int kLC = D / tc::kChunk;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int pr = 0; pr < kPairs<kTerms>; ++pr) {
+      const uint32_t ac = (pr == 2) * kLC + kk / 4, bc = (pr == 1) * kLC + kk / 4;
+      tc::wgmma_ss<0, 0>(acc, tc::make_desc(a + ac * a_chunk + (kk % 4) * 32, 16, 1024),
+                         tc::make_desc(b + bc * b_chunk + (kk % 4) * 32, 16, 1024),
+                         kk > 0 || pr > 0);
+    }
+  }
+}
 
 // Whether the block of key rows [c0, c0 + kKeys) has any live pair with
 // the query tile [r0, r0 + kBlockM): the scalar kernel's skips.
@@ -226,17 +288,17 @@ __device__ __forceinline__ void produce(unsigned char* smem, int v_off, int q_of
   }
 }
 
-template <int D, bool kWindowCap, bool kExtra, bool kPair>
+template <int D, bool kWindowCap, bool kExtra, bool kPair, int kTerms>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
                     const float* __restrict__ di, float* __restrict__ dq_acc,
-                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int rows,
+                    OutT<kTerms>* __restrict__ dk, OutT<kTerms>* __restrict__ dv, int rows,
                     int s_kv, int kv_len, int q_offset, int q_seq_len, int causal, float scale,
                     int window, float softcap, const fa::Extras ex, const fa_bwd::Segs sg) {
-  using C = Cfg<D, kPair>;
+  using C = Cfg<D, kPair, kTerms>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + tc::kAtomBytes - 1) &
@@ -326,20 +388,8 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     float st[kBlockM / 2], dpt[kBlockM / 2];
     tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * C::kKVChunk + (kk % 4) * 32;
-      const uint32_t qoff = (kk / 4) * C::kQChunk + (kk % 4) * 32;
-      tc::wgmma_ss<0, 0>(st, tc::make_desc(k_base + off, 16, 1024),
-                         tc::make_desc(q_tile + qoff, 16, 1024), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * C::kKVChunk + (kk % 4) * 32;
-      const uint32_t qoff = (kk / 4) * C::kQChunk + (kk % 4) * 32;
-      tc::wgmma_ss<0, 0>(dpt, tc::make_desc(v_base + off, 16, 1024),
-                         tc::make_desc(do_tile + qoff, 16, 1024), kk > 0);
-    }
+    term_products<D, kTerms>(st, k_base, C::kKVChunk, q_tile, C::kQChunk);  // S^T = K Q^T
+    term_products<D, kTerms>(dpt, v_base, C::kKVChunk, do_tile, C::kQChunk);  // dP^T = V dO^T
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
     tc::fence_regs(st);
@@ -409,10 +459,12 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // query rows' products (32768 at Mistral's layer) through the tensor
     // cores' float32 addition, whose truncation drifts the small gradients
     // by about 1e-5.
+    // With two terms (kTerms 2) B's lo chunk is kLC chunks on, and the
+    // third product is the hi term of Z or dS against it.
 #pragma unroll
-    for (int pass = 0; pass < 2 * C::kChunks; ++pass) {
-      const int c = pass % C::kChunks;
-      const bool dv_pass = pass < C::kChunks;
+    for (int pass = 0; pass < 2 * C::kLC; ++pass) {
+      const int c = pass % C::kLC;
+      const bool dv_pass = pass < C::kLC;
       const uint32_t b_tile = (dv_pass ? do_tile : q_tile) + c * C::kQChunk;
       float part[32];
       tc::wgmma_fence();
@@ -425,6 +477,12 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         } else {
           tc::wgmma_rs<1>(part, dsa[kk], db, kk > 0);
           tc::wgmma_rs<1>(part, dsl[kk], db, 1);
+        }
+        if constexpr (kTerms == 2) {  // Z's or dS's hi against dO's or Q's lo
+          const uint64_t db_lo =
+              tc::make_desc(b_tile + C::kLC * C::kQChunk + kk * 2048, C::kQChunk, 1024);
+          if (dv_pass) tc::wgmma_rs<1>(part, za[kk], db_lo, 1);
+          else tc::wgmma_rs<1>(part, dsa[kk], db_lo, 1);
         }
       }
       tc::wgmma_commit();
@@ -468,8 +526,12 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int kk = 0; kk < kBlockN / 16; ++kk) {
           const uint64_t db = tc::make_desc(kc_base + kk * 2048, C::kKVChunk, 1024);
-          tc::wgmma_ss<1, 1>(dq, tc::make_desc(hi_base + kk * 2048, C::kDsBytes, 1024), db, kk > 0);
+          const uint64_t dh = tc::make_desc(hi_base + kk * 2048, C::kDsBytes, 1024);
+          tc::wgmma_ss<1, 1>(dq, dh, db, kk > 0);
           tc::wgmma_ss<1, 1>(dq, tc::make_desc(lo_base + kk * 2048, C::kDsBytes, 1024), db, 1);
+          if constexpr (kTerms == 2)  // dS's hi term against K's lo
+            tc::wgmma_ss<1, 1>(dq, dh, tc::make_desc(kc_base + C::kLC * C::kKVChunk + kk * 2048,
+                                                     C::kKVChunk, 1024), 1);
         }
         tc::wgmma_commit();
         tc::wgmma_wait<0>();
@@ -501,20 +563,19 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int c = 8 * j + 2 * t;
     if (key_a < s_kv) {
       const size_t off = (static_cast<size_t>(bh) * s_kv + key_a) * D + c;
-      *reinterpret_cast<uint32_t*>(dk + off) = tc::pack_bf16(dk_acc[4 * j], dk_acc[4 * j + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off) = tc::pack_bf16(dv_acc[4 * j], dv_acc[4 * j + 1]);
+      store2(dk + off, dk_acc[4 * j], dk_acc[4 * j + 1]);
+      store2(dv + off, dv_acc[4 * j], dv_acc[4 * j + 1]);
     }
     if (key_b < s_kv) {
       const size_t off = (static_cast<size_t>(bh) * s_kv + key_b) * D + c;
-      *reinterpret_cast<uint32_t*>(dk + off) =
-          tc::pack_bf16(dk_acc[4 * j + 2], dk_acc[4 * j + 3]);
-      *reinterpret_cast<uint32_t*>(dv + off) =
-          tc::pack_bf16(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+      store2(dk + off, dk_acc[4 * j + 2], dk_acc[4 * j + 3]);
+      store2(dv + off, dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
     }
   }
 }
 
-// head_dim 256.  The d <= 128 kernel's split (each consumer warpgroup its own
+// head_dim 256, and 128 over two float32 terms (kTerms 2: rows of 256 bf16,
+// as d = 256's; the products as in the d <= 128 kernel).  The d <= 128 kernel's split (each consumer warpgroup its own
 // 64 key rows, dK and dV of them in registers) needs 256 accumulator
 // registers a thread here, and its K/V of 128 key rows plus a 2-stage ring
 // of 64-row Q and dO tiles (128 KB) leave no room for dS.  So a block owns 64
@@ -540,34 +601,42 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 // arrival pending, since each side's next arrival waits on the other's.
 // kPair: no dS^T and no dQ, so barriers 2 and 4 go; the dS side arrives on 3
 // as soon as it has read Y^T.
-namespace d256 {
+namespace wide {
 
-constexpr int D = 256;
 constexpr int kKeys = 64;  // key rows per block, shared by both warpgroups
-constexpr int kChunks = D / tc::kChunk;
 constexpr int kKVChunk = kKeys * tc::kChunkRowBytes;
 constexpr int kQChunk = kBlockM * tc::kChunkRowBytes;
-constexpr int kQTile = kChunks * kQChunk;
 constexpr int kDsBytes = kKeys * tc::kChunkRowBytes;  // one bf16 term of dS^T
-// K | V | Q stages | dO stages | X | tables | barriers
-constexpr int kV = kChunks * kKVChunk;
-constexpr int kQ = kV + kChunks * kKVChunk;
-constexpr int kDo = kQ + kStages * kQTile;
-constexpr int kX = kDo + kStages * kQTile;
-constexpr int kTab = kX + 2 * kDsBytes;
-constexpr int kTabWords = kTabRows * kBlockM;
-constexpr int kBar = kTab + kStages * kTabWords * 4;
-constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + tc::kAtomBytes;
 static_assert(2 * kDsBytes == 4 * kKeys * kBlockM, "X holds Y^T in float32 and dS^T's two terms");
-static_assert(kBytes <= 232448, "over Hopper's shared memory a block");
+
+template <int D, int kTerms>
+struct Cfg {
+  static constexpr int kChunks = kStoredWidth<D, kTerms> / tc::kChunk;  // of a stored row
+  static constexpr int kLC = D / tc::kChunk;                           // of one term
+  static constexpr int kQTile = kChunks * kQChunk;
+  // K | V | Q stages | dO stages | X | tables | barriers
+  static constexpr int kV = kChunks * kKVChunk;
+  static constexpr int kQ = kV + kChunks * kKVChunk;
+  static constexpr int kDo = kQ + kStages * kQTile;
+  static constexpr int kX = kDo + kStages * kQTile;
+  static constexpr int kTab = kX + 2 * kDsBytes;
+  static constexpr int kTabWords = kTabRows * kBlockM;
+  static constexpr int kBar = kTab + kStages * kTabWords * 4;
+  static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + tc::kAtomBytes;
+  static_assert(kChunks == 4, "rows of 256 bf16");
+  static_assert(kBytes <= 232448, "over Hopper's shared memory a block");
+};
 
 // dX += A^T B over the tile's 64 query rows, 64 columns of B (its MN-major
-// tile `b_tile`) at a time, A^T from registers as two bf16 terms; each part
-// summed afresh and added to acc in float32 (see the d <= 128 kernel).
+// tile `b_tile`) at a time, A^T from registers as two bf16 terms (with two
+// terms of B also A's hi against B's lo, kLC chunks on); each part summed
+// afresh and added to acc in float32 (see the d <= 128 kernel).
+template <int D, int kTerms>
 __device__ __forceinline__ void add_products(float (&acc)[D / 2], const uint32_t (&ah)[4][4],
                                              const uint32_t (&al)[4][4], uint32_t b_tile) {
+  constexpr int kLC = Cfg<D, kTerms>::kLC;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+  for (int c = 0; c < kLC; ++c) {
     float part[32];
     tc::wgmma_fence();
 #pragma unroll
@@ -575,6 +644,9 @@ __device__ __forceinline__ void add_products(float (&acc)[D / 2], const uint32_t
       const uint64_t db = tc::make_desc(b_tile + c * kQChunk + kk * 2048, kQChunk, 1024);
       tc::wgmma_rs<1>(part, ah[kk], db, kk > 0);
       tc::wgmma_rs<1>(part, al[kk], db, 1);
+      if constexpr (kTerms == 2)
+        tc::wgmma_rs<1>(part, ah[kk],
+                        tc::make_desc(b_tile + (kLC + c) * kQChunk + kk * 2048, kQChunk, 1024), 1);
     }
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
@@ -584,21 +656,28 @@ __device__ __forceinline__ void add_products(float (&acc)[D / 2], const uint32_t
   }
 }
 
-// dQ's columns [64 c0, 64 c0 + 128) of the tile: dS (its two terms in X,
-// read as the transposed A) times K, added to dq_acc by atomics.
+// dQ's half of the tile's columns from chunk c0 on (kLC / 2 chunks of 64):
+// dS (its two terms in X, read as the transposed A) times K (with two terms
+// of K also dS's hi against K's lo), added to dq_acc by atomics.
+template <int D, int kTerms>
 __device__ __forceinline__ void dq_half(unsigned char* smem, float* dq_acc, int bh, int rows,
                                         int r0, int c0, int warp, int g, int t) {
-  const uint32_t hi_base = tc::smem_u32(smem + kX), lo_base = hi_base + kDsBytes;
+  using C = Cfg<D, kTerms>;
+  const uint32_t hi_base = tc::smem_u32(smem + C::kX), lo_base = hi_base + kDsBytes;
 #pragma unroll
-  for (int c = c0; c < c0 + 2; ++c) {
+  for (int c = c0; c < c0 + C::kLC / 2; ++c) {
     float dq[32];
     const uint32_t kc_base = tc::smem_u32(smem) + c * kKVChunk;
     tc::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
       const uint64_t db = tc::make_desc(kc_base + kk * 2048, kKVChunk, 1024);
-      tc::wgmma_ss<1, 1>(dq, tc::make_desc(hi_base + kk * 2048, kDsBytes, 1024), db, kk > 0);
+      const uint64_t dh = tc::make_desc(hi_base + kk * 2048, kDsBytes, 1024);
+      tc::wgmma_ss<1, 1>(dq, dh, db, kk > 0);
       tc::wgmma_ss<1, 1>(dq, tc::make_desc(lo_base + kk * 2048, kDsBytes, 1024), db, 1);
+      if constexpr (kTerms == 2)
+        tc::wgmma_ss<1, 1>(dq, dh, tc::make_desc(kc_base + C::kLC * kKVChunk + kk * 2048,
+                                                 kKVChunk, 1024), 1);
     }
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
@@ -615,22 +694,25 @@ __device__ __forceinline__ void dq_half(unsigned char* smem, float* dq_acc, int 
   }
 }
 
-template <bool kWindowCap, bool kExtra, bool kPair>
+template <int D, bool kWindowCap, bool kExtra, bool kPair, int kTerms>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
                          const float* __restrict__ di, float* __restrict__ dq_acc,
-                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int rows,
+                         OutT<kTerms>* __restrict__ dk, OutT<kTerms>* __restrict__ dv, int rows,
                          int s_kv, int kv_len, int q_offset, int q_seq_len, int causal,
                          float scale, int window, float softcap, const fa::Extras ex,
                          const fa_bwd::Segs sg) {
+  using C = Cfg<D, kTerms>;
+  constexpr int kQ = C::kQ, kDo = C::kDo, kX = C::kX, kTab = C::kTab, kTabWords = C::kTabWords;
+  constexpr int kQTile = C::kQTile;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + tc::kAtomBytes - 1) &
       ~static_cast<uintptr_t>(tc::kAtomBytes - 1));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBar);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBar);
   uint64_t* empty = full + kStages;
   uint64_t* kv_bar = empty + kStages;
   const float* tab_f = reinterpret_cast<const float*>(smem + kTab);
@@ -666,8 +748,8 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {  // producer
     tc::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x >= 32) return;
-    produce<kWindowCap, kExtra, kPair, kKeys, kChunks>(
-        smem, kV, kQ, kDo, kTab, full, empty, kv_bar, &tm_q, &tm_k, &tm_v, &tm_do, lse, di, bh, c0,
+    produce<kWindowCap, kExtra, kPair, kKeys, C::kChunks>(
+        smem, C::kV, kQ, kDo, kTab, full, empty, kv_bar, &tm_q, &tm_k, &tm_v, &tm_do, lse, di, bh, c0,
         wk, rows, kv_len, q_offset, q_seq_len, causal, win, ex, sg, q_rng, n_qt, keys);
     return;
   }
@@ -690,7 +772,7 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
   // S^T from K, dP^T from V; the other operand (Q^T, dO^T) from the stage.
-  const uint32_t a_base = tc::smem_u32(smem + (p_side ? 0 : kV));
+  const uint32_t a_base = tc::smem_u32(smem + (p_side ? 0 : C::kV));
   if (!p_side) tc::named_arrive(3, 256);  // X starts free
   tc::mbar_wait(kv_bar, 0);
 
@@ -710,13 +792,7 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
     float st[kBlockM / 2];  // S^T (P side) or dP^T (dS side), key rows x query rows
     const uint32_t b_base = p_side ? q_tile : do_tile;
     tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kKVChunk + (kk % 4) * 32;
-      const uint32_t qoff = (kk / 4) * kQChunk + (kk % 4) * 32;
-      tc::wgmma_ss<0, 0>(st, tc::make_desc(a_base + off, 16, 1024),
-                         tc::make_desc(b_base + qoff, 16, 1024), kk > 0);
-    }
+    term_products<D, kTerms>(st, a_base, kKVChunk, b_base, kQChunk);
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
     tc::fence_regs(st);
@@ -773,10 +849,10 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
       tc::named_arrive(1, 256);  // Y^T written
 #pragma unroll
       for (int kk = 0; kk < kBlockM / 16; ++kk) tc::pack_a2(ah[kk], al[kk], st, kk);
-      add_products(acc, ah, al, do_tile);  // dV += Z^T dO
+      add_products<D, kTerms>(acc, ah, al, do_tile);  // dV += Z^T dO
       if constexpr (!kPair) {
         tc::named_sync(2, 256);  // dS^T written
-        dq_half(smem, dq_acc, bh, rows, r0, 0, warp, g, t);
+        dq_half<D, kTerms>(smem, dq_acc, bh, rows, r0, 0, warp, g, t);
       }
     } else {
       tc::named_sync(1, 256);  // Y^T written
@@ -819,9 +895,9 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
         tc::fence_async_smem();
         tc::named_arrive(2, 256);  // dS^T written
       }
-      add_products(acc, ah, al, q_tile);  // dK += dS^T Q
+      add_products<D, kTerms>(acc, ah, al, q_tile);  // dK += dS^T Q
       if constexpr (!kPair) {
-        dq_half(smem, dq_acc, bh, rows, r0, 2, warp, g, t);
+        dq_half<D, kTerms>(smem, dq_acc, bh, rows, r0, C::kLC / 2, warp, g, t);
         tc::named_arrive(3, 256);  // done with X
       }
     }
@@ -834,20 +910,19 @@ flash_bwd_tc_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   if (p_side) tc::named_sync(3, 256);  // the dS side's last arrival
 
-  __nv_bfloat16* out = p_side ? dv : dk;
+  OutT<kTerms>* out = p_side ? dv : dk;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + 2 * t;
     if (key_a < s_kv)
-      *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(bh) * s_kv + key_a) * D + c) =
-          tc::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      store2(out + (static_cast<size_t>(bh) * s_kv + key_a) * D + c, acc[4 * j], acc[4 * j + 1]);
     if (key_b < s_kv)
-      *reinterpret_cast<uint32_t*>(out + (static_cast<size_t>(bh) * s_kv + key_b) * D + c) =
-          tc::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      store2(out + (static_cast<size_t>(bh) * s_kv + key_b) * D + c, acc[4 * j + 2],
+             acc[4 * j + 3]);
   }
 }
 
-}  // namespace d256
+}  // namespace wide
 
 // The C interface's arguments, passed down the instantiation switches.
 struct Args {
@@ -876,53 +951,62 @@ constexpr bool kPairLib = true;
 constexpr bool kPairLib = false;
 #endif
 
-template <int D, bool kWindowCap, bool kExtra>
+// q, k, v, dout: bf16 rows of kStoredWidth<D, kTerms> (kTerms 2: [hi | lo]).
+template <int D, bool kWindowCap, bool kExtra, int kTerms>
 int launch(const Args& a) {
   constexpr bool kPair = kPairLib;
-  constexpr int kKeys = D == 256 ? d256::kKeys : kBlockN;  // key rows per block
-  constexpr int kBytes = D == 256 ? d256::kBytes : Cfg<D == 256 ? 128 : D, kPair>::kBytes;
+  // The d = 256 kernel's arrangement: d = 256, and d = 128 over two terms.
+  constexpr bool kWide = D == 256 || (D == 128 && kTerms == 2);
+  constexpr int W = kStoredWidth<D, kTerms>;
+  constexpr int kKeys = kWide ? wide::kKeys : kBlockN;  // key rows per block
+  constexpr int kBytes = [] {
+    if constexpr (kWide) return wide::Cfg<D, kTerms>::kBytes;
+    else return Cfg<D, kPair, kTerms>::kBytes;
+  }();
   CUtensorMap mq, mk, mv, mdo;
   // K/V rows past kv_len read as zeros (dP there would meet V's garbage).
   const int kv_rows = a.kv_len > 0 ? a.kv_len : 1;
-  const long long q_stride = static_cast<long long>(a.rows) * D;
-  const long long kv_stride = static_cast<long long>(a.s_kv) * D;
-  int st = tc_encode_map(&mq, a.q, D, a.rows, a.bh, q_stride, kBlockM);
-  if (st == 0) st = tc_encode_map(&mdo, a.dout, D, a.rows, a.bh, q_stride, kBlockM);
-  if (st == 0) st = tc_encode_map(&mk, a.k, D, kv_rows, a.bh, kv_stride, kKeys);
-  if (st == 0) st = tc_encode_map(&mv, a.v, D, kv_rows, a.bh, kv_stride, kKeys);
+  const long long q_stride = static_cast<long long>(a.rows) * W;
+  const long long kv_stride = static_cast<long long>(a.s_kv) * W;
+  int st = tc_encode_map(&mq, a.q, W, a.rows, a.bh, q_stride, kBlockM);
+  if (st == 0) st = tc_encode_map(&mdo, a.dout, W, a.rows, a.bh, q_stride, kBlockM);
+  if (st == 0) st = tc_encode_map(&mk, a.k, W, kv_rows, a.bh, kv_stride, kKeys);
+  if (st == 0) st = tc_encode_map(&mv, a.v, W, kv_rows, a.bh, kv_stride, kKeys);
   if (st != 0) return st;
   auto kernel = [] {
-    if constexpr (D == 256) return d256::flash_bwd_tc_d256_kernel<kWindowCap, kExtra, kPair>;
-    else return flash_bwd_tc_kernel<D, kWindowCap, kExtra, kPair>;
+    if constexpr (kWide) return wide::flash_bwd_tc_wide_kernel<D, kWindowCap, kExtra, kPair, kTerms>;
+    else return flash_bwd_tc_kernel<D, kWindowCap, kExtra, kPair, kTerms>;
   }();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.s_kv + kKeys - 1) / kKeys, a.bh);
   kernel<<<grid, kThreads, kBytes, a.stream>>>(
-      mq, mk, mv, mdo, a.lse, a.di, a.dq_acc, static_cast<__nv_bfloat16*>(a.dk),
-      static_cast<__nv_bfloat16*>(a.dv), a.rows, a.s_kv, a.kv_len, a.q_offset, a.q_seq_len,
+      mq, mk, mv, mdo, a.lse, a.di, a.dq_acc, static_cast<OutT<kTerms>*>(a.dk),
+      static_cast<OutT<kTerms>*>(a.dv), a.rows, a.s_kv, a.kv_len, a.q_offset, a.q_seq_len,
       a.causal, a.scale, a.window, a.softcap, a.ex, a.sg);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kWindowCap>
+template <int D, bool kWindowCap, int kTerms>
 int launch_x(const Args& a) {
 #ifdef FA_EXTRA
-  return launch<D, kWindowCap, true>(a);
+  return launch<D, kWindowCap, true, kTerms>(a);
 #else
   if (a.ex.threshold != 0 || a.ex.bm_ptr != nullptr) return -1;
-  return launch<D, kWindowCap, false>(a);
+  return launch<D, kWindowCap, false, kTerms>(a);
 #endif
 }
 
-template <int D>
+template <int D, int kTerms = 0>
 int launch_w(const Args& a) {
-  return a.window > 0 || a.softcap > 0.f ? launch_x<D, true>(a) : launch_x<D, false>(a);
+  return a.window > 0 || a.softcap > 0.f ? launch_x<D, true, kTerms>(a)
+                                         : launch_x<D, false, kTerms>(a);
 }
 
 }  // namespace
 
+#ifndef FA_F32
 namespace {
 
 int launch_d(const Args& a, int d) {
@@ -935,8 +1019,43 @@ int launch_d(const Args& a, int d) {
 }
 
 }  // namespace
+#endif
 
-#ifdef FA_PAIR
+#if defined(FA_F32)
+// The float32 form.  q, k, v, dout: float32 (bh, rows, d) / (bh, s_kv, d),
+// contiguous, 16-byte aligned, d 64 or 128; q2, k2, v2, do2: bf16 buffers of
+// the same rows and terms * d columns, which the split pass fills before
+// the kernel reads them; terms 2 is the JAX mode "bf16_3x" ([hi | lo], three
+// products each), 1 "bf16" (bf16(x), one product each); dk, dv: float32 like
+// k and v; lse, di, dq_acc and the options as in fa_flash_bwd_tc (dropout
+// in the FA_EXTRA library only).
+extern "C" int fa_flash_bwd_tc_f32(int terms, const void* q, const void* k, const void* v,
+                                   const void* dout, void* q2, void* k2, void* v2, void* do2,
+                                   const void* lse, const void* di, void* dq_acc, void* dk,
+                                   void* dv, int bh, int rows, int s_kv, int d, int kv_len,
+                                   int q_offset, int q_seq_len, int causal, float scale,
+                                   int window, float softcap, int row_stride, int dropout_seed,
+                                   int dropout_threshold, float dropout_inv, void* stream) {
+  if ((terms != 1 && terms != 2) || (d != 64 && d != 128)) return -1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long q_rows = static_cast<long long>(bh) * rows;
+  const long long kv_rows = static_cast<long long>(bh) * s_kv;
+  int status = tc::split(q, q2, q_rows, d, terms, st);
+  if (status == 0) status = tc::split(dout, do2, q_rows, d, terms, st);
+  if (status == 0) status = tc::split(k, k2, kv_rows, d, terms, st);
+  if (status == 0) status = tc::split(v, v2, kv_rows, d, terms, st);
+  if (status != 0) return status;
+  const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, row_stride,
+                      static_cast<unsigned>(dropout_seed),
+                      static_cast<unsigned>(dropout_threshold), dropout_inv};
+  const Args a{q2, k2, v2, do2, static_cast<const float*>(lse), static_cast<const float*>(di),
+               static_cast<float*>(dq_acc), dk, dv, bh, rows, s_kv, kv_len, q_offset,
+               q_seq_len, causal, scale, window, softcap, ex, st,
+               fa_bwd::Segs{nullptr, nullptr, nullptr, nullptr}};
+  if (d == 64) return terms == 2 ? launch_w<64, 2>(a) : launch_w<64, 1>(a);
+  return terms == 2 ? launch_w<128, 2>(a) : launch_w<128, 1>(a);
+}
+#elif defined(FA_PAIR)
 // The pair's dK/dV pass.  q, do: (bh, rows, d); k, v, dk, dv: (bh, s_kv, d);
 // all bf16, contiguous, 16-byte aligned (TMA); lse, di: (bh, rows) float32;
 // q_seg (bh, rows) and kv_seg (bh, s_kv) int32 with their tile tables q_rng

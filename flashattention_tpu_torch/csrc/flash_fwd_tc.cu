@@ -2,15 +2,16 @@
 // FA_EXTRA flash_fwd_tc_extra, the attention-dropout and block-mask form; with FA_QUANT
 // flash_fwd_tc_quant, the form over 8-bit K/V with float32 per-row scales;
 // with FA_F32 flash_fwd_tc_f32, float32 inputs as the JAX precision modes
-// compute them): the C entry point over the kernel of flash_fwd_tc.cuh,
-// instantiated at head_dim 64, 128 and 256 with and without the
+// compute them, and with FA_F32 and FA_EXTRA flash_fwd_tc_f32_extra, their
+// split-pass form with attention dropout): the C entry point over the kernel
+// of flash_fwd_tc.cuh, instantiated at head_dim 64, 128 and 256 with and without the
 // window/softcap form (the 8-bit library: for int8 and for fp8 e4m3
 // payloads; the float32 one: "bf16" at 64, 128 and 256, "bf16_3x" at 64 and
 // 128 over a split pass, and flash_fwd_f32.cuh's kernel for "float32" at
 // every head_dim and "bf16_3x" at 256).  See flash_fwd_tc.cuh and
 // flash_fwd_f32.cuh for what they replace and their design.
 #include "flash_fwd_tc.cuh"
-#ifdef FA_F32
+#if defined(FA_F32) && !defined(FA_EXTRA)
 #include "flash_fwd_f32.cuh"
 #endif
 
@@ -70,48 +71,19 @@ Args make_args(const void* q, const void* k, const void* v, void* o, void* l, vo
 #ifdef FA_F32
 namespace {
 
-// The split pass: `rows` float32 rows of d elements into bf16 rows of
-// terms * d, [hi | lo] (terms 2) or [hi] (1), hi = bf16(x) and lo = bf16(x -
-// hi), both rounded to nearest even; eight elements a thread.
-__global__ void split_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ out,
-                             long long rows, int d, int terms) {
-  const int units = d / 8;
-  const long long n = rows * units;
-  for (long long u = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; u < n;
-       u += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long r = u / units;
-    const int c = static_cast<int>(u % units) * 8;
-    const float4 a = *reinterpret_cast<const float4*>(x + r * d + c);
-    const float4 b = *reinterpret_cast<const float4*>(x + r * d + c + 4);
-    const float e[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      hi[w] = tc::pack_bf16(e[2 * w], e[2 * w + 1]);
-      lo[w] = tc::pack_lo(e[2 * w], e[2 * w + 1], hi[w]);
-    }
-    __nv_bfloat16* row = out + r * terms * d;
-    *reinterpret_cast<uint4*>(row + c) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    if (terms == 2) *reinterpret_cast<uint4*>(row + d + c) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-  }
-}
-
-int split(const void* x, void* out, long long rows, int d, int terms, cudaStream_t stream) {
-  const long long n = rows * (d / 8);
-  const int blocks = static_cast<int>(n < 132LL * 16 * 256 ? (n + 255) / 256 : 132LL * 16);
-  if (blocks > 0)
-    split_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(x),
-                                             static_cast<__nv_bfloat16*>(out), rows, d, terms);
-  return static_cast<int>(cudaGetLastError());
-}
+#ifdef FA_EXTRA
+constexpr bool kF32Extra = true;
+#else
+constexpr bool kF32Extra = false;
+#endif
 
 // Two terms: all four products at d = 64 (the JAX packed form), three at
 // 128; one term: the bf16 form.
 template <int D, bool kWindowCap>
 int launch_f32(const Args& a, int terms) {
-  if (terms == 1) return fwd_tc::launch<D, kWindowCap, false, 0, 0, 1>(a);
+  if (terms == 1) return fwd_tc::launch<D, kWindowCap, kF32Extra, 0, 0, 1>(a);
   if constexpr (D == 256) return -1;
-  else return fwd_tc::launch<D, kWindowCap, false, 0, 0, D == 64 ? 4 : 3>(a);
+  else return fwd_tc::launch<D, kWindowCap, kF32Extra, 0, 0, D == 64 ? 4 : 3>(a);
 }
 
 template <int D>
@@ -129,14 +101,19 @@ int launch_f32_w(const Args& a, int terms) {
 // the same rows and terms * d columns, which it fills before the kernel
 // reads them; flash_fwd_f32.cuh's kernel (terms 3; terms 2 at d = 256)
 // splits in shared memory and takes none.  The other arguments as in
-// fa_flash_fwd_tc, without dropout.
+// fa_flash_fwd_tc, without a block mask; dropout (dropout_threshold != 0)
+// in the FA_EXTRA library only, which holds the split-pass form alone
+// (terms 1 and 2 at d = 64 and 128).
 extern "C" int fa_flash_fwd_tc_f32(int terms, const void* q, const void* k, const void* v,
                                    void* q2, void* k2, void* v2, void* o, void* l, void* m,
                                    const void* q_seg, const void* kv_seg, int bh, int rows,
                                    int s_kv, int d, int kv_len, int q_offset, int q_seq_len,
                                    int causal, float scale, int window, float softcap,
-                                   void* stream) {
+                                   int row_stride, int dropout_seed, int dropout_threshold,
+                                   float dropout_inv, void* stream) {
   if (terms < 1 || terms > 3 || (d != 64 && d != 128 && d != 256)) return -1;
+  if (kF32Extra ? terms == 3 || d == 256 : dropout_threshold != 0) return -1;
+#ifndef FA_EXTRA
   if (terms == 3 || (terms == 2 && d == 256)) {
     Args a = make_args(q, k, v, nullptr, l, m, q_seg, kv_seg, nullptr, bh, rows, s_kv, kv_len,
                        q_offset, q_seq_len, causal, scale, window, softcap, q_seq_len, 0, 0, 0.f,
@@ -150,19 +127,24 @@ extern "C" int fa_flash_fwd_tc_f32(int terms, const void* q, const void* k, cons
       default: return f32tc::launch_w<256, 3, false>(a, pg);
     }
   }
+#endif
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int status = split(q, q2, static_cast<long long>(bh) * rows, d, terms, st);
-  if (status == 0) status = split(k, k2, static_cast<long long>(bh) * s_kv, d, terms, st);
-  if (status == 0) status = split(v, v2, static_cast<long long>(bh) * s_kv, d, terms, st);
+  int status = tc::split(q, q2, static_cast<long long>(bh) * rows, d, terms, st);
+  if (status == 0) status = tc::split(k, k2, static_cast<long long>(bh) * s_kv, d, terms, st);
+  if (status == 0) status = tc::split(v, v2, static_cast<long long>(bh) * s_kv, d, terms, st);
   if (status != 0) return status;
   Args a = make_args(q2, k2, v2, nullptr, l, m, q_seg, kv_seg, nullptr, bh, rows, s_kv, kv_len,
-                     q_offset, q_seq_len, causal, scale, window, softcap, q_seq_len, 0, 0, 0.f,
-                     stream);
+                     q_offset, q_seq_len, causal, scale, window, softcap, row_stride, dropout_seed,
+                     dropout_threshold, dropout_inv, stream);
   a.o32 = static_cast<float*>(o);
   switch (d) {
     case 64: return launch_f32_w<64>(a, terms);
     case 128: return launch_f32_w<128>(a, terms);
+#ifdef FA_EXTRA
+    default: return -1;
+#else
     default: return launch_f32_w<256>(a, terms);
+#endif
   }
 }
 #elif !defined(FA_QUANT)

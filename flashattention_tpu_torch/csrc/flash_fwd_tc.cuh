@@ -107,7 +107,12 @@
 // kTerms 4), each V chunk's part summed afresh and added to O in float32.
 // l sums the float32 p; O is stored in float32 (Paged::o32, also set in
 // the flat form).  JAX's "bf16" mode for float32 inputs is kTerms 1: the
-// bf16 form over a one-term split (bf16(x)), with O in float32.
+// bf16 form over a one-term split (bf16(x)), with O in float32.  With
+// kExtra (flash_fwd_tc_f32_extra) the float32 forms take attention dropout
+// as the bf16 form does, and as the Pallas kernel orders it (flash.py:931-
+// 967): p dropped with 1 / (1 - rate) before its two-term split, l the
+// undropped sum; not block masks (their tables are built over the bf16
+// form's tiles, and the float32 KV tile differs at d = 128).
 //
 // kProbe (probe_mma.cu only): 1 runs the QK^T products and the softmax
 // without the PV products, 2 the PV products on a constant P without the
@@ -225,8 +230,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     int window, float softcap, const fa::Extras ex, const Paged pg,
                     const float* __restrict__ k_scales, const float* __restrict__ v_scales) {
   static_assert(kTerms == 0 || ((kTerms == 1 || kTerms == 3 || kTerms == 4) && kKV == 0 &&
-                                 !kPaged && !kExtra && kProbe == 0),
-                "float32 inputs: the plain flat form only");
+                                 !kPaged && kProbe == 0),
+                "float32 inputs: the flat form only (with kExtra: dropout, no block mask)");
   using C = Cfg<kStoredWidth<D, kTerms>, kKV>;
   constexpr int kN = C::kN;
   // Chunks of one term of a row, and the products of S: (q term, k term)

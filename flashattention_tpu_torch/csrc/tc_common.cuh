@@ -428,6 +428,45 @@ __device__ __forceinline__ void fence_regs(int (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+#ifdef FA_F32
+// The float32 forms' split pass (flash_fwd_tc.cu, flash_bwd_tc.cu): `rows`
+// float32 rows of d elements into bf16 rows of terms * d, [hi | lo] (terms
+// 2) or [hi] (1), hi = bf16(x) and lo = bf16(x - hi), both rounded to
+// nearest even, as the JAX package's _split_bf16 (flash.py:136-140); eight
+// elements a thread.
+__global__ void split_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ out,
+                             long long rows, int d, int terms) {
+  const int units = d / 8;
+  const long long n = rows * units;
+  for (long long u = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; u < n;
+       u += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = u / units;
+    const int c = static_cast<int>(u % units) * 8;
+    const float4 a = *reinterpret_cast<const float4*>(x + r * d + c);
+    const float4 b = *reinterpret_cast<const float4*>(x + r * d + c + 4);
+    const float e[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      hi[w] = pack_bf16(e[2 * w], e[2 * w + 1]);
+      lo[w] = pack_lo(e[2 * w], e[2 * w + 1], hi[w]);
+    }
+    __nv_bfloat16* row = out + r * terms * d;
+    *reinterpret_cast<uint4*>(row + c) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    if (terms == 2) *reinterpret_cast<uint4*>(row + d + c) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+static int split(const void* x, void* out, long long rows, int d, int terms, cudaStream_t stream) {
+  const long long n = rows * (d / 8);
+  const int blocks = static_cast<int>(n < 132LL * 16 * 256 ? (n + 255) / 256 : 132LL * 16);
+  if (blocks > 0)
+    split_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(x),
+                                             static_cast<__nv_bfloat16*>(out), rows, d, terms);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
 }  // namespace tc
 
 // The driver's cuTensorMapEncodeTiled, found through the runtime, so that

@@ -20,7 +20,10 @@ their form (backward.py:238-246, :353-378, :487-498).  On CUDA tensors
 :func:`flash_attention_bwd` launches hand-written kernels: the fused
 one-pass kernel (replaces ``_fused_bwd_kernel``, backward.py:401) by
 default, in bf16 at head_dim 64, 128 or 256 its tensor-core form
-``csrc/flash_bwd_tc.cu``, else ``csrc/flash_bwd.cu``
+``csrc/flash_bwd_tc.cu``, in float32 at head_dim 64 or 128 in the JAX modes
+``"bf16_3x"`` (the default) and ``"bf16"`` its float32 form (the same source
+built with ``-DFA_F32``: the five products over bf16 terms, as the JAX
+``_dot_g`` computes them), else ``csrc/flash_bwd.cu``
 (``ops.flash.kernel_form``); and the two-pass pair (replaces ``_dq_kernel``
 :146 and ``_dkv_kernel`` :269) with segment ids, a block mask or
 ``fused=False``, as the JAX package chooses (backward.py:610-615): in bf16
@@ -59,6 +62,7 @@ from flashattention_tpu_torch.ops.flash import (
     dropout_options,
     flash_attention,
     _exp,
+    _split_bf16,
     _two_term_bf16,
     fold_segment_ids,
     head_chunks,
@@ -81,17 +85,17 @@ __all__ = [
 ]
 
 def _check_tpu_options(dtype, block_sizes=None, precision=None, interpret=None):
-    """The JAX signature's TPU knobs: ``precision`` is validated as the JAX
-    package validates it (:func:`ops.flash.resolve_precision`; the backward
-    kernels compute float32 exactly in every mode), ``interpret`` is
-    accepted and ignored,
-    and ``block_sizes`` has no counterpart: the CUDA kernels have their own
-    tiles."""
-    resolve_precision(precision, dtype)
+    """The JAX signature's TPU knobs: ``precision`` is resolved as the JAX
+    package resolves it (:func:`ops.flash.resolve_precision`) and returned;
+    the fused backward's float32 form computes ``"bf16_3x"`` and ``"bf16"``
+    where it is built (:func:`bwd_form`), the scalar kernels float32
+    exactly.  ``interpret`` is accepted and ignored, and ``block_sizes`` has
+    no counterpart: the CUDA kernels have their own tiles."""
     if block_sizes is not None:
         raise ValueError(
             "block_sizes is a TPU option; the CUDA backward kernels have their own tiles"
         )
+    return resolve_precision(precision, dtype)
 
 
 def flash_attention_bwd(
@@ -113,11 +117,14 @@ def flash_attention_bwd(
       q_segment_ids, kv_segment_ids: integer ``(BH, R)``, ``(BH, S_kv)``.
       dropout_rate, dropout_seed, dropout_row_stride, block_mask: as in the
         forward (:func:`ops.flash.flash_attention`), whose output this is.
+      precision: the JAX package's mode for float32 inputs (default
+        ``"bf16_3x"``): the fused backward's float32 form computes it at
+        head_dim 64 and 128 (:func:`bwd_form`), else float32 is exact.
 
     ``D = rowsum(O dO)`` is computed here in float32, outside the kernels
     (backward.py:707-709).  Returns ``(dq, dk, dv)`` in the input dtypes.
     """
-    _check_tpu_options(q.dtype, block_sizes, precision, interpret)
+    precision = _check_tpu_options(q.dtype, block_sizes, precision, interpret)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"expected (BH, S, d) tensors, got {q.shape} {k.shape} {v.shape}")
     bh, rows, d = q.shape
@@ -149,12 +156,13 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, o, lse, do, q_segment_ids=seg_q, kv_segment_ids=seg_kv,
-            block_mask=block_mask, form=bwd_form(q, fused, block_mask is not None), **kw
+            block_mask=block_mask, form=bwd_form(q, fused, block_mask is not None, precision),
+            precision=precision, **kw
         )
     di = (o.float() * do.float()).sum(dim=-1)
     lse = lse.float().contiguous()
     if fused:
-        return fused_bwd_kernel(q, k, v, do, lse, di, **kw)
+        return fused_bwd_kernel(q, k, v, do, lse, di, precision=precision, **kw)
     two_pass = dict(q_segment_ids=seg_q, kv_segment_ids=seg_kv, block_mask=block_mask, **kw)
     dq = dq_kernel(q, k, v, do, lse, di, **two_pass)
     dk, dv = dkv_kernel(q, k, v, do, lse, di, **two_pass)
@@ -164,15 +172,24 @@ def flash_attention_bwd(
 def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_len,
                window=None, logit_softcap=None, q_segment_ids=None, kv_segment_ids=None,
                dropout_rate=None, dropout_seed=0, dropout_row_stride=None, block_mask=None,
-               form="scalar"):
+               form="scalar", precision=None):
     """The backward from the formulas, float32 throughout (on the CPU
     ``exp`` in float64, rounded once: see ``ops.flash._exp``): ``(dq, dk,
     dv)`` in float32, with the capped score ``s``, ``P`` recomputed as ``exp(s -
     lse)`` and 0 where masked, dS times the softcap's derivative ``1 - (s /
     cap)^2``, and with dropout dV from ``Z = M P / (1 - r)`` and dS from the
     kept ``dP``.  ``form="tc"`` mirrors the tensor-core kernel: Z and dS
-    fed to their products as two bfloat16 terms (``ops.flash._two_term_bf16``).  Head by head in
+    fed to their products as two bfloat16 terms (``ops.flash._two_term_bf16``).
+    ``form="tc_f32"`` (float32 inputs) mirrors its float32 form in the mode
+    ``precision`` resolves to: in ``"bf16_3x"`` each of the five products
+    as the JAX ``_dot_g`` computes it (flash.py:149-181), hi hi + hi lo + lo
+    hi over both operands' bf16 terms (:func:`_dot3`); in ``"bf16"`` the
+    ``"tc"`` form over q, k, v and dO rounded to bf16 once.  Head by head in
     chunks, to bound the temporaries."""
+    if form == "tc_f32":
+        if resolve_precision(precision, torch.float32) == "bf16":
+            q, k, v, do = (x.to(torch.bfloat16).float() for x in (q, k, v, do))
+            form = "tc"
     bh, rows, s_kv = q.shape[0], q.shape[1], k.shape[1]
     mask = visible(
         rows, s_kv, causal=causal, kv_len=kv_len, q_offset=q_offset, q_seq_len=q_seq_len,
@@ -194,11 +211,21 @@ def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_l
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
+def _dot3(eq, a, b):
+    """``einsum(eq, a, b)`` at the JAX package's ``"bf16_3x"``
+    (``_dot_g``, flash.py:165-181): both operands split into bf16 terms
+    (``ops.flash._split_bf16``), ``hi hi + hi lo + lo hi`` summed in float32
+    in that order."""
+    (ah, al), (bh, bl) = _split_bf16(a), _split_bf16(b)
+    return torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+
+
 def _bwd_plain_heads(q, k, v, do, lse, di, mask, keep, *, scale, logit_softcap, dropout_rate,
                      form):
     """_bwd_plain over some heads."""
     qf, kf, dof = q.float(), k.float(), do.float()
-    s = softcap(torch.einsum("bqd,bkd->bqk", qf, kf) * scale, logit_softcap)
+    mm = _dot3 if form == "tc_f32" else torch.einsum
+    s = softcap(mm("bqd,bkd->bqk", qf, kf) * scale, logit_softcap)
     p = torch.where(mask, _exp(s - lse.float()[..., None]), 0.0)
     del mask
     cap_factor = None if logit_softcap is None else 1.0 - (s / logit_softcap) ** 2
@@ -207,9 +234,9 @@ def _bwd_plain_heads(q, k, v, do, lse, di, mask, keep, *, scale, logit_softcap, 
     if keep is not None:
         inv = 1.0 / (1.0 - dropout_rate)
         z = torch.where(keep, p, 0.0) * inv
-    dv = torch.einsum("bqk,bqd->bkd", _two_term_bf16(z) if form == "tc" else z, dof)
+    dv = mm("bqk,bqd->bkd", _two_term_bf16(z) if form == "tc" else z, dof)
     del z
-    ds = torch.einsum("bqd,bkd->bqk", dof, v.float())
+    ds = mm("bqd,bkd->bqk", dof, v.float())
     if keep is not None:
         ds = torch.where(keep, ds, 0.0) * inv
         del keep
@@ -220,8 +247,8 @@ def _bwd_plain_heads(q, k, v, do, lse, di, mask, keep, *, scale, logit_softcap, 
         del cap_factor
     if form == "tc":
         ds = _two_term_bf16(ds)
-    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
-    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+    dq = mm("bqk,bkd->bqd", ds, kf)
+    dk = mm("bqk,bqd->bkd", ds, qf)
     return dq, dk, dv
 
 
@@ -229,17 +256,20 @@ def flash_attention_bwd_plain(
     q, k, v, o, lse, do, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
     q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None, kv_segment_ids=None,
     dropout_rate=None, dropout_seed=0, dropout_row_stride=None, block_mask=None, form=None,
+    precision=None,
 ):
     """The backward kernels' function in plain PyTorch: the CPU path of
     :func:`flash_attention_bwd` and the kernels' yardstick on the card.
     Computed in float32; returns ``(dq, dk, dv)`` in the input dtypes.
-    ``form`` mirrors the rounding of a kernel form (see :func:`_bwd_plain`);
-    by default the form :func:`flash_attention_bwd` would take for these
-    inputs: the fused kernel's without segment ids or a block mask, else
-    the two-pass pair's (:func:`bwd_form`)."""
+    ``form`` mirrors the rounding of a kernel form (see :func:`_bwd_plain`;
+    ``"tc_f32"`` in the mode ``precision``); by default the form
+    :func:`flash_attention_bwd` would take for these inputs: the fused
+    kernel's without segment ids or a block mask, else the two-pass pair's
+    (:func:`bwd_form`)."""
     rows, s_kv = q.shape[1], k.shape[1]
     if form is None:
-        form = bwd_form(q, q_segment_ids is None and block_mask is None, block_mask is not None)
+        form = bwd_form(q, q_segment_ids is None and block_mask is None, block_mask is not None,
+                        precision)
     di = (o.float() * do.float()).sum(dim=-1)
     dq, dk, dv = _bwd_plain(
         q, k, v, do, lse, di, causal=causal, scale=scale,
@@ -248,16 +278,18 @@ def flash_attention_bwd_plain(
         logit_softcap=logit_softcap, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
         dropout_rate=check_dropout(dropout_rate), dropout_seed=wrap_int32(dropout_seed),
         dropout_row_stride=dropout_row_stride, block_mask=block_mask, form=form,
+        precision=precision,
     )
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def bwd_form(q, fused, block_mask=False):
+def bwd_form(q, fused, block_mask=False, precision=None):
     """The form of a backward call (``ops.flash.kernel_form``): the fused
-    kernel's, or the two-pass pair's (``block_mask``: the call has one).
-    Both kernels of the pair take the same form."""
+    kernel's (float32 in the mode ``precision``), or the two-pass pair's
+    (``block_mask``: the call has one).  Both kernels of the pair take the
+    same form."""
     if fused:
-        return kernel_form("flash_bwd", q.dtype, q.shape[2])
+        return kernel_form("flash_bwd", q.dtype, q.shape[2], precision=precision)
     return kernel_form("flash_bwd_dq", q.dtype, q.shape[2], block_mask=block_mask)
 
 
@@ -375,6 +407,9 @@ def _library(name, kw, block_mask=None):
 def _count(fn, kw, block_mask=None, form="scalar"):
     fn.launches += 1
     fn.launches_dropout += kw["dropout_rate"] is not None
+    if form == "tc_f32":
+        fn.launches_tc_f32 += 1
+        fn.launches_tc_f32_dropout += kw["dropout_rate"] is not None
     if block_mask is not None:
         fn.launches_block_mask += 1
     if form == "tc":
@@ -385,20 +420,37 @@ def _count(fn, kw, block_mask=None, form="scalar"):
 
 def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None,
                      q_offset=0, q_seq_len=None, window=None, logit_softcap=None,
-                     dropout_rate=None, dropout_seed=0, dropout_row_stride=None):
-    """One launch of the fused one-pass kernel (``csrc/flash_bwd.cu``):
-    ``(dq, dk, dv)``.  dQ is summed with float32 atomics into a zeroed
-    buffer, then cast to q's dtype.  On CPU tensors: the plain version."""
+                     dropout_rate=None, dropout_seed=0, dropout_row_stride=None, precision=None):
+    """One launch of the fused one-pass kernel in the form :func:`bwd_form`
+    picks (``csrc/flash_bwd_tc.cu``; float32 at head_dim 64 and 128 in
+    ``"bf16_3x"`` and ``"bf16"`` its float32 form, the same source built
+    with ``-DFA_F32``; else ``csrc/flash_bwd.cu``): ``(dq, dk, dv)``.  dQ is
+    summed with float32 atomics into a zeroed buffer, then cast to q's
+    dtype.  On CPU tensors: the plain version."""
     kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
                dropout_rate, dropout_seed, dropout_row_stride)
-    form = bwd_form(q, True)
+    precision = resolve_precision(precision, q.dtype)
+    form = bwd_form(q, True, precision=precision)
     if q.device.type == "cpu":
-        dq, dk, dv = _bwd_plain(q, k, v, do, lse, di, form=form, **kw)
+        dq, dk, dv = _bwd_plain(q, k, v, do, lse, di, form=form, precision=precision, **kw)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     dtype, bh, rows, s_kv, d = _launch_args("flash_bwd", q, k, v, do, lse, di)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if form == "tc":
+    if form == "tc_f32":
+        # The split pass writes q, k, v and do as bf16 rows of `terms` terms
+        # (hi | lo in "bf16_3x", bf16(x) in "bf16") into these buffers.
+        terms = 2 if precision == "bf16_3x" else 1
+        split = [torch.empty((bh, x.shape[1], terms * d), dtype=torch.bfloat16, device=q.device)
+                 for x in (q, k, v, do)]
+        lib = _library("flash_bwd_tc_f32", kw)
+        status = kernels.library(lib).fa_flash_bwd_tc_f32(
+            terms, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            *(t.data_ptr() for t in split), lse.data_ptr(), di.data_ptr(), dq_acc.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, rows, s_kv, d, *_scalars(kw),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    elif form == "tc":
         lib = _library("flash_bwd_tc", kw)
         status = kernels.library(lib).fa_flash_bwd_tc(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -412,7 +464,7 @@ def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=No
             di.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, rows, s_kv, d,
             *_scalars(kw), torch.cuda.current_stream(q.device).cuda_stream,
         )
-    kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype}")
+    kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype} {precision}")
     _count(fused_bwd_kernel, kw, form=form)
     return dq_acc.to(q.dtype), dk, dv
 
@@ -493,10 +545,12 @@ def dkv_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_
 
 # Kernel launches, for the chip run's path check: all forms, and the dropout
 # and block-mask ones among them, and the tensor-core forms' among them (with
-# dropout and with a block mask among those).
+# dropout and with a block mask among those); the fused kernel's float32
+# form's (with dropout among them) apart from the tensor-core forms'.
 for _fn in (fused_bwd_kernel, dq_kernel, dkv_kernel):
     _fn.launches = _fn.launches_dropout = _fn.launches_block_mask = 0
     _fn.launches_tc = _fn.launches_tc_dropout = _fn.launches_tc_block_mask = 0
+fused_bwd_kernel.launches_tc_f32 = fused_bwd_kernel.launches_tc_f32_dropout = 0
 del _fn
 
 
@@ -540,8 +594,9 @@ def attention_vjp(
     groups' rows.  ``block_sizes`` is the forward kernel's tile
     (``BlockSizes()`` or None); ``precision`` goes to the forward
     (:func:`ops.flash.flash_attention`: its residuals come from the form the
-    mode takes) and is validated by the backward, which computes float32
-    exactly in every mode; ``interpret`` is ignored.
+    mode takes) and to the backward (:func:`flash_attention_bwd`: the fused
+    kernel's float32 form computes it at head_dim 64 and 128, the scalar
+    kernels float32 exactly); ``interpret`` is ignored.
     ``window`` and ``logit_softcap`` go to the forward (whose lse then holds
     the capped, windowed scores) and to the backward.  ``dropout_rate`` / ``dropout_seed`` drop the softmax weights
     with inverted scaling; both passes regenerate the keep bits from the

@@ -13,7 +13,9 @@ precision modes, its float32 form ``flash_fwd_tc_f32``: in ``"bf16"`` the
 same kernel over each value's one bf16 term, in ``"bf16_3x"`` over its two
 (at d = 256 ``csrc/flash_fwd_f32.cuh``'s kernel, which splits them in
 shared memory), and in ``"float32"`` (XLA's HIGHEST) that kernel over three
-terms and six products; otherwise the float32 CUDA-core kernel in
+terms and six products; with dropout at head_dim 64 or 128 in ``"bf16_3x"``
+and ``"bf16"`` its split-pass form's dropout form, ``flash_fwd_tc_f32_extra``;
+otherwise the float32 CUDA-core kernel in
 ``csrc/flash_fwd.cu``; on a CPU tensor it runs :func:`flash_attention_plain`,
 the same function in plain PyTorch, with the chosen form's rounding.  There
 is no fallback between the two, or between the forms: a CUDA call either
@@ -173,6 +175,10 @@ TC_DECODE_ROWS = 32
 TC_F32_HEAD_DIMS = (64, 128, 256)
 TC_F32_KV_TILE = {64: 128, 128: 64, 256: 32}
 TC_F32_SPLIT_KV_TILE = {64: 64, 128: 64, 256: 32}
+# The split-pass forms' head_dims in "bf16_3x" and "bf16": the forward's
+# dropout form (flash_fwd_tc.cu built with -DFA_F32 -DFA_EXTRA) and the
+# fused backward's float32 form (csrc/flash_bwd_tc.cu built with -DFA_F32).
+TC_F32_SPLIT_PASS_HEAD_DIMS = (64, 128)
 
 
 def f32_products(d: int, precision: str = "bf16_3x") -> int:
@@ -233,20 +239,31 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
     or G * draft_k).  ``"tc_f32"``, the flash forward's float32 form, for
     float32 q, k and v at ``TC_F32_HEAD_DIMS`` with no block mask, dropout or
     8-bit K/V, in the mode ``precision`` resolves to (:func:`resolve_precision`:
-    by default ``"bf16_3x"``); and chunked prefill's over float32 pools at
-    those head_dims, on pages :func:`tc_page_size` takes at
+    by default ``"bf16_3x"``), and with dropout at
+    ``TC_F32_SPLIT_PASS_HEAD_DIMS`` in ``"bf16_3x"`` and ``"bf16"``; the
+    fused backward's float32 form at ``TC_F32_SPLIT_PASS_HEAD_DIMS`` in
+    those two modes, dropout or not; and chunked prefill's over float32
+    pools at ``TC_F32_HEAD_DIMS``, on pages :func:`tc_page_size` takes at
     ``TC_F32_SPLIT_KV_TILE``.  Else
     ``"scalar"``, the float32 CUDA-core kernel (float32 or 8-bit K/V with a
     block mask, 8-bit K/V with dropout, float32 q over 8-bit K/V that the
-    tensor-core form does not take in bf16 or in the exact modes).
+    tensor-core form does not take in bf16 or in the exact modes, the
+    float32 backward in ``"float32"``, at d = 16 / 32 / 256 and in the
+    two-pass pair).
     ``dtype`` is q's type as the kernel takes it: float32 q over 8-bit K/V
     (:func:`f32_q_in_bf16`) or pages (``ops.decode._f32_q_in_bf16``) taken
     in bf16 asks for the bf16 form.  Inside :func:`scalar_forms`, always
     ``"scalar"``."""
     if (dtype == torch.float32 and not _SCALAR_ONLY[0] and head_dim in TC_F32_HEAD_DIMS
-            and not (quantized or block_mask or dropout)):
-        resolve_precision(precision, dtype)  # raises on an unknown mode
-        if kernel == "flash_fwd" or (kernel == "paged_prefill" and tc_page_size(
+            and not (quantized or block_mask)):
+        mode = resolve_precision(precision, dtype)  # raises on an unknown mode
+        split_pass = head_dim in TC_F32_SPLIT_PASS_HEAD_DIMS and mode != "float32"
+        if kernel == "flash_bwd" and split_pass:
+            return "tc_f32"
+        if dropout:
+            if kernel == "flash_fwd" and split_pass:
+                return "tc_f32"
+        elif kernel == "flash_fwd" or (kernel == "paged_prefill" and tc_page_size(
                 page_size, head_dim, TC_F32_SPLIT_KV_TILE[head_dim])):
             return "tc_f32"
     if (_SCALAR_ONLY[0] or dtype != torch.bfloat16
@@ -881,10 +898,13 @@ def flash_attention(
     if form == "tc_f32":
         _flash_fwd_tc_f32(q, k, v, o, l, m, seg_q, seg_kv, precision, kv_len=kv_len,
                           q_offset=int(q_offset), q_seq_len=q_seq_len, causal=bool(causal),
-                          scale=float(scale), window=window, logit_softcap=logit_softcap)
+                          scale=float(scale), window=window, logit_softcap=logit_softcap,
+                          **dropout)
         flash_attention.launches_tc_f32 += 1
         flash_attention.launches_tc_f32_bf16 += precision == "bf16"
         flash_attention.launches_tc_f32_split += f32_split(d, precision)
+        flash_attention.launches_tc_f32_dropout += dropout_rate is not None
+        flash_attention.launches_dropout += dropout_rate is not None
         flash_attention.launches += 1
         return (o, l, m) if save_residuals else o
     name = "flash_fwd_quant" if quantized else "flash_fwd"
@@ -944,14 +964,16 @@ def _flash_fwd_tc(q, k, v, o, l, m, seg_q, seg_kv, scales, tiles, *, kv_len, q_o
 
 
 def _flash_fwd_tc_f32(q, k, v, o, l, m, seg_q, seg_kv, precision, *, kv_len, q_offset,
-                      q_seq_len, causal, scale, window, logit_softcap):
+                      q_seq_len, causal, scale, window, logit_softcap, dropout_rate=None,
+                      dropout_seed=0, dropout_row_stride=None):
     """One call of the float32 form (``csrc/flash_fwd_tc.cu`` built with
     ``-DFA_F32``) into float32 ``o``: in ``"float32"`` (three bf16 terms)
     and in ``"bf16_3x"`` at d = 256 (two) ``csrc/flash_fwd_f32.cuh``'s
     kernel over q, k and v themselves, split in shared memory; else a split
     pass writes them as rows of two bf16 terms (``"bf16_3x"``) or one
     (``"bf16"``) into buffers made here, which the tensor-core forward
-    reads."""
+    reads.  With dropout (d = 64 and 128, split pass only) its dropout form,
+    ``flash_fwd_tc_f32_extra`` (``-DFA_F32 -DFA_EXTRA``)."""
     kernels.check_aligned("flash_attention", q, k, v)
     bh, rows, d = q.shape
     terms = {"bf16": 1, "bf16_3x": 2, "float32": 3}[precision]
@@ -959,16 +981,18 @@ def _flash_fwd_tc_f32(q, k, v, o, l, m, seg_q, seg_kv, precision, *, kv_len, q_o
     if not f32_split(d, precision):
         split = tuple(torch.empty((bh, x.shape[1], terms * d), dtype=torch.bfloat16,
                                   device=q.device) for x in (q, k, v))
-    status = kernels.library("flash_fwd_tc_f32").fa_flash_fwd_tc_f32(
+    name = "flash_fwd_tc_f32" if dropout_rate is None else "flash_fwd_tc_f32_extra"
+    status = kernels.library(name).fa_flash_fwd_tc_f32(
         terms, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *([t.data_ptr() for t in split] if split else [None] * 3), o.data_ptr(),
         None if l is None else l.data_ptr(), None if m is None else m.data_ptr(),
         None if seg_q is None else seg_q.data_ptr(),
         None if seg_kv is None else seg_kv.data_ptr(), bh, rows, k.shape[1], d, kv_len,
         q_offset, q_seq_len, int(causal), scale, *kernel_options(window, logit_softcap),
+        *dropout_options(dropout_rate, dropout_seed, dropout_row_stride, q_seq_len),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    kernels.check_launch("flash_fwd_tc_f32", status, f"q {tuple(q.shape)} {precision}")
+    kernels.check_launch(name, status, f"q {tuple(q.shape)} {precision}")
 
 
 # Kernel launches, for chip_smoke.py's path check: all forms, and the
@@ -976,12 +1000,13 @@ def _flash_fwd_tc_f32(q, k, v, o, l, m, seg_q, seg_kv, precision, *, kv_len, q_o
 # block-mask ones among them; the tensor-core 8-bit form's over float32 q
 # taken in bf16 among those; the float32 form's, and its "bf16" mode's and
 # its split-in-shared-memory kernel's (csrc/flash_fwd_f32.cuh,
-# :func:`f32_split`) among those.
+# :func:`f32_split`) and its dropout form's among those.
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_tc_f32 = 0
 flash_attention.launches_tc_f32_bf16 = 0
 flash_attention.launches_tc_f32_split = 0
+flash_attention.launches_tc_f32_dropout = 0
 flash_attention.launches_quantized = 0
 flash_attention.launches_tc_quantized = 0
 flash_attention.launches_tc_quantized_f32q = 0

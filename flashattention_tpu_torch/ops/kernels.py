@@ -21,8 +21,10 @@ dropout forms ``*_tc_extra`` (the forward's also its block-mask form), and
 own, and the two forwards' 8-bit forms are the same sources built with
 ``-DFA_QUANT`` (``flash_fwd_tc_quant``, ``paged_prefill_tc_quant``), and the
 forward's float32 form, over each value's bf16 terms, is its source built
-with ``-DFA_F32`` (``flash_fwd_tc_f32``), as is chunked prefill's over
-float32 pools (``paged_prefill_tc_f32``); paged
+with ``-DFA_F32`` (``flash_fwd_tc_f32``, and with dropout
+``flash_fwd_tc_f32_extra``), as are chunked prefill's over float32 pools
+(``paged_prefill_tc_f32``) and the fused backward's over float32
+(``flash_bwd_tc_f32[_extra]``); paged
 decode's tensor-core form is ``paged_decode_tc`` and, for 8-bit pages, the
 same source built with ``-DFA_QUANT`` (``paged_decode_tc_quant``).  The
 two-pass backward pair's tensor-core forms are ``flash_bwd_dq_tc`` (a
@@ -115,9 +117,19 @@ KERNELS = {
                            [_I, _I, _P, _P, *[_P] * 8, *[_I] * 8, _F, _I, _F, *_EXTRA],
                            ["-DFA_QUANT"]),
     # The forward's float32 form: the number of bf16 terms, float32 q, k, v,
-    # their split buffers, float32 o, then as flash_fwd_tc without dropout.
-    "flash_fwd_tc_f32": ("flash_fwd_tc.cu", "fa_flash_fwd_tc_f32",
-                         [_I, *[_P] * 11, *[_I] * 8, _F, _I, _F, _P], ["-DFA_F32"]),
+    # their split buffers, float32 o, then as flash_fwd_tc without the block
+    # mask's table; dropout (the split-pass form at d = 64 and 128) in its
+    # -DFA_EXTRA library.
+    **{"flash_fwd_tc_f32" + suffix: ("flash_fwd_tc.cu", "fa_flash_fwd_tc_f32",
+                                     [_I, *[_P] * 11, *[_I] * 8, _F, _I, _F, *_EXTRA],
+                                     ["-DFA_F32", *flags])
+       for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
+    # The fused backward's float32 form (JAX's "bf16_3x" and "bf16" modes at
+    # d = 64 and 128): the number of bf16 terms, float32 q, k, v, do, their
+    # split buffers, then as flash_bwd_tc with float32 dk, dv.
+    **{"flash_bwd_tc_f32" + suffix: ("flash_bwd_tc.cu", "fa_flash_bwd_tc_f32",
+                                     [_I, *[_P] * 13, *_BWD], ["-DFA_F32", *flags])
+       for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
     "flash_naive": (
         "flash_naive.cu",
         "fa_flash_naive",

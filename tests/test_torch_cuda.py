@@ -14,7 +14,10 @@ bf16 rounding of outputs of magnitude ~1); ``attention`` at head_dims 80 and
 (int8 and fp8 K/V with per-row scales; in bf16 the forwards' tensor-core
 8-bit forms) likewise, and the dropout and
 block-mask forms of the flash forward and the backward kernels (the same
-keep bits and element masks as the plain versions); the d = 128 probe modes
+keep bits and element masks as the plain versions); float32 training's
+forms (the fused backward's float32 form and the forward's dropout form in
+"bf16_3x" and "bf16": against their plain versions, their keep bits, NaN
+past kv_len and behind a ragged S); the d = 128 probe modes
 (``ops/probes.py``) against their plain versions, on random inputs and on
 inputs whose output is P's second bf16 term alone, the self-test's 21 checks
 on the card, and a CLI's rows carrying the card's line.
@@ -1064,3 +1067,99 @@ def test_paged_prefill_f32_form_matches_plain(d, ps):
                                                       *args[3:], **kw)
     torch.cuda.synchronize()
     assert torch.equal(poisoned, got)
+
+
+# Float32 training's forms: the fused backward's float32 form
+# (flash_bwd_tc_f32[_extra]) and the forward's dropout form
+# (flash_fwd_tc_f32_extra), at d = 64 and 128 in "bf16_3x" and "bf16".
+F32_TRAIN_CASES = {
+    "causal_gqa": dict(bh=2, g=3, s=70, s_kv=70, causal=True),
+    "full": dict(bh=3, g=1, s=96, s_kv=150, causal=False),
+    "kv_len_q_offset": dict(bh=2, g=2, s=50, s_kv=130, causal=True, kv_len=77, q_offset=60),
+    "window_softcap": dict(bh=2, g=3, s=100, s_kv=100, causal=True, window=13,
+                           logit_softcap=20.0, qmul=8.0),
+    "dropout": dict(bh=2, g=3, s=70, s_kv=70, causal=True, dropout_rate=0.1, row_stride=128),
+    "dropout_window_softcap": dict(bh=2, g=2, s=100, s_kv=100, causal=True, window=13,
+                                   logit_softcap=20.0, qmul=8.0, dropout_rate=0.5),
+}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+@pytest.mark.parametrize("case", list(F32_TRAIN_CASES))
+def test_f32_training_forms_match_plain(d, mode, case):
+    """The float32 forward (its dropout form with dropout) and the fused
+    backward's float32 form against their plain versions on the CPU in
+    the same mode: the forward within 1e-4 of its magnitude (2e-2 in
+    "bf16"), l within 1e-5 of its, the gradients within 1e-4 (below 4);
+    each call launching its form once."""
+    c = F32_TRAIN_CASES[case]
+    rows, qmul = c["g"] * c["s"], c.get("qmul", 1.0)
+    q = _randn((c["bh"], rows, d), torch.float32, 40) * qmul
+    k, v = _randn((c["bh"], c["s_kv"], d), torch.float32, 41), _randn((c["bh"], c["s_kv"], d),
+                                                                      torch.float32, 42)
+    do = _randn((c["bh"], rows, d), torch.float32, 43) * (0.25 / qmul)
+    kw = dict(causal=c["causal"], scale=d**-0.5, kv_len=c.get("kv_len"),
+              q_offset=c.get("q_offset", 0), q_seq_len=c["s"], window=c.get("window"),
+              logit_softcap=c.get("logit_softcap"), dropout_rate=c.get("dropout_rate"),
+              dropout_seed=-12345, dropout_row_stride=c.get("row_stride"), precision=mode)
+    dropout = kw["dropout_rate"] is not None
+    assert backward.bwd_form(q, True, precision=mode) == "tc_f32"
+    fa_, fb = flash.flash_attention, backward.fused_bwd_kernel
+    n = (fa_.launches_tc_f32_dropout, fb.launches, fb.launches_tc_f32, fb.launches_tc_f32_dropout)
+    o, l, m = flash.flash_attention(q.cuda(), k.cuda(), v.cuda(), save_residuals=True, **kw)
+    wo, wl, _ = flash.flash_attention(q, k, v, save_residuals=True, **kw)
+    lse = m + torch.log(torch.where(l == 0, 1.0, l))
+    args = (q, k, v, o.cpu(), lse.cpu(), do)
+    got = backward.flash_attention_bwd(*(a.cuda() for a in args), fused=True, **kw)
+    want = backward.flash_attention_bwd(*args, fused=True, **kw)
+    torch.cuda.synchronize()
+    assert (fa_.launches_tc_f32_dropout, fb.launches, fb.launches_tc_f32,
+            fb.launches_tc_f32_dropout) == (n[0] + dropout, n[1] + 1, n[2] + 1, n[3] + dropout)
+    assert _f32_err(o, wo) <= (2e-2 if mode == "bf16" else 1e-4)
+    assert _f32_err(l, wl) <= 1e-5
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32
+        validate_result(g, w, 1e-4, name=name)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+def test_f32_training_forms_keep_bits(d, mode):
+    """With V and dO the identity (S = d, no mask) the forward's zeros and
+    dV^T's are exactly the plain version's dropped pairs (rate 0.5)."""
+    bh, rate, seed = 3, 0.5, 987
+    q, k = (_randn((bh, d, d), torch.float32, s).cuda() for s in (50, 51))
+    eye = torch.eye(d, device="cuda").expand(bh, d, d).contiguous()
+    kw = dict(scale=d**-0.5, dropout_rate=rate, dropout_seed=seed, precision=mode)
+    o, l, m = flash.flash_attention(q, k, eye, save_residuals=True, **kw)
+    _, _, dv = backward.flash_attention_bwd(q, k, eye, o, m + torch.log(l), eye, **kw)
+    keep = flash.dense_keep(seed, rate, range(bh), d, d, d, None, "cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(o != 0, keep)
+    assert torch.equal(dv.transpose(1, 2) != 0, keep)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_backward_ignores_poisoned_rows(d):
+    """K/V rows past kv_len NaN, and a second head all NaN behind a ragged
+    S: the first head's dK and dV bit for bit the clean inputs', dQ (float32
+    atomics) within 1e-6."""
+    q = _randn((2, 100, d), torch.float32, 60).cuda()
+    k, v = (_randn((2, 230, d), torch.float32, s).cuda() for s in (61, 62))
+    do = 0.25 * _randn((2, 100, d), torch.float32, 63).cuda()
+    kw = dict(causal=True, scale=d**-0.5, kv_len=180, q_offset=80, dropout_rate=0.1,
+              dropout_seed=7)
+    outs = []
+    for poison in (False, True):
+        qp, kp, vp, dop = (x.clone() for x in (q, k, v, do))
+        if poison:
+            kp[:, kw["kv_len"]:], vp[:, kw["kv_len"]:] = float("nan"), float("nan")
+            for x in (qp, kp, vp, dop):
+                x[1:] = float("nan")
+        o, l, m = flash.flash_attention(qp, kp, vp, save_residuals=True, **kw)
+        outs.append(backward.flash_attention_bwd(qp, kp, vp, o, m + torch.log(l), dop, **kw))
+    torch.cuda.synchronize()
+    (dq0, dk0, dv0), (dq1, dk1, dv1) = outs
+    assert torch.equal(dk1[0], dk0[0]) and torch.equal(dv1[0], dv0[0])
+    assert float((dq1[0] - dq0[0]).abs().max()) <= 1e-6

@@ -123,7 +123,10 @@ def test_forward_and_vjp_match_jax(case):
     jgrads = jvjp(jnp.asarray(do, JDT[dt]))
     targs = [torch.tensor(x).to(TDT[dt]).requires_grad_() for x in (q, k, v)]
     seg = {} if sq is None else dict(q_segment_ids=torch.tensor(sq), kv_segment_ids=torch.tensor(skv))
-    to = tbwd.attention_vjp(*targs, kw["causal"], kw["scale"], None, None, None, kw["q_seq_len"],
+    # Both sides in the same mode: float32 dropout at d = 64 / 128 has a
+    # float32 form in "bf16_3x" (tests/test_torch_bwd_f32.py), so the exact
+    # comparison names "float32" on the port's side too.
+    to = tbwd.attention_vjp(*targs, kw["causal"], kw["scale"], None, prec, None, kw["q_seq_len"],
                             kw["window"], kw["logit_softcap"], RATE, SEED, **seg)
     validate_result(to, np.asarray(jo, np.float32), FWD_TOL[dt], name="o")
     tgrads = torch.autograd.grad(to, targs, torch.tensor(do).to(TDT[dt]))

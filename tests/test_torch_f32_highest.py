@@ -201,16 +201,20 @@ def test_exact_mirror_keeps_v_third_term(d):
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_flash_forward_routes(d):
     """Float32 q, k, v at d = 64 / 128 / 256 take the float32 form in every
-    mode (None and "auto" too); d = 16 / 32, dropout, a block mask, 8-bit
-    K/V and scalar_forms keep the scalar kernel.  The split-in-shared-memory
-    kernel runs "float32" everywhere and "bf16_3x" at 256."""
+    mode (None and "auto" too); d = 16 / 32, a block mask, 8-bit K/V and
+    scalar_forms keep the scalar kernel, and dropout does but at d = 64 /
+    128 in "bf16_3x" and "bf16" (the split-pass form's dropout form).  The
+    split-in-shared-memory kernel runs "float32" everywhere and "bf16_3x"
+    at 256."""
     f32 = torch.float32
     for mode in (None, "auto", *tflash.PRECISIONS):
         want = "tc_f32" if d in (64, 128, 256) else "scalar"
         assert tflash.kernel_form("flash_fwd", f32, d, precision=mode) == want, mode
         for extra in ("dropout", "block_mask", "quantized"):
+            want = ("tc_f32" if extra == "dropout" and d in (64, 128) and mode != "float32"
+                    else "scalar")
             assert tflash.kernel_form("flash_fwd", f32, d, precision=mode,
-                                      **{extra: True}) == "scalar", (mode, extra)
+                                      **{extra: True}) == want, (mode, extra)
         with tflash.scalar_forms():
             assert tflash.kernel_form("flash_fwd", f32, d, precision=mode) == "scalar"
     if d >= 64:

@@ -78,10 +78,15 @@ def test_resolution_and_form_follow_jax(mode, quantized, d):
 
 
 def test_scalar_forms_and_options_keep_the_exact_kernel():
+    """A block mask and scalar_forms keep the exact kernel; dropout and the
+    fused backward take their float32 forms in the default mode and keep
+    the exact kernel in "float32" (tests/test_torch_bwd_f32.py)."""
     f32 = torch.float32
     assert tflash.kernel_form("flash_fwd", f32, 64, block_mask=True) == "scalar"
-    assert tflash.kernel_form("flash_fwd", f32, 64, dropout=True) == "scalar"
-    assert tflash.kernel_form("flash_bwd", f32, 64) == "scalar"
+    assert tflash.kernel_form("flash_fwd", f32, 64, dropout=True) == "tc_f32"
+    assert tflash.kernel_form("flash_fwd", f32, 64, dropout=True, precision="float32") == "scalar"
+    assert tflash.kernel_form("flash_bwd", f32, 64) == "tc_f32"
+    assert tflash.kernel_form("flash_bwd", f32, 64, precision="float32") == "scalar"
     with tflash.scalar_forms():
         assert tflash.kernel_form("flash_fwd", f32, 128) == "scalar"
     assert tflash.kernel_form("flash_fwd", f32, 128) == "tc_f32"
@@ -196,8 +201,9 @@ def test_a_form_missing_a_product_fails_on_lo_term_inputs(d):
 
 def test_attention_grad_matches_jax_default():
     """float32 GQA attention() under autograd at the default precision:
-    forward residuals from the float32 form, the exact backward, against
-    ``jax.grad`` through the JAX attention at its default ("bf16_3x")."""
+    forward residuals from the float32 form, the backward's float32 form
+    (both "bf16_3x"), against ``jax.grad`` through the JAX attention at its
+    default ("bf16_3x")."""
     rng = np.random.default_rng(5)
     q = rng.standard_normal((1, 4, 128, 64)).astype(np.float32)
     k, v = (rng.standard_normal((1, 2, 128, 64)).astype(np.float32) for _ in range(2))

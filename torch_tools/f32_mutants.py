@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s checks of the float32 forms: the
 forward's (``flash_fwd_tc_f32``, and ``csrc/flash_fwd_f32.cuh``'s kernel in
-it) and chunked prefill's over float32 pools (``paged_prefill_tc_f32``), on
-one card.
+it), chunked prefill's over float32 pools (``paged_prefill_tc_f32``) and
+float32 training's (the fused backward's ``flash_bwd_tc_f32[_extra]``, the
+forward's dropout form ``flash_fwd_tc_f32_extra``), on one card.
 
     python3 torch_tools/f32_mutants.py [--keep] [--mutants NAME ...]
 
 Copies the port (``flashattention_tpu_torch/`` and ``chip_smoke.py``) into a
 temporary directory once per mutant, breaks one product, term or bound in
-the copy's source, builds the copy's ``flash_fwd_tc_f32``, ``flash_fwd``
-and ``paged_prefill_tc_f32`` (all copies' ``nvcc`` started together) and
-runs chip_smoke's ``f32_form_checks`` untimed (three modes, d = 64, 128 and
-256, the input cases among them ``ops.probes.lo_term_f32_qkv``'s,
-``lo3_term_f32_qkv``'s and ``v3_term_f32_qkv``'s) and the float32 cases of
-``prefill_poison_check`` on the copy.  The copies:
+the copy's source, builds the copy's libraries (LIBRARIES: the unmutated
+copy's first, whose files every other copy starts from, so that a copy
+rebuilds only what its edit changes; then all the others' ``nvcc``
+together) and runs chip_smoke's ``f32_form_checks`` untimed (three modes, d
+= 64, 128 and 256, the input cases among them
+``ops.probes.lo_term_f32_qkv``'s, ``lo3_term_f32_qkv``'s and
+``v3_term_f32_qkv``'s), the float32 cases of ``prefill_poison_check`` and
+``f32_train_checks`` (the backward's and the dropout forward's float32
+forms, "bf16_3x" and "bf16", d = 64 and 128) on the copy.  The copies:
 
 - ``unmutated``: the sources as they are; every check must pass;
 - in the two-term form (``flash_fwd_tc.cuh``'s ``kTerms``; caught by a
@@ -27,7 +31,16 @@ runs chip_smoke's ``f32_form_checks`` untimed (three modes, d = 64, 128 and
 - in its paged form (caught by a ``paged_prefill_tc_f32/...`` check):
   ``paged_rows_unzeroed``, rows outside the block's columns split as read
   (stale pages and unloaded boxes reach the products);
-  ``paged_page_off_by_one``, each box from the table's next entry.
+  ``paged_page_off_by_one``, each box from the table's next entry;
+- in the fused backward's float32 form (``flash_bwd_tc.cu``'s ``kTerms``,
+  both of its kernels: d = 64 the d <= 128 one, d = 128 the wide one;
+  caught by a ``flash_bwd_tc_f32/...`` check): one of the three products
+  of each of the five matmuls left out, ``s_k_hi_q_lo_dropped`` (S^T =
+  K Q^T), ``dp_v_lo_do_hi_dropped`` (dP^T = V dO^T),
+  ``dv_z_lo_do_hi_dropped`` (dV += Z^T dO), ``dk_ds_hi_q_lo_dropped``
+  (dK += dS^T Q), ``dq_ds_lo_k_hi_dropped`` (dQ += dS K);
+  ``do_lo_zeroed``, dO's lo term zeroed after the split pass;
+  ``z_bits_on_ds``, Z's dropout bits (keep / (1 - rate)) applied to dS.
 
 Prints one JSON line per copy (its failed checks with their errors) and
 writes all of them to ``chiprun_out/f32_mutants.json``; exits non-zero when
@@ -47,8 +60,10 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("flashattention_tpu_torch", "csrc")
-LIBRARIES = ("flash_fwd_tc_f32", "flash_fwd", "paged_prefill_tc_f32")
-TWO, THREE = "flash_fwd_tc.cuh", "flash_fwd_f32.cuh"
+LIBRARIES = ("flash_fwd_tc_f32", "flash_fwd", "paged_prefill_tc_f32", "flash_fwd_tc_f32_extra",
+             "flash_bwd_tc_f32", "flash_bwd_tc_f32_extra", "flash_bwd", "flash_bwd_extra",
+             "flash_bwd_dq", "flash_bwd_dkv")
+TWO, THREE, BWD = "flash_fwd_tc.cuh", "flash_fwd_f32.cuh", "flash_bwd_tc.cu"
 _S_PAIR = "tc::wgmma_ss<0, 0>(s_lo, da, db, c > 0 || pr > 0 || kk > 0);"
 _PV_PAIR = "tc::wgmma_rs<1>(part, pt[pair_a(kT, pr)][kk], db, pr > 0 || kk > 0);"
 
@@ -64,6 +79,112 @@ def _drop_pair(i):
         (_PV_PAIR, f"if (kT != 3 || pr != {i}) tc::wgmma_rs<1>(part, pt[pair_a(kT, pr)][kk], db, "
                    f"{first} || kk > 0);")])
 
+
+# The backward's mutants: copies of its product helpers with one product
+# left out, inserted before the originals' users, and the call sites of one
+# matmul (in the d <= 128 kernel and, by warpgroup, in the wide one) sent
+# to them.
+_TERM_PRODUCTS = """template <int D, int kTerms>
+__device__ __forceinline__ void term_products_mut(float (&acc)[32], uint32_t a, uint32_t a_chunk,
+                                                  uint32_t b, uint32_t b_chunk) {
+  constexpr int kLC = D / tc::kChunk;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int pr = 0; pr < kPairs<kTerms>; ++pr) {
+      if (pr == SKIP) continue;
+      const uint32_t ac = (pr == 2) * kLC + kk / 4, bc = (pr == 1) * kLC + kk / 4;
+      tc::wgmma_ss<0, 0>(acc, tc::make_desc(a + ac * a_chunk + (kk % 4) * 32, 16, 1024),
+                         tc::make_desc(b + bc * b_chunk + (kk % 4) * 32, 16, 1024),
+                         kk > 0 || pr > 0);
+    }
+  }
+}
+
+"""
+_ADD_PRODUCTS = """template <int D, int kTerms>
+__device__ __forceinline__ void add_products_mut(float (&acc)[D / 2], const uint32_t (&ah)[4][4],
+                                                 const uint32_t (&al)[4][4], uint32_t b_tile) {
+  constexpr int kLC = Cfg<D, kTerms>::kLC;
+#pragma unroll
+  for (int c = 0; c < kLC; ++c) {
+    float part[32];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockM / 16; ++kk) {
+      const uint64_t db = tc::make_desc(b_tile + c * kQChunk + kk * 2048, kQChunk, 1024);
+      tc::wgmma_rs<1>(part, ah[kk], db, kk > 0);
+      if (SKIP != 1) tc::wgmma_rs<1>(part, al[kk], db, 1);
+      if (kTerms == 2 && SKIP != 2)
+        tc::wgmma_rs<1>(part, ah[kk],
+                        tc::make_desc(b_tile + (kLC + c) * kQChunk + kk * 2048, kQChunk, 1024), 1);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(part);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[32 * c + x] += part[x];
+  }
+}
+
+"""
+_TP_ANCHOR = "// Whether the block of key rows [c0, c0 + kKeys) has any live pair with"
+_AP_ANCHOR = "// dQ's half of the tile's columns from chunk c0 on"
+_WIDE_SP = "    term_products<D, kTerms>(st, a_base, kKVChunk, b_base, kQChunk);\n"
+
+
+def _term_mutant(skip, main_call, p_side):
+    """S^T's (``p_side``) or dP^T's product ``skip`` (1: A hi B lo, 2: A lo
+    B hi) left out in both kernels."""
+    mut = _WIDE_SP.replace("term_products", "term_products_mut")
+    side = "p_side" if p_side else "!p_side"
+    return (BWD, [(_TP_ANCHOR, _TERM_PRODUCTS.replace("SKIP", str(skip)) + _TP_ANCHOR),
+                  (main_call, main_call.replace("term_products", "term_products_mut")),
+                  (_WIDE_SP, f"    if ({side}) {mut.strip()}\n    else {_WIDE_SP.strip()}\n")],
+            ("flash_bwd_tc_f32/", ""))
+
+
+def _add_mutant(skip, main_edit, wide_call):
+    """dV's (the wide kernel's P side) or dK's (its dS side) product
+    ``skip`` (1: A's lo against B's hi, 2: A's hi against B's lo) left out
+    in both kernels (``main_edit`` the d <= 128 kernel's)."""
+    return (BWD, [(_AP_ANCHOR, _ADD_PRODUCTS.replace("SKIP", str(skip)) + _AP_ANCHOR), main_edit,
+                  (wide_call, wide_call.replace("add_products", "add_products_mut"))],
+            ("flash_bwd_tc_f32/", ""))
+
+
+_BWD_MUTANTS = {
+    "s_k_hi_q_lo_dropped": _term_mutant(
+        1, "term_products<D, kTerms>(st, k_base, C::kKVChunk, q_tile, C::kQChunk);", True),
+    "dp_v_lo_do_hi_dropped": _term_mutant(
+        2, "term_products<D, kTerms>(dpt, v_base, C::kKVChunk, do_tile, C::kQChunk);", False),
+    "dv_z_lo_do_hi_dropped": _add_mutant(
+        1, ("          tc::wgmma_rs<1>(part, zl[kk], db, 1);\n", ""),
+        "add_products<D, kTerms>(acc, ah, al, do_tile);  // dV += Z^T dO"),
+    "dk_ds_hi_q_lo_dropped": _add_mutant(
+        2, ("else tc::wgmma_rs<1>(part, dsa[kk], db_lo, 1);", "else {}"),
+        "add_products<D, kTerms>(acc, ah, al, q_tile);  // dK += dS^T Q"),
+    "dq_ds_lo_k_hi_dropped": (BWD, [
+        ("          tc::wgmma_ss<1, 1>(dq, tc::make_desc(lo_base + kk * 2048, C::kDsBytes, 1024), "
+         "db, 1);\n", ""),
+        ("      tc::wgmma_ss<1, 1>(dq, tc::make_desc(lo_base + kk * 2048, kDsBytes, 1024), db, 1);\n",
+         "")], ("flash_bwd_tc_f32/", "")),
+    "do_lo_zeroed": (BWD, [(
+        "if (status == 0) status = tc::split(dout, do2, q_rows, d, terms, st);",
+        "if (status == 0) status = tc::split(dout, do2, q_rows, d, terms, st);\n"
+        "  if (status == 0 && terms == 2)\n"
+        "    status = static_cast<int>(cudaMemset2DAsync(static_cast<char*>(do2) + 2 * d, 4 * d, 0,"
+        " 2 * d, q_rows, st));")], ("flash_bwd_tc_f32/", "")),
+    "z_bits_on_ds": (BWD, [
+        ("          dpt[4 * j + e] = p * (dp - tf[kBlockM + x]) * scale * c_fac;",
+         "          dpt[4 * j + e] = (dropout ? p * z : p) * (dp - tf[kBlockM + x]) * scale * c_fac;"),
+        ("          st[4 * j + e] = y[4 * j + e] * (dp - tf[kBlockM + x]) * scale;",
+         "          st[4 * j + e] = y[4 * j + e] * (dp - tf[kBlockM + x]) * scale *\n"
+         "                          (dropout ? (fa::dropout_kept(static_cast<unsigned>(ti[4 * kBlockM + x]),\n"
+         "                                                       e < 2 ? key_a : key_b, ex.threshold)\n"
+         "                                          ? ex.inv : 0.f) : 1.f);")],
+        ("flash_bwd_tc_f32/", "")),
+}
 
 # name -> (source, [(text, replacement)], the prefix and suffix of the
 # checks that must catch it)
@@ -94,6 +215,7 @@ MUTANTS = {
     "paged_page_off_by_one": (THREE, [("table[t / pg.page_size]);",
                                        "table[min(t / pg.page_size + 1, pg.pages_per_seq - 1)]);")],
                               ("paged_prefill_tc_f32/", "")),
+    **_BWD_MUTANTS,
 }
 
 
@@ -113,14 +235,15 @@ def make_copy(dest: str, source: str, edits) -> None:
 
 
 def run_checks(root: str) -> dict:
-    """In this process: chip_smoke's float32-form checks, untimed, and its
-    float32 paged-prefill poison checks on the copy at ``root``."""
+    """In this process: chip_smoke's float32-form checks, untimed, its
+    float32 paged-prefill poison checks and its float32 training checks on
+    the copy at ``root``."""
     sys.path.insert(0, root)
     import torch
 
     import chip_smoke as cs
     import flashattention_tpu_torch as fa
-    from flashattention_tpu_torch.ops import decode, flash, probes
+    from flashattention_tpu_torch.ops import backward, decode, flash, probes
     from flashattention_tpu_torch.utils import benchit
 
     if not os.path.abspath(flash.__file__).startswith(root + os.sep):
@@ -131,9 +254,11 @@ def run_checks(root: str) -> dict:
     cs.f32_form_checks(fa, flash, probes, benchit, gen, torch.cuda.get_device_name(0), report,
                        timed=False)
     cs.prefill_poison_check(decode, gen, report, dtypes=("float32",))
-    return {c["check"]: {k: c.get(k) for k in ("ok", "rel_err", "exact_rel_err", "max_abs_err",
-                                               "plain_err", "bitwise_equal")}
-            for c in report["checks"]}
+    cs.f32_train_checks(backward, flash, gen, report)
+    keys = ("ok", "rel_err", "exact_rel_err", "max_abs_err", "plain_err", "bitwise_equal",
+            "launched_its_form", "fwd_keep_equal", "bwd_keep_equal", "dk_dv_bitwise",
+            "dq_max_abs_err")
+    return {c["check"]: {k: c[k] for k in keys if c.get(k) is not None} for c in report["checks"]}
 
 
 def main() -> int:
@@ -152,14 +277,22 @@ def main() -> int:
         roots = {m: os.path.join(tmp, m) for m in names}
         for m in names:
             make_copy(roots[m], *MUTANTS[m][:2])
-        builds = {
-            m: subprocess.Popen([sys.executable, "-c", (
+
+        def build(ms):
+            procs = [subprocess.Popen([sys.executable, "-c", (
                 "import sys; sys.path.insert(0, sys.argv[1]); "
                 "from flashattention_tpu_torch.ops import kernels; "
-                "kernels.build_all(sys.argv[2:])"), roots[m], *LIBRARIES])
-            for m in names
-        }
-        if any(p.wait() != 0 for p in builds.values()):
+                "kernels.build_all(sys.argv[2:])"), roots[m], *LIBRARIES]) for m in ms]
+            return all(p.wait() == 0 for p in procs)
+
+        # The unmutated copy's libraries first: the others start from them
+        # (a library's file name hashes its sources), so each rebuilds only
+        # what its edit changes.
+        built = build(["unmutated"])
+        unmutated_build = os.path.join(roots["unmutated"], "build", "torch_kernels")
+        for m in names[1:]:
+            shutil.copytree(unmutated_build, os.path.join(roots[m], "build", "torch_kernels"))
+        if not (built and build(names[1:])):
             print("f32_mutants: a build failed", file=sys.stderr)
             return 1
         results, ok = {}, True

@@ -142,8 +142,8 @@ MUTANTS = {
         "flash_fwd_tc.cuh", "const int ctx = pg.ctx_lens[blockIdx.z];",
         "const int ctx = pg.ctx_lens[(blockIdx.z + 1) % gridDim.z];")]),
     "dk_dv_swapped/d256": (BWD, [(
-        "flash_bwd_tc.cu", "__nv_bfloat16* out = p_side ? dv : dk;",
-        "__nv_bfloat16* out = p_side ? dk : dv;")]),
+        "flash_bwd_tc.cu", "OutT<kTerms>* out = p_side ? dv : dk;",
+        "OutT<kTerms>* out = p_side ? dk : dv;")]),
     "y_read_before_barrier/d256": (BWD, [(
         "flash_bwd_tc.cu",
         "      tc::named_sync(1, 256);  // Y^T written\n      float y[kBlockM / 2];\n"
