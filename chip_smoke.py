@@ -172,11 +172,23 @@ Phases, each of which must pass (any failure exits non-zero):
                the plain version's; both timed at the training layer (B =
                2, rate 0.1 for the forward) beside the scalar kernels,
                SDPA float32 and their bound (``bwd_checks``,
-               ``dropout_checks``), and the scalar pair in float32 at the
-               packed layer beside SDPA float32's masked backward;
-               ``f32_mutants.py`` shows that these fail a backward missing
-               one of the three products of any of its five matmuls, dO's
-               lo term, or with Z's dropout bits on dS;
+               ``dropout_checks``); ``f32_mutants.py`` shows that these
+               fail a backward missing one of the three products of any of
+               its five matmuls, dO's lo term, or with Z's dropout bits on
+               dS;
+               ``pair_f32_checks``: the two-pass pair's float32 forms
+               (``flash_bwd_dq_tc_f32``, ``flash_bwd_dkv_tc_f32``: three
+               products a matmul at d = 128, four at d = 64 as the JAX
+               pair's lane-packed products, "bf16_3x" and "bf16") against
+               the plain pair over packed documents, the GQA fold, kv_len /
+               q_offset, fused=False, a window with a softcap (q x 8) and
+               dropout, on the norm too, dQ bitwise from run to run, NaN
+               past kv_len and behind a ragged S, the keep bits; both timed
+               at the packed layer (B = 2; with dropout at rate 0.1) beside
+               the scalar pair and SDPA float32's masked backward;
+               ``f32_mutants.py`` shows that these fail a pass missing one
+               of its products (lo lo at d = 64 among them), dO's lo term
+               or a live tile;
    attention_block_mask - ``attention(block_mask=, dropout_rate=0.1)``
                under autograd at that layer, bf16, the launches counted: one
                of each tensor-core form (forward, dQ, dK/dV), none scalar;
@@ -363,8 +375,10 @@ scalar 8-bit form must launch in the kernel checks (its ``quantized``
 entry's ``check_launches``).  Float32 q over 8-bit K/V and pages is timed
 at rows 1, 2 and 4 (``f32q_timings``, its own lap).  The float32 train_parity phases' card launches are
 counted as paths too: at d = 64 and 128 float32 training runs the forward's
-float32 form (its dropout form with dropout) and the fused backward's
-float32 form, and no scalar fused backward (``_f32_form_launched``).  It prints one JSON line per check, the
+float32 form (its dropout form with dropout), the fused backward's float32
+form and the pair's, and no scalar fused backward or pair
+(``_f32_form_launched``); the scalar pair's dropout form, which then
+launches on no path, must launch in the dropout checks.  It prints one JSON line per check, the
 total seconds, a ``{"kernels": [...]}`` summary (with a ``quantized`` entry
 for each serving kernel's 8-bit form, ``dropout`` entries for flash_fwd and
 the backward kernels, ``block_mask`` entries for the tensor-core forms of
@@ -472,7 +486,13 @@ KERNELS = (
     # (flash_fwd_tc.cu with -DFA_F32 -DFA_EXTRA).
     ("flash_bwd_tc_f32", "flash_bwd_tc.cu", "ops/backward.py:401"),
     ("flash_fwd_tc_f32_extra", "flash_fwd_tc.cu", "ops/flash.py:628"),
+    # Float32 packed training's: the pair over bf16 terms (its dQ pass with
+    # -DFA_F32, its dK/dV pass the fused source with -DFA_PAIR -DFA_F32; their
+    # dropout forms with -DFA_EXTRA too).
+    ("flash_bwd_dq_tc_f32", "flash_bwd_dq_tc.cu", "ops/backward.py:146"),
+    ("flash_bwd_dkv_tc_f32", "flash_bwd_tc.cu", "ops/backward.py:269"),
 )
+PAIR_F32 = {k: f"{k}_tc_f32" for k in ("flash_bwd_dq", "flash_bwd_dkv")}
 TC_KERNELS = {"flash_fwd": "flash_fwd_tc", "flash_bwd": "flash_bwd_tc",
               "paged_prefill": "paged_prefill_tc", "flash_bwd_dq": "flash_bwd_dq_tc",
               "flash_bwd_dkv": "flash_bwd_dkv_tc", "paged_decode": "paged_decode_tc"}
@@ -549,17 +569,20 @@ def _ptxas(log):
                 *args, kv, terms = args
                 args += {"1": ["int8"], "2": ["fp8"]}.get(kv, [])
                 args += {"0": [], "1": ["f32_1_term"]}.get(terms, [f"f32_{terms}_products"])
-            if name in ("flash_bwd_tc_kernel", "flash_bwd_tc_wide_kernel"):  # its last int: terms
+            if name in ("flash_bwd_tc_kernel", "flash_bwd_tc_wide_kernel",
+                        "flash_bwd_dq_tc_kernel"):  # its last int: terms
                 *args, terms = args
                 args += {"0": [], "1": ["f32_1_term"]}.get(terms, [f"f32_{terms}_terms"])
             out.append({"kernel": f"{name}<{','.join(args)}>"})
+        elif "Compiling entry function" in ln:  # a kernel not reported (the split pass)
+            out.append({"kernel": None})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", ln)
         if m and out:
             out[-1].update(registers=int(m.group(1)), spill_stores=spills[0], spill_loads=spills[1])
-    return out
+    return [x for x in out if x["kernel"]]
 
 
 def phase_build(kernels, report):
@@ -636,7 +659,8 @@ def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dr
     "bf16_3x" at d = 256, else ``flash_fwd_tc_f32``; with dropout its
     dropout form ``flash_fwd_tc_f32_extra``), chunked prefill's over float32
     pools (``paged_prefill_tc_f32``), the fused backward's over float32
-    (``flash_bwd_tc_f32``), else ``kernel``.  Float32 q over 8-bit K/V is taken in bf16 (the JAX
+    (``flash_bwd_tc_f32``) and the pair's (``flash_bwd_dq_tc_f32``,
+    ``flash_bwd_dkv_tc_f32``), else ``kernel``.  Float32 q over 8-bit K/V is taken in bf16 (the JAX
     kernels' default), so its form is the bf16 call's.
     A check of an 8-bit form is named ``<kernel>/quant/...``
     (``_check_name``), so the tensor-core 8-bit forms' checks read
@@ -651,7 +675,7 @@ def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dr
                                     block_mask=block_mask, page_size=page_size, rows=rows,
                                     dropout=dropout, precision=precision)
     if form == "tc_f32":
-        if kernel in ("paged_prefill", "flash_bwd"):
+        if kernel in ("paged_prefill", "flash_bwd", *PAIR):
             return f"{kernel}_tc_f32"
         if dropout:
             return "flash_fwd_tc_f32_extra"
@@ -2042,7 +2066,9 @@ def _counters(flash, decode, backward):
     dropout form; ``paged_prefill_tc_f32`` chunked prefill's float32 form's
     (``paged_prefill`` counts them too); ``flash_bwd_tc_f32`` the fused
     backward's float32 form's (``flash_bwd`` counts them too), with dropout
-    among them ``flash_bwd_tc_f32_dropout``."""
+    among them ``flash_bwd_tc_f32_dropout``, and ``flash_bwd_dq_tc_f32`` /
+    ``flash_bwd_dkv_tc_f32`` (``..._dropout``) the pair's (``flash_bwd_dq`` /
+    ``flash_bwd_dkv`` count them too)."""
     fns = {
         "flash_fwd": flash.flash_attention,
         "paged_decode": decode.paged_attention,
@@ -2072,6 +2098,9 @@ def _counters(flash, decode, backward):
     out["paged_prefill_tc_f32"] = (decode.paged_prefill_attention_batched, "launches_tc_f32")
     out["flash_bwd_tc_f32"] = (backward.fused_bwd_kernel, "launches_tc_f32")
     out["flash_bwd_tc_f32_dropout"] = (backward.fused_bwd_kernel, "launches_tc_f32_dropout")
+    for k, f32 in PAIR_F32.items():
+        out[f32] = (fns[k], "launches_tc_f32")
+        out[f"{f32}_dropout"] = (fns[k], "launches_tc_f32_dropout")
     return out
 
 
@@ -3331,22 +3360,25 @@ def _bwd_case(backward, flash, q, k, v, do, kw, segs):
     ins = (q, k, v, o, lse, do)
     fp32 = [x.float() for x in ins]
 
-    def plain_of(form):
-        return lambda: backward.flash_attention_bwd_plain(*fp32, form=form, **kw, **segs)
+    def plain_of(form, fused):
+        return lambda: backward.flash_attention_bwd_plain(*fp32, form=form, fused=fused, **kw,
+                                                          **segs)
 
     pair = backward.bwd_form(q, False, kw.get("block_mask") is not None)
-    plain = plain_of(pair)
+    plain = plain_of(pair, False)
     wants = {"two_pass": plain()}
     runs = {"two_pass": backward.flash_attention_bwd(*ins, fused=False, **kw, **segs)}
     if pair != "scalar":
-        wants["two_pass_scalar"] = plain_of("scalar")()
+        wants["two_pass_scalar"] = plain_of("scalar", False)()
         with flash.scalar_forms():
             runs["two_pass_scalar"] = backward.flash_attention_bwd(*ins, fused=False, **kw, **segs)
     if not segs and kw.get("block_mask") is None:
         runs["fused"] = backward.flash_attention_bwd(*ins, fused=True, **kw)
         form = backward.bwd_form(q, True)
-        plain = plain_of(form)
-        wants["fused"] = wants["two_pass"] if form == pair else plain()
+        plain = plain_of(form, True)
+        # (the pair's float32 form takes four products at d = 64, the fused three)
+        same = form == pair and not (form == "tc_f32" and q.shape[-1] == 64)
+        wants["fused"] = wants["two_pass"] if same else plain()
     torch.cuda.synchronize()
     return ins, plain, wants, runs
 
@@ -3371,7 +3403,8 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
     two-pass kernel, both forms, on the packed layer; and in float32 at B =
     2: the fused backward's float32 form (its "bf16" mode too) beside the
     scalar kernel (``report["float32_timed"]["flash_bwd"]``) on the plain
-    layer, the scalar pair on the packed layer."""
+    layer, the pair's float32 forms (their "bf16" mode too) beside the
+    scalar pair on the packed layer."""
     mains, yardsticks = {}, {}
     _, seg_np = _packed_ids(packing, args.seed + 5, TRAIN_B, TRAIN_S)
     packed = torch.tensor(seg_np, device="cuda")
@@ -3455,15 +3488,30 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
             mains[fused] = rec
             report.setdefault("float32_timed", {})["flash_bwd"] = twin
         if (name, dt) == ("packed_layer_b2", "float32"):
-            # Rows 6-7 in float32 (the scalar pair, float32 packed training's
-            # form) beside SDPA float32's backward under the boolean mask.
+            # Rows 6-7 in float32: the pair's float32 forms (float32 packed
+            # training's) in "bf16_3x" and their "bf16" mode, beside the
+            # scalar pair (exact float32, its own check, timed: the scalar
+            # rows) and SDPA float32's backward under the boolean mask.
             yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
-            for k in PAIR:
-                recs[k].update(_time_bwd(backward, flash, benchit, card, k, ins, kw, segs, c, yard,
-                                         dt))
+            q_, k_, v_, o_, lse_, do_ = ins
+            di_ = (o_.float() * do_.float()).sum(dim=-1)
+            for k, f32 in PAIR_F32.items():
+                rec = recs[f32]
+                rec.update(_time_bwd(backward, flash, benchit, card, f32, ins, kw, segs, c, yard,
+                                     dt))
+                fn = backward.dq_kernel if k == "flash_bwd_dq" else backward.dkv_kernel
+                rec["bf16_mode_ms"] = benchit.cuda_time_ms(
+                    lambda: fn(q_, k_, v_, do_, lse_, di_, precision="bf16", **kw, **segs),
+                    warmup=1, iters=5)
+                with flash.scalar_forms():
+                    recs[k].update(_time_bwd(backward, flash, benchit, card, k, ins, kw, segs, c,
+                                             yard, dt))
+                recs[k]["form"] = "exact float32 (the scalar pair, ops.flash.scalar_forms)"
+                rec["scalar_ms"] = recs[k]["kernel_ms"]
+                mains[f32] = rec
                 report.setdefault("float32_timed", {})[k] = recs[k]
         dq_tc = _kname("flash_bwd_dq", q)
-        if dq_tc != "flash_bwd_dq" and "seg" in c and dt == "bfloat16":
+        if dq_tc != "flash_bwd_dq" and "seg" in c:
             # The pair's dQ takes no atomics: two launches give the same bits.
             q_, k_, v_, o_, lse_, do_ = ins
             di_ = (o_.float() * do_.float()).sum(dim=-1)
@@ -3659,12 +3707,13 @@ def _bwd_yardsticks(benchit, ins, kw, c, plain, dropout_p=0.0):
 
 def _time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, yardsticks, dt):
     """One backward kernel's time beside its case's ``_bwd_yardsticks``,
-    and its bound from this case's live pairs (the fused backward's float32
-    form, ``flash_bwd_tc_f32``: its bf16 products in the default "bf16_3x",
-    15 of 2 d flops a live pair, over the bf16 peak)."""
+    and its bound from this case's live pairs (the float32 forms, ``*_tc_f32``:
+    their bf16 products in the default "bf16_3x", 2 d flops each over the
+    bf16 peak: the fused backward's 15 a live pair, the pair's dQ pass 9 and
+    dK/dV pass 12 at d = 128, 12 and 16 at d = 64)."""
     q, k, v, o, lse, do = ins
     di = (o.float() * do.float()).sum(dim=-1)
-    f32_form = kname == "flash_bwd_tc_f32"
+    f32_form = kname.endswith("_tc_f32")
     # The form that runs is the caller's choice.
     kname = kname.removesuffix("_tc_f32").removesuffix("_tc")
     if kname == "flash_bwd":
@@ -3681,8 +3730,12 @@ def _time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c, yardstick
     nbytes = sum(t.numel() * t.element_size() for t in reads + writes)
     out["live_pairs"] = pairs
     if f32_form:
-        per_pair, dt = 30, "bfloat16"
-        out["products"] = "15 bf16 products of 2 d flops a live pair (bf16_3x)"
+        per_matmul = 4 if kname != "flash_bwd" and c["d"] == 64 else 3
+        n = per_pair // 2 * per_matmul  # per_pair: 2 d flops a matmul
+        per_pair, dt = 2 * n, "bfloat16"
+        out["products"] = f"{n} bf16 products of 2 d flops a live pair (bf16_3x)"
+        # beside the bound: the split pass's float32 reads and bf16 [hi | lo] writes
+        out["split_pass_bytes"] = sum(8 * t.numel() for t in (q, k, v, do))
     out.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=per_pair * c["d"] * pairs, dtype=dt))
     return out
 
@@ -3769,6 +3822,9 @@ def dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, repor
             # The float32 forms' dropout forms at the training layer (rows 1
             # and 5), each beside the scalar kernel's (its own check, timed).
             timing32 = timed and (name, dt, rate) == ("train_layer_b2", "float32", 0.1)
+            # The pair's float32 dropout forms at the packed layer (rows 6-7),
+            # each beside the scalar pair's.
+            timing32p = timed and (name, dt, rate) == ("packed_layer_b2", "float32", 0.1)
             if "seg" not in c:
                 rec, fwd_plain = _fwd_rec(f"{_kname('flash_fwd', q, dropout=True)}/dropout/"
                                           f"{name}/{rate}/{dt}",
@@ -3790,7 +3846,7 @@ def dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, repor
                 report["checks"].append(rec)
             ins, plain, wants, runs = _bwd_case(backward, flash, q, k, v, do, kw, segs)
             fused = _kname("flash_bwd", q)
-            yard = None
+            yard = yard32p = None
             recs = {}
             for kname, (gots, wants_k) in _bwd_got(q, kw, runs, wants).items():
                 rec = _bwd_rec(f"{kname}/dropout/{name}/{rate}/{dt}", gots, wants_k, dt,
@@ -3815,6 +3871,19 @@ def dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, repor
                     recs["flash_bwd"] = twin
                     mains["flash_bwd_tc_f32/dropout"] = rec
                     report.setdefault("float32_timed", {})["flash_bwd/dropout"] = twin
+                if timing32p and kname in PAIR_F32.values():
+                    if yard32p is None:
+                        yard32p = _bwd_yardsticks(benchit, ins, kw, c, plain, dropout_p=rate)
+                    rec.update(_time_bwd(backward, flash, benchit, card, kname, ins, kw, segs, c,
+                                         yard32p, dt))
+                    rec["no_dropout_ms"] = _time_bwd(backward, flash, benchit, card, kname, ins,
+                                                     _no_dropout(kw), segs, c, yard32p,
+                                                     dt)["kernel_ms"]
+                    with flash.scalar_forms():
+                        rec["scalar_ms"] = _time_bwd(backward, flash, benchit, card,
+                                                     kname.removesuffix("_tc_f32"), ins, kw, segs,
+                                                     c, yard32p, dt)["kernel_ms"]
+                    mains[kname] = rec
                 if timing and (kname == fused) == (name == "train_layer"):
                     if yard is None:
                         yard = _bwd_yardsticks(benchit, ins, kw, c, plain, dropout_p=rate)
@@ -4117,6 +4186,216 @@ def f32_train_checks(backward, flash, gen, report):
             del q, k, v, do
         recs += _f32_train_poison(flash, backward, gen, d, mode)
         recs.append(_f32_keep_bits(flash, backward, gen, d, mode))
+    for rec in recs:
+        emit(rec)
+        report["checks"].append(rec)
+    torch.cuda.empty_cache()
+    return recs
+
+
+# The two-pass pair's float32 forms (flash_bwd_dq_tc_f32, flash_bwd_dkv_tc_f32;
+# their dropout forms built into *_extra), in the JAX modes "bf16_3x" and
+# "bf16" at d = 64 and 128, over PAIR_F32_CASES: packed documents (id
+# ranges of neighbouring 64-row tiles meet at a document's boundary), the
+# same with the GQA fold, kv_len / q_offset and a full ragged S with
+# fused=False, a window with a softcap and q x 8 over documents, and dropout
+# over documents.  Each through flash_attention_bwd(fused=False) against the
+# plain pair in the same mode (four products a matmul at d = 64, three at d
+# = 128) within BWD_TOL (float32, gradients below 4), each call launching
+# both forms once and no scalar pair.  On such inputs the lo lo products
+# move a gradient by about 5e-6 of its norm, under BWD_TOL and about twice
+# the kernel's distance from its plain version (the exp of the kernel's
+# rounded log2 argument against the plain version's exp: both recorded,
+# ``norm_rel_err`` and ``other_count_norm_rel_err``, the distance to the
+# plain pair with the other product count).  So the product count is held
+# on ``probes.lolo_term_f32_qkvdo``'s inputs (case "lolo_terms"), on which
+# lo lo moves S and dP by exact multiples of their float32 step and each
+# gradient by 2.5e-3 to 5e-2 of its norm: there each gradient within
+# PAIR_F32_LOLO_TOL of the plain pair's in ||got - want|| / ||want||.  dQ twice on its own gives the same bits, and dK/dV on its own
+# (its own split pass) flash_attention_bwd's.  Then NaN in K/V rows past
+# kv_len and in every row of the next heads behind a ragged S (the first
+# head's dQ, dK and dV bitwise the clean inputs'), and the keep bits: with V
+# and dO the identity dV^T's zeros are exactly the dropped pairs.
+PAIR_F32_LOLO_TOL = 1e-4
+PAIR_F32_DOCS = (300, 150, 250, 90, 210)  # 1000 tokens, cut to S
+# (BH, G, S_q, S_kv, segment ids, kwargs): folded q (BH, G S_q, d) against (BH, S_kv, d)
+PAIR_F32_CASES = {
+    "segments": (4, 1, 1000, 1000, True, dict(causal=True)),
+    "segments_gqa": (4, 2, 1000, 1000, True, dict(causal=True)),
+    "kv_len_q_offset": (4, 1, 128, 300, False, dict(causal=True, kv_len=250, q_offset=122)),
+    "full_ragged": (4, 1, 300, 300, False, dict(causal=False)),
+    "window_softcap_q8_segments": (4, 2, 1000, 1000, True,
+                                   dict(causal=True, window=300, logit_softcap=30.0, q_mult=8.0)),
+    "dropout_segments": (4, 2, 1000, 1000, True, dict(causal=True, dropout_rate=0.1)),
+    "lolo_terms": (4, 1, 256, 256, False, dict(causal=True, scale=1.0)),
+}
+
+
+def _doc_ids(s):
+    """Segment ids of ``s`` tokens packed from PAIR_F32_DOCS, on the card."""
+    n = torch.tensor(PAIR_F32_DOCS, device="cuda")
+    return torch.repeat_interleave(torch.arange(len(PAIR_F32_DOCS), device="cuda"),
+                                   n)[:s].to(torch.int32)
+
+
+def _pair_f32_inputs(probes, gen, d, case):
+    """q, k, v, dO (float32, on the card), the folded segment ids (or none)
+    and the keywords of one PAIR_F32_CASES case at head_dim d."""
+    bh, g, s_q, s_kv, segments, kw = PAIR_F32_CASES[case]
+    if case == "lolo_terms":
+        return (*probes.lolo_term_f32_qkvdo(bh, s_q, d, generator=gen, device="cuda"), {},
+                dict(kw))
+    kw = dict(dict(scale=d**-0.5), **kw)
+    mult = kw.pop("q_mult", 1.0)
+    q = mult * torch.randn((bh, g * s_q, d), generator=gen, device="cuda")
+    k, v = (torch.randn((bh, s_kv, d), generator=gen, device="cuda") for _ in range(2))
+    do = (0.25 / mult) * torch.randn(q.shape, generator=gen, device="cuda")
+    if g > 1:
+        kw["q_seq_len"] = s_q
+    if "dropout_rate" in kw:
+        kw["dropout_seed"] = DROPOUT_SEED
+    segs = {}
+    if segments:
+        ids = _doc_ids(s_q)
+        segs = dict(q_segment_ids=ids.repeat(bh, g), kv_segment_ids=ids.repeat(bh, 1))
+    return q, k, v, do, segs, kw
+
+
+def _pair_f32_counts(backward):
+    return tuple(getattr(fn, a) for fn in (backward.dq_kernel, backward.dkv_kernel)
+                 for a in ("launches", "launches_tc_f32", "launches_tc_f32_dropout"))
+
+
+def _norm_rel(got, want) -> float:
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm())
+
+
+@contextlib.contextmanager
+def _other_product_count(backward, d):
+    """The plain pair with the other product count: three at d = 64, four
+    at d = 128 (``ops.backward._dot3`` / ``_dot4``)."""
+    saved = backward._dot3, backward._dot4
+    backward._dot3 = backward._dot4 = saved[0] if d == 64 else saved[1]
+    try:
+        yield
+    finally:
+        backward._dot3, backward._dot4 = saved
+
+
+def _pair_f32_hold(flash, backward, q, k, v, do, segs, kw, mode, check):
+    """One case's records, dQ's and dK/dV's, against the plain pair in
+    ``mode``; with segment ids, dQ twice on its own and dK/dV on its own."""
+    d = q.shape[-1]
+    o, l, m = flash.flash_attention(q, k, v, save_residuals=True, precision=mode, **kw, **segs)
+    lse = m + torch.log(torch.where(l == 0, 1.0, l))
+    n0 = _pair_f32_counts(backward)
+    got = backward.flash_attention_bwd(q, k, v, o, lse, do, fused=False, precision=mode, **kw,
+                                       **segs)
+    n1 = _pair_f32_counts(backward)
+    plain = dict(fused=False, precision=mode, **kw, **segs)
+    want = backward.flash_attention_bwd_plain(q, k, v, o, lse, do, **plain)
+    with _other_product_count(backward, d):
+        other = backward.flash_attention_bwd_plain(q, k, v, o, lse, do, **plain)
+    drop = int("dropout_rate" in kw)
+    launched = [b - a for a, b in zip(n0, n1)] == [1, 1, drop] * 2
+    recs = []
+    for kname, part in zip(PAIR_F32.values(), (slice(0, 1), slice(1, 3))):
+        g_, w_, o_ = got[part], want[part], other[part]
+        rec = _bwd_rec(f"{kname}/{check}", g_, w_, "float32",
+                       grad_absmax=[float(w.abs().max()) for w in w_], launched_its_form=launched,
+                       norm_rel_err=max(_norm_rel(a, b) for a, b in zip(g_, w_)),
+                       other_count_norm_rel_err=min(_norm_rel(a, b) for a, b in zip(g_, o_)))
+        rec["ok"] = rec["ok"] and launched and all(x.dtype == torch.float32 for x in g_)
+        if check.startswith("lolo_terms/") and mode == "bf16_3x":
+            rec["norm_tol"] = PAIR_F32_LOLO_TOL
+            rec["ok"] = rec["ok"] and rec["norm_rel_err"] <= PAIR_F32_LOLO_TOL
+        recs.append(rec)
+    if segs:
+        di = (o * do).sum(dim=-1)
+        dq2 = [backward.dq_kernel(q, k, v, do, lse, di, precision=mode, **kw, **segs)
+               for _ in range(2)]
+        dkv = backward.dkv_kernel(q, k, v, do, lse, di, precision=mode, **kw, **segs)
+        recs[0]["deterministic"] = bool(torch.equal(dq2[0], dq2[1]) and torch.equal(dq2[0], got[0]))
+        recs[1]["alone_bitwise"] = bool(torch.equal(dkv[0], got[1]) and torch.equal(dkv[1], got[2]))
+        recs[0]["ok"] = recs[0]["ok"] and recs[0]["deterministic"]
+        recs[1]["ok"] = recs[1]["ok"] and recs[1]["alone_bitwise"]
+    return recs
+
+
+def _pair_f32_poison(flash, backward, gen, d, mode):
+    """NaN past kv_len, and in the next heads behind a ragged S with
+    segment ids: the first head's dQ, dK and dV bitwise the clean inputs'."""
+    recs = []
+    for past in ("kv_len", "s"):
+        if past == "kv_len":
+            q, k, v, do, segs, kw = _pair_f32_inputs(None, gen, d, "kv_len_q_offset")
+        else:
+            q, k, v, do = (torch.randn((4, 200, d), generator=gen, device="cuda") for _ in range(4))
+            do *= 0.25
+            ids = _doc_ids(200)
+            segs = dict(q_segment_ids=ids.repeat(4, 1), kv_segment_ids=ids.repeat(4, 1))
+            kw = dict(causal=False, scale=d**-0.5)
+        kw.update(dropout_rate=0.1, dropout_seed=DROPOUT_SEED)
+        outs = []
+        for poison in (False, True):
+            qp, kp, vp, dop = (x.clone() for x in (q, k, v, do))
+            if poison:
+                if past == "kv_len":
+                    kp[:, kw["kv_len"]:] = float("nan")
+                    vp[:, kw["kv_len"]:] = float("nan")
+                for x in (qp, kp, vp, dop):
+                    x[1:] = float("nan")
+            o, l, m = flash.flash_attention(qp, kp, vp, save_residuals=True, precision=mode,
+                                            **kw, **segs)
+            lse = m + torch.log(torch.where(l == 0, 1.0, l))
+            outs.append(backward.flash_attention_bwd(qp, kp, vp, o, lse, dop, fused=False,
+                                                     precision=mode, **kw, **segs))
+        torch.cuda.synchronize()
+        (dq0, dk0, dv0), (dq1, dk1, dv1) = outs
+        for kname, same in zip(PAIR_F32.values(), (
+                torch.equal(dq1[0], dq0[0]),
+                torch.equal(dk1[0], dk0[0]) and torch.equal(dv1[0], dv0[0]))):
+            recs.append({"check": f"{kname}/nan_poison/past_{past}/d{d}/{mode}",
+                         "first_head_bitwise": bool(same), "ok": bool(same)})
+    return recs
+
+
+def _pair_f32_keep_bits(flash, backward, gen, d, mode):
+    """With V and dO the identity (S_q = S_kv = d, no mask) the pair's dV[j,
+    i] is Z's (i, j): its zeros must be exactly the plain version's
+    dropped pairs."""
+    bh, rate = 4, 0.5
+    q, k = (torch.randn((bh, d, d), generator=gen, device="cuda") for _ in range(2))
+    eye = torch.eye(d, device="cuda").expand(bh, d, d).contiguous()
+    kw = dict(causal=False, scale=d**-0.5, dropout_rate=rate, dropout_seed=DROPOUT_SEED)
+    o, l, m = flash.flash_attention(q, k, eye, save_residuals=True, precision=mode, **kw)
+    _, _, dv = backward.flash_attention_bwd(q, k, eye, o, m + torch.log(l), eye, fused=False,
+                                            precision=mode, **kw)
+    keep = flash.dense_keep(DROPOUT_SEED, rate, range(bh), d, d, d, None, "cuda")
+    torch.cuda.synchronize()
+    rec = {"check": f"flash_bwd_dkv_tc_f32/keep_bits/d{d}/{mode}",
+           "dropped": int((~keep).sum()), "pairs": keep.numel(),
+           "bwd_keep_equal": bool(torch.equal(dv.transpose(1, 2) != 0, keep))}
+    rec["ok"] = rec["bwd_keep_equal"] and 0 < rec["dropped"] < rec["pairs"]
+    return rec
+
+
+def pair_f32_checks(backward, flash, probes, gen, report):
+    """The pair's float32 forms at d = 64 and 128 in both modes (see above),
+    untimed (their timed rows: bwd_checks' and dropout_checks' packed layer
+    at B = 2); ``torch_tools/f32_mutants.py`` shows that these checks fail
+    a pass missing one of its products (lo lo at d = 64 among them), dO's
+    lo term or a live tile."""
+    recs = []
+    for d, mode in itertools.product((64, 128), F32_TRAIN_MODES):
+        for case in PAIR_F32_CASES:
+            q, k, v, do, segs, kw = _pair_f32_inputs(probes, gen, d, case)
+            recs += _pair_f32_hold(flash, backward, q, k, v, do, segs, kw, mode,
+                                   f"{case}/d{d}/{mode}")
+            del q, k, v, do
+        recs += _pair_f32_poison(flash, backward, gen, d, mode)
+        recs.append(_pair_f32_keep_bits(flash, backward, gen, d, mode))
     for rec in recs:
         emit(rec)
         report["checks"].append(rec)
@@ -5093,7 +5372,7 @@ def phase_checkpoint(args, transformer, quant, train, engine_mod, kvcache, repor
     return rec
 
 
-def _f32_form_launched(launches, cfg):
+def _f32_form_launched(launches, cfg, pair=False):
     """A float32 phase's launches took their forms, in the default
     "bf16_3x": at the forward's float32 head_dims every forward launch but
     those with a block mask, and with dropout, in the float32 form (at d =
@@ -5101,7 +5380,9 @@ def _f32_form_launched(launches, cfg):
     kernel's; at d = 64 / 128 the dropout ones all in its dropout form);
     at d = 64 / 128 every fused backward launch (at least one) in its
     float32 form, the dropout ones in its dropout form, and no scalar fused
-    backward; elsewhere neither form."""
+    backward, and every launch of the pair (with ``pair``, a phase that
+    trains packed rows: at least one) in its float32 forms, the dropout ones
+    in their dropout forms, and no scalar pair; elsewhere none of them."""
     from flashattention_tpu_torch.ops import flash
 
     n, n_bwd = launches["flash_fwd_tc_f32"], launches["flash_bwd_tc_f32"]
@@ -5109,6 +5390,13 @@ def _f32_form_launched(launches, cfg):
     bwd_ok = (n_bwd == launches["flash_bwd"] > 0
               and launches["flash_bwd_tc_f32_dropout"] == launches["flash_bwd_dropout"]
               if flash.kernel_form("flash_bwd", f32, cfg.head_dim) == "tc_f32" else n_bwd == 0)
+    if flash.kernel_form("flash_bwd_dq", f32, cfg.head_dim) == "tc_f32":
+        bwd_ok = bwd_ok and all(
+            launches[f32k] == launches[k] >= int(pair)
+            and launches[f"{f32k}_dropout"] == launches[f"{k}_dropout"]
+            for k, f32k in PAIR_F32.items())
+    else:
+        bwd_ok = bwd_ok and not any(launches[f32k] for f32k in PAIR_F32.values())
     if flash.kernel_form("flash_fwd", f32, cfg.head_dim) != "tc_f32":
         return n == 0 and bwd_ok
     dropout_form = flash.kernel_form("flash_fwd", f32, cfg.head_dim, dropout=True) == "tc_f32"
@@ -5132,9 +5420,9 @@ def phase_train_parity(args, transformer, train, packing, counters, report, *,
     plain version's.  The card's launches over the phase are its record's
     (float32 training, in the default "bf16_3x": the forward's float32 form
     at its head_dims, with dropout its dropout form at d = 64 / 128, the
-    fused backward's float32 form at d = 64 / 128, the scalar kernels
-    elsewhere and for the two-pass pair; the CPU runs launch nothing;
-    ``_f32_form_launched``)."""
+    fused backward's and the pair's float32 forms at d = 64 / 128 (the
+    pair at least once: the packed steps), the scalar kernels elsewhere;
+    the CPU runs launch nothing; ``_f32_form_launched``)."""
     if cfg is None:
         cfg = _train_cfg(transformer, "float32")
         base = transformer.init_params(args.seed, cfg, device="cpu")
@@ -5200,7 +5488,7 @@ def phase_train_parity(args, transformer, train, packing, counters, report, *,
                    "grad_rel": TRAIN_GRAD_RTOL},
            "seconds": time.perf_counter() - t0,
            "launches": {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}}
-    rec["f32_form_ok"] = _f32_form_launched(rec["launches"], cfg)
+    rec["f32_form_ok"] = _f32_form_launched(rec["launches"], cfg, pair=True)
     rec["ok"] = all(c["ok"] for c in cases) and rec["f32_form_ok"]
     emit(rec)
     report[phase] = rec
@@ -5232,11 +5520,11 @@ def _launch_sum(rec):
     return total
 
 
-def _extra_entry(rec, paths, counter, keys, less=None):
+def _extra_entry(rec, paths, counter, keys, less=()):
     """A kernel summary's entry for one of its forms: the form's timed check
     and its launches, by path, from the counter ``counter`` (less those of
-    the counter ``less``, a form counted within it)."""
-    by_path = {p: n.get(counter, 0) - n.get(less, 0) for p, n in paths.items()}
+    the counters ``less``, forms counted within it)."""
+    by_path = {p: n.get(counter, 0) - sum(n.get(x, 0) for x in less) for p, n in paths.items()}
     by_path = {p: x for p, x in by_path.items() if x}
     return {**{k: rec[k] for k in keys}, "ms": rec["kernel_ms"],
             "launches": sum(by_path.values()), "launches_by_path": by_path}
@@ -6272,6 +6560,8 @@ def main() -> int:
     lap("f32_form_checks")
     f32_train_checks(backward, flash, gen, report)
     lap("f32_train_checks")
+    pair_f32_checks(backward, flash, probes, gen, report)
+    lap("pair_f32_checks")
     # {None, "int8", "fp8"}: {"llama": timed draft-form check, "gemma2": ...}
     drafts = {form: draft_checks(decode, benchit, gen, name, report, form)
               for form in (None, *QUANT_FORMS)}
@@ -6290,7 +6580,10 @@ def main() -> int:
     bwd_windowed = bwd_window_checks(backward, flash, benchit, gen, name, report)
     lap("bwd_window_checks")
     # {kernel: timed dropout check}, and the 8-bit form's under "flash_fwd_quant"
+    before_dropout = counts()
     dropout = dropout_checks(fa, backward, flash, benchit, packing, args, gen, name, report)
+    # The dropout checks' launches (the scalar pair's dropout form launches only there).
+    dropout_launches = {k: n - before_dropout[k] for k, n in counts().items()}
     # {kernel: {mask: timed block-mask check}}
     masked = block_mask_checks(backward, flash, benchit, gen, name, report)
     lap("dropout_block_mask_checks")
@@ -6445,6 +6738,7 @@ def main() -> int:
     scalar_of["paged_prefill_tc_f32"] = "paged_prefill (exact float32, the scalar kernel)"
     scalar_of["flash_bwd_tc_f32"] = "flash_bwd (exact float32, the scalar kernel)"
     scalar_of["flash_fwd_tc_f32_extra"] = "flash_fwd (exact float32, its dropout form)"
+    scalar_of.update({f32: f"{k} (exact float32, the scalar kernel)" for k, f32 in PAIR_F32.items()})
     # A kernel's own launches: its counter's less those of the forms counted
     # within it (the scalar kernel's wrapper counts the tensor-core forms',
     # the tensor-core form's counter its 8-bit form's, the float32 form's
@@ -6454,6 +6748,7 @@ def main() -> int:
               "flash_fwd": ("flash_fwd_tc", "flash_fwd_tc_f32"),
               "flash_fwd_tc_f32": ("flash_fwd_f32", "flash_fwd_tc_f32_extra"),
               "flash_bwd": ("flash_bwd_tc", "flash_bwd_tc_f32"),
+              **{k: (TC_KERNELS[k], f32) for k, f32 in PAIR_F32.items()},
               "paged_prefill": ("paged_prefill_tc", "paged_prefill_tc_f32")}
     for kname, source, replaces in KERNELS:
         main_rec = mains[kname]
@@ -6462,9 +6757,11 @@ def main() -> int:
         by_path = {p: x for p, x in by_path.items() if x}
         built = (" (built with -DFA_QUANT)" if kname in TC_QUANT_KERNELS.values()
                  else " (built with -DFA_PAIR)" if kname == "flash_bwd_dkv_tc"
+                 else " (built with -DFA_PAIR -DFA_F32)" if kname == "flash_bwd_dkv_tc_f32"
                  else " (built with -DFA_F32)" if kname in ("flash_fwd_tc_f32",
                                                            "paged_prefill_tc_f32",
-                                                           "flash_bwd_tc_f32")
+                                                           "flash_bwd_tc_f32",
+                                                           "flash_bwd_dq_tc_f32")
                  else " (built with -DFA_F32 -DFA_EXTRA)" if kname == "flash_fwd_tc_f32_extra"
                  else " (built into flash_fwd_tc_f32: csrc/flash_fwd_tc.cu with -DFA_F32)"
                  if kname == "flash_fwd_f32" else "")
@@ -6496,6 +6793,12 @@ def main() -> int:
             summary[-1]["dropout"] = _extra_entry(
                 dropout["flash_bwd_tc_f32/dropout"], paths, "flash_bwd_tc_f32_dropout",
                 (*timed_keys, "no_dropout_ms", "scalar_ms"))
+        if kname in PAIR_F32.values():  # its "bf16" mode, and its dropout form (rate 0.1)
+            summary[-1].update({k: main_rec[k] for k in ("bf16_mode_ms", "products",
+                                                         "split_pass_bytes", "live_pairs")})
+            summary[-1]["dropout"] = _extra_entry(
+                dropout[kname], paths, f"{kname}_dropout",
+                (*timed_keys, "no_dropout_ms", "scalar_ms"))
         if kname == "flash_fwd_tc_f32_extra":
             summary[-1]["products"] = main_rec["products"]
             summary[-1]["no_dropout_ms"] = main_rec["no_dropout_ms"]
@@ -6511,9 +6814,12 @@ def main() -> int:
             summary[-1]["windowed"] = {case: {k: rec[k] for k in (*timed, "scalar_ms") if k in rec}
                                        for case, rec in bwd_windowed[kname].items()}
         if kname in EXTRA_KERNELS:  # the dropout form: its timed check and launches
-            less = f"{TC_KERNELS[kname]}_dropout" if kname in PAIR else None
+            less = (f"{TC_KERNELS[kname]}_dropout", f"{PAIR_F32[kname]}_dropout") if kname in PAIR else ()
             summary[-1]["dropout"] = _extra_entry(dropout[kname], paths, f"{kname}_dropout",
                                                   (*timed, "no_dropout_ms"), less)
+            if kname in PAIR:  # on no path since the float32 pair's forms: the checks' launches
+                summary[-1]["dropout"]["check_launches"] = (
+                    dropout_launches[f"{kname}_dropout"] - sum(dropout_launches[x] for x in less))
         if kname in (TC_KERNELS[k] for k in PAIR):
             # The pair's tensor-core form: its dropout form (the packed layer at
             # rate 0.1), Gemma-2's packed layer, and the training layer with
@@ -6666,7 +6972,7 @@ def main() -> int:
                 and (run == "plain" or n["paged_decode_tc_draft"] > 0)):
             failed.append(f"serve_speculative/int8_cache/{run}/launches")
     failed += [f"{k['name']}/{form}" for k in summary for form in ("dropout", "block_mask")
-               if form in k and k[form]["launches"] == 0]
+               if form in k and k[form]["launches"] == 0 and not k[form].get("check_launches")]
     emit({"kernels": summary})
     print(card, flush=True)
     if failed:

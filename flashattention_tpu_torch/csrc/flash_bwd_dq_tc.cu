@@ -66,6 +66,23 @@
 // Rounding: dS enters its product as two bf16 terms, hi = bf16(x) and lo =
 // bf16(x - hi), as in the fused form; ops/backward.py's plain version mirrors
 // it (form="tc").
+//
+// kTerms (built with FA_F32 into flash_bwd_dq_tc_f32[_extra]): float32 q, k,
+// v and dO at head_dim 64 and 128, as _dq_kernel computes them in the JAX
+// package's modes "bf16_3x" and "bf16" (no block mask).  A split pass
+// (tc_common.cuh, tc::split) writes each row as bf16 terms, [hi | lo] (kTerms
+// 2) or [hi] (1), into buffers the pair's dK/dV pass then reads as they
+// are; the kernel reads rows of kTerms d bf16 (so d = 64 lays out as the
+// bf16 form at 128 and d = 128 as at 256, one stage).  With two terms each
+// of S = Q K^T, dP = dO V^T and dQ += dS K takes kProducts: at d = 128 three,
+// hi hi + hi lo + lo hi (JAX's _dot_g, flash.py:149-181); at d = 64 four,
+// lo lo too, as the JAX pair's lane-packed products (_packed_nt,
+// _packed_fold, backward.py:57-93, taken at 2 d <= 128, :713-729).  S and
+// dP pick each term by chunk descriptor; dQ runs dS's two register terms
+// against K's hi and (with K's lo) its hi, and at d = 64 its lo.  So a live
+// pair costs 18 d tensor flops at d = 128 and 24 d at d = 64 (one term: 8
+// d).  dQ stays d columns wide in registers and is written once, in
+// float32.
 #include "bwd_common.cuh"
 #include "tc_common.cuh"
 
@@ -78,10 +95,23 @@ constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 static_assert(kN == fa_bwd::kSegTile, "a key tile is one entry of the segment range table");
 
-template <int D>
+// The products of each matmul (see kTerms above): (A term, B term) pairs
+// (0, 0), (0, 1), (1, 0), (1, 1), the first kProducts.
+template <int D, int kTerms>
+constexpr int kProducts = kTerms == 2 ? (D == 64 ? 4 : 3) : 1;
+
+// The rows the kernel reads (a float32 row's bf16 terms), dQ as written
+// (float32 for float32 inputs), and the products of S and dP (tc_common.cuh).
+using tc::OutT;
+using tc::store2;
+using tc::term_products;
+
+template <int D, int kTerms = 0>
 struct Cfg {
-  static constexpr int kStages = D >= 256 ? 1 : 2;
-  static constexpr int kChunks = D / tc::kChunk;
+  static constexpr int kWidth = tc::kRowWidth<D, kTerms>;
+  static constexpr int kStages = kWidth >= 256 ? 1 : 2;
+  static constexpr int kChunks = kWidth / tc::kChunk;  // of a stored row
+  static constexpr int kLC = D / tc::kChunk;           // of one term
   static constexpr int kQChunk = kBlockM * tc::kChunkRowBytes;  // one chunk of Q or dO
   static constexpr int kKVChunk = kN * tc::kChunkRowBytes;      // one chunk of a K or V tile
   static constexpr int kTile = kChunks * kKVChunk;              // a K or V tile
@@ -114,18 +144,19 @@ __device__ __forceinline__ Range kv_range(int r0, int rows, int kv_len, int q_of
   return r;
 }
 
-template <int D, bool kWindowCap, bool kExtra>
+template <int D, bool kWindowCap, bool kExtra, int kTerms>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
                        const float* __restrict__ di, const fa_bwd::Segs sg,
-                       __nv_bfloat16* __restrict__ dq, int rows, int s_kv, int kv_len,
+                       OutT<kTerms>* __restrict__ dq, int rows, int s_kv, int kv_len,
                        int q_offset, int q_seq_len, int causal, float scale, int window,
                        float softcap, const fa::Extras ex) {
-  using C = Cfg<D>;
+  using C = Cfg<D, kTerms>;
   constexpr int kStages = C::kStages;
+  constexpr int kP = kProducts<D, kTerms>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + tc::kAtomBytes - 1) &
@@ -268,18 +299,8 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     float st[kN / 2], dpt[kN / 2];  // S and dP: query rows x key columns
     tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;  // a k-step inside the swizzled row
-      tc::wgmma_ss<0, 0>(st, tc::make_desc(q_base + (kk / 4) * C::kQChunk + off, 16, 1024),
-                         tc::make_desc(k_base + (kk / 4) * C::kKVChunk + off, 16, 1024), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      tc::wgmma_ss<0, 0>(dpt, tc::make_desc(do_base + (kk / 4) * C::kQChunk + off, 16, 1024),
-                         tc::make_desc(v_base + (kk / 4) * C::kKVChunk + off, 16, 1024), kk > 0);
-    }
+    term_products<D, kP>(st, q_base, C::kQChunk, k_base, C::kKVChunk);     // S = Q K^T
+    term_products<D, kP>(dpt, do_base, C::kQChunk, v_base, C::kKVChunk);  // dP = dO V^T
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
     tc::fence_regs(st);
@@ -330,9 +351,11 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     uint32_t dsa[kN / 16][4], dsl[kN / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk) tc::pack_a2(dsa[kk], dsl[kk], st, kk);
-    // dQ += dS K, 64 columns of d at a time, each part added in float32.
+    // dQ += dS K, 64 columns of d at a time, each part added in float32;
+    // with two terms K's lo chunk is kLC chunks on, against dS's hi (and at
+    // four products its lo).
 #pragma unroll
-    for (int c = 0; c < C::kChunks; ++c) {
+    for (int c = 0; c < C::kLC; ++c) {
       float part[32];
       tc::wgmma_fence();
 #pragma unroll
@@ -341,6 +364,12 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             k_base + c * C::kKVChunk + kk * 16 * tc::kChunkRowBytes, C::kKVChunk, 1024);
         tc::wgmma_rs<1>(part, dsa[kk], db, kk > 0);
         tc::wgmma_rs<1>(part, dsl[kk], db, 1);
+        if constexpr (kTerms == 2) {
+          const uint64_t db_lo = tc::make_desc(
+              k_base + (C::kLC + c) * C::kKVChunk + kk * 16 * tc::kChunkRowBytes, C::kKVChunk, 1024);
+          tc::wgmma_rs<1>(part, dsa[kk], db_lo, 1);
+          if constexpr (kP == 4) tc::wgmma_rs<1>(part, dsl[kk], db_lo, 1);
+        }
       }
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
@@ -355,16 +384,12 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     tc::mbar_arrive(&empty[s]);
   }
 
-  __nv_bfloat16* dq_head = dq + head * D;
+  OutT<kTerms>* dq_head = dq + head * D;
 #pragma unroll
   for (int jj = 0; jj < D / 8; ++jj) {
     const int c = 8 * jj + 2 * t;
-    if (in_a)
-      *reinterpret_cast<uint32_t*>(dq_head + static_cast<size_t>(ra) * D + c) =
-          tc::pack_bf16(acc[4 * jj], acc[4 * jj + 1]);
-    if (in_b)
-      *reinterpret_cast<uint32_t*>(dq_head + static_cast<size_t>(rb) * D + c) =
-          tc::pack_bf16(acc[4 * jj + 2], acc[4 * jj + 3]);
+    if (in_a) store2(dq_head + static_cast<size_t>(ra) * D + c, acc[4 * jj], acc[4 * jj + 1]);
+    if (in_b) store2(dq_head + static_cast<size_t>(rb) * D + c, acc[4 * jj + 2], acc[4 * jj + 3]);
   }
 }
 
@@ -386,46 +411,86 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, bool kWindowCap, bool kExtra>
+// q, k, v, dout: bf16 rows of tc::kRowWidth<D, kTerms> (kTerms 2: [hi | lo]).
+template <int D, bool kWindowCap, bool kExtra, int kTerms>
 int launch(const Args& a) {
-  using C = Cfg<D>;
+  using C = Cfg<D, kTerms>;
+  constexpr int W = C::kWidth;
   CUtensorMap mq, mk, mv, mdo;
   // K/V rows past kv_len read as zeros (dP there would meet V's garbage).
   const int kv_rows = a.kv_len > 0 ? a.kv_len : 1;
-  const long long q_stride = static_cast<long long>(a.rows) * D;
-  const long long kv_stride = static_cast<long long>(a.s_kv) * D;
-  int st = tc_encode_map(&mq, a.q, D, a.rows, a.bh, q_stride, kBlockM);
-  if (st == 0) st = tc_encode_map(&mdo, a.dout, D, a.rows, a.bh, q_stride, kBlockM);
-  if (st == 0) st = tc_encode_map(&mk, a.k, D, kv_rows, a.bh, kv_stride, kN);
-  if (st == 0) st = tc_encode_map(&mv, a.v, D, kv_rows, a.bh, kv_stride, kN);
+  const long long q_stride = static_cast<long long>(a.rows) * W;
+  const long long kv_stride = static_cast<long long>(a.s_kv) * W;
+  int st = tc_encode_map(&mq, a.q, W, a.rows, a.bh, q_stride, kBlockM);
+  if (st == 0) st = tc_encode_map(&mdo, a.dout, W, a.rows, a.bh, q_stride, kBlockM);
+  if (st == 0) st = tc_encode_map(&mk, a.k, W, kv_rows, a.bh, kv_stride, kN);
+  if (st == 0) st = tc_encode_map(&mv, a.v, W, kv_rows, a.bh, kv_stride, kN);
   if (st != 0) return st;
-  auto kernel = flash_bwd_dq_tc_kernel<D, kWindowCap, kExtra>;
+  auto kernel = flash_bwd_dq_tc_kernel<D, kWindowCap, kExtra, kTerms>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.rows + kBlockM - 1) / kBlockM, a.bh);
   kernel<<<grid, kThreads, C::kBytes, a.stream>>>(
-      mq, mk, mv, mdo, a.lse, a.di, a.sg, static_cast<__nv_bfloat16*>(a.dq), a.rows, a.s_kv,
+      mq, mk, mv, mdo, a.lse, a.di, a.sg, static_cast<OutT<kTerms>*>(a.dq), a.rows, a.s_kv,
       a.kv_len, a.q_offset, a.q_seq_len, a.causal, a.scale, a.window, a.softcap, a.ex);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kWindowCap>
+template <int D, bool kWindowCap, int kTerms>
 int launch_x(const Args& a) {
 #ifdef FA_EXTRA
-  return launch<D, kWindowCap, true>(a);
+  return launch<D, kWindowCap, true, kTerms>(a);
 #else
   if (a.ex.threshold != 0 || a.ex.bm_ptr != nullptr) return -1;
-  return launch<D, kWindowCap, false>(a);
+  return launch<D, kWindowCap, false, kTerms>(a);
 #endif
 }
 
-template <int D>
+template <int D, int kTerms = 0>
 int launch_w(const Args& a) {
-  return a.window > 0 || a.softcap > 0.f ? launch_x<D, true>(a) : launch_x<D, false>(a);
+  return a.window > 0 || a.softcap > 0.f ? launch_x<D, true, kTerms>(a)
+                                         : launch_x<D, false, kTerms>(a);
 }
 
 }  // namespace
+
+#ifdef FA_F32
+// The float32 form.  q, k, v, dout: float32 (bh, rows, d) / (bh, s_kv, d),
+// contiguous, 16-byte aligned, d 64 or 128; q2, k2, v2, do2: bf16 buffers of
+// the same rows and terms * d columns (terms 2, "bf16_3x": [hi | lo]; 1,
+// "bf16": [hi]), which the split pass fills before the kernel reads them
+// when `split` is nonzero (else they already hold these inputs' terms); dq:
+// float32 like q; the rest as fa_flash_bwd_dq_tc's, no block mask (dropout
+// in the FA_EXTRA library only).
+extern "C" int fa_flash_bwd_dq_tc_f32(int terms, int split, const void* q, const void* k,
+                                      const void* v, const void* dout, void* q2, void* k2,
+                                      void* v2, void* do2, const void* lse, const void* di,
+                                      const void* q_seg, const void* kv_seg, const void* q_rng,
+                                      const void* kv_rng, void* dq, int bh, int rows, int s_kv,
+                                      int d, int kv_len, int q_offset, int q_seq_len, int causal,
+                                      float scale, int window, float softcap, int row_stride,
+                                      int dropout_seed, int dropout_threshold, float dropout_inv,
+                                      void* stream) {
+  if ((terms != 1 && terms != 2) || (d != 64 && d != 128)) return -1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int status = split ? tc::split_bwd(q, k, v, dout, q2, k2, v2, do2,
+                                            static_cast<long long>(bh) * rows,
+                                            static_cast<long long>(bh) * s_kv, d, terms, st)
+                           : 0;
+  if (status != 0) return status;
+  const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, row_stride,
+                      static_cast<unsigned>(dropout_seed),
+                      static_cast<unsigned>(dropout_threshold), dropout_inv};
+  const fa_bwd::Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+                        static_cast<const int*>(q_rng), static_cast<const int*>(kv_rng)};
+  const Args a{q2, k2, v2, do2, static_cast<const float*>(lse), static_cast<const float*>(di), sg,
+               dq, bh, rows, s_kv, kv_len, q_offset, q_seq_len, causal, scale, window, softcap,
+               ex, st};
+  if (d == 64) return terms == 2 ? launch_w<64, 2>(a) : launch_w<64, 1>(a);
+  return terms == 2 ? launch_w<128, 2>(a) : launch_w<128, 1>(a);
+}
+#else
 
 // q, do, dq: (bh, rows, d); k, v: (bh, s_kv, d); all bf16, contiguous,
 // 16-byte aligned (TMA); lse, di: (bh, rows) float32.  q_seg (bh, rows) and
@@ -460,3 +525,4 @@ extern "C" int fa_flash_bwd_dq_tc(const void* q, const void* k, const void* v, c
     default: return -1;
   }
 }
+#endif

@@ -99,8 +99,18 @@
 // 128 (192 KB); at d = 128 it would take 320 KB, so the d = 128 two-term
 // form is the d = 256 kernel's (64 key rows a block, dV and dK split
 // between the consumer warpgroups): its rows of 256 bf16 are d = 256's.
-#include <type_traits>
-
+//
+// kPair with kTerms (built with FA_PAIR and FA_F32 into
+// flash_bwd_dkv_tc_f32[_extra]): the pair's dK/dV pass over float32, as
+// _dkv_kernel computes it in those modes.  At d = 128 each of its four
+// products is the three above; at d = 64 the JAX pair is lane-packed
+// (backward.py:713-729: 2 d <= 128 lanes, q, k, v and dO streamed as [hi |
+// lo] rows), and its products (_packed_nt for S and dP, _packed_fold for dV
+// and dK, backward.py:57-93) keep lo lo too: four a matmul (kProducts), so a
+// live pair costs 32 d tensor flops (24 d at d = 128).  Segment ids and
+// their tile skip are the bf16 pair's; no block mask.  The split pass runs
+// in the pair's dQ pass (flash_bwd_dq_tc.cu), which this one follows on the
+// same buffers, or here when it runs alone (`split`).
 #include "bwd_common.cuh"
 #include "tc_common.cuh"
 
@@ -117,29 +127,23 @@ constexpr int kProducerRegs = 24;
 // column, dropout row key, segment id (kPair).
 constexpr int kTabRows = 6;
 
-// The width of the rows the ring carries: a float32 row's two bf16 terms.
-template <int D, int kTerms>
-constexpr int kStoredWidth = kTerms == 2 ? 2 * D : D;
+// The products of each matmul over its operands' bf16 terms: (A term, B
+// term) pairs (0, 0), (0, 1), (1, 0), (1, 1), the first kProducts; one
+// term: (0, 0) alone.  Two terms: three, JAX's _dot_g at "bf16_3x", but in
+// the pair at d = 64 four, JAX's lane-packed pair (see kPair with kTerms).
+template <int D, bool kPair, int kTerms>
+constexpr int kProducts = kTerms == 2 ? (kPair && D == 64 ? 4 : 3) : 1;
 
-// The products of S^T and dP^T: (A term, B term) pairs (0, 0), (0, 1), (1,
-// 0), the first kPairs, the chunk of each term picked by descriptor.
-template <int kTerms>
-constexpr int kPairs = kTerms == 2 ? 3 : 1;
-
-// dK and dV as the kernel writes them: float32 for float32 inputs.
-template <int kTerms>
-using OutT = std::conditional_t<kTerms != 0, float, __nv_bfloat16>;
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = tc::pack_bf16(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
+// The rows the ring carries (a float32 row's bf16 terms), dK and dV as
+// written (float32 for float32 inputs), and the products of S^T and dP^T
+// (tc_common.cuh).
+using tc::OutT;
+using tc::store2;
+using tc::term_products;
 
 template <int D, bool kPair, int kTerms = 0>
 struct Cfg {
-  static constexpr int kChunks = kStoredWidth<D, kTerms> / tc::kChunk;  // of a stored row
+  static constexpr int kChunks = tc::kRowWidth<D, kTerms> / tc::kChunk;  // of a stored row
   static constexpr int kLC = D / tc::kChunk;                           // of one term
   static constexpr int kKVChunk = kBlockN * tc::kChunkRowBytes;
   static constexpr int kQChunk = kBlockM * tc::kChunkRowBytes;
@@ -159,27 +163,6 @@ struct Cfg {
   static constexpr int kBar = kTab + kStages * kTabWords * 4;
   static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + tc::kAtomBytes;
 };
-
-// acc = A B^T over d, A a 64-row slice of K or V (its chunks a_chunk bytes
-// apart) and B a 64-row tile of Q or dO (b_chunk apart), both K-major in
-// swizzled 64-column chunks, a term's kLC chunks before the next term's:
-// the kPairs<kTerms> products of their terms, (A hi, B hi), (A hi, B lo),
-// (A lo, B hi), each k-step's in turn, one float32 chain from zero.
-template <int D, int kTerms>
-__device__ __forceinline__ void term_products(float (&acc)[32], uint32_t a, uint32_t a_chunk,
-                                              uint32_t b, uint32_t b_chunk) {
-  constexpr int kLC = D / tc::kChunk;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int pr = 0; pr < kPairs<kTerms>; ++pr) {
-      const uint32_t ac = (pr == 2) * kLC + kk / 4, bc = (pr == 1) * kLC + kk / 4;
-      tc::wgmma_ss<0, 0>(acc, tc::make_desc(a + ac * a_chunk + (kk % 4) * 32, 16, 1024),
-                         tc::make_desc(b + bc * b_chunk + (kk % 4) * 32, 16, 1024),
-                         kk > 0 || pr > 0);
-    }
-  }
-}
 
 // Whether the block of key rows [c0, c0 + kKeys) has any live pair with
 // the query tile [r0, r0 + kBlockM): the scalar kernel's skips.
@@ -299,6 +282,7 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     int s_kv, int kv_len, int q_offset, int q_seq_len, int causal, float scale,
                     int window, float softcap, const fa::Extras ex, const fa_bwd::Segs sg) {
   using C = Cfg<D, kPair, kTerms>;
+  constexpr int kP = kProducts<D, kPair, kTerms>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + tc::kAtomBytes - 1) &
@@ -388,8 +372,8 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     float st[kBlockM / 2], dpt[kBlockM / 2];
     tc::wgmma_fence();
-    term_products<D, kTerms>(st, k_base, C::kKVChunk, q_tile, C::kQChunk);  // S^T = K Q^T
-    term_products<D, kTerms>(dpt, v_base, C::kKVChunk, do_tile, C::kQChunk);  // dP^T = V dO^T
+    term_products<D, kP>(st, k_base, C::kKVChunk, q_tile, C::kQChunk);  // S^T = K Q^T
+    term_products<D, kP>(dpt, v_base, C::kKVChunk, do_tile, C::kQChunk);  // dP^T = V dO^T
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
     tc::fence_regs(st);
@@ -460,7 +444,8 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // cores' float32 addition, whose truncation drifts the small gradients
     // by about 1e-5.
     // With two terms (kTerms 2) B's lo chunk is kLC chunks on, and the
-    // third product is the hi term of Z or dS against it.
+    // third product is the hi term of Z or dS against it (the fourth, kP
+    // 4, its lo term).
 #pragma unroll
     for (int pass = 0; pass < 2 * C::kLC; ++pass) {
       const int c = pass % C::kLC;
@@ -483,6 +468,10 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
               tc::make_desc(b_tile + C::kLC * C::kQChunk + kk * 2048, C::kQChunk, 1024);
           if (dv_pass) tc::wgmma_rs<1>(part, za[kk], db_lo, 1);
           else tc::wgmma_rs<1>(part, dsa[kk], db_lo, 1);
+          if constexpr (kP == 4) {
+            if (dv_pass) tc::wgmma_rs<1>(part, zl[kk], db_lo, 1);
+            else tc::wgmma_rs<1>(part, dsl[kk], db_lo, 1);
+          }
         }
       }
       tc::wgmma_commit();
@@ -575,7 +564,8 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // head_dim 256, and 128 over two float32 terms (kTerms 2: rows of 256 bf16,
-// as d = 256's; the products as in the d <= 128 kernel).  The d <= 128 kernel's split (each consumer warpgroup its own
+// as d = 256's; the products as in the d <= 128 kernel, three each, in the
+// fused form and the pair alike).  The d <= 128 kernel's split (each consumer warpgroup its own
 // 64 key rows, dK and dV of them in registers) needs 256 accumulator
 // registers a thread here, and its K/V of 128 key rows plus a 2-stage ring
 // of 64-row Q and dO tiles (128 KB) leave no room for dS.  So a block owns 64
@@ -611,7 +601,7 @@ static_assert(2 * kDsBytes == 4 * kKeys * kBlockM, "X holds Y^T in float32 and d
 
 template <int D, int kTerms>
 struct Cfg {
-  static constexpr int kChunks = kStoredWidth<D, kTerms> / tc::kChunk;  // of a stored row
+  static constexpr int kChunks = tc::kRowWidth<D, kTerms> / tc::kChunk;  // of a stored row
   static constexpr int kLC = D / tc::kChunk;                           // of one term
   static constexpr int kQTile = kChunks * kQChunk;
   // K | V | Q stages | dO stages | X | tables | barriers
@@ -706,6 +696,7 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                          float scale, int window, float softcap, const fa::Extras ex,
                          const fa_bwd::Segs sg) {
   using C = Cfg<D, kTerms>;
+  static_assert(kProducts<D, kPair, kTerms> == (kTerms == 2 ? 3 : 1), "add_products' count");
   constexpr int kQ = C::kQ, kDo = C::kDo, kX = C::kX, kTab = C::kTab, kTabWords = C::kTabWords;
   constexpr int kQTile = C::kQTile;
   extern __shared__ unsigned char smem_raw[];
@@ -792,7 +783,7 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     float st[kBlockM / 2];  // S^T (P side) or dP^T (dS side), key rows x query rows
     const uint32_t b_base = p_side ? q_tile : do_tile;
     tc::wgmma_fence();
-    term_products<D, kTerms>(st, a_base, kKVChunk, b_base, kQChunk);
+    term_products<D, kProducts<D, kPair, kTerms>>(st, a_base, kKVChunk, b_base, kQChunk);
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
     tc::fence_regs(st);
@@ -951,13 +942,13 @@ constexpr bool kPairLib = true;
 constexpr bool kPairLib = false;
 #endif
 
-// q, k, v, dout: bf16 rows of kStoredWidth<D, kTerms> (kTerms 2: [hi | lo]).
+// q, k, v, dout: bf16 rows of tc::kRowWidth<D, kTerms> (kTerms 2: [hi | lo]).
 template <int D, bool kWindowCap, bool kExtra, int kTerms>
 int launch(const Args& a) {
   constexpr bool kPair = kPairLib;
   // The d = 256 kernel's arrangement: d = 256, and d = 128 over two terms.
   constexpr bool kWide = D == 256 || (D == 128 && kTerms == 2);
-  constexpr int W = kStoredWidth<D, kTerms>;
+  constexpr int W = tc::kRowWidth<D, kTerms>;
   constexpr int kKeys = kWide ? wide::kKeys : kBlockN;  // key rows per block
   constexpr int kBytes = [] {
     if constexpr (kWide) return wide::Cfg<D, kTerms>::kBytes;
@@ -1021,7 +1012,42 @@ int launch_d(const Args& a, int d) {
 }  // namespace
 #endif
 
-#if defined(FA_F32)
+#if defined(FA_F32) && defined(FA_PAIR)
+// The pair's dK/dV pass over float32: q, k, v, dout float32 as in
+// fa_flash_bwd_tc_f32, d 64 or 128; q2, k2, v2, do2 their bf16 split rows
+// (terms 2, "bf16_3x": [hi | lo]; 1, "bf16": [hi]), which the split pass
+// fills first when `split` is nonzero, else the pair's dQ pass already
+// filled them from the same inputs; segment ids and their range tables as
+// fa_flash_bwd_dkv_tc's; dk, dv float32; no block mask (dropout in the
+// FA_EXTRA library only).
+extern "C" int fa_flash_bwd_dkv_tc_f32(int terms, int split, const void* q, const void* k,
+                                       const void* v, const void* dout, void* q2, void* k2,
+                                       void* v2, void* do2, const void* lse, const void* di,
+                                       const void* q_seg, const void* kv_seg, const void* q_rng,
+                                       const void* kv_rng, void* dk, void* dv, int bh, int rows,
+                                       int s_kv, int d, int kv_len, int q_offset, int q_seq_len,
+                                       int causal, float scale, int window, float softcap,
+                                       int row_stride, int dropout_seed, int dropout_threshold,
+                                       float dropout_inv, void* stream) {
+  if ((terms != 1 && terms != 2) || (d != 64 && d != 128)) return -1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int status = split ? tc::split_bwd(q, k, v, dout, q2, k2, v2, do2,
+                                            static_cast<long long>(bh) * rows,
+                                            static_cast<long long>(bh) * s_kv, d, terms, st)
+                           : 0;
+  if (status != 0) return status;
+  const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, row_stride,
+                      static_cast<unsigned>(dropout_seed),
+                      static_cast<unsigned>(dropout_threshold), dropout_inv};
+  const fa_bwd::Segs sg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+                        static_cast<const int*>(q_rng), static_cast<const int*>(kv_rng)};
+  const Args a{q2, k2, v2, do2, static_cast<const float*>(lse), static_cast<const float*>(di),
+               nullptr, dk, dv, bh, rows, s_kv, kv_len, q_offset, q_seq_len, causal, scale,
+               window, softcap, ex, st, sg};
+  if (d == 64) return terms == 2 ? launch_w<64, 2>(a) : launch_w<64, 1>(a);
+  return terms == 2 ? launch_w<128, 2>(a) : launch_w<128, 1>(a);
+}
+#elif defined(FA_F32)
 // The float32 form.  q, k, v, dout: float32 (bh, rows, d) / (bh, s_kv, d),
 // contiguous, 16-byte aligned, d 64 or 128; q2, k2, v2, do2: bf16 buffers of
 // the same rows and terms * d columns, which the split pass fills before
@@ -1038,12 +1064,9 @@ extern "C" int fa_flash_bwd_tc_f32(int terms, const void* q, const void* k, cons
                                    int dropout_threshold, float dropout_inv, void* stream) {
   if ((terms != 1 && terms != 2) || (d != 64 && d != 128)) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long q_rows = static_cast<long long>(bh) * rows;
-  const long long kv_rows = static_cast<long long>(bh) * s_kv;
-  int status = tc::split(q, q2, q_rows, d, terms, st);
-  if (status == 0) status = tc::split(dout, do2, q_rows, d, terms, st);
-  if (status == 0) status = tc::split(k, k2, kv_rows, d, terms, st);
-  if (status == 0) status = tc::split(v, v2, kv_rows, d, terms, st);
+  const int status = tc::split_bwd(q, k, v, dout, q2, k2, v2, do2,
+                                   static_cast<long long>(bh) * rows,
+                                   static_cast<long long>(bh) * s_kv, d, terms, st);
   if (status != 0) return status;
   const fa::Extras ex{nullptr, nullptr, nullptr, nullptr, row_stride,
                       static_cast<unsigned>(dropout_seed),

@@ -26,6 +26,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace tc {
 
@@ -428,6 +429,43 @@ __device__ __forceinline__ void fence_regs(int (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+// The backward's tensor-core kernels (flash_bwd_tc.cu, flash_bwd_dq_tc.cu)
+// over float32 inputs read rows of kTerms bf16 terms ([hi | lo] at kTerms
+// 2, [hi] at 1; bf16 inputs, kTerms 0: the row itself) and write their
+// gradients in float32.
+template <int D, int kTerms>
+constexpr int kRowWidth = kTerms == 2 ? 2 * D : D;
+
+template <int kTerms>
+using OutT = std::conditional_t<kTerms != 0, float, __nv_bfloat16>;
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// acc = A B^T over d, A a 64-row slice and B a 64-row tile, both K-major in
+// swizzled 64-column chunks (a_chunk and b_chunk bytes apart), a term's D /
+// 64 chunks before the next term's: the first kP of the products (A hi, B
+// hi), (A hi, B lo), (A lo, B hi), (A lo, B lo), each k-step's in turn, one
+// float32 chain from zero (one term: kP 1).
+template <int D, int kP>
+__device__ __forceinline__ void term_products(float (&acc)[32], uint32_t a, uint32_t a_chunk,
+                                              uint32_t b, uint32_t b_chunk) {
+  constexpr int kLC = D / kChunk;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int pr = 0; pr < kP; ++pr) {
+      const uint32_t ac = (pr >> 1) * kLC + kk / 4, bc = (pr & 1) * kLC + kk / 4;
+      wgmma_ss<0, 0>(acc, make_desc(a + ac * a_chunk + (kk % 4) * 32, 16, 1024),
+                     make_desc(b + bc * b_chunk + (kk % 4) * 32, 16, 1024), kk > 0 || pr > 0);
+    }
+  }
+}
+
 #ifdef FA_F32
 // The float32 forms' split pass (flash_fwd_tc.cu, flash_bwd_tc.cu): `rows`
 // float32 rows of d elements into bf16 rows of terms * d, [hi | lo] (terms
@@ -464,6 +502,17 @@ static int split(const void* x, void* out, long long rows, int d, int terms, cud
     split_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(x),
                                              static_cast<__nv_bfloat16*>(out), rows, d, terms);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's split pass: q and dO (q_rows rows), k and v (kv_rows).
+static int split_bwd(const void* q, const void* k, const void* v, const void* dout, void* q2,
+                     void* k2, void* v2, void* do2, long long q_rows, long long kv_rows, int d,
+                     int terms, cudaStream_t stream) {
+  int status = split(q, q2, q_rows, d, terms, stream);
+  if (status == 0) status = split(dout, do2, q_rows, d, terms, stream);
+  if (status == 0) status = split(k, k2, kv_rows, d, terms, stream);
+  if (status == 0) status = split(v, v2, kv_rows, d, terms, stream);
+  return status;
 }
 #endif
 

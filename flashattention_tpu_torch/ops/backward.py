@@ -31,7 +31,11 @@ at head_dim 64, 128 or 256 its tensor-core forms ``csrc/flash_bwd_dq_tc.cu``
 and ``csrc/flash_bwd_tc.cu`` built with ``-DFA_PAIR``, which skip the pairs
 of tiles whose segment ids never meet (:func:`seg_tile_ranges`) and a block
 mask's dead tiles (its table over their own tiles, :data:`TC_DQ_TILE` and
-:func:`tc_dkv_tile`), else ``csrc/flash_bwd_dq.cu`` +
+:func:`tc_dkv_tile`), in float32 at head_dim 64 or 128 in ``"bf16_3x"`` and
+``"bf16"`` their float32 forms (the same sources built with ``-DFA_F32``:
+q, k, v and dO split once into bf16 terms for both passes, each product
+three of them at d = 128 as ``_dot_g`` and four at d = 64 as the JAX pair's
+lane-packed products, backward.py:57-93), else ``csrc/flash_bwd_dq.cu`` +
 ``csrc/flash_bwd_dkv.cu``.  On CPU tensors it runs
 :func:`flash_attention_bwd_plain`, the same function written from the
 formulas above in plain PyTorch.  There is no fallback between the two.
@@ -40,11 +44,11 @@ formulas above in plain PyTorch.  There is no fallback between the two.
 ``torch.autograd.Function`` whose forward is the flash forward kernel saving
 ``(o, lse)`` and whose backward is :func:`flash_attention_bwd`.
 
-Not carried over: the TPU's lane packing of fp32 operands and its
-accumulation-chain splits (backward.py:49-119), MXU techniques with no
-counterpart here, and the 32 MB VMEM gate on the fused kernel's dQ scratch
-(backward.py:614, :785): the fused CUDA kernel adds dQ into a float32
-buffer in device memory.
+Not carried over: the TPU's lane packing of fp32 operands as a layout (its
+four products are kept) and its accumulation-chain splits
+(backward.py:49-119), MXU techniques with no counterpart here, and the 32
+MB VMEM gate on the fused kernel's dQ scratch (backward.py:614, :785): the
+fused CUDA kernel adds dQ into a float32 buffer in device memory.
 """
 
 from __future__ import annotations
@@ -87,10 +91,11 @@ __all__ = [
 def _check_tpu_options(dtype, block_sizes=None, precision=None, interpret=None):
     """The JAX signature's TPU knobs: ``precision`` is resolved as the JAX
     package resolves it (:func:`ops.flash.resolve_precision`) and returned;
-    the fused backward's float32 form computes ``"bf16_3x"`` and ``"bf16"``
-    where it is built (:func:`bwd_form`), the scalar kernels float32
-    exactly.  ``interpret`` is accepted and ignored, and ``block_sizes`` has
-    no counterpart: the CUDA kernels have their own tiles."""
+    the float32 forms of the fused backward and the pair compute
+    ``"bf16_3x"`` and ``"bf16"`` where they are built (:func:`bwd_form`),
+    the scalar kernels float32 exactly.  ``interpret`` is accepted and
+    ignored, and ``block_sizes`` has no counterpart: the CUDA kernels have
+    their own tiles."""
     if block_sizes is not None:
         raise ValueError(
             "block_sizes is a TPU option; the CUDA backward kernels have their own tiles"
@@ -118,8 +123,9 @@ def flash_attention_bwd(
       dropout_rate, dropout_seed, dropout_row_stride, block_mask: as in the
         forward (:func:`ops.flash.flash_attention`), whose output this is.
       precision: the JAX package's mode for float32 inputs (default
-        ``"bf16_3x"``): the fused backward's float32 form computes it at
-        head_dim 64 and 128 (:func:`bwd_form`), else float32 is exact.
+        ``"bf16_3x"``): the float32 forms of the fused backward and of the
+        pair compute it at head_dim 64 and 128 (:func:`bwd_form`), else
+        float32 is exact.
 
     ``D = rowsum(O dO)`` is computed here in float32, outside the kernels
     (backward.py:707-709).  Returns ``(dq, dk, dv)`` in the input dtypes.
@@ -157,22 +163,26 @@ def flash_attention_bwd(
         return flash_attention_bwd_plain(
             q, k, v, o, lse, do, q_segment_ids=seg_q, kv_segment_ids=seg_kv,
             block_mask=block_mask, form=bwd_form(q, fused, block_mask is not None, precision),
-            precision=precision, **kw
+            precision=precision, fused=fused, **kw
         )
     di = (o.float() * do.float()).sum(dim=-1)
     lse = lse.float().contiguous()
     if fused:
         return fused_bwd_kernel(q, k, v, do, lse, di, precision=precision, **kw)
-    two_pass = dict(q_segment_ids=seg_q, kv_segment_ids=seg_kv, block_mask=block_mask, **kw)
-    dq = dq_kernel(q, k, v, do, lse, di, **two_pass)
-    dk, dv = dkv_kernel(q, k, v, do, lse, di, **two_pass)
+    two_pass = dict(q_segment_ids=seg_q, kv_segment_ids=seg_kv, block_mask=block_mask,
+                    precision=precision, **kw)
+    split = None
+    if bwd_form(q, False, block_mask is not None, precision) == "tc_f32":
+        split = _split_buffers(q, k, precision)  # filled by dQ's launch, read by dK/dV's
+    dq = dq_kernel(q, k, v, do, lse, di, split_rows=split and (split, False), **two_pass)
+    dk, dv = dkv_kernel(q, k, v, do, lse, di, split_rows=split and (split, True), **two_pass)
     return dq, dk, dv
 
 
 def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_len,
                window=None, logit_softcap=None, q_segment_ids=None, kv_segment_ids=None,
                dropout_rate=None, dropout_seed=0, dropout_row_stride=None, block_mask=None,
-               form="scalar", precision=None):
+               form="scalar", precision=None, pair=False):
     """The backward from the formulas, float32 throughout (on the CPU
     ``exp`` in float64, rounded once: see ``ops.flash._exp``): ``(dq, dk,
     dv)`` in float32, with the capped score ``s``, ``P`` recomputed as ``exp(s -
@@ -183,13 +193,18 @@ def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_l
     ``form="tc_f32"`` (float32 inputs) mirrors its float32 form in the mode
     ``precision`` resolves to: in ``"bf16_3x"`` each of the five products
     as the JAX ``_dot_g`` computes it (flash.py:149-181), hi hi + hi lo + lo
-    hi over both operands' bf16 terms (:func:`_dot3`); in ``"bf16"`` the
-    ``"tc"`` form over q, k, v and dO rounded to bf16 once.  Head by head in
-    chunks, to bound the temporaries."""
+    hi over both operands' bf16 terms (:func:`_dot3`), and in the two-pass
+    pair (``pair``) at ``2 d <= 128``, where the JAX pair is lane-packed
+    (backward.py:713-729), ``+ lo lo`` too (:func:`_dot4`: its
+    ``_packed_nt`` and ``_packed_fold``, :57-93); in ``"bf16"`` the ``"tc"``
+    form over q, k, v and dO rounded to bf16 once.  Head by head in chunks,
+    to bound the temporaries."""
+    mm = torch.einsum
     if form == "tc_f32":
+        mm = _dot4 if pair and 2 * q.shape[2] <= 128 else _dot3
         if resolve_precision(precision, torch.float32) == "bf16":
             q, k, v, do = (x.to(torch.bfloat16).float() for x in (q, k, v, do))
-            form = "tc"
+            form, mm = "tc", torch.einsum
     bh, rows, s_kv = q.shape[0], q.shape[1], k.shape[1]
     mask = visible(
         rows, s_kv, causal=causal, kv_len=kv_len, q_offset=q_offset, q_seq_len=q_seq_len,
@@ -207,7 +222,7 @@ def _bwd_plain(q, k, v, do, lse, di, *, causal, scale, kv_len, q_offset, q_seq_l
                               dropout_row_stride, q.device)
         outs.append(_bwd_plain_heads(q[sl], k[sl], v[sl], do[sl], lse[sl], di[sl], seg_mask, keep,
                                      scale=scale, logit_softcap=logit_softcap,
-                                     dropout_rate=dropout_rate, form=form))
+                                     dropout_rate=dropout_rate, form=form, mm=mm))
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
@@ -220,11 +235,19 @@ def _dot3(eq, a, b):
     return torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
 
 
+def _dot4(eq, a, b):
+    """``einsum(eq, a, b)`` as the JAX pair's lane-packed products compute
+    it (``_packed_nt``, ``_packed_fold``, backward.py:57-93): :func:`_dot3`'s
+    three products and ``lo lo``, summed in float32 in that order."""
+    (ah, al), (bh, bl) = _split_bf16(a), _split_bf16(b)
+    return (torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+            + torch.einsum(eq, al, bl))
+
+
 def _bwd_plain_heads(q, k, v, do, lse, di, mask, keep, *, scale, logit_softcap, dropout_rate,
-                     form):
-    """_bwd_plain over some heads."""
+                     form, mm):
+    """_bwd_plain over some heads, each product by ``mm``."""
     qf, kf, dof = q.float(), k.float(), do.float()
-    mm = _dot3 if form == "tc_f32" else torch.einsum
     s = softcap(mm("bqd,bkd->bqk", qf, kf) * scale, logit_softcap)
     p = torch.where(mask, _exp(s - lse.float()[..., None]), 0.0)
     del mask
@@ -256,20 +279,22 @@ def flash_attention_bwd_plain(
     q, k, v, o, lse, do, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
     q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None, kv_segment_ids=None,
     dropout_rate=None, dropout_seed=0, dropout_row_stride=None, block_mask=None, form=None,
-    precision=None,
+    precision=None, fused=None,
 ):
     """The backward kernels' function in plain PyTorch: the CPU path of
     :func:`flash_attention_bwd` and the kernels' yardstick on the card.
     Computed in float32; returns ``(dq, dk, dv)`` in the input dtypes.
     ``form`` mirrors the rounding of a kernel form (see :func:`_bwd_plain`;
-    ``"tc_f32"`` in the mode ``precision``); by default the form
+    ``"tc_f32"`` in the mode ``precision``, of the fused kernel or, with
+    ``fused=False``, of the two-pass pair); by default the form
     :func:`flash_attention_bwd` would take for these inputs: the fused
     kernel's without segment ids or a block mask, else the two-pass pair's
     (:func:`bwd_form`)."""
     rows, s_kv = q.shape[1], k.shape[1]
+    if fused is None:
+        fused = q_segment_ids is None and block_mask is None
     if form is None:
-        form = bwd_form(q, q_segment_ids is None and block_mask is None, block_mask is not None,
-                        precision)
+        form = bwd_form(q, fused, block_mask is not None, precision)
     di = (o.float() * do.float()).sum(dim=-1)
     dq, dk, dv = _bwd_plain(
         q, k, v, do, lse, di, causal=causal, scale=scale,
@@ -278,19 +303,34 @@ def flash_attention_bwd_plain(
         logit_softcap=logit_softcap, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
         dropout_rate=check_dropout(dropout_rate), dropout_seed=wrap_int32(dropout_seed),
         dropout_row_stride=dropout_row_stride, block_mask=block_mask, form=form,
-        precision=precision,
+        precision=precision, pair=not fused,
     )
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def bwd_form(q, fused, block_mask=False, precision=None):
     """The form of a backward call (``ops.flash.kernel_form``): the fused
-    kernel's (float32 in the mode ``precision``), or the two-pass pair's
-    (``block_mask``: the call has one).  Both kernels of the pair take the
+    kernel's, or the two-pass pair's (``block_mask``: the call has one),
+    float32 in the mode ``precision``.  Both kernels of the pair take the
     same form."""
     if fused:
         return kernel_form("flash_bwd", q.dtype, q.shape[2], precision=precision)
-    return kernel_form("flash_bwd_dq", q.dtype, q.shape[2], block_mask=block_mask)
+    return kernel_form("flash_bwd_dq", q.dtype, q.shape[2], block_mask=block_mask,
+                       precision=precision)
+
+
+def _terms(precision):
+    """The float32 forms' bf16 terms a value: two, ``[hi | lo]``, in
+    ``"bf16_3x"``; one, ``bf16(x)``, in ``"bf16"``."""
+    return 2 if precision == "bf16_3x" else 1
+
+
+def _split_buffers(q, k, precision):
+    """The float32 forms' bf16 term buffers of q, k, v and dO (rows of
+    :func:`_terms` terms), which their split pass fills."""
+    bh, rows, d = q.shape
+    return [torch.empty((bh, n, _terms(precision) * d), dtype=torch.bfloat16, device=q.device)
+            for n in (rows, k.shape[1], k.shape[1], rows)]
 
 
 # Rows per entry of the pair's segment range tables (fa_bwd::kSegTile in
@@ -440,12 +480,10 @@ def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=No
     if form == "tc_f32":
         # The split pass writes q, k, v and do as bf16 rows of `terms` terms
         # (hi | lo in "bf16_3x", bf16(x) in "bf16") into these buffers.
-        terms = 2 if precision == "bf16_3x" else 1
-        split = [torch.empty((bh, x.shape[1], terms * d), dtype=torch.bfloat16, device=q.device)
-                 for x in (q, k, v, do)]
+        split = _split_buffers(q, k, precision)
         lib = _library("flash_bwd_tc_f32", kw)
         status = kernels.library(lib).fa_flash_bwd_tc_f32(
-            terms, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            _terms(precision), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             *(t.data_ptr() for t in split), lse.data_ptr(), di.data_ptr(), dq_acc.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), bh, rows, s_kv, d, *_scalars(kw),
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -469,18 +507,32 @@ def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=No
     return dq_acc.to(q.dtype), dk, dv
 
 
-def _pair_launch(name, q, k, v, do, lse, di, outs, kw, seg_q, seg_kv, block_mask):
+def _pair_launch(name, q, k, v, do, lse, di, outs, kw, seg_q, seg_kv, block_mask, precision,
+                 split_rows):
     """One launch of a kernel of the two-pass pair: its tensor-core form
-    (``<name>_tc``: the pair's segment range tables from the ids) where
-    :func:`bwd_form` picks it, else the scalar kernel.  Returns the form."""
+    (``<name>_tc``: the pair's segment range tables from the ids) or its
+    float32 form (``<name>_tc_f32``: over the bf16 term buffers of
+    ``split_rows``, ``(buffers, filled)``, filling them first unless
+    ``filled``; None: its own, filled) where :func:`bwd_form` picks it, else
+    the scalar kernel.  Returns the form."""
     dtype, bh, rows, s_kv, d = _launch_args(name, q, k, v, do, lse, di, seg_q, seg_kv)
-    form = bwd_form(q, False, block_mask is not None)
+    form = bwd_form(q, False, block_mask is not None, precision)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), _ptr(seg_q), _ptr(seg_kv))
-    if form == "tc":
+    ranges = (None, None)
+    if form != "scalar" and seg_q is not None:
+        ranges = tuple(map(seg_tile_ranges, (seg_q, seg_kv)))
+    if form == "tc_f32":
+        split, filled = split_rows or (_split_buffers(q, k, precision), False)
+        lib = _library(name + "_tc_f32", kw)
+        status = getattr(kernels.library(lib), f"fa_{name}_tc_f32")(
+            _terms(precision), int(not filled), *ptrs[:4], *(t.data_ptr() for t in split),
+            *ptrs[4:], *map(_ptr, ranges), *(t.data_ptr() for t in outs), bh, rows, s_kv, d,
+            *_scalars(kw), stream,
+        )
+    elif form == "tc":
         lib = _library(name + "_tc", kw, block_mask)
-        ranges = (None, None) if seg_q is None else tuple(map(seg_tile_ranges, (seg_q, seg_kv)))
         status = getattr(kernels.library(lib), f"fa_{name}_tc")(
             *ptrs, *map(_ptr, ranges), *(t.data_ptr() for t in outs),
             *_tc_mask_tiles(block_mask, q, by_q=name == "flash_bwd_dq"), bh, rows, s_kv, d,
@@ -493,28 +545,33 @@ def _pair_launch(name, q, k, v, do, lse, di, outs, kw, seg_q, seg_kv, block_mask
             *_mask_tiles(block_mask, q, by_q=name == "flash_bwd_dq"), bh, rows, s_kv, d,
             *_scalars(kw), stream,
         )
-    kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype}")
+    kernels.check_launch(lib, status, f"q {tuple(q.shape)} {q.dtype} {precision}")
     return form
 
 
 def dq_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
               q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None,
               kv_segment_ids=None, dropout_rate=None, dropout_seed=0,
-              dropout_row_stride=None, block_mask=None):
+              dropout_row_stride=None, block_mask=None, precision=None, split_rows=None):
     """One launch of the two-pass backward's dQ kernel: in bf16 at head_dim
-    64, 128 or 256 its tensor-core form (``csrc/flash_bwd_dq_tc.cu``), else
+    64, 128 or 256 its tensor-core form (``csrc/flash_bwd_dq_tc.cu``), in
+    float32 at 64 or 128 in the mode ``precision`` (``"bf16_3x"`` by
+    default, or ``"bf16"``) its float32 form (the same source built with
+    ``-DFA_F32``; ``split_rows``: see :func:`_pair_launch`), else
     ``csrc/flash_bwd_dq.cu``.  On CPU tensors: the plain version, with that
     form's rounding."""
     kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
                dropout_rate, dropout_seed, dropout_row_stride)
+    precision = resolve_precision(precision, q.dtype)
     if q.device.type == "cpu":
         dq, _, _ = _bwd_plain(q, k, v, do, lse, di, q_segment_ids=q_segment_ids,
                               kv_segment_ids=kv_segment_ids, block_mask=block_mask,
-                              form=bwd_form(q, False, block_mask is not None), **kw)
+                              form=bwd_form(q, False, block_mask is not None, precision),
+                              precision=precision, pair=True, **kw)
         return dq.to(q.dtype)
     dq = torch.empty_like(q)
     form = _pair_launch("flash_bwd_dq", q, k, v, do, lse, di, (dq,), kw, q_segment_ids,
-                        kv_segment_ids, block_mask)
+                        kv_segment_ids, block_mask, precision, split_rows)
     _count(dq_kernel, kw, block_mask, form)
     return dq
 
@@ -522,35 +579,38 @@ def dq_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_o
 def dkv_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_offset=0,
                q_seq_len=None, window=None, logit_softcap=None, q_segment_ids=None,
                kv_segment_ids=None, dropout_rate=None, dropout_seed=0,
-               dropout_row_stride=None, block_mask=None):
+               dropout_row_stride=None, block_mask=None, precision=None, split_rows=None):
     """One launch of the two-pass backward's dK/dV kernel: ``(dk, dv)``, each
     KV head summed over all of its folded query rows; in bf16 at head_dim
     64, 128 or 256 its tensor-core form (``csrc/flash_bwd_tc.cu`` built
-    with ``-DFA_PAIR``), else
+    with ``-DFA_PAIR``), in float32 at 64 or 128 in the mode ``precision``
+    its float32 form (built with ``-DFA_PAIR -DFA_F32``), else
     ``csrc/flash_bwd_dkv.cu``.  On CPU tensors: the plain version, with that
     form's rounding."""
     kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,
                dropout_rate, dropout_seed, dropout_row_stride)
+    precision = resolve_precision(precision, q.dtype)
     if q.device.type == "cpu":
         _, dk, dv = _bwd_plain(q, k, v, do, lse, di, q_segment_ids=q_segment_ids,
                                kv_segment_ids=kv_segment_ids, block_mask=block_mask,
-                               form=bwd_form(q, False, block_mask is not None), **kw)
+                               form=bwd_form(q, False, block_mask is not None, precision),
+                               precision=precision, pair=True, **kw)
         return dk.to(k.dtype), dv.to(v.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     form = _pair_launch("flash_bwd_dkv", q, k, v, do, lse, di, (dk, dv), kw, q_segment_ids,
-                        kv_segment_ids, block_mask)
+                        kv_segment_ids, block_mask, precision, split_rows)
     _count(dkv_kernel, kw, block_mask, form)
     return dk, dv
 
 
 # Kernel launches, for the chip run's path check: all forms, and the dropout
 # and block-mask ones among them, and the tensor-core forms' among them (with
-# dropout and with a block mask among those); the fused kernel's float32
-# form's (with dropout among them) apart from the tensor-core forms'.
+# dropout and with a block mask among those); the float32 forms' (with
+# dropout among them) apart from the tensor-core forms'.
 for _fn in (fused_bwd_kernel, dq_kernel, dkv_kernel):
     _fn.launches = _fn.launches_dropout = _fn.launches_block_mask = 0
     _fn.launches_tc = _fn.launches_tc_dropout = _fn.launches_tc_block_mask = 0
-fused_bwd_kernel.launches_tc_f32 = fused_bwd_kernel.launches_tc_f32_dropout = 0
+    _fn.launches_tc_f32 = _fn.launches_tc_f32_dropout = 0
 del _fn
 
 
@@ -594,9 +654,9 @@ def attention_vjp(
     groups' rows.  ``block_sizes`` is the forward kernel's tile
     (``BlockSizes()`` or None); ``precision`` goes to the forward
     (:func:`ops.flash.flash_attention`: its residuals come from the form the
-    mode takes) and to the backward (:func:`flash_attention_bwd`: the fused
-    kernel's float32 form computes it at head_dim 64 and 128, the scalar
-    kernels float32 exactly); ``interpret`` is ignored.
+    mode takes) and to the backward (:func:`flash_attention_bwd`: the
+    float32 forms of the fused kernel and the pair compute it at head_dim 64
+    and 128, the scalar kernels float32 exactly); ``interpret`` is ignored.
     ``window`` and ``logit_softcap`` go to the forward (whose lse then holds
     the capped, windowed scores) and to the backward.  ``dropout_rate`` / ``dropout_seed`` drop the softmax weights
     with inverted scaling; both passes regenerate the keep bits from the

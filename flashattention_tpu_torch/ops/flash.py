@@ -241,15 +241,16 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
     8-bit K/V, in the mode ``precision`` resolves to (:func:`resolve_precision`:
     by default ``"bf16_3x"``), and with dropout at
     ``TC_F32_SPLIT_PASS_HEAD_DIMS`` in ``"bf16_3x"`` and ``"bf16"``; the
-    fused backward's float32 form at ``TC_F32_SPLIT_PASS_HEAD_DIMS`` in
-    those two modes, dropout or not; and chunked prefill's over float32
+    float32 forms of the fused backward and of the two-pass pair at
+    ``TC_F32_SPLIT_PASS_HEAD_DIMS`` in those two modes, dropout or not; and
+    chunked prefill's over float32
     pools at ``TC_F32_HEAD_DIMS``, on pages :func:`tc_page_size` takes at
     ``TC_F32_SPLIT_KV_TILE``.  Else
     ``"scalar"``, the float32 CUDA-core kernel (float32 or 8-bit K/V with a
     block mask, 8-bit K/V with dropout, float32 q over 8-bit K/V that the
     tensor-core form does not take in bf16 or in the exact modes, the
-    float32 backward in ``"float32"``, at d = 16 / 32 / 256 and in the
-    two-pass pair).
+    float32 backward, fused or the pair, in ``"float32"`` and at d = 16 /
+    32 / 256, and the float32 pair with a block mask).
     ``dtype`` is q's type as the kernel takes it: float32 q over 8-bit K/V
     (:func:`f32_q_in_bf16`) or pages (``ops.decode._f32_q_in_bf16``) taken
     in bf16 asks for the bf16 form.  Inside :func:`scalar_forms`, always
@@ -258,7 +259,7 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
             and not (quantized or block_mask)):
         mode = resolve_precision(precision, dtype)  # raises on an unknown mode
         split_pass = head_dim in TC_F32_SPLIT_PASS_HEAD_DIMS and mode != "float32"
-        if kernel == "flash_bwd" and split_pass:
+        if kernel in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv") and split_pass:
             return "tc_f32"
         if dropout:
             if kernel == "flash_fwd" and split_pass:

@@ -30,7 +30,9 @@ same source built with ``-DFA_QUANT`` (``paged_decode_tc_quant``).  The
 two-pass backward pair's tensor-core forms are ``flash_bwd_dq_tc`` (a
 source of its own) and ``flash_bwd_dkv_tc`` (the fused backward's source
 built with ``-DFA_PAIR``), each with its dropout and block-mask form
-``*_extra``.
+``*_extra``, and their float32 forms the same sources built with
+``-DFA_F32`` too (``flash_bwd_dq_tc_f32[_extra]``,
+``flash_bwd_dkv_tc_f32[_extra]``).
 ``probe_mma`` is the forward's loop bodies alone and its softmax probes, for
 ``torch_tools/probe_mma.py`` and ``torch_tools/probe_softmax.py``,
 ``probe_d128_0`` / ``probe_d128_1`` / ``probe_d128_2`` the d = 128
@@ -148,6 +150,16 @@ KERNELS = {
     # The pair's dK/dV pass: the fused backward's source in its pair form.
     **{"flash_bwd_dkv_tc" + suffix: ("flash_bwd_tc.cu", "fa_flash_bwd_dkv_tc",
                                      [*[_P] * 16, *_BWD], ["-DFA_PAIR", *flags])
+       for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
+    # The pair's float32 forms (JAX's "bf16_3x" and "bf16" at d = 64 and
+    # 128): the number of bf16 terms, whether to run the split pass (else the
+    # split buffers already hold it), float32 q, k, v, do, their split
+    # buffers, then as the tensor-core pair without the block mask's table,
+    # with a float32 dq or dk, dv.
+    **{f"flash_bwd_{p}_tc_f32" + suffix: (src, f"fa_flash_bwd_{p}_tc_f32",
+                                         [_I, _I, *[_P] * n, *_BWD], [*defs, "-DFA_F32", *flags])
+       for p, src, n, defs in (("dq", "flash_bwd_dq_tc.cu", 15, []),
+                               ("dkv", "flash_bwd_tc.cu", 16, ["-DFA_PAIR"]))
        for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
     # The tensor-core forward's loop bodies alone and its softmax probes
     # (torch_tools/probe_mma.py, torch_tools/probe_softmax.py; the same

@@ -53,6 +53,7 @@ __all__ = [
     "lo3_term_f32_qkv",
     "lo_term_f32_qkv",
     "lo_term_qkv",
+    "lolo_term_f32_qkvdo",
     "probe_d128",
     "probe_d128_plain",
     "probe_d128de",
@@ -224,6 +225,40 @@ def lo_term_f32_qkv(bh: int, s: int, d: int, *, generator=None, device="cpu"):
     sign = torch.where(torch.rand((bh, s, 1), **kw) < 0.5, -1.0, 1.0)
     v = sign * (1 + torch.randn((bh, s, d), **kw) / 4)
     return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def lolo_term_f32_qkvdo(bh: int, s: int, d: int, *, generator=None, device="cpu"):
+    """float32 ``q, k, v, dO (BH, S, d)`` on which, at scale 1, the lo lo
+    products of the backward's S and dP (``q_lo k_lo``, ``dO_lo v_lo``) move
+    each score and each dP by a different multiple of its float32 step while
+    every partial sum of the four products stays exact in float32: a
+    backward that keeps them where it should not, or drops them (the JAX
+    pair's lane-packed products at d = 64), misses by about 1e-3 of each
+    gradient's norm.  Query row r is ``(1024 + u, 1024, 0, ...)`` with u in
+    {1, 2, 3} (q_hi = (1024, 1024), q_lo = (u, 0)); key j is ``(h + e 2^-11,
+    4 - h, 0, ...)`` with h in (1, 2) on a 1/64 grid and e in {-3, ..., 3}
+    (k_hi = (h, 4 - h), k_lo = (e 2^-11, 0)).  So q_hi k_hi = 4096 for every
+    key, q_hi k_lo = e / 2, q_lo k_hi = u h and q_lo k_lo = u e 2^-11, all
+    multiples of 2^-11, the float32 step at 4096.  dO's rows are ``(1 + u'
+    2^-10, 1, 0, ...)`` and V's keys are drawn as K's: dO_hi v_hi = 4 and
+    dO_lo v_lo = u' e' 2^-21, the step at 4."""
+    kw = dict(generator=generator, device=device)
+
+    def keys():
+        h = 1 + torch.randint(1, 64, (bh, s), **kw) / 64
+        x = torch.zeros((bh, s, d), device=device)
+        x[..., 0] = h + torch.randint(-3, 4, (bh, s), **kw) * 2.0**-11
+        x[..., 1] = 4 - h
+        return x
+
+    q = torch.zeros((bh, s, d), device=device)
+    q[..., 0] = 1024 + torch.randint(1, 4, (bh, s), **kw).float()
+    q[..., 1] = 1024
+    do = torch.zeros((bh, s, d), device=device)
+    do[..., 0] = 1 + torch.randint(1, 4, (bh, s), **kw) * 2.0**-10
+    do[..., 1] = 1
+    k, v = keys(), keys()
+    return q, k, v, do
 
 
 def lo3_term_f32_qkv(bh: int, s: int, d: int, *, generator=None, device="cpu"):

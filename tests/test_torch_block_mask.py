@@ -211,15 +211,19 @@ def test_gradients_through_attention_match_jax(fn):
 
 def test_document_mask_backward_equals_segments_backward():
     """A document mask is segment ids in another form: the block-mask
-    backward (two-pass) gives the segment-id backward's gradients."""
+    backward (two-pass) gives the segment-id backward's gradients, both in
+    exact float32 (``precision="float32"``: the pair under a block mask is
+    exact in every mode, the segment-id pair's default is JAX's
+    "bf16_3x")."""
     rng = np.random.default_rng(33)
     q, k, v, t = (torch.tensor(_rand(rng, (1, S, 64))) for _ in range(4))
     bm = tflash.BlockMask.from_mask_fn(document_fn, S, S, block_q=256, block_kv=256)
     o, l, m = tflash.flash_attention(q, k, v, block_mask=bm, save_residuals=True)
     lse = m + torch.log(torch.where(l == 0.0, 1.0, l))
-    got = tbwd.flash_attention_bwd(q, k, v, o, lse, t, block_mask=bm)
+    got = tbwd.flash_attention_bwd(q, k, v, o, lse, t, block_mask=bm, precision="float32")
     seg = (torch.arange(S) // 128).to(torch.int32)[None, :]
-    want = tbwd.flash_attention_bwd(q, k, v, o, lse, t, q_segment_ids=seg, kv_segment_ids=seg)
+    want = tbwd.flash_attention_bwd(q, k, v, o, lse, t, q_segment_ids=seg, kv_segment_ids=seg,
+                                    precision="float32")
     for name, g_, w in zip(("dq", "dk", "dv"), got, want):
         assert torch.isfinite(g_).all()
         validate_result(g_, to_numpy(w), 1e-5, name=f"{name} vs segments")

@@ -98,10 +98,10 @@ def _rel(got, want):
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_routes(d):
     """The fused backward's float32 form at d = 64 and 128 in "bf16_3x"
-    (the default) and "bf16", dropout or not; "float32", the other
-    head_dims, the two-pass pair and scalar_forms keep the exact scalar
-    kernels.  The forward with dropout takes its float32 form where the
-    backward does."""
+    (the default) and "bf16", dropout or not, and the two-pass pair's
+    float32 forms there too; "float32", the other head_dims and
+    scalar_forms keep the exact scalar kernels.  The forward with dropout
+    takes its float32 form where the backward does."""
     f32 = torch.float32
     q = torch.zeros(1, 8, d)
     for mode in (None, "auto", *tflash.PRECISIONS):
@@ -110,11 +110,12 @@ def test_routes(d):
         assert tflash.kernel_form("flash_bwd", f32, d, precision=mode, dropout=True) == want
         assert tbwd.bwd_form(q, True, precision=mode) == want
         assert tflash.kernel_form("flash_fwd", f32, d, precision=mode, dropout=True) == want
-        assert tbwd.bwd_form(q, False, precision=mode) == "scalar"
+        assert tbwd.bwd_form(q, False, precision=mode) == want
         assert tflash.kernel_form("flash_fwd", f32, d, precision=mode, dropout=True,
                                   block_mask=True) == "scalar"
         with tflash.scalar_forms():
             assert tbwd.bwd_form(q, True, precision=mode) == "scalar"
+            assert tbwd.bwd_form(q, False, precision=mode) == "scalar"
             assert tflash.kernel_form("flash_fwd", f32, d, precision=mode,
                                       dropout=True) == "scalar"
     with pytest.raises(ValueError, match="precision"):

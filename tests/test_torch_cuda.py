@@ -1163,3 +1163,97 @@ def test_f32_backward_ignores_poisoned_rows(d):
     (dq0, dk0, dv0), (dq1, dk1, dv1) = outs
     assert torch.equal(dk1[0], dk0[0]) and torch.equal(dv1[0], dv0[0])
     assert float((dq1[0] - dq0[0]).abs().max()) <= 1e-6
+
+
+# The two-pass pair's float32 forms (flash_bwd_dq_tc_f32, flash_bwd_dkv_tc_f32):
+# (BH, G, S per group, S_kv, segment ids, kwargs); documents of 90, 150 and
+# 60 tokens meet inside 64-row tiles.
+PAIR_F32_CASES = {
+    "segments_gqa": (2, 2, 300, 300, True, dict(causal=True)),
+    "kv_len_q_offset": (2, 1, 128, 250, False, dict(causal=True, kv_len=200, q_offset=100)),
+    "window_softcap_segments": (2, 1, 300, 300, True, dict(causal=True, window=100,
+                                                           logit_softcap=30.0)),
+    "dropout_segments": (2, 2, 300, 300, True, dict(causal=True, dropout_rate=0.1,
+                                                    dropout_seed=-12345)),
+    "lolo_terms": (2, 1, 256, 256, False, dict(causal=True, scale=1.0)),
+}
+
+
+def _pair_f32_inputs(d, case):
+    bh, g, s, s_kv, segments, kw = PAIR_F32_CASES[case]
+    if case == "lolo_terms":
+        g = torch.Generator().manual_seed(74)
+        return (*probes.lolo_term_f32_qkvdo(bh, s, d, generator=g), {}, dict(kw))
+    q = _randn((bh, g * s, d), torch.float32, 70)
+    k, v = _randn((bh, s_kv, d), torch.float32, 71), _randn((bh, s_kv, d), torch.float32, 72)
+    do = 0.25 * _randn((bh, g * s, d), torch.float32, 73)
+    kw = dict(kw, scale=d**-0.5, q_seq_len=s)
+    segs = {}
+    if segments:
+        ids = torch.repeat_interleave(torch.arange(3, dtype=torch.int32),
+                                      torch.tensor([90, 150, 60]))[:s]
+        segs = dict(q_segment_ids=ids.repeat(bh, g), kv_segment_ids=ids.repeat(bh, 1))
+    return q, k, v, do, segs, kw
+
+
+@pytest.mark.parametrize("case", list(PAIR_F32_CASES))
+@pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_pair_forms_match_plain(d, mode, case):
+    """Each kernel of the pair's float32 forms against its plain version on
+    the CPU in the same mode (four products a matmul at d = 64 in
+    "bf16_3x", three at 128): the gradients within 1e-4 and, on
+    ``probes.lolo_term_f32_qkvdo``'s inputs in "bf16_3x" (where lo lo moves
+    each gradient by 2.5e-3 of its norm and more), within 1e-4 of each
+    gradient's norm; each launch in its float32 form; dQ twice on its own
+    bit for bit the same."""
+    q, k, v, do, segs, kw = _pair_f32_inputs(d, case)
+    assert backward.bwd_form(q, False, precision=mode) == "tc_f32"
+    o, l, m = flash.flash_attention(q, k, v, save_residuals=True, precision=mode, **kw, **segs)
+    lse = m + torch.log(torch.where(l == 0, 1.0, l))
+    di = (o * do).sum(dim=-1)
+    cuda = [x.cuda() for x in (q, k, v, do, lse, di)]
+    csegs = {n: x.cuda() for n, x in segs.items()}
+    fns = (backward.dq_kernel, backward.dkv_kernel)
+    n = [(f.launches_tc_f32, f.launches_tc_f32_dropout) for f in fns]
+    dq = backward.dq_kernel(*cuda, precision=mode, **kw, **csegs)
+    dk, dv = backward.dkv_kernel(*cuda, precision=mode, **kw, **csegs)
+    want = (backward.dq_kernel(q, k, v, do, lse, di, precision=mode, **kw, **segs),
+            *backward.dkv_kernel(q, k, v, do, lse, di, precision=mode, **kw, **segs))
+    again = backward.dq_kernel(*cuda, precision=mode, **kw, **csegs)
+    torch.cuda.synchronize()
+    drop = int("dropout_rate" in kw)
+    assert [(f.launches_tc_f32, f.launches_tc_f32_dropout) for f in fns] == [
+        (n[0][0] + 2, n[0][1] + 2 * drop), (n[1][0] + 1, n[1][1] + drop)]
+    assert torch.equal(dq, again)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert g.dtype == torch.float32
+        validate_result(g, w, 1e-4, name=name)
+        if mode == "bf16_3x" and case == "lolo_terms":
+            rel = float((g.cpu().double() - w.double()).norm() / w.double().norm())
+            assert rel <= 1e-4, (name, rel)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_pair_ignores_poisoned_rows(d):
+    """K/V rows past kv_len NaN, and a second head all NaN behind a ragged
+    S, with dropout, through the pair (flash_attention_bwd(fused=False)):
+    the first head's dQ, dK and dV bit for bit the clean inputs'."""
+    q = _randn((2, 100, d), torch.float32, 80).cuda()
+    k, v = (_randn((2, 230, d), torch.float32, s).cuda() for s in (81, 82))
+    do = 0.25 * _randn((2, 100, d), torch.float32, 83).cuda()
+    kw = dict(causal=True, scale=d**-0.5, kv_len=180, q_offset=80, dropout_rate=0.1,
+              dropout_seed=7)
+    outs = []
+    for poison in (False, True):
+        qp, kp, vp, dop = (x.clone() for x in (q, k, v, do))
+        if poison:
+            kp[:, kw["kv_len"]:], vp[:, kw["kv_len"]:] = float("nan"), float("nan")
+            for x in (qp, kp, vp, dop):
+                x[1:] = float("nan")
+        o, l, m = flash.flash_attention(qp, kp, vp, save_residuals=True, **kw)
+        outs.append(backward.flash_attention_bwd(qp, kp, vp, o, m + torch.log(l), dop,
+                                                 fused=False, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(b[0], a[0])

@@ -43,13 +43,14 @@ def _expected(kernel, dtype, d, quantized, block_mask):
     K/V only in the forward (no backward takes them).  float32 q, k and v
     in the forward at d = 64, 128 and 256 without 8-bit K/V or a block mask:
     the float32 form, in the default precision ("bf16_3x";
-    tests/test_torch_precision.py holds every mode), as does the fused
-    backward at d = 64 and 128 (tests/test_torch_bwd_f32.py)."""
+    tests/test_torch_precision.py holds every mode), as do the fused
+    backward (tests/test_torch_bwd_f32.py) and, without a block mask, the
+    pair (tests/test_torch_pair_f32.py) at d = 64 and 128."""
     if (kernel == "flash_fwd" and dtype == torch.float32 and d in (64, 128, 256)
             and not (quantized or block_mask)):
         return "tc_f32"
-    if (kernel == "flash_bwd" and dtype == torch.float32 and d in (64, 128)
-            and not (quantized or block_mask)):
+    if (kernel in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv") and dtype == torch.float32
+            and d in (64, 128) and not (quantized or block_mask)):
         return "tc_f32"
     dims = (64, 128, 256) if kernel in ("flash_fwd", "flash_bwd", "flash_bwd_dq",
                                         "flash_bwd_dkv") else ()
@@ -78,15 +79,16 @@ def test_scalar_forms_overrides_the_choice():
 
 def test_backward_form_follows_the_pass():
     """The fused backward and the two-pass pair (segment ids, a block
-    mask) take the selector's form; float32 the fused backward's float32
-    form at d = 128 and the scalar pair, d = 32 the scalar one."""
+    mask) take the selector's form; float32 at d = 128 the float32 forms of
+    the fused backward and of the pair (the scalar pair with a block mask),
+    d = 32 the scalar one."""
     q = torch.zeros(1, 8, 128, dtype=torch.bfloat16)
     assert tbwd.bwd_form(q, True) == "tc"
     assert tbwd.bwd_form(q, False) == "tc"
     assert tbwd.bwd_form(q, False, block_mask=True) == "tc"
     assert tbwd.bwd_form(q.float(), False, block_mask=True) == "scalar"
     assert tbwd.bwd_form(q.float(), True) == "tc_f32"
-    assert tbwd.bwd_form(q.float(), False) == "scalar"
+    assert tbwd.bwd_form(q.float(), False) == "tc_f32"
     assert tbwd.bwd_form(torch.zeros(1, 8, 256, dtype=torch.bfloat16), True) == "tc"
     assert tbwd.bwd_form(torch.zeros(1, 8, 32, dtype=torch.bfloat16), True) == "scalar"
     assert tbwd.bwd_form(torch.zeros(1, 8, 32, dtype=torch.bfloat16), False, True) == "scalar"

@@ -15,9 +15,11 @@ rebuilds only what its edit changes; then all the others' ``nvcc``
 together) and runs chip_smoke's ``f32_form_checks`` untimed (three modes, d
 = 64, 128 and 256, the input cases among them
 ``ops.probes.lo_term_f32_qkv``'s, ``lo3_term_f32_qkv``'s and
-``v3_term_f32_qkv``'s), the float32 cases of ``prefill_poison_check`` and
+``v3_term_f32_qkv``'s), the float32 cases of ``prefill_poison_check``,
 ``f32_train_checks`` (the backward's and the dropout forward's float32
-forms, "bf16_3x" and "bf16", d = 64 and 128) on the copy.  The copies:
+forms, "bf16_3x" and "bf16", d = 64 and 128) and ``pair_f32_checks`` (the
+two-pass pair's float32 forms, the same modes and head_dims) on the copy.
+The copies:
 
 - ``unmutated``: the sources as they are; every check must pass;
 - in the two-term form (``flash_fwd_tc.cuh``'s ``kTerms``; caught by a
@@ -34,13 +36,27 @@ forms, "bf16_3x" and "bf16", d = 64 and 128) on the copy.  The copies:
   ``paged_page_off_by_one``, each box from the table's next entry;
 - in the fused backward's float32 form (``flash_bwd_tc.cu``'s ``kTerms``,
   both of its kernels: d = 64 the d <= 128 one, d = 128 the wide one;
-  caught by a ``flash_bwd_tc_f32/...`` check): one of the three products
-  of each of the five matmuls left out, ``s_k_hi_q_lo_dropped`` (S^T =
-  K Q^T), ``dp_v_lo_do_hi_dropped`` (dP^T = V dO^T),
-  ``dv_z_lo_do_hi_dropped`` (dV += Z^T dO), ``dk_ds_hi_q_lo_dropped``
-  (dK += dS^T Q), ``dq_ds_lo_k_hi_dropped`` (dQ += dS K);
-  ``do_lo_zeroed``, dO's lo term zeroed after the split pass;
-  ``z_bits_on_ds``, Z's dropout bits (keep / (1 - rate)) applied to dS.
+  caught by a ``flash_bwd_tc_f32/...`` check and, where the pair's dK/dV
+  pass shares the edited code, a ``flash_bwd_dkv_tc_f32/...`` one): one of
+  the three products of each of the five matmuls left out,
+  ``s_k_hi_q_lo_dropped`` (S^T = K Q^T), ``dp_v_lo_do_hi_dropped`` (dP^T =
+  V dO^T), ``dv_z_lo_do_hi_dropped`` (dV += Z^T dO),
+  ``dk_ds_hi_q_lo_dropped`` (dK += dS^T Q), ``dq_ds_lo_k_hi_dropped`` (dQ
+  += dS K, the fused form's alone); ``do_lo_zeroed``, dO's lo term zeroed
+  after the backward's split pass (``tc_common.cuh``'s split_bwd, which the
+  pair's dQ pass runs too: caught by the pair's checks as well);
+  ``z_bits_on_ds``, Z's dropout bits (keep / (1 - rate)) applied to dS;
+- in the pair's float32 forms (``flash_bwd_dq_tc.cu``'s ``kTerms`` and
+  ``flash_bwd_tc.cu``'s ``kPair`` with ``kTerms``; caught by a
+  ``flash_bwd_dq_tc_f32/...`` or ``flash_bwd_dkv_tc_f32/...`` check):
+  ``dq_lolo_dropped`` / ``dkv_lolo_dropped``, the lo lo products of the d =
+  64 pass left out (three products a matmul, as at d = 128: caught on the
+  norm, d = 64 "bf16_3x"); one product of each of the dQ pass's matmuls left
+  out, ``dq_s_q_hi_k_lo_dropped`` (S = Q K^T), ``dq_dp_do_lo_v_hi_dropped``
+  (dP = dO V^T), ``dq_dq_ds_hi_k_lo_dropped`` (dQ += dS K);
+  ``pair_range_skip_live_tile``, tiles whose id
+  ranges only touch at one id taken as disjoint (``bwd_common.cuh``'s
+  seg_meet), so live tiles across a document's boundary are skipped.
 
 Prints one JSON line per copy (its failed checks with their errors) and
 writes all of them to ``chiprun_out/f32_mutants.json``; exits non-zero when
@@ -62,8 +78,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("flashattention_tpu_torch", "csrc")
 LIBRARIES = ("flash_fwd_tc_f32", "flash_fwd", "paged_prefill_tc_f32", "flash_fwd_tc_f32_extra",
              "flash_bwd_tc_f32", "flash_bwd_tc_f32_extra", "flash_bwd", "flash_bwd_extra",
-             "flash_bwd_dq", "flash_bwd_dkv")
+             "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_extra", "flash_bwd_dkv_extra",
+             "flash_bwd_dq_tc_f32", "flash_bwd_dq_tc_f32_extra", "flash_bwd_dkv_tc_f32",
+             "flash_bwd_dkv_tc_f32_extra")
 TWO, THREE, BWD = "flash_fwd_tc.cuh", "flash_fwd_f32.cuh", "flash_bwd_tc.cu"
+DQ, COMMON, TC_COMMON = "flash_bwd_dq_tc.cu", "bwd_common.cuh", "tc_common.cuh"
+FUSED, PAIR_DQ, PAIR_DKV = ("flash_bwd_tc_f32/", ""), ("flash_bwd_dq_tc_f32/", ""), (
+    "flash_bwd_dkv_tc_f32/", "")
 _S_PAIR = "tc::wgmma_ss<0, 0>(s_lo, da, db, c > 0 || pr > 0 || kk > 0);"
 _PV_PAIR = "tc::wgmma_rs<1>(part, pt[pair_a(kT, pr)][kk], db, pr > 0 || kk > 0);"
 
@@ -84,16 +105,16 @@ def _drop_pair(i):
 # left out, inserted before the originals' users, and the call sites of one
 # matmul (in the d <= 128 kernel and, by warpgroup, in the wide one) sent
 # to them.
-_TERM_PRODUCTS = """template <int D, int kTerms>
+_TERM_PRODUCTS = """template <int D, int kP>
 __device__ __forceinline__ void term_products_mut(float (&acc)[32], uint32_t a, uint32_t a_chunk,
                                                   uint32_t b, uint32_t b_chunk) {
   constexpr int kLC = D / tc::kChunk;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-    for (int pr = 0; pr < kPairs<kTerms>; ++pr) {
+    for (int pr = 0; pr < kP; ++pr) {
       if (pr == SKIP) continue;
-      const uint32_t ac = (pr == 2) * kLC + kk / 4, bc = (pr == 1) * kLC + kk / 4;
+      const uint32_t ac = (pr >> 1) * kLC + kk / 4, bc = (pr & 1) * kLC + kk / 4;
       tc::wgmma_ss<0, 0>(acc, tc::make_desc(a + ac * a_chunk + (kk % 4) * 32, 16, 1024),
                          tc::make_desc(b + bc * b_chunk + (kk % 4) * 32, 16, 1024),
                          kk > 0 || pr > 0);
@@ -130,7 +151,7 @@ __device__ __forceinline__ void add_products_mut(float (&acc)[D / 2], const uint
 """
 _TP_ANCHOR = "// Whether the block of key rows [c0, c0 + kKeys) has any live pair with"
 _AP_ANCHOR = "// dQ's half of the tile's columns from chunk c0 on"
-_WIDE_SP = "    term_products<D, kTerms>(st, a_base, kKVChunk, b_base, kQChunk);\n"
+_WIDE_SP = "    term_products<D, kProducts<D, kPair, kTerms>>(st, a_base, kKVChunk, b_base, kQChunk);\n"
 
 
 def _term_mutant(skip, main_call, p_side):
@@ -141,7 +162,7 @@ def _term_mutant(skip, main_call, p_side):
     return (BWD, [(_TP_ANCHOR, _TERM_PRODUCTS.replace("SKIP", str(skip)) + _TP_ANCHOR),
                   (main_call, main_call.replace("term_products", "term_products_mut")),
                   (_WIDE_SP, f"    if ({side}) {mut.strip()}\n    else {_WIDE_SP.strip()}\n")],
-            ("flash_bwd_tc_f32/", ""))
+            [FUSED, PAIR_DKV])
 
 
 def _add_mutant(skip, main_edit, wide_call):
@@ -150,14 +171,14 @@ def _add_mutant(skip, main_edit, wide_call):
     in both kernels (``main_edit`` the d <= 128 kernel's)."""
     return (BWD, [(_AP_ANCHOR, _ADD_PRODUCTS.replace("SKIP", str(skip)) + _AP_ANCHOR), main_edit,
                   (wide_call, wide_call.replace("add_products", "add_products_mut"))],
-            ("flash_bwd_tc_f32/", ""))
+            [FUSED, PAIR_DKV])
 
 
 _BWD_MUTANTS = {
     "s_k_hi_q_lo_dropped": _term_mutant(
-        1, "term_products<D, kTerms>(st, k_base, C::kKVChunk, q_tile, C::kQChunk);", True),
+        1, "term_products<D, kP>(st, k_base, C::kKVChunk, q_tile, C::kQChunk);", True),
     "dp_v_lo_do_hi_dropped": _term_mutant(
-        2, "term_products<D, kTerms>(dpt, v_base, C::kKVChunk, do_tile, C::kQChunk);", False),
+        2, "term_products<D, kP>(dpt, v_base, C::kKVChunk, do_tile, C::kQChunk);", False),
     "dv_z_lo_do_hi_dropped": _add_mutant(
         1, ("          tc::wgmma_rs<1>(part, zl[kk], db, 1);\n", ""),
         "add_products<D, kTerms>(acc, ah, al, do_tile);  // dV += Z^T dO"),
@@ -168,13 +189,13 @@ _BWD_MUTANTS = {
         ("          tc::wgmma_ss<1, 1>(dq, tc::make_desc(lo_base + kk * 2048, C::kDsBytes, 1024), "
          "db, 1);\n", ""),
         ("      tc::wgmma_ss<1, 1>(dq, tc::make_desc(lo_base + kk * 2048, kDsBytes, 1024), db, 1);\n",
-         "")], ("flash_bwd_tc_f32/", "")),
-    "do_lo_zeroed": (BWD, [(
-        "if (status == 0) status = tc::split(dout, do2, q_rows, d, terms, st);",
-        "if (status == 0) status = tc::split(dout, do2, q_rows, d, terms, st);\n"
+         "")], [FUSED]),
+    "do_lo_zeroed": (TC_COMMON, [(
+        "  if (status == 0) status = split(dout, do2, q_rows, d, terms, stream);",
+        "  if (status == 0) status = split(dout, do2, q_rows, d, terms, stream);\n"
         "  if (status == 0 && terms == 2)\n"
         "    status = static_cast<int>(cudaMemset2DAsync(static_cast<char*>(do2) + 2 * d, 4 * d, 0,"
-        " 2 * d, q_rows, st));")], ("flash_bwd_tc_f32/", "")),
+        " 2 * d, q_rows, stream));")], [FUSED, PAIR_DQ, PAIR_DKV]),
     "z_bits_on_ds": (BWD, [
         ("          dpt[4 * j + e] = p * (dp - tf[kBlockM + x]) * scale * c_fac;",
          "          dpt[4 * j + e] = (dropout ? p * z : p) * (dp - tf[kBlockM + x]) * scale * c_fac;"),
@@ -183,39 +204,72 @@ _BWD_MUTANTS = {
          "                          (dropout ? (fa::dropout_kept(static_cast<unsigned>(ti[4 * kBlockM + x]),\n"
          "                                                       e < 2 ? key_a : key_b, ex.threshold)\n"
          "                                          ? ex.inv : 0.f) : 1.f);")],
-        ("flash_bwd_tc_f32/", "")),
+        [FUSED, PAIR_DKV]),
 }
 
-# name -> (source, [(text, replacement)], the prefix and suffix of the
-# checks that must catch it)
+# The pair's dQ pass (flash_bwd_dq_tc.cu): its S and dP calls sent to a copy
+# of its product helper with one product left out.
+_DQ_TP = "template <int D, bool kWindowCap, bool kExtra, int kTerms>\n__global__"
+_DQ_S = "term_products<D, kP>(st, q_base, C::kQChunk, k_base, C::kKVChunk);"
+_DQ_DP = "term_products<D, kP>(dpt, do_base, C::kQChunk, v_base, C::kKVChunk);"
+
+
+def _dq_term_mutant(skip, call):
+    """The dQ pass's S (``call`` _DQ_S) or dP (_DQ_DP) product ``skip`` (1:
+    A hi B lo, 2: A lo B hi) left out."""
+    return (DQ, [(_DQ_TP, _TERM_PRODUCTS.replace("SKIP", str(skip)) + _DQ_TP),
+                 (call, call.replace("term_products", "term_products_mut"))],
+            [("flash_bwd_dq_tc_f32/", "/bf16_3x")])
+
+
+_PAIR_MUTANTS = {
+    "dq_lolo_dropped": (DQ, [("constexpr int kProducts = kTerms == 2 ? (D == 64 ? 4 : 3) : 1;",
+                              "constexpr int kProducts = kTerms == 2 ? (D == 64 ? 3 : 3) : 1;")],
+                        [("flash_bwd_dq_tc_f32/", "/d64/bf16_3x")]),
+    "dkv_lolo_dropped": (BWD, [(
+        "constexpr int kProducts = kTerms == 2 ? (kPair && D == 64 ? 4 : 3) : 1;",
+        "constexpr int kProducts = kTerms == 2 ? (kPair && D == 64 ? 3 : 3) : 1;")],
+        [("flash_bwd_dkv_tc_f32/", "/d64/bf16_3x")]),
+    "dq_s_q_hi_k_lo_dropped": _dq_term_mutant(1, _DQ_S),
+    "dq_dp_do_lo_v_hi_dropped": _dq_term_mutant(2, _DQ_DP),
+    "dq_dq_ds_hi_k_lo_dropped": (DQ, [("          tc::wgmma_rs<1>(part, dsa[kk], db_lo, 1);\n", "")],
+                                 [("flash_bwd_dq_tc_f32/", "/bf16_3x")]),
+    "pair_range_skip_live_tile": (COMMON, [(
+        "seg_meet(int2 a, int2 b) { return a.x <= b.y && b.x <= a.y; }",
+        "seg_meet(int2 a, int2 b) { return a.x < b.y && b.x < a.y; }")], [PAIR_DQ, PAIR_DKV]),
+}
+
+# name -> (source, [(text, replacement)], the (prefix, suffix) of the checks
+# that must catch it: a list where a check of each must fail)
 MUTANTS = {
     "unmutated": (TWO, [], None),
     "q_hi_k_lo_dropped": (TWO, [("for (int pr = 0; pr < kQK; ++pr) {",
                                  "for (int pr = 0; pr < kQK; pr += 1 + (pr == 0 && kQK > 1)) {")],
-                          ("flash_fwd_tc_f32/", "/bf16_3x")),
+                          [("flash_fwd_tc_f32/", "/bf16_3x")]),
     "q_lo_k_hi_dropped": (TWO, [("for (int pr = 0; pr < kQK; ++pr) {",
                                  "for (int pr = 0; pr < kQK; pr += 1 + (pr == 1)) {")],
-                          ("flash_fwd_tc_f32/", "/bf16_3x")),
+                          [("flash_fwd_tc_f32/", "/bf16_3x")]),
     "p_lo_dropped": (TWO, [("if (p_lo) tc::wgmma_rs<1>(part, pl[kk], db, 1);",
                             "if (p_lo && kTerms < 3) tc::wgmma_rs<1>(part, pl[kk], db, 1);")],
-                     ("flash_fwd_tc_f32/", "/bf16_3x")),
+                     [("flash_fwd_tc_f32/", "/bf16_3x")]),
     "v_lo_dropped": (TWO, [("for (int c = 0; c < C::kChunks; ++c) {\n          const bool p_lo",
                             "for (int c = 0; c < (kTerms >= 3 ? kLC : C::kChunks); ++c) {\n"
                             "          const bool p_lo")],
-                     ("flash_fwd_tc_f32/", "/bf16_3x")),
-    "x3y1_dropped": (*_drop_pair(0), ("flash_fwd_f32/", "/float32")),
-    "x2y2_dropped": (*_drop_pair(1), ("flash_fwd_f32/", "/float32")),
-    "x1y3_dropped": (*_drop_pair(2), ("flash_fwd_f32/", "/float32")),
+                     [("flash_fwd_tc_f32/", "/bf16_3x")]),
+    "x3y1_dropped": (*_drop_pair(0), [("flash_fwd_f32/", "/float32")]),
+    "x2y2_dropped": (*_drop_pair(1), [("flash_fwd_f32/", "/float32")]),
+    "x1y3_dropped": (*_drop_pair(2), [("flash_fwd_f32/", "/float32")]),
     "v3_dropped": (THREE, [(_PV_PAIR, "if (pair_b(kT, pr) != 2) " + _PV_PAIR)],
-                   ("flash_fwd_f32/", "/float32")),
+                   [("flash_fwd_f32/", "/float32")]),
     "paged_rows_unzeroed": (THREE, [("C::kCTerm, 0, kv.first - t0,\n                       kv.end - t0, tid);",
                                      "C::kCTerm, 0, kPaged ? 0 : kv.first - t0,\n"
                                      "                       kPaged ? kN : kv.end - t0, tid);")],
-                            ("paged_prefill_tc_f32/", "")),
+                            [("paged_prefill_tc_f32/", "")]),
     "paged_page_off_by_one": (THREE, [("table[t / pg.page_size]);",
                                        "table[min(t / pg.page_size + 1, pg.pages_per_seq - 1)]);")],
-                              ("paged_prefill_tc_f32/", "")),
+                              [("paged_prefill_tc_f32/", "")]),
     **_BWD_MUTANTS,
+    **_PAIR_MUTANTS,
 }
 
 
@@ -255,9 +309,11 @@ def run_checks(root: str) -> dict:
                        timed=False)
     cs.prefill_poison_check(decode, gen, report, dtypes=("float32",))
     cs.f32_train_checks(backward, flash, gen, report)
+    cs.pair_f32_checks(backward, flash, probes, gen, report)
     keys = ("ok", "rel_err", "exact_rel_err", "max_abs_err", "plain_err", "bitwise_equal",
             "launched_its_form", "fwd_keep_equal", "bwd_keep_equal", "dk_dv_bitwise",
-            "dq_max_abs_err")
+            "dq_max_abs_err", "norm_rel_err", "other_count_norm_rel_err", "deterministic",
+            "alone_bitwise", "first_head_bitwise")
     return {c["check"]: {k: c[k] for k in keys if c.get(k) is not None} for c in report["checks"]}
 
 
@@ -305,11 +361,14 @@ def main() -> int:
                 return 1
             checks = json.loads(lines[-1])
             failed = {c: r for c, r in checks.items() if not r["ok"]}
-            want = MUTANTS[m][2]
-            caught = None if want is None else any(
-                c.startswith(want[0]) and c.endswith(want[1]) for c in failed)
-            ok = ok and (not failed if want is None else caught)
-            rec = {"copy": m, "checks": len(checks), "failed": failed, "caught": caught}
+            wants = MUTANTS[m][2]
+            caught_by = None if wants is None else {
+                prefix + "..." + suffix: any(c.startswith(prefix) and c.endswith(suffix)
+                                             for c in failed) for prefix, suffix in wants}
+            caught = None if wants is None else all(caught_by.values())
+            ok = ok and (not failed if wants is None else caught)
+            rec = {"copy": m, "checks": len(checks), "failed": failed, "caught": caught,
+                   "caught_by": caught_by}
             results[m] = {**rec, "all": checks}
             print(json.dumps(rec), flush=True)
         os.makedirs("chiprun_out", exist_ok=True)
