@@ -394,8 +394,10 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -3383,6 +3385,32 @@ def _bwd_case(backward, flash, q, k, v, do, kw, segs):
     return ins, plain, wants, runs
 
 
+def _time_pair_f32(backward, flash, benchit, card, recs, ins, kw, segs, c, plain):
+    """The pair's float32 forms in "bf16_3x" and their "bf16" mode, each
+    beside the scalar pair (exact float32: its own check in ``recs``, timed
+    there, the scalar rows) and SDPA float32's backward under the boolean
+    mask, at one float32 case of ``_bwd_case``.  Returns ``{form: timed
+    record}``."""
+    yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
+    q, k, v, o, lse, do = ins
+    di = (o.float() * do.float()).sum(dim=-1)
+    out = {}
+    for name, f32 in PAIR_F32.items():
+        rec = recs[f32]
+        rec.update(_time_bwd(backward, flash, benchit, card, f32, ins, kw, segs, c, yard,
+                             "float32"))
+        fn = backward.dq_kernel if name == "flash_bwd_dq" else backward.dkv_kernel
+        rec["bf16_mode_ms"] = benchit.cuda_time_ms(
+            lambda: fn(q, k, v, do, lse, di, precision="bf16", **kw, **segs), warmup=1, iters=5)
+        with flash.scalar_forms():
+            recs[name].update(_time_bwd(backward, flash, benchit, card, name, ins, kw, segs, c,
+                                        yard, "float32"))
+        recs[name]["form"] = "exact float32 (the scalar pair, ops.flash.scalar_forms)"
+        rec["scalar_ms"] = recs[name]["kernel_ms"]
+        out[f32] = rec
+    return out
+
+
 def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
     """The three backward kernels against the plain backward (float32 from
     the same inputs).  Cases: the training layer (B=8, 8 KV heads x G=4,
@@ -3488,28 +3516,10 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
             mains[fused] = rec
             report.setdefault("float32_timed", {})["flash_bwd"] = twin
         if (name, dt) == ("packed_layer_b2", "float32"):
-            # Rows 6-7 in float32: the pair's float32 forms (float32 packed
-            # training's) in "bf16_3x" and their "bf16" mode, beside the
-            # scalar pair (exact float32, its own check, timed: the scalar
-            # rows) and SDPA float32's backward under the boolean mask.
-            yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
-            q_, k_, v_, o_, lse_, do_ = ins
-            di_ = (o_.float() * do_.float()).sum(dim=-1)
-            for k, f32 in PAIR_F32.items():
-                rec = recs[f32]
-                rec.update(_time_bwd(backward, flash, benchit, card, f32, ins, kw, segs, c, yard,
-                                     dt))
-                fn = backward.dq_kernel if k == "flash_bwd_dq" else backward.dkv_kernel
-                rec["bf16_mode_ms"] = benchit.cuda_time_ms(
-                    lambda: fn(q_, k_, v_, do_, lse_, di_, precision="bf16", **kw, **segs),
-                    warmup=1, iters=5)
-                with flash.scalar_forms():
-                    recs[k].update(_time_bwd(backward, flash, benchit, card, k, ins, kw, segs, c,
-                                             yard, dt))
-                recs[k]["form"] = "exact float32 (the scalar pair, ops.flash.scalar_forms)"
-                rec["scalar_ms"] = recs[k]["kernel_ms"]
-                mains[f32] = rec
-                report.setdefault("float32_timed", {})[k] = recs[k]
+            # Rows 6-7 in float32 (float32 packed training's forms).
+            mains.update(_time_pair_f32(backward, flash, benchit, card, recs, ins, kw, segs, c,
+                                        plain))
+            report.setdefault("float32_timed", {}).update({k: recs[k] for k in PAIR})
         dq_tc = _kname("flash_bwd_dq", q)
         if dq_tc != "flash_bwd_dq" and "seg" in c:
             # The pair's dQ takes no atomics: two launches give the same bits.
@@ -3574,13 +3584,14 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
 # 128 with a window of 300 and a softcap of 30 over a ragged S = 1000 (the
 # fused backward's tensor-core form takes d <= 128 only).
 _GEMMA_LAYER = dict(b=1, kvh=8, g=2, s_q=8192, s_kv=8192, d=256, window=4096, cap=50.0)
+GEMMA_PACKED_DOCS = (5000, 2100, 1000)
 _MISTRAL_LAYER = dict(b=1, kvh=8, g=4, s_q=8192, s_kv=8192, d=128, window=4096, cap=None)
 BWD_WINDOW_CASES = (
     ("gemma2_d256_w4096_cap50", dict(_GEMMA_LAYER, q_mult=1.0)),
     ("gemma2_d256_w4096_cap50_q8", dict(_GEMMA_LAYER, q_mult=8.0)),
     ("mistral_d128_w4096", dict(_MISTRAL_LAYER, q_mult=1.0)),
     ("mistral_d128_w4096_q8", dict(_MISTRAL_LAYER, q_mult=8.0)),
-    ("gemma2_packed_w4096_cap50_q8", dict(_GEMMA_LAYER, q_mult=8.0, docs=(5000, 2100, 1000))),
+    ("gemma2_packed_w4096_cap50_q8", dict(_GEMMA_LAYER, q_mult=8.0, docs=GEMMA_PACKED_DOCS)),
     ("d16_s300_w100_cap30_q8", dict(b=1, kvh=8, g=4, s_q=300, s_kv=300, d=16, window=100,
                                     cap=30.0, q_mult=8.0)),
     # The tensor-core backward with a softcap (d <= 128), over a ragged S.
@@ -3589,6 +3600,18 @@ BWD_WINDOW_CASES = (
 )
 TIMED_BWD_WINDOW_CASES = ("gemma2_d256_w4096_cap50", "mistral_d128_w4096",
                           "gemma2_packed_w4096_cap50_q8")
+# Timed in float32 too: the pair's float32 forms at d = 256 (rows 6-7).
+TIMED_F32_BWD_WINDOW_CASE = "gemma2_packed_w4096_cap50_q8"
+
+
+def _padded_doc_ids(docs, s):
+    """(1, s) int32 segment ids on the card: documents of ``docs`` tokens
+    in order, the rest padding (-1)."""
+    ids = torch.full((1, s), -1, dtype=torch.int32, device="cuda")
+    ends = np.cumsum((0,) + tuple(docs))
+    for i, (a, e) in enumerate(zip(ends[:-1], ends[1:])):
+        ids[0, a:e] = i
+    return ids
 
 
 def bwd_window_checks(backward, flash, benchit, gen, card, report, names=None, timed=True):
@@ -3597,8 +3620,9 @@ def bwd_window_checks(backward, flash, benchit, gen, card, report, names=None, t
     within BWD_TOL and, in bfloat16, each element within BF16_ELEM_TOL.  o
     and lse come from the forward kernel.  Timed at the bfloat16 Gemma-2 and
     Mistral layers (unless not ``timed``): each kernel, the plain backward,
-    and SDPA's backward under a boolean causal+window mask (no softcap).
-    Returns
+    and SDPA's backward under a boolean causal+window mask (no softcap);
+    and in float32 at Gemma-2's packed layer the pair's float32 forms
+    beside the scalar pair (``_time_pair_f32``).  Returns
     ``{kernel: {case: timed record}}``."""
     timed_recs = {"flash_bwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
     for name, c in BWD_WINDOW_CASES:
@@ -3609,10 +3633,7 @@ def bwd_window_checks(backward, flash, benchit, gen, card, report, names=None, t
                   window=c["window"], logit_softcap=c["cap"])
         segs = {}
         if "docs" in c:
-            ids = torch.full((1, s), -1, dtype=torch.int32, device="cuda")
-            ends = np.cumsum((0,) + c["docs"])
-            for i, (a, e) in enumerate(zip(ends[:-1], ends[1:])):
-                ids[0, a:e] = i
+            ids = _padded_doc_ids(c["docs"], s)
             c = dict(c, seg=ids)
             seg_q, seg_kv = _fold_ids(ids, c["kvh"], c["g"])
             segs = dict(q_segment_ids=seg_q, kv_segment_ids=seg_kv)
@@ -3651,6 +3672,10 @@ def bwd_window_checks(backward, flash, benchit, gen, card, report, names=None, t
                 for k in PAIR:
                     if TC_KERNELS[k] in recs and k in recs:
                         recs[TC_KERNELS[k]]["scalar_ms"] = recs[k]["kernel_ms"]
+            if timed and dt == "float32" and name == TIMED_F32_BWD_WINDOW_CASE:
+                for kname, rec in _time_pair_f32(backward, flash, benchit, card, recs, ins, kw,
+                                                 segs, c, plain).items():
+                    timed_recs.setdefault(kname, {})[name] = rec
             for rec in recs.values():
                 emit(rec)
                 report["checks"].append(rec)
@@ -3800,6 +3825,10 @@ def dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, repor
              ("packed_layer_b2", dict(train, b=2, seg=packed[:2]), "float32", DROPOUT_RATES)]
     cases += [("gemma2_d256_w4096_cap50", dict(_GEMMA_LAYER), dt, (0.1,))
               for dt in ("bfloat16", "float32")]
+    # The pair's float32 forms at d = 256: Gemma-2's packed layer (rows 6-7).
+    gemma_docs = _padded_doc_ids(GEMMA_PACKED_DOCS, _GEMMA_LAYER["s_kv"])
+    cases.append(("gemma2_packed_w4096_cap50", dict(_GEMMA_LAYER, seg=gemma_docs), "float32",
+                  (0.1,)))
     for name, c, dt, rates in cases:
         bh, rows, d = c["b"] * c["kvh"], c["g"] * c["s_q"], c["d"]
         for rate in rates:
@@ -3822,9 +3851,10 @@ def dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, repor
             # The float32 forms' dropout forms at the training layer (rows 1
             # and 5), each beside the scalar kernel's (its own check, timed).
             timing32 = timed and (name, dt, rate) == ("train_layer_b2", "float32", 0.1)
-            # The pair's float32 dropout forms at the packed layer (rows 6-7),
-            # each beside the scalar pair's.
-            timing32p = timed and (name, dt, rate) == ("packed_layer_b2", "float32", 0.1)
+            # The pair's float32 dropout forms at the packed layers (rows 6-7;
+            # d = 128 and Gemma-2's d = 256), each beside the scalar pair's.
+            timing32p = timed and dt == "float32" and rate == 0.1 and name in (
+                "packed_layer_b2", "gemma2_packed_w4096_cap50")
             if "seg" not in c:
                 rec, fwd_plain = _fwd_rec(f"{_kname('flash_fwd', q, dropout=True)}/dropout/"
                                           f"{name}/{rate}/{dt}",
@@ -3883,7 +3913,7 @@ def dropout_checks(fa, backward, flash, benchit, packing, args, gen, card, repor
                         rec["scalar_ms"] = _time_bwd(backward, flash, benchit, card,
                                                      kname.removesuffix("_tc_f32"), ins, kw, segs,
                                                      c, yard32p, dt)["kernel_ms"]
-                    mains[kname] = rec
+                    mains[kname if name == "packed_layer_b2" else f"{kname}/gemma2_packed"] = rec
                 if timing and (kname == fused) == (name == "train_layer"):
                     if yard is None:
                         yard = _bwd_yardsticks(benchit, ins, kw, c, plain, dropout_p=rate)
@@ -4195,13 +4225,14 @@ def f32_train_checks(backward, flash, gen, report):
 
 # The two-pass pair's float32 forms (flash_bwd_dq_tc_f32, flash_bwd_dkv_tc_f32;
 # their dropout forms built into *_extra), in the JAX modes "bf16_3x" and
-# "bf16" at d = 64 and 128, over PAIR_F32_CASES: packed documents (id
+# "bf16" at PAIR_F32_DIMS (at d = 256 64-row dQ blocks over 32-row
+# key tiles, 32-row query tiles in dK/dV), over PAIR_F32_CASES: packed documents (id
 # ranges of neighbouring 64-row tiles meet at a document's boundary), the
 # same with the GQA fold, kv_len / q_offset and a full ragged S with
 # fused=False, a window with a softcap and q x 8 over documents, and dropout
 # over documents.  Each through flash_attention_bwd(fused=False) against the
 # plain pair in the same mode (four products a matmul at d = 64, three at d
-# = 128) within BWD_TOL (float32, gradients below 4), each call launching
+# = 128 and 256) within BWD_TOL (float32, gradients below 4), each call launching
 # both forms once and no scalar pair.  On such inputs the lo lo products
 # move a gradient by about 5e-6 of its norm, under BWD_TOL and about twice
 # the kernel's distance from its plain version (the exp of the kernel's
@@ -4217,6 +4248,7 @@ def f32_train_checks(backward, flash, gen, report):
 # head's dQ, dK and dV bitwise the clean inputs'), and the keep bits: with V
 # and dO the identity dV^T's zeros are exactly the dropped pairs.
 PAIR_F32_LOLO_TOL = 1e-4
+PAIR_F32_DIMS = (64, 128, 256)
 PAIR_F32_DOCS = (300, 150, 250, 90, 210)  # 1000 tokens, cut to S
 # (BH, G, S_q, S_kv, segment ids, kwargs): folded q (BH, G S_q, d) against (BH, S_kv, d)
 PAIR_F32_CASES = {
@@ -4381,14 +4413,15 @@ def _pair_f32_keep_bits(flash, backward, gen, d, mode):
     return rec
 
 
-def pair_f32_checks(backward, flash, probes, gen, report):
-    """The pair's float32 forms at d = 64 and 128 in both modes (see above),
-    untimed (their timed rows: bwd_checks' and dropout_checks' packed layer
-    at B = 2); ``torch_tools/f32_mutants.py`` shows that these checks fail
-    a pass missing one of its products (lo lo at d = 64 among them), dO's
-    lo term or a live tile."""
+def pair_f32_checks(backward, flash, probes, gen, report, dims=PAIR_F32_DIMS):
+    """The pair's float32 forms at the head_dims ``dims`` in both modes (see
+    above), untimed (their timed rows: bwd_checks' and dropout_checks'
+    packed layer at B = 2, and at d = 256 bwd_window_checks' and
+    dropout_checks' Gemma-2 packed layer); ``torch_tools/f32_mutants.py``
+    shows that these checks fail a pass missing one of its products (lo lo
+    at d = 64 among them), dO's lo term or a live tile."""
     recs = []
-    for d, mode in itertools.product((64, 128), F32_TRAIN_MODES):
+    for d, mode in itertools.product(dims, F32_TRAIN_MODES):
         for case in PAIR_F32_CASES:
             q, k, v, do, segs, kw = _pair_f32_inputs(probes, gen, d, case)
             recs += _pair_f32_hold(flash, backward, q, k, v, do, segs, kw, mode,
@@ -5380,7 +5413,8 @@ def _f32_form_launched(launches, cfg, pair=False):
     kernel's; at d = 64 / 128 the dropout ones all in its dropout form);
     at d = 64 / 128 every fused backward launch (at least one) in its
     float32 form, the dropout ones in its dropout form, and no scalar fused
-    backward, and every launch of the pair (with ``pair``, a phase that
+    backward; at d = 64 / 128 / 256 (``kernel_form``: Gemma-2's
+    d = 256 too) every launch of the pair (with ``pair``, a phase that
     trains packed rows: at least one) in its float32 forms, the dropout ones
     in their dropout forms, and no scalar pair; elsewhere none of them."""
     from flashattention_tpu_torch.ops import flash
@@ -5409,68 +5443,127 @@ def _f32_form_launched(launches, cfg, pair=False):
             and launches["flash_fwd_f32"] == split and (n > 0 or rest > 0))
 
 
-def phase_train_parity(args, transformer, train, packing, counters, report, *,
-                       phase="train_parity", cfg=None, docs=(70, 100, 50), attn_dropout=None):
-    """Plain and packed steps, remat off and on, two steps each, on the card
-    and on the CPU from the same float32 parameters (2-layer cut at the
-    training width, B=1, S=256; ``cfg`` another 2-layer float32 cut, its
-    parameters drawn on the card and copied, packed from ``docs``); the
-    CPU's run without remat is the reference of both card runs.  With
-    ``attn_dropout``, seed = step index: the card's keep bits must be the
-    plain version's.  The card's launches over the phase are its record's
-    (float32 training, in the default "bf16_3x": the forward's float32 form
-    at its head_dims, with dropout its dropout form at d = 64 / 128, the
-    fused backward's and the pair's float32 forms at d = 64 / 128 (the
-    pair at least once: the packed steps), the scalar kernels elsewhere;
-    the CPU runs launch nothing; ``_f32_form_launched``)."""
+def _parity_inputs(args, transformer, packing, cfg=None, docs=(70, 100, 50)):
+    """A parity phase's float32 configuration (by default the 2-layer cut at
+    the training width), its parameters on the CPU (``cfg``'s drawn on the
+    card and copied; ``draw`` draws them on the card again, bit for bit)
+    and its plain and packed batches (numpy, S = 256)."""
+    draw = None
     if cfg is None:
         cfg = _train_cfg(transformer, "float32")
         base = transformer.init_params(args.seed, cfg, device="cpu")
     else:
-        base = _to_card(transformer.init_params(args.seed, cfg), "cpu")
+        draw = functools.partial(transformer.init_params, args.seed, cfg)
+        base = _to_card(draw(), "cpu")
         torch.cuda.empty_cache()
     rng = np.random.default_rng(args.seed + 30)
     tokens = rng.integers(0, cfg.vocab_size, (1, 256)).astype(np.int32)
     docs = [rng.integers(0, cfg.vocab_size, int(n)) for n in docs]
-    p_tokens, p_segs = packing.pack_documents(docs, 256)
+    return {"cfg": cfg, "base": base, "draw": draw, "tokens": tokens,
+            "packed": packing.pack_documents(docs, 256), "docs": [len(d) for d in docs]}
 
-    def copy_to(dev):
-        return {k: (v.to(dev, copy=True) if torch.is_tensor(v)
-                    else [{n: w.to(dev, copy=True) for n, w in lay.items()} for lay in v])
-                for k, v in base.items()}
 
-    def data(packed, dev):
-        if packed:
-            return torch.tensor(p_tokens, device=dev), torch.tensor(p_segs, device=dev)
-        return (torch.tensor(tokens, device=dev),)
+def _parity_params(inputs, dev):
+    """A copy of a parity phase's parameters on ``dev`` (drawn again on the
+    card once the reference has let the CPU copy go)."""
+    if "base" not in inputs:
+        return inputs["draw"]()
+    return {k: (v.to(dev, copy=True) if torch.is_tensor(v)
+                else [{n: w.to(dev, copy=True) for n, w in lay.items()} for lay in v])
+            for k, v in inputs["base"].items()}
 
-    cases = []
+
+def _parity_batch(inputs, packed, dev):
+    if packed:
+        return tuple(torch.tensor(x, device=dev) for x in inputs["packed"])
+    return (torch.tensor(inputs["tokens"], device=dev),)
+
+
+def _parity_grads(train, inputs, packed, dev, attn_dropout):
+    """The gradients of the first step's loss on ``dev``."""
+    _, g = train.forward.make_grad_fn(inputs["cfg"], packed=packed, attn_dropout=attn_dropout)(
+        _parity_params(inputs, dev), *_parity_batch(inputs, packed, dev), 0)
+    return list(g)
+
+
+def _parity_steps(train, inputs, packed, dev, remat, attn_dropout):
+    """Two SGD steps (lr 1e-3, seed = step index) on ``dev``: their losses
+    and the parameters after them (on ``dev``)."""
+    params = _parity_params(inputs, dev)
+    make = train.make_train_step_packed if packed else train.make_train_step
+    step = make(inputs["cfg"], lr=1e-3, remat=remat, attn_dropout=attn_dropout, device=dev)
+    batch = _parity_batch(inputs, packed, dev)
+    losses = [float(step(params, *batch, seed)[0]) for seed in range(2)]
+    return losses, list(train.common.leaves(params))
+
+
+def _card_errs(card, cpu):
+    """Each card tensor's largest |card - cpu| and the CPU tensor's largest
+    magnitude, computed on the card, the CPU tensors sent over one at a
+    time: on the host the comparisons of Gemma-2's 8.9 GB of parameters
+    take tens of seconds."""
+    out = []
+    for a, b in zip(card, cpu):
+        b = b.to(a.device)
+        out.append((err(a, b), float(b.abs().max())))
+    return out
+
+
+def parity_reference(train, inputs, attn_dropout=None, threads=None):
+    """A parity phase's CPU half: for the plain and the packed batch, the
+    first step's gradients and two steps' losses and parameters, without
+    remat (on the CPU remat is bitwise the step without it;
+    tests/test_torch_train.py pins that).  It launches nothing and reads no
+    launch counter, so it may run in a worker thread beside the card's
+    phases (``threads``: that thread's CPU threads).  Parameters the card
+    can draw again (``inputs["draw"]``) leave the CPU when it is done: the
+    results it keeps are four times their size.  Returns
+    ``({packed: (grads, losses, params)}, seconds)``."""
+    if threads:
+        torch.set_num_threads(threads)
     t0 = time.perf_counter()
+    out = {packed: (_parity_grads(train, inputs, packed, "cpu", attn_dropout),
+                    *_parity_steps(train, inputs, packed, "cpu", False, attn_dropout))
+           for packed in (False, True)}
+    if inputs["draw"] is not None:
+        del inputs["base"]
+    return out, time.perf_counter() - t0
+
+
+def phase_train_parity(args, transformer, train, packing, counters, report, *,
+                       phase="train_parity", cfg=None, docs=(70, 100, 50), attn_dropout=None,
+                       reference=None):
+    """Plain and packed steps, remat off and on, two steps each, on the card
+    and on the CPU from the same float32 parameters (2-layer cut at the
+    training width, B=1, S=256; ``cfg`` another 2-layer float32 cut, its
+    parameters drawn on the card and copied, packed from ``docs``); the
+    CPU's run without remat is the reference of both card runs
+    (``parity_reference``; ``reference``: ``(inputs, (runs, seconds))``
+    computed beforehand, else here).  With ``attn_dropout``, seed = step
+    index: the card's keep bits must be the plain version's.  The card's
+    launches over the phase are its record's (float32 training, in the
+    default "bf16_3x": the forward's float32 form at its head_dims, with
+    dropout its dropout form at d = 64 / 128, the fused backward's float32
+    form at d = 64 / 128 and the pair's at d = 64 / 128 / 256 (at least
+    once: the packed steps), the scalar kernels elsewhere; the CPU runs
+    launch nothing; ``_f32_form_launched``)."""
+    t0 = time.perf_counter()
+    if reference is None:
+        inputs = _parity_inputs(args, transformer, packing, cfg, docs)
+        reference = (inputs, parity_reference(train, inputs, attn_dropout))
+    inputs, (cpu_runs, cpu_seconds) = reference
+    cfg = inputs["cfg"]
+    cases = []
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     for packed in (False, True):
-        grads = {}
-        for dev in ("cpu", "cuda"):
-            _, g = train.forward.make_grad_fn(cfg, packed=packed, attn_dropout=attn_dropout)(
-                copy_to(dev), *data(packed, dev), 0)
-            grads[dev] = [x.cpu() for x in g]
-        grad_rel = max(err(a, b) / max(float(b.abs().max()), 1e-30)
-                       for a, b in zip(grads["cuda"], grads["cpu"]))
-        del grads
-        def run(dev, remat):
-            params = copy_to(dev)
-            make = train.make_train_step_packed if packed else train.make_train_step
-            step = make(cfg, lr=1e-3, remat=remat, attn_dropout=attn_dropout, device=dev)
-            losses = [float(step(params, *data(packed, dev), seed)[0]) for seed in range(2)]
-            return losses, [p.cpu() for p in train.common.leaves(params)]
-
-        # One CPU run serves both card runs: on the CPU remat is bitwise the
-        # step without it (tests/test_torch_train.py pins that).
-        l_cpu, p_cpu = run("cpu", False)
+        g_cpu, l_cpu, p_cpu = cpu_runs[packed]
+        grad_rel = max(e / max(m, 1e-30) for e, m in _card_errs(
+            _parity_grads(train, inputs, packed, "cuda", attn_dropout), g_cpu))
         for remat in (False, True):
-            l_gpu, p_gpu = run("cuda", remat)
+            l_gpu, p_gpu = _parity_steps(train, inputs, packed, "cuda", remat, attn_dropout)
             loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
-            param_err = max(err(a, b) for a, b in zip(p_gpu, p_cpu))
+            param_err = max(e for e, _ in _card_errs(p_gpu, p_cpu))
             cases.append({
                 "packed": packed, "remat": remat, "losses_cpu": l_cpu, "losses_card": l_gpu,
                 "loss_rel_err": loss_rel, "param_max_abs_err": param_err,
@@ -5479,20 +5572,18 @@ def phase_train_parity(args, transformer, train, packing, counters, report, *,
                 and grad_rel <= TRAIN_GRAD_RTOL,
             })
             del p_gpu
-        del p_cpu
     rec = {"phase": phase, "layers": 2, "dtype": "float32", "batch": 1, "seq": 256,
            "attn_dropout": attn_dropout, "window": cfg.sliding_window, "logit_softcap": cfg.logit_softcap,
            "head_dim": cfg.head_dim, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-           "lr": 1e-3, "steps": 2, "packed_docs": [len(d) for d in docs], "cases": cases,
+           "lr": 1e-3, "steps": 2, "packed_docs": inputs["docs"], "cases": cases,
            "tol": {"loss_rel": TRAIN_LOSS_RTOL, "param_abs": TRAIN_PARAM_TOL,
                    "grad_rel": TRAIN_GRAD_RTOL},
-           "seconds": time.perf_counter() - t0,
+           "seconds": time.perf_counter() - t0, "cpu_reference_seconds": cpu_seconds,
            "launches": {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}}
     rec["f32_form_ok"] = _f32_form_launched(rec["launches"], cfg, pair=True)
     rec["ok"] = all(c["ok"] for c in cases) and rec["f32_form_ok"]
     emit(rec)
     report[phase] = rec
-    del base
     return rec
 
 
@@ -6570,6 +6661,7 @@ def main() -> int:
     check_launches = {k: n - before_checks[k] for k, n in counts().items()}
     f32q_timings(fa, flash, decode, benchit, gen, name, report)
     lap("f32q_timings")
+    before_bwd = counts()
     mains = {
         **{k: main for k, (main, _) in serving[None].items()},
         "flash_naive": naive_checks(flash, benchit, gen, name, report),
@@ -6579,6 +6671,8 @@ def main() -> int:
     # {backward kernel: {windowed case: its timed check}}
     bwd_windowed = bwd_window_checks(backward, flash, benchit, gen, name, report)
     lap("bwd_window_checks")
+    # The backward checks' launches (the scalar pair launches only there).
+    bwd_launches = {k: n - before_bwd[k] for k, n in counts().items()}
     # {kernel: timed dropout check}, and the 8-bit form's under "flash_fwd_quant"
     before_dropout = counts()
     dropout = dropout_checks(fa, backward, flash, benchit, packing, args, gen, name, report)
@@ -6654,6 +6748,35 @@ def main() -> int:
     lap("crosscheck_parity")
     phase_parity_mixtral(args, transformer, kvcache, engine_mod, report)
     lap("parity_mixtral")
+    # The float32 parity phases' CPU references run in a worker thread (one
+    # at a time, leaving the host two cores): Gemma-2's (the longest, and at
+    # 256000 tokens of vocabulary 35 GB of results) beside the device-bound
+    # training phases below (their device idle share 0.1-1.1%, PERF.md
+    # section 5), awaited before the host-bound serving of the LoRA-merged
+    # model; each of the others beside the card half of the phase before it.
+    # All four at once would pass the host's 96 GiB.
+    parity_specs = {"train_parity_gemma2_w128": {}, "train_parity": {},
+                    "train_parity_dropout": dict(attn_dropout=0.1),
+                    "train_parity_mistral_w128": {}}
+    for phase, make_cfg in (("train_parity_mistral_w128", transformer.ModelConfig.mistral7b),
+                            ("train_parity_gemma2_w128", transformer.ModelConfig.gemma2_9b)):
+        parity_specs[phase] = dict(cfg=dataclasses.replace(
+            make_cfg(num_layers=2), dtype="float32", sliding_window=PARITY_WINDOW),
+            docs=PARITY_DOCS)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    threads = max(1, (os.cpu_count() or 2) - 2)
+
+    def reference(phase, inputs=None):
+        spec = parity_specs[phase]
+        if inputs is None:  # made in the worker, the windowed cut's parameters on the card
+            inputs = _parity_inputs(args, transformer, packing, spec.get("cfg"),
+                                    spec.get("docs", (70, 100, 50)))
+        return inputs, parity_reference(train, inputs, spec.get("attn_dropout"), threads)
+
+    first = next(iter(parity_specs))
+    references = {first: pool.submit(reference, first, _parity_inputs(
+        args, transformer, packing, parity_specs[first]["cfg"], PARITY_DOCS))}
+    lap("parity_inputs")
     tcfg = _train_cfg(transformer)
     tparams = transformer.init_params(args.seed, tcfg)
     trained = {
@@ -6679,28 +6802,30 @@ def main() -> int:
     lap("train_mixtral")
     trained["train_lora"], base, lora = phase_train_lora(args, transformer, train, benchit,
                                                          counters, name, report)
+    lap("train_lora")
+    concurrent.futures.wait(references.values())
+    lap("parity_reference_wait")
     lora_served = phase_serve_lora_merged(args, transformer, train, quant, engine_mod, kvcache,
                                           counters, report, base, lora)
     del base, lora
     torch.cuda.empty_cache()
-    lap("train_lora")
+    lap("serve_lora_merged")
     trained.update(phase_train_mixed(args, transformer, train, packing, flash, benchit,
                                      counters, name, report))
     lap("train_mixed")
     phase_checkpoint(args, transformer, quant, train, engine_mod, kvcache, report)
     lap("checkpoint")
-    # Float32 training on the card: the scalar fused backward's path.
-    parity = {"train_parity": phase_train_parity(args, transformer, train, packing, counters,
-                                                 report),
-              "train_parity_dropout": phase_train_parity(
-                  args, transformer, train, packing, counters, report,
-                  phase="train_parity_dropout", attn_dropout=0.1)}
-    for phase, make_cfg in (("train_parity_mistral_w128", transformer.ModelConfig.mistral7b),
-                            ("train_parity_gemma2_w128", transformer.ModelConfig.gemma2_9b)):
-        pcfg = dataclasses.replace(make_cfg(num_layers=2), dtype="float32",
-                                   sliding_window=PARITY_WINDOW)
+    # Float32 training on the card against the CPU references, the next
+    # phase's computed meanwhile.
+    parity = {}
+    phases = list(parity_specs)
+    for i, phase in enumerate(phases):
+        if i + 1 < len(phases):
+            references[phases[i + 1]] = pool.submit(reference, phases[i + 1])
         parity[phase] = phase_train_parity(args, transformer, train, packing, counters, report,
-                                           phase=phase, cfg=pcfg, docs=PARITY_DOCS)
+                                           phase=phase, reference=references.pop(phase).result(),
+                                           **parity_specs[phase])
+    pool.shutdown()
     parity["train_parity_lora"] = phase_train_parity_lora(args, transformer, train, counters,
                                                           report)
     lap("train_parity")
@@ -6813,6 +6938,15 @@ def main() -> int:
         if kname in bwd_windowed:
             summary[-1]["windowed"] = {case: {k: rec[k] for k in (*timed, "scalar_ms") if k in rec}
                                        for case, rec in bwd_windowed[kname].items()}
+        if kname in PAIR_F32.values():  # d = 256: Gemma-2's packed layer, and with dropout 0.1
+            gem, rec = (x[TIMED_F32_BWD_WINDOW_CASE] for x in (summary[-1]["windowed"],
+                                                              bwd_windowed[kname]))
+            gem.update({k: rec[k] for k in ("bf16_mode_ms", "products", "live_pairs")})
+            gem["dropout"] = {k: dropout[f"{kname}/gemma2_packed"][k]
+                              for k in (*timed, "no_dropout_ms", "scalar_ms")}
+        if kname in PAIR:  # on no path since the float32 pair's forms take d = 256: the checks'
+            summary[-1]["check_launches"] = bwd_launches[kname] - sum(
+                bwd_launches[x] for x in within[kname])
         if kname in EXTRA_KERNELS:  # the dropout form: its timed check and launches
             less = (f"{TC_KERNELS[kname]}_dropout", f"{PAIR_F32[kname]}_dropout") if kname in PAIR else ()
             summary[-1]["dropout"] = _extra_entry(dropout[kname], paths, f"{kname}_dropout",
@@ -6956,7 +7090,12 @@ def main() -> int:
                            "train_mixed_packed", "train_mixed_remat_dropout",
                            "train_parity_lora", "selftest", "benches")
                if not report[p]["ok"]]
-    failed += [k["name"] for k in summary if k["launches"] == 0]
+    # The scalar pair left the paths when float32 packed training at
+    # Gemma-2's d = 256 took the pair's float32 forms (bf16 runs the
+    # tensor-core pair, float32 at d = 64 / 128 / 256 the float32 forms):
+    # it must still launch in the backward checks (ops.flash.scalar_forms).
+    failed += [k["name"] for k in summary
+               if k["launches"] == 0 and k.get("check_launches", 0) == 0]
     # The scalar 8-bit forms left the paths for their tensor-core forms
     # (which must launch, above): since float32 q over 8-bit pages is taken
     # in bf16, the float32 speculative phase's int8 cache runs paged

@@ -141,11 +141,13 @@ struct Segs {
   const int* kv_rng;  // (bh, ceil(s_kv / kSegTile), 2)
 };
 
-// The [min, max] id of rows [r0, r0 + n) (r0 and n multiples of kSegTile)
-// from one head's table of `tiles` entries; an empty range past the end.
+// The [min, max] id of rows [r0, r0 + n) from one head's table of `tiles`
+// entries: of the entries that hold them (rows [r0, r0 + n) less than a
+// whole entry, as the 32-row tiles of the d = 256 float32 pair: the entry's
+// range, which holds theirs); an empty range past the end.
 __device__ __forceinline__ int2 seg_range(const int* rng, int tiles, int r0, int n) {
   int2 r = make_int2(INT_MAX, INT_MIN);
-  for (int t = r0 / kSegTile; t < min(tiles, (r0 + n) / kSegTile); ++t) {
+  for (int t = r0 / kSegTile; t < min(tiles, (r0 + n - 1) / kSegTile + 1); ++t) {
     r.x = min(r.x, rng[2 * t]);
     r.y = max(r.y, rng[2 * t + 1]);
   }

@@ -68,32 +68,40 @@
 // it (form="tc").
 //
 // kTerms (built with FA_F32 into flash_bwd_dq_tc_f32[_extra]): float32 q, k,
-// v and dO at head_dim 64 and 128, as _dq_kernel computes them in the JAX
-// package's modes "bf16_3x" and "bf16" (no block mask).  A split pass
+// v and dO at head_dim 64, 128 and 256, as _dq_kernel computes them in the
+// JAX package's modes "bf16_3x" and "bf16" (no block mask).  A split pass
 // (tc_common.cuh, tc::split) writes each row as bf16 terms, [hi | lo] (kTerms
 // 2) or [hi] (1), into buffers the pair's dK/dV pass then reads as they
 // are; the kernel reads rows of kTerms d bf16 (so d = 64 lays out as the
-// bf16 form at 128 and d = 128 as at 256, one stage).  With two terms each
-// of S = Q K^T, dP = dO V^T and dQ += dS K takes kProducts: at d = 128 three,
-// hi hi + hi lo + lo hi (JAX's _dot_g, flash.py:149-181); at d = 64 four,
+// bf16 form at 128, d = 128 as at 256, one stage, and d = 256 with one
+// term as the bf16 form there).  With two terms each of S = Q K^T, dP = dO
+// V^T and dQ += dS K takes kProducts: at d = 128 and 256 three, hi hi + hi
+// lo + lo hi (JAX's _dot_g, flash.py:149-181); at d = 64 four,
 // lo lo too, as the JAX pair's lane-packed products (_packed_nt,
 // _packed_fold, backward.py:57-93, taken at 2 d <= 128, :713-729).  S and
 // dP pick each term by chunk descriptor; dQ runs dS's two register terms
 // against K's hi and (with K's lo) its hi, and at d = 64 its lo.  So a live
-// pair costs 18 d tensor flops at d = 128 and 24 d at d = 64 (one term: 8
-// d).  dQ stays d columns wide in registers and is written once, in
+// pair costs 18 d tensor flops at d = 128 and 256 and 24 d at d = 64 (one
+// term: 8 d).  dQ stays d columns wide in registers and is written once, in
 // float32.
+//
+// d = 256 over two terms: rows of 512 bf16 (1 KB), so Q and dO of 128 rows
+// would take 256 KB.  A block there is 64 query rows and one consumer
+// warpgroup (256 threads, no register hand-over: each thread may hold 255
+// registers, dQ 128 of them), Q and dO 128 KB, and the key tiles 32 rows
+// (K and V 64 KB, one stage): 193 KB in all.  S and dP are 64 x 32 (wgmma
+// n32), dS K takes two k-steps a 64-column chunk of dQ, and a key tile is
+// half an entry of the segment range table, whose entry's range (which
+// holds the tile's) the tile skip reads.  The producer loads the next tile
+// once the consumers are done with this one, as at d = 256 in bf16; the
+// other warpgroup's overlap is later work.
 #include "bwd_common.cuh"
 #include "tc_common.cuh"
 
 namespace {
 
-constexpr int kBlockM = 128;  // query rows per block: two consumer warpgroups of 64
-constexpr int kN = 64;        // key rows per tile
-constexpr int kThreads = 384;
 constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
-static_assert(kN == fa_bwd::kSegTile, "a key tile is one entry of the segment range table");
 
 // The products of each matmul (see kTerms above): (A term, B term) pairs
 // (0, 0), (0, 1), (1, 0), (1, 1), the first kProducts.
@@ -106,9 +114,18 @@ using tc::OutT;
 using tc::store2;
 using tc::term_products;
 
+// The block's arrangement by the width of a stored row: up to 256 bf16, 128
+// query rows (two consumer warpgroups of 64) against key tiles of 64 rows;
+// rows of 512 (d = 256 over two terms), 64 query rows (one consumer
+// warpgroup) against key tiles of 32 rows (see kTerms above).
 template <int D, int kTerms = 0>
 struct Cfg {
   static constexpr int kWidth = tc::kRowWidth<D, kTerms>;
+  static constexpr bool kNarrow = kWidth > 256;
+  static constexpr int kBlockM = kNarrow ? 64 : 128;  // query rows per block
+  static constexpr int kN = kNarrow ? 32 : 64;        // key rows per tile
+  static constexpr int kConsumers = kBlockM / 64;     // consumer warpgroups
+  static constexpr int kThreads = 128 * (1 + kConsumers);
   static constexpr int kStages = kWidth >= 256 ? 1 : 2;
   static constexpr int kChunks = kWidth / tc::kChunk;  // of a stored row
   static constexpr int kLC = D / tc::kChunk;           // of one term
@@ -123,14 +140,15 @@ struct Cfg {
   static constexpr int kBar = kSeg + kStages * kN * 4;
   static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + tc::kAtomBytes;  // + alignment
   static_assert(kBytes <= 232448, "over Hopper's shared memory a block");
+  static_assert(fa_bwd::kSegTile % kN == 0, "a key tile lies in one segment table entry");
 };
 
 // The key columns [begin, end) the query rows [r0, r0 + kBlockM) may see,
-// begin a multiple of the tile (flash_fwd_tc.cuh's kv_range).
+// begin a multiple of the tile kN (flash_fwd_tc.cuh's kv_range).
 struct Range {
   int begin, end;
 };
-template <bool kWindowCap>
+template <bool kWindowCap, int kBlockM, int kN>
 __device__ __forceinline__ Range kv_range(int r0, int rows, int kv_len, int q_offset,
                                           int q_seq_len, int causal, int window) {
   const int r1 = min(rows, r0 + kBlockM) - 1;
@@ -145,7 +163,7 @@ __device__ __forceinline__ Range kv_range(int r0, int rows, int kv_len, int q_of
 }
 
 template <int D, bool kWindowCap, bool kExtra, int kTerms>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<D, kTerms>::kThreads, 1)
 flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
@@ -155,7 +173,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                        int q_offset, int q_seq_len, int causal, float scale, int window,
                        float softcap, const fa::Extras ex) {
   using C = Cfg<D, kTerms>;
-  constexpr int kStages = C::kStages;
+  constexpr int kStages = C::kStages, kBlockM = C::kBlockM, kN = C::kN;
   constexpr int kP = kProducts<D, kTerms>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -179,7 +197,8 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_kt = (s_kv + fa_bwd::kSegTile - 1) / fa_bwd::kSegTile;
   const int* q_rng = has_seg ? sg.q_rng + static_cast<size_t>(bh) * n_qt * 2 : nullptr;
   const int* kv_rng = has_seg ? sg.kv_rng + static_cast<size_t>(bh) * n_kt * 2 : nullptr;
-  const Range kv = kv_range<kWindowCap>(r0, rows, kv_len, q_offset, q_seq_len, causal, win);
+  const Range kv =
+      kv_range<kWindowCap, kBlockM, kN>(r0, rows, kv_len, q_offset, q_seq_len, causal, win);
   int n_tiles = kv.end > kv.begin ? (kv.end - kv.begin + kN - 1) / kN : 0;
   // A block mask walks the query tile's live key tiles instead (below kv_len).
   int2 bm = make_int2(0, 0);
@@ -193,7 +212,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       tc::mbar_init(&full[s], 32);   // the producer warp's lanes
-      tc::mbar_init(&empty[s], 256);  // every consumer thread
+      tc::mbar_init(&empty[s], 128 * C::kConsumers);  // every consumer thread
     }
     tc::mbar_init(q_bar, 1);
     tc::mbar_init_fence();
@@ -201,8 +220,10 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
+  // Registers move from the producer to the consumers where the block has
+  // two of them (at 256 threads each thread may hold 255 already).
   if (wg == 0) {  // producer
-    tc::setmaxnreg_dec<kProducerRegs>();
+    if constexpr (C::kConsumers > 1) tc::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
     if (lane == 0) {
@@ -237,8 +258,9 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
-  // Consumers: warpgroup cw owns query rows rw0 .. rw0 + 63.
-  tc::setmaxnreg_inc<kConsumerRegs>();
+  // Consumers: warpgroup cw owns query rows rw0 .. rw0 + 63 (the block's
+  // kConsumers warpgroups).
+  if constexpr (C::kConsumers > 1) tc::setmaxnreg_inc<kConsumerRegs>();
   const int cw = wg - 1;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
@@ -415,7 +437,7 @@ struct Args {
 template <int D, bool kWindowCap, bool kExtra, int kTerms>
 int launch(const Args& a) {
   using C = Cfg<D, kTerms>;
-  constexpr int W = C::kWidth;
+  constexpr int W = C::kWidth, kBlockM = C::kBlockM, kN = C::kN;
   CUtensorMap mq, mk, mv, mdo;
   // K/V rows past kv_len read as zeros (dP there would meet V's garbage).
   const int kv_rows = a.kv_len > 0 ? a.kv_len : 1;
@@ -431,7 +453,7 @@ int launch(const Args& a) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.rows + kBlockM - 1) / kBlockM, a.bh);
-  kernel<<<grid, kThreads, C::kBytes, a.stream>>>(
+  kernel<<<grid, C::kThreads, C::kBytes, a.stream>>>(
       mq, mk, mv, mdo, a.lse, a.di, a.sg, static_cast<OutT<kTerms>*>(a.dq), a.rows, a.s_kv,
       a.kv_len, a.q_offset, a.q_seq_len, a.causal, a.scale, a.window, a.softcap, a.ex);
   return static_cast<int>(cudaGetLastError());
@@ -457,7 +479,7 @@ int launch_w(const Args& a) {
 
 #ifdef FA_F32
 // The float32 form.  q, k, v, dout: float32 (bh, rows, d) / (bh, s_kv, d),
-// contiguous, 16-byte aligned, d 64 or 128; q2, k2, v2, do2: bf16 buffers of
+// contiguous, 16-byte aligned, d 64, 128 or 256; q2, k2, v2, do2: bf16 buffers of
 // the same rows and terms * d columns (terms 2, "bf16_3x": [hi | lo]; 1,
 // "bf16": [hi]), which the split pass fills before the kernel reads them
 // when `split` is nonzero (else they already hold these inputs' terms); dq:
@@ -472,7 +494,7 @@ extern "C" int fa_flash_bwd_dq_tc_f32(int terms, int split, const void* q, const
                                       float scale, int window, float softcap, int row_stride,
                                       int dropout_seed, int dropout_threshold, float dropout_inv,
                                       void* stream) {
-  if ((terms != 1 && terms != 2) || (d != 64 && d != 128)) return -1;
+  if ((terms != 1 && terms != 2) || (d != 64 && d != 128 && d != 256)) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int status = split ? tc::split_bwd(q, k, v, dout, q2, k2, v2, do2,
                                             static_cast<long long>(bh) * rows,
@@ -488,7 +510,8 @@ extern "C" int fa_flash_bwd_dq_tc_f32(int terms, int split, const void* q, const
                dq, bh, rows, s_kv, kv_len, q_offset, q_seq_len, causal, scale, window, softcap,
                ex, st};
   if (d == 64) return terms == 2 ? launch_w<64, 2>(a) : launch_w<64, 1>(a);
-  return terms == 2 ? launch_w<128, 2>(a) : launch_w<128, 1>(a);
+  if (d == 128) return terms == 2 ? launch_w<128, 2>(a) : launch_w<128, 1>(a);
+  return terms == 2 ? launch_w<256, 2>(a) : launch_w<256, 1>(a);
 }
 #else
 

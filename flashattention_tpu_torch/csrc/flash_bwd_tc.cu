@@ -102,10 +102,11 @@
 //
 // kPair with kTerms (built with FA_PAIR and FA_F32 into
 // flash_bwd_dkv_tc_f32[_extra]): the pair's dK/dV pass over float32, as
-// _dkv_kernel computes it in those modes.  At d = 128 each of its four
-// products is the three above; at d = 64 the JAX pair is lane-packed
-// (backward.py:713-729: 2 d <= 128 lanes, q, k, v and dO streamed as [hi |
-// lo] rows), and its products (_packed_nt for S and dP, _packed_fold for dV
+// _dkv_kernel computes it in those modes, at d = 64, 128 and 256.  At d =
+// 128 and 256 each of its four products is the three above (d = 256 on the
+// wide kernel over 32-row query tiles: see there); at d = 64 the JAX pair
+// is lane-packed (backward.py:713-729: 2 d <= 128 lanes, q, k, v and dO
+// streamed as [hi | lo] rows), and its products (_packed_nt for S and dP, _packed_fold for dV
 // and dK, backward.py:57-93) keep lo lo too: four a matmul (kProducts), so a
 // live pair costs 32 d tensor flops (24 d at d = 128).  Segment ids and
 // their tile skip are the bf16 pair's; no block mask.  The split pass runs
@@ -165,51 +166,55 @@ struct Cfg {
 };
 
 // Whether the block of key rows [c0, c0 + kKeys) has any live pair with
-// the query tile [r0, r0 + kBlockM): the scalar kernel's skips.
-template <bool kWindowCap, int kKeys>
+// the query tile [r0, r0 + kRows): the scalar kernel's skips.
+template <bool kWindowCap, int kKeys, int kRows = kBlockM>
 __device__ __forceinline__ bool live_tile(int r0, int c0, int rows, int q_offset, int q_seq_len,
                                           int causal, int window) {
-  if (causal && q_offset + fa_bwd::tile_last_pos(r0, kBlockM, rows, q_seq_len) < c0) return false;
+  if (causal && q_offset + fa_bwd::tile_last_pos(r0, kRows, rows, q_seq_len) < c0) return false;
   if (kWindowCap && window > 0 &&
-      q_offset + fa_bwd::tile_first_pos(r0, kBlockM, rows, q_seq_len) - window + 1 >
+      q_offset + fa_bwd::tile_first_pos(r0, kRows, rows, q_seq_len) - window + 1 >
           c0 + kKeys - 1)
     return false;
   return true;
 }
 
-// With segment ids (kPair), whether the query tile [r0, r0 + kBlockM) and key
+// With segment ids (kPair), whether the query tile [r0, r0 + kRows) and key
 // ids `keys` may meet: their id ranges overlap.  No segment ids: true.
-template <bool kPair>
+template <bool kPair, int kRows = kBlockM>
 __device__ __forceinline__ bool ids_meet(const int* q_rng, int n_qt, int r0, int2 keys,
                                          int2* q_ids) {
   if (!kPair || q_rng == nullptr) return true;
-  *q_ids = fa_bwd::seg_range(q_rng, n_qt, r0, kBlockM);
+  *q_ids = fa_bwd::seg_range(q_rng, n_qt, r0, kRows);
   return fa_bwd::seg_meet(*q_ids, keys);
 }
 
 // The query tile of step `it` of a block's walk: the it-th, or under a block
 // mask (bm.x: the block's first entry in bm_idx) the it-th live one.
+template <int kRows = kBlockM>
 __device__ __forceinline__ int walk_tile(const fa::Extras& ex, bool use_bm, int2 bm, int it) {
-  return (use_bm ? ex.bm_idx[bm.x + it] : it) * kBlockM;
+  return (use_bm ? ex.bm_idx[bm.x + it] : it) * kRows;
 }
 
 // A block's walk: how many steps it takes (the query tiles, or under a block
 // mask the key tile's live ones that hold rows) and, under one, where its
 // entries start in bm_idx; none past kv_len.
+template <int kRows = kBlockM>
 __device__ __forceinline__ int2 walk(const fa::Extras& ex, bool use_bm, int kt, int c0, int rows,
                                      int kv_len) {
   if (c0 >= kv_len) return make_int2(0, 0);
-  if (use_bm) return fa::bm_walk(ex, kt, kBlockM, rows);
-  return make_int2(0, (rows + kBlockM - 1) / kBlockM);
+  if (use_bm) return fa::bm_walk(ex, kt, kRows, rows);
+  return make_int2(0, (rows + kRows - 1) / kRows);
 }
 
 // The producer warp of both kernels: K and V of the block's kKeys key rows
-// once, then for each live query tile its Q and dO tiles into the ring,
-// with the tile's lse, di, each row's first and last visible column, its
-// dropout row key and (kPair) its segment id in the stage's table (kTabRows
-// kBlockM words).  kPair: a tile whose ids do not meet the block's key ids
-// `keys` is skipped (ids_meet).  It takes the wk.y steps of the block's walk.
-template <bool kWindowCap, bool kExtra, bool kPair, int kKeys, int kChunks>
+// once, then for each live query tile of kRows rows its Q and dO tiles into
+// the ring of kSt stages, with the tile's lse, di, each row's first and
+// last visible column, its dropout row key and (kPair) its segment id in
+// the stage's table (kTabRows kRows words).  kPair: a tile whose ids do not
+// meet the block's key ids `keys` is skipped (ids_meet).  It takes the wk.y
+// steps of the block's walk.
+template <bool kWindowCap, bool kExtra, bool kPair, int kKeys, int kChunks, int kRows = kBlockM,
+          int kSt = kStages>
 __device__ __forceinline__ void produce(unsigned char* smem, int v_off, int q_off, int do_off,
                                         int tab_off, uint64_t* full, uint64_t* empty,
                                         uint64_t* kv_bar, const CUtensorMap* tm_q,
@@ -220,9 +225,9 @@ __device__ __forceinline__ void produce(unsigned char* smem, int v_off, int q_of
                                         int win, const fa::Extras& ex, const fa_bwd::Segs& sg,
                                         const int* q_rng, int n_qt, int2 keys) {
   constexpr int kKVChunk = kKeys * tc::kChunkRowBytes;
-  constexpr int kQChunk = kBlockM * tc::kChunkRowBytes;
+  constexpr int kQChunk = kRows * tc::kChunkRowBytes;
   constexpr int kQTile = kChunks * kQChunk;
-  constexpr int kTabWords = kTabRows * kBlockM;
+  constexpr int kTabWords = kTabRows * kRows;
   const int lane = threadIdx.x;
   const bool dropout = kExtra && ex.threshold != 0;
   if (lane == 0) {
@@ -237,24 +242,25 @@ __device__ __forceinline__ void produce(unsigned char* smem, int v_off, int q_of
   const size_t head = static_cast<size_t>(bh) * rows;
   const bool use_bm = kExtra && ex.bm_ptr != nullptr;
   for (int it = 0, i = 0; it < wk.y; ++it) {
-    const int r0 = walk_tile(ex, use_bm, wk, it);
-    if (!live_tile<kWindowCap, kKeys>(r0, c0, rows, q_offset, q_seq_len, causal, win)) continue;
+    const int r0 = walk_tile<kRows>(ex, use_bm, wk, it);
+    if (!live_tile<kWindowCap, kKeys, kRows>(r0, c0, rows, q_offset, q_seq_len, causal, win))
+      continue;
     int2 q_ids;
-    if (!ids_meet<kPair>(q_rng, n_qt, r0, keys, &q_ids)) continue;
-    const int s = i % kStages;
-    if (i >= kStages) tc::mbar_wait(&empty[s], (i / kStages - 1) & 1);
+    if (!ids_meet<kPair, kRows>(q_rng, n_qt, r0, keys, &q_ids)) continue;
+    const int s = i % kSt;
+    if (i >= kSt) tc::mbar_wait(&empty[s], (i / kSt - 1) & 1);
     float* tf = tab_f + s * kTabWords;
     int* ti = tab_i + s * kTabWords;
-    for (int x = lane; x < kBlockM; x += 32) {
+    for (int x = lane; x < kRows; x += 32) {
       const int r = r0 + x;
       const bool in = r < rows;
       tf[x] = in ? lse[head + r] : 0.f;
-      tf[kBlockM + x] = in ? di[head + r] : 0.f;
-      ti[2 * kBlockM + x] = fa_bwd::row_first(r, q_offset, q_seq_len, win);
-      ti[3 * kBlockM + x] = fa_bwd::row_limit(r, rows, kv_len, q_offset, q_seq_len, causal);
-      ti[4 * kBlockM + x] =
+      tf[kRows + x] = in ? di[head + r] : 0.f;
+      ti[2 * kRows + x] = fa_bwd::row_first(r, q_offset, q_seq_len, win);
+      ti[3 * kRows + x] = fa_bwd::row_limit(r, rows, kv_len, q_offset, q_seq_len, causal);
+      ti[4 * kRows + x] =
           dropout ? static_cast<int>(fa::dropout_row_key(ex, bh, r, q_seq_len)) : 0;
-      ti[5 * kBlockM + x] = kPair && in && sg.q != nullptr ? sg.q[head + r] : 0;
+      ti[5 * kRows + x] = kPair && in && sg.q != nullptr ? sg.q[head + r] : 0;
     }
     if (lane == 0) {
       tc::mbar_arrive_tx(&full[s], 2 * kQTile);
@@ -591,11 +597,16 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 // arrival pending, since each side's next arrival waits on the other's.
 // kPair: no dS^T and no dQ, so barriers 2 and 4 go; the dS side arrives on 3
 // as soon as it has read Y^T.
+// Rows of 512 bf16 (the pair at d = 256 over two float32 terms, kPair with
+// kTerms 2): K and V of the block's 64 key rows take 128 KB, and a stage of
+// 64-row Q and dO tiles another 128 KB.  So there the query tiles are 32
+// rows (kRows: S^T, dP^T and Y^T 64 x 32, dV and dK over two k-steps a
+// chunk) and the ring one stage (64 KB): 210 KB with X.  The producer loads
+// the next tile once both warpgroups are done with this one.
 namespace wide {
 
 constexpr int kKeys = 64;  // key rows per block, shared by both warpgroups
 constexpr int kKVChunk = kKeys * tc::kChunkRowBytes;
-constexpr int kQChunk = kBlockM * tc::kChunkRowBytes;
 constexpr int kDsBytes = kKeys * tc::kChunkRowBytes;  // one bf16 term of dS^T
 static_assert(2 * kDsBytes == 4 * kKeys * kBlockM, "X holds Y^T in float32 and dS^T's two terms");
 
@@ -603,34 +614,38 @@ template <int D, int kTerms>
 struct Cfg {
   static constexpr int kChunks = tc::kRowWidth<D, kTerms> / tc::kChunk;  // of a stored row
   static constexpr int kLC = D / tc::kChunk;                           // of one term
+  static constexpr int kRows = kChunks > 4 ? 32 : kBlockM;  // query rows per tile
+  static constexpr int kSt = kChunks > 4 ? 1 : kStages;     // stages of the ring
+  static constexpr int kQChunk = kRows * tc::kChunkRowBytes;
   static constexpr int kQTile = kChunks * kQChunk;
   // K | V | Q stages | dO stages | X | tables | barriers
   static constexpr int kV = kChunks * kKVChunk;
   static constexpr int kQ = kV + kChunks * kKVChunk;
-  static constexpr int kDo = kQ + kStages * kQTile;
-  static constexpr int kX = kDo + kStages * kQTile;
+  static constexpr int kDo = kQ + kSt * kQTile;
+  static constexpr int kX = kDo + kSt * kQTile;
   static constexpr int kTab = kX + 2 * kDsBytes;
-  static constexpr int kTabWords = kTabRows * kBlockM;
-  static constexpr int kBar = kTab + kStages * kTabWords * 4;
-  static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + tc::kAtomBytes;
-  static_assert(kChunks == 4, "rows of 256 bf16");
+  static constexpr int kTabWords = kTabRows * kRows;
+  static constexpr int kBar = kTab + kSt * kTabWords * 4;
+  static constexpr int kBytes = kBar + 8 * (2 * kSt + 1) + tc::kAtomBytes;
+  static_assert(kChunks == 4 || kChunks == 8, "rows of 256 or 512 bf16");
   static_assert(kBytes <= 232448, "over Hopper's shared memory a block");
 };
 
-// dX += A^T B over the tile's 64 query rows, 64 columns of B (its MN-major
-// tile `b_tile`) at a time, A^T from registers as two bf16 terms (with two
-// terms of B also A's hi against B's lo, kLC chunks on); each part summed
-// afresh and added to acc in float32 (see the d <= 128 kernel).
-template <int D, int kTerms>
-__device__ __forceinline__ void add_products(float (&acc)[D / 2], const uint32_t (&ah)[4][4],
-                                             const uint32_t (&al)[4][4], uint32_t b_tile) {
-  constexpr int kLC = Cfg<D, kTerms>::kLC;
+// dX += A^T B over the tile's kRows query rows, 64 columns of B (its
+// MN-major tile `b_tile`) at a time, A^T from registers as two bf16 terms
+// (with two terms of B also A's hi against B's lo, kLC chunks on); each part
+// summed afresh and added to acc in float32 (see the d <= 128 kernel).
+template <int D, int kTerms, int kRows = Cfg<D, kTerms>::kRows>
+__device__ __forceinline__ void add_products(float (&acc)[D / 2],
+                                             const uint32_t (&ah)[kRows / 16][4],
+                                             const uint32_t (&al)[kRows / 16][4], uint32_t b_tile) {
+  constexpr int kLC = Cfg<D, kTerms>::kLC, kQChunk = Cfg<D, kTerms>::kQChunk;
 #pragma unroll
   for (int c = 0; c < kLC; ++c) {
     float part[32];
     tc::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk) {
+    for (int kk = 0; kk < kRows / 16; ++kk) {
       const uint64_t db = tc::make_desc(b_tile + c * kQChunk + kk * 2048, kQChunk, 1024);
       tc::wgmma_rs<1>(part, ah[kk], db, kk > 0);
       tc::wgmma_rs<1>(part, al[kk], db, 1);
@@ -653,6 +668,7 @@ template <int D, int kTerms>
 __device__ __forceinline__ void dq_half(unsigned char* smem, float* dq_acc, int bh, int rows,
                                         int r0, int c0, int warp, int g, int t) {
   using C = Cfg<D, kTerms>;
+  static_assert(C::kRows == 64, "dQ's products take 64-row query tiles");
   const uint32_t hi_base = tc::smem_u32(smem + C::kX), lo_base = hi_base + kDsBytes;
 #pragma unroll
   for (int c = c0; c < c0 + C::kLC / 2; ++c) {
@@ -698,14 +714,14 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   using C = Cfg<D, kTerms>;
   static_assert(kProducts<D, kPair, kTerms> == (kTerms == 2 ? 3 : 1), "add_products' count");
   constexpr int kQ = C::kQ, kDo = C::kDo, kX = C::kX, kTab = C::kTab, kTabWords = C::kTabWords;
-  constexpr int kQTile = C::kQTile;
+  constexpr int kQTile = C::kQTile, kQChunk = C::kQChunk, kRows = C::kRows, kSt = C::kSt;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + tc::kAtomBytes - 1) &
       ~static_cast<uintptr_t>(tc::kAtomBytes - 1));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBar);
-  uint64_t* empty = full + kStages;
-  uint64_t* kv_bar = empty + kStages;
+  uint64_t* empty = full + kSt;
+  uint64_t* kv_bar = empty + kSt;
   const float* tab_f = reinterpret_cast<const float*>(smem + kTab);
   const int* tab_i = reinterpret_cast<const int*>(smem + kTab);
 
@@ -716,7 +732,7 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int win = kWindowCap ? window : 0;
   const float cap = kWindowCap ? softcap : 0.f;
   const bool dropout = kExtra && ex.threshold != 0;
-  const int2 wk = walk(ex, use_bm, kt, c0, rows, kv_len);  // the query tiles, as above
+  const int2 wk = walk<kRows>(ex, use_bm, kt, c0, rows, kv_len);  // the query tiles, as above
   // kPair, segment ids: each head's id ranges, and the block's key rows'.
   const bool has_seg = kPair && sg.q != nullptr;
   const int n_qt = (rows + fa_bwd::kSegTile - 1) / fa_bwd::kSegTile;
@@ -726,7 +742,7 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int2 keys = has_seg ? fa_bwd::seg_range(kv_rng, n_kt, c0, kKeys) : make_int2(0, 0);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kSt; ++s) {
       tc::mbar_init(&full[s], 32);
       tc::mbar_init(&empty[s], 256);
     }
@@ -739,7 +755,7 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {  // producer
     tc::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x >= 32) return;
-    produce<kWindowCap, kExtra, kPair, kKeys, C::kChunks>(
+    produce<kWindowCap, kExtra, kPair, kKeys, C::kChunks, kRows, kSt>(
         smem, C::kV, kQ, kDo, kTab, full, empty, kv_bar, &tm_q, &tm_k, &tm_v, &tm_do, lse, di, bh, c0,
         wk, rows, kv_len, q_offset, q_seq_len, causal, win, ex, sg, q_rng, n_qt, keys);
     return;
@@ -768,19 +784,20 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   tc::mbar_wait(kv_bar, 0);
 
   for (int it = 0, i = 0; it < wk.y; ++it) {
-    const int r0 = walk_tile(ex, use_bm, wk, it);
+    const int r0 = walk_tile<kRows>(ex, use_bm, wk, it);
     const int slot = use_bm ? ex.bm_part[wk.x + it] : -1;  // a partial tile's element bits
-    if (!live_tile<kWindowCap, kKeys>(r0, c0, rows, q_offset, q_seq_len, causal, win)) continue;
+    if (!live_tile<kWindowCap, kKeys, kRows>(r0, c0, rows, q_offset, q_seq_len, causal, win))
+      continue;
     int2 q_ids = make_int2(0, 0);
-    if (!ids_meet<kPair>(q_rng, n_qt, r0, keys, &q_ids)) continue;
-    const int s = i % kStages;
-    tc::mbar_wait(&full[s], (i / kStages) & 1);
+    if (!ids_meet<kPair, kRows>(q_rng, n_qt, r0, keys, &q_ids)) continue;
+    const int s = i % kSt;
+    tc::mbar_wait(&full[s], (i / kSt) & 1);
     const uint32_t q_tile = tc::smem_u32(smem + kQ + s * kQTile);
     const uint32_t do_tile = tc::smem_u32(smem + kDo + s * kQTile);
     const float* tf = tab_f + s * kTabWords;
     const int* ti = tab_i + s * kTabWords;
 
-    float st[kBlockM / 2];  // S^T (P side) or dP^T (dS side), key rows x query rows
+    float st[kRows / 2];  // S^T (P side) or dP^T (dS side), key rows x query rows
     const uint32_t b_base = p_side ? q_tile : do_tile;
     tc::wgmma_fence();
     term_products<D, kProducts<D, kPair, kTerms>>(st, a_base, kKVChunk, b_base, kQChunk);
@@ -788,23 +805,23 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     tc::wgmma_wait<0>();
     tc::fence_regs(st);
 
-    uint32_t ah[kBlockM / 16][4], al[kBlockM / 16][4];
+    uint32_t ah[kRows / 16][4], al[kRows / 16][4];
     if (p_side) {
       // A partial tile's element bits of key rows kl_a and kl_a + 8 (over
       // the tile's query rows).
-      unsigned bits_a[kBlockM / 32], bits_b[kBlockM / 32];
-      fa::tile_bits<kKeys, kBlockM>(ex.bm_bits, slot, kl_a, t, bits_a, bits_b);
-      const int pmin = q_offset + fa_bwd::tile_first_pos(r0, kBlockM, rows, q_seq_len);
-      const int pmax = q_offset + fa_bwd::tile_last_pos(r0, kBlockM, rows, q_seq_len);
+      unsigned bits_a[kRows / 32], bits_b[kRows / 32];
+      fa::tile_bits<kKeys, kRows>(ex.bm_bits, slot, kl_a, t, bits_a, bits_b);
+      const int pmin = q_offset + fa_bwd::tile_first_pos(r0, kRows, rows, q_seq_len);
+      const int pmax = q_offset + fa_bwd::tile_last_pos(r0, kRows, rows, q_seq_len);
       const bool mixed_ids =
           has_seg && !(q_ids.x == q_ids.y && keys.x == keys.y && q_ids.x == keys.x);
-      const bool need_mask = mixed_ids || r0 + kBlockM > rows || c0 + kKeys - 1 >= kv_len ||
+      const bool need_mask = mixed_ids || r0 + kRows > rows || c0 + kKeys - 1 >= kv_len ||
                              (causal && c0 + kKeys - 1 > pmin) || (win > 0 && c0 <= pmax - win);
-      float y[kBlockM / 2];
+      float y[kRows / 2];
       fa::with_mask_form(need_mask, slot >= 0, [&](auto form) {  // as the d <= 128 kernel's
         constexpr int kForm = decltype(form)::value;
 #pragma unroll
-        for (int j = 0; j < kBlockM / 8; ++j) {
+        for (int j = 0; j < kRows / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int x = 8 * j + 2 * t + (e & 1);  // query row in the tile
@@ -822,12 +839,12 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
             if constexpr (kForm != fa::kMaskNone)
               live = e < 2 ? fa::tile_bit(bits_a, j, e & 1) : fa::tile_bit(bits_b, j, e & 1);
             if constexpr (kForm == fa::kMaskAll)
-              live = live && key <= ti[3 * kBlockM + x] && key >= ti[2 * kBlockM + x] &&
-                     (!has_seg || ti[5 * kBlockM + x] == (e < 2 ? seg_ka : seg_kb));
+              live = live && key <= ti[3 * kRows + x] && key >= ti[2 * kRows + x] &&
+                     (!has_seg || ti[5 * kRows + x] == (e < 2 ? seg_ka : seg_kb));
             const float p = live ? tc::ex2((sc - tf[x]) * tc::kLog2e) : 0.f;
             y[4 * j + e] = p * c_fac;
             float z = p;  // Z = keep P / (1 - rate)
-            if (dropout && !fa::dropout_kept(static_cast<unsigned>(ti[4 * kBlockM + x]), key,
+            if (dropout && !fa::dropout_kept(static_cast<unsigned>(ti[4 * kRows + x]), key,
                                              ex.threshold))
               z = 0.f;
             st[4 * j + e] = dropout ? z * ex.inv : z;
@@ -836,10 +853,10 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       });
       tc::named_sync(3, 256);  // the dS side's dQ products are done with X
 #pragma unroll
-      for (int j = 0; j < kBlockM / 2; ++j) x_f[j * 128 + tid] = y[j];
+      for (int j = 0; j < kRows / 2; ++j) x_f[j * 128 + tid] = y[j];
       tc::named_arrive(1, 256);  // Y^T written
 #pragma unroll
-      for (int kk = 0; kk < kBlockM / 16; ++kk) tc::pack_a2(ah[kk], al[kk], st, kk);
+      for (int kk = 0; kk < kRows / 16; ++kk) tc::pack_a2(ah[kk], al[kk], st, kk);
       add_products<D, kTerms>(acc, ah, al, do_tile);  // dV += Z^T dO
       if constexpr (!kPair) {
         tc::named_sync(2, 256);  // dS^T written
@@ -847,30 +864,30 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     } else {
       tc::named_sync(1, 256);  // Y^T written
-      float y[kBlockM / 2];
+      float y[kRows / 2];
 #pragma unroll
-      for (int j = 0; j < kBlockM / 2; ++j) y[j] = x_f[j * 128 + tid];
+      for (int j = 0; j < kRows / 2; ++j) y[j] = x_f[j * 128 + tid];
       if constexpr (kPair) tc::named_arrive(3, 256);  // done with X
       else tc::named_sync(4, 128);  // every thread of this side has read its Y^T
 #pragma unroll
-      for (int j = 0; j < kBlockM / 8; ++j) {
+      for (int j = 0; j < kRows / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int x = 8 * j + 2 * t + (e & 1);
           float dp = st[4 * j + e];
           if (dropout)
-            dp = fa::dropout_kept(static_cast<unsigned>(ti[4 * kBlockM + x]),
+            dp = fa::dropout_kept(static_cast<unsigned>(ti[4 * kRows + x]),
                                   e < 2 ? key_a : key_b, ex.threshold) ? dp * ex.inv : 0.f;
-          st[4 * j + e] = y[4 * j + e] * (dp - tf[kBlockM + x]) * scale;
+          st[4 * j + e] = y[4 * j + e] * (dp - tf[kRows + x]) * scale;
         }
       }
 #pragma unroll
-      for (int kk = 0; kk < kBlockM / 16; ++kk) tc::pack_a2(ah[kk], al[kk], st, kk);
+      for (int kk = 0; kk < kRows / 16; ++kk) tc::pack_a2(ah[kk], al[kk], st, kk);
       if constexpr (!kPair) {
         // dS^T (64 key rows x 64 query rows, hi and lo) into X, 16-byte unit
         // u of key row r at u ^ (r % 8), as TMA would swizzle it.
 #pragma unroll
-        for (int kk = 0; kk < kBlockM / 16; ++kk) {
+        for (int kk = 0; kk < kRows / 16; ++kk) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {  // query columns 16kk + 8h + 2t, +1
             const int u = 2 * kk + h;
@@ -893,7 +910,7 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 #pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk)
+    for (int kk = 0; kk < kRows / 16; ++kk)
 #pragma unroll
       for (int w = 0; w < 4; ++w) asm volatile("" : "+r"(ah[kk][w]), "+r"(al[kk][w])::"memory");
     tc::mbar_arrive(&empty[s]);
@@ -950,6 +967,10 @@ int launch(const Args& a) {
   constexpr bool kWide = D == 256 || (D == 128 && kTerms == 2);
   constexpr int W = tc::kRowWidth<D, kTerms>;
   constexpr int kKeys = kWide ? wide::kKeys : kBlockN;  // key rows per block
+  constexpr int kRows = [] {  // query rows per tile
+    if constexpr (kWide) return wide::Cfg<D, kTerms>::kRows;
+    else return kBlockM;
+  }();
   constexpr int kBytes = [] {
     if constexpr (kWide) return wide::Cfg<D, kTerms>::kBytes;
     else return Cfg<D, kPair, kTerms>::kBytes;
@@ -959,8 +980,8 @@ int launch(const Args& a) {
   const int kv_rows = a.kv_len > 0 ? a.kv_len : 1;
   const long long q_stride = static_cast<long long>(a.rows) * W;
   const long long kv_stride = static_cast<long long>(a.s_kv) * W;
-  int st = tc_encode_map(&mq, a.q, W, a.rows, a.bh, q_stride, kBlockM);
-  if (st == 0) st = tc_encode_map(&mdo, a.dout, W, a.rows, a.bh, q_stride, kBlockM);
+  int st = tc_encode_map(&mq, a.q, W, a.rows, a.bh, q_stride, kRows);
+  if (st == 0) st = tc_encode_map(&mdo, a.dout, W, a.rows, a.bh, q_stride, kRows);
   if (st == 0) st = tc_encode_map(&mk, a.k, W, kv_rows, a.bh, kv_stride, kKeys);
   if (st == 0) st = tc_encode_map(&mv, a.v, W, kv_rows, a.bh, kv_stride, kKeys);
   if (st != 0) return st;
@@ -1014,7 +1035,7 @@ int launch_d(const Args& a, int d) {
 
 #if defined(FA_F32) && defined(FA_PAIR)
 // The pair's dK/dV pass over float32: q, k, v, dout float32 as in
-// fa_flash_bwd_tc_f32, d 64 or 128; q2, k2, v2, do2 their bf16 split rows
+// fa_flash_bwd_tc_f32, d 64, 128 or 256; q2, k2, v2, do2 their bf16 split rows
 // (terms 2, "bf16_3x": [hi | lo]; 1, "bf16": [hi]), which the split pass
 // fills first when `split` is nonzero, else the pair's dQ pass already
 // filled them from the same inputs; segment ids and their range tables as
@@ -1029,7 +1050,7 @@ extern "C" int fa_flash_bwd_dkv_tc_f32(int terms, int split, const void* q, cons
                                        int causal, float scale, int window, float softcap,
                                        int row_stride, int dropout_seed, int dropout_threshold,
                                        float dropout_inv, void* stream) {
-  if ((terms != 1 && terms != 2) || (d != 64 && d != 128)) return -1;
+  if ((terms != 1 && terms != 2) || (d != 64 && d != 128 && d != 256)) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int status = split ? tc::split_bwd(q, k, v, dout, q2, k2, v2, do2,
                                             static_cast<long long>(bh) * rows,
@@ -1045,7 +1066,8 @@ extern "C" int fa_flash_bwd_dkv_tc_f32(int terms, int split, const void* q, cons
                nullptr, dk, dv, bh, rows, s_kv, kv_len, q_offset, q_seq_len, causal, scale,
                window, softcap, ex, st, sg};
   if (d == 64) return terms == 2 ? launch_w<64, 2>(a) : launch_w<64, 1>(a);
-  return terms == 2 ? launch_w<128, 2>(a) : launch_w<128, 1>(a);
+  if (d == 128) return terms == 2 ? launch_w<128, 2>(a) : launch_w<128, 1>(a);
+  return terms == 2 ? launch_w<256, 2>(a) : launch_w<256, 1>(a);
 }
 #elif defined(FA_F32)
 // The float32 form.  q, k, v, dout: float32 (bh, rows, d) / (bh, s_kv, d),

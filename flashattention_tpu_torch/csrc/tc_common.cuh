@@ -446,13 +446,14 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// acc = A B^T over d, A a 64-row slice and B a 64-row tile, both K-major in
-// swizzled 64-column chunks (a_chunk and b_chunk bytes apart), a term's D /
-// 64 chunks before the next term's: the first kP of the products (A hi, B
-// hi), (A hi, B lo), (A lo, B hi), (A lo, B lo), each k-step's in turn, one
+// acc = A B^T over d, A a 64-row slice and B a tile of 2 R rows (R the
+// accumulator's values a thread: 64 or 32 rows), both K-major in swizzled
+// 64-column chunks (a_chunk and b_chunk bytes apart), a term's D / 64
+// chunks before the next term's: the first kP of the products (A hi, B hi),
+// (A hi, B lo), (A lo, B hi), (A lo, B lo), each k-step's in turn, one
 // float32 chain from zero (one term: kP 1).
-template <int D, int kP>
-__device__ __forceinline__ void term_products(float (&acc)[32], uint32_t a, uint32_t a_chunk,
+template <int D, int kP, int R>
+__device__ __forceinline__ void term_products(float (&acc)[R], uint32_t a, uint32_t a_chunk,
                                               uint32_t b, uint32_t b_chunk) {
   constexpr int kLC = D / kChunk;
 #pragma unroll

@@ -555,8 +555,8 @@ def dq_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_o
               dropout_row_stride=None, block_mask=None, precision=None, split_rows=None):
     """One launch of the two-pass backward's dQ kernel: in bf16 at head_dim
     64, 128 or 256 its tensor-core form (``csrc/flash_bwd_dq_tc.cu``), in
-    float32 at 64 or 128 in the mode ``precision`` (``"bf16_3x"`` by
-    default, or ``"bf16"``) its float32 form (the same source built with
+    float32 at the same head_dims in the mode ``precision`` (``"bf16_3x"``
+    by default, or ``"bf16"``) its float32 form (the same source built with
     ``-DFA_F32``; ``split_rows``: see :func:`_pair_launch`), else
     ``csrc/flash_bwd_dq.cu``.  On CPU tensors: the plain version, with that
     form's rounding."""
@@ -583,8 +583,8 @@ def dkv_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=None, q_
     """One launch of the two-pass backward's dK/dV kernel: ``(dk, dv)``, each
     KV head summed over all of its folded query rows; in bf16 at head_dim
     64, 128 or 256 its tensor-core form (``csrc/flash_bwd_tc.cu`` built
-    with ``-DFA_PAIR``), in float32 at 64 or 128 in the mode ``precision``
-    its float32 form (built with ``-DFA_PAIR -DFA_F32``), else
+    with ``-DFA_PAIR``), in float32 at the same head_dims in the mode
+    ``precision`` its float32 form (built with ``-DFA_PAIR -DFA_F32``), else
     ``csrc/flash_bwd_dkv.cu``.  On CPU tensors: the plain version, with that
     form's rounding."""
     kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,

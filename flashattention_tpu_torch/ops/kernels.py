@@ -151,11 +151,11 @@ KERNELS = {
     **{"flash_bwd_dkv_tc" + suffix: ("flash_bwd_tc.cu", "fa_flash_bwd_dkv_tc",
                                      [*[_P] * 16, *_BWD], ["-DFA_PAIR", *flags])
        for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
-    # The pair's float32 forms (JAX's "bf16_3x" and "bf16" at d = 64 and
-    # 128): the number of bf16 terms, whether to run the split pass (else the
-    # split buffers already hold it), float32 q, k, v, do, their split
-    # buffers, then as the tensor-core pair without the block mask's table,
-    # with a float32 dq or dk, dv.
+    # The pair's float32 forms (JAX's "bf16_3x" and "bf16" at d = 64, 128
+    # and 256): the number of bf16 terms, whether to run the split pass
+    # (else the split buffers already hold it), float32 q, k, v, do, their
+    # split buffers, then as the tensor-core pair without the block mask's
+    # table, with a float32 dq or dk, dv.
     **{f"flash_bwd_{p}_tc_f32" + suffix: (src, f"fa_flash_bwd_{p}_tc_f32",
                                          [_I, _I, *[_P] * n, *_BWD], [*defs, "-DFA_F32", *flags])
        for p, src, n, defs in (("dq", "flash_bwd_dq_tc.cu", 15, []),

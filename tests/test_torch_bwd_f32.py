@@ -99,9 +99,10 @@ def _rel(got, want):
 def test_routes(d):
     """The fused backward's float32 form at d = 64 and 128 in "bf16_3x"
     (the default) and "bf16", dropout or not, and the two-pass pair's
-    float32 forms there too; "float32", the other head_dims and
-    scalar_forms keep the exact scalar kernels.  The forward with dropout
-    takes its float32 form where the backward does."""
+    float32 forms there and at d = 256 (tests/test_torch_pair_f32.py);
+    "float32", the other head_dims and scalar_forms keep the exact scalar
+    kernels.  The forward with dropout takes its float32 form where the
+    fused backward does."""
     f32 = torch.float32
     q = torch.zeros(1, 8, d)
     for mode in (None, "auto", *tflash.PRECISIONS):
@@ -110,7 +111,8 @@ def test_routes(d):
         assert tflash.kernel_form("flash_bwd", f32, d, precision=mode, dropout=True) == want
         assert tbwd.bwd_form(q, True, precision=mode) == want
         assert tflash.kernel_form("flash_fwd", f32, d, precision=mode, dropout=True) == want
-        assert tbwd.bwd_form(q, False, precision=mode) == want
+        pair = "tc_f32" if d in (64, 128, 256) and mode != "float32" else "scalar"
+        assert tbwd.bwd_form(q, False, precision=mode) == pair
         assert tflash.kernel_form("flash_fwd", f32, d, precision=mode, dropout=True,
                                   block_mask=True) == "scalar"
         with tflash.scalar_forms():

@@ -1198,11 +1198,11 @@ def _pair_f32_inputs(d, case):
 
 @pytest.mark.parametrize("case", list(PAIR_F32_CASES))
 @pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_f32_pair_forms_match_plain(d, mode, case):
     """Each kernel of the pair's float32 forms against its plain version on
     the CPU in the same mode (four products a matmul at d = 64 in
-    "bf16_3x", three at 128): the gradients within 1e-4 and, on
+    "bf16_3x", three at 128 and 256): the gradients within 1e-4 and, on
     ``probes.lolo_term_f32_qkvdo``'s inputs in "bf16_3x" (where lo lo moves
     each gradient by 2.5e-3 of its norm and more), within 1e-4 of each
     gradient's norm; each launch in its float32 form; dQ twice on its own

@@ -6,11 +6,11 @@ The JAX package's float32 backward takes its two-pass pair (``_dq_kernel``,
 default (:573).  At ``2 d <= 128`` lanes that pair is lane-packed (:713-729):
 q, k, v and dO stream as ``[hi | lo]`` bf16 rows and each of its products
 (``_packed_nt`` for S and dP, ``_packed_fold`` for dV, dK and dQ, :57-93) is
-``hi hi + hi lo + lo hi + lo lo``, four products; at d = 128 each is
+``hi hi + hi lo + lo hi + lo lo``, four products; at d = 128 and 256 each is
 ``_dot_g``'s three, ``hi hi + hi lo + lo hi`` (flash.py:149-181).  The
 port's pair computes the same in its float32 forms (``kernel_form``
 ``"tc_f32"``: ``csrc/flash_bwd_dq_tc.cu`` and ``csrc/flash_bwd_tc.cu`` built
-with ``-DFA_F32``) at head_dim 64 and 128; on the CPU its plain version
+with ``-DFA_F32``) at head_dim 64, 128 and 256; on the CPU its plain version
 mirrors them.
 
 Here, with numpy inputs from a seed, against the JAX pair in interpret mode
@@ -20,20 +20,21 @@ kv_len with q_offset, a window with a softcap over documents, dropout over
 documents and ``fused=False`` without segment ids; on inputs where the lo lo
 products move S and dP by exact multiples of their float32 step
 (``ops.probes.lolo_term_f32_qkvdo``), that the JAX pair keeps them at d = 64
-and not at d = 128, as the port does; and float32 gradients of
+and not at d = 128 or 256, as the port does; and float32 gradients of
 ``attention()`` over packed documents under autograd against ``jax.grad``.
 
 Tolerances, held on the norm as ``tests/test_torch_bwd_f32.py`` holds the
 fused form (see there why not elementwise): each gradient within NORM_TOL
 of JAX's in ``||got - want|| / ||want||``, each element within ELEM_TOL of
 the gradient's largest magnitude.  Over 8 seeds of these cases (144
-gradients a head_dim) the port sat at most 1.67e-6 (d = 64) and 1.50e-6 (d
-= 128) from JAX's "bf16_3x", one element at most 8.4e-6 of its gradient's
-largest magnitude; the exact route at least 4.27e-6 (d = 64) and 5.43e-6
-(d = 128), three products at d = 64 at least 4.14e-6, four at d = 128 at
-least 4.34e-6.  So NORM_TOL = 3e-6 tells the mode's product count from the
-exact route and from the other count, which the tests assert on the same
-inputs.  ``"bf16"`` (one bf16 product;
+gradients a head_dim) the port sat at most 1.67e-6 (d = 64), 1.50e-6 (d
+= 128) and 2.06e-6 (d = 256) from JAX's "bf16_3x", one element at most
+8.7e-6 of its gradient's largest magnitude; the exact route at least
+4.27e-6 (d = 64), 5.43e-6 (d = 128) and 5.50e-6 (d = 256), three products
+at d = 64 at least 4.14e-6, four at d = 128 at least 4.34e-6 and at d =
+256 at least 4.26e-6.  So NORM_TOL = 3e-6 tells the mode's product count
+from the exact route and from the other count, which the tests assert on
+the same inputs.  ``"bf16"`` (one bf16 product;
 JAX's interpret mode computes its DEFAULT products in float32 on the CPU)
 within 2e-2 of the largest magnitude.
 """
@@ -132,7 +133,7 @@ def _pair(case, d, mode, seed=0):
 
 def _other_count(case, d, monkeypatch):
     """The port's plain pair in "bf16_3x" with the other product count:
-    three at d = 64, four at d = 128."""
+    three at d = 64, four at d = 128 and 256."""
     other = tbwd._dot3 if d == 64 else tbwd._dot4
     monkeypatch.setattr(tbwd, "_dot3", other)
     monkeypatch.setattr(tbwd, "_dot4", other)
@@ -143,13 +144,13 @@ def _other_count(case, d, monkeypatch):
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_routes(d):
-    """The pair's float32 forms at d = 64 and 128 in "bf16_3x" (the
+    """The pair's float32 forms at d = 64, 128 and 256 in "bf16_3x" (the
     default) and "bf16", dropout or not; "float32", the other head_dims, a
     block mask and scalar_forms keep the exact scalar pair."""
     f32 = torch.float32
     q = torch.zeros(1, 8, d)
     for mode in (None, "auto", *tflash.PRECISIONS):
-        want = "tc_f32" if d in (64, 128) and mode != "float32" else "scalar"
+        want = "tc_f32" if d in (64, 128, 256) and mode != "float32" else "scalar"
         for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
             assert tflash.kernel_form(kernel, f32, d, precision=mode) == want, (kernel, mode)
             assert tflash.kernel_form(kernel, f32, d, precision=mode, dropout=True) == want
@@ -160,11 +161,11 @@ def test_routes(d):
             assert tbwd.bwd_form(q, False, precision=mode) == "scalar"
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", list(CASES))
 def test_bf16_3x_pair_matches_jax(d, case, monkeypatch):
     """Each gradient within NORM_TOL of JAX's "bf16_3x" pair in norm and
-    ELEM_TOL elementwise: four products at d = 64, three at d = 128.  The
+    ELEM_TOL elementwise: four products at d = 64, three at d = 128 and 256.  The
     exact route and the other product count each miss NORM_TOL on the same
     inputs."""
     assert tbwd.bwd_form(torch.zeros(1, 8, d), False) == "tc_f32"
@@ -181,7 +182,7 @@ def test_bf16_3x_pair_matches_jax(d, case, monkeypatch):
         assert other_norm > NORM_TOL, name
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", ["segments_gqa", "dropout_segments", "unfused"])
 def test_bf16_pair_matches_jax(d, case):
     """The one-pass "bf16" mode (q, k, v and dO rounded to bf16 once)
@@ -194,7 +195,7 @@ def test_bf16_pair_matches_jax(d, case):
         assert _rel(a, e)[1] > 1e-4, name
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_lolo_terms_follow_jax(d, monkeypatch):
     """On ``probes.lolo_term_f32_qkvdo``'s inputs lo lo moves every
     gradient by 2.5e-3 to 5e-2 of its norm (measured: dQ, a small
@@ -220,7 +221,7 @@ def test_lolo_terms_follow_jax(d, monkeypatch):
         assert other_norm > 10 * LOLO_TOL, name
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_each_kernel_of_the_pair_on_its_own(d):
     """dq_kernel and dkv_kernel called on their own (each splitting its own
     inputs) give flash_attention_bwd's pair gradients in the default mode."""
@@ -237,7 +238,7 @@ def test_each_kernel_of_the_pair_on_its_own(d):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_attention_grads_over_documents_match_jax_default(d):
     """float32 GQA attention() over packed documents under autograd at the
     default precision (the pair's float32 forms) against ``jax.grad``

@@ -5,7 +5,7 @@ it), chunked prefill's over float32 pools (``paged_prefill_tc_f32``) and
 float32 training's (the fused backward's ``flash_bwd_tc_f32[_extra]``, the
 forward's dropout form ``flash_fwd_tc_f32_extra``), on one card.
 
-    python3 torch_tools/f32_mutants.py [--keep] [--mutants NAME ...]
+    python3 torch_tools/f32_mutants.py [--keep] [--pair-only] [--mutants NAME ...]
 
 Copies the port (``flashattention_tpu_torch/`` and ``chip_smoke.py``) into a
 temporary directory once per mutant, breaks one product, term or bound in
@@ -18,7 +18,8 @@ together) and runs chip_smoke's ``f32_form_checks`` untimed (three modes, d
 ``v3_term_f32_qkv``'s), the float32 cases of ``prefill_poison_check``,
 ``f32_train_checks`` (the backward's and the dropout forward's float32
 forms, "bf16_3x" and "bf16", d = 64 and 128) and ``pair_f32_checks`` (the
-two-pass pair's float32 forms, the same modes and head_dims) on the copy.
+two-pass pair's float32 forms, the same modes, d = 64, 128 and 256) on the
+copy; with ``--pair-only`` ``pair_f32_checks`` alone (the pair's mutants).
 The copies:
 
 - ``unmutated``: the sources as they are; every check must pass;
@@ -56,7 +57,19 @@ The copies:
   (dP = dO V^T), ``dq_dq_ds_hi_k_lo_dropped`` (dQ += dS K);
   ``pair_range_skip_live_tile``, tiles whose id
   ranges only touch at one id taken as disjoint (``bwd_common.cuh``'s
-  seg_meet), so live tiles across a document's boundary are skipped.
+  seg_meet), so live tiles across a document's boundary are skipped;
+- in the pair's float32 forms at d = 256 over two terms (the dQ pass's
+  64-row blocks over 32-row key tiles, the wide dK/dV kernel over 32-row
+  query tiles; each mutant breaks that instantiation alone and must be
+  caught by a ``.../d256/bf16_3x`` check): one product of each matmul left
+  out, ``dq256_s_q_lo_k_hi_dropped`` (S), ``dq256_dp_do_hi_v_lo_dropped``
+  (dP), ``dq256_dq_ds_hi_k_lo_dropped`` (dQ += dS K),
+  ``dkv256_s_k_hi_q_lo_dropped`` (S^T), ``dkv256_dp_v_lo_do_hi_dropped``
+  (dP^T), ``dkv256_dv_z_lo_do_hi_dropped`` (dV), ``dkv256_dk_ds_hi_q_lo_dropped``
+  (dK); ``d256_do_lo_zeroed``, dO's lo term zeroed after the split pass at
+  d = 256; ``d256_half_tile_range_empty``, a 32-row tile read off the
+  segment range table with the 64-row bound, so that every tile that
+  starts a table entry finds an empty range and is skipped.
 
 Prints one JSON line per copy (its failed checks with their errors) and
 writes all of them to ``chiprun_out/f32_mutants.json``; exits non-zero when
@@ -105,8 +118,8 @@ def _drop_pair(i):
 # left out, inserted before the originals' users, and the call sites of one
 # matmul (in the d <= 128 kernel and, by warpgroup, in the wide one) sent
 # to them.
-_TERM_PRODUCTS = """template <int D, int kP>
-__device__ __forceinline__ void term_products_mut(float (&acc)[32], uint32_t a, uint32_t a_chunk,
+_TERM_PRODUCTS = """template <int D, int kP, int R>
+__device__ __forceinline__ void term_products_mut(float (&acc)[R], uint32_t a, uint32_t a_chunk,
                                                   uint32_t b, uint32_t b_chunk) {
   constexpr int kLC = D / tc::kChunk;
 #pragma unroll
@@ -123,16 +136,18 @@ __device__ __forceinline__ void term_products_mut(float (&acc)[32], uint32_t a, 
 }
 
 """
-_ADD_PRODUCTS = """template <int D, int kTerms>
-__device__ __forceinline__ void add_products_mut(float (&acc)[D / 2], const uint32_t (&ah)[4][4],
-                                                 const uint32_t (&al)[4][4], uint32_t b_tile) {
-  constexpr int kLC = Cfg<D, kTerms>::kLC;
+_ADD_PRODUCTS = """template <int D, int kTerms, int kRows = Cfg<D, kTerms>::kRows>
+__device__ __forceinline__ void add_products_mut(float (&acc)[D / 2],
+                                                 const uint32_t (&ah)[kRows / 16][4],
+                                                 const uint32_t (&al)[kRows / 16][4],
+                                                 uint32_t b_tile) {
+  constexpr int kLC = Cfg<D, kTerms>::kLC, kQChunk = Cfg<D, kTerms>::kQChunk;
 #pragma unroll
   for (int c = 0; c < kLC; ++c) {
     float part[32];
     tc::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk) {
+    for (int kk = 0; kk < kRows / 16; ++kk) {
       const uint64_t db = tc::make_desc(b_tile + c * kQChunk + kk * 2048, kQChunk, 1024);
       tc::wgmma_rs<1>(part, ah[kk], db, kk > 0);
       if (SKIP != 1) tc::wgmma_rs<1>(part, al[kk], db, 1);
@@ -222,6 +237,64 @@ def _dq_term_mutant(skip, call):
             [("flash_bwd_dq_tc_f32/", "/bf16_3x")])
 
 
+# The pair at d = 256 over two terms (its 64-row dQ blocks over 32-row key
+# tiles, the wide dK/dV kernel over 32-row query tiles): each mutant breaks
+# that instantiation alone, so a d = 256 check must catch it.
+_D256 = [("flash_bwd_dq_tc_f32/", "/d256/bf16_3x"), ("flash_bwd_dkv_tc_f32/", "/d256/bf16_3x")]
+
+
+def _dq256_term_mutant(skip, call):
+    """The d = 256 dQ pass's S or dP product ``skip`` left out."""
+    mut = call.replace("term_products", "term_products_mut")
+    return (DQ, [(_DQ_TP, _TERM_PRODUCTS.replace("SKIP", str(skip)) + _DQ_TP),
+                 (call, f"if constexpr (D == 256) {mut} else {call}")], _D256[:1])
+
+
+def _dkv256_term_mutant(skip, p_side):
+    """The d = 256 pair's S^T (``p_side``) or dP^T product ``skip`` left out
+    in the wide kernel."""
+    mut = _WIDE_SP.replace("term_products", "term_products_mut").strip()
+    side = "p_side" if p_side else "!p_side"
+    return (BWD, [(_TP_ANCHOR, _TERM_PRODUCTS.replace("SKIP", str(skip)) + _TP_ANCHOR),
+                  (_WIDE_SP, f"    if (kPair && D == 256 && {side}) {mut}\n"
+                             f"    else {_WIDE_SP.strip()}\n")], _D256[1:])
+
+
+def _dkv256_add_mutant(skip, call):
+    """The d = 256 pair's dV (``call`` its add_products call) or dK product
+    ``skip`` (1: A's lo against B's hi, 2: A's hi against B's lo) left out."""
+    mut = call.replace("add_products", "add_products_mut")
+    return (BWD, [(_AP_ANCHOR, _ADD_PRODUCTS.replace("SKIP", str(skip)) + _AP_ANCHOR),
+                  (call, f"if constexpr (kPair && D == 256) {mut}\n"
+                         f"      else {call}")], _D256[1:])
+
+
+_PAIR256_MUTANTS = {
+    "dq256_s_q_lo_k_hi_dropped": _dq256_term_mutant(2, _DQ_S),
+    "dq256_dp_do_hi_v_lo_dropped": _dq256_term_mutant(1, _DQ_DP),
+    "dq256_dq_ds_hi_k_lo_dropped": (DQ, [(
+        "          tc::wgmma_rs<1>(part, dsa[kk], db_lo, 1);\n",
+        "          if constexpr (D != 256) tc::wgmma_rs<1>(part, dsa[kk], db_lo, 1);\n")], _D256[:1]),
+    "dkv256_s_k_hi_q_lo_dropped": _dkv256_term_mutant(1, True),
+    "dkv256_dp_v_lo_do_hi_dropped": _dkv256_term_mutant(2, False),
+    "dkv256_dv_z_lo_do_hi_dropped": _dkv256_add_mutant(
+        1, "add_products<D, kTerms>(acc, ah, al, do_tile);  // dV += Z^T dO"),
+    "dkv256_dk_ds_hi_q_lo_dropped": _dkv256_add_mutant(
+        2, "add_products<D, kTerms>(acc, ah, al, q_tile);  // dK += dS^T Q"),
+    "d256_do_lo_zeroed": (TC_COMMON, [(
+        "  if (status == 0) status = split(dout, do2, q_rows, d, terms, stream);",
+        "  if (status == 0) status = split(dout, do2, q_rows, d, terms, stream);\n"
+        "  if (status == 0 && terms == 2 && d == 256)\n"
+        "    status = static_cast<int>(cudaMemset2DAsync(static_cast<char*>(do2) + 2 * d, 4 * d, 0,"
+        " 2 * d, q_rows, stream));")], _D256),
+    # Tiles of 32 rows read the segment range table as its 64-row entries
+    # that hold them; with the 64-row bound (r0 + n) / 64 a tile that starts
+    # an entry finds none, an empty range, and is skipped as disjoint.
+    "d256_half_tile_range_empty": (COMMON, [(
+        "t < min(tiles, (r0 + n - 1) / kSegTile + 1); ++t) {",
+        "t < min(tiles, (r0 + n) / kSegTile); ++t) {")], _D256),
+}
+
 _PAIR_MUTANTS = {
     "dq_lolo_dropped": (DQ, [("constexpr int kProducts = kTerms == 2 ? (D == 64 ? 4 : 3) : 1;",
                               "constexpr int kProducts = kTerms == 2 ? (D == 64 ? 3 : 3) : 1;")],
@@ -270,6 +343,7 @@ MUTANTS = {
                               [("paged_prefill_tc_f32/", "")]),
     **_BWD_MUTANTS,
     **_PAIR_MUTANTS,
+    **_PAIR256_MUTANTS,
 }
 
 
@@ -288,10 +362,10 @@ def make_copy(dest: str, source: str, edits) -> None:
             fh.write(code.replace(text, replacement))
 
 
-def run_checks(root: str) -> dict:
+def run_checks(root: str, pair_only: bool = False) -> dict:
     """In this process: chip_smoke's float32-form checks, untimed, its
     float32 paged-prefill poison checks and its float32 training checks on
-    the copy at ``root``."""
+    the copy at ``root`` (``pair_only``: the pair's checks alone)."""
     sys.path.insert(0, root)
     import torch
 
@@ -305,10 +379,11 @@ def run_checks(root: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     report = {"checks": []}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cs.f32_form_checks(fa, flash, probes, benchit, gen, torch.cuda.get_device_name(0), report,
-                       timed=False)
-    cs.prefill_poison_check(decode, gen, report, dtypes=("float32",))
-    cs.f32_train_checks(backward, flash, gen, report)
+    if not pair_only:
+        cs.f32_form_checks(fa, flash, probes, benchit, gen, torch.cuda.get_device_name(0),
+                           report, timed=False)
+        cs.prefill_poison_check(decode, gen, report, dtypes=("float32",))
+        cs.f32_train_checks(backward, flash, gen, report)
     cs.pair_f32_checks(backward, flash, probes, gen, report)
     keys = ("ok", "rel_err", "exact_rel_err", "max_abs_err", "plain_err", "bitwise_equal",
             "launched_its_form", "fwd_keep_equal", "bwd_keep_equal", "dk_dv_bitwise",
@@ -322,10 +397,12 @@ def main() -> int:
     ap.add_argument("--keep", action="store_true", help="keep the copies")
     ap.add_argument("--mutants", nargs="+", choices=list(MUTANTS)[1:],
                     help="run only these mutants (and the unmutated copy)")
+    ap.add_argument("--pair-only", action="store_true",
+                    help="run only the pair's checks (pair_f32_checks) on each copy")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(run_checks(args.one)), flush=True)
+        print(json.dumps(run_checks(args.one, args.pair_only)), flush=True)
         return 0
     names = ["unmutated", *(args.mutants or list(MUTANTS)[1:])]
     tmp = tempfile.mkdtemp(prefix="f32_mutants-")
@@ -353,7 +430,8 @@ def main() -> int:
             return 1
         results, ok = {}, True
         for m in names:
-            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", roots[m]],
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", roots[m],
+                                   *(["--pair-only"] if args.pair_only else [])],
                                   stdout=subprocess.PIPE, text=True)
             lines = proc.stdout.strip().splitlines()
             if proc.returncode != 0 or not lines:
