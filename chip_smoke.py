@@ -165,17 +165,19 @@ Phases, each of which must pass (any failure exits non-zero):
                backward's float32 form (``flash_bwd_tc_f32``, the five
                products over bf16 terms as the JAX ``_dot_g`` computes
                them, "bf16_3x" and "bf16") and the forward's dropout form
-               (``flash_fwd_tc_f32_extra``) at d = 64 and 128 against their
-               plain versions over the GQA fold, a ragged S, kv_len /
-               q_offset, a window with a softcap (q x 8) and dropout, NaN
-               past kv_len and behind a ragged S, and the keep bits against
-               the plain version's; both timed at the training layer (B =
-               2, rate 0.1 for the forward) beside the scalar kernels,
-               SDPA float32 and their bound (``bwd_checks``,
-               ``dropout_checks``); ``f32_mutants.py`` shows that these
-               fail a backward missing one of the three products of any of
-               its five matmuls, dO's lo term, or with Z's dropout bits on
-               dS;
+               (``flash_fwd_tc_f32_extra``) at d = 64 and 128, the backward
+               at d = 256 too, against their plain versions over the GQA
+               fold, a ragged S, kv_len / q_offset, a window with a softcap
+               (q x 8) and dropout, NaN past kv_len and behind a ragged S,
+               and the keep bits against the plain version's; both timed at
+               the training layer (B = 2, rate 0.1 for the forward) beside
+               the scalar kernels, SDPA float32 and their bound
+               (``bwd_checks``, ``dropout_checks``), the backward at
+               Gemma-2's windowed layer too (``bwd_window_checks``:
+               "bf16_3x", "bf16" and rate 0.1); ``f32_mutants.py`` shows
+               that these fail a backward missing one of the three products
+               of any of its five matmuls, dO's lo term, with Z's dropout
+               bits on dS, or at d = 256 with dS read before its barrier;
                ``pair_f32_checks``: the two-pass pair's float32 forms
                (``flash_bwd_dq_tc_f32``, ``flash_bwd_dkv_tc_f32``: three
                products a matmul at d = 128, four at d = 64 as the JAX
@@ -376,9 +378,11 @@ entry's ``check_launches``).  Float32 q over 8-bit K/V and pages is timed
 at rows 1, 2 and 4 (``f32q_timings``, its own lap).  The float32 train_parity phases' card launches are
 counted as paths too: at d = 64 and 128 float32 training runs the forward's
 float32 form (its dropout form with dropout), the fused backward's float32
-form and the pair's, and no scalar fused backward or pair
-(``_f32_form_launched``); the scalar pair's dropout form, which then
-launches on no path, must launch in the dropout checks.  It prints one JSON line per check, the
+form and the pair's, at d = 256 (Gemma-2) the fused backward's and the
+pair's float32 forms, and no scalar fused backward or pair
+(``_f32_form_launched``); the scalar fused backward and pair, which then
+launch on no path, must launch in the backward checks (their dropout forms
+in the dropout checks).  It prints one JSON line per check, the
 total seconds, a ``{"kernels": [...]}`` summary (with a ``quantized`` entry
 for each serving kernel's 8-bit form, ``dropout`` entries for flash_fwd and
 the backward kernels, ``block_mask`` entries for the tensor-core forms of
@@ -482,10 +486,11 @@ KERNELS = (
     # chunked prefill over float32 pools, paged_prefill_tc.cu with -DFA_F32.
     ("flash_fwd_f32", "flash_fwd_f32.cuh", "ops/flash.py:628"),
     ("paged_prefill_tc_f32", "paged_prefill_tc.cu", "ops/decode.py:375"),
-    # Float32 training's forms ("bf16_3x" and "bf16" at d = 64 and 128): the
-    # fused backward over bf16 terms (flash_bwd_tc.cu with -DFA_F32; its
-    # dropout form with -DFA_EXTRA too) and the forward's dropout form
-    # (flash_fwd_tc.cu with -DFA_F32 -DFA_EXTRA).
+    # Float32 training's forms ("bf16_3x" and "bf16"; the backward at d = 64,
+    # 128 and 256, the dropout forward at 64 and 128): the fused backward
+    # over bf16 terms (flash_bwd_tc.cu with -DFA_F32; its dropout form with
+    # -DFA_EXTRA too) and the forward's dropout form (flash_fwd_tc.cu with
+    # -DFA_F32 -DFA_EXTRA).
     ("flash_bwd_tc_f32", "flash_bwd_tc.cu", "ops/backward.py:401"),
     ("flash_fwd_tc_f32_extra", "flash_fwd_tc.cu", "ops/flash.py:628"),
     # Float32 packed training's: the pair over bf16 terms (its dQ pass with
@@ -2120,8 +2125,8 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE, cache_dtype=None):
     head_dims but the block-mask, dropout and 8-bit ones, in the default
     "bf16_3x" mode (at d = 256 csrc/flash_fwd_f32.cuh's kernel's; the
     dropout ones too at d = 64 / 128, in its dropout form's count too),
-    every fused backward launch of a float32 model at d = 64 / 128 in its
-    float32 form (the dropout ones in that form's dropout count too), and
+    every fused backward launch of a float32 model at d = 64 / 128 / 256 in
+    its float32 form (the dropout ones in that form's dropout count too), and
     every paged prefill launch of a float32 model over float32 pages in
     chunked prefill's float32 form.  A float32 model's paged launches over
     a ``cache_dtype`` that is not float32 take q in bf16, so their forms are
@@ -3582,7 +3587,7 @@ def bwd_checks(backward, flash, benchit, packing, args, gen, card, report):
 # tokens and 92 of padding: the window bites in the first) for the two-pass
 # pair, head_dim 16 with a window of 100 over a ragged S = 300, and head_dim
 # 128 with a window of 300 and a softcap of 30 over a ragged S = 1000 (the
-# fused backward's tensor-core form takes d <= 128 only).
+# fused backward's bf16 tensor-core form with a softcap at d = 128).
 _GEMMA_LAYER = dict(b=1, kvh=8, g=2, s_q=8192, s_kv=8192, d=256, window=4096, cap=50.0)
 GEMMA_PACKED_DOCS = (5000, 2100, 1000)
 _MISTRAL_LAYER = dict(b=1, kvh=8, g=4, s_q=8192, s_kv=8192, d=128, window=4096, cap=None)
@@ -3600,8 +3605,44 @@ BWD_WINDOW_CASES = (
 )
 TIMED_BWD_WINDOW_CASES = ("gemma2_d256_w4096_cap50", "mistral_d128_w4096",
                           "gemma2_packed_w4096_cap50_q8")
-# Timed in float32 too: the pair's float32 forms at d = 256 (rows 6-7).
+# Timed in float32 too: the pair's float32 forms at d = 256 (rows 6-7),
+# and the fused backward's float32 form at Gemma-2's layer (row 5).
 TIMED_F32_BWD_WINDOW_CASE = "gemma2_packed_w4096_cap50_q8"
+TIMED_F32_FUSED_WINDOW_CASE = "gemma2_d256_w4096_cap50"
+
+
+def _time_fused_f32(backward, flash, benchit, card, recs, ins, kw, c, plain, wants, name,
+                    report):
+    """Row 5 in float32 at one unsegmented case of ``_bwd_case``: the fused
+    backward's float32 form in "bf16_3x", in its "bf16" mode and with
+    dropout at rate 0.1 (the same inputs; lse does not depend on the drop),
+    beside the scalar kernel under ``ops.flash.scalar_forms`` (exact
+    float32: held against the exact plain backward, timed, kept in
+    ``report["float32_timed"]["flash_bwd/d256_window_softcap"]``) and SDPA
+    float32's backward under the boolean mask.  Returns the form's timed
+    record."""
+    yard = _bwd_yardsticks(benchit, ins, kw, c, plain)
+    rec = recs["flash_bwd_tc_f32"]
+    rec.update(_time_bwd(backward, flash, benchit, card, "flash_bwd_tc_f32", ins, kw, {}, c, yard,
+                         "float32"))
+    rec["bf16_mode_ms"] = benchit.cuda_time_ms(
+        lambda: backward.flash_attention_bwd(*ins, fused=True, precision="bf16", **kw),
+        warmup=1, iters=5)
+    drop = dict(kw, dropout_rate=0.1, dropout_seed=DROPOUT_SEED)
+    rec["dropout_ms"] = benchit.cuda_time_ms(
+        lambda: backward.flash_attention_bwd(*ins, fused=True, **drop), warmup=1, iters=5)
+    with flash.scalar_forms():
+        got = backward.flash_attention_bwd(*ins, fused=True, **kw)
+        twin = _bwd_rec(f"flash_bwd/{name}/float32", got, wants["two_pass_scalar"], "float32",
+                        grad_absmax=[float(w.abs().max()) for w in wants["two_pass_scalar"]],
+                        form="exact float32 (the scalar kernel, ops.flash.scalar_forms)")
+        del got
+        twin.update(_time_bwd(backward, flash, benchit, card, "flash_bwd", ins, kw, {}, c, yard,
+                              "float32"))
+    rec["scalar_ms"] = twin["kernel_ms"]
+    recs["flash_bwd"] = twin
+    report.setdefault("float32_timed", {})["flash_bwd/d256_window_softcap"] = twin
+    return rec
 
 
 def _padded_doc_ids(docs, s):
@@ -3622,7 +3663,9 @@ def bwd_window_checks(backward, flash, benchit, gen, card, report, names=None, t
     Mistral layers (unless not ``timed``): each kernel, the plain backward,
     and SDPA's backward under a boolean causal+window mask (no softcap);
     and in float32 at Gemma-2's packed layer the pair's float32 forms
-    beside the scalar pair (``_time_pair_f32``).  Returns
+    beside the scalar pair (``_time_pair_f32``), at Gemma-2's layer the
+    fused backward's float32 form beside the scalar kernel
+    (``_time_fused_f32``).  Returns
     ``{kernel: {case: timed record}}``."""
     timed_recs = {"flash_bwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
     for name, c in BWD_WINDOW_CASES:
@@ -3676,6 +3719,9 @@ def bwd_window_checks(backward, flash, benchit, gen, card, report, names=None, t
                 for kname, rec in _time_pair_f32(backward, flash, benchit, card, recs, ins, kw,
                                                  segs, c, plain).items():
                     timed_recs.setdefault(kname, {})[name] = rec
+            if timed and dt == "float32" and name == TIMED_F32_FUSED_WINDOW_CASE:
+                timed_recs.setdefault("flash_bwd_tc_f32", {})[name] = _time_fused_f32(
+                    backward, flash, benchit, card, recs, ins, kw, c, plain, wants, name, report)
             for rec in recs.values():
                 emit(rec)
                 report["checks"].append(rec)
@@ -4057,7 +4103,8 @@ def _ragged_gqa_dropout(fa, backward, flash, gen, dt):
 # The float32 training forms: the fused backward's float32 form
 # (flash_bwd_tc_f32, its dropout form built into flash_bwd_tc_f32_extra) and
 # the forward's dropout form (flash_fwd_tc_f32_extra), in the JAX modes
-# "bf16_3x" and "bf16" at d = 64 and 128, over F32_TRAIN_CASES: the GQA fold
+# "bf16_3x" and "bf16" at F32_TRAIN_DIMS (at d = 256 the forward's dropout
+# launches are the scalar kernel's), over F32_TRAIN_CASES: the GQA fold
 # with causal rows, a ragged S = 300 with no mask, kv_len / q_offset, a window
 # with a softcap and q x 8 (scores near the cap), dropout at rates 0.1 and
 # 0.5 (with the window and softcap), the forward of each dropout case against
@@ -4071,6 +4118,7 @@ def _ragged_gqa_dropout(fa, backward, flash, gen, dt):
 # dO the identity (S = d, every pair live) the forward's zeros and dV^T's are
 # exactly the plain version's dropped pairs (ops.flash.dense_keep).
 F32_TRAIN_MODES = ("bf16_3x", "bf16")
+F32_TRAIN_DIMS = (64, 128, 256)
 # (BH, G, S_q, S_kv, kwargs): folded q (BH, G S_q, d) against (BH, S_kv, d)
 F32_TRAIN_CASES = {
     "causal_gqa": (4, 2, 1000, 1000, dict(causal=True)),
@@ -4112,6 +4160,7 @@ def _f32_train_hold(flash, backward, q, k, v, do, kw, mode, check):
     against their plain versions in ``mode``, and each call's launches."""
     recs = []
     dropout = "dropout_rate" in kw
+    fwd_name = _kname("flash_fwd", q, dropout=True, precision=mode)
     n0 = _f32_train_counts(flash, backward)
     o, l, m = flash.flash_attention(q, k, v, save_residuals=True, precision=mode, **kw)
     n1 = _f32_train_counts(flash, backward)
@@ -4126,8 +4175,9 @@ def _f32_train_hold(flash, backward, q, k, v, do, kw, mode, check):
         norm = float(wo.abs().max())
         stats = {f"{x}_rel_err": err(a, b) / float(b.abs().max())
                  for x, a, b in zip("lm", (l, m), (wl, wm))}
-        fwd_launched = [b - a for a, b in zip(n0[:3], n1[:3])] == [1, 1, 1]
-        rec = {"check": f"flash_fwd_tc_f32_extra/{check}", "max_abs_err": err(o, wo),
+        f32_form = int(fwd_name == "flash_fwd_tc_f32_extra")
+        fwd_launched = [b - a for a, b in zip(n0[:3], n1[:3])] == [1, f32_form, f32_form]
+        rec = {"check": f"{fwd_name}/{check}", "max_abs_err": err(o, wo),
                "rel_err": err(o, wo) / norm, "tol": F32_FORM_TOL[mode],
                "tol_of": "the output's largest magnitude", **stats, "stats_rtol": STATS_RTOL,
                "launched_its_form": fwd_launched}
@@ -4194,7 +4244,8 @@ def _f32_keep_bits(flash, backward, gen, d, mode):
     _, _, dv = backward.flash_attention_bwd(q, k, eye, o, lse, eye, precision=mode, **kw)
     keep = flash.dense_keep(DROPOUT_SEED, rate, range(bh), d, d, d, None, "cuda")
     torch.cuda.synchronize()
-    rec = {"check": f"flash_fwd_tc_f32_extra+flash_bwd_tc_f32/keep_bits/d{d}/{mode}",
+    fwd_name = _kname("flash_fwd", q, dropout=True, precision=mode)
+    rec = {"check": f"{fwd_name}+flash_bwd_tc_f32/keep_bits/d{d}/{mode}",
            "dropped": int((~keep).sum()), "pairs": keep.numel(),
            "fwd_keep_equal": bool(torch.equal(o != 0, keep)),
            "bwd_keep_equal": bool(torch.equal(dv.transpose(1, 2) != 0, keep))}
@@ -4203,13 +4254,14 @@ def _f32_keep_bits(flash, backward, gen, d, mode):
 
 
 def f32_train_checks(backward, flash, gen, report):
-    """The float32 training forms at d = 64 and 128 in both modes (see
+    """The float32 training forms at F32_TRAIN_DIMS in both modes (see
     above), untimed (their timed rows: bwd_checks' and dropout_checks'
-    training layer at B = 2); ``torch_tools/f32_mutants.py`` shows that
-    these checks fail a form missing one of its products, dO's lo term or
-    with Z's dropout bits on dS."""
+    training layer at B = 2, and at d = 256 bwd_window_checks' Gemma-2
+    layer); ``torch_tools/f32_mutants.py`` shows that these checks fail a
+    form missing one of its products, dO's lo term, with Z's dropout bits
+    on dS or, at d = 256, with dS read before its barrier."""
     recs = []
-    for d, mode in itertools.product((64, 128), F32_TRAIN_MODES):
+    for d, mode in itertools.product(F32_TRAIN_DIMS, F32_TRAIN_MODES):
         for case in F32_TRAIN_CASES:
             q, k, v, do, kw = _f32_train_inputs(gen, d, case)
             recs += _f32_train_hold(flash, backward, q, k, v, do, kw, mode, f"{case}/d{d}/{mode}")
@@ -5411,10 +5463,10 @@ def _f32_form_launched(launches, cfg, pair=False):
     those with a block mask, and with dropout, in the float32 form (at d =
     256 csrc/flash_fwd_f32.cuh's kernel, and dropout there the exact
     kernel's; at d = 64 / 128 the dropout ones all in its dropout form);
-    at d = 64 / 128 every fused backward launch (at least one) in its
-    float32 form, the dropout ones in its dropout form, and no scalar fused
-    backward; at d = 64 / 128 / 256 (``kernel_form``: Gemma-2's
-    d = 256 too) every launch of the pair (with ``pair``, a phase that
+    at d = 64 / 128 / 256 (``kernel_form``: Gemma-2's d = 256 too) every
+    fused backward launch (at least one) in its float32 form, the dropout
+    ones in its dropout form, and no scalar fused backward, and every
+    launch of the pair (with ``pair``, a phase that
     trains packed rows: at least one) in its float32 forms, the dropout ones
     in their dropout forms, and no scalar pair; elsewhere none of them."""
     from flashattention_tpu_torch.ops import flash
@@ -5543,8 +5595,8 @@ def phase_train_parity(args, transformer, train, packing, counters, report, *,
     index: the card's keep bits must be the plain version's.  The card's
     launches over the phase are its record's (float32 training, in the
     default "bf16_3x": the forward's float32 form at its head_dims, with
-    dropout its dropout form at d = 64 / 128, the fused backward's float32
-    form at d = 64 / 128 and the pair's at d = 64 / 128 / 256 (at least
+    dropout its dropout form at d = 64 / 128, the fused backward's and the
+    pair's float32 forms at d = 64 / 128 / 256 (the pair at least
     once: the packed steps), the scalar kernels elsewhere; the CPU runs
     launch nothing; ``_f32_form_launched``)."""
     t0 = time.perf_counter()
@@ -6938,13 +6990,18 @@ def main() -> int:
         if kname in bwd_windowed:
             summary[-1]["windowed"] = {case: {k: rec[k] for k in (*timed, "scalar_ms") if k in rec}
                                        for case, rec in bwd_windowed[kname].items()}
+        if kname == "flash_bwd_tc_f32":  # d = 256: Gemma-2's layer, its "bf16" mode, rate 0.1
+            gem, rec = (x[TIMED_F32_FUSED_WINDOW_CASE] for x in (summary[-1]["windowed"],
+                                                                bwd_windowed[kname]))
+            gem.update({k: rec[k] for k in ("bf16_mode_ms", "dropout_ms", "products",
+                                            "live_pairs", "library")})
         if kname in PAIR_F32.values():  # d = 256: Gemma-2's packed layer, and with dropout 0.1
             gem, rec = (x[TIMED_F32_BWD_WINDOW_CASE] for x in (summary[-1]["windowed"],
                                                               bwd_windowed[kname]))
             gem.update({k: rec[k] for k in ("bf16_mode_ms", "products", "live_pairs")})
             gem["dropout"] = {k: dropout[f"{kname}/gemma2_packed"][k]
                               for k in (*timed, "no_dropout_ms", "scalar_ms")}
-        if kname in PAIR:  # on no path since the float32 pair's forms take d = 256: the checks'
+        if kname in (*PAIR, "flash_bwd"):  # on no path since the float32 forms take d = 256
             summary[-1]["check_launches"] = bwd_launches[kname] - sum(
                 bwd_launches[x] for x in within[kname])
         if kname in EXTRA_KERNELS:  # the dropout form: its timed check and launches
@@ -7090,10 +7147,11 @@ def main() -> int:
                            "train_mixed_packed", "train_mixed_remat_dropout",
                            "train_parity_lora", "selftest", "benches")
                if not report[p]["ok"]]
-    # The scalar pair left the paths when float32 packed training at
-    # Gemma-2's d = 256 took the pair's float32 forms (bf16 runs the
-    # tensor-core pair, float32 at d = 64 / 128 / 256 the float32 forms):
-    # it must still launch in the backward checks (ops.flash.scalar_forms).
+    # The scalar pair and the scalar fused backward left the paths when
+    # float32 training at Gemma-2's d = 256 took the float32 forms (bf16
+    # runs the tensor-core forms, float32 at d = 64 / 128 / 256 the float32
+    # forms): they must still launch in the backward checks
+    # (ops.flash.scalar_forms).
     failed += [k["name"] for k in summary
                if k["launches"] == 0 and k.get("check_launches", 0) == 0]
     # The scalar 8-bit forms left the paths for their tensor-core forms

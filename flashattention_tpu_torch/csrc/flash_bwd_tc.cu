@@ -83,7 +83,7 @@
 // tile (fa::with_mask_form): no test, the bits alone, or every test.
 //
 // kTerms (built with FA_F32 into flash_bwd_tc_f32[_extra]): the fused form
-// over float32 q, k, v and dO at head_dim 64 and 128, as _fused_bwd_kernel
+// over float32 q, k, v and dO at head_dim 64, 128 and 256, as _fused_bwd_kernel
 // computes them in the JAX package's precision modes (backward.py:573, its
 // _dot_g, flash.py:149-181).  A split pass (tc_common.cuh, tc::split) writes
 // each row as bf16 terms: kTerms 2 ("bf16_3x") [hi | lo], hi = bf16(x), lo =
@@ -98,7 +98,10 @@
 // Room: with rows of 2 d the d <= 128 layout at d = 64 is the bf16 one at
 // 128 (192 KB); at d = 128 it would take 320 KB, so the d = 128 two-term
 // form is the d = 256 kernel's (64 key rows a block, dV and dK split
-// between the consumer warpgroups): its rows of 256 bf16 are d = 256's.
+// between the consumer warpgroups): its rows of 256 bf16 are d = 256's.  At
+// d = 256 one term is the bf16 d = 256 layout, and two terms (rows of 512
+// bf16) take the wide kernel's 32-row query tiles, with dQ turned over
+// (dq_half_t, see there).
 //
 // kPair with kTerms (built with FA_PAIR and FA_F32 into
 // flash_bwd_dkv_tc_f32[_extra]): the pair's dK/dV pass over float32, as
@@ -597,12 +600,16 @@ flash_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 // arrival pending, since each side's next arrival waits on the other's.
 // kPair: no dS^T and no dQ, so barriers 2 and 4 go; the dS side arrives on 3
 // as soon as it has read Y^T.
-// Rows of 512 bf16 (the pair at d = 256 over two float32 terms, kPair with
-// kTerms 2): K and V of the block's 64 key rows take 128 KB, and a stage of
-// 64-row Q and dO tiles another 128 KB.  So there the query tiles are 32
-// rows (kRows: S^T, dP^T and Y^T 64 x 32, dV and dK over two k-steps a
-// chunk) and the ring one stage (64 KB): 210 KB with X.  The producer loads
-// the next tile once both warpgroups are done with this one.
+// Rows of 512 bf16 (d = 256 over two float32 terms, kTerms 2, the fused
+// form and the pair): K and V of the block's 64 key rows take 128 KB, and a
+// stage of 64-row Q and dO tiles another 128 KB.  So there the query tiles
+// are 32 rows (kRows: S^T, dP^T and Y^T 64 x 32, dV and dK over two k-steps
+// a chunk) and the ring one stage (64 KB): 210 KB with X, and no room for a
+// second stage.  The producer loads the next tile once both warpgroups are
+// done with this one.  wgmma's M is 64, so the fused form's dQ = dS K cannot
+// take the tile's 32 rows as M: it computes dQ^T = K^T dS^T instead
+// (dq_half_t), with dS written to X by query row (8 KB for both terms, where
+// Y^T takes 8 KB of float32; the hand-offs are the 64-row tiles').
 namespace wide {
 
 constexpr int kKeys = 64;  // key rows per block, shared by both warpgroups
@@ -616,6 +623,11 @@ struct Cfg {
   static constexpr int kLC = D / tc::kChunk;                           // of one term
   static constexpr int kRows = kChunks > 4 ? 32 : kBlockM;  // query rows per tile
   static constexpr int kSt = kChunks > 4 ? 1 : kStages;     // stages of the ring
+  // Under 64 rows wgmma cannot take the tile's rows as M: dQ's product is
+  // turned over (dq_half_t), and X holds dS by query row, kDsTerm bytes a
+  // term (else dS^T by key row).
+  static constexpr bool kDqT = kRows < 64;
+  static constexpr int kDsTerm = kDqT ? kRows * tc::kChunkRowBytes : kDsBytes;
   static constexpr int kQChunk = kRows * tc::kChunkRowBytes;
   static constexpr int kQTile = kChunks * kQChunk;
   // K | V | Q stages | dO stages | X | tables | barriers
@@ -661,9 +673,54 @@ __device__ __forceinline__ void add_products(float (&acc)[D / 2],
   }
 }
 
+// dQ's half at 32-row query tiles (kDqT), turned over: dQ^T = K^T dS^T, a
+// 64-column chunk of d at a time, with M the chunk's columns (K's chunk read
+// as the transposed A), N the tile's query rows (dS, stored by query row in
+// X, read K-major as B) and K the block's 64 key rows; with two terms of K
+// also K's lo against dS's hi.  Value 4j + i of the accumulator is column
+// 16 warp + g + 8 (i / 2) of the chunk and query row 8j + 2t + i % 2, added
+// to dq_acc there by scalar atomics.
+template <int D, int kTerms>
+__device__ __forceinline__ void dq_half_t(unsigned char* smem, float* dq_acc, int bh, int rows,
+                                          int r0, int c0, int warp, int g, int t) {
+  using C = Cfg<D, kTerms>;
+  const uint32_t hi_base = tc::smem_u32(smem + C::kX), lo_base = hi_base + C::kDsTerm;
+#pragma unroll
+  for (int c = c0; c < c0 + C::kLC / 2; ++c) {
+    float dqt[C::kRows / 2];
+    const uint32_t kc_base = tc::smem_u32(smem) + c * kKVChunk;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const uint64_t da = tc::make_desc(kc_base + kk * 2048, kKVChunk, 1024);
+      const uint64_t dh = tc::make_desc(hi_base + kk * 32, 16, 1024);
+      tc::wgmma_ss<1, 0>(dqt, da, dh, kk > 0);
+      tc::wgmma_ss<1, 0>(dqt, da, tc::make_desc(lo_base + kk * 32, 16, 1024), 1);
+      if constexpr (kTerms == 2)  // K's lo against dS's hi
+        tc::wgmma_ss<1, 0>(dqt, tc::make_desc(kc_base + C::kLC * kKVChunk + kk * 2048, kKVChunk,
+                                              1024), dh, 1);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(dqt);
+    float* dst =
+        dq_acc + (static_cast<size_t>(bh) * rows + r0) * D + c * tc::kChunk + 16 * warp + g;
+#pragma unroll
+    for (int j = 0; j < C::kRows / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 8 * j + 2 * t + (i & 1);
+        if (r0 + r < rows)
+          atomicAdd(dst + static_cast<size_t>(r) * D + 8 * (i >> 1), dqt[4 * j + i]);
+      }
+    }
+  }
+}
+
 // dQ's half of the tile's columns from chunk c0 on (kLC / 2 chunks of 64):
 // dS (its two terms in X, read as the transposed A) times K (with two terms
-// of K also dS's hi against K's lo), added to dq_acc by atomics.
+// of K also dS's hi against K's lo), added to dq_acc by atomics (32-row
+// tiles: dq_half_t).
 template <int D, int kTerms>
 __device__ __forceinline__ void dq_half(unsigned char* smem, float* dq_acc, int bh, int rows,
                                         int r0, int c0, int warp, int g, int t) {
@@ -773,7 +830,7 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int seg_kb = has_seg && key_b < s_kv ? sg.kv[kv_head + key_b] : 0;
   float* x_f = reinterpret_cast<float*>(smem + kX);  // Y^T: word j of thread tid at j 128 + tid
   unsigned char* ds_hi = smem + kX;
-  unsigned char* ds_lo = ds_hi + kDsBytes;
+  unsigned char* ds_lo = ds_hi + C::kDsTerm;
 
   float acc[D / 2];  // dV (P side) or dK (dS side) of the key rows kl_a, kl_a + 8
 #pragma unroll
@@ -860,7 +917,8 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       add_products<D, kTerms>(acc, ah, al, do_tile);  // dV += Z^T dO
       if constexpr (!kPair) {
         tc::named_sync(2, 256);  // dS^T written
-        dq_half<D, kTerms>(smem, dq_acc, bh, rows, r0, 0, warp, g, t);
+        if constexpr (C::kDqT) dq_half_t<D, kTerms>(smem, dq_acc, bh, rows, r0, 0, warp, g, t);
+        else dq_half<D, kTerms>(smem, dq_acc, bh, rows, r0, 0, warp, g, t);
       }
     } else {
       tc::named_sync(1, 256);  // Y^T written
@@ -883,7 +941,28 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk) tc::pack_a2(ah[kk], al[kk], st, kk);
-      if constexpr (!kPair) {
+      if constexpr (!kPair && C::kDqT) {
+        // dS (32 query rows x 64 key rows, hi and lo) into X by query row,
+        // 16-byte unit u of row q at u ^ (q % 8), as TMA would swizzle it:
+        // word w of k-step kk holds key row kl_a + 8 (w % 2) at query rows
+        // 16 kk + 8 (w / 2) + 2t and the next, one bf16 each.
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const int key = kl_a + 8 * (w & 1);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int q = 16 * kk + 8 * (w >> 1) + 2 * t + h;
+              const int off = q * 128 + (((key >> 3) ^ (q & 7)) << 4) + 2 * (key & 7);
+              *reinterpret_cast<uint16_t*>(ds_hi + off) = ah[kk][w] >> (16 * h);
+              *reinterpret_cast<uint16_t*>(ds_lo + off) = al[kk][w] >> (16 * h);
+            }
+          }
+        }
+        tc::fence_async_smem();
+        tc::named_arrive(2, 256);  // dS written
+      } else if constexpr (!kPair) {
         // dS^T (64 key rows x 64 query rows, hi and lo) into X, 16-byte unit
         // u of key row r at u ^ (r % 8), as TMA would swizzle it.
 #pragma unroll
@@ -905,7 +984,9 @@ flash_bwd_tc_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       add_products<D, kTerms>(acc, ah, al, q_tile);  // dK += dS^T Q
       if constexpr (!kPair) {
-        dq_half<D, kTerms>(smem, dq_acc, bh, rows, r0, C::kLC / 2, warp, g, t);
+        constexpr int kHalf = C::kLC / 2;
+        if constexpr (C::kDqT) dq_half_t<D, kTerms>(smem, dq_acc, bh, rows, r0, kHalf, warp, g, t);
+        else dq_half<D, kTerms>(smem, dq_acc, bh, rows, r0, kHalf, warp, g, t);
         tc::named_arrive(3, 256);  // done with X
       }
     }
@@ -1071,7 +1152,7 @@ extern "C" int fa_flash_bwd_dkv_tc_f32(int terms, int split, const void* q, cons
 }
 #elif defined(FA_F32)
 // The float32 form.  q, k, v, dout: float32 (bh, rows, d) / (bh, s_kv, d),
-// contiguous, 16-byte aligned, d 64 or 128; q2, k2, v2, do2: bf16 buffers of
+// contiguous, 16-byte aligned, d 64, 128 or 256; q2, k2, v2, do2: bf16 buffers of
 // the same rows and terms * d columns, which the split pass fills before
 // the kernel reads them; terms 2 is the JAX mode "bf16_3x" ([hi | lo], three
 // products each), 1 "bf16" (bf16(x), one product each); dk, dv: float32 like
@@ -1084,7 +1165,7 @@ extern "C" int fa_flash_bwd_tc_f32(int terms, const void* q, const void* k, cons
                                    int q_offset, int q_seq_len, int causal, float scale,
                                    int window, float softcap, int row_stride, int dropout_seed,
                                    int dropout_threshold, float dropout_inv, void* stream) {
-  if ((terms != 1 && terms != 2) || (d != 64 && d != 128)) return -1;
+  if ((terms != 1 && terms != 2) || (d != 64 && d != 128 && d != 256)) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int status = tc::split_bwd(q, k, v, dout, q2, k2, v2, do2,
                                    static_cast<long long>(bh) * rows,
@@ -1098,7 +1179,8 @@ extern "C" int fa_flash_bwd_tc_f32(int terms, const void* q, const void* k, cons
                q_seq_len, causal, scale, window, softcap, ex, st,
                fa_bwd::Segs{nullptr, nullptr, nullptr, nullptr}};
   if (d == 64) return terms == 2 ? launch_w<64, 2>(a) : launch_w<64, 1>(a);
-  return terms == 2 ? launch_w<128, 2>(a) : launch_w<128, 1>(a);
+  if (d == 128) return terms == 2 ? launch_w<128, 2>(a) : launch_w<128, 1>(a);
+  return terms == 2 ? launch_w<256, 2>(a) : launch_w<256, 1>(a);
 }
 #elif defined(FA_PAIR)
 // The pair's dK/dV pass.  q, do: (bh, rows, d); k, v, dk, dv: (bh, s_kv, d);

@@ -20,9 +20,9 @@ their form (backward.py:238-246, :353-378, :487-498).  On CUDA tensors
 :func:`flash_attention_bwd` launches hand-written kernels: the fused
 one-pass kernel (replaces ``_fused_bwd_kernel``, backward.py:401) by
 default, in bf16 at head_dim 64, 128 or 256 its tensor-core form
-``csrc/flash_bwd_tc.cu``, in float32 at head_dim 64 or 128 in the JAX modes
-``"bf16_3x"`` (the default) and ``"bf16"`` its float32 form (the same source
-built with ``-DFA_F32``: the five products over bf16 terms, as the JAX
+``csrc/flash_bwd_tc.cu``, in float32 at head_dim 64, 128 or 256 in the JAX
+modes ``"bf16_3x"`` (the default) and ``"bf16"`` its float32 form (the same
+source built with ``-DFA_F32``: the five products over bf16 terms, as the JAX
 ``_dot_g`` computes them), else ``csrc/flash_bwd.cu``
 (``ops.flash.kernel_form``); and the two-pass pair (replaces ``_dq_kernel``
 :146 and ``_dkv_kernel`` :269) with segment ids, a block mask or
@@ -31,11 +31,11 @@ at head_dim 64, 128 or 256 its tensor-core forms ``csrc/flash_bwd_dq_tc.cu``
 and ``csrc/flash_bwd_tc.cu`` built with ``-DFA_PAIR``, which skip the pairs
 of tiles whose segment ids never meet (:func:`seg_tile_ranges`) and a block
 mask's dead tiles (its table over their own tiles, :data:`TC_DQ_TILE` and
-:func:`tc_dkv_tile`), in float32 at head_dim 64 or 128 in ``"bf16_3x"`` and
-``"bf16"`` their float32 forms (the same sources built with ``-DFA_F32``:
+:func:`tc_dkv_tile`), in float32 at head_dim 64, 128 or 256 in ``"bf16_3x"``
+and ``"bf16"`` their float32 forms (the same sources built with ``-DFA_F32``:
 q, k, v and dO split once into bf16 terms for both passes, each product
-three of them at d = 128 as ``_dot_g`` and four at d = 64 as the JAX pair's
-lane-packed products, backward.py:57-93), else ``csrc/flash_bwd_dq.cu`` +
+three of them at d = 128 and 256 as ``_dot_g`` and four at d = 64 as the
+JAX pair's lane-packed products, backward.py:57-93), else ``csrc/flash_bwd_dq.cu`` +
 ``csrc/flash_bwd_dkv.cu``.  On CPU tensors it runs
 :func:`flash_attention_bwd_plain`, the same function written from the
 formulas above in plain PyTorch.  There is no fallback between the two.
@@ -124,7 +124,7 @@ def flash_attention_bwd(
         forward (:func:`ops.flash.flash_attention`), whose output this is.
       precision: the JAX package's mode for float32 inputs (default
         ``"bf16_3x"``): the float32 forms of the fused backward and of the
-        pair compute it at head_dim 64 and 128 (:func:`bwd_form`), else
+        pair compute it at head_dim 64, 128 and 256 (:func:`bwd_form`), else
         float32 is exact.
 
     ``D = rowsum(O dO)`` is computed here in float32, outside the kernels
@@ -462,9 +462,10 @@ def fused_bwd_kernel(q, k, v, do, lse, di, *, causal=False, scale=1.0, kv_len=No
                      q_offset=0, q_seq_len=None, window=None, logit_softcap=None,
                      dropout_rate=None, dropout_seed=0, dropout_row_stride=None, precision=None):
     """One launch of the fused one-pass kernel in the form :func:`bwd_form`
-    picks (``csrc/flash_bwd_tc.cu``; float32 at head_dim 64 and 128 in
-    ``"bf16_3x"`` and ``"bf16"`` its float32 form, the same source built
-    with ``-DFA_F32``; else ``csrc/flash_bwd.cu``): ``(dq, dk, dv)``.  dQ is
+    picks (``csrc/flash_bwd_tc.cu``; float32 at head_dim 64, 128 and 256
+    in ``"bf16_3x"`` and ``"bf16"`` its float32 form, the same source built
+    with ``-DFA_F32``, at d = 256 over two terms with dQ computed as
+    ``(K^T dS^T)^T``; else ``csrc/flash_bwd.cu``): ``(dq, dk, dv)``.  dQ is
     summed with float32 atomics into a zeroed buffer, then cast to q's
     dtype.  On CPU tensors: the plain version."""
     kw = _opts(q, k, causal, scale, kv_len, q_offset, q_seq_len, window, logit_softcap,

@@ -175,15 +175,15 @@ TC_DECODE_ROWS = 32
 TC_F32_HEAD_DIMS = (64, 128, 256)
 TC_F32_KV_TILE = {64: 128, 128: 64, 256: 32}
 TC_F32_SPLIT_KV_TILE = {64: 64, 128: 64, 256: 32}
-# The split-pass forms' head_dims in "bf16_3x" and "bf16": the forward's
-# dropout form (flash_fwd_tc.cu built with -DFA_F32 -DFA_EXTRA) and the
-# fused backward's float32 form (csrc/flash_bwd_tc.cu built with -DFA_F32);
-# the two-pass pair's float32 forms (csrc/flash_bwd_dq_tc.cu and
-# csrc/flash_bwd_tc.cu built with -DFA_PAIR, each with -DFA_F32) take d =
-# 256 too, over 64-row query blocks and 32-row key tiles (dQ) and 32-row
-# query tiles (dK/dV) there.
+# The head_dims in "bf16_3x" and "bf16" of the forward's dropout form
+# (flash_fwd_tc.cu built with -DFA_F32 -DFA_EXTRA, a split-pass form), and
+# of the backward's float32 forms: the fused backward's (csrc/flash_bwd_tc.cu
+# built with -DFA_F32; at d = 256 over two terms, 32-row query tiles) and
+# the two-pass pair's (csrc/flash_bwd_dq_tc.cu and csrc/flash_bwd_tc.cu built
+# with -DFA_PAIR, each with -DFA_F32; at d = 256 over 64-row query blocks and
+# 32-row key tiles (dQ) and 32-row query tiles (dK/dV)).
 TC_F32_SPLIT_PASS_HEAD_DIMS = (64, 128)
-TC_F32_PAIR_HEAD_DIMS = (64, 128, 256)
+TC_F32_BWD_HEAD_DIMS = (64, 128, 256)
 
 
 def f32_products(d: int, precision: str = "bf16_3x") -> int:
@@ -246,9 +246,8 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
     8-bit K/V, in the mode ``precision`` resolves to (:func:`resolve_precision`:
     by default ``"bf16_3x"``), and with dropout at
     ``TC_F32_SPLIT_PASS_HEAD_DIMS`` in ``"bf16_3x"`` and ``"bf16"``; the
-    float32 form of the fused backward at ``TC_F32_SPLIT_PASS_HEAD_DIMS``
-    and those of the two-pass pair at ``TC_F32_PAIR_HEAD_DIMS`` in those
-    two modes, dropout or not; and
+    float32 forms of the backward, the fused one's and the two-pass pair's,
+    at ``TC_F32_BWD_HEAD_DIMS`` in those two modes, dropout or not; and
     chunked prefill's over float32
     pools at ``TC_F32_HEAD_DIMS``, on pages :func:`tc_page_size` takes at
     ``TC_F32_SPLIT_KV_TILE``.  Else
@@ -256,8 +255,7 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
     block mask, 8-bit K/V with dropout, float32 q over 8-bit K/V that the
     tensor-core form does not take in bf16 or in the exact modes, the
     float32 backward, fused or the pair, in ``"float32"`` and at d = 16 /
-    32, the fused one at d = 256 too, and the float32 pair with a block
-    mask).
+    32, and the float32 pair with a block mask).
     ``dtype`` is q's type as the kernel takes it: float32 q over 8-bit K/V
     (:func:`f32_q_in_bf16`) or pages (``ops.decode._f32_q_in_bf16``) taken
     in bf16 asks for the bf16 form.  Inside :func:`scalar_forms`, always
@@ -265,14 +263,12 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
     if (dtype == torch.float32 and not _SCALAR_ONLY[0] and head_dim in TC_F32_HEAD_DIMS
             and not (quantized or block_mask)):
         mode = resolve_precision(precision, dtype)  # raises on an unknown mode
-        split_pass = head_dim in TC_F32_SPLIT_PASS_HEAD_DIMS and mode != "float32"
-        if kernel == "flash_bwd" and split_pass:
-            return "tc_f32"
-        if (kernel in ("flash_bwd_dq", "flash_bwd_dkv") and mode != "float32"
-                and head_dim in TC_F32_PAIR_HEAD_DIMS):
+        if (kernel in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv") and mode != "float32"
+                and head_dim in TC_F32_BWD_HEAD_DIMS):
             return "tc_f32"
         if dropout:
-            if kernel == "flash_fwd" and split_pass:
+            if (kernel == "flash_fwd" and mode != "float32"
+                    and head_dim in TC_F32_SPLIT_PASS_HEAD_DIMS):
                 return "tc_f32"
         elif kernel == "flash_fwd" or (kernel == "paged_prefill" and tc_page_size(
                 page_size, head_dim, TC_F32_SPLIT_KV_TILE[head_dim])):

@@ -127,7 +127,7 @@ KERNELS = {
                                      ["-DFA_F32", *flags])
        for suffix, flags in (("", []), ("_extra", ["-DFA_EXTRA"]))},
     # The fused backward's float32 form (JAX's "bf16_3x" and "bf16" modes at
-    # d = 64 and 128): the number of bf16 terms, float32 q, k, v, do, their
+    # d = 64, 128 and 256): the number of bf16 terms, float32 q, k, v, do, their
     # split buffers, then as flash_bwd_tc with float32 dk, dv.
     **{"flash_bwd_tc_f32" + suffix: ("flash_bwd_tc.cu", "fa_flash_bwd_tc_f32",
                                      [_I, *[_P] * 13, *_BWD], ["-DFA_F32", *flags])

@@ -8,9 +8,9 @@ products (S = Q K^T, dP = dO V^T, dV += Z^T dO, dK += dS^T Q, dQ += dS K) as
 ``_dot_g`` does: both operands split into bf16 hi + lo, ``hi hi + hi lo +
 lo hi`` summed in float32 (flash.py:149-181).  The port's fused backward
 computes the same in its float32 form (``kernel_form`` ``"tc_f32"``,
-``csrc/flash_bwd_tc.cu`` built with ``-DFA_F32``) at head_dim 64 and 128;
-on the CPU its plain version mirrors that form.  Its float32 forward with
-dropout at those head_dims (``flash_fwd_tc_f32_extra``) drops P before its
+``csrc/flash_bwd_tc.cu`` built with ``-DFA_F32``) at head_dim 64, 128 and
+256; on the CPU its plain version mirrors that form.  Its float32 forward
+with dropout at head_dim 64 and 128 (``flash_fwd_tc_f32_extra``) drops P before its
 two terms meet V's, as the Pallas forward does.
 
 Here, with numpy inputs from a seed, against the JAX functions in interpret
@@ -97,22 +97,21 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_routes(d):
-    """The fused backward's float32 form at d = 64 and 128 in "bf16_3x"
-    (the default) and "bf16", dropout or not, and the two-pass pair's
-    float32 forms there and at d = 256 (tests/test_torch_pair_f32.py);
-    "float32", the other head_dims and scalar_forms keep the exact scalar
-    kernels.  The forward with dropout takes its float32 form where the
-    fused backward does."""
+    """The fused backward's float32 form and the two-pass pair's
+    (tests/test_torch_pair_f32.py) at d = 64, 128 and 256 in "bf16_3x" (the
+    default) and "bf16", dropout or not; "float32", the other head_dims and
+    scalar_forms keep the exact scalar kernels.  The forward with dropout
+    takes its float32 form at d = 64 and 128."""
     f32 = torch.float32
     q = torch.zeros(1, 8, d)
     for mode in (None, "auto", *tflash.PRECISIONS):
-        want = "tc_f32" if d in (64, 128) and mode != "float32" else "scalar"
+        want = "tc_f32" if d in (64, 128, 256) and mode != "float32" else "scalar"
         assert tflash.kernel_form("flash_bwd", f32, d, precision=mode) == want, mode
         assert tflash.kernel_form("flash_bwd", f32, d, precision=mode, dropout=True) == want
         assert tbwd.bwd_form(q, True, precision=mode) == want
-        assert tflash.kernel_form("flash_fwd", f32, d, precision=mode, dropout=True) == want
-        pair = "tc_f32" if d in (64, 128, 256) and mode != "float32" else "scalar"
-        assert tbwd.bwd_form(q, False, precision=mode) == pair
+        fwd = "tc_f32" if d in (64, 128) and mode != "float32" else "scalar"
+        assert tflash.kernel_form("flash_fwd", f32, d, precision=mode, dropout=True) == fwd
+        assert tbwd.bwd_form(q, False, precision=mode) == want
         assert tflash.kernel_form("flash_fwd", f32, d, precision=mode, dropout=True,
                                   block_mask=True) == "scalar"
         with tflash.scalar_forms():
@@ -144,7 +143,7 @@ def _bwd(case, d, mode):
             [np.asarray(x, np.float32) for x in want])
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", list(CASES))
 def test_bf16_3x_backward_matches_jax(d, case):
     """Each gradient within NORM_TOL of JAX's "bf16_3x" in norm and
@@ -161,7 +160,7 @@ def test_bf16_3x_backward_matches_jax(d, case):
         assert exact_norm > NORM_TOL, name
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", list(CASES))
 def test_bf16_backward_matches_jax(d, case):
     """The one-pass "bf16" mode (q, k, v and dO rounded to bf16 once)

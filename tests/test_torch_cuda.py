@@ -1084,7 +1084,7 @@ F32_TRAIN_CASES = {
 }
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
 @pytest.mark.parametrize("case", list(F32_TRAIN_CASES))
 def test_f32_training_forms_match_plain(d, mode, case):
@@ -1105,6 +1105,9 @@ def test_f32_training_forms_match_plain(d, mode, case):
               dropout_seed=-12345, dropout_row_stride=c.get("row_stride"), precision=mode)
     dropout = kw["dropout_rate"] is not None
     assert backward.bwd_form(q, True, precision=mode) == "tc_f32"
+    # The forward's dropout form takes d = 64 and 128; at 256 the scalar kernel.
+    fwd_f32 = flash.kernel_form("flash_fwd", torch.float32, d, dropout=True,
+                                precision=mode) == "tc_f32"
     fa_, fb = flash.flash_attention, backward.fused_bwd_kernel
     n = (fa_.launches_tc_f32_dropout, fb.launches, fb.launches_tc_f32, fb.launches_tc_f32_dropout)
     o, l, m = flash.flash_attention(q.cuda(), k.cuda(), v.cuda(), save_residuals=True, **kw)
@@ -1115,7 +1118,8 @@ def test_f32_training_forms_match_plain(d, mode, case):
     want = backward.flash_attention_bwd(*args, fused=True, **kw)
     torch.cuda.synchronize()
     assert (fa_.launches_tc_f32_dropout, fb.launches, fb.launches_tc_f32,
-            fb.launches_tc_f32_dropout) == (n[0] + dropout, n[1] + 1, n[2] + 1, n[3] + dropout)
+            fb.launches_tc_f32_dropout) == (n[0] + (dropout and fwd_f32), n[1] + 1, n[2] + 1,
+                                             n[3] + dropout)
     assert _f32_err(o, wo) <= (2e-2 if mode == "bf16" else 1e-4)
     assert _f32_err(l, wl) <= 1e-5
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -1123,7 +1127,7 @@ def test_f32_training_forms_match_plain(d, mode, case):
         validate_result(g, w, 1e-4, name=name)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("mode", ["bf16_3x", "bf16"])
 def test_f32_training_forms_keep_bits(d, mode):
     """With V and dO the identity (S = d, no mask) the forward's zeros and
@@ -1140,7 +1144,7 @@ def test_f32_training_forms_keep_bits(d, mode):
     assert torch.equal(dv.transpose(1, 2) != 0, keep)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_f32_backward_ignores_poisoned_rows(d):
     """K/V rows past kv_len NaN, and a second head all NaN behind a ragged
     S: the first head's dK and dV bit for bit the clean inputs', dQ (float32

@@ -92,7 +92,8 @@ def test_chip_smoke_imports_no_jax():
     "script",
     ["decode_ab.py", "window_mutants.py", "quant_mutants.py", "bwd_mutants.py", "draft_mutants.py",
      "spec_drift.py", "fwd_bwd_ab.py", "dropout_mutants.py", "probe_d128.py", "probe_fp32.py",
-     "f32_mutants.py", "tc_mutants.py", "probe_stream.py", "pair_f32_gemma.py"],
+     "f32_mutants.py", "tc_mutants.py", "probe_stream.py", "pair_f32_gemma.py",
+     "fused_f32_gemma.py"],
 )
 def test_tools_import_no_jax(script):
     """The card scripts in ``torch_tools/`` drive the port alone (all but

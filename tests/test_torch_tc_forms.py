@@ -43,15 +43,14 @@ def _expected(kernel, dtype, d, quantized, block_mask):
     K/V only in the forward (no backward takes them).  float32 q, k and v
     in the forward at d = 64, 128 and 256 without 8-bit K/V or a block mask:
     the float32 form, in the default precision ("bf16_3x";
-    tests/test_torch_precision.py holds every mode), as do the fused
-    backward (tests/test_torch_bwd_f32.py) at d = 64 and 128 and, without a
-    block mask, the pair (tests/test_torch_pair_f32.py) at d = 64, 128 and
-    256."""
+    tests/test_torch_precision.py holds every mode), as do, without a block
+    mask, the fused backward (tests/test_torch_bwd_f32.py) and the pair
+    (tests/test_torch_pair_f32.py) at d = 64, 128 and 256."""
     if (kernel == "flash_fwd" and dtype == torch.float32 and d in (64, 128, 256)
             and not (quantized or block_mask)):
         return "tc_f32"
     if (kernel in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv") and dtype == torch.float32
-            and d in ((64, 128) if kernel == "flash_bwd" else (64, 128, 256))
+            and d in (64, 128, 256)
             and not (quantized or block_mask)):
         return "tc_f32"
     dims = (64, 128, 256) if kernel in ("flash_fwd", "flash_bwd", "flash_bwd_dq",

@@ -17,9 +17,9 @@ together) and runs chip_smoke's ``f32_form_checks`` untimed (three modes, d
 ``ops.probes.lo_term_f32_qkv``'s, ``lo3_term_f32_qkv``'s and
 ``v3_term_f32_qkv``'s), the float32 cases of ``prefill_poison_check``,
 ``f32_train_checks`` (the backward's and the dropout forward's float32
-forms, "bf16_3x" and "bf16", d = 64 and 128) and ``pair_f32_checks`` (the
-two-pass pair's float32 forms, the same modes, d = 64, 128 and 256) on the
-copy; with ``--pair-only`` ``pair_f32_checks`` alone (the pair's mutants).
+forms, "bf16_3x" and "bf16", d = 64 and 128, the backward's at 256 too)
+and ``pair_f32_checks`` (the two-pass pair's float32 forms, the same
+modes, d = 64, 128 and 256) on the copy; with ``--pair-only`` ``pair_f32_checks`` alone (the pair's mutants).
 The copies:
 
 - ``unmutated``: the sources as they are; every check must pass;
@@ -47,6 +47,14 @@ The copies:
   after the backward's split pass (``tc_common.cuh``'s split_bwd, which the
   pair's dQ pass runs too: caught by the pair's checks as well);
   ``z_bits_on_ds``, Z's dropout bits (keep / (1 - rate)) applied to dS;
+- in the fused backward's float32 form at d = 256 over two terms (the wide
+  kernel over 32-row query tiles, dQ as K^T dS^T; each mutant breaks that
+  instantiation alone and must be caught by a
+  ``flash_bwd_tc_f32/.../d256/bf16_3x`` check):
+  ``fused256_dq_ds_hi_k_lo_dropped`` (dQ's dS hi against K's lo),
+  ``fused256_dk_ds_hi_q_lo_dropped`` (dK's dS hi against Q's lo) and
+  ``fused256_ds_read_before_barrier`` (the P side's dQ products read X
+  before the barrier that says dS is written);
 - in the pair's float32 forms (``flash_bwd_dq_tc.cu``'s ``kTerms`` and
   ``flash_bwd_tc.cu``'s ``kPair`` with ``kTerms``; caught by a
   ``flash_bwd_dq_tc_f32/...`` or ``flash_bwd_dkv_tc_f32/...`` check):
@@ -214,9 +222,9 @@ _BWD_MUTANTS = {
     "z_bits_on_ds": (BWD, [
         ("          dpt[4 * j + e] = p * (dp - tf[kBlockM + x]) * scale * c_fac;",
          "          dpt[4 * j + e] = (dropout ? p * z : p) * (dp - tf[kBlockM + x]) * scale * c_fac;"),
-        ("          st[4 * j + e] = y[4 * j + e] * (dp - tf[kBlockM + x]) * scale;",
-         "          st[4 * j + e] = y[4 * j + e] * (dp - tf[kBlockM + x]) * scale *\n"
-         "                          (dropout ? (fa::dropout_kept(static_cast<unsigned>(ti[4 * kBlockM + x]),\n"
+        ("          st[4 * j + e] = y[4 * j + e] * (dp - tf[kRows + x]) * scale;",
+         "          st[4 * j + e] = y[4 * j + e] * (dp - tf[kRows + x]) * scale *\n"
+         "                          (dropout ? (fa::dropout_kept(static_cast<unsigned>(ti[4 * kRows + x]),\n"
          "                                                       e < 2 ? key_a : key_b, ex.threshold)\n"
          "                                          ? ex.inv : 0.f) : 1.f);")],
         [FUSED, PAIR_DKV]),
@@ -241,6 +249,10 @@ def _dq_term_mutant(skip, call):
 # tiles, the wide dK/dV kernel over 32-row query tiles): each mutant breaks
 # that instantiation alone, so a d = 256 check must catch it.
 _D256 = [("flash_bwd_dq_tc_f32/", "/d256/bf16_3x"), ("flash_bwd_dkv_tc_f32/", "/d256/bf16_3x")]
+# The fused form at d = 256 over two terms (the wide kernel over 32-row
+# query tiles, dQ turned over in dq_half_t): each mutant breaks it alone.
+_FUSED256 = [("flash_bwd_tc_f32/", "/d256/bf16_3x")]
+_DQ_T_P_SIDE = "dq_half_t<D, kTerms>(smem, dq_acc, bh, rows, r0, 0, warp, g, t);"
 
 
 def _dq256_term_mutant(skip, call):
@@ -260,13 +272,16 @@ def _dkv256_term_mutant(skip, p_side):
                              f"    else {_WIDE_SP.strip()}\n")], _D256[1:])
 
 
-def _dkv256_add_mutant(skip, call):
+def _dkv256_add_mutant(skip, call, pair=True):
     """The d = 256 pair's dV (``call`` its add_products call) or dK product
-    ``skip`` (1: A's lo against B's hi, 2: A's hi against B's lo) left out."""
+    ``skip`` (1: A's lo against B's hi, 2: A's hi against B's lo) left out;
+    with ``pair`` False the fused form's (caught by a
+    ``flash_bwd_tc_f32/.../d256/bf16_3x`` check)."""
     mut = call.replace("add_products", "add_products_mut")
+    cond = "kPair" if pair else "!kPair"
     return (BWD, [(_AP_ANCHOR, _ADD_PRODUCTS.replace("SKIP", str(skip)) + _AP_ANCHOR),
-                  (call, f"if constexpr (kPair && D == 256) {mut}\n"
-                         f"      else {call}")], _D256[1:])
+                  (call, f"if constexpr ({cond} && D == 256) {mut}\n"
+                         f"      else {call}")], _D256[1:] if pair else _FUSED256)
 
 
 _PAIR256_MUTANTS = {
@@ -293,6 +308,23 @@ _PAIR256_MUTANTS = {
     "d256_half_tile_range_empty": (COMMON, [(
         "t < min(tiles, (r0 + n - 1) / kSegTile + 1); ++t) {",
         "t < min(tiles, (r0 + n) / kSegTile); ++t) {")], _D256),
+}
+
+_FUSED256_MUTANTS = {
+    "fused256_dq_ds_hi_k_lo_dropped": (BWD, [(
+        "      if constexpr (kTerms == 2)  // K's lo against dS's hi\n",
+        "      if constexpr (false)\n")], _FUSED256),
+    "fused256_dk_ds_hi_q_lo_dropped": _dkv256_add_mutant(
+        2, "add_products<D, kTerms>(acc, ah, al, q_tile);  // dK += dS^T Q", pair=False),
+    # The P side's dQ products read X right after it wrote Y^T there, before
+    # barrier 2 says dS is written (the barrier stays, so the hand-offs keep
+    # their pairing).
+    "fused256_ds_read_before_barrier": (BWD, [
+        (f"if constexpr (C::kDqT) {_DQ_T_P_SIDE}\n        else dq_half",
+         "if constexpr (!C::kDqT) dq_half"),
+        ("      tc::named_arrive(1, 256);  // Y^T written\n",
+         "      tc::named_arrive(1, 256);  // Y^T written\n"
+         f"      if constexpr (!kPair && C::kDqT) {_DQ_T_P_SIDE}\n")], _FUSED256),
 }
 
 _PAIR_MUTANTS = {
@@ -342,6 +374,7 @@ MUTANTS = {
                                        "table[min(t / pg.page_size + 1, pg.pages_per_seq - 1)]);")],
                               [("paged_prefill_tc_f32/", "")]),
     **_BWD_MUTANTS,
+    **_FUSED256_MUTANTS,
     **_PAIR_MUTANTS,
     **_PAIR256_MUTANTS,
 }

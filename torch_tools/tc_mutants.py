@@ -128,8 +128,8 @@ MUTANTS = {
         "flash_fwd_tc.cuh", "(kv.end - kv.begin + kN - 1) / kN : 0;",
         "(kv.end - kv.begin + kN - 1) / kN - 1 : 0;")]),
     "last_tma_stage_skipped/flash_bwd_tc": (BWD, [(
-        "flash_bwd_tc.cu", "return make_int2(0, (rows + kBlockM - 1) / kBlockM);",
-        "return make_int2(0, (rows + kBlockM - 1) / kBlockM - 1);")]),
+        "flash_bwd_tc.cu", "return make_int2(0, (rows + kRows - 1) / kRows);",
+        "return make_int2(0, (rows + kRows - 1) / kRows - 1);")]),
     "page_index_off_by_one": (PP, [(
         "flash_fwd_tc.cuh", "const int page = table[t / pg.page_size];",
         "const int page = table[t / pg.page_size] + 1;")]),
@@ -146,10 +146,10 @@ MUTANTS = {
         "OutT<kTerms>* out = p_side ? dk : dv;")]),
     "y_read_before_barrier/d256": (BWD, [(
         "flash_bwd_tc.cu",
-        "      tc::named_sync(1, 256);  // Y^T written\n      float y[kBlockM / 2];\n"
-        "#pragma unroll\n      for (int j = 0; j < kBlockM / 2; ++j) y[j] = x_f[j * 128 + tid];\n",
-        "      float y[kBlockM / 2];\n"
-        "#pragma unroll\n      for (int j = 0; j < kBlockM / 2; ++j) y[j] = x_f[j * 128 + tid];\n"
+        "      tc::named_sync(1, 256);  // Y^T written\n      float y[kRows / 2];\n"
+        "#pragma unroll\n      for (int j = 0; j < kRows / 2; ++j) y[j] = x_f[j * 128 + tid];\n",
+        "      float y[kRows / 2];\n"
+        "#pragma unroll\n      for (int j = 0; j < kRows / 2; ++j) y[j] = x_f[j * 128 + tid];\n"
         "      tc::named_sync(1, 256);  // Y^T written\n")]),
     "k_scale_dropped": (Q8, [(
         "flash_fwd_tc.cuh", "if constexpr (C::kQuant) x *= ks_t[8 * j + 2 * t + (e & 1)];", "")]),
@@ -172,9 +172,9 @@ MUTANTS = {
     "softcap_derivative_dropped_from_dk/d256": (PAIR, [(
         "flash_bwd_tc.cu", "y[4 * j + e] = p * c_fac;", "y[4 * j + e] = p;")]),
     "dkv_first_gqa_group_only": (PAIR, [
-        ("flash_bwd_tc.cu", f"walk(ex, use_bm, kt, c0, rows, kv_len);  // the query tiles{end}",
-         f"walk(ex, use_bm, kt, c0, min(rows, q_seq_len), kv_len);  // the query tiles{end}")
-        for end in (" to walk\n", ", as above\n")]),
+        ("flash_bwd_tc.cu", f"{call}(ex, use_bm, kt, c0, rows, kv_len);  // the query tiles{end}",
+         f"{call}(ex, use_bm, kt, c0, min(rows, q_seq_len), kv_len);  // the query tiles{end}")
+        for call, end in (("walk", " to walk\n"), ("walk<kRows>", ", as above\n"))]),
     "merge_empty_split_weight_one": (PD, [(
         "paged_decode_tc.cu", "const float w = m == -INFINITY ? 0.f : tc::ex2((m - mm) * tc::kLog2e);",
         "const float w = m <= fa::kMaskValue ? 1.f : tc::ex2((m - mm) * tc::kLog2e);")]),
@@ -203,8 +203,8 @@ MUTANTS = {
         "flash_bwd_dq_tc.cu", "bm = fa::bm_walk(ex, qt, kN, kv.end);\n    n_tiles = bm.y;",
         "bm = fa::bm_walk(ex, qt, kN, kv.end);\n    n_tiles = bm.y - 1;\n    bm.x += 1;")]),
     "bm_first_live_tile_skipped/flash_bwd_dkv_tc": (BM_DKV, [(
-        "flash_bwd_tc.cu", "if (use_bm) return fa::bm_walk(ex, kt, kBlockM, rows);",
-        "if (use_bm) {\n    const int2 w = fa::bm_walk(ex, kt, kBlockM, rows);\n"
+        "flash_bwd_tc.cu", "if (use_bm) return fa::bm_walk(ex, kt, kRows, rows);",
+        "if (use_bm) {\n    const int2 w = fa::bm_walk(ex, kt, kRows, rows);\n"
         "    return make_int2(w.x + 1, w.y - 1);\n  }")]),
 }
 MUTANT_SECONDS = 900  # one copy's checks; the unmutated copy's take about 4 minutes

@@ -52,7 +52,7 @@ MUTANTS = {
     "window_plus_one/flash_fwd": (("flash_fwd",), [
         ("flash_fwd.cu", "col > win_lo", "col >= win_lo")]),
     "window_plus_one/paged_decode": (("paged_decode",), [
-        ("paged_decode.cu", "j0 + u > win_lo", "j0 + u >= win_lo")]),
+        ("paged_decode.cu", "col > win_lo", "col >= win_lo")]),
     "window_plus_one/paged_prefill": (("paged_prefill",), [
         ("paged_prefill.cu", "col > win_lo", "col >= win_lo")]),
 }
