@@ -498,6 +498,9 @@ KERNELS = (
     # dropout forms with -DFA_EXTRA too).
     ("flash_bwd_dq_tc_f32", "flash_bwd_dq_tc.cu", "ops/backward.py:146"),
     ("flash_bwd_dkv_tc_f32", "flash_bwd_tc.cu", "ops/backward.py:269"),
+    # Paged decode over float32 pages (XLA's HIGHEST, three bf16 terms split
+    # in registers, six products on mma.sync), built with -DFA_F32.
+    ("paged_decode_tc_f32", "paged_decode_tc.cu", "ops/decode.py:89"),
 )
 PAIR_F32 = {k: f"{k}_tc_f32" for k in ("flash_bwd_dq", "flash_bwd_dkv")}
 TC_KERNELS = {"flash_fwd": "flash_fwd_tc", "flash_bwd": "flash_bwd_tc",
@@ -665,7 +668,8 @@ def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dr
     kernel that splits in shared memory, in ``precision`` "float32" and in
     "bf16_3x" at d = 256, else ``flash_fwd_tc_f32``; with dropout its
     dropout form ``flash_fwd_tc_f32_extra``), chunked prefill's over float32
-    pools (``paged_prefill_tc_f32``), the fused backward's over float32
+    pools (``paged_prefill_tc_f32``), paged decode's over float32 pages
+    (``paged_decode_tc_f32``), the fused backward's over float32
     (``flash_bwd_tc_f32``) and the pair's (``flash_bwd_dq_tc_f32``,
     ``flash_bwd_dkv_tc_f32``), else ``kernel``.  Float32 q over 8-bit K/V is taken in bf16 (the JAX
     kernels' default), so its form is the bf16 call's.
@@ -682,7 +686,7 @@ def _kname(kernel, q, quantized=False, block_mask=False, page_size=PAGE_SIZE, dr
                                     block_mask=block_mask, page_size=page_size, rows=rows,
                                     dropout=dropout, precision=precision)
     if form == "tc_f32":
-        if kernel in ("paged_prefill", "flash_bwd", *PAIR):
+        if kernel in ("paged_prefill", "paged_decode", "flash_bwd", *PAIR):
             return f"{kernel}_tc_f32"
         if dropout:
             return "flash_fwd_tc_f32_extra"
@@ -1075,9 +1079,10 @@ def paged_checks(decode, benchit, gen, card, report, form=None):
     """Paged decode: MHA (32 KV heads, G=1) and GQA (8 KV heads, G=4); with
     ``form`` (int8 or fp8) over 8-bit pages with per-row scales.  In bf16
     the tensor-core form runs (``paged_decode_tc/...``, against the plain
-    version with its rounding); at the MHA shape the scalar form is timed
-    and checked beside it, and timed in float32 (the float32 paths' form,
-    unquantized, beside SDPA in float32)."""
+    version with its rounding), in float32 over float32 pages its float32
+    form (``paged_decode_tc_f32/...``); at the MHA shape each is timed with
+    the scalar form timed and checked beside it (in float32 beside SDPA in
+    float32; the scalar one kept in ``report["float32_timed"]``)."""
     from flashattention_tpu_torch.ops import flash
 
     out = {}
@@ -1121,13 +1126,15 @@ def paged_checks(decode, benchit, gen, card, report, form=None):
                 )
                 flops = 4 * live * kvh * c["g"] * d
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes, flops=flops, dtype=dt))
-                if dt == "float32":
-                    report.setdefault("float32_timed", {})["paged_decode"] = rec
-                else:
+                if dt == "bfloat16":
                     out["main"] = rec
-                if kname == "paged_decode_tc":
-                    out["main"] = _decode_twin(flash, benchit, report, rec, kernel, plain, dt,
-                                               _tc_key(kname, None, form))
+                if kname in ("paged_decode_tc", "paged_decode_tc_f32"):
+                    twin = _decode_twin(flash, benchit, report, rec, kernel, plain, dt,
+                                        _tc_key(kname, None, form))
+                    if dt == "float32":
+                        report.setdefault("float32_timed", {})["paged_decode"] = twin
+                    else:
+                        out["main"] = twin
             emit(rec)
             report["checks"].append(rec)
             del kp, vp, ks, vs, q, o, want
@@ -1354,25 +1361,26 @@ DECODE_POISON_CASES = (
 )
 
 
-def decode_poison_check(decode, gen, report):
+def decode_poison_check(decode, gen, report, dtypes=("bfloat16", "float32")):
     """The tensor-core paged decode reads no K/V row that no query row may
     see: every pool row past each request's length, every page its table
     names past the live ones and every row before the first column any
     row's window reaches are filled with NaN; the output must equal the
     clean pool's, bit for bit (and be finite).  The fp8 cases do the same
     over fp8 pages, through the 8-bit form: those rows' payload bytes are
-    0x7F (NaN in e4m3) and their scales NaN."""
-    cases = DECODE_POISON_CASES + tuple(
-        (name, {**c, "form": "fp8"}) for name, c in DECODE_POISON_CASES
-        if name in ("gemma2_d256_w4096_cap50", "page16_d64_one_split"))
+    0x7F (NaN in e4m3) and their scales NaN.  In float32 (over float32
+    pages) every case runs the float32 form."""
+    cases = tuple((name, dt, c) for dt in dtypes for name, c in DECODE_POISON_CASES) + tuple(
+        (name, "bfloat16", {**c, "form": "fp8"}) for name, c in DECODE_POISON_CASES
+        if "bfloat16" in dtypes and name in ("gemma2_d256_w4096_cap50", "page16_d64_one_split"))
     recs = []
-    for name, c in cases:
+    for name, dt, c in cases:
         lens, ps, pps, d, k = c["lens"], c["ps"], c["pps"], c["d"], c["k"]
         b, form = len(lens), c.get("form")
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         (kp, ks), (vp, vs), table = _paged_pool(gen, lens, pps, b * pps + 4, (c["kvh"], ps, d),
-                                                torch.bfloat16, form)
-        q = torch.randn((b, c["kvh"], c["g"] * k, d), generator=gen, device="cuda").to(torch.bfloat16)
+                                                DTYPES[dt], form)
+        q = torch.randn((b, c["kvh"], c["g"] * k, d), generator=gen, device="cuda").to(DTYPES[dt])
         kw = dict(scale=d**-0.5, draft_k=k, window=c["window"], logit_softcap=c["cap"])
         clean = decode.paged_attention(q, kp, vp, lengths, table, **kw, **_page_scales(ks, vs))
         kn, vn = kp.clone(), vp.clone()
@@ -1387,7 +1395,7 @@ def decode_poison_check(decode, gen, report):
         equal = bool(torch.equal(poisoned, clean))
         finite = bool(torch.isfinite(poisoned).all())
         rec = {"check": _check_name(_kname("paged_decode", q, form is not None, page_size=ps),
-                                    f"nan_poison/{name}", "bfloat16", form),
+                                    f"nan_poison/{name}", dt, form),
                "shape": f"B={b} KVH={c['kvh']} G={c['g']} k={k} d={d} ps={ps} pps={pps} "
                         f"window={w} cap={c['cap']}",
                "lengths": lens, "splits": list(decode.decode_splits(
@@ -1402,9 +1410,10 @@ def decode_poison_check(decode, gen, report):
     return recs
 
 
-def split_edge_checks(decode, gen, report):
+def split_edge_checks(decode, gen, report, dtypes=("bfloat16", "float32")):
     """paged_decode_tc against its plain version where its splits meet the
-    rows' edges, in bf16 and over fp8 pages: at Gemma-2's draft layer (k =
+    rows' edges, in bf16 and over fp8 pages, and its float32 form over
+    float32 pages (``dtypes``): at Gemma-2's draft layer (k =
     4, window 4096, softcap 50; B = 4, 24 pages a request) and Llama's MHA
     layer (k = 1), with lengths placed by the split length S (``decode_splits``
     on this card): S + 1 and 2 S + 2 (a split boundary among the last k
@@ -1424,18 +1433,19 @@ def split_edge_checks(decode, gen, report):
         lens = [span + 1, 2 * span + 2, 3 * span + k + (w or 0) - 2, cap]
         lens = [min(x, cap) for x in lens]
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        for form in (None, "fp8"):
+        runs = [(dt, form) for dt in dtypes for form in ((None, "fp8") if dt == "bfloat16" else (None,))]
+        for dt, form in runs:
             (kp, ks), (vp, vs), table = _paged_pool(gen, lens, pps, b * pps + 4, (c["kvh"], ps, c["d"]),
-                                                    torch.bfloat16, form)
+                                                    DTYPES[dt], form)
             q = torch.randn((b, c["kvh"], c["g"] * k, c["d"]), generator=gen, device="cuda")
-            q = q.to(torch.bfloat16)
+            q = q.to(DTYPES[dt])
             kw = dict(scale=c["d"]**-0.5, draft_k=k, window=w, logit_softcap=c["cap"],
                       **_page_scales(ks, vs))
             o = decode.paged_attention(q, kp, vp, lengths, table, **kw)
             want = decode.paged_attention_plain(q, kp, vp, lengths, table, **kw)
             torch.cuda.synchronize()
             rec = _rec(_check_name(_kname("paged_decode", q, form is not None), f"split_edges/{name}",
-                                   "bfloat16", form), o, want, "bfloat16", PAGED_TOL["bfloat16"],
+                                   dt, form), o, want, dt, PAGED_TOL[dt],
                        lengths=lens, splits=[n, per], draft_k=k, window=w, softcap=c["cap"])
             emit(rec)
             report["checks"].append(rec)
@@ -1445,13 +1455,94 @@ def split_edge_checks(decode, gen, report):
     return recs
 
 
+# decode_f32_term_checks: head_dims of the lo3_term case and its context
+# (few keys, so that one product's share of each score moves the output
+# well past the tolerance).
+F32_TERM_DIMS = (64, 128, 256)
+F32_TERM_S = 32
+
+
+def decode_f32_term_checks(decode, gen, report):
+    """Paged decode's float32 form on inputs whose small terms move the
+    output by more than PAGED_TOL["float32"] (1e-4), against its plain
+    version, at scale 1, B = 2, 2 KV heads, 256-row pages:
+    ``lo3_term`` (d = 64 / 128 / 256): ``probes.lo3_term_f32_qkv``'s keys and
+    values as the pages of two requests of 32 and 25 columns, q its last
+    row, so that each third-term product of S (x1 y3, x2 y2, x3 y1) moves the
+    scores by 2^-9 to 2^-7 while every partial sum stays exact in float32
+    (a form without one misses by 4e-4 to 1e-3); ``v3_term`` (d = 128): row
+    (b, h) is 16 e_j and key c is 16 e_c, so each row attends one key, and
+    its output is V's row j, 64 (1 + 1.5 2^-9 +/- 1.5 2^-18) per value,
+    whose third bf16 term a form that drops it misses by 3.7e-4;
+    ``p3_term`` (d = 64, G = 4, lengths 2): key 0 scores 0 against V's row 0
+    = 0, key 1 scores ln u (u in (0.5, 0.95)) against V's row 1 = +/-512,
+    so the output is +/-512 u / (1 + u), and p's third bf16 term (up to
+    2^-17 of p) moves it by up to 1e-3, while the kernel's ex2 (2^-22 of p)
+    moves it by 2e-5.  Returns the records."""
+    from flashattention_tpu_torch.ops import probes
+
+    def pm(*shape):
+        return torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+
+    def pages(x, b, kvh):  # (B * KVH, S, d) rows as each request's pages, in table order
+        s, d = x.shape[1:]
+        pps = -(-s // PAGE_SIZE)
+        x = torch.nn.functional.pad(x.reshape(b, kvh, s, d), (0, 0, 0, pps * PAGE_SIZE - s))
+        return x.view(b, kvh, pps, PAGE_SIZE, d).transpose(1, 2).reshape(
+            -1, kvh, PAGE_SIZE, d).contiguous()
+
+    cases = []
+    for d in F32_TERM_DIMS:
+        b, kvh, s = 2, 2, F32_TERM_S
+        q, k, v = probes.lo3_term_f32_qkv(b * kvh, s, d, generator=gen, device="cuda")
+        q = q.view(b, kvh, s, d)[:, :, -1:].contiguous()
+        cases.append((f"lo3_term/d{d}", q, pages(k, b, kvh), pages(v, b, kvh), [s, s - 7]))
+    b, kvh, d = 2, 2, 128
+    j = torch.randint(0, d, (b, kvh), generator=gen, device="cuda")
+    q = 16 * torch.nn.functional.one_hot(j, d).float()[:, :, None].contiguous()
+    k = (16 * torch.eye(d, device="cuda")).expand(b * kvh, d, d)
+    v = 64 * pm(b * kvh, d, d) * (1 + 1.5 * 2.0**-9 + 1.5 * pm(b * kvh, d, d) * 2.0**-18)
+    cases.append(("v3_term/d128", q, pages(k, b, kvh), pages(v, b, kvh), [d, d]))
+    b, kvh, g, d = 16, 2, 4, 64
+    u = 0.5 + 0.45 * torch.rand((b, kvh), generator=gen, device="cuda")
+    k = torch.zeros((b, kvh, PAGE_SIZE, d), device="cuda")
+    k[:, :, 1, 0] = torch.log(u)
+    v = torch.zeros((b, kvh, PAGE_SIZE, d), device="cuda")
+    v[:, :, 1] = 512 * pm(b, kvh, d)
+    q = torch.zeros((b, kvh, g, d), device="cuda")
+    q[..., 0] = 1
+    cases.append(("p3_term/d64", q, k.contiguous(), v.contiguous(), [2] * b))
+    recs = []
+    for name, q, kp, vp, lens in cases:
+        b = q.shape[0]
+        table = torch.arange(kp.shape[0], dtype=torch.int32, device="cuda").view(b, -1).contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        n = decode.paged_attention.launches_tc_f32
+        got = decode.paged_attention(q, kp, vp, lengths, table, scale=1.0)
+        launched = decode.paged_attention.launches_tc_f32 - n
+        want = decode.paged_attention_plain(q, kp, vp, lengths, table, scale=1.0)
+        torch.cuda.synchronize()
+        rec = _rec(_check_name(_kname("paged_decode", q), name, "float32", None), got, want,
+                   "float32", PAGED_TOL["float32"], lengths=lens,
+                   shape=f"B={b} KVH={q.shape[1]} R={q.shape[2]} d={q.shape[3]} ps={kp.shape[2]}",
+                   output_absmax=float(want.abs().max()), launches=launched)
+        rec["ok"] = rec["ok"] and launched == 1
+        emit(rec)
+        report["checks"].append(rec)
+        recs.append(rec)
+    torch.cuda.empty_cache()
+    return recs
+
+
 def decode_serve_shape_timing(decode, benchit, gen, card, report):
     """Paged decode at serve_gemma2's profile decode shape: 4 requests of
     about 1540 tokens (1536-token prompts and their first new tokens) on
     Gemma-2's layer (8 KV heads, G = 2, d = 256, window 4096, softcap 50),
-    the engine's table (24 pages of 256 rows), bf16 and fp8 pages; the
-    tensor-core form beside the scalar one, SDPA and the bound:
-    {form: the tensor-core form's timed check}."""
+    the engine's table (24 pages of 256 rows), bf16 and fp8 pages and
+    float32 q over float32 pages; the tensor-core form (the float32 one in
+    float32) beside the scalar one, SDPA (in float32 for float32) and the
+    bound: {"bf16" | "fp8" | "float32": the tensor-core form's timed
+    check}."""
     from flashattention_tpu_torch.ops import flash
 
     ps, pps, kvh, g, d, w, cap = PAGE_SIZE, 24, 8, 2, 256, 4096, 50.0
@@ -1459,18 +1550,18 @@ def decode_serve_shape_timing(decode, benchit, gen, card, report):
     b = len(lens)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     out = {}
-    for form in (None, "fp8"):
+    for dt, form in (("bfloat16", None), ("bfloat16", "fp8"), ("float32", None)):
         (kp, ks), (vp, vs), table = _paged_pool(gen, lens, pps, b * pps + 4, (kvh, ps, d),
-                                                torch.bfloat16, form)
-        q = torch.randn((b, kvh, g, d), generator=gen, device="cuda").to(torch.bfloat16)
+                                                DTYPES[dt], form)
+        q = torch.randn((b, kvh, g, d), generator=gen, device="cuda").to(DTYPES[dt])
         kw = dict(scale=d**-0.5, window=w, logit_softcap=cap, **_page_scales(ks, vs))
         kernel = lambda: decode.paged_attention(q, kp, vp, lengths, table, **kw)  # noqa: E731
         plain = lambda: decode.paged_attention_plain(q, kp, vp, lengths, table, **kw)  # noqa: E731
         o, want = kernel(), plain()
         torch.cuda.synchronize()
         kname = _kname("paged_decode", q, form is not None)
-        rec = _rec(_check_name(kname, "serve_profile_gemma2", "bfloat16", form), o, want,
-                   "bfloat16", PAGED_TOL["bfloat16"], lengths=lens,
+        rec = _rec(_check_name(kname, "serve_profile_gemma2", dt, form), o, want,
+                   dt, PAGED_TOL[dt], lengths=lens,
                    shape=f"B={b} KVH={kvh} G={g} d={d} ps={ps} pps={pps} window={w} cap={cap}")
         rec["kernel_ms"] = benchit.cuda_time_ms(kernel, flush_bytes=256 << 20)
         rec["plain_ms"] = benchit.cuda_time_ms(plain, flush_bytes=256 << 20)
@@ -1481,12 +1572,12 @@ def decode_serve_shape_timing(decode, benchit, gen, card, report):
         nbytes = (2 * q.numel() * q.element_size() + 2 * sum(lens) * kvh * _row_bytes(kp, d, form)
                   + 4 * (b + n_pages))
         rec.update(live_rows=sum(lens), **benchit.bound_ms(
-            card, bytes_moved=nbytes, flops=4 * sum(lens) * kvh * g * d, dtype="bfloat16"))
-        _decode_twin(flash, benchit, report, rec, kernel, plain, "bfloat16",
+            card, bytes_moved=nbytes, flops=4 * sum(lens) * kvh * g * d, dtype=dt))
+        _decode_twin(flash, benchit, report, rec, kernel, plain, dt,
                      _tc_key(kname, "serve_profile_gemma2", form))
         emit(rec)
         report["checks"].append(rec)
-        out[form or "bf16"] = rec
+        out[form or ("float32" if dt == "float32" else "bf16")] = rec
         del kp, vp, ks, vs, q, o, want
     torch.cuda.empty_cache()
     return out
@@ -1865,13 +1956,14 @@ def _draft_limits(lengths, k, window):
     return rows, seen
 
 
-def draft_checks(decode, benchit, gen, card, report, form=None):
-    """Paged decode's draft form against its plain version in bfloat16 and
-    float32 (with ``form`` int8 or fp8: over 8-bit pages, float32 at the
-    timed shapes only): {case: timed check} for TIMED_DRAFT_CASES, the
-    scalar form's (the tensor-core form's in ``report["tc_timed"]``); also
-    timed there in float32 unquantized, the float32 paths' form
-    (``report["float32_timed"]["paged_decode_draft"]``)."""
+def draft_checks(decode, benchit, gen, card, report, form=None, dtypes=("bfloat16", "float32")):
+    """Paged decode's draft form against its plain version in ``dtypes``
+    (with ``form`` int8 or fp8: over 8-bit pages, float32 at the timed
+    shapes only): {case: timed check} for TIMED_DRAFT_CASES, the scalar
+    form's in bfloat16 (the tensor-core form's in ``report["tc_timed"]``);
+    in float32 unquantized, the float32 paths' form, the float32 form's
+    timed check is in ``report["tc_timed"]`` and the scalar form's beside it
+    in ``report["float32_timed"]["paged_decode_draft"]``."""
     from flashattention_tpu_torch.ops import flash
 
     out = {}
@@ -1882,7 +1974,7 @@ def draft_checks(decode, benchit, gen, card, report, form=None):
     for name, c in DRAFT_CASES:
         kvh, g, d, w = c["kvh"], c["g"], c["d"], c["window"]
         rows = g * k
-        for dt in ("bfloat16", "float32"):
+        for dt in dtypes:
             if form is not None and dt == "float32" and name not in TIMED_DRAFT_CASES:
                 continue
             (kp, ks), (vp, vs), table = _paged_pool(gen, lens, pps, pages, (kvh, ps, d), DTYPES[dt], form)
@@ -1922,19 +2014,16 @@ def draft_checks(decode, benchit, gen, card, report, form=None):
                 kv_bytes = 2 * sum(live) * kvh * _row_bytes(kp, d, form)  # live K, V rows, once
                 nbytes = 2 * q.numel() * q.element_size() + kv_bytes + 4 * (b + n_pages)
                 # The scalar form tiles the R rows by at most 8 and reads the
-                # live K/V once per tile; the tensor-core form once.
-                tiles = 1 if kname == "paged_decode_tc" else rows // next(
-                    t for t in (8, 4, 2, 1) if rows % t == 0)
+                # live K/V once per tile; the tensor-core forms once.
+                tc = kname in ("paged_decode_tc", "paged_decode_tc_f32")
+                tiles = 1 if tc else rows // next(t for t in (8, 4, 2, 1) if rows % t == 0)
                 rec.update(live_rows=sum(live), row_tiles=tiles,
                            kv_bytes_as_read=tiles * kv_bytes)
                 rec.update(benchit.bound_ms(card, bytes_moved=nbytes,
                                             flops=4 * d * kvh * g * sum(map(sum, seen)), dtype=dt))
-                if dt == "float32":
-                    report.setdefault("float32_timed", {}).setdefault(
-                        "paged_decode_draft", {})[name] = rec
-                else:
+                if not tc:
                     out[name] = rec
-                if kname == "paged_decode_tc":
+                else:
                     twin = _decode_twin(flash, benchit, report, rec, kernel, plain, dt,
                                         _tc_key(kname, f"draft_{name}", form))
                     twin.update(row_tiles=rows // next(t for t in (8, 4, 2, 1) if rows % t == 0),
@@ -1944,7 +2033,11 @@ def draft_checks(decode, benchit, gen, card, report, form=None):
                         twin["k_times_k1_ms"] = benchit.cuda_time_ms(
                             lambda: [decode.paged_attention(qj, kp, vp, lj, table, **one_kw)
                                      for qj, lj in ones], warmup=1, iters=5, flush_bytes=256 << 20)
-                    out[name] = twin
+                    if dt == "float32":
+                        report.setdefault("float32_timed", {}).setdefault(
+                            "paged_decode_draft", {})[name] = twin
+                    else:
+                        out[name] = twin
                 del ones, mask
             emit(rec)
             report["checks"].append(rec)
@@ -2075,7 +2168,10 @@ def _counters(flash, decode, backward):
     backward's float32 form's (``flash_bwd`` counts them too), with dropout
     among them ``flash_bwd_tc_f32_dropout``, and ``flash_bwd_dq_tc_f32`` /
     ``flash_bwd_dkv_tc_f32`` (``..._dropout``) the pair's (``flash_bwd_dq`` /
-    ``flash_bwd_dkv`` count them too)."""
+    ``flash_bwd_dkv`` count them too); ``paged_decode_tc_f32`` paged
+    decode's float32 form's (``paged_decode`` counts them too) and
+    ``paged_decode_tc_f32_draft`` its draft launches (``paged_decode_draft``
+    counts them too)."""
     fns = {
         "flash_fwd": flash.flash_attention,
         "paged_decode": decode.paged_attention,
@@ -2103,6 +2199,8 @@ def _counters(flash, decode, backward):
     out["flash_fwd_f32"] = (flash.flash_attention, "launches_tc_f32_split")
     out["flash_fwd_tc_f32_extra"] = (flash.flash_attention, "launches_tc_f32_dropout")
     out["paged_prefill_tc_f32"] = (decode.paged_prefill_attention_batched, "launches_tc_f32")
+    out["paged_decode_tc_f32"] = (decode.paged_attention, "launches_tc_f32")
+    out["paged_decode_tc_f32_draft"] = (decode.paged_attention, "launches_tc_f32_draft")
     out["flash_bwd_tc_f32"] = (backward.fused_bwd_kernel, "launches_tc_f32")
     out["flash_bwd_tc_f32_dropout"] = (backward.fused_bwd_kernel, "launches_tc_f32_dropout")
     for k, f32 in PAIR_F32.items():
@@ -2128,7 +2226,9 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE, cache_dtype=None):
     every fused backward launch of a float32 model at d = 64 / 128 / 256 in
     its float32 form (the dropout ones in that form's dropout count too), and
     every paged prefill launch of a float32 model over float32 pages in
-    chunked prefill's float32 form.  A float32 model's paged launches over
+    chunked prefill's float32 form, and every paged decode launch of one
+    over float32 pages in paged decode's float32 form (the draft launches
+    at k = SPEC_K in its draft count too).  A float32 model's paged launches over
     a ``cache_dtype`` that is not float32 take q in bf16, so their forms are
     the bf16 calls'."""
     from flashattention_tpu_torch.ops import flash
@@ -2170,6 +2270,12 @@ def _tc_expect(want, cfg, page_size=PAGE_SIZE, cache_dtype=None):
         if flash.kernel_form("paged_decode", pdt, cfg.head_dim, page_size=page_size,
                              rows=cfg.group_size * SPEC_K) == "tc":
             want["paged_decode_tc_draft"] = want.get("paged_decode_draft", 0)
+    if flash.kernel_form("paged_decode", pdt, cfg.head_dim, page_size=page_size,
+                         rows=cfg.group_size) == "tc_f32":
+        want["paged_decode_tc_f32"] = want.get("paged_decode", 0)
+        if flash.kernel_form("paged_decode", pdt, cfg.head_dim, page_size=page_size,
+                             rows=cfg.group_size * SPEC_K) == "tc_f32":
+            want["paged_decode_tc_f32_draft"] = want.get("paged_decode_draft", 0)
     return want
 
 
@@ -2443,7 +2549,9 @@ def _spec_drafts(truth, vocab):
 
 
 def _spec_run(counters, cfg, eng, prompts, budget, drafts=None, k=SPEC_K):
-    """One counted run: per token (``drafts`` None) or run_speculative."""
+    """One counted run: per token (``drafts`` None) or run_speculative;
+    every paged decode launch in a tensor-core form (the float32 form over
+    a float32 cache), none scalar."""
     ids = [eng.add_request(p, budget) for p in prompts]
     drive = eng.run if drafts is None else (lambda: eng.run_speculative(drafts, k=k))
     wall, launches = _drive(counters, drive)
@@ -2471,9 +2579,12 @@ def _spec_run(counters, cfg, eng, prompts, budget, drafts=None, k=SPEC_K):
     else:
         rec.update(ms_per_step=1e3 * st["decode_s"] / st["decode_batches"],
                    decode_tok_s=st["decode_tokens"] / st["decode_s"])
+    rec["scalar_paged_decode_launches"] = (launches["paged_decode"] - launches["paged_decode_tc"]
+                                           - launches["paged_decode_tc_f32"])
     rec["ok"] = (_finished(eng, ids, budget) and launches == want
                  and st["free_pages"] == eng.cache.config.num_pages
-                 and (drafts is None or launches["paged_decode_draft"] > 0))
+                 and (drafts is None or launches["paged_decode_draft"] > 0)
+                 and rec["scalar_paged_decode_launches"] == 0)
     return rec
 
 
@@ -2511,7 +2622,9 @@ def phase_serve_speculative(args, transformer, engine_mod, kvcache, counters, re
     drafts (the plain run's own continuation: all accepted), garbage (all
     rejected) and half right; then on an int8 KV cache with oracle drafts
     (the 8-bit draft form).  Tokens must equal the plain run's each time;
-    the draft form must launch layers x verify steps."""
+    the draft form must launch layers x verify steps; every paged decode
+    launch over the float32 cache runs the float32 form
+    (paged_decode_tc_f32), none the scalar kernel."""
     cfg = dataclasses.replace(transformer.ModelConfig.llama7b_attention(), num_layers=args.layers,
                               dtype="float32")
     params = transformer.init_params(args.seed, cfg)
@@ -2547,8 +2660,9 @@ def phase_serve_speculative_gemma2(args, transformer, engine_mod, kvcache, count
     the chunked engine: two prompts of 4600-5000 tokens (past the window),
     17 new tokens, plain and with oracle drafts at k = 4, so the draft form
     runs with the window and softcap at d = 256; tokens must equal.  Every
-    chunk runs chunked prefill's float32 form (paged_prefill_tc_f32), none
-    the scalar kernel."""
+    chunk runs chunked prefill's float32 form (paged_prefill_tc_f32) and
+    every decode and verify step paged decode's (paged_decode_tc_f32), none
+    the scalar kernels."""
     cfg = dataclasses.replace(transformer.ModelConfig.gemma2_9b(num_layers=42), dtype="float32")
     params = transformer.init_params(args.seed, cfg)
     rng = np.random.default_rng(args.seed + 52)
@@ -2568,7 +2682,8 @@ def phase_serve_speculative_gemma2(args, transformer, engine_mod, kvcache, count
            "layers": cfg.num_layers, "k": SPEC_K, "prompt_lens": [len(p) for p in prompts],
            "new_tokens": budget, **cell, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
            "scalar_paged_prefill_launches": scalar_prefill,
-           "ok": all(r["ok"] and r["launches"]["paged_prefill_tc_f32"] > 0 for r in cell.values())
+           "ok": all(r["ok"] and r["launches"]["paged_prefill_tc_f32"] > 0
+                     and r["launches"]["paged_decode_tc_f32"] > 0 for r in cell.values())
            and not any(scalar_prefill.values())}
     emit(rec)
     report["serve_speculative_gemma2"] = rec
@@ -2722,8 +2837,9 @@ def _kernel_of(name):
     forward template's paged form (its fifth template argument, kPaged,
     true) is paged_prefill_tc, and its 8-bit form (the sixth, kKV, not 0)
     the ``_quant`` one; paged_decode_tc's kernel and its merge kernel are
-    paged_decode_tc's (``_quant`` where their last argument, kKV, is not
-    0); the float32 forms (the last argument, kTerms, not 0) are
+    paged_decode_tc's (``_quant`` where their last argument, kKV, is 1 or
+    2, ``_f32`` where it is 3; the float32 form's own kernel is
+    paged_decode_tc_f32_kernel); the float32 forms (the last argument, kTerms, not 0) are
     flash_fwd_tc_f32's (``_extra`` with dropout, the third argument) and
     flash_bwd_tc_f32's; the backward's two kernels (d = 256 and d = 128
     over two terms: the wide one) are flash_bwd_tc's, or flash_bwd_dkv_tc's
@@ -2744,8 +2860,10 @@ def _kernel_of(name):
         return ("paged_prefill_tc" if paged else "flash_fwd_tc") + ("_quant" if quant else "")
     m = re.search(r"paged_decode_tc(?:_merge)?_kernel<([^<>]*)>", name)
     if m:
-        quant = nonzero(m.group(1).split(",")[-1].strip())
-        return "paged_decode_tc" + ("_quant" if quant else "")
+        kv = m.group(1).split(",")[-1].strip()
+        if kv in ("3", "(int)3"):
+            return "paged_decode_tc_f32"
+        return "paged_decode_tc" + ("_quant" if nonzero(kv) else "")
     m = re.search(r"flash_bwd_tc(?:_wide)?_kernel<([^<>]*)>", name)
     if m:
         args = [a.strip() for a in m.group(1).split(",")]
@@ -6696,6 +6814,7 @@ def main() -> int:
     poison = prefill_poison_check(decode, gen, report)
     decode_poison = decode_poison_check(decode, gen, report)
     split_edge_checks(decode, gen, report)
+    decode_f32_term_checks(decode, gen, report)
     decode_serve = decode_serve_shape_timing(decode, benchit, gen, name, report)
     head_dim_pad_check(fa, flash, backward, gen, report)
     lap("serving_checks")
@@ -6905,6 +7024,7 @@ def main() -> int:
     mains["flash_fwd_tc_f32"] = tc_timed["flash_fwd_tc_f32"]
     mains["flash_fwd_f32"] = tc_timed["flash_fwd_f32"]
     mains["paged_prefill_tc_f32"] = tc_timed["paged_prefill_tc_f32"]
+    mains["paged_decode_tc_f32"] = tc_timed["paged_decode_tc_f32"]
     mains["flash_fwd_tc_f32_extra"] = dropout["flash_fwd_tc_f32_extra"]
     timed_keys = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                   "bytes_ms", "ops_ms", "library_ms")
@@ -6913,6 +7033,7 @@ def main() -> int:
     scalar_of["flash_fwd_tc_f32"] = 'flash_fwd (exact float32, the scalar kernel)'
     scalar_of["flash_fwd_f32"] = 'flash_fwd (exact float32, the scalar kernel)'
     scalar_of["paged_prefill_tc_f32"] = "paged_prefill (exact float32, the scalar kernel)"
+    scalar_of["paged_decode_tc_f32"] = "paged_decode (exact float32, the scalar kernel)"
     scalar_of["flash_bwd_tc_f32"] = "flash_bwd (exact float32, the scalar kernel)"
     scalar_of["flash_fwd_tc_f32_extra"] = "flash_fwd (exact float32, its dropout form)"
     scalar_of.update({f32: f"{k} (exact float32, the scalar kernel)" for k, f32 in PAIR_F32.items()})
@@ -6926,7 +7047,8 @@ def main() -> int:
               "flash_fwd_tc_f32": ("flash_fwd_f32", "flash_fwd_tc_f32_extra"),
               "flash_bwd": ("flash_bwd_tc", "flash_bwd_tc_f32"),
               **{k: (TC_KERNELS[k], f32) for k, f32 in PAIR_F32.items()},
-              "paged_prefill": ("paged_prefill_tc", "paged_prefill_tc_f32")}
+              "paged_prefill": ("paged_prefill_tc", "paged_prefill_tc_f32"),
+              "paged_decode": ("paged_decode_tc", "paged_decode_tc_f32")}
     for kname, source, replaces in KERNELS:
         main_rec = mains[kname]
         by_path = {p: n.get(kname, 0) - sum(n.get(w, 0) for w in within.get(kname, ()))
@@ -6937,6 +7059,7 @@ def main() -> int:
                  else " (built with -DFA_PAIR -DFA_F32)" if kname == "flash_bwd_dkv_tc_f32"
                  else " (built with -DFA_F32)" if kname in ("flash_fwd_tc_f32",
                                                            "paged_prefill_tc_f32",
+                                                           "paged_decode_tc_f32",
                                                            "flash_bwd_tc_f32",
                                                            "flash_bwd_dq_tc_f32")
                  else " (built with -DFA_F32 -DFA_EXTRA)" if kname == "flash_fwd_tc_f32_extra"
@@ -7004,6 +7127,9 @@ def main() -> int:
         if kname in (*PAIR, "flash_bwd"):  # on no path since the float32 forms take d = 256
             summary[-1]["check_launches"] = bwd_launches[kname] - sum(
                 bwd_launches[x] for x in within[kname])
+        if kname == "paged_decode":  # on no path since float32 pages take the float32 form
+            summary[-1]["check_launches"] = check_launches[kname] - sum(
+                check_launches[x] for x in within[kname])
         if kname in EXTRA_KERNELS:  # the dropout form: its timed check and launches
             less = (f"{TC_KERNELS[kname]}_dropout", f"{PAIR_F32[kname]}_dropout") if kname in PAIR else ()
             summary[-1]["dropout"] = _extra_entry(dropout[kname], paths, f"{kname}_dropout",
@@ -7029,11 +7155,12 @@ def main() -> int:
             summary[-1]["block_mask"]["masks"] = {
                 m: {k: rec[k] for k in keys} for m, rec in masked[kname].items()}
         if kname in ("paged_prefill_tc", "paged_prefill_tc_quant", "paged_prefill_tc_f32",
-                     "paged_decode_tc", "paged_decode_tc_quant"):  # the NaN-poison checks
+                     "paged_decode_tc", "paged_decode_tc_quant",
+                     "paged_decode_tc_f32"):  # the NaN-poison checks
             summary[-1]["nan_poison"] = {
                 r["check"]: r["ok"] for r in (decode_poison if "decode" in kname else poison)
                 if ("/quant/" in r["check"]) == kname.endswith("_quant")
-                and r["check"].startswith("paged_prefill_tc_f32/") == kname.endswith("_f32")}
+                and r["check"].split("/")[0] == kname.removesuffix("_quant")}
         if kname in ("flash_fwd_f32", "paged_prefill_tc_f32"):
             # Gemma-2's shape (d = 256, window 4096, softcap 50): the forward's
             # "bf16_3x" and "float32" modes, chunked prefill's float32 form,
@@ -7062,6 +7189,18 @@ def main() -> int:
             summary[-1]["serve_profile_gemma2"] = {
                 k: decode_serve["bf16" if kname == tc else "fp8"][k]
                 for k in (*timed_keys, "scalar_ms")}
+        if kname == "paged_decode_tc_f32":
+            # The draft form (k = 4) at the Llama and Gemma-2 shapes, Gemma-2
+            # k = 1 at serve_gemma2's profile decode shape, each with the
+            # scalar form's time beside it; the draft launches by path.
+            draft_keys = (*timed_keys, "scalar_ms", "row_tiles", "kv_bytes_as_read", "k_times_k1_ms")
+            summary[-1]["draft"] = {
+                **{f"draft_{case}": {k: tc_timed[f"{kname}/draft_{case}"].get(k) for k in draft_keys}
+                   for case in TIMED_DRAFT_CASES},
+                "launches_by_path": {p: n["paged_decode_tc_f32_draft"] for p, n in paths.items()
+                                     if n.get("paged_decode_tc_f32_draft")}}
+            summary[-1]["serve_profile_gemma2"] = {
+                k: decode_serve["float32"][k] for k in (*timed_keys, "scalar_ms")}
         if kname in ("flash_fwd_tc", "paged_prefill_tc", "paged_decode_tc"):  # Gemma-2's window
             summary[-1]["d256_window_softcap"] = {
                 k: tc_timed[f"{kname}/d256_window_softcap"][k] for k in (*timed, "scalar_ms")}
@@ -7100,9 +7239,10 @@ def main() -> int:
             }
     # The draft form of paged_decode: its own entry, timed at the Llama and
     # Gemma-2 shapes, its 8-bit forms beside it (the scalar form's; the
-    # tensor-core form's draft launches are in paged_decode_tc's entry).
+    # tensor-core forms' draft launches are in paged_decode_tc's and
+    # paged_decode_tc_f32's entries).
     by_path = {p: n.get("paged_decode_draft", 0) - n.get("paged_decode_tc_draft", 0)
-               for p, n in paths.items()}
+               - n.get("paged_decode_tc_f32_draft", 0) for p, n in paths.items()}
     by_path = {p: x for p, x in by_path.items() if x}
     timed = ("check", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
              "bytes_ms", "ops_ms", "library_ms", "k_times_k1_ms", "row_tiles", "kv_bytes_as_read")
@@ -7112,6 +7252,8 @@ def main() -> int:
         "source": "flashattention_tpu_torch/csrc/paged_decode.cu (built with -DFA_DRAFT)",
         "replaces": "flashattention_tpu/ops/decode.py:89 (draft_k > 1)",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "check_launches": (check_launches["paged_decode_draft"] - check_launches["paged_decode_tc_draft"]
+                           - check_launches["paged_decode_tc_f32_draft"]),
         "max_abs_err": main_rec["max_abs_err"], "tol": main_rec["tol"], "shape": main_rec["check"],
         "ms": main_rec["kernel_ms"], **{k: main_rec[k] for k in timed if k not in ("check", "shape")},
         "gemma2": {k: drafts[None]["gemma2"][k] for k in timed},
@@ -7150,8 +7292,9 @@ def main() -> int:
     # The scalar pair and the scalar fused backward left the paths when
     # float32 training at Gemma-2's d = 256 took the float32 forms (bf16
     # runs the tensor-core forms, float32 at d = 64 / 128 / 256 the float32
-    # forms): they must still launch in the backward checks
-    # (ops.flash.scalar_forms).
+    # forms), and the scalar paged decode and its draft form when float32
+    # pages took paged decode's float32 form: they must still launch in
+    # their checks (ops.flash.scalar_forms).
     failed += [k["name"] for k in summary
                if k["launches"] == 0 and k.get("check_launches", 0) == 0]
     # The scalar 8-bit forms left the paths for their tensor-core forms

@@ -94,18 +94,7 @@ __host__ __device__ constexpr int pair_b(int kT, int i) {
   return kT == 3 ? (i == 2 ? 2 : i == 1 || i == 4 ? 1 : 0) : (i == 1 ? 1 : 0);
 }
 
-// Two neighbouring float32 values as kT bf16x2 words, the terms of each.
-template <int kT>
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&w)[kT]) {
-  w[0] = tc::pack_bf16(x0, x1);
-  float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[0]));
-  const float r0 = x0 - h.x, r1 = x1 - h.y;  // exact
-  w[1] = tc::pack_bf16(r0, r1);
-  if constexpr (kT == 3) {
-    h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[1]));
-    w[2] = tc::pack_bf16(r0 - h.x, r1 - h.y);
-  }
-}
+using tc::split_pair;  // two neighbouring float32 values as kT bf16x2 words
 
 // A float32 unit (kRows rows of 64 columns, 256-byte rows) into kT bf16
 // term chunks at dst + a * term_stride, its row r at row row0 + r of the

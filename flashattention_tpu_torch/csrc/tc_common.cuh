@@ -96,6 +96,20 @@ __device__ __forceinline__ void pack_a2(uint32_t (&hi)[4], uint32_t (&lo)[4], co
     lo[w] = pack_lo(x[8 * kk + 2 * w], x[8 * kk + 2 * w + 1], hi[w]);
   }
 }
+// Two neighbouring float32 values as kT bf16x2 words, the terms of each:
+// x1 = bf16(x), x2 = bf16(x - x1) and, at kT = 3, x3 = bf16(x - x1 - x2),
+// each rounded to nearest even (the residuals are exact in float32).
+template <int kT>
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&w)[kT]) {
+  w[0] = pack_bf16(x0, x1);
+  float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[0]));
+  const float r0 = x0 - h.x, r1 = x1 - h.y;  // exact
+  w[1] = pack_bf16(r0, r1);
+  if constexpr (kT == 3) {
+    h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[1]));
+    w[2] = pack_bf16(r0 - h.x, r1 - h.y);
+  }
+}
 
 // 2^x by the special-function unit (relative error about 2^-22; subnormal
 // results flush to 0): the softmax's exponentials, in log2 units.
@@ -525,19 +539,21 @@ static int split_bwd(const void* q, const void* k, const void* v, const void* do
 // 1) read as boxes of `box_rows` rows (x 1 in the others): bf16 (elem_bytes
 // 2) in boxes of 64 columns swizzled by 128 bytes, the layout wgmma reads;
 // float32 (elem_bytes 4) in boxes of 64 columns (256 bytes a row),
-// unswizzled, which the consumers split into bf16 terms themselves;
-// 8-bit payloads (elem_bytes 1, int8 or fp8 as bytes) in boxes of whole
-// rows, unswizzled (rows of dims[0] bytes, at most 256), which the
-// consumers convert to bf16 themselves, or with `swizzle8` in boxes of 128
-// columns swizzled by 128 bytes, the layout an 8-bit wgmma reads
-// (probe_mma.cu's native int8 products).  What lies past a dimension's end
+// unswizzled, which the consumers split into bf16 terms themselves, or
+// with `swizzle` in boxes of 32 columns swizzled by 128 bytes (paged
+// decode's float32 form, whose threads read a value's column of 8 rows
+// without bank conflicts); 8-bit payloads (elem_bytes 1, int8 or fp8 as
+// bytes) in boxes of whole rows, unswizzled (rows of dims[0] bytes, at
+// most 256), which the consumers convert to bf16 themselves, or with
+// `swizzle` in boxes of 128 columns swizzled by 128 bytes, the layout an
+// 8-bit wgmma reads (probe_mma.cu's native int8 products).  What lies past a dimension's end
 // reads as zeros.  Returns 0, or kTcMapError + the CUresult (kTcMapError
 // alone: no driver entry point).
 constexpr int kTcMapError = 10000;
 
 static int tc_encode(CUtensorMap* map, const void* base, int rank, const long long* dims,
                      const long long* strides, int box_rows, int elem_bytes = 2,
-                     bool swizzle8 = false) {
+                     bool swizzle = false) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -560,9 +576,10 @@ static int tc_encode(CUtensorMap* map, const void* base, int rank, const long lo
   cuuint32_t box[5], elem[5];
   for (int i = 0; i < rank; ++i) {
     d[i] = static_cast<cuuint64_t>(dims[i]);
-    const cuuint32_t cols = elem_bytes == 2 || elem_bytes == 4 ? tc::kChunk
-                            : swizzle8      ? 128u
-                                            : static_cast<cuuint32_t>(dims[0]);
+    const cuuint32_t cols = elem_bytes == 2   ? tc::kChunk
+                            : elem_bytes == 4 ? (swizzle ? 32u : tc::kChunk)
+                            : swizzle         ? 128u
+                                              : static_cast<cuuint32_t>(dims[0]);
     box[i] = i == 0 ? cols : i == 1 ? static_cast<cuuint32_t>(box_rows) : 1;
     elem[i] = 1;
     if (i > 0) st[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * elem_bytes;
@@ -574,7 +591,7 @@ static int tc_encode(CUtensorMap* map, const void* base, int rank, const long lo
   const CUresult r = encode(map, type,
                             rank, const_cast<void*>(base), d, st, box, elem,
                             CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            wide || swizzle8 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            wide || swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTcMapError + static_cast<int>(r);
 }
@@ -583,8 +600,8 @@ static int tc_encode(CUtensorMap* map, const void* base, int rank, const long lo
 // `head_stride` elements); rows past `rows` read as zeros.
 static int tc_encode_map(CUtensorMap* map, const void* base, int cols, int rows, int heads,
                          long long head_stride, int box_rows, int elem_bytes = 2,
-                         bool swizzle8 = false) {
+                         bool swizzle = false) {
   const long long dims[3] = {cols, rows, heads};
   const long long strides[2] = {cols, head_stride};
-  return tc_encode(map, base, 3, dims, strides, box_rows, elem_bytes, swizzle8);
+  return tc_encode(map, base, 3, dims, strides, box_rows, elem_bytes, swizzle);
 }

@@ -13,9 +13,12 @@ or 256 with at most 32 q rows per KV head, over bf16 or 8-bit pages of a
 size its TMA boxes take, the tensor-core kernel in ``csrc/paged_decode_tc.cu``
 (``paged_decode_tc``, for 8-bit pages ``paged_decode_tc_quant``: the cache
 split across blocks, pages staged by TMA, products by ``mma.sync``, the
-splits' partials merged by a second kernel), otherwise the float32
-CUDA-core kernel in ``csrc/paged_decode.cu``; on a CPU tensor it runs
-:func:`paged_attention_plain` with the chosen form's rounding.  A CUDA call
+splits' partials merged by a second kernel), for float32 q over float32
+pages at those head_dims, rows and page sizes the same source's float32
+form (``paged_decode_tc_f32``: each value as three bf16 terms split in
+registers, six products, as the Pallas kernel's HIGHEST), otherwise the
+float32 CUDA-core kernel in ``csrc/paged_decode.cu``; on a CPU tensor it
+runs :func:`paged_attention_plain` with the chosen form's rounding.  A CUDA call
 launches the kernel or raises; there is no fallback.  With ``draft_k = k >
 1`` (speculative verification) q holds k rows per query head, k-minor, each
 at its own causal limit, and the kernel's draft form runs.
@@ -57,6 +60,7 @@ from flashattention_tpu_torch.ops.flash import (
     KV_DTYPES,
     TC_DECODE_TILE,
     _exp,
+    _highest,
     _two_term_bf16,
     check_kv,
     check_window,
@@ -203,11 +207,13 @@ def paged_attention_plain(
     the kernel form's rounding: ``"tc"`` that of ``paged_decode_tc``
     (:func:`_paged_attention_tc_plain`; ``splits`` the split count to ask
     :func:`decode_splits` for, by default the one the kernel takes on the
-    card the inputs lie on); ``"scalar"`` attends in float32 over 8-bit
-    rows dequantized in float32.  Float32 q that the kernel takes in bf16
-    (:func:`_f32_q_in_bf16`) is taken so here: the form is the bf16 call's,
-    and O comes back in float32, from the float32 sums (tc) or through a
-    bf16 store (scalar, bf16 pages)."""
+    card the inputs lie on); ``"tc_f32"`` that of its float32 form over
+    float32 pages, the same with S and P V as XLA's HIGHEST computes them
+    (``ops.flash._highest``: three bf16 terms, six products); ``"scalar"``
+    attends in float32 over 8-bit rows dequantized in float32.  Float32 q
+    that the kernel takes in bf16 (:func:`_f32_q_in_bf16`) is taken so
+    here: the form is the bf16 call's, and O comes back in float32, from the
+    float32 sums (tc) or through a bf16 store (scalar, bf16 pages)."""
     kw = dict(scale=scale, draft_k=draft_k, window=window, logit_softcap=logit_softcap,
               k_scales_pages=k_scales_pages, v_scales_pages=v_scales_pages)
     if _plain_f32_q(q, k_pages, form, "paged_decode", q.shape[2]):
@@ -218,15 +224,15 @@ def paged_attention_plain(
                                rows=q.shape[2])
         if form == "tc":
             return _paged_attention_tc_plain(qb.float(), k_pages, v_pages, lengths, page_indices,
-                                             splits=splits, **kw)
+                                             splits=splits, highest=False, **kw)
         return paged_attention_plain(qb, k_pages, v_pages, lengths, page_indices, form=form,
                                      **kw).float()
     if form is None:
         form = kernel_form("paged_decode", q.dtype, q.shape[3], quantized=k_scales_pages is not None,
                            page_size=k_pages.shape[2], rows=q.shape[2])
-    if form == "tc":
+    if form in ("tc", "tc_f32"):
         return _paged_attention_tc_plain(q, k_pages, v_pages, lengths, page_indices,
-                                         splits=splits, **kw)
+                                         splits=splits, highest=form == "tc_f32", **kw)
     o = paged_attention_reference(q, k_pages, v_pages, lengths, page_indices, **kw)
     return torch.where((lengths > 0)[:, None, None, None].to(o.device), o, torch.zeros_like(o))
 
@@ -239,9 +245,10 @@ def _pad_cols(x, width, dim):
 
 def _paged_attention_tc_plain(
     q, k_pages, v_pages, lengths, page_indices, *, scale, draft_k, window, logit_softcap,
-    k_scales_pages, v_scales_pages, splits,
+    k_scales_pages, v_scales_pages, splits, highest,
 ):
-    """``paged_decode_tc``'s function and rounding in plain PyTorch.
+    """``paged_decode_tc``'s function and rounding in plain PyTorch (with
+    ``highest``, its float32 form's).
 
     Each request's table is cut into the kernel's splits
     (:func:`decode_splits`) of ``TC_DECODE_TILE``-column tiles aligned to
@@ -252,7 +259,9 @@ def _paged_attention_tc_plain(
     column's score is the finite mask value, a column of a tile the split
     does not visit -inf), p against the running max of the visited tiles,
     l the sum of the float32 p, P (times the column's v_scale) as two bf16
-    terms, V rows and the scales outside [first, end) as zeros; then the
+    terms, V rows and the scales outside [first, end) as zeros (with
+    ``highest``: S as XLA's HIGHEST computes it, and P's three terms, the
+    rescale applied, against V's, ``ops.flash._highest``); then the
     partials merged, each weighted by ``exp(m_split - M)`` (0 for a split
     that visits nothing), O times ``1 / L`` (zeros where L is 0: a length-0
     request)."""
@@ -272,7 +281,8 @@ def _paged_attention_tc_plain(
     k = _pad_cols(_gather(k_pages, None, page_indices), width, 2)
     v = _pad_cols(_gather(v_pages, None, page_indices), width, 2)
     v = torch.where(live[:, None, :, None], v, 0.0)
-    s = torch.einsum("bhrd,bhkd->bhrk", q.float(), k)
+    s = (_highest("bhrd,bhkd->bhrk", q, k) if highest
+         else torch.einsum("bhrd,bhkd->bhrk", q.float(), k))
     vs = None
     if k_scales_pages is not None:  # (B, KVH, width) per-row scales, 0 outside [first, end)
         ks, vs = (torch.where(live[:, None], _pad_cols(
@@ -293,10 +303,14 @@ def _paged_attention_tc_plain(
     p = torch.where(vis, _exp(s - m_run[..., None]), 0.0)
     resc = torch.where(vis[..., 0], _exp(m_run - m_split[..., None]), 0.0)
     l_split = (p.sum(-1) * resc).sum(-1)  # (B, KVH, rows, n)
-    if vs is not None:
-        p = p * vs.view(b, kvh, 1, n, per, tile)
-    p = _two_term_bf16(p) * resc[..., None]
-    acc = torch.einsum("bhrnpk,bhnpkd->bhrnd", p, v.view(b, kvh, n, per, tile, d))
+    v = v.view(b, kvh, n, per, tile, d)
+    if highest:
+        acc = _highest("bhrnpk,bhnpkd->bhrnd", p, v, resc[..., None])
+    else:
+        if vs is not None:
+            p = p * vs.view(b, kvh, 1, n, per, tile)
+        p = _two_term_bf16(p) * resc[..., None]
+        acc = torch.einsum("bhrnpk,bhnpkd->bhrnd", p, v)
     if n == 1:
         l, o = l_split[..., 0], acc[..., 0, :]
     else:
@@ -355,9 +369,10 @@ def paged_attention(
     pages is taken in bf16, as the JAX kernel takes it, where
     :func:`_f32_q_in_bf16` says so, and O comes back in float32.  The launch count is kept on
     this function (``.launches``; ``.launches_quantized`` and
-    ``.launches_draft`` count the 8-bit and draft launches among them, and
+    ``.launches_draft`` count the 8-bit and draft launches among them,
     ``.launches_tc``, ``.launches_tc_quantized`` and ``.launches_tc_draft``
-    the tensor-core form's).
+    the tensor-core form's, and ``.launches_tc_f32`` and
+    ``.launches_tc_f32_draft`` its float32 form's).
     """
     check_window(window, logit_softcap, causal=True)
     if q.dim() != 4 or k_pages.dim() != 4:
@@ -405,15 +420,16 @@ def paged_attention(
         raise ValueError("paged_attention kernel takes int32 lengths and page_indices")
     if b > 65535:
         raise ValueError(f"paged_attention kernel takes B <= 65535, got {b}")
-    if quantized or form == "tc":
-        kernels.check_aligned("paged_attention", *((qk, k_pages, v_pages) if form == "tc"
+    tc = form in ("tc", "tc_f32")
+    if quantized or tc:
+        kernels.check_aligned("paged_attention", *((qk, k_pages, v_pages) if tc
                                                    else (k_pages, v_pages)))
-    # The tensor-core form writes float32 O itself for float32 q.
-    o = torch.empty_like(q if form == "tc" else qk)
+    # The tensor-core forms write float32 O themselves for float32 q.
+    o = torch.empty_like(q if tc else qk)
     what = f"q {tuple(q.shape)} {q.dtype}, pages {k_pages.dtype}, draft_k {draft_k}"
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale_ptrs = [t.data_ptr() if quantized else None for t in (k_scales_pages, v_scales_pages)]
-    if form == "tc":
+    if tc:
         # The splits' partials, O then (m, l) (none with one split: the
         # kernel writes O itself).
         pps = page_indices.shape[1]
@@ -422,13 +438,17 @@ def paged_attention(
                            device=q.device)
         part_o = part.data_ptr() or None
         part_ml = part_o and part_o + 4 * b * kvh * n * g * d
-        name = "paged_decode_tc" + ("_quant" if quantized else "")
-        status = kernels.library(name).fa_paged_decode_tc(
-            KV_DTYPES[k_pages.dtype], qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            *scale_ptrs, lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(), part_o,
-            part_ml, b, kvh, g, d, k_pages.shape[0], page_size, pps, n, per, draft_k,
-            float(scale), *kernel_options(window, logit_softcap), int(f32_q), stream,
-        )
+        ptrs = (qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+        tail = (lengths.data_ptr(), page_indices.data_ptr(), o.data_ptr(), part_o, part_ml, b,
+                kvh, g, d, k_pages.shape[0], page_size, pps, n, per, draft_k, float(scale),
+                *kernel_options(window, logit_softcap))
+        if form == "tc_f32":  # float32 q over float32 pages, three bf16 terms
+            name = "paged_decode_tc_f32"
+            status = kernels.library(name).fa_paged_decode_tc_f32(*ptrs, *tail, stream)
+        else:
+            name = "paged_decode_tc" + ("_quant" if quantized else "")
+            status = kernels.library(name).fa_paged_decode_tc(
+                KV_DTYPES[k_pages.dtype], *ptrs, *scale_ptrs, *tail, int(f32_q), stream)
         kernels.check_launch(name, status, what)
     else:
         # The draft form and the 8-bit pages' forms (a library per d) build apart.
@@ -440,25 +460,29 @@ def paged_attention(
             *kernel_options(window, logit_softcap), stream,
         )
         kernels.check_launch(name, status, what)
-    tc = form == "tc"
+    bf16_tc, f32_tc = form == "tc", form == "tc_f32"
     paged_attention.launches += 1
     paged_attention.launches_quantized += quantized
     paged_attention.launches_draft += draft_k > 1
-    paged_attention.launches_tc += tc
-    paged_attention.launches_tc_quantized += tc and quantized
-    paged_attention.launches_tc_draft += tc and draft_k > 1
+    paged_attention.launches_tc += bf16_tc
+    paged_attention.launches_tc_quantized += bf16_tc and quantized
+    paged_attention.launches_tc_draft += bf16_tc and draft_k > 1
+    paged_attention.launches_tc_f32 += f32_tc
+    paged_attention.launches_tc_f32_draft += f32_tc and draft_k > 1
     return o.to(q.dtype)
 
 
 # Kernel launches, for the chip run's path check: all forms, the 8-bit ones
-# and the draft ones, and the tensor-core form's (all, 8-bit, draft) among
-# them.
+# and the draft ones, the tensor-core form's (all, 8-bit, draft) and its
+# float32 form's (all, draft) among them.
 paged_attention.launches = 0
 paged_attention.launches_quantized = 0
 paged_attention.launches_draft = 0
 paged_attention.launches_tc = 0
 paged_attention.launches_tc_quantized = 0
 paged_attention.launches_tc_draft = 0
+paged_attention.launches_tc_f32 = 0
+paged_attention.launches_tc_f32_draft = 0
 
 
 # ── chunked prefill ──────────────────────────────────────────────────────────

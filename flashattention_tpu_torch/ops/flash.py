@@ -150,7 +150,9 @@ def resolve_precision(precision: str | None, dtype) -> str:
 # take block masks (TC_BLOCK_MASK).  The forward's KV tile (kBlockN,
 # also the paged form's) sets where its online softmax rescales, which the
 # plain versions mirror; paged decode's tile is 64 rows at every head_dim
-# (TC_DECODE_TILE), and it takes at most TC_DECODE_ROWS q rows per KV head.
+# (TC_DECODE_TILE), and it takes at most TC_DECODE_ROWS q rows per KV head,
+# as does its float32 form (csrc/paged_decode_tc.cu built with -DFA_F32,
+# float32 q over float32 pages at TC_F32_HEAD_DIMS, XLA's HIGHEST).
 TC_HEAD_DIMS = {"flash_fwd": (64, 128, 256), "flash_bwd": (64, 128, 256),
                 "flash_bwd_dq": (64, 128, 256), "flash_bwd_dkv": (64, 128, 256),
                 "paged_prefill": (64, 128, 256), "paged_decode": (64, 128, 256)}
@@ -250,12 +252,16 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
     at ``TC_F32_BWD_HEAD_DIMS`` in those two modes, dropout or not; and
     chunked prefill's over float32
     pools at ``TC_F32_HEAD_DIMS``, on pages :func:`tc_page_size` takes at
-    ``TC_F32_SPLIT_KV_TILE``.  Else
-    ``"scalar"``, the float32 CUDA-core kernel (float32 or 8-bit K/V with a
-    block mask, 8-bit K/V with dropout, float32 q over 8-bit K/V that the
-    tensor-core form does not take in bf16 or in the exact modes, the
+    ``TC_F32_SPLIT_KV_TILE``; and paged decode's over float32 pages at
+    ``TC_F32_HEAD_DIMS``, on pages :func:`tc_page_size` takes at
+    ``TC_DECODE_TILE``, with at most ``TC_DECODE_ROWS`` q ``rows`` per KV
+    head (XLA's HIGHEST, as the Pallas kernel computes float32 pages).
+    Else ``"scalar"``, the float32 CUDA-core kernel (float32 or 8-bit K/V
+    with a block mask, 8-bit K/V with dropout, float32 q over 8-bit K/V that
+    the tensor-core form does not take in bf16 or in the exact modes, the
     float32 backward, fused or the pair, in ``"float32"`` and at d = 16 /
-    32, and the float32 pair with a block mask).
+    32, the float32 pair with a block mask, and paged decode at d = 32,
+    with more than 32 rows or on pages its boxes refuse).
     ``dtype`` is q's type as the kernel takes it: float32 q over 8-bit K/V
     (:func:`f32_q_in_bf16`) or pages (``ops.decode._f32_q_in_bf16``) taken
     in bf16 asks for the bf16 form.  Inside :func:`scalar_forms`, always
@@ -271,7 +277,9 @@ def kernel_form(kernel: str, dtype, head_dim: int, *, quantized: bool = False,
                     and head_dim in TC_F32_SPLIT_PASS_HEAD_DIMS):
                 return "tc_f32"
         elif kernel == "flash_fwd" or (kernel == "paged_prefill" and tc_page_size(
-                page_size, head_dim, TC_F32_SPLIT_KV_TILE[head_dim])):
+                page_size, head_dim, TC_F32_SPLIT_KV_TILE[head_dim])) or (
+                kernel == "paged_decode" and rows <= TC_DECODE_ROWS
+                and tc_page_size(page_size, head_dim, TC_DECODE_TILE)):
             return "tc_f32"
     if (_SCALAR_ONLY[0] or dtype != torch.bfloat16
             or (block_mask and (quantized or kernel not in TC_BLOCK_MASK))
@@ -335,6 +343,19 @@ def _split3_bf16(x):
     (flash.py:40)."""
     x1 = x.to(torch.bfloat16).float()
     return (x1, *_split_bf16(x - x1))
+
+
+def _highest(eq, x, y, fx=None):
+    """``torch.einsum(eq, x, y)`` as XLA's HIGHEST computes it on bf16
+    terms (:func:`_split3_bf16`): the six products x1 y1, x1 y2, x2 y1, x1
+    y3, x2 y2, x3 y1, as (x1 + x2 + x3) y1 + (x1 + x2) y2 + x1 y3 (y, the
+    larger operand where one is, is only split), summed exactly (in
+    float64) and rounded to float32 once; ``fx`` (broadcast against ``x``)
+    multiplies each of x's terms first, in float64."""
+    f = 1.0 if fx is None else fx.double()
+    x1, x2, x3 = (t.double() * f for t in _split3_bf16(x))
+    return sum(torch.einsum(eq, a, b.double())
+               for a, b in zip((x1 + x2 + x3, x1 + x2, x1), _split3_bf16(y))).float()
 
 
 def _two_term_bf16(x):
@@ -1120,11 +1141,8 @@ def _fwd_plain_heads(q, k, v, mask, keep, kv_scales, *, scale, logit_softcap, dr
     default the tensor-core forms', ``TC_KV_TILE``)."""
     bh, rows, d = q.shape
     s_kv = k.shape[1]
-    if products == 6:  # x1 (y1 + y2 + y3) + x2 (y1 + y2) + x3 y1, exactly
-        (q1, q2, q3), (k1, k2, k3) = _split3_bf16(q), _split3_bf16(k)
-        s = sum(torch.einsum("bqd,bkd->bqk", a.double(), b.double())
-                for a, b in ((q1, k1 + k2 + k3), (q2, k1 + k2), (q3, k1))).float()
-        del q1, q2, q3, k1, k2, k3
+    if products == 6:
+        s = _highest("bqd,bkd->bqk", q, k)
     elif products:  # S from the terms' products: hi hi, hi lo, lo hi (, lo lo)
         (qh, ql), (kh, kl) = _split_bf16(q), _split_bf16(k)
         pairs = ((qh, kh), (qh, kl), (ql, kh), (ql, kl))[:products]
@@ -1159,12 +1177,9 @@ def _fwd_plain_heads(q, k, v, mask, keep, kv_scales, *, scale, logit_softcap, dr
     del s
     if dropout_rate:  # l stays the undropped sum (flash.py:931-937)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
-    if products == 6:  # P's three terms against V's: six products, exactly
-        (p1, p2, p3), (v1, v2, v3) = _split3_bf16(p), _split3_bf16(v)
-        f = m_run.double()
-        o = sum(torch.einsum("bqk,bkd->bqd", a.double() * f, b.double())
-                for a, b in ((p1 + p2 + p3, v1), (p1 + p2, v2), (p1, v3))).float()
-        del p1, p2, p3, f, m_run
+    if products == 6:  # P's three terms (times the rescale) against V's
+        o = _highest("bqk,bkd->bqd", p, v, m_run)
+        del m_run
     elif products:  # P's two terms against V's: (p_hi + p_lo) v_hi + p_hi v_lo (+ p_lo v_lo)
         ph, pl = _split_bf16(p)
         vh, vl = _split_bf16(v)

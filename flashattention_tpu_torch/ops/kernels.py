@@ -26,7 +26,8 @@ with ``-DFA_F32`` (``flash_fwd_tc_f32``, and with dropout
 (``paged_prefill_tc_f32``) and the fused backward's over float32
 (``flash_bwd_tc_f32[_extra]``); paged
 decode's tensor-core form is ``paged_decode_tc`` and, for 8-bit pages, the
-same source built with ``-DFA_QUANT`` (``paged_decode_tc_quant``).  The
+same source built with ``-DFA_QUANT`` (``paged_decode_tc_quant``) and, for
+float32 q over float32 pages, with ``-DFA_F32`` (``paged_decode_tc_f32``).  The
 two-pass backward pair's tensor-core forms are ``flash_bwd_dq_tc`` (a
 source of its own) and ``flash_bwd_dkv_tc`` (the fused backward's source
 built with ``-DFA_PAIR``), each with its dropout and block-mask form
@@ -108,6 +109,11 @@ KERNELS = {
     **{"paged_decode_tc" + suffix: ("paged_decode_tc.cu", "fa_paged_decode_tc",
                                     [_I, *[_P] * 10, *[_I] * 10, _F, _I, _F, _I, _P], flags)
        for suffix, flags in (("", []), ("_quant", ["-DFA_QUANT"]))},
+    # Its float32 form (float32 q over float32 pages, three bf16 terms a
+    # value): the bf16 form's arguments without the type code, the scale
+    # pools and the float32 O flag.
+    "paged_decode_tc_f32": ("paged_decode_tc.cu", "fa_paged_decode_tc_f32",
+                            [*[_P] * 8, *[_I] * 10, _F, _I, _F, _P], ["-DFA_F32"]),
     # The 8-bit forms of the two tensor-core forwards: the payload's type
     # code (the flat form's then whether O is float32) and the two scale
     # arrays first, then the bf16 form's arguments (the paged form's with

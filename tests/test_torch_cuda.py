@@ -1069,6 +1069,81 @@ def test_paged_prefill_f32_form_matches_plain(d, ps):
     assert torch.equal(poisoned, got)
 
 
+# Paged decode's float32 form (paged_decode_tc_f32): (G, draft_k, d, page
+# size, lengths, window, softcap): a length 0 and page edges at k = 1; the
+# draft form at R = 4, 8 (Gemma-2's window and softcap at d = 256) and 32.
+F32_DECODE_CASES = {
+    "k1_g1_d64_ps16": (1, 1, 64, 16, [0, 1, 16, 97], None, None),
+    "k1_g4_d128_ps256": (4, 1, 128, 256, [255, 256, 257, 600], None, None),
+    "k4_g1_d128_ps64": (1, 4, 128, 64, [4, 64, 65, 300], None, None),
+    "k4_g2_d256_ps32_window_cap": (2, 4, 256, 32, [4, 100, 250, 400], 64, 30.0),
+    "k4_g8_d64_ps256": (8, 4, 64, 256, [4, 70, 256, 513], None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_DECODE_CASES))
+def test_paged_decode_f32_form_matches_plain(case):
+    """Float32 q over float32 pages: paged decode's float32 form against its
+    plain version on the CPU within 1e-4, one launch counted (and a draft
+    one with k > 1), none of the scalar kernel; NaN in every pool row no
+    query row may see leaves the output bitwise the clean pools'."""
+    g, k, d, ps, lens, window, cap = F32_DECODE_CASES[case]
+    kvh, b = 2, len(lens)
+    pps = -(-max(lens) // ps) + 1
+    pool = b * pps + 2
+    kp = _randn((pool, kvh, ps, d), torch.float32, 0)
+    vp = _randn((pool, kvh, ps, d), torch.float32, 1)
+    q = _randn((b, kvh, g * k, d), torch.float32, 2)
+    table = torch.randperm(pool, generator=torch.Generator().manual_seed(3))[: b * pps].reshape(
+        b, pps).int()
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    kw = dict(scale=d**-0.5, draft_k=k, window=window, logit_softcap=cap)
+    assert flash.kernel_form("paged_decode", torch.float32, d, page_size=ps, rows=g * k) == "tc_f32"
+    pa = decode.paged_attention
+    n = (pa.launches, pa.launches_tc_f32, pa.launches_tc_f32_draft, pa.launches_tc)
+    args = (q.cuda(), kp.cuda(), vp.cuda(), lengths.cuda(), table.cuda())
+    got = decode.paged_attention(*args, **kw)
+    want = decode.paged_attention(q, kp, vp, lengths, table, **kw)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.launches_tc_f32, pa.launches_tc_f32_draft, pa.launches_tc) == (
+        n[0] + 1, n[1] + 1, n[2] + (k > 1), n[3])
+    assert got.dtype == torch.float32 and _f32_err(got, want) <= 1e-4
+    kn, vn = kp.clone(), vp.clone()
+    used = torch.zeros(pool, dtype=torch.bool)
+    for i, n_i in enumerate(lens):
+        first = max(0, n_i - k - window + 1) if window else 0
+        for j in range(pps):
+            lo, hi = max(0, min(ps, first - j * ps)), max(0, min(ps, n_i - j * ps))
+            page = int(table[i, j])
+            used[page] = True
+            for x in (kn, vn):
+                x[page, :, :lo] = float("nan")
+                x[page, :, max(lo, hi):] = float("nan")
+    kn[~used], vn[~used] = float("nan"), float("nan")
+    poisoned = decode.paged_attention(args[0], kn.cuda(), vn.cuda(), *args[3:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, got)
+
+
+def test_paged_decode_f32_scalar_forms():
+    """Under scalar_forms float32 pages take the exact scalar kernel, which
+    agrees with the float32 form within 1e-4."""
+    g = torch.Generator().manual_seed(5)
+    kp, vp = (torch.randn((9, 2, 64, 128), generator=g) for _ in range(2))
+    q = torch.randn((2, 2, 4, 128), generator=g)
+    table = torch.arange(8, dtype=torch.int32).view(2, 4)
+    lengths = torch.tensor([100, 256], dtype=torch.int32)
+    args = (q.cuda(), kp.cuda(), vp.cuda(), lengths.cuda(), table.cuda())
+    pa = decode.paged_attention
+    tc = decode.paged_attention(*args, scale=0.1)
+    n = (pa.launches, pa.launches_tc_f32)
+    with flash.scalar_forms():
+        exact = decode.paged_attention(*args, scale=0.1)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.launches_tc_f32) == (n[0] + 1, n[1])
+    assert _f32_err(tc, exact.cpu()) <= 1e-4
+
+
 # Float32 training's forms: the fused backward's float32 form
 # (flash_bwd_tc_f32[_extra]) and the forward's dropout form
 # (flash_fwd_tc_f32_extra), at d = 64 and 128 in "bf16_3x" and "bf16".

@@ -58,11 +58,14 @@ def _tc_page(ps):
 def test_decode_form_selector(dtype, d):
     """bf16 q, a tensor-core head_dim, a page size the boxes take and at
     most 32 rows: the tensor-core form, over bf16 and 8-bit pages alike;
-    scalar otherwise (and without a page size, and inside scalar_forms)."""
+    float32 q over float32 pages there: the float32 form; scalar otherwise
+    (and without a page size, and inside scalar_forms)."""
     for ps, quantized, rows in itertools.product(PAGE_SIZES, (False, True),
                                                  (1, 2, 4, 8, 16, 24, 32, 33, 64)):
-        want = ("tc" if dtype == torch.bfloat16 and d in (64, 128, 256) and _tc_page(ps)
-                and rows <= 32 else "scalar")
+        taken = d in (64, 128, 256) and _tc_page(ps) and rows <= 32
+        want = ("tc" if dtype == torch.bfloat16 and taken
+                else "tc_f32" if dtype == torch.float32 and taken and not quantized
+                else "scalar")
         got = tflash.kernel_form("paged_decode", dtype, d, quantized=quantized, page_size=ps,
                                  rows=rows)
         assert got == want, (ps, quantized, rows)
@@ -270,8 +273,8 @@ def test_tc_decode_merge_weights_a_masked_only_split_by_zero():
 def test_tc_decode_rounding_moves_the_result(case):
     """The mirrored rounding is live: over float32 q of bf16 values the tc
     form differs from the scalar form by more than nothing and less than the
-    bf16 tolerance; in bf16 the tc form is the default, in float32 the
-    scalar one is."""
+    bf16 tolerance; in bf16 the tc form is the default, over float32 pages
+    the float32 form (tc_f32) is."""
     (_, tq_), (_, tk), (_, tv), table, lens = _inputs(case, 5)
     kw = _kw(case)
     args = (torch.from_numpy(lens), torch.from_numpy(table))
@@ -283,7 +286,7 @@ def test_tc_decode_rounding_moves_the_result(case):
                        td.paged_attention_plain(tq_, tk, tv, *args, form="tc", **kw))
     f32 = (tq_.float(), tk.float(), tv.float(), *args)
     assert torch.equal(td.paged_attention_plain(*f32, **kw),
-                       td.paged_attention_plain(*f32, form="scalar", **kw))
+                       td.paged_attention_plain(*f32, form="tc_f32", **kw))
 
 
 def test_tc_decode_ignores_rows_no_row_may_see():

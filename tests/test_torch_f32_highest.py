@@ -231,13 +231,16 @@ def test_paged_prefill_routes(d, ps):
     boxes take at its own tile (a multiple of 8 that divides 64 rows, 32 at
     d = 256, or that the tile divides): the float32 form; else, and for
     d = 16 / 32, float32 q over 8-bit pages and under scalar_forms, the
-    scalar kernel."""
+    scalar kernel.  Paged decode over float32 pools takes its own float32
+    form on the pages its boxes take at its 64-row tile."""
     f32 = torch.float32
     tile = {64: 64, 128: 64, 256: 32}.get(d)
     taken = tile is not None and ps % 8 == 0 and (tile % ps == 0 or ps % tile == 0)
     assert tflash.kernel_form("paged_prefill", f32, d, page_size=ps) == (
         "tc_f32" if taken else "scalar")
     assert tflash.kernel_form("paged_prefill", f32, d, page_size=ps, quantized=True) == "scalar"
-    assert tflash.kernel_form("paged_decode", f32, d, page_size=ps) == "scalar"
+    decode = d in (64, 128, 256) and ps % 8 == 0 and (64 % ps == 0 or ps % 64 == 0)
+    assert tflash.kernel_form("paged_decode", f32, d, page_size=ps) == (
+        "tc_f32" if decode else "scalar")
     with tflash.scalar_forms():
         assert tflash.kernel_form("paged_prefill", f32, d, page_size=ps) == "scalar"

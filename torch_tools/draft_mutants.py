@@ -9,8 +9,10 @@ temporary directory once per mutant, breaks one thing in the copy's
 libraries (``paged_decode`` and ``paged_decode_draft``; one ``nvcc`` per
 library and copy, all started together) and runs chip_smoke's
 ``draft_checks`` on the copy (k = 4 at the Llama, Mistral, Gemma-2 (q x 1
-and x 8), G = 8 and window-2 shapes, bfloat16 and float32; untimed).  The
-copies:
+and x 8), G = 8 and window-2 shapes, bfloat16 and float32; untimed) under
+``ops.flash.scalar_forms``, so that every case, float32 ones too (whose
+calls otherwise take the tensor-core float32 form), runs the scalar
+kernel.  The copies:
 
 - ``unmutated``: the sources as they are; every check must pass;
 - ``causal_plus_one``: row dp's causal limit is ``length - k + dp + 1``;
@@ -78,7 +80,7 @@ def run_checks(root: str) -> dict:
     import torch
 
     import chip_smoke as cs
-    from flashattention_tpu_torch.ops import decode
+    from flashattention_tpu_torch.ops import decode, flash
     from flashattention_tpu_torch.utils import benchit
 
     if not os.path.abspath(decode.__file__).startswith(root + os.sep):
@@ -86,7 +88,8 @@ def run_checks(root: str) -> dict:
     benchit.cuda_time_ms = lambda fn, *a, **kw: (fn(*a), 0.0)[1]  # checks only: one call
     card = torch.cuda.get_device_name(0)
     report = {"checks": []}
-    cs.draft_checks(decode, benchit, torch.Generator(device="cuda").manual_seed(0), card, report)
+    with flash.scalar_forms():
+        cs.draft_checks(decode, benchit, torch.Generator(device="cuda").manual_seed(0), card, report)
     return {c["check"]: {k: c.get(k) for k in ("ok", "max_abs_err", "elem_err")}
             for c in report["checks"]}
 

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py``'s checks of the float32 forms: the
 forward's (``flash_fwd_tc_f32``, and ``csrc/flash_fwd_f32.cuh``'s kernel in
-it), chunked prefill's over float32 pools (``paged_prefill_tc_f32``) and
-float32 training's (the fused backward's ``flash_bwd_tc_f32[_extra]``, the
+it), chunked prefill's over float32 pools (``paged_prefill_tc_f32``),
+paged decode's over float32 pages (``paged_decode_tc_f32``) and float32
+training's (the fused backward's ``flash_bwd_tc_f32[_extra]``, the
 forward's dropout form ``flash_fwd_tc_f32_extra``), on one card.
 
-    python3 torch_tools/f32_mutants.py [--keep] [--pair-only] [--mutants NAME ...]
+    python3 torch_tools/f32_mutants.py [--keep] [--pair-only | --decode-only] [--mutants NAME ...]
 
 Copies the port (``flashattention_tpu_torch/`` and ``chip_smoke.py``) into a
 temporary directory once per mutant, breaks one product, term or bound in
@@ -19,7 +20,12 @@ together) and runs chip_smoke's ``f32_form_checks`` untimed (three modes, d
 ``f32_train_checks`` (the backward's and the dropout forward's float32
 forms, "bf16_3x" and "bf16", d = 64 and 128, the backward's at 256 too)
 and ``pair_f32_checks`` (the two-pass pair's float32 forms, the same
-modes, d = 64, 128 and 256) on the copy; with ``--pair-only`` ``pair_f32_checks`` alone (the pair's mutants).
+modes, d = 64, 128 and 256) on the copy; with ``--pair-only`` ``pair_f32_checks`` alone (the pair's mutants);
+with ``--decode-only`` paged decode's float32 checks alone (the decode
+mutants': ``decode_f32_term_checks``, the float32 cases of
+``draft_checks`` (untimed), ``decode_poison_check`` and
+``split_edge_checks``, which the full run runs too), building only the
+paged decode libraries.
 The copies:
 
 - ``unmutated``: the sources as they are; every check must pass;
@@ -77,7 +83,16 @@ The copies:
   (dK); ``d256_do_lo_zeroed``, dO's lo term zeroed after the split pass at
   d = 256; ``d256_half_tile_range_empty``, a 32-row tile read off the
   segment range table with the 64-row bound, so that every tile that
-  starts a table entry finds an empty range and is skipped.
+  starts a table entry finds an empty range and is skipped;
+- in paged decode's float32 form (``paged_decode_tc.cu`` built with
+  ``-DFA_F32``): ``decode_x3y1_dropped``, q's third term against K's first
+  left out of S (caught by a ``paged_decode_tc_f32/lo3_term/...`` check);
+  ``decode_p3_dropped``, P's third term left out of P V (a
+  ``paged_decode_tc_f32/p3_term/...`` check); ``decode_v_rows_unzeroed``, V
+  rows outside [first, end) read as they are (a
+  ``paged_decode_tc_f32/nan_poison/...`` check); ``decode_rows_k_major``, a
+  row's draft position read k-major, ``r / G``, instead of k-minor, ``r %
+  k`` (a ``paged_decode_tc_f32/draft_k4_...`` check).
 
 Prints one JSON line per copy (its failed checks with their errors) and
 writes all of them to ``chiprun_out/f32_mutants.json``; exits non-zero when
@@ -102,7 +117,12 @@ LIBRARIES = ("flash_fwd_tc_f32", "flash_fwd", "paged_prefill_tc_f32", "flash_fwd
              "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_extra", "flash_bwd_dkv_extra",
              "flash_bwd_dq_tc_f32", "flash_bwd_dq_tc_f32_extra", "flash_bwd_dkv_tc_f32",
              "flash_bwd_dkv_tc_f32_extra")
+# Paged decode's float32 form and the scalar kernels the timed draft checks'
+# twins launch (all that --decode-only builds).
+DECODE_LIBRARIES = ("paged_decode_tc_f32", "paged_decode", "paged_decode_draft")
+LIBRARIES += DECODE_LIBRARIES
 TWO, THREE, BWD = "flash_fwd_tc.cuh", "flash_fwd_f32.cuh", "flash_bwd_tc.cu"
+DECODE = "paged_decode_tc.cu"
 DQ, COMMON, TC_COMMON = "flash_bwd_dq_tc.cu", "bwd_common.cuh", "tc_common.cuh"
 FUSED, PAIR_DQ, PAIR_DKV = ("flash_bwd_tc_f32/", ""), ("flash_bwd_dq_tc_f32/", ""), (
     "flash_bwd_dkv_tc_f32/", "")
@@ -344,6 +364,22 @@ _PAIR_MUTANTS = {
         "seg_meet(int2 a, int2 b) { return a.x < b.y && b.x < a.y; }")], [PAIR_DQ, PAIR_DKV]),
 }
 
+_ZERO_TERM = "const uint32_t z[4] = {0u, 0u, 0u, 0u};"
+_DECODE_MUTANTS = {
+    "decode_x3y1_dropped": (DECODE, [(
+        "mma6(s_lo[mb][j], sc[mb][j], qa[0][mb], qa[1][mb], qa[2][mb], b0, b1);",
+        f"{{ {_ZERO_TERM} mma6(s_lo[mb][j], sc[mb][j], qa[0][mb], qa[1][mb], z, b0, b1); }}")],
+        [("paged_decode_tc_f32/lo3_term/", "")]),
+    "decode_p3_dropped": (DECODE, [(
+        "mma6(part[mb][nb], part[mb][nb], pa[0][mb], pa[1][mb], pa[2][mb], b0, b1);",
+        f"{{ {_ZERO_TERM} mma6(part[mb][nb], part[mb][nb], pa[0][mb], pa[1][mb], z, b0, b1); }}")],
+        [("paged_decode_tc_f32/p3_term/", "")]),
+    "decode_v_rows_unzeroed": (DECODE, [("live[e] = r >= lo && r < hi;", "live[e] = true;")],
+                               [("paged_decode_tc_f32/nan_poison/", "")]),
+    "decode_rows_k_major": (DECODE, [("dp = r % draft_k;", "dp = r / (rows / draft_k);")],
+                            [("paged_decode_tc_f32/draft_k4_", "")]),
+}
+
 # name -> (source, [(text, replacement)], the (prefix, suffix) of the checks
 # that must catch it: a list where a check of each must fail)
 MUTANTS = {
@@ -377,6 +413,7 @@ MUTANTS = {
     **_FUSED256_MUTANTS,
     **_PAIR_MUTANTS,
     **_PAIR256_MUTANTS,
+    **_DECODE_MUTANTS,
 }
 
 
@@ -395,10 +432,11 @@ def make_copy(dest: str, source: str, edits) -> None:
             fh.write(code.replace(text, replacement))
 
 
-def run_checks(root: str, pair_only: bool = False) -> dict:
+def run_checks(root: str, pair_only: bool = False, decode_only: bool = False) -> dict:
     """In this process: chip_smoke's float32-form checks, untimed, its
     float32 paged-prefill poison checks and its float32 training checks on
-    the copy at ``root`` (``pair_only``: the pair's checks alone)."""
+    the copy at ``root`` (``pair_only``: the pair's checks alone;
+    ``decode_only``: paged decode's float32 checks alone, untimed)."""
     sys.path.insert(0, root)
     import torch
 
@@ -412,12 +450,19 @@ def run_checks(root: str, pair_only: bool = False) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     report = {"checks": []}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if not pair_only:
-        cs.f32_form_checks(fa, flash, probes, benchit, gen, torch.cuda.get_device_name(0),
-                           report, timed=False)
+    card = torch.cuda.get_device_name(0)
+    if not (pair_only or decode_only):
+        cs.f32_form_checks(fa, flash, probes, benchit, gen, card, report, timed=False)
         cs.prefill_poison_check(decode, gen, report, dtypes=("float32",))
         cs.f32_train_checks(backward, flash, gen, report)
-    cs.pair_f32_checks(backward, flash, probes, gen, report)
+    if not pair_only:
+        benchit.cuda_time_ms = lambda fn, *a, **kw: (fn(), 0.0)[1]  # checks only: one call
+        cs.decode_f32_term_checks(decode, gen, report)
+        cs.draft_checks(decode, benchit, gen, card, report, dtypes=("float32",))
+        cs.decode_poison_check(decode, gen, report, dtypes=("float32",))
+        cs.split_edge_checks(decode, gen, report, dtypes=("float32",))
+    if not decode_only:
+        cs.pair_f32_checks(backward, flash, probes, gen, report)
     keys = ("ok", "rel_err", "exact_rel_err", "max_abs_err", "plain_err", "bitwise_equal",
             "launched_its_form", "fwd_keep_equal", "bwd_keep_equal", "dk_dv_bitwise",
             "dq_max_abs_err", "norm_rel_err", "other_count_norm_rel_err", "deterministic",
@@ -430,12 +475,15 @@ def main() -> int:
     ap.add_argument("--keep", action="store_true", help="keep the copies")
     ap.add_argument("--mutants", nargs="+", choices=list(MUTANTS)[1:],
                     help="run only these mutants (and the unmutated copy)")
-    ap.add_argument("--pair-only", action="store_true",
-                    help="run only the pair's checks (pair_f32_checks) on each copy")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--pair-only", action="store_true",
+                      help="run only the pair's checks (pair_f32_checks) on each copy")
+    only.add_argument("--decode-only", action="store_true",
+                      help="run only paged decode's float32 checks on each copy")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(run_checks(args.one, args.pair_only)), flush=True)
+        print(json.dumps(run_checks(args.one, args.pair_only, args.decode_only)), flush=True)
         return 0
     names = ["unmutated", *(args.mutants or list(MUTANTS)[1:])]
     tmp = tempfile.mkdtemp(prefix="f32_mutants-")
@@ -443,12 +491,13 @@ def main() -> int:
         roots = {m: os.path.join(tmp, m) for m in names}
         for m in names:
             make_copy(roots[m], *MUTANTS[m][:2])
+        libraries = DECODE_LIBRARIES if args.decode_only else LIBRARIES
 
         def build(ms):
             procs = [subprocess.Popen([sys.executable, "-c", (
                 "import sys; sys.path.insert(0, sys.argv[1]); "
                 "from flashattention_tpu_torch.ops import kernels; "
-                "kernels.build_all(sys.argv[2:])"), roots[m], *LIBRARIES]) for m in ms]
+                "kernels.build_all(sys.argv[2:])"), roots[m], *libraries]) for m in ms]
             return all(p.wait() == 0 for p in procs)
 
         # The unmutated copy's libraries first: the others start from them
@@ -464,7 +513,8 @@ def main() -> int:
         results, ok = {}, True
         for m in names:
             proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", roots[m],
-                                   *(["--pair-only"] if args.pair_only else [])],
+                                   *(["--pair-only"] if args.pair_only else []),
+                                   *(["--decode-only"] if args.decode_only else [])],
                                   stdout=subprocess.PIPE, text=True)
             lines = proc.stdout.strip().splitlines()
             if proc.returncode != 0 or not lines:
