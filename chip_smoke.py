@@ -243,6 +243,16 @@ Phases, each of which must pass (any failure exits non-zero):
                form launched layers x verify steps;
                serve_speculative_gemma2 - Gemma-2-9B-class at 42 layers,
                two prompts past the window, oracle drafts;
+   serve_sharded - DP x TP sharded decode serving (``parallel/serving.py``)
+               on 2 x 2 spawned gloo ranks, all on this card: Llama-7B's
+               width in 8 layers, serve's 8 prompts (4 a DP slice, history
+               from the unsharded whole-prompt prefill), 16 greedy steps in
+               float32, bf16 and bf16 over an int8 cache against the
+               unsharded ``decode_step``; every rank's paged decode in its
+               tensor-core form; each serve phase's record also shows that
+               its scheduler and page allocator ran on the C++ runtime core
+               (``runtime/native.py``), and the build phase times that
+               core's g++ build;
 6. crosscheck - the naive kernel's path: ``flash_attention_naive`` and the
                flash kernel through the public entry points on the same
                inputs, each launched once, agreeing; quant_ops - the same
@@ -595,14 +605,17 @@ def _ptxas(log):
     return [x for x in out if x["kernel"]]
 
 
-def phase_build(kernels, report):
+def phase_build(kernels, native, report):
+    """Every kernel library (nvcc), then the C++ runtime core (g++): each
+    one's seconds."""
     t0 = time.perf_counter()
     built = kernels.build_all()
     seconds = time.perf_counter() - t0
     for name, info in built.items():
         report["build"][name] = {"seconds": info["seconds"], "ptxas": _ptxas(info["log"])}
+    report["native_build"] = native.build()
     emit({"phase": "build", "seconds": seconds, "kernels": sorted(built),
-          "card": report["card"]})
+          "native_runtime": report["native_build"], "card": report["card"]})
 
 
 QUANT_FORMS = ("int8", "fp8")
@@ -2335,7 +2348,8 @@ def phase_serve(args, cfg, params, engine_mod, kvcache, counters, report):
     want.update(flash_fwd=cfg.num_layers * st["prefill_batches"],
                 paged_decode=cfg.num_layers * st["decode_batches"])
     rec = _serve_rec("serve", cfg, st, full, wall, launches, want,
-                     {"prompt_lens": lens.tolist(), "new_tokens": budget})
+                     {"prompt_lens": lens.tolist(), "new_tokens": budget,
+                      "native": _engine_native(eng)})
     rec["ok"] = (
         full and launches == want and launches["flash_fwd"] > 0
         and launches["paged_decode"] > 0 and st["free_pages"] == ccfg.num_pages
@@ -2428,7 +2442,7 @@ def phase_serve_chunked(args, cfg, params, engine_mod, kvcache, counters, report
         "prompt_lens": [len(p) for p in prompts], "shared_prefix": shared,
         "new_tokens": budget, "prefill_tokens_expected": want_prefill,
         "cache_dtype": cache_dtype, "cache_pages": ccfg.num_pages, "cache_gb": _cache_gb(eng),
-        "logits_finite": finite, **(extra or {}),
+        "logits_finite": finite, "native": _engine_native(eng), **(extra or {}),
     }, model)
     rec["ok"] = (
         full and finite and launches == want and quant_ok
@@ -2503,7 +2517,7 @@ def phase_serve_multistep(args, cfg, params, engine_mod, kvcache, counters, repo
                 "launches_expected": want, "sync_debug_error_mode": guard,
                 "decode_ms_per_token": 1e3 * st["decode_s"] / st["decode_tokens"],
                 "decode_tok_s": st["decode_tokens"] / st["decode_s"],
-                "tokens": [eng.requests[i].output for i in ids],
+                "tokens": [eng.requests[i].output for i in ids], "native": _engine_native(eng),
             }
             rec["ok"] = (
                 _finished(eng, ids, budget) and launches == want
@@ -2517,7 +2531,7 @@ def phase_serve_multistep(args, cfg, params, engine_mod, kvcache, counters, repo
             for m in ("greedy", "sampled")}
     rec = {"phase": "serve_multistep", "model": "llama7b_attention", "layers": cfg.num_layers,
            "prompt_lens": [len(p) for p in prompts], "new_tokens": budget,
-           "tokens_equal": same, "sampling": SAMPLED,
+           "tokens_equal": same, "sampling": SAMPLED, "native": _natives(*runs.values()),
            **{k: {x: v for x, v in r.items() if x != "tokens"} for k, r in runs.items()},
            "ok": ok and all(same.values())}
     emit(rec)
@@ -2567,7 +2581,7 @@ def _spec_run(counters, cfg, eng, prompts, budget, drafts=None, k=SPEC_K):
         want[f"{kname}_quant"] = want[kname] if quantized else 0
     _tc_expect(want, cfg, cache_dtype=eng.cache.config.dtype)
     rec = {"wall_s": wall, "stats": st, "launches": launches, "launches_expected": want,
-           "tokens": {i: eng.requests[i].output for i in ids}}
+           "tokens": {i: eng.requests[i].output for i in ids}, "native": _engine_native(eng)}
     if drafts is not None:
         rec.update(
             accepted_per_verify_step=st["spec_accepted"] / max(1, st["spec_steps"]),
@@ -2647,6 +2661,7 @@ def phase_serve_speculative(args, transformer, engine_mod, kvcache, counters, re
     rec = {"phase": "serve_speculative", "model": "llama7b_attention", "dtype": "float32",
            "layers": cfg.num_layers, "k": SPEC_K, "prompt_lens": [len(p) for p in prompts],
            "new_tokens": budget, **cells, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "native": _natives(*(r for c in cells.values() for r in c.values())),
            "ok": all(r["ok"] for c in cells.values() for r in c.values())}
     emit(rec)
     report["serve_speculative"] = rec
@@ -2681,7 +2696,7 @@ def phase_serve_speculative_gemma2(args, transformer, engine_mod, kvcache, count
     rec = {"phase": "serve_speculative_gemma2", "model": GEMMA_MODEL, "dtype": "float32",
            "layers": cfg.num_layers, "k": SPEC_K, "prompt_lens": [len(p) for p in prompts],
            "new_tokens": budget, **cell, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-           "scalar_paged_prefill_launches": scalar_prefill,
+           "scalar_paged_prefill_launches": scalar_prefill, "native": _natives(*cell.values()),
            "ok": all(r["ok"] and r["launches"]["paged_prefill_tc_f32"] > 0
                      and r["launches"]["paged_decode_tc_f32"] > 0 for r in cell.values())
            and not any(scalar_prefill.values())}
@@ -2743,7 +2758,7 @@ def phase_serve_gemma2(args, cfg, params, engine_mod, kvcache, counters, report,
     rec = _serve_rec(phase, cfg, st, full, wall, launches, want, {
         "prompt_lens": [len(p) for p in prompts], "shared_prefix": shared,
         "new_tokens": budget, "prefill_tokens_expected": want_prefill, "cache_dtype": cache_dtype,
-        "cache_pages": ccfg.num_pages, "cache_gb": _cache_gb(eng),
+        "cache_pages": ccfg.num_pages, "cache_gb": _cache_gb(eng), "native": _engine_native(eng),
     }, model=GEMMA_MODEL)
     rec["ok"] = (
         full and launches == want and quant_ok
@@ -2789,7 +2804,7 @@ def phase_serve_gemma2_whole(args, cfg, params, engine_mod, kvcache, counters, r
                 paged_decode=cfg.num_layers * st["decode_batches"])
     rec = _serve_rec("serve_gemma2_whole", cfg, st, full, wall, launches, want, {
         "prompt_lens": lens.tolist(), "new_tokens": budget, "cache_pages": ccfg.num_pages,
-        "cache_gb": _cache_gb(eng),
+        "cache_gb": _cache_gb(eng), "native": _engine_native(eng),
     }, model=GEMMA_MODEL)
     rec["ok"] = (
         full and launches == want and launches["flash_fwd"] > 0
@@ -2808,6 +2823,426 @@ def _cache_gb(eng):
     c = eng.cache
     return sum(t.numel() * t.element_size()
                for t in (c.k_pages, c.v_pages, c.k_scales, c.v_scales) if t is not None) / 1e9
+
+
+# ── serve_sharded: DP x TP decode serving on torch.distributed ──────────────
+
+SERVE_PHASES = ("serve", "serve_chunked", "serve_int8", "serve_gemma2", "serve_gemma2_whole",
+                "serve_gemma2_fp8", "serve_mixtral_int8", "serve_multistep", "serve_speculative",
+                "serve_speculative_gemma2", "serve_lora_merged", "serve_lora_merged_int8",
+                "serve_sharded")
+SHARDED_DP, SHARDED_TP = 2, 2
+SHARDED_LAYERS = 8  # llama7b_attention's full width, its 32 layers cut to 8
+SHARDED_STEPS = 16
+SHARDED_TIMEOUT_S = 300  # the ranks' process group, and their join
+SHARDED_LOGITS_TOL = 1e-3  # float32 logits (tests/test_parallel.py:208)
+SHARDED_POOL_TOL = 1e-5  # float32 pool rows (tests/test_parallel.py:209)
+SHARDED_BF16_RTOL = 2e-2  # bf16 logits, of their largest magnitude
+SHARDED_INT8_RTOL = 2e-2  # over an int8 cache, of the logits' magnitude (tests/test_quant.py)
+# run -> (model dtype, cache dtype, the counter of its paged decode form)
+SHARDED_RUNS = {"float32": ("float32", "float32", "paged_decode_tc_f32"),
+                "bfloat16": ("bfloat16", "bfloat16", "paged_decode_tc"),
+                "int8_cache": ("bfloat16", "int8", "paged_decode_tc_quant")}
+SHARDED_MODEL = "llama7b_attention: d_model 4096, 32 q / 32 KV heads, d=128, 8 of 32 layers"
+_SHARDED_COUNTERS = {"paged_decode": "launches", "paged_decode_tc": "launches_tc",
+                     "paged_decode_tc_f32": "launches_tc_f32",
+                     "paged_decode_quant": "launches_quantized",
+                     "paged_decode_tc_quant": "launches_tc_quantized"}
+
+
+def _sharded_cfg(transformer, dtype):
+    return dataclasses.replace(transformer.ModelConfig.llama7b_attention(),
+                               num_layers=SHARDED_LAYERS, dtype=dtype)
+
+
+def _sharded_params(transformer, common, seed, tp_index, tp_size):
+    """TP rank ``tp_index``'s float32 parameters of serve_sharded's model
+    (``tp_size=1``: the whole model), drawn on the card a layer at a time
+    (layer i from ``seed + 1 + i``, the rest from ``seed``) and cut to the
+    rank's shard at once, so that no rank holds the whole model."""
+    cfg = _sharded_cfg(transformer, "float32")
+    none, one = (dataclasses.replace(cfg, num_layers=n) for n in (0, 1))
+    top = transformer.init_params(seed, none)
+    out = common.shard_params(top, none, tp_index, tp_size)
+    for i in range(cfg.num_layers):
+        layer = transformer.init_params(seed + 1 + i, one)["layers"]
+        out["layers"] += common.shard_params({**top, "layers": layer}, one, tp_index,
+                                             tp_size)["layers"]
+    return out
+
+
+def _cast_tree(params, dtype):
+    return {k: ([{n: w.to(dtype) for n, w in lay.items()} for lay in v] if isinstance(v, list)
+                else v.to(dtype)) for k, v in params.items()}
+
+
+def _decode_rows(pools, wp, ws):
+    """The rows a step wrote at pages ``wp``, slots ``ws``, of each pool
+    ``(L, P, KVH, ps[, d])``: ``(B, L, KVH[, d])``, on the host."""
+    return [p[:, wp, :, ws].cpu() for p in pools]
+
+
+def _sharded_steps(step, params, pools, table, lens, first, forced, ps):
+    """SHARDED_STEPS decode steps of one batch from ``first``: step t at
+    positions ``lens + t``, writing page ``table[b, pos // ps]``, slot ``pos
+    % ps``, fed its own greedy tokens (``forced`` None) or ``forced[t]``.
+    Returns logits (steps, B, V) and greedy tokens (steps, B) on the host,
+    each step's ms (a device sync on each side) and the rows each step
+    wrote (per pool, ``(steps, B, L, KVH[, d])``)."""
+    dev = table.device
+    lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    rows = torch.arange(len(lens), device=dev)
+    tokens = first.to(dev)
+    logits, greedy, ms, written = [], [], [], []
+    for t in range(SHARDED_STEPS):
+        pos = lens + t
+        wp, ws = table[rows, (pos // ps).long()], pos % ps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(params, tokens, pos, *pools[:2], pos + 1, table, wp, ws, *pools[2:])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        nxt = out.argmax(-1).int()
+        logits.append(out.float().cpu())
+        greedy.append(nxt.cpu())
+        written.append(_decode_rows(pools, wp.long(), ws.long()))
+        tokens = nxt if forced is None else forced[t].to(dev)
+    return (torch.stack(logits), torch.stack(greedy), ms,
+            [torch.stack([w[i] for w in written]) for i in range(len(pools))])
+
+
+def _sharded_rank(rank, store, work, seed):
+    """One rank of serve_sharded: joins the gloo group over ``store``,
+    draws its TP shard of the model, and runs each of SHARDED_RUNS on the
+    pool slice, page table and tokens the parent wrote into ``work``; its
+    results go to ``work/out_rank<rank>.pt``, a failure's traceback to
+    ``work/err_rank<rank>.txt``.  Imports the port only (a spawned child
+    re-imports this script, whose ``main`` it does not run)."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        from flashattention_tpu_torch.models import transformer
+        from flashattention_tpu_torch.models.train import common
+        from flashattention_tpu_torch.ops import decode
+        from flashattention_tpu_torch.parallel import serving
+
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=SHARDED_DP * SHARDED_TP,
+                                timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+        _, tp_index, group = serving.tp_groups(SHARDED_DP, SHARDED_TP)
+        t0 = time.perf_counter()
+        params = _sharded_params(transformer, common, seed, tp_index, SHARDED_TP)
+        out = {"init_s": time.perf_counter() - t0,
+               "weights_gb": sum(t.numel() * t.element_size() for t in common.leaves(params)) / 1e9}
+        fn = decode.paged_attention
+        for run, (mdt, _, _) in SHARDED_RUNS.items():
+            if params["embed"].dtype != DTYPES[mdt]:
+                params = _cast_tree(params, DTYPES[mdt])
+            cfg = _sharded_cfg(transformer, mdt)
+            inp = torch.load(os.path.join(work, f"{run}_rank{rank}.pt"), weights_only=True)
+            pools = [inp[k].cuda() for k in ("k_pages", "v_pages", "k_scales", "v_scales")
+                     if k in inp]
+            before = [p.clone() for p in pools]
+            table = inp["table"].cuda()
+            step = serving.make_sharded_decode_step(cfg, tp_group=group,
+                                                    quantized=len(pools) == 4)
+            for attr in _SHARDED_COUNTERS.values():
+                setattr(fn, attr, 0)
+            logits, greedy, ms, written = _sharded_steps(
+                step, params, pools, table, inp["lengths"], inp["first"], inp.get("forced"),
+                PAGE_SIZE)
+            launches = {k: getattr(fn, attr) for k, attr in _SHARDED_COUNTERS.items()}
+            # Every pool row but those the steps wrote is the history the
+            # parent wrote, bit for bit.
+            lens = inp["lengths"].long().cuda()
+            rows = torch.arange(len(lens), device="cuda")
+            for t in range(SHARDED_STEPS):
+                wp, ws = table[rows, (lens + t) // PAGE_SIZE].long(), (lens + t) % PAGE_SIZE
+                for b, p in zip(before, pools):
+                    b[:, wp, :, ws] = p[:, wp, :, ws]
+            unchanged = all(torch.equal(b, p) for b, p in zip(before, pools))
+            x = torch.randn(len(lens), 1, cfg.d_model, device="cuda").to(DTYPES[mdt])
+            for _ in range(5):
+                dist.all_reduce(x, group=group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                dist.all_reduce(x, group=group)
+            torch.cuda.synchronize()
+            out[run] = {"logits": logits, "greedy": greedy, "step_ms": ms, "written": written,
+                        "unchanged": unchanged, "launches": launches,
+                        "allreduce_ms": 1e3 * (time.perf_counter() - t0) / 50,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+            del pools, before
+        torch.save(out, os.path.join(work, f"out_rank{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(work, f"err_rank{rank}.txt"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def _spawn_sharded(work, seed):
+    """Start the SHARDED_DP x SHARDED_TP ranks (``spawn``, all on card 0)
+    and wait for them: their results, or the failures (a rank that exits
+    non-zero, or that is still alive SHARDED_TIMEOUT_S + 60 s after the
+    start, killed then with the rest)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    store = os.path.join(work, "store")
+    procs = [ctx.Process(target=_sharded_rank, args=(r, store, work, seed))
+             for r in range(SHARDED_DP * SHARDED_TP)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S + 60
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    failed = {}
+    for r, p in enumerate(procs):
+        if p.exitcode != 0:
+            path = os.path.join(work, f"err_rank{r}.txt")
+            failed[r] = (open(path).read()[-4000:] if os.path.exists(path)
+                         else f"exit code {p.exitcode}")
+    if hung or failed:
+        return None, {"hung": hung, "failed": failed}
+    return [torch.load(os.path.join(work, f"out_rank{r}.pt"), weights_only=True)
+            for r in range(len(procs))], None
+
+
+def _engine_native(*engines):
+    """Whether the engines' schedulers and page allocators ran on the C++
+    runtime core (``runtime/native.py``)."""
+    return {"scheduler": all(e.scheduler.native for e in engines),
+            "allocator": all(e.cache.allocator.native for e in engines)}
+
+
+def _natives(*recs):
+    """The native flags of several runs' records, all of which must hold."""
+    return {k: all(r["native"][k] for r in recs) for k in ("scheduler", "allocator")}
+
+
+def _sharded_reference(transformer, kvcache, native, cfg, params, prompts, first, rows,
+                       cache_dtype, work, run):
+    """One run's unsharded side.  Each DP slice is a replica of its own (a
+    paged cache of ``p_local`` pages and an FCFS scheduler, both on the C++
+    runtime core) that admits its 4 requests, appends their history rows
+    and reserves their SHARDED_STEPS slots.  The unsharded ``decode_step``
+    then decodes all 8 requests greedily over a copy of the replicas' pools
+    side by side (global page ids), and each rank's slice of its replica's
+    pools (its TP heads), page table (local ids), lengths and first tokens
+    go to ``work`` (in bf16 runs with the reference's tokens, which the
+    rank is fed).  Returns the reference's logits, greedy tokens, step ms
+    and written rows, and the replicas' native flags and books."""
+    ps, n = PAGE_SIZE, len(prompts)
+    per = n // SHARDED_DP
+    need = [-(-(len(p) + SHARDED_STEPS) // ps) for p in prompts]
+    p_local = max(sum(need[i * per:(i + 1) * per]) for i in range(SHARDED_DP))
+    pps = max(need)
+    kvh = cfg.num_kv_heads // SHARDED_TP
+    names = ("k_pages", "v_pages", "k_scales", "v_scales")
+    replicas, admitted = [], []
+    for i in range(SHARDED_DP):
+        ids = list(range(i * per, (i + 1) * per))
+        cache = kvcache.PagedKVCache(kvcache.CacheConfig(
+            num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            page_size=ps, num_pages=p_local, dtype=cache_dtype))
+        sched = native.Scheduler(per, ps, reserve_worst_case=True)
+        for r in ids:
+            sched.add_request(r, len(prompts[r]), SHARDED_STEPS)
+        admitted.append(sched.admit(cache.num_free_pages()))
+        for r in admitted[-1]:
+            cache.append(r, rows[0][r], rows[1][r])
+            for _ in range(SHARDED_STEPS):
+                cache.reserve_slot(r)
+        replicas.append((cache, sched, cache.batch_view(ids, pps)[1]))
+    pools = [torch.cat([getattr(c, k) for c, _, _ in replicas], 1) for k in names
+             if getattr(replicas[0][0], k) is not None]
+    table = torch.cat([t + i * p_local for i, (_, _, t) in enumerate(replicas)])
+
+    def step(*a):
+        return transformer.decode_step(*a[:9], cfg, *a[9:])
+
+    logits, greedy, ms, written = _sharded_steps(
+        step, params, pools, table, [len(p) for p in prompts], first, None, ps)
+    del pools
+    for i, (cache, _, local) in enumerate(replicas):
+        ids = slice(i * per, (i + 1) * per)
+        for j in range(SHARDED_TP):
+            torch.save({
+                **{k: getattr(cache, k)[:, :, j * kvh:(j + 1) * kvh].contiguous().cpu()
+                   for k in names if getattr(cache, k) is not None},
+                "table": local.cpu(), "first": first[ids].cpu(),
+                "lengths": torch.tensor([len(p) for p in prompts[ids]], dtype=torch.int32),
+                **({} if run == "float32" else {"forced": greedy[:, ids].clone()}),
+            }, os.path.join(work, f"{run}_rank{i * SHARDED_TP + j}.pt"))
+    flags = {"scheduler": all(s.native for _, s, _ in replicas),
+             "allocator": all(c.allocator.native for c, _, _ in replicas)}
+    for (cache, sched, _), ids in zip(replicas, admitted):
+        for r in ids:
+            sched.finish(r)
+            cache.free_sequence(r)
+    books = {"admitted": admitted, "p_local": p_local, "pages_per_seq": pps,
+             "pages_freed": all(c.num_free_pages() == p_local and s.num_running() == 0
+                                for c, s, _ in replicas)}
+    return {"logits": logits, "greedy": greedy, "step_ms": ms, "written": written,
+            "native": flags, "books": books}
+
+
+def _sharded_rank_checks(run, ref, results, cache_dtype, form):
+    """Each rank's run of serve_sharded against the unsharded reference's
+    requests and heads; TP peers against each other."""
+    per = ref["logits"].shape[1] // SHARDED_DP
+    want_n = SHARDED_LAYERS * SHARDED_STEPS
+    out = []
+    for rank, res in enumerate(results):
+        got = res[run]
+        i, j = divmod(rank, SHARDED_TP)
+        kvh = got["written"][0].shape[3]
+        req, heads = slice(i * per, (i + 1) * per), slice(j * kvh, (j + 1) * kvh)
+        want = ref["logits"][:, req]
+        scale = float(want.abs().max())
+        tol = {"float32": SHARDED_LOGITS_TOL, "bfloat16": SHARDED_BF16_RTOL * scale}.get(
+            run, SHARDED_INT8_RTOL * max(1.0, scale))
+        rows = [w[:, req, :, heads] for w in ref["written"]]
+        n = got["launches"]
+        scalar = n["paged_decode"] - n["paged_decode_tc"] - n["paged_decode_tc_f32"]
+        quant = want_n if cache_dtype == "int8" else 0
+        c = {"rank": rank, "dp": i, "tp": j, "logits_max_abs_err": err(got["logits"], want),
+             "logits_max_abs": scale, "logits_tol": tol,
+             "greedy_equal_steps": int((got["greedy"] == ref["greedy"][:, req]).all(1).sum()),
+             "unchanged_rows_bitwise": got["unchanged"], "launches": n,
+             "scalar_paged_decode_launches": scalar,
+             "step_ms": got["step_ms"], "ms_per_step": float(np.mean(got["step_ms"][1:])),
+             "allreduce_ms": got["allreduce_ms"], "peak_mem_gb": got["peak_mem_gb"]}
+        if cache_dtype == "int8":
+            c["written_int8_steps"] = [_pool_steps(g, w) for g, w in zip(got["written"][:2], rows)]
+            deq = [g.float() * s[..., None] for g, s in zip(got["written"][:2], got["written"][2:])]
+            c["written_dequant_max_abs_err"] = max(
+                err(d, w.float() * s[..., None]) for d, w, s in zip(deq, rows[:2], rows[2:]))
+        else:
+            c["written_max_abs_err"] = max(err(g, w) for g, w in zip(got["written"], rows))
+        c["ok"] = (c["logits_max_abs_err"] <= tol and got["unchanged"] and scalar == 0
+                   and n["paged_decode"] == want_n and n[form] == want_n
+                   and n["paged_decode_quant"] == n["paged_decode_tc_quant"] == quant)
+        if run == "float32":
+            c["ok"] = (c["ok"] and c["greedy_equal_steps"] == SHARDED_STEPS
+                       and c["written_max_abs_err"] <= SHARDED_POOL_TOL)
+        out.append(c)
+    peers = [bool(torch.equal(results[i * SHARDED_TP][run]["logits"],
+                              results[i * SHARDED_TP + j][run]["logits"]))
+             for i in range(SHARDED_DP) for j in range(1, SHARDED_TP)]
+    return out, peers
+
+
+def phase_serve_sharded(args, transformer, train, kvcache, counters, report):
+    """DP x TP sharded decode serving on ``torch.distributed`` (the port's
+    ``parallel/serving.py``): dp = 2 x tp = 2 rank processes (``spawn``) on
+    this one card, all on cuda:0, in a gloo group over a FileStore (NCCL
+    takes no two ranks on one GPU; gloo stages CUDA tensors through host
+    memory, so the times are one-card correctness runs, no scaling figure),
+    TP groups {0, 1} and {2, 3}.  Llama-7B's width in 8 layers; serve's 8
+    prompts (--seed), 4 to each DP slice, their history from the unsharded
+    whole-prompt ``prefill`` (flash_fwd) appended to each slice's own paged
+    cache (admitted by its C++ scheduler, pages from its C++ allocator) and
+    cut to each rank's slice (its TP heads, local page ids); then
+    SHARDED_STEPS greedy steps of ``make_sharded_decode_step`` on every
+    rank, in float32, in bf16 and in bf16 over an int8 cache, against the
+    unsharded ``decode_step`` on the same card over the slices side by
+    side: float32 logits within SHARDED_LOGITS_TOL, written pool rows
+    within SHARDED_POOL_TOL, every other row untouched and the greedy
+    tokens equal at every step; bf16 logits within SHARDED_BF16_RTOL of
+    their largest magnitude and over the int8 cache within
+    SHARDED_INT8_RTOL of max(1, it), both fed the reference's tokens; TP
+    peers' logits bit for bit equal; every rank's paged decode launches
+    layers x steps in the run's tensor-core form (tc_f32, tc, tc_quant),
+    none scalar.  The path's launches: the prefills' and the ranks'."""
+    import tempfile
+
+    from flashattention_tpu_torch.runtime import native
+
+    rng = np.random.default_rng(args.seed)  # serve's prompts
+    lens = rng.integers(64, 1025, size=8)
+    vocab = _sharded_cfg(transformer, "float32").vocab_size
+    prompts = [rng.integers(0, vocab, size=int(n)).tolist() for n in lens]
+    rec = {"phase": "serve_sharded", "model": SHARDED_MODEL, "dp": SHARDED_DP, "tp": SHARDED_TP,
+           "ranks": SHARDED_DP * SHARDED_TP, "backend": "gloo (FileStore), every rank on cuda:0",
+           "reduced": {"num_layers": f"32 -> {SHARDED_LAYERS}"}, "prompt_lens": lens.tolist(),
+           "steps": SHARDED_STEPS, "page_size": PAGE_SIZE}
+    path = dict.fromkeys(counters, 0)
+    refs = {}
+    work = tempfile.mkdtemp(prefix="serve_sharded_")
+    try:
+        t0 = time.perf_counter()
+        params = _sharded_params(transformer, train.common, args.seed, 0, 1)
+        rec["init_s"] = time.perf_counter() - t0
+        hist = None
+        for run, (mdt, cdt, _) in SHARDED_RUNS.items():
+            cfg = _sharded_cfg(transformer, mdt)
+            if params["embed"].dtype != DTYPES[mdt]:
+                params, hist = _cast_tree(params, DTYPES[mdt]), None
+            if hist is None:  # each prompt's whole-prompt prefill: the path's flash_fwd
+                outs = []
+
+                def prefill():
+                    for p in prompts:
+                        logits, k, v = transformer.prefill(
+                            params, torch.tensor([p], dtype=torch.int32, device="cuda"), cfg)
+                        outs.append((logits[0, -1].argmax().int(), k[:, 0], v[:, 0]))
+
+                _, launches = _drive(counters, prefill)
+                path = {k: path[k] + launches[k] for k in path}
+                rec[f"prefill_{mdt}_launches"] = {k: x for k, x in launches.items() if x}
+                hist = (torch.stack([o[0] for o in outs]), ([o[1] for o in outs],
+                                                            [o[2] for o in outs]))
+                del outs
+            refs[run] = _sharded_reference(transformer, kvcache, native, cfg, params, prompts,
+                                           *hist, cdt, work, run)
+        del params, hist
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        results, failure = _spawn_sharded(work, args.seed)
+        rec["ranks_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["native"] = _natives(*refs.values())
+    rec["books"] = {run: ref["books"] for run, ref in refs.items()}
+    books_ok = all(b["pages_freed"] and b["admitted"] == [
+        list(range(i * 4, (i + 1) * 4)) for i in range(SHARDED_DP)] for b in rec["books"].values())
+    if failure is not None:
+        rec.update(rank_failure=failure, launches=path, ok=False)
+    else:
+        rec["rank_init_s"] = [r["init_s"] for r in results]
+        rec["rank_weights_gb"] = [r["weights_gb"] for r in results]
+        runs = {}
+        for run, (mdt, cdt, form) in SHARDED_RUNS.items():
+            checks, peers = _sharded_rank_checks(run, refs[run], results, cdt, form)
+            for c in checks:
+                path = {k: path[k] + c["launches"].get(k, 0) for k in path}
+            ref_ms = refs[run]["step_ms"]
+            runs[run] = {
+                "model_dtype": mdt, "cache_dtype": cdt, "form": form, "ranks": checks,
+                "tp_peers_logits_bitwise": peers,
+                "unsharded_ms_per_step": float(np.mean(ref_ms[1:])), "unsharded_step_ms": ref_ms,
+                "sharded_ms_per_step": [c["ms_per_step"] for c in checks],
+                "allreduce_ms": [c["allreduce_ms"] for c in checks],
+                "ok": all(c["ok"] for c in checks) and all(peers)}
+        rec.update(runs=runs, launches=path,
+                   ok=all(r["ok"] for r in runs.values()) and books_ok
+                   and all(rec["native"].values()))
+    emit(rec)
+    report["serve_sharded"] = rec
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_profile(args, eng, cfg, *, prompt_len, tag):
@@ -5270,7 +5705,8 @@ def phase_serve_lora_merged(args, transformer, train, quant, engine_mod, kvcache
                     paged_decode=cfg.num_layers * st["decode_batches"])
         first = [eng.requests[i].output[0] for i in ids]
         rec = _serve_rec(phase, cfg, st, full, wall, launches, want,
-                         {**extra, "first_tokens": first, "logits_finite": bool(eng.finite)},
+                         {**extra, "first_tokens": first, "logits_finite": bool(eng.finite),
+                          "native": _engine_native(eng)},
                          LORA_MODEL)
         rec["ok"] = (full and rec["logits_finite"] and launches == want
                      and st["free_pages"] == ccfg.num_pages)
@@ -6780,7 +7216,7 @@ def main() -> int:
     from flashattention_tpu_torch.models import train, transformer
     from flashattention_tpu_torch.ops import backward, decode, flash, kernels, probes, quant
     from flashattention_tpu_torch.runtime import engine as engine_mod
-    from flashattention_tpu_torch.runtime import kvcache
+    from flashattention_tpu_torch.runtime import kvcache, native
     from flashattention_tpu_torch.utils import benchit, packing
     import flashattention_tpu_torch as fa
 
@@ -6798,7 +7234,7 @@ def main() -> int:
         now = time.perf_counter()
         laps[name], t_lap[0] = now - t_lap[0], now
 
-    phase_build(kernels, report)
+    phase_build(kernels, native, report)
     lap("build")
     selftest = phase_selftest(counters, report)
     lap("selftest")
@@ -6888,6 +7324,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     lap("serve_llama")
+    sharded = phase_serve_sharded(args, transformer, train, kvcache, counters, report)
+    lap("serve_sharded")
     gcfg = transformer.ModelConfig.gemma2_9b(num_layers=42)
     t0 = time.perf_counter()
     gparams = transformer.init_params(args.seed, gcfg)
@@ -7006,7 +7444,7 @@ def main() -> int:
              "serve_gemma2": gemma["launches"], "serve_gemma2_whole": gemma_whole["launches"],
              "serve_gemma2_fp8": gemma_fp8["launches"],
              "serve_multistep": _launch_sum(multistep), "serve_speculative": _launch_sum(speculative),
-             "serve_speculative_gemma2": _launch_sum(gemma_spec),
+             "serve_speculative_gemma2": _launch_sum(gemma_spec), "serve_sharded": sharded["launches"],
              "crosscheck": cross["launches"], "quant_ops": quant_ops["launches"],
              "attention_block_mask": attn_bm["launches"], "selftest": selftest["launches"],
              "probes": probe_launches, "benches": benches["launches"],
@@ -7287,8 +7725,11 @@ def main() -> int:
                            "checkpoint", "train_lora", "serve_lora_merged",
                            "serve_lora_merged_int8", "train_mixed", "train_mixed_optax",
                            "train_mixed_packed", "train_mixed_remat_dropout",
-                           "train_parity_lora", "selftest", "benches")
+                           "train_parity_lora", "selftest", "benches", "serve_sharded")
                if not report[p]["ok"]]
+    # Every serve phase's allocator and scheduler ran on the C++ runtime core.
+    failed += [f"{p}/native" for p in SERVE_PHASES
+               if not all(report[p].get("native", {"recorded": False}).values())]
     # The scalar pair and the scalar fused backward left the paths when
     # float32 training at Gemma-2's d = 256 took the float32 forms (bf16
     # runs the tensor-core forms, float32 at d = 64 / 128 / 256 the float32

@@ -3,9 +3,12 @@
 Counterpart of ``flashattention_tpu/models/train/common.py``: the per-token
 NLL (:194), per-document RoPE positions for packed rows (:164), the
 floating-leaf cast of mixed precision (:184) and the step tail (:205), plain
-SGD or an optimizer, over a model tree or a LoRA adapter tree.  The Megatron
-f/g collective pair, the vocab-parallel NLL and the parameter sharding specs
-come with the multi-device slice.
+SGD or an optimizer, over a model tree or a LoRA adapter tree; and the
+Megatron column/row split of the parameters over tensor-parallel ranks
+(``param_specs`` :108, ``shard_params`` :153), which sharded serving
+(``parallel/serving.py``) runs on.  The Megatron f/g collective pair, the
+vocab-parallel NLL and ``vocab_parallel`` come with the multi-device
+training slice.
 """
 
 from __future__ import annotations
@@ -14,7 +17,10 @@ import functools
 
 import torch
 
-__all__ = ["adamw", "init_opt_state", "leaves", "packed_positions", "token_nll", "torch_dtype"]
+from flashattention_tpu_torch.ops.quant import QuantizedWeight
+
+__all__ = ["adamw", "init_opt_state", "leaves", "packed_positions", "param_specs", "shard_params",
+           "split_dim", "token_nll", "torch_dtype"]
 
 
 def packed_positions(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -86,6 +92,57 @@ def with_leaves(params, new: list):
     for layer in params["layers"]:
         tree["layers"].append({name: next(it) for name in layer})
     return tree
+
+
+def param_specs(cfg) -> dict:
+    """The Megatron column/row split of every leaf over the tensor-parallel
+    ranks: the dim a leaf splits on, or None where every rank holds it
+    whole (the JAX ``param_specs``' ``P(None, tp)`` is 1, ``P(tp, None)``
+    0, ``P()`` None).  ``wq``, ``wk``, ``wv``, ``w_gate`` and ``w_up``
+    split their output dim (columns: each rank computes its own heads and
+    its slice of the intermediate), ``wo`` and ``w_down`` their input dim
+    (rows: each rank's product is a partial sum that the ranks
+    all-reduce).  An MoE layer's expert stacks ``(E, d, f)`` / ``(E, f, d)``
+    split their intermediate dim the same way and its router is whole; so
+    are the norms, ``embed`` and ``lm_head``."""
+    layer = {"attn_norm": None, "wq": 1, "wk": 1, "wv": 1, "wo": 0, "mlp_norm": None}
+    if cfg.num_experts is None:
+        layer.update(w_gate=1, w_up=1, w_down=0)
+    else:
+        layer.update(router=None, w_gate=2, w_up=2, w_down=1)
+    return {"embed": None, "final_norm": None, "lm_head": None,
+            "layers": [dict(layer) for _ in range(cfg.num_layers)]}
+
+
+def split_dim(x, dim: int | None, index: int, count: int):
+    """Part ``index`` of ``count`` equal parts of ``x`` along ``dim`` (a
+    contiguous copy; ``x`` itself for ``dim=None``).  A
+    :class:`~flashattention_tpu_torch.ops.quant.QuantizedWeight` splits its
+    payload, and its per-column scales with it where ``dim`` is the output
+    dim."""
+    if dim is None:
+        return x
+    if isinstance(x, QuantizedWeight):
+        last = x.payload.dim() - 1
+        scales = split_dim(x.scales, x.scales.dim() - 1, index, count) if dim == last else x.scales
+        return QuantizedWeight(split_dim(x.payload, dim, index, count), scales, x.ldtype)
+    n = x.shape[dim]
+    if n % count:
+        raise ValueError(f"{count} parts do not divide dim {dim} of {tuple(x.shape)}")
+    return x.narrow(dim, index * (n // count), n // count).contiguous()
+
+
+def shard_params(params, cfg, tp_rank: int, tp_size: int) -> dict:
+    """Tensor-parallel rank ``tp_rank``'s parameters out of the whole tree:
+    each leaf split by :func:`param_specs` into ``tp_size`` parts (the
+    shard that the JAX ``shard_params`` puts on that rank's devices); the
+    whole leaves are the same tensors, not copies."""
+    specs = param_specs(cfg)
+    out = {k: split_dim(params[k], specs[k], tp_rank, tp_size)
+           for k in ("embed", "final_norm", "lm_head")}
+    out["layers"] = [{name: split_dim(w, spec[name], tp_rank, tp_size) for name, w in layer.items()}
+                     for layer, spec in zip(params["layers"], specs["layers"])]
+    return out
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,

@@ -42,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from flashattention_tpu_torch.ops.decode import paged_attention, paged_prefill_attention_batched
 from flashattention_tpu_torch.ops.dispatch import attention
@@ -374,9 +375,16 @@ def _layer_scales(k_scales, v_scales, li):
 def decode_step_impl(
     params, tokens, positions, k_pages, v_pages, lengths, page_indices,
     write_pages, write_slots, cfg: ModelConfig, k_scales=None, v_scales=None,
-    interpret=None,
+    interpret=None, tp_group=None,
 ):
     """Decode-step body: see :func:`decode_step`.
+
+    With ``tp_group`` (a ``torch.distributed`` group; ``cfg`` holding the
+    rank's local head counts and ``params`` its Megatron column/row shards,
+    ``train.common.shard_params``) the row-parallel products, after ``wo``
+    and after the MLP, are all-reduced over the group in their dtype before
+    each residual add, as the JAX body's ``psum`` over ``tp_axis``;
+    otherwise the step is the single-device one.
 
     Each layer scatters this token's K/V row into its pool before its paged
     attention runs, so the token attends to itself (lengths include it).
@@ -388,13 +396,20 @@ def decode_step_impl(
     """
     rows, wp, ws = _kept_rows(write_pages, write_slots, k_pages.shape[1], tokens.device)
     return _decode_body(params, tokens, positions, k_pages, v_pages, lengths, page_indices,
-                        rows, wp, ws, cfg, k_scales, v_scales)
+                        rows, wp, ws, cfg, k_scales, v_scales, tp_group)
+
+
+def _all_reduce(x, group):
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
 
 
 def _decode_body(params, tokens, positions, k_pages, v_pages, lengths, page_indices, rows, wp,
-                 ws, cfg, k_scales, v_scales):
+                 ws, cfg, k_scales, v_scales, tp_group=None):
     """One decode step with the kept rows ``rows`` written at pages ``wp``,
-    slots ``ws`` (device tensors): no host sync."""
+    slots ``ws`` (device tensors): no host sync but the all-reduces over
+    ``tp_group``."""
     b = tokens.shape[0]
     x = _lookup(params["embed"], tokens)[:, None, :]  # (B, 1, d_model)
     pos = positions[:, None]
@@ -410,8 +425,10 @@ def _decode_body(params, tokens, positions, k_pages, v_pages, lengths, page_indi
             scale=cfg.head_dim**-0.5, window=cfg.sliding_window,
             logit_softcap=cfg.logit_softcap, **_layer_scales(k_scales, v_scales, li),
         )  # (B, KVH, G, d)
-        x = x + _mm(o.reshape(b, 1, cfg.num_q_heads * cfg.head_dim), layer["wo"])
-        x = x + _mlp(_rmsnorm(x, layer["mlp_norm"]), layer, cfg.experts_per_token)
+        x = x + _all_reduce(_mm(o.reshape(b, 1, cfg.num_q_heads * cfg.head_dim), layer["wo"]),
+                            tp_group)
+        x = x + _all_reduce(_mlp(_rmsnorm(x, layer["mlp_norm"]), layer, cfg.experts_per_token),
+                            tp_group)
     x = _rmsnorm(x[:, 0], params["final_norm"])
     return _mm(x, params["lm_head"])
 

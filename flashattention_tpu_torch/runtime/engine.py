@@ -1,8 +1,8 @@
 """Continuous-batching inference engine.
 
 Counterpart of ``flashattention_tpu/runtime/engine.py``: requests arrive at
-any time; the engine admits them FCFS when batch slots and KV pages allow,
-prefills their prompts, then advances all running requests one token per
+any time; the engine admits them FCFS when batch slots and KV pages allow
+(the C++ runtime core's scheduler, ``runtime/native.py``), prefills their prompts, then advances all running requests one token per
 :meth:`Engine.step` on the paged decode kernel.  Finished requests free their
 pages at once, so waiting requests admit on the next step.  Under page
 pressure the latest-admitted request is preempted and later re-prefilled

@@ -2,9 +2,10 @@
 
 Counterpart of ``flashattention_tpu/runtime/kvcache.py``.  The physical pool
 of each layer is head-major, ``(L, num_pages, KVH, page_size, d)`` on the
-device, with one logical page table per sequence shared by all layers.  The
-page bookkeeping (allocator, refcounts, the chain-hashed prefix index and
-its LRU parking) is plain Python and matches the JAX package's.
+device, with one logical page table per sequence shared by all layers.  Pages
+come from the C++ runtime core's allocator (``runtime/native.py``); the
+refcounts, the chain-hashed prefix index and its LRU parking are plain
+Python.  All of it matches the JAX package's.
 
 Writes update the pools in place (the JAX package donates them to jitted
 scatters and keeps the returned arrays).  Rows are written exactly, with no

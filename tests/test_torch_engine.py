@@ -5,8 +5,8 @@ Both engines run ``ModelConfig.tiny()`` in float32 from the same parameters
 (``prefill_chunk=0``; the chunked path is in ``tests/test_torch_chunked.py``); greedy tokens must be IDENTICAL, in the
 continuous-batching and page-pressure preemption scenarios of
 ``tests/test_runtime.py``, and every page must be free afterwards.  The page
-allocator and admission scheduler are held to the JAX package's
-``runtime/native.py`` op for op.
+allocator and admission scheduler, on the C++ core and in their pure-Python
+copies, are held to the JAX package's ``runtime/native.py`` op for op.
 """
 
 import dataclasses
@@ -156,10 +156,19 @@ def test_engine_unported_paths_raise(models):
 # ── allocator / scheduler parity ────────────────────────────────────────────
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_page_allocator_matches_jax(seed):
+def _native_cases(name, values):
+    """``(value, native)`` cases: the C++ core under the value's own id, the
+    pure-Python copy (``native=False``) under ``<id>-plain``."""
+    return pytest.mark.parametrize(f"{name},native", [
+        pytest.param(v, native, id=str(v) if native else f"{v}-plain")
+        for v in values for native in (True, False)])
+
+
+@_native_cases("seed", [0, 1, 2])
+def test_page_allocator_matches_jax(seed, native):
     rng = np.random.default_rng(seed)
-    a, b = jn.PageAllocator(16), tn.PageAllocator(16)
+    a, b = jn.PageAllocator(16), tn.PageAllocator(16, native=native)
+    assert a.native and b.native == native
     held = []
     for _ in range(60):
         if held and rng.random() < 0.4:
@@ -176,11 +185,12 @@ def test_page_allocator_matches_jax(seed):
         assert a.num_free() == b.num_free()
 
 
-@pytest.mark.parametrize("reserve", [False, True])
-def test_scheduler_matches_jax(reserve):
+@_native_cases("reserve", [False, True])
+def test_scheduler_matches_jax(reserve, native):
     rng = np.random.default_rng(int(reserve))
     a = jn.Scheduler(3, 8, reserve_worst_case=reserve)
-    b = tn.Scheduler(3, 8, reserve_worst_case=reserve)
+    b = tn.Scheduler(3, 8, reserve_worst_case=reserve, native=native)
+    assert a.native and b.native == native
     running = []
     for rid in range(40):
         plen, new = int(rng.integers(1, 40)), int(rng.integers(1, 20))
